@@ -63,6 +63,10 @@ def pytest_configure(config):
         "heavy: compile-heavy tail — skipped unless RUN_SLOW=1 (the fast "
         "tier keeps a representative test per surface; RUN_SLOW runs all)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (PyTorch port kernels); skips without one",
+    )
 
 
 # -- degraded-jax capability skips (round 9) --------------------------------
