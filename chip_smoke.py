@@ -24,7 +24,20 @@ non-zero):
    logits over an 8-step greedy decode: megakernel vs per-layer kernel vs
    the plain version on the card;
 6. a small model on the card against the same model's plain version on
-   the CPU, logits within tolerance.
+   the CPU, logits within tolerance;
+7. the MLP kernels against their plain versions at the reference
+   workload's shapes (784->100->10, batch 100, synthetic MNIST): the step
+   kernel over three steps, the epoch kernel over one 550-step epoch in
+   bf16 and in f32 staging, and the epoch kernel against 550 launches of
+   the step kernel; each timed beside its plain version and its bound;
+8. train the reference workload through ``launch.build_trainer``:
+   100 epochs with ``compiled_run=True, engine="pallas"`` must print the
+   reference's lines, launch the epoch kernel once per epoch with finite
+   costs and reach the 0.72 test-accuracy oracle; then 2 epochs on the
+   default plain path;
+9. the port's bench (``distributed_tensorflow_tpu_torch.bench``) for the
+   impls pallas-epoch, pallas (its step-kernel launches must equal its
+   step count) and xla, each printing its JSON line.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -59,7 +72,20 @@ MAX_NEW = 96
 # intermediate rounded to bf16 (layernormed rows, attention output,
 # gelu(up), softmax weights, the fresh K/V rows) can land one bf16 ulp
 # (2^-8 relative) apart, which then propagates through later products.
-REL_TOL = {"flash_fwd": 1e-5, "decode_block_slab": 2e-2, "decode_token_slab": 2e-2}
+# fused MLP costs: f32 throughout, sums in another order (logits shares
+# summed per CTA, products per warp): a few steps agree to ~1e-6, and 550
+# steps accumulate that rounding.
+REL_TOL = {"flash_fwd": 1e-5, "decode_block_slab": 2e-2, "decode_token_slab": 2e-2,
+           "fused_mlp_step": 1e-5, "fused_mlp_epoch": 1e-3}
+# fused MLP parameters are held by their UPDATE (state - start), since
+# lr=0.001 moves N(0,1) weights by ~1e-4 in 3 steps and ~1e-2 in an epoch.
+# Per tensor: error <= share * max|update| + ulps * ulp(max|parameter|).
+# The ulp term is the f32 rounding of w - lr*dw, which may land one ulp
+# apart at each step; the share term is the update's own rounding (sums in
+# another order agree to ~1e-6 of it). On an H100 the kernels land within
+# 1 ulp and 6e-5 of the update; a step update off by 1% (one example of
+# 100 dropped, a wrong lr scaling) misses these limits.
+UPDATE_TOL = {"fused_mlp_step": (1e-3, 6), "fused_mlp_epoch": (2e-3, 32)}
 
 SOURCES = {
     "flash_fwd": ("distributed_tensorflow_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -68,7 +94,16 @@ SOURCES = {
                           "distributed_tensorflow_tpu/ops/pallas_decode.py:181"),
     "decode_token_slab": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_decode.cu",
                           "distributed_tensorflow_tpu/ops/pallas_decode.py:618"),
+    "fused_mlp_step": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_mlp.cu",
+                       "distributed_tensorflow_tpu/ops/pallas_mlp.py:69"),
+    "fused_mlp_epoch": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_mlp.cu",
+                        "distributed_tensorflow_tpu/ops/pallas_mlp.py:181"),
 }
+PATHS = {"decode_block_slab": "fused-layer", "fused_mlp_step": "mlp-step",
+         "fused_mlp_epoch": "mlp-train"}
+MLP_LR = 0.001
+MLP_EPOCHS = 100
+ACCURACY_ORACLE = 0.72
 
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
@@ -399,6 +434,207 @@ def phase_small_reference():
         raise AssertionError("kernels on the card disagree with the CPU reference")
 
 
+def ulp32(x: float) -> float:
+    """The f32 spacing at magnitude ``x``."""
+    return float(np.spacing(np.float32(x)))
+
+
+def check_mlp(name, costs, got, ref, base):
+    """Kernel vs plain run of the MLP from the same start ``base``: the
+    costs within REL_TOL of max(1, |cost|), each parameter's update within
+    UPDATE_TOL. Returns the largest absolute error."""
+    kc, pc = costs
+    worst = (kc - pc).abs().max().item()
+    tol = REL_TOL[name] * max(1.0, pc.abs().max().item())
+    print(f"  {name} costs: max_abs_err {worst:.3e} (tolerance {tol:.3e})")
+    if not worst <= tol:
+        raise AssertionError(f"{name} costs disagree with the plain version: {worst} > {tol}")
+    share, ulps = UPDATE_TOL[name]
+    bad = []
+    for pname, g, r, b in zip(("w1", "b1", "w2", "b2"), got, ref, base):
+        err = (g - r).abs().max().item()
+        upd = (r - b).abs().max().item()
+        ulp = ulp32(max(r.abs().max().item(), b.abs().max().item()))
+        tol = share * upd + ulps * ulp
+        print(f"  {name} {pname}: max_abs_err {err:.3e} = {err / upd:.2e} of max|update| "
+              f"{upd:.3e} = {err / ulp:.2f} ulp (tolerance {tol:.3e})")
+        if not err <= tol:
+            bad.append(f"{pname} {err} > {tol}")
+        worst = max(worst, err)
+    if bad:
+        raise AssertionError(f"{name} updates disagree with the plain version: {bad}")
+    return worst
+
+
+def phase_mlp_kernels(records, ds):
+    """B1 and B2 against their plain versions at the reference shapes."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.mlp import MLP
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    dev = torch.device("cuda")
+    B, IN, H, OUT = 100, 784, 100, 10
+    steps = ds.train.num_examples // B
+    base = fm.to_fused(MLP().init(seed=1, device=dev))
+    perm = np.random.default_rng(7).permutation(ds.train.num_examples)[: steps * B]
+    perm = torch.from_numpy(perm).to(dev)
+    xs32 = torch.from_numpy(ds.train.images).to(dev).index_select(0, perm).reshape(steps, B, IN)
+    ys32 = torch.from_numpy(ds.train.labels).to(dev).index_select(0, perm).reshape(steps, B, OUT)
+    xs16, ys16 = xs32.bfloat16(), ys32.bfloat16()
+
+    def fresh():
+        return fm.FusedState(*(t.clone() for t in base))
+
+    # B1: three steps from one state, kernel vs plain, costs and parameters.
+    k, p = fresh(), fresh()
+    kcs, pcs = [], []
+    for i in range(3):
+        kcs.append(fm.fused_train_step(k, xs32[i], ys32[i], learning_rate=MLP_LR)[1].clone())
+        pcs.append(fm.fused_train_step_plain(p, xs32[i], ys32[i], learning_rate=MLP_LR)[1])
+    torch.cuda.synchronize()
+    err1 = check_mlp("fused_mlp_step", (torch.stack(kcs), torch.stack(pcs)), k, p, base)
+
+    # B2: one epoch in bf16 and in f32 staging vs the plain loop, and the
+    # bf16 epoch vs 550 launches of B1 over the same (upcast) batches. The
+    # two kernels share their device step function, so the last check
+    # holds the epoch loop (resident parameters, double-buffered shares),
+    # not the step arithmetic, which the plain loop holds.
+    errs = []
+    for xs, ys in ((xs16, ys16), (xs32, ys32)):
+        k, kc = fm.fused_epoch(fresh(), xs, ys, learning_rate=MLP_LR)
+        p, pc = fm.fused_epoch_plain(fresh(), xs, ys, learning_rate=MLP_LR)
+        torch.cuda.synchronize()
+        if not torch.isfinite(kc).all():
+            raise AssertionError("fused_mlp_epoch: non-finite costs")
+        errs.append(check_mlp("fused_mlp_epoch", (kc, pc), k, p, base))
+    k, kc = fm.fused_epoch(fresh(), xs16, ys16, learning_rate=MLP_LR)
+    s = fresh()
+    sc = torch.stack([fm.fused_train_step(s, xs16[i].float(), ys16[i].float(),
+                                          learning_rate=MLP_LR)[1] for i in range(steps)])
+    torch.cuda.synchronize()
+    err_vs_b1 = check_mlp("fused_mlp_epoch", (kc, sc), k, s, base)
+    print(f"  epoch kernel vs {steps} step-kernel launches: max_abs_err {err_vs_b1:.3e}")
+
+    # Times at the main path's shapes, and the bounds: operations over the
+    # f32 peak (the update math is f32), bytes each input read and each
+    # output written once.
+    flops = 2 * B * (IN * H * 2 + H * OUT * 3)
+    pbytes = 4 * (IN * H + H + H * OUT + OUT)
+    t1, t2, t3, t4 = fresh(), fresh(), fresh(), fresh()
+    records["fused_mlp_step"] = dict(
+        max_abs_err=err1,
+        ms=cuda_ms(lambda: fm.fused_train_step(t1, xs32[0], ys32[0], learning_rate=MLP_LR), 200),
+        plain_ms=cuda_ms(
+            lambda: fm.fused_train_step_plain(t2, xs32[0], ys32[0], learning_rate=MLP_LR), 50),
+        library_ms=None,
+        **bound(4 * B * (IN + OUT) + 2 * pbytes + 4, flops, PEAK_F32),
+    )
+    records["fused_mlp_epoch"] = dict(
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: fm.fused_epoch(t3, xs16, ys16, learning_rate=MLP_LR), 5, 1),
+        plain_ms=cuda_ms(lambda: fm.fused_epoch_plain(t4, xs16, ys16, learning_rate=MLP_LR), 2, 1),
+        library_ms=None,
+        **bound(2 * steps * B * (IN + OUT) + 2 * pbytes + 4 * steps, steps * flops, PEAK_F32),
+    )
+    for name in ("fused_mlp_step", "fused_mlp_epoch"):
+        r = records[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"  epoch kernel: {1e3 * records['fused_mlp_epoch']['ms'] / steps:.3f} us per step "
+          f"against {1e3 * records['fused_mlp_epoch']['bound_ms'] / steps:.3f} us bound")
+
+    # What a step costs with almost no arithmetic: the same grid (25 CTAs)
+    # at B=1, in=32, so the grid barrier and the share reduction remain.
+    tiny = fm.FusedState(torch.zeros(32, H, device=dev), torch.zeros(1, H, device=dev),
+                         torch.zeros(H, OUT, device=dev), torch.zeros(1, OUT, device=dev))
+    tx = torch.rand(steps, 1, 32, device=dev)
+    ty = torch.zeros(steps, 1, OUT, device=dev)
+    ty[..., 0] = 1
+    tiny_ms = cuda_ms(lambda: fm.fused_epoch(tiny, tx, ty, learning_rate=MLP_LR), 5, 1)
+    print(f"  epoch kernel at B=1, 32->100->10 ({steps} steps): {tiny_ms:.4f} ms, "
+          f"{1e3 * tiny_ms / steps:.3f} us per step (the barrier-bound floor)")
+
+
+def phase_mlp_train(records, ds):
+    """The reference workload through the normal entry point."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.launch import build_trainer
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    n = ds.train.num_examples
+    lines = []
+    tr = build_trainer(
+        TrainConfig(epochs=MLP_EPOCHS, compiled_run=True, engine="pallas", log_frequency=10**9),
+        datasets=ds, print_fn=lines.append,
+    )
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches on the training path: {launches}")
+    if launches["fused_mlp_epoch"] != MLP_EPOCHS:
+        raise AssertionError(f"expected {MLP_EPOCHS} epoch-kernel launches: {launches}")
+    records["fused_mlp_epoch"]["launches"] = launches["fused_mlp_epoch"]
+    for line in lines[:3] + lines[-5:]:
+        print(f"  | {line}")
+    steps_lines = [ln for ln in lines if ln.startswith("Step:")]
+    costs = [float(ln.split("Cost:")[1].split(",")[0]) for ln in steps_lines]
+    if (len(steps_lines) != MLP_EPOCHS
+            or sum(ln.startswith("Test-Accuracy:") for ln in lines) != MLP_EPOCHS
+            or lines[-2:] != [f"Final Cost: {res['final_cost']:.4f}", "Done"]
+            or not np.isfinite(costs + [res["final_cost"]]).all()):
+        raise AssertionError("the training run did not print the reference's lines "
+                             "with finite costs")
+    acc = res["accuracy"]
+    print(f"  {MLP_EPOCHS} epochs, engine=pallas: test accuracy {acc:.4f} "
+          f"(oracle >= {ACCURACY_ORACLE}), final cost {res['final_cost']:.4f}, "
+          f"{res['global_step']} steps in {wall:.3f} s: "
+          f"{MLP_EPOCHS * n / wall:.1f} examples/s")
+    if not acc >= ACCURACY_ORACLE:
+        raise AssertionError(f"test accuracy {acc} below the {ACCURACY_ORACLE} oracle")
+
+    lines = []
+    tr = build_trainer(TrainConfig(epochs=2, log_frequency=10**9), datasets=ds,
+                       print_fn=lines.append)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tr._indexed_fn is None or any(_build.LAUNCHES.values()):
+        raise AssertionError("the default path on cuda is the scanned plain path")
+    if lines[-1] != "Done" or not np.isfinite(res["final_cost"]):
+        raise AssertionError(f"the plain path failed: {lines[-3:]}")
+    print(f"  2 epochs, default plain scanned path: test accuracy {res['accuracy']:.4f}, "
+          f"final cost {res['final_cost']:.4f}, {2 * n / wall:.1f} examples/s")
+
+
+def phase_mlp_bench(records, ds):
+    """The port's bench for every impl; the step impl's launches must
+    equal the steps it ran."""
+    from distributed_tensorflow_tpu_torch import bench
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    for argv, kernel in ((["--impl", "pallas-epoch"], "fused_mlp_epoch"),
+                         (["--impl", "pallas", "--epochs-per-dispatch", "1"], "fused_mlp_step"),
+                         (["--impl", "xla", "--epochs-per-dispatch", "1"], None)):
+        _build.reset_launches()
+        _, steps = bench.main(argv, datasets=ds)
+        launches = dict(_build.LAUNCHES)
+        print(f"  {' '.join(argv)}: {steps} steps, launches {launches}")
+        if kernel == "fused_mlp_step":
+            if launches[kernel] != steps:
+                raise AssertionError(f"bench ran {steps} steps but {launches[kernel]} launches")
+            records[kernel]["launches"] = launches[kernel]
+        elif kernel is not None and launches[kernel] < 1:
+            raise AssertionError(f"bench never launched {kernel}")
+        elif kernel is None and any(launches.values()):
+            raise AssertionError("the xla impl launched a kernel")
+
+
 def main() -> int:
     import torch
 
@@ -436,6 +672,15 @@ def main() -> int:
     phase_fused_layer(records, model, params, prompts, configs, outs)
     print("phase 6: small-input reference")
     phase_small_reference()
+    print("phase 7: MLP kernels vs plain versions")
+    from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
+
+    ds = read_data_sets("MNIST_data", one_hot=True)  # synthetic without IDX files
+    phase_mlp_kernels(records, ds)
+    print(f"phase 8: train the MNIST MLP, {MLP_EPOCHS} epochs")
+    phase_mlp_train(records, ds)
+    print("phase 9: bench")
+    phase_mlp_bench(records, ds)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -446,7 +691,7 @@ def main() -> int:
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "path": "fused-layer" if kname == "decode_block_slab" else "main",
+            "path": PATHS.get(kname, "main"),
         })
     print(f"power: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ use by ``ops/_build.py``). It imports ``torch`` and never ``jax``, and
 nothing of the JAX package: modules it needs from there are copied.
 
 Slice 1 is GPT text serving: ``TextServer`` over ``GPTLM`` with the
-flash-prefill kernel and the fused decode kernels. Entry points run on
+flash-prefill kernel and the fused decode kernels. Slice 2 is the
+reference workload, the MNIST MLP trained by SGD: ``Trainer`` (built by
+``launch.build_trainer``) with the fused step and whole-epoch kernels.
+Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """
@@ -35,6 +38,11 @@ _LAZY_EXPORTS = {
         "distributed_tensorflow_tpu_torch.convert",
         "gpt_params_to_numpy",
     ),
+    "MLP": ("distributed_tensorflow_tpu_torch.models.mlp", "MLP"),
+    "Trainer": ("distributed_tensorflow_tpu_torch.train.trainer", "Trainer"),
+    "TrainConfig": ("distributed_tensorflow_tpu_torch.config", "TrainConfig"),
+    "read_data_sets": ("distributed_tensorflow_tpu_torch.data.mnist", "read_data_sets"),
+    "build_trainer": ("distributed_tensorflow_tpu_torch.launch", "build_trainer"),
 }
 
 

@@ -1,11 +1,14 @@
-"""Carry GPT parameters between the JAX package and the port through numpy.
+"""Carry parameters between the JAX package and the port through numpy.
 
-The exchange format is a nested dict of numpy arrays keyed by field name:
-``{"embed", "pos", "blocks": {"ln1_scale", ..., "b_down"}, "lnf_scale",
-"lnf_bias"}`` — the JAX package's ``GPTLMParams`` / ``GPTBlockParams``
+GPT: the exchange format is a nested dict of numpy arrays keyed by field
+name: ``{"embed", "pos", "blocks": {"ln1_scale", ..., "b_down"},
+"lnf_scale", "lnf_bias"}`` — the JAX package's ``GPTLMParams`` / ``GPTBlockParams``
 fields. Any NamedTuple with those fields (``_asdict``) is accepted as
 well, so a JAX params tree can be handed in as it is: its leaves are
 read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
+
+MLP: a flat dict ``{"w1", "b1", "w2", "b2"}`` (the JAX ``MLPParams``
+fields), or that NamedTuple itself; the round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from distributed_tensorflow_tpu_torch.models.gpt import (
     GPTLMParams,
     map_params,
 )
+from distributed_tensorflow_tpu_torch.models.mlp import MLPParams
 
 
 def _as_dict(tree) -> dict:
@@ -56,3 +60,19 @@ def gpt_params_to_numpy(params: GPTLMParams) -> dict:
     out = p._asdict()
     out["blocks"] = p.blocks._asdict()
     return out
+
+
+def mlp_params_from_numpy(tree, device=None) -> MLPParams:
+    """numpy ``{"w1", "b1", "w2", "b2"}`` → port ``MLPParams`` on
+    ``device`` (default cuda), dtypes kept."""
+    dev = resolve_device(device)
+    top = _as_dict(tree)
+    return MLPParams(*(
+        torch.from_numpy(np.array(np.asarray(top[k]), copy=True)).to(dev)
+        for k in MLPParams._fields
+    ))
+
+
+def mlp_params_to_numpy(params: MLPParams) -> dict:
+    """Port ``MLPParams`` → ``{"w1", "b1", "w2", "b2"}`` of numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in params._asdict().items()}

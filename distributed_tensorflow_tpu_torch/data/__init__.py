@@ -1,1 +1,2 @@
-"""Text data helpers of the port (slice 1: the byte tokenizer)."""
+"""Data helpers of the port: the byte tokenizer (``text``) and the MNIST
+loader (``mnist``)."""

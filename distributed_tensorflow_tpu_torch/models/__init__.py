@@ -1,1 +1,2 @@
-"""Model families of the port (slice 1: the GPT LM's serving subset)."""
+"""Model families of the port: the GPT LM's serving subset (``gpt``) and
+the reference MLP (``mlp``)."""

@@ -20,7 +20,7 @@ import subprocess
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("flash_fwd", "fused_decode")
+SOURCES = ("flash_fwd", "fused_decode", "fused_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -30,9 +30,10 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 # Launch counts per kernel wrapper: each wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels it went
-# through (chip_smoke.py zeroes them before driving the serving path).
+# through (chip_smoke.py zeroes them before driving each path).
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "decode_block_slab": 0, "decode_token_slab": 0,
+    "fused_mlp_step": 0, "fused_mlp_epoch": 0,
 }
 # ptxas's register/shared-memory report of each build, for the smoke log.
 BUILD_LOGS: dict[str, str] = {}

@@ -74,3 +74,37 @@ def torch_params(tree):
 
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+# -- the MLP slice -------------------------------------------------------------
+
+
+def mlp_numpy_params(in_dim=784, hidden=100, out=10, seed=0, fan_in=False) -> dict:
+    """MLP weights as the reference draws them (N(0,1) weights), or scaled
+    by 1/sqrt(fan-in) with ``fan_in=True``, with small random biases so the
+    bias paths are exercised too."""
+    rng = np.random.default_rng(seed)
+    s1, s2 = (in_dim ** -0.5, hidden ** -0.5) if fan_in else (1.0, 1.0)
+    return {
+        "w1": (s1 * rng.standard_normal((in_dim, hidden))).astype(np.float32),
+        "b1": (0.1 * rng.standard_normal(hidden)).astype(np.float32),
+        "w2": (s2 * rng.standard_normal((hidden, out))).astype(np.float32),
+        "b2": (0.1 * rng.standard_normal(out)).astype(np.float32),
+    }
+
+
+def mlp_numpy_batches(steps, batch, in_dim=784, out=10, seed=0):
+    """``steps`` batches of MNIST-like inputs in [0, 1) and one-hot labels:
+    ``xs`` [steps, batch, in_dim], ``ys`` [steps, batch, out], f32."""
+    rng = np.random.default_rng(seed)
+    xs = rng.random((steps, batch, in_dim), dtype=np.float32)
+    ys = np.eye(out, dtype=np.float32)[rng.integers(0, out, (steps, batch))]
+    return xs, ys
+
+
+def torch_fused(tree, device="cpu"):
+    """The port's ``FusedState`` of a numpy MLP tree, on ``device``."""
+    from distributed_tensorflow_tpu_torch.convert import mlp_params_from_numpy
+    from distributed_tensorflow_tpu_torch.ops.fused_mlp import to_fused
+
+    return to_fused(mlp_params_from_numpy(tree, device=device))
