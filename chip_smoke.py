@@ -37,7 +37,27 @@ non-zero):
    default plain path;
 9. the port's bench (``distributed_tensorflow_tpu_torch.bench``) for the
    impls pallas-epoch, pallas (its step-kernel launches must equal its
-   step count) and xla, each printing its JSON line.
+   step count) and xla, each printing its JSON line;
+10. serve gpt-m-L1024 on the paged pool (``block_size=16``, the default 512
+    blocks, prefix caching on) with 16 requests (8 behind a shared
+    256-token system prompt, 8 with repeated 8-token patterns, greedy and
+    sampled mixed): (a) ``spec_draft=0`` on the paged megakernel, (b)
+    ``spec_draft=4`` on the verify kernel, (c) ``spec_draft=0`` on the
+    paged per-layer kernel; each must launch its kernel, hit the prefix
+    cache and leave only the radix's blocks live, (b) must accept drafts,
+    and every stream must equal the slab server's on the same prompts
+    unless the top-2 gap of the pick at the first differing token is
+    below the decode tolerance; after such a near-tie both servers continue
+    from the reference's tokens, so every token is compared.
+
+Phase 3 also holds the paged kernels (``decode_block_paged``,
+``decode_token_paged``, ``verify_tokens_paged``) against their plain
+versions at gpt-m shapes over scrambled block tables, the paged megakernel
+against the slab one bit for bit on the same logical cache, and checks
+that every pool byte outside the rows a launch may write is unchanged.
+The verify kernel is held again at prefix 0 and prefixes under one block,
+by its update and its committed rows, within limits that plain versions
+with the suffix's causal block masked wrongly fail.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -46,6 +66,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -75,8 +96,11 @@ MAX_NEW = 96
 # fused MLP costs: f32 throughout, sums in another order (logits shares
 # summed per CTA, products per warp): a few steps agree to ~1e-6, and 550
 # steps accumulate that rounding.
+# verify: as decode (the same rounding points; its softmax weights stay
+# f32 and its products take five rows per weight read).
 REL_TOL = {"flash_fwd": 1e-5, "decode_block_slab": 2e-2, "decode_token_slab": 2e-2,
-           "fused_mlp_step": 1e-5, "fused_mlp_epoch": 1e-3}
+           "decode_block_paged": 2e-2, "decode_token_paged": 2e-2,
+           "verify_tokens_paged": 2e-2, "fused_mlp_step": 1e-5, "fused_mlp_epoch": 1e-3}
 # fused MLP parameters are held by their UPDATE (state - start), since
 # lr=0.001 moves N(0,1) weights by ~1e-4 in 3 steps and ~1e-2 in an epoch.
 # Per tensor: error <= share * max|update| + ulps * ulp(max|parameter|).
@@ -94,13 +118,27 @@ SOURCES = {
                           "distributed_tensorflow_tpu/ops/pallas_decode.py:181"),
     "decode_token_slab": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_decode.cu",
                           "distributed_tensorflow_tpu/ops/pallas_decode.py:618"),
+    "decode_block_paged": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_decode.cu",
+                           "distributed_tensorflow_tpu/ops/pallas_decode.py:181"),
+    "decode_token_paged": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_decode.cu",
+                           "distributed_tensorflow_tpu/ops/pallas_decode.py:618"),
+    "verify_tokens_paged": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_decode.cu",
+                            "distributed_tensorflow_tpu/ops/pallas_decode.py:1083"),
     "fused_mlp_step": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_mlp.cu",
                        "distributed_tensorflow_tpu/ops/pallas_mlp.py:69"),
     "fused_mlp_epoch": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_mlp.cu",
                         "distributed_tensorflow_tpu/ops/pallas_mlp.py:181"),
 }
 PATHS = {"decode_block_slab": "fused-layer", "fused_mlp_step": "mlp-step",
-         "fused_mlp_epoch": "mlp-train"}
+         "fused_mlp_epoch": "mlp-train", "decode_token_paged": "paged",
+         "verify_tokens_paged": "paged-spec", "decode_block_paged": "paged-fused-layer"}
+BLOCK = 16  # the paged pool's block size (phases 3 and 10)
+# Verify at short prefixes (phase 3), per slot: prefix 0 and prefixes under
+# one block, suffix lengths 1..5; held by the update and the committed rows
+# of layers >= 1, within this share of the plain version's largest.
+VERIFY_SHORT_PLENS = (0, 0, 1, 3, 7, 12, 15, 0)
+VERIFY_SHORT_SLENS = (5, 1, 5, 4, 5, 3, 2, 5)
+VERIFY_SHORT_TOL = 2e-2
 MLP_LR = 0.001
 MLP_EPOCHS = 100
 ACCURACY_ORACLE = 0.72
@@ -263,9 +301,239 @@ def phase_kernels(records):
         **bound(n * (wbytes_layer + 2 * kv_elems * 2 + 2 * S * H * Dh * 2) + 2 * S * d * 4,
                 n * (mat_flops_layer + attn_flops_layer), PEAK_BF16),
     )
+    phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7)
     for name, r in records.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def pool_from_slab(ck, tables, nb):
+    """The slab cache [n, S, C, Hkv, Dh] copied into a pool of ``nb``
+    blocks through ``tables``; blocks outside the tables hold noise."""
+    import torch
+
+    n, S, C, H, Dh = ck.shape
+    pool = torch.randn(n, nb, BLOCK, H, Dh, device=ck.device).to(ck.dtype)
+    for i in range(S):
+        pool[:, tables[i].long()] = ck[:, i].reshape(n, C // BLOCK, BLOCK, H, Dh)
+    return pool
+
+
+def writable_rows(tables, starts, counts, active, nb):
+    """[nb, BLOCK] mask of the pool rows a launch may write."""
+    import torch
+
+    m = torch.zeros(nb, BLOCK, dtype=torch.bool)
+    tab = tables.cpu()
+    for s in range(tab.shape[0]):
+        if bool(active[s]):
+            for p in range(int(starts[s]), int(starts[s]) + int(counts[s])):
+                m[int(tab[s, p // BLOCK]), p % BLOCK] = True
+    return m.to(tables.device)
+
+
+def check_untouched(name, pools, before, mask):
+    """Every pool byte outside ``mask`` equal to ``before``, bit for bit."""
+    import torch
+
+    for a, b in zip(pools, before):
+        if not torch.equal(a[:, ~mask], b[:, ~mask]):
+            raise AssertionError(f"{name} wrote pool rows outside the ones it may write")
+
+
+def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
+    """The paged kernels at gpt-m shapes: S=8, bs=16, the default pool (8 x
+    64 blocks) under scrambled tables, the slab phase's cache and lengths
+    (256..768), one inactive row. ``o7`` is the slab per-layer kernel's
+    output on layer 0 of the same cache."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+    from distributed_tensorflow_tpu_torch.ops.paged_attention import gather_block_view
+
+    dev = h.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    n, S, C, H, Dh = ck.shape
+    d = h.shape[1]
+    mb = C // BLOCK
+    nb = S * mb
+    tables = torch.randperm(nb, device=dev, generator=g).reshape(S, mb).int()
+    pk, pv = pool_from_slab(ck, tables, nb), pool_from_slab(cv, tables, nb)
+    kw = dict(num_heads=H, compute_dtype=torch.bfloat16)
+    w0 = {k_: t[0] for k_, t in w.items()}
+    wbytes_layer = sum(t[0].numel() * t.element_size() for t in w.values())
+    mat_flops_layer = 2 * S * sum(w[nm][0].numel() for nm in fd.PROJ_NAMES)
+    kv_elems = int(lengths.sum().item()) * H * Dh
+    attn_flops_layer = 4 * (int(lengths.sum().item()) + S) * H * Dh
+
+    # Per-layer kernel: vs plain, and bit for bit vs the slab kernel.
+    o, kf, vf = fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)
+    r, rk, rv = fd.decode_block_paged_plain(h, w0, pk[0], pv[0], tables, lengths, **kw)
+    torch.cuda.synchronize()
+    err = max((o - r).abs().max().item(), (kf.float() - rk.float()).abs().max().item(),
+              (vf.float() - rv.float()).abs().max().item())
+    check_error("decode_block_paged", err, r.abs().max().item())
+    if not torch.equal(o, o7):
+        raise AssertionError("decode_block_paged differs from decode_block_slab bitwise")
+    print("  decode_block_paged == decode_block_slab bitwise on the same logical cache")
+    records["decode_block_paged"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)),
+        plain_ms=cuda_ms(lambda: fd.decode_block_paged_plain(
+            h, w0, pk[0], pv[0], tables, lengths, **kw)),
+        library_ms=None,
+        **bound(wbytes_layer + 2 * kv_elems * 2 + 2 * S * d * 4 + 2 * S * H * Dh * 2
+                + 4 * tables.numel(), mat_flops_layer + attn_flops_layer, PEAK_BF16),
+    )
+
+    # Megakernel: vs plain; bit for bit vs the slab megakernel (h_out and
+    # every committed row); nothing outside the active rows' write row.
+    ck8, cv8 = ck.clone(), cv.clone()
+    o8 = fd.decode_token_slab(h, w, ck8, cv8, lengths, active, **kw)[0]
+    pk8, pv8 = pk.clone(), pv.clone()
+    o = fd.decode_token_paged(h, w, pk8, pv8, tables, lengths, active, **kw)[0]
+    pkp, pvp = pk.clone(), pv.clone()
+    r = fd.decode_token_paged_plain(h, w, pkp, pvp, tables, lengths, active, **kw)[0]
+    torch.cuda.synchronize()
+    err = max((o - r).abs().max().item(), (pk8.float() - pkp.float()).abs().max().item(),
+              (pv8.float() - pvp.float()).abs().max().item())
+    check_error("decode_token_paged", err, r.abs().max().item())
+    del pkp, pvp
+    view_k = torch.stack([gather_block_view(pk8[i], tables) for i in range(n)])
+    view_v = torch.stack([gather_block_view(pv8[i], tables) for i in range(n)])
+    same = torch.equal(o, o8) and torch.equal(view_k, ck8) and torch.equal(view_v, cv8)
+    del view_k, view_v, ck8, cv8
+    if not same:
+        raise AssertionError("decode_token_paged differs from decode_token_slab bitwise")
+    print("  decode_token_paged == decode_token_slab bitwise (h_out and committed rows)")
+    check_untouched("decode_token_paged", (pk8, pv8), (pk, pv),
+                    writable_rows(tables, lengths, [1] * S, active, nb))
+    records["decode_token_paged"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fd.decode_token_paged(h, w, pk8, pv8, tables, lengths, active, **kw)),
+        plain_ms=cuda_ms(lambda: fd.decode_token_paged_plain(
+            h, w, pk8, pv8, tables, lengths, active, **kw), 5),
+        library_ms=None,
+        **bound(n * (wbytes_layer + 2 * kv_elems * 2 + 2 * S * H * Dh * 2) + 2 * S * d * 4
+                + 4 * tables.numel(), n * (mat_flops_layer + attn_flops_layer), PEAK_BF16),
+    )
+    del pk8, pv8
+
+    # Verify at L=5: prefixes not block-aligned, suffix lengths 1..5, one
+    # inactive slot.
+    L = 5
+    plens = lengths + (lengths % BLOCK == 0).int()
+    slens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 2], device=dev, dtype=torch.int32)[:S]
+    hv = torch.randn(S, L, d, device=dev, generator=g)
+    pk9, pv9 = pk.clone(), pv.clone()
+    o = fd.verify_tokens_paged(hv, w, pk9, pv9, tables, plens, slens, active, **kw)
+    pkp, pvp = pk.clone(), pv.clone()
+    r = fd.verify_tokens_paged_plain(hv, w, pkp, pvp, tables, plens, slens, active, **kw)
+    torch.cuda.synchronize()
+    err = max((o - r).abs().max().item(), (pk9.float() - pkp.float()).abs().max().item(),
+              (pv9.float() - pvp.float()).abs().max().item())
+    check_error("verify_tokens_paged", err, r.abs().max().item())
+    del pkp, pvp
+    check_untouched("verify_tokens_paged", (pk9, pv9), (pk, pv),
+                    writable_rows(tables, plens, slens.tolist(), active, nb))
+    if torch.equal(pk9, pk):
+        raise AssertionError("verify_tokens_paged committed nothing")
+    print("  decode_token_paged / verify_tokens_paged wrote no pool row outside "
+          "the active slots' write rows")
+    err = max(err, verify_short_prefixes(hv, w, pk, pv, tables, active, kw))
+    nrows = int(slens[active].sum().item())
+    vkv = int(plens.sum().item()) * H * Dh
+    vattn = 4 * int((L * plens + L * L).sum().item()) * H * Dh
+    records["verify_tokens_paged"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fd.verify_tokens_paged(
+            hv, w, pk9, pv9, tables, plens, slens, active, **kw)),
+        plain_ms=cuda_ms(lambda: fd.verify_tokens_paged_plain(
+            hv, w, pk9, pv9, tables, plens, slens, active, **kw), 5),
+        library_ms=None,
+        **bound(n * (wbytes_layer + 2 * vkv * 2 + 2 * nrows * H * Dh * 2) + 2 * S * L * d * 4
+                + 4 * tables.numel(), n * (L * mat_flops_layer + vattn), PEAK_BF16),
+    )
+
+
+def wrong_suffix_mask(kind):
+    """``paged_extend_attention`` with the suffix's own causal block masked
+    wrongly: ``"strict"`` lets row li see fresh rows lj < li (not <=),
+    ``"dropped"`` leaves the fresh rows out. A fault the verify check must
+    catch."""
+    import math
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.attention import NEG_INF, group_query_heads
+
+    def attn(q, k_new, v_new, k_view, v_view, q_positions, prefix_lens, suffix_lens):
+        s, l, hq, dh = q.shape
+        c, dev = k_view.shape[1], q.device
+        qg = group_query_heads(q, k_new.shape[2]).float()
+        kcat = torch.cat([k_view.float(), k_new.float()], dim=1)
+        vcat = torch.cat([v_view.float(), v_new.float()], dim=1)
+        sc = torch.einsum("slhgd,skhd->shglk", qg, kcat) / math.sqrt(dh)
+        li = torch.arange(l, device=dev)
+        fresh = (li[None, :] < suffix_lens[:, None])[:, None, :] & (
+            li[None, :] < li[:, None] if kind == "strict" else torch.zeros(
+                l, l, dtype=torch.bool, device=dev))
+        view = (torch.arange(c, device=dev)[None, :] < prefix_lens[:, None])[:, None, :]
+        mask = torch.cat([view.expand(s, l, c), fresh.expand(s, l, l)], dim=-1)
+        w = torch.softmax(sc.masked_fill(~mask[:, None, None], NEG_INF), dim=-1)
+        out = torch.einsum("shglk,skhd->slhgd", w, vcat)
+        return out.reshape(s, l, hq, dh).to(q.dtype)
+
+    return attn
+
+
+def verify_short_prefixes(hv, w, pk, pv, tables, active, kw):
+    """``verify_tokens_paged`` against its plain version where the suffix's
+    own causal block carries most of each softmax: prefix 0 (that block
+    alone) and prefixes under one block. Held by what the launch changes,
+    undiluted by the residual: the update ``h_out - h_in``, and the rows
+    committed at layers >= 1 (layer 0's rows depend on ``h_in`` alone). The
+    limits are ``VERIFY_SHORT_TOL`` of the plain version's largest update
+    and committed row; plain versions with the suffix block masked wrongly
+    must fail them. Returns the largest error."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    dev = hv.device
+    plens = torch.tensor(VERIFY_SHORT_PLENS, device=dev, dtype=torch.int32)
+    slens = torch.tensor(VERIFY_SHORT_SLENS, device=dev, dtype=torch.int32)
+    rows = writable_rows(tables, plens, slens.tolist(), active, pk.shape[1])
+
+    def run(fn):
+        k, v = pk.clone(), pv.clone()
+        upd = fn(hv, w, k, v, tables, plens, slens, active, **kw) - hv
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return upd, k[1:, rows].float(), v[1:, rows].float()
+
+    def errors(got, ref):
+        return ((got[0] - ref[0]).abs().max().item(),
+                max((a - b).abs().max().item() for a, b in zip(got[1:], ref[1:])))
+
+    ref = run(fd.verify_tokens_paged_plain)
+    tol = (VERIFY_SHORT_TOL * ref[0].abs().max().item(),
+           VERIFY_SHORT_TOL * max(t.abs().max().item() for t in ref[1:]))
+    err = errors(run(fd.verify_tokens_paged), ref)
+    print(f"  verify_tokens_paged at prefixes {list(VERIFY_SHORT_PLENS)}: update err "
+          f"{err[0]:.3e} (tolerance {tol[0]:.3e}), committed rows of layers >= 1 err "
+          f"{err[1]:.3e} (tolerance {tol[1]:.3e})")
+    if not (err[0] <= tol[0] and err[1] <= tol[1]):
+        raise AssertionError(f"verify_tokens_paged disagrees at short prefixes: {err} > {tol}")
+    for kind in ("strict", "dropped"):
+        real = fd.paged_extend_attention
+        fd.paged_extend_attention = wrong_suffix_mask(kind)
+        try:
+            bad = errors(run(fd.verify_tokens_paged_plain), ref)
+        finally:
+            fd.paged_extend_attention = real
+        print(f"  plain version with the suffix block {kind}: update err {bad[0]:.3e}, "
+              f"rows err {bad[1]:.3e}")
+        if bad[0] <= tol[0] or bad[1] <= tol[1]:
+            raise AssertionError(f"the short-prefix limits pass a {kind} suffix mask: {bad}")
+    return max(err)
 
 
 def bound(nbytes, flops, peak):
@@ -432,6 +700,162 @@ def phase_small_reference():
           f"(tolerance {0.05 * max(1.0, scale):.3e})")
     if not (torch.isfinite(res["cuda"]).all() and err <= 0.05 * max(1.0, scale)):
         raise AssertionError("kernels on the card disagree with the CPU reference")
+
+
+def paged_requests(vocab, seed):
+    """Phase 10's traffic: 8 requests behind one 256-token system prompt
+    (16 full blocks) with tails of 20..600 tokens, and 8 of 32..48 tokens
+    made of a repeated 8-token pattern (what the drafter feeds on);
+    greedy and sampled alternate."""
+    from distributed_tensorflow_tpu_torch.serve import GenerationConfig
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 256)
+    prompts = [np.concatenate([system, rng.integers(0, vocab, t)]).astype(np.int32)
+               for t in (20, 600, 60, 500, 120, 400, 200, 300)]
+    prompts += [np.resize(rng.integers(0, vocab, 8), n).astype(np.int32)
+                for n in (32, 34, 36, 38, 40, 42, 44, 48)]
+    configs = [
+        GenerationConfig(max_new=MAX_NEW) if i % 2 == 0 else
+        GenerationConfig(max_new=MAX_NEW, greedy=False, temperature=0.9, top_p=0.95,
+                         seed=100 + i)
+        for i in range(len(prompts))
+    ]
+    return prompts, configs
+
+
+def pick_gap(model, params, prompt, out, i, cfg):
+    """The top-2 gap of the pick that chose ``out[i]``, from a dense
+    forward of prompt + out[:i] on the card: the raw logits for a greedy
+    request; for a sampled one the nucleus-masked logits/temperature plus
+    the Gumbel noise of the request's (i+1)-th draw, replayed from its
+    seed. Returns (gap, tolerance)."""
+    import torch
+
+    dev = params.embed.device
+    toks = torch.from_numpy(np.concatenate([prompt, out[:i]]).astype(np.int32)).to(dev)
+    logits = model.apply(params, toks[None])[0, -1].float()
+    tol = REL_TOL["decode_token_slab"] * max(1.0, logits.abs().max().item())
+    if not cfg.greedy:
+        lt = logits / cfg.temperature
+        sl, order = torch.sort(lt, descending=True)
+        probs = torch.softmax(sl, -1)
+        keep = torch.zeros_like(lt, dtype=torch.bool)
+        keep[order] = (torch.cumsum(probs, -1) - probs) < cfg.top_p
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        for _ in range(i + 1):
+            u = torch.rand(lt.shape[-1], generator=gen, device=dev)
+        logits = lt.masked_fill(~keep, float("-inf")) - torch.log(-torch.log(u))
+    top = torch.topk(logits, 2).values
+    return (top[0] - top[1]).item(), tol
+
+
+def compare_streams(label, model, params, prompts, configs, outs, ref, servers):
+    """Streams equal to ``ref``'s, or diverging only at a near-tie. After a
+    near-tie at token i, both ``servers`` (the one that made ``outs``, the
+    one that made ``ref``) serve the prompt extended by ``ref``'s first
+    i+1 tokens for the rest of the budget (a sampled request restarts its
+    seed's draws), and the rest is compared the same way, so every token
+    of ``ref`` is checked."""
+    same = checked = reruns = 0
+    total = sum(len(b) for b in ref)
+    work = list(zip(prompts, configs, outs, ref))
+    while work:
+        nxt = []
+        for p, c, a, b in work:
+            if len(a) != len(b):
+                raise AssertionError(f"{label}: streams of {len(a)} and {len(b)} tokens")
+            diff = np.flatnonzero(a != b)
+            if not len(diff):
+                checked += len(b)
+                same += not reruns
+                continue
+            i = int(diff[0])
+            gap, tol = pick_gap(model, params, p, b, i, c)
+            kind = "greedy" if c.greedy else "sampled"
+            print(f"  {label}: a {len(p)}-token {kind} request diverges at token {i}; "
+                  f"top-2 gap there {gap:.4e} (tolerance {tol:.4e})")
+            if not gap < tol:
+                raise AssertionError(f"{label}: divergence at a top-2 gap {gap} >= {tol}")
+            checked += i + 1
+            if i + 1 < len(b):
+                nxt.append((np.concatenate([p, b[: i + 1]]).astype(np.int32),
+                            dataclasses.replace(c, max_new=len(b) - i - 1)))
+        if nxt:
+            reruns += 1
+            ps, cs_ = [q for q, _ in nxt], [c for _, c in nxt]
+            work = list(zip(ps, cs_, servers[0].generate(ps, cs_), servers[1].generate(ps, cs_)))
+        else:
+            work = []
+    if checked != total:
+        raise AssertionError(f"{label}: checked {checked} of {total} tokens")
+    print(f"  {label}: {same}/{len(outs)} streams token-identical; {checked} of {total} "
+          f"tokens checked ({reruns} rounds of continuations after near-ties)")
+
+
+def phase_paged_serve(records, model, params):
+    """Serve the paged traffic on the slab engine and on three paged
+    servers; launches, prefix hits, accepted drafts, pool hygiene and the
+    streams are checked."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.serve import TextServer
+
+    prompts, configs = paged_requests(model.vocab_size, 1)
+    print(f"  {len(prompts)} requests of {min(map(len, prompts))}..{max(map(len, prompts))} "
+          f"tokens, max_new {MAX_NEW}")
+    slab_srv = TextServer(model, params, slots=8, chunk=32)
+    slab = slab_srv.generate(prompts, configs)
+    runs, servers = {}, {}
+    for label, kw, kernel in (
+            ("(a) paged", {}, "decode_token_paged"),
+            ("(b) paged+spec", dict(spec_draft=4, spec_ngram=2), "verify_tokens_paged"),
+            ("(c) paged fused-layer", dict(decode_engine="fused-layer"), "decode_block_paged")):
+        srv = TextServer(model, params, slots=8, chunk=32, paged=True, block_size=BLOCK,
+                         prefix_caching=True, **kw)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs = srv.generate(prompts, configs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        cnt, tm = srv.counters, srv.timing
+        ntok = sum(len(o) for o in outs)
+        ttft = [srv.stats[i]["ttft_s"] for i in sorted(srv.stats)]
+        print(f"  {label}: launches {launches}; counters {cnt}")
+        line = (f"  {label}: {srv.kv_blocks} blocks; {ntok} tokens in {wall:.3f} s: "
+                f"{ntok / wall:.1f} tokens/s; TTFT mean {1e3 * np.mean(ttft):.1f} ms max "
+                f"{1e3 * max(ttft):.1f} ms; prefill total {1e3 * tm['prefill_s']:.1f} ms")
+        if tm["decode_steps"]:
+            line += (f"; decode {1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms per step "
+                     f"({tm['decode_steps']} steps)")
+        if tm["verify_ticks"]:
+            line += (f"; verify {1e3 * tm['verify_s'] / tm['verify_ticks']:.3f} ms per tick "
+                     f"({tm['verify_ticks']} ticks, {tm['verify_tokens']} tokens, "
+                     f"{cnt['spec_tokens_accepted'] / tm['verify_ticks']:.3f} accepted "
+                     f"per tick)")
+        print(line)
+        if launches.get(kernel, 0) < 1:
+            raise AssertionError(f"{label} never launched {kernel}")
+        records[kernel]["launches"] = launches[kernel]
+        if cnt["prefix_cache_hits"] < 1:
+            raise AssertionError(f"{label}: no prefix-cache hit")
+        if kernel == "verify_tokens_paged" and cnt["spec_tokens_accepted"] < 1:
+            raise AssertionError(f"{label}: no draft token accepted")
+        if srv._alloc.used_blocks != len(srv._prefix._map):
+            raise AssertionError(f"{label}: {srv._alloc.used_blocks} blocks live after "
+                                 f"the drain, the radix holds {len(srv._prefix._map)}")
+        for o, c in zip(outs, configs):
+            if len(o) != c.max_new or o.min() < 0 or o.max() >= model.vocab_size:
+                raise AssertionError(f"{label}: bad stream {o}")
+        runs[label], servers[label] = outs, srv
+    # After the launch counts are read: the continuations launch kernels too.
+    for label, ref in (("(a) paged", "slab"), ("(b) paged+spec", "slab"),
+                       ("(c) paged fused-layer", "slab"), ("(b) paged+spec", "(a) paged"),
+                       ("(c) paged fused-layer", "(a) paged")):
+        compare_streams(f"{label} vs {ref}", model, srv.params, prompts, configs, runs[label],
+                        slab if ref == "slab" else runs[ref],
+                        (servers[label], slab_srv if ref == "slab" else servers[ref]))
 
 
 def ulp32(x: float) -> float:
@@ -681,6 +1105,8 @@ def main() -> int:
     phase_mlp_train(records, ds)
     print("phase 9: bench")
     phase_mlp_bench(records, ds)
+    print("phase 10: serve gpt-m-L1024 on the paged pool")
+    phase_paged_serve(records, model, params)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []

@@ -10,7 +10,9 @@ Slice 1 is GPT text serving: ``TextServer`` over ``GPTLM`` with the
 flash-prefill kernel and the fused decode kernels. Slice 2 is the
 reference workload, the MNIST MLP trained by SGD: ``Trainer`` (built by
 ``launch.build_trainer``) with the fused step and whole-epoch kernels.
-Entry points run on
+Slice 3 serves on a paged block pool (``TextServer(paged=True)``) with
+the radix prefix cache and prompt-lookup speculation, through the paged
+decode kernels and the speculation-verify kernel. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """
@@ -38,6 +40,7 @@ _LAZY_EXPORTS = {
         "distributed_tensorflow_tpu_torch.convert",
         "gpt_params_to_numpy",
     ),
+    "PagedKVCache": ("distributed_tensorflow_tpu_torch.models.gpt", "PagedKVCache"),
     "MLP": ("distributed_tensorflow_tpu_torch.models.mlp", "MLP"),
     "Trainer": ("distributed_tensorflow_tpu_torch.train.trainer", "Trainer"),
     "TrainConfig": ("distributed_tensorflow_tpu_torch.config", "TrainConfig"),

@@ -9,6 +9,12 @@ read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
 
 MLP: a flat dict ``{"w1", "b1", "w2", "b2"}`` (the JAX ``MLPParams``
 fields), or that NamedTuple itself; the round trip is bitwise.
+
+Paged KV pool: ``{"k", "v", "block_tables", "lengths"}`` (the JAX
+``PagedKVCache`` fields, or that NamedTuple), so both packages can be fed
+the same pool and tables. A bf16 pool leaves as f32 (exact) and comes back
+as bf16 given ``dtype=torch.bfloat16``; a JAX bf16 array (numpy's
+``ml_dtypes`` bfloat16) is read bit for bit. The round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import (
     GPTBlockParams,
     GPTLMParams,
+    PagedKVCache,
     map_params,
 )
 from distributed_tensorflow_tpu_torch.models.mlp import MLPParams
@@ -76,3 +83,37 @@ def mlp_params_from_numpy(tree, device=None) -> MLPParams:
 def mlp_params_to_numpy(params: MLPParams) -> dict:
     """Port ``MLPParams`` → ``{"w1", "b1", "w2", "b2"}`` of numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in params._asdict().items()}
+
+
+def _tensor(a, dev, dtype=None):
+    """numpy (or array-like) → tensor on ``dev``; a bfloat16 array of
+    ``ml_dtypes`` (what ``numpy.asarray`` gives for a JAX bf16 array) is
+    reinterpreted bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=dev, dtype=dtype) if dtype else t.to(dev)
+
+
+def paged_cache_from_numpy(tree, device=None, dtype=None) -> PagedKVCache:
+    """numpy ``{"k", "v", "block_tables", "lengths"}`` → port
+    ``PagedKVCache`` on ``device`` (default cuda); the pool in ``dtype``
+    when given, tables and lengths int32."""
+    dev = resolve_device(device)
+    top = _as_dict(tree)
+    return PagedKVCache(
+        k=_tensor(top["k"], dev, dtype),
+        v=_tensor(top["v"], dev, dtype),
+        block_tables=_tensor(top["block_tables"], dev, torch.int32),
+        lengths=_tensor(top["lengths"], dev, torch.int32),
+    )
+
+
+def paged_cache_to_numpy(cache: PagedKVCache) -> dict:
+    """Port ``PagedKVCache`` → the numpy dict (a bf16 pool widens to f32)."""
+    return {
+        k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+        for k, v in cache._asdict().items()
+    }

@@ -1,11 +1,15 @@
-"""GPT-style causal decoder LM: the slab-serving subset, in PyTorch.
+"""GPT-style causal decoder LM: the serving subset, in PyTorch.
 
 Counterpart of ``distributed_tensorflow_tpu/models/gpt.py`` ``GPTLM``:
 config and validation (:212-402), ``init`` (:406), the forward pieces
 ``_embed_tokens`` / ``_block`` / ``_ffn`` / ``_logits`` / ``apply``
-(:656-789), and the slot cache surface ``cache_len`` /
-``empty_slot_cache`` / ``reset_slots`` / ``prefill_slots`` /
-``decode_slots`` (:1268-1797) with its engine resolution (:1129-1204).
+(:656-789), the slot cache surface ``cache_len`` / ``empty_slot_cache`` /
+``reset_slots`` / ``prefill_slots`` / ``decode_slots`` (:1268-1797) with
+its engine resolution (:1129-1204), and the paged cache surface
+``PagedKVCache`` (:160), ``paged_blocks_per_slot`` / ``empty_paged_cache``
+/ ``extend_paged`` / ``verify_paged`` / ``decode_paged`` (:1871-2273);
+the per-layer engine's commit ``_commit_paged_rows`` (:1234) is
+``ops/fused_decode.commit_paged_rows``.
 
 Architecture as there: token embed + learned positions (or RoPE) → N
 pre-LN blocks (causal attention + tanh-GELU MLP, residuals) → final LN →
@@ -15,14 +19,16 @@ with f32 accumulation; layernorm and softmax are f32.
 Parameters are NamedTuples of tensors keyed like the JAX ones, so
 ``convert.py`` carries them across through numpy. Prefill attention goes
 through the flash kernel when ``attention_impl="flash"`` (the dense plain
-path otherwise); single-token decode goes through the fused decode
-kernels. On a CUDA device a kernel launches or raises; on the CPU the
-plain versions run. The slot cache is updated in place.
+path otherwise); the paged extend (prefill and the per-layer verify) is
+plain PyTorch, as it is XLA in the JAX package. Single-token decode goes
+through the fused decode kernels and the speculation verify through the
+fused verify kernel. On a CUDA device a kernel launches or raises; on the
+CPU the plain versions run. Caches and pools are updated in place.
 
 Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): MoE blocks and ``matmul_dtype`` (A5), the sliding window,
-int8/fp8 KV caches and paged caches (A3). RoPE and GQA work on the plain
-path; RoPE on the CUDA decode kernels is A3 too.
+ROADMAP item): MoE blocks and ``matmul_dtype`` (A5), the sliding window
+and int8/fp8 KV caches (A3). RoPE and GQA work on the plain path; RoPE on
+the CUDA kernels is A3 too.
 """
 
 from __future__ import annotations
@@ -42,10 +48,19 @@ from distributed_tensorflow_tpu_torch.ops.flash_attention import (
 from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     PROJ_NAMES,
     WEIGHT_NAMES,
+    commit_paged_rows,
     commit_slot_rows,
+    decode_block_paged,
     decode_block_slab,
+    decode_token_paged,
     decode_token_slab,
     dot,
+    verify_tokens_paged,
+)
+from distributed_tensorflow_tpu_torch.ops.paged_attention import (
+    gather_block_view,
+    paged_extend_attention,
+    scatter_token_kv_all_layers,
 )
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
@@ -84,6 +99,21 @@ class SlotKVCache(NamedTuple):
 
     k: torch.Tensor
     v: torch.Tensor
+    lengths: torch.Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Serving cache over a shared BLOCK POOL: K/V [num_layers, num_blocks,
+    block_size, Hkv, Dh] in the compute dtype, each slot mapping logical
+    position ``p`` to ``pool[block_tables[s, p // bs], p % bs]``
+    (``block_tables`` [S, max_blocks] int32), and each slot's written
+    length [S] int32. Two slots may map the same physical block for a
+    shared prompt prefix (the host refcounts in ``serve_pool.py``); unused
+    table entries read garbage that the validity masks keep out."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
     lengths: torch.Tensor
 
 
@@ -249,9 +279,10 @@ class GPTLM:
         up = self._dot(hn2, blk.w_up) + blk.b_up
         return self._dot(F.gelu(up, approximate="tanh"), blk.w_down) + blk.b_down
 
-    def _block(self, blk, h, positions, kv_lens=None):
+    def _block(self, blk, h, positions, kv_lens=None, attend=None):
         """Block forward on h [B, L, d]; also returns this block's k/v
-        [B, L, Hkv, Dh] (f32) for the cache."""
+        [B, L, Hkv, Dh] (f32) for the cache. ``attend(q, k, v)`` swaps the
+        attention (the paged extend passes its own)."""
         b, l, d = h.shape
         hn = layernorm(h, blk.ln1_scale, blk.ln1_bias)
         kv_shape = (b, l, self.num_kv_heads, self.head_dim)
@@ -260,7 +291,7 @@ class GPTLM:
         v = self._dot(hn, blk.wv).reshape(kv_shape)
         if self.pos_embedding == "rope":
             q, k = rope(q, positions), rope(k, positions)
-        attn = self._attend(q, k, v, kv_lens)
+        attn = attend(q, k, v) if attend else self._attend(q, k, v, kv_lens)
         h = h + self._dot(attn.reshape(b, l, d), blk.wo)
         hn2 = layernorm(h, blk.ln2_scale, blk.ln2_bias)
         return h + self._ffn(blk, hn2), (k, v)
@@ -364,11 +395,7 @@ class GPTLM:
             else active.bool()
         )
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
-        kw = dict(
-            num_heads=self.num_heads,
-            rope=self.pos_embedding == "rope",
-            compute_dtype=self.compute_dtype,
-        )
+        kw = self._kernel_kw()
         if self._resolve_decode_engine(engine) == "fused":
             weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
             h, _, _ = decode_token_slab(
@@ -382,6 +409,145 @@ class GPTLM:
                 )
                 commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act)
         new_cache = cache._replace(lengths=cache.lengths + act.to(cache.lengths.dtype))
+        return self._logits(params, h), new_cache
+
+    # -- paged decoding (block-table cache, serve.py paged=True) -----------
+
+    def _kernel_kw(self):
+        return dict(num_heads=self.num_heads, rope=self.pos_embedding == "rope",
+                    compute_dtype=self.compute_dtype)
+
+    def paged_blocks_per_slot(self, block_size: int) -> int:
+        """Block-table width: blocks to address ``max_len`` positions (the
+        table is sized for the worst request; the POOL is what paging
+        shrinks)."""
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        return -(-self.max_len // block_size)
+
+    def empty_paged_cache(self, slots: int, num_blocks: int, block_size: int = 16,
+                          kv_dtype: str = "bf16", *, device=None) -> PagedKVCache:
+        """A vacant :class:`PagedKVCache`: ``num_blocks`` pool blocks of
+        ``block_size`` positions in the compute dtype, all-zero block
+        tables (unreachable while lengths are 0)."""
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        if kv_dtype != "bf16":
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} pools are not ported yet (ROADMAP A3)"
+            )
+        dev = resolve_device(device)
+        shape = (self.num_layers, num_blocks, block_size, self.num_kv_heads,
+                 self.head_dim)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+            v=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+            block_tables=torch.zeros(
+                (slots, self.paged_blocks_per_slot(block_size)), dtype=torch.int32,
+                device=dev),
+            lengths=torch.zeros(slots, dtype=torch.int32, device=dev),
+        )
+
+    def extend_paged(self, params, cache: PagedKVCache, tokens, suffix_lens,
+                     prefix_lens, admit):
+        """Batched ragged EXTEND through the block tables: the suffix block
+        ``tokens`` [S, L] (right-padded, real lengths ``suffix_lens``) at
+        absolute positions ``prefix_lens[s] + 0..L-1``, each query over the
+        slot's cached prefix (read through its table) plus the suffix
+        itself causally; the suffix K/V are scattered into the pool where
+        ``token_mask & admit``, in place. Returns (per-position logits
+        [S, L, vocab], the cache). ``lengths``/``block_tables`` stay the
+        caller's: admission commits ``prefix + suffix``, the speculative
+        verify only the emitted tokens. The caller guarantees every
+        written position lies in the slot's reserved blocks."""
+        s, l = tokens.shape
+        dev = tokens.device
+        positions = prefix_lens.long()[:, None] + torch.arange(l, device=dev)[None, :]
+        token_mask = torch.arange(l, device=dev)[None, :] < suffix_lens[:, None]
+        h = self._embed_tokens(params, tokens, positions)
+        tables = cache.block_tables
+        ks, vs = [], []
+        for i in range(self.num_layers):
+            kview = gather_block_view(cache.k[i], tables)
+            vview = gather_block_view(cache.v[i], tables)
+
+            def attend(q, k, v, kview=kview, vview=vview):
+                return paged_extend_attention(
+                    q, k, v, kview, vview, positions, prefix_lens, suffix_lens
+                )
+
+            h, (k, v) = self._block(
+                layer_params(params.blocks, i), h, positions, attend=attend
+            )
+            ks.append(k)
+            vs.append(v)
+        valid = token_mask & admit.bool()[:, None]
+        scatter_token_kv_all_layers(cache.k, torch.stack(ks), tables, positions, valid)
+        scatter_token_kv_all_layers(cache.v, torch.stack(vs), tables, positions, valid)
+        return self._logits(params, h), cache
+
+    def verify_paged(self, params, cache: PagedKVCache, tokens, suffix_lens,
+                     prefix_lens, admit, *, engine: str | None = None):
+        """The speculation-verify extend: :meth:`extend_paged`'s contract
+        (per-position logits [S, L, vocab], the pool written in place,
+        lengths/tables the caller's), engine-dispatched. "fused" runs the
+        verify kernel (``ops/fused_decode.verify_tokens_paged``: one launch
+        over all layers, the valid rows committed in the kernel; the
+        logits head stays a plain product); "fused-layer" delegates to
+        :meth:`extend_paged`, as the JAX per-layer and XLA engines do."""
+        if self._resolve_decode_engine(engine) != "fused":
+            return self.extend_paged(
+                params, cache, tokens, suffix_lens, prefix_lens, admit
+            )
+        l = tokens.shape[1]
+        positions = prefix_lens.long()[:, None] + torch.arange(l, device=tokens.device)
+        h = self._embed_tokens(params, tokens, positions)
+        weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
+        hr = verify_tokens_paged(
+            h, weights, cache.k, cache.v, cache.block_tables, prefix_lens,
+            suffix_lens, admit, **self._kernel_kw(),
+        )
+        return self._logits(params, hr), cache
+
+    def decode_paged(self, params, token, cache: PagedKVCache, active=None, *,
+                     engine: str | None = None):
+        """Append one token per slot through the block tables — the paged
+        counterpart of :meth:`decode_slots` (same masking contract). The
+        caller guarantees each active slot's table covers ``lengths[s]``
+        (the server reserves ``prompt + max_new`` positions at admission).
+        JAX's "KV cache full" check runs only on CPU tensors, where it
+        costs no device sync."""
+        s = token.shape[0]
+        act = (
+            torch.ones(s, dtype=torch.bool, device=token.device)
+            if active is None
+            else active.bool()
+        )
+        if not token.is_cuda and bool(act.any()):
+            worst = int(torch.where(act, cache.lengths, 0).max())
+            if worst >= self.max_len:
+                raise ValueError(
+                    f"KV cache full: an active slot is at length {worst} == "
+                    f"max_len {self.max_len}; increase max_len"
+                )
+        h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
+        kw = self._kernel_kw()
+        tables, lengths = cache.block_tables, cache.lengths
+        if self._resolve_decode_engine(engine) == "fused":
+            weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
+            h, _, _ = decode_token_paged(
+                h, weights, cache.k, cache.v, tables, lengths, act, **kw
+            )
+        else:
+            for i in range(self.num_layers):
+                weights = {nm: getattr(params.blocks, nm)[i] for nm in WEIGHT_NAMES}
+                h, kq, vq = decode_block_paged(
+                    h, weights, cache.k[i], cache.v[i], tables, lengths, **kw
+                )
+                commit_paged_rows(cache.k[i], cache.v[i], kq, vq, tables, lengths, act)
+        new_cache = cache._replace(lengths=lengths + act.to(lengths.dtype))
         return self._logits(params, h), new_cache
 
 

@@ -33,6 +33,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # through (chip_smoke.py zeroes them before driving each path).
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "decode_block_slab": 0, "decode_token_slab": 0,
+    "decode_block_paged": 0, "decode_token_paged": 0, "verify_tokens_paged": 0,
     "fused_mlp_step": 0, "fused_mlp_epoch": 0,
 }
 # ptxas's register/shared-memory report of each build, for the smoke log.

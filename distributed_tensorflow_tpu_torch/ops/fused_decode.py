@@ -1,32 +1,45 @@
-"""Fused single-token GPT decode: the CUDA kernels and their plain versions.
+"""Fused GPT decode and speculation verify: the CUDA kernels and their plain
+versions.
 
-Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py`` for the
-bf16 slab cache:
+Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py`` for bf16
+caches, slab and paged:
 
-- :func:`decode_block_slab` (JAX :524) — one layer's step per slot; the
-  fresh K/V rows return to the caller, which commits them with
-  :func:`commit_slot_rows`. Kernel ``decode_block_kernel`` in
+- :func:`decode_block_slab` (JAX :524) and :func:`decode_block_paged`
+  (:566) — one layer's step per slot; the fresh K/V rows return to the
+  caller, which commits them (:func:`commit_slot_rows`,
+  :func:`commit_paged_rows`). Kernel ``decode_block_kernel`` in
   ``csrc/fused_decode.cu`` replaces ``_fused_decode_kernel`` (:181).
-- :func:`decode_token_slab` (JAX :1007) — every layer in one launch, the
-  commit done in the kernel for active rows only. Kernel
-  ``decode_token_kernel`` replaces ``_mega_decode_kernel`` (:618).
+- :func:`decode_token_slab` (JAX :1007) and :func:`decode_token_paged`
+  (:1046) — every layer in one launch, the commit done in the kernel for
+  active rows only. Kernel ``decode_token_kernel`` replaces
+  ``_mega_decode_kernel`` (:618).
+- :func:`verify_tokens_paged` (JAX :1305) — the speculation verify: L
+  draft rows per slot through every layer in one launch over the paged
+  pool, committing the real rows in the kernel. Kernel ``verify_kernel``
+  replaces ``_verify_kernel`` (:1083).
 
-The plain versions follow the JAX package's XLA engine
-(``models/gpt.py`` ``_decode_block_slots`` and ``_commit_slot_rows``):
-layernorm and softmax in f32, products of compute-dtype operands with f32
-accumulation, the fresh rows round-tripped through the cache dtype, the
-normalized softmax weights cast to the cache dtype before they weight the
-values. Attention reads the PRE-write cache (positions < length) and
-takes the fresh row at position ``length`` from the projection, which is
-the same sum the XLA engine forms after its commit.
+The plain decode versions follow the JAX package's XLA engine
+(``models/gpt.py`` ``_decode_block_slots`` / ``_decode_block_paged`` and
+the commits): layernorm and softmax in f32, products of compute-dtype
+operands with f32 accumulation, the fresh rows round-tripped through the
+cache dtype, the normalized softmax weights cast to the cache dtype before
+they weight the values. Attention reads the PRE-write cache (positions <
+length) and takes the fresh row at position ``length`` from the
+projection, which is the same sum the XLA engine forms after its commit.
+The plain verify follows the JAX verify kernel: ``extend_paged``'s math
+with the fresh rows rounded through the cache dtype before attention and
+commit, f32 softmax weights, and 0 for a row with no valid key.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-version. Caches are updated IN PLACE (the JAX functions return new
-arrays; here the returned tensors are the ones passed in).
+version. Caches and pools are updated IN PLACE (the JAX functions return
+new arrays; here the returned tensors are the ones passed in). Paged
+position ``p`` of slot ``s`` lives at ``pool[table[s, p // bs], p % bs]``;
+the tables must hold valid block ids for every position a launch reads or
+writes (the kernels do not check them).
 
 ``weights`` is a dict of the block fields of ``GPTBlockParams`` — one
-layer's tensors for :func:`decode_block_slab`, layer-stacked ones (leading
-[n_layers]) for :func:`decode_token_slab`.
+layer's tensors for the per-layer functions, layer-stacked ones (leading
+[n_layers]) for the others.
 """
 
 from __future__ import annotations
@@ -40,6 +53,11 @@ import torch.nn.functional as F
 from distributed_tensorflow_tpu_torch.models.base import layernorm, rope
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import NEG_INF, group_query_heads
+from distributed_tensorflow_tpu_torch.ops.paged_attention import (
+    gather_block_view,
+    paged_extend_attention,
+    scatter_token_kv,
+)
 
 WEIGHT_NAMES = (
     "ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
@@ -47,6 +65,9 @@ WEIGHT_NAMES = (
 )
 # The projections, stored in the compute dtype; the rest stay f32.
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+# Most draft rows per slot the verify kernel takes (LMAX in the source).
+VERIFY_MAX_ROWS = 8
+_rope = rope  # the wrappers' keyword `rope` shadows the function inside them
 
 
 def dot(x, w, compute_dtype):
@@ -72,9 +93,29 @@ def commit_slot_rows(ck, cv, kq, vq, lengths, active):
     cv[rows, pos] = torch.where(act, vq.to(cv.dtype), cv[rows, pos])
 
 
+def commit_paged_rows(pool_k, pool_v, kq, vq, tables, lengths, active):
+    """The JAX ``_commit_paged_rows``: write the fresh rows [S, Hkv, Dh]
+    into one layer's pool [NB, bs, Hkv, Dh] at position ``lengths[s]``
+    through the tables, for active rows below the tables' extent (the
+    kernel's rule); the others are dropped. In place."""
+    extent = tables.shape[1] * pool_k.shape[1]
+    valid = (active.bool() & (lengths < extent))[:, None]
+    pos = lengths[:, None]
+    scatter_token_kv(pool_k, kq[:, None], tables, pos, valid)
+    scatter_token_kv(pool_v, vq[:, None], tables, pos, valid)
+
+
+def _ffn_plain(h, w, cd):
+    """LN2, the tanh-GELU FFN and its residual."""
+    hn2 = layernorm(h, w["ln2_scale"], w["ln2_bias"])
+    up = dot(hn2, w["w_up"], cd) + w["b_up"]
+    return h + dot(F.gelu(up, approximate="tanh"), w["w_down"], cd) + w["b_down"]
+
+
 def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd):
-    """One layer's step (plain): returns (h_out [S, d] f32, k_fresh,
-    v_fresh [S, Hkv, Dh] in the cache dtype)."""
+    """One layer's step (plain) over the per-slot view ``ck``/``cv``
+    [S, C, Hkv, Dh]: returns (h_out [S, d] f32, k_fresh, v_fresh
+    [S, Hkv, Dh] in the cache dtype)."""
     s, d = h.shape
     c, hkv, dh = ck.shape[1], ck.shape[2], ck.shape[3]
     hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
@@ -95,10 +136,11 @@ def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd):
     attn = torch.einsum("shgk,skhd->shgd", p[..., :c], cv.float())
     attn = attn + p[..., c:] * vq.float()[:, :, None, :]
     h = h + dot(attn.reshape(s, num_heads * dh), w["wo"], cd)
-    hn2 = layernorm(h, w["ln2_scale"], w["ln2_bias"])
-    up = dot(hn2, w["w_up"], cd) + w["b_up"]
-    ffn = dot(F.gelu(up, approximate="tanh"), w["w_down"], cd) + w["b_down"]
-    return h + ffn, kq, vq
+    return _ffn_plain(h, w, cd), kq, vq
+
+
+def _layer(weights, i):
+    return {nm: weights[nm][i] for nm in WEIGHT_NAMES}
 
 
 def decode_block_slab_plain(h, weights, ck, cv, lengths, *, num_heads,
@@ -115,54 +157,133 @@ def decode_token_slab_plain(h, weights, ck, cv, lengths, active, *, num_heads,
     commit, layer by layer."""
     h = h.float()
     for i in range(ck.shape[0]):
-        wl = {nm: weights[nm][i] for nm in WEIGHT_NAMES}
         h, kq, vq = _block_plain(
-            h, wl, ck[i], cv[i], lengths, num_heads, rope, compute_dtype
+            h, _layer(weights, i), ck[i], cv[i], lengths, num_heads, rope, compute_dtype
         )
         commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active)
     return h, ck, cv
 
 
+def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *,
+                             num_heads, rope=False, compute_dtype=torch.bfloat16):
+    """Plain version of :func:`decode_block_paged`: the PRE-write view
+    gathered through the tables, then the slab step."""
+    ck = gather_block_view(pool_k, tables)
+    cv = gather_block_view(pool_v, tables)
+    return _block_plain(
+        h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype
+    )
+
+
+def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active, *,
+                             num_heads, rope=False, compute_dtype=torch.bfloat16):
+    """Plain version of :func:`decode_token_paged`: per layer, the step over
+    the gathered view, then the fresh row scattered through the tables."""
+    h = h.float()
+    for i in range(pool_k.shape[0]):
+        h, kq, vq = decode_block_paged_plain(
+            h, _layer(weights, i), pool_k[i], pool_v[i], tables, lengths,
+            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype,
+        )
+        commit_paged_rows(pool_k[i], pool_v[i], kq, vq, tables, lengths, active)
+    return h, pool_k, pool_v
+
+
+def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
+                              suffix_lens, active, *, num_heads, rope=False,
+                              compute_dtype=torch.bfloat16):
+    """Plain version of :func:`verify_tokens_paged`: per layer,
+    ``extend_paged``'s block with the fresh K/V rounded through the pool
+    dtype before attention, a row with no valid key giving 0, and the real
+    rows of active slots scattered into the pool after that layer's
+    attention. Returns ``h_out`` [S, L, d] f32."""
+    s, l, d = h.shape
+    hkv, dh = pool_k.shape[-2], pool_k.shape[-1]
+    dev = h.device
+    positions = prefix_lens.long()[:, None] + torch.arange(l, device=dev)[None, :]
+    extent = tables.shape[1] * pool_k.shape[2]
+    valid = (
+        (torch.arange(l, device=dev)[None, :] < suffix_lens[:, None])
+        & active.bool()[:, None] & (positions < extent)
+    )
+    alive = ((prefix_lens > 0) | (suffix_lens > 0))[:, None, None, None]
+    h = h.float()
+    cd = compute_dtype
+    for i in range(pool_k.shape[0]):
+        w = _layer(weights, i)
+        hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
+        q = dot(hn, w["wq"], cd).reshape(s, l, num_heads, dh)
+        k = dot(hn, w["wk"], cd).reshape(s, l, hkv, dh)
+        v = dot(hn, w["wv"], cd).reshape(s, l, hkv, dh)
+        if rope:
+            q, k = _rope(q, positions), _rope(k, positions)
+        kq, vq = k.to(pool_k.dtype), v.to(pool_v.dtype)
+        attn = paged_extend_attention(
+            q, kq, vq, gather_block_view(pool_k[i], tables),
+            gather_block_view(pool_v[i], tables), positions, prefix_lens, suffix_lens,
+        )
+        attn = torch.where(alive, attn, torch.zeros_like(attn))
+        h = _ffn_plain(h + dot(attn.reshape(s, l, d), w["wo"], cd), w, cd)
+        scatter_token_kv(pool_k[i], kq, tables, positions, valid)
+        scatter_token_kv(pool_v[i], vq, tables, positions, valid)
+    return h
+
+
 # -- the CUDA kernels --------------------------------------------------------
 
-_COMMON = [ctypes.c_void_p] * 14  # h_in, h_out, 12 weights
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_COMMON = [_PTR] * 14  # h_in, h_out, 12 weights
 
 
-def _kernel_args(h, weights, ck, cv, num_heads, rope_on, compute_dtype):
-    """Validate and lay out the kernels' inputs; returns (h, ordered weight
-    tensors, dims). Raises for anything outside the kernels' envelope."""
+def _check_kernel_dtypes(rope_on, compute_dtype, cache_dtype):
     if rope_on:
         raise NotImplementedError(
             "rope on the CUDA decode kernels is not ported yet (ROADMAP A3)"
         )
-    if compute_dtype != torch.bfloat16 or ck.dtype != torch.bfloat16:
+    if compute_dtype != torch.bfloat16 or cache_dtype != torch.bfloat16:
         raise NotImplementedError(
-            "the CUDA decode kernels take a bf16 model with a bf16 slab cache; "
-            f"got compute {compute_dtype}, cache {ck.dtype} (int8/fp8 KV: "
+            "the CUDA decode kernels take a bf16 model with a bf16 cache; "
+            f"got compute {compute_dtype}, cache {cache_dtype} (int8/fp8 KV: "
             "ROADMAP A3)"
         )
+
+
+def _kernel_args(h, weights, ck, cv, num_heads, rope_on, compute_dtype, tables=None):
+    """Validate and lay out the decode kernels' inputs (a slab cache, or a
+    pool with its ``tables``); returns (h, weight tensors, dims
+    (S, d, Hq, Hkv, Dh, F, C), lib). Raises for anything outside the
+    kernels' envelope."""
+    _check_kernel_dtypes(rope_on, compute_dtype, ck.dtype)
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
-    s, d = h.shape
-    c, hkv, dh = ck.shape[-3], ck.shape[-2], ck.shape[-1]
+    s, d = h.shape[0], h.shape[-1]
+    hkv, dh = ck.shape[-2], ck.shape[-1]
+    mb = 0 if tables is None else tables.shape[1]
+    c = ck.shape[-3] * (mb or 1)  # slab length, or the tables' extent
     f = weights["w_up"].shape[-1]
     dims = (s, d, num_heads, hkv, dh, f, c)
     lib = _build.load("fused_decode")
-    lib.decode_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.decode_smem_bytes.argtypes = [_INT] * 8
     lib.decode_smem_bytes.restype = ctypes.c_longlong
-    if lib.decode_smem_bytes(*dims) <= 0:
+    if lib.decode_smem_bytes(*dims, mb) <= 0:
         raise ValueError(
             f"decode kernels do not take (S, d, Hq, Hkv, Dh, F, C)={dims}: "
             "they need head_dim 64 or 128, at most 8 query heads per KV "
             "head, widths divisible by 8, and the cache's score row in "
             "227 KB of shared memory"
         )
-    ws = []
-    for nm in WEIGHT_NAMES:
-        t = weights[nm]
-        dt = torch.bfloat16 if nm in PROJ_NAMES else torch.float32
-        ws.append(t.to(device=h.device, dtype=dt).contiguous())
-    return h.float().contiguous(), ws, dims, lib
+    return h.float().contiguous(), _kernel_weights(weights, h.device), dims, lib
+
+
+def _kernel_weights(weights, dev):
+    """The weights as the kernels take them, in ``WEIGHT_NAMES`` order:
+    projections bf16, the rest f32, contiguous."""
+    return [
+        weights[nm].to(device=dev, dtype=torch.bfloat16 if nm in PROJ_NAMES
+                       else torch.float32).contiguous()
+        for nm in WEIGHT_NAMES
+    ]
 
 
 def _ordered_ptrs(ws):
@@ -171,6 +292,27 @@ def _ordered_ptrs(ws):
     order = ("wq", "wk", "wv", "wo", "ln1_scale", "ln1_bias", "ln2_scale",
              "ln2_bias", "w_up", "b_up", "w_down", "b_down")
     return [by[nm].data_ptr() for nm in order]
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def _stream(h):
+    return torch.cuda.current_stream(h.device).cuda_stream
+
+
+def _launch(lib, name, argtypes, *args):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _build.check(fn(*args), name)
+    _build.LAUNCHES[name] += 1
+
+
+def _cpu_only(h):
+    if h.device.type != "cpu":
+        raise ValueError(f"decode runs on cuda or cpu, got {h.device}")
 
 
 def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
@@ -182,31 +324,21 @@ def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
     [S] int write positions. Returns ``(h_out [S, d] f32, k_fresh,
     v_fresh [S, Hkv, Dh] cache dtype)``."""
     if not h.is_cuda:
-        if h.device.type != "cpu":
-            raise ValueError(f"decode runs on cuda or cpu, got {h.device}")
+        _cpu_only(h)
         return decode_block_slab_plain(
             h, weights, ck, cv, lengths, num_heads=num_heads, rope=rope,
             compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(
-        h, weights, ck, cv, num_heads, rope, compute_dtype
-    )
+    h, ws, dims, lib = _kernel_args(h, weights, ck, cv, num_heads, rope, compute_dtype)
     s, _, _, hkv, dh, _, _ = dims
     out = torch.empty_like(h)
     kf = torch.empty((s, hkv, dh), dtype=ck.dtype, device=h.device)
     vf = torch.empty_like(kf)
-    lens = lengths.to(torch.int32).contiguous()
-    fn = lib.decode_block_slab
-    fn.argtypes = _COMMON + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws),
-        ck.data_ptr(), cv.data_ptr(), lens.data_ptr(),
-        kf.data_ptr(), vf.data_ptr(), *dims,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    _build.check(err, "decode_block_slab")
-    _build.LAUNCHES["decode_block_slab"] += 1
+    lens = _i32(lengths)
+    _launch(lib, "decode_block_slab", _COMMON + [_PTR] * 5 + [_INT] * 7 + [_PTR],
+            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), ck.data_ptr(),
+            cv.data_ptr(), lens.data_ptr(), kf.data_ptr(), vf.data_ptr(), *dims,
+            _stream(h))
     return out, kf, vf
 
 
@@ -219,27 +351,125 @@ def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
     ``active`` [S] bool. Returns ``(h_out [S, d] f32, ck, cv)`` with the
     fresh rows committed in place at the active rows' ``lengths``."""
     if not h.is_cuda:
-        if h.device.type != "cpu":
-            raise ValueError(f"decode runs on cuda or cpu, got {h.device}")
+        _cpu_only(h)
         return decode_token_slab_plain(
             h, weights, ck, cv, lengths, active, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(
-        h, weights, ck, cv, num_heads, rope, compute_dtype
-    )
+    h, ws, dims, lib = _kernel_args(h, weights, ck, cv, num_heads, rope, compute_dtype)
     out = torch.empty_like(h)
-    lens = lengths.to(torch.int32).contiguous()
-    act = active.to(torch.int32).contiguous()
-    fn = lib.decode_token_slab
-    fn.argtypes = _COMMON + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws),
-        ck.data_ptr(), cv.data_ptr(), lens.data_ptr(), act.data_ptr(),
-        ck.shape[0], *dims,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    _build.check(err, "decode_token_slab")
-    _build.LAUNCHES["decode_token_slab"] += 1
+    lens, act = _i32(lengths), _i32(active)
+    _launch(lib, "decode_token_slab", _COMMON + [_PTR] * 4 + [_INT] * 8 + [_PTR],
+            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), ck.data_ptr(),
+            cv.data_ptr(), lens.data_ptr(), act.data_ptr(), ck.shape[0], *dims,
+            _stream(h))
     return out, ck, cv
+
+
+def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
+                       rope=False, compute_dtype=torch.bfloat16):
+    """One GPT block's single-token step over one layer's block pool.
+
+    ``pool_k``/``pool_v`` [NB, bs, Hkv, Dh] (PRE-write, not modified),
+    ``tables`` [S, MB] int block ids, the rest as in
+    :func:`decode_block_slab`. Returns ``(h_out [S, d] f32, k_fresh,
+    v_fresh [S, Hkv, Dh])``; the caller commits with
+    :func:`commit_paged_rows`."""
+    if not h.is_cuda:
+        _cpu_only(h)
+        return decode_block_paged_plain(
+            h, weights, pool_k, pool_v, tables, lengths, num_heads=num_heads,
+            rope=rope, compute_dtype=compute_dtype,
+        )
+    h, ws, dims, lib = _kernel_args(
+        h, weights, pool_k, pool_v, num_heads, rope, compute_dtype, tables
+    )
+    s, d, hq, hkv, dh, f, _ = dims
+    out = torch.empty_like(h)
+    kf = torch.empty((s, hkv, dh), dtype=pool_k.dtype, device=h.device)
+    vf = torch.empty_like(kf)
+    lens, tabs = _i32(lengths), _i32(tables)
+    _launch(lib, "decode_block_paged", _COMMON + [_PTR] * 6 + [_INT] * 8 + [_PTR],
+            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
+            pool_v.data_ptr(), lens.data_ptr(), tabs.data_ptr(), kf.data_ptr(),
+            vf.data_ptr(), s, d, hq, hkv, dh, f, pool_k.shape[1], tabs.shape[1],
+            _stream(h))
+    return out, kf, vf
+
+
+def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
+                       num_heads, rope=False, compute_dtype=torch.bfloat16):
+    """The whole model's single-token step over the block pool, one launch.
+
+    ``pool_k``/``pool_v`` [n_layers, NB, bs, Hkv, Dh], ``tables`` [S, MB],
+    the rest as in :func:`decode_token_slab`. Returns ``(h_out, pool_k,
+    pool_v)`` with each active row's fresh K/V committed in place at
+    ``pool[l, tables[s, len // bs], len % bs]``."""
+    if not h.is_cuda:
+        _cpu_only(h)
+        return decode_token_paged_plain(
+            h, weights, pool_k, pool_v, tables, lengths, active, num_heads=num_heads,
+            rope=rope, compute_dtype=compute_dtype,
+        )
+    h, ws, dims, lib = _kernel_args(
+        h, weights, pool_k, pool_v, num_heads, rope, compute_dtype, tables
+    )
+    s, d, hq, hkv, dh, f, _ = dims
+    out = torch.empty_like(h)
+    lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
+    n, nb, bs = pool_k.shape[:3]
+    _launch(lib, "decode_token_paged", _COMMON + [_PTR] * 5 + [_INT] * 10 + [_PTR],
+            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
+            pool_v.data_ptr(), lens.data_ptr(), act.data_ptr(), tabs.data_ptr(), n, s,
+            d, hq, hkv, dh, f, nb, bs, tabs.shape[1], _stream(h))
+    return out, pool_k, pool_v
+
+
+def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens,
+                        active, *, num_heads, rope=False, compute_dtype=torch.bfloat16):
+    """The speculation verify over the block pool, every layer in one
+    launch.
+
+    ``h`` [S, L, d] f32 embedded draft rows (L ≤ 8) at positions
+    ``prefix_lens[s] + li``; ``suffix_lens`` [S] real rows per slot;
+    ``active`` [S] bool; ``weights`` layer-stacked; pools and tables as in
+    :func:`decode_token_paged`. Each row attends the pool STRICTLY below
+    its slot's prefix length (read pre-write) and the slot's fresh rows
+    ``lj <= li, lj < suffix_len``, rounded through the pool dtype. Each
+    layer commits position ``prefix + li`` where active and ``li <
+    suffix_len``, in place. Returns ``h_out`` [S, L, d] f32; lengths and
+    tables stay the caller's."""
+    if not h.is_cuda:
+        _cpu_only(h)
+        return verify_tokens_paged_plain(
+            h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens, active,
+            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype,
+        )
+    _check_kernel_dtypes(rope, compute_dtype, pool_k.dtype)
+    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+        raise ValueError("the KV pool must be contiguous")
+    s, l, d = h.shape
+    n, nb, bs, hkv, dh = pool_k.shape
+    f = weights["w_up"].shape[-1]
+    tabs = _i32(tables)
+    lib = _build.load("fused_decode")
+    lib.verify_smem_bytes.argtypes = [_INT] * 8
+    lib.verify_smem_bytes.restype = ctypes.c_longlong
+    geo = (l, d, num_heads, hkv, dh, f, bs, tabs.shape[1])
+    if lib.verify_smem_bytes(*geo) <= 0:
+        raise ValueError(
+            f"the verify kernel does not take (L, d, Hq, Hkv, Dh, F, bs, MB)={geo}: "
+            f"it needs 1 <= L <= {VERIFY_MAX_ROWS}, head_dim 64 or 128, at most 8 "
+            "query heads per KV head, widths divisible by 8, and L score rows "
+            "over the tables' extent in 227 KB of shared memory"
+        )
+    ws = _kernel_weights(weights, h.device)
+    h = h.float().contiguous()
+    out = torch.empty_like(h)
+    plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
+    _launch(lib, "verify_tokens_paged", _COMMON + [_PTR] * 6 + [_INT] * 11 + [_PTR],
+            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
+            pool_v.data_ptr(), tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(),
+            act.data_ptr(), n, s, l, d, num_heads, hkv, dh, f, nb, bs, tabs.shape[1],
+            _stream(h))
+    return out

@@ -157,3 +157,103 @@ def test_decode_kernels_match_plain_on_gpu(hq, hkv, dh):
     assert (k1.float() - k2.float()).abs().max().item() < 5e-2
     assert torch.equal(k1[:, 2], ck[:, 2])  # the inactive row is not written
     assert not torch.equal(k1[:, 0, 5], ck[:, 0, 5])  # the active one is
+
+
+def _gpu_weights(g, n, hq, hkv, dh):
+    d, f = hq * dh, 4 * hq * dh
+
+    def r(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, device="cuda", generator=g) * scale).to(dt)
+
+    w = {"ln1_scale": 1 + r(n, d, scale=0.1), "ln1_bias": r(n, d, scale=0.05),
+         "ln2_scale": 1 + r(n, d, scale=0.1), "ln2_bias": r(n, d, scale=0.05),
+         "b_up": r(n, f, scale=0.05), "b_down": r(n, d, scale=0.05)}
+    for nm, shape in (("wq", (n, d, d)), ("wk", (n, d, hkv * dh)),
+                      ("wv", (n, d, hkv * dh)), ("wo", (n, d, d)),
+                      ("w_up", (n, d, f)), ("w_down", (n, f, d))):
+        w[nm] = r(*shape, scale=shape[1] ** -0.5, dt=torch.bfloat16)
+    return w, r
+
+
+def _pool_from_slab(ck, tables, nb, bs):
+    """The slab cache [n, S, C, Hkv, Dh] copied into a pool through tables."""
+    n, s, c, hkv, dh = ck.shape
+    pool = torch.randn(n, nb, bs, hkv, dh, device=ck.device).to(ck.dtype)
+    for i in range(s):
+        pool[:, tables[i].long()] = ck[:, i].reshape(n, c // bs, bs, hkv, dh)
+    return pool
+
+
+def _writable(tables, starts, counts, active, nb, bs):
+    """[NB, bs] mask of the pool rows a launch may write."""
+    m = torch.zeros(nb, bs, dtype=torch.bool)
+    for s in range(tables.shape[0]):
+        if active[s]:
+            for p in range(int(starts[s]), int(starts[s]) + int(counts[s])):
+                m[int(tables[s, p // bs]), p % bs] = True
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 8])
+@pytest.mark.parametrize("hq,hkv,dh", [(2, 2, 64), (4, 2, 64), (2, 1, 128)])
+def test_paged_kernels_match_plain_on_gpu(hq, hkv, dh, bs):
+    """decode_block_paged, decode_token_paged and verify_tokens_paged
+    against their plain versions on scrambled tables; the paged megakernel
+    equal to the slab one bit for bit on the same logical cache; pool rows
+    outside those a launch may write unchanged bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n, s, c = 2, 3, 64
+    nb = 3 * (c // bs) + 5
+    w, r = _gpu_weights(g, n, hq, hkv, dh)
+    d = hq * dh
+    tables = torch.randperm(nb, device="cuda")[: s * (c // bs)].reshape(s, c // bs).int()
+    ck = r(n, s, c, hkv, dh, dt=torch.bfloat16)
+    cv = r(n, s, c, hkv, dh, dt=torch.bfloat16)
+    pk, pv = _pool_from_slab(ck, tables, nb, bs), _pool_from_slab(cv, tables, nb, bs)
+    lengths = torch.tensor([5, 63, 20], device="cuda")
+    act = torch.tensor([True, True, False], device="cuda")
+    x = r(s, d)
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+    tol = 2e-2  # bf16 intermediates may round to neighbouring values
+
+    def close(a, b):
+        return (a.float() - b.float()).abs().max().item() <= tol * max(1.0, b.float().abs().max().item())
+
+    w0 = {k: t[0] for k, t in w.items()}
+    o1, k1, v1 = fd.decode_block_paged(x, w0, pk[0], pv[0], tables, lengths, **kw)
+    o2, k2, v2 = fd.decode_block_paged_plain(x, w0, pk[0], pv[0], tables, lengths, **kw)
+    assert close(o1, o2) and close(k1, k2) and close(v1, v2)
+    os_, _, _ = fd.decode_block_slab(x, w0, ck[0], cv[0], lengths, **kw)
+    assert torch.equal(o1, os_)
+
+    pk1, pv1 = pk.clone(), pv.clone()
+    o1, _, _ = fd.decode_token_paged(x, w, pk1, pv1, tables, lengths, act, **kw)
+    pk2, pv2 = pk.clone(), pv.clone()
+    o2, _, _ = fd.decode_token_paged_plain(x, w, pk2, pv2, tables, lengths, act, **kw)
+    assert close(o1, o2) and close(pk1, pk2) and close(pv1, pv2)
+    ck1, cv1 = ck.clone(), cv.clone()
+    os_, _, _ = fd.decode_token_slab(x, w, ck1, cv1, lengths, act, **kw)
+    assert torch.equal(o1, os_)  # paged == slab, bit for bit
+    assert torch.equal(_pool_from_slab(ck1, tables, nb, bs)[:, tables.long()], pk1[:, tables.long()])
+    free = ~_writable(tables.cpu(), lengths, [1] * s, act, nb, bs).cuda()
+    assert torch.equal(pk1[:, free], pk[:, free]) and torch.equal(pv1[:, free], pv[:, free])
+
+    L = 5
+    plens = torch.tensor([13, 0, 41], device="cuda")  # not block-aligned
+    slens = torch.tensor([5, 3, 1], device="cuda")
+    vact = torch.tensor([True, True, False], device="cuda")
+    hv = r(s, L, d)
+    pk1, pv1 = pk.clone(), pv.clone()
+    o1 = fd.verify_tokens_paged(hv, w, pk1, pv1, tables, plens, slens, vact, **kw)
+    pk2, pv2 = pk.clone(), pv.clone()
+    o2 = fd.verify_tokens_paged_plain(hv, w, pk2, pv2, tables, plens, slens, vact, **kw)
+    torch.cuda.synchronize()
+    assert close(o1, o2) and close(pk1, pk2) and close(pv1, pv2)
+    free = ~_writable(tables.cpu(), plens, slens, vact, nb, bs).cuda()
+    assert torch.equal(pk1[:, free], pk[:, free]) and torch.equal(pv1[:, free], pv[:, free])
+    assert not torch.equal(pk1, pk)
