@@ -12,7 +12,10 @@ reference workload, the MNIST MLP trained by SGD: ``Trainer`` (built by
 ``launch.build_trainer``) with the fused step and whole-epoch kernels.
 Slice 3 serves on a paged block pool (``TextServer(paged=True)``) with
 the radix prefix cache and prompt-lookup speculation, through the paged
-decode kernels and the speculation-verify kernel. Entry points run on
+decode kernels and the speculation-verify kernel. Slice 4 trains ``GPTLM``
+through ``LMTrainer`` (``make_lm_train_step``, Adam/AdamW/momentum, the
+``copy_corpus`` / ``markov_corpus`` token data), with the flash-attention
+backward kernels behind a ``torch.autograd.Function``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """
@@ -46,6 +49,13 @@ _LAZY_EXPORTS = {
     "TrainConfig": ("distributed_tensorflow_tpu_torch.config", "TrainConfig"),
     "read_data_sets": ("distributed_tensorflow_tpu_torch.data.mnist", "read_data_sets"),
     "build_trainer": ("distributed_tensorflow_tpu_torch.launch", "build_trainer"),
+    "LMTrainer": ("distributed_tensorflow_tpu_torch.train.lm_trainer", "LMTrainer"),
+    "make_lm_train_step": (
+        "distributed_tensorflow_tpu_torch.models.gpt",
+        "make_lm_train_step",
+    ),
+    "copy_corpus": ("distributed_tensorflow_tpu_torch.data.tokens", "copy_corpus"),
+    "markov_corpus": ("distributed_tensorflow_tpu_torch.data.tokens", "markov_corpus"),
 }
 
 

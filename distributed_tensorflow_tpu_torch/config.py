@@ -1,7 +1,7 @@
 """Training configuration of the port: the slice of the JAX package's
 ``TrainConfig`` (``distributed_tensorflow_tpu/config.py``) that the MLP
-training path reads, with the same defaults, so one configuration means
-the same run in both packages.
+and GPT training paths read, with the same defaults, so one configuration
+means the same run in both packages.
 
 ``engine`` keeps the JAX values: ``"xla"`` is the generic path (plain
 PyTorch ops and autograd here) and ``"pallas"`` the fused whole-epoch
@@ -24,7 +24,7 @@ NOT_PORTED = {
         ("sync", "async_avg_every", "dp_mode", "per_worker_epoch", "model",
          "param_dtype"), "A6"),
     **dict.fromkeys(
-        ("lr_schedule", "warmup_steps", "accumulate_steps", "grad_clip_norm", "remat"), "A4"),
+        ("lr_schedule", "warmup_steps", "accumulate_steps", "grad_clip_norm"), "A4"),
     "matmul_dtype": "A5",
 }
 
@@ -40,18 +40,29 @@ class _TrainFields:
     log_frequency: int = 100  # print every N batches
     seed: int = 1
     compute_dtype: str = "bfloat16"  # operand dtype of the model's products
-    optimizer: str = "sgd"
+    optimizer: str = "sgd"  # sgd | momentum | adam | adamw (ops/optim.make)
     # "naive" = the reference's CE over probabilities; "stable" = log-softmax.
     loss: str = "naive"
     # One device loop per epoch over staged batches (train/scan.py). None
-    # resolves by device: True on cuda, False on the CPU.
+    # resolves by device: True on cuda, False on the CPU. The MLP Trainer
+    # reads it; the LM trainer has one loop and ignores it.
     scan_epoch: bool | None = None
     # Every epoch, shuffle and eval in one call (train/compiled_run.py).
     compiled_run: bool = False
     # compiled_run engine: "xla" (PyTorch ops) | "pallas" (CUDA kernels).
     engine: str = "xla"
+    # Checkpoint every GPT block in the LM trainer's forward (recomputed in
+    # the backward). "selective" is ROADMAP A4 "Left".
+    remat: bool = False
 
     def __post_init__(self):
+        if self.remat == "selective":
+            raise NotImplementedError(
+                "TrainConfig.remat='selective' is not ported yet (ROADMAP A4 "
+                "\"Left\": selective remat); remat=True checkpoints every block"
+            )
+        if not isinstance(self.remat, bool):
+            raise ValueError(f"remat must be False or True, got {self.remat!r}")
         if self.engine not in ("xla", "pallas"):
             raise ValueError(f"unknown engine {self.engine!r} (xla|pallas)")
         if self.loss not in ("naive", "stable"):

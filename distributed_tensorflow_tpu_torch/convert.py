@@ -10,6 +10,11 @@ read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
 MLP: a flat dict ``{"w1", "b1", "w2", "b2"}`` (the JAX ``MLPParams``
 fields), or that NamedTuple itself; the round trip is bitwise.
 
+Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
+over the GPT param tree), or a dict of those keys, carried to the port's
+``ops/optim.AdamState`` and back, so a run can continue across the two
+packages; the round trip is bitwise.
+
 Paged KV pool: ``{"k", "v", "block_tables", "lengths"}`` (the JAX
 ``PagedKVCache`` fields, or that NamedTuple), so both packages can be fed
 the same pool and tables. A bf16 pool leaves as f32 (exact) and comes back
@@ -30,6 +35,7 @@ from distributed_tensorflow_tpu_torch.models.gpt import (
     map_params,
 )
 from distributed_tensorflow_tpu_torch.models.mlp import MLPParams
+from distributed_tensorflow_tpu_torch.ops.optim import AdamState
 
 
 def _as_dict(tree) -> dict:
@@ -67,6 +73,28 @@ def gpt_params_to_numpy(params: GPTLMParams) -> dict:
     out = p._asdict()
     out["blocks"] = p.blocks._asdict()
     return out
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """optax ``ScaleByAdamState`` (or ``{"count", "mu", "nu"}``) over GPT
+    params → port ``AdamState`` on ``device`` (default cuda): an int32
+    count and f32 moments."""
+    top = _as_dict(state)
+    return AdamState(
+        count=_tensor(top["count"], resolve_device(device), torch.int32).reshape(()),
+        mu=gpt_params_from_numpy(top["mu"], device=device),
+        nu=gpt_params_from_numpy(top["nu"], device=device),
+    )
+
+
+def adam_state_to_numpy(state: AdamState) -> dict:
+    """Port ``AdamState`` → ``{"count": int32 scalar, "mu", "nu"}`` with
+    the moments as nested numpy dicts."""
+    return {
+        "count": np.int32(state.count.item()),
+        "mu": gpt_params_to_numpy(state.mu),
+        "nu": gpt_params_to_numpy(state.nu),
+    }
 
 
 def mlp_params_from_numpy(tree, device=None) -> MLPParams:

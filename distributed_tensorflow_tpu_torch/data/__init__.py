@@ -1,2 +1,2 @@
-"""Data helpers of the port: the byte tokenizer (``text``) and the MNIST
-loader (``mnist``)."""
+"""Data helpers of the port: the byte tokenizer (``text``), the MNIST
+loader (``mnist``) and the token corpora of the LM family (``tokens``)."""

@@ -1,2 +1,2 @@
-"""Model families of the port: the GPT LM's serving subset (``gpt``) and
-the reference MLP (``mlp``)."""
+"""Model families of the port: the GPT LM, serving and training
+(``gpt``), and the reference MLP (``mlp``)."""

@@ -1,14 +1,18 @@
-"""GPT-style causal decoder LM: the serving subset, in PyTorch.
+"""GPT-style causal decoder LM in PyTorch: serving and training.
 
 Counterpart of ``distributed_tensorflow_tpu/models/gpt.py`` ``GPTLM``:
 config and validation (:212-402), ``init`` (:406), the forward pieces
-``_embed_tokens`` / ``_block`` / ``_ffn`` / ``_logits`` / ``apply``
-(:656-789), the slot cache surface ``cache_len`` / ``empty_slot_cache`` /
-``reset_slots`` / ``prefill_slots`` / ``decode_slots`` (:1268-1797) with
-its engine resolution (:1129-1204), and the paged cache surface
-``PagedKVCache`` (:160), ``paged_blocks_per_slot`` / ``empty_paged_cache``
-/ ``extend_paged`` / ``verify_paged`` / ``decode_paged`` (:1871-2273);
-the per-layer engine's commit ``_commit_paged_rows`` (:1234) is
+``_embed_tokens`` / ``_block`` / ``_ffn`` / ``_logits`` (:656-786), the
+training forward and loss ``apply`` / ``loss`` (:789-823, :1078-1125;
+dense blocks only, so without the MoE aux terms) with ``_picked_nll`` /
+``_ce_from_logits`` (:2572-2602) and the single-device
+``make_lm_train_step`` (:3245-3335), the slot cache surface ``cache_len``
+/ ``empty_slot_cache`` / ``reset_slots`` / ``prefill_slots`` /
+``decode_slots`` (:1268-1797) with its engine resolution (:1129-1204),
+and the paged cache surface ``PagedKVCache`` (:160),
+``paged_blocks_per_slot`` / ``empty_paged_cache`` / ``extend_paged`` /
+``verify_paged`` / ``decode_paged`` (:1871-2273); the per-layer engine's
+commit ``_commit_paged_rows`` (:1234) is
 ``ops/fused_decode.commit_paged_rows``.
 
 Architecture as there: token embed + learned positions (or RoPE) → N
@@ -17,18 +21,25 @@ logits through the tied embedding. Products run on compute-dtype operands
 with f32 accumulation; layernorm and softmax are f32.
 
 Parameters are NamedTuples of tensors keyed like the JAX ones, so
-``convert.py`` carries them across through numpy. Prefill attention goes
-through the flash kernel when ``attention_impl="flash"`` (the dense plain
-path otherwise); the paged extend (prefill and the per-layer verify) is
-plain PyTorch, as it is XLA in the JAX package. Single-token decode goes
-through the fused decode kernels and the speculation verify through the
-fused verify kernel. On a CUDA device a kernel launches or raises; on the
-CPU the plain versions run. Caches and pools are updated in place.
+``convert.py`` carries them across through numpy. Attention over a whole
+sequence (training and prefill) goes through the flash kernels when
+``attention_impl="flash"`` (the dense plain path otherwise): the forward
+kernel, and under autograd the backward kernels
+(``ops/flash_attention.FlashAttention``; ``flash_fused`` picks the
+fused backward or the dq + dk/dv pair, None = the auto rule); the paged extend (prefill and
+the per-layer verify) is plain PyTorch, as it is XLA in the JAX package.
+Single-token decode goes through the fused decode kernels and the
+speculation verify through the fused verify kernel. On a CUDA device a
+kernel launches or raises; on the CPU the plain versions run. Caches and
+pools are updated in place. Gradients are torch autograd's where the JAX
+package takes ``jax.value_and_grad``; ``remat=True`` checkpoints each
+block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): MoE blocks and ``matmul_dtype`` (A5), the sliding window
-and int8/fp8 KV caches (A3). RoPE and GQA work on the plain path; RoPE on
-the CUDA kernels is A3 too.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): MoE blocks and ``matmul_dtype`` (A5), the sliding window and
+int8/fp8 KV caches (A3), selective remat (A4 "Left"), the parallel train
+steps (A6/A7). RoPE and GQA work on the plain path; RoPE on the CUDA
+decode kernels is A3 too.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.base import layernorm, rope
@@ -57,6 +69,7 @@ from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     dot,
     verify_tokens_paged,
 )
+from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatten
 from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     gather_block_view,
     paged_extend_attention,
@@ -133,7 +146,9 @@ class GPTLM:
         window: int | None = None,
         moe_experts: int | None = None,
         pos_embedding: str = "learned",
+        remat: bool = False,
         flash_min_len: int | None = None,
+        flash_fused: bool | None = None,
         matmul_dtype: str | None = None,
         decode_engine: str = "auto",
     ):
@@ -164,6 +179,16 @@ class GPTLM:
             raise ValueError(
                 f"rope needs an even head_dim, got {model_dim // num_heads}"
             )
+        if remat == "selective" or callable(remat):
+            raise NotImplementedError(
+                f"remat={remat!r} (a jax.checkpoint policy) is not ported yet "
+                "(ROADMAP A4 \"Left\": selective remat); remat=True checkpoints "
+                "every block"
+            )
+        if not isinstance(remat, bool):
+            raise ValueError(f"remat must be False or True, got {remat!r}")
+        if flash_fused is not None and not isinstance(flash_fused, bool):
+            raise ValueError(f"flash_fused must be None, False or True, got {flash_fused!r}")
         if num_kv_heads is None:
             num_kv_heads = num_heads
         if num_kv_heads < 1:
@@ -192,7 +217,9 @@ class GPTLM:
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
         self.pos_embedding = pos_embedding
+        self.remat = remat
         self.flash_min_len = flash_min_len
+        self.flash_fused = flash_fused
         self.decode_engine = decode_engine
 
     # -- init --------------------------------------------------------------
@@ -259,7 +286,8 @@ class GPTLM:
     def _attend(self, q, k, v, kv_lens=None):
         min_len = FLASH_MIN_LEN if self.flash_min_len is None else self.flash_min_len
         if self.attention_impl == "flash" and q.shape[1] >= min_len:
-            return flash_attention(q, k, v, causal=True, kv_lens=kv_lens)
+            return flash_attention(q, k, v, causal=True, kv_lens=kv_lens,
+                                   fused=self.flash_fused)
         return dense_attention(q, k, v, causal=True, kv_lens=kv_lens)
 
     def _embed_tokens(self, params, tokens, positions):
@@ -300,14 +328,32 @@ class GPTLM:
         hf = layernorm(h, p.lnf_scale, p.lnf_bias)
         return self._dot(hf, p.embed.T)
 
+    def _block_h(self, h, positions, *blk):
+        """:meth:`_block`'s residual stream alone, on the block's tensors
+        as arguments (what ``torch.utils.checkpoint`` wraps)."""
+        return self._block(GPTBlockParams(*blk), h, positions)[0]
+
+    # -- training forward --------------------------------------------------
+
     def apply(self, params: GPTLMParams, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, L] int → logits [B, L, vocab] f32, causal."""
         l = tokens.shape[1]
         positions = torch.arange(l, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
         for i in range(self.num_layers):
-            h, _ = self._block(layer_params(params.blocks, i), h, positions)
+            blk = layer_params(params.blocks, i)
+            if self.remat:
+                h = checkpoint(self._block_h, h, positions, *blk, use_reentrant=False)
+            else:
+                h = self._block_h(h, positions, *blk)
         return self._logits(params, h)
+
+    def loss(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None) -> torch.Tensor:
+        """Training loss: mean next-token cross-entropy (positions 0..L-2
+        predict 1..L-1, f32), masked to targets at positions < lengths[b]
+        when ``lengths`` [B] is given (ragged right-padded batches; causal
+        attention keeps pads out of real positions)."""
+        return ce_from_logits(self.apply(params, tokens), tokens, lengths)
 
     # -- slot-wise decoding (the serving surface, serve.py) ----------------
 
@@ -565,3 +611,58 @@ def map_params(params: GPTLMParams, fn) -> GPTLMParams:
         lnf_scale=fn(params.lnf_scale),
         lnf_bias=fn(params.lnf_bias),
     )
+
+
+def picked_nll(logits32, targets):
+    """Per-position negative log-likelihood ``logsumexp(x) − x[target]``
+    (the JAX ``_picked_nll``; a gather picks the target, the same values as
+    the compare-and-reduce the TPU needed)."""
+    picked = logits32.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits32, dim=-1) - picked
+
+
+def ce_from_logits(logits, tokens, lengths=None):
+    """Mean next-token cross-entropy (positions 0..L-2 predict 1..L-1, f32),
+    masked over ``lengths`` when given (the JAX ``_ce_from_logits``)."""
+    nll = picked_nll(logits[:, :-1].float(), tokens[:, 1:])
+    if lengths is None:
+        return nll.mean()
+    # The target at position i is token i+1: valid iff i+1 < lengths[b].
+    pos = torch.arange(tokens.shape[1] - 1, device=tokens.device)
+    w = (pos[None, :] < (lengths.to(tokens.device)[:, None] - 1)).float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def lm_value_and_grad(model: GPTLM, params: GPTLMParams, tokens, lengths=None):
+    """``(loss, grads)`` of ``model.loss`` at ``params`` by autograd (the
+    JAX ``jax.value_and_grad(model.loss)``); the loss comes back detached,
+    on the device."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = model.loss(tree_unflatten(params, leaves), tokens, lengths)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *,
+                       tp_axis: str | None = None, seq_axis: str | None = None):
+    """``step(params, opt_state, tokens, lengths=None) -> (params, opt_state,
+    loss)`` on one device, for any optimizer of ``ops/optim.py``: the loss
+    (masked over ``lengths`` when given), its gradient, one update. The
+    loss stays on the device. The data-parallel, tp and sp steps (``mesh``,
+    ``tp_axis``, ``seq_axis``) are not ported yet (ROADMAP A6/A7)."""
+    del axis
+    for name, value in (("mesh", mesh), ("tp_axis", tp_axis), ("seq_axis", seq_axis)):
+        if value is not None:
+            raise NotImplementedError(
+                f"make_lm_train_step({name}=...) is not ported yet (ROADMAP A6/A7); "
+                "the port's step runs on one device"
+            )
+
+    def step(params, opt_state, tokens, lengths=None):
+        loss, grads = lm_value_and_grad(model, params, tokens, lengths)
+        with torch.no_grad():
+            params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step

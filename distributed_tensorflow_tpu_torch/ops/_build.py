@@ -20,7 +20,7 @@ import subprocess
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("flash_fwd", "fused_decode", "fused_mlp")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_decode", "fused_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -32,7 +32,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # its kernel and nowhere else, so a run can show which kernels it went
 # through (chip_smoke.py zeroes them before driving each path).
 LAUNCHES: dict[str, int] = {
-    "flash_fwd": 0, "decode_block_slab": 0, "decode_token_slab": 0,
+    "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "decode_block_slab": 0, "decode_token_slab": 0,
     "decode_block_paged": 0, "decode_token_paged": 0, "verify_tokens_paged": 0,
     "fused_mlp_step": 0, "fused_mlp_epoch": 0,
 }

@@ -1,25 +1,38 @@
-"""Flash-attention forward: the CUDA kernel and its plain version.
+"""Flash attention: the CUDA kernels and their plain versions, forward and
+backward.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas_attention.py``
-``flash_attention`` (:822) / ``flash_attention_with_lse`` (:883), forward
-only (the backward kernels come with the training slice). The kernel,
-``csrc/flash_fwd.cu``, replaces the TPU kernel ``_fwd_kernel`` (:208).
+``flash_attention`` (:822) / ``flash_attention_with_lse`` (:883) and their
+custom VJP (:667-880). The forward kernel, ``csrc/flash_fwd.cu``, replaces
+the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
+``csrc/flash_bwd.cu`` replace ``_fused_bwd_kernel`` (:440), ``_dq_kernel``
+(:327) and ``_dkv_kernel`` (:381).
 
 Layout [B, L, H, D] as in the JAX package; the output comes back in the
 input dtype and the log-sum-exp as [B, L, Hq] f32. A CUDA tensor launches
 the kernel (or raises); a CPU tensor runs the plain version. Unlike the
-JAX ``_pick_block``, which refuses L=1023, any length works: the kernel
-masks its ragged last tile.
+JAX ``_pick_block``, which refuses L=1023, any length works: the kernels
+mask their ragged last tile.
+
+Gradients go through :class:`FlashAttention`, a ``torch.autograd.Function``
+used on both devices: its forward is the forward kernel (or the plain
+forward), and its backward forms ``delta = rowsum(dO·O) − dlse`` in f32 and
+then runs the fused backward kernel or the dq + dk/dv pair (chosen by
+:func:`resolve_fused`, a copy of the JAX ``_resolve_fused``), or on the CPU
+:func:`flash_bwd_plain`. Under ``torch.no_grad()``, or when no input needs
+a gradient, the forward runs alone and keeps no residuals.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import (
+    NEG_INF,
     attention_scores,
     repeat_kv,
 )
@@ -30,6 +43,17 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
 FLASH_MIN_LEN = 1024
 
 _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# flash_bwd(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp,
+#           B, L, Hq, Hkv, D, causal, is_bf16, scale, stream)
+_BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p])
+_BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+# The kernels' key tile: the fused backward's dq partials take ceil(L/BLOCK_K)
+# copies of dq in f32.
+BLOCK_K = 64
+# Auto-fusion cap on those partials (the JAX package's _FUSED_DQ_CAP_BYTES):
+# past it fused=None takes the dq + dk/dv pair.
+FUSED_DQ_CAP_BYTES = 1 << 30
 
 
 def _check(q, k, v, kv_lens, window):
@@ -68,17 +92,22 @@ def flash_attention_plain(q, k, v, *, causal=False, kv_lens=None):
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
-def _flash_cuda(q, k, v, causal, kv_lens):
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-        q.dtype == k.dtype == v.dtype
+def _check_kernel_inputs(*ts):
+    q = ts[0]
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+        t.dtype != q.dtype for t in ts
     ):
         raise ValueError(
-            f"flash kernel takes f32 or bf16 q/k/v of one dtype, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
+            "flash kernels take f32 or bf16 q/k/v (and dout) of one dtype, got "
+            + "/".join(str(t.dtype) for t in ts)
         )
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"flash kernels take head_dim 64 or 128, got {q.shape[-1]}")
+
+
+def _flash_cuda(q, k, v, causal, kv_lens):
+    _check_kernel_inputs(q, k, v)
     b, l, hq, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -98,11 +127,129 @@ def _flash_cuda(q, k, v, causal, kv_lens):
     return out, lse
 
 
-def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None):
-    """Exact attention on [B, L, H, D] without an [L, L] score matrix in
-    device memory. ``kv_lens`` [B] int (each ≥ 1) masks keys at positions
-    ≥ kv_lens[b]; k/v may carry fewer heads (GQA). Returns ``(out, lse)``."""
-    _check(q, k, v, kv_lens, window)
+def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal):
+    """The plain backward, from the JAX kernels' formulas: ``(dq, dk, dv)``
+    in the inputs' dtypes, dk/dv [B, L, Hkv, D] summed over each KV head's
+    group of query heads. ``o`` is unused (``delta`` carries it) and kept
+    for the kernels' signature. p is masked explicitly: a fully masked
+    row's lse would otherwise turn masked entries into 1 (the comment at
+    pallas_attention.py:350-353). p and ds are cast to the operand dtype
+    before their products, as the JAX kernels' ``astype`` (:368, :421,
+    :426); products and sums are f32."""
+    del o
+    b, l, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    kr, vr = repeat_kv(k, v, hq)
+    qf, kf, vf, dof = q.float(), kr.float(), vr.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    valid = torch.ones(l, l, dtype=torch.bool, device=q.device)
+    if causal:
+        valid = torch.tril(valid)
+    valid = valid[None, None]
+    if kv_lens is not None:
+        kvalid = torch.arange(l, device=q.device)[None, :] < kv_lens[:, None]
+        valid = valid & kvalid[:, None, None, :]
+    lse_t = lse.transpose(1, 2)[..., None]  # [B, H, L, 1]
+    p = torch.where(valid, torch.exp(torch.where(valid, s, NEG_INF) - lse_t), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
+    g = hq // hkv
+    dk = dk.reshape(b, l, hkv, g, d).sum(3)
+    dv = dv.reshape(b, l, hkv, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def resolve_fused(fused, bh: int, l: int, d: int) -> bool:
+    """``fused=None`` → auto: the fused kernel unless its f32 dq-partial
+    buffer, ``ceil(l / BLOCK_K) · bh · l · d · 4`` bytes, would exceed
+    :data:`FUSED_DQ_CAP_BYTES` (the JAX ``_resolve_fused``, :763, with the
+    port's own key tile; the window rule waits for the window, ROADMAP A3).
+    An explicit bool wins."""
+    if fused is not None:
+        return bool(fused)
+    return -(-l // BLOCK_K) * bh * l * d * 4 <= FUSED_DQ_CAP_BYTES
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, outs, dqp=None):
+    lib = _build.load("flash_bwd")
+    fn = lib.flash_bwd
+    fn.argtypes, fn.restype = _BWD_SIG, ctypes.c_int
+    b, l, hq, d = q.shape
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    dq, dk, dv = outs
+    err = fn(
+        _BWD_MODES[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), ptr(kv_lens), ptr(dq), ptr(dk), ptr(dv), ptr(dqp),
+        b, l, hq, k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
+    _check_kernel_inputs(q, k, v, do)
+    lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
+    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+            lse.float().contiguous(), delta.float().contiguous(), lens)
+
+
+def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+    """B4a on the card: ``(dq, dk, dv)`` in one pass over the KV tiles, dq
+    from f32 partials summed by a second kernel in a fixed order."""
+    q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
+    b, l, hq, d = q.shape
+    dqp = torch.empty(-(-l // BLOCK_K) * b * l * hq * d, dtype=torch.float32, device=q.device)
+    outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, outs, dqp)
+    return outs
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+    """B4b on the card: dq, one CTA per (batch, query head, q-tile)."""
+    q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, (dq, None, None))
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+    """B4c on the card: ``(dk, dv)``, one CTA per (batch, KV head, k-tile),
+    summed over the group's query heads."""
+    q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, lens, causal, (None, dk, dv))
+    return dk, dv
+
+
+def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, fused):
+    """``(dq, dk, dv)`` from the forward's residuals and the cotangents
+    ``do`` and ``dlse`` (None counts as zeros): ``delta = rowsum(do·o) −
+    dlse`` in f32, as the JAX code forms it in XLA (:722), then the kernels
+    on the card or :func:`flash_bwd_plain` on the CPU."""
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    if q.is_cuda:
+        b, l, hq, d = q.shape
+        kw = dict(causal=causal, kv_lens=kv_lens)
+        if resolve_fused(fused, b * hq, l, d):
+            return flash_bwd_fused(q, k, v, do, lse, delta, **kw)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
+    return flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal)
+
+
+def _flash_forward(q, k, v, causal, kv_lens):
     if q.is_cuda:
         return _flash_cuda(q, k, v, causal, kv_lens)
     if q.device.type != "cpu":
@@ -110,9 +257,43 @@ def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None
     return flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
 
 
-def flash_attention(q, k, v, *, causal=False, window=None, kv_lens=None):
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v, kv_lens) → (out, lse)``, both differentiable; the JAX
+    ``_flash`` custom VJP. The backward is the kernels on the card and the
+    plain backward on the CPU; ``kv_lens`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal, fused):
+        out, lse = _flash_forward(q, k, v, causal, kv_lens)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.causal, ctx.fused = causal, fused
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.fused)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
+    """Exact attention on [B, L, H, D] without an [L, L] score matrix in
+    device memory. ``kv_lens`` [B] int (each ≥ 1) masks keys at positions
+    ≥ kv_lens[b]; k/v may carry fewer heads (GQA). Returns ``(out, lse)``,
+    both differentiable. ``fused`` picks the backward: None (auto, see
+    :func:`resolve_fused`), True (one pass) or False (dq + dk/dv kernels)."""
+    _check(q, k, v, kv_lens, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kv_lens, causal, fused)
+    return _flash_forward(q, k, v, causal, kv_lens)
+
+
+def flash_attention(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
     """:func:`flash_attention_with_lse` without the log-sum-exp — the
     drop-in for :func:`ops.attention.dense_attention`."""
     return flash_attention_with_lse(
-        q, k, v, causal=causal, window=window, kv_lens=kv_lens
+        q, k, v, causal=causal, window=window, kv_lens=kv_lens, fused=fused
     )[0]

@@ -77,6 +77,12 @@ class Trainer:
         self.device = strategy.device
         self.loss_fn = loss_fn or losses_lib.cross_entropy
         self.optimizer = optimizer or optim_lib.sgd(self.config.learning_rate)
+        if not hasattr(self.optimizer, "apply"):
+            raise NotImplementedError(
+                f"the MLP Trainer applies stateless optimizers (sgd); "
+                f"{type(self.optimizer).__name__} keeps state, which this trainer "
+                "does not carry yet (ROADMAP A4 \"Left\")"
+            )
         self.print_fn = print_fn
 
         self.state = self.strategy.init_state(self.model, self.optimizer, self.config.seed)

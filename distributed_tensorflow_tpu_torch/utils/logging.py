@@ -7,7 +7,8 @@ lines are byte-identical to the JAX package's:
 
 - every ``freq`` batches: ``Step: N,  Epoch: E,  Batch: B of T,  Cost: C,
   AvgTime: Xms``
-- every epoch: ``Test-Accuracy: A`` / ``Total Time: Ts``
+- every epoch: ``Test-Accuracy: A`` / ``Total Time: Ts``, or for the LM
+  ``Test-Perplexity: P`` / ``Total Time: Ts`` (``log_epoch_metric``)
 - at the end: ``Final Cost: C`` / ``Done``
 
 The JAX logger also journals each line as an event; the port has no
@@ -95,6 +96,15 @@ class StepLogger:
     def log_epoch(self, *, test_accuracy: float) -> None:
         self._emit(
             "epoch", metric="Test-Accuracy", value=float(test_accuracy),
+            total_time_s=float(time.time() - self._begin_time),
+        )
+
+    def log_epoch_metric(self, name: str, value: float) -> None:
+        """Epoch line for a metric other than accuracy (the LM's
+        perplexity), shaped as the reference's Test-Accuracy / Total Time
+        pair."""
+        self._emit(
+            "epoch", metric=str(name), value=float(value),
             total_time_s=float(time.time() - self._begin_time),
         )
 

@@ -117,8 +117,9 @@ def test_optimizer_registry():
     from distributed_tensorflow_tpu_torch.ops import optim
 
     assert optim.make("sgd", 0.5) == optim.sgd(0.5)
-    with pytest.raises(NotImplementedError, match="A4"):
-        optim.make("adam", 0.001)
+    assert optim.make("adam", 0.001) == optim.adam(0.001)
+    assert optim.make("adamw", 0.001) == optim.adamw(0.001)
+    assert optim.make("momentum", 0.001) == optim.momentum(0.001)
     with pytest.raises(ValueError, match="unknown optimizer"):
         optim.make("lbfgs", 0.001)
 
