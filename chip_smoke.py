@@ -8,7 +8,8 @@ non-zero):
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build every CUDA kernel from ``distributed_tensorflow_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together); the tensor-core flash
+   kernels must build without register spills and hold HMMA instructions;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, and time kernel, plain version and
    (flash only) ``scaled_dot_product_attention`` as a yardstick, beside the
@@ -22,7 +23,9 @@ non-zero):
 5. serve the greedy requests again on the per-layer kernel
    (``decode_engine="fused-layer"``), compare the streams, and compare
    logits over an 8-step greedy decode: megakernel vs per-layer kernel vs
-   the plain version on the card;
+   the plain version on the card (where a pick differs from the
+   megakernel's, the megakernel's top-2 gap must be a near-tie, and the
+   engine continues from the megakernel's token);
 6. a small model on the card against the same model's plain version on
    the CPU, logits within tolerance;
 7. the MLP kernels against their plain versions at the reference
@@ -84,17 +87,26 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core and
-# f32 CUDA-core FLOP/s.
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 and TF32
+# tensor-core and f32 CUDA-core FLOP/s. The tensor-core flash kernels (B3,
+# B4a, B4c) run each f32 product as three TF32 MMAs (split-TF32), so their
+# f32 FLOPs are bound by a third of the TF32 peak; the f32 CUDA-core figure
+# is printed beside it for the earlier, CUDA-core versions.
 HBM_BPS = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_F32 = 67e12
+# The kernels that run on the tensor cores: their builds must show MMA
+# instructions and no register spills (phase 2).
+TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd": ("kv_kernel",)}
 
 SERVE_CFG = dict(
     vocab_size=8192, model_dim=512, num_layers=8, num_heads=8, max_len=1024,
@@ -286,8 +298,10 @@ def phase_kernels(records):
         ms=cuda_ms(lambda: flash_attention_with_lse(q, k, v, causal=True, kv_lens=lens)),
         plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, kv_lens=lens), 5),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
-        **bound(nbytes, flops, PEAK_F32),
+        **split_tf32_bound(nbytes, flops),
     )
+    print(f"  flash_fwd bound at the f32 CUDA cores: "
+          f"{bound(nbytes, flops, PEAK_F32)['bound_ms']:.4f} ms")
 
     # K7 / K8 at gpt-m widths: 8 slots, cache lengths around 512.
     def rw(*shape, scale):
@@ -593,6 +607,41 @@ def bound(nbytes, flops, peak):
     return dict(bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations")
 
 
+def split_tf32_bound(nbytes, flops):
+    """The bound of a split-TF32 kernel on f32 inputs: three TF32 MMAs per
+    f32 product."""
+    return dict(**bound(nbytes, flops, PEAK_SPLIT_TF32), bound_peak="split-TF32, 495/3 TFLOP/s")
+
+
+def check_hmma(src, kernels):
+    """Every instantiation of the tensor-core kernels in ``src``'s library
+    holds HMMA instructions in its SASS (``cuobjdump -sass``)."""
+    import os
+    import re
+    import shutil
+
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise AssertionError(f"cuobjdump not found: {src}'s SASS cannot be checked for HMMA")
+    sass = subprocess.run([tool, "-sass", _build._lib_path(src)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in kernels) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    print(f"  {src}: HMMA instructions per tensor-core kernel: {sorted(counts.values())}")
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"{src}: a tensor-core kernel has no HMMA: {counts}")
+
+
 def serve_requests(vocab, seed):
     from distributed_tensorflow_tpu_torch.serve import GenerationConfig
 
@@ -673,6 +722,11 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
 
     # 8-step greedy decode from one prefilled cache: megakernel, per-layer
     # kernel and the plain version on the card, each fed its own argmax.
+    # Where an engine's pick differs from the megakernel's, the
+    # megakernel's margin of its pick over the engine's must be below the
+    # two engines' logit disagreement in that row at that step (what can
+    # flip it), and the engine continues from the megakernel's token, so
+    # every step's logits are compared on the same inputs.
     sp = srv.params
     S = 8
     toks = np.zeros((S, 128), np.int32)
@@ -693,14 +747,13 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
             compute_dtype=model.compute_dtype)
         return model._logits(sp, h), cache._replace(lengths=cache.lengths + act.int())
 
-    runs = {}
-    for eng in ("fused", "fused-layer", "plain"):
+    def run(eng, ref=None):
         cache = cache0._replace(k=cache0.k.clone(), v=cache0.v.clone(),
                                 lengths=cache0.lengths.clone())
         tok = logits0.argmax(-1).int()
         act = torch.ones(S, dtype=torch.bool, device=dev)
-        lg, tk = [], []
-        for _ in range(8):
+        lg, tk, ties = [], [], []
+        for i in range(8):
             if eng == "plain":
                 logits, cache = plain_step(tok, cache, act)
             else:
@@ -708,14 +761,29 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
             tok = logits.argmax(-1).int()
             lg.append(logits)
             tk.append(tok)
-        runs[eng] = (torch.stack(lg), torch.stack(tk))
-    ref_l, ref_t = runs["fused"]
+            if ref is not None and (tok != ref[1][i]).any():
+                rl = ref[0][i].float()
+                diff = (logits.float() - rl).abs().amax(-1)
+                for r in (tok != ref[1][i]).nonzero()[:, 0].tolist():
+                    gap = (rl[r, ref[1][i][r]] - rl[r, tok[r]]).item()
+                    ties.append((gap, diff[r].item()))
+                    if not gap < diff[r].item():
+                        raise AssertionError(
+                            f"{eng} picks another token than the megakernel at step {i}, "
+                            f"slot {r}, where the margin {gap} >= their logit "
+                            f"disagreement {diff[r].item()}")
+                tok = ref[1][i].clone()
+        return torch.stack(lg), torch.stack(tk), ties
+
+    ref_l, ref_t, _ = run("fused")
     for eng in ("fused-layer", "plain"):
-        lgs, tks = runs[eng]
+        lgs, tks, ties = run(eng, (ref_l, ref_t))
         err = (lgs - ref_l).abs().max().item()
         agree = (tks == ref_t).float().mean().item()
         print(f"  decode-mega-vs-{eng}: max logit err {err:.3e}, "
-              f"token agreement {agree:.4f} over 8 greedy steps x {S} slots")
+              f"token agreement {agree:.4f} over 8 greedy steps x {S} slots; near-ties "
+              f"continued from the megakernel's token: {len(ties)} (margin / row's logit "
+              f"disagreement: {', '.join(f'{x:.3e} / {y:.3e}' for x, y in ties) or '-'})")
         if err > 0.25 * max(1.0, ref_l.abs().max().item()):
             raise AssertionError(f"megakernel logits disagree with {eng}: {err}")
 
@@ -1208,25 +1276,42 @@ def phase_bwd_kernels(records):
                names.get(int(choice(qt, kt, vt, None, 0.0, True)), "unknown"))
     lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
     print(f"  library yardstick: SDPA backward (causal, f32, backend {backend}): {lib_ms:.4f} ms")
-    with torch.no_grad():  # the forward the training step runs, timed alone
-        fwd = dict(ms=cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=True)),
+    # The forward the training step runs: checked against its plain version
+    # on these inputs, then timed alone.
+    print(f"  flash_fwd at the training shapes (B={b} L={l} H={h} D={d} f32 causal):")
+    fwd_work = (4 * (4 * q.numel() + lse.numel()), 4 * d * pairs)
+    with torch.no_grad():
+        out, out_lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max((out - ref).abs().max().item(), (out_lse - ref_lse).abs().max().item())
+        check_error("flash_fwd", err, ref.abs().max().item())
+        del out, out_lse, ref, ref_lse
+        fwd = dict(max_abs_err=err,
+                   ms=cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=True)),
                    plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5),
                    sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True)),
-                   **bound(4 * (4 * q.numel() + lse.numel()), 4 * d * pairs, PEAK_F32))
+                   **split_tf32_bound(*fwd_work))
     records["flash_fwd"]["train_shape"] = fwd
-    print(f"  flash_fwd at the training shapes (B={b} L={l} H={h} D={d} f32 causal): kernel "
-          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA {fwd['sdpa_ms']:.4f} ms, "
-          f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    records["flash_fwd"]["max_abs_err"] = max(records["flash_fwd"]["max_abs_err"], err)
+    print(f"  flash_fwd: kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA "
+          f"{fwd['sdpa_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}, "
+          f"{fwd['bound_peak']}; {bound(*fwd_work, PEAK_F32)['bound_ms']:.4f} ms at the f32 "
+          f"CUDA cores)")
     for name, fn in calls.items():
+        work = (nbytes[name], 2 * d * pairs * fl[name])
         records[name] = dict(
             max_abs_err=errs[name], ms=cuda_ms(fn), plain_ms=plain_ms,
             library_ms=lib_ms if name == "flash_bwd_fused" else None,
-            **bound(nbytes[name], 2 * d * pairs * fl[name], PEAK_F32),
+            # B4b (dq alone) still runs on the CUDA cores.
+            **(bound(*work, PEAK_F32) if name == "flash_bwd_dq" else split_tf32_bound(*work)),
         )
         r = records[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r.get('bound_peak', 'f32 CUDA cores, 67 TFLOP/s')}; "
+              f"{bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 CUDA cores)")
 
 
 def unigram_perplexity(tokens, vocab):
@@ -1390,11 +1475,28 @@ def main() -> int:
     t0 = time.perf_counter()
     print("phase 2: build")
     _build.build_all()
-    for src, log in _build.BUILD_LOGS.items():
+    print(f"  built in {time.perf_counter() - t0:.1f} s")
+    # ptxas's report of each build; the tensor-core kernels must not spill.
+    for src in _build.SOURCES:
+        log = _build.BUILD_LOGS.get(src)
+        if log is None:
+            raise AssertionError(f"{src}: no ptxas report from its build")
+        tc, fn, spills = TENSOR_CORE_KERNELS.get(src, ()), "", {}
         for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+            if m:
+                fn = m.group(1)
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {src}: {line.strip()}")
-    print(f"  built in {time.perf_counter() - t0:.1f} s")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and any(k in fn for k in tc):
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+        if tc:
+            print(f"  {src}: {len(spills)} tensor-core kernel builds, "
+                  f"spill bytes {sum(spills.values())}")
+            if not spills or any(spills.values()):
+                raise AssertionError(f"{src}: register spills in {spills or 'no kernel found'}")
+            check_hmma(src, tc)
 
     records: dict[str, dict] = {}
     print("phase 3: kernels vs plain versions")
@@ -1436,6 +1538,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "path": PATHS.get(kname, "main"),
+            **({"bound_peak": r["bound_peak"]} if "bound_peak" in r else {}),
         })
     print(f"power: {smi}")
     print(json.dumps({"kernels": kernels}))

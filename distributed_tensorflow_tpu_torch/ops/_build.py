@@ -37,7 +37,8 @@ LAUNCHES: dict[str, int] = {
     "decode_block_paged": 0, "decode_token_paged": 0, "verify_tokens_paged": 0,
     "fused_mlp_step": 0, "fused_mlp_epoch": 0,
 }
-# ptxas's register/shared-memory report of each build, for the smoke log.
+# ptxas's register/shared-memory report of each build (kept beside the
+# library as ``<lib>.log``, so a reused library still has one).
 BUILD_LOGS: dict[str, str] = {}
 
 
@@ -72,6 +73,9 @@ def _lib_path(name: str) -> str:
 def _start(name: str):
     out = _lib_path(name)
     if os.path.exists(out):
+        if os.path.exists(f"{out}.log"):  # the report of the build that made it
+            with open(f"{out}.log") as f:
+                BUILD_LOGS.setdefault(name, f.read())
         return None
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
@@ -91,6 +95,9 @@ def _finish(name: str, started) -> None:
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{log}"
         )
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
 
 

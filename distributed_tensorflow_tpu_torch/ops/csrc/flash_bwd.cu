@@ -14,60 +14,78 @@
 // p is masked explicitly (not through -inf underflow), as the TPU kernels
 // do: a row whose lse is ~-1e30 would otherwise turn masked entries into 1.
 // p and ds are rounded to the operand dtype before their products (the
-// TPU kernels' astype), products and sums are f32. Under GQA a KV head's dk
-// and dv sum over the query heads of its group. Layout [B, L, H, D] with
+// TPU kernels' astype), products and sums are f32, exp is the
+// full-precision expf. Under GQA a KV head's dk and dv sum over the query
+// heads of its group. Layout [B, L, H, D] with
 // lse and delta [B, L, Hq] f32; head dim D in {64, 128}; any L (the ragged
 // last tile is masked); outputs in the input dtype (f32 or bf16).
 //
-// Design. The TPU kernels walk a sequential grid and carry dk/dv (or dq) in
-// VMEM scratch across the innermost axis. Here:
-// - kv_kernel: one CTA per (batch, KV head, 64-key tile) keeps its K and V
-//   tiles in shared memory and loops itself over the q-tiles of every query
-//   head of the group (from the tile's diagonal under causal), recomputing
-//   s and p from lse; dk and dv accumulate in registers.
-// - q_kernel: one CTA per (batch, query head, 64-query tile) loops over the
-//   k-tiles up to the diagonal; dq accumulates in registers.
-// - Fused: CUDA blocks run in no order, so dq cannot accumulate across the
-//   kv CTAs. Each CTA writes the dq partial of each (head, q-tile) it visits
-//   to its own slice of an f32 buffer [nk, B, L, Hq, D] (the TPU kernel's
-//   layout); dq_reduce_kernel then sums the k-tiles of each element in
-//   ascending order. The reduction reads exactly the slices the kv CTAs
-//   wrote (the same skip predicate), so nothing is zeroed and the result
-//   is deterministic, as on the TPU; no atomics.
-// The 256 threads of a CTA each own a 4 x (D/16) tile of every [64 x D]
-// product (rows t/16 + 16i, columns t%16 + 16j) and a 4 x 4 tile of the
-// [64 x 64] score products; tiles sit in shared memory as f32 with rows
-// padded by one to spread the banks.
-//
 // Bound. At the training path's shapes (B*H = 128, L = 1024, D = 64,
 // causal, f32) 67.2 M (q, k) pairs are unmasked: 43.0 GFLOP for the fused
-// pass (five products), 25.8 for dq (three), 34.4 for dk/dv (four); at
-// 67 TFLOP/s of f32 CUDA-core FMA that is 0.642 / 0.385 / 0.513 ms, while
-// the ~236 MB of inputs and outputs take 0.07 ms at 3.35 TB/s: operations
-// bind. This first version runs plain FMAs on the CUDA cores and is
-// limited by shared-memory bandwidth (one 4-byte shared load per two
-// FMAs); wgmma on bf16 operands, TMA and a deeper pipeline are later work.
+// pass (five products), 25.8 for dq (three), 34.4 for dk/dv (four). The
+// kv kernels run them as split-TF32 on the tensor cores (three TF32 MMAs
+// per f32 product, flash_mma.cuh): at 495/3 = 165 TFLOP/s that is 0.261 ms
+// fused and 0.208 ms dk/dv, while the ~236 MB of inputs and outputs take
+// 0.07 ms at 3.35 TB/s: operations bind. (At the CUDA cores' 67 TFLOP/s of
+// f32 the bounds are 0.642 / 0.385 / 0.513 ms; q_kernel still runs there.)
+//
+// Design of the kv kernels (B4a, B4c). The TPU kernels walk a sequential
+// grid and carry dk/dv (or dq) in VMEM scratch across the innermost axis.
+// Here one CTA of 4 warps per (batch, KV head, 64-key tile) keeps its K
+// and V tiles in shared memory and loops itself over the 32-query tiles of
+// every query head of the group (from the tile's diagonal under causal);
+// each warp owns 16 keys, and their dk and dv accumulate in registers.
+// Instruction: mma.sync m16n8k8 on TF32 operands (split-TF32 for f32
+// inputs, one exact pass for bf16 ones), not wgmma: wgmma takes 32-bit
+// operands K-major only, and P^T dO, dS^T Q and dS K need dO, Q and K's
+// rows as K. p and ds, computed in the accumulator registers of
+// S^T = K Q^T and dP^T = V dO^T, are the A fragments of dV += P^T dO and
+// dK += dS^T Q as they stand (flash_mma.cuh). Q, dO, lse and delta tiles
+// are double-buffered in padded shared memory by cp.async copies: the next
+// q-tile loads while this one's MMAs run. A warp whose keys all lie past
+// the q-tile (the diagonal) or past kv_lens skips the products. Each
+// q-tile's share of dV and dK is summed in fresh accumulators and added to
+// dv / dk in f32, so the tensor cores' truncating accumulation does not
+// build up over L. The CTA takes 70 KB of shared memory at D=64 in f32 and
+// at most 168 registers a thread: three CTAs (12 warps) a SM.
+// - Fused: CUDA blocks run in no order, so dq cannot accumulate across the
+//   kv CTAs. Once every warp is done with the q-tile's dO, ds takes its
+//   buffer (dK runs meanwhile), and the CTA computes the q-tile's dq
+//   partial dS K on the tensor cores into its own slice of an f32 buffer
+//   [nk, B, L, Hq, D] (the TPU kernel's layout); dq_reduce_kernel then sums
+//   the k-tiles of each element in ascending order. The reduction reads
+//   exactly the slices the kv CTAs wrote (the same skip predicate), so
+//   nothing is zeroed and the result is deterministic, as on the TPU; no
+//   atomics.
+// q_kernel (B4b) is the first, CUDA-core design: one CTA of 256 threads
+// per (batch, query head, 64-query tile) loops over the k-tiles up to the
+// diagonal with dq in registers; each thread owns a 4 x (D/16) tile of
+// the [64 x D] products, tiles sit in shared memory as f32 with rows
+// padded by one, loaded synchronously.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 256;   // threads per CTA
-constexpr int PP = BK + 1;  // padded row stride of the p / ds tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-// x rounded to the operand dtype T (the TPU kernels' astype before a product).
-__device__ __forceinline__ float rnd(float x, float*) { return x; }
-__device__ __forceinline__ float rnd(float x, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+
+constexpr int BK = 64;  // keys per tile (every kernel); the dq partials come one per k-tile
+
+// ---------------------------------------------------------------------------
+// q_kernel: dq alone, on the CUDA cores.
+// ---------------------------------------------------------------------------
+
+namespace qk {
+
+using flash::rnd;
+using flash::to_f;
+
+constexpr int BQ = 64;      // query rows per tile
+constexpr int NT = 256;     // threads per CTA
+constexpr int PP = BK + 1;  // padded row stride of the ds tile
 
 // Rows r0.. r0+63 of head h of a [B, L, H, D] tensor into a [64][D+1] f32
 // tile; rows past L read as 0.
@@ -129,129 +147,8 @@ __device__ __forceinline__ void p_ds_tiles(const float* Qs, const float* Ks, con
 }
 
 template <int D>
-constexpr size_t kv_smem_floats() {
-  return 4 * 64 * (D + 1) + 2 * BQ * PP + 2 * BQ;
-}
-
-template <int D>
 constexpr size_t q_smem_floats() {
   return 4 * 64 * (D + 1) + BQ * PP + 2 * BQ;
-}
-
-// dk / dv (and with FUSED the dq partials) of one (batch, KV head, k-tile).
-template <typename T, int D, bool FUSED>
-__global__ void __launch_bounds__(NT)
-kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, const int* __restrict__ kv_lens,
-          T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp, int L, int Hq,
-          int Hkv, int causal, float scale) {
-  constexpr int DP = D + 1, DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + 64 * DP;
-  float* Qs = Vs + 64 * DP;
-  float* dOs = Qs + 64 * DP;
-  float* Ps = dOs + 64 * DP;
-  float* dSs = Ps + BQ * PP;
-  float* Ls = dSs + BQ * PP;
-  float* Dl = Ls + BQ;
-
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, B = gridDim.z;
-  const int k0 = ik * BK;
-  const int G = Hq / Hkv;
-  const int kvlen = kv_lens ? kv_lens[b] : L;
-  const int nq = (L + BQ - 1) / BQ;
-
-  float adk[4][DJ], adv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  // A tile wholly past kv_lens gets zero gradients and writes no dq partial
-  // (dq_reduce_kernel skips it by the same predicate).
-  if (k0 < kvlen) {
-    load_tile<T, D>(Ks, k, b, k0, hk, L, Hkv);
-    load_tile<T, D>(Vs, v, b, k0, hk, L, Hkv);
-    const int iq0 = causal ? k0 / BQ : 0;
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = hk * G + gi;
-      for (int iq = iq0; iq < nq; ++iq) {
-        const int q0 = iq * BQ;
-        __syncthreads();  // the previous q-tile is consumed (and K/V written)
-        load_tile<T, D>(Qs, q, b, q0, h, L, Hq);
-        load_tile<T, D>(dOs, dout, b, q0, h, L, Hq);
-        if (tid < BQ) {
-          int p = q0 + tid;
-          size_t row = (size_t)(b * L + p) * Hq + h;
-          Ls[tid] = p < L ? lse[row] : 0.f;
-          Dl[tid] = p < L ? delta[row] : 0.f;
-        }
-        __syncthreads();
-        p_ds_tiles<T, D>(Qs, Ks, dOs, Vs, Ls, Dl, Ps, dSs, q0, k0, L, kvlen, causal, scale, tr,
-                         tc);
-        __syncthreads();
-        for (int r = 0; r < BQ; ++r) {
-          float pr[4], dsr[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pr[i] = Ps[r * PP + tr + 16 * i];
-            dsr[i] = dSs[r * PP + tr + 16 * i];
-          }
-#pragma unroll
-          for (int j = 0; j < DJ; ++j) {
-            float o = dOs[r * DP + tc + 16 * j], qq = Qs[r * DP + tc + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              adv[i][j] += pr[i] * o;
-              adk[i][j] += dsr[i] * qq;
-            }
-          }
-        }
-        if (FUSED) {
-          float acc[4][DJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-          for (int c = 0; c < BK; ++c) {
-            float dsr[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) dsr[i] = dSs[(tr + 16 * i) * PP + c];
-#pragma unroll
-            for (int j = 0; j < DJ; ++j) {
-              float kk = Ks[c * DP + tc + 16 * j];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[i][j] += dsr[i] * kk;
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            int qp = q0 + tr + 16 * i;
-            if (qp < L) {
-              float* dst = dqp + (((size_t)(ik * B + b) * L + qp) * Hq + h) * D;
-#pragma unroll
-              for (int j = 0; j < DJ; ++j) dst[tc + 16 * j] = acc[i][j];
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int kp = k0 + tr + 16 * i;
-    if (kp < L) {
-      size_t row = ((size_t)(b * L + kp) * Hkv + hk) * D;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        from_f(&dk[row + tc + 16 * j], adk[i][j]);
-        from_f(&dv[row + tc + 16 * j], adv[i][j]);
-      }
-    }
-  }
 }
 
 // dq of one (batch, query head, q-tile).
@@ -326,9 +223,252 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   }
 }
 
+}  // namespace qk
+
+// ---------------------------------------------------------------------------
+// kv_kernel: dk / dv (and with FUSED the dq partials), on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace flash;
+
+constexpr int KV_NW = BK / 16;  // warps: 16 keys each
+constexpr int KV_NT = KV_NW * 32;
+constexpr int KV_BQ = 32;       // query rows per q-tile
+constexpr int NC = 4;           // dim tiles summed per pass of a [16 x D] product
+
+// acc[16 keys x D] += A^T B for one q-tile: A^T the warp's p or ds
+// (registers, keys x queries), B the q-tile's dO or Q ([BQ][SD] shared).
+// Summed NC dim tiles at a time in fresh accumulators, then added to acc.
+template <typename T, int SD, bool SPLIT, int NJ, int NN>
+__device__ __forceinline__ void dkv_product(float (&acc)[NN][4], const float (&pt)[NJ][4],
+                                            const T* Bt, const Lane& ln) {
+#pragma unroll
+  for (int c0 = 0; c0 < NN; c0 += NC) {
+    float t[NC][4];
+    zero(t);
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      FragA<SPLIT> a;  // pt[kk] as the A fragment: slots t / t+4 = queries 2t / 2t+1
+      a.set(pt[kk][0], pt[kk][2], pt[kk][1], pt[kk][3]);
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        float b0, b1;
+        load_b_cols<SD>(b0, b1, Bt, 8 * kk, 8 * (c0 + n), ln);
+        mma_b<SPLIT>(t[n], t[n], a, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 + n][e] += t[n][e];
+  }
+}
+
+// Shared memory of kv_kernel: K, V and two buffers each of Q and dO (the
+// current dO buffer takes the dq product's ds once dV is done), then two
+// each of the q-tile's lse and delta. 70 KB at D=64 in f32: three CTAs a SM.
+template <typename T, int D>
+constexpr size_t kv_smem_bytes() {
+  return sizeof(T) * (size_t)(2 * BK + 4 * KV_BQ) * stride<T, D>() + sizeof(float) * 4 * KV_BQ;
+}
+
+template <typename T, int D, bool FUSED>
+__global__ void __launch_bounds__(KV_NT, D == 64 ? 3 : 1)
+kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, const int* __restrict__ kv_lens,
+          T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp, int L, int Hq,
+          int Hkv, int causal, float scale) {
+  constexpr int BQ = KV_BQ;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NJ = BQ / 8;  // query column tiles of S^T and dP^T
+  constexpr int NN = D / 8;   // dim column tiles of dK, dV, dQ
+  constexpr int SD = stride<T, D>(), SK = stride<T, BK>();
+  static_assert(BQ * SK <= BQ * SD, "ds must fit in a dO buffer");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [BK][SD]
+  T* Vs = Ks + BK * SD;                    // [BK][SD]
+  T* Qs = Vs + BK * SD;                    // [2][BQ][SD]
+  T* dOs = Qs + 2 * BQ * SD;               // [2][BQ][SD]; ds [BQ][SK] after dV
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * SD);  // [2][BQ]
+  float* Dl = Ls + 2 * BQ;                                  // [2][BQ]
+
+  const int warp = threadIdx.x >> 5;
+  const Lane ln(threadIdx.x & 31);
+  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int k0 = ik * BK;
+  const int G = Hq / Hkv;
+  const int kvlen = kv_lens ? kv_lens[b] : L;
+  const int klim = min(L, kvlen);
+  const int nq = (L + BQ - 1) / BQ;
+  const int wk = 16 * warp;       // the warp's first key in the tile
+  const int kr = k0 + wk + ln.g;  // this lane's keys kr and kr + 8
+
+  float adk[NN][4], adv[NN][4];
+  zero(adk);
+  zero(adv);
+
+  // A tile wholly past kv_lens gets zero gradients and writes no dq partial
+  // (dq_reduce_kernel skips it by the same predicate).
+  if (k0 < kvlen) {
+    const int iq0 = causal ? k0 / BQ : 0;
+    const int nqt = nq - iq0, ntile = G * nqt;
+    auto load_q_tile = [&](int it) {
+      const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
+      load_rows_async<T, D, BQ, KV_NT>(Qs + buf * BQ * SD, q, b, q0, h, L, Hq);
+      load_rows_async<T, D, BQ, KV_NT>(dOs + buf * BQ * SD, dout, b, q0, h, L, Hq);
+      load_vec_async<BQ, KV_NT>(Ls + buf * BQ, lse, b, q0, h, L, Hq);
+      load_vec_async<BQ, KV_NT>(Dl + buf * BQ, delta, b, q0, h, L, Hq);
+    };
+    load_rows_async<T, D, BK, KV_NT>(Ks, k, b, k0, hk, L, Hkv);
+    load_rows_async<T, D, BK, KV_NT>(Vs, v, b, k0, hk, L, Hkv);
+    load_q_tile(0);
+    cp_async_commit();
+    // All of the warp's keys lie past kv_lens when k0 + wk >= klim; under
+    // causal they lie past rows q0 .. q0+BQ-1 when q0 + BQ - 1 < k0 + wk.
+    const bool keys_live = k0 + wk < klim;
+
+    for (int it = 0; it < ntile; ++it) {
+      cp_async_wait_all();
+      __syncthreads();  // tile it has landed; every warp is done with tile it-1
+      if (it + 1 < ntile) load_q_tile(it + 1);
+      cp_async_commit();
+      const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
+      const T* Qt = Qs + buf * BQ * SD;
+      T* dOt = dOs + buf * BQ * SD;
+      const float* Lt = Ls + buf * BQ;
+      const float* Dt = Dl + buf * BQ;
+      const bool live = keys_live && !(causal && q0 + BQ - 1 < k0 + wk);
+
+      // p[j] / ds[j]: keys kr, kr + 8 against queries q0 + 8j + 2t and + 2t + 1.
+      // dV takes P before dP^T is formed, so p, ds and dV's accumulators
+      // are never live at once.
+      float p[NJ][4], ds[NJ][4];
+      zero(ds);
+      if (live) {
+        zero(p);
+        {
+          float x[NJ][4];  // S^T = K Q^T
+          zero(x);
+#pragma unroll 2  // a full unroll spills at three CTAs a SM
+          for (int kk = 0; kk < D / 8; ++kk) {
+            FragA<SPLIT> a;
+            load_a<SD, SPLIT>(a, Ks, wk, 8 * kk, ln);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              float b0, b1;
+              load_b_rows<SD>(b0, b1, Qt, 8 * j, 8 * kk, ln);
+              mma_b<SPLIT>(p[j], x[j], a, b0, b1);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = 8 * j + 2 * ln.t + (e & 1), qp = q0 + qi;
+              const int key = kr + ((e >> 1) << 3);
+              const bool ok = qp < L && key < klim && (!causal || key <= qp);
+              p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Lt[qi]) : 0.f;
+            }
+        }
+        if (SPLIT) {
+          dkv_product<T, SD, SPLIT, NJ, NN>(adv, p, dOt, ln);  // dV += P^T dO
+        } else {  // the product takes p rounded to the operand dtype; ds takes it unrounded
+          float pr[NJ][4];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pr[j][e] = rnd(p[j][e], (const T*)nullptr);
+          dkv_product<T, SD, SPLIT, NJ, NN>(adv, pr, dOt, ln);
+        }
+        {
+          float x[NJ][4];  // dP^T = V dO^T
+          zero(x);
+#pragma unroll 2
+          for (int kk = 0; kk < D / 8; ++kk) {
+            FragA<SPLIT> a;
+            load_a<SD, SPLIT>(a, Vs, wk, 8 * kk, ln);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              float b0, b1;
+              load_b_rows<SD>(b0, b1, dOt, 8 * j, 8 * kk, ln);
+              mma_b<SPLIT>(ds[j], x[j], a, b0, b1);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = 8 * j + 2 * ln.t + (e & 1);
+              ds[j][e] = rnd(p[j][e] * (ds[j][e] + x[j][e] - Dt[qi]) * scale, (const T*)nullptr);
+            }
+        }
+      }
+      if (FUSED) {
+        __syncthreads();  // every warp is done with dO: ds takes its buffer
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            from_f(&dOt[(8 * j + 2 * ln.t + (e & 1)) * SK + wk + ln.g + ((e >> 1) << 3)], ds[j][e]);
+      }
+      if (live) dkv_product<T, SD, SPLIT, NJ, NN>(adk, ds, Qt, ln);
+      if (FUSED) {
+        // dQ partial of the q-tile = dS K: BQ/16 row blocks of 16 queries,
+        // each over NW / (BQ/16) warps that split the dim tiles.
+        constexpr int RB = BQ / 16, WPR = KV_NW / RB, NPW = NN / WPR;
+        const int qr = 16 * (warp % RB), n0 = (warp / RB) * NPW;
+        __syncthreads();  // ds is complete
+        if (q0 + qr < L) {
+          const T* pa = dOt + (qr + ln.g) * SK + 2 * ln.t;
+#pragma unroll
+          for (int c0 = 0; c0 < NPW; c0 += NC) {
+            float t[NC][4];
+            zero(t);
+#pragma unroll 2
+            for (int kk = 0; kk < BK / 8; ++kk) {
+              // k-slots t / t+4 are keys 8kk + 2t / + 2t + 1, as K's rows.
+              FragA<SPLIT> a;
+              a.set(to_f(pa[8 * kk]), to_f(pa[8 * SK + 8 * kk]), to_f(pa[8 * kk + 1]),
+                    to_f(pa[8 * SK + 8 * kk + 1]));
+#pragma unroll
+              for (int n = 0; n < NC; ++n) {
+                float b0, b1;
+                load_b_cols<SD>(b0, b1, Ks, 8 * kk, 8 * (n0 + c0 + n), ln);
+                mma_b<SPLIT>(t[n], t[n], a, b0, b1);
+              }
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int qp = q0 + qr + ln.g + 8 * hh;
+              if (qp >= L) continue;
+              float* dst = dqp + (((size_t)(ik * B + b) * L + qp) * Hq + h) * D;
+#pragma unroll
+              for (int n = 0; n < NC; ++n)
+                store2(dst + 8 * (n0 + c0 + n) + 2 * ln.t, t[n][2 * hh], t[n][2 * hh + 1]);
+            }
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = kr + 8 * hh;
+    if (key >= L) continue;
+    const size_t row = ((size_t)(b * L + key) * Hkv + hk) * D;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      store2(dk + row + 8 * n + 2 * ln.t, adk[n][2 * hh], adk[n][2 * hh + 1]);
+      store2(dv + row + 8 * n + 2 * ln.t, adv[n][2 * hh], adv[n][2 * hh + 1]);
+    }
+  }
+}
+
 // dq[e] = sum over the k-tiles ik (ascending) that kv_kernel<FUSED> visited
-// for e's (batch, q-tile): k0 = ik * BK < kv_lens[b] and, under causal,
-// q-tile >= k0 / BQ. Exactly the slices written, so no zeroing is needed.
+// for e's (batch, query row l): k0 = ik * BK < kv_lens[b] and, under
+// causal, l >= k0. Exactly the slices written, so no zeroing is needed.
 template <typename T>
 __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ dq,
                                  const int* __restrict__ kv_lens, int B, int L, int Hq, int D,
@@ -337,16 +477,20 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
   const int nk = (L + BK - 1) / BK;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
-    int b = (int)(e / ((size_t)L * Hq * D));
-    int l = (int)((e / ((size_t)Hq * D)) % L);
-    int kvlen = kv_lens ? kv_lens[b] : L;
-    int iq = l / BQ;
+    const int b = (int)(e / ((size_t)L * Hq * D));
+    const int l = (int)((e / ((size_t)Hq * D)) % L);
+    const int kvlen = kv_lens ? kv_lens[b] : L;
+    // The slices written for row l: k-tiles 0 .. ns-1.
+    int ns = min(nk, (kvlen + BK - 1) / BK);
+    if (causal) ns = min(ns, l / BK + 1);
     float s = 0.f;
-    for (int ik = 0; ik < nk; ++ik) {
-      int k0 = ik * BK;
-      if (k0 >= kvlen || (causal && iq < k0 / BQ)) break;
-      s += dqp[(size_t)ik * n + e];
+    int ik = 0;
+    for (; ik + 4 <= ns; ik += 4) {  // four loads in flight, summed in order
+      const float a0 = dqp[(size_t)ik * n + e], a1 = dqp[(size_t)(ik + 1) * n + e];
+      const float a2 = dqp[(size_t)(ik + 2) * n + e], a3 = dqp[(size_t)(ik + 3) * n + e];
+      s = (((s + a0) + a1) + a2) + a3;
     }
+    for (; ik < ns; ++ik) s += dqp[(size_t)ik * n + e];
     from_f(&dq[e], s);
   }
 }
@@ -362,13 +506,13 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
                    void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
                    float scale, cudaStream_t st) {
   cudaError_t err;
-  const int nq = (L + BQ - 1) / BQ, nk = (L + BK - 1) / BK;
+  const int nk = (L + BK - 1) / BK;
   if (mode == 0 || mode == 2) {  // fused, or dk/dv alone
-    size_t smem = sizeof(float) * kv_smem_floats<D>();
     dim3 grid(nk, Hkv, B);
     if (mode == 0) {
+      const size_t smem = kv_smem_bytes<T, D>();
       if ((err = set_smem(kv_kernel<T, D, true>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, true><<<grid, NT, smem, st>>>(
+      kv_kernel<T, D, true><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
           (T*)dv, dqp, L, Hq, Hkv, causal, scale);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -376,20 +520,21 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
       int blocks = (int)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16);
       dq_reduce_kernel<T><<<blocks, 256, 0, st>>>(dqp, (T*)dq, kv_lens, B, L, Hq, D, causal);
     } else {
+      const size_t smem = kv_smem_bytes<T, D>();
       if ((err = set_smem(kv_kernel<T, D, false>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, false><<<grid, NT, smem, st>>>(
+      kv_kernel<T, D, false><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
           (T*)dv, nullptr, L, Hq, Hkv, causal, scale);
     }
     return cudaGetLastError();
   }
   if (mode == 1) {  // dq alone
-    size_t smem = sizeof(float) * q_smem_floats<D>();
-    if ((err = set_smem(q_kernel<T, D>, smem)) != cudaSuccess) return err;
-    dim3 grid(nq, Hq, B);
-    q_kernel<T, D><<<grid, NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                           (const T*)dout, lse, delta, kv_lens, (T*)dq, L, Hq,
-                                           Hkv, causal, scale);
+    const size_t smem = sizeof(float) * qk::q_smem_floats<D>();
+    if ((err = set_smem(qk::q_kernel<T, D>, smem)) != cudaSuccess) return err;
+    dim3 grid((L + qk::BQ - 1) / qk::BQ, Hq, B);
+    qk::q_kernel<T, D><<<grid, qk::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                                   (const T*)dout, lse, delta, kv_lens, (T*)dq,
+                                                   L, Hq, Hkv, causal, scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -397,8 +542,9 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
 
 }  // namespace
 
-// q, dout [B, L, Hq, D]; k, v [B, L, Hkv, D] (contiguous, f32 or bf16, one
-// dtype); lse, delta [B, L, Hq] f32; kv_lens [B] int32 or NULL.
+// q, dout [B, L, Hq, D]; k, v [B, L, Hkv, D] (contiguous, 16-byte aligned,
+// f32 or bf16, one dtype); lse, delta [B, L, Hq] f32; kv_lens [B] int32 or
+// NULL.
 // mode 0 (fused): dq, dk, dv, with dqp an f32 scratch of
 //   ceil(L/64) * B * L * Hq * D floats;
 // mode 1: dq alone; mode 2: dk and dv alone (dqp unused).

@@ -1,183 +1,224 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++, on the tensor cores.
 //
 // Replaces the TPU kernel distributed_tensorflow_tpu/ops/pallas_attention.py
-// _fwd_kernel (launched by _fwd_call): exact softmax attention computed
-// tile by tile with an online softmax, so the [L, L] score matrix never
-// reaches device memory. Features: causal mask, per-batch right-padding
-// kv_lens, grouped-query attention (query head h reads KV head
-// h / (Hq / Hkv)), head dim D in {64, 128}, any sequence length (the
-// ragged last tile is masked).
+// _fwd_kernel (:208, launched by _fwd_call's pallas_call :297): exact
+// softmax attention computed tile by tile with an online softmax, so the
+// [L, L] score matrix never reaches device memory. Features: causal mask,
+// per-batch right-padding kv_lens, grouped-query attention (query head h
+// reads KV head h / (Hq / Hkv)), head dim D in {64, 128}, any sequence
+// length (the ragged last tile is masked), f32 or bf16 inputs.
 //
-// Design. The TPU walks k-blocks as the innermost *sequential* grid axis and
-// carries m / l / acc in VMEM scratch between grid steps. CUDA blocks run
-// concurrently in no order, so here one CTA owns a (batch, query head,
-// 64-query tile) and loops over the 64-key tiles itself; the running max,
-// sum and accumulator stay in registers for the whole loop. Four adjacent
-// lanes share one query row: each scores a quarter of the tile's keys and
-// owns a quarter of the output dims (dims t, t+4, ...). Q, K and V tiles
-// sit in shared memory as f32 (rows padded by one to spread banks); the
-// probabilities go through shared memory between the QK^T and PV halves.
-// Math is f32 with plain FMAs (scale 1/sqrt(D), masked entries at -1e30,
-// the TPU kernel's empty-row guard), inputs f32 or bf16.
+// Bound. At the training path's shapes (B=16, L=1024, 8 heads of 64,
+// causal, f32) the two products take 17.2 GFLOP of f32-accurate
+// multiply-adds; done as split-TF32 (three TF32 MMAs each, see
+// flash_mma.cuh) at 495/3 = 165 TFLOP/s that is 0.104 ms, while the
+// ~34 MB of inputs and outputs take 0.01 ms at 3.35 TB/s: operations bind.
+// (On the CUDA cores at 67 TFLOP/s of f32 the same work takes 0.257 ms,
+// the bound of the first, CUDA-core version of this kernel.)
 //
-// Bound. Causal prefill at S=8, L=512, 8 heads of 64 dims does ~2.1 GFLOP
-// and moves ~17 MB: both tiny against 989 TFLOP/s and 3.35 TB/s, so the
-// bound is a few microseconds. This first version runs on the CUDA cores
-// (no wgmma / TMA) and is limited by shared-memory bandwidth (about one
-// shared load per FMA); tensor cores are later work.
+// Design. The TPU walks k-blocks as the innermost sequential grid axis
+// and carries m / l / acc in VMEM scratch. Here one CTA of 8 warps owns a
+// (batch, query head, 128-query tile) and loops over the 64-key tiles
+// itself; each warp owns 16 query rows, and its running max, sum and
+// output accumulator stay in registers. Instruction: mma.sync m16n8k8 on
+// TF32 operands (split-TF32 for f32 inputs, one exact pass for bf16
+// ones), not wgmma: wgmma takes 32-bit operands K-major only, and P V
+// needs V's rows as K. The accumulator registers of S = Q K^T are P's A
+// fragment as they stand (flash_mma.cuh), so P never leaves registers;
+// the row max and sum are quad shuffles. K/V tiles are double-buffered in
+// padded shared memory by 16-byte cp.async copies: tile i+1 loads while
+// tile i's MMAs run. Under causal masking a warp skips key tiles wholly
+// above its rows, and the grid launches the heaviest q-tiles (the last)
+// first. Each tile's share of P V is summed in fresh accumulators and
+// folded into O in f32 (O = O * corr + P V): the tensor cores truncate as
+// they accumulate, and O would otherwise take that error at every MMA.
+// Masked entries are -1e30 with the TPU kernel's empty-row guard; for
+// bf16 inputs p is rounded to bf16 before P V, as the TPU kernel's astype.
+// exp is the full-precision expf (not the __expf intrinsic, whose error
+// grows with |x|).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int TPR = 4;        // threads per query row
-constexpr int NTHREADS = BQ * TPR;
-constexpr float NEG_INF = -1e30f;
+using namespace flash;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int BQ = 128;  // query rows per CTA
+constexpr int BK = 64;   // keys per tile
+constexpr int NW = BQ / 16;
+constexpr int NT = NW * 32;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 T* __restrict__ out, float* __restrict__ lse,
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
                  int L, int Hq, int Hkv, int causal) {
-  constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
-  constexpr int DT = D / TPR; // output dims owned by one thread
-  constexpr int KT = BK / TPR; // keys scored by one thread per tile
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][DP]
-  float* Ks = Qs + BQ * DP;         // [BK][DP]
-  float* Vs = Ks + BK * DP;         // [BK][D]
-  float* Ps = Vs + BK * D;          // [BQ][BK + 1]
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NJ = BK / 8;  // key column tiles of S
+  constexpr int NN = D / 8;   // dim column tiles of O
+  constexpr int NC = 4;       // dim tiles of O summed per pass of P V
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int SD = stride<T, D>();
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][SD]
+  T* Ks = Qs + BQ * SD;                    // [2][BK][SD]
+  T* Vs = Ks + 2 * BK * SD;                // [2][BK][SD]
 
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;          // query row within the tile
-  const int t = tid % TPR;          // lane within the row's group
-  const int q0 = blockIdx.x * BQ;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const Lane ln(threadIdx.x & 31);
+  const int iq = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = iq * BQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
   const float scale = rsqrtf((float)D);
-  const int qpos = q0 + r;
+  const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
+  const int kend = causal ? min(klim, q0 + BQ) : klim;
+  const int ntile = (kend + BK - 1) / BK;
 
-  // Keys past kend cannot be attended by any row of this tile.
-  int kend = L;
-  if (causal) kend = min(kend, q0 + BQ);
-  const int kvlen = kv_lens ? kv_lens[b] : L;
-  kend = min(kend, kvlen);
+  load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, hq, L, Hq);
+  load_rows_async<T, D, BK, NT>(Ks, k, b, 0, hk, L, Hkv);
+  load_rows_async<T, D, BK, NT>(Vs, v, b, 0, hk, L, Hkv);
+  cp_async_commit();
 
-  for (int i = tid; i < BQ * D; i += NTHREADS) {
-    int rr = i / D, dd = i % D;
-    int p = q0 + rr;
-    Qs[rr * DP + dd] =
-        p < L ? to_f(q[((size_t)(b * L + p) * Hq + hq) * D + dd]) : 0.f;
+  const int wr = 16 * warp;           // the warp's first row in the tile
+  const int r0 = q0 + wr + ln.g;      // this lane's rows r0 and r0 + 8
+  const bool live = q0 + wr < L;      // warp-uniform
+  float o[NN][4];
+  zero(o);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < ntile; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it-1
+    if (it + 1 < ntile) {
+      const int nb = (it + 1) & 1;
+      load_rows_async<T, D, BK, NT>(Ks + nb * BK * SD, k, b, (it + 1) * BK, hk, L, Hkv);
+      load_rows_async<T, D, BK, NT>(Vs + nb * BK * SD, v, b, (it + 1) * BK, hk, L, Hkv);
+    }
+    cp_async_commit();
+    const int k0 = it * BK;
+    if (!live || (causal && k0 > q0 + wr + 15)) continue;  // every score masked
+    const T* Kt = Ks + (it & 1) * BK * SD;
+    const T* Vt = Vs + (it & 1) * BK * SD;
+
+    // S = Q K^T; s[j] holds keys k0 + 8j + 2t and + 2t + 1 of rows r0, r0 + 8.
+    float s[NJ][4], sx[NJ][4];
+    zero(s);
+    zero(sx);
+#pragma unroll 4  // a full unroll spills
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA<SPLIT> a;
+      load_a<SD, SPLIT>(a, Qs, wr, 8 * kk, ln);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float b0, b1;
+        load_b_rows<SD>(b0, b1, Kt, 8 * j, 8 * kk, ln);
+        mma_b<SPLIT>(s[j], sx[j], a, b0, b1);
+      }
+    }
+
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
+        const int row = r0 + ((e >> 1) << 3);
+        const bool ok = key < klim && (!causal || key <= row);
+        s[j][e] = ok ? (s[j][e] + sx[j][e]) * scale : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float corr[2], msafe[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mnew = fmaxf(m[h], mx[h]);
+      // An all-masked-so-far row has mnew == -1e30; exp(s - mnew) would
+      // then be exp(0) for masked entries. The TPU kernel's guard.
+      msafe[h] = mnew == NEG_INF ? 0.f : mnew;
+      corr[h] = expf(m[h] - msafe[h]);
+      m[h] = mnew;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - msafe[e >> 1]);
+        ps[e >> 1] += p;
+        s[j][e] = rnd(p, (const T*)nullptr);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+      l[h] = l[h] * corr[h] + ps[h];
+    }
+
+    // O = O * corr + P V. P's A fragment for keys k0 + 8kk .. + 7 is s[kk]
+    // reordered. The tile's share is summed in fresh accumulators, NC dim
+    // tiles at a time, and folded into O in f32: O takes one rounding a
+    // tile instead of the tensor cores' truncation at every MMA.
+#pragma unroll
+    for (int c0 = 0; c0 < NN; c0 += NC) {
+      float t[NC][4];
+      zero(t);
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        FragA<SPLIT> a;
+        a.set(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          float b0, b1;
+          load_b_cols<SD>(b0, b1, Vt, 8 * kk, 8 * (c0 + n), ln);
+          mma_b<SPLIT>(t[n], t[n], a, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[c0 + n][e] = o[c0 + n][e] * corr[e >> 1] + t[n][e];
+    }
   }
+  cp_async_wait_all();  // no copy may outlive the CTA (an empty loop leaves one)
 
-  float m = NEG_INF, l = 0.f;
-  float acc[DT];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and Q tile written)
-    for (int i = tid; i < BK * D; i += NTHREADS) {
-      int jj = i / D, dd = i % D;
-      int p = k0 + jj;
-      size_t g = ((size_t)(b * L + p) * Hkv + hk) * D + dd;
-      bool in = p < L;
-      Ks[jj * DP + dd] = in ? to_f(k[g]) : 0.f;
-      Vs[jj * D + dd] = in ? to_f(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[KT];
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (!live || row >= L) continue;
+    const float ls = fmaxf(l[h], 1e-30f);
+    const size_t base = (size_t)(b * L + row) * Hq + hq;
 #pragma unroll
-    for (int jj = 0; jj < KT; ++jj) s[jj] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      float qv = Qs[r * DP + dd];
-#pragma unroll
-      for (int jj = 0; jj < KT; ++jj) s[jj] += qv * Ks[(t + TPR * jj) * DP + dd];
-    }
-    float mt = NEG_INF;
-#pragma unroll
-    for (int jj = 0; jj < KT; ++jj) {
-      int kp = k0 + t + TPR * jj;
-      bool ok = kp < L && kp < kvlen && (!causal || kp <= qpos);
-      s[jj] = ok ? s[jj] * scale : NEG_INF;
-      mt = fmaxf(mt, s[jj]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    float m_new = fmaxf(m, mt);
-    // An all-masked-so-far row has m_new == -1e30; exp(s - m_new) would
-    // then be exp(0) for masked entries. The TPU kernel's guard, verbatim.
-    float m_safe = m_new == NEG_INF ? 0.f : m_new;
-    float corr = expf(m - m_safe);
-    float ps = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < KT; ++jj) {
-      float p = expf(s[jj] - m_safe);
-      ps += p;
-      Ps[r * (BK + 1) + t + TPR * jj] = p;
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-    l = l * corr + ps;
-    m = m_new;
-    __syncwarp();  // the row's four lanes see each other's probabilities
-#pragma unroll
-    for (int i = 0; i < DT; ++i) acc[i] *= corr;
-    for (int jj = 0; jj < BK; ++jj) {
-      float p = Ps[r * (BK + 1) + jj];
-#pragma unroll
-      for (int i = 0; i < DT; ++i) acc[i] += p * Vs[jj * D + t + TPR * i];
-    }
-  }
-
-  if (qpos < L) {
-    float ls = fmaxf(l, 1e-30f);
-    size_t row = (size_t)(b * L + qpos) * Hq + hq;
-#pragma unroll
-    for (int i = 0; i < DT; ++i) from_f(&out[row * D + t + TPR * i], acc[i] / ls);
-    if (t == 0) lse[row] = m + logf(ls);
+    for (int n = 0; n < NN; ++n)
+      store2(out + base * D + 8 * n + 2 * ln.t, o[n][2 * h] / ls, o[n][2 * h + 1] / ls);
+    if (ln.t == 0) lse[base] = m[h] + logf(ls);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_lens, void* out, float* lse, int B, int L,
-                   int Hq, int Hkv, int causal, cudaStream_t stream) {
-  size_t smem = sizeof(float) *
-                (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
+                   float* lse, int B, int L, int Hq, int Hkv, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * stride<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq,
-      Hkv, causal);
+  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq, Hkv, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, L, Hq, D], k/v [B, L, Hkv, D] (contiguous, f32 or bf16), kv_lens
-// [B] int32 or NULL → out [B, L, Hq, D] (input dtype), lse [B, L, Hq] f32.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const int* kv_lens, void* out, float* lse, int B,
-                         int L, int Hq, int Hkv, int D, int causal,
-                         int is_bf16, void* stream) {
+// q [B, L, Hq, D], k/v [B, L, Hkv, D] (contiguous, 16-byte aligned, f32 or
+// bf16), kv_lens [B] int32 or NULL → out [B, L, Hq, D] (input dtype), lse
+// [B, L, Hq] f32.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* kv_lens,
+                         void* out, float* lse, int B, int L, int Hq, int Hkv, int D,
+                         int causal, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   if (D == 64)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st)
                          : launch<float, 64>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st));

@@ -9,8 +9,12 @@ the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
 (:327) and ``_dkv_kernel`` (:381).
 
 Layout [B, L, H, D] as in the JAX package; the output comes back in the
-input dtype and the log-sum-exp as [B, L, Hq] f32. A CUDA tensor launches
-the kernel (or raises); a CPU tensor runs the plain version. Unlike the
+input dtype and the log-sum-exp as [B, L, Hq] f32. The forward kernel and
+the fused and dk/dv backward kernels multiply on the tensor cores: on f32
+inputs each product is split-TF32 (three TF32 MMAs, ``csrc/flash_mma.cuh``)
+and stays within f32 tolerance; on bf16 inputs one TF32 pass is exact. A
+CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
+version. Unlike the
 JAX ``_pick_block``, which refuses L=1023, any length works: the kernels
 mask their ragged last tile.
 
@@ -105,10 +109,17 @@ def _check_kernel_inputs(*ts):
         raise ValueError(f"flash kernels take head_dim 64 or 128, got {q.shape[-1]}")
 
 
+def _dense16(t):
+    """``t`` contiguous and 16-byte aligned: the kernels copy rows into
+    shared memory 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _flash_cuda(q, k, v, causal, kv_lens):
     _check_kernel_inputs(q, k, v)
     b, l, hq, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _dense16(q), _dense16(k), _dense16(v)
     lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, l, hq), dtype=torch.float32, device=q.device)
@@ -197,7 +208,7 @@ def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, outs, dqp=None):
 def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
     _check_kernel_inputs(q, k, v, do)
     lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
-    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+    return (_dense16(q), _dense16(k), _dense16(v), _dense16(do),
             lse.float().contiguous(), delta.float().contiguous(), lens)
 
 

@@ -102,13 +102,29 @@ def test_flash_refuses_window_and_bad_shapes():
         flash_attention(q, q[:, :, :3], q[:, :, :3], causal=True)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "dtype,causal,d",
-    [("float32", True, 64), ("bfloat16", True, 64), ("float32", False, 128),
-     ("bfloat16", True, 128)],
+# (dtype, causal, D, L, query heads, KV heads, kv_lens): the kernel's tiles
+# are 128 queries by 64 keys, so L=1, 63, 65 and 1024 sit at its edges;
+# "short" kv_lens (1, 17, 63) end inside the first key tile.
+GPU_CASES = (
+    ("float32", True, 64, 77, 4, 2, "ragged"),
+    ("bfloat16", True, 64, 77, 4, 2, "ragged"),
+    ("float32", False, 128, 77, 4, 2, "ragged"),
+    ("bfloat16", True, 128, 77, 4, 2, "ragged"),
+    ("float32", True, 64, 1, 4, 4, None),
+    ("bfloat16", True, 64, 63, 4, 4, None),
+    ("float32", False, 64, 65, 4, 1, "ragged"),
+    ("float32", True, 64, 1024, 4, 4, None),
+    ("bfloat16", True, 64, 1024, 8, 2, "ragged"),
+    ("float32", True, 64, 200, 4, 2, "short"),
+    ("bfloat16", False, 64, 130, 4, 4, "short"),
+    ("float32", True, 128, 130, 8, 2, "ragged"),
+    ("bfloat16", True, 128, 65, 8, 2, None),
 )
-def test_flash_kernel_matches_plain_on_gpu(dtype, causal, d):
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,d,l,hq,hkv,lens_mode", GPU_CASES)
+def test_flash_kernel_matches_plain_on_gpu(dtype, causal, d, l, hq, hkv, lens_mode):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the flash kernel has no CPU mode")
     from distributed_tensorflow_tpu_torch.ops.flash_attention import (
@@ -116,14 +132,19 @@ def test_flash_kernel_matches_plain_on_gpu(dtype, causal, d):
         flash_attention_with_lse,
     )
 
-    q, k, v, lens = _inputs(3, 77, 4, 2, d, True, seed=1)
+    q, k, v, lens = _inputs(3, l, hq, hkv, d, lens_mode == "ragged", seed=1)
+    if lens_mode == "short":
+        lens = np.array([1, 17, 63], np.int32)
     dt = getattr(torch, dtype)
     args = [torch.from_numpy(a).cuda().to(dt) for a in (q, k, v)]
-    lens = torch.from_numpy(lens).cuda()
+    lens = None if lens is None else torch.from_numpy(lens).cuda()
     out, lse = flash_attention_with_lse(*args, causal=causal, kv_lens=lens)
     ref, ref_lse = flash_attention_plain(*args, causal=causal, kv_lens=lens)
-    # bf16: both round the same f32 value, at most one ulp (2^-8 relative) apart.
+    # f32: split-TF32 products, sums in another order. bf16: p rounds to
+    # bf16 before P V (2^-9 relative of each weight) and both outputs round
+    # the f32 result, at most one ulp (2^-8 relative) apart.
     scale = max(1.0, ref.float().abs().max().item())
     tol = 1e-5 if dtype == "float32" else 2 ** -7 * scale
+    assert out.dtype == ref.dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert (lse - ref_lse).abs().max().item() < 1e-4

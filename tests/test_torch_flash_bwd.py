@@ -209,45 +209,72 @@ def test_backward_wrappers_refuse_bad_inputs():
 
 # -- on the card ---------------------------------------------------------------
 
-# (dtype, D, causal, kv_lens, query heads, KV heads, L, lse cotangent)
+# (dtype, D, causal, kv_lens, query heads, KV heads, L, lse cotangent).
+# The kv kernels take 64-key tiles and 32-query tiles, so L=1, 63, 65 and
+# 1024 sit at their edges; "short" kv_lens
+# (1, 17, 63) end inside the first key tile.
 GPU_CASES = (
-    ("float32", 64, True, False, 8, 8, 256, False),
-    ("float32", 64, True, True, 8, 2, 77, True),
-    ("float32", 128, False, True, 4, 4, 130, True),
-    ("bfloat16", 64, True, True, 8, 2, 130, False),
-    ("bfloat16", 128, True, False, 4, 1, 64, True),
+    ("float32", 64, True, None, 8, 8, 256, False),
+    ("float32", 64, True, "ragged", 8, 2, 77, True),
+    ("float32", 128, False, "ragged", 4, 4, 130, True),
+    ("bfloat16", 64, True, "ragged", 8, 2, 130, False),
+    ("bfloat16", 128, True, None, 4, 1, 64, True),
+    ("float32", 64, True, None, 4, 4, 1, True),
+    ("bfloat16", 64, True, None, 4, 4, 1, False),
+    ("float32", 64, True, "ragged", 4, 2, 63, True),
+    ("bfloat16", 64, False, None, 4, 4, 65, True),
+    ("float32", 64, True, None, 8, 8, 1024, False),
+    ("float32", 64, True, "short", 4, 2, 200, True),
+    ("bfloat16", 64, True, "short", 4, 4, 130, True),
+    ("float32", 128, True, "ragged", 8, 2, 130, True),
+    ("bfloat16", 128, True, "short", 8, 2, 100, False),
+    ("float32", 128, True, None, 4, 2, 65, False),
 )
 
 
+def _gpu_bwd_inputs(dtype, d, causal, lens_mode, hq, hkv, l, with_dlse, seed):
+    """Seeded q/k/v/dO on the card, the forward kernel's out and lse,
+    delta and kv_lens."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    b = 3
+    q, do = (torch.randn(b, l, hq, d, device=dev, generator=g).to(dt) for _ in range(2))
+    k, v = (torch.randn(b, l, hkv, d, device=dev, generator=g).to(dt) for _ in range(2))
+    lens = None
+    if lens_mode == "ragged":
+        lens = torch.randint(1, l + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+    elif lens_mode == "short":
+        lens = torch.tensor([1, 17, 63], device=dev, dtype=torch.int32)
+    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, kv_lens=lens)
+    delta = (do.float() * o.float()).sum(-1)
+    if with_dlse:
+        delta = delta - torch.randn(b, l, hq, device=dev, generator=g)
+    return q, k, v, do, o, lse, delta, lens
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,causal,ragged,hq,hkv,l,with_dlse", GPU_CASES)
-def test_bwd_kernels_match_plain_on_gpu(dtype, d, causal, ragged, hq, hkv, l, with_dlse):
+@pytest.mark.parametrize("dtype,d,causal,lens_mode,hq,hkv,l,with_dlse", GPU_CASES)
+def test_bwd_kernels_match_plain_on_gpu(dtype, d, causal, lens_mode, hq, hkv, l, with_dlse):
     """B4a (fused), B4b (dq) and B4c (dk/dv) against the plain backward on
     the same inputs, and B4a against B4b + B4c."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the backward kernels have no CPU mode")
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(d + l)
-    dt = getattr(torch, dtype)
-    b = 3
-    q, do = (torch.randn(b, l, hq, d, device=dev, generator=g).to(dt) for _ in range(2))
-    k, v = (torch.randn(b, l, hkv, d, device=dev, generator=g).to(dt) for _ in range(2))
-    lens = (torch.randint(1, l + 1, (b,), device=dev, generator=g, dtype=torch.int32)
-            if ragged else None)
-    o, lse = fa.flash_attention_with_lse(q, k, v, causal=causal, kv_lens=lens)
-    delta = (do.float() * o.float()).sum(-1)
-    if with_dlse:
-        delta = delta - torch.randn(b, l, hq, device=dev, generator=g)
+    q, k, v, do, o, lse, delta, lens = _gpu_bwd_inputs(
+        dtype, d, causal, lens_mode, hq, hkv, l, with_dlse, seed=d + l)
     kw = dict(causal=causal, kv_lens=lens)
     ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, lens, causal)
     fused = fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw)
     split = (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
              *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
     torch.cuda.synchronize()
-    # f32: sums in another order. bf16: outputs round to bf16 (2^-8
-    # relative) and p / ds may round to the neighbouring bf16 value.
+    # f32: split-TF32 products, sums in another order. bf16: outputs round
+    # to bf16 (2^-8 relative) and p / ds may round to the neighbouring bf16
+    # value.
     rel = 1e-5 if dtype == "float32" else 1e-2
     for got in (fused, split):
         for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
@@ -257,6 +284,25 @@ def test_bwd_kernels_match_plain_on_gpu(dtype, d, causal, ragged, hq, hkv, l, wi
     for a, s in zip(fused, split):
         tol = rel * max(1.0, s.float().abs().max().item())
         assert (a.float() - s.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lens_mode", [("float32", None), ("bfloat16", "ragged")])
+def test_fused_bwd_is_deterministic_on_gpu(dtype, lens_mode):
+    """Two runs of the fused backward on the same inputs are bitwise equal:
+    dq is summed from per-k-tile partials in a fixed order, with no float
+    atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the backward kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, _, lse, delta, lens = _gpu_bwd_inputs(
+        dtype, 64, True, lens_mode, 8, 8, 1024, True, seed=5)
+    runs = [fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True, kv_lens=lens)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
