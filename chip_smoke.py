@@ -8,8 +8,9 @@ non-zero):
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build every CUDA kernel from ``distributed_tensorflow_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, started together); the tensor-core flash
-   kernels must build without register spills and hold HMMA instructions;
+   and the MLP kernels' probe builds (one ``nvcc`` each, started
+   together); the tensor-core flash kernels and the MLP kernels must build
+   without register spills, the former hold HMMA instructions;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, and time kernel, plain version and
    (flash only) ``scaled_dot_product_attention`` as a yardstick, beside the
@@ -33,6 +34,10 @@ non-zero):
    kernel over three steps, the epoch kernel over one 550-step epoch in
    bf16 and in f32 staging, and the epoch kernel against 550 launches of
    the step kernel; each timed beside its plain version and its bound;
+   then, from the probe builds, the split of an epoch step by phase for
+   the PR-2 kernel and the current one, B1's launch overhead beside its
+   step, and the barrier options: (a) the cooperative grid, (b) one
+   thread-block cluster exchanging through distributed shared memory;
 8. train the reference workload through ``launch.build_trainer``:
    100 epochs with ``compiled_run=True, engine="pallas"`` must print the
    reference's lines, launch the epoch kernel once per epoch with finite
@@ -105,8 +110,12 @@ PEAK_TF32 = 495e12
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_F32 = 67e12
 # The kernels that run on the tensor cores: their builds must show MMA
-# instructions and no register spills (phase 2).
+# instructions (phase 2).
 TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd": ("kv_kernel",)}
+# Builds (sources and probe modules) whose named kernels must not spill
+# registers (phase 2): the tensor-core kernels and the MLP kernels.
+NO_SPILL_KERNELS = {**TENSOR_CORE_KERNELS, "fused_mlp": ("mlp_",),
+                    "fused_mlp_probe": ("mlp_", "probe_")}
 
 SERVE_CFG = dict(
     vocab_size=8192, model_dim=512, num_layers=8, num_heads=8, max_len=1024,
@@ -223,6 +232,23 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def host_us(fn, iters=300, warmup=20) -> float:
+    """Mean host-clock time of ``fn`` in us over ``iters`` calls, with no
+    wait for the card inside the run (its queue absorbs what the host
+    issues faster than the card runs it)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def perturbed_params(model, seed, device):
@@ -1065,9 +1091,10 @@ def phase_mlp_kernels(records, ds):
     flops = 2 * B * (IN * H * 2 + H * OUT * 3)
     pbytes = 4 * (IN * H + H + H * OUT + OUT)
     t1, t2, t3, t4 = fresh(), fresh(), fresh(), fresh()
+    x0, y0 = xs32[0], ys32[0]
     records["fused_mlp_step"] = dict(
         max_abs_err=err1,
-        ms=cuda_ms(lambda: fm.fused_train_step(t1, xs32[0], ys32[0], learning_rate=MLP_LR), 200),
+        ms=cuda_ms(lambda: fm.fused_train_step(t1, x0, y0, learning_rate=MLP_LR), 200),
         plain_ms=cuda_ms(
             lambda: fm.fused_train_step_plain(t2, xs32[0], ys32[0], learning_rate=MLP_LR), 50),
         library_ms=None,
@@ -1084,8 +1111,20 @@ def phase_mlp_kernels(records, ds):
         r = records[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # A diagnostic beside B1's time, which is a call from Python as the bench
+    # makes it: the same launches replayed from a CUDA graph, the kernel
+    # without the host's part of a call.
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(50):
+            fm.fused_train_step(t1, x0, y0, learning_rate=MLP_LR)
+    graph_ms = cuda_ms(graph.replay, 10, 2) / 50
+    print(f"  fused_mlp_step {records['fused_mlp_step']['ms']:.4f} ms a call from Python; "
+          f"{graph_ms:.4f} ms a launch replayed from a CUDA graph")
     print(f"  epoch kernel: {1e3 * records['fused_mlp_epoch']['ms'] / steps:.3f} us per step "
           f"against {1e3 * records['fused_mlp_epoch']['bound_ms'] / steps:.3f} us bound")
+
+    mlp_probes(base, xs32, ys32, xs16, ys16, records, graph_ms)
 
     # What a step costs with almost no arithmetic: the same grid (25 CTAs)
     # at B=1, in=32, so the grid barrier and the share reduction remain.
@@ -1097,6 +1136,153 @@ def phase_mlp_kernels(records, ds):
     tiny_ms = cuda_ms(lambda: fm.fused_epoch(tiny, tx, ty, learning_rate=MLP_LR), 5, 1)
     print(f"  epoch kernel at B=1, 32->100->10 ({steps} steps): {tiny_ms:.4f} ms, "
           f"{1e3 * tiny_ms / steps:.3f} us per step (the barrier-bound floor)")
+
+
+MLP_SPLIT_SLOTS = 12  # csrc/mlp_probe.cuh
+# The phases of a step as each probe build stamps them.
+MLP_PHASES = {
+    "fused_mlp_v1_probe": ("forward", "logits share", "grid barrier + share sum", "softmax",
+                           "dz1/db2/cost", "update W2/b1/b2", "dW1 + W1"),
+    "fused_mlp_probe": ("forward products", "forward sums + sigmoid", "logits share + labels",
+                        "grid barrier + share sum", "softmax/dlogits/dz1",
+                        "batch sums + W2/b1/b2", "dW1 products",
+                        "dW1 slice sums + W1 + copies issued"),
+}
+
+
+def mlp_split(module, launch):
+    """Run ``launch(lib)`` (one kernel launch of the probe build ``module``)
+    and read its stamps (CTA 0): ``({phase: us}, kernel us, SM cycles per
+    ns)`` for the whole launch."""
+    import ctypes
+
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    lib = fm.kernels(module)
+    launch(lib)
+    out = (ctypes.c_ulonglong * (MLP_SPLIT_SLOTS + 2))()
+    lib.mlp_split.argtypes = [ctypes.c_void_p]
+    lib.mlp_split.restype = ctypes.c_int
+    _build.check(lib.mlp_split(ctypes.addressof(out)), f"{module} split")
+    cycles, ns = out[MLP_SPLIT_SLOTS], out[MLP_SPLIT_SLOTS + 1]
+    rate = cycles / ns
+    phases = {name: out[k] / rate / 1e3 for k, name in enumerate(MLP_PHASES[module])}
+    return phases, ns / 1e3, rate
+
+
+def print_split(label, phases, total_us, steps, rate):
+    per = {k: v / steps for k, v in phases.items()}
+    body = ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+    print(f"  split of a step, {label} (us, CTA 0, SM clock {rate:.3f} GHz): {body}; "
+          f"sum {sum(per.values()):.3f}; the launch {total_us / steps:.3f} a step")
+
+
+def mlp_probes(base, xs32, ys32, xs16, ys16, records, graph_ms):
+    """Phase 7's measurements of the MLP kernels' insides: the split of an
+    epoch step by phase (the PR-2 kernel and the current one, bf16 and f32
+    streams; the current one also without its copies and at B=1), B1's
+    overhead beside its step, the layout of x in shared memory, and the
+    barrier options (a) grid, (b) cluster."""
+    import ctypes
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    steps = xs16.shape[0]
+
+    def fresh():
+        return fm.FusedState(*(t.clone() for t in base))
+
+    for module, label in (("fused_mlp_v1_probe", "PR-2 kernel"),
+                          ("fused_mlp_probe", "current kernel")):
+        for kind, xs, ys in (("bf16", xs16, ys16), ("f32", xs32, ys32)):
+            st = fresh()
+            phases, total, rate = mlp_split(
+                module, lambda lib: fm.launch_epoch(lib, st, xs, ys, MLP_LR))
+            print_split(f"{label}, epoch, {kind} stream", phases, total, steps, rate)
+    # The same launches without the copies of x after the first fills
+    # (the steps compute on stale batches): what the copies cost.
+    lib = fm.kernels("fused_mlp_probe")
+    lib.mlp_probe_flags.argtypes = [ctypes.c_int]
+    lib.mlp_probe_flags.restype = ctypes.c_int
+    _build.check(lib.mlp_probe_flags(1), "mlp_probe_flags")
+    for kind, xs, ys in (("bf16", xs16, ys16), ("f32", xs32, ys32)):
+        st = fresh()
+        phases, total, rate = mlp_split(
+            "fused_mlp_probe", lambda lib: fm.launch_epoch(lib, st, xs, ys, MLP_LR))
+        print_split(f"current kernel, epoch, {kind} stream, no copies after the first",
+                    phases, total, steps, rate)
+    _build.check(lib.mlp_probe_flags(0), "mlp_probe_flags")
+    # The fixed cost of a step: the tiny probe's shapes (B=1, 32->100->10).
+    tiny = fm.FusedState(torch.zeros(32, 100, device=base.w1.device),
+                         torch.zeros(1, 100, device=base.w1.device),
+                         torch.zeros(100, 10, device=base.w1.device),
+                         torch.zeros(1, 10, device=base.w1.device))
+    tx = torch.rand(steps, 1, 32, device=base.w1.device)
+    ty = torch.zeros(steps, 1, 10, device=base.w1.device)
+    ty[..., 0] = 1
+    phases, total, rate = mlp_split(
+        "fused_mlp_probe", lambda lib: fm.launch_epoch(lib, tiny, tx, ty, MLP_LR))
+    print_split("current kernel, epoch, B=1, 32->100->10", phases, total, steps, rate)
+    # B1: its one step inside the launch, and what the launch adds.
+    st = fresh()
+    phases, total, rate = mlp_split(
+        "fused_mlp_probe", lambda lib: fm.launch_step(lib, st, xs32[0], ys32[0], MLP_LR))
+    print_split("current kernel, step (B1)", phases, total, 1, rate)
+    # The overhead of a B1 call. On the card: a launch replayed from a graph
+    # less an f32 step of B2 at the same shapes (CUDA-event means of the
+    # package's build). On the host: the host clock's time of a call, and of
+    # the launcher alone given the same arguments (the rest is the wrapper's
+    # Python); a call from Python takes the longer of the host's and the
+    # card's times.
+    t = fresh()
+    f32_step = 1e3 * cuda_ms(lambda: fm.fused_epoch(t, xs32, ys32, learning_rate=MLP_LR),
+                             5, 1) / steps
+    b1_us, graph_us = 1e3 * records["fused_mlp_step"]["ms"], 1e3 * graph_ms
+    x0, y0 = xs32[0], ys32[0]
+    lib = fm.kernels("fused_mlp")
+    stream = fm._stream(x0)
+    shares = fm._workspace(lib, *x0.shape, *t.w2.shape, False, x0.device, stream)
+    cost = torch.empty((), device=x0.device)
+    args = (x0.data_ptr(), y0.data_ptr(), *(p.data_ptr() for p in t), cost.data_ptr(),
+            shares.data_ptr(), *x0.shape, *t.w2.shape, MLP_LR, stream)
+    call_us = host_us(lambda: fm.fused_train_step(t, x0, y0, learning_rate=MLP_LR))
+    raw_us = host_us(lambda: lib.mlp_step(*args))
+    print(f"  B1: {b1_us:.3f} us a call from Python; on the card {graph_us:.3f} a launch from "
+          f"a graph = an f32 step {f32_step:.3f} (B2, f32 stream) + {graph_us - f32_step:.3f} "
+          f"of launch, parameter load/store and first copies (in the kernel, outside the "
+          f"step's phases: {total - sum(phases.values()):.3f}); on the host {call_us:.3f} a "
+          f"call = the launcher {raw_us:.3f} + the wrapper {call_us - raw_us:.3f}")
+
+    # How x sits in shared memory at the reference shapes, as the launcher
+    # plans it.
+    dev = base.w1.device
+    print(f"  x in shared memory at the reference shapes: bf16 "
+          f"{fm.smem_layout(100, 784, 100, 10, torch.bfloat16, dev.index)}, f32 "
+          f"{fm.smem_layout(100, 784, 100, 10, torch.float32, dev.index)} "
+          f"(bytes a CTA, slots, resident)")
+
+    # The barrier options at the tiny probe's exchange (B=1: 10 floats a
+    # CTA) and at the reference's (B=100: 1000): (a) the cooperative grid
+    # of 25 CTAs of 4 units; (b) one cluster of 15 CTAs of 7 units, or of 8
+    # CTAs of 13.
+    fn = fm.kernels("fused_mlp_probe").probe_exchange
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    out = torch.empty(512, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for n in (10, 1000):
+        row = []
+        for cluster, nblk in ((0, 25), (1, 15), (1, 8)):
+            shares = torch.empty(2 * nblk * n, device=dev)
+            ms = cuda_ms(lambda: _build.check(
+                fn(cluster, nblk, n, steps, shares.data_ptr(), out.data_ptr(), stream),
+                "probe_exchange"), 5, 1)
+            row.append(f"{'(b) cluster' if cluster else '(a) grid'} of {nblk} "
+                       f"{1e3 * ms / steps:.3f}")
+        print(f"  barrier + share exchange of {n} floats a CTA, us a step: {', '.join(row)}")
 
 
 def phase_mlp_train(records, ds):
@@ -1453,13 +1639,44 @@ def phase_copy_task(records):
     print(f"  oracle met on both; fused vs split perplexities within {gap:.2e} (relative)")
 
 
+def phase_build():
+    """Build every source and probe module (one ``nvcc`` each, started
+    together); read ptxas's report of each: the kernels of
+    NO_SPILL_KERNELS must not spill, the tensor-core ones must hold HMMA."""
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all((*_build.SOURCES, *_build.PROBES))
+    print(f"  built in {time.perf_counter() - t0:.1f} s")
+    for src in (*_build.SOURCES, *_build.PROBES):
+        log = _build.BUILD_LOGS.get(src)
+        if log is None:
+            raise AssertionError(f"{src}: no ptxas report from its build")
+        checked, fn, spills = NO_SPILL_KERNELS.get(src, ()), "", {}
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+            if m:
+                fn = m.group(1)
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {src}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and any(k in fn for k in checked):
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+        if checked:
+            print(f"  {src}: {len(spills)} checked kernel builds, "
+                  f"spill bytes {sum(spills.values())}")
+            if not spills or any(spills.values()):
+                raise AssertionError(f"{src}: register spills in {spills or 'no kernel found'}")
+        if src in TENSOR_CORE_KERNELS:
+            check_hmma(src, TENSOR_CORE_KERNELS[src])
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from distributed_tensorflow_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1474,29 +1691,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("phase 2: build")
-    _build.build_all()
-    print(f"  built in {time.perf_counter() - t0:.1f} s")
-    # ptxas's report of each build; the tensor-core kernels must not spill.
-    for src in _build.SOURCES:
-        log = _build.BUILD_LOGS.get(src)
-        if log is None:
-            raise AssertionError(f"{src}: no ptxas report from its build")
-        tc, fn, spills = TENSOR_CORE_KERNELS.get(src, ()), "", {}
-        for line in log.splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
-            if m:
-                fn = m.group(1)
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {src}: {line.strip()}")
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and any(k in fn for k in tc):
-                spills[fn] = int(m.group(1)) + int(m.group(2))
-        if tc:
-            print(f"  {src}: {len(spills)} tensor-core kernel builds, "
-                  f"spill bytes {sum(spills.values())}")
-            if not spills or any(spills.values()):
-                raise AssertionError(f"{src}: register spills in {spills or 'no kernel found'}")
-            check_hmma(src, tc)
+    phase_build()
 
     records: dict[str, dict] = {}
     print("phase 3: kernels vs plain versions")

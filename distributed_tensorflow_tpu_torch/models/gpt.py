@@ -431,15 +431,18 @@ class GPTLM:
         """Append one token per slot: token [S] int at each slot's own
         position. Returns (logits [S, vocab] f32, cache with ``lengths``
         advanced where active). Inactive rows are not written and their
-        logits are garbage to discard; a row already at ``cache_len`` is
-        never written either, so callers bound their own trip count as the
-        server does (no per-token host check)."""
+        logits are garbage to discard. Stepping an active row past
+        ``max_len`` would corrupt it, so CPU tensors raise "KV cache full"
+        as the JAX package's eager calls do; on the card callers bound
+        their own trip count as the server does (no per-token host sync)."""
         s = token.shape[0]
         act = (
             torch.ones(s, dtype=torch.bool, device=token.device)
             if active is None
             else active.bool()
         )
+        if not token.is_cuda:
+            self._refuse_full_cache(cache.lengths, act)
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
         if self._resolve_decode_engine(engine) == "fused":
@@ -456,6 +459,17 @@ class GPTLM:
                 commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act)
         new_cache = cache._replace(lengths=cache.lengths + act.to(cache.lengths.dtype))
         return self._logits(params, h), new_cache
+
+    def _refuse_full_cache(self, lengths, act) -> None:
+        """JAX's eager "KV cache full" check: raise when an active slot is
+        already at ``max_len``."""
+        if bool(act.any()):
+            worst = int(torch.where(act, lengths, 0).max())
+            if worst >= self.max_len:
+                raise ValueError(
+                    f"KV cache full: an active slot is at length {worst} == "
+                    f"max_len {self.max_len}; increase max_len"
+                )
 
     # -- paged decoding (block-table cache, serve.py paged=True) -----------
 
@@ -571,13 +585,8 @@ class GPTLM:
             if active is None
             else active.bool()
         )
-        if not token.is_cuda and bool(act.any()):
-            worst = int(torch.where(act, cache.lengths, 0).max())
-            if worst >= self.max_len:
-                raise ValueError(
-                    f"KV cache full: an active slot is at length {worst} == "
-                    f"max_len {self.max_len}; increase max_len"
-                )
+        if not token.is_cuda:
+            self._refuse_full_cache(cache.lengths, act)
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
         tables, lengths = cache.block_tables, cache.lengths

@@ -21,6 +21,13 @@ import subprocess
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("flash_fwd", "flash_bwd", "fused_decode", "fused_mlp")
+# Probe builds: module name -> (source, extra nvcc flags). Only
+# chip_smoke.py builds them (the MLP kernels' phase stamps); no code of the
+# package loads one.
+PROBES = {
+    "fused_mlp_probe": ("fused_mlp", ("-DMLP_PROBE",)),
+    "fused_mlp_v1_probe": ("fused_mlp_v1", ("-DMLP_PROBE",)),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -61,10 +68,15 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str) -> tuple[str, tuple[str, ...]]:
+    return PROBES.get(name, (name, ()))
+
+
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for fn in sorted(os.listdir(CSRC)):
-        if fn.endswith((".cuh", ".h")) or fn == f"{name}.cu":
+        if fn.endswith((".cuh", ".h")) or fn == f"{src}.cu":
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -78,7 +90,8 @@ def _start(name: str):
                 BUILD_LOGS.setdefault(name, f.read())
         return None
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    src, flags = _source(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, os.path.join(CSRC, f"{src}.cu")]
     os.makedirs(BUILD_DIR, exist_ok=True)
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -92,7 +105,7 @@ def _finish(name: str, started) -> None:
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+            f"nvcc failed for {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{log}"
         )
     with open(f"{tmp}.log", "w") as f:

@@ -24,6 +24,7 @@ artefact; here they are a plain ``[steps]`` f32 tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -106,34 +107,138 @@ def fused_epoch_plain(state: FusedState, xs, ys, *, learning_rate: float):
 
 # -- the CUDA kernels ---------------------------------------------------------
 
+# The kernels' domain (csrc/fused_mlp.cu): 16 warps of at most 8 examples,
+# 32 classes, and x staged in shared memory by TMA copies of [B, 512-byte]
+# boxes (rows of x a multiple of 16 bytes). Whether two slots of x fit in a
+# CTA's shared memory is the launcher's to say (:func:`smem_layout`).
+MAX_BATCH = 128
+MAX_CLASSES = 32
+
+
+@functools.lru_cache(maxsize=64)
+def check_domain(b: int, in_dim: int, hidden: int, out: int, dtype: torch.dtype, what: str):
+    """Raise ValueError, naming the limit, on dims the kernels do not take
+    (a shape that passes is remembered)."""
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"{what}: the kernels take batches of 1..{MAX_BATCH}, got {b}")
+    if not 1 <= out <= MAX_CLASSES:
+        raise ValueError(f"{what}: the kernels take 1..{MAX_CLASSES} classes, got {out}")
+    if in_dim < 1 or hidden < 1:
+        raise ValueError(f"{what}: empty layer, in {in_dim}, hidden {hidden}")
+    if in_dim * dtype.itemsize % 16:
+        raise ValueError(
+            f"{what}: a {dtype} row of x must be a multiple of 16 bytes (in_dim a multiple "
+            f"of {16 // dtype.itemsize}) for the TMA copies, got in_dim {in_dim}"
+        )
+
+
+@functools.lru_cache(maxsize=64)
+def smem_layout(
+    b: int, in_dim: int, hidden: int, out: int, dtype: torch.dtype, device: int
+) -> tuple[int, int, bool]:
+    """``(bytes, slots, resident)`` of one CTA's shared memory in a launch
+    on the card ``device``, as the launcher plans it (``mlp_plan``): the
+    whole batch resident when it fits, else a ring of 2-4 chunk slots;
+    ``(0, 0, False)`` when not even two slots fit."""
+    nbuf, resident = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        n = kernels("fused_mlp").mlp_plan(
+            b, in_dim, hidden, out, int(dtype == torch.bfloat16),
+            ctypes.byref(nbuf), ctypes.byref(resident),
+        )
+    if n < 0:
+        _build.check(-n, "mlp_plan")
+    return n, nbuf.value, bool(resident.value)
+
 
 def _check(state: FusedState, x, y, what: str):
     """Validate the kernels' inputs; returns (lib, B, IN, H, OUT)."""
     b, in_dim = x.shape[-2], x.shape[-1]
     hidden, out = state.w2.shape
-    want = {"w1": (in_dim, hidden), "b1": (1, hidden), "w2": (hidden, out), "b2": (1, out)}
-    for name, t in state._asdict().items():
-        if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != want[name]:
+    dev = x.device
+    want = ((in_dim, hidden), (1, hidden), (hidden, out), (1, out))
+    for name, t, shape in zip(FusedState._fields, state, want):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.shape != shape:
             raise ValueError(
-                f"{what}: state.{name} must be contiguous f32 of shape {want[name]}, "
+                f"{what}: state.{name} must be contiguous f32 of shape {shape}, "
                 f"got {t.dtype} {tuple(t.shape)}"
             )
-        if t.device != x.device:
-            raise ValueError(f"{what}: state.{name} is on {t.device}, the batch on {x.device}")
+        if t.device != dev:
+            raise ValueError(f"{what}: state.{name} is on {t.device}, the batch on {dev}")
     if y.shape[:-1] != x.shape[:-1] or y.shape[-1] != out or y.dtype != x.dtype:
         raise ValueError(f"{what}: labels {tuple(y.shape)} {y.dtype} do not match the batch")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError(f"{what}: the batch must be contiguous")
-    if out > 32:
-        raise ValueError(f"{what}: the kernels take at most 32 classes, got {out}")
-    lib = _build.load("fused_mlp")
-    lib.mlp_blocks.argtypes = [ctypes.c_int]
-    lib.mlp_blocks.restype = ctypes.c_int
-    return lib, b, in_dim, hidden, out
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: the batch must start on a 16-byte boundary")
+    check_domain(b, in_dim, hidden, out, x.dtype, what)
+    if smem_layout(b, in_dim, hidden, out, x.dtype, x.device.index)[0] == 0:
+        raise ValueError(
+            f"{what}: batch {b}, in {in_dim}, {out} classes leave no room for two slots of "
+            f"x in one CTA's shared memory on {torch.cuda.get_device_name(x.device)}"
+        )
+    return kernels("fused_mlp"), b, in_dim, hidden, out
+
+
+@functools.lru_cache(maxsize=None)
+def kernels(module: str) -> ctypes.CDLL:
+    """The library of ``module`` (``fused_mlp`` or one of its probe builds,
+    ``_build.PROBES``) with its launchers' signatures set, once."""
+    lib = _build.load(module)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)  # the PR-2 probe build has no mlp_step
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+_SIGNATURES = {
+    "mlp_workspace": [ctypes.c_int] * 5,
+    "mlp_plan": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "mlp_step": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    "mlp_epoch": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    ),
+}
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # The raw handle of the current stream (torch.cuda.current_stream builds
+    # a Stream object: ~10 us a call, a quarter of a B1 launch).
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# Share buffers by library, device, stream and dims. A launch writes its
+# shares before it reads them, and launches on one stream run in order, so
+# one buffer a stream serves every launch of those dims there.
+_SHARES: dict[tuple, torch.Tensor] = {}
+
+
+def _workspace(lib, b, in_dim, hidden, out, bf16: bool, device, stream: int) -> torch.Tensor:
+    key = (id(lib), device.index, stream, b, in_dim, hidden, out, bf16)
+    buf = _SHARES.get(key)
+    if buf is None:
+        n = lib.mlp_workspace(b, in_dim, hidden, out, int(bf16))
+        buf = _SHARES[key] = torch.empty(n, dtype=torch.float32, device=device)
+    return buf
+
+
+def launch_step(lib, state: FusedState, x, y, learning_rate: float) -> torch.Tensor:
+    """One launch of ``lib``'s ``mlp_step`` on checked inputs; returns the
+    cost (see :func:`launch_epoch`)."""
+    b, in_dim = x.shape
+    hidden, out = state.w2.shape
+    stream = _stream(x)
+    shares = _workspace(lib, b, in_dim, hidden, out, False, x.device, stream)
+    cost = torch.empty((), dtype=torch.float32, device=x.device)
+    err = lib.mlp_step(
+        x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in state),
+        cost.data_ptr(), shares.data_ptr(), b, in_dim, hidden, out,
+        learning_rate, stream,
+    )
+    _build.check(err, "fused_train_step")
+    return cost
 
 
 def fused_train_step(state: FusedState, x, y, *, learning_rate: float):
@@ -147,21 +252,29 @@ def fused_train_step(state: FusedState, x, y, *, learning_rate: float):
         return fused_train_step_plain(state, x, y, learning_rate=learning_rate)
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"fused_train_step takes a 2-D f32 batch, got {x.dtype} {tuple(x.shape)}")
-    lib, b, in_dim, hidden, out = _check(state, x, y, "fused_train_step")
-    nblk = lib.mlp_blocks(hidden)
-    shares = torch.empty(nblk * b * out, dtype=torch.float32, device=x.device)
-    cost = torch.empty((), dtype=torch.float32, device=x.device)
-    fn = lib.mlp_step
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in state),
-        cost.data_ptr(), shares.data_ptr(), b, in_dim, hidden, out,
-        learning_rate, _stream(x),
-    )
-    _build.check(err, "fused_train_step")
+    lib = _check(state, x, y, "fused_train_step")[0]
+    cost = launch_step(lib, state, x, y, learning_rate)
     _build.LAUNCHES["fused_mlp_step"] += 1
     return state, cost
+
+
+def launch_epoch(lib, state: FusedState, xs, ys, learning_rate: float) -> torch.Tensor:
+    """One launch of ``lib``'s ``mlp_epoch`` on checked inputs; returns
+    the costs. :func:`fused_epoch` calls it with ``kernels("fused_mlp")``,
+    ``chip_smoke.py`` with the libraries of the probe builds."""
+    steps, b, in_dim = xs.shape
+    hidden, out = state.w2.shape
+    bf16 = xs.dtype == torch.bfloat16
+    stream = _stream(xs)
+    shares = _workspace(lib, b, in_dim, hidden, out, bf16, xs.device, stream)
+    costs = torch.empty(steps, dtype=torch.float32, device=xs.device)
+    err = lib.mlp_epoch(
+        xs.data_ptr(), ys.data_ptr(), int(bf16),
+        *(t.data_ptr() for t in state), costs.data_ptr(), shares.data_ptr(),
+        steps, b, in_dim, hidden, out, learning_rate, stream,
+    )
+    _build.check(err, "fused_epoch")
+    return costs
 
 
 def fused_epoch(state: FusedState, xs, ys, *, learning_rate: float):
@@ -177,23 +290,8 @@ def fused_epoch(state: FusedState, xs, ys, *, learning_rate: float):
         raise ValueError(
             f"fused_epoch streams [steps, B, in] f32 or bf16, got {xs.dtype} {tuple(xs.shape)}"
         )
-    lib, b, in_dim, hidden, out = _check(state, xs, ys, "fused_epoch")
-    steps = xs.shape[0]
-    nblk = lib.mlp_blocks(hidden)
-    shares = torch.empty(2 * nblk * b * out, dtype=torch.float32, device=xs.device)
-    costs = torch.empty(steps, dtype=torch.float32, device=xs.device)
-    fn = lib.mlp_epoch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    err = fn(
-        xs.data_ptr(), ys.data_ptr(), int(xs.dtype == torch.bfloat16),
-        *(t.data_ptr() for t in state), costs.data_ptr(), shares.data_ptr(),
-        steps, b, in_dim, hidden, out, learning_rate, _stream(xs),
-    )
-    _build.check(err, "fused_epoch")
+    lib = _check(state, xs, ys, "fused_epoch")[0]
+    costs = launch_epoch(lib, state, xs, ys, learning_rate)
     _build.LAUNCHES["fused_mlp_epoch"] += 1
     return state, costs
 

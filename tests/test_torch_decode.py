@@ -85,6 +85,52 @@ def test_engines_agree_and_inactive_rows_untouched():
     assert torch.equal(la[act], lb[act])
 
 
+@pytest.mark.parametrize("lengths,full", [((8, 3), True), ((7, 3), False)])
+def test_decode_slots_refuses_a_full_cache_as_jax_does(lengths, full):
+    """An active slot at max_len: the JAX decode_slots (eager) and the
+    port's both raise "KV cache full"; one position short, neither does."""
+    import jax.numpy as jnp
+
+    jm, tm = jax_model(max_len=8), torch_model(max_len=8)
+    tree = numpy_params(jm, seed=5)
+    jp, tp = jax_params(tree), torch_params(tree)
+    jc = jm.empty_slot_cache(2)
+    jc = jc._replace(lengths=jnp.asarray(lengths, jnp.int32))
+    tc = tm.empty_slot_cache(2, device="cpu")
+    tc = tc._replace(lengths=torch.tensor(lengths, dtype=torch.int32))
+    tok = np.array([1, 2], np.int32)
+    calls = (lambda: jm.decode_slots(jp, jnp.asarray(tok), jc, engine="xla"),
+             lambda: tm.decode_slots(tp, torch.from_numpy(tok), tc))
+    for call in calls:
+        if full:
+            with pytest.raises(ValueError, match="KV cache full"):
+                call()
+        else:
+            call()
+    if not full:  # an inactive row at max_len rides along
+        tm.decode_slots(tp, torch.from_numpy(tok), tc._replace(
+            lengths=torch.tensor([8, 3], dtype=torch.int32)), torch.tensor([False, True]))
+
+
+@pytest.mark.parametrize("lengths,full", [((8, 3), True), ((7, 3), False)])
+def test_decode_paged_refuses_a_full_cache(lengths, full):
+    tm = torch_model(max_len=8)
+    tp = torch_params(numpy_params(jax_model(max_len=8), seed=5))
+    bs = 4
+    nb = 2 * tm.paged_blocks_per_slot(bs)
+    cache = tm.empty_paged_cache(2, nb, bs, device="cpu")
+    tables = torch.arange(nb, dtype=torch.int32).reshape(2, -1)
+    cache = cache._replace(block_tables=tables,
+                           lengths=torch.tensor(lengths, dtype=torch.int32))
+    tok = torch.tensor([1, 2], dtype=torch.int32)
+    if full:
+        with pytest.raises(ValueError, match="KV cache full"):
+            tm.decode_paged(tp, tok, cache)
+    else:
+        _, out = tm.decode_paged(tp, tok, cache)
+        assert out.lengths.tolist() == [8, 4]
+
+
 def test_commit_slot_rows_semantics():
     from distributed_tensorflow_tpu_torch.ops.fused_decode import commit_slot_rows
 

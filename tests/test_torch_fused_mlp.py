@@ -174,6 +174,43 @@ def test_update_check_rejects_an_update_one_percent_off(steps, tol, fault):
         _assert_run_matches(tol, (rc, rc), bad, ref, base)
 
 
+# The kernels' domain, checked in Python before a launch (the launcher
+# checks it again): (batch, in, hidden, out, stream, message part).
+OUTSIDE_DOMAIN = (
+    (129, 784, 100, 10, "float32", "batches of 1..128"),
+    (100, 784, 100, 33, "float32", "1..32 classes"),
+    (100, 100, 100, 10, "bfloat16", "multiple of 16 bytes"),
+    (100, 98, 100, 10, "float32", "multiple of 16 bytes"),
+)
+# Every shape a caller or a test gives the kernels, with the layout of x the
+# launcher plans in an H100's shared memory: (batch, in, hidden, out,
+# stream, slots, resident).
+INSIDE_DOMAIN = (
+    (100, 784, 100, 10, "bfloat16", 4, True),   # the trainer's epoch kernel
+    (100, 784, 100, 10, "float32", 3, False),   # B1; B2 with f32 staging
+    (1, 32, 100, 10, "float32", 1, True),       # chip_smoke.py's tiny probe
+    (100, 100, 18, 10, "float32", 1, True),
+    (100, 104, 18, 10, "bfloat16", 1, True),
+    (128, 784, 100, 32, "bfloat16", 2, False),
+    (1, 784, 100, 10, "bfloat16", 4, True),
+)
+
+
+@pytest.mark.parametrize("b,in_dim,hidden,out,stream,match", OUTSIDE_DOMAIN)
+def test_kernel_domain_refuses_with_the_limit(b, in_dim, hidden, out, stream, match):
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    with pytest.raises(ValueError, match=match):
+        fm.check_domain(b, in_dim, hidden, out, getattr(torch, stream), "fused_epoch")
+
+
+@pytest.mark.parametrize("b,in_dim,hidden,out,stream", [row[:5] for row in INSIDE_DOMAIN])
+def test_kernel_domain_takes_every_caller(b, in_dim, hidden, out, stream):
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    fm.check_domain(b, in_dim, hidden, out, getattr(torch, stream), "fused_epoch")
+
+
 # -- on the card ---------------------------------------------------------------
 
 
@@ -270,3 +307,94 @@ def test_compiled_run_on_gpu_matches_the_cpu_plain_version():
     # 300 test examples: one prediction apart would be 3.3e-3.
     assert (km["accuracy"].cpu() - pm["accuracy"]).abs().max().item() <= 1e-3
     _assert_run_matches(EPOCH_TOL, (km["costs"], pm["costs"]), ks, ps, torch_fused(tree))
+
+
+# The new tiling's edges: (stream, batch, in, hidden, out). 784 and 100/104
+# are not multiples of a chunk (256 bf16 or 128 f32 columns); hidden 18
+# leaves the last CTA 2 of its 4 units; f32 at 784 streams x through a ring
+# of 3 slots, bf16 at batch 128 and 32 classes through a ring of 2; batch 1
+# leaves 15 of the 16 warps without an example.
+TILING_EDGES = (
+    ("float32", 100, 784, 100, 10),
+    ("bfloat16", 100, 784, 100, 10),
+    ("float32", 100, 100, 18, 10),
+    ("bfloat16", 100, 104, 18, 10),
+    ("float32", 1, 784, 100, 10),
+    ("bfloat16", 1, 784, 18, 10),
+    ("bfloat16", 128, 784, 100, 32),
+    ("float32", 128, 784, 100, 32),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream,b,in_dim,hidden,out", TILING_EDGES)
+def test_kernels_match_plain_at_the_tiling_edges_on_gpu(stream, b, in_dim, hidden, out):
+    """Three steps of the epoch kernel (and, on f32, three launches of the
+    step kernel) against the plain loop at FEW_STEPS_TOL."""
+    _cuda_or_skip()
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    steps = 3
+    tree = mlp_numpy_params(in_dim=in_dim, hidden=hidden, out=out, seed=17)
+    xs, ys = mlp_numpy_batches(steps, b, in_dim=in_dim, out=out, seed=18)
+    dt = getattr(torch, stream)
+    xs, ys = torch.from_numpy(xs).cuda().to(dt), torch.from_numpy(ys).cuda().to(dt)
+    base = torch_fused(tree, "cuda")
+    k, kc = fm.fused_epoch(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    p, pc = fm.fused_epoch_plain(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kc).all()
+    _assert_run_matches(FEW_STEPS_TOL, (kc, pc), k, p, base)
+    if stream == "float32":
+        s = torch_fused(tree, "cuda")
+        sc = torch.stack([fm.fused_train_step(s, xs[i], ys[i], learning_rate=0.001)[1]
+                          for i in range(steps)])
+        torch.cuda.synchronize()
+        _assert_run_matches(FEW_STEPS_TOL, (sc, pc), s, p, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["float32", "bfloat16"])
+def test_epoch_kernel_is_deterministic_on_gpu(stream):
+    """Every sum across threads and CTAs has a fixed order: two runs of the
+    same epoch are bitwise equal, costs and parameters."""
+    _cuda_or_skip()
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    tree = mlp_numpy_params(seed=19)
+    xs, ys = mlp_numpy_batches(20, 100, seed=20)
+    dt = getattr(torch, stream)
+    xs, ys = torch.from_numpy(xs).cuda().to(dt), torch.from_numpy(ys).cuda().to(dt)
+    a, ac = fm.fused_epoch(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    b, bc = fm.fused_epoch(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    torch.cuda.synchronize()
+    assert torch.equal(ac, bc)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,in_dim,hidden,out,stream,slots,resident", INSIDE_DOMAIN)
+def test_shared_memory_layout_on_gpu(b, in_dim, hidden, out, stream, slots, resident):
+    """The launcher's plan for every caller's shape: a bf16 batch of 100 or
+    fewer resident, an f32 one of 784 columns through a ring of 3 slots."""
+    _cuda_or_skip()
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    dev = torch.cuda.current_device()
+    nbytes, nbuf, res = fm.smem_layout(b, in_dim, hidden, out, getattr(torch, stream), dev)
+    assert (nbuf, res) == (slots, resident) and nbytes > 0
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_a_batch_without_room_for_two_slots_on_gpu():
+    """Batch 128 of 6000 f32 columns leaves no room for two 64 KB slots of
+    x beside W1's slice: a ValueError before any launch."""
+    _cuda_or_skip()
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    tree = mlp_numpy_params(in_dim=6000, hidden=100, out=10, seed=21)
+    xs, ys = mlp_numpy_batches(1, 128, in_dim=6000, out=10, seed=22)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    with pytest.raises(ValueError, match="no room for two slots"):
+        fm.fused_epoch(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
