@@ -8,9 +8,10 @@ non-zero):
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build every CUDA kernel from ``distributed_tensorflow_tpu_torch/ops/csrc``
-   and the MLP kernels' probe builds (one ``nvcc`` each, started
-   together); the tensor-core flash kernels and the MLP kernels must build
-   without register spills, the former hold HMMA instructions;
+   and the MLP and decode kernels' probe builds (one ``nvcc`` each, started
+   together); the tensor-core kernels (flash, the cooperative decode step
+   and verify) and the MLP kernels must build without register spills, the
+   former hold HMMA instructions;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, and time kernel, plain version and
    (flash only) ``scaled_dot_product_attention`` as a yardstick, beside the
@@ -20,7 +21,10 @@ non-zero):
    ``TextServer.generate``: 8 slots, chunk 32, 12 requests greedy and
    sampled across seven prompt buckets, the last (L=1023) over 512; the
    launch counts are zeroed before and read after, and the flash and
-   megakernel counts must be above zero;
+   megakernel counts must be above zero; then 8 of the requests again,
+   their decode timed without the profiler and then traced by
+   ``torch.profiler`` (CUDA activity only): the device's time over the
+   unprofiled wall time is its busy share a step;
 5. serve the greedy requests again on the per-layer kernel
    (``decode_engine="fused-layer"``), compare the streams, and compare
    logits over an 8-step greedy decode: megakernel vs per-layer kernel vs
@@ -54,9 +58,15 @@ non-zero):
     paged per-layer kernel; each must launch its kernel, hit the prefix
     cache and leave only the radix's blocks live, (b) must accept drafts,
     and every stream must equal the slab server's on the same prompts
-    unless the top-2 gap of the pick at the first differing token is
-    below the decode tolerance; after such a near-tie both servers continue
-    from the reference's tokens, so every token is compared;
+    unless the pick at the first differing token is a near-tie: its top-2
+    gap below the decode tolerance, or (sampled) a flip at the nucleus cut
+    that the two servers' own logits at that token show (recorded from
+    their samplers: the same draw, each sampler picking its own token on
+    its own row, the rows within the decode tolerance, a token inside one
+    nucleus and outside the other, and the server's token ranked before
+    the reference's or first past its nucleus); after a near-tie both
+    servers continue from the reference's tokens, so every token is
+    compared;
 11. the flash-attention backward kernels (fused ``flash_bwd_fused``, and
     the ``flash_bwd_dq`` + ``flash_bwd_dkv`` pair) against the plain
     backward at gpt-m training shapes (B=16, L=1024, 8 heads of 64, f32,
@@ -77,11 +87,17 @@ non-zero):
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
 versions at gpt-m shapes over scrambled block tables, the paged megakernel
-against the slab one bit for bit on the same logical cache, and checks
-that every pool byte outside the rows a launch may write is unchanged.
-The verify kernel is held again at prefix 0 and prefixes under one block,
-by its update and its committed rows, within limits that plain versions
-with the suffix's causal block masked wrongly fail.
+against the slab one bit for bit on the same logical cache, two launches of
+each cooperative kernel against each other bit for bit, and checks that
+every pool byte outside the rows a launch may write is unchanged. The
+verify kernel is held again at prefix 0 and prefixes under one block, by
+its update and its committed rows, within limits that plain versions with
+the suffix's causal block masked wrongly fail. It prints each cooperative
+kernel's grid (CTAs, occupancy), grid syncs a launch and the time of a
+sync at that grid on their own flag barrier, the decode wrapper's host
+time, and a launch of the decode step and of the verify split by phase
+(``coop_split``; both from the probe build ``fused_decode_probe``, clock
+stamps).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -91,6 +107,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -110,10 +127,13 @@ PEAK_TF32 = 495e12
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_F32 = 67e12
 # The kernels that run on the tensor cores: their builds must show MMA
-# instructions (phase 2).
-TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd": ("kv_kernel",)}
+# instructions (phase 2). coop_step_kernel: the whole-model decode step (B6,
+# slab and paged) and the verify (B7).
+TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd": ("kv_kernel",),
+                       "fused_decode": ("coop_step_kernel",)}
 # Builds (sources and probe modules) whose named kernels must not spill
-# registers (phase 2): the tensor-core kernels and the MLP kernels.
+# registers (phase 2): the tensor-core kernels (the cooperative decode
+# kernels among them) and the MLP kernels.
 NO_SPILL_KERNELS = {**TENSOR_CORE_KERNELS, "fused_mlp": ("mlp_",),
                     "fused_mlp_probe": ("mlp_", "probe_")}
 
@@ -385,6 +405,8 @@ def phase_kernels(records):
     ):
         raise AssertionError("megakernel commit: inactive row written or active row not")
     del ckp, cvp
+    check_repeat("decode_token_slab", (o8, ck8, cv8), lambda k, v: fd.decode_token_slab(
+        h, w, k, v, lengths, active, **kw)[0], ck, cv)
     records["decode_token_slab"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fd.decode_token_slab(h, w, ck8, cv8, lengths, active, **kw)),
@@ -394,9 +416,135 @@ def phase_kernels(records):
                 n * (mat_flops_layer + attn_flops_layer), PEAK_BF16),
     )
     phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7)
+    coop_grids(S, n, d, H, Dh, Fw, C)
+    host = host_us(lambda: fd.decode_token_slab(h, w, ck8, cv8, lengths, active, **kw))
+    print(f"  decode_token_slab: host time of a call {host:.1f} us")
+    grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, Fw, C, 0, dev).grid
+    coop_split("decode_token_slab", lambda: fd.decode_token_slab(
+        h, w, ck8, cv8, lengths, active, **kw), n, grid)
     for name, r in records.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def check_repeat(name, first, launch, k0, v0):
+    """A second launch on the same inputs (fresh copies of the caches
+    ``k0``/``v0``) equal to ``first`` = (h_out, k, v) bit for bit."""
+    import torch
+
+    k, v = k0.clone(), v0.clone()
+    again = (launch(k, v), k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    print(f"  {name}: two launches bitwise equal (h_out and the caches)")
+
+
+def coop_barrier_us(grid, smem, steps=500):
+    """us a sync of the cooperative decode kernels' own grid barrier (the
+    flag barrier of csrc/fused_decode.cu, its probe build's
+    ``coop_barrier_probe``) at ``grid`` CTAs of ``smem`` bytes of shared
+    memory."""
+    import ctypes
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    fn = _build.load("fused_decode_probe").coop_barrier_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    flags = fd.barrier_flags("cuda")
+
+    def run():
+        _build.check(fn(grid, smem, steps, flags, stream), "coop_barrier_probe")
+
+    return 1e3 * cuda_ms(run, 5, 1) / steps
+
+
+# The cooperative kernels' stamp points a layer (csrc/fused_decode.cu NST):
+# each phase's points, first and last its start and end.
+COOP_POINTS = {"(a) LN1 + q/k/v": ("start", "LN1", "weights in", "q/k/v"),
+               "(b) attention": ("start", "inputs", "scores", "softmax", "P.V"),
+               "(c) output proj.": ("start", "weights in", "product"),
+               "(d) LN2 + up": ("start", "LN2", "weights in", "up"),
+               "(e) down": ("start", "weights in", "down")}
+
+
+def coop_split(label, call, n_layers, grid):
+    """Where one cooperative launch's time goes: ``call`` once more through
+    the probe build with the phase stamps on (csrc/fused_decode.cu
+    stamp()). Per phase, averaged over
+    the layers: the slowest CTA's work (its start to its arrival at the
+    grid barrier), that CTA's steps, and the phase's period on CTA 0 (start
+    to next start); the difference is the barrier and the wait for the
+    slowest CTA."""
+    import ctypes
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    lib = _build.load("fused_decode_probe")
+    lib.coop_set_stamps.argtypes = [ctypes.c_void_p]
+    lib.coop_set_stamps.restype = None
+    nst = sum(len(v) for v in COOP_POINTS.values())
+    ns = nst * n_layers
+    stamps = torch.zeros(grid, ns + 4, dtype=torch.int64, device="cuda")
+    fd.LIBRARY = "fused_decode_probe"
+    try:
+        call()
+        torch.cuda.synchronize()
+        lib.coop_set_stamps(stamps.data_ptr())
+        call()
+        torch.cuda.synchronize()
+    finally:
+        lib.coop_set_stamps(None)
+        fd.LIBRARY = "fused_decode"
+    st = stamps.cpu().numpy().astype(np.float64)
+    us = 1e-3 * (st[0, ns + 1] - st[0, ns]) / (st[0, ns + 3] - st[0, ns + 2])  # us a clock
+    rows, k0, total_work, total_period = [], 0, 0.0, 0.0
+    for name, points in COOP_POINTS.items():
+        k1 = k0 + len(points) - 1
+        work, period, steps = [], [], []
+        for layer in range(n_layers):
+            s0, s1 = nst * layer + k0, nst * layer + k1
+            w = st[:, s1] - st[:, s0]
+            slow = int(np.argmax(w))
+            nxt = st[0, s1 + 1] if s1 + 1 < ns else st[0, ns + 3]
+            work.append(w[slow] * us)
+            period.append((nxt - st[0, s0]) * us)
+            steps.append(np.diff(st[slow, s0:s1 + 1]) * us)
+        steps = np.mean(steps, 0)
+        total_work += sum(work)
+        total_period += sum(period)
+        parts = ", ".join(f"{p} {t:.2f}" for p, t in zip(points[1:], steps))
+        rows.append(f"{name} {np.mean(work):.2f} ({parts}) / {np.mean(period):.2f}")
+        k0 = k1 + 1
+    print(f"  {label}, split of a launch ({1e-3 * (st[0, ns + 1] - st[0, ns]):.1f} us with "
+          f"stamps, SM clock {1e-3 / us:.3f} GHz), us a layer, the slowest CTA's work (its "
+          f"steps) / period: {'; '.join(rows)}; barriers and waits "
+          f"{total_period - total_work:.1f} us, work {total_work:.1f} us")
+
+
+def coop_grids(S, n, d, H, Dh, Fw, C):
+    """The cooperative decode kernels' launches at the phase's shapes: grid
+    (CTAs, occupancy), grid syncs a launch, shared memory, and the grid
+    barrier's time at that grid size."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for kernel, r, mb in (("decode_token_slab", 1, 0), ("decode_token_paged", 1, C // BLOCK),
+                          ("verify_tokens_paged", 5, C // BLOCK)):
+        p = fd.launch_plan(kernel, S, r, n, d, H, H, Dh, Fw, C, mb, "cuda")
+        print(f"  {kernel}: grid {p.grid} CTAs ({nsm} SMs x occupancy {p.occupancy}), "
+              f"{p.syncs} grid syncs a launch, {p.smem} bytes of shared memory a CTA, "
+              f"tiles a CTA {[(q.name, q.tiles_per_cta) for q in p.products]}; a sync at "
+              f"{p.grid} CTAs on the kernels' flag barrier "
+              f"{coop_barrier_us(p.grid, p.smem):.3f} us")
 
 
 def pool_from_slab(ck, tables, nb):
@@ -497,6 +645,8 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
     if not same:
         raise AssertionError("decode_token_paged differs from decode_token_slab bitwise")
     print("  decode_token_paged == decode_token_slab bitwise (h_out and committed rows)")
+    check_repeat("decode_token_paged", (o, pk8, pv8), lambda k, v: fd.decode_token_paged(
+        h, w, k, v, tables, lengths, active, **kw)[0], pk, pv)
     check_untouched("decode_token_paged", (pk8, pv8), (pk, pv),
                     writable_rows(tables, lengths, [1] * S, active, nb))
     records["decode_token_paged"] = dict(
@@ -529,9 +679,15 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
                     writable_rows(tables, plens, slens.tolist(), active, nb))
     if torch.equal(pk9, pk):
         raise AssertionError("verify_tokens_paged committed nothing")
+    check_repeat("verify_tokens_paged", (o, pk9, pv9), lambda k, v: fd.verify_tokens_paged(
+        hv, w, k, v, tables, plens, slens, active, **kw), pk, pv)
     print("  decode_token_paged / verify_tokens_paged wrote no pool row outside "
           "the active slots' write rows")
     err = max(err, verify_short_prefixes(hv, w, pk, pv, tables, active, kw))
+    grid = fd.launch_plan("verify_tokens_paged", S, L, n, d, H, H, Dh, w["w_up"].shape[-1], C,
+                          mb, dev).grid
+    coop_split("verify_tokens_paged", lambda: fd.verify_tokens_paged(
+        hv, w, pk9, pv9, tables, plens, slens, active, **kw), n, grid)
     nrows = int(slens[active].sum().item())
     vkv = int(plens.sum().item()) * H * Dh
     vattn = 4 * int((L * plens + L * L).sum().item()) * H * Dh
@@ -719,7 +875,59 @@ def phase_serve(records):
           f"decode {1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms per step "
           f"({tm['decode_steps']} steps, {tm['decode_tokens']} tokens); "
           f"prefill total {1e3 * tm['prefill_s']:.1f} ms")
+    profile_decode(srv, prompts[:8], configs[:8])
     return model, params, prompts, configs, outs
+
+
+def profile_decode(srv, prompts, configs):
+    """Where a decode step's time goes: the served requests' decode chunks
+    (their prefill dispatches excluded), run twice on the same requests:
+    once without the profiler for the steps' wall time, once under
+    ``torch.profiler`` with CUDA activity only (no host-side op tracing)
+    for the device's time by kernel. The device's busy share is its time
+    over the unprofiled wall time; the profiled window's own wall time is
+    printed beside it (what tracing costs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(prof=None):
+        for p, c in zip(prompts, configs):
+            srv.submit(p, c)
+        srv._admit_slab()  # the prefill, outside the window
+        if srv._queue:
+            raise AssertionError("profile_decode: the requests did not all fit in the slots")
+        torch.cuda.synchronize()
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        steps0 = srv.timing["decode_steps"]
+        while not srv.idle():
+            srv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        return wall, srv.timing["decode_steps"] - steps0
+
+    wall, steps = window()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    pwall, psteps = window(prof)
+    if psteps != steps:
+        raise AssertionError(f"profile_decode: {steps} steps, then {psteps}")
+    dev = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = dev.get(e.key, 0) + t
+    busy = sum(dev.values()) / 1e3  # ms
+    share = busy / (1e3 * wall)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  decode window: {steps} steps in {1e3 * wall:.1f} ms ({1e3 * wall / steps:.3f} ms "
+          f"a step) unprofiled, {1e3 * pwall:.1f} ms ({1e3 * pwall / steps:.3f} ms a step) "
+          f"under the profiler; device busy {busy:.1f} ms ({busy / steps:.3f} ms a step), "
+          f"{100 * share:.1f}% of the unprofiled wall time, idle {100 - 100 * share:.1f}%; "
+          f"by kernel, ms a step: "
+          + ", ".join(f"{k[:40]} {v / 1e3 / steps:.3f}" for k, v in top))
 
 
 def phase_fused_layer(records, model, params, prompts, configs, outs):
@@ -875,37 +1083,133 @@ def pick_gap(model, params, prompt, out, i, cfg):
     forward of prompt + out[:i] on the card: the raw logits for a greedy
     request; for a sampled one the nucleus-masked logits/temperature plus
     the Gumbel noise of the request's (i+1)-th draw, replayed from its
-    seed. Returns (gap, tolerance)."""
+    seed. Returns (gap, tolerance, the dense forward's logits)."""
     import torch
 
     dev = params.embed.device
     toks = torch.from_numpy(np.concatenate([prompt, out[:i]]).astype(np.int32)).to(dev)
-    logits = model.apply(params, toks[None])[0, -1].float()
+    dense = logits = model.apply(params, toks[None])[0, -1].float()
     tol = REL_TOL["decode_token_slab"] * max(1.0, logits.abs().max().item())
     if not cfg.greedy:
         lt = logits / cfg.temperature
-        sl, order = torch.sort(lt, descending=True)
-        probs = torch.softmax(sl, -1)
-        keep = torch.zeros_like(lt, dtype=torch.bool)
-        keep[order] = (torch.cumsum(probs, -1) - probs) < cfg.top_p
+        keep = nucleus(logits, cfg)[0]
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         for _ in range(i + 1):
             u = torch.rand(lt.shape[-1], generator=gen, device=dev)
         logits = lt.masked_fill(~keep, float("-inf")) - torch.log(-torch.log(u))
     top = torch.topk(logits, 2).values
-    return (top[0] - top[1]).item(), tol
+    return (top[0] - top[1]).item(), tol, dense
 
 
-def compare_streams(label, model, params, prompts, configs, outs, ref, servers):
-    """Streams equal to ``ref``'s, or diverging only at a near-tie. After a
+def nucleus(logits, cfg):
+    """The server's nucleus over one row of logits (``TextServer._pick``):
+    (kept [V] bool, the mass ranked before each token [V], each token's
+    rank by probability)."""
+    import torch
+
+    sl, order = torch.sort(logits.float() / cfg.temperature, descending=True)
+    probs = torch.softmax(sl, -1)
+    before = torch.empty_like(probs).scatter_(0, order, torch.cumsum(probs, -1) - probs)
+    rank = torch.empty_like(order).scatter_(0, order, torch.arange(len(order), device=order.device))
+    return before < cfg.top_p, before, rank
+
+
+class PickLog:
+    """A server's sampled picks, recorded through ``TextServer._pick``: for
+    every sampled row of every pick, the row of logits (f32) and its
+    generator's state before the draw, by the generator's seed. So
+    ``rows[seed][k]`` is what the request of that seed drew its token k
+    from (its (k+1)-th draw, as ``pick_gap`` replays)."""
+
+    def __init__(self, srv):
+        self.srv, self.rows = srv, {}
+        orig = srv._pick
+
+        def pick(logits, greedy, temp, top_p, gens):
+            for slot, gen in enumerate(gens):
+                if gen is not None:
+                    self.rows.setdefault(gen.initial_seed(), []).append(
+                        (logits[slot].float().clone(), gen.get_state()))
+            return orig(logits, greedy, temp, top_p, gens)
+
+        srv._pick = pick
+
+    def close(self):
+        del self.srv._pick
+
+    def replay(self, row, state, cfg):
+        """The server's own sampler on ``row`` with the draw ``state``."""
+        import torch
+
+        dev = row.device
+        gen = torch.Generator(device=dev)
+        gen.set_state(state)
+        one = lambda v, dt: torch.tensor([v], dtype=dt, device=dev)  # noqa: E731
+        return int(self.srv._pick(row[None], one(False, torch.bool),
+                                  one(np.float32(cfg.temperature), torch.float32),
+                                  one(np.float32(cfg.top_p), torch.float32), [gen])[0])
+
+
+def logged_generate(srv, prompts, configs):
+    """``srv.generate`` with its sampled picks recorded: (streams, PickLog)."""
+    seeds = [c.seed for c in configs if not c.greedy]
+    if len(set(seeds)) != len(seeds):
+        raise AssertionError("the sampled requests of one call need distinct seeds")
+    log = PickLog(srv)
+    try:
+        return srv.generate(prompts, configs), log
+    finally:
+        log.close()
+
+
+def cut_flip(logs, cfg, i, tok_a, tok_b, dense):
+    """Whether two servers' sampled picks at token ``i`` (``tok_a`` by the
+    server under test, ``tok_b`` by the reference) part at the nucleus cut
+    because their own logits there differ, by what those logits show: both
+    drew the same noise; each server's sampler on its own recorded row
+    gives its own token; the rows differ by at most the decode tolerance
+    (of the reference's row); one of the two tokens is in one nucleus and
+    not the other; and ``tok_a`` ranks before ``tok_b`` in the reference's
+    order or is the first token past the reference's nucleus. Prints both
+    rows' masses beside the dense forward's. Returns (flip, tolerance)."""
+    import torch
+
+    (la, sa), (lb, sb) = logs[0].rows[cfg.seed][i], logs[1].rows[cfg.seed][i]
+    tol = REL_TOL["decode_token_slab"] * max(1.0, lb.abs().max().item())
+    dis = (la - lb).abs().max().item()
+    (ka, ma, _), (kb, mb, rb) = nucleus(la, cfg), nucleus(lb, cfg)
+    md = nucleus(dense.to(lb.device), cfg)[1]
+    pa, pb = logs[0].replay(la, sa, cfg), logs[1].replay(lb, sb, cfg)
+    moved = bool(ka[tok_a] != kb[tok_a]) or bool(ka[tok_b] != kb[tok_b])
+    ranked = int(rb[tok_a]) < int(rb[tok_b]) or int(rb[tok_a]) == int(kb.sum())
+    flip = (torch.equal(sa, sb) and pa == tok_a and pb == tok_b and dis <= tol and moved
+            and ranked)
+    print(f"    nucleus (top_p {cfg.top_p}), mass ranked before the tokens {tok_b} / {tok_a}: "
+          f"reference {mb[tok_b].item():.6f} / {mb[tok_a].item():.6f}, server "
+          f"{ma[tok_b].item():.6f} / {ma[tok_a].item():.6f}, dense forward "
+          f"{md[tok_b].item():.6f} / {md[tok_a].item():.6f}; the servers' logits there "
+          f"differ by {dis:.4e} (tolerance {tol:.4e}); same draw {torch.equal(sa, sb)}; "
+          f"their samplers replayed on their own rows pick {pb} / {pa}; {tok_a} ranks "
+          f"{int(rb[tok_a])} in the reference's order, {tok_b} {int(rb[tok_b])}, nucleus "
+          f"{int(kb.sum())}; a flip at the cut: {flip}")
+    return flip, tol
+
+
+def compare_streams(label, model, params, prompts, configs, outs, ref, servers, fresh):
+    """Streams equal to ``ref``'s, or diverging only at a near-tie: a top-2
+    gap (of the dense forward) below the decode tolerance, or, for a
+    sampled request, a flip at the nucleus cut that the two servers'
+    recorded logits at that token show (``cut_flip``). The first round's
+    logits come from a replay on ``fresh`` servers (made as the ones that
+    made ``outs`` and ``ref``), which must give the same streams. After a
     near-tie at token i, both ``servers`` (the one that made ``outs``, the
-    one that made ``ref``) serve the prompt extended by ``ref``'s first
-    i+1 tokens for the rest of the budget (a sampled request restarts its
-    seed's draws), and the rest is compared the same way, so every token
-    of ``ref`` is checked."""
+    one that made ``ref``) serve the prompt extended by ``ref``'s first i+1
+    tokens for the rest of the budget (a sampled request restarts its
+    seed's draws), with their picks recorded, and the rest is compared the
+    same way, so every token of ``ref`` is checked."""
     same = checked = reruns = 0
     total = sum(len(b) for b in ref)
-    work = list(zip(prompts, configs, outs, ref))
+    work, logs = list(zip(prompts, configs, outs, ref)), None
     while work:
         nxt = []
         for p, c, a, b in work:
@@ -917,12 +1221,28 @@ def compare_streams(label, model, params, prompts, configs, outs, ref, servers):
                 same += not reruns
                 continue
             i = int(diff[0])
-            gap, tol = pick_gap(model, params, p, b, i, c)
+            gap, tol, dense = pick_gap(model, params, p, b, i, c)
             kind = "greedy" if c.greedy else "sampled"
             print(f"  {label}: a {len(p)}-token {kind} request diverges at token {i}; "
                   f"top-2 gap there {gap:.4e} (tolerance {tol:.4e})")
             if not gap < tol:
-                raise AssertionError(f"{label}: divergence at a top-2 gap {gap} >= {tol}")
+                if c.greedy:
+                    raise AssertionError(f"{label}: divergence at a top-2 gap {gap} >= {tol}")
+                if logs is None:  # the first round: replay it with the picks recorded
+                    ps, cs_ = [q[0] for q in work], [q[1] for q in work]
+                    logs = []
+                    for make, want in ((fresh[0], [q[2] for q in work]),
+                                       (fresh[1], [q[3] for q in work])):
+                        got, log = logged_generate(make(), ps, cs_)
+                        if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+                            raise AssertionError(f"{label}: a fresh server's replay of the "
+                                                 "requests gave other streams")
+                        logs.append(log)
+                flip, tol2 = cut_flip(logs, c, i, int(a[i]), int(b[i]), dense)
+                if not flip:
+                    raise AssertionError(f"{label}: divergence at a top-2 gap {gap} >= {tol}, "
+                                         "and not a flip at the nucleus cut that the servers' "
+                                         f"logits (within {tol2}) show")
             checked += i + 1
             if i + 1 < len(b):
                 nxt.append((np.concatenate([p, b[: i + 1]]).astype(np.int32),
@@ -930,7 +1250,8 @@ def compare_streams(label, model, params, prompts, configs, outs, ref, servers):
         if nxt:
             reruns += 1
             ps, cs_ = [q for q, _ in nxt], [c for _, c in nxt]
-            work = list(zip(ps, cs_, servers[0].generate(ps, cs_), servers[1].generate(ps, cs_)))
+            (oa, la), (ob, lb) = (logged_generate(srv, ps, cs_) for srv in servers)
+            work, logs = list(zip(ps, cs_, oa, ob)), [la, lb]
         else:
             work = []
     if checked != total:
@@ -950,15 +1271,17 @@ def phase_paged_serve(records, model, params):
     prompts, configs = paged_requests(model.vocab_size, 1)
     print(f"  {len(prompts)} requests of {min(map(len, prompts))}..{max(map(len, prompts))} "
           f"tokens, max_new {MAX_NEW}")
-    slab_srv = TextServer(model, params, slots=8, chunk=32)
+    make = {"slab": functools.partial(TextServer, model, params, slots=8, chunk=32)}
+    slab_srv = make["slab"]()
     slab = slab_srv.generate(prompts, configs)
     runs, servers = {}, {}
     for label, kw, kernel in (
             ("(a) paged", {}, "decode_token_paged"),
             ("(b) paged+spec", dict(spec_draft=4, spec_ngram=2), "verify_tokens_paged"),
             ("(c) paged fused-layer", dict(decode_engine="fused-layer"), "decode_block_paged")):
-        srv = TextServer(model, params, slots=8, chunk=32, paged=True, block_size=BLOCK,
-                         prefix_caching=True, **kw)
+        make[label] = functools.partial(TextServer, model, params, slots=8, chunk=32,
+                                        paged=True, block_size=BLOCK, prefix_caching=True, **kw)
+        srv = make[label]()
         _build.reset_launches()
         t0 = time.perf_counter()
         outs = srv.generate(prompts, configs)
@@ -1001,7 +1324,8 @@ def phase_paged_serve(records, model, params):
                        ("(c) paged fused-layer", "(a) paged")):
         compare_streams(f"{label} vs {ref}", model, srv.params, prompts, configs, runs[label],
                         slab if ref == "slab" else runs[ref],
-                        (servers[label], slab_srv if ref == "slab" else servers[ref]))
+                        (servers[label], slab_srv if ref == "slab" else servers[ref]),
+                        (make[label], make[ref]))
 
 
 def ulp32(x: float) -> float:

@@ -22,11 +22,13 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("flash_fwd", "flash_bwd", "fused_decode", "fused_mlp")
 # Probe builds: module name -> (source, extra nvcc flags). Only
-# chip_smoke.py builds them (the MLP kernels' phase stamps); no code of the
-# package loads one.
+# chip_smoke.py builds them (the MLP and cooperative decode kernels' phase
+# stamps, the decode kernels' barrier probe); no code of the package loads
+# one unless asked to (``fused_decode.LIBRARY``).
 PROBES = {
     "fused_mlp_probe": ("fused_mlp", ("-DMLP_PROBE",)),
     "fused_mlp_v1_probe": ("fused_mlp_v1", ("-DMLP_PROBE",)),
+    "fused_decode_probe": ("fused_decode", ("-DDECODE_PROBE",)),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,67 +1,90 @@
-// Fused GPT decode for Hopper (sm_90a), CUDA C++: three kernels, the first
-// two instantiated for the slab cache and for the paged block pool.
+// Fused GPT decode for Hopper (sm_90a), CUDA C++: the per-layer kernel and
+// one cooperative kernel for the whole-model step and the speculation verify,
+// each instantiated for the slab cache and for the paged block pool.
 //
 //   decode_block_kernel  replaces distributed_tensorflow_tpu/ops/pallas_decode.py
-//                        _fused_decode_kernel (per layer; launched by _fused_call,
-//                        public decode_block_slab / decode_block_paged). One
-//                        layer's step per slot; the fresh K/V rows go back to
-//                        the caller, which commits.
-//   decode_token_kernel  replaces pallas_decode.py _mega_decode_kernel (the
-//                        megakernel; launched by _mega_call, public
+//                        _fused_decode_kernel (B5; per layer; launched by
+//                        _fused_call, public decode_block_slab /
+//                        decode_block_paged). One layer's step per slot; the
+//                        fresh K/V rows go back to the caller, which commits.
+//   coop_step_kernel<Rows, false>  replaces pallas_decode.py _mega_decode_kernel
+//                        (B6, the megakernel; launched by _mega_call, public
 //                        decode_token_slab / decode_token_paged). Every layer
 //                        in one launch, with the fresh-row commit done in the
 //                        kernel.
-//   verify_kernel        replaces pallas_decode.py _verify_kernel (public
-//                        verify_tokens_paged): the speculation verify, L draft
-//                        rows per slot through every layer in one launch over
-//                        the paged pool, with the commit done in the kernel.
+//   coop_step_kernel<PagedRows, true>  replaces pallas_decode.py _verify_kernel
+//                        (B7, public verify_tokens_paged): the speculation
+//                        verify, L draft rows per slot through every layer in
+//                        one launch over the paged pool, committed in the kernel.
 //
-// One slot's step for one layer: LN1 -> q/k/v projections -> fresh K/V row
-// rounded through the bf16 cache dtype -> attention of the slot's query over
-// its cache positions [0, length) read PRE-write plus the fresh row at
-// position `length` -> output projection + residual -> LN2 -> FFN (tanh
-// GELU) + residual. The rounding points follow models/gpt.py's XLA engine:
-// the layernormed rows, the attention output and gelu(up) are cast to bf16
-// before each product, products accumulate in f32, and the normalized
-// softmax weights are cast to bf16 before they weight the bf16 values.
-//
-// Design. The TPU kernels run a sequential grid (layer, slot, kv block) and
-// carry the residual rows in VMEM scratch (h_scr) from step to step. CUDA
-// blocks run concurrently, so nothing may be carried between them: here one
-// CTA owns one slot for the whole launch (the megakernel loops over the
-// layers inside the CTA, the residual row stays in shared memory), and slots
-// are independent, so no state crosses CTAs. The megakernel commits the fresh
-// row of layer l at [l, s, length] after that layer's attention, only when
-// active[s]; the attention never re-reads it from memory (it comes from
-// shared memory), so the write cannot race the read.
+// One slot's step for one layer: LN1 -> q/k/v projections -> fresh K/V rows
+// rounded through the bf16 cache dtype -> attention of the slot's queries over
+// its cache positions [0, length) read PRE-write plus the fresh rows from
+// `length` on -> output projection + residual -> LN2 -> FFN (tanh GELU) +
+// residual. The rounding points follow models/gpt.py's XLA engine: the
+// layernormed rows, the attention output and gelu(up) are cast to bf16 before
+// each product, products accumulate in f32, and (decode only) the normalized
+// softmax weights are cast to bf16 before they weight the bf16 values; the
+// verify keeps them f32, masks the suffix causally and gives 0 for a row with
+// no valid key, as the TPU verify kernel does.
 //
 // Paged addressing. Position p of slot s lives at
-// pool[table[s, p / bs], p % bs]. The TPU kernels take the tables as scalar
-// prefetch; here each CTA copies its slot's table row into shared memory
-// once and does one lookup per key row. The arithmetic is the slab
-// kernels' own: only the row offset (SlabRows / PagedRows) differs, so a
-// paged launch over a pool holding the same logical cache gives the slab
-// launch's results bit for bit. Live slots never share a writable block
-// (the server's allocator shares only full prompt blocks, and writes land
-// past the prompt), so in-kernel commits stay disjoint from every read.
+// pool[table[s, p / bs], p % bs]. The arithmetic is the slab kernels' own:
+// only the row offset (SlabRows / PagedRows) differs, and no partition or
+// summation order depends on the block layout, so a paged launch over a pool
+// holding the same logical cache gives the slab launch's results bit for bit.
+// Live slots never share a writable block (the server's allocator shares only
+// full prompt blocks, and writes land past the prompt), so in-kernel commits
+// stay disjoint from every read.
 //
-// Verify. The TPU kernel folds the suffix's own causal block into an online
-// softmax over pool blocks. Here one CTA per slot loops over the layers as
-// the megakernel does, holds the L residual rows in shared memory, and its
-// products take L rows per weight read; attention runs one query head at a
-// time with an exact softmax over [pool positions < prefix_len, fresh rows
-// lj <= li, lj < suffix_len]. As in the TPU kernel the softmax weights stay
-// f32 and a row with no valid key gives 0. Each layer commits position
-// prefix_len + li where active and li < suffix_len.
+// B5 (decode_block_kernel). The TPU kernels run a sequential grid (layer,
+// slot, kv block) and carry the residual rows in VMEM scratch. Here one CTA
+// owns one slot for the launch and keeps its residual row in shared memory;
+// slots are independent, so no state crosses CTAs. Each CTA reads all of the
+// layer's weights (S CTAs, ~1% of the roofline; the next redesign's).
 //
-// Bound. At gpt-m (d=512, 8 layers, F=2048, MHA 8x64) with S=8 slots and a
-// mean cache length of 512, one token moves ~50 MB of bf16 weights and ~67
-// MB of KV: ~35 us at 3.35 TB/s. This design reads every weight once PER
-// SLOT (S CTAs each stream all weights, mostly from L2) and uses only S of
-// the 132 SMs, so it is bound by one SM's load throughput, far above the
-// device bound; splitting columns across CTAs with grid-wide syncs is the
-// later, faster design. The verify kernel has the same shape with L rows
-// per weight read.
+// B6 / B7 (coop_step_kernel). Bound: at gpt-m (d=512, 8 layers, F=2048, MHA
+// 8x64) one launch must move ~50 MB of bf16 weights and, at S=8 slots and a
+// mean cache length of 512, ~67 MB of K/V: ~35 us at 3.35 TB/s (bytes; the
+// products, 2 x S*R rows x 25M MACs, are far below the tensor cores' rate).
+// Design: one cooperative launch over the whole card, CT threads a CTA (the
+// grid is the SM count times the occupancy, read at launch;
+// ops/fused_decode.py coop_plan lays it out). Each layer runs five phases
+// with a grid-wide barrier after each (5 n - 1 a launch); the state between
+// phases lives in global scratch (the f32 residual rows in h_out, q/k/v f32,
+// the attention output and gelu(up) bf16):
+//   (a) every CTA with a q/k/v column tile layernorms all S*R rows into its
+//       shared memory (from L2), then computes its tiles;
+//   (b) one task per (slot, KV head): the head group's g x R query rows over
+//       the whole cache row with the exact softmax; it rounds and commits the
+//       fresh K/V rows of its head (attention reads only positions < length,
+//       the commits land at >= length, so no commit races a read);
+//   (c) output projection, the owner of a column tile adding the residual;
+//   (d) LN2 of all rows, up projection, bias, GELU, rounded to bf16;
+//   (e) down projection, bias and residual.
+// Products: tiles of 8 output columns over the full K; tile t goes to CTA
+// t mod grid, so each weight element is read once a launch. A CTA's tiles are
+// copied into shared memory (cp.async, 16 bytes a k row) a phase or more
+// ahead into one of two buffers, issued after the loads its own phase waits
+// on; the layernorms' scales and biases ride a group earlier. Activations
+// that come from another CTA (the attention output, gelu(up)) are staged by
+// the TMA, one bulk copy a row, in chunks of d columns, up to MAXS in flight.
+// The products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// f32 sums; the operands are bf16 values, so each product is exact and only
+// the order of the sums changes): warp w takes m-tile w mod cs and the
+// k-steps of k-group w / cs, and the k-groups' partial sums meet in shared
+// memory and are added in k-group order, so the order of every sum depends
+// only on the row count and K.
+// Attention: each thread streams its own 16 bytes of every K (then V) row
+// through a ring of RING cp.async slots in shared memory (RING - 1 chunks in
+// flight and no registers spent on them); the softmax's maxima and sums meet
+// across the warps in warp order.
+// The grid barrier is a flag a CTA (grid_sync), polled by one warp a CTA:
+// a single counter would take every CTA's atomic (PERF.md section 6 has the
+// two timed). Its epochs are kept on the device, so a launch needs no state
+// from the host and may be replayed from a CUDA graph.
+// There are no float atomics: two launches on the same inputs agree bit for
+// bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +94,6 @@ namespace {
 
 constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int LMAX = 8;  // most verify rows per slot
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_EPS = 1e-5f;
 constexpr size_t SMEM_MAX = 232448;
@@ -120,6 +142,43 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+// Eight bf16 values (one 16-byte load) as floats.
+__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float2 f = __bfloat1622float2(k2[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+
+__device__ LayerW layer(const LayerW& w0, const Dims& D, int l) {
+  const size_t d = D.d, qw = (size_t)D.Hq * D.Dh, kvw = (size_t)D.Hkv * D.Dh;
+  const size_t F = D.F;
+  LayerW w;
+  w.wq = w0.wq + l * d * qw;
+  w.wk = w0.wk + l * d * kvw;
+  w.wv = w0.wv + l * d * kvw;
+  w.wo = w0.wo + l * qw * d;
+  w.w_up = w0.w_up + l * d * F;
+  w.w_down = w0.w_down + l * F * d;
+  w.ln1_s = w0.ln1_s + l * d;
+  w.ln1_b = w0.ln1_b + l * d;
+  w.ln2_s = w0.ln2_s + l * d;
+  w.ln2_b = w0.ln2_b + l * d;
+  w.b_up = w0.b_up + l * F;
+  w.b_down = w0.b_down + l * d;
+  return w;
+}
+
+// -- B5: the per-layer kernel, one CTA a slot -----------------------------------
 
 // Sum over the block; buf holds >= 33 floats. Every thread gets the total.
 __device__ float block_sum(float v, float* buf) {
@@ -205,78 +264,9 @@ __device__ void matvec(const float* x, const bf16* __restrict__ W, int K, int N,
   __syncthreads();
 }
 
-// matvec over L <= LMAX rows at once: y[r, n] = sum_k x[r, k] * W[k, n]
-// (+ bias[n]), x [L, K] and y [L, N] row-major in shared memory. Each weight
-// load serves all L rows; partial sums meet in `red` ([KS, L, N] floats).
-__device__ void matmul_rows(const float* x, int L, const bf16* __restrict__ W, int K,
-                            int N, const float* __restrict__ bias, float* y, float* red) {
-  const int groups = N / 8;
-  const int G = groups < NTHREADS ? groups : NTHREADS;
-  const int KS = NTHREADS / G;
-  const int tid = threadIdx.x;
-  const int ks = tid / G;
-  if (ks < KS) {
-    for (int cg = tid % G; cg < groups; cg += G) {
-      float acc[LMAX][8];
-#pragma unroll
-      for (int r = 0; r < LMAX; ++r)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
-      const uint4* wp = reinterpret_cast<const uint4*>(W) + cg;
-#pragma unroll 2
-      for (int k = ks; k < K; k += KS) {
-        uint4 raw = __ldg(wp + (size_t)k * groups);
-        const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float wf[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float2 f = __bfloat1622float2(w2[e]);
-          wf[2 * e] = f.x;
-          wf[2 * e + 1] = f.y;
-        }
-#pragma unroll
-        for (int r = 0; r < LMAX; ++r) {
-          if (r < L) {
-            const float xk = x[r * K + k];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[r][e] += xk * wf[e];
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < LMAX; ++r) {
-        if (r < L) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) red[((size_t)ks * L + r) * N + cg * 8 + e] = acc[r][e];
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < L * N; i += NTHREADS) {
-    const int r = i / N, n = i % N;
-    float s = bias ? bias[n] : 0.f;
-    for (int j = 0; j < KS; ++j) s += red[((size_t)j * L + r) * N + n];
-    y[i] = s;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
 // Eight bf16 values at p (16-byte aligned) as floats.
 __device__ __forceinline__ void load8(const bf16* __restrict__ p, float* out) {
-  uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float2 f = __bfloat1622float2(k2[e]);
-    out[2 * e] = f.x;
-    out[2 * e + 1] = f.y;
-  }
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), out);
 }
 
 // DPL (2 or 4) bf16 values at p as floats; the rest of out[4] zeroed.
@@ -443,30 +433,6 @@ __device__ void layer_step(const LayerW& w, const Dims& D, const bf16* __restric
   __syncthreads();
 }
 
-__device__ LayerW layer(const LayerW& w0, const Dims& D, int l) {
-  const size_t d = D.d, qw = (size_t)D.Hq * D.Dh, kvw = (size_t)D.Hkv * D.Dh;
-  const size_t F = D.F;
-  LayerW w;
-  w.wq = w0.wq + l * d * qw;
-  w.wk = w0.wk + l * d * kvw;
-  w.wv = w0.wv + l * d * kvw;
-  w.wo = w0.wo + l * qw * d;
-  w.w_up = w0.w_up + l * d * F;
-  w.w_down = w0.w_down + l * F * d;
-  w.ln1_s = w0.ln1_s + l * d;
-  w.ln1_b = w0.ln1_b + l * d;
-  w.ln2_s = w0.ln2_s + l * d;
-  w.ln2_b = w0.ln2_b + l * d;
-  w.b_up = w0.b_up + l * F;
-  w.b_down = w0.b_down + l * d;
-  return w;
-}
-
-// The slot's table row into shared memory (paged; MB is 0 for the slab).
-__device__ __forceinline__ void load_table(const Dims& D, const int* tables, int s, int* tab) {
-  for (int i = threadIdx.x; i < D.MB; i += NTHREADS) tab[i] = tables[(size_t)s * D.MB + i];
-}
-
 template <class Rows>
 __global__ void __launch_bounds__(NTHREADS)
 decode_block_kernel(LayerW w, Dims D, int red_floats, const float* __restrict__ h_in,
@@ -479,7 +445,7 @@ decode_block_kernel(LayerW w, Dims D, int red_floats, const float* __restrict__ 
   const int s = blockIdx.x;
   const int len = min(lengths[s], D.C);
   for (int i = threadIdx.x; i < D.d; i += NTHREADS) sm.h[i] = h_in[(size_t)s * D.d + i];
-  load_table(D, tables, s, sm.tab);
+  for (int i = threadIdx.x; i < D.MB; i += NTHREADS) sm.tab[i] = tables[(size_t)s * D.MB + i];
   __syncthreads();
   layer_step<Rows>(w, D, ck, cv, s, len, sm);
   const int kvw = D.Hkv * D.Dh;
@@ -490,226 +456,881 @@ decode_block_kernel(LayerW w, Dims D, int red_floats, const float* __restrict__ 
   for (int i = threadIdx.x; i < D.d; i += NTHREADS) h_out[(size_t)s * D.d + i] = sm.h[i];
 }
 
-template <class Rows>
-__global__ void __launch_bounds__(NTHREADS)
-decode_token_kernel(LayerW w0, Dims D, int n_layers, int red_floats, size_t layer_elems,
-                    const float* __restrict__ h_in, float* __restrict__ h_out,
-                    bf16* ck, bf16* cv, const int* __restrict__ lengths,
-                    const int* __restrict__ active, const int* __restrict__ tables) {
-  extern __shared__ float smem[];
-  const Smem sm = carve(smem, D, red_floats);
-  const int s = blockIdx.x;
-  const int len = min(lengths[s], D.C);
-  const bool commit = active[s] != 0 && len < D.C;
-  const int kvw = D.Hkv * D.Dh;
-  for (int i = threadIdx.x; i < D.d; i += NTHREADS) sm.h[i] = h_in[(size_t)s * D.d + i];
-  load_table(D, tables, s, sm.tab);
-  __syncthreads();
-  for (int l = 0; l < n_layers; ++l) {
-    bf16* ckl = ck + l * layer_elems;
-    bf16* cvl = cv + l * layer_elems;
-    layer_step<Rows>(layer(w0, D, l), D, ckl, cvl, s, len, sm);
-    if (commit) {
-      const size_t off = Rows()(D, sm.tab, s, len);
-      for (int i = threadIdx.x; i < kvw; i += NTHREADS) {
-        ckl[off + i] = __float2bfloat16(sm.kf[i]);
-        cvl[off + i] = __float2bfloat16(sm.vf[i]);
-      }
-    }
-  }
-  for (int i = threadIdx.x; i < D.d; i += NTHREADS) h_out[(size_t)s * D.d + i] = sm.h[i];
-}
+// -- B6 / B7: the cooperative kernel --------------------------------------------
 
-// -- the verify kernel --------------------------------------------------------
+constexpr int CT = 384;  // threads of a CTA (B5 keeps NTHREADS)
+constexpr int CW = CT / 32;
+constexpr int TILE = 8;  // columns of a weight tile: one 16-byte row a k
+constexpr int MAXT = 4;  // most tiles of one product a CTA takes
+constexpr int GMAX = 5;  // query rows one P·V pass accumulates
+constexpr int MAXS = 4;  // most x slots
+constexpr int RING = 8;  // 16-byte cp.async slots a thread streams K / V through
+constexpr int MAX_GRID = 1024;  // most CTAs (the grid barrier's flags)
 
-struct VSmem {
-  float *h, *hn, *q, *kf, *vf, *att, *tmp, *up, *sc, *red, *buf;
-  int* tab;
+// The launch plan (ops/fused_decode.py coop_plan): CTAs, the width in columns
+// of a staged chunk of x (= d), and the shared-memory layout in bytes: two
+// weight buffers; the layernorms' scales and biases [ln1_s, ln1_b, ln2_s,
+// ln2_b][d] f32; nslot x slots from x0, xs bytes apart (the attention's
+// scratch overlays them); the product partial sums; one mbarrier a slot.
+struct Plan {
+  int grid, kc, w0, w1, ln, x0, xs, nslot, red, bar, smem;
 };
 
-__host__ __device__ inline int verify_sc_floats(const Dims& D, int L) {
-  const int a = L * D.F, b = L * (D.C + L);
-  return a > b ? a : b;
+struct Coop {
+  LayerW w0;  // layer-stacked
+  Dims D;
+  Plan p;
+  int n_layers, R;  // R: rows a slot (1, or the verify's L)
+  size_t layer_elems;
+  const float* h_in;
+  float* h_out;  // [S * R, d]: the residual rows between phases
+  bf16 *ck, *cv;
+  // lengths: the decode's write positions, or the verify's prefix lengths.
+  const int *lengths, *suffix, *active, *tables;
+  float* qkv;  // [S * R, Hq Dh + 2 Hkv Dh]
+  bf16* att;   // [S * R, Hq Dh]
+  bf16* gelu;  // [S * R, F]
+  // The grid barrier's flags: [MAX_GRID] words, one a CTA, then the epoch
+  // the last launch on them ended at (see grid_sync()).
+  unsigned* flags;
+#ifdef DECODE_PROBE
+  // Phase stamps, or null (see stamp()).
+  unsigned long long* stamps;
+#endif
+};
+
+// The cooperative kernels' dynamic shared memory, laid out by the Plan.
+extern __shared__ __align__(128) unsigned char coop_smem[];
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ VSmem vcarve(float* base, const Dims& D, int L, int red_floats) {
-  const int qw = D.Hq * D.Dh, kvw = D.Hkv * D.Dh;
-  VSmem s;
-  s.h = base;
-  s.hn = s.h + L * D.d;
-  s.q = s.hn + L * D.d;
-  s.kf = s.q + L * qw;
-  s.vf = s.kf + L * kvw;
-  s.att = s.vf + L * kvw;
-  s.tmp = s.att + L * qw;
-  s.up = s.tmp + L * D.d;
-  s.sc = s.up;  // scores live only in attention, gelu(up) only in the FFN
-  s.red = s.up + verify_sc_floats(D, L);
-  s.buf = s.red + red_floats;
-  s.tab = reinterpret_cast<int*>(s.buf + 33);
-  return s;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
 }
 
-// Attention of the L rows for query head h: scores over pool positions
-// j < plen and the fresh rows, exact f32 softmax, P·V; writes
-// bf16r(attention) into sm.att[r, h*Dh:(h+1)*Dh].
-__device__ void verify_head(const Dims& D, const bf16* __restrict__ pk,
-                            const bf16* __restrict__ pv, const VSmem& sm, int h, int L,
-                            int plen, int slen, float scale) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int Dh = D.Dh, g = D.Hq / D.Hkv, hk = h / g;
-  const int qw = D.Hq * Dh, kvw = D.Hkv * Dh, CS = D.C + L;
-  const PagedRows rows_of{};
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // Scores over the pre-write pool: LPR lanes (8 dims each) per key row,
-  // each key row dotted with all L query rows.
-  const int LPR = Dh / 8, RPW = 32 / LPR;
-  const int sub = lane % LPR;
-  for (int base = warp * RPW; base < plen; base += NWARPS * RPW) {
-    const int j = base + lane / LPR;
-    const bool ok = j < plen;
-    float kv8[8];
-    if (ok) {
-      load8(pk + rows_of(D, sm.tab, 0, j) + (size_t)hk * Dh + sub * 8, kv8);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kv8[e] = 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < LMAX; ++r) {
-      if (r < L) {
-        const float* qh = sm.q + r * qw + h * Dh + sub * 8;
-        float p = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) p += qh[e] * kv8[e];
-        for (int o = LPR / 2; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-        if (ok && sub == 0) sm.sc[r * CS + j] = p * scale;
+// All but the most recent cp.async group have landed (this thread's copies).
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t"
+      ".reg .pred P1;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
+      "selp.b32 %0, 1, 0, P1;\n\t"
+      "}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of `parity` to complete. A copy that never lands
+// traps (the launch fails) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (long long n = 0; !mbar_try(bar, parity); ++n)
+    if (n == (1ll << 26)) __trap();
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One TMA bulk copy of `bytes` contiguous bytes into shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses (of shared memory, of
+// global memory) before its later TMA copies.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n\tfence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Grid-wide barrier of the cooperative grid: CTA b posts `epoch` in
+// flags[b] (a release at gpu scope after the CTA's barrier, so it covers
+// every thread's earlier writes), then warp 0 polls all the flags until each
+// has reached the epoch, and acquires. No word takes every CTA's atomic, as
+// a counter's does, so the cost does not grow with the grid. Epochs wrap.
+//
+// The epochs live on the device: a launch's warp 0 reads the base from
+// flags[MAX_GRID] on entry (epoch_in), its i-th sync posts base + i, and CTA
+// 0 stores the last epoch back on exit (epoch_out). Every CTA has read the
+// base before it posts its first sync, so CTA 0 stores only after all have
+// read it; the next launch in stream order reads the new base. So launches
+// may be replayed from a CUDA graph; launches that run at once on one flags
+// buffer would race (the wrapper keeps one buffer a stream).
+__device__ __forceinline__ unsigned epoch_in(const unsigned* flags) {
+  unsigned v = 0;
+  if (threadIdx.x < 32)
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(flags + MAX_GRID)
+                 : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void epoch_out(unsigned* flags, unsigned epoch) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(flags + MAX_GRID), "r"(epoch)
+                 : "memory");
+}
+
+__device__ void grid_sync(unsigned* flags, unsigned epoch, int grid) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flags + blockIdx.x), "r"(epoch)
+                   : "memory");
+    for (long long n = 0;; ++n) {
+      bool ok = true;
+      for (int i = threadIdx.x; i < grid; i += 32) {
+        unsigned v;
+        asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(flags + i) : "memory");
+        ok = ok && (int)(v - epoch) >= 0;
       }
+      if (__all_sync(0xffffffffu, ok)) break;
+      if (n == (1ll << 26)) __trap();
     }
-  }
-  // Fresh keys at plen + lj: causal within the suffix, real rows only.
-  for (int pair = warp; pair < L * L; pair += NWARPS) {
-    const int r = pair / L, lj = pair % L;
-    float p = 0.f;
-    for (int e = lane; e < Dh; e += 32) p += sm.q[r * qw + h * Dh + e] * sm.kf[lj * kvw + hk * Dh + e];
-    p = warp_sum(p);
-    if (lane == 0) sm.sc[r * CS + plen + lj] = (lj <= r && lj < slen) ? p * scale : NEG_INF;
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
   }
   __syncthreads();
+}
 
-  // Exact f32 softmax per row; masked keys weigh 0, a row with no valid
-  // key gets all-zero weights (output 0).
-  for (int r = warp; r < L; r += NWARPS) {
-    float* row = sm.sc + r * CS;
-    const int n = plen + L;
-    float m = NEG_INF;
-    for (int j = lane; j < n; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    const bool dead = !(m > 0.5f * NEG_INF);
-    float z = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
-      row[j] = e;
-      z += e;
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a b: A 16 x 16 (row), B 16 x 8 (col), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The four products of a layer: q/k/v, output, up, down.
+enum { QKV = 0, OUT = 1, UP = 2, DOWN = 3 };
+struct Prod {
+  int K, N;
+};
+
+__device__ __forceinline__ Prod prod_dims(const Dims& D, int which) {
+  const int qw = D.Hq * D.Dh;
+  switch (which) {
+    case QKV: return {D.d, qw + 2 * D.Hkv * D.Dh};
+    case OUT: return {qw, D.d};
+    case UP: return {D.d, D.F};
+    default: return {D.F, D.d};
+  }
+}
+
+// Tiles of a product with T tiles this CTA owns (blockIdx.x + i * grid).
+__device__ __forceinline__ int my_tiles(int T, int grid) {
+  return (int)blockIdx.x < T ? (T - 1 - (int)blockIdx.x) / grid + 1 : 0;
+}
+
+// Row k = 0 of weight column tile t of product `which` at layer l, and the
+// row stride.
+__device__ const bf16* tile_src(const Coop& a, int l, int which, int t, int& ld) {
+  const Dims& D = a.D;
+  const size_t d = D.d, qw = (size_t)D.Hq * D.Dh, kvw = (size_t)D.Hkv * D.Dh, F = D.F;
+  size_t c = (size_t)t * TILE;
+  switch (which) {
+    case QKV:
+      if (c < qw) { ld = (int)qw; return a.w0.wq + l * d * qw + c; }
+      c -= qw;
+      ld = (int)kvw;
+      if (c < kvw) return a.w0.wk + l * d * kvw + c;
+      return a.w0.wv + l * d * kvw + (c - kvw);
+    case OUT: ld = (int)d; return a.w0.wo + l * qw * d + c;
+    case UP: ld = (int)F; return a.w0.w_up + l * d * F + c;
+    default: ld = (int)d; return a.w0.w_down + l * F * d + c;
+  }
+}
+
+// cp.async of this CTA's weight tiles of product `which`, layer l, into buf
+// as [tile][K][8]; then commits the group (empty past the last layer), which
+// takes any copies issued since the last commit (fetch_ln's).
+__device__ void fetch_weights(const Coop& a, int l, int which, bf16* buf) {
+  if (l < a.n_layers) {
+    const Prod pd = prod_dims(a.D, which);
+    const int nt = my_tiles(pd.N / TILE, a.p.grid);
+    for (int t = 0; t < nt; ++t) {
+      int ld;
+      const bf16* src = tile_src(a, l, which, (int)blockIdx.x + t * a.p.grid, ld);
+      for (int k = threadIdx.x; k < pd.K; k += CT)
+        cp_async16(buf + ((size_t)t * pd.K + k) * TILE, src + (size_t)k * ld);
     }
-    z = warp_sum(z);
+  }
+  cp_async_commit();
+}
+
+// cp.async of layernorm `which` (1 or 2) of layer l, scale and bias, into
+// the plan's ln region (ln1 at 0, ln2 at 2 d floats), for CTAs that run
+// that layernorm (the q/k/v or up tiles' owners); not committed.
+__device__ void fetch_ln(const Coop& a, int l, int which) {
+  const int d = a.D.d;
+  const int T = which == 1 ? (a.D.Hq + 2 * a.D.Hkv) * a.D.Dh / TILE : a.D.F / TILE;
+  if (l >= a.n_layers || (int)blockIdx.x >= T) return;
+  const float* sc = (which == 1 ? a.w0.ln1_s : a.w0.ln2_s) + (size_t)l * d;
+  const float* bi = (which == 1 ? a.w0.ln1_b : a.w0.ln2_b) + (size_t)l * d;
+  float* dst = reinterpret_cast<float*>(coop_smem + a.p.ln) + (which == 1 ? 0 : 2 * d);
+  for (int i = threadIdx.x; i < d / 4; i += CT) {
+    cp_async16(dst + 4 * i, sc + 4 * i);
+    cp_async16(dst + d + 4 * i, bi + 4 * i);
+  }
+}
+
+// Phase stamps for chip_smoke.py's split of a launch, in the probe build
+// (-DDECODE_PROBE, module fused_decode_probe) when a.stamps is set:
+// thread 0 of each CTA writes clock64 at NST points of each layer l (at
+// NST l + k; STAMP_POINTS below), then %globaltimer and clock64 at the
+// kernel's start and end (NST n .. NST n + 3), the clock's rate.
+constexpr int NST = 19;
+// (a) start, LN1 done, weights landed, end; (b) start, q/k/v and the table
+// loaded, scores done, softmax done, end; (c) start, weights landed, end;
+// (d) start, LN2 done, weights landed, end; (e) start, weights landed, end.
+enum {
+  S_A0, S_A_LN, S_A_W, S_A1, S_B0, S_B_IN, S_B_SC, S_B_SM, S_B1,
+  S_C0, S_C_W, S_C1, S_D0, S_D_LN, S_D_W, S_D1, S_E0, S_E_W, S_E1
+};
+__device__ __forceinline__ void stamp(const Coop& a, int k, bool timer = false) {
+#ifdef DECODE_PROBE
+  if (a.stamps && threadIdx.x == 0) {
+    unsigned long long t;
+    if (timer)
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    else
+      t = clock64();
+    a.stamps[(size_t)blockIdx.x * (NST * a.n_layers + 4) + k] = t;
+  }
+#endif
+}
+
+// The x slots ([rows][kc + 8] bf16 each) and their mbarriers; bit i of
+// `loads` is the parity of the count of loads into slot i (every thread of
+// the CTA keeps the same bits), so the last load into it completes the
+// mbarrier's phase of parity 1 - that bit.
+struct Ring {
+  uint32_t loads;
+};
+
+__device__ __forceinline__ bf16* slot_ptr(const Plan& p, int i) {
+  return reinterpret_cast<bf16*>(coop_smem + p.x0 + (size_t)i * p.xs);
+}
+
+__device__ __forceinline__ uint64_t* bar_ptr(const Plan& p, int i) {
+  return reinterpret_cast<uint64_t*>(coop_smem + p.bar) + i;
+}
+
+// The TMA copies columns [k0, k0 + kc) of rows [0, rows) of src (row stride
+// ld) into slot i; warp 0 issues them, one bulk copy a row. Called by every
+// thread, after a barrier that ends all reads of the slot.
+__device__ void stage(const Plan& p, Ring& x, int i, const bf16* src, int ld, int rows, int k0,
+                      int kc) {
+  if (threadIdx.x < 32) {
+    uint64_t* bar = bar_ptr(p, i);
+    bf16* dst = slot_ptr(p, i);
+    if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(rows * kc * 2));
     __syncwarp();
-    for (int j = lane; j < n; j += 32) row[j] = dead ? 0.f : row[j] / z;
+    for (int r = threadIdx.x; r < rows; r += 32)
+      bulk_load(dst + (size_t)r * (p.kc + 8), src + (size_t)r * ld + k0, kc * 2, bar);
   }
-  __syncthreads();
-
-  // P·V over the pool: warp w takes positions j = w (mod NWARPS); lanes
-  // own DPL dims; partial sums per warp meet in red [NWARPS, L, Dh].
-  const int DPL = Dh / 32;
-  float acc[LMAX][4];
-#pragma unroll
-  for (int r = 0; r < LMAX; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
-  for (int j = warp; j < plen; j += NWARPS) {
-    float vv[4];
-    load_dpl(pv + rows_of(D, sm.tab, 0, j) + (size_t)hk * Dh + lane * DPL, DPL, vv);
-#pragma unroll
-    for (int r = 0; r < LMAX; ++r) {
-      if (r < L) {
-        const float p = sm.sc[r * CS + j];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] += p * vv[e];
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < LMAX; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (r < L && e < DPL) sm.red[(warp * L + r) * Dh + lane * DPL + e] = acc[r][e];
-  __syncthreads();
-  for (int i = tid; i < L * Dh; i += NTHREADS) {
-    const int r = i / Dh, e = i % Dh;
-    float a = 0.f;
-    for (int lj = 0; lj < L; ++lj) a += sm.sc[r * CS + plen + lj] * sm.vf[lj * kvw + hk * Dh + e];
-    for (int js = 0; js < NWARPS; ++js) a += sm.red[(js * L + r) * Dh + e];
-    sm.att[r * qw + h * Dh + e] = bf16r(a);
-  }
-  __syncthreads();
+  x.loads ^= 1u << i;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-verify_kernel(LayerW w0, Dims D, int n_layers, int L, int red_floats, size_t layer_elems,
-              const float* __restrict__ h_in, float* __restrict__ h_out, bf16* pk, bf16* pv,
-              const int* __restrict__ tables, const int* __restrict__ prefix_lens,
-              const int* __restrict__ suffix_lens, const int* __restrict__ active) {
-  extern __shared__ float smem[];
-  const VSmem sm = vcarve(smem, D, L, red_floats);
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const int d = D.d, qw = D.Hq * D.Dh, kvw = D.Hkv * D.Dh;
-  const int plen = max(0, min(prefix_lens[s], D.C));
-  const int slen = max(0, min(suffix_lens[s], L));
-  const bool act = active[s] != 0;
-  const float scale = rsqrtf((float)D.Dh);
-  for (int i = tid; i < L * d; i += NTHREADS) sm.h[i] = h_in[(size_t)s * L * d + i];
-  load_table(D, tables, s, sm.tab);
-  __syncthreads();
-  for (int l = 0; l < n_layers; ++l) {
-    const LayerW w = layer(w0, D, l);
-    bf16* pkl = pk + l * layer_elems;
-    bf16* pvl = pv + l * layer_elems;
-    for (int r = 0; r < L; ++r)
-      layernorm_bf16(sm.h + r * d, w.ln1_s, w.ln1_b, sm.hn + r * d, d, sm.buf);
-    matmul_rows(sm.hn, L, w.wq, d, qw, nullptr, sm.q, sm.red);
-    matmul_rows(sm.hn, L, w.wk, d, kvw, nullptr, sm.kf, sm.red);
-    matmul_rows(sm.hn, L, w.wv, d, kvw, nullptr, sm.vf, sm.red);
-    for (int i = tid; i < L * kvw; i += NTHREADS) {
-      sm.kf[i] = bf16r(sm.kf[i]);  // the cache's storage-dtype round trip
-      sm.vf[i] = bf16r(sm.vf[i]);
-    }
-    __syncthreads();
-    for (int h = 0; h < D.Hq; ++h) verify_head(D, pkl, pvl, sm, h, L, plen, slen, scale);
-    // Commit position plen + r of every real row of an active slot.
-    if (act) {
-      for (int i = tid; i < slen * kvw; i += NTHREADS) {
-        const int r = i / kvw, e = i % kvw, pos = plen + r;
-        if (pos < D.C) {
-          const size_t off = PagedRows()(D, sm.tab, s, pos) + e;
-          pkl[off] = __float2bfloat16(sm.kf[i]);
-          pvl[off] = __float2bfloat16(sm.vf[i]);
+// The first chunks of a product's x from src, one a slot, after a fence
+// that orders the phase's earlier generic writes (the attention scratch over
+// the slots; src, by other CTAs before the grid sync) before the copies.
+__device__ void stage_first(const Plan& p, Ring& x, const bf16* src, int ld, int rows, int K) {
+  if (threadIdx.x < 32) fence_async();
+  for (int i = 0; i < p.nslot && i * p.kc < K; ++i)
+    stage(p, x, i, src, ld, rows, i * p.kc, min(p.kc, K - i * p.kc));
+}
+
+// y[r, c] = sum_k x[r, k] W[k, c] over this CTA's tiles of product `which`,
+// handed to epi(c, r, y, pre(c, r)) for r < rows; pre's loads are issued
+// before x and the sums are waited on. x sits in slot 0 (src null), or comes
+// from src (row stride ld) in chunks of kc columns through the slots, the
+// first ones already staged. Warp w takes m-tile w % cs and the k-steps of
+// k-group w / cs; the partial sums meet in `red` and are added in k-group
+// order.
+template <class Pre, class Epi>
+__device__ void product(const Coop& a, const bf16* wbuf, int which, int rows, Ring& x,
+                        const bf16* src, int ld, Pre pre, Epi epi) {
+  const Prod pd = prod_dims(a.D, which);
+  const int nt = my_tiles(pd.N / TILE, a.p.grid);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int mt = (rows + 15) / 16, cs = mt > 2 ? 4 : mt, kg = CW / cs;
+  const int ms = warp % cs, kgr = warp / cs;
+  // Rows past the last repeat it (their sums are dropped).
+  const int arow = min(ms * 16 + (lane & 15), rows - 1), acol = (lane >> 4) * 8;
+  const int kc = a.p.kc, nch = src ? (pd.K + kc - 1) / kc : 1;
+  // This thread's outputs: i = threadIdx.x + k CT, k < MAXO.
+  constexpr int MAXO = (MAXT * 4 * 128 + CT - 1) / CT;
+  const int nout = nt * mt * 128;
+  float2 early[MAXO];
+#pragma unroll
+  for (int k = 0; k < MAXO; ++k) {
+    const int i = threadIdx.x + k * CT, t = i / (mt * 128), e = i % 128;
+    const int row = (i / 128) % mt * 16 + e / 8;
+    if (i < nout && row < rows)
+      early[k] = pre(((int)blockIdx.x + t * a.p.grid) * TILE + e % 8, row);
+  }
+  float acc[MAXT][4];
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int k0 = ch * kc, w = min(kc, pd.K - k0), slot = src ? ch % a.p.nslot : 0;
+    if (src) mbar_wait(bar_ptr(a.p, slot), ((x.loads >> slot) & 1u) ^ 1u);  // chunk ch
+    if (ms < mt) {
+      const bf16* xs = slot_ptr(a.p, slot) + (size_t)arow * (kc + 8) + acol;
+      const bf16* wb = wbuf + ((size_t)k0 + (lane & 15)) * TILE;
+      for (int ks = kgr; ks < w / 16; ks += kg) {
+        uint32_t af[4];
+        ldsm_x4(af, xs + ks * 16);
+#pragma unroll
+        for (int t = 0; t < MAXT; ++t) {
+          if (t < nt) {
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, wb + ((size_t)t * pd.K + ks * 16) * TILE);
+            mma_bf16(acc[t], af, b0, b1);
+          }
         }
       }
     }
-    matmul_rows(sm.att, L, w.wo, qw, d, nullptr, sm.tmp, sm.red);
-    for (int i = tid; i < L * d; i += NTHREADS) sm.h[i] += sm.tmp[i];
+    const int next = ch + a.p.nslot;
+    if (src && next < nch) {
+      __syncthreads();  // every warp is done with this slot
+      stage(a.p, x, slot, src, ld, rows, next * kc, min(kc, pd.K - next * kc));
+    }
+  }
+  // C fragment: c0, c1 at (g, 2q), (g, 2q+1); c2, c3 at (g+8, ...).
+  float* red = reinterpret_cast<float*>(coop_smem + a.p.red);
+  if (ms < mt) {
+    const int g = lane >> 2, q2 = (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < MAXT; ++t) {
+      if (t < nt) {
+        float* o = red + ((size_t)(t * kg + kgr) * mt + ms) * 128;
+        o[g * 8 + q2] = acc[t][0];
+        o[g * 8 + q2 + 1] = acc[t][1];
+        o[(g + 8) * 8 + q2] = acc[t][2];
+        o[(g + 8) * 8 + q2 + 1] = acc[t][3];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < MAXO; ++k) {
+    const int i = threadIdx.x + k * CT, t = i / (mt * 128), m = (i / 128) % mt;
+    const int e = i % 128, row = m * 16 + e / 8;
+    if (i < nout && row < rows) {
+      float s = 0.f;
+      for (int j = 0; j < kg; ++j) s += red[((size_t)(t * kg + j) * mt + m) * 128 + e];
+      epi(((int)blockIdx.x + t * a.p.grid) * TILE + e % 8, row, s, early[k]);
+    }
+  }
+}
+
+// x[r, :] = bf16(layernorm(h[r, :])) for r < rows (the JAX models/base
+// arithmetic), scale and bias sc[0 .. d) and sc[d .. 2d) in shared memory;
+// h read from L2, one warp a row. A warp loads a batch of its rows (the
+// 16 float4 a lane holds: 16 / ceil(d / 128) rows) before it reduces any.
+// d <= 1024.
+constexpr int LNV = 8;  // float4 a lane holds in a layernorm batch
+
+__device__ void layernorm_rows(const float* h, const float* sc, int rows, int d, bf16* x,
+                               int ldx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nv = (d + 127) / 128, rb = LNV / nv;  // float4 a lane a row; rows a batch
+  for (int r0 = warp; r0 < rows; r0 += CW * rb) {
+    float4 v[LNV];
+#pragma unroll
+    for (int k = 0; k < LNV; ++k) {
+      const int r = r0 + k / nv * CW, c = (k % nv) * 128 + lane * 4;
+      v[k] = k < rb * nv && r < rows && c < d
+                 ? __ldcg(reinterpret_cast<const float4*>(h + (size_t)r * d + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int j = 0; j < rb; ++j) {
+      const int r = r0 + j * CW;
+      if (r >= rows) break;  // warp-uniform
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < LNV; ++k)
+        if (k / nv == j) s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+      const float mu = warp_sum(s) / d;
+      float q = 0.f;
+#pragma unroll
+      for (int k = 0; k < LNV; ++k) {
+        if (k / nv == j && (k % nv) * 128 + lane * 4 < d) {
+          const float a = v[k].x - mu, b = v[k].y - mu, c = v[k].z - mu, e = v[k].w - mu;
+          q += (a * a + b * b) + (c * c + e * e);
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(q) / d + LN_EPS);
+#pragma unroll
+      for (int k = 0; k < LNV; ++k) {
+        const int c = (k % nv) * 128 + lane * 4;
+        if (k / nv == j && c < d) {
+          const float4 g = *reinterpret_cast<const float4*>(sc + c);
+          const float4 b = *reinterpret_cast<const float4*>(sc + d + c);
+          __nv_bfloat162 lo = __floats2bfloat162_rn((v[k].x - mu) * rstd * g.x + b.x,
+                                                    (v[k].y - mu) * rstd * g.y + b.y);
+          __nv_bfloat162 hi = __floats2bfloat162_rn((v[k].z - mu) * rstd * g.z + b.z,
+                                                    (v[k].w - mu) * rstd * g.w + b.w);
+          uint2 packed;
+          packed.x = *reinterpret_cast<uint32_t*>(&lo);
+          packed.y = *reinterpret_cast<uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(x + (size_t)r * ldx + c) = packed;
+        }
+      }
+    }
+  }
+}
+
+// Floats of one attention task's scratch before its table row (host and
+// device): q [gR][Dh], fresh k and v [R][Dh], scores [gR][C + R], the
+// softmax's per-warp partial maxima and sums [2][CW][gR], the P·V
+// partial sums [CW][GMAX][Dh].
+__host__ __device__ inline size_t attend_floats(const Dims& D, int R) {
+  const size_t gR = (size_t)(D.Hq / D.Hkv) * R;
+  return gR * D.Dh + 2 * (size_t)R * D.Dh + gR * (D.C + R) + 2 * (size_t)CW * gR +
+         (size_t)CW * GMAX * D.Dh;
+}
+
+// Bytes of an attention task's scratch: the floats, the table row, then the
+// K/V ring (RING slots of CT x 16 bytes, 16-byte aligned).
+__host__ __device__ inline size_t attend_ring_offset(const Dims& D, int R) {
+  return (attend_floats(D, R) * 4 + (size_t)D.MB * 4 + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t attend_bytes(const Dims& D, int R) {
+  return attend_ring_offset(D, R) + (size_t)RING * CT * 16;
+}
+
+// cp.async.wait_group n: all but this thread's n most recent groups landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The scores of G query rows (q, Dh floats apart, at this lane's 8 dims) on
+// one key row k8 (its 8 dims), summed over the LPR lanes of the row; the G
+// sums' shuffles interleave. Stored at out, CS floats apart, where `store`.
+template <int G>
+__device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, const float* k8,
+                                           float* out, int CS, bool store, float scale) {
+  float p[G];
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const float4 qa = *reinterpret_cast<const float4*>(q + u * Dh);
+    const float4 qb = *reinterpret_cast<const float4*>(q + u * Dh + 4);
+    p[u] = (qa.x * k8[0] + qa.y * k8[1]) + (qa.z * k8[2] + qa.w * k8[3]) +
+           ((qb.x * k8[4] + qb.y * k8[5]) + (qb.z * k8[6] + qb.w * k8[7]));
+  }
+  for (int o = LPR / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int u = 0; u < G; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], o);
+  if (store)
+#pragma unroll
+    for (int u = 0; u < G; ++u) out[(size_t)u * CS] = p[u] * scale;
+}
+
+// Attention task (slot s, KV head hk) of layer l: the head group's g query
+// heads x R rows over cache positions [0, kvlen) (read pre-write) and the
+// slot's R fresh rows at kvlen + lj, with the exact softmax; rounds and
+// commits the fresh rows of head hk. `base`: the task's shared scratch.
+template <class Rows, bool VERIFY>
+__device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
+  const Dims& D = a.D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = a.R, Dh = D.Dh, g = D.Hq / D.Hkv, gR = g * R, CS = D.C + R;
+  const int qw = D.Hq * Dh, kvw = D.Hkv * Dh, nqkv = qw + 2 * kvw;
+  float* q = base;
+  float* kf = q + gR * Dh;
+  float* vf = kf + R * Dh;
+  float* sc = vf + R * Dh;
+  float* pm = sc + (size_t)gR * CS;  // [CW][gR] partial maxima, then sums
+  float* pz = pm + CW * gR;
+  float* pv = pz + CW * gR;
+  int* tab = reinterpret_cast<int*>(base + attend_floats(D, R));
+  const Rows rows_of{};
+
+  // kvlen: positions read from the cache; the fresh rows go at kvlen + r.
+  int kvlen, slen = 1;
+  bool commit;
+  if (VERIFY) {
+    kvlen = max(0, min(a.lengths[s], D.C));
+    slen = max(0, min(a.suffix[s], R));
+    commit = a.active[s] != 0;
+  } else {
+    kvlen = min(a.lengths[s], D.C);
+    commit = a.active[s] != 0 && kvlen < D.C;
+  }
+  const int n = kvlen + R;  // keys a row: the cache's, then the fresh rows
+  const float* qkv = a.qkv + (size_t)s * R * nqkv;
+  for (int i = tid; i < gR * Dh; i += CT) {
+    const int row = i / Dh, e = i % Dh;
+    q[i] = __ldcg(qkv + (size_t)(row % R) * nqkv + (hk * g + row / R) * Dh + e);
+  }
+  for (int i = tid; i < R * Dh; i += CT) {
+    const float* fr = qkv + (size_t)(i / Dh) * nqkv + qw + hk * Dh + i % Dh;
+    kf[i] = bf16r(__ldcg(fr));  // the cache's storage-dtype round trip
+    vf[i] = bf16r(__ldcg(fr + kvw));
+  }
+  for (int i = tid; i < D.MB; i += CT) tab[i] = a.tables[(size_t)s * D.MB + i];
+  __syncthreads();
+  if (first) stamp(a, NST * l + S_B_IN);
+
+  bf16* ck = a.ck + l * a.layer_elems;
+  bf16* cv = a.cv + l * a.layer_elems;
+  for (int i = tid; i < R * Dh; i += CT) {
+    const int r = i / Dh, pos = kvlen + r;
+    if (commit && r < slen && pos < D.C) {
+      const size_t off = rows_of(D, tab, s, pos) + (size_t)hk * Dh + i % Dh;
+      ck[off] = __float2bfloat16(kf[i]);
+      cv[off] = __float2bfloat16(vf[i]);
+    }
+  }
+
+  // The cache row of head hk streams through the ring in chunks of CP
+  // positions: in chunk c, thread t copies 16 bytes (8 dims, sub) of
+  // position c CP + cr (cr = t / LPR) into its own slot, and reads the same
+  // bytes back, so a chunk needs no barrier; RING - 1 chunks are in flight.
+  const float scale = rsqrtf((float)Dh);
+  const int LPR = Dh / 8, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
+  const int nc = (kvlen + CP - 1) / CP;
+  bf16* ring = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(base) +
+                                       attend_ring_offset(D, R)) + tid * 8;
+  // Chunk c of `cache` into this thread's slot c % RING (and, for the K
+  // pass, the V rows into L2 for the P·V pass).
+  const auto fetch = [&](const bf16* cache, int c, bool to_l2) {
+    const int j = c * CP + cr;
+    if (j < kvlen) {
+      const size_t off = rows_of(D, tab, s, j) + (size_t)hk * Dh + sub * 8;
+      cp_async16(ring + (size_t)(c % RING) * CT * 8, cache + off);
+      if (to_l2 && (sub & 7) == 0) prefetch_l2(cv + off);
+    }
+  };
+  // The 8 values of chunk c this thread copied (zeros past kvlen), once
+  // they have landed, with chunk c + RING - 1 asked for.
+  const auto take = [&](const bf16* cache, int c, bool to_l2, float* x8) {
+    cp_async_wait<RING - 2>();
+    if (c + RING - 1 < nc) fetch(cache, c + RING - 1, to_l2);
+    cp_async_commit();
+    unpack8(c * CP + cr < kvlen
+                ? *reinterpret_cast<const uint4*>(ring + (size_t)(c % RING) * CT * 8)
+                : make_uint4(0u, 0u, 0u, 0u),
+            x8);
+  };
+  const auto prime = [&](const bf16* cache, bool to_l2) {
+    for (int c = 0; c < RING - 1; ++c) {
+      if (c < nc) fetch(cache, c, to_l2);
+      cp_async_commit();
+    }
+  };
+  prime(ck, true);
+  for (int c = 0; c < nc; ++c) {
+    float k8[8];
+    take(ck, c, true, k8);
+    const int j = c * CP + cr;
+    const bool store = sub == 0 && j < kvlen;
+    int i = 0;
+    for (; i + 4 <= gR; i += 4)
+      score_rows<4>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
+    for (; i < gR; ++i)
+      score_rows<1>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
+  }
+  if (first) stamp(a, NST * l + S_B_SC);
+  // The fresh keys: causal within the suffix and real rows only (verify).
+  for (int pair = warp; pair < gR * R; pair += CW) {
+    const int i = pair / R, lj = pair % R, r = i % R;
+    float p = 0.f;
+    for (int e = lane; e < Dh; e += 32) p += q[i * Dh + e] * kf[lj * Dh + e];
+    p = warp_sum(p);
+    if (lane == 0)
+      sc[(size_t)i * CS + kvlen + lj] = !VERIFY || (lj <= r && lj < slen) ? p * scale : NEG_INF;
+  }
+  __syncthreads();
+
+  // Exact softmax per query row over its n keys; masked keys weigh 0. Warp
+  // w takes columns [w n / CW, (w + 1) n / CW) of every row; the warps'
+  // maxima, then their sums of exp(x - max), meet in pm / pz in warp order.
+  // Decode: the weights rounded to bf16. Verify: f32, and 0 for a row with
+  // no valid key.
+  const int c0 = warp * n / CW, c1 = (warp + 1) * n / CW;
+  for (int i = 0; i < gR; ++i) {
+    const float* row = sc + (size_t)i * CS;
+    float m = NEG_INF;
+    for (int j = c0 + lane; j < c1; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    if (lane == 0) pm[warp * gR + i] = m;
+  }
+  __syncthreads();
+  for (int i = 0; i < gR; ++i) {
+    const float* row = sc + (size_t)i * CS;
+    float m = NEG_INF;
+    for (int w = 0; w < CW; ++w) m = fmaxf(m, pm[w * gR + i]);
+    float z = 0.f;
+    for (int j = c0 + lane; j < c1; j += 32)
+      z += row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
+    z = warp_sum(z);
+    if (lane == 0) pz[warp * gR + i] = z;
+  }
+  __syncthreads();
+  // Row i's maximum and sum (thread i).
+  if (tid < gR) {
+    float m = NEG_INF, z = 0.f;
+    for (int w = 0; w < CW; ++w) {
+      m = fmaxf(m, pm[w * gR + tid]);
+      z += pz[w * gR + tid];  // each taken against the row's maximum
+    }
+    pm[tid] = m;
+    pz[tid] = z;
+  }
+  __syncthreads();
+  for (int i = 0; i < gR; ++i) {
+    float* row = sc + (size_t)i * CS;
+    const float m = pm[i], z = pz[i];
+    const bool dead = !(m > 0.5f * NEG_INF);
+    for (int j = tid; j < n; j += CT) {
+      const float e = row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
+      row[j] = VERIFY ? (dead ? 0.f : e / z) : bf16r(e / z);
+    }
+  }
+  __syncthreads();
+  if (first) stamp(a, NST * l + S_B_SM);
+
+  // P·V over the cache, GMAX query rows a pass, V streamed as K was; the
+  // position lanes of a warp meet by shuffles, the warps in pv (warp order).
+  const int pr = lane / LPR;
+  for (int i0 = 0; i0 < gR; i0 += GMAX) {
+    const int ng = min(GMAX, gR - i0);
+    float acc[GMAX][8];
+#pragma unroll
+    for (int ii = 0; ii < GMAX; ++ii)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
+    prime(cv, false);
+    for (int c = 0; c < nc; ++c) {
+      float v8[8];
+      take(cv, c, false, v8);
+      const int j = c * CP + cr;
+      if (j < kvlen) {
+#pragma unroll
+        for (int ii = 0; ii < GMAX; ++ii) {
+          if (ii < ng) {
+            const float p = sc[(size_t)(i0 + ii) * CS + j];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[ii][e] += p * v8[e];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < GMAX; ++ii) {
+      if (ii < ng) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float v = acc[ii][e];
+          for (int o = LPR; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * 8 + e] = v;
+        }
+      }
+    }
     __syncthreads();
-    for (int r = 0; r < L; ++r)
-      layernorm_bf16(sm.h + r * d, w.ln2_s, w.ln2_b, sm.hn + r * d, d, sm.buf);
-    matmul_rows(sm.hn, L, w.w_up, d, D.F, w.b_up, sm.up, sm.red);
-    for (int i = tid; i < L * D.F; i += NTHREADS) sm.up[i] = bf16r(gelu_tanh(sm.up[i]));
-    __syncthreads();
-    matmul_rows(sm.up, L, w.w_down, D.F, d, w.b_down, sm.tmp, sm.red);
-    for (int i = tid; i < L * d; i += NTHREADS) sm.h[i] += sm.tmp[i];
+    for (int o = tid; o < ng * Dh; o += CT) {
+      const int ii = o / Dh, e = o % Dh, i = i0 + ii;
+      float t = 0.f;
+      for (int lj = 0; lj < R; ++lj) t += sc[(size_t)i * CS + kvlen + lj] * vf[lj * Dh + e];
+      for (int w = 0; w < CW; ++w) t += pv[((size_t)w * GMAX + ii) * Dh + e];
+      a.att[(size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e] = __float2bfloat16(t);
+    }
     __syncthreads();
   }
-  for (int i = tid; i < L * d; i += NTHREADS) h_out[(size_t)s * L * d + i] = sm.h[i];
 }
+
+template <class Rows, bool VERIFY>
+__global__ void __launch_bounds__(CT, 1) coop_step_kernel(Coop a) {
+  const Dims& D = a.D;
+  const Plan& p = a.p;
+  const int rows = D.S * a.R, b = blockIdx.x;
+  const int qw = D.Hq * D.Dh, nqkv = qw + 2 * D.Hkv * D.Dh;
+  const int T_qkv = nqkv / TILE, T_out = D.d / TILE, T_up = D.F / TILE;
+  bf16* const w0 = reinterpret_cast<bf16*>(coop_smem + p.w0);
+  bf16* const w1 = reinterpret_cast<bf16*>(coop_smem + p.w1);
+  Ring x{0u};
+  unsigned epoch = epoch_in(a.flags);
+  const int ns = NST * a.n_layers;  // phase stamps; 4 more for the rate
+  stamp(a, ns, true);
+  stamp(a, ns + 2);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.nslot; ++i) mbar_init(bar_ptr(p, i), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Weight tiles: q/k/v in buffer w0, output in w1, up in w0, down in w1,
+  // each fetched a phase or more ahead of its product and after the loads
+  // the fetching phase waits on: the output's in (a) after LN1, the up's
+  // after the attention, the down's in (d) after LN2, the next layer's q/k/v
+  // after the down projection. The layernorms' scales and biases come one
+  // group earlier (ln2 with the output weights, the next layer's ln1 with
+  // the down weights), so no layernorm waits for a weight group.
+  fetch_ln(a, 0, 1);
+  fetch_weights(a, 0, QKV, w0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int l = 0; l < a.n_layers; ++l) {
+    const float* hsrc = l ? a.h_out : a.h_in;
+    const size_t ld = (size_t)l * D.d, lf = (size_t)l * D.F;
+    const int st = NST * l;
+
+    // (a) LN1, q/k/v.
+    stamp(a, st + S_A0);
+    if (b < T_qkv)
+      layernorm_rows(hsrc, reinterpret_cast<const float*>(coop_smem + p.ln), rows, D.d,
+                     slot_ptr(p, 0), p.kc + 8);
+    stamp(a, st + S_A_LN);
+    fetch_ln(a, l, 2);
+    fetch_weights(a, l, OUT, w1);
+    cp_async_wait_prev();  // q/k/v's weights
+    __syncthreads();
+    stamp(a, st + S_A_W);
+    if (b < T_qkv) {
+      float* qkv = a.qkv;
+      product(
+          a, w0, QKV, rows, x, nullptr, 0, [](int, int) { return make_float2(0.f, 0.f); },
+          [&](int c, int r, float v, float2) { __stcg(qkv + (size_t)r * nqkv + c, v); });
+    }
+    stamp(a, st + S_A1);
+    grid_sync(a.flags, ++epoch, p.grid);
+
+    // (b) Attention, one task a (slot, KV head); commits the fresh rows.
+    stamp(a, st + S_B0);
+    for (int t = b; t < D.S * D.Hkv; t += p.grid)
+      attend<Rows, VERIFY>(a, reinterpret_cast<float*>(coop_smem + p.x0), l, t / D.Hkv,
+                           t % D.Hkv, t == b);
+    fetch_weights(a, l, UP, w0);
+    fence_async();  // the attention rows are read by TMA next
+    stamp(a, st + S_B1);
+    grid_sync(a.flags, ++epoch, p.grid);
+
+    // (c) Output projection; the residual added by the column's owner.
+    stamp(a, st + S_C0);
+    if (b < T_out) stage_first(p, x, a.att, qw, rows, qw);
+    cp_async_wait_prev();  // the output weights (the up weights may still fly)
+    __syncthreads();
+    stamp(a, st + S_C_W);
+    if (b < T_out) {
+      float* h = a.h_out;
+      product(
+          a, w1, OUT, rows, x, a.att, qw,
+          [&](int c, int r) { return make_float2(__ldcg(hsrc + (size_t)r * D.d + c), 0.f); },
+          [&](int c, int r, float v, float2 e) { h[(size_t)r * D.d + c] = e.x + v; });
+    }
+    stamp(a, st + S_C1);
+    grid_sync(a.flags, ++epoch, p.grid);
+
+    // (d) LN2, up projection, bias, GELU (rounded to bf16).
+    stamp(a, st + S_D0);
+    if (b < T_up)
+      layernorm_rows(a.h_out, reinterpret_cast<const float*>(coop_smem + p.ln) + 2 * D.d, rows,
+                     D.d, slot_ptr(p, 0), p.kc + 8);
+    stamp(a, st + S_D_LN);
+    fetch_ln(a, l + 1, 1);
+    fetch_weights(a, l, DOWN, w1);
+    cp_async_wait_prev();  // the up weights
+    __syncthreads();
+    stamp(a, st + S_D_W);
+    if (b < T_up) {
+      bf16* up = a.gelu;
+      const float* b_up = a.w0.b_up + lf;
+      product(
+          a, w0, UP, rows, x, nullptr, 0,
+          [&](int c, int) { return make_float2(__ldg(b_up + c), 0.f); },
+          [&](int c, int r, float v, float2 e) {
+            up[(size_t)r * D.F + c] = __float2bfloat16(gelu_tanh(v + e.x));
+          });
+    }
+    fence_async();
+    stamp(a, st + S_D1);
+    grid_sync(a.flags, ++epoch, p.grid);
+
+    // (e) Down projection, bias, residual.
+    stamp(a, st + S_E0);
+    if (b < T_out) stage_first(p, x, a.gelu, D.F, rows, D.F);
+    cp_async_wait<0>();  // the down weights and the next ln1
+    __syncthreads();
+    stamp(a, st + S_E_W);
+    if (b < T_out) {
+      float* h = a.h_out;
+      const float* b_down = a.w0.b_down + ld;
+      product(
+          a, w1, DOWN, rows, x, a.gelu, D.F,
+          [&](int c, int r) {
+            return make_float2(__ldcg(h + (size_t)r * D.d + c), __ldg(b_down + c));
+          },
+          [&](int c, int r, float v, float2 e) { h[(size_t)r * D.d + c] = (e.x + v) + e.y; });
+    }
+    fetch_weights(a, l + 1, QKV, w0);
+    stamp(a, st + S_E1);
+    if (l + 1 < a.n_layers) grid_sync(a.flags, ++epoch, p.grid);
+  }
+  epoch_out(a.flags, epoch);
+  stamp(a, ns + 1, true);
+  stamp(a, ns + 3);
+}
+
+#ifdef DECODE_PROBE
+// A probe of the grid barrier alone: `steps` syncs of grid_sync over the
+// launch's grid (each CTA CT threads and `smem` bytes of shared
+// memory, as the cooperative kernels), for chip_smoke.py's timing.
+__global__ void __launch_bounds__(CT, 1) barrier_probe_kernel(unsigned* flags, int steps) {
+  unsigned epoch = epoch_in(flags);
+  for (int i = 0; i < steps; ++i) grid_sync(flags, ++epoch, gridDim.x);
+  epoch_out(flags, epoch);
+}
+#endif
 
 // -- host side ----------------------------------------------------------------
 
@@ -722,26 +1343,13 @@ int red_floats_for(const Dims& D) {
   return r > pv ? r : pv;
 }
 
-int verify_red_floats(const Dims& D, int L) {
-  int r = NWARPS * L * D.Dh;
-  const int ns[] = {D.Hq * D.Dh, D.Hkv * D.Dh, D.d, D.F};
-  for (int n : ns) r = r > matvec_ks(n) * L * n ? r : matvec_ks(n) * L * n;
-  return r;
-}
-
 size_t smem_bytes(const Dims& D, int red_floats) {
   size_t f = 3 * (size_t)D.d + 2 * (size_t)D.Hq * D.Dh + 2 * (size_t)D.Hkv * D.Dh +
              D.F + (size_t)D.Hq * (D.C + 1) + red_floats + 33;
   return f * sizeof(float) + (size_t)D.MB * sizeof(int);
 }
 
-size_t verify_smem(const Dims& D, int L, int red_floats) {
-  size_t f = (size_t)L * (3 * D.d + 2 * D.Hq * D.Dh + 2 * D.Hkv * D.Dh) +
-             verify_sc_floats(D, L) + red_floats + 33;
-  return f * sizeof(float) + (size_t)D.MB * sizeof(int);
-}
-
-// The envelope this design takes; the Python wrapper checks it first and
+// The per-layer kernel's envelope; the Python wrapper checks it first and
 // raises with a reason, this is the last line of defence.
 cudaError_t check_dims(const Dims& D) {
   if (D.Hkv < 1 || D.Hq % D.Hkv || D.Hq / D.Hkv > 8) return cudaErrorInvalidValue;
@@ -749,14 +1357,6 @@ cudaError_t check_dims(const Dims& D) {
   if (D.d % 8 || D.F % 8 || (D.Hkv * D.Dh) % 8 || D.d != D.Hq * D.Dh) return cudaErrorInvalidValue;
   if (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) return cudaErrorInvalidValue;
   if (smem_bytes(D, red_floats_for(D)) > SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
-cudaError_t check_verify(const Dims& D, int L) {
-  if (L < 1 || L > LMAX || D.MB < 1) return cudaErrorInvalidValue;
-  cudaError_t err = check_dims(D);
-  if (err != cudaSuccess) return err;
-  if (verify_smem(D, L, verify_red_floats(D, L)) > SMEM_MAX) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -790,21 +1390,118 @@ int launch_block(const LayerW& w, const Dims& D, const void* h_in, void* h_out,
   return (int)cudaGetLastError();
 }
 
-template <class Rows>
-int launch_token(const LayerW& w, const Dims& D, int n_layers, size_t layer_elems,
-                 const void* h_in, void* h_out, void* ck, void* cv, const void* lengths,
-                 const void* active, const void* tables, void* stream) {
-  cudaError_t err = check_dims(D);
-  if (err != cudaSuccess) return (int)err;
-  const int red = red_floats_for(D);
-  const size_t smem = smem_bytes(D, red);
-  err = cudaFuncSetAttribute(decode_token_kernel<Rows>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_token_kernel<Rows><<<D.S, NTHREADS, smem, (cudaStream_t)stream>>>(
-      w, D, n_layers, red, layer_elems, (const float*)h_in, (float*)h_out, (bf16*)ck,
-      (bf16*)cv, (const int*)lengths, (const int*)active, (const int*)tables);
-  return (int)cudaGetLastError();
+#ifdef DECODE_PROBE
+// Phase stamps for the next launches (coop_set_stamps), or null.
+unsigned long long* g_stamps = nullptr;
+#endif
+
+// The cooperative kernels by number (0: slab decode, 1: paged decode, 2:
+// verify), with the shared memory last set on each and the occupancy it gave.
+struct CoopKernel {
+  const void* fn;
+  int smem, per_sm, dev;
+};
+CoopKernel g_coop[3] = {
+    {(const void*)coop_step_kernel<SlabRows, false>, -1, 0, -1},
+    {(const void*)coop_step_kernel<PagedRows, false>, -1, 0, -1},
+    {(const void*)coop_step_kernel<PagedRows, true>, -1, 0, -1},
+};
+
+// CTAs of kernel k a SM holds at `smem` bytes of shared memory (sets the
+// kernel's shared-memory limit first).
+cudaError_t coop_per_sm(int k, int smem, int& per_sm) {
+  CoopKernel& ck = g_coop[k];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem != ck.smem || dev != ck.dev) {
+    if ((err = cudaFuncSetAttribute(ck.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ck.per_sm, ck.fn, CT, smem)) !=
+            cudaSuccess)
+      return err;
+    ck.smem = smem;
+    ck.dev = dev;
+  }
+  per_sm = ck.per_sm;
+  return cudaSuccess;
+}
+
+// The plan's offsets in order, aligned and inside `smem`: two weight
+// buffers, the layernorms' parameters, the x slots, the partial sums, the
+// mbarriers. The sizes are ops/fused_decode.py coop_plan's; the kernel's
+// own bounds are checked here: its tiles a CTA (a register array of MAXT)
+// and the attention task's scratch, which it lays out itself over the slots.
+bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
+  const long nqkv = (long)D.Hq * D.Dh + 2L * D.Hkv * D.Dh;
+  const long tiles[4] = {nqkv / TILE, D.d / TILE, D.F / TILE, D.d / TILE};
+  for (long t : tiles)
+    if ((t + p.grid - 1) / p.grid > MAXT) return false;
+  return p.w0 == 0 && p.w1 % 16 == 0 && p.ln % 16 == 0 && p.x0 % 128 == 0 &&
+         p.xs % 16 == 0 && p.red % 16 == 0 && p.bar % 8 == 0 && p.nslot >= 1 &&
+         p.nslot <= MAXS && p.w0 < p.w1 && p.w1 < p.ln && p.ln + 16L * D.d <= p.x0 &&
+         p.xs >= (long)D.S * R * (p.kc + 8) * 2 && p.x0 + (long)p.nslot * p.xs <= p.red &&
+         p.x0 + (long)attend_bytes(D, R) <= p.red && p.red < p.bar &&
+         p.bar + 8L * p.nslot <= p.smem;
+}
+
+// The last line of defence behind ops/fused_decode.py coop_plan, which
+// checks the envelope and raises with a reason: dims, the plan's layout, and
+// a grid that fits on the card at once (else the grid sync would never
+// complete). Nothing falls back: a refusal is an error code.
+template <class Rows, bool VERIFY>
+int launch_coop(Coop& a, const int* plan, int k, void* stream) {
+  const Dims& D = a.D;
+  Plan& p = a.p;
+  p = Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
+           plan[6], plan[7], plan[8], plan[9], plan[10]};
+  const int rows = D.S * a.R;
+  if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 64 && D.Dh != 128) || D.d != D.Hq * D.Dh ||
+      D.d % 16 || D.d > 1024 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
+      p.kc != D.d || p.grid < 1 || p.grid > MAX_GRID ||
+      (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) || !plan_in_bounds(D, a.R, p))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, nsm = 0, coop = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
+      (err = coop_per_sm(k, p.smem, per_sm)) != cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if (per_sm * nsm < p.grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(g_coop[k].fn, dim3(p.grid), dim3(CT), args, p.smem,
+                                    (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer_elems,
+               const void* h_in, void* h_out, void* ck, void* cv, const void* lengths,
+               const void* suffix, const void* active, const void* tables, void* qkv,
+               void* att, void* gelu, void* flags) {
+  Coop a;
+  a.w0 = w;
+  a.D = D;
+  a.n_layers = n_layers;
+  a.R = R;
+  a.layer_elems = layer_elems;
+  a.h_in = (const float*)h_in;
+  a.h_out = (float*)h_out;
+  a.ck = (bf16*)ck;
+  a.cv = (bf16*)cv;
+  a.lengths = (const int*)lengths;
+  a.suffix = (const int*)suffix;
+  a.active = (const int*)active;
+  a.tables = (const int*)tables;
+  a.qkv = (float*)qkv;
+  a.att = (bf16*)att;
+  a.gelu = (bf16*)gelu;
+  a.flags = (unsigned*)flags;
+#ifdef DECODE_PROBE
+  a.stamps = g_stamps;
+#endif
+  return a;
 }
 
 }  // namespace
@@ -840,24 +1537,29 @@ extern "C" int decode_block_paged(
       h_in, h_out, pk, pv, lengths, tables, k_fresh, v_fresh, stream);
 }
 
-// Megakernel, slab. Layer-stacked weights (leading [n_layers] axis) and
+// Whole-model step, slab. Layer-stacked weights (leading [n_layers] axis) and
 // caches [n_layers, S, C, Hkv, Dh] bf16, committed in place at
-// [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32.
+// [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32; scratch
+// qkv [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] bf16; the grid
+// barrier's flags (MAX_GRID + 1 uint32, zeroed once, then left to the
+// kernels; see grid_sync()); `plan` the eleven ints of ops/fused_decode.py
+// coop_plan. One launch at a time may use the flags.
 extern "C" int decode_token_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* ck, void* cv,
-    const void* lengths, const void* active, int n_layers, int S, int d,
-    int Hq, int Hkv, int Dh, int F, int C, void* stream) {
+    const void* lengths, const void* active, void* qkv, void* att, void* gelu, void* flags,
+    const int* plan, int n_layers, int S, int d, int Hq, int Hkv, int Dh, int F,
+    int C, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
-  return launch_token<SlabRows>(
-      pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down), D,
-      n_layers, (size_t)S * C * Hkv * Dh, h_in, h_out, ck, cv, lengths, active, nullptr,
-      stream);
+  Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
+                     D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, ck, cv, lengths,
+                     nullptr, active, nullptr, qkv, att, gelu, flags);
+  return launch_coop<SlabRows, false>(a, plan, 0, stream);
 }
 
-// Megakernel, paged. Pools [n_layers, NB, bs, Hkv, Dh] bf16, tables
+// Whole-model step, paged. Pools [n_layers, NB, bs, Hkv, Dh] bf16, tables
 // [S, MB] int32; the fresh row of layer l is committed in place at
 // pool[l, tables[s, len / bs], len % bs] where active[s] != 0.
 extern "C" int decode_token_paged(
@@ -865,56 +1567,83 @@ extern "C" int decode_token_paged(
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* pk, void* pv,
-    const void* lengths, const void* active, const void* tables, int n_layers, int S,
-    int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
+    const void* lengths, const void* active, const void* tables, void* qkv, void* att,
+    void* gelu, void* flags, const int* plan, int n_layers, int S, int d, int Hq,
+    int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
-  return launch_token<PagedRows>(
-      pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down), D,
-      n_layers, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv, lengths, active, tables,
-      stream);
+  Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
+                     D, n_layers, 1, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv, lengths,
+                     nullptr, active, tables, qkv, att, gelu, flags);
+  return launch_coop<PagedRows, false>(a, plan, 1, stream);
 }
 
 // Verify. h_in/h_out [S, L, d] f32, layer-stacked weights, pools
 // [n_layers, NB, bs, Hkv, Dh] bf16 (committed in place), tables [S, MB],
-// prefix_lens / suffix_lens / active [S] int32.
+// prefix_lens / suffix_lens / active [S] int32; scratch as decode_token_slab
+// with S * L rows.
 extern "C" int verify_tokens_paged(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* pk, void* pv, const void* tables,
-    const void* prefix_lens, const void* suffix_lens, const void* active, int n_layers,
-    int S, int L, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB,
-    void* stream) {
+    const void* prefix_lens, const void* suffix_lens, const void* active, void* qkv,
+    void* att, void* gelu, void* flags, const int* plan, int n_layers, int S,
+    int L, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
-  cudaError_t err = check_verify(D, L);
-  if (err != cudaSuccess) return (int)err;
-  const int red = verify_red_floats(D, L);
-  const size_t smem = verify_smem(D, L, red);
-  err = cudaFuncSetAttribute(verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  verify_kernel<<<S, NTHREADS, smem, (cudaStream_t)stream>>>(
-      pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down), D,
-      n_layers, L, red, (size_t)NB * bs * Hkv * Dh, (const float*)h_in, (float*)h_out,
-      (bf16*)pk, (bf16*)pv, (const int*)tables, (const int*)prefix_lens,
-      (const int*)suffix_lens, (const int*)active);
-  return (int)cudaGetLastError();
+  if (L < 1 || MB < 1) return (int)cudaErrorInvalidValue;
+  Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
+                     D, n_layers, L, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv,
+                     prefix_lens, suffix_lens, active, tables, qkv, att, gelu, flags);
+  return launch_coop<PagedRows, true>(a, plan, 2, stream);
 }
 
-// Shared-memory bytes the decode kernels need at these dims (MB = 0: the
-// slab; else C = MB * bs), or 0 when the dims are outside the kernels'
-// envelope (for the wrappers' checks).
+// CTAs a SM holds of cooperative kernel k (0 slab decode, 1 paged decode, 2
+// verify) at `smem` bytes of dynamic shared memory, or -(cudaError_t).
+extern "C" int coop_occupancy(int k, int smem) {
+  if (k < 0 || k > 2 || smem < 0) return -(int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t err = coop_per_sm(k, smem, per_sm);
+  return err != cudaSuccess ? -(int)err : per_sm;
+}
+
+// The constants the launch plan (ops/fused_decode.py) mirrors, and the
+// current device's opt-in shared memory a block: out[0..7] = CT, TILE,
+// MAXT, GMAX, MAXS, RING, MAX_GRID, the limit. Returns a cudaError_t.
+extern "C" int coop_constants(int* out) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int v[8] = {CT, TILE, MAXT, GMAX, MAXS, RING, MAX_GRID, limit};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return (int)err;
+}
+
+#ifdef DECODE_PROBE
+// Phase stamps of the cooperative launches that follow: [grid][NST n + 4]
+// u64 (see stamp()), or null to stop.
+extern "C" void coop_set_stamps(void* stamps) { g_stamps = (unsigned long long*)stamps; }
+
+// `steps` grid barriers of the cooperative kernels over `grid` CTAs of
+// `smem` bytes of shared memory, on the flags of the decode kernels.
+extern "C" int coop_barrier_probe(int grid, int smem, int steps, void* flags, void* stream) {
+  const void* k = (const void*)barrier_probe_kernel;
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  unsigned* f = (unsigned*)flags;
+  void* args[] = {&f, &steps};
+  err = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(CT), args, smem,
+                                    (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+#endif
+
+// Shared-memory bytes the per-layer kernel needs at these dims (MB = 0: the
+// slab; else C = MB * bs), or 0 when the dims are outside its envelope (for
+// the wrappers' checks).
 extern "C" long long decode_smem_bytes(int S, int d, int Hq, int Hkv, int Dh,
                                        int F, int C, int MB) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, MB ? C / MB : 0, MB};
   if (check_dims(D) != cudaSuccess) return 0;
   return (long long)smem_bytes(D, red_floats_for(D));
-}
-
-// The same for the verify kernel at L rows per slot.
-extern "C" long long verify_smem_bytes(int L, int d, int Hq, int Hkv, int Dh, int F,
-                                       int bs, int MB) {
-  Dims D{1, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
-  if (check_verify(D, L) != cudaSuccess) return 0;
-  return (long long)verify_smem(D, L, verify_red_floats(D, L));
 }

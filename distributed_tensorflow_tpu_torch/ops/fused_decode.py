@@ -11,12 +11,18 @@ caches, slab and paged:
   ``csrc/fused_decode.cu`` replaces ``_fused_decode_kernel`` (:181).
 - :func:`decode_token_slab` (JAX :1007) and :func:`decode_token_paged`
   (:1046) — every layer in one launch, the commit done in the kernel for
-  active rows only. Kernel ``decode_token_kernel`` replaces
+  active rows only. Kernel ``coop_step_kernel<Rows, false>`` replaces
   ``_mega_decode_kernel`` (:618).
 - :func:`verify_tokens_paged` (JAX :1305) — the speculation verify: L
   draft rows per slot through every layer in one launch over the paged
-  pool, committing the real rows in the kernel. Kernel ``verify_kernel``
-  replaces ``_verify_kernel`` (:1083).
+  pool, committing the real rows in the kernel. Kernel
+  ``coop_step_kernel<PagedRows, true>`` replaces ``_verify_kernel``
+  (:1083).
+
+The last two are one cooperative launch over the whole card
+(:func:`coop_plan` lays it out: the grid, the tiles of each product, the
+scratch between phases and the shared memory); each weight element is read
+once a launch.
 
 The plain decode versions follow the JAX package's XLA engine
 (``models/gpt.py`` ``_decode_block_slots`` / ``_decode_block_paged`` and
@@ -45,6 +51,7 @@ layer's tensors for the per-layer functions, layer-stacked ones (leading
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -65,7 +72,7 @@ WEIGHT_NAMES = (
 )
 # The projections, stored in the compute dtype; the rest stay f32.
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
-# Most draft rows per slot the verify kernel takes (LMAX in the source).
+# Most draft rows per slot the verify kernel takes.
 VERIFY_MAX_ROWS = 8
 _rope = rope  # the wrappers' keyword `rope` shadows the function inside them
 
@@ -229,6 +236,222 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
     return h
 
 
+# -- the cooperative kernels' launch plan -------------------------------------
+
+# Mirrors of csrc/fused_decode.cu, so that the plan can be made without a
+# card: threads of a CTA, columns of a weight tile, most tiles of one
+# product a CTA takes, query rows a P·V pass accumulates, most x slots,
+# 16-byte slots of a thread's K/V ring, most CTAs of a grid (the grid
+# barrier's flags). :func:`launch_plan` holds them against the library's
+# ``coop_constants`` before the first launch.
+COOP_THREADS = 384
+TILE = 8
+MAX_TILES = 4
+PV_ROWS = 5
+MAX_SLOTS = 4
+RING = 8
+MAX_GRID = 1024
+COOP_WARPS = COOP_THREADS // 32
+# The cooperative kernels' numbers in the C interface (``coop_occupancy``).
+COOP_KERNELS = {"decode_token_slab": 0, "decode_token_paged": 1, "verify_tokens_paged": 2}
+# Grid syncs a layer: after LN1 + q/k/v, attention, the output projection,
+# LN2 + up, and the down projection (none after the last layer's).
+PHASES = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class Product:
+    """One of a layer's four products, ``y = x @ W`` with W [k, n]: its
+    column tiles of ``TILE``, the most a CTA takes, the k-groups its warps
+    split K into (within a CTA; partial sums added in k-group order), and
+    the chunks of ``d`` columns in which x is staged from global scratch (0:
+    x is the CTA's own layernormed rows)."""
+
+    name: str
+    k: int
+    n: int
+    tiles: int
+    tiles_per_cta: int
+    k_groups: int
+    chunks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CoopPlan:
+    """The launch of ``coop_step_kernel``: ``grid`` CTAs (SMs x
+    ``occupancy``), ``rows`` = S x R residual rows in ``m_tiles`` MMA tiles
+    of 16, the four products, ``tasks`` attention tasks (slot, KV head),
+    ``syncs`` grid syncs a launch, the global ``scratch`` between phases
+    (name -> (shape, dtype)) and the shared-memory ``layout`` (byte
+    offsets; ``slots`` x slots of ``slot`` bytes from x0) of ``smem``
+    bytes."""
+
+    grid: int
+    occupancy: int
+    rows: int
+    m_tiles: int
+    products: tuple[Product, ...]
+    tasks: int
+    syncs: int
+    scratch: dict
+    layout: dict
+    smem: int
+
+    def ints(self) -> list[int]:
+        """The eleven ints the C interface takes (``struct Plan``)."""
+        lay = self.layout
+        return [self.grid, self.products[0].k, lay["w0"], lay["w1"], lay["ln"], lay["x0"],
+                lay["slot"], lay["slots"], lay["red"], lay["bar"], self.smem]
+
+
+def _up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
+              smem_limit) -> CoopPlan:
+    """Lay out one cooperative launch of the whole-model step (``r`` = 1)
+    or the verify (``r`` = L rows a slot) over ``s`` slots of a cache of
+    extent ``c`` (``mb`` table entries a slot when paged, else 0), on a card
+    of ``nsm`` SMs holding ``occupancy`` CTAs each and ``smem_limit`` bytes
+    of shared memory a CTA. This is the one derivation of the layout: the
+    launcher checks only that its offsets are in order and in bounds.
+    Raises ``ValueError`` with every reason when the shapes are outside the
+    kernel's envelope."""
+    rows = s * r
+    why = []
+    if hkv < 1 or hq % hkv:
+        why.append(f"query heads ({hq}) a multiple of the KV heads ({hkv})")
+    if dh not in (64, 128):
+        why.append(f"head_dim 64 or 128 (got {dh})")
+    if d != hq * dh:
+        why.append(f"model_dim ({d}) = heads x head_dim ({hq} x {dh})")
+    if d % 16 or d > 1024:
+        why.append(f"model_dim a multiple of 16 and at most 1024 (got {d})")
+    if f % 16:
+        why.append(f"ffn width a multiple of 16 (got {f})")
+    if not 1 <= r <= VERIFY_MAX_ROWS:
+        why.append(f"1 to {VERIFY_MAX_ROWS} rows a slot (got {r})")
+    if not 1 <= rows <= 64:
+        why.append(f"1 to 64 rows in all, slots x rows a slot (got {s} x {r})")
+    if n_layers < 1:
+        why.append("at least one layer")
+    if mb and c % mb:
+        why.append(f"a cache extent ({c}) of whole blocks ({mb} a slot)")
+    grid = nsm * occupancy
+    if not 1 <= grid <= MAX_GRID:
+        why.append(f"a grid of 1 to {MAX_GRID} CTAs (got {nsm} SMs x {occupancy})")
+    if why:
+        raise ValueError("the cooperative decode kernels do not take these shapes: they "
+                         "need " + "; ".join(why))
+    mt = -(-rows // 16)
+    kg = COOP_WARPS // (4 if mt > 2 else mt)
+    qw, kvw = hq * dh, hkv * dh
+    products = tuple(
+        Product(name, k, n, n // TILE, -(-(n // TILE) // grid), kg, chunks)
+        for name, k, n, chunks in (("qkv", d, qw + 2 * kvw, 0), ("out", qw, d, 1),
+                                   ("up", d, f, 0), ("down", f, d, -(-f // d))))
+    busy = [p for p in products if p.tiles_per_cta > MAX_TILES]
+    wbytes = max(p.tiles_per_cta * p.k * 16 for p in products)
+    red = max(p.tiles_per_cta * kg * mt * 128 * 4 for p in products)
+    slot = rows * (d + 8) * 2
+    gr = hq // hkv * r
+    # The attention task's scratch: floats, the table row, then each
+    # thread's ring of RING 16-byte slots for streaming K and V.
+    attn = _up(4 * (gr * dh + 2 * r * dh + gr * (c + r) + 2 * COOP_WARPS * gr
+                    + COOP_WARPS * PV_ROWS * dh) + 4 * mb, 16) + RING * COOP_THREADS * 16
+
+    def lay(slots):
+        # ln: the two layernorms' scales and biases, [4][d] f32.
+        out = {"w0": 0, "w1": wbytes, "ln": 2 * wbytes, "x0": _up(2 * wbytes + 16 * d, 128),
+               "slot": slot, "slots": slots}
+        out["red"] = out["x0"] + _up(max(slots * slot, attn), 16)
+        out["bar"] = _up(out["red"] + red, 16)
+        return out, out["bar"] + 8 * slots
+
+    # As many slots as gelu(up) has chunks of d columns (at most MAX_SLOTS),
+    # fewer where shared memory runs out: the chunks' copies are in flight
+    # together.
+    slots = min(MAX_SLOTS, max(p.chunks for p in products))
+    layout, smem = lay(slots)
+    while smem > smem_limit and slots > 1:
+        slots -= 1
+        layout, smem = lay(slots)
+    if busy or smem > smem_limit:
+        raise ValueError(
+            "the cooperative decode kernels do not take these shapes: "
+            + "; ".join([f"{p.name} needs {p.tiles_per_cta} column tiles a CTA on a grid "
+                         f"of {grid} (at most {MAX_TILES})" for p in busy]
+                        + [f"{smem} bytes of shared memory a CTA (at most {smem_limit}): "
+                           f"weights 2 x {wbytes}, x slots {slots} x {slot}, the attention "
+                           f"task's {gr} score rows over {c + r} keys {attn}, partial sums "
+                           f"{red}"]
+                        * (smem > smem_limit)))
+    scratch = {"qkv": ((rows, qw + 2 * kvw), torch.float32), "att": ((rows, qw), torch.bfloat16),
+               "gelu": ((rows, f), torch.bfloat16)}
+    return CoopPlan(grid, occupancy, rows, mt, products, s * hkv, PHASES * n_layers - 1,
+                    scratch, layout, smem)
+
+
+_PLANS: dict = {}
+_LIMITS: dict = {}
+# The library the cooperative wrappers launch: the probe build
+# (``fused_decode_probe``, with phase stamps) shares this interface.
+LIBRARY = "fused_decode"
+
+
+def coop_constants(device) -> dict:
+    """The library's constants on ``device`` (``coop_constants``): the
+    mirrored ones by name and ``smem_limit``, the card's opt-in shared
+    memory a block. Raises when a mirror differs from the library."""
+    device = torch.device(device)
+    got = _LIMITS.get(device.index)
+    if got is None:
+        lib = _build.load("fused_decode")
+        lib.coop_constants.argtypes = [_PTR]
+        lib.coop_constants.restype = _INT
+        out = (ctypes.c_int * 8)()
+        with torch.cuda.device(device):
+            _build.check(lib.coop_constants(out), "coop_constants")
+        names = ("COOP_THREADS", "TILE", "MAX_TILES", "PV_ROWS", "MAX_SLOTS", "RING",
+                 "MAX_GRID", "smem_limit")
+        got = dict(zip(names, out))
+        wrong = [f"{nm} {globals()[nm]} (library {v})" for nm, v in got.items()
+                 if nm != "smem_limit" and globals()[nm] != v]
+        if wrong:
+            raise RuntimeError("ops/fused_decode.py's mirrors of csrc/fused_decode.cu differ: "
+                               + ", ".join(wrong))
+        _LIMITS[device.index] = got
+    return got
+
+
+def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device) -> CoopPlan:
+    """:func:`coop_plan` on ``device``: its SM count and opt-in shared
+    memory, and the occupancy the kernel reaches at the plan's shared
+    memory (read once a shape)."""
+    device = torch.device(device)
+    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        nsm = torch.cuda.get_device_properties(device).multi_processor_count
+        limit = coop_constants(device)["smem_limit"]
+        shape = (s, r, n_layers, d, hq, hkv, dh, f, c, mb)
+        plan = coop_plan(*shape, nsm, 1, limit)
+        lib = _build.load("fused_decode")
+        lib.coop_occupancy.argtypes = [_INT, _INT]
+        lib.coop_occupancy.restype = _INT
+        occ = lib.coop_occupancy(COOP_KERNELS[kernel], plan.smem)
+        if occ < 0:
+            _build.check(-occ, f"{kernel} occupancy")
+        if occ < 1:
+            raise RuntimeError(f"{kernel}: a CTA of {plan.smem} bytes of shared memory does "
+                               "not fit on one SM")
+        if occ > 1:
+            plan = coop_plan(*shape, nsm, occ, limit)
+        _PLANS[key] = plan
+    return plan
+
+
 # -- the CUDA kernels --------------------------------------------------------
 
 _PTR = ctypes.c_void_p
@@ -250,10 +473,10 @@ def _check_kernel_dtypes(rope_on, compute_dtype, cache_dtype):
 
 
 def _kernel_args(h, weights, ck, cv, num_heads, rope_on, compute_dtype, tables=None):
-    """Validate and lay out the decode kernels' inputs (a slab cache, or a
+    """Validate and lay out the per-layer kernel's inputs (a slab cache, or a
     pool with its ``tables``); returns (h, weight tensors, dims
     (S, d, Hq, Hkv, Dh, F, C), lib). Raises for anything outside the
-    kernels' envelope."""
+    kernel's envelope."""
     _check_kernel_dtypes(rope_on, compute_dtype, ck.dtype)
     if not (ck.is_contiguous() and cv.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
@@ -315,6 +538,55 @@ def _cpu_only(h):
         raise ValueError(f"decode runs on cuda or cpu, got {h.device}")
 
 
+# The grid barrier's flags of each (device, stream): MAX_GRID words, one a
+# CTA, and the epoch the last launch ended at, all kept by the kernels
+# (csrc/fused_decode.cu grid_sync). Launches on one stream run one at a
+# time, so each stream has its own.
+_BARRIERS: dict = {}
+
+
+def barrier_flags(device):
+    """The address of the grid barrier's flags for launches on ``device``'s
+    current stream (zeroed when first made)."""
+    device = torch.device(device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    flags = _BARRIERS.get(key)
+    if flags is None:
+        flags = _BARRIERS[key] = torch.zeros(MAX_GRID + 1, dtype=torch.int32, device=device)
+    return flags.data_ptr()
+
+
+def _coop_launch(kernel, h, weights, pool_k, pool_v, tables, r, num_heads, rope_on,
+                 compute_dtype, ptrs, tail):
+    """Validate and launch ``kernel`` over the layer-stacked cache or pool.
+    The C interface takes h_in, h_out, the weights, ``ptrs`` (caches and
+    the [S] int32 rows), the scratch, the barrier's flags, the plan, the
+    model dims (n_layers, S[, L], d, Hq, Hkv, Dh, F) and ``tail``
+    (C, or NB, bs, MB). Returns h_out."""
+    _check_kernel_dtypes(rope_on, compute_dtype, pool_k.dtype)
+    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+        raise ValueError("the KV cache must be contiguous")
+    s, d = h.shape[0], h.shape[-1]
+    n, hkv, dh = pool_k.shape[0], pool_k.shape[-2], pool_k.shape[-1]
+    mb = 0 if tables is None else tables.shape[1]
+    c = pool_k.shape[-3] * (mb or 1)  # slab length, or the tables' extent
+    f = weights["w_up"].shape[-1]
+    plan = launch_plan(kernel, s, r, n, d, num_heads, hkv, dh, f, c, mb, h.device)
+    ws = _kernel_weights(weights, h.device)
+    h = h.float().contiguous()
+    out = torch.empty_like(h)
+    scratch = [torch.empty(shape, dtype=dt, device=h.device)
+               for shape, dt in plan.scratch.values()]
+    flags = barrier_flags(h.device)
+    dims = [n, s, *([r] if kernel == "verify_tokens_paged" else []), d, num_heads, hkv, dh,
+            f, *tail]
+    args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), *ptrs,
+            *(t.data_ptr() for t in scratch), flags]
+    _launch(_build.load(LIBRARY), kernel, [_PTR] * (len(args) + 1) + [_INT] * len(dims) + [_PTR],
+            *args, (ctypes.c_int * 11)(*plan.ints()), *dims, _stream(h))
+    return out
+
+
 def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
                       compute_dtype=torch.bfloat16):
     """One GPT block's single-token step over one layer's slab cache.
@@ -356,13 +628,10 @@ def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
             h, weights, ck, cv, lengths, active, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(h, weights, ck, cv, num_heads, rope, compute_dtype)
-    out = torch.empty_like(h)
     lens, act = _i32(lengths), _i32(active)
-    _launch(lib, "decode_token_slab", _COMMON + [_PTR] * 4 + [_INT] * 8 + [_PTR],
-            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), ck.data_ptr(),
-            cv.data_ptr(), lens.data_ptr(), act.data_ptr(), ck.shape[0], *dims,
-            _stream(h))
+    out = _coop_launch("decode_token_slab", h, weights, ck, cv, None, 1, num_heads, rope,
+                       compute_dtype, [ck.data_ptr(), cv.data_ptr(), lens.data_ptr(),
+                                       act.data_ptr()], [ck.shape[2]])
     return out, ck, cv
 
 
@@ -411,17 +680,11 @@ def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
             h, weights, pool_k, pool_v, tables, lengths, active, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(
-        h, weights, pool_k, pool_v, num_heads, rope, compute_dtype, tables
-    )
-    s, d, hq, hkv, dh, f, _ = dims
-    out = torch.empty_like(h)
     lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
-    n, nb, bs = pool_k.shape[:3]
-    _launch(lib, "decode_token_paged", _COMMON + [_PTR] * 5 + [_INT] * 10 + [_PTR],
-            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
-            pool_v.data_ptr(), lens.data_ptr(), act.data_ptr(), tabs.data_ptr(), n, s,
-            d, hq, hkv, dh, f, nb, bs, tabs.shape[1], _stream(h))
+    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, tabs, 1, num_heads,
+                       rope, compute_dtype,
+                       [pool_k.data_ptr(), pool_v.data_ptr(), lens.data_ptr(),
+                        act.data_ptr(), tabs.data_ptr()], [*pool_k.shape[1:3], tabs.shape[1]])
     return out, pool_k, pool_v
 
 
@@ -445,31 +708,10 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
             h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens, active,
             num_heads=num_heads, rope=rope, compute_dtype=compute_dtype,
         )
-    _check_kernel_dtypes(rope, compute_dtype, pool_k.dtype)
-    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
-        raise ValueError("the KV pool must be contiguous")
-    s, l, d = h.shape
-    n, nb, bs, hkv, dh = pool_k.shape
-    f = weights["w_up"].shape[-1]
     tabs = _i32(tables)
-    lib = _build.load("fused_decode")
-    lib.verify_smem_bytes.argtypes = [_INT] * 8
-    lib.verify_smem_bytes.restype = ctypes.c_longlong
-    geo = (l, d, num_heads, hkv, dh, f, bs, tabs.shape[1])
-    if lib.verify_smem_bytes(*geo) <= 0:
-        raise ValueError(
-            f"the verify kernel does not take (L, d, Hq, Hkv, Dh, F, bs, MB)={geo}: "
-            f"it needs 1 <= L <= {VERIFY_MAX_ROWS}, head_dim 64 or 128, at most 8 "
-            "query heads per KV head, widths divisible by 8, and L score rows "
-            "over the tables' extent in 227 KB of shared memory"
-        )
-    ws = _kernel_weights(weights, h.device)
-    h = h.float().contiguous()
-    out = torch.empty_like(h)
     plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
-    _launch(lib, "verify_tokens_paged", _COMMON + [_PTR] * 6 + [_INT] * 11 + [_PTR],
-            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
-            pool_v.data_ptr(), tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(),
-            act.data_ptr(), n, s, l, d, num_heads, hkv, dh, f, nb, bs, tabs.shape[1],
-            _stream(h))
-    return out
+    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, tabs, h.shape[1],
+                        num_heads, rope, compute_dtype,
+                        [pool_k.data_ptr(), pool_v.data_ptr(), tabs.data_ptr(),
+                         plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
+                        [*pool_k.shape[1:3], tabs.shape[1]])

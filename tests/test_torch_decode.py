@@ -303,3 +303,233 @@ def test_paged_kernels_match_plain_on_gpu(hq, hkv, dh, bs):
     free = ~_writable(tables.cpu(), plens, slens, vact, nb, bs).cuda()
     assert torch.equal(pk1[:, free], pk[:, free]) and torch.equal(pv1[:, free], pv[:, free])
     assert not torch.equal(pk1, pk)
+
+
+# -- the cooperative kernels' launch plan (CPU: no card needed) ----------------
+
+GPT_M = dict(n_layers=8, d=512, hq=8, hkv=8, dh=64, f=2048)
+# An H100's opt-in shared memory a block (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+H100_SMEM = 232448
+
+
+def _plan(s, r, c, mb=0, nsm=132, occupancy=1, n_layers=8, d=512, hq=8, hkv=8, dh=64,
+          f=2048, smem_limit=H100_SMEM):
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    return fd.coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy, smem_limit)
+
+
+def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
+    """What the kernel relies on: every product's tiles spread over the grid
+    with each weight tile fetched once, the regions of shared memory apart
+    and large enough, the scratch of the phases' shapes."""
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    qw, kvw = hq * dh, hkv * dh
+    assert plan.grid == nsm * occupancy and plan.occupancy == occupancy
+    assert plan.rows == s * r and plan.m_tiles == -(-s * r // 16)
+    assert plan.tasks == s * hkv and plan.syncs == 5 * n_layers - 1
+    by = {p.name: p for p in plan.products}
+    for name, k, n in (("qkv", d, qw + 2 * kvw), ("out", qw, d), ("up", d, f), ("down", f, d)):
+        p = by[name]
+        assert (p.k, p.n, p.tiles) == (k, n, n // fd.TILE)
+        assert p.tiles_per_cta == -(-p.tiles // plan.grid) <= fd.MAX_TILES
+        # The k-groups of a CTA's warps: every warp a group, every m-tile a
+        # slot of each group.
+        assert p.k_groups * (4 if plan.m_tiles > 2 else plan.m_tiles) == fd.COOP_WARPS
+    assert by["down"].chunks == -(-f // d) and by["qkv"].chunks == by["up"].chunks == 0
+    lay = plan.layout
+    wbytes = max(p.tiles_per_cta * p.k * 16 for p in plan.products)
+    red = max(p.tiles_per_cta * p.k_groups * plan.m_tiles * 128 * 4 for p in plan.products)
+    slot = s * r * (d + 8) * 2
+    g_r = hq // hkv * r
+    scores = 4 * g_r * (c + r)
+    ring = fd.RING * fd.COOP_THREADS * 16
+    assert lay["w0"] == 0 and lay["w1"] >= wbytes and lay["ln"] - lay["w1"] >= wbytes
+    assert lay["x0"] - lay["ln"] >= 16 * d and lay["x0"] % 128 == 0
+    assert lay["slot"] == slot and slot % 16 == 0 and 1 <= lay["slots"] <= fd.MAX_SLOTS
+    region = lay["red"] - lay["x0"]
+    assert region >= lay["slots"] * slot and region >= scores + ring
+    assert lay["bar"] - lay["red"] >= red and lay["bar"] % 8 == 0
+    assert plan.smem == lay["bar"] + 8 * lay["slots"] <= H100_SMEM
+    assert len(plan.ints()) == 11 and plan.ints()[1] == d
+    assert {k: v[0] for k, v in plan.scratch.items()} == {
+        "qkv": (s * r, qw + 2 * kvw), "att": (s * r, qw), "gelu": (s * r, f)}
+
+
+@pytest.mark.parametrize("s,r,c,mb",
+                         [(8, 1, 1024, 0), (8, 1, 1024, 64), (8, 5, 1024, 64), (8, 8, 1024, 64)])
+def test_coop_plan_at_gpt_m(s, r, c, mb):
+    """gpt-m (8 layers, d 512, 8 x 64, F 2048), 8 slots: the decode step
+    slab and paged, the verify at L = 5 and 8, on 132 SMs."""
+    plan = _plan(s, r, c, mb)
+    _check_plan(plan, s, r, c, mb, nsm=132, occupancy=1, **GPT_M)
+    assert plan.grid == 132 and plan.syncs == 39
+    assert [p.tiles_per_cta for p in plan.products] == [2, 1, 2, 1]
+    assert [p.tiles for p in plan.products] == [192, 64, 256, 64]
+    # B6 stages gelu(up)'s 4 chunks of d columns at once; the verify's
+    # 40 and 64 rows leave room for 3 and 2 slots.
+    assert plan.layout["slots"] == {1: 4, 5: 3, 8: 2}[r]
+
+
+@pytest.mark.parametrize("s,r,c,mb,hq,hkv,dh,nsm,occ", [
+    (3, 1, 64, 0, 4, 2, 64, 132, 1),    # GQA, 3 rows (not a multiple of 8)
+    (3, 1, 64, 8, 2, 1, 128, 132, 1),   # head_dim 128, paged
+    (3, 1, 64, 8, 2, 2, 64, 66, 2),     # a verify of one row, 2 CTAs a SM
+    (3, 8, 64, 8, 4, 1, 64, 132, 1),    # a verify of 8 rows, GQA 4:1
+    (5, 3, 128, 16, 2, 2, 128, 114, 1),  # 15 rows, another card's SM count
+])
+def test_coop_plan_small_shapes(s, r, c, mb, hq, hkv, dh, nsm, occ):
+    d = hq * dh
+    dims = dict(n_layers=2, d=d, hq=hq, hkv=hkv, dh=dh, f=4 * d)
+    plan = _plan(s, r, c, mb, nsm=nsm, occupancy=occ, **dims)
+    _check_plan(plan, s, r, c, mb, nsm=nsm, occupancy=occ, **dims)
+    assert plan.syncs == 9 and plan.tasks == s * hkv
+
+
+@pytest.mark.parametrize("kw,reason", [
+    (dict(dh=32, hq=16), "head_dim 64 or 128"),
+    (dict(r=9), "1 to 8 rows a slot"),
+    (dict(s=9, r=8), "1 to 64 rows in all"),
+    (dict(d=640), r"model_dim \(640\) = heads x head_dim"),
+    (dict(d=1280, hq=20), "at most 1024"),
+    (dict(f=2040), "ffn width a multiple of 16"),
+    (dict(hq=8, hkv=3), "a multiple of the KV heads"),
+    (dict(nsm=20), "column tiles a CTA on a grid of 20"),
+    (dict(s=8, r=8, hkv=1), "bytes of shared memory a CTA"),
+    (dict(s=8, r=1, smem_limit=101376), r"\(at most 101376\)"),
+    (dict(c=1000, mb=64), "whole blocks"),
+    (dict(n_layers=0), "at least one layer"),
+])
+def test_coop_plan_refuses_with_the_reason(kw, reason):
+    """Shapes outside the cooperative kernels' envelope raise ValueError
+    naming what they need (the card is never asked)."""
+    args = dict(s=8, r=1, c=1024, mb=0, nsm=132, occupancy=1, **GPT_M)
+    args.update(kw)
+    with pytest.raises(ValueError, match=reason):
+        _plan(**args)
+
+
+def _coop_case(g, n, s, c, hq, hkv, dh):
+    """Seeded inputs on the card: weights, a slab cache, residual rows."""
+    w, r = _gpu_weights(g, n, hq, hkv, dh)
+    ck = r(n, s, c, hkv, dh, dt=torch.bfloat16)
+    cv = r(n, s, c, hkv, dh, dt=torch.bfloat16)
+    return w, r, ck, cv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,dh,L", [(4, 2, 64, 5), (2, 1, 128, 5), (2, 2, 64, 1),
+                                         (2, 2, 64, 8)])
+def test_coop_kernels_match_plain_on_gpu(hq, hkv, dh, L):
+    """The cooperative decode step (slab, paged) and verify against their
+    plain versions: GQA, head_dim 128, cache lengths 0, 1 and C - 1 and an
+    inactive slot, verify rows L = 1 and 8, a suffix shorter than L and a
+    prefix of 0; two launches bitwise equal, paged equal to slab bitwise,
+    no pool row outside the writable ones changed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n, s, c, bs = 2, 4, 64, 8
+    d = hq * dh
+    nb = s * (c // bs) + 3
+    w, r, ck, cv = _coop_case(g, n, s, c, hq, hkv, dh)
+    tables = torch.randperm(nb, device="cuda")[: s * (c // bs)].reshape(s, c // bs).int()
+    pk, pv = _pool_from_slab(ck, tables, nb, bs), _pool_from_slab(cv, tables, nb, bs)
+    lengths = torch.tensor([0, 1, c - 1, 20], device="cuda")
+    act = torch.tensor([True, True, True, False], device="cuda")
+    x = r(s, d)
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+
+    def close(a, b, tol=2e-2):
+        return (a.float() - b.float()).abs().max().item() <= tol * max(
+            1.0, b.float().abs().max().item())
+
+    def twice(fn, *caches):
+        """Two launches on copies of the same caches: equal bit for bit."""
+        runs = []
+        for _ in range(2):
+            cs = [t.clone() for t in caches]
+            runs.append((fn(*cs), *cs))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        return runs[0]
+
+    o1, k1, v1 = twice(lambda k, v: fd.decode_token_slab(x, w, k, v, lengths, act, **kw)[0],
+                       ck, cv)
+    k2, v2 = ck.clone(), cv.clone()
+    o2 = fd.decode_token_slab_plain(x, w, k2, v2, lengths, act, **kw)[0]
+    assert close(o1, o2) and close(k1, k2, 5e-2) and close(v1, v2, 5e-2)
+    assert torch.equal(k1[:, 3], ck[:, 3])  # the inactive slot is not written
+
+    op, pk1, pv1 = twice(lambda k, v: fd.decode_token_paged(
+        x, w, k, v, tables, lengths, act, **kw)[0], pk, pv)
+    assert torch.equal(op, o1)  # paged == slab, bit for bit
+    used = tables.long()
+    assert torch.equal(pk1[:, used], _pool_from_slab(k1, tables, nb, bs)[:, used])
+    free = ~_writable(tables.cpu(), lengths, [1] * s, act, nb, bs).cuda()
+    assert torch.equal(pk1[:, free], pk[:, free]) and torch.equal(pv1[:, free], pv[:, free])
+
+    plens = torch.tensor([0, 13, c - L - 1, 5], device="cuda")
+    slens = torch.tensor([L, max(1, L - 2), 1, L], device="cuda")  # suffixes short of L
+    vact = torch.tensor([True, True, True, False], device="cuda")
+    hv = r(s, L, d)
+    ov, pk3, pv3 = twice(lambda k, v: fd.verify_tokens_paged(
+        hv, w, k, v, tables, plens, slens, vact, **kw), pk, pv)
+    pk4, pv4 = pk.clone(), pv.clone()
+    ref = fd.verify_tokens_paged_plain(hv, w, pk4, pv4, tables, plens, slens, vact, **kw)
+    assert close(ov, ref) and close(pk3, pk4, 5e-2) and close(pv3, pv4, 5e-2)
+    free = ~_writable(tables.cpu(), plens, slens, vact, nb, bs).cuda()
+    assert torch.equal(pk3[:, free], pk[:, free]) and torch.equal(pv3[:, free], pv[:, free])
+
+
+@pytest.mark.cuda
+def test_coop_constants_match_the_library_on_gpu():
+    """The plan's mirrors of the kernel's constants are the library's, and
+    the card's opt-in shared memory is what the plan is held to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    got = fd.coop_constants("cuda")
+    assert {k: v for k, v in got.items() if k != "smem_limit"} == dict(
+        COOP_THREADS=fd.COOP_THREADS, TILE=fd.TILE, MAX_TILES=fd.MAX_TILES, PV_ROWS=fd.PV_ROWS,
+        MAX_SLOTS=fd.MAX_SLOTS, RING=fd.RING, MAX_GRID=fd.MAX_GRID)
+    if "H100" in torch.cuda.get_device_name(0):
+        assert got["smem_limit"] == H100_SMEM
+    plan = fd.launch_plan("verify_tokens_paged", 8, 5, 8, 512, 8, 8, 64, 2048, 1024, 64, "cuda")
+    assert plan.smem <= got["smem_limit"]
+
+
+@pytest.mark.cuda
+def test_coop_kernel_replays_from_a_cuda_graph_on_gpu():
+    """The grid barrier keeps its epochs on the device: a decode step
+    captured in a CUDA graph and replayed three times gives the eager
+    launch's result bit for bit each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n, s, c, hq, hkv, dh = 2, 4, 64, 4, 2, 64
+    w, r, ck, cv = _coop_case(g, n, s, c, hq, hkv, dh)
+    lengths = torch.tensor([0, 1, c - 1, 20], device="cuda", dtype=torch.int32)
+    act = torch.tensor([1, 1, 1, 0], device="cuda", dtype=torch.int32)
+    x = r(s, hq * dh)
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the stream's flags exist before the capture
+        want = fd.decode_token_slab(x, w, ck.clone(), cv.clone(), lengths, act, **kw)[0]
+        k, v = ck.clone(), cv.clone()
+        fd.decode_token_slab(x, w, k, v, lengths, act, **kw)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fd.decode_token_slab(x, w, k, v, lengths, act, **kw)[0]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
