@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--root DIR] [--label NAME]
 
 Phases, each of which must pass (nothing is caught; any failure exits
 non-zero):
@@ -26,11 +27,14 @@ non-zero):
    ``torch.profiler`` (CUDA activity only): the device's time over the
    unprofiled wall time is its busy share a step;
 5. serve the greedy requests again on the per-layer kernel
-   (``decode_engine="fused-layer"``), compare the streams, and compare
-   logits over an 8-step greedy decode: megakernel vs per-layer kernel vs
-   the plain version on the card (where a pick differs from the
-   megakernel's, the megakernel's top-2 gap must be a near-tie, and the
-   engine continues from the megakernel's token);
+   (``decode_engine="fused-layer"``), compare the streams, split its decode
+   step between host and device as phase 4 does, and compare logits over
+   an 8-step greedy decode: megakernel vs per-layer kernel vs the plain
+   version on the card (where a pick differs from the megakernel's, the
+   megakernel's top-2 gap must be a near-tie, and the engine continues
+   from the megakernel's token); 5(b) the same 8-step comparison at
+   gpt-xl width (d=2048, 16 heads of 128, 4 layers) on the per-layer and
+   whole-model kernels against the plain decode;
 6. a small model on the card against the same model's plain version on
    the CPU, logits within tolerance;
 7. the MLP kernels against their plain versions at the reference
@@ -73,7 +77,9 @@ non-zero):
     causal) and at small shapes covering bf16, D=128, ``kv_lens``, GQA, a
     nonzero lse cotangent and a ragged last tile; the fused kernel against
     the pair; each timed beside its bound, the plain backward and, as a
-    yardstick, the backward of ``scaled_dot_product_attention``;
+    yardstick, the backward of ``scaled_dot_product_attention``; then the
+    pair at the gpt-xl-L1024 attention shapes (B=16, L=1024, 16 heads of
+    128);
 12. train gpt-m-L1024-flash (bf16, batch 16, Adam 1e-3) through
     ``LMTrainer.run()``: (a) 3 epochs of 64 steps on a Markov corpus of
     1024-token sequences over 512 tokens, after the same batch's full-model gradients with
@@ -82,7 +88,10 @@ non-zero):
     and end below the training split's unigram perplexity; (b) the copy
     task at d=128 (2 heads of 64) through the fused backward and again with
     the dq-partial cap at 0 (the dq + dk/dv pair), each to the oracle of
-    ``tests/test_lm_trainer.py``.
+    ``tests/test_lm_trainer.py``; (c) 12 steps of gpt-xl-L1024-flash-remat
+    (batch 16, Adam 1e-3, bf16), whose backward must be the dq + dk/dv pair
+    (4 launches each a step, the fused one never), the cost finite and
+    falling.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -95,13 +104,28 @@ its update and its committed rows, within limits that plain versions with
 the suffix's causal block masked wrongly fail. It prints each cooperative
 kernel's grid (CTAs, occupancy), grid syncs a launch and the time of a
 sync at that grid on their own flag barrier, the decode wrapper's host
-time, and a launch of the decode step and of the verify split by phase
-(``coop_split``; both from the probe build ``fused_decode_probe``, clock
-stamps).
+time, and a launch of the decode step, of the verify and of the per-layer
+step at gpt-xl width split by phase (``coop_split``; from the probe build
+``fused_decode_probe``, clock stamps). It holds one step through the
+per-layer kernel layer by layer, with the commits, equal to one megakernel
+launch bit for bit (slab and paged), and the per-layer kernel at gpt-xl
+width against its plain version. Every kernel's ``ms`` is a call from
+Python, as the path pays it; the per-layer kernel's launch replayed from a
+CUDA graph is printed beside it (``graph_ms``: the device's share).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
+
+``--kernel-times`` runs no phase: it times the decode kernels (B5 slab
+and paged at gpt-m and at gpt-xl width, B6 slab and paged and B7 over 8
+gpt-m layers) and the dq kernel (B4b at the gpt-m and gpt-xl-L1024
+training shapes) through their public wrappers, a call from Python each
+as above, and prints one JSON line with the card's name and power limit.
+``--root DIR`` takes the package from another checkout (an unpacked
+``git archive`` of an earlier commit has the same wrappers), so two
+commits are compared with one definition of each time: run both, in
+turns, in one run on one card.
 """
 
 from __future__ import annotations
@@ -109,6 +133,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -127,9 +152,11 @@ PEAK_TF32 = 495e12
 PEAK_SPLIT_TF32 = PEAK_TF32 / 3
 PEAK_F32 = 67e12
 # The kernels that run on the tensor cores: their builds must show MMA
-# instructions (phase 2). coop_step_kernel: the whole-model decode step (B6,
-# slab and paged) and the verify (B7).
-TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd": ("kv_kernel",),
+# instructions (phase 2). coop_step_kernel: the per-layer decode step (B5),
+# the whole-model step (B6), slab and paged, and the verify (B7); q_kernel:
+# dq alone (B4b).
+TENSOR_CORE_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+                       "flash_bwd": ("kv_kernel", "q_kernel"),
                        "fused_decode": ("coop_step_kernel",)}
 # Builds (sources and probe modules) whose named kernels must not spill
 # registers (phase 2): the tensor-core kernels (the cooperative decode
@@ -141,6 +168,12 @@ SERVE_CFG = dict(
     vocab_size=8192, model_dim=512, num_layers=8, num_heads=8, max_len=1024,
     attention_impl="flash", flash_min_len=0,
 )
+# gpt-xl-L1024-flash-remat (distributed_tensorflow_tpu/tools/lm_bench.py
+# :111-117, vocab 8192 at :126): d=2048, 4 layers, 16 heads of 128, F=8192.
+# Its widths are the only fused decode wider than d=1024 (phases 3 and 5)
+# and its attention backward takes the dq + dk/dv pair (phases 11, 12(c)).
+XL_CFG = dict(vocab_size=8192, model_dim=2048, num_layers=4, num_heads=16, max_len=1024,
+              attention_impl="flash")
 PROMPT_LENS = (12, 30, 60, 100, 200, 300, 450, 600, 800, 900, 25, 700)
 MAX_NEW = 96
 
@@ -192,6 +225,7 @@ TRAIN_CFG = dict(epochs=3, batch_size=16, optimizer="adam", learning_rate=1e-3,
 TRAIN_CORPUS = dict(num=1536, seq_len=1024, vocab=512, concentration=0.05, n_val=256,
                     n_test=256, seed=0)
 TRAIN_EVAL_BATCH = 32
+XL_TRAIN_STEPS = 12  # phase 12(c)
 COPY_CFG = dict(vocab_size=61, max_len=16, model_dim=128, num_heads=2, num_layers=2,
                 attention_impl="flash", flash_min_len=0)
 COPY_CORPUS = dict(num=768, half_len=8, vocab=61, n_val=128, n_test=128, seed=0)
@@ -223,8 +257,8 @@ SOURCES = {
 PATHS = {"decode_block_slab": "fused-layer", "fused_mlp_step": "mlp-step",
          "fused_mlp_epoch": "mlp-train", "decode_token_paged": "paged",
          "verify_tokens_paged": "paged-spec", "decode_block_paged": "paged-fused-layer",
-         "flash_bwd_fused": "lm-train", "flash_bwd_dq": "lm-train-split",
-         "flash_bwd_dkv": "lm-train-split"}
+         "flash_bwd_fused": "lm-train", "flash_bwd_dq": "lm-train-xl",
+         "flash_bwd_dkv": "lm-train-xl"}
 BLOCK = 16  # the paged pool's block size (phases 3 and 10)
 # Verify at short prefixes (phase 3), per slot: prefix 0 and prefixes under
 # one block, suffix lengths 1..5; held by the update and the committed rows
@@ -252,6 +286,35 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def graph_ms(fn, iters=20, reps=5) -> float:
+    """Mean device time of ``fn``'s launches: ``iters`` calls captured in
+    one CUDA graph on a side stream (after two eager calls there, so the
+    stream's barrier flags and launch records exist), replayed ``reps``
+    times between CUDA events. Unlike :func:`cuda_ms` this leaves out the
+    host's time a call, which exceeds a short kernel's."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (iters * reps)
 
 
 def host_us(fn, iters=300, warmup=20) -> float:
@@ -382,9 +445,9 @@ def phase_kernels(records):
     err = max((o7 - r7).abs().max().item(), (k7.float() - rk7.float()).abs().max().item(),
               (v7.float() - rv7.float()).abs().max().item())
     check_error("decode_block_slab", err, r7.abs().max().item())
+    call = lambda: fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw)  # noqa: E731
     records["decode_block_slab"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw)),
+        max_abs_err=err, ms=cuda_ms(call), graph_ms=graph_ms(call),
         plain_ms=cuda_ms(lambda: fd.decode_block_slab_plain(h, w0, ck[0], cv[0], lengths, **kw)),
         library_ms=None,
         **bound(wbytes_layer + 2 * kv_elems * 2 + 2 * S * d * 4 + 2 * S * H * Dh * 2,
@@ -407,6 +470,8 @@ def phase_kernels(records):
     del ckp, cvp
     check_repeat("decode_token_slab", (o8, ck8, cv8), lambda k, v: fd.decode_token_slab(
         h, w, k, v, lengths, active, **kw)[0], ck, cv)
+    check_layer_by_layer("decode_block_slab", (o8, ck8, cv8), h, w, ck, cv, None, lengths,
+                         active, kw)
     records["decode_token_slab"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fd.decode_token_slab(h, w, ck8, cv8, lengths, active, **kw)),
@@ -422,9 +487,108 @@ def phase_kernels(records):
     grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, Fw, C, 0, dev).grid
     coop_split("decode_token_slab", lambda: fd.decode_token_slab(
         h, w, ck8, cv8, lengths, active, **kw), n, grid)
+    block_kernels_at_xl(records)
     for name, r in records.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        call = (f" a call from Python ({r['graph_ms']:.4f} ms a launch replayed from a CUDA "
+                f"graph)" if "graph_ms" in r else "")
+        print(f"  {name}: kernel {r['ms']:.4f} ms{call}, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def block_kernels_at_xl(records):
+    """B5 (slab and paged) at gpt-xl width (``XL_CFG``: d=2048, 16 heads of
+    128, F=8192), 8 slots, cache lengths 256..768 of 1024 (paged: blocks of
+    16 under scrambled tables): against the plain version at REL_TOL, then
+    timed beside the plain version and the bound. Stored under each
+    record's ``gpt_xl``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    S, C = 8, 1024
+    d, H, Fw = XL_CFG["model_dim"], XL_CFG["num_heads"], 4 * XL_CFG["model_dim"]
+    Dh = d // H
+
+    def rw(*shape, scale):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    w = {"ln1_scale": 1 + rw(d, scale=0.1), "ln1_bias": rw(d, scale=0.05),
+         "ln2_scale": 1 + rw(d, scale=0.1), "ln2_bias": rw(d, scale=0.05),
+         "b_up": rw(Fw, scale=0.05), "b_down": rw(d, scale=0.05)}
+    for nm, (k, n) in dict(wq=(d, d), wk=(d, d), wv=(d, d), wo=(d, d), w_up=(d, Fw),
+                           w_down=(Fw, d)).items():
+        w[nm] = rw(k, n, scale=k ** -0.5).bfloat16()
+    ck = rw(1, S, C, H, Dh, scale=1.0).bfloat16()
+    cv = rw(1, S, C, H, Dh, scale=1.0).bfloat16()
+    lengths = torch.randint(256, 769, (S,), device=dev, generator=g, dtype=torch.int32)
+    h = rw(S, d, scale=1.0)
+    mb = C // BLOCK
+    tables = torch.randperm(S * mb, device=dev, generator=g).reshape(S, mb).int()
+    pk, pv = pool_from_slab(ck, tables, S * mb)[0], pool_from_slab(cv, tables, S * mb)[0]
+    kw = dict(num_heads=H, compute_dtype=torch.bfloat16)
+    wbytes = sum(t.numel() * t.element_size() for t in w.values())
+    kv_elems = int(lengths.sum().item()) * H * Dh
+    flops = 2 * S * sum(w[nm].numel() for nm in fd.PROJ_NAMES) + 4 * (
+        int(lengths.sum().item()) + S) * H * Dh
+    calls = {
+        "decode_block_slab": (lambda: fd.decode_block_slab(h, w, ck[0], cv[0], lengths, **kw),
+                              lambda: fd.decode_block_slab_plain(h, w, ck[0], cv[0], lengths,
+                                                                 **kw), 0),
+        "decode_block_paged": (lambda: fd.decode_block_paged(h, w, pk, pv, tables, lengths, **kw),
+                               lambda: fd.decode_block_paged_plain(h, w, pk, pv, tables,
+                                                                   lengths, **kw),
+                               4 * tables.numel()),
+    }
+    for name, (call, plain, extra) in calls.items():
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        check_error(name, err, ref[0].abs().max().item())
+        r = dict(max_abs_err=err, ms=cuda_ms(call), graph_ms=graph_ms(call),
+                 plain_ms=cuda_ms(plain, 5),
+                 **bound(wbytes + 2 * kv_elems * 2 + 2 * S * d * 4 + 2 * S * H * Dh * 2 + extra,
+                         flops, PEAK_BF16))
+        records[name]["gpt_xl"] = r
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        print(f"  {name} at gpt-xl width (d={d}, {H}x{Dh}, F={Fw}, S={S}, cache 256-768): "
+              f"kernel {r['ms']:.4f} ms a call from Python ({r['graph_ms']:.4f} ms a launch "
+              f"replayed from a CUDA graph), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {wbytes / 1e6:.1f} MB of weights")
+    p = fd.launch_plan("decode_block_slab", S, 1, 1, d, H, H, Dh, Fw, C, 0, dev)
+    print(f"  decode_block_slab at gpt-xl width: grid {p.grid}, weight ring {p.layout['wslots']} x "
+          f"{p.layout['wslot']} bytes, chunk rows {[q.k_rows for q in p.products]}, tiles a CTA "
+          f"{[(q.tiles_per_cta, q.tile_cols) for q in p.products]} (count, columns), "
+          f"{p.smem} bytes of shared memory")
+    coop_split("decode_block_slab at gpt-xl width", calls["decode_block_slab"][0], 1, p.grid)
+
+
+def check_layer_by_layer(name, mega, h, w, k0, v0, tables, lengths, active, kw):
+    """One step through the per-layer kernel (B5) layer by layer, each
+    layer's fresh rows committed as the model commits them, equal to the
+    megakernel's ``mega`` = (h_out, k, v) bit for bit (h_out and every
+    committed row): the two run the same cooperative body, whose sums'
+    order depends only on the rows and K."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    k, v = k0.clone(), v0.clone()
+    for i in range(k.shape[0]):
+        wi = {k_: t[i] for k_, t in w.items()}
+        if tables is None:
+            h, kq, vq = fd.decode_block_slab(h, wi, k[i], v[i], lengths, **kw)
+            fd.commit_slot_rows(k[i], v[i], kq, vq, lengths, active)
+        else:
+            h, kq, vq = fd.decode_block_paged(h, wi, k[i], v[i], tables, lengths, **kw)
+            fd.commit_paged_rows(k[i], v[i], kq, vq, tables, lengths, active)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip((h, k, v), mega)]
+    if not all(same):
+        err = (h - mega[0]).abs().max().item()
+        raise AssertionError(f"{name} layer by layer differs from the megakernel: h_out, k, v "
+                             f"equal {same}, h_out err {err}")
+    print(f"  {name} layer by layer with the commits == the megakernel bitwise (h_out and "
+          f"the committed rows of {k.shape[0]} layers)")
 
 
 def check_repeat(name, first, launch, k0, v0):
@@ -465,11 +629,11 @@ def coop_barrier_us(grid, smem, steps=500):
 
 # The cooperative kernels' stamp points a layer (csrc/fused_decode.cu NST):
 # each phase's points, first and last its start and end.
-COOP_POINTS = {"(a) LN1 + q/k/v": ("start", "LN1", "weights in", "q/k/v"),
+COOP_POINTS = {"(a) LN1 + q/k/v": ("start", "LN1", "ready", "q/k/v"),
                "(b) attention": ("start", "inputs", "scores", "softmax", "P.V"),
-               "(c) output proj.": ("start", "weights in", "product"),
-               "(d) LN2 + up": ("start", "LN2", "weights in", "up"),
-               "(e) down": ("start", "weights in", "down")}
+               "(c) output proj.": ("start", "x staged", "product"),
+               "(d) LN2 + up": ("start", "LN2", "ready", "up"),
+               "(e) down": ("start", "x staged", "down")}
 
 
 def coop_split(label, call, n_layers, grid):
@@ -615,9 +779,9 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
     if not torch.equal(o, o7):
         raise AssertionError("decode_block_paged differs from decode_block_slab bitwise")
     print("  decode_block_paged == decode_block_slab bitwise on the same logical cache")
+    call = lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)  # noqa: E731
     records["decode_block_paged"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)),
+        max_abs_err=err, ms=cuda_ms(call), graph_ms=graph_ms(call),
         plain_ms=cuda_ms(lambda: fd.decode_block_paged_plain(
             h, w0, pk[0], pv[0], tables, lengths, **kw)),
         library_ms=None,
@@ -647,6 +811,10 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
     print("  decode_token_paged == decode_token_slab bitwise (h_out and committed rows)")
     check_repeat("decode_token_paged", (o, pk8, pv8), lambda k, v: fd.decode_token_paged(
         h, w, k, v, tables, lengths, active, **kw)[0], pk, pv)
+    check_layer_by_layer("decode_block_paged", (o, pk8, pv8), h, w, pk, pv, tables, lengths,
+                         active, kw)
+    host = host_us(lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw))
+    print(f"  decode_block_paged: host time of a call {host:.1f} us")
     check_untouched("decode_token_paged", (pk8, pv8), (pk, pv),
                     writable_rows(tables, lengths, [1] * S, active, nb))
     records["decode_token_paged"] = dict(
@@ -931,10 +1099,10 @@ def profile_decode(srv, prompts, configs):
 
 
 def phase_fused_layer(records, model, params, prompts, configs, outs):
-    """The per-layer kernel path, and an 8-step greedy logits comparison."""
+    """The per-layer kernel path (its decode step split between host and
+    device as phase 4's), and an 8-step greedy logits comparison."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import _build
-    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
     from distributed_tensorflow_tpu_torch.serve import TextServer
 
     greedy = [i for i, c in enumerate(configs) if c.greedy]
@@ -950,18 +1118,28 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
     tm = srv.timing
     print(f"  decode {1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms per step "
           f"({tm['decode_steps']} steps, {tm['decode_tokens']} tokens)")
-    same =sum(int((a == b).sum()) for a, b in zip(outs2, (outs[i] for i in greedy)))
+    same = sum(int((a == b).sum()) for a, b in zip(outs2, (outs[i] for i in greedy)))
     total = sum(len(a) for a in outs2)
     print(f"  greedy streams, megakernel vs per-layer kernel: {same}/{total} tokens agree")
+    profile_decode(srv, prompts[:8], configs[:8])
 
     # 8-step greedy decode from one prefilled cache: megakernel, per-layer
     # kernel and the plain version on the card, each fed its own argmax.
-    # Where an engine's pick differs from the megakernel's, the
-    # megakernel's margin of its pick over the engine's must be below the
-    # two engines' logit disagreement in that row at that step (what can
-    # flip it), and the engine continues from the megakernel's token, so
-    # every step's logits are compared on the same inputs.
-    sp = srv.params
+    greedy_steps("gpt-m", model, srv.params, prompts, "fused", ("fused-layer", "plain"))
+
+
+def greedy_steps(label, model, sp, prompts, ref_engine, engines, steps=8):
+    """``steps`` greedy decode steps of 8 slots from one prefilled cache on
+    each engine ("fused", "fused-layer", or "plain": the plain decode on
+    the card), each fed its own argmax. Where an engine's pick differs from
+    the reference engine's, the reference's margin of its pick over the
+    engine's must be below the two engines' logit disagreement in that row
+    at that step (what can flip it), and the engine continues from the
+    reference's token, so every step's logits are compared on the same
+    inputs; the logits must agree within 0.25 of their largest magnitude."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
     S = 8
     toks = np.zeros((S, 128), np.int32)
     lens = np.array([min(len(prompts[i]), 128) for i in range(S)], np.int32)
@@ -987,7 +1165,7 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
         tok = logits0.argmax(-1).int()
         act = torch.ones(S, dtype=torch.bool, device=dev)
         lg, tk, ties = [], [], []
-        for i in range(8):
+        for i in range(steps):
             if eng == "plain":
                 logits, cache = plain_step(tok, cache, act)
             else:
@@ -1003,23 +1181,42 @@ def phase_fused_layer(records, model, params, prompts, configs, outs):
                     ties.append((gap, diff[r].item()))
                     if not gap < diff[r].item():
                         raise AssertionError(
-                            f"{eng} picks another token than the megakernel at step {i}, "
-                            f"slot {r}, where the margin {gap} >= their logit "
+                            f"{label}: {eng} picks another token than {ref_engine} at step "
+                            f"{i}, slot {r}, where the margin {gap} >= their logit "
                             f"disagreement {diff[r].item()}")
                 tok = ref[1][i].clone()
         return torch.stack(lg), torch.stack(tk), ties
 
-    ref_l, ref_t, _ = run("fused")
-    for eng in ("fused-layer", "plain"):
+    ref_l, ref_t, _ = run(ref_engine)
+    for eng in engines:
         lgs, tks, ties = run(eng, (ref_l, ref_t))
         err = (lgs - ref_l).abs().max().item()
         agree = (tks == ref_t).float().mean().item()
-        print(f"  decode-mega-vs-{eng}: max logit err {err:.3e}, "
-              f"token agreement {agree:.4f} over 8 greedy steps x {S} slots; near-ties "
-              f"continued from the megakernel's token: {len(ties)} (margin / row's logit "
+        print(f"  {label} decode-{ref_engine}-vs-{eng}: max logit err {err:.3e}, "
+              f"token agreement {agree:.4f} over {steps} greedy steps x {S} slots; near-ties "
+              f"continued from the {ref_engine} token: {len(ties)} (margin / row's logit "
               f"disagreement: {', '.join(f'{x:.3e} / {y:.3e}' for x, y in ties) or '-'})")
-        if err > 0.25 * max(1.0, ref_l.abs().max().item()):
-            raise AssertionError(f"megakernel logits disagree with {eng}: {err}")
+        if not (torch.isfinite(lgs).all() and err <= 0.25 * max(1.0, ref_l.abs().max().item())):
+            raise AssertionError(f"{label}: {ref_engine} logits disagree with {eng}: {err}")
+
+
+def phase_fused_layer_xl(prompts):
+    """The per-layer engine at gpt-xl width (``XL_CFG``, 4 layers, seeded
+    random weights, bf16): 8 greedy steps through ``decode_engine=
+    "fused-layer"`` (B5) and the megakernel (B6) against the plain decode
+    on the card, under phase 5's rule; B5 must launch 4 times a step."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    model = GPTLM(**XL_CFG, flash_min_len=0, compute_dtype=torch.bfloat16)
+    sp = model.serving_params(perturbed_params(model, 7, "cuda"))
+    _build.reset_launches()
+    greedy_steps("gpt-xl", model, sp, prompts, "plain", ("fused-layer", "fused"))
+    n = _build.LAUNCHES["decode_block_slab"]
+    print(f"  gpt-xl launches: {dict((k, v) for k, v in _build.LAUNCHES.items() if v)}")
+    if n != 8 * model.num_layers:
+        raise AssertionError(f"gpt-xl fused-layer: decode_block_slab launched {n} times")
 
 
 def phase_small_reference():
@@ -1814,13 +2011,51 @@ def phase_bwd_kernels(records):
         records[name] = dict(
             max_abs_err=errs[name], ms=cuda_ms(fn), plain_ms=plain_ms,
             library_ms=lib_ms if name == "flash_bwd_fused" else None,
-            # B4b (dq alone) still runs on the CUDA cores.
-            **(bound(*work, PEAK_F32) if name == "flash_bwd_dq" else split_tf32_bound(*work)),
+            **split_tf32_bound(*work),
         )
         r = records[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r.get('bound_peak', 'f32 CUDA cores, 67 TFLOP/s')}; "
+              f"{r['bound_peak']}; {bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 "
+              f"CUDA cores)")
+    dq_at_xl(records, g)
+
+
+def dq_at_xl(records, g):
+    """B4b (and B4c beside it) at the gpt-xl-L1024 attention shapes (B=16,
+    L=1024, 16 heads of 128, f32, causal): against the plain backward at
+    REL_TOL before timing, then timed."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, l, h, d = 16, XL_CFG["max_len"], XL_CFG["num_heads"], XL_CFG["model_dim"] // XL_CFG["num_heads"]
+    q, k, v, do, o, lse, delta, _ = bwd_inputs(b, l, h, h, d, torch.float32, False, False, g, dev)
+    print(f"  gpt-xl-L1024 attention shapes (B={b} L={l} H={h} D={d} f32 causal), the split "
+          f"pair by resolve_fused: {not fa.resolve_fused(None, b * h, l, d)}:")
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    errs = {"flash_bwd_dq": check_bwd("dq vs plain", (dq, None, None), ref, REL_TOL["flash_bwd_dq"]),
+            "flash_bwd_dkv": check_bwd("dkv vs plain", (None, dk, dv), ref,
+                                       REL_TOL["flash_bwd_dkv"])}
+    del ref, dq, dk, dv
+    plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True), 3, 1)
+    pairs = b * h * l * (l + 1) // 2
+    io, rows = 4 * q.numel(), 4 * lse.numel()
+    for name, fn, nfl, nb in (
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True), 3,
+             5 * io + 2 * rows),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True), 4,
+             6 * io + 2 * rows)):
+        work = (nb, 2 * d * pairs * nfl)
+        r = dict(max_abs_err=errs[name], ms=cuda_ms(fn, 10), plain_ms=plain_ms,
+                 **split_tf32_bound(*work))
+        records[name]["gpt_xl"] = r
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], errs[name])
+        print(f"  {name} at gpt-xl-L1024: kernel {r['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_peak']}; "
               f"{bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 CUDA cores)")
 
 
@@ -1963,6 +2198,62 @@ def phase_copy_task(records):
     print(f"  oracle met on both; fused vs split perplexities within {gap:.2e} (relative)")
 
 
+def phase_train_xl(records):
+    """(c) gpt-xl-L1024-flash-remat (``XL_CFG``, remat, bf16) trained for a
+    few steps through ``LMTrainer.run()``: batch 16, ``adam(1e-3)``, phase
+    12(a)'s corpus at 1024 tokens. Its dq partials (2.1 GB) exceed the
+    fused backward's cap, so each layer's backward is B4b + B4c: each must
+    launch 4 times a step, B4a never; the loss must be finite and fall."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    batch, steps = 16, XL_TRAIN_STEPS
+    model = GPTLM(**XL_CFG, remat=True, compute_dtype=torch.bfloat16)
+    d, h, n = model.model_dim, model.num_heads, model.num_layers
+    if fa.resolve_fused(None, batch * h, XL_CFG["max_len"], d // h):
+        raise AssertionError("gpt-xl-L1024: resolve_fused took the fused backward")
+    ds = markov_corpus(**{**TRAIN_CORPUS, "num": batch * steps + 64, "n_val": 32,
+                          "n_test": 32})
+    lines = []
+    tr = LMTrainer(model, ds, TrainConfig(epochs=1, batch_size=batch, optimizer="adam",
+                                          learning_rate=1e-3, log_frequency=1),
+                   eval_batch=8, print_fn=lines.append)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    print(f"  launches: {launches}")
+    want = n * tr.global_step
+    if (tr.global_step != steps or launches.get("flash_bwd_dq") != want
+            or launches.get("flash_bwd_dkv") != want or "flash_bwd_fused" in launches):
+        raise AssertionError(f"gpt-xl training: {tr.global_step} steps, launches {launches}; "
+                             f"want B4b and B4c {n} a step and no B4a")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        records[name]["launches"] = launches[name]
+    costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in lines
+             if ln.startswith("Step:")]
+    ms = [float(ln.split("AvgTime:")[1].rstrip("ms")) for ln in lines if ln.startswith("Step:")]
+    print(f"  {steps} steps of {batch} x {XL_CFG['max_len']} tokens: cost "
+          f"{', '.join(f'{c:.4f}' for c in costs)}; ms a step (from step 3) "
+          f"{np.mean(ms[2:]):.2f} ({', '.join(f'{m:.1f}' for m in ms)}); "
+          f"{batch * XL_CFG['max_len'] / np.mean(ms[2:]) * 1e3:.1f} tokens/s; run {wall:.2f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    attn = n * (records["flash_bwd_dq"]["gpt_xl"]["ms"] + records["flash_bwd_dkv"]["gpt_xl"]["ms"])
+    print(f"  B4b + B4c (phase 11 times at these shapes, {n} layers): {attn:.2f} ms a step, "
+          f"{100 * attn / np.mean(ms[2:]):.1f}% of it")
+    k = max(1, len(costs) // 4)
+    if not (np.isfinite(costs).all() and np.mean(costs[-k:]) < np.mean(costs[:k])):
+        raise AssertionError(f"gpt-xl training: the loss is not finite and falling: {costs}")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -1995,7 +2286,85 @@ def phase_build():
             check_hmma(src, TENSOR_CORE_KERNELS[src])
 
 
+def kernel_times(label, smi):
+    """``--kernel-times``: B5, B6, B7 and B4b through their wrappers (ms a
+    call, :func:`cuda_ms`) on seeded inputs: the decode kernels at S=8
+    slots, cache lengths 256-768 in a cache of 1024 (paged: blocks of 16
+    under scrambled tables), B7 at L=5; B4b at B=16, L=1024, f32,
+    causal."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    s, c, mb = 8, 1024, 1024 // BLOCK
+    ms = {}
+
+    def rw(*shape, scale):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    for name, d, hq, f, nl in (("gpt-m", 512, 8, 2048, 8), ("gpt-xl", 2048, 16, 8192, 1)):
+        dh = d // hq
+        w = {"ln1_scale": 1 + rw(nl, d, scale=0.1), "ln1_bias": rw(nl, d, scale=0.05),
+             "ln2_scale": 1 + rw(nl, d, scale=0.1), "ln2_bias": rw(nl, d, scale=0.05),
+             "b_up": rw(nl, f, scale=0.05), "b_down": rw(nl, d, scale=0.05)}
+        for nm, (k, n) in dict(wq=(d, d), wk=(d, d), wv=(d, d), wo=(d, d), w_up=(d, f),
+                               w_down=(f, d)).items():
+            w[nm] = rw(nl, k, n, scale=k ** -0.5).bfloat16()
+        ck, cv = (rw(nl, s, c, hq, dh, scale=1.0).bfloat16() for _ in range(2))
+        lengths = torch.randint(256, 769, (s,), device=dev, generator=g, dtype=torch.int32)
+        h = rw(s, d, scale=1.0)
+        tables = torch.randperm(s * mb, device=dev, generator=g).reshape(s, mb).int()
+        pk = torch.empty(nl, s * mb, BLOCK, hq, dh, device=dev, dtype=torch.bfloat16)
+        pv = torch.empty_like(pk)
+        for i in range(s):
+            pk[:, tables[i].long()] = ck[:, i].reshape(nl, mb, BLOCK, hq, dh)
+            pv[:, tables[i].long()] = cv[:, i].reshape(nl, mb, BLOCK, hq, dh)
+        w0 = {k: t[0] for k, t in w.items()}
+        kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+        ms[f"decode_block_slab {name}"] = cuda_ms(
+            lambda: fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw))
+        ms[f"decode_block_paged {name}"] = cuda_ms(
+            lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw))
+        if nl > 1:
+            active = torch.ones(s, dtype=torch.bool, device=dev)
+            plens = lengths + (lengths % BLOCK == 0).int()
+            slens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 2], device=dev, dtype=torch.int32)
+            hv = rw(s, 5, d, scale=1.0)
+            ms[f"decode_token_slab {name} {nl} layers"] = cuda_ms(
+                lambda: fd.decode_token_slab(h, w, ck, cv, lengths, active, **kw))
+            ms[f"decode_token_paged {name} {nl} layers"] = cuda_ms(
+                lambda: fd.decode_token_paged(h, w, pk, pv, tables, lengths, active, **kw))
+            ms[f"verify_tokens_paged {name} {nl} layers L=5"] = cuda_ms(
+                lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
+                                               **kw))
+        del w, w0, ck, cv, pk, pv
+    for name, hq, dh in (("gpt-m B=16 L=1024 8x64", 8, 64),
+                         ("gpt-xl B=16 L=1024 16x128", 16, 128)):
+        q, k, v, do, _, lse, delta, _ = bwd_inputs(16, 1024, hq, hq, dh, torch.float32, False,
+                                                   False, g, dev)
+        ms[f"flash_bwd_dq {name}"] = cuda_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True), 10)
+        del q, k, v, do, lse, delta
+    print(json.dumps({"label": label, "card": smi, "ms": ms}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time B5/B6/B7/B4b through their wrappers (no phase runs)")
+    ap.add_argument("--root", help="with --kernel-times: the checkout whose package to time")
+    ap.add_argument("--label", default="", help="with --kernel-times: a name for the line")
+    args = ap.parse_args()
+    if args.root:
+        if not args.kernel_times:
+            ap.error("--root goes with --kernel-times")
+        sys.path.insert(0, os.path.abspath(args.root))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2012,6 +2381,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}")
+    if args.kernel_times:
+        return kernel_times(args.label or os.path.abspath(args.root or "."), smi)
 
     t0 = time.perf_counter()
     print("phase 2: build")
@@ -2024,6 +2395,8 @@ def main() -> int:
     model, params, prompts, configs, outs = phase_serve(records)
     print("phase 5: per-layer kernel path")
     phase_fused_layer(records, model, params, prompts, configs, outs)
+    print("phase 5(b): the per-layer kernel path at gpt-xl width")
+    phase_fused_layer_xl(prompts)
     print("phase 6: small-input reference")
     phase_small_reference()
     print("phase 7: MLP kernels vs plain versions")
@@ -2046,6 +2419,8 @@ def main() -> int:
     phase_train(records)
     print("phase 12(b): the copy task through the backward kernels")
     phase_copy_task(records)
+    print("phase 12(c): train gpt-xl-L1024-flash-remat through LMTrainer (the split backward)")
+    phase_train_xl(records)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -2058,6 +2433,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "path": PATHS.get(kname, "main"),
             **({"bound_peak": r["bound_peak"]} if "bound_peak" in r else {}),
+            **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {}),
         })
     print(f"power: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -26,8 +26,8 @@
 // kv kernels run them as split-TF32 on the tensor cores (three TF32 MMAs
 // per f32 product, flash_mma.cuh): at 495/3 = 165 TFLOP/s that is 0.261 ms
 // fused and 0.208 ms dk/dv, while the ~236 MB of inputs and outputs take
-// 0.07 ms at 3.35 TB/s: operations bind. (At the CUDA cores' 67 TFLOP/s of
-// f32 the bounds are 0.642 / 0.385 / 0.513 ms; q_kernel still runs there.)
+// 0.07 ms at 3.35 TB/s: operations bind; dq's 25.8 GFLOP take 0.156 ms. (At
+// the CUDA cores' 67 TFLOP/s of f32 the bounds are 0.642 / 0.385 / 0.513 ms.)
 //
 // Design of the kv kernels (B4a, B4c). The TPU kernels walk a sequential
 // grid and carry dk/dv (or dq) in VMEM scratch across the innermost axis.
@@ -57,11 +57,20 @@
 //   exactly the slices the kv CTAs wrote (the same skip predicate), so
 //   nothing is zeroed and the result is deterministic, as on the TPU; no
 //   atomics.
-// q_kernel (B4b) is the first, CUDA-core design: one CTA of 256 threads
-// per (batch, query head, 64-query tile) loops over the k-tiles up to the
-// diagonal with dq in registers; each thread owns a 4 x (D/16) tile of
-// the [64 x D] products, tiles sit in shared memory as f32 with rows
-// padded by one, loaded synchronously.
+//
+// Design of q_kernel (B4b), flash_fwd.cu's structure: one CTA per (batch,
+// query head, q-tile of 64 rows at D=64, 128 at D=128), 16 query rows a
+// warp, the heaviest q-tiles launched first (the q-tile is the grid's
+// slowest axis). Q and dO are copied once into padded shared memory by
+// cp.async; K and V tiles of 32 keys are double-buffered, tile i+1 loading
+// while tile i multiplies. S = Q K^T and dP = dO V^T run as mma.sync
+// m16n8k8 on TF32 operands (split-TF32 for f32, one exact pass for bf16);
+// p and ds are formed in the accumulator registers and are the A fragment
+// of dQ += dS K as they stand (K's rows as k, load_b_cols), so they never
+// reach shared memory. dq stays in registers; each k-tile's share is summed
+// in fresh accumulators and added to dq in f32. A warp skips k-tiles wholly
+// above its rows; k-tiles past kv_lens are not visited. No atomics: two
+// launches agree bit for bit.
 
 #include <type_traits>
 
@@ -73,157 +82,6 @@ __device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 constexpr int BK = 64;  // keys per tile (every kernel); the dq partials come one per k-tile
-
-// ---------------------------------------------------------------------------
-// q_kernel: dq alone, on the CUDA cores.
-// ---------------------------------------------------------------------------
-
-namespace qk {
-
-using flash::rnd;
-using flash::to_f;
-
-constexpr int BQ = 64;      // query rows per tile
-constexpr int NT = 256;     // threads per CTA
-constexpr int PP = BK + 1;  // padded row stride of the ds tile
-
-// Rows r0.. r0+63 of head h of a [B, L, H, D] tensor into a [64][D+1] f32
-// tile; rows past L read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int b,
-                                          int r0, int h, int L, int H) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    int rr = i / D, dd = i % D;
-    int p = r0 + rr;
-    dst[rr * (D + 1) + dd] = p < L ? to_f(src[((size_t)(b * L + p) * H + h) * D + dd]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[tr+16i][d] * B[tc+16j][d] over two [64][D+1] tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot_t(float (&acc)[4][4], const float* A, const float* B,
-                                           int tr, int tc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(tr + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[(tc + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bb[j];
-  }
-}
-
-// s = Q K^T and dp = dO V^T on the thread's 4x4 tile, then p and ds into
-// the shared Ps / dSs tiles (rounded to the operand dtype). q0 / k0 are the
-// tiles' first positions.
-template <typename T, int D>
-__device__ __forceinline__ void p_ds_tiles(const float* Qs, const float* Ks, const float* dOs,
-                                           const float* Vs, const float* Ls, const float* Dl,
-                                           float* Ps, float* dSs, int q0, int k0, int L,
-                                           int kvlen, int causal, float scale, int tr, int tc) {
-  float s[4][4], dp[4][4];
-  tile_dot_t<D>(s, Qs, Ks, tr, tc);
-  tile_dot_t<D>(dp, dOs, Vs, tr, tc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r = tr + 16 * i, qp = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = tc + 16 * j, kp = k0 + c;
-      bool ok = qp < L && kp < L && kp < kvlen && (!causal || kp <= qp);
-      float p = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-      float ds = p * (dp[i][j] - Dl[r]) * scale;
-      Ps[r * PP + c] = rnd(p, (T*)nullptr);
-      dSs[r * PP + c] = rnd(ds, (T*)nullptr);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t q_smem_floats() {
-  return 4 * 64 * (D + 1) + BQ * PP + 2 * BQ;
-}
-
-// dq of one (batch, query head, q-tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         const T* __restrict__ dout, const float* __restrict__ lse,
-         const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
-         int L, int Hq, int Hkv, int causal, float scale) {
-  constexpr int DP = D + 1, DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + 64 * DP;
-  float* Ks = dOs + 64 * DP;
-  float* Vs = Ks + 64 * DP;
-  float* dSs = Vs + 64 * DP;
-  float* Ls = dSs + BQ * PP;
-  float* Dl = Ls + BQ;
-
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = iq * BQ;
-  const int hk = h / (Hq / Hkv);
-  const int kvlen = kv_lens ? kv_lens[b] : L;
-
-  load_tile<T, D>(Qs, q, b, q0, h, L, Hq);
-  load_tile<T, D>(dOs, dout, b, q0, h, L, Hq);
-  if (tid < BQ) {
-    int p = q0 + tid;
-    size_t row = (size_t)(b * L + p) * Hq + h;
-    Ls[tid] = p < L ? lse[row] : 0.f;
-    Dl[tid] = p < L ? delta[row] : 0.f;
-  }
-  // Keys at or past kend are masked for every row of the tile.
-  int kend = min(L, kvlen);
-  if (causal) kend = min(kend, q0 + BQ);
-
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous k-tile is consumed (and Q/dO written)
-    load_tile<T, D>(Ks, k, b, k0, hk, L, Hkv);
-    load_tile<T, D>(Vs, v, b, k0, hk, L, Hkv);
-    __syncthreads();
-    // p lands in dSs and is overwritten by ds in the same thread's slots.
-    p_ds_tiles<T, D>(Qs, Ks, dOs, Vs, Ls, Dl, dSs, dSs, q0, k0, L, kvlen, causal, scale, tr, tc);
-    __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float dsr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsr[i] = dSs[(tr + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        float kk = Ks[c * DP + tc + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += dsr[i] * kk;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int qp = q0 + tr + 16 * i;
-    if (qp < L) {
-      size_t row = ((size_t)(b * L + qp) * Hq + h) * D;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) from_f(&dq[row + tc + 16 * j], acc[i][j]);
-    }
-  }
-}
-
-}  // namespace qk
 
 // ---------------------------------------------------------------------------
 // kv_kernel: dk / dv (and with FUSED the dq partials), on the tensor cores.
@@ -495,6 +353,176 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// q_kernel: dq alone, on the tensor cores.
+// ---------------------------------------------------------------------------
+
+// Tiles of q_kernel: query rows a CTA (16 a warp) and keys a K/V tile.
+template <int D>
+struct QTiles {
+  static constexpr int BQ = D == 64 ? 64 : 128;
+  static constexpr int BK = 32;
+  static constexpr int NW = BQ / 16;
+  static constexpr int NT = NW * 32;
+};
+
+// Shared memory of q_kernel: the Q and dO tiles, two buffers each of K and
+// V, then lse and delta.
+template <typename T, int D>
+constexpr size_t q_smem_bytes() {
+  using Q = QTiles<D>;
+  return sizeof(T) * (size_t)(2 * Q::BQ + 4 * Q::BK) * stride<T, D>() +
+         sizeof(float) * 2 * Q::BQ;
+}
+
+// c (+ x) += A B^T over the head dim for the warp's 16 rows of A (a [BQ][SD]
+// tile) against the NJ x 8 rows of B (the [BK][SD] tile Bt).
+template <typename T, int D, int NJ, bool SPLIT>
+__device__ __forceinline__ void row_product(float (&c)[NJ][4], float (&x)[NJ][4], const T* A,
+                                            int wr, const T* Bt, const Lane& ln) {
+  constexpr int SD = stride<T, D>();
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    FragA<SPLIT> a;
+    load_a<SD, SPLIT>(a, A, wr, 8 * kk, ln);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float b0, b1;
+      load_b_rows<SD>(b0, b1, Bt, 8 * j, 8 * kk, ln);
+      mma_b<SPLIT>(c[j], x[j], a, b0, b1);
+    }
+  }
+}
+
+// dq of one (batch, query head, q-tile). Each warp owns 16 query rows; S =
+// Q K^T and dP = dO V^T of a k-tile are computed in registers, p and ds
+// formed there, and ds is the A fragment of dQ += dS K as it stands. Each
+// k-tile's share of dQ is summed in fresh accumulators and added to dq in
+// f32.
+template <typename T, int D>
+__global__ void __launch_bounds__(QTiles<D>::NT)
+q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+         const T* __restrict__ dout, const float* __restrict__ lse,
+         const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
+         int L, int Hq, int Hkv, int causal, float scale) {
+  using Q = QTiles<D>;
+  constexpr int BQ = Q::BQ, BKQ = Q::BK, NT = Q::NT;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NJ = BKQ / 8;  // key column tiles of S and dP
+  constexpr int NN = D / 8;    // dim column tiles of dQ
+  constexpr int SD = stride<T, D>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][SD]
+  T* dOs = Qs + BQ * SD;                   // [BQ][SD]
+  T* Ks = dOs + BQ * SD;                   // [2][BKQ][SD]
+  T* Vs = Ks + 2 * BKQ * SD;               // [2][BKQ][SD]
+  float* Ls = reinterpret_cast<float*>(Vs + 2 * BKQ * SD);  // [BQ]
+  float* Dl = Ls + BQ;                                      // [BQ]
+
+  const int warp = threadIdx.x >> 5;
+  const Lane ln(threadIdx.x & 31);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int q0 = iq * BQ, hk = h / (Hq / Hkv);
+  const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
+  const int kend = causal ? min(klim, q0 + BQ) : klim;
+  const int ntile = (kend + BKQ - 1) / BKQ;
+
+  load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, h, L, Hq);
+  load_rows_async<T, D, BQ, NT>(dOs, dout, b, q0, h, L, Hq);
+  load_vec_async<BQ, NT>(Ls, lse, b, q0, h, L, Hq);
+  load_vec_async<BQ, NT>(Dl, delta, b, q0, h, L, Hq);
+  load_rows_async<T, D, BKQ, NT>(Ks, k, b, 0, hk, L, Hkv);
+  load_rows_async<T, D, BKQ, NT>(Vs, v, b, 0, hk, L, Hkv);
+  cp_async_commit();
+
+  const int wr = 16 * warp;       // the warp's first row in the tile
+  const int r0 = q0 + wr + ln.g;  // this lane's rows r0 and r0 + 8
+  const bool live = q0 + wr < L;  // warp-uniform
+  float acc[NN][4];
+  zero(acc);
+
+  for (int it = 0; it < ntile; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it-1
+    const T* Kt = Ks + (it & 1) * BKQ * SD;
+    const T* Vt = Vs + (it & 1) * BKQ * SD;
+    if (it + 1 < ntile) {
+      const int nb = (it + 1) & 1;
+      load_rows_async<T, D, BKQ, NT>(Ks + nb * BKQ * SD, k, b, (it + 1) * BKQ, hk, L, Hkv);
+      load_rows_async<T, D, BKQ, NT>(Vs + nb * BKQ * SD, v, b, (it + 1) * BKQ, hk, L, Hkv);
+    }
+    cp_async_commit();
+    const int k0 = it * BKQ;
+    if (!live || (causal && k0 > q0 + wr + 15)) continue;  // every p of the warp is 0
+
+    // s[j] / dp[j]: keys k0 + 8j + 2t and + 2t + 1 of rows r0 and r0 + 8.
+    float p[NJ][4];
+    {
+      float x[NJ][4];  // S = Q K^T
+      zero(p);
+      zero(x);
+      row_product<T, D, NJ, SPLIT>(p, x, Qs, wr, Kt, ln);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
+          const int qi = wr + ln.g + ((e >> 1) << 3), row = q0 + qi;
+          const bool ok = row < L && key < klim && (!causal || key <= row);
+          p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Ls[qi]) : 0.f;
+        }
+    }
+    float ds[NJ][4];
+    {
+      float x[NJ][4];  // dP = dO V^T
+      zero(ds);
+      zero(x);
+      row_product<T, D, NJ, SPLIT>(ds, x, dOs, wr, Vt, ln);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = wr + ln.g + ((e >> 1) << 3);
+          ds[j][e] = rnd(p[j][e] * (ds[j][e] + x[j][e] - Dl[qi]) * scale, (const T*)nullptr);
+        }
+    }
+
+    // dQ += dS K: ds[kk] reordered is the A fragment of keys k0 + 8kk ..
+    // + 7 (k-slots t / t+4 = keys 2t / 2t + 1, K's rows by load_b_cols).
+#pragma unroll
+    for (int c0 = 0; c0 < NN; c0 += NC) {
+      float t[NC][4];
+      zero(t);
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        FragA<SPLIT> a;
+        a.set(ds[kk][0], ds[kk][2], ds[kk][1], ds[kk][3]);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          float b0, b1;
+          load_b_cols<SD>(b0, b1, Kt, 8 * kk, 8 * (c0 + n), ln);
+          mma_b<SPLIT>(t[n], t[n], a, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c0 + n][e] += t[n][e];
+    }
+  }
+  cp_async_wait_all();  // no copy may outlive the CTA
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + 8 * hh;
+    if (!live || row >= L) continue;
+    const size_t base = ((size_t)(b * L + row) * Hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) store2(dq + base + 8 * n + 2 * ln.t, acc[n][2 * hh], acc[n][2 * hh + 1]);
+  }
+}
+
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -529,12 +557,13 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
     return cudaGetLastError();
   }
   if (mode == 1) {  // dq alone
-    const size_t smem = sizeof(float) * qk::q_smem_floats<D>();
-    if ((err = set_smem(qk::q_kernel<T, D>, smem)) != cudaSuccess) return err;
-    dim3 grid((L + qk::BQ - 1) / qk::BQ, Hq, B);
-    qk::q_kernel<T, D><<<grid, qk::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                   (const T*)dout, lse, delta, kv_lens, (T*)dq,
-                                                   L, Hq, Hkv, causal, scale);
+    using Q = QTiles<D>;
+    const size_t smem = q_smem_bytes<T, D>();
+    if ((err = set_smem(q_kernel<T, D>, smem)) != cudaSuccess) return err;
+    dim3 grid(Hq, B, (L + Q::BQ - 1) / Q::BQ);
+    q_kernel<T, D><<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+                                             (const T*)dout, lse, delta, kv_lens, (T*)dq, L,
+                                             Hq, Hkv, causal, scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

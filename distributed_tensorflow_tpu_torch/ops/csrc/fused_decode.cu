@@ -1,21 +1,23 @@
-// Fused GPT decode for Hopper (sm_90a), CUDA C++: the per-layer kernel and
-// one cooperative kernel for the whole-model step and the speculation verify,
+// Fused GPT decode for Hopper (sm_90a), CUDA C++: one cooperative kernel
+// for the per-layer step, the whole-model step and the speculation verify,
 // each instantiated for the slab cache and for the paged block pool.
 //
-//   decode_block_kernel  replaces distributed_tensorflow_tpu/ops/pallas_decode.py
-//                        _fused_decode_kernel (B5; per layer; launched by
-//                        _fused_call, public decode_block_slab /
-//                        decode_block_paged). One layer's step per slot; the
-//                        fresh K/V rows go back to the caller, which commits.
-//   coop_step_kernel<Rows, false>  replaces pallas_decode.py _mega_decode_kernel
-//                        (B6, the megakernel; launched by _mega_call, public
-//                        decode_token_slab / decode_token_paged). Every layer
-//                        in one launch, with the fresh-row commit done in the
-//                        kernel.
-//   coop_step_kernel<PagedRows, true>  replaces pallas_decode.py _verify_kernel
-//                        (B7, public verify_tokens_paged): the speculation
-//                        verify, L draft rows per slot through every layer in
-//                        one launch over the paged pool, committed in the kernel.
+//   coop_step_kernel<Rows, false, true>  replaces distributed_tensorflow_tpu/
+//                        ops/pallas_decode.py _fused_decode_kernel (B5; per
+//                        layer; launched by _fused_call, public
+//                        decode_block_slab / decode_block_paged): one layer's
+//                        step; the fresh K/V rows go back to the caller
+//                        (k_fresh / v_fresh), which commits them.
+//   coop_step_kernel<Rows, false, false>  replaces pallas_decode.py
+//                        _mega_decode_kernel (B6, the megakernel; launched by
+//                        _mega_call, public decode_token_slab /
+//                        decode_token_paged). Every layer in one launch, with
+//                        the fresh-row commit done in the kernel.
+//   coop_step_kernel<PagedRows, true, false>  replaces pallas_decode.py
+//                        _verify_kernel (B7, public verify_tokens_paged): the
+//                        speculation verify, L draft rows per slot through
+//                        every layer in one launch over the paged pool,
+//                        committed in the kernel.
 //
 // One slot's step for one layer: LN1 -> q/k/v projections -> fresh K/V rows
 // rounded through the bf16 cache dtype -> attention of the slot's queries over
@@ -37,16 +39,12 @@
 // full prompt blocks, and writes land past the prompt), so in-kernel commits
 // stay disjoint from every read.
 //
-// B5 (decode_block_kernel). The TPU kernels run a sequential grid (layer,
-// slot, kv block) and carry the residual rows in VMEM scratch. Here one CTA
-// owns one slot for the launch and keeps its residual row in shared memory;
-// slots are independent, so no state crosses CTAs. Each CTA reads all of the
-// layer's weights (S CTAs, ~1% of the roofline; the next redesign's).
-//
-// B6 / B7 (coop_step_kernel). Bound: at gpt-m (d=512, 8 layers, F=2048, MHA
-// 8x64) one launch must move ~50 MB of bf16 weights and, at S=8 slots and a
-// mean cache length of 512, ~67 MB of K/V: ~35 us at 3.35 TB/s (bytes; the
-// products, 2 x S*R rows x 25M MACs, are far below the tensor cores' rate).
+// Bound: at gpt-m (d=512, 8 layers, F=2048, MHA 8x64) one B6 launch must
+// move ~50 MB of bf16 weights and, at S=8 slots and a mean cache length of
+// 512, ~67 MB of K/V: ~35 us at 3.35 TB/s (bytes; the products, 2 x S*R rows
+// x 25M MACs, are far below the tensor cores' rate). B5 moves one layer of
+// that (~14 MB, ~4.2 us); at gpt-xl width (d=2048, 16x128, F=8192) a layer
+// holds ~100 MB of weights (~40 us with its K/V).
 // Design: one cooperative launch over the whole card, CT threads a CTA (the
 // grid is the SM count times the occupancy, read at launch;
 // ops/fused_decode.py coop_plan lays it out). Each layer runs five phases
@@ -58,23 +56,40 @@
 //   (b) one task per (slot, KV head): the head group's g x R query rows over
 //       the whole cache row with the exact softmax; it rounds and commits the
 //       fresh K/V rows of its head (attention reads only positions < length,
-//       the commits land at >= length, so no commit races a read);
+//       the commits land at >= length, so no commit races a read), or, for
+//       B5, writes them to k_fresh / v_fresh;
 //   (c) output projection, the owner of a column tile adding the residual;
 //   (d) LN2 of all rows, up projection, bias, GELU, rounded to bf16;
 //   (e) down projection, bias and residual.
-// Products: tiles of 8 output columns over the full K; tile t goes to CTA
-// t mod grid, so each weight element is read once a launch. A CTA's tiles are
-// copied into shared memory (cp.async, 16 bytes a k row) a phase or more
-// ahead into one of two buffers, issued after the loads its own phase waits
-// on; the layernorms' scales and biases ride a group earlier. Activations
+// Products: column tiles of tw = 8 to 64 output columns over the full K
+// (the plan takes for each product the width that gives the busiest CTA
+// the fewest columns, then the widest); tile t goes to CTA t mod grid, so
+// each weight element is read once a launch. A CTA's weights stream
+// through a ring of nw slots in shared memory, in chunks of its tiles x kw
+// rows (the weight stream: every layer's products in order), each chunk a
+// TMA box a tile (rows of tw columns), issued by one warp (a chunk a lane,
+// all at once) and counted by the slot's mbarrier, so no thread stalls on
+// a weight copy. The grid barriers issue them, by a warp that would
+// otherwise wait, one product ahead (issuing them further ahead measured
+// slower); a product whose chunks outnumber the ring's free slots tops it up
+// itself as it frees them. The first phase's chunks are in flight before
+// LN1. One chunk a product where it fits (gpt-m), so a width's weights need
+// not fit in shared memory (gpt-xl: ~760 KB a CTA a layer). Activations
 // that come from another CTA (the attention output, gelu(up)) are staged by
-// the TMA, one bulk copy a row, in chunks of d columns, up to MAXS in flight.
+// the TMA, one bulk copy a row, in chunks of d columns, up to MAXS in
+// flight.
 // The products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
 // f32 sums; the operands are bf16 values, so each product is exact and only
 // the order of the sums changes): warp w takes m-tile w mod cs and the
-// k-steps of k-group w / cs, and the k-groups' partial sums meet in shared
-// memory and are added in k-group order, so the order of every sum depends
-// only on the row count and K.
+// k-steps of k-group w / cs (counted from each x chunk's start), and the
+// k-groups' partial sums meet in shared memory and are added in k-group
+// order, so the order of every sum depends only on the row count and K,
+// never on the grid, the weight chunks or the launch's layer count: a step
+// through B5 layer by layer, with the commits, equals one B6 launch bit for
+// bit. The k-step loop is built for each count of a CTA's 8-column
+// subtiles (chunk_mma), so it carries no per-subtile test or swizzle
+// arithmetic: with 40 rows (the verify) each warp runs three times the
+// k-steps, and that overhead had cost B7 9%.
 // Attention: each thread streams its own 16 bytes of every K (then V) row
 // through a ring of RING cp.async slots in shared memory (RING - 1 chunks in
 // flight and no registers spent on them); the softmax's maxima and sums meet
@@ -86,17 +101,15 @@
 // There are no float atomics: two launches on the same inputs agree bit for
 // bit.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NTHREADS = 512;
-constexpr int NWARPS = NTHREADS / 32;
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_EPS = 1e-5f;
-constexpr size_t SMEM_MAX = 232448;
 
 typedef __nv_bfloat16 bf16;
 
@@ -159,324 +172,38 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   }
 }
 
-__device__ LayerW layer(const LayerW& w0, const Dims& D, int l) {
-  const size_t d = D.d, qw = (size_t)D.Hq * D.Dh, kvw = (size_t)D.Hkv * D.Dh;
-  const size_t F = D.F;
-  LayerW w;
-  w.wq = w0.wq + l * d * qw;
-  w.wk = w0.wk + l * d * kvw;
-  w.wv = w0.wv + l * d * kvw;
-  w.wo = w0.wo + l * qw * d;
-  w.w_up = w0.w_up + l * d * F;
-  w.w_down = w0.w_down + l * F * d;
-  w.ln1_s = w0.ln1_s + l * d;
-  w.ln1_b = w0.ln1_b + l * d;
-  w.ln2_s = w0.ln2_s + l * d;
-  w.ln2_b = w0.ln2_b + l * d;
-  w.b_up = w0.b_up + l * F;
-  w.b_down = w0.b_down + l * d;
-  return w;
-}
+// -- the cooperative kernel ---------------------------------------------------
 
-// -- B5: the per-layer kernel, one CTA a slot -----------------------------------
-
-// Sum over the block; buf holds >= 33 floats. Every thread gets the total.
-__device__ float block_sum(float v, float* buf) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) buf[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    float t = lane < NWARPS ? buf[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) buf[32] = t;
-  }
-  __syncthreads();
-  float r = buf[32];
-  __syncthreads();
-  return r;
-}
-
-// out[i] = bf16r(layernorm(x)[i]) over n entries (the JAX models/base
-// arithmetic: mean, biased variance, rsqrt(var + eps), scale, bias).
-__device__ void layernorm_bf16(const float* x, const float* sc, const float* bi,
-                               float* out, int n, float* buf) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += NTHREADS) s += x[i];
-  const float mu = block_sum(s, buf) / n;
-  float v = 0.f;
-  for (int i = threadIdx.x; i < n; i += NTHREADS) {
-    float c = x[i] - mu;
-    v += c * c;
-  }
-  const float rstd = rsqrtf(block_sum(v, buf) / n + LN_EPS);
-  for (int i = threadIdx.x; i < n; i += NTHREADS)
-    out[i] = bf16r((x[i] - mu) * rstd * sc[i] + bi[i]);
-  __syncthreads();
-}
-
-// Rows of the split-K scratch a matvec of width n uses (host and device).
-__host__ __device__ inline int matvec_ks(int n) {
-  int groups = n / 8;
-  int g = groups < NTHREADS ? groups : NTHREADS;
-  return NTHREADS / g;
-}
-
-// y[n] = sum_k x[k] * W[k, n] (+ bias[n]) for n < N: x is a shared-memory
-// f32 row (already rounded to bf16 values), W bf16 [K, N] in device memory.
-// Each thread owns 8 adjacent columns (one 16-byte load per row k) and a
-// 1/KS slice of the rows; partial sums meet in `red` ([KS, N] floats).
-__device__ void matvec(const float* x, const bf16* __restrict__ W, int K, int N,
-                       const float* __restrict__ bias, float* y, float* red) {
-  const int groups = N / 8;
-  const int G = groups < NTHREADS ? groups : NTHREADS;
-  const int KS = NTHREADS / G;
-  const int tid = threadIdx.x;
-  const int ks = tid / G;
-  if (ks < KS) {
-    for (int cg = tid % G; cg < groups; cg += G) {
-      float acc[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-      const uint4* wp = reinterpret_cast<const uint4*>(W) + cg;
-#pragma unroll 4
-      for (int k = ks; k < K; k += KS) {
-        uint4 raw = __ldg(wp + (size_t)k * groups);
-        const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float xk = x[k];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float2 f = __bfloat1622float2(w2[e]);
-          acc[2 * e] += xk * f.x;
-          acc[2 * e + 1] += xk * f.y;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) red[ks * N + cg * 8 + e] = acc[e];
-    }
-  }
-  __syncthreads();
-  for (int n = tid; n < N; n += NTHREADS) {
-    float s = bias ? bias[n] : 0.f;
-    for (int j = 0; j < KS; ++j) s += red[j * N + n];
-    y[n] = s;
-  }
-  __syncthreads();
-}
-
-// Eight bf16 values at p (16-byte aligned) as floats.
-__device__ __forceinline__ void load8(const bf16* __restrict__ p, float* out) {
-  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), out);
-}
-
-// DPL (2 or 4) bf16 values at p as floats; the rest of out[4] zeroed.
-__device__ __forceinline__ void load_dpl(const bf16* p, int DPL, float* vv) {
-  if (DPL == 2) {
-    float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    vv[0] = f.x; vv[1] = f.y; vv[2] = 0.f; vv[3] = 0.f;
-  } else {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float2 a = __bfloat1622float2(v2[0]), b = __bfloat1622float2(v2[1]);
-    vv[0] = a.x; vv[1] = a.y; vv[2] = b.x; vv[3] = b.y;
-  }
-}
-
-struct Smem {
-  float *h, *hn, *q, *kf, *vf, *att, *up, *tmp, *sc, *red, *buf;
-  int* tab;
-};
-
-__device__ Smem carve(float* base, const Dims& D, int red_floats) {
-  Smem s;
-  s.h = base;
-  s.hn = s.h + D.d;
-  s.q = s.hn + D.d;
-  s.kf = s.q + D.Hq * D.Dh;
-  s.vf = s.kf + D.Hkv * D.Dh;
-  s.att = s.vf + D.Hkv * D.Dh;
-  s.up = s.att + D.Hq * D.Dh;
-  s.tmp = s.up + D.F;
-  s.sc = s.tmp + D.d;
-  s.red = s.sc + D.Hq * (D.C + 1);
-  s.buf = s.red + red_floats;
-  s.tab = reinterpret_cast<int*>(s.buf + 33);
-  return s;
-}
-
-// One layer's step for slot s. ck/cv point at this layer's cache (slab
-// [S, C, Hkv, Dh] or pool [NB, bs, Hkv, Dh], addressed by Rows). Leaves the
-// new residual row in sm.h and the fresh bf16-rounded K/V rows in sm.kf /
-// sm.vf.
-template <class Rows>
-__device__ void layer_step(const LayerW& w, const Dims& D, const bf16* __restrict__ ck,
-                           const bf16* __restrict__ cv, int s, int len,
-                           const Smem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = D.d, Dh = D.Dh, Hq = D.Hq, Hkv = D.Hkv, C = D.C;
-  const int g = Hq / Hkv;
-  const int kvw = Hkv * Dh;
-  const float scale = rsqrtf((float)Dh);
-  const Rows rows_of{};
-
-  layernorm_bf16(sm.h, w.ln1_s, w.ln1_b, sm.hn, d, sm.buf);
-  matvec(sm.hn, w.wq, d, Hq * Dh, nullptr, sm.q, sm.red);
-  matvec(sm.hn, w.wk, d, kvw, nullptr, sm.kf, sm.red);
-  matvec(sm.hn, w.wv, d, kvw, nullptr, sm.vf, sm.red);
-  for (int i = tid; i < kvw; i += NTHREADS) {
-    sm.kf[i] = bf16r(sm.kf[i]);  // the cache's storage-dtype round trip
-    sm.vf[i] = bf16r(sm.vf[i]);
-  }
-  __syncthreads();
-
-  // Scores over the pre-write cache: LPR lanes (8 dims each) per key row.
-  const int LPR = Dh / 8, RPW = 32 / LPR;
-  const int sub = lane % LPR;
-  const int rows = Hkv * len;
-  for (int base = warp * RPW; base < rows; base += NWARPS * RPW) {
-    const int r = base + lane / LPR;
-    const bool ok = r < rows;
-    const int hk = ok ? r / len : 0, j = ok ? r % len : 0;
-    float kv8[8];
-    if (ok) {
-      load8(ck + rows_of(D, sm.tab, s, j) + (size_t)hk * Dh + sub * 8, kv8);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) kv8[e] = 0.f;
-    }
-    for (int gi = 0; gi < g; ++gi) {
-      const float* qh = sm.q + (hk * g + gi) * Dh + sub * 8;
-      float p = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) p += qh[e] * kv8[e];
-      for (int o = LPR / 2; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (ok && sub == 0) sm.sc[(hk * g + gi) * (C + 1) + j] = p * scale;
-    }
-  }
-  // The fresh row's score, at position len.
-  for (int h = warp; h < Hq; h += NWARPS) {
-    const int hk = h / g;
-    float p = 0.f;
-    for (int e = lane; e < Dh; e += 32) p += sm.q[h * Dh + e] * sm.kf[hk * Dh + e];
-    p = warp_sum(p);
-    if (lane == 0) sm.sc[h * (C + 1) + len] = p * scale;
-  }
-  __syncthreads();
-
-  // Exact softmax over [0, len] per head; weights rounded to bf16.
-  for (int h = warp; h < Hq; h += NWARPS) {
-    float* row = sm.sc + h * (C + 1);
-    float m = NEG_INF;
-    for (int j = lane; j <= len; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float z = 0.f;
-    for (int j = lane; j <= len; j += 32) {
-      float e = expf(row[j] - m);
-      row[j] = e;
-      z += e;
-    }
-    z = warp_sum(z);
-    __syncwarp();
-    for (int j = lane; j <= len; j += 32) row[j] = bf16r(row[j] / z);
-  }
-  __syncthreads();
-
-  // P·V: warp task (kv head, slice of positions); lanes own DPL dims.
-  const int DPL = Dh / 32;
-  const int JS = NWARPS / Hkv > 0 ? NWARPS / Hkv : 1;
-  for (int task = warp; task < Hkv * JS; task += NWARPS) {
-    const int hk = task % Hkv, js = task / Hkv;
-    // g <= 8 (checked at launch); static trip counts keep acc in registers.
-    float acc[8][4];
-#pragma unroll
-    for (int gi = 0; gi < 8; ++gi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[gi][e] = 0.f;
-    for (int j = js; j < len; j += JS) {
-      float vv[4];
-      load_dpl(cv + rows_of(D, sm.tab, s, j) + (size_t)hk * Dh + lane * DPL, DPL, vv);
-#pragma unroll
-      for (int gi = 0; gi < 8; ++gi) {
-        if (gi < g) {
-          const float p = sm.sc[(hk * g + gi) * (C + 1) + j];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[gi][e] += p * vv[e];
-        }
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < 8; ++gi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (gi < g && e < DPL)
-          sm.red[(js * Hq + hk * g + gi) * Dh + lane * DPL + e] = acc[gi][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < Hq * Dh; i += NTHREADS) {
-    const int h = i / Dh, e = i % Dh, hk = h / g;
-    float a = sm.sc[h * (C + 1) + len] * sm.vf[hk * Dh + e];
-    for (int js = 0; js < JS; ++js) a += sm.red[(js * Hq + h) * Dh + e];
-    sm.att[i] = bf16r(a);
-  }
-  __syncthreads();
-
-  // Output projection + residual, then LN2 and the FFN + residual.
-  matvec(sm.att, w.wo, Hq * Dh, d, nullptr, sm.tmp, sm.red);
-  for (int i = tid; i < d; i += NTHREADS) sm.h[i] += sm.tmp[i];
-  __syncthreads();
-  layernorm_bf16(sm.h, w.ln2_s, w.ln2_b, sm.hn, d, sm.buf);
-  matvec(sm.hn, w.w_up, d, D.F, w.b_up, sm.up, sm.red);
-  for (int i = tid; i < D.F; i += NTHREADS) sm.up[i] = bf16r(gelu_tanh(sm.up[i]));
-  __syncthreads();
-  matvec(sm.up, w.w_down, D.F, d, w.b_down, sm.tmp, sm.red);
-  for (int i = tid; i < d; i += NTHREADS) sm.h[i] += sm.tmp[i];
-  __syncthreads();
-}
-
-template <class Rows>
-__global__ void __launch_bounds__(NTHREADS)
-decode_block_kernel(LayerW w, Dims D, int red_floats, const float* __restrict__ h_in,
-                    float* __restrict__ h_out, const bf16* __restrict__ ck,
-                    const bf16* __restrict__ cv, const int* __restrict__ lengths,
-                    const int* __restrict__ tables, bf16* __restrict__ k_fresh,
-                    bf16* __restrict__ v_fresh) {
-  extern __shared__ float smem[];
-  const Smem sm = carve(smem, D, red_floats);
-  const int s = blockIdx.x;
-  const int len = min(lengths[s], D.C);
-  for (int i = threadIdx.x; i < D.d; i += NTHREADS) sm.h[i] = h_in[(size_t)s * D.d + i];
-  for (int i = threadIdx.x; i < D.MB; i += NTHREADS) sm.tab[i] = tables[(size_t)s * D.MB + i];
-  __syncthreads();
-  layer_step<Rows>(w, D, ck, cv, s, len, sm);
-  const int kvw = D.Hkv * D.Dh;
-  for (int i = threadIdx.x; i < kvw; i += NTHREADS) {
-    k_fresh[(size_t)s * kvw + i] = __float2bfloat16(sm.kf[i]);
-    v_fresh[(size_t)s * kvw + i] = __float2bfloat16(sm.vf[i]);
-  }
-  for (int i = threadIdx.x; i < D.d; i += NTHREADS) h_out[(size_t)s * D.d + i] = sm.h[i];
-}
-
-// -- B6 / B7: the cooperative kernel --------------------------------------------
-
-constexpr int CT = 384;  // threads of a CTA (B5 keeps NTHREADS)
+constexpr int CT = 384;  // threads of a CTA
 constexpr int CW = CT / 32;
 constexpr int TILE = 8;  // columns of a weight tile: one 16-byte row a k
-constexpr int MAXT = 4;  // most tiles of one product a CTA takes
+constexpr int MAXT = 8;  // most tiles of one product a CTA takes
+constexpr int MAXTM = 8;  // most tiles x m-tiles of one product a CTA takes
+constexpr int NWMAX = 16;  // most slots of the weight ring
 constexpr int GMAX = 5;  // query rows one P·V pass accumulates
 constexpr int MAXS = 4;  // most x slots
 constexpr int RING = 8;  // 16-byte cp.async slots a thread streams K / V through
 constexpr int MAX_GRID = 1024;  // most CTAs (the grid barrier's flags)
 
 // The launch plan (ops/fused_decode.py coop_plan): CTAs, the width in columns
-// of a staged chunk of x (= d), and the shared-memory layout in bytes: two
-// weight buffers; the layernorms' scales and biases [ln1_s, ln1_b, ln2_s,
-// ln2_b][d] f32; nslot x slots from x0, xs bytes apart (the attention's
-// scratch overlays them); the product partial sums; one mbarrier a slot.
+// of a staged chunk of x (= d), the weight ring (nw slots of wslot bytes from
+// offset 0; chunks of kw[product] rows, kw dividing kc, of column tiles of
+// tw[product] = 8, 16, 32 or 64 columns), and the rest of the
+// shared-memory layout in bytes: the next layernorm's scale and bias ([2][d]
+// f32 at ln); nslot x slots from x0, xs bytes apart (the attention's
+// scratch overlays them); the product partial sums at red, the region's
+// end (over the slots' tail where they do not fit beside them); the
+// mbarriers: one an x slot, a full and an empty one a weight slot, one for
+// the layernorm's parameters.
 struct Plan {
-  int grid, kc, w0, w1, ln, x0, xs, nslot, red, bar, smem;
+  int grid, kc, wslot, nw, kw[4], tw[4], ln, x0, xs, nslot, red, bar, smem;
 };
 
 struct Coop {
+  // TMA maps of the projections as 2-D [n_layers * K, N] bf16 (wq, wk, wv,
+  // wo, w_up, w_down), boxes of tw columns x min(kw, 256) rows of the
+  // product's weight chunks; encoded per launch (launch_coop).
+  CUtensorMap maps[6];
   LayerW w0;  // layer-stacked
   Dims D;
   Plan p;
@@ -490,6 +217,7 @@ struct Coop {
   float* qkv;  // [S * R, Hq Dh + 2 Hkv Dh]
   bf16* att;   // [S * R, Hq Dh]
   bf16* gelu;  // [S * R, F]
+  bf16 *k_fresh, *v_fresh;  // [S, Hkv, Dh]: B5's fresh rows (else null)
   // The grid barrier's flags: [MAX_GRID] words, one a CTA, then the epoch
   // the last launch on them ended at (see grid_sync()).
   unsigned* flags;
@@ -500,7 +228,7 @@ struct Coop {
 };
 
 // The cooperative kernels' dynamic shared memory, laid out by the Plan.
-extern __shared__ __align__(128) unsigned char coop_smem[];
+extern __shared__ __align__(1024) unsigned char coop_smem[];
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -515,9 +243,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// All but the most recent cp.async group have landed (this thread's copies).
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -562,6 +289,16 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// One TMA copy of the box of `map` at (column col, row row) into dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Orders this thread's earlier generic-proxy accesses (of shared memory, of
 // global memory) before its later TMA copies.
 __device__ __forceinline__ void fence_async() {
@@ -599,12 +336,17 @@ __device__ __forceinline__ void epoch_out(unsigned* flags, unsigned epoch) {
                  : "memory");
 }
 
-__device__ void grid_sync(unsigned* flags, unsigned epoch, int grid) {
+// `between` runs on every thread after the CTA has posted its epoch and
+// before warp 0 polls: work that need not delay the grid (the weight
+// stream's refills).
+template <class Between>
+__device__ void grid_sync(unsigned* flags, unsigned epoch, int grid, Between between) {
   __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flags + blockIdx.x), "r"(epoch)
+                 : "memory");
+  between();
   if (threadIdx.x < 32) {
-    if (threadIdx.x == 0)
-      asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(flags + blockIdx.x), "r"(epoch)
-                   : "memory");
     for (long long n = 0;; ++n) {
       bool ok = true;
       for (int i = threadIdx.x; i < grid; i += 32) {
@@ -620,6 +362,10 @@ __device__ void grid_sync(unsigned* flags, unsigned epoch, int grid) {
   __syncthreads();
 }
 
+__device__ void grid_sync(unsigned* flags, unsigned epoch, int grid) {
+  grid_sync(flags, epoch, grid, [] {});
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -627,10 +373,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, const void* p) {
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(b0), "=r"(b1)
-               : "r"(smem_u32(p))
+               : "r"(addr)
                : "memory");
 }
 
@@ -665,55 +411,22 @@ __device__ __forceinline__ int my_tiles(int T, int grid) {
   return (int)blockIdx.x < T ? (T - 1 - (int)blockIdx.x) / grid + 1 : 0;
 }
 
-// Row k = 0 of weight column tile t of product `which` at layer l, and the
-// row stride.
-__device__ const bf16* tile_src(const Coop& a, int l, int which, int t, int& ld) {
+// The TMA map of weight column tile t (of tw columns) of product `which` at
+// layer l, and the tile's first column and row in that map.
+__device__ __forceinline__ void tile_map(const Coop& a, int l, int which, int t, int tw, int& m,
+                                         int& col, int& row) {
   const Dims& D = a.D;
-  const size_t d = D.d, qw = (size_t)D.Hq * D.Dh, kvw = (size_t)D.Hkv * D.Dh, F = D.F;
-  size_t c = (size_t)t * TILE;
+  const int qw = D.Hq * D.Dh, kvw = D.Hkv * D.Dh;
+  col = t * tw;
   switch (which) {
     case QKV:
-      if (c < qw) { ld = (int)qw; return a.w0.wq + l * d * qw + c; }
-      c -= qw;
-      ld = (int)kvw;
-      if (c < kvw) return a.w0.wk + l * d * kvw + c;
-      return a.w0.wv + l * d * kvw + (c - kvw);
-    case OUT: ld = (int)d; return a.w0.wo + l * qw * d + c;
-    case UP: ld = (int)F; return a.w0.w_up + l * d * F + c;
-    default: ld = (int)d; return a.w0.w_down + l * F * d + c;
-  }
-}
-
-// cp.async of this CTA's weight tiles of product `which`, layer l, into buf
-// as [tile][K][8]; then commits the group (empty past the last layer), which
-// takes any copies issued since the last commit (fetch_ln's).
-__device__ void fetch_weights(const Coop& a, int l, int which, bf16* buf) {
-  if (l < a.n_layers) {
-    const Prod pd = prod_dims(a.D, which);
-    const int nt = my_tiles(pd.N / TILE, a.p.grid);
-    for (int t = 0; t < nt; ++t) {
-      int ld;
-      const bf16* src = tile_src(a, l, which, (int)blockIdx.x + t * a.p.grid, ld);
-      for (int k = threadIdx.x; k < pd.K; k += CT)
-        cp_async16(buf + ((size_t)t * pd.K + k) * TILE, src + (size_t)k * ld);
-    }
-  }
-  cp_async_commit();
-}
-
-// cp.async of layernorm `which` (1 or 2) of layer l, scale and bias, into
-// the plan's ln region (ln1 at 0, ln2 at 2 d floats), for CTAs that run
-// that layernorm (the q/k/v or up tiles' owners); not committed.
-__device__ void fetch_ln(const Coop& a, int l, int which) {
-  const int d = a.D.d;
-  const int T = which == 1 ? (a.D.Hq + 2 * a.D.Hkv) * a.D.Dh / TILE : a.D.F / TILE;
-  if (l >= a.n_layers || (int)blockIdx.x >= T) return;
-  const float* sc = (which == 1 ? a.w0.ln1_s : a.w0.ln2_s) + (size_t)l * d;
-  const float* bi = (which == 1 ? a.w0.ln1_b : a.w0.ln2_b) + (size_t)l * d;
-  float* dst = reinterpret_cast<float*>(coop_smem + a.p.ln) + (which == 1 ? 0 : 2 * d);
-  for (int i = threadIdx.x; i < d / 4; i += CT) {
-    cp_async16(dst + 4 * i, sc + 4 * i);
-    cp_async16(dst + d + 4 * i, bi + 4 * i);
+      row = l * D.d;
+      m = col < qw ? 0 : col < qw + kvw ? 1 : 2;
+      col -= m == 0 ? 0 : m == 1 ? qw : qw + kvw;
+      return;
+    case OUT: m = 3; row = l * qw; return;
+    case UP: m = 4; row = l * D.d; return;
+    default: m = 5; row = l * D.F; return;
   }
 }
 
@@ -723,9 +436,9 @@ __device__ void fetch_ln(const Coop& a, int l, int which) {
 // NST l + k; STAMP_POINTS below), then %globaltimer and clock64 at the
 // kernel's start and end (NST n .. NST n + 3), the clock's rate.
 constexpr int NST = 19;
-// (a) start, LN1 done, weights landed, end; (b) start, q/k/v and the table
-// loaded, scores done, softmax done, end; (c) start, weights landed, end;
-// (d) start, LN2 done, weights landed, end; (e) start, weights landed, end.
+// (a) start, LN1 done, product ready, end; (b) start, q/k/v and the table
+// loaded, scores done, softmax done, end; (c) start, x staging issued, end;
+// (d) start, LN2 done, product ready, end; (e) start, x staging issued, end.
 enum {
   S_A0, S_A_LN, S_A_W, S_A1, S_B0, S_B_IN, S_B_SC, S_B_SM, S_B1,
   S_C0, S_C_W, S_C1, S_D0, S_D_LN, S_D_W, S_D1, S_E0, S_E_W, S_E1
@@ -784,72 +497,223 @@ __device__ void stage_first(const Plan& p, Ring& x, const bf16* src, int ld, int
     stage(p, x, i, src, ld, rows, i * p.kc, min(p.kc, K - i * p.kc));
 }
 
+// The weight stream: every chunk of every product this CTA multiplies, in
+// the order the kernel consumes them (layer, then q/k/v, output, up, down),
+// chunk j of a product being rows [j kw, (j + 1) kw) of the CTA's tiles;
+// chunk k of the stream is chunk k - l per of layer l = k / per. Chunk k
+// goes to weight slot k % nw as [tile][kw][tw] bf16: one TMA box a tile's
+// tw columns (two or more where kw > 256; rows of 32 to 128 bytes swizzled
+// by the TMA, so that the MMA's B loads stay free of bank conflicts),
+// counted by the slot's full mbarrier, phase k / nw. Every warp arrives on
+// the slot's empty mbarrier once it is done with the chunk, and the chunk
+// that refills the slot waits for that. Every thread keeps the same counts;
+// the CTA's tiles and chunks of each product are counted once.
+struct WStream {
+  int issued, used;   // chunks issued, chunks consumed
+  int per;            // chunks a layer
+  int nt[4], nck[4];  // this CTA's tiles and chunks of each product
+};
+
+__device__ __forceinline__ bf16* wslot_ptr(const Plan& p, int i) {
+  return reinterpret_cast<bf16*>(coop_smem + (size_t)i * p.wslot);
+}
+
+// The full (count 1, with the copies' bytes) and empty (count CW) mbarriers
+// of weight slot i.
+__device__ __forceinline__ uint64_t* wfull_ptr(const Plan& p, int i) {
+  return bar_ptr(p, p.nslot + i);
+}
+__device__ __forceinline__ uint64_t* wempty_ptr(const Plan& p, int i) {
+  return bar_ptr(p, p.nslot + p.nw + i);
+}
+
+// Element `which` of a per-product array (selected, not indexed, so that
+// the array stays in registers or the kernel's parameters).
+__device__ __forceinline__ int pick(const int (&v)[4], int which) {
+  return which == QKV ? v[0] : which == OUT ? v[1] : which == UP ? v[2] : v[3];
+}
+
+__device__ WStream ws_start(const Coop& a) {
+  WStream ws{0, 0, 0, {}, {}};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const Prod pd = prod_dims(a.D, w);
+    const int kw = pick(a.p.kw, w);
+    ws.nt[w] = my_tiles(pd.N / pick(a.p.tw, w), a.p.grid);
+    ws.nck[w] = ws.nt[w] ? (pd.K + kw - 1) / kw : 0;
+  }
+  ws.per = ws.nck[0] + ws.nck[1] + ws.nck[2] + ws.nck[3];
+  return ws;
+}
+
+// Issues the stream's chunks into the free slots, those of products up to
+// product `lp` of layer `ll`, until the ring is full or the stream ends.
+// Called by every thread; lane i of warp `issuer` issues the i-th chunk (and
+// the 32nd after it ...), all at once: it waits until every warp is done
+// with the slot's last chunk, arms the full mbarrier and issues the boxes.
+__device__ void ws_fill(const Coop& a, WStream& ws, int issuer, int ll, int lp) {
+  int end = ll * ws.per + ws.nck[0];
+  if (lp >= OUT) end += ws.nck[1];
+  if (lp >= UP) end += ws.nck[2];
+  if (lp >= DOWN) end += ws.nck[3];
+  end = min(min(end, a.n_layers * ws.per), ws.used + a.p.nw);
+  if (ws.issued >= end) return;
+  if ((int)(threadIdx.x >> 5) == issuer) {
+    for (int k = ws.issued + (threadIdx.x & 31); k < end; k += 32) {
+      const int l = k / ws.per;
+      int j = k - l * ws.per, which = QKV;  // chunk j of product `which`
+      if (j >= ws.nck[0]) {
+        j -= ws.nck[0];
+        which = OUT;
+        if (j >= ws.nck[1]) {
+          j -= ws.nck[1];
+          which = UP;
+          if (j >= ws.nck[2]) {
+            j -= ws.nck[2];
+            which = DOWN;
+          }
+        }
+      }
+      const int kw = pick(a.p.kw, which), tw = pick(a.p.tw, which), nt = pick(ws.nt, which);
+      const int slot = k % a.p.nw, box = kw < 256 ? kw : 256;
+      uint64_t* bar = wfull_ptr(a.p, slot);
+      if (k >= a.p.nw) mbar_wait(wempty_ptr(a.p, slot), (k / a.p.nw - 1) & 1);
+      mbar_expect_tx(bar, (uint32_t)(nt * kw * tw * 2));
+      bf16* dst = wslot_ptr(a.p, slot);
+      for (int t = 0; t < nt; ++t) {
+        int m, col, row;
+        tile_map(a, l, which, (int)blockIdx.x + t * a.p.grid, tw, m, col, row);
+        for (int r = 0; r < kw; r += box)
+          tma_load_2d(dst + ((size_t)t * kw + r) * tw, &a.maps[m], col, row + j * kw + r, bar);
+      }
+    }
+  }
+  ws.issued = end;
+}
+
+// acc[t] += x W over the k-steps ks, ks + kg, ... < s1 of one weight chunk
+// (at shared address wb, its first row the x chunk's row c0), for NS
+// subtiles: the A fragment at xs (k-step 0), the B fragments at wb + the
+// k-step's rows + boff[t]. NS is a constant, so the loop over the
+// subtiles carries no test and no address arithmetic beyond one add.
+template <int NS>
+__device__ __forceinline__ void chunk_mma(float (&acc)[MAXT][4], const bf16* xs, uint32_t wb,
+                                          const uint32_t (&boff)[MAXT], int ks, int s1, int kg,
+                                          int c0, int rowb) {
+  for (; ks < s1; ks += kg) {
+    uint32_t af[4];
+    ldsm_x4(af, xs + ks * 16);
+    const uint32_t rb = wb + (uint32_t)((ks * 16 - c0) * rowb);
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      uint32_t b0, b1;
+      ldsm_x2_trans(b0, b1, rb + boff[t]);
+      mma_bf16(acc[t], af, b0, b1);
+    }
+  }
+}
+
 // y[r, c] = sum_k x[r, k] W[k, c] over this CTA's tiles of product `which`,
 // handed to epi(c, r, y, pre(c, r)) for r < rows; pre's loads are issued
 // before x and the sums are waited on. x sits in slot 0 (src null), or comes
 // from src (row stride ld) in chunks of kc columns through the slots, the
-// first ones already staged. Warp w takes m-tile w % cs and the k-steps of
-// k-group w / cs; the partial sums meet in `red` and are added in k-group
-// order.
+// first ones already staged; W comes chunk by chunk from the weight stream.
+// Warp w takes m-tile w % cs and the k-steps of k-group w / cs, counted from
+// the x chunk's start; the partial sums meet in `red` and are added in
+// k-group order.
 template <class Pre, class Epi>
-__device__ void product(const Coop& a, const bf16* wbuf, int which, int rows, Ring& x,
+__device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, Ring& x,
                         const bf16* src, int ld, Pre pre, Epi epi) {
   const Prod pd = prod_dims(a.D, which);
-  const int nt = my_tiles(pd.N / TILE, a.p.grid);
+  // Tiles of tw columns, each tw / 8 MMA subtiles; subtile s is column
+  // block j = s % per of tile t = s / per, at column col_of(s).
+  const int tw = pick(a.p.tw, which), per = tw / TILE, lp = __ffs(per) - 1, swz = per - 1;
+  const int nt = pick(ws.nt, which), ns = nt * per;
+  const auto col_of = [&](int s) {
+    return ((int)blockIdx.x + (s >> lp) * a.p.grid) * tw + (s & swz) * TILE;
+  };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mt = (rows + 15) / 16, cs = mt > 2 ? 4 : mt, kg = CW / cs;
   const int ms = warp % cs, kgr = warp / cs;
   // Rows past the last repeat it (their sums are dropped).
   const int arow = min(ms * 16 + (lane & 15), rows - 1), acol = (lane >> 4) * 8;
-  const int kc = a.p.kc, nch = src ? (pd.K + kc - 1) / kc : 1;
+  const int kc = a.p.kc, kw = pick(a.p.kw, which), nch = src ? (pd.K + kc - 1) / kc : 1;
   // This thread's outputs: i = threadIdx.x + k CT, k < MAXO.
-  constexpr int MAXO = (MAXT * 4 * 128 + CT - 1) / CT;
-  const int nout = nt * mt * 128;
+  constexpr int MAXO = (MAXTM * 128 + CT - 1) / CT;
+  const int nout = ns * mt * 128;
   float2 early[MAXO];
 #pragma unroll
   for (int k = 0; k < MAXO; ++k) {
     const int i = threadIdx.x + k * CT, t = i / (mt * 128), e = i % 128;
     const int row = (i / 128) % mt * 16 + e / 8;
-    if (i < nout && row < rows)
-      early[k] = pre(((int)blockIdx.x + t * a.p.grid) * TILE + e % 8, row);
+    if (i < nout && row < rows) early[k] = pre(col_of(t) + e % 8, row);
   }
   float acc[MAXT][4];
 #pragma unroll
   for (int t = 0; t < MAXT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  // The B fragment of subtile s at chunk row 0 (this lane's row lane % 16):
+  // its offset in a weight slot in the TMA's swizzled [kw][tw] tile, whose
+  // 16-byte column block (s % per) is XORed with address bits 7.. . Slots
+  // lie 1024-byte multiples from the region's start, and a step of 16 rows
+  // (32 tw bytes) leaves those bits as they are, so every slot and k-step
+  // adds its offset to the same ones.
+  const int rowb = tw * 2;
+  const uint32_t base = smem_u32(coop_smem);
+  uint32_t boff[MAXT];
+#pragma unroll
+  for (int t = 0; t < MAXT; ++t) {
+    const uint32_t o = base + ((t >> lp) * kw + (lane & 15)) * rowb + (t & swz) * 16;
+    boff[t] = (o ^ (((o >> 7) & swz) << 4)) - base;
+  }
+  ws_fill(a, ws, 0, l, which);  // this product's chunks the ring has room for
   for (int ch = 0; ch < nch; ++ch) {
     const int k0 = ch * kc, w = min(kc, pd.K - k0), slot = src ? ch % a.p.nslot : 0;
     if (src) mbar_wait(bar_ptr(a.p, slot), ((x.loads >> slot) & 1u) ^ 1u);  // chunk ch
-    if (ms < mt) {
-      const bf16* xs = slot_ptr(a.p, slot) + (size_t)arow * (kc + 8) + acol;
-      const bf16* wb = wbuf + ((size_t)k0 + (lane & 15)) * TILE;
-      for (int ks = kgr; ks < w / 16; ks += kg) {
-        uint32_t af[4];
-        ldsm_x4(af, xs + ks * 16);
-#pragma unroll
-        for (int t = 0; t < MAXT; ++t) {
-          if (t < nt) {
-            uint32_t b0, b1;
-            ldsm_x2_trans(b0, b1, wb + ((size_t)t * pd.K + ks * 16) * TILE);
-            mma_bf16(acc[t], af, b0, b1);
-          }
+    const bf16* xs = slot_ptr(a.p, slot) + (size_t)arow * (kc + 8) + acol;
+    for (int c0 = 0; c0 < w; c0 += kw) {  // the weight chunks of this x chunk
+      const int ws_slot = ws.used % a.p.nw;
+      mbar_wait(wfull_ptr(a.p, ws_slot), (ws.used / a.p.nw) & 1);
+      const uint32_t wb = smem_u32(wslot_ptr(a.p, ws_slot));
+      if (ms < mt) {
+        const int s0 = c0 / 16, s1 = min(c0 + kw, w) / 16;
+        const int ks = s0 + ((kgr - s0) % kg + kg) % kg;
+        switch (ns) {
+          case 1: chunk_mma<1>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 2: chunk_mma<2>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 3: chunk_mma<3>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 4: chunk_mma<4>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 5: chunk_mma<5>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 6: chunk_mma<6>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 7: chunk_mma<7>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          default: chunk_mma<MAXT>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(wempty_ptr(a.p, ws_slot));
+      ++ws.used;
+      // Refill only with this product's own later chunks here (a slot's
+      // refill waits for the slowest warp); the next product's wait for the
+      // grid barrier, where the CTA idles.
+      ws_fill(a, ws, 0, l, which);
     }
     const int next = ch + a.p.nslot;
     if (src && next < nch) {
-      __syncthreads();  // every warp is done with this slot
+      __syncthreads();  // every warp is done with the x slot
       stage(a.p, x, slot, src, ld, rows, next * kc, min(kc, pd.K - next * kc));
     }
   }
-  // C fragment: c0, c1 at (g, 2q), (g, 2q+1); c2, c3 at (g+8, ...).
+  // C fragment: c0, c1 at (g, 2q), (g, 2q+1); c2, c3 at (g+8, ...). The
+  // partial sums may overlay the x slots' tail: then every warp is done
+  // with x first.
+  if (a.p.red < a.p.x0 + a.p.nslot * a.p.xs) __syncthreads();
   float* red = reinterpret_cast<float*>(coop_smem + a.p.red);
   if (ms < mt) {
     const int g = lane >> 2, q2 = (lane & 3) * 2;
 #pragma unroll
     for (int t = 0; t < MAXT; ++t) {
-      if (t < nt) {
+      if (t < ns) {
         float* o = red + ((size_t)(t * kg + kgr) * mt + ms) * 128;
         o[g * 8 + q2] = acc[t][0];
         o[g * 8 + q2 + 1] = acc[t][1];
@@ -866,22 +730,72 @@ __device__ void product(const Coop& a, const bf16* wbuf, int which, int rows, Ri
     if (i < nout && row < rows) {
       float s = 0.f;
       for (int j = 0; j < kg; ++j) s += red[((size_t)(t * kg + j) * mt + m) * 128 + e];
-      epi(((int)blockIdx.x + t * a.p.grid) * TILE + e % 8, row, s, early[k]);
+      epi(col_of(t) + e % 8, row, s, early[k]);
     }
   }
 }
 
+// Four bf16 values of row x at column c: layernorm(v) with the row's mean
+// and reciprocal deviation, scale and bias sc / bi.
+__device__ __forceinline__ void ln_store(bf16* x, int c, const float4& v, float mu, float rstd,
+                                         const float* sc, const float* bi) {
+  const float4 g = *reinterpret_cast<const float4*>(sc + c);
+  const float4 b = *reinterpret_cast<const float4*>(bi + c);
+  __nv_bfloat162 lo = __floats2bfloat162_rn((v.x - mu) * rstd * g.x + b.x,
+                                            (v.y - mu) * rstd * g.y + b.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn((v.z - mu) * rstd * g.z + b.z,
+                                            (v.w - mu) * rstd * g.w + b.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(x + c) = packed;
+}
+
 // x[r, :] = bf16(layernorm(h[r, :])) for r < rows (the JAX models/base
-// arithmetic), scale and bias sc[0 .. d) and sc[d .. 2d) in shared memory;
-// h read from L2, one warp a row. A warp loads a batch of its rows (the
-// 16 float4 a lane holds: 16 / ceil(d / 128) rows) before it reduces any.
-// d <= 1024.
+// arithmetic), scale sc and bias bi [d] f32 in shared memory; h read from
+// L2, one warp a row. Up to d = 1024 a warp loads a batch of its rows (the
+// LNV float4 a lane holds: LNV / ceil(d / 128) rows) before it reduces any;
+// a wider row is read three times (mean, variance, output), LNV float4 a
+// lane at a time.
 constexpr int LNV = 8;  // float4 a lane holds in a layernorm batch
 
-__device__ void layernorm_rows(const float* h, const float* sc, int rows, int d, bf16* x,
-                               int ldx) {
+__device__ void layernorm_rows(const float* h, const float* sc, const float* bi, int rows, int d,
+                               bf16* x, int ldx) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nv = (d + 127) / 128, rb = LNV / nv;  // float4 a lane a row; rows a batch
+  const int nv = (d + 127) / 128;  // float4 a lane a row
+  if (nv > LNV) {
+    for (int r = warp; r < rows; r += CW) {
+      const float4* hr = reinterpret_cast<const float4*>(h + (size_t)r * d);
+      const auto row = [&](int k) { return __ldcg(hr + k); };
+      float s = 0.f;
+      for (int k0 = lane; k0 < d / 4; k0 += 32 * LNV) {
+        float4 v[LNV];
+#pragma unroll
+        for (int u = 0; u < LNV; ++u)
+          v[u] = k0 + 32 * u < d / 4 ? row(k0 + 32 * u) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < LNV; ++u) s += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+      }
+      const float mu = warp_sum(s) / d;
+      float q = 0.f;
+      for (int k0 = lane; k0 < d / 4; k0 += 32 * LNV) {
+        float4 v[LNV];
+#pragma unroll
+        for (int u = 0; u < LNV; ++u)
+          v[u] = k0 + 32 * u < d / 4 ? row(k0 + 32 * u) : make_float4(mu, mu, mu, mu);
+#pragma unroll
+        for (int u = 0; u < LNV; ++u) {
+          const float a = v[u].x - mu, b = v[u].y - mu, c = v[u].z - mu, e = v[u].w - mu;
+          q += (a * a + b * b) + (c * c + e * e);
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(q) / d + LN_EPS);
+      for (int k = lane; k < d / 4; k += 32)
+        ln_store(x + (size_t)r * ldx, 4 * k, row(k), mu, rstd, sc, bi);
+    }
+    return;
+  }
+  const int rb = LNV / nv;  // rows a batch
   for (int r0 = warp; r0 < rows; r0 += CW * rb) {
     float4 v[LNV];
 #pragma unroll
@@ -911,18 +825,7 @@ __device__ void layernorm_rows(const float* h, const float* sc, int rows, int d,
 #pragma unroll
       for (int k = 0; k < LNV; ++k) {
         const int c = (k % nv) * 128 + lane * 4;
-        if (k / nv == j && c < d) {
-          const float4 g = *reinterpret_cast<const float4*>(sc + c);
-          const float4 b = *reinterpret_cast<const float4*>(sc + d + c);
-          __nv_bfloat162 lo = __floats2bfloat162_rn((v[k].x - mu) * rstd * g.x + b.x,
-                                                    (v[k].y - mu) * rstd * g.y + b.y);
-          __nv_bfloat162 hi = __floats2bfloat162_rn((v[k].z - mu) * rstd * g.z + b.z,
-                                                    (v[k].w - mu) * rstd * g.w + b.w);
-          uint2 packed;
-          packed.x = *reinterpret_cast<uint32_t*>(&lo);
-          packed.y = *reinterpret_cast<uint32_t*>(&hi);
-          *reinterpret_cast<uint2*>(x + (size_t)r * ldx + c) = packed;
-        }
+        if (k / nv == j && c < d) ln_store(x + (size_t)r * ldx, c, v[k], mu, rstd, sc, bi);
       }
     }
   }
@@ -978,8 +881,9 @@ __device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, cons
 // Attention task (slot s, KV head hk) of layer l: the head group's g query
 // heads x R rows over cache positions [0, kvlen) (read pre-write) and the
 // slot's R fresh rows at kvlen + lj, with the exact softmax; rounds and
-// commits the fresh rows of head hk. `base`: the task's shared scratch.
-template <class Rows, bool VERIFY>
+// commits the fresh rows of head hk (FRESH: writes them to k_fresh /
+// v_fresh instead). `base`: the task's shared scratch.
+template <class Rows, bool VERIFY, bool FRESH>
 __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
   const Dims& D = a.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1004,7 +908,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     commit = a.active[s] != 0;
   } else {
     kvlen = min(a.lengths[s], D.C);
-    commit = a.active[s] != 0 && kvlen < D.C;
+    commit = !FRESH && a.active[s] != 0 && kvlen < D.C;
   }
   const int n = kvlen + R;  // keys a row: the cache's, then the fresh rows
   const float* qkv = a.qkv + (size_t)s * R * nqkv;
@@ -1031,6 +935,11 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       cv[off] = __float2bfloat16(vf[i]);
     }
   }
+  if (FRESH)
+    for (int i = tid; i < Dh; i += CT) {
+      a.k_fresh[((size_t)s * D.Hkv + hk) * Dh + i] = __float2bfloat16(kf[i]);
+      a.v_fresh[((size_t)s * D.Hkv + hk) * Dh + i] = __float2bfloat16(vf[i]);
+    }
 
   // The cache row of head hk streams through the ring in chunks of CP
   // positions: in chunk c, thread t copies 16 bytes (8 dims, sub) of
@@ -1189,37 +1098,85 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   }
 }
 
-template <class Rows, bool VERIFY>
-__global__ void __launch_bounds__(CT, 1) coop_step_kernel(Coop a) {
+// The layernorms' scale and bias in shared memory ([2][d] f32 at p.ln),
+// one layernorm's at a time, copied by the TMA a phase ahead by CTAs that
+// run that layernorm; `loads` counts the copies (load j completes phase j
+// of the mbarrier). Every thread keeps the same count.
+struct LnStage {
+  uint32_t loads;
+};
+
+__device__ __forceinline__ float* ln_ptr(const Plan& p) {
+  return reinterpret_cast<float*>(coop_smem + p.ln);
+}
+
+__device__ __forceinline__ uint64_t* lnbar_ptr(const Plan& p) {
+  return bar_ptr(p, p.nslot + 2 * p.nw);
+}
+
+// Layernorm `which` (1 or 2) of layer l into the region, if this CTA runs
+// it (owns q/k/v tiles, or up tiles), by `issuer`, after a barrier that
+// ends every read of the region.
+__device__ void ln_fetch(const Coop& a, LnStage& st, int l, int which, bool issuer) {
+  const int T = which == 1 ? (a.D.Hq + 2 * a.D.Hkv) * a.D.Dh / a.p.tw[0] : a.D.F / a.p.tw[2];
+  if (l >= a.n_layers || !my_tiles(T, a.p.grid)) return;
+  if (issuer) {
+    const int d = a.D.d;
+    uint64_t* bar = lnbar_ptr(a.p);
+    float* dst = ln_ptr(a.p);
+    mbar_expect_tx(bar, (uint32_t)(8 * d));
+    bulk_load(dst, (which == 1 ? a.w0.ln1_s : a.w0.ln2_s) + (size_t)l * d, 4 * d, bar);
+    bulk_load(dst + d, (which == 1 ? a.w0.ln1_b : a.w0.ln2_b) + (size_t)l * d, 4 * d, bar);
+  }
+  ++st.loads;
+}
+
+// Waits for the last layernorm parameters fetched.
+__device__ __forceinline__ const float* ln_wait(const Plan& p, const LnStage& st) {
+  mbar_wait(lnbar_ptr(p), (st.loads - 1) & 1);
+  return ln_ptr(p);
+}
+
+template <class Rows, bool VERIFY, bool FRESH>
+__global__ void __launch_bounds__(CT, 1) coop_step_kernel(const __grid_constant__ Coop a) {
   const Dims& D = a.D;
   const Plan& p = a.p;
   const int rows = D.S * a.R, b = blockIdx.x;
   const int qw = D.Hq * D.Dh, nqkv = qw + 2 * D.Hkv * D.Dh;
-  const int T_qkv = nqkv / TILE, T_out = D.d / TILE, T_up = D.F / TILE;
-  bf16* const w0 = reinterpret_cast<bf16*>(coop_smem + p.w0);
-  bf16* const w1 = reinterpret_cast<bf16*>(coop_smem + p.w1);
+  // Owners of a product's tiles (of p.tw columns): CTAs below its tile count.
+  const int T_qkv = nqkv / p.tw[0], T_out = D.d / p.tw[1], T_up = D.F / p.tw[2];
+  const int T_down = D.d / p.tw[3];
   Ring x{0u};
+  WStream ws = ws_start(a);
   unsigned epoch = epoch_in(a.flags);
   const int ns = NST * a.n_layers;  // phase stamps; 4 more for the rate
   stamp(a, ns, true);
   stamp(a, ns + 2);
   if (threadIdx.x == 0) {
     for (int i = 0; i < p.nslot; ++i) mbar_init(bar_ptr(p, i), 1);
+    for (int i = 0; i < p.nw; ++i) {
+      mbar_init(wfull_ptr(p, i), 1);
+      mbar_init(wempty_ptr(p, i), CW);
+    }
+    mbar_init(lnbar_ptr(p), 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-
-  // Weight tiles: q/k/v in buffer w0, output in w1, up in w0, down in w1,
-  // each fetched a phase or more ahead of its product and after the loads
-  // the fetching phase waits on: the output's in (a) after LN1, the up's
-  // after the attention, the down's in (d) after LN2, the next layer's q/k/v
-  // after the down projection. The layernorms' scales and biases come one
-  // group earlier (ln2 with the output weights, the next layer's ln1 with
-  // the down weights), so no layernorm waits for a weight group.
-  fetch_ln(a, 0, 1);
-  fetch_weights(a, 0, QKV, w0);
-  cp_async_wait<0>();
-  __syncthreads();
+  // The first layer's q/k/v chunks (and the output projection's) go out
+  // before LN1 reads h. From here on a product tops up the ring with its
+  // own chunks as it frees slots, and the grid barriers issue the next
+  // product's, one product ahead (warp 1 issues while warp 0 polls, so no
+  // phase's work waits on the issue): the up projection's after the
+  // attention, the down projection's after the output projection, the next
+  // layer's q/k/v and output projection's after the down projection.
+  if (threadIdx.x < 6)
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&a.maps[threadIdx.x]))
+                 : "memory");
+  LnStage lns{0u};
+  ln_fetch(a, lns, 0, 1, threadIdx.x == 0);
+  ws_fill(a, ws, 0, 0, OUT);
+  const bool refiller = threadIdx.x == 32;
+  const auto refill = [&](int ll, int lp) { ws_fill(a, ws, 1, ll, lp); };
   for (int l = 0; l < a.n_layers; ++l) {
     const float* hsrc = l ? a.h_out : a.h_in;
     const size_t ld = (size_t)l * D.d, lf = (size_t)l * D.F;
@@ -1228,65 +1185,56 @@ __global__ void __launch_bounds__(CT, 1) coop_step_kernel(Coop a) {
     // (a) LN1, q/k/v.
     stamp(a, st + S_A0);
     if (b < T_qkv)
-      layernorm_rows(hsrc, reinterpret_cast<const float*>(coop_smem + p.ln), rows, D.d,
-                     slot_ptr(p, 0), p.kc + 8);
+      layernorm_rows(hsrc, ln_wait(p, lns), ln_ptr(p) + D.d, rows, D.d, slot_ptr(p, 0),
+                     p.kc + 8);
     stamp(a, st + S_A_LN);
-    fetch_ln(a, l, 2);
-    fetch_weights(a, l, OUT, w1);
-    cp_async_wait_prev();  // q/k/v's weights
     __syncthreads();
     stamp(a, st + S_A_W);
     if (b < T_qkv) {
       float* qkv = a.qkv;
       product(
-          a, w0, QKV, rows, x, nullptr, 0, [](int, int) { return make_float2(0.f, 0.f); },
+          a, ws, l, QKV, rows, x, nullptr, 0, [](int, int) { return make_float2(0.f, 0.f); },
           [&](int c, int r, float v, float2) { __stcg(qkv + (size_t)r * nqkv + c, v); });
     }
     stamp(a, st + S_A1);
-    grid_sync(a.flags, ++epoch, p.grid);
+    grid_sync(a.flags, ++epoch, p.grid, [&] { ln_fetch(a, lns, l, 2, refiller); });
 
     // (b) Attention, one task a (slot, KV head); commits the fresh rows.
     stamp(a, st + S_B0);
     for (int t = b; t < D.S * D.Hkv; t += p.grid)
-      attend<Rows, VERIFY>(a, reinterpret_cast<float*>(coop_smem + p.x0), l, t / D.Hkv,
-                           t % D.Hkv, t == b);
-    fetch_weights(a, l, UP, w0);
+      attend<Rows, VERIFY, FRESH>(a, reinterpret_cast<float*>(coop_smem + p.x0), l,
+                                  t / D.Hkv, t % D.Hkv, t == b);
     fence_async();  // the attention rows are read by TMA next
     stamp(a, st + S_B1);
-    grid_sync(a.flags, ++epoch, p.grid);
+    grid_sync(a.flags, ++epoch, p.grid, [&] { refill(l, UP); });
 
     // (c) Output projection; the residual added by the column's owner.
     stamp(a, st + S_C0);
     if (b < T_out) stage_first(p, x, a.att, qw, rows, qw);
-    cp_async_wait_prev();  // the output weights (the up weights may still fly)
-    __syncthreads();
     stamp(a, st + S_C_W);
     if (b < T_out) {
       float* h = a.h_out;
       product(
-          a, w1, OUT, rows, x, a.att, qw,
+          a, ws, l, OUT, rows, x, a.att, qw,
           [&](int c, int r) { return make_float2(__ldcg(hsrc + (size_t)r * D.d + c), 0.f); },
           [&](int c, int r, float v, float2 e) { h[(size_t)r * D.d + c] = e.x + v; });
     }
     stamp(a, st + S_C1);
-    grid_sync(a.flags, ++epoch, p.grid);
+    grid_sync(a.flags, ++epoch, p.grid, [&] { refill(l, DOWN); });
 
     // (d) LN2, up projection, bias, GELU (rounded to bf16).
     stamp(a, st + S_D0);
     if (b < T_up)
-      layernorm_rows(a.h_out, reinterpret_cast<const float*>(coop_smem + p.ln) + 2 * D.d, rows,
-                     D.d, slot_ptr(p, 0), p.kc + 8);
+      layernorm_rows(a.h_out, ln_wait(p, lns), ln_ptr(p) + D.d, rows, D.d, slot_ptr(p, 0),
+                     p.kc + 8);
     stamp(a, st + S_D_LN);
-    fetch_ln(a, l + 1, 1);
-    fetch_weights(a, l, DOWN, w1);
-    cp_async_wait_prev();  // the up weights
     __syncthreads();
     stamp(a, st + S_D_W);
     if (b < T_up) {
       bf16* up = a.gelu;
       const float* b_up = a.w0.b_up + lf;
       product(
-          a, w0, UP, rows, x, nullptr, 0,
+          a, ws, l, UP, rows, x, nullptr, 0,
           [&](int c, int) { return make_float2(__ldg(b_up + c), 0.f); },
           [&](int c, int r, float v, float2 e) {
             up[(size_t)r * D.F + c] = __float2bfloat16(gelu_tanh(v + e.x));
@@ -1294,27 +1242,24 @@ __global__ void __launch_bounds__(CT, 1) coop_step_kernel(Coop a) {
     }
     fence_async();
     stamp(a, st + S_D1);
-    grid_sync(a.flags, ++epoch, p.grid);
+    grid_sync(a.flags, ++epoch, p.grid, [&] { ln_fetch(a, lns, l + 1, 1, refiller); });
 
     // (e) Down projection, bias, residual.
     stamp(a, st + S_E0);
-    if (b < T_out) stage_first(p, x, a.gelu, D.F, rows, D.F);
-    cp_async_wait<0>();  // the down weights and the next ln1
-    __syncthreads();
+    if (b < T_down) stage_first(p, x, a.gelu, D.F, rows, D.F);
     stamp(a, st + S_E_W);
-    if (b < T_out) {
+    if (b < T_down) {
       float* h = a.h_out;
       const float* b_down = a.w0.b_down + ld;
       product(
-          a, w1, DOWN, rows, x, a.gelu, D.F,
+          a, ws, l, DOWN, rows, x, a.gelu, D.F,
           [&](int c, int r) {
             return make_float2(__ldcg(h + (size_t)r * D.d + c), __ldg(b_down + c));
           },
           [&](int c, int r, float v, float2 e) { h[(size_t)r * D.d + c] = (e.x + v) + e.y; });
     }
-    fetch_weights(a, l + 1, QKV, w0);
     stamp(a, st + S_E1);
-    if (l + 1 < a.n_layers) grid_sync(a.flags, ++epoch, p.grid);
+    if (l + 1 < a.n_layers) grid_sync(a.flags, ++epoch, p.grid, [&] { refill(l + 1, OUT); });
   }
   epoch_out(a.flags, epoch);
   stamp(a, ns + 1, true);
@@ -1334,32 +1279,6 @@ __global__ void __launch_bounds__(CT, 1) barrier_probe_kernel(unsigned* flags, i
 
 // -- host side ----------------------------------------------------------------
 
-int red_floats_for(const Dims& D) {
-  int r = 33;
-  const int ns[] = {D.Hq * D.Dh, D.Hkv * D.Dh, D.d, D.F};
-  for (int n : ns) r = r > matvec_ks(n) * n ? r : matvec_ks(n) * n;
-  const int js = NWARPS / D.Hkv > 0 ? NWARPS / D.Hkv : 1;
-  const int pv = js * D.Hq * D.Dh;
-  return r > pv ? r : pv;
-}
-
-size_t smem_bytes(const Dims& D, int red_floats) {
-  size_t f = 3 * (size_t)D.d + 2 * (size_t)D.Hq * D.Dh + 2 * (size_t)D.Hkv * D.Dh +
-             D.F + (size_t)D.Hq * (D.C + 1) + red_floats + 33;
-  return f * sizeof(float) + (size_t)D.MB * sizeof(int);
-}
-
-// The per-layer kernel's envelope; the Python wrapper checks it first and
-// raises with a reason, this is the last line of defence.
-cudaError_t check_dims(const Dims& D) {
-  if (D.Hkv < 1 || D.Hq % D.Hkv || D.Hq / D.Hkv > 8) return cudaErrorInvalidValue;
-  if (D.Dh != 64 && D.Dh != 128) return cudaErrorInvalidValue;
-  if (D.d % 8 || D.F % 8 || (D.Hkv * D.Dh) % 8 || D.d != D.Hq * D.Dh) return cudaErrorInvalidValue;
-  if (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) return cudaErrorInvalidValue;
-  if (smem_bytes(D, red_floats_for(D)) > SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
 LayerW pack(const void* wq, const void* wk, const void* wv, const void* wo,
             const void* ln1_s, const void* ln1_b, const void* ln2_s,
             const void* ln2_b, const void* w_up, const void* b_up,
@@ -1373,38 +1292,24 @@ LayerW pack(const void* wq, const void* wk, const void* wv, const void* wo,
   return w;
 }
 
-template <class Rows>
-int launch_block(const LayerW& w, const Dims& D, const void* h_in, void* h_out,
-                 const void* ck, const void* cv, const void* lengths, const void* tables,
-                 void* k_fresh, void* v_fresh, void* stream) {
-  cudaError_t err = check_dims(D);
-  if (err != cudaSuccess) return (int)err;
-  const int red = red_floats_for(D);
-  const size_t smem = smem_bytes(D, red);
-  err = cudaFuncSetAttribute(decode_block_kernel<Rows>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_block_kernel<Rows><<<D.S, NTHREADS, smem, (cudaStream_t)stream>>>(
-      w, D, red, (const float*)h_in, (float*)h_out, (const bf16*)ck, (const bf16*)cv,
-      (const int*)lengths, (const int*)tables, (bf16*)k_fresh, (bf16*)v_fresh);
-  return (int)cudaGetLastError();
-}
-
 #ifdef DECODE_PROBE
 // Phase stamps for the next launches (coop_set_stamps), or null.
 unsigned long long* g_stamps = nullptr;
 #endif
 
 // The cooperative kernels by number (0: slab decode, 1: paged decode, 2:
-// verify), with the shared memory last set on each and the occupancy it gave.
+// verify, 3: slab per-layer step, 4: paged per-layer step), with the shared
+// memory last set on each and the occupancy it gave.
 struct CoopKernel {
   const void* fn;
   int smem, per_sm, dev;
 };
-CoopKernel g_coop[3] = {
-    {(const void*)coop_step_kernel<SlabRows, false>, -1, 0, -1},
-    {(const void*)coop_step_kernel<PagedRows, false>, -1, 0, -1},
-    {(const void*)coop_step_kernel<PagedRows, true>, -1, 0, -1},
+CoopKernel g_coop[5] = {
+    {(const void*)coop_step_kernel<SlabRows, false, false>, -1, 0, -1},
+    {(const void*)coop_step_kernel<PagedRows, false, false>, -1, 0, -1},
+    {(const void*)coop_step_kernel<PagedRows, true, false>, -1, 0, -1},
+    {(const void*)coop_step_kernel<SlabRows, false, true>, -1, 0, -1},
+    {(const void*)coop_step_kernel<PagedRows, false, true>, -1, 0, -1},
 };
 
 // CTAs of kernel k a SM holds at `smem` bytes of shared memory (sets the
@@ -1427,43 +1332,103 @@ cudaError_t coop_per_sm(int k, int smem, int& per_sm) {
   return cudaSuccess;
 }
 
-// The plan's offsets in order, aligned and inside `smem`: two weight
-// buffers, the layernorms' parameters, the x slots, the partial sums, the
-// mbarriers. The sizes are ops/fused_decode.py coop_plan's; the kernel's
-// own bounds are checked here: its tiles a CTA (a register array of MAXT)
-// and the attention task's scratch, which it lays out itself over the slots.
+// The plan's offsets in order, aligned and inside `smem`: the weight ring,
+// the layernorm's parameters, the x slots, the partial sums, the mbarriers. The sizes are
+// ops/fused_decode.py coop_plan's; the kernel's own bounds are checked
+// here: its tiles a CTA (register arrays of MAXT and MAXTM / m-tiles), the
+// weight chunks (whole k-steps, within an x chunk, inside a slot, whole TMA
+// boxes of at most 256 rows) and the attention task's scratch, which it
+// lays out itself over the slots.
 bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
+  const int rows = D.S * R, mt = (rows + 15) / 16, kg = CW / (mt > 2 ? 4 : mt);
   const long nqkv = (long)D.Hq * D.Dh + 2L * D.Hkv * D.Dh;
-  const long tiles[4] = {nqkv / TILE, D.d / TILE, D.F / TILE, D.d / TILE};
-  for (long t : tiles)
-    if ((t + p.grid - 1) / p.grid > MAXT) return false;
-  return p.w0 == 0 && p.w1 % 16 == 0 && p.ln % 16 == 0 && p.x0 % 128 == 0 &&
-         p.xs % 16 == 0 && p.red % 16 == 0 && p.bar % 8 == 0 && p.nslot >= 1 &&
-         p.nslot <= MAXS && p.w0 < p.w1 && p.w1 < p.ln && p.ln + 16L * D.d <= p.x0 &&
-         p.xs >= (long)D.S * R * (p.kc + 8) * 2 && p.x0 + (long)p.nslot * p.xs <= p.red &&
-         p.x0 + (long)attend_bytes(D, R) <= p.red && p.red < p.bar &&
-         p.bar + 8L * p.nslot <= p.smem;
+  const long n[4] = {nqkv, D.d, D.F, D.d};
+  long wneed = 0, red = 0;
+  for (int i = 0; i < 4; ++i) {
+    const long tw = p.tw[i], kw = p.kw[i];
+    if ((tw != 8 && tw != 16 && tw != 32 && tw != 64) || n[i] % tw ||
+        (i == 0 && (D.Hkv * D.Dh) % tw))
+      return false;
+    const long nt = (n[i] / tw + p.grid - 1) / p.grid, ns = nt * tw / TILE;
+    if (ns > MAXT || ns * mt > MAXTM || kw < 16 || kw % 16 || p.kc % kw ||
+        (kw > 256 && kw % 256))
+      return false;
+    wneed = wneed > nt * kw * tw * 2 ? wneed : nt * kw * tw * 2;
+    red = red > ns * kg * mt * 512 ? red : ns * kg * mt * 512;
+  }
+  return p.wslot % 1024 == 0 && p.nw >= 1 && p.nw <= NWMAX && wneed <= p.wslot &&
+         (long)p.nw * p.wslot <= p.ln && p.ln % 16 == 0 && p.ln + 8L * D.d <= p.x0 &&
+         p.x0 % 128 == 0 && p.xs % 16 == 0 &&
+         p.red % 16 == 0 && p.bar % 8 == 0 && p.nslot >= 1 && p.nslot <= MAXS &&
+         p.xs >= (long)rows * (p.kc + 8) * 2 && p.x0 + (long)p.nslot * p.xs <= p.bar &&
+         p.x0 + (long)attend_bytes(D, R) <= p.bar && p.red >= p.x0 && p.red + red <= p.bar &&
+         p.bar + 8L * (p.nslot + 2 * p.nw + 1) <= p.smem;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The TMA maps of the six projections (Coop::maps): 2-D [n_layers * K, N]
+// bf16, boxes of one tile's tw columns x the product's chunk rows (at most
+// 256), swizzled across the tile's row of 32 to 128 bytes (the product's
+// b_addr undoes it).
+cudaError_t weight_maps(Coop& a) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
+    if (err != cudaSuccess) return err;
+    if (!fn) return cudaErrorNotSupported;
+    encode = (EncodeTiled)fn;
+  }
+  const Dims& D = a.D;
+  const cuuint64_t n = a.n_layers, d = D.d, qw = (cuuint64_t)D.Hq * D.Dh;
+  const cuuint64_t kvw = (cuuint64_t)D.Hkv * D.Dh, F = D.F;
+  const void* ptr[6] = {a.w0.wq, a.w0.wk, a.w0.wv, a.w0.wo, a.w0.w_up, a.w0.w_down};
+  const cuuint64_t cols[6] = {qw, kvw, kvw, d, F, d}, rows[6] = {n * d, n * d, n * d,
+                                                                 n * qw, n * d, n * F};
+  const int prod[6] = {0, 0, 0, 1, 2, 3};
+  const cuuint32_t ones[2] = {1, 1};
+  for (int i = 0; i < 6; ++i) {
+    const int kw = a.p.kw[prod[i]], tw = a.p.tw[prod[i]];
+    const cuuint64_t dims[2] = {cols[i], rows[i]}, strides[1] = {cols[i] * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)tw, (cuuint32_t)(kw < 256 ? kw : 256)};
+    const CUtensorMapSwizzle swizzle = tw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : tw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                       : tw == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
+    if (encode(&a.maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr[i]), dims,
+               strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 // The last line of defence behind ops/fused_decode.py coop_plan, which
 // checks the envelope and raises with a reason: dims, the plan's layout, and
 // a grid that fits on the card at once (else the grid sync would never
 // complete). Nothing falls back: a refusal is an error code.
-template <class Rows, bool VERIFY>
 int launch_coop(Coop& a, const int* plan, int k, void* stream) {
   const Dims& D = a.D;
   Plan& p = a.p;
-  p = Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5],
-           plan[6], plan[7], plan[8], plan[9], plan[10]};
+  p = Plan{plan[0], plan[1], plan[2], plan[3], {plan[4], plan[5], plan[6], plan[7]},
+           {plan[8], plan[9], plan[10], plan[11]}, plan[12], plan[13], plan[14], plan[15],
+           plan[16], plan[17], plan[18]};
   const int rows = D.S * a.R;
   if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 64 && D.Dh != 128) || D.d != D.Hq * D.Dh ||
-      D.d % 16 || D.d > 1024 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
+      D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
       p.kc != D.d || p.grid < 1 || p.grid > MAX_GRID ||
       (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) || !plan_in_bounds(D, a.R, p))
     return (int)cudaErrorInvalidValue;
   int dev = 0, nsm = 0, coop = 0, per_sm = 0;
   cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+  if ((err = weight_maps(a)) != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess ||
       (err = coop_per_sm(k, p.smem, per_sm)) != cudaSuccess)
@@ -1479,7 +1444,8 @@ int launch_coop(Coop& a, const int* plan, int k, void* stream) {
 Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer_elems,
                const void* h_in, void* h_out, void* ck, void* cv, const void* lengths,
                const void* suffix, const void* active, const void* tables, void* qkv,
-               void* att, void* gelu, void* flags) {
+               void* att, void* gelu, void* flags, void* k_fresh = nullptr,
+               void* v_fresh = nullptr) {
   Coop a;
   a.w0 = w;
   a.D = D;
@@ -1497,6 +1463,8 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
   a.qkv = (float*)qkv;
   a.att = (bf16*)att;
   a.gelu = (bf16*)gelu;
+  a.k_fresh = (bf16*)k_fresh;
+  a.v_fresh = (bf16*)v_fresh;
   a.flags = (unsigned*)flags;
 #ifdef DECODE_PROBE
   a.stamps = g_stamps;
@@ -1506,35 +1474,43 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
 
 }  // namespace
 
-// Per-layer kernel, slab. h_in/h_out [S, d] f32; one layer's weights;
-// ck/cv [S, C, Hkv, Dh] bf16 (read only); lengths [S] int32 → k_fresh/v_fresh
-// [S, Hkv, Dh] bf16 (the caller commits them).
+// Per-layer step, slab (B5): one layer's weights, its cache ck/cv
+// [S, C, Hkv, Dh] bf16 (read only, pre-write), lengths [S] int32; h_in /
+// h_out [S, d] f32 -> k_fresh / v_fresh [S, Hkv, Dh] bf16, the fresh rows the
+// caller commits. Scratch, flags and plan as decode_token_slab (a plan of one
+// layer).
 extern "C" int decode_block_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, const void* ck, const void* cv,
-    const void* lengths, void* k_fresh, void* v_fresh, int S, int d, int Hq,
-    int Hkv, int Dh, int F, int C, void* stream) {
+    const void* lengths, void* k_fresh, void* v_fresh, void* qkv, void* att, void* gelu,
+    void* flags, const int* plan, int S, int d, int Hq, int Hkv, int Dh, int F, int C,
+    void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
-  return launch_block<SlabRows>(
-      pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down), D,
-      h_in, h_out, ck, cv, lengths, nullptr, k_fresh, v_fresh, stream);
+  Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
+                     D, 1, 1, 0, h_in, h_out, (void*)ck, (void*)cv, lengths, nullptr, nullptr,
+                     nullptr, qkv, att, gelu, flags, k_fresh, v_fresh);
+  if (!k_fresh || !v_fresh) return (int)cudaErrorInvalidValue;
+  return launch_coop(a, plan, 3, stream);
 }
 
-// Per-layer kernel, paged. As decode_block_slab with one layer's pool
+// Per-layer step, paged (B5): as decode_block_slab with one layer's pool
 // pk/pv [NB, bs, Hkv, Dh] bf16 (read only) and tables [S, MB] int32.
 extern "C" int decode_block_paged(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, const void* pk, const void* pv,
-    const void* lengths, const void* tables, void* k_fresh, void* v_fresh, int S,
-    int d, int Hq, int Hkv, int Dh, int F, int bs, int MB, void* stream) {
+    const void* lengths, const void* tables, void* k_fresh, void* v_fresh, void* qkv,
+    void* att, void* gelu, void* flags, const int* plan, int S, int d, int Hq, int Hkv,
+    int Dh, int F, int NB, int bs, int MB, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
-  return launch_block<PagedRows>(
-      pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down), D,
-      h_in, h_out, pk, pv, lengths, tables, k_fresh, v_fresh, stream);
+  Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
+                     D, 1, 1, 0, h_in, h_out, (void*)pk, (void*)pv, lengths, nullptr, nullptr,
+                     tables, qkv, att, gelu, flags, k_fresh, v_fresh);
+  if (!k_fresh || !v_fresh || MB < 1 || NB < 1) return (int)cudaErrorInvalidValue;
+  return launch_coop(a, plan, 4, stream);
 }
 
 // Whole-model step, slab. Layer-stacked weights (leading [n_layers] axis) and
@@ -1542,7 +1518,7 @@ extern "C" int decode_block_paged(
 // [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32; scratch
 // qkv [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] bf16; the grid
 // barrier's flags (MAX_GRID + 1 uint32, zeroed once, then left to the
-// kernels; see grid_sync()); `plan` the eleven ints of ops/fused_decode.py
+// kernels; see grid_sync()); `plan` the nineteen ints of ops/fused_decode.py
 // coop_plan. One launch at a time may use the flags.
 extern "C" int decode_token_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
@@ -1556,7 +1532,7 @@ extern "C" int decode_token_slab(
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
                      D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, ck, cv, lengths,
                      nullptr, active, nullptr, qkv, att, gelu, flags);
-  return launch_coop<SlabRows, false>(a, plan, 0, stream);
+  return launch_coop(a, plan, 0, stream);
 }
 
 // Whole-model step, paged. Pools [n_layers, NB, bs, Hkv, Dh] bf16, tables
@@ -1574,7 +1550,7 @@ extern "C" int decode_token_paged(
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
                      D, n_layers, 1, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv, lengths,
                      nullptr, active, tables, qkv, att, gelu, flags);
-  return launch_coop<PagedRows, false>(a, plan, 1, stream);
+  return launch_coop(a, plan, 1, stream);
 }
 
 // Verify. h_in/h_out [S, L, d] f32, layer-stacked weights, pools
@@ -1594,28 +1570,30 @@ extern "C" int verify_tokens_paged(
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
                      D, n_layers, L, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv,
                      prefix_lens, suffix_lens, active, tables, qkv, att, gelu, flags);
-  return launch_coop<PagedRows, true>(a, plan, 2, stream);
+  return launch_coop(a, plan, 2, stream);
 }
 
 // CTAs a SM holds of cooperative kernel k (0 slab decode, 1 paged decode, 2
-// verify) at `smem` bytes of dynamic shared memory, or -(cudaError_t).
+// verify, 3 slab per-layer step, 4 paged per-layer step) at `smem` bytes of
+// dynamic shared memory, or -(cudaError_t).
 extern "C" int coop_occupancy(int k, int smem) {
-  if (k < 0 || k > 2 || smem < 0) return -(int)cudaErrorInvalidValue;
+  if (k < 0 || k > 4 || smem < 0) return -(int)cudaErrorInvalidValue;
   int per_sm = 0;
   cudaError_t err = coop_per_sm(k, smem, per_sm);
   return err != cudaSuccess ? -(int)err : per_sm;
 }
 
 // The constants the launch plan (ops/fused_decode.py) mirrors, and the
-// current device's opt-in shared memory a block: out[0..7] = CT, TILE,
-// MAXT, GMAX, MAXS, RING, MAX_GRID, the limit. Returns a cudaError_t.
+// current device's opt-in shared memory a block: out[0..9] = CT, TILE,
+// MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX, the limit. Returns a
+// cudaError_t.
 extern "C" int coop_constants(int* out) {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int v[8] = {CT, TILE, MAXT, GMAX, MAXS, RING, MAX_GRID, limit};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const int v[10] = {CT, TILE, MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX, limit};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return (int)err;
 }
 
@@ -1637,13 +1615,3 @@ extern "C" int coop_barrier_probe(int grid, int smem, int steps, void* flags, vo
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 #endif
-
-// Shared-memory bytes the per-layer kernel needs at these dims (MB = 0: the
-// slab; else C = MB * bs), or 0 when the dims are outside its envelope (for
-// the wrappers' checks).
-extern "C" long long decode_smem_bytes(int S, int d, int Hq, int Hkv, int Dh,
-                                       int F, int C, int MB) {
-  Dims D{S, d, Hq, Hkv, Dh, F, C, MB ? C / MB : 0, MB};
-  if (check_dims(D) != cudaSuccess) return 0;
-  return (long long)smem_bytes(D, red_floats_for(D));
-}

@@ -9,10 +9,10 @@ the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
 (:327) and ``_dkv_kernel`` (:381).
 
 Layout [B, L, H, D] as in the JAX package; the output comes back in the
-input dtype and the log-sum-exp as [B, L, Hq] f32. The forward kernel and
-the fused and dk/dv backward kernels multiply on the tensor cores: on f32
-inputs each product is split-TF32 (three TF32 MMAs, ``csrc/flash_mma.cuh``)
-and stays within f32 tolerance; on bf16 inputs one TF32 pass is exact. A
+input dtype and the log-sum-exp as [B, L, Hq] f32. Every kernel multiplies
+on the tensor cores: on f32 inputs each product is split-TF32 (three TF32
+MMAs, ``csrc/flash_mma.cuh``) and stays within f32 tolerance; on bf16
+inputs one TF32 pass is exact. A
 CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version. Unlike the
 JAX ``_pick_block``, which refuses L=1023, any length works: the kernels
@@ -224,7 +224,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
-    """B4b on the card: dq, one CTA per (batch, query head, q-tile)."""
+    """B4b on the card: dq, one CTA per (batch, query head, q-tile), on the
+    tensor cores."""
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dq = torch.empty_like(q)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, (dq, None, None))

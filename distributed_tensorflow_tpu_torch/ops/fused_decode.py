@@ -7,20 +7,22 @@ caches, slab and paged:
 - :func:`decode_block_slab` (JAX :524) and :func:`decode_block_paged`
   (:566) — one layer's step per slot; the fresh K/V rows return to the
   caller, which commits them (:func:`commit_slot_rows`,
-  :func:`commit_paged_rows`). Kernel ``decode_block_kernel`` in
-  ``csrc/fused_decode.cu`` replaces ``_fused_decode_kernel`` (:181).
+  :func:`commit_paged_rows`). Kernel ``coop_step_kernel<Rows, false,
+  true>`` in ``csrc/fused_decode.cu`` (the cooperative body below, one
+  layer, the fresh rows written out) replaces ``_fused_decode_kernel``
+  (:181).
 - :func:`decode_token_slab` (JAX :1007) and :func:`decode_token_paged`
   (:1046) — every layer in one launch, the commit done in the kernel for
-  active rows only. Kernel ``coop_step_kernel<Rows, false>`` replaces
+  active rows only. Kernel ``coop_step_kernel<Rows, false, false>`` replaces
   ``_mega_decode_kernel`` (:618).
 - :func:`verify_tokens_paged` (JAX :1305) — the speculation verify: L
   draft rows per slot through every layer in one launch over the paged
   pool, committing the real rows in the kernel. Kernel
-  ``coop_step_kernel<PagedRows, true>`` replaces ``_verify_kernel``
+  ``coop_step_kernel<PagedRows, true, false>`` replaces ``_verify_kernel``
   (:1083).
 
-The last two are one cooperative launch over the whole card
-(:func:`coop_plan` lays it out: the grid, the tiles of each product, the
+Each is one cooperative launch over the whole card (:func:`coop_plan` lays
+it out: the grid, the tiles of each product, the weight ring's chunks, the
 scratch between phases and the shared memory); each weight element is read
 once a launch.
 
@@ -236,24 +238,36 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
     return h
 
 
-# -- the cooperative kernels' launch plan -------------------------------------
+# -- the cooperative kernel's launch plan --------------------------------------
 
 # Mirrors of csrc/fused_decode.cu, so that the plan can be made without a
 # card: threads of a CTA, columns of a weight tile, most tiles of one
 # product a CTA takes, query rows a P·V pass accumulates, most x slots,
 # 16-byte slots of a thread's K/V ring, most CTAs of a grid (the grid
-# barrier's flags). :func:`launch_plan` holds them against the library's
+# barrier's flags), most tiles x m-tiles of a product a CTA takes, most
+# weight-ring slots. :func:`launch_plan` holds them against the library's
 # ``coop_constants`` before the first launch.
 COOP_THREADS = 384
 TILE = 8
-MAX_TILES = 4
+# The tile widths a product may take, in columns (TMA boxes of 16 to 128
+# bytes a row, swizzled to match).
+TILE_COLS = (64, 32, 16, 8)
+MAX_TILES = 8
 PV_ROWS = 5
 MAX_SLOTS = 4
 RING = 8
 MAX_GRID = 1024
+MAX_TILE_ROWS = 8
+MAX_WSLOTS = 16
 COOP_WARPS = COOP_THREADS // 32
-# The cooperative kernels' numbers in the C interface (``coop_occupancy``).
-COOP_KERNELS = {"decode_token_slab": 0, "decode_token_paged": 1, "verify_tokens_paged": 2}
+# Most residual rows (slots x rows a slot) a launch takes: four m-tiles of 16.
+COOP_MAX_ROWS = 64
+# The weight ring the plan aims for: chunks are halved until this many fit.
+WSLOTS_WANTED = 4
+# The cooperative kernel's instantiations by number in the C interface
+# (``coop_occupancy``).
+COOP_KERNELS = {"decode_token_slab": 0, "decode_token_paged": 1, "verify_tokens_paged": 2,
+                "decode_block_slab": 3, "decode_block_paged": 4}
 # Grid syncs a layer: after LN1 + q/k/v, attention, the output projection,
 # LN2 + up, and the down projection (none after the last layer's).
 PHASES = 5
@@ -262,29 +276,46 @@ PHASES = 5
 @dataclasses.dataclass(frozen=True)
 class Product:
     """One of a layer's four products, ``y = x @ W`` with W [k, n]: its
-    column tiles of ``TILE``, the most a CTA takes, the k-groups its warps
-    split K into (within a CTA; partial sums added in k-group order), and
-    the chunks of ``d`` columns in which x is staged from global scratch (0:
-    x is the CTA's own layernormed rows)."""
+    column tiles of ``tile_cols`` (8 to 64; a TMA box is one tile's row
+    segment, so wider tiles mean fewer, longer copies), the most a CTA
+    takes, the k-groups its warps
+    split K into (within a CTA; partial sums added in k-group order), the
+    chunks of ``d`` columns in which x is staged from global scratch (0:
+    x is the CTA's own layernormed rows), and the rows ``k_rows`` of a
+    weight chunk (a divisor of ``d``, whole TMA boxes of at most 256 rows):
+    the CTA's tiles stream through the weight ring ``ceil(k / k_rows)``
+    chunks a layer."""
 
     name: str
     k: int
     n: int
+    tile_cols: int
     tiles: int
     tiles_per_cta: int
     k_groups: int
     chunks: int
+    k_rows: int
+
+    @property
+    def subtiles_per_cta(self) -> int:
+        """The CTA's MMA column tiles of ``TILE`` (its accumulators)."""
+        return self.tiles_per_cta * self.tile_cols // TILE
+
+    @property
+    def chunk_bytes(self) -> int:
+        return self.tiles_per_cta * self.k_rows * self.tile_cols * 2
 
 
 @dataclasses.dataclass(frozen=True)
 class CoopPlan:
-    """The launch of ``coop_step_kernel``: ``grid`` CTAs (SMs x
+    """A launch of ``coop_step_kernel``: ``grid`` CTAs (SMs x
     ``occupancy``), ``rows`` = S x R residual rows in ``m_tiles`` MMA tiles
     of 16, the four products, ``tasks`` attention tasks (slot, KV head),
     ``syncs`` grid syncs a launch, the global ``scratch`` between phases
     (name -> (shape, dtype)) and the shared-memory ``layout`` (byte
-    offsets; ``slots`` x slots of ``slot`` bytes from x0) of ``smem``
-    bytes."""
+    offsets; ``wslots`` weight slots of ``wslot`` bytes from 0, the
+    layernorm's parameters at ``ln``, ``slots`` x slots of ``slot`` bytes
+    from x0) of ``smem`` bytes."""
 
     grid: int
     occupancy: int
@@ -298,10 +329,12 @@ class CoopPlan:
     smem: int
 
     def ints(self) -> list[int]:
-        """The eleven ints the C interface takes (``struct Plan``)."""
+        """The nineteen ints the C interface takes (``struct Plan``)."""
         lay = self.layout
-        return [self.grid, self.products[0].k, lay["w0"], lay["w1"], lay["ln"], lay["x0"],
-                lay["slot"], lay["slots"], lay["red"], lay["bar"], self.smem]
+        return [self.grid, self.products[0].k, lay["wslot"], lay["wslots"],
+                *(p.k_rows for p in self.products), *(p.tile_cols for p in self.products),
+                lay["ln"], lay["x0"], lay["slot"], lay["slots"], lay["red"], lay["bar"],
+                self.smem]
 
 
 def _up(n: int, a: int) -> int:
@@ -310,13 +343,14 @@ def _up(n: int, a: int) -> int:
 
 def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
               smem_limit) -> CoopPlan:
-    """Lay out one cooperative launch of the whole-model step (``r`` = 1)
-    or the verify (``r`` = L rows a slot) over ``s`` slots of a cache of
-    extent ``c`` (``mb`` table entries a slot when paged, else 0), on a card
-    of ``nsm`` SMs holding ``occupancy`` CTAs each and ``smem_limit`` bytes
-    of shared memory a CTA. This is the one derivation of the layout: the
-    launcher checks only that its offsets are in order and in bounds.
-    Raises ``ValueError`` with every reason when the shapes are outside the
+    """Lay out one cooperative launch of ``n_layers`` layers of the decode
+    step (``r`` = 1; one layer for the per-layer step) or the verify
+    (``r`` = L rows a slot) over ``s`` slots of a cache of extent ``c``
+    (``mb`` table entries a slot when paged, else 0), on a card of ``nsm``
+    SMs holding ``occupancy`` CTAs each and ``smem_limit`` bytes of shared
+    memory a CTA. This is the one derivation of the layout: the launcher
+    checks only that its offsets are in order and in bounds. Raises
+    ``ValueError`` with every reason when the shapes are outside the
     kernel's envelope."""
     rows = s * r
     why = []
@@ -326,14 +360,14 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
         why.append(f"head_dim 64 or 128 (got {dh})")
     if d != hq * dh:
         why.append(f"model_dim ({d}) = heads x head_dim ({hq} x {dh})")
-    if d % 16 or d > 1024:
-        why.append(f"model_dim a multiple of 16 and at most 1024 (got {d})")
+    if d % 16:
+        why.append(f"model_dim a multiple of 16 (got {d})")
     if f % 16:
         why.append(f"ffn width a multiple of 16 (got {f})")
     if not 1 <= r <= VERIFY_MAX_ROWS:
         why.append(f"1 to {VERIFY_MAX_ROWS} rows a slot (got {r})")
-    if not 1 <= rows <= 64:
-        why.append(f"1 to 64 rows in all, slots x rows a slot (got {s} x {r})")
+    if not 1 <= rows <= COOP_MAX_ROWS:
+        why.append(f"1 to {COOP_MAX_ROWS} rows in all, slots x rows a slot (got {s} x {r})")
     if n_layers < 1:
         why.append("at least one layer")
     if mb and c % mb:
@@ -347,13 +381,30 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
     mt = -(-rows // 16)
     kg = COOP_WARPS // (4 if mt > 2 else mt)
     qw, kvw = hq * dh, hkv * dh
-    products = tuple(
-        Product(name, k, n, n // TILE, -(-(n // TILE) // grid), kg, chunks)
-        for name, k, n, chunks in (("qkv", d, qw + 2 * kvw, 0), ("out", qw, d, 1),
-                                   ("up", d, f, 0), ("down", f, d, -(-f // d))))
-    busy = [p for p in products if p.tiles_per_cta > MAX_TILES]
-    wbytes = max(p.tiles_per_cta * p.k * 16 for p in products)
-    red = max(p.tiles_per_cta * kg * mt * 128 * 4 for p in products)
+    shapes = (("qkv", d, qw + 2 * kvw, 0), ("out", qw, d, 1), ("up", d, f, 0),
+              ("down", f, d, -(-f // d)))
+    def boxed(kr):  # chunk rows that are whole TMA boxes of at most 256 rows
+        while kr > 256 and kr % 256 and kr % 32 == 0:
+            kr //= 2
+        return kr
+
+    # A chunk a product's x chunk, halved below while needed.
+    k_rows = [boxed(d)] * 4
+
+    # Tile widths: the fewest columns the busiest CTA multiplies, then the
+    # widest tile (q/k/v's tiles stay inside one of wq, wk, wv).
+    widths = [min((w for w in TILE_COLS if n % w == 0 and (name != "qkv" or kvw % w == 0)),
+                  key=lambda w: (-(-(n // w) // grid) * w, -w))
+              for name, _, n, _ in shapes]
+
+    def products():
+        return tuple(Product(name, k, n, w, n // w, -(-(n // w) // grid), kg, chunks, kr)
+                     for (name, k, n, chunks), w, kr in zip(shapes, widths, k_rows))
+
+    prods = products()
+    busy = [p for p in prods if p.subtiles_per_cta > MAX_TILES
+            or p.subtiles_per_cta * mt > MAX_TILE_ROWS]
+    red = max(p.subtiles_per_cta * kg * mt * 128 * 4 for p in prods)
     slot = rows * (d + 8) * 2
     gr = hq // hkv * r
     # The attention task's scratch: floats, the table row, then each
@@ -361,40 +412,100 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
     attn = _up(4 * (gr * dh + 2 * r * dh + gr * (c + r) + 2 * COOP_WARPS * gr
                     + COOP_WARPS * PV_ROWS * dh) + 4 * mb, 16) + RING * COOP_THREADS * 16
 
-    def lay(slots):
-        # ln: the two layernorms' scales and biases, [4][d] f32.
-        out = {"w0": 0, "w1": wbytes, "ln": 2 * wbytes, "x0": _up(2 * wbytes + 16 * d, 128),
+    def lay(wslot, wslots, slots):
+        # ln: the next layernorm's scale and bias, [2][d] f32.
+        ln = _up(wslots * wslot, 16)
+        out = {"w0": 0, "wslot": wslot, "wslots": wslots, "ln": ln, "x0": _up(ln + 8 * d, 128),
                "slot": slot, "slots": slots}
-        out["red"] = out["x0"] + _up(max(slots * slot, attn), 16)
-        out["bar"] = _up(out["red"] + red, 16)
-        return out, out["bar"] + 8 * slots
+        # The x region holds the slots, or the attention's scratch, and the
+        # partial sums at its end (over the slots' tail if need be: a
+        # product's sums meet after its last read of x).
+        region = _up(max(slots * slot, attn, red), 16)
+        out["red"] = out["x0"] + region - red
+        out["bar"] = out["x0"] + region
+        # mbarriers: one an x slot, a full and an empty one a weight slot,
+        # one for the layernorm's parameters
+        return out, out["bar"] + 8 * (slots + 2 * wslots + 1)
 
-    # As many slots as gelu(up) has chunks of d columns (at most MAX_SLOTS),
-    # fewer where shared memory runs out: the chunks' copies are in flight
-    # together.
-    slots = min(MAX_SLOTS, max(p.chunks for p in products))
-    layout, smem = lay(slots)
-    while smem > smem_limit and slots > 1:
+    def wslot_of(ps):  # 1024-byte aligned: the TMA's 128-byte swizzle
+        return _up(max(p.chunk_bytes for p in ps), 1024)
+
+    def fits(wslots, slots):
+        return lay(wslot_of(prods), wslots, slots)[1] <= smem_limit
+
+    # Weight chunks: one a product's x chunk where WSLOTS_WANTED of them fit
+    # beside one x slot, else the largest chunk halved (its rows stay a
+    # whole number of k-steps dividing d) until they do; then as many x
+    # slots as gelu(up) has chunks (up to MAX_SLOTS) that leave
+    # WSLOTS_WANTED weight slots; then as many weight slots as fit.
+    while not busy and not fits(WSLOTS_WANTED, 1):
+        i = max(range(4), key=lambda j: prods[j].chunk_bytes)
+        if k_rows[i] % 32:
+            break
+        k_rows[i] = boxed(k_rows[i] // 2)
+        prods = products()
+    slots = min(MAX_SLOTS, max(p.chunks for p in prods))
+    while slots > 1 and not fits(WSLOTS_WANTED, slots):
         slots -= 1
-        layout, smem = lay(slots)
-    if busy or smem > smem_limit:
+
+    def ring(ps):  # weight slots that fit, and the bytes they keep in flight
+        w = MAX_WSLOTS
+        while w > 1 and lay(wslot_of(ps), w, slots)[1] > smem_limit:
+            w -= 1
+        return w, (w - 1) * wslot_of(ps)
+
+    # Then smaller chunks while they keep more bytes in flight (a slot's
+    # refill waits for its last chunk, so nw - 1 are in flight).
+    wslots, flight = ring(prods)
+    while not busy:
+        i = max(range(4), key=lambda j: prods[j].chunk_bytes)
+        if k_rows[i] % 32:
+            break
+        before = k_rows
+        k_rows = [boxed(kr // 2) if j == i else kr for j, kr in enumerate(k_rows)]
+        cand = products()
+        cand_slots, cand_flight = ring(cand)
+        if cand_flight <= flight:
+            k_rows = before
+            break
+        prods, wslots, flight = cand, cand_slots, cand_flight
+    layout, smem = lay(wslot_of(prods), wslots, slots)
+    if busy or smem > smem_limit or wslots < 2:
         raise ValueError(
             "the cooperative decode kernels do not take these shapes: "
-            + "; ".join([f"{p.name} needs {p.tiles_per_cta} column tiles a CTA on a grid "
-                         f"of {grid} (at most {MAX_TILES})" for p in busy]
-                        + [f"{smem} bytes of shared memory a CTA (at most {smem_limit}): "
-                           f"weights 2 x {wbytes}, x slots {slots} x {slot}, the attention "
-                           f"task's {gr} score rows over {c + r} keys {attn}, partial sums "
-                           f"{red}"]
-                        * (smem > smem_limit)))
+            + "; ".join([f"{p.name} needs {p.subtiles_per_cta} column tiles a CTA on a grid "
+                         f"of {grid} ({TILE} columns each) over {mt} m-tiles (at most "
+                         f"{MAX_TILES} tiles and {MAX_TILE_ROWS} tiles x m-tiles)" for p in busy]
+                        + [f"{lay(layout['wslot'], 2, slots)[1]} bytes of shared memory a CTA "
+                           f"(at most {smem_limit}) with two weight slots of "
+                           f"{layout['wslot']}: x slots {slots} x {slot}, "
+                           f"the attention task's {gr} score rows over {c + r} keys {attn}, "
+                           f"partial sums {red}"] * (not busy)))
     scratch = {"qkv": ((rows, qw + 2 * kvw), torch.float32), "att": ((rows, qw), torch.bfloat16),
                "gelu": ((rows, f), torch.bfloat16)}
-    return CoopPlan(grid, occupancy, rows, mt, products, s * hkv, PHASES * n_layers - 1,
+    return CoopPlan(grid, occupancy, rows, mt, prods, s * hkv, PHASES * n_layers - 1,
                     scratch, layout, smem)
+
+
+def block_group(s, d, hq, hkv, dh, f, c, mb, nsm, smem_limit) -> int:
+    """The most of ``s`` slots one launch of the per-layer step (B5) takes
+    at these widths on a card of ``nsm`` SMs: ``min(s, COOP_MAX_ROWS)``,
+    cut to the m-tiles of 16 rows that the busiest CTA's column tiles
+    leave under ``MAX_TILE_ROWS`` (a wide model's products fill a CTA's
+    tiles x m-tiles sooner: gpt-xl width takes 16 slots a launch, d=1024
+    32). A CTA's column tiles do not depend on the rows. Raises
+    :func:`coop_plan`'s ``ValueError`` for shapes it refuses at that
+    group."""
+    one = coop_plan(1, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
+    busiest = max(p.subtiles_per_cta for p in one.products)
+    group = min(s, COOP_MAX_ROWS, 16 * (MAX_TILE_ROWS // busiest))
+    coop_plan(group, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
+    return group
 
 
 _PLANS: dict = {}
 _LIMITS: dict = {}
+_GROUPS: dict = {}
 # The library the cooperative wrappers launch: the probe build
 # (``fused_decode_probe``, with phase stamps) shares this interface.
 LIBRARY = "fused_decode"
@@ -410,11 +521,11 @@ def coop_constants(device) -> dict:
         lib = _build.load("fused_decode")
         lib.coop_constants.argtypes = [_PTR]
         lib.coop_constants.restype = _INT
-        out = (ctypes.c_int * 8)()
+        out = (ctypes.c_int * 10)()
         with torch.cuda.device(device):
             _build.check(lib.coop_constants(out), "coop_constants")
         names = ("COOP_THREADS", "TILE", "MAX_TILES", "PV_ROWS", "MAX_SLOTS", "RING",
-                 "MAX_GRID", "smem_limit")
+                 "MAX_GRID", "MAX_TILE_ROWS", "MAX_WSLOTS", "smem_limit")
         got = dict(zip(names, out))
         wrong = [f"{nm} {globals()[nm]} (library {v})" for nm, v in got.items()
                  if nm != "smem_limit" and globals()[nm] != v]
@@ -456,10 +567,11 @@ def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device) -> Coo
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-_COMMON = [_PTR] * 14  # h_in, h_out, 12 weights
 
 
 def _check_kernel_dtypes(rope_on, compute_dtype, cache_dtype):
+    """The kernels' envelope in dtypes and features: raises for what they
+    do not compute (the launch plan checks the shapes)."""
     if rope_on:
         raise NotImplementedError(
             "rope on the CUDA decode kernels is not ported yet (ROADMAP A3)"
@@ -472,41 +584,19 @@ def _check_kernel_dtypes(rope_on, compute_dtype, cache_dtype):
         )
 
 
-def _kernel_args(h, weights, ck, cv, num_heads, rope_on, compute_dtype, tables=None):
-    """Validate and lay out the per-layer kernel's inputs (a slab cache, or a
-    pool with its ``tables``); returns (h, weight tensors, dims
-    (S, d, Hq, Hkv, Dh, F, C), lib). Raises for anything outside the
-    kernel's envelope."""
-    _check_kernel_dtypes(rope_on, compute_dtype, ck.dtype)
-    if not (ck.is_contiguous() and cv.is_contiguous()):
-        raise ValueError("the KV cache must be contiguous")
-    s, d = h.shape[0], h.shape[-1]
-    hkv, dh = ck.shape[-2], ck.shape[-1]
-    mb = 0 if tables is None else tables.shape[1]
-    c = ck.shape[-3] * (mb or 1)  # slab length, or the tables' extent
-    f = weights["w_up"].shape[-1]
-    dims = (s, d, num_heads, hkv, dh, f, c)
-    lib = _build.load("fused_decode")
-    lib.decode_smem_bytes.argtypes = [_INT] * 8
-    lib.decode_smem_bytes.restype = ctypes.c_longlong
-    if lib.decode_smem_bytes(*dims, mb) <= 0:
-        raise ValueError(
-            f"decode kernels do not take (S, d, Hq, Hkv, Dh, F, C)={dims}: "
-            "they need head_dim 64 or 128, at most 8 query heads per KV "
-            "head, widths divisible by 8, and the cache's score row in "
-            "227 KB of shared memory"
-        )
-    return h.float().contiguous(), _kernel_weights(weights, h.device), dims, lib
+def _as(t, dtype, dev):
+    """``t`` in ``dtype`` on ``dev``, contiguous; ``t`` itself when it is
+    (attribute checks cost the host less than a ``.to`` call)."""
+    if t.dtype == dtype and t.device == dev and t.is_contiguous():
+        return t
+    return t.to(device=dev, dtype=dtype).contiguous()
 
 
 def _kernel_weights(weights, dev):
     """The weights as the kernels take them, in ``WEIGHT_NAMES`` order:
     projections bf16, the rest f32, contiguous."""
-    return [
-        weights[nm].to(device=dev, dtype=torch.bfloat16 if nm in PROJ_NAMES
-                       else torch.float32).contiguous()
-        for nm in WEIGHT_NAMES
-    ]
+    return [_as(weights[nm], torch.bfloat16 if nm in PROJ_NAMES else torch.float32, dev)
+            for nm in WEIGHT_NAMES]
 
 
 def _ordered_ptrs(ws):
@@ -518,19 +608,13 @@ def _ordered_ptrs(ws):
 
 
 def _i32(t):
-    return t.to(torch.int32).contiguous()
+    return _as(t, torch.int32, t.device)
 
 
 def _stream(h):
-    return torch.cuda.current_stream(h.device).cuda_stream
-
-
-def _launch(lib, name, argtypes, *args):
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _build.check(fn(*args), name)
-    _build.LAUNCHES[name] += 1
+    # The raw handle of the current stream (torch.cuda.current_stream builds
+    # a Stream object on every call).
+    return torch._C._cuda_getCurrentRawStream(h.device.index)
 
 
 def _cpu_only(h):
@@ -556,35 +640,92 @@ def barrier_flags(device):
     return flags.data_ptr()
 
 
-def _coop_launch(kernel, h, weights, pool_k, pool_v, tables, r, num_heads, rope_on,
-                 compute_dtype, ptrs, tail):
-    """Validate and launch ``kernel`` over the layer-stacked cache or pool.
-    The C interface takes h_in, h_out, the weights, ``ptrs`` (caches and
-    the [S] int32 rows), the scratch, the barrier's flags, the plan, the
-    model dims (n_layers, S[, L], d, Hq, Hkv, Dh, F) and ``tail``
-    (C, or NB, bs, MB). Returns h_out."""
+# What a launch of one shape on one stream reuses: the C function with its
+# argtypes set, the plan's ints, the scratch between phases (each launch
+# writes it before it reads it, and launches on one stream run in order)
+# and the barrier's flags. Keyed by library, kernel, shape, device, stream.
+_LAUNCHES: dict = {}
+
+
+def _launch_record(kernel, shape, device, stream):
+    key = (LIBRARY, kernel, shape, device.index, stream)
+    rec = _LAUNCHES.get(key)
+    if rec is None:
+        s, r, n, d, hq, hkv, dh, f, c, mb = shape
+        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device)
+        fn = getattr(_build.load(LIBRARY), kernel)
+        scratch = [torch.empty(sh, dtype=dt, device=device) for sh, dt in plan.scratch.values()]
+        rec = _LAUNCHES[key] = (fn, (ctypes.c_int * 19)(*plan.ints()),
+                                [t.data_ptr() for t in scratch], barrier_flags(device),
+                                scratch)
+        fn.restype = ctypes.c_int
+    return rec
+
+
+def _coop_launch(kernel, h, weights, pool_k, pool_v, tables, r, n_layers, num_heads, rope_on,
+                 compute_dtype, ptrs, dims):
+    """Validate and launch ``kernel`` over ``n_layers`` layers of the cache
+    or pool. The C interface takes h_in, h_out, the weights, ``ptrs``
+    (caches, the [S] int32 rows, the per-layer step's fresh rows), the
+    scratch, the barrier's flags, the plan and ``dims`` (the model dims,
+    then C, or NB, bs, MB). Returns h_out."""
     _check_kernel_dtypes(rope_on, compute_dtype, pool_k.dtype)
     if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
     s, d = h.shape[0], h.shape[-1]
-    n, hkv, dh = pool_k.shape[0], pool_k.shape[-2], pool_k.shape[-1]
+    hkv, dh = pool_k.shape[-2], pool_k.shape[-1]
     mb = 0 if tables is None else tables.shape[1]
     c = pool_k.shape[-3] * (mb or 1)  # slab length, or the tables' extent
     f = weights["w_up"].shape[-1]
-    plan = launch_plan(kernel, s, r, n, d, num_heads, hkv, dh, f, c, mb, h.device)
+    stream = _stream(h)
+    fn, plan, scratch, flags, _ = _launch_record(
+        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), h.device, stream)
     ws = _kernel_weights(weights, h.device)
-    h = h.float().contiguous()
+    h = _as(h, torch.float32, h.device)
     out = torch.empty_like(h)
-    scratch = [torch.empty(shape, dtype=dt, device=h.device)
-               for shape, dt in plan.scratch.values()]
-    flags = barrier_flags(h.device)
-    dims = [n, s, *([r] if kernel == "verify_tokens_paged" else []), d, num_heads, hkv, dh,
-            f, *tail]
-    args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), *ptrs,
-            *(t.data_ptr() for t in scratch), flags]
-    _launch(_build.load(LIBRARY), kernel, [_PTR] * (len(args) + 1) + [_INT] * len(dims) + [_PTR],
-            *args, (ctypes.c_int * 11)(*plan.ints()), *dims, _stream(h))
+    args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), *ptrs, *scratch, flags]
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * (len(args) + 1) + [_INT] * len(dims) + [_PTR]
+    _build.check(fn(*args, plan, *dims, stream), kernel)
+    _build.LAUNCHES[kernel] += 1
     return out
+
+
+def _block_launch(kernel, h, weights, ck, cv, tables, lengths, num_heads, rope, compute_dtype):
+    """B5 on the card: one layer's step, in launches of the most slots the
+    plan takes at this width (:func:`block_group`). Returns ``(h_out,
+    k_fresh, v_fresh)``."""
+    s, d = h.shape[0], h.shape[-1]
+    hkv, dh = ck.shape[-2], ck.shape[-1]
+    mb = 0 if tables is None else tables.shape[1]
+    key = (s, d, num_heads, hkv, dh, weights["w_up"].shape[-1], ck.shape[-3] * (mb or 1), mb,
+           h.device.index)
+    group = _GROUPS.get(key)
+    if group is None:
+        props = torch.cuda.get_device_properties(h.device)
+        group = _GROUPS[key] = block_group(*key[:-1], props.multi_processor_count,
+                                           coop_constants(h.device)["smem_limit"])
+    if s > group:
+        parts = [_block_launch(kernel, h[i:i + group], weights,
+                               ck if tables is not None else ck[i:i + group],
+                               cv if tables is not None else cv[i:i + group],
+                               None if tables is None else tables[i:i + group],
+                               lengths[i:i + group], num_heads, rope, compute_dtype)
+                 for i in range(0, s, group)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+    kf = torch.empty((s, hkv, dh), dtype=ck.dtype, device=h.device)
+    vf = torch.empty_like(kf)
+    lens = _i32(lengths)
+    dims = [s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1]]
+    if tables is None:
+        ptrs, tail = [ck.data_ptr(), cv.data_ptr(), lens.data_ptr()], [ck.shape[1]]
+    else:
+        tables = _i32(tables)
+        ptrs = [ck.data_ptr(), cv.data_ptr(), lens.data_ptr(), tables.data_ptr()]
+        tail = [ck.shape[0], ck.shape[1], tables.shape[1]]
+    out = _coop_launch(kernel, h, weights, ck, cv, tables, 1, 1, num_heads, rope, compute_dtype,
+                       [*ptrs, kf.data_ptr(), vf.data_ptr()], dims + tail)
+    return out, kf, vf
 
 
 def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
@@ -601,17 +742,8 @@ def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
             h, weights, ck, cv, lengths, num_heads=num_heads, rope=rope,
             compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(h, weights, ck, cv, num_heads, rope, compute_dtype)
-    s, _, _, hkv, dh, _, _ = dims
-    out = torch.empty_like(h)
-    kf = torch.empty((s, hkv, dh), dtype=ck.dtype, device=h.device)
-    vf = torch.empty_like(kf)
-    lens = _i32(lengths)
-    _launch(lib, "decode_block_slab", _COMMON + [_PTR] * 5 + [_INT] * 7 + [_PTR],
-            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), ck.data_ptr(),
-            cv.data_ptr(), lens.data_ptr(), kf.data_ptr(), vf.data_ptr(), *dims,
-            _stream(h))
-    return out, kf, vf
+    return _block_launch("decode_block_slab", h, weights, ck, cv, None, lengths, num_heads,
+                         rope, compute_dtype)
 
 
 def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
@@ -629,9 +761,11 @@ def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
             rope=rope, compute_dtype=compute_dtype,
         )
     lens, act = _i32(lengths), _i32(active)
-    out = _coop_launch("decode_token_slab", h, weights, ck, cv, None, 1, num_heads, rope,
+    n, s, c, hkv, dh = ck.shape
+    out = _coop_launch("decode_token_slab", h, weights, ck, cv, None, 1, n, num_heads, rope,
                        compute_dtype, [ck.data_ptr(), cv.data_ptr(), lens.data_ptr(),
-                                       act.data_ptr()], [ck.shape[2]])
+                                       act.data_ptr()],
+                       [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c])
     return out, ck, cv
 
 
@@ -650,20 +784,8 @@ def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads
             h, weights, pool_k, pool_v, tables, lengths, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype,
         )
-    h, ws, dims, lib = _kernel_args(
-        h, weights, pool_k, pool_v, num_heads, rope, compute_dtype, tables
-    )
-    s, d, hq, hkv, dh, f, _ = dims
-    out = torch.empty_like(h)
-    kf = torch.empty((s, hkv, dh), dtype=pool_k.dtype, device=h.device)
-    vf = torch.empty_like(kf)
-    lens, tabs = _i32(lengths), _i32(tables)
-    _launch(lib, "decode_block_paged", _COMMON + [_PTR] * 6 + [_INT] * 8 + [_PTR],
-            h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
-            pool_v.data_ptr(), lens.data_ptr(), tabs.data_ptr(), kf.data_ptr(),
-            vf.data_ptr(), s, d, hq, hkv, dh, f, pool_k.shape[1], tabs.shape[1],
-            _stream(h))
-    return out, kf, vf
+    return _block_launch("decode_block_paged", h, weights, pool_k, pool_v, tables, lengths,
+                         num_heads, rope, compute_dtype)
 
 
 def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
@@ -681,10 +803,13 @@ def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
             rope=rope, compute_dtype=compute_dtype,
         )
     lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
-    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, tabs, 1, num_heads,
+    n, nb, bs, hkv, dh = pool_k.shape
+    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, tabs, 1, n, num_heads,
                        rope, compute_dtype,
                        [pool_k.data_ptr(), pool_v.data_ptr(), lens.data_ptr(),
-                        act.data_ptr(), tabs.data_ptr()], [*pool_k.shape[1:3], tabs.shape[1]])
+                        act.data_ptr(), tabs.data_ptr()],
+                       [n, h.shape[0], h.shape[-1], num_heads, hkv, dh,
+                        weights["w_up"].shape[-1], nb, bs, tabs.shape[1]])
     return out, pool_k, pool_v
 
 
@@ -710,8 +835,11 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
         )
     tabs = _i32(tables)
     plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
-    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, tabs, h.shape[1],
+    n, nb, bs, hkv, dh = pool_k.shape
+    s, l, d = h.shape
+    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, tabs, l, n,
                         num_heads, rope, compute_dtype,
                         [pool_k.data_ptr(), pool_v.data_ptr(), tabs.data_ptr(),
                          plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
-                        [*pool_k.shape[1:3], tabs.shape[1]])
+                        [n, s, l, d, num_heads, hkv, dh, weights["w_up"].shape[-1], nb, bs,
+                         tabs.shape[1]])

@@ -144,15 +144,15 @@ def test_commit_slot_rows_semantics():
 
 
 def test_kernel_envelope_refusals():
+    """What the kernels do not compute is refused before any build: RoPE,
+    a compute or cache dtype other than bf16 (the check every kernel
+    wrapper runs first), an unknown engine."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    h = torch.zeros(2, 32)
-    ck = torch.zeros(1, 2, 8, 4, 8, dtype=torch.bfloat16)
-    w = {"w_up": torch.zeros(1, 32, 128)}
     with pytest.raises(NotImplementedError, match="rope"):
-        fd._kernel_args(h, w, ck, ck, 4, True, torch.bfloat16)
+        fd._check_kernel_dtypes(True, torch.bfloat16, torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bf16"):
-        fd._kernel_args(h, w, ck.float(), ck.float(), 4, False, torch.float32)
+        fd._check_kernel_dtypes(False, torch.float32, torch.float32)
     with pytest.raises(ValueError, match="unknown decode engine"):
         torch_model()._resolve_decode_engine("xla")
 
@@ -321,7 +321,8 @@ def _plan(s, r, c, mb=0, nsm=132, occupancy=1, n_layers=8, d=512, hq=8, hkv=8, d
 
 def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     """What the kernel relies on: every product's tiles spread over the grid
-    with each weight tile fetched once, the regions of shared memory apart
+    with each weight tile fetched once, its weight chunks whole k-steps
+    dividing d and inside a weight slot, the regions of shared memory apart
     and large enough, the scratch of the phases' shapes."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
@@ -330,29 +331,39 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     assert plan.rows == s * r and plan.m_tiles == -(-s * r // 16)
     assert plan.tasks == s * hkv and plan.syncs == 5 * n_layers - 1
     by = {p.name: p for p in plan.products}
+    lay = plan.layout
     for name, k, n in (("qkv", d, qw + 2 * kvw), ("out", qw, d), ("up", d, f), ("down", f, d)):
         p = by[name]
-        assert (p.k, p.n, p.tiles) == (k, n, n // fd.TILE)
-        assert p.tiles_per_cta == -(-p.tiles // plan.grid) <= fd.MAX_TILES
+        assert p.tile_cols in fd.TILE_COLS and n % p.tile_cols == 0
+        assert (p.k, p.n, p.tiles) == (k, n, n // p.tile_cols)
+        if name == "qkv":  # a tile lies inside one of wq, wk, wv
+            assert kvw % p.tile_cols == 0
+        assert p.tiles_per_cta == -(-p.tiles // plan.grid)
+        assert p.subtiles_per_cta == p.tiles_per_cta * p.tile_cols // fd.TILE <= fd.MAX_TILES
+        assert p.subtiles_per_cta * plan.m_tiles <= fd.MAX_TILE_ROWS
         # The k-groups of a CTA's warps: every warp a group, every m-tile a
         # slot of each group.
         assert p.k_groups * (4 if plan.m_tiles > 2 else plan.m_tiles) == fd.COOP_WARPS
+        assert p.k_rows % 16 == 0 and d % p.k_rows == 0
+        assert p.k_rows <= 256 or p.k_rows % 256 == 0  # whole TMA boxes
+        assert p.chunk_bytes == p.tiles_per_cta * p.k_rows * p.tile_cols * 2 <= lay["wslot"]
     assert by["down"].chunks == -(-f // d) and by["qkv"].chunks == by["up"].chunks == 0
-    lay = plan.layout
-    wbytes = max(p.tiles_per_cta * p.k * 16 for p in plan.products)
-    red = max(p.tiles_per_cta * p.k_groups * plan.m_tiles * 128 * 4 for p in plan.products)
+    red = max(p.subtiles_per_cta * p.k_groups * plan.m_tiles * 128 * 4 for p in plan.products)
     slot = s * r * (d + 8) * 2
     g_r = hq // hkv * r
     scores = 4 * g_r * (c + r)
     ring = fd.RING * fd.COOP_THREADS * 16
-    assert lay["w0"] == 0 and lay["w1"] >= wbytes and lay["ln"] - lay["w1"] >= wbytes
-    assert lay["x0"] - lay["ln"] >= 16 * d and lay["x0"] % 128 == 0
+    assert lay["w0"] == 0 and lay["wslot"] % 1024 == 0 and 2 <= lay["wslots"] <= fd.MAX_WSLOTS
+    assert lay["ln"] >= lay["wslots"] * lay["wslot"] and lay["ln"] % 16 == 0
+    assert lay["x0"] >= lay["ln"] + 8 * d and lay["x0"] % 128 == 0
     assert lay["slot"] == slot and slot % 16 == 0 and 1 <= lay["slots"] <= fd.MAX_SLOTS
-    region = lay["red"] - lay["x0"]
+    region = lay["bar"] - lay["x0"]
     assert region >= lay["slots"] * slot and region >= scores + ring
-    assert lay["bar"] - lay["red"] >= red and lay["bar"] % 8 == 0
-    assert plan.smem == lay["bar"] + 8 * lay["slots"] <= H100_SMEM
-    assert len(plan.ints()) == 11 and plan.ints()[1] == d
+    assert lay["x0"] <= lay["red"] and lay["bar"] - lay["red"] >= red and lay["bar"] % 8 == 0
+    assert plan.smem == lay["bar"] + 8 * (lay["slots"] + 2 * lay["wslots"] + 1) <= H100_SMEM
+    ints = plan.ints()
+    assert len(ints) == 19 and ints[1] == d and ints[4:8] == [p.k_rows for p in plan.products]
+    assert ints[8:12] == [p.tile_cols for p in plan.products]
     assert {k: v[0] for k, v in plan.scratch.items()} == {
         "qkv": (s * r, qw + 2 * kvw), "att": (s * r, qw), "gelu": (s * r, f)}
 
@@ -365,11 +376,78 @@ def test_coop_plan_at_gpt_m(s, r, c, mb):
     plan = _plan(s, r, c, mb)
     _check_plan(plan, s, r, c, mb, nsm=132, occupancy=1, **GPT_M)
     assert plan.grid == 132 and plan.syncs == 39
-    assert [p.tiles_per_cta for p in plan.products] == [2, 1, 2, 1]
-    assert [p.tiles for p in plan.products] == [192, 64, 256, 64]
+    # q/k/v and up in tiles of 16 columns (one a CTA, 96 and 128 CTAs), the
+    # output and down projections in tiles of 8 (64 CTAs): the busiest CTA
+    # takes 16 columns, as with tiles of 8 over every CTA, in half the
+    # copies.
+    assert [p.tile_cols for p in plan.products] == [16, 8, 16, 8]
+    assert [p.tiles_per_cta for p in plan.products] == [1, 1, 1, 1]
+    assert [p.tiles for p in plan.products] == [96, 64, 128, 64]
+    # One weight chunk a product's x chunk: a layer is 7 chunks, and the
+    # decode step's ring of 9 holds more than a layer.
+    assert [p.k_rows for p in plan.products] == [512] * 4
+    assert plan.layout["wslots"] == {1: 9, 5: 6, 8: 5}[r]
     # B6 stages gelu(up)'s 4 chunks of d columns at once; the verify's
     # 40 and 64 rows leave room for 3 and 2 slots.
     assert plan.layout["slots"] == {1: 4, 5: 3, 8: 2}[r]
+
+
+@pytest.mark.parametrize("s,c,mb", [(8, 1024, 0), (8, 1024, 64), (8, 256, 16), (1, 768, 0)])
+@pytest.mark.parametrize("width", ["gpt-m", "gpt-xl"])
+def test_coop_plan_of_the_per_layer_step(s, c, mb, width):
+    """The per-layer step (B5) is the cooperative kernel over one layer: at
+    gpt-m its plan is the megakernel's (the same chunks, so the same sums),
+    and at gpt-xl width (d 2048, 16 x 128, F 8192) a CTA's tiles of a
+    layer (~760 KB) stream through a ring of chunks in shared memory."""
+    dims = GPT_M if width == "gpt-m" else dict(d=2048, hq=16, hkv=16, dh=128, f=8192)
+    dims = {**dims, "n_layers": 1}
+    plan = _plan(s, 1, c, mb, **dims)
+    _check_plan(plan, s, 1, c, mb, nsm=132, occupancy=1, **dims)
+    assert plan.grid == 132 and plan.syncs == 4 and plan.tasks == s * dims["hkv"]
+    per_cta = sum(p.tiles_per_cta * p.tile_cols * 2 * p.k for p in plan.products)
+    if width == "gpt-m":
+        mega = _plan(s, 1, c, mb)
+        assert (plan.layout, plan.smem, plan.products) == (mega.layout, mega.smem, mega.products)
+    else:
+        # up in one tile of 64 columns a CTA (128-byte rows), q/k/v in three
+        # of 16, the output and down projections in one of 16.
+        assert [p.tile_cols for p in plan.products] == [16, 16, 64, 16]
+        assert [p.tiles_per_cta for p in plan.products] == [3, 1, 1, 1]
+        assert per_cta > 3 * H100_SMEM
+        assert all(p.k_rows < p.k for p in plan.products)  # several chunks each
+        assert plan.layout["wslots"] >= 4
+
+
+@pytest.mark.parametrize("s,want", [(1, 1), (8, 8), (16, 16), (17, 16), (32, 16), (100, 16)])
+@pytest.mark.parametrize("mb", [0, 64])
+def test_block_group_at_gpt_xl_width(s, want, mb):
+    """The per-layer step serves any slot count: at gpt-xl width (d 2048,
+    16 x 128, F 8192) the up projection fills a CTA's tiles x m-tiles at
+    one m-tile, so a launch takes at most 16 slots, and the wrapper runs
+    the rest in further launches; each group's plan is one coop_plan
+    takes."""
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    xl = dict(d=2048, hq=16, hkv=16, dh=128, f=8192)
+    got = fd.block_group(s, *xl.values(), 1024, mb, 132, H100_SMEM)
+    assert got == want
+    with pytest.raises(ValueError, match="tiles x m-tiles"):
+        _plan(17, 1, 1024, mb, n_layers=1, **xl)
+    for g in {got, s % got or got}:
+        _check_plan(_plan(g, 1, 1024, mb, n_layers=1, **xl), g, 1, 1024, mb, n_layers=1,
+                    nsm=132, occupancy=1, **xl)
+
+
+@pytest.mark.parametrize("s,want", [(8, 8), (64, 64), (100, 64)])
+def test_block_group_at_gpt_m_and_d1024(s, want):
+    """gpt-m takes the cooperative kernel's 64 rows a launch; d = 1024
+    (8 x 128, F 4096) at most 32 slots."""
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    assert fd.block_group(s, 512, 8, 8, 64, 2048, 1024, 0, 132, H100_SMEM) == want
+    assert fd.block_group(s, 1024, 8, 8, 128, 4096, 1024, 0, 132, H100_SMEM) == min(want, 32)
+    with pytest.raises(ValueError, match="head_dim 64 or 128"):
+        fd.block_group(s, 512, 16, 16, 32, 2048, 1024, 0, 132, H100_SMEM)
 
 
 @pytest.mark.parametrize("s,r,c,mb,hq,hkv,dh,nsm,occ", [
@@ -392,12 +470,12 @@ def test_coop_plan_small_shapes(s, r, c, mb, hq, hkv, dh, nsm, occ):
     (dict(r=9), "1 to 8 rows a slot"),
     (dict(s=9, r=8), "1 to 64 rows in all"),
     (dict(d=640), r"model_dim \(640\) = heads x head_dim"),
-    (dict(d=1280, hq=20), "at most 1024"),
+    (dict(s=8, r=5, d=2048, hq=16, hkv=16, dh=128, f=8192), "over 3 m-tiles"),
     (dict(f=2040), "ffn width a multiple of 16"),
     (dict(hq=8, hkv=3), "a multiple of the KV heads"),
     (dict(nsm=20), "column tiles a CTA on a grid of 20"),
     (dict(s=8, r=8, hkv=1), "bytes of shared memory a CTA"),
-    (dict(s=8, r=1, smem_limit=101376), r"\(at most 101376\)"),
+    (dict(s=8, r=1, smem_limit=65536), r"\(at most 65536\)"),
     (dict(c=1000, mb=64), "whole blocks"),
     (dict(n_layers=0), "at least one layer"),
 ])
@@ -496,7 +574,8 @@ def test_coop_constants_match_the_library_on_gpu():
     got = fd.coop_constants("cuda")
     assert {k: v for k, v in got.items() if k != "smem_limit"} == dict(
         COOP_THREADS=fd.COOP_THREADS, TILE=fd.TILE, MAX_TILES=fd.MAX_TILES, PV_ROWS=fd.PV_ROWS,
-        MAX_SLOTS=fd.MAX_SLOTS, RING=fd.RING, MAX_GRID=fd.MAX_GRID)
+        MAX_SLOTS=fd.MAX_SLOTS, RING=fd.RING, MAX_GRID=fd.MAX_GRID,
+        MAX_TILE_ROWS=fd.MAX_TILE_ROWS, MAX_WSLOTS=fd.MAX_WSLOTS)
     if "H100" in torch.cuda.get_device_name(0):
         assert got["smem_limit"] == H100_SMEM
     plan = fd.launch_plan("verify_tokens_paged", 8, 5, 8, 512, 8, 8, 64, 2048, 1024, 64, "cuda")
@@ -533,3 +612,81 @@ def test_coop_kernel_replays_from_a_cuda_graph_on_gpu():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [8, 32])
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_block_kernel_at_gpt_xl_width_on_gpu(paged, s):
+    """B5 at gpt-xl width (d 2048, 16 heads of 128, F 8192), which the
+    weight stream serves although a layer's tiles a CTA exceed shared
+    memory: within the decode tolerance of its plain version, at 8 slots
+    (one launch) and at 32 (two launches of 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import _build, fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    c, hq, dh, bs = 128, 16, 128, 16
+    w, r = _gpu_weights(g, 1, hq, hq, dh)
+    w0 = {k: t[0] for k, t in w.items()}
+    ck = r(1, s, c, hq, dh, dt=torch.bfloat16)
+    cv = r(1, s, c, hq, dh, dt=torch.bfloat16)
+    lengths = torch.randint(0, c, (s,), device="cuda", generator=g)
+    x = r(s, hq * dh)
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+    _build.reset_launches()
+    if paged:
+        nb = s * (c // bs) + 3
+        tables = torch.randperm(nb, device="cuda")[: s * (c // bs)].reshape(s, c // bs).int()
+        pk, pv = _pool_from_slab(ck, tables, nb, bs)[0], _pool_from_slab(cv, tables, nb, bs)[0]
+        got = fd.decode_block_paged(x, w0, pk, pv, tables, lengths, **kw)
+        ref = fd.decode_block_paged_plain(x, w0, pk, pv, tables, lengths, **kw)
+    else:
+        got = fd.decode_block_slab(x, w0, ck[0], cv[0], lengths, **kw)
+        ref = fd.decode_block_slab_plain(x, w0, ck[0], cv[0], lengths, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"decode_block_{'paged' if paged else 'slab'}"] == -(-s // 16)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * max(
+            1.0, b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_block_kernel_layer_by_layer_equals_megakernel_on_gpu(paged):
+    """One step through B5 layer by layer, each layer's fresh rows
+    committed by the caller, equals one B6 launch bit for bit: h_out and
+    every committed row (the sums' order depends only on the rows and K)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    n, s, c, hq, hkv, dh, bs = 3, 4, 64, 4, 2, 64, 8
+    w, r, ck, cv = _coop_case(g, n, s, c, hq, hkv, dh)
+    lengths = torch.tensor([0, 1, c - 1, 20], device="cuda")
+    act = torch.tensor([True, True, True, False], device="cuda")
+    x = r(s, hq * dh)
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+    if paged:
+        nb = s * (c // bs) + 3
+        tables = torch.randperm(nb, device="cuda")[: s * (c // bs)].reshape(s, c // bs).int()
+        ck, cv = _pool_from_slab(ck, tables, nb, bs), _pool_from_slab(cv, tables, nb, bs)
+    k1, v1 = ck.clone(), cv.clone()
+    if paged:
+        want = fd.decode_token_paged(x, w, k1, v1, tables, lengths, act, **kw)[0]
+    else:
+        want = fd.decode_token_slab(x, w, k1, v1, lengths, act, **kw)[0]
+    k2, v2, h = ck.clone(), cv.clone(), x
+    for i in range(n):
+        wi = {k: t[i] for k, t in w.items()}
+        if paged:
+            h, kq, vq = fd.decode_block_paged(h, wi, k2[i], v2[i], tables, lengths, **kw)
+            fd.commit_paged_rows(k2[i], v2[i], kq, vq, tables, lengths, act)
+        else:
+            h, kq, vq = fd.decode_block_slab(h, wi, k2[i], v2[i], lengths, **kw)
+            fd.commit_slot_rows(k2[i], v2[i], kq, vq, lengths, act)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want) and torch.equal(k2, k1) and torch.equal(v2, v1)

@@ -354,3 +354,26 @@ def test_attention_gradient_reaches_wq_wk_wv_on_gpu(monkeypatch):
     for name in ("wq", "wk", "wv"):
         t = getattr(broken, name)
         assert t is None or t.abs().max().item() == 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dq_kernel_d128_gqa_ragged_on_gpu(dtype):
+    """B4b at head_dim 128 with GQA and kv_lens against the plain backward
+    (f32 within 1e-5, bf16 within 1e-2 of max(1, |ref|)); two launches
+    bitwise equal (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the backward kernels have no CPU mode")
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, o, lse, delta, lens = _gpu_bwd_inputs(
+        dtype, 128, True, "ragged", 8, 2, 333, True, seed=31)
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, lens, True)[0]
+    runs = [fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, kv_lens=lens)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    rel = 1e-5 if dtype == "float32" else 1e-2
+    assert runs[0].dtype == ref.dtype
+    err = (runs[0].float() - ref.float()).abs().max().item()
+    assert err <= rel * max(1.0, ref.float().abs().max().item()), err

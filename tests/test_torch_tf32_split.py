@@ -188,3 +188,60 @@ def test_single_pass_tf32_misses_the_tolerance():
         worst.append(max(_forward_errors(case, passes=1)))
         worst.append(max(_backward_errors(case, passes=1)))
     assert max(worst) > 10 * TOL, worst
+
+
+# B4b's tiles (csrc/flash_bwd.cu q_kernel): keys a K/V tile.
+DQ_KEY_TILE = 32
+
+
+def emulated_dq(q, k, v, do, lse, delta, lens, bk=DQ_KEY_TILE):
+    """dq as B4b computes it (causal, f32): key tile by key tile, S and dP
+    split-TF32, p masked explicitly and ds formed in f32, the tile's share
+    dS K split-TF32 in a fresh accumulator, added to dq in f32."""
+    from distributed_tensorflow_tpu_torch.ops.attention import repeat_kv
+
+    b, l, hq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    kr, vr = repeat_kv(k, v, hq)
+    valid = _valid(l, lens)
+    dq = torch.zeros(b, l, hq, d)
+    for k0 in range(0, l, bk):
+        kt, vt = kr[:, k0:k0 + bk], vr[:, k0:k0 + bk]
+        s = product("bqhd,bkhd->bhqk", q, kt) * scale
+        ok = valid[..., k0:k0 + bk]
+        p = torch.where(ok, torch.exp(s - lse.transpose(1, 2)[..., None]), 0.0)
+        dp = product("bqhd,bkhd->bhqk", do, vt)
+        ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
+        dq = dq + product("bhqk,bkhd->bqhd", ds, kt)
+    return dq
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_dq_kernel_arithmetic_matches_jax_split_backward(d):
+    """B4b's arithmetic, emulated, within the chip's f32 tolerance of the
+    dq of the JAX package's split backward (``_flash_bwd_impl`` with
+    ``fused=False``: its ``_dq_kernel`` in CPU interpret mode, through the
+    VJP of ``flash_attention_with_lse``), at a causal, ragged GQA case
+    with an lse cotangent."""
+    import jax
+    import jax.numpy as jnp
+    from distributed_tensorflow_tpu.ops.pallas_attention import flash_attention_with_lse
+
+    rng = np.random.default_rng(d + 5)
+    l = 77
+    q, do = (rng.standard_normal((2, l, 4, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((2, l, 2, d)).astype(np.float32) for _ in range(2))
+    lens = np.array([29, 77], np.int32)
+    dlse = rng.standard_normal((2, l, 4)).astype(np.float32)
+
+    def f(q_, k_, v_):
+        return flash_attention_with_lse(q_, k_, v_, causal=True, kv_lens=jnp.asarray(lens),
+                                        interpret=True, fused=False)
+
+    (o, lse), vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    jdq = np.asarray(vjp((jnp.asarray(do), jnp.asarray(dlse)))[0])
+    o, lse = torch.from_numpy(np.asarray(o)), torch.from_numpy(np.asarray(lse))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    delta = (tdo * o).sum(-1) - torch.from_numpy(dlse)
+    got = emulated_dq(tq, tk, tv, tdo, lse, delta, torch.from_numpy(lens))
+    assert _rel_err(got, jdq) <= TOL, _rel_err(got, jdq)
