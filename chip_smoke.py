@@ -91,7 +91,24 @@ non-zero):
     ``tests/test_lm_trainer.py``; (c) 12 steps of gpt-xl-L1024-flash-remat
     (batch 16, Adam 1e-3, bf16), whose backward must be the dq + dk/dv pair
     (4 launches each a step, the fused one never), the cost finite and
-    falling.
+    falling;
+13. serve gpt-m-L1024 with RoPE (``pos_embedding="rope"``, seeded random
+    weights) on bf16, int8 and fp8 KV caches, and the phase-4 model on an
+    int8 cache, each through five servers: slab (B6), slab per-layer (B5),
+    paged with the prefix cache (B6 paged), paged with ``spec_draft=4``
+    (B7) and paged per-layer (B5 paged), phase 4's and phase 10's
+    requests; each must launch its kernel (the launches of its variant),
+    the paged ones hit the prefix cache, speculation accept drafts; every
+    stream is held against ``decode_engine="xla"`` (the plain decode) at
+    the same cache type under ``compare_streams``' rule; tokens/s and ms a
+    step are printed, and the quantized caches' greedy divergence from the
+    bf16 cache's streams beside the JAX package's budgets (a reading on
+    random weights, not gated);
+14. the single-sequence API on the RoPE model: 64 greedy tokens of 8 rows
+    through ``prefill`` / ``decode_step`` on "fused" (B6) and
+    "fused-layer" (B5) against "xla" under phase 5's rule, then
+    ``greedy_decode`` on each engine; an f32 gpt-m model must be refused
+    by ``engine="fused"`` and "auto" and decode on ``engine="xla"``.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -111,7 +128,14 @@ per-layer kernel layer by layer, with the commits, equal to one megakernel
 launch bit for bit (slab and paged), and the per-layer kernel at gpt-xl
 width against its plain version. Every kernel's ``ms`` is a call from
 Python, as the path pays it; the per-layer kernel's launch replayed from a
-CUDA graph is printed beside it (``graph_ms``: the device's share).
+CUDA graph is printed beside it (``graph_ms``: the device's share). For
+each of ``VARIANTS`` (RoPE over bf16, int8 and fp8 caches; learned
+positions over int8) it holds B5 slab/paged, B6 slab/paged and B7 against
+their plain versions (h under REL_TOL, 1-byte codes within one step with
+the share that differs printed and bounded, scales under REL_TOL), B5
+layer by layer == B6 and paged == slab bit for bit, and times each beside
+its plain version and its bound (1-byte codes plus a 4-byte scale a row);
+the kernels line lists each as ``<kernel>[<variant>]``.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -119,9 +143,10 @@ beside it, the script exits non-zero and prints no result.
 
 ``--kernel-times`` runs no phase: it times the decode kernels (B5 slab
 and paged at gpt-m and at gpt-xl width, B6 slab and paged and B7 over 8
-gpt-m layers) and the dq kernel (B4b at the gpt-m and gpt-xl-L1024
-training shapes) through their public wrappers, a call from Python each
-as above, and prints one JSON line with the card's name and power limit.
+gpt-m layers, and at gpt-m each of ``VARIANTS`` where the package takes
+them) and the dq kernel (B4b at the gpt-m and gpt-xl-L1024 training
+shapes) through their public wrappers, a call from Python each as above,
+and prints one JSON line with the card's name and power limit.
 ``--root DIR`` takes the package from another checkout (an unpacked
 ``git archive`` of an earlier commit has the same wrappers), so two
 commits are compared with one definition of each time: run both, in
@@ -132,6 +157,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import re
@@ -254,18 +280,41 @@ SOURCES = {
     "fused_mlp_epoch": ("distributed_tensorflow_tpu_torch/ops/csrc/fused_mlp.cu",
                         "distributed_tensorflow_tpu/ops/pallas_mlp.py:181"),
 }
+DECODE_KERNELS = ("decode_block_slab", "decode_block_paged", "decode_token_slab",
+                  "decode_token_paged", "verify_tokens_paged")
 PATHS = {"decode_block_slab": "fused-layer", "fused_mlp_step": "mlp-step",
          "fused_mlp_epoch": "mlp-train", "decode_token_paged": "paged",
          "verify_tokens_paged": "paged-spec", "decode_block_paged": "paged-fused-layer",
          "flash_bwd_fused": "lm-train", "flash_bwd_dq": "lm-train-xl",
          "flash_bwd_dkv": "lm-train-xl"}
 BLOCK = 16  # the paged pool's block size (phases 3 and 10)
+# The decode kernels' variants held in phase 3 and served in phase 13:
+# (label, RoPE, KV cache type).
+VARIANTS = (("rope-bf16", True, "bf16"), ("rope-int8", True, "int8"),
+            ("rope-fp8", True, "fp8"), ("learned-int8", False, "int8"))
+# Share of a 1-byte cache's codes that may differ from the plain version's
+# (phase 3): the kernel's f32 rows differ from the plain ones in the last
+# bits (sums in another order), so a value at a rounding midpoint of the
+# quantizer may land on the neighbouring code; any other fault moves far
+# more codes.
+CODE_SHARE = 0.01
+# Layers >= 1 of a launch over every layer (B6, B7) against the plain
+# version's chain: that chain's residual rows differ from the kernel's by
+# the sums' order, so per layer a larger share of the written codes moves
+# a step (``later_layers_check``). Set from the readings in PERF.md
+# section 6.
+LATER_CODE_SHARE = {"int8": 0.14, "fp8": 0.10}
+LATER_VALUE_TOL = 5e-3
 # Verify at short prefixes (phase 3), per slot: prefix 0 and prefixes under
 # one block, suffix lengths 1..5; held by the update and the committed rows
 # of layers >= 1, within this share of the plain version's largest.
 VERIFY_SHORT_PLENS = (0, 0, 1, 3, 7, 12, 15, 0)
 VERIFY_SHORT_SLENS = (5, 1, 5, 4, 5, 3, 2, 5)
 VERIFY_SHORT_TOL = 2e-2
+# A --kernel-times decode timing: the median of AB_BATCHES means of 20
+# calls (a B5 call is host-bound, and the host's other work inflates a
+# batch now and then).
+AB_BATCHES = 5
 MLP_LR = 0.001
 MLP_EPOCHS = 100
 ACCURACY_ORACLE = 0.72
@@ -286,6 +335,12 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def ab_ms(fn) -> float:
+    """The median of ``AB_BATCHES`` :func:`cuda_ms` batches of 20 calls
+    (``--kernel-times``)."""
+    return float(np.median([cuda_ms(fn, 20, 3 if i == 0 else 0) for i in range(AB_BATCHES)]))
 
 
 def graph_ms(fn, iters=20, reps=5) -> float:
@@ -439,8 +494,8 @@ def phase_kernels(records):
     attn_flops_layer = 4 * (int(lengths.sum().item()) + S) * H * Dh
     mat_flops_layer = 2 * S * sum(w[nm][0].numel() for nm in fd.PROJ_NAMES)
 
-    o7, k7, v7 = fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw)
-    r7, rk7, rv7 = fd.decode_block_slab_plain(h, w0, ck[0], cv[0], lengths, **kw)
+    o7, k7, v7, _, _ = fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw)
+    r7, rk7, rv7, _, _ = fd.decode_block_slab_plain(h, w0, ck[0], cv[0], lengths, **kw)
     torch.cuda.synchronize()
     err = max((o7 - r7).abs().max().item(), (k7.float() - rk7.float()).abs().max().item(),
               (v7.float() - rv7.float()).abs().max().item())
@@ -470,7 +525,7 @@ def phase_kernels(records):
     del ckp, cvp
     check_repeat("decode_token_slab", (o8, ck8, cv8), lambda k, v: fd.decode_token_slab(
         h, w, k, v, lengths, active, **kw)[0], ck, cv)
-    check_layer_by_layer("decode_block_slab", (o8, ck8, cv8), h, w, ck, cv, None, lengths,
+    check_layer_by_layer("decode_block_slab", (o8, ck8, cv8), h, w, (ck, cv), None, lengths,
                          active, kw)
     records["decode_token_slab"] = dict(
         max_abs_err=err,
@@ -488,6 +543,8 @@ def phase_kernels(records):
     coop_split("decode_token_slab", lambda: fd.decode_token_slab(
         h, w, ck8, cv8, lengths, active, **kw), n, grid)
     block_kernels_at_xl(records)
+    for variant in VARIANTS:
+        kernel_variants(records, variant, w, ck, cv, lengths, active, h)
     for name, r in records.items():
         call = (f" a call from Python ({r['graph_ms']:.4f} ms a launch replayed from a CUDA "
                 f"graph)" if "graph_ms" in r else "")
@@ -541,7 +598,7 @@ def block_kernels_at_xl(records):
                                4 * tables.numel()),
     }
     for name, (call, plain, extra) in calls.items():
-        got, ref = call(), plain()
+        got, ref = call()[:3], plain()[:3]
         torch.cuda.synchronize()
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
         check_error(name, err, ref[0].abs().max().item())
@@ -563,32 +620,104 @@ def block_kernels_at_xl(records):
     coop_split("decode_block_slab at gpt-xl width", calls["decode_block_slab"][0], 1, p.grid)
 
 
-def check_layer_by_layer(name, mega, h, w, k0, v0, tables, lengths, active, kw):
+def check_layer_by_layer(name, mega, h, w, caches, tables, lengths, active, kw):
     """One step through the per-layer kernel (B5) layer by layer, each
     layer's fresh rows committed as the model commits them, equal to the
-    megakernel's ``mega`` = (h_out, k, v) bit for bit (h_out and every
-    committed row): the two run the same cooperative body, whose sums'
-    order depends only on the rows and K."""
+    megakernel's ``mega`` = (h_out, k, v[, k_scale, v_scale]) bit for bit
+    (h_out and every committed row and scale), from the caches ``caches``
+    = (k, v[, k_scale, v_scale]) the megakernel started from: the two run
+    the same cooperative body, whose sums' order depends only on the rows
+    and K. Each layer's launch is also held against the plain version on
+    the same inputs (:func:`own_rows_check`; scales within REL_TOL), so
+    every layer of the megakernel is held on its own rows."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+    from distributed_tensorflow_tpu_torch.ops.quantized import movable
 
-    k, v = k0.clone(), v0.clone()
+    base = "decode_block_slab" if tables is None else "decode_block_paged"
+    k, v, ks, vs = (*(t.clone() for t in caches), None, None)[:4]
+    err = steps = ndiff = over = 0
     for i in range(k.shape[0]):
         wi = {k_: t[i] for k_, t in w.items()}
-        if tables is None:
-            h, kq, vq = fd.decode_block_slab(h, wi, k[i], v[i], lengths, **kw)
-            fd.commit_slot_rows(k[i], v[i], kq, vq, lengths, active)
+        sc = dict(k_scale=None if ks is None else ks[i], v_scale=None if vs is None else vs[i])
+        view = (k[i], v[i]) if tables is None else (k[i], v[i], tables)
+        step = fd.decode_block_slab if tables is None else fd.decode_block_paged
+        plain = fd.decode_block_slab_plain if tables is None else fd.decode_block_paged_plain
+        ref = plain(h, wi, *view, lengths, **kw, **sc)
+        h, kq, vq, kqs, vqs = step(h, wi, *view, lengths, **kw, **sc)
+        torch.cuda.synchronize()
+        e = (h - ref[0]).abs().max().item() / max(1.0, ref[0].abs().max().item())
+        if ks is None:
+            e = max(e, *((a.float() - b.float()).abs().max().item()
+                         / max(1.0, ref[0].abs().max().item()) for a, b in zip((kq, vq), ref[1:3])))
         else:
-            h, kq, vq = fd.decode_block_paged(h, wi, k[i], v[i], tables, lengths, **kw)
-            fd.commit_paged_rows(k[i], v[i], kq, vq, tables, lengths, active)
+            for a, a_s, b, b_s in ((kq, kqs, ref[1], ref[3]), (vq, vqs, ref[2], ref[4])):
+                st, nd, ov = code_gap(a, a_s, b, b_s)
+                steps, ndiff, over = max(steps, st), max(ndiff, nd), max(over, ov)
+            for a, b in zip((kqs, vqs), ref[3:]):
+                scales_check(f"{name} layer {i}", a, b, base)
+        err = max(err, e)
+        if tables is None:
+            fd.commit_slot_rows(k[i], v[i], kq, vq, lengths, active, sc["k_scale"],
+                                sc["v_scale"], kqs, vqs)
+        else:
+            fd.commit_paged_rows(k[i], v[i], kq, vq, tables, lengths, active, sc["k_scale"],
+                                 sc["v_scale"], kqs, vqs)
     torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in zip((h, k, v), mega)]
+    own_rows_check(name, base, err, steps, ndiff / kq.numel(), over, ks is not None)
+    same = [torch.equal(movable(a), movable(b)) for a, b in zip((h, k, v, ks, vs), mega)]
     if not all(same):
         err = (h - mega[0]).abs().max().item()
         raise AssertionError(f"{name} layer by layer differs from the megakernel: h_out, k, v "
                              f"equal {same}, h_out err {err}")
     print(f"  {name} layer by layer with the commits == the megakernel bitwise (h_out and "
-          f"the committed rows of {k.shape[0]} layers)")
+          f"the committed rows{' and scales' if ks is not None else ''} of {k.shape[0]} "
+          f"layers)")
+
+
+def verify_layer_by_layer(name, mega, hv, w, pools, tables, plens, slens, active, kw):
+    """The verify kernel (B7) one layer a launch, each launch held against
+    the plain version on the same inputs (:func:`own_rows_check`; scales
+    within REL_TOL), the chain equal to the launch over every layer
+    ``mega`` = (h_out, k, v[, k_scale, v_scale]) bit for bit: so every
+    layer of that launch is held on its own rows."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+    from distributed_tensorflow_tpu_torch.ops.quantized import movable
+
+    base = "verify_tokens_paged"
+    cs = (*(t.clone() for t in pools), None, None)[:4]
+    quant = cs[2] is not None
+    rows = int(slens[active].sum().item()) * cs[0].shape[-2] * cs[0].shape[-1]
+    h, err, steps, ndiff, over = hv, 0.0, 0, 0, 0.0
+    for i in range(cs[0].shape[0]):
+        wi = {k_: t[i:i + 1] for k_, t in w.items()}
+        mine = tuple(None if t is None else t[i:i + 1] for t in cs)
+        ref = tuple(None if t is None else t.clone() for t in mine)
+        rh = fd.verify_tokens_paged_plain(h, wi, ref[0], ref[1], tables, plens, slens, active,
+                                          **kw, k_scale=ref[2], v_scale=ref[3])
+        h = fd.verify_tokens_paged(h, wi, mine[0], mine[1], tables, plens, slens, active, **kw,
+                                   k_scale=mine[2], v_scale=mine[3])
+        torch.cuda.synchronize()
+        scale = max(1.0, rh.abs().max().item())
+        err = max(err, (h - rh).abs().max().item() / scale)
+        for j in range(2):
+            if quant:
+                st, nd, ov = code_gap(mine[j], mine[j + 2], ref[j], ref[j + 2])
+                steps, ndiff, over = max(steps, st), max(ndiff, nd), max(over, ov)
+            else:
+                err = max(err, (mine[j].float() - ref[j].float()).abs().max().item() / scale)
+        if quant:
+            for a, b in zip(mine[2:], ref[2:]):
+                scales_check(f"{name} layer {i}", a, b, base)
+    own_rows_check(name, base, err, steps, ndiff / rows, over, quant)
+    same = [torch.equal(movable(a), movable(b)) for a, b in zip((h, *cs[:len(pools)]), mega)]
+    if not all(same):
+        raise AssertionError(f"{name} one layer a launch differs from one launch over every "
+                             f"layer: h_out, k, v, scales equal {same}")
+    print(f"  {name} one layer a launch == one launch over every layer bitwise (h_out and the "
+          f"committed rows{' and scales' if quant else ''} of {cs[0].shape[0]} "
+          "layers)")
 
 
 def check_repeat(name, first, launch, k0, v0):
@@ -712,15 +841,18 @@ def coop_grids(S, n, d, H, Dh, Fw, C):
 
 
 def pool_from_slab(ck, tables, nb):
-    """The slab cache [n, S, C, Hkv, Dh] copied into a pool of ``nb``
-    blocks through ``tables``; blocks outside the tables hold noise."""
+    """The slab tensor [n, S, C, ...] (a bf16 cache, 1-byte codes or their
+    scales) copied into a pool of ``nb`` blocks through ``tables``; blocks
+    outside the tables hold noise."""
     import torch
+    from distributed_tensorflow_tpu_torch.ops.quantized import movable
 
-    n, S, C, H, Dh = ck.shape
-    pool = torch.randn(n, nb, BLOCK, H, Dh, device=ck.device).to(ck.dtype)
+    n, S, C = ck.shape[:3]
+    rest = tuple(ck.shape[3:])
+    pool = movable(torch.randn((n, nb, BLOCK) + rest, device=ck.device).to(ck.dtype))
     for i in range(S):
-        pool[:, tables[i].long()] = ck[:, i].reshape(n, C // BLOCK, BLOCK, H, Dh)
-    return pool
+        pool[:, tables[i].long()] = movable(ck)[:, i].reshape((n, C // BLOCK, BLOCK) + rest)
+    return pool.view(ck.dtype)
 
 
 def writable_rows(tables, starts, counts, active, nb):
@@ -770,8 +902,8 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
     attn_flops_layer = 4 * (int(lengths.sum().item()) + S) * H * Dh
 
     # Per-layer kernel: vs plain, and bit for bit vs the slab kernel.
-    o, kf, vf = fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)
-    r, rk, rv = fd.decode_block_paged_plain(h, w0, pk[0], pv[0], tables, lengths, **kw)
+    o, kf, vf, _, _ = fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw)
+    r, rk, rv, _, _ = fd.decode_block_paged_plain(h, w0, pk[0], pv[0], tables, lengths, **kw)
     torch.cuda.synchronize()
     err = max((o - r).abs().max().item(), (kf.float() - rk.float()).abs().max().item(),
               (vf.float() - rv.float()).abs().max().item())
@@ -811,7 +943,7 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
     print("  decode_token_paged == decode_token_slab bitwise (h_out and committed rows)")
     check_repeat("decode_token_paged", (o, pk8, pv8), lambda k, v: fd.decode_token_paged(
         h, w, k, v, tables, lengths, active, **kw)[0], pk, pv)
-    check_layer_by_layer("decode_block_paged", (o, pk8, pv8), h, w, pk, pv, tables, lengths,
+    check_layer_by_layer("decode_block_paged", (o, pk8, pv8), h, w, (pk, pv), tables, lengths,
                          active, kw)
     host = host_us(lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw))
     print(f"  decode_block_paged: host time of a call {host:.1f} us")
@@ -869,6 +1001,312 @@ def phase_paged_kernels(records, w, ck, cv, lengths, active, h, o7):
         **bound(n * (wbytes_layer + 2 * vkv * 2 + 2 * nrows * H * Dh * 2) + 2 * S * L * d * 4
                 + 4 * tables.numel(), n * (L * mat_flops_layer + vattn), PEAK_BF16),
     )
+
+
+def code_diff(got, ref):
+    """1-byte codes of the kernel ``got`` against the plain version's
+    ``ref``: (the most steps apart, e4m3 by its byte's ordinal; how many
+    differ)."""
+    import torch
+
+    def ordinal(t):
+        if t.dtype == torch.float8_e4m3fn:
+            b = t.view(torch.uint8).int()
+            return torch.where(b >= 128, 128 - b, b)
+        return t.int()
+
+    d = (ordinal(got) - ordinal(ref)).abs()
+    return int(d.max().item()), int(d.gt(0).sum().item())
+
+
+def codes_check(name, got, ref, written):
+    """Codes at most one step apart, the share of the ``written`` elements
+    that differs printed and at most ``CODE_SHARE``."""
+    worst, ndiff = code_diff(got, ref)
+    share = ndiff / written
+    print(f"    {name}: codes differ in {100 * share:.4f}% of the elements, at most "
+          f"{worst} step (limit 1 step, {100 * CODE_SHARE:.1f}%)")
+    if worst > 1 or share > CODE_SHARE:
+        raise AssertionError(f"{name}: codes {worst} steps apart, {share} of them differ")
+
+
+def code_step(codes, scale):
+    """The value spacing at each code (x its row's scale): int8 1, e4m3
+    2^(e - 10) for exponent field e >= 1 (2^-9 below)."""
+    import torch
+
+    if codes.dtype == torch.int8:
+        step = torch.ones_like(codes, dtype=torch.float32)
+    else:
+        e = ((codes.view(torch.uint8).int() >> 3) & 15).clamp(min=1)
+        step = torch.exp2((e - 10).float())
+    return step * scale[..., None]
+
+
+def code_gap(got, got_scale, ref, ref_scale):
+    """1-byte codes with their row scales against the plain version's:
+    (the most steps apart, how many codes differ, the largest value gap
+    (codes x scales) beyond one code step at that value, over the plain
+    version's largest value)."""
+    from distributed_tensorflow_tpu_torch.ops.quantized import dequantize_kv
+
+    steps, ndiff = code_diff(got, ref)
+    a, b = dequantize_kv(got, got_scale), dequantize_kv(ref, ref_scale)
+    step = code_step(got, got_scale).maximum(code_step(ref, ref_scale))
+    return steps, ndiff, (((a - b).abs() - step).max() / b.abs().max()).item()
+
+
+def later_layers_check(name, got, got_scale, ref, ref_scale, written):
+    """The 1-byte caches of layers >= 1 (``got``/``ref`` [n-1, ...] with
+    their scales) after a launch over every layer, against the plain
+    version's chain, whose residual rows differ from the kernel's by the
+    sums' order: per layer, the share of the ``written`` codes that differ
+    at most ``LATER_CODE_SHARE`` of the cache type, and each value (codes x
+    scales) within one code step of the plain one plus ``LATER_VALUE_TOL``
+    of the largest. Each layer on the kernel's own rows is held at
+    ``CODE_SHARE`` by :func:`check_layer_by_layer` and
+    :func:`verify_layer_by_layer`."""
+    import torch
+
+    limit = LATER_CODE_SHARE["int8" if got.dtype == torch.int8 else "fp8"]
+    shares, steps, over = [], 0, 0.0
+    for j in range(got.shape[0]):
+        st, nd, ov = code_gap(got[j], got_scale[j], ref[j], ref_scale[j])
+        shares.append(nd / written)
+        steps, over = max(steps, st), max(over, ov)
+    worst = max(range(len(shares)), key=shares.__getitem__)
+    print(f"    {name} layers 1-{len(shares)}: codes differ in at most "
+          f"{100 * shares[worst]:.4f}% of the written elements (layer {worst + 1}; limit "
+          f"{100 * limit:.1f}%), at most {steps} steps apart; values {over:.3e} of the largest "
+          f"beyond one code step (limit {LATER_VALUE_TOL:.1e})")
+    if not (shares[worst] <= limit and over <= LATER_VALUE_TOL):
+        raise AssertionError(f"{name}: layers >= 1 differ in {shares[worst]} of their codes, "
+                             f"values {over} of the largest beyond a code step")
+
+
+def own_rows_check(name, base, err, steps, share, over, quant):
+    """The verdict of a kernel's layers each held against the plain version
+    on the kernel's own rows: h_out (and bf16 rows) within REL_TOL of the
+    largest h_out; 1-byte codes differing in at most ``CODE_SHARE`` of a
+    layer's rows and each value within one code step plus
+    ``LATER_VALUE_TOL`` of the largest (an e4m3 code of a value small
+    against its row's amax may move more than one step)."""
+    codes = (f"; codes differ in at most {100 * share:.4f}% of a layer's rows (limit "
+             f"{100 * CODE_SHARE:.1f}%), at most {steps} steps apart, values {over:.3e} of the "
+             f"largest beyond one code step (limit {LATER_VALUE_TOL:.1e})" if quant else "")
+    print(f"  {name} each layer on its own rows vs the plain version: at most {err:.3e} of "
+          f"the largest h_out (tolerance {REL_TOL[base]:.0e}){codes}")
+    if not (err <= REL_TOL[base] and share <= CODE_SHARE and over <= LATER_VALUE_TOL):
+        raise AssertionError(f"{name}: a layer on its own rows differs from the plain version "
+                             f"(error {err}, codes differ in {share} of them, values {over} "
+                             "beyond a code step)")
+
+
+def scales_check(name, got, ref, base):
+    """Row scales within ``REL_TOL[base]`` of the plain ones (relative to
+    their largest). Returns the relative error."""
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not err <= REL_TOL[base]:
+        raise AssertionError(f"{name}: scales {err} apart (relative)")
+    return err
+
+
+def kv_bytes(positions, H, Dh, kv):
+    """Bytes of K or V at ``positions`` cached rows: bf16, or 1-byte codes
+    with a 4-byte scale a row and head."""
+    return positions * H * (2 * Dh if kv == "bf16" else Dh + 4)
+
+
+def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
+    """Phase 3 for one of ``VARIANTS`` (RoPE and/or an int8/fp8 cache) at
+    gpt-m shapes (phase 3's weights, S=8, lengths 256..768 of 1024, one
+    inactive row; paged: 512 blocks of 16 under scrambled tables; B7 at
+    L=5): B5 slab/paged, B6 slab/paged and B7 against their plain versions
+    (h within REL_TOL, codes within one step, scales within REL_TOL), B5
+    layer by layer == B6 bitwise (slab and paged), paged == slab bitwise;
+    each timed beside its plain version and its bound (1-byte codes plus a
+    4-byte scale a row and head), and B6 slab's launch split by phase
+    (``coop_split``). Recorded as ``<kernel>[<variant>]``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+    from distributed_tensorflow_tpu_torch.ops.paged_attention import gather_block_view
+    from distributed_tensorflow_tpu_torch.ops.quantized import movable, quantize_kv
+
+    label, rope, kv = variant
+    dev = h.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, S, C, H, Dh = ck0.shape
+    d, mb = h.shape[1], C // BLOCK
+    nb = S * mb
+    if kv == "bf16":
+        caches = (ck0, cv0)
+    else:
+        (ck, ks), (cv, vs) = quantize_kv(ck0.float(), kv), quantize_kv(cv0.float(), kv)
+        caches = (ck, cv, ks, vs)
+    kw = dict(num_heads=H, rope=rope, compute_dtype=torch.bfloat16)
+    w0 = {k_: t[0] for k_, t in w.items()}
+
+    def sc(cs, layer=None):
+        if len(cs) == 2:
+            return {}
+        return dict(k_scale=cs[2] if layer is None else cs[2][layer],
+                    v_scale=cs[3] if layer is None else cs[3][layer])
+
+    def clones(cs):
+        return tuple(t.clone() for t in cs)
+
+    def same(a, b):
+        return all(torch.equal(movable(x), movable(y)) for x, y in zip(a, b))
+
+    wbytes_layer = sum(t[0].numel() * t.element_size() for t in w.values())
+    mat_flops_layer = 2 * S * sum(w[nm][0].numel() for nm in fd.PROJ_NAMES)
+    pos = int(lengths.sum().item())
+    attn_flops_layer = 4 * (pos + S) * H * Dh
+    fresh = 2 * kv_bytes(S, H, Dh, kv)
+    tables = torch.randperm(nb, device=dev, generator=g).reshape(S, mb).int()
+    pools = tuple(pool_from_slab(t, tables, nb) for t in caches)
+    print(f"  variant {label}:")
+
+    def hold(name, got, ref, written, layers=False):
+        """h, then the cache tensors (codes or values, of which ``written``
+        elements each were written, then scales). A bf16 cache is held as
+        values with h (REL_TOL). With ``layers`` (B6, B7: a leading layer
+        axis) 1-byte codes are held one step apart on the first layer
+        (written from the same residual rows) and by
+        :func:`later_layers_check` on the others."""
+        base, full = name, f"{name}[{label}]"
+        err = (got[0] - ref[0]).abs().max().item()
+        if len(got) == 3:
+            err = max(err, *((a.float() - b.float()).abs().max().item()
+                             for a, b in zip(got[1:], ref[1:])))
+        check_error(base, err, ref[0].abs().max().item())
+        if len(got) == 3:
+            return err
+        for i in (1, 2):
+            if layers:
+                codes_check(f"{full} layer 0", got[i][0], ref[i][0], written // n)
+                later_layers_check(full, got[i][1:], got[i + 2][1:], ref[i][1:],
+                                   ref[i + 2][1:], written // n)
+            else:
+                codes_check(full, got[i], ref[i], written)
+        for t_got, t_ref in zip(got[3:], ref[3:]):
+            scales_check(full, t_got, t_ref, base)
+        return err
+
+    # B5 slab and paged (layer 0), vs plain; paged == slab bitwise.
+    c0 = tuple(t[0] for t in caches)
+    p0 = tuple(t[0] for t in pools)
+    o5 = fd.decode_block_slab(h, w0, c0[0], c0[1], lengths, **kw, **sc(c0))
+    r5 = fd.decode_block_slab_plain(h, w0, c0[0], c0[1], lengths, **kw, **sc(c0))
+    torch.cuda.synchronize()
+    row = H * Dh  # elements of a fresh row
+    nact = int(active.sum().item())
+    errs = {"decode_block_slab": hold("decode_block_slab", [t for t in o5 if t is not None],
+                                      [t for t in r5 if t is not None], S * row)}
+    o5p = fd.decode_block_paged(h, w0, p0[0], p0[1], tables, lengths, **kw, **sc(p0))
+    r5p = fd.decode_block_paged_plain(h, w0, p0[0], p0[1], tables, lengths, **kw, **sc(p0))
+    torch.cuda.synchronize()
+    errs["decode_block_paged"] = hold("decode_block_paged", [t for t in o5p if t is not None],
+                                      [t for t in r5p if t is not None], S * row)
+    if not same([t for t in o5p if t is not None], [t for t in o5 if t is not None]):
+        raise AssertionError(f"decode_block_paged[{label}] differs from decode_block_slab")
+
+    # B6 slab and paged, vs plain (h and every committed row); paged ==
+    # slab bitwise; B5 layer by layer == B6 (both layouts).
+    k6 = clones(caches)
+    o6 = fd.decode_token_slab(h, w, k6[0], k6[1], lengths, active, **kw, **sc(k6))[0]
+    r6c = clones(caches)
+    r6 = fd.decode_token_slab_plain(h, w, r6c[0], r6c[1], lengths, active, **kw, **sc(r6c))[0]
+    torch.cuda.synchronize()
+    errs["decode_token_slab"] = hold("decode_token_slab", (o6, *k6), (r6, *r6c),
+                                     n * nact * row, layers=True)
+    del r6c
+    check_layer_by_layer(f"decode_block_slab[{label}]", (o6, *k6), h, w, caches, None, lengths,
+                         active, kw)
+    p6 = clones(pools)
+    o6p = fd.decode_token_paged(h, w, p6[0], p6[1], tables, lengths, active, **kw, **sc(p6))[0]
+    r6p = clones(pools)
+    r6pv = fd.decode_token_paged_plain(h, w, r6p[0], r6p[1], tables, lengths, active, **kw,
+                                       **sc(r6p))[0]
+    torch.cuda.synchronize()
+    errs["decode_token_paged"] = hold("decode_token_paged", (o6p, *p6), (r6pv, *r6p),
+                                      n * nact * row, layers=True)
+    del r6p
+    views = tuple(torch.stack([gather_block_view(t[i], tables) for i in range(n)]) for t in p6)
+    if not (torch.equal(o6p, o6) and same(views, k6)):
+        raise AssertionError(f"decode_token_paged[{label}] differs from decode_token_slab")
+    del views
+    check_layer_by_layer(f"decode_block_paged[{label}]", (o6p, *p6), h, w, pools, tables,
+                         lengths, active, kw)
+    print(f"    paged == slab bitwise (B5 h and fresh rows; B6 h and committed rows)")
+
+    # B7 at L=5, prefixes not block-aligned.
+    L = 5
+    plens = lengths + (lengths % BLOCK == 0).int()
+    slens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 2], device=dev, dtype=torch.int32)[:S]
+    hv = torch.randn(S, L, d, device=dev, generator=g)
+    p7 = clones(pools)
+    o7 = fd.verify_tokens_paged(hv, w, p7[0], p7[1], tables, plens, slens, active, **kw,
+                                **sc(p7))
+    r7c = clones(pools)
+    r7 = fd.verify_tokens_paged_plain(hv, w, r7c[0], r7c[1], tables, plens, slens, active,
+                                      **kw, **sc(r7c))
+    torch.cuda.synchronize()
+    errs["verify_tokens_paged"] = hold("verify_tokens_paged", (o7, *p7), (r7, *r7c),
+                                       n * int(slens[active].sum().item()) * row, layers=True)
+    verify_layer_by_layer(f"verify_tokens_paged[{label}]", (o7, *p7), hv, w, pools, tables,
+                          plens, slens, active, kw)
+    del r7c, p7
+
+    # Times, bounds.
+    kvb = kv_bytes(pos, H, Dh, kv)
+    nrows = int(slens[active].sum().item())
+    vkvb = kv_bytes(int(plens.sum().item()), H, Dh, kv)
+    vattn = 4 * int((L * plens + L * L).sum().item()) * H * Dh
+    tab = 4 * tables.numel()
+    calls = {
+        "decode_block_slab": (
+            lambda: fd.decode_block_slab(h, w0, c0[0], c0[1], lengths, **kw, **sc(c0)),
+            lambda: fd.decode_block_slab_plain(h, w0, c0[0], c0[1], lengths, **kw, **sc(c0)),
+            wbytes_layer + 2 * kvb + 2 * S * d * 4 + fresh,
+            mat_flops_layer + attn_flops_layer),
+        "decode_block_paged": (
+            lambda: fd.decode_block_paged(h, w0, p0[0], p0[1], tables, lengths, **kw, **sc(p0)),
+            lambda: fd.decode_block_paged_plain(h, w0, p0[0], p0[1], tables, lengths, **kw,
+                                                **sc(p0)),
+            wbytes_layer + 2 * kvb + 2 * S * d * 4 + fresh + tab,
+            mat_flops_layer + attn_flops_layer),
+        "decode_token_slab": (
+            lambda: fd.decode_token_slab(h, w, k6[0], k6[1], lengths, active, **kw, **sc(k6)),
+            lambda: fd.decode_token_slab_plain(h, w, k6[0], k6[1], lengths, active, **kw,
+                                               **sc(k6)),
+            n * (wbytes_layer + 2 * kvb + fresh) + 2 * S * d * 4,
+            n * (mat_flops_layer + attn_flops_layer)),
+        "decode_token_paged": (
+            lambda: fd.decode_token_paged(h, w, p6[0], p6[1], tables, lengths, active, **kw,
+                                          **sc(p6)),
+            lambda: fd.decode_token_paged_plain(h, w, p6[0], p6[1], tables, lengths, active,
+                                                **kw, **sc(p6)),
+            n * (wbytes_layer + 2 * kvb + fresh) + 2 * S * d * 4 + tab,
+            n * (mat_flops_layer + attn_flops_layer)),
+        "verify_tokens_paged": (
+            lambda: fd.verify_tokens_paged(hv, w, p6[0], p6[1], tables, plens, slens, active,
+                                           **kw, **sc(p6)),
+            lambda: fd.verify_tokens_paged_plain(hv, w, p6[0], p6[1], tables, plens, slens,
+                                                 active, **kw, **sc(p6)),
+            n * (wbytes_layer + 2 * vkvb + 2 * kv_bytes(nrows, H, Dh, kv)) + 2 * S * L * d * 4
+            + tab, n * (L * mat_flops_layer + vattn)),
+    }
+    grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, w["w_up"].shape[-1], C, 0,
+                          dev, fd.KV_TYPES[caches[0].dtype]).grid
+    coop_split(f"decode_token_slab[{label}]", calls["decode_token_slab"][0], n, grid)
+    for name, (call, plain, nbytes, flops) in calls.items():
+        per_layer = name.startswith("decode_block")
+        records[f"{name}[{label}]"] = r = dict(
+            max_abs_err=errs[name], ms=cuda_ms(call), plain_ms=cuda_ms(plain, 10 if per_layer else 5),
+            library_ms=None, **bound(nbytes, flops, PEAK_BF16))
+        print(f"    {name}[{label}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def wrong_suffix_mask(kind):
@@ -1275,17 +1713,27 @@ def paged_requests(vocab, seed):
     return prompts, configs
 
 
-def pick_gap(model, params, prompt, out, i, cfg):
+def pick_gap(model, params, prompt, out, i, cfg, kv_dtype="bf16"):
     """The top-2 gap of the pick that chose ``out[i]``, from a dense
-    forward of prompt + out[:i] on the card: the raw logits for a greedy
-    request; for a sampled one the nucleus-masked logits/temperature plus
-    the Gumbel noise of the request's (i+1)-th draw, replayed from its
-    seed. Returns (gap, tolerance, the dense forward's logits)."""
+    forward of prompt + out[:i] on the card (for an int8/fp8 cache, the
+    model the server computes: one prefill whose K/V go through the
+    quantizer, ``GPTLM.prefill_slots`` into a ``kv_dtype`` cache): the raw
+    logits for a greedy request; for a sampled one the nucleus-masked
+    logits/temperature plus the Gumbel noise of the request's (i+1)-th
+    draw, replayed from its seed. Returns (gap, tolerance, the dense
+    forward's logits)."""
     import torch
 
     dev = params.embed.device
     toks = torch.from_numpy(np.concatenate([prompt, out[:i]]).astype(np.int32)).to(dev)
-    dense = logits = model.apply(params, toks[None])[0, -1].float()
+    if kv_dtype == "bf16":
+        logits = model.apply(params, toks[None])[0, -1].float()
+    else:
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        logits = model.prefill_slots(params, model.empty_slot_cache(1, kv_dtype, device=dev),
+                                     toks[None], torch.tensor([len(toks)], device=dev),
+                                     one)[0][0].float()
+    dense = logits
     tol = REL_TOL["decode_token_slab"] * max(1.0, logits.abs().max().item())
     if not cfg.greedy:
         lt = logits / cfg.temperature
@@ -1359,7 +1807,7 @@ def logged_generate(srv, prompts, configs):
         log.close()
 
 
-def cut_flip(logs, cfg, i, tok_a, tok_b, dense):
+def cut_flip(logs, cfg, i, tok_a, tok_b, dense, band=False):
     """Whether two servers' sampled picks at token ``i`` (``tok_a`` by the
     server under test, ``tok_b`` by the reference) part at the nucleus cut
     because their own logits there differ, by what those logits show: both
@@ -1367,8 +1815,19 @@ def cut_flip(logs, cfg, i, tok_a, tok_b, dense):
     gives its own token; the rows differ by at most the decode tolerance
     (of the reference's row); one of the two tokens is in one nucleus and
     not the other; and ``tok_a`` ranks before ``tok_b`` in the reference's
-    order or is the first token past the reference's nucleus. Prints both
-    rows' masses beside the dense forward's. Returns (flip, tolerance)."""
+    order or is the first token past the reference's nucleus. With
+    ``band`` (phase 13's flat random-weight nuclei of ~7,000 near-equal
+    tokens, where a disagreement of 5e-3 reorders the tokens at the cut),
+    ``tok_a`` may also lie further past the reference's cut if it is inside
+    the server's nucleus and the reference's mass ranked before it is at
+    most ``exp(2 d) top_p + m``: ``d`` the rows' disagreement over the
+    temperature, ``m`` the reference's mass of the other tokens whose
+    logits lie within ``2 d`` above ``tok_a``'s (each token's probability
+    moves by at most a factor ``exp(2 d)`` between the rows, and only those
+    tokens can change sides of ``tok_a``). Prints both rows' masses beside
+    the dense forward's. Returns (flip, tolerance)."""
+    import math
+
     import torch
 
     (la, sa), (lb, sb) = logs[0].rows[cfg.seed][i], logs[1].rows[cfg.seed][i]
@@ -1379,6 +1838,17 @@ def cut_flip(logs, cfg, i, tok_a, tok_b, dense):
     pa, pb = logs[0].replay(la, sa, cfg), logs[1].replay(lb, sb, cfg)
     moved = bool(ka[tok_a] != kb[tok_a]) or bool(ka[tok_b] != kb[tok_b])
     ranked = int(rb[tok_a]) < int(rb[tok_b]) or int(rb[tok_a]) == int(kb.sum())
+    reach = ""
+    if band and not ranked and not bool(kb[tok_a]) and bool(ka[tok_a]):
+        d = dis / cfg.temperature
+        zb = lb.float() / cfg.temperature
+        near = (zb >= zb[tok_a]) & (zb <= zb[tok_a] + 2 * d)
+        near[tok_a] = False
+        limit = math.exp(2 * d) * cfg.top_p + torch.softmax(zb, -1)[near].sum().item()
+        ranked = mb[tok_a].item() <= limit
+        reach = (f"; past the reference's cut by its rows' disagreement: mass before it "
+                 f"{mb[tok_a].item():.6f}, at most {limit:.6f} ({int(near.sum())} tokens within "
+                 f"{2 * d:.4e} above it): {ranked}")
     flip = (torch.equal(sa, sb) and pa == tok_a and pb == tok_b and dis <= tol and moved
             and ranked)
     print(f"    nucleus (top_p {cfg.top_p}), mass ranked before the tokens {tok_b} / {tok_a}: "
@@ -1388,15 +1858,18 @@ def cut_flip(logs, cfg, i, tok_a, tok_b, dense):
           f"differ by {dis:.4e} (tolerance {tol:.4e}); same draw {torch.equal(sa, sb)}; "
           f"their samplers replayed on their own rows pick {pb} / {pa}; {tok_a} ranks "
           f"{int(rb[tok_a])} in the reference's order, {tok_b} {int(rb[tok_b])}, nucleus "
-          f"{int(kb.sum())}; a flip at the cut: {flip}")
+          f"{int(kb.sum())}{reach}; a flip at the cut: {flip}")
     return flip, tol
 
 
-def compare_streams(label, model, params, prompts, configs, outs, ref, servers, fresh):
+def compare_streams(label, model, params, prompts, configs, outs, ref, servers, fresh,
+                    kv_dtype="bf16", band=False):
     """Streams equal to ``ref``'s, or diverging only at a near-tie: a top-2
     gap (of the dense forward) below the decode tolerance, or, for a
     sampled request, a flip at the nucleus cut that the two servers'
-    recorded logits at that token show (``cut_flip``). The first round's
+    recorded logits at that token show (``cut_flip``); with an int8/fp8
+    ``kv_dtype`` the dense forward quantizes its K/V as the cache does
+    (``pick_gap``). The first round's
     logits come from a replay on ``fresh`` servers (made as the ones that
     made ``outs`` and ``ref``), which must give the same streams. After a
     near-tie at token i, both ``servers`` (the one that made ``outs``, the
@@ -1418,7 +1891,7 @@ def compare_streams(label, model, params, prompts, configs, outs, ref, servers, 
                 same += not reruns
                 continue
             i = int(diff[0])
-            gap, tol, dense = pick_gap(model, params, p, b, i, c)
+            gap, tol, dense = pick_gap(model, params, p, b, i, c, kv_dtype)
             kind = "greedy" if c.greedy else "sampled"
             print(f"  {label}: a {len(p)}-token {kind} request diverges at token {i}; "
                   f"top-2 gap there {gap:.4e} (tolerance {tol:.4e})")
@@ -1435,7 +1908,7 @@ def compare_streams(label, model, params, prompts, configs, outs, ref, servers, 
                             raise AssertionError(f"{label}: a fresh server's replay of the "
                                                  "requests gave other streams")
                         logs.append(log)
-                flip, tol2 = cut_flip(logs, c, i, int(a[i]), int(b[i]), dense)
+                flip, tol2 = cut_flip(logs, c, i, int(a[i]), int(b[i]), dense, band)
                 if not flip:
                     raise AssertionError(f"{label}: divergence at a top-2 gap {gap} >= {tol}, "
                                          "and not a flip at the nucleus cut that the servers' "
@@ -1523,6 +1996,193 @@ def phase_paged_serve(records, model, params):
                         slab if ref == "slab" else runs[ref],
                         (servers[label], slab_srv if ref == "slab" else servers[ref]),
                         (make[label], make[ref]))
+
+
+# Phase 13's servers: (name, paged, TextServer knobs, the kernel it runs).
+KV_SERVERS = (("slab", False, {}, "decode_token_slab"),
+              ("slab fused-layer", False, dict(decode_engine="fused-layer"), "decode_block_slab"),
+              ("paged", True, {}, "decode_token_paged"),
+              ("paged+spec", True, dict(spec_draft=4, spec_ngram=2), "verify_tokens_paged"),
+              ("paged fused-layer", True, dict(decode_engine="fused-layer"), "decode_block_paged"))
+# The JAX package's quality budgets of a quantized cache against the bf16
+# one (greedy-stream divergence, tests/test_serve_quantized.py:43), read on
+# random weights here, not gated.
+DIVERGENCE_BUDGET = {"int8": 0.15, "fp8": 0.25}
+
+
+def phase_kv_serve(records, label, model, params, kv_dtypes):
+    """Serve ``model`` with each cache type of ``kv_dtypes`` through
+    ``KV_SERVERS``: the slab server (phase 4's requests) and the paged
+    servers (phase 10's: prefix cache, speculation, the per-layer engine).
+    Each must launch its kernel (the launches of variant
+    ``<label>-<kv_dtype>``), the paged ones must hit the prefix cache and
+    speculation accept drafts; their streams are held against the plain
+    decode (``decode_engine="xla"``) at the same cache type under
+    ``compare_streams``' rule. Prints tokens/s and ms per step, and the
+    quantized caches' greedy divergence from the bf16 cache's streams
+    beside the JAX package's budgets."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.serve import TextServer
+
+    reqs = {False: serve_requests(model.vocab_size, 0),
+            True: paged_requests(model.vocab_size, 1)}
+    streams = {}
+    for kv in kv_dtypes:
+        variant = f"{label}-{kv}"
+
+        def maker(paged, **kw):
+            extra = dict(paged=True, block_size=BLOCK, prefix_caching=True) if paged else {}
+            return functools.partial(TextServer, model, params, slots=8, chunk=32, kv_dtype=kv,
+                                     **extra, **kw)
+
+        refs = {}
+        for paged in (False, True):
+            make = maker(paged, decode_engine="xla")
+            srv = make()
+            refs[paged] = (srv.generate(*reqs[paged]), srv, make)
+        for name, paged, kw, kernel in KV_SERVERS:
+            make = maker(paged, **kw)
+            srv = make()
+            prompts, configs = reqs[paged]
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            outs = srv.generate(prompts, configs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+            tm, cnt = srv.timing, srv.counters
+            ntok = sum(len(o) for o in outs)
+            line = (f"  {variant} {name}: launches {launches}; {ntok} tokens in {wall:.3f} s: "
+                    f"{ntok / wall:.1f} tokens/s")
+            if tm["decode_steps"]:
+                line += f"; decode {1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms per step"
+            if tm["verify_ticks"]:
+                line += (f"; verify {1e3 * tm['verify_s'] / tm['verify_ticks']:.3f} ms per tick, "
+                         f"{cnt['spec_tokens_accepted'] / tm['verify_ticks']:.3f} accepted")
+            if paged:
+                line += f"; prefix hits {cnt['prefix_cache_hits']}, {srv.kv_blocks} blocks"
+            print(line)
+            if launches.get(kernel, 0) < 1:
+                raise AssertionError(f"{variant} {name} never launched {kernel}")
+            records[f"{kernel}[{variant}]"]["launches"] = launches[kernel]
+            if paged and cnt["prefix_cache_hits"] < 1:
+                raise AssertionError(f"{variant} {name}: no prefix-cache hit")
+            if kernel == "verify_tokens_paged" and cnt["spec_tokens_accepted"] < 1:
+                raise AssertionError(f"{variant} {name}: no draft token accepted")
+            for o, c in zip(outs, configs):
+                if len(o) != c.max_new or o.min() < 0 or o.max() >= model.vocab_size:
+                    raise AssertionError(f"{variant} {name}: bad stream {o}")
+            streams[(kv, name)] = outs
+            ref_outs, ref_srv, ref_make = refs[paged]
+            compare_streams(f"{variant} {name} vs xla", model, srv.params, prompts, configs,
+                            outs, ref_outs, (srv, ref_srv), (make, ref_make), kv, band=True)
+    if "bf16" not in kv_dtypes:
+        return
+    for kv in kv_dtypes:
+        if kv == "bf16":
+            continue
+        for name, paged, _, _ in KV_SERVERS:
+            greedy = [i for i, c in enumerate(reqs[paged][1]) if c.greedy]
+            a, b = streams[(kv, name)], streams[("bf16", name)]
+            same = sum(int((a[i] == b[i]).sum()) for i in greedy)
+            total = sum(len(b[i]) for i in greedy)
+            print(f"  {label}-{kv} {name}: greedy divergence from the bf16 cache "
+                  f"{1 - same / total:.4f} of {total} tokens (the JAX package's budget "
+                  f"{DIVERGENCE_BUDGET[kv]}, on a trained model; a reading here)")
+
+
+def greedy_decode_steps(label, model, sp, prompt, ref_engine, engines, steps=64):
+    """``steps`` greedy tokens through ``prefill`` / ``decode_step`` on each
+    engine, each fed the reference engine's tokens, under
+    :func:`greedy_steps`' rule: where an engine's pick differs from the
+    reference's, the reference's margin of its pick over the engine's must
+    be below the two engines' logit disagreement in that row; the logits
+    agree within 0.25 of their largest magnitude."""
+    import torch
+
+    logits0, cache0 = model.prefill(sp, prompt)
+    first = logits0.argmax(-1).to(prompt.dtype)
+    runs = {}
+    for eng in (ref_engine, *engines):
+        cache = cache0._replace(k=cache0.k.clone(), v=cache0.v.clone())
+        tok, lg, tk = first, [], []
+        for i in range(steps - 1):
+            logits, cache = model.decode_step(sp, tok, cache, engine=eng)
+            lg.append(logits)
+            tk.append(logits.argmax(-1).to(prompt.dtype))
+            tok = runs[ref_engine][1][i] if eng != ref_engine else tk[-1]
+        runs[eng] = (torch.stack(lg), torch.stack(tk))
+    ref_l, ref_t = runs[ref_engine]
+    for eng in engines:
+        lgs, tks = runs[eng]
+        ties = []
+        for i, r in (tks != ref_t).nonzero().tolist():
+            rl = ref_l[i, r].float()
+            gap = (rl[ref_t[i, r]] - rl[tks[i, r]]).item()
+            diff = (lgs[i, r].float() - rl).abs().max().item()
+            ties.append((gap, diff))
+            if not gap < diff:
+                raise AssertionError(f"{label}: {eng} picks another token than {ref_engine} at "
+                                     f"step {i}, row {r}, margin {gap} >= disagreement {diff}")
+        err = (lgs - ref_l).abs().max().item()
+        agree = (tks == ref_t).float().mean().item()
+        print(f"  {label} decode_step-{ref_engine}-vs-{eng}: max logit err {err:.3e}, token "
+              f"agreement {agree:.4f} over {steps} greedy tokens x {prompt.shape[0]} rows; "
+              f"near-ties: {len(ties)} (margin / disagreement: "
+              f"{', '.join(f'{x:.3e} / {y:.3e}' for x, y in ties) or '-'})")
+        if not (torch.isfinite(lgs).all() and err <= 0.25 * max(1.0, ref_l.abs().max().item())):
+            raise AssertionError(f"{label}: {ref_engine} logits disagree with {eng}: {err}")
+
+
+def phase_single_sequence(records):
+    """The single-sequence decode API at gpt-m width: on the RoPE model
+    (bf16), 64 greedy tokens of 8 rows through ``prefill`` /
+    ``decode_step`` on "fused" (B6 slab) and "fused-layer" (B5) against
+    "xla" under ``greedy_decode_steps``' rule, then ``greedy_decode`` on
+    each engine (launch counts, valid tokens, agreement printed); an f32
+    model: ``engine="fused"`` (and "auto") must raise, ``engine="xla"``
+    must decode."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    model = GPTLM(**SERVE_CFG, pos_embedding="rope", compute_dtype=torch.bfloat16)
+    sp = model.serving_params(perturbed_params(model, 11, "cuda"))
+    rng = np.random.default_rng(6)
+    prompt = torch.from_numpy(rng.integers(0, model.vocab_size, (8, 100)).astype(np.int32)).cuda()
+    greedy_decode_steps("gpt-m rope", model, sp, prompt, "xla", ("fused", "fused-layer"))
+    outs = {}
+    for eng, kernel in (("xla", None), ("fused", "decode_token_slab"),
+                        ("fused-layer", "decode_block_slab")):
+        _build.reset_launches()
+        out = model.greedy_decode(sp, prompt, 64, engine=eng)
+        torch.cuda.synchronize()
+        # xla: the plain decode, no decode kernel (the prefill's flash kernel runs).
+        n = _build.LAUNCHES[kernel] if kernel else sum(_build.LAUNCHES[k] for k in DECODE_KERNELS)
+        if (kernel and n < 1) or (not kernel and n):
+            raise AssertionError(f"greedy_decode engine={eng}: {dict(_build.LAUNCHES)}")
+        gen = out[:, 100:]
+        if gen.shape != (8, 64) or gen.min() < 0 or gen.max() >= model.vocab_size:
+            raise AssertionError(f"greedy_decode engine={eng}: bad tokens {gen}")
+        outs[eng] = gen
+        print(f"  greedy_decode engine={eng}: 8 x 64 tokens, {n} decode-kernel launches"
+              + ("" if eng == "xla" else
+                 f", {(gen == outs['xla']).float().mean().item():.4f} of tokens as on xla"))
+    f32 = GPTLM(**SERVE_CFG, compute_dtype=torch.float32)
+    p32 = f32.serving_params(perturbed_params(f32, 12, "cuda"))
+    for eng in ("fused", "auto"):
+        try:
+            f32.greedy_decode(p32, prompt[:, :16], 4, engine=eng)
+        except NotImplementedError as e:
+            print(f"  f32 gpt-m, engine={eng}: refused ({e})")
+        else:
+            raise AssertionError(f"f32 gpt-m decoded on engine={eng}")
+    out = f32.greedy_decode(p32, prompt[:, :16], 16, engine="xla")
+    torch.cuda.synchronize()
+    if out.shape != (8, 32) or out.min() < 0 or out.max() >= f32.vocab_size:
+        raise AssertionError(f"f32 gpt-m on engine=xla: bad tokens {out}")
+    print("  f32 gpt-m, engine=xla: 8 x 16 greedy tokens")
 
 
 def ulp32(x: float) -> float:
@@ -2286,9 +2946,46 @@ def phase_build():
             check_hmma(src, TENSOR_CORE_KERNELS[src])
 
 
+def variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv, plens, slens,
+                  hq):
+    """``--kernel-times`` of the ``VARIANTS`` (a package that takes RoPE
+    and 1-byte caches): B5, B6 and B7 as the bf16 ones, the caches
+    quantized from the same values."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+    from distributed_tensorflow_tpu_torch.ops.quantized import quantize_kv
+
+    w0 = {k: t[0] for k, t in w.items()}
+    for label, rope, kv in VARIANTS:
+        if kv == "bf16":
+            c, p = (ck, cv, None, None), (pk, pv, None, None)
+        else:
+            (a, sa), (b, sb) = quantize_kv(ck.float(), kv), quantize_kv(cv.float(), kv)
+            (pa, psa), (pb, psb) = quantize_kv(pk.float(), kv), quantize_kv(pv.float(), kv)
+            c, p = (a, b, sa, sb), (pa, pb, psa, psb)
+        kw = dict(num_heads=hq, rope=rope, compute_dtype=torch.bfloat16)
+        first = lambda t: None if t is None else t[0]  # noqa: E731
+        ms[f"decode_block_slab {name} [{label}]"] = ab_ms(lambda: fd.decode_block_slab(
+            h, w0, c[0][0], c[1][0], lengths, **kw, k_scale=first(c[2]), v_scale=first(c[3])))
+        ms[f"decode_block_paged {name} [{label}]"] = ab_ms(lambda: fd.decode_block_paged(
+            h, w0, p[0][0], p[1][0], tables, lengths, **kw, k_scale=first(p[2]),
+            v_scale=first(p[3])))
+        ms[f"decode_token_slab {name} [{label}]"] = ab_ms(lambda: fd.decode_token_slab(
+            h, w, c[0], c[1], lengths, active, **kw, k_scale=c[2], v_scale=c[3]))
+        ms[f"decode_token_paged {name} [{label}]"] = ab_ms(lambda: fd.decode_token_paged(
+            h, w, p[0], p[1], tables, lengths, active, **kw, k_scale=p[2], v_scale=p[3]))
+        ms[f"verify_tokens_paged {name} [{label}] L=5"] = ab_ms(
+            lambda: fd.verify_tokens_paged(hv, w, p[0], p[1], tables, plens, slens, active,
+                                           **kw, k_scale=p[2], v_scale=p[3]))
+        del c, p
+
+
 def kernel_times(label, smi):
     """``--kernel-times``: B5, B6, B7 and B4b through their wrappers (ms a
-    call, :func:`cuda_ms`) on seeded inputs: the decode kernels at S=8
+    call, :func:`cuda_ms`; the decode kernels the median of
+    ``AB_BATCHES`` batches, :func:`ab_ms`: a B5 call is host-bound, and
+    single batches of it varied by 25%) on seeded inputs:
+    the decode kernels at S=8
     slots, cache lengths 256-768 in a cache of 1024 (paged: blocks of 16
     under scrambled tables), B7 at L=5; B4b at B=16, L=1024, f32,
     causal."""
@@ -2323,22 +3020,28 @@ def kernel_times(label, smi):
             pv[:, tables[i].long()] = cv[:, i].reshape(nl, mb, BLOCK, hq, dh)
         w0 = {k: t[0] for k, t in w.items()}
         kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
-        ms[f"decode_block_slab {name}"] = cuda_ms(
+        ms[f"decode_block_slab {name}"] = ab_ms(
             lambda: fd.decode_block_slab(h, w0, ck[0], cv[0], lengths, **kw))
-        ms[f"decode_block_paged {name}"] = cuda_ms(
+        ms[f"decode_block_paged {name}"] = ab_ms(
             lambda: fd.decode_block_paged(h, w0, pk[0], pv[0], tables, lengths, **kw))
         if nl > 1:
             active = torch.ones(s, dtype=torch.bool, device=dev)
             plens = lengths + (lengths % BLOCK == 0).int()
             slens = torch.tensor([1, 2, 3, 4, 5, 5, 3, 2], device=dev, dtype=torch.int32)
             hv = rw(s, 5, d, scale=1.0)
-            ms[f"decode_token_slab {name} {nl} layers"] = cuda_ms(
+            ms[f"decode_token_slab {name} {nl} layers"] = ab_ms(
                 lambda: fd.decode_token_slab(h, w, ck, cv, lengths, active, **kw))
-            ms[f"decode_token_paged {name} {nl} layers"] = cuda_ms(
+            ms[f"decode_token_paged {name} {nl} layers"] = ab_ms(
                 lambda: fd.decode_token_paged(h, w, pk, pv, tables, lengths, active, **kw))
-            ms[f"verify_tokens_paged {name} {nl} layers L=5"] = cuda_ms(
+            ms[f"verify_tokens_paged {name} {nl} layers L=5"] = ab_ms(
                 lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
                                                **kw))
+            # The variants need quantized caches (``k_scale``): an A/B's
+            # parent tree that predates them times the bf16 kernels alone.
+            # The probe goes once every tree an A/B compares takes them.
+            if "k_scale" in inspect.signature(fd.decode_token_slab).parameters:
+                variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv,
+                              plens, slens, hq)
         del w, w0, ck, cv, pk, pv
     for name, hq, dh in (("gpt-m B=16 L=1024 8x64", 8, 64),
                          ("gpt-xl B=16 L=1024 16x128", 16, 128)):
@@ -2421,17 +3124,30 @@ def main() -> int:
     phase_copy_task(records)
     print("phase 12(c): train gpt-xl-L1024-flash-remat through LMTrainer (the split backward)")
     phase_train_xl(records)
+    print("phase 13: serve gpt-m-L1024 with RoPE, and with int8/fp8 KV caches")
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    rope = GPTLM(**SERVE_CFG, pos_embedding="rope", compute_dtype=torch.bfloat16)
+    phase_kv_serve(records, "rope", rope, perturbed_params(rope, 11, "cuda"),
+                   ("bf16", "int8", "fp8"))
+    learned = GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16)
+    phase_kv_serve(records, "learned", learned, perturbed_params(learned, 0, "cuda"), ("int8",))
+    del rope, learned
+    print("phase 14: the single-sequence decode API (greedy_decode), and an f32 model")
+    phase_single_sequence(records)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    for kname, (src, replaces) in SOURCES.items():
+    variants = [(f"{k}[{label}]", k, f"{PATHS.get(k, 'main')} {label}") for label, _, _ in VARIANTS
+                for k in DECODE_KERNELS]
+    for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
+        src, replaces = SOURCES[base]
         r = records[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "path": PATHS.get(kname, "main"),
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path,
             **({"bound_peak": r["bound_peak"]} if "bound_peak" in r else {}),
             **({"graph_ms": r["graph_ms"]} if "graph_ms" in r else {}),
         })

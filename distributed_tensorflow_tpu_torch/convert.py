@@ -114,34 +114,46 @@ def mlp_params_to_numpy(params: MLPParams) -> dict:
 
 
 def _tensor(a, dev, dtype=None):
-    """numpy (or array-like) → tensor on ``dev``; a bfloat16 array of
-    ``ml_dtypes`` (what ``numpy.asarray`` gives for a JAX bf16 array) is
-    reinterpreted bit for bit."""
+    """numpy (or array-like) → tensor on ``dev``; a bfloat16 or
+    float8_e4m3fn array of ``ml_dtypes`` (what ``numpy.asarray`` gives for
+    a JAX bf16 or fp8 array) is reinterpreted bit for bit."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a.view(np.uint16), copy=True)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(np.array(a.view(np.uint8), copy=True)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
     return t.to(device=dev, dtype=dtype) if dtype else t.to(dev)
 
 
 def paged_cache_from_numpy(tree, device=None, dtype=None) -> PagedKVCache:
-    """numpy ``{"k", "v", "block_tables", "lengths"}`` → port
-    ``PagedKVCache`` on ``device`` (default cuda); the pool in ``dtype``
-    when given, tables and lengths int32."""
+    """numpy ``{"k", "v", "block_tables", "lengths"}`` (and ``"k_scale"``,
+    ``"v_scale"`` for an int8/fp8 pool) → port ``PagedKVCache`` on
+    ``device`` (default cuda); the pool in ``dtype`` when given, tables and
+    lengths int32, scales f32."""
     dev = resolve_device(device)
     top = _as_dict(tree)
+    scale = lambda nm: (None if top.get(nm) is None  # noqa: E731
+                        else _tensor(top[nm], dev, torch.float32))
     return PagedKVCache(
         k=_tensor(top["k"], dev, dtype),
         v=_tensor(top["v"], dev, dtype),
         block_tables=_tensor(top["block_tables"], dev, torch.int32),
         lengths=_tensor(top["lengths"], dev, torch.int32),
+        k_scale=scale("k_scale"),
+        v_scale=scale("v_scale"),
     )
 
 
 def paged_cache_to_numpy(cache: PagedKVCache) -> dict:
-    """Port ``PagedKVCache`` → the numpy dict (a bf16 pool widens to f32)."""
-    return {
-        k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
-        for k, v in cache._asdict().items()
-    }
+    """Port ``PagedKVCache`` → the numpy dict (a bf16 pool widens to f32,
+    an fp8 one keeps its bytes as uint8; absent scales are left out)."""
+    def arr(t):
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        elif t.dtype == torch.float8_e4m3fn:
+            t = t.view(torch.uint8)
+        return t.detach().cpu().numpy()
+
+    return {k: arr(v) for k, v in cache._asdict().items() if v is not None}

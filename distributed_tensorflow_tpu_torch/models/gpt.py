@@ -13,7 +13,13 @@ and the paged cache surface ``PagedKVCache`` (:160),
 ``paged_blocks_per_slot`` / ``empty_paged_cache`` / ``extend_paged`` /
 ``verify_paged`` / ``decode_paged`` (:1871-2273); the per-layer engine's
 commit ``_commit_paged_rows`` (:1234) is
-``ops/fused_decode.commit_paged_rows``.
+``ops/fused_decode.commit_paged_rows``; the single-sequence decode
+``KVCache`` (:193), ``prefill`` (:1276), ``decode_step`` (:1367),
+``greedy_decode`` / ``sample_decode`` / ``beam_decode`` (:2275-2503).
+Slot caches and pools take ``kv_dtype`` "bf16" (the compute dtype),
+"int8" or "fp8": 1-byte codes with one f32 scale a row in ``k_scale`` /
+``v_scale``, quantized on write and dequantized to the compute dtype on
+every read (``ops/quantized.py``), the fresh rows included.
 
 Architecture as there: token embed + learned positions (or RoPE) → N
 pre-LN blocks (causal attention + tanh-GELU MLP, residuals) → final LN →
@@ -30,16 +36,17 @@ fused backward or the dq + dk/dv pair, None = the auto rule); the paged extend (
 the per-layer verify) is plain PyTorch, as it is XLA in the JAX package.
 Single-token decode goes through the fused decode kernels and the
 speculation verify through the fused verify kernel. On a CUDA device a
-kernel launches or raises; on the CPU the plain versions run. Caches and
+kernel launches or raises; on the CPU the plain versions run; the
+``"xla"`` engine runs the plain versions on any device, when a caller names
+it. Caches and
 pools are updated in place. Gradients are torch autograd's where the JAX
 package takes ``jax.value_and_grad``; ``remat=True`` checkpoints each
 block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE blocks and ``matmul_dtype`` (A5), the sliding window and
-int8/fp8 KV caches (A3), selective remat (A4 "Left"), the parallel train
-steps (A6/A7). RoPE and GQA work on the plain path; RoPE on the CUDA
-decode kernels is A3 too.
+item): MoE blocks and ``matmul_dtype`` (A5), the sliding window (A3.4),
+selective remat (A4 "Left"), the parallel train steps (A6/A7). The CUDA
+decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
 """
 
 from __future__ import annotations
@@ -65,7 +72,9 @@ from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     decode_block_paged,
     decode_block_slab,
     decode_token_paged,
+    decode_token_paged_plain,
     decode_token_slab,
+    decode_token_slab_plain,
     dot,
     verify_tokens_paged,
 )
@@ -73,12 +82,20 @@ from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatt
 from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     gather_block_view,
     paged_extend_attention,
-    scatter_token_kv_all_layers,
+    scatter_rows,
+)
+from distributed_tensorflow_tpu_torch.ops.quantized import (
+    as_stored,
+    dequantize_kv,
+    kv_quant_dtype,
+    kv_storage_dtype,
+    movable,
 )
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
-# per-layer kernel kept as its parity oracle (the JAX "pallas-layer").
-DECODE_ENGINES = ("auto", "fused", "fused-layer")
+# per-layer kernel kept as its parity oracle (the JAX "pallas-layer"),
+# "xla" the plain decode (the JAX package's XLA engine) on any device.
+DECODE_ENGINES = ("auto", "fused", "fused-layer", "xla")
 
 
 class GPTBlockParams(NamedTuple):
@@ -108,11 +125,15 @@ class GPTLMParams(NamedTuple):
 
 class SlotKVCache(NamedTuple):
     """Per-slot serving cache: K/V [num_layers, S, cache_len, Hkv, Dh] in
-    the compute dtype and each slot's written length [S] int32."""
+    the compute dtype, or int8/fp8 codes with their f32 scales
+    ``k_scale``/``v_scale`` [num_layers, S, cache_len, Hkv] (None for the
+    bf16 layout), and each slot's written length [S] int32."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
 
 class PagedKVCache(NamedTuple):
@@ -121,13 +142,29 @@ class PagedKVCache(NamedTuple):
     position ``p`` to ``pool[block_tables[s, p // bs], p % bs]``
     (``block_tables`` [S, max_blocks] int32), and each slot's written
     length [S] int32. Two slots may map the same physical block for a
-    shared prompt prefix (the host refcounts in ``serve_pool.py``); unused
-    table entries read garbage that the validity masks keep out."""
+    shared prompt prefix (the host refcounts in ``serve_pool.py``) and,
+    for an int8/fp8 pool, the block's scales in ``k_scale``/``v_scale``
+    [num_layers, num_blocks, block_size, Hkv] with it; unused table entries
+    read garbage that the validity masks keep out."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+class KVCache(NamedTuple):
+    """Single-sequence decode state (``prefill`` / ``decode_step``): K/V
+    [num_layers, B, cache_len, Hkv, Dh] in the compute dtype and the
+    number of positions written, shared by the batch. ``length`` is a host
+    int (the JAX package's is a device scalar), so a step needs no device
+    sync to check it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
 
 
 class GPTLM:
@@ -363,24 +400,29 @@ class GPTLM:
         rolling buffer is not ported)."""
         return self.max_len
 
+    def _kv_arrays(self, shape, kv_dtype: str, dev):
+        """Zero K/V payloads of ``shape`` in the ``kv_dtype`` storage and
+        their scales (shape without ``Dh``; None for "bf16")."""
+        z = lambda: torch.zeros(  # noqa: E731
+            shape, dtype=kv_storage_dtype(kv_dtype, self.compute_dtype), device=dev)
+        if kv_dtype == "bf16":
+            return z(), z(), None, None
+        sc = lambda: torch.zeros(shape[:-1], dtype=torch.float32, device=dev)  # noqa: E731
+        return z(), z(), sc(), sc()
+
     def empty_slot_cache(self, slots: int, kv_dtype: str = "bf16", *,
                          device=None) -> SlotKVCache:
         """A vacant ``slots``-row cache (lengths all zero = free). The
-        "bf16" layout stores the compute dtype, as in the JAX package."""
+        "bf16" layout stores the compute dtype, as in the JAX package;
+        "int8"/"fp8" store 1-byte codes plus the per-row scales."""
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        if kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} caches are not ported yet (ROADMAP A3)"
-            )
         dev = resolve_device(device)
         shape = (self.num_layers, slots, self.cache_len, self.num_kv_heads,
                  self.head_dim)
-        return SlotKVCache(
-            k=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
-            v=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
-            lengths=torch.zeros(slots, dtype=torch.int32, device=dev),
-        )
+        k, v, ks, vs = self._kv_arrays(shape, kv_dtype, dev)
+        return SlotKVCache(k=k, v=v, lengths=torch.zeros(slots, dtype=torch.int32, device=dev),
+                           k_scale=ks, v_scale=vs)
 
     def reset_slots(self, cache: SlotKVCache, free: torch.Tensor) -> SlotKVCache:
         """Mark slots free (``free`` [S] bool): their lengths drop to 0; the
@@ -389,27 +431,54 @@ class GPTLM:
             lengths=torch.where(free, torch.zeros_like(cache.lengths), cache.lengths)
         )
 
+    def _attended(self, x, cache):
+        """Fresh K/V rows as a later read of ``cache`` attends them (JAX
+        ``prefill_slots`` / ``extend_paged``): through a 1-byte cache's
+        quantizer, dequantized to the compute dtype (in ``x``'s dtype);
+        ``x`` itself for the bf16 layout."""
+        if kv_quant_dtype(cache.k.dtype) is None:
+            return x
+        return as_stored(x, cache.k.dtype, self.compute_dtype)[2].to(x.dtype)
+
+    def _stored(self, ks, vs, cache):
+        """Stacked fresh K/V [n, S, L, Hkv, Dh] as ``cache`` stores them:
+        (k, v, k_scale, v_scale), scales None for the bf16 layout."""
+        (kq, ksc, _), (vq, vsc, _) = (as_stored(x, cache.k.dtype, self.compute_dtype)
+                                      for x in (ks, vs))
+        return kq, vq, ksc, vsc
+
     def prefill_slots(self, params, cache: SlotKVCache, tokens, lengths, admit):
         """Batched ragged prefill INTO slots: run the right-padded prompt
         block [S, L] (real lengths [S], each ≥ 1) once and, for rows with
         ``admit`` True, replace the slot's cache rows (positions ≥ L zeroed)
-        and its length; other rows keep their state bit for bit. Returns
-        (logits at each row's last real position [S, vocab], the cache —
-        its tensors updated in place)."""
+        and its length; other rows keep their state bit for bit. A quantized
+        cache stores codes and scales, and the prompt attends its own K/V as
+        stored. Returns (logits at each row's last real position [S, vocab],
+        the cache — its tensors updated in place)."""
         s, l = tokens.shape
         c = self.cache_len
         if l > c:
             raise ValueError(f"prompt block {l} exceeds the cache length {c}")
+        qd = kv_quant_dtype(cache.k.dtype)
+
+        def attend(q, k, v):
+            return self._attend(q, self._attended(k, cache), self._attended(v, cache),
+                                kv_lens=lengths)
+
         positions = torch.arange(l, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
-        m = admit.bool()[:, None, None, None]
+        ks, vs = [], []
         for i in range(self.num_layers):
-            h, (k, v) = self._block(
-                layer_params(params.blocks, i), h, positions, kv_lens=lengths
-            )
-            for dst, src in ((cache.k[i], k), (cache.v[i], v)):
-                new = F.pad(src.to(dst.dtype), (0, 0, 0, 0, 0, c - l))
-                dst.copy_(torch.where(m, new, dst))
+            h, (k, v) = self._block(layer_params(params.blocks, i), h, positions,
+                                    kv_lens=lengths, attend=attend if qd else None)
+            ks.append(k)
+            vs.append(v)
+        stored = self._stored(torch.stack(ks), torch.stack(vs), cache)
+        for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale), stored):
+            if dst is not None:  # [n, S, L, ...] padded to [n, S, C, ...]
+                new = F.pad(movable(src.to(dst.dtype)), (0, 0) * (src.dim() - 3) + (0, c - l))
+                m = admit.bool().reshape(1, -1, *([1] * (src.dim() - 2)))
+                movable(dst).copy_(torch.where(m, new, movable(dst)))
         cache.lengths.copy_(
             torch.where(admit.bool(), lengths.to(cache.lengths.dtype), cache.lengths)
         )
@@ -419,8 +488,12 @@ class GPTLM:
 
     def _resolve_decode_engine(self, engine: str | None) -> str:
         """The per-call override (None → the model's knob) resolved to
-        "fused" or "fused-layer". "auto" is the megakernel; on the CPU
-        either engine runs its plain version."""
+        "fused", "fused-layer" or "xla". "auto" is the megakernel, on any
+        device: on the card it launches or raises for what the kernels do
+        not compute (an f32 model), and never becomes "xla" (the JAX
+        package's off-TPU "auto" does). "xla" — the plain decode on
+        whatever device the tensors are on — runs only when named. On the
+        CPU every engine runs the plain versions."""
         e = self.decode_engine if engine is None else engine
         if e not in DECODE_ENGINES:
             raise ValueError(f"unknown decode engine {e!r}; one of {DECODE_ENGINES}")
@@ -445,18 +518,22 @@ class GPTLM:
             self._refuse_full_cache(cache.lengths, act)
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
-        if self._resolve_decode_engine(engine) == "fused":
-            weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
-            h, _, _ = decode_token_slab(
-                h, weights, cache.k, cache.v, cache.lengths, act, **kw
-            )
-        else:
+        eng = self._resolve_decode_engine(engine)
+        if eng == "fused-layer":
             for i in range(self.num_layers):
                 weights = {nm: getattr(params.blocks, nm)[i] for nm in WEIGHT_NAMES}
-                h, kq, vq = decode_block_slab(
-                    h, weights, cache.k[i], cache.v[i], cache.lengths, **kw
-                )
-                commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act)
+                ks, vs = _scales(cache, i)
+                h, kq, vq, kqs, vqs = decode_block_slab(
+                    h, weights, cache.k[i], cache.v[i], cache.lengths, **kw, k_scale=ks,
+                    v_scale=vs)
+                commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act, ks, vs,
+                                 kqs, vqs)
+        else:
+            step = decode_token_slab if eng == "fused" else decode_token_slab_plain
+            weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
+            ks, vs = _scales(cache)
+            h, _, _ = step(h, weights, cache.k, cache.v, cache.lengths, act, **kw, k_scale=ks,
+                           v_scale=vs)
         new_cache = cache._replace(lengths=cache.lengths + act.to(cache.lengths.dtype))
         return self._logits(params, h), new_cache
 
@@ -470,6 +547,148 @@ class GPTLM:
                     f"KV cache full: an active slot is at length {worst} == "
                     f"max_len {self.max_len}; increase max_len"
                 )
+
+    # -- single-sequence decoding (prefill / decode_step and the loops) ----
+
+    def prefill(self, params, tokens) -> tuple[torch.Tensor, KVCache]:
+        """Run the prompt [B, L] once: (last-position logits [B, vocab], a
+        :class:`KVCache` holding every layer's prompt K/V). A windowed
+        model's rolling cache waits for ROADMAP A3.4 (``window=`` raises at
+        construction)."""
+        b, l = tokens.shape
+        c = self.cache_len
+        if l > c:
+            raise ValueError(f"prompt length {l} exceeds the cache length {c}")
+        positions = torch.arange(l, device=tokens.device)
+        h = self._embed_tokens(params, tokens, positions)
+        ks, vs = [], []
+        for i in range(self.num_layers):
+            h, (k, v) = self._block(layer_params(params.blocks, i), h, positions)
+            ks.append(k)
+            vs.append(v)
+        pad = (0, 0, 0, 0, 0, c - l)
+        ck = F.pad(torch.stack(ks).to(self.compute_dtype), pad)
+        cv = F.pad(torch.stack(vs).to(self.compute_dtype), pad)
+        return self._logits(params, h)[:, -1], KVCache(k=ck, v=cv, length=l)
+
+    def decode_step(self, params, token, cache: KVCache, *, engine: str | None = None):
+        """Append one token [B] at the shared position ``cache.length``:
+        (logits [B, vocab] f32, the cache, its tensors updated in place).
+        "fused" is B6 over the B rows at one length, "fused-layer" B5 and
+        the commit a layer, "xla" the plain decode. Raises "KV cache full"
+        at ``max_len`` (stepping past it would corrupt the last row)."""
+        if cache.length >= self.max_len:
+            raise ValueError(
+                f"KV cache full: length {cache.length} == max_len {self.max_len}; "
+                "increase max_len"
+            )
+        b = token.shape[0]
+        dev = token.device
+        lengths = torch.full((b,), cache.length, dtype=torch.int32, device=dev)
+        act = torch.ones(b, dtype=torch.bool, device=dev)
+        logits, _ = self.decode_slots(params, token, SlotKVCache(cache.k, cache.v, lengths), act,
+                                      engine=engine)
+        return logits, cache._replace(length=cache.length + 1)
+
+    def _check_decode_bounds(self, prompt, max_new):
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        if prompt.shape[1] + max_new > self.max_len:
+            raise ValueError(
+                f"prompt {prompt.shape[1]} + max_new {max_new} exceeds max_len {self.max_len}"
+            )
+
+    def _decode_loop(self, params, prompt, max_new, pick, engine=None):
+        """Prefill, then ``max_new - 1`` decode steps, each next token
+        ``pick(logits)``. Returns [B, L0 + max_new]."""
+        self._check_decode_bounds(prompt, max_new)
+        logits, cache = self.prefill(params, prompt)
+        out = [pick(logits)]
+        for _ in range(max_new - 1):
+            logits, cache = self.decode_step(params, out[-1], cache, engine=engine)
+            out.append(pick(logits))
+        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+    def greedy_decode(self, params, prompt, max_new: int, *, engine: str | None = None):
+        """[B, L0] prompt → [B, L0 + max_new], each token the argmax."""
+        return self._decode_loop(params, prompt, max_new,
+                                 lambda lg: lg.argmax(-1).to(prompt.dtype), engine)
+
+    def sample_decode(self, params, prompt, max_new: int, generator: torch.Generator, *,
+                      temperature: float = 1.0, top_k: int | None = None,
+                      top_p: float | None = None, engine: str | None = None):
+        """Sampling from ``logits / temperature`` within :func:`filter_logits`'
+        ``top_k`` / ``top_p`` truncation, the draws from ``generator`` (on the
+        prompt's device): one uniform row a token, Gumbel-max. ``top_k=1`` is
+        greedy. The bits differ from the JAX package's PRNG."""
+        if temperature <= 0:
+            raise ValueError(f"temperature must be > 0, got {temperature}")
+        if top_k is not None and not 1 <= top_k <= self.vocab_size:
+            raise ValueError(f"top_k must be in [1, {self.vocab_size}], got {top_k}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+        def pick(logits):
+            lt = filter_logits(logits, temperature, top_k, top_p)
+            u = torch.rand(lt.shape, generator=generator, device=lt.device)
+            return torch.argmax(lt - torch.log(-torch.log(u)), dim=-1).to(prompt.dtype)
+
+        return self._decode_loop(params, prompt, max_new, pick, engine)
+
+    def beam_decode(self, params, prompt, max_new: int, beam_size: int, *,
+                    eos_id: int | None = None, length_penalty: float = 0.0,
+                    engine: str | None = None):
+        """Beam search over the KV cache (JAX ``beam_decode``): the
+        ``beam_size`` best summed log-probabilities kept each step, all beams
+        decoded as one batch of B·K rows, reordered by gathering the cache's
+        batch rows. A beam that emits ``eos_id`` extends only with EOS at
+        zero cost; final beams rank by ``score / len_gen ** length_penalty``.
+        Returns the best beam a row, [B, L0 + max_new]."""
+        b, _ = prompt.shape
+        kb = beam_size
+        self._check_decode_bounds(prompt, max_new)
+        if not 1 <= kb <= self.vocab_size:
+            raise ValueError(f"beam_size must be in [1, {self.vocab_size}], got {kb}")
+        if eos_id is not None and not 0 <= eos_id < self.vocab_size:
+            raise ValueError(f"eos_id must be in [0, {self.vocab_size}), got {eos_id}")
+        v, dev = self.vocab_size, prompt.device
+        logits, cache = self.prefill(params, prompt)
+        scores, tok = torch.topk(torch.log_softmax(logits.float(), -1), kb)  # [B, K]
+        tok = tok.to(prompt.dtype)
+        cache = cache._replace(k=cache.k.repeat_interleave(kb, dim=1),
+                               v=cache.v.repeat_interleave(kb, dim=1))
+        seqs = [tok]
+        finished = (tok == eos_id) if eos_id is not None else torch.zeros_like(tok, dtype=torch.bool)
+        only_eos = None
+        if eos_id is not None:
+            only_eos = torch.full((v,), float("-inf"), device=dev)
+            only_eos[eos_id] = 0.0
+        for _ in range(1, max_new):
+            step_logits, cache = self.decode_step(params, tok.reshape(b * kb), cache,
+                                                  engine=engine)
+            logp = torch.log_softmax(step_logits.float(), -1).reshape(b, kb, v)
+            if eos_id is not None:
+                logp = torch.where(finished[..., None], only_eos, logp)
+            scores, idx = torch.topk((scores[..., None] + logp).reshape(b, kb * v), kb)
+            parent = idx // v
+            tok = (idx % v).to(prompt.dtype)
+            flat = (torch.arange(b, device=dev)[:, None] * kb + parent).reshape(-1)
+            cache = cache._replace(k=cache.k[:, flat], v=cache.v[:, flat])
+            seqs = [s.gather(1, parent) for s in seqs] + [tok]
+            finished = finished.gather(1, parent)
+            if eos_id is not None:
+                finished = finished | (tok == eos_id)
+        seqs = torch.stack(seqs, dim=-1)  # [B, K, max_new]
+        if eos_id is not None and length_penalty != 0.0:
+            is_eos = seqs == eos_id
+            first_eos = is_eos.int().argmax(-1)
+            gen_len = torch.where(is_eos.any(-1), first_eos + 1,
+                                  torch.full_like(first_eos, max_new))
+        else:
+            gen_len = torch.full((b, kb), max_new, device=dev)
+        ranked = scores / gen_len.float().clamp(min=1.0) ** length_penalty
+        best = ranked.argmax(-1)
+        return torch.cat([prompt, seqs[torch.arange(b, device=dev), best]], dim=1)
 
     # -- paged decoding (block-table cache, serve.py paged=True) -----------
 
@@ -488,26 +707,24 @@ class GPTLM:
     def empty_paged_cache(self, slots: int, num_blocks: int, block_size: int = 16,
                           kv_dtype: str = "bf16", *, device=None) -> PagedKVCache:
         """A vacant :class:`PagedKVCache`: ``num_blocks`` pool blocks of
-        ``block_size`` positions in the compute dtype, all-zero block
-        tables (unreachable while lengths are 0)."""
+        ``block_size`` positions in the compute dtype ("bf16"), or 1-byte
+        codes with scale pools ("int8"/"fp8"), all-zero block tables
+        (unreachable while lengths are 0)."""
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
-        if kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} pools are not ported yet (ROADMAP A3)"
-            )
         dev = resolve_device(device)
         shape = (self.num_layers, num_blocks, block_size, self.num_kv_heads,
                  self.head_dim)
+        k, v, ks, vs = self._kv_arrays(shape, kv_dtype, dev)
         return PagedKVCache(
-            k=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
-            v=torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+            k=k, v=v,
             block_tables=torch.zeros(
                 (slots, self.paged_blocks_per_slot(block_size)), dtype=torch.int32,
                 device=dev),
             lengths=torch.zeros(slots, dtype=torch.int32, device=dev),
+            k_scale=ks, v_scale=vs,
         )
 
     def extend_paged(self, params, cache: PagedKVCache, tokens, suffix_lens,
@@ -515,13 +732,15 @@ class GPTLM:
         """Batched ragged EXTEND through the block tables: the suffix block
         ``tokens`` [S, L] (right-padded, real lengths ``suffix_lens``) at
         absolute positions ``prefix_lens[s] + 0..L-1``, each query over the
-        slot's cached prefix (read through its table) plus the suffix
-        itself causally; the suffix K/V are scattered into the pool where
-        ``token_mask & admit``, in place. Returns (per-position logits
-        [S, L, vocab], the cache). ``lengths``/``block_tables`` stay the
-        caller's: admission commits ``prefix + suffix``, the speculative
-        verify only the emitted tokens. The caller guarantees every
-        written position lies in the slot's reserved blocks."""
+        slot's cached prefix (read through its table; dequantized to the
+        compute dtype for a 1-byte pool) plus the suffix itself causally
+        (as stored: quantized and dequantized for a 1-byte pool); the suffix
+        K/V (and scales) are scattered into the pool where ``token_mask &
+        admit``, in place. Returns (per-position logits [S, L, vocab], the
+        cache). ``lengths``/``block_tables`` stay the caller's: admission
+        commits ``prefix + suffix``, the speculative verify only the emitted
+        tokens. The caller guarantees every written position lies in the
+        slot's reserved blocks."""
         s, l = tokens.shape
         dev = tokens.device
         positions = prefix_lens.long()[:, None] + torch.arange(l, device=dev)[None, :]
@@ -530,12 +749,16 @@ class GPTLM:
         tables = cache.block_tables
         ks, vs = [], []
         for i in range(self.num_layers):
-            kview = gather_block_view(cache.k[i], tables)
-            vview = gather_block_view(cache.v[i], tables)
+            kview, vview = (
+                gather_block_view(p[i], tables) if sc is None else dequantize_kv(
+                    gather_block_view(p[i], tables), gather_block_view(sc[i], tables),
+                    self.compute_dtype)
+                for p, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)))
 
             def attend(q, k, v, kview=kview, vview=vview):
                 return paged_extend_attention(
-                    q, k, v, kview, vview, positions, prefix_lens, suffix_lens
+                    q, self._attended(k, cache), self._attended(v, cache), kview, vview,
+                    positions, prefix_lens, suffix_lens,
                 )
 
             h, (k, v) = self._block(
@@ -544,8 +767,10 @@ class GPTLM:
             ks.append(k)
             vs.append(v)
         valid = token_mask & admit.bool()[:, None]
-        scatter_token_kv_all_layers(cache.k, torch.stack(ks), tables, positions, valid)
-        scatter_token_kv_all_layers(cache.v, torch.stack(vs), tables, positions, valid)
+        stored = self._stored(torch.stack(ks), torch.stack(vs), cache)
+        pairs = [(d, s) for d, s in zip((cache.k, cache.v, cache.k_scale, cache.v_scale),
+                                         stored) if d is not None]
+        scatter_rows(*zip(*pairs), tables, positions, valid)
         return self._logits(params, h), cache
 
     def verify_paged(self, params, cache: PagedKVCache, tokens, suffix_lens,
@@ -555,8 +780,9 @@ class GPTLM:
         lengths/tables the caller's), engine-dispatched. "fused" runs the
         verify kernel (``ops/fused_decode.verify_tokens_paged``: one launch
         over all layers, the valid rows committed in the kernel; the
-        logits head stays a plain product); "fused-layer" delegates to
-        :meth:`extend_paged`, as the JAX per-layer and XLA engines do."""
+        logits head stays a plain product); "fused-layer" and "xla"
+        delegate to :meth:`extend_paged`, as the JAX per-layer and XLA
+        engines do."""
         if self._resolve_decode_engine(engine) != "fused":
             return self.extend_paged(
                 params, cache, tokens, suffix_lens, prefix_lens, admit
@@ -565,9 +791,10 @@ class GPTLM:
         positions = prefix_lens.long()[:, None] + torch.arange(l, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
         weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
+        ks, vs = _scales(cache)
         hr = verify_tokens_paged(
             h, weights, cache.k, cache.v, cache.block_tables, prefix_lens,
-            suffix_lens, admit, **self._kernel_kw(),
+            suffix_lens, admit, **self._kernel_kw(), k_scale=ks, v_scale=vs,
         )
         return self._logits(params, hr), cache
 
@@ -590,20 +817,53 @@ class GPTLM:
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
         tables, lengths = cache.block_tables, cache.lengths
-        if self._resolve_decode_engine(engine) == "fused":
-            weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
-            h, _, _ = decode_token_paged(
-                h, weights, cache.k, cache.v, tables, lengths, act, **kw
-            )
-        else:
+        eng = self._resolve_decode_engine(engine)
+        if eng == "fused-layer":
             for i in range(self.num_layers):
                 weights = {nm: getattr(params.blocks, nm)[i] for nm in WEIGHT_NAMES}
-                h, kq, vq = decode_block_paged(
-                    h, weights, cache.k[i], cache.v[i], tables, lengths, **kw
-                )
-                commit_paged_rows(cache.k[i], cache.v[i], kq, vq, tables, lengths, act)
+                ks, vs = _scales(cache, i)
+                h, kq, vq, kqs, vqs = decode_block_paged(
+                    h, weights, cache.k[i], cache.v[i], tables, lengths, **kw, k_scale=ks,
+                    v_scale=vs)
+                commit_paged_rows(cache.k[i], cache.v[i], kq, vq, tables, lengths, act, ks,
+                                  vs, kqs, vqs)
+        else:
+            step = decode_token_paged if eng == "fused" else decode_token_paged_plain
+            weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
+            ks, vs = _scales(cache)
+            h, _, _ = step(h, weights, cache.k, cache.v, tables, lengths, act, **kw,
+                           k_scale=ks, v_scale=vs)
         new_cache = cache._replace(lengths=lengths + act.to(lengths.dtype))
         return self._logits(params, h), new_cache
+
+
+def _scales(cache, i=None):
+    """A cache's (k_scale, v_scale), of layer ``i`` when given; (None,
+    None) for the bf16 layout."""
+    ks, vs = getattr(cache, "k_scale", None), getattr(cache, "v_scale", None)
+    if ks is None or i is None:
+        return ks, vs
+    return ks[i], vs[i]
+
+
+def filter_logits(logits, temperature: float = 1.0, top_k: int | None = None,
+                  top_p: float | None = None):
+    """``sample_decode``'s truncation (JAX ``sample_decode``'s ``pick``): f32
+    ``logits / temperature``, then the ``top_k`` largest kept (exactly k,
+    ties by index), then the ``top_p`` nucleus: tokens whose EXCLUSIVE
+    cumulative probability in sorted order is below p. The rest are -inf."""
+    lt = logits.float() / temperature
+    if top_k is not None:
+        vals, idx = torch.topk(lt, top_k, dim=-1)
+        lt = torch.full_like(lt, float("-inf")).scatter(-1, idx, vals)
+    if top_p is not None and top_p < 1.0:
+        # JAX's argsort(...)[::-1]: descending, ties in reverse index order.
+        order = torch.argsort(lt, dim=-1, stable=True).flip(-1)
+        probs = torch.softmax(lt.gather(-1, order), dim=-1)
+        keep_sorted = torch.cumsum(probs, dim=-1) - probs < top_p
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        lt = lt.masked_fill(~keep, float("-inf"))
+    return lt
 
 
 def layer_params(blocks: GPTBlockParams, i: int) -> GPTBlockParams:

@@ -2,28 +2,37 @@
 // for the per-layer step, the whole-model step and the speculation verify,
 // each instantiated for the slab cache and for the paged block pool.
 //
-//   coop_step_kernel<Rows, false, true>  replaces distributed_tensorflow_tpu/
+//   coop_step_kernel<Rows, false, true, KV>  replaces distributed_tensorflow_tpu/
 //                        ops/pallas_decode.py _fused_decode_kernel (B5; per
 //                        layer; launched by _fused_call, public
 //                        decode_block_slab / decode_block_paged): one layer's
 //                        step; the fresh K/V rows go back to the caller
 //                        (k_fresh / v_fresh), which commits them.
-//   coop_step_kernel<Rows, false, false>  replaces pallas_decode.py
+//   coop_step_kernel<Rows, false, false, KV>  replaces pallas_decode.py
 //                        _mega_decode_kernel (B6, the megakernel; launched by
 //                        _mega_call, public decode_token_slab /
 //                        decode_token_paged). Every layer in one launch, with
 //                        the fresh-row commit done in the kernel.
-//   coop_step_kernel<PagedRows, true, false>  replaces pallas_decode.py
+//   coop_step_kernel<PagedRows, true, false, KV>  replaces pallas_decode.py
 //                        _verify_kernel (B7, public verify_tokens_paged): the
 //                        speculation verify, L draft rows per slot through
 //                        every layer in one launch over the paged pool,
 //                        committed in the kernel.
 //
-// One slot's step for one layer: LN1 -> q/k/v projections -> fresh K/V rows
-// rounded through the bf16 cache dtype -> attention of the slot's queries over
-// its cache positions [0, length) read PRE-write plus the fresh rows from
-// `length` on -> output projection + residual -> LN2 -> FFN (tanh GELU) +
-// residual. The rounding points follow models/gpt.py's XLA engine: the
+// Each is instantiated for three KV storage types (the KV template
+// parameter): bf16, and int8 or e4m3 codes with one f32 scale a row (one
+// position of one KV head; pallas_decode.py _quant_row). RoPE is a flag of
+// the launch.
+//
+// One slot's step for one layer: LN1 -> q/k/v projections -> RoPE of the q
+// and fresh k rows at their own positions (pallas_decode.py _rope_rows: f32,
+// pairs (x_i, x_{i+Dh/2}), frequency 10000^(-i/(Dh/2))) -> fresh K/V rows
+// rounded through the cache (bf16; or quantized with the row's amax scale,
+// then attended as their dequantized value rounded to bf16) -> attention of
+// the slot's queries over its cache positions [0, length) read PRE-write
+// (1-byte codes are dequantized to bf16 as they arrive) plus the fresh rows
+// from `length` on -> output projection + residual -> LN2 -> FFN (tanh
+// GELU) + residual. The rounding points follow models/gpt.py's XLA engine: the
 // layernormed rows, the attention output and gelu(up) are cast to bf16 before
 // each product, products accumulate in f32, and (decode only) the normalized
 // softmax weights are cast to bf16 before they weight the bf16 values; the
@@ -42,7 +51,9 @@
 // Bound: at gpt-m (d=512, 8 layers, F=2048, MHA 8x64) one B6 launch must
 // move ~50 MB of bf16 weights and, at S=8 slots and a mean cache length of
 // 512, ~67 MB of K/V: ~35 us at 3.35 TB/s (bytes; the products, 2 x S*R rows
-// x 25M MACs, are far below the tensor cores' rate). B5 moves one layer of
+// x 25M MACs, are far below the tensor cores' rate); an int8/e4m3 cache
+// moves a byte an element and a 4-byte scale a row of Dh (~36 MB of K/V:
+// ~26 us in all). B5 moves one layer of
 // that (~14 MB, ~4.2 us); at gpt-xl width (d=2048, 16x128, F=8192) a layer
 // holds ~100 MB of weights (~40 us with its K/V).
 // Design: one cooperative launch over the whole card, CT threads a CTA (the
@@ -90,10 +101,12 @@
 // subtiles (chunk_mma), so it carries no per-subtile test or swizzle
 // arithmetic: with 40 rows (the verify) each warp runs three times the
 // k-steps, and that overhead had cost B7 9%.
-// Attention: each thread streams its own 16 bytes of every K (then V) row
-// through a ring of RING cp.async slots in shared memory (RING - 1 chunks in
-// flight and no registers spent on them); the softmax's maxima and sums meet
-// across the warps in warp order.
+// Attention: each thread streams its own 8 dims of every K (then V) row
+// through a ring of RING 16-byte cp.async slots in shared memory (RING - 1
+// chunks in flight and no registers spent on them): 16 bytes of bf16, or 8
+// bytes of codes (and, by the row's first lane, the row's 4-byte scale), so
+// a 1-byte cache moves half the bytes with the same per-thread geometry;
+// the softmax's maxima and sums meet across the warps in warp order.
 // The grid barrier is a flag a CTA (grid_sync), polled by one warp a CTA:
 // a single counter would take every CTA's atomic (PERF.md section 6 has the
 // two timed). Its epochs are kept on the device, so a launch needs no state
@@ -103,15 +116,50 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_EPS = 1e-5f;
+constexpr float KV_EPS = 1e-12f;  // ops/quantized.py _EPS
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_fp8_e4m3 e4m3;
+
+// The KV storage types: bf16, or 1-byte codes (int8, e4m3) with a scale a
+// row that maps the row's amax onto QMAX (ops/quantized.py _QMAX).
+template <class KV>
+struct KvCodes {
+  static constexpr bool QUANT = false;
+};
+template <>
+struct KvCodes<int8_t> {
+  static constexpr bool QUANT = true;
+  static constexpr float QMAX = 127.f;
+  // Round half to even, clip (ops/quantized.py _quantize).
+  static __device__ __forceinline__ int8_t code(float xs) {
+    return (int8_t)fminf(fmaxf(rintf(xs), -QMAX), QMAX);
+  }
+  static __device__ __forceinline__ float value(int8_t c) { return (float)c; }
+};
+template <>
+struct KvCodes<e4m3> {
+  static constexpr bool QUANT = true;
+  static constexpr float QMAX = 448.f;
+  // Round to nearest even; |xs| <= 448 by construction.
+  static __device__ __forceinline__ e4m3 code(float xs) {
+    e4m3 c;
+    c.__x = __nv_cvt_float_to_fp8(xs, __NV_SATFINITE, __NV_E4M3);
+    return c;
+  }
+  static __device__ __forceinline__ float value(e4m3 c) { return (float)c; }
+};
 
 // C: a slot's logical extent (the slab length, or MB * bs). bs, MB: the
 // pool's block size and the tables' width (0, 0 for the slab).
@@ -119,18 +167,19 @@ struct Dims {
   int S, d, Hq, Hkv, Dh, F, C, bs, MB;
 };
 
-// Element offset of logical row j (all KV heads) of slot s in one layer's
-// cache; `tab` is the slot's table row (paged only).
+// Row of logical position j of slot s in one layer's cache (Hkv x Dh
+// elements, and Hkv scales, a row); `tab` is the slot's table row (paged
+// only).
 struct SlabRows {
   __device__ __forceinline__ size_t operator()(const Dims& D, const int*, int s,
                                                int j) const {
-    return ((size_t)s * D.C + j) * (D.Hkv * D.Dh);
+    return (size_t)s * D.C + j;
   }
 };
 struct PagedRows {
   __device__ __forceinline__ size_t operator()(const Dims& D, const int* tab, int,
                                                int j) const {
-    return ((size_t)tab[j / D.bs] * D.bs + j % D.bs) * (D.Hkv * D.Dh);
+    return (size_t)tab[j / D.bs] * D.bs + j % D.bs;
   }
 };
 
@@ -172,6 +221,48 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   }
 }
 
+// Eight 1-byte codes (one 8-byte load) dequantized with the row's scale and
+// rounded to bf16, as floats (ops/quantized.py dequantize_kv to the compute
+// dtype). Both forms give the codes' values exactly, without a
+// quarter-rate integer-to-float conversion an element.
+template <class KV>
+__device__ __forceinline__ void unpack8_codes(const uint2& raw, float scale, float* out);
+
+// int8: code b's byte, offset to b + 128, set in the mantissa of 2^23; the
+// float 2^23 + b + 128 less 2^23 + 128 is b.
+template <>
+__device__ __forceinline__ void unpack8_codes<int8_t>(const uint2& raw, float scale,
+                                                      float* out) {
+  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float v =
+        __uint_as_float(__byte_perm(w[e >> 2], 0x4B000000u, 0x7440u | (e & 3))) - 8388736.f;
+    out[e] = bf16r(v * scale);
+  }
+}
+
+// e4m3: two codes a conversion to half2 (e4m3 values are exact in half).
+template <>
+__device__ __forceinline__ void unpack8_codes<e4m3>(const uint2& raw, float scale, float* out) {
+  const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const __half2 h = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w[p >> 1] >> (16 * (p & 1))), __NV_E4M3);
+    const float2 f = __half22float2(h);
+    out[2 * p] = bf16r(f.x * scale);
+    out[2 * p + 1] = bf16r(f.y * scale);
+  }
+}
+
+// cos and sin of RoPE's angle for dim pair e of `half` at position pos, in
+// the plain version's order: 10000^(-e / half), times pos.
+__device__ __forceinline__ void rope_cs(int pos, int e, int half, float& c, float& s) {
+  const float freq = powf(10000.f, -(float)e / (float)half);
+  sincosf((float)pos * freq, &s, &c);
+}
+
 // -- the cooperative kernel ---------------------------------------------------
 
 constexpr int CT = 384;  // threads of a CTA
@@ -208,16 +299,21 @@ struct Coop {
   Dims D;
   Plan p;
   int n_layers, R;  // R: rows a slot (1, or the verify's L)
+  int rope;         // rotate q and the fresh k rows (RoPE)
   size_t layer_elems;
   const float* h_in;
   float* h_out;  // [S * R, d]: the residual rows between phases
-  bf16 *ck, *cv;
+  void *ck, *cv;     // the KV cache: bf16, or 1-byte codes
+  float *ks, *vs;    // its scales [.., Hkv] a row (1-byte codes), else null
   // lengths: the decode's write positions, or the verify's prefix lengths.
   const int *lengths, *suffix, *active, *tables;
   float* qkv;  // [S * R, Hq Dh + 2 Hkv Dh]
   bf16* att;   // [S * R, Hq Dh]
   bf16* gelu;  // [S * R, F]
-  bf16 *k_fresh, *v_fresh;  // [S, Hkv, Dh]: B5's fresh rows (else null)
+  // B5's fresh rows [S, Hkv, Dh] in the cache's type and, for 1-byte codes,
+  // their scales [S, Hkv] (else null).
+  void *k_fresh, *v_fresh;
+  float *ks_fresh, *vs_fresh;
   // The grid barrier's flags: [MAX_GRID] words, one a CTA, then the epoch
   // the last launch on them ended at (see grid_sync()).
   unsigned* flags;
@@ -236,6 +332,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// 8- and 4-byte copies (cached at all levels: .cg takes 16 bytes only).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 
@@ -880,11 +987,13 @@ __device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, cons
 
 // Attention task (slot s, KV head hk) of layer l: the head group's g query
 // heads x R rows over cache positions [0, kvlen) (read pre-write) and the
-// slot's R fresh rows at kvlen + lj, with the exact softmax; rounds and
-// commits the fresh rows of head hk (FRESH: writes them to k_fresh /
-// v_fresh instead). `base`: the task's shared scratch.
-template <class Rows, bool VERIFY, bool FRESH>
+// slot's R fresh rows at kvlen + lj, with the exact softmax; rounds (KV
+// bf16) or quantizes (1-byte codes) and commits the fresh rows of head hk
+// (FRESH: writes them to k_fresh / v_fresh instead). `base`: the task's
+// shared scratch.
+template <class Rows, bool VERIFY, bool FRESH, class KV>
 __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
+  constexpr bool QUANT = KvCodes<KV>::QUANT;
   const Dims& D = a.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = a.R, Dh = D.Dh, g = D.Hq / D.Hkv, gR = g * R, CS = D.C + R;
@@ -912,75 +1021,164 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   }
   const int n = kvlen + R;  // keys a row: the cache's, then the fresh rows
   const float* qkv = a.qkv + (size_t)s * R * nqkv;
-  for (int i = tid; i < gR * Dh; i += CT) {
-    const int row = i / Dh, e = i % Dh;
-    q[i] = __ldcg(qkv + (size_t)(row % R) * nqkv + (hk * g + row / R) * Dh + e);
-  }
-  for (int i = tid; i < R * Dh; i += CT) {
-    const float* fr = qkv + (size_t)(i / Dh) * nqkv + qw + hk * Dh + i % Dh;
-    kf[i] = bf16r(__ldcg(fr));  // the cache's storage-dtype round trip
-    vf[i] = bf16r(__ldcg(fr + kvw));
-  }
   for (int i = tid; i < D.MB; i += CT) tab[i] = a.tables[(size_t)s * D.MB + i];
-  __syncthreads();
-  if (first) stamp(a, NST * l + S_B_IN);
-
-  bf16* ck = a.ck + l * a.layer_elems;
-  bf16* cv = a.cv + l * a.layer_elems;
-  for (int i = tid; i < R * Dh; i += CT) {
-    const int r = i / Dh, pos = kvlen + r;
-    if (commit && r < slen && pos < D.C) {
-      const size_t off = rows_of(D, tab, s, pos) + (size_t)hk * Dh + i % Dh;
-      ck[off] = __float2bfloat16(kf[i]);
-      cv[off] = __float2bfloat16(vf[i]);
-    }
-  }
-  if (FRESH)
-    for (int i = tid; i < Dh; i += CT) {
-      a.k_fresh[((size_t)s * D.Hkv + hk) * Dh + i] = __float2bfloat16(kf[i]);
-      a.v_fresh[((size_t)s * D.Hkv + hk) * Dh + i] = __float2bfloat16(vf[i]);
-    }
-
+  KV* ck = static_cast<KV*>(a.ck) + l * a.layer_elems;
+  KV* cv = static_cast<KV*>(a.cv) + l * a.layer_elems;
+  // The scales of this layer (1-byte codes): one a row and KV head.
+  float* ks = QUANT ? a.ks + l * (a.layer_elems / Dh) : nullptr;
+  float* vs = QUANT ? a.vs + l * (a.layer_elems / Dh) : nullptr;
   // The cache row of head hk streams through the ring in chunks of CP
-  // positions: in chunk c, thread t copies 16 bytes (8 dims, sub) of
-  // position c CP + cr (cr = t / LPR) into its own slot, and reads the same
+  // positions: in chunk c, thread t copies 8 dims (sub) of position c CP +
+  // cr (cr = t / LPR) into its own 16-byte slot (bf16: 16 bytes; 1-byte
+  // codes: 8 bytes, and the row's scale at byte 8), and reads the same
   // bytes back, so a chunk needs no barrier; RING - 1 chunks are in flight.
   const float scale = rsqrtf((float)Dh);
   const int LPR = Dh / 8, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
   const int nc = (kvlen + CP - 1) / CP;
-  bf16* ring = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(base) +
-                                       attend_ring_offset(D, R)) + tid * 8;
-  // Chunk c of `cache` into this thread's slot c % RING (and, for the K
-  // pass, the V rows into L2 for the P·V pass).
-  const auto fetch = [&](const bf16* cache, int c, bool to_l2) {
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(base) + attend_ring_offset(D, R) + (size_t)tid * 16;
+  // Chunk c of `cache` (and its `scales`) into this thread's slot c % RING
+  // (and, for the K pass, the V rows into L2 for the P·V pass).
+  const auto fetch = [&](const KV* cache, const float* scales, int c, bool to_l2) {
     const int j = c * CP + cr;
     if (j < kvlen) {
-      const size_t off = rows_of(D, tab, s, j) + (size_t)hk * Dh + sub * 8;
-      cp_async16(ring + (size_t)(c % RING) * CT * 8, cache + off);
+      const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * 8;
+      unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
+      if constexpr (QUANT) {
+        cp_async8(slot, cache + off);
+        if (sub == 0) cp_async4(slot + 8, scales + row * D.Hkv + hk);  // the row's lanes share it
+      } else {
+        cp_async16(slot, cache + off);
+      }
       if (to_l2 && (sub & 7) == 0) prefetch_l2(cv + off);
     }
   };
   // The 8 values of chunk c this thread copied (zeros past kvlen), once
-  // they have landed, with chunk c + RING - 1 asked for.
-  const auto take = [&](const bf16* cache, int c, bool to_l2, float* x8) {
+  // they have landed, with chunk c + RING - 1 asked for. 1-byte codes: the
+  // row's scale, which its first lane copied, is read after the warp's
+  // barrier (which makes that lane's landed copy visible) and before any
+  // lane asks for the chunk that will overwrite it.
+  const auto take = [&](const KV* cache, const float* scales, int c, bool to_l2, float* x8) {
     cp_async_wait<RING - 2>();
-    if (c + RING - 1 < nc) fetch(cache, c + RING - 1, to_l2);
+    const unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
+    uint2 codes;
+    float row_scale;
+    if constexpr (QUANT) {
+      __syncwarp();
+      codes = *reinterpret_cast<const uint2*>(slot);
+      row_scale = *reinterpret_cast<const float*>(slot - sub * 16 + 8);
+    }
+    if (c + RING - 1 < nc) fetch(cache, scales, c + RING - 1, to_l2);
     cp_async_commit();
-    unpack8(c * CP + cr < kvlen
-                ? *reinterpret_cast<const uint4*>(ring + (size_t)(c % RING) * CT * 8)
-                : make_uint4(0u, 0u, 0u, 0u),
-            x8);
+    if constexpr (QUANT) {
+      if (c * CP + cr < kvlen) {
+        unpack8_codes<KV>(codes, row_scale, x8);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x8[e] = 0.f;
+      }
+    } else {
+      unpack8(c * CP + cr < kvlen ? *reinterpret_cast<const uint4*>(slot)
+                                  : make_uint4(0u, 0u, 0u, 0u),
+              x8);
+    }
   };
-  const auto prime = [&](const bf16* cache, bool to_l2) {
+  const auto prime = [&](const KV* cache, const float* scales, bool to_l2) {
     for (int c = 0; c < RING - 1; ++c) {
-      if (c < nc) fetch(cache, c, to_l2);
+      if (c < nc) fetch(cache, scales, c, to_l2);
       cp_async_commit();
     }
   };
-  prime(ck, true);
+  // The table row lands before the first copies read it (paged);
+  // the first K chunks are in flight while q, k and v load.
+  if (D.MB) __syncthreads();
+  prime(ck, ks, true);
+  if (a.rope) {
+    // Row r of the slot sits at position lengths[s] + r (the decode's
+    // write position, the verify's prefix plus r). One item a thread: a q
+    // pair, a fresh k pair (rotated), or a fresh v value.
+    const int half = Dh / 2, pos0 = a.lengths[s], nq = gR * half, nk = R * half;
+    for (int i = tid; i < nq + nk + R * Dh; i += CT) {
+      if (i < nq + nk) {
+        const bool isq = i < nq;
+        const int p = isq ? i : i - nq, row = p / half, e = p % half, r = isq ? row % R : row;
+        const float* src =
+            qkv + (size_t)r * nqkv + (isq ? (hk * g + row / R) * Dh : qw + hk * Dh) + e;
+        float c, sn;
+        rope_cs(pos0 + r, e, half, c, sn);
+        const float x1 = __ldcg(src), x2 = __ldcg(src + half);
+        const float y1 = x1 * c - x2 * sn, y2 = x1 * sn + x2 * c;
+        float* dst = (isq ? q : kf) + row * Dh + e;
+        dst[0] = isq || QUANT ? y1 : bf16r(y1);
+        dst[half] = isq || QUANT ? y2 : bf16r(y2);
+      } else {
+        const int v = i - nq - nk;
+        const float x = __ldcg(qkv + (size_t)(v / Dh) * nqkv + qw + kvw + hk * Dh + v % Dh);
+        vf[v] = QUANT ? x : bf16r(x);
+      }
+    }
+  } else {
+    for (int i = tid; i < gR * Dh; i += CT) {
+      const int row = i / Dh, e = i % Dh;
+      q[i] = __ldcg(qkv + (size_t)(row % R) * nqkv + (hk * g + row / R) * Dh + e);
+    }
+    for (int i = tid; i < R * Dh; i += CT) {
+      const float* fr = qkv + (size_t)(i / Dh) * nqkv + qw + hk * Dh + i % Dh;
+      // bf16: the cache's storage-dtype round trip; codes: quantized below.
+      kf[i] = QUANT ? __ldcg(fr) : bf16r(__ldcg(fr));
+      vf[i] = QUANT ? __ldcg(fr + kvw) : bf16r(__ldcg(fr + kvw));
+    }
+  }
+  __syncthreads();
+  if (first) stamp(a, NST * l + S_B_IN);
+
+  if constexpr (QUANT) {
+    // One warp a fresh row (K or V, row r): its amax over Dh, the scale,
+    // the codes; the row is then attended as the codes dequantized and
+    // rounded to bf16 (ops/quantized.py quantize_kv / dequantize_kv).
+    for (int t = warp; t < 2 * R; t += CW) {
+      const int r = t >> 1, pos = kvlen + r;
+      const bool isv = t & 1, put = commit && r < slen && pos < D.C;
+      float* x = (isv ? vf : kf) + r * Dh;
+      float amax = 0.f;
+      for (int e = lane; e < Dh; e += 32) amax = fmaxf(amax, fabsf(x[e]));
+      const float rs = fmaxf(warp_max(amax), KV_EPS) / KvCodes<KV>::QMAX;
+      const size_t row = put ? rows_of(D, tab, s, pos) : 0;
+      KV* dst = (isv ? cv : ck) + row * kvw + (size_t)hk * Dh;
+      KV* fresh = static_cast<KV*>(isv ? a.v_fresh : a.k_fresh) + ((size_t)s * D.Hkv + hk) * Dh;
+      for (int e = lane; e < Dh; e += 32) {
+        const KV c = KvCodes<KV>::code(x[e] / rs);
+        x[e] = bf16r(KvCodes<KV>::value(c) * rs);
+        if (put) dst[e] = c;
+        if (FRESH) fresh[e] = c;
+      }
+      if (lane == 0) {
+        if (put) (isv ? vs : ks)[row * D.Hkv + hk] = rs;
+        if (FRESH) (isv ? a.vs_fresh : a.ks_fresh)[(size_t)s * D.Hkv + hk] = rs;
+      }
+    }
+    __syncthreads();
+  } else {
+    for (int i = tid; i < R * Dh; i += CT) {
+      const int r = i / Dh, pos = kvlen + r;
+      if (commit && r < slen && pos < D.C) {
+        const size_t off = rows_of(D, tab, s, pos) * kvw + (size_t)hk * Dh + i % Dh;
+        ck[off] = __float2bfloat16(kf[i]);
+        cv[off] = __float2bfloat16(vf[i]);
+      }
+    }
+    if (FRESH)
+      for (int i = tid; i < Dh; i += CT) {
+        static_cast<bf16*>(a.k_fresh)[((size_t)s * D.Hkv + hk) * Dh + i] =
+            __float2bfloat16(kf[i]);
+        static_cast<bf16*>(a.v_fresh)[((size_t)s * D.Hkv + hk) * Dh + i] =
+            __float2bfloat16(vf[i]);
+      }
+  }
+
   for (int c = 0; c < nc; ++c) {
     float k8[8];
-    take(ck, c, true, k8);
+    take(ck, ks, c, true, k8);
     const int j = c * CP + cr;
     const bool store = sub == 0 && j < kvlen;
     int i = 0;
@@ -1059,10 +1257,10 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     for (int ii = 0; ii < GMAX; ++ii)
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
-    prime(cv, false);
+    prime(cv, vs, false);
     for (int c = 0; c < nc; ++c) {
       float v8[8];
-      take(cv, c, false, v8);
+      take(cv, vs, c, false, v8);
       const int j = c * CP + cr;
       if (j < kvlen) {
 #pragma unroll
@@ -1137,7 +1335,7 @@ __device__ __forceinline__ const float* ln_wait(const Plan& p, const LnStage& st
   return ln_ptr(p);
 }
 
-template <class Rows, bool VERIFY, bool FRESH>
+template <class Rows, bool VERIFY, bool FRESH, class KV>
 __global__ void __launch_bounds__(CT, 1) coop_step_kernel(const __grid_constant__ Coop a) {
   const Dims& D = a.D;
   const Plan& p = a.p;
@@ -1202,7 +1400,7 @@ __global__ void __launch_bounds__(CT, 1) coop_step_kernel(const __grid_constant_
     // (b) Attention, one task a (slot, KV head); commits the fresh rows.
     stamp(a, st + S_B0);
     for (int t = b; t < D.S * D.Hkv; t += p.grid)
-      attend<Rows, VERIFY, FRESH>(a, reinterpret_cast<float*>(coop_smem + p.x0), l,
+      attend<Rows, VERIFY, FRESH, KV>(a, reinterpret_cast<float*>(coop_smem + p.x0), l,
                                   t / D.Hkv, t % D.Hkv, t == b);
     fence_async();  // the attention rows are read by TMA next
     stamp(a, st + S_B1);
@@ -1297,19 +1495,31 @@ LayerW pack(const void* wq, const void* wk, const void* wv, const void* wo,
 unsigned long long* g_stamps = nullptr;
 #endif
 
-// The cooperative kernels by number (0: slab decode, 1: paged decode, 2:
-// verify, 3: slab per-layer step, 4: paged per-layer step), with the shared
+// The cooperative kernels by number: kernel k of KV type t (0 bf16, 1 int8,
+// 2 e4m3) is N_COOP t + k, k being 0: slab decode, 1: paged decode, 2:
+// verify, 3: slab per-layer step, 4: paged per-layer step; with the shared
 // memory last set on each and the occupancy it gave.
 struct CoopKernel {
   const void* fn;
   int smem, per_sm, dev;
 };
-CoopKernel g_coop[5] = {
-    {(const void*)coop_step_kernel<SlabRows, false, false>, -1, 0, -1},
-    {(const void*)coop_step_kernel<PagedRows, false, false>, -1, 0, -1},
-    {(const void*)coop_step_kernel<PagedRows, true, false>, -1, 0, -1},
-    {(const void*)coop_step_kernel<SlabRows, false, true>, -1, 0, -1},
-    {(const void*)coop_step_kernel<PagedRows, false, true>, -1, 0, -1},
+constexpr int N_COOP = 5;
+constexpr int N_KV = 3;
+template <class KV>
+CoopKernel coop_kernel(int k) {
+  return {k == 0   ? (const void*)coop_step_kernel<SlabRows, false, false, KV>
+          : k == 1 ? (const void*)coop_step_kernel<PagedRows, false, false, KV>
+          : k == 2 ? (const void*)coop_step_kernel<PagedRows, true, false, KV>
+          : k == 3 ? (const void*)coop_step_kernel<SlabRows, false, true, KV>
+                   : (const void*)coop_step_kernel<PagedRows, false, true, KV>,
+          -1, 0, -1};
+}
+CoopKernel g_coop[N_KV * N_COOP] = {
+    coop_kernel<bf16>(0),   coop_kernel<bf16>(1),   coop_kernel<bf16>(2),
+    coop_kernel<bf16>(3),   coop_kernel<bf16>(4),   coop_kernel<int8_t>(0),
+    coop_kernel<int8_t>(1), coop_kernel<int8_t>(2), coop_kernel<int8_t>(3),
+    coop_kernel<int8_t>(4), coop_kernel<e4m3>(0),   coop_kernel<e4m3>(1),
+    coop_kernel<e4m3>(2),   coop_kernel<e4m3>(3),   coop_kernel<e4m3>(4),
 };
 
 // CTAs of kernel k a SM holds at `smem` bytes of shared memory (sets the
@@ -1414,18 +1624,22 @@ cudaError_t weight_maps(Coop& a) {
 // checks the envelope and raises with a reason: dims, the plan's layout, and
 // a grid that fits on the card at once (else the grid sync would never
 // complete). Nothing falls back: a refusal is an error code.
-int launch_coop(Coop& a, const int* plan, int k, void* stream) {
+int launch_coop(Coop& a, const int* plan, int k, int kv, void* stream) {
   const Dims& D = a.D;
   Plan& p = a.p;
   p = Plan{plan[0], plan[1], plan[2], plan[3], {plan[4], plan[5], plan[6], plan[7]},
            {plan[8], plan[9], plan[10], plan[11]}, plan[12], plan[13], plan[14], plan[15],
            plan[16], plan[17], plan[18]};
   const int rows = D.S * a.R;
+  const bool fresh = k >= 3;  // the per-layer steps write their fresh rows out
   if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 64 && D.Dh != 128) || D.d != D.Hq * D.Dh ||
       D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
       p.kc != D.d || p.grid < 1 || p.grid > MAX_GRID ||
-      (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) || !plan_in_bounds(D, a.R, p))
+      (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) || !plan_in_bounds(D, a.R, p) || kv < 0 ||
+      kv >= N_KV || (kv && (!a.ks || !a.vs)) || (fresh && (!a.k_fresh || !a.v_fresh)) ||
+      (fresh && kv && (!a.ks_fresh || !a.vs_fresh)))
     return (int)cudaErrorInvalidValue;
+  k += kv * N_COOP;
   int dev = 0, nsm = 0, coop = 0, per_sm = 0;
   cudaError_t err;
   if ((err = weight_maps(a)) != cudaSuccess || (err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -1441,21 +1655,33 @@ int launch_coop(Coop& a, const int* plan, int k, void* stream) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// The cache of a launch: its K/V (bf16, or 1-byte codes with their f32
+// scales [.., Hkv] a row), RoPE, and (per-layer step) where its fresh rows
+// and their scales go.
+struct CacheArgs {
+  void *k, *v;
+  const void *ks, *vs;
+  int rope;
+  void *k_fresh = nullptr, *v_fresh = nullptr, *ks_fresh = nullptr, *vs_fresh = nullptr;
+};
+
 Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer_elems,
-               const void* h_in, void* h_out, void* ck, void* cv, const void* lengths,
+               const void* h_in, void* h_out, const CacheArgs& c, const void* lengths,
                const void* suffix, const void* active, const void* tables, void* qkv,
-               void* att, void* gelu, void* flags, void* k_fresh = nullptr,
-               void* v_fresh = nullptr) {
+               void* att, void* gelu, void* flags) {
   Coop a;
   a.w0 = w;
   a.D = D;
   a.n_layers = n_layers;
   a.R = R;
+  a.rope = c.rope;
   a.layer_elems = layer_elems;
   a.h_in = (const float*)h_in;
   a.h_out = (float*)h_out;
-  a.ck = (bf16*)ck;
-  a.cv = (bf16*)cv;
+  a.ck = c.k;
+  a.cv = c.v;
+  a.ks = (float*)c.ks;
+  a.vs = (float*)c.vs;
   a.lengths = (const int*)lengths;
   a.suffix = (const int*)suffix;
   a.active = (const int*)active;
@@ -1463,8 +1689,10 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
   a.qkv = (float*)qkv;
   a.att = (bf16*)att;
   a.gelu = (bf16*)gelu;
-  a.k_fresh = (bf16*)k_fresh;
-  a.v_fresh = (bf16*)v_fresh;
+  a.k_fresh = c.k_fresh;
+  a.v_fresh = c.v_fresh;
+  a.ks_fresh = (float*)c.ks_fresh;
+  a.vs_fresh = (float*)c.vs_fresh;
   a.flags = (unsigned*)flags;
 #ifdef DECODE_PROBE
   a.stamps = g_stamps;
@@ -1474,110 +1702,129 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
 
 }  // namespace
 
+// Every launcher takes the KV cache's type `kv` (0 bf16, 1 int8, 2 e4m3) and
+// `rope` (rotate q and the fresh k rows at their positions). With 1-byte
+// codes, k_scale / v_scale hold one f32 scale a cache row and KV head
+// ([.., Hkv], the cache's shape without Dh), updated with the codes; for
+// bf16 they are null.
+
 // Per-layer step, slab (B5): one layer's weights, its cache ck/cv
-// [S, C, Hkv, Dh] bf16 (read only, pre-write), lengths [S] int32; h_in /
-// h_out [S, d] f32 -> k_fresh / v_fresh [S, Hkv, Dh] bf16, the fresh rows the
-// caller commits. Scratch, flags and plan as decode_token_slab (a plan of one
-// layer).
+// [S, C, Hkv, Dh] (read only, pre-write), lengths [S] int32; h_in /
+// h_out [S, d] f32 -> k_fresh / v_fresh [S, Hkv, Dh] in the cache's type
+// (and, for codes, ks_fresh / vs_fresh [S, Hkv] f32), the fresh rows the
+// caller commits. Scratch, flags and plan as decode_token_slab (a plan of
+// one layer).
 extern "C" int decode_block_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, const void* ck, const void* cv,
-    const void* lengths, void* k_fresh, void* v_fresh, void* qkv, void* att, void* gelu,
-    void* flags, const int* plan, int S, int d, int Hq, int Hkv, int Dh, int F, int C,
-    void* stream) {
+    const void* k_scale, const void* v_scale, const void* lengths, void* k_fresh,
+    void* v_fresh, void* ks_fresh, void* vs_fresh, void* qkv, void* att, void* gelu,
+    void* flags, const int* plan, int kv, int rope, int S, int d, int Hq, int Hkv, int Dh,
+    int F, int C, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
+  const CacheArgs c{(void*)ck, (void*)cv, k_scale, v_scale, rope,
+                    k_fresh, v_fresh, ks_fresh, vs_fresh};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, 1, 1, 0, h_in, h_out, (void*)ck, (void*)cv, lengths, nullptr, nullptr,
-                     nullptr, qkv, att, gelu, flags, k_fresh, v_fresh);
-  if (!k_fresh || !v_fresh) return (int)cudaErrorInvalidValue;
-  return launch_coop(a, plan, 3, stream);
+                     D, 1, 1, 0, h_in, h_out, c, lengths, nullptr, nullptr, nullptr, qkv, att,
+                     gelu, flags);
+  return launch_coop(a, plan, 3, kv, stream);
 }
 
 // Per-layer step, paged (B5): as decode_block_slab with one layer's pool
-// pk/pv [NB, bs, Hkv, Dh] bf16 (read only) and tables [S, MB] int32.
+// pk/pv [NB, bs, Hkv, Dh] (read only) and tables [S, MB] int32.
 extern "C" int decode_block_paged(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, const void* pk, const void* pv,
-    const void* lengths, const void* tables, void* k_fresh, void* v_fresh, void* qkv,
-    void* att, void* gelu, void* flags, const int* plan, int S, int d, int Hq, int Hkv,
+    const void* k_scale, const void* v_scale, const void* lengths, const void* tables,
+    void* k_fresh, void* v_fresh, void* ks_fresh, void* vs_fresh, void* qkv, void* att,
+    void* gelu, void* flags, const int* plan, int kv, int rope, int S, int d, int Hq, int Hkv,
     int Dh, int F, int NB, int bs, int MB, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
+  const CacheArgs c{(void*)pk, (void*)pv, k_scale, v_scale, rope,
+                    k_fresh, v_fresh, ks_fresh, vs_fresh};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, 1, 1, 0, h_in, h_out, (void*)pk, (void*)pv, lengths, nullptr, nullptr,
-                     tables, qkv, att, gelu, flags, k_fresh, v_fresh);
-  if (!k_fresh || !v_fresh || MB < 1 || NB < 1) return (int)cudaErrorInvalidValue;
-  return launch_coop(a, plan, 4, stream);
+                     D, 1, 1, 0, h_in, h_out, c, lengths, nullptr, nullptr, tables, qkv, att,
+                     gelu, flags);
+  if (MB < 1 || NB < 1) return (int)cudaErrorInvalidValue;
+  return launch_coop(a, plan, 4, kv, stream);
 }
 
 // Whole-model step, slab. Layer-stacked weights (leading [n_layers] axis) and
-// caches [n_layers, S, C, Hkv, Dh] bf16, committed in place at
-// [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32; scratch
-// qkv [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] bf16; the grid
-// barrier's flags (MAX_GRID + 1 uint32, zeroed once, then left to the
-// kernels; see grid_sync()); `plan` the nineteen ints of ops/fused_decode.py
-// coop_plan. One launch at a time may use the flags.
+// caches [n_layers, S, C, Hkv, Dh] (scales [n_layers, S, C, Hkv]), committed
+// in place at [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d]
+// f32; scratch qkv [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F]
+// bf16; the grid barrier's flags (MAX_GRID + 1 uint32, zeroed once, then
+// left to the kernels; see grid_sync()); `plan` the nineteen ints of
+// ops/fused_decode.py coop_plan. One launch at a time may use the flags.
 extern "C" int decode_token_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
-    const void* w_down, const void* b_down, void* ck, void* cv,
-    const void* lengths, const void* active, void* qkv, void* att, void* gelu, void* flags,
-    const int* plan, int n_layers, int S, int d, int Hq, int Hkv, int Dh, int F,
-    int C, void* stream) {
+    const void* w_down, const void* b_down, void* ck, void* cv, void* k_scale,
+    void* v_scale, const void* lengths, const void* active, void* qkv, void* att, void* gelu,
+    void* flags, const int* plan, int kv, int rope, int n_layers, int S, int d, int Hq,
+    int Hkv, int Dh, int F, int C, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
+  const CacheArgs c{ck, cv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, ck, cv, lengths,
+                     D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, c, lengths,
                      nullptr, active, nullptr, qkv, att, gelu, flags);
-  return launch_coop(a, plan, 0, stream);
+  return launch_coop(a, plan, 0, kv, stream);
 }
 
-// Whole-model step, paged. Pools [n_layers, NB, bs, Hkv, Dh] bf16, tables
-// [S, MB] int32; the fresh row of layer l is committed in place at
-// pool[l, tables[s, len / bs], len % bs] where active[s] != 0.
+// Whole-model step, paged. Pools [n_layers, NB, bs, Hkv, Dh] (scales
+// [n_layers, NB, bs, Hkv]), tables [S, MB] int32; the fresh row of layer l
+// is committed in place at pool[l, tables[s, len / bs], len % bs] where
+// active[s] != 0.
 extern "C" int decode_token_paged(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
-    const void* w_down, const void* b_down, void* pk, void* pv,
-    const void* lengths, const void* active, const void* tables, void* qkv, void* att,
-    void* gelu, void* flags, const int* plan, int n_layers, int S, int d, int Hq,
-    int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
+    const void* w_down, const void* b_down, void* pk, void* pv, void* k_scale,
+    void* v_scale, const void* lengths, const void* active, const void* tables, void* qkv,
+    void* att, void* gelu, void* flags, const int* plan, int kv, int rope, int n_layers,
+    int S, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
+  const CacheArgs c{pk, pv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, n_layers, 1, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv, lengths,
+                     D, n_layers, 1, (size_t)NB * bs * Hkv * Dh, h_in, h_out, c, lengths,
                      nullptr, active, tables, qkv, att, gelu, flags);
-  return launch_coop(a, plan, 1, stream);
+  return launch_coop(a, plan, 1, kv, stream);
 }
 
 // Verify. h_in/h_out [S, L, d] f32, layer-stacked weights, pools
-// [n_layers, NB, bs, Hkv, Dh] bf16 (committed in place), tables [S, MB],
-// prefix_lens / suffix_lens / active [S] int32; scratch as decode_token_slab
-// with S * L rows.
+// [n_layers, NB, bs, Hkv, Dh] (and scales; committed in place), tables
+// [S, MB], prefix_lens / suffix_lens / active [S] int32; scratch as
+// decode_token_slab with S * L rows.
 extern "C" int verify_tokens_paged(
     const void* h_in, void* h_out, const void* wq, const void* wk,
     const void* wv, const void* wo, const void* ln1_s, const void* ln1_b,
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
-    const void* w_down, const void* b_down, void* pk, void* pv, const void* tables,
-    const void* prefix_lens, const void* suffix_lens, const void* active, void* qkv,
-    void* att, void* gelu, void* flags, const int* plan, int n_layers, int S,
-    int L, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
+    const void* w_down, const void* b_down, void* pk, void* pv, void* k_scale, void* v_scale,
+    const void* tables, const void* prefix_lens, const void* suffix_lens, const void* active,
+    void* qkv, void* att, void* gelu, void* flags, const int* plan, int kv, int rope,
+    int n_layers, int S, int L, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB,
+    void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
   if (L < 1 || MB < 1) return (int)cudaErrorInvalidValue;
+  const CacheArgs c{pk, pv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, n_layers, L, (size_t)NB * bs * Hkv * Dh, h_in, h_out, pk, pv,
-                     prefix_lens, suffix_lens, active, tables, qkv, att, gelu, flags);
-  return launch_coop(a, plan, 2, stream);
+                     D, n_layers, L, (size_t)NB * bs * Hkv * Dh, h_in, h_out, c, prefix_lens,
+                     suffix_lens, active, tables, qkv, att, gelu, flags);
+  return launch_coop(a, plan, 2, kv, stream);
 }
 
 // CTAs a SM holds of cooperative kernel k (0 slab decode, 1 paged decode, 2
-// verify, 3 slab per-layer step, 4 paged per-layer step) at `smem` bytes of
-// dynamic shared memory, or -(cudaError_t).
-extern "C" int coop_occupancy(int k, int smem) {
-  if (k < 0 || k > 4 || smem < 0) return -(int)cudaErrorInvalidValue;
+// verify, 3 slab per-layer step, 4 paged per-layer step) on KV type kv at
+// `smem` bytes of dynamic shared memory, or -(cudaError_t).
+extern "C" int coop_occupancy(int k, int kv, int smem) {
+  if (k < 0 || k >= N_COOP || kv < 0 || kv >= N_KV || smem < 0)
+    return -(int)cudaErrorInvalidValue;
+  k += kv * N_COOP;
   int per_sm = 0;
   cudaError_t err = coop_per_sm(k, smem, per_sm);
   return err != cudaSuccess ? -(int)err : per_sm;

@@ -1,8 +1,8 @@
 """Fused GPT decode and speculation verify: the CUDA kernels and their plain
 versions.
 
-Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py`` for bf16
-caches, slab and paged:
+Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py``, slab and
+paged, with RoPE and bf16, int8 or fp8 (e4m3) caches:
 
 - :func:`decode_block_slab` (JAX :524) and :func:`decode_block_paged`
   (:566) — one layer's step per slot; the fresh K/V rows return to the
@@ -24,7 +24,14 @@ caches, slab and paged:
 Each is one cooperative launch over the whole card (:func:`coop_plan` lays
 it out: the grid, the tiles of each product, the weight ring's chunks, the
 scratch between phases and the shared memory); each weight element is read
-once a launch.
+once a launch. The kernel is built for each cache type (``KV_TYPES``).
+
+A cache of 1-byte codes (``int8`` or ``float8_e4m3fn``) carries one f32
+scale a row (a position of a KV head) in ``k_scale``/``v_scale`` (the
+cache's shape without ``Dh``), as in the JAX package: the fresh rows are
+quantized on write (``ops/quantized.quantize_kv``) and every read
+dequantizes to the compute dtype, the fresh rows included (they are
+attended as they are stored). A bf16 cache has no scales (None).
 
 The plain decode versions follow the JAX package's XLA engine
 (``models/gpt.py`` ``_decode_block_slots`` / ``_decode_block_paged`` and
@@ -65,8 +72,9 @@ from distributed_tensorflow_tpu_torch.ops.attention import NEG_INF, group_query_
 from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     gather_block_view,
     paged_extend_attention,
-    scatter_token_kv,
+    scatter_rows,
 )
+from distributed_tensorflow_tpu_torch.ops.quantized import as_stored, dequantize_kv, movable
 
 WEIGHT_NAMES = (
     "ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
@@ -88,30 +96,38 @@ def dot(x, w, compute_dtype):
     return x.to(compute_dtype).float() @ w.to(compute_dtype).float()
 
 
-def commit_slot_rows(ck, cv, kq, vq, lengths, active):
+def commit_slot_rows(ck, cv, kq, vq, lengths, active, ks=None, vs=None, kqs=None,
+                     vqs=None):
     """Write the fresh rows ``kq``/``vq`` [S, Hkv, Dh] into one layer's
     cache ``ck``/``cv`` [S, C, Hkv, Dh] at position ``lengths[s]`` for the
-    active rows; inactive rows write their old value back (a no-op), as
-    the JAX ``_commit_slot_rows`` does. In place."""
+    active rows, and their scales ``kqs``/``vqs`` [S, Hkv] into ``ks``/``vs``
+    [S, C, Hkv] (1-byte caches); inactive rows write their old value back
+    (a no-op), as the JAX ``_commit_slot_rows`` does. In place."""
     rows = torch.arange(ck.shape[0], device=ck.device)
     c = ck.shape[1]
     pos = lengths.long().clamp(0, c - 1)
     # A row already at capacity is never written (the kernel's rule too).
-    act = (active.bool() & (lengths < c))[:, None, None]
-    ck[rows, pos] = torch.where(act, kq.to(ck.dtype), ck[rows, pos])
-    cv[rows, pos] = torch.where(act, vq.to(cv.dtype), cv[rows, pos])
+    act = active.bool() & (lengths < c)
+    for dst, new in ((ck, kq), (cv, vq), (ks, kqs), (vs, vqs)):
+        if dst is not None:
+            m = act.reshape((-1,) + (1,) * (new.dim() - 1))
+            d = movable(dst)
+            d[rows, pos] = torch.where(m, movable(new.to(dst.dtype)), d[rows, pos])
 
 
-def commit_paged_rows(pool_k, pool_v, kq, vq, tables, lengths, active):
+def commit_paged_rows(pool_k, pool_v, kq, vq, tables, lengths, active, ks=None, vs=None,
+                      kqs=None, vqs=None):
     """The JAX ``_commit_paged_rows``: write the fresh rows [S, Hkv, Dh]
-    into one layer's pool [NB, bs, Hkv, Dh] at position ``lengths[s]``
-    through the tables, for active rows below the tables' extent (the
-    kernel's rule); the others are dropped. In place."""
+    (and, 1-byte pools, their scales [S, Hkv] into the scale pools
+    ``ks``/``vs`` [NB, bs, Hkv]) into one layer's pool [NB, bs, Hkv, Dh] at
+    position ``lengths[s]`` through the tables, for active rows below the
+    tables' extent (the kernel's rule); the others are dropped. In place."""
     extent = tables.shape[1] * pool_k.shape[1]
     valid = (active.bool() & (lengths < extent))[:, None]
-    pos = lengths[:, None]
-    scatter_token_kv(pool_k, kq[:, None], tables, pos, valid)
-    scatter_token_kv(pool_v, vq[:, None], tables, pos, valid)
+    pairs = [(d, n[None, :, None]) for d, n in ((pool_k, kq), (pool_v, vq), (ks, kqs),
+                                                 (vs, vqs)) if d is not None]
+    scatter_rows([d[None] for d, _ in pairs], [n for _, n in pairs], tables,
+                 lengths[:, None], valid)
 
 
 def _ffn_plain(h, w, cd):
@@ -121,10 +137,24 @@ def _ffn_plain(h, w, cd):
     return h + dot(F.gelu(up, approximate="tanh"), w["w_down"], cd) + w["b_down"]
 
 
-def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd):
+def _fresh_rows(k, v, cache_dtype, cd):
+    """The fresh rows as stored and as attended (:func:`as_stored`):
+    ``(kq, vq, kqs, vqs, k_att, v_att)``, ``k_att``/``v_att`` f32."""
+    (kq, kqs, ka), (vq, vqs, va) = as_stored(k, cache_dtype, cd), as_stored(v, cache_dtype, cd)
+    return kq, vq, kqs, vqs, ka.float(), va.float()
+
+
+def _cache_view(c, scale, cd):
+    """A cache view as attended, f32: bf16 as stored, 1-byte codes
+    dequantized to the compute dtype ``cd``."""
+    return c.float() if scale is None else dequantize_kv(c, scale, cd).float()
+
+
+def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd, ks=None, vs=None):
     """One layer's step (plain) over the per-slot view ``ck``/``cv``
-    [S, C, Hkv, Dh]: returns (h_out [S, d] f32, k_fresh, v_fresh
-    [S, Hkv, Dh] in the cache dtype)."""
+    [S, C, Hkv, Dh] (scales ``ks``/``vs`` [S, C, Hkv] for 1-byte codes):
+    returns (h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored,
+    their scales [S, Hkv] or None)."""
     s, d = h.shape
     c, hkv, dh = ck.shape[1], ck.shape[2], ck.shape[3]
     hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
@@ -134,77 +164,89 @@ def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd):
     if rope_on:
         pos = lengths[:, None]
         q, k = rope(q, pos), rope(k, pos)
-    kq, vq = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+    kq, vq, kqs, vqs, kf, vf = _fresh_rows(k[:, 0], v[:, 0], ck.dtype, cd)
     qg = group_query_heads(q[:, 0], hkv)  # [S, Hkv, g, Dh]
     sq = math.sqrt(dh)
-    sc = torch.einsum("shgd,skhd->shgk", qg, ck.float()) / sq
+    sc = torch.einsum("shgd,skhd->shgk", qg, _cache_view(ck, ks, cd)) / sq
     valid = torch.arange(c, device=h.device)[None, :] < lengths[:, None]
     sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
-    sf = (qg * kq.float()[:, :, None, :]).sum(-1, keepdim=True) / sq
-    p = torch.softmax(torch.cat([sc, sf], dim=-1), dim=-1).to(cv.dtype).float()
-    attn = torch.einsum("shgk,skhd->shgd", p[..., :c], cv.float())
-    attn = attn + p[..., c:] * vq.float()[:, :, None, :]
+    sf = (qg * kf[:, :, None, :]).sum(-1, keepdim=True) / sq
+    # The weights round to the dtype the values are attended in.
+    pdt = cv.dtype if vs is None else cd
+    p = torch.softmax(torch.cat([sc, sf], dim=-1), dim=-1).to(pdt).float()
+    attn = torch.einsum("shgk,skhd->shgd", p[..., :c], _cache_view(cv, vs, cd))
+    attn = attn + p[..., c:] * vf[:, :, None, :]
     h = h + dot(attn.reshape(s, num_heads * dh), w["wo"], cd)
-    return _ffn_plain(h, w, cd), kq, vq
+    return _ffn_plain(h, w, cd), kq, vq, kqs, vqs
 
 
 def _layer(weights, i):
     return {nm: weights[nm][i] for nm in WEIGHT_NAMES}
 
 
-def decode_block_slab_plain(h, weights, ck, cv, lengths, *, num_heads,
-                            rope=False, compute_dtype=torch.bfloat16):
+def _at(scale, i):
+    return None if scale is None else scale[i]
+
+
+def decode_block_slab_plain(h, weights, ck, cv, lengths, *, num_heads, rope=False,
+                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """Plain version of :func:`decode_block_slab`."""
-    return _block_plain(
-        h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype
-    )
+    return _block_plain(h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype,
+                        k_scale, v_scale)
 
 
-def decode_token_slab_plain(h, weights, ck, cv, lengths, active, *, num_heads,
-                            rope=False, compute_dtype=torch.bfloat16):
+def decode_token_slab_plain(h, weights, ck, cv, lengths, active, *, num_heads, rope=False,
+                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """Plain version of :func:`decode_token_slab`: the per-layer step and
     commit, layer by layer."""
     h = h.float()
     for i in range(ck.shape[0]):
-        h, kq, vq = _block_plain(
-            h, _layer(weights, i), ck[i], cv[i], lengths, num_heads, rope, compute_dtype
-        )
-        commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active)
+        ks, vs = _at(k_scale, i), _at(v_scale, i)
+        h, kq, vq, kqs, vqs = _block_plain(h, _layer(weights, i), ck[i], cv[i], lengths,
+                                           num_heads, rope, compute_dtype, ks, vs)
+        commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active, ks, vs, kqs, vqs)
     return h, ck, cv
 
 
-def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *,
-                             num_heads, rope=False, compute_dtype=torch.bfloat16):
+def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
+                             rope=False, compute_dtype=torch.bfloat16, k_scale=None,
+                             v_scale=None):
     """Plain version of :func:`decode_block_paged`: the PRE-write view
     gathered through the tables, then the slab step."""
     ck = gather_block_view(pool_k, tables)
     cv = gather_block_view(pool_v, tables)
-    return _block_plain(
-        h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype
-    )
+    ks = None if k_scale is None else gather_block_view(k_scale, tables)
+    vs = None if v_scale is None else gather_block_view(v_scale, tables)
+    return _block_plain(h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype,
+                        ks, vs)
 
 
 def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active, *,
-                             num_heads, rope=False, compute_dtype=torch.bfloat16):
+                             num_heads, rope=False, compute_dtype=torch.bfloat16,
+                             k_scale=None, v_scale=None):
     """Plain version of :func:`decode_token_paged`: per layer, the step over
     the gathered view, then the fresh row scattered through the tables."""
     h = h.float()
     for i in range(pool_k.shape[0]):
-        h, kq, vq = decode_block_paged_plain(
+        ks, vs = _at(k_scale, i), _at(v_scale, i)
+        h, kq, vq, kqs, vqs = decode_block_paged_plain(
             h, _layer(weights, i), pool_k[i], pool_v[i], tables, lengths,
-            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype,
+            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=ks,
+            v_scale=vs,
         )
-        commit_paged_rows(pool_k[i], pool_v[i], kq, vq, tables, lengths, active)
+        commit_paged_rows(pool_k[i], pool_v[i], kq, vq, tables, lengths, active, ks, vs,
+                          kqs, vqs)
     return h, pool_k, pool_v
 
 
 def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
                               suffix_lens, active, *, num_heads, rope=False,
-                              compute_dtype=torch.bfloat16):
+                              compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """Plain version of :func:`verify_tokens_paged`: per layer,
     ``extend_paged``'s block with the fresh K/V rounded through the pool
-    dtype before attention, a row with no valid key giving 0, and the real
-    rows of active slots scattered into the pool after that layer's
+    (bf16, or quantized and dequantized to the compute dtype) before
+    attention, a row with no valid key giving 0, and the real rows of
+    active slots scattered into the pool (and scales) after that layer's
     attention. Returns ``h_out`` [S, L, d] f32."""
     s, l, d = h.shape
     hkv, dh = pool_k.shape[-2], pool_k.shape[-1]
@@ -220,21 +262,24 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
     cd = compute_dtype
     for i in range(pool_k.shape[0]):
         w = _layer(weights, i)
+        ks, vs = _at(k_scale, i), _at(v_scale, i)
         hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
         q = dot(hn, w["wq"], cd).reshape(s, l, num_heads, dh)
         k = dot(hn, w["wk"], cd).reshape(s, l, hkv, dh)
         v = dot(hn, w["wv"], cd).reshape(s, l, hkv, dh)
         if rope:
             q, k = _rope(q, positions), _rope(k, positions)
-        kq, vq = k.to(pool_k.dtype), v.to(pool_v.dtype)
-        attn = paged_extend_attention(
-            q, kq, vq, gather_block_view(pool_k[i], tables),
-            gather_block_view(pool_v[i], tables), positions, prefix_lens, suffix_lens,
-        )
+        kq, vq, kqs, vqs, kf, vf = _fresh_rows(k, v, pool_k.dtype, cd)
+        view = lambda p, sc: _cache_view(  # noqa: E731
+            gather_block_view(p, tables), None if sc is None else gather_block_view(sc, tables),
+            cd)
+        attn = paged_extend_attention(q, kf, vf, view(pool_k[i], ks), view(pool_v[i], vs),
+                                      positions, prefix_lens, suffix_lens)
         attn = torch.where(alive, attn, torch.zeros_like(attn))
         h = _ffn_plain(h + dot(attn.reshape(s, l, d), w["wo"], cd), w, cd)
-        scatter_token_kv(pool_k[i], kq, tables, positions, valid)
-        scatter_token_kv(pool_v[i], vq, tables, positions, valid)
+        pairs = [(d[None], n[None]) for d, n in ((pool_k[i], kq), (pool_v[i], vq), (ks, kqs),
+                                                  (vs, vqs)) if d is not None]
+        scatter_rows(*zip(*pairs), tables, positions, valid)
     return h
 
 
@@ -268,6 +313,9 @@ WSLOTS_WANTED = 4
 # (``coop_occupancy``).
 COOP_KERNELS = {"decode_token_slab": 0, "decode_token_paged": 1, "verify_tokens_paged": 2,
                 "decode_block_slab": 3, "decode_block_paged": 4}
+# The cache types the kernel is built for, by their number in the C
+# interface (``kv``): bf16, and 1-byte codes with a f32 scale a row.
+KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 # Grid syncs a layer: after LN1 + q/k/v, attention, the output projection,
 # LN2 + up, and the down projection (none after the last layer's).
 PHASES = 5
@@ -536,12 +584,14 @@ def coop_constants(device) -> dict:
     return got
 
 
-def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device) -> CoopPlan:
+def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device,
+                kv=0) -> CoopPlan:
     """:func:`coop_plan` on ``device``: its SM count and opt-in shared
-    memory, and the occupancy the kernel reaches at the plan's shared
-    memory (read once a shape)."""
+    memory, and the occupancy the kernel built for cache type ``kv``
+    (``KV_TYPES``) reaches at the plan's shared memory (read once a
+    shape)."""
     device = torch.device(device)
-    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index)
+    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index, kv)
     plan = _PLANS.get(key)
     if plan is None:
         nsm = torch.cuda.get_device_properties(device).multi_processor_count
@@ -549,9 +599,9 @@ def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device) -> Coo
         shape = (s, r, n_layers, d, hq, hkv, dh, f, c, mb)
         plan = coop_plan(*shape, nsm, 1, limit)
         lib = _build.load("fused_decode")
-        lib.coop_occupancy.argtypes = [_INT, _INT]
+        lib.coop_occupancy.argtypes = [_INT, _INT, _INT]
         lib.coop_occupancy.restype = _INT
-        occ = lib.coop_occupancy(COOP_KERNELS[kernel], plan.smem)
+        occ = lib.coop_occupancy(COOP_KERNELS[kernel], kv, plan.smem)
         if occ < 0:
             _build.check(-occ, f"{kernel} occupancy")
         if occ < 1:
@@ -569,19 +619,21 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _check_kernel_dtypes(rope_on, compute_dtype, cache_dtype):
-    """The kernels' envelope in dtypes and features: raises for what they
-    do not compute (the launch plan checks the shapes)."""
-    if rope_on:
+def _check_kernel_dtypes(compute_dtype, cache_dtype, k_scale, v_scale):
+    """The kernels' envelope in dtypes: a bf16 model over a bf16 cache, or
+    over 1-byte codes with their scales; raises for what they do not
+    compute (the launch plan checks the shapes). RoPE is computed."""
+    if compute_dtype != torch.bfloat16:
         raise NotImplementedError(
-            "rope on the CUDA decode kernels is not ported yet (ROADMAP A3)"
+            f"the CUDA decode kernels compute in bf16; got {compute_dtype} (f32 compute in "
+            "decode: ROADMAP A3.3); engine=\"xla\" decodes it on the plain path"
         )
-    if compute_dtype != torch.bfloat16 or cache_dtype != torch.bfloat16:
+    if cache_dtype not in KV_TYPES:
         raise NotImplementedError(
-            "the CUDA decode kernels take a bf16 model with a bf16 cache; "
-            f"got compute {compute_dtype}, cache {cache_dtype} (int8/fp8 KV: "
-            "ROADMAP A3)"
+            f"the CUDA decode kernels take a bf16, int8 or float8_e4m3fn cache; got {cache_dtype}"
         )
+    if (cache_dtype != torch.bfloat16) != (k_scale is not None and v_scale is not None):
+        raise ValueError("a 1-byte cache needs its k_scale and v_scale, a bf16 cache none")
 
 
 def _as(t, dtype, dev):
@@ -647,12 +699,12 @@ def barrier_flags(device):
 _LAUNCHES: dict = {}
 
 
-def _launch_record(kernel, shape, device, stream):
-    key = (LIBRARY, kernel, shape, device.index, stream)
+def _launch_record(kernel, shape, kv, device, stream):
+    key = (LIBRARY, kernel, shape, kv, device.index, stream)
     rec = _LAUNCHES.get(key)
     if rec is None:
         s, r, n, d, hq, hkv, dh, f, c, mb = shape
-        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device)
+        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device, kv)
         fn = getattr(_build.load(LIBRARY), kernel)
         scratch = [torch.empty(sh, dtype=dt, device=device) for sh, dt in plan.scratch.values()]
         rec = _LAUNCHES[key] = (fn, (ctypes.c_int * 19)(*plan.ints()),
@@ -662,16 +714,28 @@ def _launch_record(kernel, shape, device, stream):
     return rec
 
 
-def _coop_launch(kernel, h, weights, pool_k, pool_v, tables, r, n_layers, num_heads, rope_on,
-                 compute_dtype, ptrs, dims):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers, num_heads,
+                 rope_on, compute_dtype, ptrs, dims):
     """Validate and launch ``kernel`` over ``n_layers`` layers of the cache
-    or pool. The C interface takes h_in, h_out, the weights, ``ptrs``
-    (caches, the [S] int32 rows, the per-layer step's fresh rows), the
-    scratch, the barrier's flags, the plan and ``dims`` (the model dims,
-    then C, or NB, bs, MB). Returns h_out."""
-    _check_kernel_dtypes(rope_on, compute_dtype, pool_k.dtype)
+    or pool (``scales`` = (k_scale, v_scale), None for bf16). The C
+    interface takes h_in, h_out, the weights, the caches and their scales,
+    ``ptrs`` (the [S] int32 rows, the per-layer step's fresh rows), the
+    scratch, the barrier's flags, the plan, the cache type and RoPE, then
+    ``dims`` (the model dims, then C, or NB, bs, MB). Returns h_out."""
+    k_scale, v_scale = scales
+    kv = KV_TYPES.get(pool_k.dtype)
+    if compute_dtype != torch.bfloat16 or kv is None or (kv != 0) != (
+            k_scale is not None and v_scale is not None):
+        _check_kernel_dtypes(compute_dtype, pool_k.dtype, k_scale, v_scale)  # the reason
     if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
+    if kv and not (k_scale.is_contiguous() and v_scale.is_contiguous()
+                   and k_scale.dtype == v_scale.dtype == torch.float32):
+        raise ValueError("the KV scales must be contiguous float32")
     s, d = h.shape[0], h.shape[-1]
     hkv, dh = pool_k.shape[-2], pool_k.shape[-1]
     mb = 0 if tables is None else tables.shape[1]
@@ -679,22 +743,24 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, tables, r, n_layers, num_he
     f = weights["w_up"].shape[-1]
     stream = _stream(h)
     fn, plan, scratch, flags, _ = _launch_record(
-        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), h.device, stream)
+        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), kv, h.device, stream)
     ws = _kernel_weights(weights, h.device)
     h = _as(h, torch.float32, h.device)
     out = torch.empty_like(h)
-    args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), *ptrs, *scratch, flags]
+    args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
+            pool_v.data_ptr(), _ptr(k_scale), _ptr(v_scale), *ptrs, *scratch, flags]
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * (len(args) + 1) + [_INT] * len(dims) + [_PTR]
-    _build.check(fn(*args, plan, *dims, stream), kernel)
+        fn.argtypes = [_PTR] * (len(args) + 1) + [_INT] * (len(dims) + 2) + [_PTR]
+    _build.check(fn(*args, plan, kv, int(rope_on), *dims, stream), kernel)
     _build.LAUNCHES[kernel] += 1
     return out
 
 
-def _block_launch(kernel, h, weights, ck, cv, tables, lengths, num_heads, rope, compute_dtype):
+def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads, rope,
+                  compute_dtype):
     """B5 on the card: one layer's step, in launches of the most slots the
     plan takes at this width (:func:`block_group`). Returns ``(h_out,
-    k_fresh, v_fresh)``."""
+    k_fresh, v_fresh, k_fresh_scale, v_fresh_scale)``."""
     s, d = h.shape[0], h.shape[-1]
     hkv, dh = ck.shape[-2], ck.shape[-1]
     mb = 0 if tables is None else tables.shape[1]
@@ -706,140 +772,153 @@ def _block_launch(kernel, h, weights, ck, cv, tables, lengths, num_heads, rope, 
         group = _GROUPS[key] = block_group(*key[:-1], props.multi_processor_count,
                                            coop_constants(h.device)["smem_limit"])
     if s > group:
-        parts = [_block_launch(kernel, h[i:i + group], weights,
-                               ck if tables is not None else ck[i:i + group],
-                               cv if tables is not None else cv[i:i + group],
+        def rows(t, i):  # the slab's rows of the group; the pool is shared
+            return t if tables is not None or t is None else t[i:i + group]
+
+        parts = [_block_launch(kernel, h[i:i + group], weights, rows(ck, i), rows(cv, i),
+                               tuple(rows(t, i) for t in scales),
                                None if tables is None else tables[i:i + group],
                                lengths[i:i + group], num_heads, rope, compute_dtype)
                  for i in range(0, s, group)]
-        return tuple(torch.cat(t) for t in zip(*parts))
+        return tuple(None if t[0] is None else torch.cat([movable(x) for x in t]).view(t[0].dtype)
+                     for t in zip(*parts))
     kf = torch.empty((s, hkv, dh), dtype=ck.dtype, device=h.device)
     vf = torch.empty_like(kf)
+    quant = scales[0] is not None
+    ksf = torch.empty((s, hkv), dtype=torch.float32, device=h.device) if quant else None
+    vsf = torch.empty_like(ksf) if quant else None
     lens = _i32(lengths)
     dims = [s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1]]
     if tables is None:
-        ptrs, tail = [ck.data_ptr(), cv.data_ptr(), lens.data_ptr()], [ck.shape[1]]
+        ptrs, tail = [lens.data_ptr()], [ck.shape[1]]
     else:
         tables = _i32(tables)
-        ptrs = [ck.data_ptr(), cv.data_ptr(), lens.data_ptr(), tables.data_ptr()]
+        ptrs = [lens.data_ptr(), tables.data_ptr()]
         tail = [ck.shape[0], ck.shape[1], tables.shape[1]]
-    out = _coop_launch(kernel, h, weights, ck, cv, tables, 1, 1, num_heads, rope, compute_dtype,
-                       [*ptrs, kf.data_ptr(), vf.data_ptr()], dims + tail)
-    return out, kf, vf
+    out = _coop_launch(kernel, h, weights, ck, cv, scales, tables, 1, 1, num_heads, rope,
+                       compute_dtype,
+                       [*ptrs, kf.data_ptr(), vf.data_ptr(), _ptr(ksf), _ptr(vsf)], dims + tail)
+    return out, kf, vf, ksf, vsf
 
 
 def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
-                      compute_dtype=torch.bfloat16):
+                      compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """One GPT block's single-token step over one layer's slab cache.
 
     ``h`` [S, d] f32 residual rows, ``weights`` one layer's dict,
-    ``ck``/``cv`` [S, C, Hkv, Dh] (PRE-write, not modified), ``lengths``
+    ``ck``/``cv`` [S, C, Hkv, Dh] (PRE-write, not modified; bf16, or
+    1-byte codes with ``k_scale``/``v_scale`` [S, C, Hkv] f32), ``lengths``
     [S] int write positions. Returns ``(h_out [S, d] f32, k_fresh,
-    v_fresh [S, Hkv, Dh] cache dtype)``."""
+    v_fresh [S, Hkv, Dh] as stored, k_fresh_scale, v_fresh_scale [S, Hkv]
+    or None)``."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_block_slab_plain(
             h, weights, ck, cv, lengths, num_heads=num_heads, rope=rope,
-            compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
         )
-    return _block_launch("decode_block_slab", h, weights, ck, cv, None, lengths, num_heads,
-                         rope, compute_dtype)
+    return _block_launch("decode_block_slab", h, weights, ck, cv, (k_scale, v_scale), None,
+                         lengths, num_heads, rope, compute_dtype)
 
 
 def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
-                      rope=False, compute_dtype=torch.bfloat16):
+                      rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """The whole model's single-token step over the slab cache, one launch.
 
     ``h`` [S, d] f32 embedded rows, ``weights`` layer-stacked,
-    ``ck``/``cv`` [n_layers, S, C, Hkv, Dh], ``lengths`` [S] int,
+    ``ck``/``cv`` [n_layers, S, C, Hkv, Dh] (1-byte codes with
+    ``k_scale``/``v_scale`` [n_layers, S, C, Hkv]), ``lengths`` [S] int,
     ``active`` [S] bool. Returns ``(h_out [S, d] f32, ck, cv)`` with the
-    fresh rows committed in place at the active rows' ``lengths``."""
+    fresh rows (and scales) committed in place at the active rows'
+    ``lengths``."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_token_slab_plain(
             h, weights, ck, cv, lengths, active, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype,
+            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
         )
     lens, act = _i32(lengths), _i32(active)
     n, s, c, hkv, dh = ck.shape
-    out = _coop_launch("decode_token_slab", h, weights, ck, cv, None, 1, n, num_heads, rope,
-                       compute_dtype, [ck.data_ptr(), cv.data_ptr(), lens.data_ptr(),
-                                       act.data_ptr()],
+    out = _coop_launch("decode_token_slab", h, weights, ck, cv, (k_scale, v_scale), None, 1, n,
+                       num_heads, rope, compute_dtype, [lens.data_ptr(), act.data_ptr()],
                        [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c])
     return out, ck, cv
 
 
 def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
-                       rope=False, compute_dtype=torch.bfloat16):
+                       rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
     """One GPT block's single-token step over one layer's block pool.
 
-    ``pool_k``/``pool_v`` [NB, bs, Hkv, Dh] (PRE-write, not modified),
-    ``tables`` [S, MB] int block ids, the rest as in
-    :func:`decode_block_slab`. Returns ``(h_out [S, d] f32, k_fresh,
-    v_fresh [S, Hkv, Dh])``; the caller commits with
+    ``pool_k``/``pool_v`` [NB, bs, Hkv, Dh] (PRE-write, not modified;
+    1-byte codes with ``k_scale``/``v_scale`` [NB, bs, Hkv]), ``tables``
+    [S, MB] int block ids, the rest as in :func:`decode_block_slab`.
+    Returns ``(h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh],
+    k_fresh_scale, v_fresh_scale)``; the caller commits with
     :func:`commit_paged_rows`."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_block_paged_plain(
             h, weights, pool_k, pool_v, tables, lengths, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype,
+            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
         )
-    return _block_launch("decode_block_paged", h, weights, pool_k, pool_v, tables, lengths,
-                         num_heads, rope, compute_dtype)
+    return _block_launch("decode_block_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
+                         tables, lengths, num_heads, rope, compute_dtype)
 
 
 def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
-                       num_heads, rope=False, compute_dtype=torch.bfloat16):
+                       num_heads, rope=False, compute_dtype=torch.bfloat16, k_scale=None,
+                       v_scale=None):
     """The whole model's single-token step over the block pool, one launch.
 
-    ``pool_k``/``pool_v`` [n_layers, NB, bs, Hkv, Dh], ``tables`` [S, MB],
+    ``pool_k``/``pool_v`` [n_layers, NB, bs, Hkv, Dh] (1-byte codes with
+    ``k_scale``/``v_scale`` [n_layers, NB, bs, Hkv]), ``tables`` [S, MB],
     the rest as in :func:`decode_token_slab`. Returns ``(h_out, pool_k,
-    pool_v)`` with each active row's fresh K/V committed in place at
-    ``pool[l, tables[s, len // bs], len % bs]``."""
+    pool_v)`` with each active row's fresh K/V (and scales) committed in
+    place at ``pool[l, tables[s, len // bs], len % bs]``."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_token_paged_plain(
             h, weights, pool_k, pool_v, tables, lengths, active, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype,
+            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
         )
     lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
     n, nb, bs, hkv, dh = pool_k.shape
-    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, tabs, 1, n, num_heads,
-                       rope, compute_dtype,
-                       [pool_k.data_ptr(), pool_v.data_ptr(), lens.data_ptr(),
-                        act.data_ptr(), tabs.data_ptr()],
+    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
+                       tabs, 1, n, num_heads, rope, compute_dtype,
+                       [lens.data_ptr(), act.data_ptr(), tabs.data_ptr()],
                        [n, h.shape[0], h.shape[-1], num_heads, hkv, dh,
                         weights["w_up"].shape[-1], nb, bs, tabs.shape[1]])
     return out, pool_k, pool_v
 
 
 def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens,
-                        active, *, num_heads, rope=False, compute_dtype=torch.bfloat16):
+                        active, *, num_heads, rope=False, compute_dtype=torch.bfloat16,
+                        k_scale=None, v_scale=None):
     """The speculation verify over the block pool, every layer in one
     launch.
 
     ``h`` [S, L, d] f32 embedded draft rows (L ≤ 8) at positions
     ``prefix_lens[s] + li``; ``suffix_lens`` [S] real rows per slot;
-    ``active`` [S] bool; ``weights`` layer-stacked; pools and tables as in
-    :func:`decode_token_paged`. Each row attends the pool STRICTLY below
-    its slot's prefix length (read pre-write) and the slot's fresh rows
-    ``lj <= li, lj < suffix_len``, rounded through the pool dtype. Each
-    layer commits position ``prefix + li`` where active and ``li <
-    suffix_len``, in place. Returns ``h_out`` [S, L, d] f32; lengths and
-    tables stay the caller's."""
+    ``active`` [S] bool; ``weights`` layer-stacked; pools, scales and
+    tables as in :func:`decode_token_paged`. Each row attends the pool
+    STRICTLY below its slot's prefix length (read pre-write) and the
+    slot's fresh rows ``lj <= li, lj < suffix_len``, rounded through the
+    pool (bf16, or quantized and dequantized). Each layer commits position
+    ``prefix + li`` where active and ``li < suffix_len``, in place. Returns
+    ``h_out`` [S, L, d] f32; lengths and tables stay the caller's."""
     if not h.is_cuda:
         _cpu_only(h)
         return verify_tokens_paged_plain(
             h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens, active,
-            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype,
+            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=k_scale,
+            v_scale=v_scale,
         )
     tabs = _i32(tables)
     plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
     n, nb, bs, hkv, dh = pool_k.shape
     s, l, d = h.shape
-    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, tabs, l, n,
-                        num_heads, rope, compute_dtype,
-                        [pool_k.data_ptr(), pool_v.data_ptr(), tabs.data_ptr(),
-                         plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
+    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
+                        tabs, l, n, num_heads, rope, compute_dtype,
+                        [tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
                         [n, s, l, d, num_heads, hkv, dh, weights["w_up"].shape[-1], nb, bs,
                          tabs.shape[1]])

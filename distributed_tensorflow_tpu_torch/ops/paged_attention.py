@@ -29,6 +29,7 @@ import math
 import torch
 
 from distributed_tensorflow_tpu_torch.ops.attention import NEG_INF, group_query_heads
+from distributed_tensorflow_tpu_torch.ops.quantized import movable
 
 
 def gather_block_view(pool_layer: torch.Tensor, block_tables: torch.Tensor):
@@ -36,8 +37,9 @@ def gather_block_view(pool_layer: torch.Tensor, block_tables: torch.Tensor):
     ``[NB, bs, Hkv, Dh]`` + ``[S, MB]`` → ``[S, MB*bs, Hkv, Dh]``, where
     view position ``p`` is logical position ``p`` of the slot."""
     s, mb = block_tables.shape
-    view = pool_layer[block_tables.long()]  # [S, MB, bs, Hkv, Dh]
-    return view.reshape(s, mb * pool_layer.shape[1], *pool_layer.shape[2:])
+    view = movable(pool_layer)[block_tables.long()]  # [S, MB, bs, Hkv, Dh]
+    return view.reshape(s, mb * pool_layer.shape[1], *pool_layer.shape[2:]).view(
+        pool_layer.dtype)
 
 
 def scatter_token_kv(pool_layer, kv, block_tables, positions, valid):
@@ -51,12 +53,20 @@ def scatter_token_kv(pool_layer, kv, block_tables, positions, valid):
 def scatter_token_kv_all_layers(pool, kvs, block_tables, positions, valid):
     """All-layer variant: ``pool`` [n, NB, bs, Hkv, Dh], ``kvs``
     [n, S, L, Hkv, Dh]; in place."""
-    bs = pool.shape[2]
+    scatter_rows([pool], [kvs], block_tables, positions, valid)
+    return pool
+
+
+def scatter_rows(pools, rows_in, block_tables, positions, valid):
+    """Each ``pools[i]`` [n, NB, bs, ...] takes ``rows_in[i]`` [n, S, L, ...]
+    at ``positions`` [S, L] where ``valid``, through one selection of the
+    valid rows (one device sync for a K/V pool and its scale pools)."""
+    bs = pools[0].shape[2]
     rows, cols = valid.bool().nonzero(as_tuple=True)
     pos = positions[rows, cols].long()
     bidx = block_tables[rows, pos // bs].long()
-    pool[:, bidx, pos % bs] = kvs[:, rows, cols].to(pool.dtype)
-    return pool
+    for pool, kvs in zip(pools, rows_in):
+        movable(pool)[:, bidx, pos % bs] = movable(kvs.to(pool.dtype))[:, rows, cols]
 
 
 def paged_extend_attention(q, k_new, v_new, k_view, v_view, q_positions,

@@ -43,9 +43,15 @@ shares the batch or which engine serves it. (The bits differ from JAX's
 PRNG, so sampled streams are never compared with the JAX package.) Greedy
 streams equal in-process greedy decoding token for token.
 
-Waiting for later slices: quantized KV and weights (A3, A5), deadlines and
-shedding, weight swap, drain, KV export/import, the event journal, the
-metrics registry and its exporter (A8). ``counters`` keeps the JAX
+- **Quantized KV** (``kv_dtype="int8"|"fp8"``): the slab cache or the pool
+  stores 1-byte codes with a f32 scale a row (``GPTLM.empty_slot_cache``);
+  ``kv_hbm_bytes`` sizes the pool from a byte budget at that element size
+  (``serve_pool.blocks_for_hbm_bytes``), scales charged. The radix shares a
+  block's scales with the block.
+
+Waiting for later slices: quantized weights (A5), deadlines and shedding,
+weight swap, drain, KV export/import, the event journal, the metrics
+registry and its exporter (A8). ``counters`` keeps the JAX
 package's pool and speculation counter names.
 """
 
@@ -60,10 +66,13 @@ import torch
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM, GPTLMParams, map_params
+from distributed_tensorflow_tpu_torch.ops.quantized import KV_DTYPES, kv_elem_bytes
 from distributed_tensorflow_tpu_torch.serve_pool import (
     BlockAllocator,
     PrefixCache,
     blocks_for,
+    blocks_for_hbm_bytes,
+    kv_position_bytes,
     lookup_draft,
 )
 
@@ -122,8 +131,12 @@ class TextServer:
 
     Paged knobs (as in the JAX package): ``paged``, ``block_size``,
     ``kv_blocks`` (default ``slots × ceil(max_len / block_size)``, the slab
-    footprint), ``prefix_caching``, ``spec_draft`` (draft tokens per verify, 0 = off;
-    needs ``paged``) and ``spec_ngram``."""
+    footprint) or ``kv_hbm_bytes`` (a byte budget, ``kv_dtype``'s element
+    size and scales charged), ``prefix_caching``, ``spec_draft`` (draft
+    tokens per verify, 0 = off; needs ``paged``) and ``spec_ngram``.
+    ``kv_dtype`` "bf16" | "int8" | "fp8" picks the cache's storage (slab or
+    pool). ``decode_engine`` None defers to the model's knob; "xla" is the
+    plain decode, taken only when named."""
 
     def __init__(
         self,
@@ -137,6 +150,8 @@ class TextServer:
         paged: bool = False,
         block_size: int = 16,
         kv_blocks: int | None = None,
+        kv_hbm_bytes: int | None = None,
+        kv_dtype: str = "bf16",
         decode_engine: str | None = None,
         prefix_caching: bool = True,
         spec_draft: int = 0,
@@ -147,6 +162,15 @@ class TextServer:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}; one of {KV_DTYPES}")
+        if kv_hbm_bytes is not None and not paged:
+            raise ValueError("kv_hbm_bytes sizes the paged block pool; pass paged=True")
+        if kv_hbm_bytes is not None and kv_blocks is not None:
+            raise ValueError(
+                "pass kv_blocks or kv_hbm_bytes, not both (kv_hbm_bytes derives kv_blocks "
+                "from the element size)"
+            )
         if spec_draft < 0:
             raise ValueError(f"spec_draft must be >= 0, got {spec_draft}")
         if spec_ngram < 1:
@@ -170,10 +194,21 @@ class TextServer:
         self.block_size = int(block_size)
         self.spec_draft = int(spec_draft)
         self.spec_ngram = int(spec_ngram)
+        self.kv_dtype = kv_dtype
+        # What one position and one block cost, scales included.
+        geometry = dict(num_layers=model.num_layers, kv_heads=model.num_kv_heads,
+                        head_dim=model.head_dim,
+                        elem_bytes=kv_elem_bytes(kv_dtype, model.compute_dtype),
+                        scale_bytes=0 if kv_dtype == "bf16" else 4)
+        self.kv_position_bytes = kv_position_bytes(**geometry)
+        self.kv_block_bytes = self.kv_position_bytes * self.block_size
         self._prefix: PrefixCache | None = None
         if paged:
             nb_slot = model.paged_blocks_per_slot(self.block_size)
-            self.kv_blocks = int(kv_blocks) if kv_blocks is not None else slots * nb_slot
+            if kv_hbm_bytes is not None:
+                self.kv_blocks = blocks_for_hbm_bytes(kv_hbm_bytes, self.block_size, **geometry)
+            else:
+                self.kv_blocks = int(kv_blocks) if kv_blocks is not None else slots * nb_slot
             if self.kv_blocks < 1:
                 raise ValueError(f"kv_blocks must be >= 1, got {self.kv_blocks}")
             self._alloc = BlockAllocator(self.kv_blocks)
@@ -217,8 +252,8 @@ class TextServer:
         self.stats: dict[int, dict] = {}
         dev, s = self.device, slots
         self._cache = (
-            model.empty_paged_cache(s, self.kv_blocks, self.block_size, device=dev)
-            if paged else model.empty_slot_cache(s, device=dev)
+            model.empty_paged_cache(s, self.kv_blocks, self.block_size, kv_dtype, device=dev)
+            if paged else model.empty_slot_cache(s, kv_dtype, device=dev)
         )
         self._last_tok = torch.zeros(s, dtype=torch.int32, device=dev)
         self._emitted = torch.zeros(s, dtype=torch.int32, device=dev)

@@ -3,7 +3,8 @@ n-gram drafts.
 
 A copy of the pure-Python half of ``distributed_tensorflow_tpu/serve_pool.py``
 (the port imports nothing of the JAX package): ``blocks_for`` (:75),
-:class:`BlockAllocator` (:156),
+``kv_position_bytes`` (:82), ``kv_block_bytes`` (:107),
+``blocks_for_hbm_bytes`` (:124), :class:`BlockAllocator` (:156),
 :class:`PrefixCache` (:222, without the event journal) and
 :func:`lookup_draft` (:460). The fleet index waits for ROADMAP A8.
 
@@ -30,6 +31,44 @@ def blocks_for(tokens: int, block_size: int) -> int:
     if tokens < 0:
         raise ValueError(f"tokens must be >= 0, got {tokens}")
     return -(-tokens // block_size)
+
+
+def kv_position_bytes(num_layers: int, kv_heads: int, head_dim: int, elem_bytes: int,
+                      scale_bytes: int = 0) -> int:
+    """Bytes ONE cached position occupies across the whole stack: K and V
+    payload rows plus, for a quantized cache, ``scale_bytes`` (4 for the
+    f32 scales) per KV head per tensor per layer."""
+    if min(num_layers, kv_heads, head_dim, elem_bytes) < 1:
+        raise ValueError("num_layers/kv_heads/head_dim/elem_bytes must all be >= 1")
+    if scale_bytes < 0:
+        raise ValueError(f"scale_bytes must be >= 0, got {scale_bytes}")
+    return 2 * num_layers * kv_heads * (head_dim * elem_bytes + scale_bytes)
+
+
+def kv_block_bytes(block_size: int, *, num_layers: int, kv_heads: int, head_dim: int,
+                   elem_bytes: int, scale_bytes: int = 0) -> int:
+    """Bytes one pool block occupies (payload and scales)."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    return block_size * kv_position_bytes(num_layers, kv_heads, head_dim, elem_bytes,
+                                          scale_bytes)
+
+
+def blocks_for_hbm_bytes(budget_bytes: int, block_size: int, *, num_layers: int,
+                         kv_heads: int, head_dim: int, elem_bytes: int,
+                         scale_bytes: int = 0) -> int:
+    """Pool blocks a byte budget holds at the given element size (scales
+    charged), so one ``kv_hbm_bytes`` gives a 1-byte pool about twice a
+    bf16 pool's blocks."""
+    bb = kv_block_bytes(block_size, num_layers=num_layers, kv_heads=kv_heads,
+                        head_dim=head_dim, elem_bytes=elem_bytes, scale_bytes=scale_bytes)
+    n = int(budget_bytes) // bb
+    if n < 1:
+        raise ValueError(
+            f"HBM budget {budget_bytes} B holds no {bb} B block; raise the budget or "
+            "shrink block_size"
+        )
+    return n
 
 
 class BlockAllocator:

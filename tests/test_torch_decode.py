@@ -144,17 +144,25 @@ def test_commit_slot_rows_semantics():
 
 
 def test_kernel_envelope_refusals():
-    """What the kernels do not compute is refused before any build: RoPE,
-    a compute or cache dtype other than bf16 (the check every kernel
-    wrapper runs first), an unknown engine."""
+    """What the kernels do not compute is refused before any build (the
+    check every kernel wrapper runs first): a compute dtype other than bf16
+    (naming the xla engine), a cache dtype other than bf16/int8/fp8, a
+    1-byte cache without its scales; RoPE and 1-byte caches pass. An unknown
+    engine raises."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    with pytest.raises(NotImplementedError, match="rope"):
-        fd._check_kernel_dtypes(True, torch.bfloat16, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fd._check_kernel_dtypes(False, torch.float32, torch.float32)
+    with pytest.raises(NotImplementedError, match="xla"):
+        fd._check_kernel_dtypes(torch.float32, torch.float32, None, None)
+    with pytest.raises(NotImplementedError, match="int8"):
+        fd._check_kernel_dtypes(torch.bfloat16, torch.float16, None, None)
+    with pytest.raises(ValueError, match="scale"):
+        fd._check_kernel_dtypes(torch.bfloat16, torch.int8, None, None)
+    s = torch.zeros(1)
+    fd._check_kernel_dtypes(torch.bfloat16, torch.bfloat16, None, None)
+    fd._check_kernel_dtypes(torch.bfloat16, torch.int8, s, s)
+    fd._check_kernel_dtypes(torch.bfloat16, torch.float8_e4m3fn, s, s)
     with pytest.raises(ValueError, match="unknown decode engine"):
-        torch_model()._resolve_decode_engine("xla")
+        torch_model()._resolve_decode_engine("pallas")
 
 
 @pytest.mark.cuda
@@ -188,10 +196,10 @@ def test_decode_kernels_match_plain_on_gpu(hq, hkv, dh):
     # bf16 intermediates may round to neighbouring values (see chip_smoke.py).
     tol = 2e-2
 
-    o1, kf1, vf1 = fd.decode_block_slab(x, {k: t[0] for k, t in w.items()},
-                                        ck[0], cv[0], lengths, **kw)
-    o2, kf2, vf2 = fd.decode_block_slab_plain(x, {k: t[0] for k, t in w.items()},
+    o1, kf1, vf1, _, _ = fd.decode_block_slab(x, {k: t[0] for k, t in w.items()},
                                               ck[0], cv[0], lengths, **kw)
+    o2, kf2, vf2, _, _ = fd.decode_block_slab_plain(x, {k: t[0] for k, t in w.items()},
+                                                    ck[0], cv[0], lengths, **kw)
     assert (o1 - o2).abs().max().item() < tol * max(1.0, o2.abs().max().item())
     assert (kf1.float() - kf2.float()).abs().max().item() < 5e-2
 
@@ -271,10 +279,10 @@ def test_paged_kernels_match_plain_on_gpu(hq, hkv, dh, bs):
         return (a.float() - b.float()).abs().max().item() <= tol * max(1.0, b.float().abs().max().item())
 
     w0 = {k: t[0] for k, t in w.items()}
-    o1, k1, v1 = fd.decode_block_paged(x, w0, pk[0], pv[0], tables, lengths, **kw)
-    o2, k2, v2 = fd.decode_block_paged_plain(x, w0, pk[0], pv[0], tables, lengths, **kw)
+    o1, k1, v1, _, _ = fd.decode_block_paged(x, w0, pk[0], pv[0], tables, lengths, **kw)
+    o2, k2, v2, _, _ = fd.decode_block_paged_plain(x, w0, pk[0], pv[0], tables, lengths, **kw)
     assert close(o1, o2) and close(k1, k2) and close(v1, v2)
-    os_, _, _ = fd.decode_block_slab(x, w0, ck[0], cv[0], lengths, **kw)
+    os_ = fd.decode_block_slab(x, w0, ck[0], cv[0], lengths, **kw)[0]
     assert torch.equal(o1, os_)
 
     pk1, pv1 = pk.clone(), pv.clone()
@@ -647,7 +655,7 @@ def test_block_kernel_at_gpt_xl_width_on_gpu(paged, s):
         ref = fd.decode_block_slab_plain(x, w0, ck[0], cv[0], lengths, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[f"decode_block_{'paged' if paged else 'slab'}"] == -(-s // 16)
-    for a, b in zip(got, ref):
+    for a, b in zip(got[:3], ref[:3]):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert (a.float() - b.float()).abs().max().item() <= 2e-2 * max(
             1.0, b.float().abs().max().item())
@@ -683,10 +691,11 @@ def test_block_kernel_layer_by_layer_equals_megakernel_on_gpu(paged):
     for i in range(n):
         wi = {k: t[i] for k, t in w.items()}
         if paged:
-            h, kq, vq = fd.decode_block_paged(h, wi, k2[i], v2[i], tables, lengths, **kw)
+            h, kq, vq, _, _ = fd.decode_block_paged(h, wi, k2[i], v2[i], tables, lengths,
+                                                    **kw)
             fd.commit_paged_rows(k2[i], v2[i], kq, vq, tables, lengths, act)
         else:
-            h, kq, vq = fd.decode_block_slab(h, wi, k2[i], v2[i], lengths, **kw)
+            h, kq, vq, _, _ = fd.decode_block_slab(h, wi, k2[i], v2[i], lengths, **kw)
             fd.commit_slot_rows(k2[i], v2[i], kq, vq, lengths, act)
     torch.cuda.synchronize()
     assert torch.equal(h, want) and torch.equal(k2, k1) and torch.equal(v2, v1)

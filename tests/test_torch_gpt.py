@@ -115,8 +115,8 @@ def test_config_validation_and_unported_features():
         GPTLM(moe_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         GPTLM(matmul_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        GPTLM().empty_slot_cache(2, "int8", device="cpu")
+    with pytest.raises(ValueError, match="unknown kv dtype"):
+        GPTLM().empty_slot_cache(2, "int4", device="cpu")
 
 
 def test_init_shapes_match_reference():

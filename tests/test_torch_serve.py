@@ -90,7 +90,7 @@ def test_buckets_and_admission_validation():
     with pytest.raises(ValueError, match="top_p"):
         srv.submit([1], GenerationConfig(top_p=0.0))
     with pytest.raises(ValueError, match="decode engine"):
-        TextServer(tm, tp, decode_engine="xla", device="cpu")
+        TextServer(tm, tp, decode_engine="pallas", device="cpu")
 
 
 def test_serve_text_round_trip():
