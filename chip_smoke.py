@@ -108,7 +108,17 @@ non-zero):
     through ``prefill`` / ``decode_step`` on "fused" (B6) and
     "fused-layer" (B5) against "xla" under phase 5's rule, then
     ``greedy_decode`` on each engine; an f32 gpt-m model must be refused
-    by ``engine="fused"`` and "auto" and decode on ``engine="xla"``.
+    by ``engine="fused"`` and "auto" and decode on ``engine="xla"``;
+15. serve gpt-m-L1024-W256 (gpt-m-L1024 with ``window=256``; its slab is a
+    rolling buffer of 256 rows, a quarter of the full slab's K/V bytes) on
+    phase 4's traffic on bf16 and int8 caches, and its RoPE form on bf16,
+    through phase 13's five servers, each held against
+    ``decode_engine="xla"``; tokens/s, ms a step and TTFT printed;
+16. train gpt-m-L1024-W256 through ``LMTrainer.run()`` on 12(a)'s corpus
+    and batch for one epoch of 64 steps (cut: the step count): the
+    launches must be B3, B4b and B4c (banded: 4 W <= L) and no B4a, the
+    cost must fall; ms a step printed beside 12(a)'s; then 8 steps at
+    W=512 (4 W > L), whose backward is B4a with the window.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -135,7 +145,16 @@ their plain versions (h under REL_TOL, 1-byte codes within one step with
 the share that differs printed and bounded, scales under REL_TOL), B5
 layer by layer == B6 and paged == slab bit for bit, and times each beside
 its plain version and its bound (1-byte codes plus a 4-byte scale a row);
-the kernels line lists each as ``<kernel>[<variant>]``.
+the kernels line lists each as ``<kernel>[<variant>]``. The window
+variants (``WINDOW_VARIANTS``: bf16, int8, RoPE bf16; W=256) run the same
+checks over a rolling slab of 256 rows laid out from the same caches at
+lengths 256..900 and over the absolute pool, paged == rolling slab bit for
+bit on h and the committed rows. Phase 3 also holds B3 banded (W=256) at
+S=8, L=1023 against its plain version, rows that see no key included, and
+requires it to take less time than causal B3 there; phase 11 holds B4b
+and B4c at W=256 and B4a at W=512 at the training shapes against the
+plain backward with the same window, SDPA's backward with the band as a
+boolean mask as the yardstick.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -143,9 +162,11 @@ beside it, the script exits non-zero and prints no result.
 
 ``--kernel-times`` runs no phase: it times the decode kernels (B5 slab
 and paged at gpt-m and at gpt-xl width, B6 slab and paged and B7 over 8
-gpt-m layers, and at gpt-m each of ``VARIANTS`` where the package takes
-them) and the dq kernel (B4b at the gpt-m and gpt-xl-L1024 training
-shapes) through their public wrappers, a call from Python each as above,
+gpt-m layers, and at gpt-m each of ``VARIANTS`` and the window variants
+where the package takes them), the backward kernels (B4b at the gpt-m and
+gpt-xl-L1024 training shapes, B4c and B4a at gpt-m) and B3 at S=8, L=1023
+(causal, and banded where the package takes a window) through their
+public wrappers, a call from Python each as above,
 and prints one JSON line with the card's name and power limit.
 ``--root DIR`` takes the package from another checkout (an unpacked
 ``git archive`` of an earlier commit has the same wrappers), so two
@@ -292,6 +313,24 @@ BLOCK = 16  # the paged pool's block size (phases 3 and 10)
 # (label, RoPE, KV cache type).
 VARIANTS = (("rope-bf16", True, "bf16"), ("rope-int8", True, "int8"),
             ("rope-fp8", True, "fp8"), ("learned-int8", False, "int8"))
+# The sliding-window configuration gpt-m-L1024-W256 (phases 3, 11, 15, 16):
+# gpt-m-L1024 with the window of tools/lm_bench.py's decode-window256
+# (:137-143). Its slab is a rolling buffer of WINDOW rows; 4 W <= L puts its
+# training in the banded regime (the dq + dk/dv pair).
+WINDOW = 256
+WIN_CFG = dict(SERVE_CFG, window=WINDOW)
+# The decode kernels' window variants held in phase 3 and served in phase
+# 15: (label, RoPE, KV cache type).
+WINDOW_VARIANTS = (("window-bf16", False, "bf16"), ("window-int8", False, "int8"),
+                   ("window-rope-bf16", True, "bf16"))
+# The flash kernels' window variants: record name -> (kernel, window, path).
+# B3 at the serving shapes (phase 3), B4b/B4c banded at W=256 and B4a at
+# W=512 (4 W > L: the fused backward) at the training shapes (phase 11).
+FLASH_WINDOWS = {"flash_fwd[window]": ("flash_fwd", WINDOW, "window serve+train"),
+                 "flash_bwd_dq[window]": ("flash_bwd_dq", WINDOW, "window-train"),
+                 "flash_bwd_dkv[window]": ("flash_bwd_dkv", WINDOW, "window-train"),
+                 "flash_bwd_fused[window-512]": ("flash_bwd_fused", 2 * WINDOW,
+                                                 "window-512-train")}
 # Share of a 1-byte cache's codes that may differ from the plain version's
 # (phase 3): the kernel's f32 rows differ from the plain ones in the last
 # bits (sums in another order), so a value at a rounding midpoint of the
@@ -466,6 +505,7 @@ def phase_kernels(records):
     )
     print(f"  flash_fwd bound at the f32 CUDA cores: "
           f"{bound(nbytes, flops, PEAK_F32)['bound_ms']:.4f} ms")
+    flash_window(records, q, k, v, lens, allowed, nbytes)
 
     # K7 / K8 at gpt-m widths: 8 slots, cache lengths around 512.
     def rw(*shape, scale):
@@ -545,11 +585,60 @@ def phase_kernels(records):
     block_kernels_at_xl(records)
     for variant in VARIANTS:
         kernel_variants(records, variant, w, ck, cv, lengths, active, h)
+    # The window variants: the rolling slab (C = WINDOW) and the windowed
+    # pool (absolute) at lengths that wrap the slab.
+    wlengths = torch.randint(WINDOW, 901, (S,), device=dev, generator=g, dtype=torch.int32)
+    for variant in WINDOW_VARIANTS:
+        kernel_variants(records, variant, w, ck, cv, wlengths, active, h)
     for name, r in records.items():
         call = (f" a call from Python ({r['graph_ms']:.4f} ms a launch replayed from a CUDA "
                 f"graph)" if "graph_ms" in r else "")
         print(f"  {name}: kernel {r['ms']:.4f} ms{call}, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def flash_window(records, q, k, v, lens, allowed, nbytes):
+    """B3 with the band of ``WINDOW`` at the serving shapes of causal B3
+    (``q``/``k``/``v`` [S, 1023, 8, 64] f32, ``lens`` 513..1023, so rows past
+    kv_lens + W - 1 see no key): against its plain version, then timed
+    beside causal B3 and SDPA with the band as a boolean mask. The band's
+    (q, k) pairs set the bound; it must take less time than causal B3 (the
+    kernel visits only the band's tiles)."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        flash_attention_with_lse,
+    )
+
+    S, L, H, Dh = q.shape
+    kw = dict(causal=True, window=WINDOW, kv_lens=lens)
+    out, lse = flash_attention_with_lse(q, k, v, **kw)
+    ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+    check_error("flash_fwd", err, ref.abs().max().item())
+    pos = torch.arange(L, device=q.device)
+    band = allowed & (pos[None, :, None] - pos[None, None, :] < WINDOW)
+    pairs = int(band.sum().item())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = band[:, None]
+    records["flash_fwd[window]"] = r = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: flash_attention_with_lse(q, k, v, **kw)),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+        **split_tf32_bound(nbytes, 4 * Dh * H * pairs),
+    )
+    causal = records["flash_fwd"]
+    print(f"  flash_fwd[window] (W={WINDOW}, {pairs} pairs, "
+          f"{pairs / int(allowed.sum().item()):.3f} of causal's): kernel {r['ms']:.4f} ms "
+          f"against causal B3's {causal['ms']:.4f} ms at the same shapes; SDPA with the band "
+          f"mask {r['library_ms']:.4f} ms (causal mask {causal['library_ms']:.4f}); plain "
+          f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if not r["ms"] < causal["ms"]:
+        raise AssertionError("banded B3 is not faster than causal B3: the band's tiles are "
+                             "not skipped")
 
 
 def block_kernels_at_xl(records):
@@ -659,7 +748,7 @@ def check_layer_by_layer(name, mega, h, w, caches, tables, lengths, active, kw):
         err = max(err, e)
         if tables is None:
             fd.commit_slot_rows(k[i], v[i], kq, vq, lengths, active, sc["k_scale"],
-                                sc["v_scale"], kqs, vqs)
+                                sc["v_scale"], kqs, vqs, kw.get("window"))
         else:
             fd.commit_paged_rows(k[i], v[i], kq, vq, tables, lengths, active, sc["k_scale"],
                                  sc["v_scale"], kqs, vqs)
@@ -1126,13 +1215,19 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     layer by layer == B6 bitwise (slab and paged), paged == slab bitwise;
     each timed beside its plain version and its bound (1-byte codes plus a
     4-byte scale a row and head), and B6 slab's launch split by phase
-    (``coop_split``). Recorded as ``<kernel>[<variant>]``."""
+    (``coop_split``). Recorded as ``<kernel>[<variant>]``. A window variant
+    (``WINDOW_VARIANTS``) runs with ``window=WINDOW``: the slab is the
+    rolling buffer of WINDOW rows laid out from the full caches at
+    ``lengths`` (which wrap it), the pool the full caches (absolute); paged
+    == slab bitwise holds for h and the committed rows."""
     import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import rolling_layout
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
     from distributed_tensorflow_tpu_torch.ops.paged_attention import gather_block_view
     from distributed_tensorflow_tpu_torch.ops.quantized import movable, quantize_kv
 
     label, rope, kv = variant
+    window = WINDOW if label.startswith("window") else None
     dev = h.device
     g = torch.Generator(device=dev).manual_seed(5)
     n, S, C, H, Dh = ck0.shape
@@ -1143,7 +1238,10 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     else:
         (ck, ks), (cv, vs) = quantize_kv(ck0.float(), kv), quantize_kv(cv0.float(), kv)
         caches = (ck, cv, ks, vs)
-    kw = dict(num_heads=H, rope=rope, compute_dtype=torch.bfloat16)
+    full = caches
+    if window is not None:
+        caches = tuple(rolling_layout(t, lengths, window) for t in full)
+    kw = dict(num_heads=H, rope=rope, compute_dtype=torch.bfloat16, window=window)
     w0 = {k_: t[0] for k_, t in w.items()}
 
     def sc(cs, layer=None):
@@ -1160,11 +1258,13 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
 
     wbytes_layer = sum(t[0].numel() * t.element_size() for t in w.values())
     mat_flops_layer = 2 * S * sum(w[nm][0].numel() for nm in fd.PROJ_NAMES)
-    pos = int(lengths.sum().item())
+    # Positions a step reads: the band's, W - 1 below the length, with a window.
+    band = lengths if window is None else lengths.clamp(max=window - 1)
+    pos = int(band.sum().item())
     attn_flops_layer = 4 * (pos + S) * H * Dh
     fresh = 2 * kv_bytes(S, H, Dh, kv)
     tables = torch.randperm(nb, device=dev, generator=g).reshape(S, mb).int()
-    pools = tuple(pool_from_slab(t, tables, nb) for t in caches)
+    pools = tuple(pool_from_slab(t, tables, nb) for t in full)
     print(f"  variant {label}:")
 
     def hold(name, got, ref, written, layers=False):
@@ -1232,13 +1332,23 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     errs["decode_token_paged"] = hold("decode_token_paged", (o6p, *p6), (r6pv, *r6p),
                                       n * nact * row, layers=True)
     del r6p
-    views = tuple(torch.stack([gather_block_view(t[i], tables) for i in range(n)]) for t in p6)
-    if not (torch.equal(o6p, o6) and same(views, k6)):
+    if window is None:
+        views = tuple(torch.stack([gather_block_view(t[i], tables) for i in range(n)])
+                      for t in p6)
+        rows_same = same(views, k6)
+        del views
+    else:  # the committed rows: the pool's at the length, the rolling slab's at length % W
+        rows = torch.arange(S, device=dev)[active]
+        ln = lengths[active].long()
+        rows_same = all(torch.equal(movable(pt)[:, tables[rows, ln // BLOCK].long(), ln % BLOCK],
+                                    movable(st)[:, rows, ln % window])
+                        for pt, st in zip(p6, k6))
+    if not (torch.equal(o6p, o6) and rows_same):
         raise AssertionError(f"decode_token_paged[{label}] differs from decode_token_slab")
-    del views
     check_layer_by_layer(f"decode_block_paged[{label}]", (o6p, *p6), h, w, pools, tables,
                          lengths, active, kw)
-    print(f"    paged == slab bitwise (B5 h and fresh rows; B6 h and committed rows)")
+    print(f"    paged == {'rolling ' if window else ''}slab bitwise (B5 h and fresh rows; B6 h "
+          "and committed rows)")
 
     # B7 at L=5, prefixes not block-aligned.
     L = 5
@@ -1261,8 +1371,9 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     # Times, bounds.
     kvb = kv_bytes(pos, H, Dh, kv)
     nrows = int(slens[active].sum().item())
-    vkvb = kv_bytes(int(plens.sum().item()), H, Dh, kv)
-    vattn = 4 * int((L * plens + L * L).sum().item()) * H * Dh
+    vband = plens if window is None else plens.clamp(max=window - 1)
+    vkvb = kv_bytes(int(vband.sum().item()), H, Dh, kv)
+    vattn = 4 * int((L * vband + L * L).sum().item()) * H * Dh
     tab = 4 * tables.numel()
     calls = {
         "decode_block_slab": (
@@ -1297,9 +1408,10 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
             n * (wbytes_layer + 2 * vkvb + 2 * kv_bytes(nrows, H, Dh, kv)) + 2 * S * L * d * 4
             + tab, n * (L * mat_flops_layer + vattn)),
     }
-    grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, w["w_up"].shape[-1], C, 0,
-                          dev, fd.KV_TYPES[caches[0].dtype]).grid
-    coop_split(f"decode_token_slab[{label}]", calls["decode_token_slab"][0], n, grid)
+    if window is None:
+        grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, w["w_up"].shape[-1], C,
+                              0, dev, fd.KV_TYPES[caches[0].dtype]).grid
+        coop_split(f"decode_token_slab[{label}]", calls["decode_token_slab"][0], n, grid)
     for name, (call, plain, nbytes, flops) in calls.items():
         per_layer = name.startswith("decode_block")
         records[f"{name}[{label}]"] = r = dict(
@@ -1319,7 +1431,9 @@ def wrong_suffix_mask(kind):
     import torch
     from distributed_tensorflow_tpu_torch.ops.attention import NEG_INF, group_query_heads
 
-    def attn(q, k_new, v_new, k_view, v_view, q_positions, prefix_lens, suffix_lens):
+    def attn(q, k_new, v_new, k_view, v_view, q_positions, prefix_lens, suffix_lens,
+             window=None):
+        assert window is None  # the check runs without a window
         s, l, hq, dh = q.shape
         c, dev = k_view.shape[1], q.device
         qg = group_query_heads(q, k_new.shape[2]).float()
@@ -2010,7 +2124,7 @@ KV_SERVERS = (("slab", False, {}, "decode_token_slab"),
 DIVERGENCE_BUDGET = {"int8": 0.15, "fp8": 0.25}
 
 
-def phase_kv_serve(records, label, model, params, kv_dtypes):
+def phase_kv_serve(records, label, model, params, kv_dtypes, paged_traffic=True):
     """Serve ``model`` with each cache type of ``kv_dtypes`` through
     ``KV_SERVERS``: the slab server (phase 4's requests) and the paged
     servers (phase 10's: prefix cache, speculation, the per-layer engine).
@@ -2020,13 +2134,17 @@ def phase_kv_serve(records, label, model, params, kv_dtypes):
     decode (``decode_engine="xla"``) at the same cache type under
     ``compare_streams``' rule. Prints tokens/s and ms per step, and the
     quantized caches' greedy divergence from the bf16 cache's streams
-    beside the JAX package's budgets."""
+    beside the JAX package's budgets. ``paged_traffic=False`` gives the
+    paged servers phase 4's requests too (no shared prefix: the prefix
+    cache and the drafts are read, not required). A windowed model's slab
+    server must launch the banded flash forward (its prefill)."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import _build
     from distributed_tensorflow_tpu_torch.serve import TextServer
 
     reqs = {False: serve_requests(model.vocab_size, 0),
-            True: paged_requests(model.vocab_size, 1)}
+            True: (paged_requests(model.vocab_size, 1) if paged_traffic
+                   else serve_requests(model.vocab_size, 0))}
     streams = {}
     for kv in kv_dtypes:
         variant = f"{label}-{kv}"
@@ -2053,8 +2171,9 @@ def phase_kv_serve(records, label, model, params, kv_dtypes):
             launches = {k: v for k, v in _build.LAUNCHES.items() if v}
             tm, cnt = srv.timing, srv.counters
             ntok = sum(len(o) for o in outs)
+            ttft = [srv.stats[i]["ttft_s"] for i in sorted(srv.stats)]
             line = (f"  {variant} {name}: launches {launches}; {ntok} tokens in {wall:.3f} s: "
-                    f"{ntok / wall:.1f} tokens/s")
+                    f"{ntok / wall:.1f} tokens/s; TTFT mean {1e3 * np.mean(ttft):.1f} ms")
             if tm["decode_steps"]:
                 line += f"; decode {1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms per step"
             if tm["verify_ticks"]:
@@ -2066,9 +2185,14 @@ def phase_kv_serve(records, label, model, params, kv_dtypes):
             if launches.get(kernel, 0) < 1:
                 raise AssertionError(f"{variant} {name} never launched {kernel}")
             records[f"{kernel}[{variant}]"]["launches"] = launches[kernel]
-            if paged and cnt["prefix_cache_hits"] < 1:
+            if model.window is not None and not paged:
+                if launches.get("flash_fwd", 0) < 1:
+                    raise AssertionError(f"{variant} {name}: the prefill never launched B3")
+                records["flash_fwd[window]"]["launches"] = launches["flash_fwd"]
+            if paged and paged_traffic and cnt["prefix_cache_hits"] < 1:
                 raise AssertionError(f"{variant} {name}: no prefix-cache hit")
-            if kernel == "verify_tokens_paged" and cnt["spec_tokens_accepted"] < 1:
+            if (kernel == "verify_tokens_paged" and paged_traffic
+                    and cnt["spec_tokens_accepted"] < 1):
                 raise AssertionError(f"{variant} {name}: no draft token accepted")
             for o, c in zip(outs, configs):
                 if len(o) != c.max_new or o.min() < 0 or o.max() >= model.vocab_size:
@@ -2546,8 +2670,9 @@ def phase_mlp_bench(records, ds):
             raise AssertionError("the xla impl launched a kernel")
 
 
-def bwd_inputs(b, l, hq, hkv, d, dtype, ragged, with_dlse, g, dev):
-    """Seeded q/k/v/dO, the forward's out and lse, delta, kv_lens."""
+def bwd_inputs(b, l, hq, hkv, d, dtype, ragged, with_dlse, g, dev, window=None):
+    """Seeded q/k/v/dO, the forward's out and lse (causal, with ``window``),
+    delta, kv_lens."""
     import torch
     from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention_with_lse
 
@@ -2555,7 +2680,7 @@ def bwd_inputs(b, l, hq, hkv, d, dtype, ragged, with_dlse, g, dev):
     k, v = (torch.randn(b, l, hkv, d, device=dev, generator=g).to(dtype) for _ in range(2))
     lens = (torch.randint(1, l + 1, (b,), device=dev, generator=g, dtype=torch.int32)
             if ragged else None)
-    o, lse = flash_attention_with_lse(q, k, v, causal=True, kv_lens=lens)
+    o, lse = flash_attention_with_lse(q, k, v, causal=True, window=window, kv_lens=lens)
     delta = (do.float() * o.float()).sum(-1)
     if with_dlse:
         delta = delta - torch.randn(b, l, hq, device=dev, generator=g)
@@ -2678,7 +2803,74 @@ def phase_bwd_kernels(records):
               f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
               f"{r['bound_peak']}; {bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 "
               f"CUDA cores)")
+    bwd_window_kernels(records, g)
     dq_at_xl(records, g)
+
+
+def band_pairs(l, w):
+    """(q, k) pairs a (batch, head) keeps under causal + window ``w``:
+    ``w (w + 1) / 2 + (l - w) w`` for w <= l."""
+    w = min(w, l)
+    return w * (w + 1) // 2 + (l - w) * w
+
+
+def bwd_window_kernels(records, g):
+    """The backward kernels' window variants at the training shapes (B=16,
+    L=1024, 8 heads of 64, f32): B4b and B4c at W=WINDOW (banded: the
+    pair the auto rule takes) and B4a at 2 WINDOW (4 W > L: the fused
+    kernel), each against the plain backward with the same window at
+    REL_TOL, then timed beside the band's bound, the plain backward and,
+    as a yardstick, the backward of SDPA with the band as a boolean
+    mask."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, l, h, d = 16, 1024, 8, 64
+    # (window, the records its kernels fill): the banded pair, then B4a.
+    for w, recs in ((WINDOW, ("flash_bwd_dq[window]", "flash_bwd_dkv[window]")),
+                    (2 * WINDOW, ("flash_bwd_fused[window-512]",))):
+        q, k, v, do, o, lse, delta, _ = bwd_inputs(b, l, h, h, d, torch.float32, False, False, g,
+                                                   dev, window=w)
+        kw = dict(causal=True, window=w)
+        pair = not fa.resolve_fused(None, b * h, l, d, w)
+        print(f"  W={w} (B={b} L={l} H={h} D={d} f32; banded {fa.use_banding(w, l)}, the auto "
+              f"rule takes the {'pair' if pair else 'fused kernel'}):")
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True, w)
+        calls = {"flash_bwd_fused": lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw),
+                 "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), None,
+                                          None),
+                 "flash_bwd_dkv": lambda: (None, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                   **kw))}
+        errs = {rec: check_bwd(f"{rec} vs plain", calls[FLASH_WINDOWS[rec][0]](), ref,
+                               REL_TOL[FLASH_WINDOWS[rec][0]]) for rec in recs}
+        del ref
+        plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True, w),
+                           3)
+        pos = torch.arange(l, device=dev)
+        band = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < w)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        dot = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        print(f"  library yardstick: SDPA backward with the band mask (W={w}, f32): "
+              f"{lib_ms:.4f} ms")
+        pairs = b * h * band_pairs(l, w)
+        io, rows = 4 * q.numel(), 4 * lse.numel()
+        for rec in recs:
+            base = FLASH_WINDOWS[rec][0]
+            fl = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[base]
+            nbytes = {"flash_bwd_fused": 7, "flash_bwd_dq": 5, "flash_bwd_dkv": 6}[base] * io
+            work = (nbytes + 2 * rows, 2 * d * pairs * fl)
+            records[rec] = r = dict(max_abs_err=errs[rec], ms=cuda_ms(calls[base]),
+                                    plain_ms=plain_ms,
+                                    library_ms=lib_ms if base == "flash_bwd_fused" else None,
+                                    **split_tf32_bound(*work))
+            print(f"  {rec}: kernel {r['ms']:.4f} ms (causal {records[base]['ms']:.4f}), plain "
+                  f"{plain_ms:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['bound_peak']})")
+        del q, k, v, do, o, lse, delta, qt, kt, vt, out
 
 
 def dq_at_xl(records, g):
@@ -2803,6 +2995,7 @@ def phase_train(records):
         ms = avg[(e + 1) * (len(avg) // epochs) - 1]
         print(f"  epoch {e + 1}: {ms:.2f} ms a step, {tokens_step / ms * 1e3:.1f} tokens/s, "
               f"held-out perplexity {ppls[e]:.4f}")
+    records["flash_bwd_fused"]["step_ms"] = ms
     attn = n * (records["flash_fwd"]["train_shape"]["ms"] + records["flash_bwd_fused"]["ms"])
     print(f"  attention kernels (phase 11 times at these shapes, {n} layers): {attn:.2f} ms "
           f"a step, {100 * attn / ms:.1f}% of the last epoch's {ms:.2f} ms")
@@ -2914,6 +3107,107 @@ def phase_train_xl(records):
         raise AssertionError(f"gpt-xl training: the loss is not finite and falling: {costs}")
 
 
+def phase_window_serve(records):
+    """Phase 15: gpt-m-L1024-W256 (``WIN_CFG``, bf16, seeded random
+    weights) served on phase 4's traffic through ``KV_SERVERS`` on bf16 and
+    int8 caches, and its RoPE form on bf16, each stream held against
+    ``decode_engine="xla"`` of the same model (``phase_kv_serve``); the
+    slab's K/V bytes are its rolling buffer's, a quarter of the full
+    slab's."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.serve import TextServer
+
+    model = GPTLM(**WIN_CFG, compute_dtype=torch.bfloat16)
+    params = perturbed_params(model, 0, "cuda")
+    for kv in ("bf16", "int8"):
+        srv = TextServer(model, params, slots=8, chunk=32, kv_dtype=kv)
+        full = model.max_len * srv.kv_position_bytes * srv.slots
+        got = srv.kv_slot_bytes * srv.slots
+        print(f"  {kv} slab: cache_len {model.cache_len} of max_len {model.max_len}; K/V "
+              f"{got} bytes for 8 slots against {full} for the full slab ({got / full:.3f}), "
+              f"the cache tensor {srv._cache.k.numel() * srv._cache.k.element_size() * 2} "
+              f"bytes of K and V")
+        if got * model.max_len != full * model.cache_len or srv._cache.k.shape[2] != WINDOW:
+            raise AssertionError("the windowed slab is not the rolling buffer of W rows")
+        del srv
+    phase_kv_serve(records, "window", model, params, ("bf16", "int8"), paged_traffic=False)
+    rope = GPTLM(**WIN_CFG, pos_embedding="rope", compute_dtype=torch.bfloat16)
+    phase_kv_serve(records, "window-rope", rope, perturbed_params(rope, 11, "cuda"), ("bf16",),
+                   paged_traffic=False)
+
+
+def phase_window_train(records):
+    """Phase 16: (a) gpt-m-L1024-W256 trained through ``LMTrainer.run()`` on
+    12(a)'s corpus and batch (16 x 1024, ``adam(1e-3)``, bf16) for one
+    epoch of 64 steps (cut: the step count): banded, so every layer's
+    backward is B4b + B4c (each once a layer a step, B4a never) after the
+    banded B3; the final cost must fall below the loss at the initial
+    parameters on the first batch less one nat. (b) gpt-m-L1024-W512 for 8
+    steps: 4 W > L, so the fused backward B4a runs with the window; the
+    cost finite."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    batch = TRAIN_CFG["batch_size"]
+    for w, corpus, kernel in ((WINDOW, TRAIN_CORPUS, "flash_bwd_dq"),
+                              (2 * WINDOW, {**TRAIN_CORPUS, "num": batch * 8 + 64, "n_val": 32,
+                                            "n_test": 32}, "flash_bwd_fused")):
+        ds = markov_corpus(**corpus)
+        model = GPTLM(**{**SERVE_CFG, "window": w}, compute_dtype=torch.bfloat16)
+        lines = []
+        tr = LMTrainer(model, ds, TrainConfig(epochs=1, batch_size=batch, optimizer="adam",
+                                              learning_rate=1e-3, log_frequency=16 if w == WINDOW
+                                              else 1),
+                       eval_batch=TRAIN_EVAL_BATCH, print_fn=lines.append)
+        with torch.no_grad():
+            first = torch.from_numpy(ds.train.tokens[:batch]).cuda()
+            loss0 = float(model.loss(tr.state.params, first))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        n, steps = model.num_layers, tr.global_step
+        evals = -(-ds.validation.num_examples // TRAIN_EVAL_BATCH)
+        want = {"flash_fwd": n * (steps + evals)}
+        if kernel == "flash_bwd_dq":
+            want.update(flash_bwd_dq=n * steps, flash_bwd_dkv=n * steps)
+        else:
+            want.update(flash_bwd_fused=n * steps)
+        print(f"  W={w}: launches {launches}")
+        if launches != want:
+            raise AssertionError(f"W={w} training: expected launches {want}, got {launches}")
+        costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in lines
+                 if ln.startswith("Step:")]
+        ms = [float(ln.split("AvgTime:")[1].rstrip("ms")) for ln in lines if ln.startswith("Step:")]
+        print(f"  W={w}: {steps} steps of {batch} x {ds.train.seq_len}: the loss at the "
+              f"initial parameters {loss0:.4f}, then cost {', '.join(f'{c:.4f}' for c in costs)}; "
+              f"final {res['final_cost']:.4f}; run {wall:.2f} s")
+        if not np.isfinite([*costs, res["final_cost"]]).all():
+            raise AssertionError(f"W={w} training: a cost is not finite: {costs}")
+        if w == WINDOW:
+            for name in ("flash_bwd_dq[window]", "flash_bwd_dkv[window]"):
+                records[name]["launches"] = launches[FLASH_WINDOWS[name][0]]
+            ref = records["flash_bwd_fused"].get("step_ms", float("nan"))
+            attn = n * (records["flash_bwd_dq[window]"]["ms"]
+                        + records["flash_bwd_dkv[window]"]["ms"])
+            print(f"  W={w}: {ms[-1]:.2f} ms a step (the last 16-step window; 12(a)'s causal "
+                  f"model {ref:.2f} ms), {batch * ds.train.seq_len / ms[-1] * 1e3:.1f} tokens/s; "
+                  f"B4b + B4c (phase 11 times, {n} layers) {attn:.2f} ms of it; held-out "
+                  f"perplexity {tr.history[-1]['perplexity']:.4f}")
+            if not res["final_cost"] < loss0 - 1.0:
+                raise AssertionError(f"W={w} training: the cost did not fall: {loss0} then "
+                                     f"{costs}")
+        else:
+            records["flash_bwd_fused[window-512]"]["launches"] = launches["flash_bwd_fused"]
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -2987,8 +3281,10 @@ def kernel_times(label, smi):
     single batches of it varied by 25%) on seeded inputs:
     the decode kernels at S=8
     slots, cache lengths 256-768 in a cache of 1024 (paged: blocks of 16
-    under scrambled tables), B7 at L=5; B4b at B=16, L=1024, f32,
-    causal."""
+    under scrambled tables), B7 at L=5, and (trees that take a window)
+    B6 over the rolling slab of ``WINDOW`` rows, B6 paged and B7 with the
+    window; B4b (and at gpt-m B4c, B4a) at B=16, L=1024, f32, causal; B3 at
+    S=8, L=1023 (causal, and banded where the tree takes a window)."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
@@ -3042,6 +3338,21 @@ def kernel_times(label, smi):
             if "k_scale" in inspect.signature(fd.decode_token_slab).parameters:
                 variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv,
                               plens, slens, hq)
+            # The window variants (B6 over the rolling slab, B6 paged, B7)
+            # where the tree takes them.
+            if "window" in inspect.signature(fd.decode_token_slab).parameters:
+                from distributed_tensorflow_tpu_torch.models.gpt import rolling_layout
+
+                wkw = dict(kw, window=WINDOW)
+                rk, rv = (rolling_layout(t, lengths, WINDOW) for t in (ck, cv))
+                ms[f"decode_token_slab[window] {name} {nl} layers"] = ab_ms(
+                    lambda: fd.decode_token_slab(h, w, rk, rv, lengths, active, **wkw))
+                ms[f"decode_token_paged[window] {name} {nl} layers"] = ab_ms(
+                    lambda: fd.decode_token_paged(h, w, pk, pv, tables, lengths, active, **wkw))
+                ms[f"verify_tokens_paged[window] {name} {nl} layers L=5"] = ab_ms(
+                    lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
+                                                   **wkw))
+                del rk, rv
         del w, w0, ck, cv, pk, pv
     for name, hq, dh in (("gpt-m B=16 L=1024 8x64", 8, 64),
                          ("gpt-xl B=16 L=1024 16x128", 16, 128)):
@@ -3049,7 +3360,21 @@ def kernel_times(label, smi):
                                                    False, g, dev)
         ms[f"flash_bwd_dq {name}"] = cuda_ms(
             lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True), 10)
+        if hq == 8:  # B4c and B4a at gpt-m (the window touched their loops)
+            ms[f"flash_bwd_dkv {name}"] = cuda_ms(
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True), 10)
+            ms[f"flash_bwd_fused {name}"] = cuda_ms(
+                lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True), 10)
         del q, k, v, do, lse, delta
+    # B3 at the serving shapes (S=8, L=1023, 8x64, f32, kv_lens 513..1023).
+    q, k, v = (torch.randn(8, 1023, 8, 64, device=dev, generator=g) for _ in range(3))
+    lens = torch.randint(513, 1024, (8,), device=dev, generator=g, dtype=torch.int32)
+    ms["flash_fwd S=8 L=1023 8x64"] = cuda_ms(
+        lambda: fa.flash_attention_with_lse(q, k, v, causal=True, kv_lens=lens))
+    if "window" in inspect.signature(fa.flash_bwd_dq).parameters:
+        ms[f"flash_fwd[window] S=8 L=1023 8x64 W={WINDOW}"] = cuda_ms(
+            lambda: fa.flash_attention_with_lse(q, k, v, causal=True, window=WINDOW,
+                                                kv_lens=lens))
     print(json.dumps({"label": label, "card": smi, "ms": ms}))
     return 0
 
@@ -3135,11 +3460,16 @@ def main() -> int:
     del rope, learned
     print("phase 14: the single-sequence decode API (greedy_decode), and an f32 model")
     phase_single_sequence(records)
+    print(f"phase 15: serve gpt-m-L1024-W{WINDOW} (the sliding window)")
+    phase_window_serve(records)
+    print(f"phase 16: train gpt-m-L1024-W{WINDOW} through LMTrainer (the banded backward)")
+    phase_window_train(records)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    variants = [(f"{k}[{label}]", k, f"{PATHS.get(k, 'main')} {label}") for label, _, _ in VARIANTS
-                for k in DECODE_KERNELS]
+    variants = [(f"{k}[{label}]", k, f"{PATHS.get(k, 'main')} {label}")
+                for label, _, _ in VARIANTS + WINDOW_VARIANTS for k in DECODE_KERNELS]
+    variants += [(name, base, path) for name, (base, _, path) in FLASH_WINDOWS.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

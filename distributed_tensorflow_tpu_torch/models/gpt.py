@@ -16,6 +16,11 @@ commit ``_commit_paged_rows`` (:1234) is
 ``ops/fused_decode.commit_paged_rows``; the single-sequence decode
 ``KVCache`` (:193), ``prefill`` (:1276), ``decode_step`` (:1367),
 ``greedy_decode`` / ``sample_decode`` / ``beam_decode`` (:2275-2503).
+A windowed model (``window=W``: each query sees its last W positions,
+self included) trains and prefills through the banded flash kernels,
+keeps a slab of ``cache_len = min(W, max_len)`` rows as a rolling buffer
+(position p at slot ``p mod cache_len``, as in the JAX package) and its
+paged pool absolutely, with the band masked.
 Slot caches and pools take ``kv_dtype`` "bf16" (the compute dtype),
 "int8" or "fp8": 1-byte codes with one f32 scale a row in ``k_scale`` /
 ``v_scale``, quantized on write and dequantized to the compute dtype on
@@ -44,9 +49,8 @@ package takes ``jax.value_and_grad``; ``remat=True`` checkpoints each
 block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE blocks and ``matmul_dtype`` (A5), the sliding window (A3.4),
-selective remat (A4 "Left"), the parallel train steps (A6/A7). The CUDA
-decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
+item): MoE blocks and ``matmul_dtype`` (A5), selective remat (A4
+"Left"), the parallel train steps (A6/A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
 """
 
 from __future__ import annotations
@@ -198,10 +202,8 @@ class GPTLM:
             raise ValueError(
                 f"unknown attention_impl {attention_impl!r}; xla|flash"
             )
-        if window is not None:
-            raise NotImplementedError(
-                "sliding-window attention is not ported yet (ROADMAP A3)"
-            )
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
         if moe_experts is not None:
             raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A5)")
         if matmul_dtype is not None:
@@ -253,6 +255,7 @@ class GPTLM:
         self.num_layers = num_layers
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
+        self.window = window
         self.pos_embedding = pos_embedding
         self.remat = remat
         self.flash_min_len = flash_min_len
@@ -323,9 +326,9 @@ class GPTLM:
     def _attend(self, q, k, v, kv_lens=None):
         min_len = FLASH_MIN_LEN if self.flash_min_len is None else self.flash_min_len
         if self.attention_impl == "flash" and q.shape[1] >= min_len:
-            return flash_attention(q, k, v, causal=True, kv_lens=kv_lens,
+            return flash_attention(q, k, v, causal=True, window=self.window, kv_lens=kv_lens,
                                    fused=self.flash_fused)
-        return dense_attention(q, k, v, causal=True, kv_lens=kv_lens)
+        return dense_attention(q, k, v, causal=True, window=self.window, kv_lens=kv_lens)
 
     def _embed_tokens(self, params, tokens, positions):
         """Token embedding plus the learned position rows. Positions are
@@ -396,8 +399,11 @@ class GPTLM:
 
     @property
     def cache_len(self) -> int:
-        """Static KV-cache length per layer (``max_len``; the windowed
-        rolling buffer is not ported)."""
+        """Static KV-cache length per layer: ``min(window, max_len)`` for
+        windowed models (a rolling buffer: older keys are outside every
+        query's band), else ``max_len``."""
+        if self.window is not None:
+            return min(self.window, self.max_len)
         return self.max_len
 
     def _kv_arrays(self, shape, kv_dtype: str, dev):
@@ -453,11 +459,13 @@ class GPTLM:
         ``admit`` True, replace the slot's cache rows (positions ≥ L zeroed)
         and its length; other rows keep their state bit for bit. A quantized
         cache stores codes and scales, and the prompt attends its own K/V as
-        stored. Returns (logits at each row's last real position [S, vocab],
-        the cache — its tensors updated in place)."""
+        stored. A windowed model keeps each row's last ``cache_len`` prompt
+        positions at slots ``p % cache_len``. Returns (logits at each row's
+        last real position [S, vocab], the cache — its tensors updated in
+        place)."""
         s, l = tokens.shape
         c = self.cache_len
-        if l > c:
+        if l > (self.max_len if self.window is not None else c):
             raise ValueError(f"prompt block {l} exceeds the cache length {c}")
         qd = kv_quant_dtype(cache.k.dtype)
 
@@ -475,8 +483,11 @@ class GPTLM:
             vs.append(v)
         stored = self._stored(torch.stack(ks), torch.stack(vs), cache)
         for dst, src in zip((cache.k, cache.v, cache.k_scale, cache.v_scale), stored):
-            if dst is not None:  # [n, S, L, ...] padded to [n, S, C, ...]
-                new = F.pad(movable(src.to(dst.dtype)), (0, 0) * (src.dim() - 3) + (0, c - l))
+            if dst is not None:  # [n, S, L, ...] padded or rolled to [n, S, C, ...]
+                if l > c:
+                    new = movable(rolling_layout(src.to(dst.dtype), lengths, c))
+                else:
+                    new = F.pad(movable(src.to(dst.dtype)), (0, 0) * (src.dim() - 3) + (0, c - l))
                 m = admit.bool().reshape(1, -1, *([1] * (src.dim() - 2)))
                 movable(dst).copy_(torch.where(m, new, movable(dst)))
         cache.lengths.copy_(
@@ -527,7 +538,7 @@ class GPTLM:
                     h, weights, cache.k[i], cache.v[i], cache.lengths, **kw, k_scale=ks,
                     v_scale=vs)
                 commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act, ks, vs,
-                                 kqs, vqs)
+                                 kqs, vqs, self.window)
         else:
             step = decode_token_slab if eng == "fused" else decode_token_slab_plain
             weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
@@ -553,11 +564,12 @@ class GPTLM:
     def prefill(self, params, tokens) -> tuple[torch.Tensor, KVCache]:
         """Run the prompt [B, L] once: (last-position logits [B, vocab], a
         :class:`KVCache` holding every layer's prompt K/V). A windowed
-        model's rolling cache waits for ROADMAP A3.4 (``window=`` raises at
-        construction)."""
+        model keeps the last ``cache_len`` prompt positions, each at slot
+        ``pos % cache_len``: the rolling layout :meth:`decode_step`
+        writes."""
         b, l = tokens.shape
         c = self.cache_len
-        if l > c:
+        if l > (self.max_len if self.window is not None else c):
             raise ValueError(f"prompt length {l} exceeds the cache length {c}")
         positions = torch.arange(l, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
@@ -566,9 +578,14 @@ class GPTLM:
             h, (k, v) = self._block(layer_params(params.blocks, i), h, positions)
             ks.append(k)
             vs.append(v)
-        pad = (0, 0, 0, 0, 0, c - l)
-        ck = F.pad(torch.stack(ks).to(self.compute_dtype), pad)
-        cv = F.pad(torch.stack(vs).to(self.compute_dtype), pad)
+        ks = torch.stack(ks).to(self.compute_dtype)
+        vs = torch.stack(vs).to(self.compute_dtype)
+        if l <= c:
+            pad = (0, 0, 0, 0, 0, c - l)
+            ck, cv = F.pad(ks, pad), F.pad(vs, pad)
+        else:
+            lens = torch.full((b,), l, device=tokens.device)
+            ck, cv = rolling_layout(ks, lens, c), rolling_layout(vs, lens, c)
         return self._logits(params, h)[:, -1], KVCache(k=ck, v=cv, length=l)
 
     def decode_step(self, params, token, cache: KVCache, *, engine: str | None = None):
@@ -694,12 +711,13 @@ class GPTLM:
 
     def _kernel_kw(self):
         return dict(num_heads=self.num_heads, rope=self.pos_embedding == "rope",
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype, window=self.window)
 
     def paged_blocks_per_slot(self, block_size: int) -> int:
         """Block-table width: blocks to address ``max_len`` positions (the
         table is sized for the worst request; the POOL is what paging
-        shrinks)."""
+        shrinks). A windowed model's pool keeps full history too: it
+        addresses absolutely and masks the band."""
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         return -(-self.max_len // block_size)
@@ -758,7 +776,7 @@ class GPTLM:
             def attend(q, k, v, kview=kview, vview=vview):
                 return paged_extend_attention(
                     q, self._attended(k, cache), self._attended(v, cache), kview, vview,
-                    positions, prefix_lens, suffix_lens,
+                    positions, prefix_lens, suffix_lens, self.window,
                 )
 
             h, (k, v) = self._block(
@@ -864,6 +882,18 @@ def filter_logits(logits, temperature: float = 1.0, top_k: int | None = None,
         keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
         lt = lt.masked_fill(~keep, float("-inf"))
     return lt
+
+
+def rolling_layout(x, lengths, c):
+    """Stacked rows ``x`` [n, S, L, ...] of positions 0..L-1 (L > c) laid
+    out as a rolling slab [n, S, c, ...]: slot j holds row s's largest
+    position ``p < lengths[s]`` with ``p ≡ j (mod c)``, ``p = j + c ⌊(len - 1
+    - j) / c⌋`` (the JAX ``prefill_slots`` gather, :1600-1615); a slot with
+    p < 0 holds garbage that the decode's validity never reaches."""
+    idx = torch.arange(c, device=x.device)[None, :]
+    p = idx + c * torch.div(lengths.long()[:, None] - 1 - idx, c, rounding_mode="floor")
+    p = p.clamp(0, x.shape[2] - 1).reshape(1, x.shape[1], c, *([1] * (x.dim() - 3)))
+    return torch.take_along_dim(movable(x), p, dim=2).view(x.dtype)
 
 
 def layer_params(blocks: GPTBlockParams, i: int) -> GPTBlockParams:

@@ -39,18 +39,30 @@ def repeat_kv(k, v, num_q_heads: int):
     return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
 
-def attention_scores(q, k, *, causal=False, kv_lens=None):
+def check_window(causal, window):
+    """The JAX package's refusals of a sliding window (``dense_attention``,
+    ``flash_attention_with_lse``): it needs ``causal`` and ``window >= 1``."""
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+
+
+def attention_scores(q, k, *, causal=False, window=None, kv_lens=None):
     """Masked f32 scores [B, Hq, Lq, Lk] of [B, L, H, D] inputs (k already
     repeated to Hq): scale 1/√D, masked entries at -1e30 — shared by
-    :func:`dense_attention` and the plain flash version."""
+    :func:`dense_attention` and the plain flash version. ``window=W``
+    (with ``causal``) keeps key j for query i iff ``i - W < j <= i``."""
     d = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
     lq, lk = scores.shape[-2], scores.shape[-1]
     if causal:
-        mask = (
-            torch.arange(lq, device=q.device)[:, None]
-            >= torch.arange(lk, device=q.device)[None, :]
-        )
+        diff = (torch.arange(lq, device=q.device)[:, None]
+                - torch.arange(lk, device=q.device)[None, :])
+        mask = diff >= 0
+        if window is not None:
+            mask &= diff < window
         scores = scores.masked_fill(~mask[None, None], NEG_INF)
     if kv_lens is not None:
         valid = torch.arange(lk, device=q.device)[None, :] < kv_lens[:, None]
@@ -58,12 +70,16 @@ def attention_scores(q, k, *, causal=False, kv_lens=None):
     return scores
 
 
-def dense_attention(q, k, v, *, causal=False, kv_lens=None):
-    """Dense attention on [B, L, H, D]: ``causal`` mask, ``kv_lens`` [B] int
-    right-padding mask (each ≥ 1), GQA by repeating k/v to the query heads.
-    (The sliding window waits for ROADMAP A3.)"""
+def dense_attention(q, k, v, *, causal=False, window=None, kv_lens=None):
+    """Dense attention on [B, L, H, D]: ``causal`` mask, ``window=W`` (needs
+    ``causal``) the sliding band of each query's last W keys, self
+    included, ``kv_lens`` [B] int right-padding mask (each ≥ 1), GQA by
+    repeating k/v to the query heads. A query that sees no key (a padded
+    row past ``kv_lens + W - 1``) averages every value, as in the JAX
+    package: garbage the caller discards."""
+    check_window(causal, window)
     k, v = repeat_kv(k, v, q.shape[2])
-    scores = attention_scores(q, k, causal=causal, kv_lens=kv_lens)
+    scores = attention_scores(q, k, causal=causal, window=window, kv_lens=kv_lens)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)

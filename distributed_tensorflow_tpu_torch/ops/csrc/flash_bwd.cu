@@ -6,7 +6,8 @@
 //   kv_kernel<FUSED=false>                    <- _dkv_kernel       (:381, pallas_call :640)
 //
 // What they compute, per (query row i, key j) pair that the mask keeps
-// (causal j <= i, j < kv_lens[b], both < L), from the forward's saved
+// (causal j <= i, with a window W also j > i - W, j < kv_lens[b], both
+// < L), from the forward's saved
 // log-sum-exp and delta_i = rowsum(dO_i * O_i) - dlse_i:
 //     s  = q_i . k_j * scale            p  = exp(s - lse_i)   (0 where masked)
 //     dp = dO_i . v_j                   ds = p * (dp - delta_i) * scale
@@ -19,6 +20,14 @@
 // heads of its group. Layout [B, L, H, D] with
 // lse and delta [B, L, Hq] f32; head dim D in {64, 128}; any L (the ragged
 // last tile is masked); outputs in the input dtype (f32 or bf16).
+//
+// The sliding window (window = W > 0) visits only the band's tiles, as the
+// TPU kernels' banded index maps do: a kv CTA's q-tiles end at the band's
+// last query, (k0 + BK - 2 + W) / BQ (_banded_q_index), a q_kernel CTA's
+// k-tiles start at the band's first key, (q0 - W + 1) / BK
+// (_banded_k_index), and a warp skips a tile wholly outside its band, so
+// the work is O(L W). dq_reduce_kernel sums exactly the dq partials that
+// the fused kv CTAs wrote, by the same ranges.
 //
 // Bound. At the training path's shapes (B*H = 128, L = 1024, D = 64,
 // causal, f32) 67.2 M (q, k) pairs are unmasked: 43.0 GFLOP for the fused
@@ -130,13 +139,15 @@ constexpr size_t kv_smem_bytes() {
   return sizeof(T) * (size_t)(2 * BK + 4 * KV_BQ) * stride<T, D>() + sizeof(float) * 4 * KV_BQ;
 }
 
-template <typename T, int D, bool FUSED>
+// WIN: built with the window's tests (window > 0); the other build has none.
+template <typename T, int D, bool FUSED, bool WIN>
 __global__ void __launch_bounds__(KV_NT, D == 64 ? 3 : 1)
 kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, const int* __restrict__ kv_lens,
           T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp, int L, int Hq,
-          int Hkv, int causal, float scale) {
+          int Hkv, int causal, int window, float scale) {
+  if (!WIN) window = 0;  // every window test below folds away
   constexpr int BQ = KV_BQ;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BQ / 8;  // query column tiles of S^T and dP^T
@@ -170,7 +181,9 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   // (dq_reduce_kernel skips it by the same predicate).
   if (k0 < kvlen) {
     const int iq0 = causal ? k0 / BQ : 0;
-    const int nqt = nq - iq0, ntile = G * nqt;
+    // The band's last query is k0 + BK - 2 + W (the tile's last key, W - 1 on).
+    const int iq1 = window ? min(nq, (k0 + BK - 2 + window) / BQ + 1) : nq;
+    const int nqt = iq1 - iq0, ntile = G * nqt;
     auto load_q_tile = [&](int it) {
       const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
       load_rows_async<T, D, BQ, KV_NT>(Qs + buf * BQ * SD, q, b, q0, h, L, Hq);
@@ -196,7 +209,8 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       T* dOt = dOs + buf * BQ * SD;
       const float* Lt = Ls + buf * BQ;
       const float* Dt = Dl + buf * BQ;
-      const bool live = keys_live && !(causal && q0 + BQ - 1 < k0 + wk);
+      const bool live = keys_live && !(causal && q0 + BQ - 1 < k0 + wk) &&
+                        !(window && q0 - (k0 + wk + 15) >= window);
 
       // p[j] / ds[j]: keys kr, kr + 8 against queries q0 + 8j + 2t and + 2t + 1.
       // dV takes P before dP^T is formed, so p, ds and dV's accumulators
@@ -225,7 +239,8 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
             for (int e = 0; e < 4; ++e) {
               const int qi = 8 * j + 2 * ln.t + (e & 1), qp = q0 + qi;
               const int key = kr + ((e >> 1) << 3);
-              const bool ok = qp < L && key < klim && (!causal || key <= qp);
+              const bool ok = qp < L && key < klim && (!causal || key <= qp) &&
+                              (!window || key > qp - window);
               p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Lt[qi]) : 0.f;
             }
         }
@@ -325,12 +340,14 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // dq[e] = sum over the k-tiles ik (ascending) that kv_kernel<FUSED> visited
-// for e's (batch, query row l): k0 = ik * BK < kv_lens[b] and, under
-// causal, l >= k0. Exactly the slices written, so no zeroing is needed.
+// for e's (batch, query row l): k0 = ik * BK < kv_lens[b], under causal
+// l's q-tile starts at or past k0's, and with a window l's q-tile is at or
+// before the band's last, (k0 + BK - 2 + W) / KV_BQ. Exactly the slices
+// written, so no zeroing is needed.
 template <typename T>
 __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ dq,
                                  const int* __restrict__ kv_lens, int B, int L, int Hq, int D,
-                                 int causal) {
+                                 int causal, int window) {
   const size_t n = (size_t)B * L * Hq * D;
   const int nk = (L + BK - 1) / BK;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -338,11 +355,16 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
     const int b = (int)(e / ((size_t)L * Hq * D));
     const int l = (int)((e / ((size_t)Hq * D)) % L);
     const int kvlen = kv_lens ? kv_lens[b] : L;
-    // The slices written for row l: k-tiles 0 .. ns-1.
+    // The slices written for row l: k-tiles ik0 .. ns-1.
     int ns = min(nk, (kvlen + BK - 1) / BK);
     if (causal) ns = min(ns, l / BK + 1);
+    int ik0 = 0;
+    if (window) {  // the first ik with (ik BK + BK - 2 + W) / KV_BQ >= l / KV_BQ
+      const int need = (l / KV_BQ) * KV_BQ - (BK - 2 + window);
+      ik0 = need <= 0 ? 0 : (need + BK - 1) / BK;
+    }
     float s = 0.f;
-    int ik = 0;
+    int ik = ik0;
     for (; ik + 4 <= ns; ik += 4) {  // four loads in flight, summed in order
       const float a0 = dqp[(size_t)ik * n + e], a1 = dqp[(size_t)(ik + 1) * n + e];
       const float a2 = dqp[(size_t)(ik + 2) * n + e], a3 = dqp[(size_t)(ik + 3) * n + e];
@@ -399,12 +421,13 @@ __device__ __forceinline__ void row_product(float (&c)[NJ][4], float (&x)[NJ][4]
 // formed there, and ds is the A fragment of dQ += dS K as it stands. Each
 // k-tile's share of dQ is summed in fresh accumulators and added to dq in
 // f32.
-template <typename T, int D>
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(QTiles<D>::NT)
 q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
          const T* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
-         int L, int Hq, int Hkv, int causal, float scale) {
+         int L, int Hq, int Hkv, int causal, int window, float scale) {
+  if (!WIN) window = 0;  // every window test below folds away
   using Q = QTiles<D>;
   constexpr int BQ = Q::BQ, BKQ = Q::BK, NT = Q::NT;
   constexpr bool SPLIT = std::is_same<T, float>::value;
@@ -427,13 +450,14 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
   const int kend = causal ? min(klim, q0 + BQ) : klim;
   const int ntile = (kend + BKQ - 1) / BKQ;
+  const int it0 = window ? max(0, q0 - window + 1) / BKQ : 0;  // the band's first tile
 
   load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, h, L, Hq);
   load_rows_async<T, D, BQ, NT>(dOs, dout, b, q0, h, L, Hq);
   load_vec_async<BQ, NT>(Ls, lse, b, q0, h, L, Hq);
   load_vec_async<BQ, NT>(Dl, delta, b, q0, h, L, Hq);
-  load_rows_async<T, D, BKQ, NT>(Ks, k, b, 0, hk, L, Hkv);
-  load_rows_async<T, D, BKQ, NT>(Vs, v, b, 0, hk, L, Hkv);
+  load_rows_async<T, D, BKQ, NT>(Ks, k, b, it0 * BKQ, hk, L, Hkv);
+  load_rows_async<T, D, BKQ, NT>(Vs, v, b, it0 * BKQ, hk, L, Hkv);
   cp_async_commit();
 
   const int wr = 16 * warp;       // the warp's first row in the tile
@@ -442,19 +466,22 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   float acc[NN][4];
   zero(acc);
 
-  for (int it = 0; it < ntile; ++it) {
+  for (int it = it0; it < ntile; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile it has landed; every warp is done with tile it-1
-    const T* Kt = Ks + (it & 1) * BKQ * SD;
-    const T* Vt = Vs + (it & 1) * BKQ * SD;
+    const int cur = (it - it0) & 1;
+    const T* Kt = Ks + cur * BKQ * SD;
+    const T* Vt = Vs + cur * BKQ * SD;
     if (it + 1 < ntile) {
-      const int nb = (it + 1) & 1;
+      const int nb = cur ^ 1;
       load_rows_async<T, D, BKQ, NT>(Ks + nb * BKQ * SD, k, b, (it + 1) * BKQ, hk, L, Hkv);
       load_rows_async<T, D, BKQ, NT>(Vs + nb * BKQ * SD, v, b, (it + 1) * BKQ, hk, L, Hkv);
     }
     cp_async_commit();
     const int k0 = it * BKQ;
-    if (!live || (causal && k0 > q0 + wr + 15)) continue;  // every p of the warp is 0
+    if (!live || (causal && k0 > q0 + wr + 15) ||
+        (window && k0 + BKQ - 1 <= q0 + wr - window))
+      continue;  // every p of the warp is 0: above its rows, or older than their band
 
     // s[j] / dp[j]: keys k0 + 8j + 2t and + 2t + 1 of rows r0 and r0 + 8.
     float p[NJ][4];
@@ -469,7 +496,8 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
           const int qi = wr + ln.g + ((e >> 1) << 3), row = q0 + qi;
-          const bool ok = row < L && key < klim && (!causal || key <= row);
+          const bool ok = row < L && key < klim && (!causal || key <= row) &&
+                          (!window || key > row - window);
           p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Ls[qi]) : 0.f;
         }
     }
@@ -528,52 +556,64 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
-cudaError_t launch(int mode, const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, const int* kv_lens, void* dq,
-                   void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
-                   float scale, cudaStream_t st) {
+template <typename T, int D, bool WIN>
+cudaError_t launch_w(int mode, const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, const int* kv_lens, void* dq,
+                     void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
+                     int window, float scale, cudaStream_t st) {
   cudaError_t err;
   const int nk = (L + BK - 1) / BK;
   if (mode == 0 || mode == 2) {  // fused, or dk/dv alone
     dim3 grid(nk, Hkv, B);
     if (mode == 0) {
       const size_t smem = kv_smem_bytes<T, D>();
-      if ((err = set_smem(kv_kernel<T, D, true>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, true><<<grid, KV_NT, smem, st>>>(
+      if ((err = set_smem(kv_kernel<T, D, true, WIN>, smem)) != cudaSuccess) return err;
+      kv_kernel<T, D, true, WIN><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
-          (T*)dv, dqp, L, Hq, Hkv, causal, scale);
+          (T*)dv, dqp, L, Hq, Hkv, causal, window, scale);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
       size_t n = (size_t)B * L * Hq * D;
       int blocks = (int)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16);
-      dq_reduce_kernel<T><<<blocks, 256, 0, st>>>(dqp, (T*)dq, kv_lens, B, L, Hq, D, causal);
+      dq_reduce_kernel<T><<<blocks, 256, 0, st>>>(dqp, (T*)dq, kv_lens, B, L, Hq, D, causal,
+                                                  window);
     } else {
       const size_t smem = kv_smem_bytes<T, D>();
-      if ((err = set_smem(kv_kernel<T, D, false>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, false><<<grid, KV_NT, smem, st>>>(
+      if ((err = set_smem(kv_kernel<T, D, false, WIN>, smem)) != cudaSuccess) return err;
+      kv_kernel<T, D, false, WIN><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
-          (T*)dv, nullptr, L, Hq, Hkv, causal, scale);
+          (T*)dv, nullptr, L, Hq, Hkv, causal, window, scale);
     }
     return cudaGetLastError();
   }
   if (mode == 1) {  // dq alone
     using Q = QTiles<D>;
     const size_t smem = q_smem_bytes<T, D>();
-    if ((err = set_smem(q_kernel<T, D>, smem)) != cudaSuccess) return err;
+    if ((err = set_smem(q_kernel<T, D, WIN>, smem)) != cudaSuccess) return err;
     dim3 grid(Hq, B, (L + Q::BQ - 1) / Q::BQ);
-    q_kernel<T, D><<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
+    q_kernel<T, D, WIN><<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                              (const T*)dout, lse, delta, kv_lens, (T*)dq, L,
-                                             Hq, Hkv, causal, scale);
+                                             Hq, Hkv, causal, window, scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch(int mode, const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, const int* kv_lens, void* dq,
+                   void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
+                   int window, float scale, cudaStream_t st) {
+  return window ? launch_w<T, D, true>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv,
+                                       dqp, B, L, Hq, Hkv, causal, window, scale, st)
+                : launch_w<T, D, false>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv,
+                                        dqp, B, L, Hq, Hkv, causal, 0, scale, st);
 }
 
 }  // namespace
 
 // q, dout [B, L, Hq, D]; k, v [B, L, Hkv, D] (contiguous, 16-byte aligned,
 // f32 or bf16, one dtype); lse, delta [B, L, Hq] f32; kv_lens [B] int32 or
-// NULL.
+// NULL; window 0 for none, else W >= 1 (needs causal).
 // mode 0 (fused): dq, dk, dv, with dqp an f32 scratch of
 //   ceil(L/64) * B * L * Hq * D floats;
 // mode 1: dq alone; mode 2: dk and dv alone (dqp unused).
@@ -581,15 +621,17 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
 extern "C" int flash_bwd(int mode, const void* q, const void* k, const void* v,
                          const void* dout, const float* lse, const float* delta,
                          const int* kv_lens, void* dq, void* dk, void* dv, float* dqp, int B,
-                         int L, int Hq, int Hkv, int D, int causal, int is_bf16, float scale,
-                         void* stream) {
+                         int L, int Hq, int Hkv, int D, int causal, int window, int is_bf16,
+                         float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
+    return (int)cudaErrorInvalidValue;
+#define BWD_ARGS \
+  mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, scale, st
   if (D == 64)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, scale, st)
-                         : launch<float, 64>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, scale, st));
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(BWD_ARGS) : launch<float, 64>(BWD_ARGS));
   if (D == 128)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 128>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, scale, st)
-                         : launch<float, 128>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, scale, st));
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 128>(BWD_ARGS) : launch<float, 128>(BWD_ARGS));
+#undef BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -4,6 +4,7 @@
 // _fwd_kernel (:208, launched by _fwd_call's pallas_call :297): exact
 // softmax attention computed tile by tile with an online softmax, so the
 // [L, L] score matrix never reaches device memory. Features: causal mask,
+// the sliding window (window = W > 0: row i keeps key j iff i - W < j <= i),
 // per-batch right-padding kv_lens, grouped-query attention (query head h
 // reads KV head h / (Hq / Hkv)), head dim D in {64, 128}, any sequence
 // length (the ragged last tile is masked), f32 or bf16 inputs.
@@ -29,8 +30,12 @@
 // padded shared memory by 16-byte cp.async copies: tile i+1 loads while
 // tile i's MMAs run. Under causal masking a warp skips key tiles wholly
 // above its rows, and the grid launches the heaviest q-tiles (the last)
-// first. Each tile's share of P V is summed in fresh accumulators and
-// folded into O in f32 (O = O * corr + P V): the tensor cores truncate as
+// first. With a window the CTA's key range starts at the band's first tile,
+// floor((q0 - W + 1) / BK), not at 0 (the TPU kernel's _banded_k_index),
+// and a warp skips the tiles wholly older than its rows' band, so the work
+// is O(L W); a row that sees no key (window with kv_lens) keeps l = 0 and
+// writes 0, as the TPU kernel's empty-row guard gives. Each tile's share
+// of P V is summed in fresh accumulators and folded into O in f32 (O = O * corr + P V): the tensor cores truncate as
 // they accumulate, and O would otherwise take that error at every MMA.
 // Masked entries are -1e30 with the TPU kernel's empty-row guard; for
 // bf16 inputs p is rounded to bf16 before P V, as the TPU kernel's astype.
@@ -50,11 +55,13 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NW = BQ / 16;
 constexpr int NT = NW * 32;
 
-template <typename T, int D>
+// WIN: built with the window's tests (window > 0); the other build has none.
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
-                 int L, int Hq, int Hkv, int causal) {
+                 int L, int Hq, int Hkv, int causal, int window) {
+  if (!WIN) window = 0;  // every window test below folds away
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BK / 8;  // key column tiles of S
   constexpr int NN = D / 8;   // dim column tiles of O
@@ -74,10 +81,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
   const int kend = causal ? min(klim, q0 + BQ) : klim;
   const int ntile = (kend + BK - 1) / BK;
+  const int it0 = window ? max(0, q0 - window + 1) / BK : 0;  // the band's first tile
 
   load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, hq, L, Hq);
-  load_rows_async<T, D, BK, NT>(Ks, k, b, 0, hk, L, Hkv);
-  load_rows_async<T, D, BK, NT>(Vs, v, b, 0, hk, L, Hkv);
+  load_rows_async<T, D, BK, NT>(Ks, k, b, it0 * BK, hk, L, Hkv);
+  load_rows_async<T, D, BK, NT>(Vs, v, b, it0 * BK, hk, L, Hkv);
   cp_async_commit();
 
   const int wr = 16 * warp;           // the warp's first row in the tile
@@ -87,19 +95,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   zero(o);
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  for (int it = 0; it < ntile; ++it) {
+  for (int it = it0; it < ntile; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile it has landed; every warp is done with tile it-1
+    const int cur = (it - it0) & 1;
     if (it + 1 < ntile) {
-      const int nb = (it + 1) & 1;
+      const int nb = cur ^ 1;
       load_rows_async<T, D, BK, NT>(Ks + nb * BK * SD, k, b, (it + 1) * BK, hk, L, Hkv);
       load_rows_async<T, D, BK, NT>(Vs + nb * BK * SD, v, b, (it + 1) * BK, hk, L, Hkv);
     }
     cp_async_commit();
     const int k0 = it * BK;
-    if (!live || (causal && k0 > q0 + wr + 15)) continue;  // every score masked
-    const T* Kt = Ks + (it & 1) * BK * SD;
-    const T* Vt = Vs + (it & 1) * BK * SD;
+    if (!live || (causal && k0 > q0 + wr + 15) ||
+        (window && k0 + BK - 1 <= q0 + wr - window))
+      continue;  // every score masked: above the rows, or older than their band
+    const T* Kt = Ks + cur * BK * SD;
+    const T* Vt = Vs + cur * BK * SD;
 
     // S = Q K^T; s[j] holds keys k0 + 8j + 2t and + 2t + 1 of rows r0, r0 + 8.
     float s[NJ][4], sx[NJ][4];
@@ -124,7 +135,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
         const int row = r0 + ((e >> 1) << 3);
-        const bool ok = key < klim && (!causal || key <= row);
+        const bool ok =
+            key < klim && (!causal || key <= row) && (!window || key > row - window);
         s[j][e] = ok ? (s[j][e] + sx[j][e]) * scale : NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -196,34 +208,46 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
-                   float* lse, int B, int L, int Hq, int Hkv, int causal, cudaStream_t stream) {
+template <typename T, int D, bool WIN>
+cudaError_t launch_w(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
+                     float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
+                     cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * stride<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<T, D, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq, Hkv, causal);
+  flash_fwd_kernel<T, D, WIN><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq, Hkv, causal, window);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
+                   float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
+                   cudaStream_t stream) {
+  return window ? launch_w<T, D, true>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal,
+                                       window, stream)
+                : launch_w<T, D, false>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, 0,
+                                        stream);
 }
 
 }  // namespace
 
 // q [B, L, Hq, D], k/v [B, L, Hkv, D] (contiguous, 16-byte aligned, f32 or
 // bf16), kv_lens [B] int32 or NULL → out [B, L, Hq, D] (input dtype), lse
-// [B, L, Hq] f32.
+// [B, L, Hq] f32. window: 0 for none, else W >= 1 (needs causal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* kv_lens,
                          void* out, float* lse, int B, int L, int Hq, int Hkv, int D,
-                         int causal, int is_bf16, void* stream) {
+                         int causal, int window, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
+    return (int)cudaErrorInvalidValue;
+#define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, st
   if (D == 64)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st)
-                         : launch<float, 64>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st));
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(FWD_ARGS) : launch<float, 64>(FWD_ARGS));
   if (D == 128)
-    return (int)(is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st)
-                         : launch<float, 128>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, st));
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 128>(FWD_ARGS) : launch<float, 128>(FWD_ARGS));
+#undef FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -39,6 +39,17 @@
 // verify keeps them f32, masks the suffix causally and gives 0 for a row with
 // no valid key, as the TPU verify kernel does.
 //
+// Sliding window (W > 0, a launch argument). A windowed slab is a rolling
+// buffer of C slots, position p at slot p mod C (pallas_decode.py's
+// rolling=window is not None, :559 and :1039); the pool addresses
+// absolutely. A step at length n reads only the band's positions, from
+// lo = max(0, n - W + 1) (on the slab also n - C + 1: the write slot,
+// n mod C, still holds position n - C) to n - 1, in the same chunks and
+// order whatever the layout, so a paged read is O(W) and a rolling slab's
+// step equals the paged one bit for bit. The verify reads from its row
+// 0's band start and masks row li's cache positions <= prefix + li - W and
+// its fresh rows lj <= li - W (pallas_decode.py :1189-1190, :1222-1223).
+//
 // Paged addressing. Position p of slot s lives at
 // pool[table[s, p / bs], p % bs]. The arithmetic is the slab kernels' own:
 // only the row offset (SlabRows / PagedRows) differs, and no partition or
@@ -162,9 +173,11 @@ struct KvCodes<e4m3> {
 };
 
 // C: a slot's logical extent (the slab length, or MB * bs). bs, MB: the
-// pool's block size and the tables' width (0, 0 for the slab).
+// pool's block size and the tables' width (0, 0 for the slab). W: the
+// sliding window (0: none); rolling: the slab keeps position p at slot
+// p mod C (a windowed slab).
 struct Dims {
-  int S, d, Hq, Hkv, Dh, F, C, bs, MB;
+  int S, d, Hq, Hkv, Dh, F, C, bs, MB, W, rolling;
 };
 
 // Row of logical position j of slot s in one layer's cache (Hkv x Dh
@@ -173,7 +186,7 @@ struct Dims {
 struct SlabRows {
   __device__ __forceinline__ size_t operator()(const Dims& D, const int*, int s,
                                                int j) const {
-    return (size_t)s * D.C + j;
+    return (size_t)s * D.C + (D.rolling ? j % D.C : j);
   }
 };
 struct PagedRows {
@@ -986,11 +999,12 @@ __device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, cons
 }
 
 // Attention task (slot s, KV head hk) of layer l: the head group's g query
-// heads x R rows over cache positions [0, kvlen) (read pre-write) and the
-// slot's R fresh rows at kvlen + lj, with the exact softmax; rounds (KV
-// bf16) or quantizes (1-byte codes) and commits the fresh rows of head hk
-// (FRESH: writes them to k_fresh / v_fresh instead). `base`: the task's
-// shared scratch.
+// heads x R rows over cache positions [lo, kvlen) (read pre-write; lo > 0
+// only with a window) and the slot's R fresh rows at kvlen + lj, with the
+// exact softmax; rounds (KV bf16) or quantizes (1-byte codes) and commits
+// the fresh rows of head hk (FRESH: writes them to k_fresh / v_fresh
+// instead). Score column j is position lo + j, then the fresh rows.
+// `base`: the task's shared scratch.
 template <class Rows, bool VERIFY, bool FRESH, class KV>
 __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
   constexpr bool QUANT = KvCodes<KV>::QUANT;
@@ -1008,18 +1022,28 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   int* tab = reinterpret_cast<int*>(base + attend_floats(D, R));
   const Rows rows_of{};
 
-  // kvlen: positions read from the cache; the fresh rows go at kvlen + r.
-  int kvlen, slen = 1;
+  // [lo, kvlen): positions read from the cache; the fresh rows go at
+  // kvlen + r. With a window lo is the band's start (the verify's row 0's,
+  // the widest); a rolling slab reads logical positions below the length.
+  int lo = 0, kvlen, slen = 1;
   bool commit;
   if (VERIFY) {
     kvlen = max(0, min(a.lengths[s], D.C));
     slen = max(0, min(a.suffix[s], R));
     commit = a.active[s] != 0;
+    if (D.W) lo = max(0, a.lengths[s] - D.W + 1);
+  } else if (D.rolling) {
+    kvlen = max(0, a.lengths[s]);
+    commit = !FRESH && a.active[s] != 0;
+    lo = max(0, kvlen - min(D.W, D.C) + 1);
   } else {
     kvlen = min(a.lengths[s], D.C);
     commit = !FRESH && a.active[s] != 0 && kvlen < D.C;
+    if (D.W) lo = max(0, a.lengths[s] - D.W + 1);
   }
-  const int n = kvlen + R;  // keys a row: the cache's, then the fresh rows
+  lo = min(lo, kvlen);
+  const int nkv = kvlen - lo;  // cache keys a row
+  const int n = nkv + R;       // keys a row: the cache's, then the fresh rows
   const float* qkv = a.qkv + (size_t)s * R * nqkv;
   for (int i = tid; i < D.MB; i += CT) tab[i] = a.tables[(size_t)s * D.MB + i];
   KV* ck = static_cast<KV*>(a.ck) + l * a.layer_elems;
@@ -1034,13 +1058,13 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   // bytes back, so a chunk needs no barrier; RING - 1 chunks are in flight.
   const float scale = rsqrtf((float)Dh);
   const int LPR = Dh / 8, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
-  const int nc = (kvlen + CP - 1) / CP;
+  const int nc = (nkv + CP - 1) / CP;
   unsigned char* ring =
       reinterpret_cast<unsigned char*>(base) + attend_ring_offset(D, R) + (size_t)tid * 16;
   // Chunk c of `cache` (and its `scales`) into this thread's slot c % RING
   // (and, for the K pass, the V rows into L2 for the P·V pass).
   const auto fetch = [&](const KV* cache, const float* scales, int c, bool to_l2) {
-    const int j = c * CP + cr;
+    const int j = lo + c * CP + cr;
     if (j < kvlen) {
       const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * 8;
       unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
@@ -1053,7 +1077,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       if (to_l2 && (sub & 7) == 0) prefetch_l2(cv + off);
     }
   };
-  // The 8 values of chunk c this thread copied (zeros past kvlen), once
+  // The 8 values of chunk c this thread copied (zeros past nkv), once
   // they have landed, with chunk c + RING - 1 asked for. 1-byte codes: the
   // row's scale, which its first lane copied, is read after the warp's
   // barrier (which makes that lane's landed copy visible) and before any
@@ -1071,15 +1095,15 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     if (c + RING - 1 < nc) fetch(cache, scales, c + RING - 1, to_l2);
     cp_async_commit();
     if constexpr (QUANT) {
-      if (c * CP + cr < kvlen) {
+      if (c * CP + cr < nkv) {
         unpack8_codes<KV>(codes, row_scale, x8);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) x8[e] = 0.f;
       }
     } else {
-      unpack8(c * CP + cr < kvlen ? *reinterpret_cast<const uint4*>(slot)
-                                  : make_uint4(0u, 0u, 0u, 0u),
+      unpack8(c * CP + cr < nkv ? *reinterpret_cast<const uint4*>(slot)
+                                : make_uint4(0u, 0u, 0u, 0u),
               x8);
     }
   };
@@ -1138,7 +1162,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     // rounded to bf16 (ops/quantized.py quantize_kv / dequantize_kv).
     for (int t = warp; t < 2 * R; t += CW) {
       const int r = t >> 1, pos = kvlen + r;
-      const bool isv = t & 1, put = commit && r < slen && pos < D.C;
+      const bool isv = t & 1, put = commit && r < slen && (D.rolling || pos < D.C);
       float* x = (isv ? vf : kf) + r * Dh;
       float amax = 0.f;
       for (int e = lane; e < Dh; e += 32) amax = fmaxf(amax, fabsf(x[e]));
@@ -1161,7 +1185,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   } else {
     for (int i = tid; i < R * Dh; i += CT) {
       const int r = i / Dh, pos = kvlen + r;
-      if (commit && r < slen && pos < D.C) {
+      if (commit && r < slen && (D.rolling || pos < D.C)) {
         const size_t off = rows_of(D, tab, s, pos) * kvw + (size_t)hk * Dh + i % Dh;
         ck[off] = __float2bfloat16(kf[i]);
         cv[off] = __float2bfloat16(vf[i]);
@@ -1180,7 +1204,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     float k8[8];
     take(ck, ks, c, true, k8);
     const int j = c * CP + cr;
-    const bool store = sub == 0 && j < kvlen;
+    const bool store = sub == 0 && j < nkv;
     int i = 0;
     for (; i + 4 <= gR; i += 4)
       score_rows<4>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
@@ -1188,16 +1212,27 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       score_rows<1>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
   }
   if (first) stamp(a, NST * l + S_B_SC);
-  // The fresh keys: causal within the suffix and real rows only (verify).
+  // The fresh keys: causal within the suffix, in the band, and real rows
+  // only (verify).
   for (int pair = warp; pair < gR * R; pair += CW) {
     const int i = pair / R, lj = pair % R, r = i % R;
     float p = 0.f;
     for (int e = lane; e < Dh; e += 32) p += q[i * Dh + e] * kf[lj * Dh + e];
     p = warp_sum(p);
     if (lane == 0)
-      sc[(size_t)i * CS + kvlen + lj] = !VERIFY || (lj <= r && lj < slen) ? p * scale : NEG_INF;
+      sc[(size_t)i * CS + nkv + lj] =
+          !VERIFY || (lj <= r && lj < slen && (!D.W || lj > r - D.W)) ? p * scale : NEG_INF;
   }
   __syncthreads();
+  if (VERIFY && D.W) {
+    // Row r's band starts r positions after row 0's (where lo began): its
+    // columns below plen + r - W + 1 - lo (fewer than R) are masked.
+    for (int t = tid; t < gR * R; t += CT) {
+      const int i = t / R, j = t % R;
+      if (j < nkv && lo + j <= a.lengths[s] + i % R - D.W) sc[(size_t)i * CS + j] = NEG_INF;
+    }
+    __syncthreads();
+  }
 
   // Exact softmax per query row over its n keys; masked keys weigh 0. Warp
   // w takes columns [w n / CW, (w + 1) n / CW) of every row; the warps'
@@ -1262,7 +1297,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       float v8[8];
       take(cv, vs, c, false, v8);
       const int j = c * CP + cr;
-      if (j < kvlen) {
+      if (j < nkv) {
 #pragma unroll
         for (int ii = 0; ii < GMAX; ++ii) {
           if (ii < ng) {
@@ -1288,7 +1323,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     for (int o = tid; o < ng * Dh; o += CT) {
       const int ii = o / Dh, e = o % Dh, i = i0 + ii;
       float t = 0.f;
-      for (int lj = 0; lj < R; ++lj) t += sc[(size_t)i * CS + kvlen + lj] * vf[lj * Dh + e];
+      for (int lj = 0; lj < R; ++lj) t += sc[(size_t)i * CS + nkv + lj] * vf[lj * Dh + e];
       for (int w = 0; w < CW; ++w) t += pv[((size_t)w * GMAX + ii) * Dh + e];
       a.att[(size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e] = __float2bfloat16(t);
     }
@@ -1634,6 +1669,7 @@ int launch_coop(Coop& a, const int* plan, int k, int kv, void* stream) {
   const bool fresh = k >= 3;  // the per-layer steps write their fresh rows out
   if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 64 && D.Dh != 128) || D.d != D.Hq * D.Dh ||
       D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
+      D.W < 0 || (D.rolling && (D.MB || D.W < 1)) ||
       p.kc != D.d || p.grid < 1 || p.grid > MAX_GRID ||
       (D.MB && (D.bs < 1 || D.C != D.MB * D.bs)) || !plan_in_bounds(D, a.R, p) || kv < 0 ||
       kv >= N_KV || (kv && (!a.ks || !a.vs)) || (fresh && (!a.k_fresh || !a.v_fresh)) ||
@@ -1702,8 +1738,10 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
 
 }  // namespace
 
-// Every launcher takes the KV cache's type `kv` (0 bf16, 1 int8, 2 e4m3) and
-// `rope` (rotate q and the fresh k rows at their positions). With 1-byte
+// Every launcher takes the KV cache's type `kv` (0 bf16, 1 int8, 2 e4m3),
+// `rope` (rotate q and the fresh k rows at their positions) and `window`
+// (0: none; W >= 1: the band of the last W positions; a windowed slab is a
+// rolling buffer, position p at slot p mod C, committed there). With 1-byte
 // codes, k_scale / v_scale hold one f32 scale a cache row and KV head
 // ([.., Hkv], the cache's shape without Dh), updated with the codes; for
 // bf16 they are null.
@@ -1721,9 +1759,9 @@ extern "C" int decode_block_slab(
     const void* w_down, const void* b_down, const void* ck, const void* cv,
     const void* k_scale, const void* v_scale, const void* lengths, void* k_fresh,
     void* v_fresh, void* ks_fresh, void* vs_fresh, void* qkv, void* att, void* gelu,
-    void* flags, const int* plan, int kv, int rope, int S, int d, int Hq, int Hkv, int Dh,
-    int F, int C, void* stream) {
-  Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
+    void* flags, const int* plan, int kv, int rope, int window, int S, int d, int Hq, int Hkv,
+    int Dh, int F, int C, void* stream) {
+  Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0, window, window > 0};
   const CacheArgs c{(void*)ck, (void*)cv, k_scale, v_scale, rope,
                     k_fresh, v_fresh, ks_fresh, vs_fresh};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
@@ -1741,9 +1779,9 @@ extern "C" int decode_block_paged(
     const void* w_down, const void* b_down, const void* pk, const void* pv,
     const void* k_scale, const void* v_scale, const void* lengths, const void* tables,
     void* k_fresh, void* v_fresh, void* ks_fresh, void* vs_fresh, void* qkv, void* att,
-    void* gelu, void* flags, const int* plan, int kv, int rope, int S, int d, int Hq, int Hkv,
-    int Dh, int F, int NB, int bs, int MB, void* stream) {
-  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
+    void* gelu, void* flags, const int* plan, int kv, int rope, int window, int S, int d, int Hq,
+    int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
+  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB, window, 0};
   const CacheArgs c{(void*)pk, (void*)pv, k_scale, v_scale, rope,
                     k_fresh, v_fresh, ks_fresh, vs_fresh};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
@@ -1766,9 +1804,9 @@ extern "C" int decode_token_slab(
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* ck, void* cv, void* k_scale,
     void* v_scale, const void* lengths, const void* active, void* qkv, void* att, void* gelu,
-    void* flags, const int* plan, int kv, int rope, int n_layers, int S, int d, int Hq,
+    void* flags, const int* plan, int kv, int rope, int window, int n_layers, int S, int d, int Hq,
     int Hkv, int Dh, int F, int C, void* stream) {
-  Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0};
+  Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0, window, window > 0};
   const CacheArgs c{ck, cv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
                      D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, c, lengths,
@@ -1786,9 +1824,9 @@ extern "C" int decode_token_paged(
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* pk, void* pv, void* k_scale,
     void* v_scale, const void* lengths, const void* active, const void* tables, void* qkv,
-    void* att, void* gelu, void* flags, const int* plan, int kv, int rope, int n_layers,
+    void* att, void* gelu, void* flags, const int* plan, int kv, int rope, int window, int n_layers,
     int S, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB, void* stream) {
-  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
+  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB, window, 0};
   const CacheArgs c{pk, pv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
                      D, n_layers, 1, (size_t)NB * bs * Hkv * Dh, h_in, h_out, c, lengths,
@@ -1806,10 +1844,10 @@ extern "C" int verify_tokens_paged(
     const void* ln2_s, const void* ln2_b, const void* w_up, const void* b_up,
     const void* w_down, const void* b_down, void* pk, void* pv, void* k_scale, void* v_scale,
     const void* tables, const void* prefix_lens, const void* suffix_lens, const void* active,
-    void* qkv, void* att, void* gelu, void* flags, const int* plan, int kv, int rope,
+    void* qkv, void* att, void* gelu, void* flags, const int* plan, int kv, int rope, int window,
     int n_layers, int S, int L, int d, int Hq, int Hkv, int Dh, int F, int NB, int bs, int MB,
     void* stream) {
-  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB};
+  Dims D{S, d, Hq, Hkv, Dh, F, MB * bs, bs, MB, window, 0};
   if (L < 1 || MB < 1) return (int)cudaErrorInvalidValue;
   const CacheArgs c{pk, pv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),

@@ -3,8 +3,11 @@ backward.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas_attention.py``
 ``flash_attention`` (:822) / ``flash_attention_with_lse`` (:883) and their
-custom VJP (:667-880). The forward kernel, ``csrc/flash_fwd.cu``, replaces
-the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
+custom VJP (:667-880), with the causal mask, the sliding window
+(``window=W``: query i keeps key j iff ``i - W < j <= i``; each kernel
+visits only the tiles of the band, as the JAX banded index maps
+``_banded_k_index`` / ``_banded_q_index`` do), ``kv_lens`` and GQA. The
+forward kernel, ``csrc/flash_fwd.cu``, replaces the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
 ``csrc/flash_bwd.cu`` replace ``_fused_bwd_kernel`` (:440), ``_dq_kernel``
 (:327) and ``_dkv_kernel`` (:381).
 
@@ -22,7 +25,8 @@ Gradients go through :class:`FlashAttention`, a ``torch.autograd.Function``
 used on both devices: its forward is the forward kernel (or the plain
 forward), and its backward forms ``delta = rowsum(dO·O) − dlse`` in f32 and
 then runs the fused backward kernel or the dq + dk/dv pair (chosen by
-:func:`resolve_fused`, a copy of the JAX ``_resolve_fused``), or on the CPU
+:func:`resolve_fused`, a copy of the JAX ``_resolve_fused``: a banded
+window, ``4 W <= L``, takes the pair), or on the CPU
 :func:`flash_bwd_plain`. Under ``torch.no_grad()``, or when no input needs
 a gradient, the forward runs alone and keeps no residuals.
 """
@@ -38,6 +42,7 @@ from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import (
     NEG_INF,
     attention_scores,
+    check_window,
     repeat_kv,
 )
 
@@ -46,10 +51,12 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
 # the kernel at every length.
 FLASH_MIN_LEN = 1024
 
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# flash_fwd(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, D, causal, window,
+#           is_bf16, stream); window 0 = none.
+_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # flash_bwd(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp,
-#           B, L, Hq, Hkv, D, causal, is_bf16, scale, stream)
-_BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+#           B, L, Hq, Hkv, D, causal, window, is_bf16, scale, stream)
+_BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
 _BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 # The kernels' key tile: the fused backward's dq partials take ceil(L/BLOCK_K)
@@ -60,11 +67,8 @@ BLOCK_K = 64
 FUSED_DQ_CAP_BYTES = 1 << 30
 
 
-def _check(q, k, v, kv_lens, window):
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window flash attention is not ported yet (ROADMAP A3)"
-        )
+def _check(q, k, v, kv_lens, causal, window):
+    check_window(causal, window)
     if k.shape != v.shape:
         raise ValueError(f"k/v shapes must match: {k.shape} {v.shape}")
     if (
@@ -85,13 +89,19 @@ def _check(q, k, v, kv_lens, window):
         )
 
 
-def flash_attention_plain(q, k, v, *, causal=False, kv_lens=None):
+def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None):
     """The plain version: the same masked softmax in f32, returning
-    ``(out [B, L, Hq, D] in q's dtype, lse [B, L, Hq] f32)``."""
+    ``(out [B, L, Hq, D] in q's dtype, lse [B, L, Hq] f32)``. A row that
+    sees no key (``window`` with ``kv_lens``: a padded row past
+    ``kv_lens + W - 1``) gives 0 and lse -1e30, as the kernels and the JAX
+    kernel's empty-row guard do (dense attention averages the values
+    there instead)."""
     kr, vr = repeat_kv(k, v, q.shape[2])
-    scores = attention_scores(q, kr, causal=causal, kv_lens=kv_lens)
+    scores = attention_scores(q, kr, causal=causal, window=window, kv_lens=kv_lens)
     lse = torch.logsumexp(scores, dim=-1)  # [B, H, Lq]
     w = torch.exp(scores - lse[..., None])
+    if window is not None:
+        w = torch.where(scores.amax(-1, keepdim=True) > 0.5 * NEG_INF, w, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", w, vr.float())
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
 
@@ -116,7 +126,12 @@ def _dense16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _flash_cuda(q, k, v, causal, kv_lens):
+def _window_arg(window):
+    """The kernels' window argument: 0 for none."""
+    return 0 if window is None else int(window)
+
+
+def _flash_cuda(q, k, v, causal, kv_lens, window=None):
     _check_kernel_inputs(q, k, v)
     b, l, hq, d = q.shape
     q, k, v = _dense16(q), _dense16(k), _dense16(v)
@@ -130,15 +145,15 @@ def _flash_cuda(q, k, v, causal, kv_lens):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         0 if lens is None else lens.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, l, hq, k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, l, hq, k.shape[2], d, int(causal), _window_arg(window),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_fwd")
     _build.LAUNCHES["flash_fwd"] += 1
     return out, lse
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal):
+def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None):
     """The plain backward, from the JAX kernels' formulas: ``(dq, dk, dv)``
     in the inputs' dtypes, dk/dv [B, L, Hkv, D] summed over each KV head's
     group of query heads. ``o`` is unused (``delta`` carries it) and kept
@@ -157,6 +172,8 @@ def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal):
     valid = torch.ones(l, l, dtype=torch.bool, device=q.device)
     if causal:
         valid = torch.tril(valid)
+    if window is not None:
+        valid = torch.triu(valid, diagonal=1 - window)
     valid = valid[None, None]
     if kv_lens is not None:
         kvalid = torch.arange(l, device=q.device)[None, :] < kv_lens[:, None]
@@ -174,18 +191,28 @@ def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def resolve_fused(fused, bh: int, l: int, d: int) -> bool:
-    """``fused=None`` → auto: the fused kernel unless its f32 dq-partial
-    buffer, ``ceil(l / BLOCK_K) · bh · l · d · 4`` bytes, would exceed
+def use_banding(window, l: int) -> bool:
+    """The JAX ``_use_banding`` (:153): a window is banded when
+    ``4 W <= L``."""
+    return window is not None and 4 * window <= l
+
+
+def resolve_fused(fused, bh: int, l: int, d: int, window=None) -> bool:
+    """``fused=None`` → auto: the fused kernel unless (a) the call is in
+    the banded-window regime (:func:`use_banding`), where most of the
+    fused kernel's dq-partial planes would be zeros that are still
+    written and summed, or (b) its f32 dq-partial buffer,
+    ``ceil(l / BLOCK_K) · bh · l · d · 4`` bytes, would exceed
     :data:`FUSED_DQ_CAP_BYTES` (the JAX ``_resolve_fused``, :763, with the
-    port's own key tile; the window rule waits for the window, ROADMAP A3).
-    An explicit bool wins."""
+    port's own key tile). An explicit bool wins."""
     if fused is not None:
         return bool(fused)
+    if use_banding(window, l):
+        return False
     return -(-l // BLOCK_K) * bh * l * d * 4 <= FUSED_DQ_CAP_BYTES
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, outs, dqp=None):
+def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, dqp=None):
     lib = _build.load("flash_bwd")
     fn = lib.flash_bwd
     fn.argtypes, fn.restype = _BWD_SIG, ctypes.c_int
@@ -198,8 +225,9 @@ def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, outs, dqp=None):
     err = fn(
         _BWD_MODES[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), ptr(kv_lens), ptr(dq), ptr(dk), ptr(dv), ptr(dqp),
-        b, l, hq, k.shape[2], d, int(causal), int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        b, l, hq, k.shape[2], d, int(causal), _window_arg(window),
+        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
@@ -212,36 +240,38 @@ def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
             lse.float().contiguous(), delta.float().contiguous(), lens)
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4a on the card: ``(dq, dk, dv)`` in one pass over the KV tiles, dq
     from f32 partials summed by a second kernel in a fixed order."""
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     b, l, hq, d = q.shape
     dqp = torch.empty(-(-l // BLOCK_K) * b * l * hq * d, dtype=torch.float32, device=q.device)
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, outs, dqp)
+    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, window, outs, dqp)
     return outs
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4b on the card: dq, one CTA per (batch, query head, q-tile), on the
     tensor cores."""
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dq = torch.empty_like(q)
-    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, (dq, None, None))
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, window,
+                (dq, None, None))
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, kv_lens=None):
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4c on the card: ``(dk, dv)``, one CTA per (batch, KV head, k-tile),
     summed over the group's query heads."""
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, lens, causal, (None, dk, dv))
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, lens, causal, window,
+                (None, dk, dv))
     return dk, dv
 
 
-def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, fused):
+def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, window, fused):
     """``(dq, dk, dv)`` from the forward's residuals and the cotangents
     ``do`` and ``dlse`` (None counts as zeros): ``delta = rowsum(do·o) −
     dlse`` in f32, as the JAX code forms it in XLA (:722), then the kernels
@@ -251,22 +281,22 @@ def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, fused):
         delta = delta - dlse.float()
     if q.is_cuda:
         b, l, hq, d = q.shape
-        kw = dict(causal=causal, kv_lens=kv_lens)
-        if resolve_fused(fused, b * hq, l, d):
+        kw = dict(causal=causal, window=window, kv_lens=kv_lens)
+        if resolve_fused(fused, b * hq, l, d, window):
             return flash_bwd_fused(q, k, v, do, lse, delta, **kw)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
-    return flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal)
+    return flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window)
 
 
-def _flash_forward(q, k, v, causal, kv_lens):
+def _flash_forward(q, k, v, causal, window, kv_lens):
     if q.is_cuda:
-        return _flash_cuda(q, k, v, causal, kv_lens)
+        return _flash_cuda(q, k, v, causal, kv_lens, window)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
+    return flash_attention_plain(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -275,10 +305,10 @@ class FlashAttention(torch.autograd.Function):
     plain backward on the CPU; ``kv_lens`` gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal, fused):
-        out, lse = _flash_forward(q, k, v, causal, kv_lens)
+    def forward(ctx, q, k, v, kv_lens, causal, window, fused):
+        out, lse = _flash_forward(q, k, v, causal, window, kv_lens)
         ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-        ctx.causal, ctx.fused = causal, fused
+        ctx.causal, ctx.window, ctx.fused = causal, window, fused
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -287,20 +317,23 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, kv_lens = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(out)
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.fused)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.window,
+                               ctx.fused)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
     """Exact attention on [B, L, H, D] without an [L, L] score matrix in
-    device memory. ``kv_lens`` [B] int (each ≥ 1) masks keys at positions
-    ≥ kv_lens[b]; k/v may carry fewer heads (GQA). Returns ``(out, lse)``,
+    device memory. ``window=W`` (needs ``causal``, W ≥ 1) keeps each
+    query's last W keys, self included. ``kv_lens`` [B] int (each ≥ 1)
+    masks keys at positions ≥ kv_lens[b]; k/v may carry fewer heads (GQA).
+    Returns ``(out, lse)``,
     both differentiable. ``fused`` picks the backward: None (auto, see
     :func:`resolve_fused`), True (one pass) or False (dq + dk/dv kernels)."""
-    _check(q, k, v, kv_lens, window)
+    _check(q, k, v, kv_lens, causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, kv_lens, causal, fused)
-    return _flash_forward(q, k, v, causal, kv_lens)
+        return FlashAttention.apply(q, k, v, kv_lens, causal, window, fused)
+    return _flash_forward(q, k, v, causal, window, kv_lens)
 
 
 def flash_attention(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):

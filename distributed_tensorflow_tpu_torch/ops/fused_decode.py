@@ -21,6 +21,13 @@ paged, with RoPE and bf16, int8 or fp8 (e4m3) caches:
   ``coop_step_kernel<PagedRows, true, false>`` replaces ``_verify_kernel``
   (:1083).
 
+A windowed model (``window=W``) keeps its slab as a ROLLING buffer of C
+slots, position p at slot ``p mod C`` (the JAX package's ``rolling`` slab,
+C = ``min(W, max_len)``), and its pool absolutely; both attend only the
+band of positions ``> length - W`` (on the slab also ``> length - C``:
+the write slot holds position ``length - C``), and the verify's row li
+only cache positions ``> prefix + li - W`` and fresh rows ``lj > li - W``.
+
 Each is one cooperative launch over the whole card (:func:`coop_plan` lays
 it out: the grid, the tiles of each product, the weight ring's chunks, the
 scratch between phases and the shared memory); each weight element is read
@@ -97,17 +104,22 @@ def dot(x, w, compute_dtype):
 
 
 def commit_slot_rows(ck, cv, kq, vq, lengths, active, ks=None, vs=None, kqs=None,
-                     vqs=None):
+                     vqs=None, window=None):
     """Write the fresh rows ``kq``/``vq`` [S, Hkv, Dh] into one layer's
     cache ``ck``/``cv`` [S, C, Hkv, Dh] at position ``lengths[s]`` for the
     active rows, and their scales ``kqs``/``vqs`` [S, Hkv] into ``ks``/``vs``
     [S, C, Hkv] (1-byte caches); inactive rows write their old value back
-    (a no-op), as the JAX ``_commit_slot_rows`` does. In place."""
+    (a no-op), as the JAX ``_commit_slot_rows`` does. With ``window`` the
+    slab rolls: the row goes to slot ``lengths[s] % C``. In place."""
     rows = torch.arange(ck.shape[0], device=ck.device)
     c = ck.shape[1]
-    pos = lengths.long().clamp(0, c - 1)
-    # A row already at capacity is never written (the kernel's rule too).
-    act = active.bool() & (lengths < c)
+    if window is not None:
+        pos = lengths.long() % c
+        act = active.bool()
+    else:
+        pos = lengths.long().clamp(0, c - 1)
+        # A row already at capacity is never written (the kernel's rule too).
+        act = active.bool() & (lengths < c)
     for dst, new in ((ck, kq), (cv, vq), (ks, kqs), (vs, vqs)):
         if dst is not None:
             m = act.reshape((-1,) + (1,) * (new.dim() - 1))
@@ -150,11 +162,41 @@ def _cache_view(c, scale, cd):
     return c.float() if scale is None else dequantize_kv(c, scale, cd).float()
 
 
-def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd, ks=None, vs=None):
+def slab_valid(lengths, c, window=None):
+    """[S, C] bool: the slab slots a step at ``lengths`` attends, read
+    pre-write. Without a window the positions below the length; with one,
+    the rolling buffer's identity (JAX ``pallas_decode.py`` :296-303): slot
+    i holds position ``length - ((length % C - i) mod C)``, valid when
+    that is ≥ 0 and above ``length - W``, and i is not the write slot (its
+    position, ``length - C``, has left the window)."""
+    idx = torch.arange(c, device=lengths.device)[None, :]
+    ln = lengths.long()[:, None]
+    if window is None:
+        return idx < ln
+    slot = ln % c
+    pos = ln - torch.remainder(slot - idx, c)
+    # The band test is a no-op at the model's C = min(W, max_len) <= W.
+    return (pos >= 0) & (pos > ln - window) & (idx != slot)
+
+
+def paged_valid(lengths, c, window=None):
+    """[S, C] bool: the absolute view positions a step at ``lengths``
+    attends, read pre-write: below the length and, with a window, above
+    ``length - W``."""
+    idx = torch.arange(c, device=lengths.device)[None, :]
+    ln = lengths.long()[:, None]
+    valid = idx < ln
+    if window is not None:
+        valid &= idx > ln - window
+    return valid
+
+
+def _block_plain(h, w, ck, cv, lengths, valid, num_heads, rope_on, cd, ks=None, vs=None):
     """One layer's step (plain) over the per-slot view ``ck``/``cv``
-    [S, C, Hkv, Dh] (scales ``ks``/``vs`` [S, C, Hkv] for 1-byte codes):
-    returns (h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored,
-    their scales [S, Hkv] or None)."""
+    [S, C, Hkv, Dh] (scales ``ks``/``vs`` [S, C, Hkv] for 1-byte codes)
+    whose positions ``valid`` [S, C] the step attends: returns (h_out
+    [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored, their scales
+    [S, Hkv] or None)."""
     s, d = h.shape
     c, hkv, dh = ck.shape[1], ck.shape[2], ck.shape[3]
     hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
@@ -168,7 +210,6 @@ def _block_plain(h, w, ck, cv, lengths, num_heads, rope_on, cd, ks=None, vs=None
     qg = group_query_heads(q[:, 0], hkv)  # [S, Hkv, g, Dh]
     sq = math.sqrt(dh)
     sc = torch.einsum("shgd,skhd->shgk", qg, _cache_view(ck, ks, cd)) / sq
-    valid = torch.arange(c, device=h.device)[None, :] < lengths[:, None]
     sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
     sf = (qg * kf[:, :, None, :]).sum(-1, keepdim=True) / sq
     # The weights round to the dtype the values are attended in.
@@ -189,41 +230,46 @@ def _at(scale, i):
 
 
 def decode_block_slab_plain(h, weights, ck, cv, lengths, *, num_heads, rope=False,
-                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
+                            window=None):
     """Plain version of :func:`decode_block_slab`."""
-    return _block_plain(h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype,
-                        k_scale, v_scale)
+    return _block_plain(h.float(), weights, ck, cv, lengths,
+                        slab_valid(lengths, ck.shape[1], window), num_heads, rope,
+                        compute_dtype, k_scale, v_scale)
 
 
 def decode_token_slab_plain(h, weights, ck, cv, lengths, active, *, num_heads, rope=False,
-                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                            compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
+                            window=None):
     """Plain version of :func:`decode_token_slab`: the per-layer step and
     commit, layer by layer."""
     h = h.float()
+    valid = slab_valid(lengths, ck.shape[2], window)
     for i in range(ck.shape[0]):
         ks, vs = _at(k_scale, i), _at(v_scale, i)
-        h, kq, vq, kqs, vqs = _block_plain(h, _layer(weights, i), ck[i], cv[i], lengths,
+        h, kq, vq, kqs, vqs = _block_plain(h, _layer(weights, i), ck[i], cv[i], lengths, valid,
                                            num_heads, rope, compute_dtype, ks, vs)
-        commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active, ks, vs, kqs, vqs)
+        commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active, ks, vs, kqs, vqs, window)
     return h, ck, cv
 
 
 def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
                              rope=False, compute_dtype=torch.bfloat16, k_scale=None,
-                             v_scale=None):
+                             v_scale=None, window=None):
     """Plain version of :func:`decode_block_paged`: the PRE-write view
     gathered through the tables, then the slab step."""
     ck = gather_block_view(pool_k, tables)
     cv = gather_block_view(pool_v, tables)
     ks = None if k_scale is None else gather_block_view(k_scale, tables)
     vs = None if v_scale is None else gather_block_view(v_scale, tables)
-    return _block_plain(h.float(), weights, ck, cv, lengths, num_heads, rope, compute_dtype,
-                        ks, vs)
+    return _block_plain(h.float(), weights, ck, cv, lengths,
+                        paged_valid(lengths, ck.shape[1], window), num_heads, rope,
+                        compute_dtype, ks, vs)
 
 
 def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active, *,
                              num_heads, rope=False, compute_dtype=torch.bfloat16,
-                             k_scale=None, v_scale=None):
+                             k_scale=None, v_scale=None, window=None):
     """Plain version of :func:`decode_token_paged`: per layer, the step over
     the gathered view, then the fresh row scattered through the tables."""
     h = h.float()
@@ -232,7 +278,7 @@ def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active
         h, kq, vq, kqs, vqs = decode_block_paged_plain(
             h, _layer(weights, i), pool_k[i], pool_v[i], tables, lengths,
             num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=ks,
-            v_scale=vs,
+            v_scale=vs, window=window,
         )
         commit_paged_rows(pool_k[i], pool_v[i], kq, vq, tables, lengths, active, ks, vs,
                           kqs, vqs)
@@ -241,7 +287,8 @@ def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active
 
 def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
                               suffix_lens, active, *, num_heads, rope=False,
-                              compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                              compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
+                              window=None):
     """Plain version of :func:`verify_tokens_paged`: per layer,
     ``extend_paged``'s block with the fresh K/V rounded through the pool
     (bf16, or quantized and dequantized to the compute dtype) before
@@ -257,7 +304,16 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
         (torch.arange(l, device=dev)[None, :] < suffix_lens[:, None])
         & active.bool()[:, None] & (positions < extent)
     )
-    alive = ((prefix_lens > 0) | (suffix_lens > 0))[:, None, None, None]
+    # A row with no valid key gives 0 (the JAX verify kernel's guard): no
+    # cache position in its band, (prefix + li - W, prefix), and no fresh
+    # row lj in (li - W, li] below the suffix length.
+    li = torch.arange(l, device=dev)[None, :]
+    first = (li - window + 1).clamp(min=0) if window is not None else torch.zeros_like(li)
+    fresh_alive = first < suffix_lens[:, None]
+    cache_alive = prefix_lens[:, None] > 0
+    if window is not None:
+        cache_alive = cache_alive & (li + 1 < window)
+    alive = (fresh_alive | cache_alive)[:, :, None, None]
     h = h.float()
     cd = compute_dtype
     for i in range(pool_k.shape[0]):
@@ -274,7 +330,7 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
             gather_block_view(p, tables), None if sc is None else gather_block_view(sc, tables),
             cd)
         attn = paged_extend_attention(q, kf, vf, view(pool_k[i], ks), view(pool_v[i], vs),
-                                      positions, prefix_lens, suffix_lens)
+                                      positions, prefix_lens, suffix_lens, window)
         attn = torch.where(alive, attn, torch.zeros_like(attn))
         h = _ffn_plain(h + dot(attn.reshape(s, l, d), w["wo"], cd), w, cd)
         pairs = [(d[None], n[None]) for d, n in ((pool_k[i], kq), (pool_v[i], vq), (ks, kqs),
@@ -718,14 +774,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _window_arg(window):
+    """The kernels' window argument: 0 for none, else W ≥ 1."""
+    if window is None:
+        return 0
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return int(window)
+
+
 def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers, num_heads,
-                 rope_on, compute_dtype, ptrs, dims):
+                 rope_on, compute_dtype, ptrs, dims, window=None):
     """Validate and launch ``kernel`` over ``n_layers`` layers of the cache
     or pool (``scales`` = (k_scale, v_scale), None for bf16). The C
     interface takes h_in, h_out, the weights, the caches and their scales,
     ``ptrs`` (the [S] int32 rows, the per-layer step's fresh rows), the
-    scratch, the barrier's flags, the plan, the cache type and RoPE, then
-    ``dims`` (the model dims, then C, or NB, bs, MB). Returns h_out."""
+    scratch, the barrier's flags, the plan, the cache type, RoPE and the
+    window (0: none; a windowed slab rolls), then ``dims`` (the model
+    dims, then C, or NB, bs, MB). Returns h_out."""
     k_scale, v_scale = scales
     kv = KV_TYPES.get(pool_k.dtype)
     if compute_dtype != torch.bfloat16 or kv is None or (kv != 0) != (
@@ -750,14 +816,14 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers
     args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
             pool_v.data_ptr(), _ptr(k_scale), _ptr(v_scale), *ptrs, *scratch, flags]
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * (len(args) + 1) + [_INT] * (len(dims) + 2) + [_PTR]
-    _build.check(fn(*args, plan, kv, int(rope_on), *dims, stream), kernel)
+        fn.argtypes = [_PTR] * (len(args) + 1) + [_INT] * (len(dims) + 3) + [_PTR]
+    _build.check(fn(*args, plan, kv, int(rope_on), _window_arg(window), *dims, stream), kernel)
     _build.LAUNCHES[kernel] += 1
     return out
 
 
 def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads, rope,
-                  compute_dtype):
+                  compute_dtype, window=None):
     """B5 on the card: one layer's step, in launches of the most slots the
     plan takes at this width (:func:`block_group`). Returns ``(h_out,
     k_fresh, v_fresh, k_fresh_scale, v_fresh_scale)``."""
@@ -778,7 +844,7 @@ def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads
         parts = [_block_launch(kernel, h[i:i + group], weights, rows(ck, i), rows(cv, i),
                                tuple(rows(t, i) for t in scales),
                                None if tables is None else tables[i:i + group],
-                               lengths[i:i + group], num_heads, rope, compute_dtype)
+                               lengths[i:i + group], num_heads, rope, compute_dtype, window)
                  for i in range(0, s, group)]
         return tuple(None if t[0] is None else torch.cat([movable(x) for x in t]).view(t[0].dtype)
                      for t in zip(*parts))
@@ -797,89 +863,98 @@ def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads
         tail = [ck.shape[0], ck.shape[1], tables.shape[1]]
     out = _coop_launch(kernel, h, weights, ck, cv, scales, tables, 1, 1, num_heads, rope,
                        compute_dtype,
-                       [*ptrs, kf.data_ptr(), vf.data_ptr(), _ptr(ksf), _ptr(vsf)], dims + tail)
+                       [*ptrs, kf.data_ptr(), vf.data_ptr(), _ptr(ksf), _ptr(vsf)], dims + tail,
+                       window)
     return out, kf, vf, ksf, vsf
 
 
 def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
-                      compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                      compute_dtype=torch.bfloat16, k_scale=None, v_scale=None, window=None):
     """One GPT block's single-token step over one layer's slab cache.
 
     ``h`` [S, d] f32 residual rows, ``weights`` one layer's dict,
     ``ck``/``cv`` [S, C, Hkv, Dh] (PRE-write, not modified; bf16, or
     1-byte codes with ``k_scale``/``v_scale`` [S, C, Hkv] f32), ``lengths``
-    [S] int write positions. Returns ``(h_out [S, d] f32, k_fresh,
-    v_fresh [S, Hkv, Dh] as stored, k_fresh_scale, v_fresh_scale [S, Hkv]
-    or None)``."""
+    [S] int write positions; ``window`` W: the slab is the rolling buffer
+    of a windowed model (the caller commits at ``lengths % C``). Returns
+    ``(h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored,
+    k_fresh_scale, v_fresh_scale [S, Hkv] or None)``."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_block_slab_plain(
             h, weights, ck, cv, lengths, num_heads=num_heads, rope=rope,
-            compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
+            compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale, window=window,
         )
     return _block_launch("decode_block_slab", h, weights, ck, cv, (k_scale, v_scale), None,
-                         lengths, num_heads, rope, compute_dtype)
+                         lengths, num_heads, rope, compute_dtype, window)
 
 
 def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
-                      rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                      rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
+                      window=None):
     """The whole model's single-token step over the slab cache, one launch.
 
     ``h`` [S, d] f32 embedded rows, ``weights`` layer-stacked,
     ``ck``/``cv`` [n_layers, S, C, Hkv, Dh] (1-byte codes with
     ``k_scale``/``v_scale`` [n_layers, S, C, Hkv]), ``lengths`` [S] int,
-    ``active`` [S] bool. Returns ``(h_out [S, d] f32, ck, cv)`` with the
-    fresh rows (and scales) committed in place at the active rows'
-    ``lengths``."""
+    ``active`` [S] bool, ``window`` W (a rolling slab). Returns ``(h_out
+    [S, d] f32, ck, cv)`` with the fresh rows (and scales) committed in
+    place at the active rows' ``lengths`` (``% C`` when rolling)."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_token_slab_plain(
             h, weights, ck, cv, lengths, active, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
+            window=window,
         )
     lens, act = _i32(lengths), _i32(active)
     n, s, c, hkv, dh = ck.shape
     out = _coop_launch("decode_token_slab", h, weights, ck, cv, (k_scale, v_scale), None, 1, n,
                        num_heads, rope, compute_dtype, [lens.data_ptr(), act.data_ptr()],
-                       [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c])
+                       [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c],
+                       window)
     return out, ck, cv
 
 
 def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
-                       rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None):
+                       rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
+                       window=None):
     """One GPT block's single-token step over one layer's block pool.
 
     ``pool_k``/``pool_v`` [NB, bs, Hkv, Dh] (PRE-write, not modified;
     1-byte codes with ``k_scale``/``v_scale`` [NB, bs, Hkv]), ``tables``
-    [S, MB] int block ids, the rest as in :func:`decode_block_slab`.
-    Returns ``(h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh],
-    k_fresh_scale, v_fresh_scale)``; the caller commits with
-    :func:`commit_paged_rows`."""
+    [S, MB] int block ids, ``window`` W (absolute positions, the band
+    masked), the rest as in :func:`decode_block_slab`. Returns ``(h_out
+    [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh], k_fresh_scale,
+    v_fresh_scale)``; the caller commits with :func:`commit_paged_rows`."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_block_paged_plain(
             h, weights, pool_k, pool_v, tables, lengths, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
+            window=window,
         )
     return _block_launch("decode_block_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
-                         tables, lengths, num_heads, rope, compute_dtype)
+                         tables, lengths, num_heads, rope, compute_dtype, window)
 
 
 def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
                        num_heads, rope=False, compute_dtype=torch.bfloat16, k_scale=None,
-                       v_scale=None):
+                       v_scale=None, window=None):
     """The whole model's single-token step over the block pool, one launch.
 
     ``pool_k``/``pool_v`` [n_layers, NB, bs, Hkv, Dh] (1-byte codes with
     ``k_scale``/``v_scale`` [n_layers, NB, bs, Hkv]), ``tables`` [S, MB],
-    the rest as in :func:`decode_token_slab`. Returns ``(h_out, pool_k,
-    pool_v)`` with each active row's fresh K/V (and scales) committed in
-    place at ``pool[l, tables[s, len // bs], len % bs]``."""
+    ``window`` W (absolute positions), the rest as in
+    :func:`decode_token_slab`. Returns ``(h_out, pool_k, pool_v)`` with
+    each active row's fresh K/V (and scales) committed in place at
+    ``pool[l, tables[s, len // bs], len % bs]``."""
     if not h.is_cuda:
         _cpu_only(h)
         return decode_token_paged_plain(
             h, weights, pool_k, pool_v, tables, lengths, active, num_heads=num_heads,
             rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
+            window=window,
         )
     lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
     n, nb, bs, hkv, dh = pool_k.shape
@@ -887,13 +962,13 @@ def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
                        tabs, 1, n, num_heads, rope, compute_dtype,
                        [lens.data_ptr(), act.data_ptr(), tabs.data_ptr()],
                        [n, h.shape[0], h.shape[-1], num_heads, hkv, dh,
-                        weights["w_up"].shape[-1], nb, bs, tabs.shape[1]])
+                        weights["w_up"].shape[-1], nb, bs, tabs.shape[1]], window)
     return out, pool_k, pool_v
 
 
 def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens,
                         active, *, num_heads, rope=False, compute_dtype=torch.bfloat16,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, window=None):
     """The speculation verify over the block pool, every layer in one
     launch.
 
@@ -904,14 +979,16 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
     STRICTLY below its slot's prefix length (read pre-write) and the
     slot's fresh rows ``lj <= li, lj < suffix_len``, rounded through the
     pool (bf16, or quantized and dequantized). Each layer commits position
-    ``prefix + li`` where active and ``li < suffix_len``, in place. Returns
-    ``h_out`` [S, L, d] f32; lengths and tables stay the caller's."""
+    ``prefix + li`` where active and ``li < suffix_len``, in place. With
+    ``window`` W row li attends pool positions ``> prefix + li - W`` and
+    fresh rows ``lj > li - W``. Returns ``h_out`` [S, L, d] f32; lengths
+    and tables stay the caller's."""
     if not h.is_cuda:
         _cpu_only(h)
         return verify_tokens_paged_plain(
             h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens, active,
             num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=k_scale,
-            v_scale=v_scale,
+            v_scale=v_scale, window=window,
         )
     tabs = _i32(tables)
     plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
@@ -921,4 +998,4 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
                         tabs, l, n, num_heads, rope, compute_dtype,
                         [tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
                         [n, s, l, d, num_heads, hkv, dh, weights["w_up"].shape[-1], nb, bs,
-                         tabs.shape[1]])
+                         tabs.shape[1]], window)

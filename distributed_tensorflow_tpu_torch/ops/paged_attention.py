@@ -70,7 +70,7 @@ def scatter_rows(pools, rows_in, block_tables, positions, valid):
 
 
 def paged_extend_attention(q, k_new, v_new, k_view, v_view, q_positions,
-                           prefix_lens, suffix_lens):
+                           prefix_lens, suffix_lens, window=None):
     """Attention of an EXTEND step: suffix queries over (the cached prefix
     read through the tables) ++ (the suffix's own fresh K/V), causal by
     absolute position.
@@ -79,9 +79,10 @@ def paged_extend_attention(q, k_new, v_new, k_view, v_view, q_positions,
     the suffix's rows; k_view/v_view [S, C, Hkv, Dh] the gathered views,
     view index j being position j. View keys need ``j < prefix_lens``
     STRICTLY (the suffix's own positions there hold garbage); fresh keys
-    the causal triangle and ``< suffix_lens``. f32 scores and softmax;
-    the output comes back in the query's dtype. (The sliding window waits
-    for ROADMAP A3.)"""
+    the causal triangle and ``< suffix_lens``. ``window=W`` adds the band
+    ``key_pos > q_pos - W`` on both halves (the pool addresses absolutely,
+    so the band is a mask, not a rolling layout). f32 scores and softmax;
+    the output comes back in the query's dtype."""
     s, l, hq, dh = q.shape
     hkv = k_new.shape[2]
     c = k_view.shape[1]
@@ -96,6 +97,8 @@ def paged_extend_attention(q, k_new, v_new, k_view, v_view, q_positions,
         torch.arange(l, device=dev)[None, :] < suffix_lens[:, None],
     ], dim=1)  # [S, C+L]
     mask = real[:, None, :] & (kpos[:, None, :] <= q_positions[:, :, None])  # [S, L, C+L]
+    if window is not None:
+        mask &= kpos[:, None, :] > q_positions[:, :, None] - window
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("shglk,skhd->slhgd", w, vcat)

@@ -43,6 +43,13 @@ shares the batch or which engine serves it. (The bits differ from JAX's
 PRNG, so sampled streams are never compared with the JAX package.) Greedy
 streams equal in-process greedy decoding token for token.
 
+- **Sliding-window models** (``GPTLM(window=W)``): the slab keeps
+  ``cache_len = min(W, max_len)`` rows a slot as a rolling buffer, so its
+  K/V bytes (``kv_slot_bytes``) are ``W / max_len`` of a full slab's; the
+  paged layout keeps FULL history (absolute positions, the band masked),
+  so for ``W << max_len`` the default pool is ~``max_len / W`` times the
+  slab's K/V bytes: size ``kv_blocks`` explicitly there. Admission budgets
+  ``prompt + max_new`` against ``max_len`` either way.
 - **Quantized KV** (``kv_dtype="int8"|"fp8"``): the slab cache or the pool
   stores 1-byte codes with a f32 scale a row (``GPTLM.empty_slot_cache``);
   ``kv_hbm_bytes`` sizes the pool from a byte budget at that element size
@@ -202,6 +209,11 @@ class TextServer:
                         scale_bytes=0 if kv_dtype == "bf16" else 4)
         self.kv_position_bytes = kv_position_bytes(**geometry)
         self.kv_block_bytes = self.kv_position_bytes * self.block_size
+        # A slot's K/V bytes: the slab's cache_len rows (a windowed model's
+        # rolling buffer), or the blocks of its table (full history).
+        self.kv_slot_bytes = (
+            model.paged_blocks_per_slot(self.block_size) * self.kv_block_bytes
+            if paged else model.cache_len * self.kv_position_bytes)
         self._prefix: PrefixCache | None = None
         if paged:
             nb_slot = model.paged_blocks_per_slot(self.block_size)

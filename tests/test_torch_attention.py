@@ -96,8 +96,11 @@ def test_flash_refuses_window_and_bad_shapes():
     from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention
 
     q = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        flash_attention(q, q, q, causal=True, window=4)
+    # The window is ported; the JAX package's refusals of it remain.
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        flash_attention(q, q, q, causal=True, window=0)
+    with pytest.raises(ValueError, match="window requires causal=True"):
+        flash_attention(q, q, q, causal=False, window=4)
     with pytest.raises(ValueError, match="incompatible"):
         flash_attention(q, q[:, :, :3], q[:, :, :3], causal=True)
 

@@ -348,7 +348,8 @@ def test_attention_gradient_reaches_wq_wk_wv_on_gpu(monkeypatch):
     # The fault, reproduced: the kernel's output used directly.
     monkeypatch.setattr(
         gpt, "flash_attention",
-        lambda q, k, v, causal, kv_lens, fused: fa._flash_cuda(q, k, v, causal, kv_lens)[0],
+        lambda q, k, v, causal, window, kv_lens, fused: fa._flash_cuda(
+            q, k, v, causal, kv_lens, window)[0],
     )
     broken = grads_of(flash)
     for name in ("wq", "wk", "wv"):

@@ -109,8 +109,8 @@ def test_config_validation_and_unported_features():
         GPTLM(compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="rope needs an even head_dim"):
         GPTLM(model_dim=12, num_heads=4, pos_embedding="rope")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        GPTLM(window=16)
+    with pytest.raises(ValueError, match="window must be >= 1"):
+        GPTLM(window=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         GPTLM(moe_experts=4)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
