@@ -93,8 +93,9 @@ non-zero):
     (4 launches each a step, the fused one never), the cost finite and
     falling;
 13. serve gpt-m-L1024 with RoPE (``pos_embedding="rope"``, seeded random
-    weights) on bf16, int8 and fp8 KV caches, and the phase-4 model on an
-    int8 cache, each through five servers: slab (B6), slab per-layer (B5),
+    weights; 4 of its 8 layers, ``SERVED_LAYERS``) on bf16, int8 and fp8 KV
+    caches, and the phase-4 model (4 layers) on an int8 cache, each through
+    five servers: slab (B6), slab per-layer (B5),
     paged with the prefix cache (B6 paged), paged with ``spec_draft=4``
     (B7) and paged per-layer (B5 paged), phase 4's and phase 10's
     requests; each must launch its kernel (the launches of its variant),
@@ -109,8 +110,9 @@ non-zero):
     "fused-layer" (B5) against "xla" under phase 5's rule, then
     ``greedy_decode`` on each engine; an f32 gpt-m model must be refused
     by ``engine="fused"`` and "auto" and decode on ``engine="xla"``;
-15. serve gpt-m-L1024-W256 (gpt-m-L1024 with ``window=256``; its slab is a
-    rolling buffer of 256 rows, a quarter of the full slab's K/V bytes) on
+15. serve gpt-m-L1024-W256 (gpt-m-L1024 with ``window=256``, 4 of its 8
+    layers; its slab is a rolling buffer of 256 rows, a quarter of the full
+    slab's K/V bytes) on
     phase 4's traffic on bf16 and int8 caches, and its RoPE form on bf16,
     through phase 13's five servers, each held against
     ``decode_engine="xla"``; tokens/s, ms a step and TTFT printed;
@@ -118,7 +120,22 @@ non-zero):
     and batch for one epoch of 64 steps (cut: the step count): the
     launches must be B3, B4b and B4c (banded: 4 W <= L) and no B4a, the
     cost must fall; ms a step printed beside 12(a)'s; then 8 steps at
-    W=512 (4 W > L), whose backward is B4a with the window.
+    W=512 (4 W > L), whose backward is B4a with the window;
+17. serve the decode-* models of ``tools/lm_bench.py`` (d=256, 4 layers, 8
+    heads of 32: head_dim 32): decode-full on bf16 and int8 caches,
+    decode-window256 (the rolling slab of 256 rows) on both, decode-gqa2
+    (2 KV heads) and decode-full with RoPE, on their traffic (8 prompts of
+    256 tokens, 256 greedy tokens each) through phase 13's five servers,
+    each held against ``decode_engine="xla"``; tokens/s, ms a step and
+    TTFT printed. Then C1 end to end: ``TextServer`` over gpt-m with 2 KV
+    heads at max_len 2048, paged, ``spec_draft=4``, 16 slots (the verify in
+    two launches a tick), on prompts of 1,000-1,900 tokens against "xla",
+    and a server of an f32 model refused at construction;
+18. train gpt-s-L512-flash (batch 32) and gpt-s-L2048-flash-W512 (batch 8,
+    banded) through ``LMTrainer.run()`` for 64 steps each on 12(a)'s
+    corpus recipe at their lengths (cut: the steps): the launches must be
+    B3 + B4a, then B3 + B4b + B4c, and the cost must fall; ms a step and
+    tokens/s printed.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -156,16 +173,27 @@ and B4c at W=256 and B4a at W=512 at the training shapes against the
 plain backward with the same window, SDPA's backward with the band as a
 boolean mask as the yardstick.
 
+Head dim 32 and C1 (phases 3 and 11): B3 at D=32 (S=8, L=1023) against
+its plain version, timed beside SDPA and D=64's B3; each of ``S_VARIANTS``
+(gpt-s widths: bf16 and int8 caches, the rolling slab of 256 rows, 2 KV
+heads, RoPE) through the same checks as ``VARIANTS``; the cooperative
+kernels past one launch or one score tile (``c1_kernels``: B6 over 100
+slots, grouped launches equal to one launch bit for bit, B7 over 16 slots
+of gpt-m with 2 KV heads at extent 2048, B7 at L=9, B6 with one KV head at
+lengths 6,000-8,000, and blocks against one block at the same lengths);
+phase 11 holds B4a at gpt-s-L512's shapes and B4b + B4c at
+gpt-s-L2048-W512's against the plain backward, SDPA's backward beside.
+
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 
 ``--kernel-times`` runs no phase: it times the decode kernels (B5 slab
 and paged at gpt-m and at gpt-xl width, B6 slab and paged and B7 over 8
-gpt-m layers, and at gpt-m each of ``VARIANTS`` and the window variants
-where the package takes them), the backward kernels (B4b at the gpt-m and
-gpt-xl-L1024 training shapes, B4c and B4a at gpt-m) and B3 at S=8, L=1023
-(causal, and banded where the package takes a window) through their
+gpt-m layers, and at gpt-m each of ``VARIANTS`` and the window
+variants), the backward kernels (B4b at the gpt-m and gpt-xl-L1024
+training shapes, B4c and B4a at gpt-m) and B3 at S=8, L=1023 (causal, and
+banded) through their
 public wrappers, a call from Python each as above,
 and prints one JSON line with the card's name and power limit.
 ``--root DIR`` takes the package from another checkout (an unpacked
@@ -178,7 +206,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import inspect
 import json
 import os
 import re
@@ -318,7 +345,11 @@ VARIANTS = (("rope-bf16", True, "bf16"), ("rope-int8", True, "int8"),
 # (:137-143). Its slab is a rolling buffer of WINDOW rows; 4 W <= L puts its
 # training in the banded regime (the dq + dk/dv pair).
 WINDOW = 256
-WIN_CFG = dict(SERVE_CFG, window=WINDOW)
+# Phases 13 and 15 serve their gpt-m models at 4 of the 8 layers (cut: the
+# depth, which keeps the run near half its time limit since phases 17 and
+# 18 came; phase 3 holds the kernels of each variant at all 8 layers).
+SERVED_LAYERS = 4
+WIN_CFG = dict(SERVE_CFG, window=WINDOW, num_layers=SERVED_LAYERS)
 # The decode kernels' window variants held in phase 3 and served in phase
 # 15: (label, RoPE, KV cache type).
 WINDOW_VARIANTS = (("window-bf16", False, "bf16"), ("window-int8", False, "int8"),
@@ -331,6 +362,38 @@ FLASH_WINDOWS = {"flash_fwd[window]": ("flash_fwd", WINDOW, "window serve+train"
                  "flash_bwd_dkv[window]": ("flash_bwd_dkv", WINDOW, "window-train"),
                  "flash_bwd_fused[window-512]": ("flash_bwd_fused", 2 * WINDOW,
                                                  "window-512-train")}
+# The gpt-s and decode-* models of tools/lm_bench.py (:50-89, :133-160;
+# vocab 8192 at :126): d=256, 4 layers, 8 heads of 32 (F=1024), bf16.
+S_CFG = dict(vocab_size=8192, model_dim=256, num_layers=4, num_heads=8, max_len=1024)
+# Phase 17 serves decode-full (:133-136), decode-window256 (:137-143),
+# decode-gqa2 (:144-150) and decode-full with RoPE: (label, knobs, cache
+# types). Their prefill is lm_bench's (dense attention).
+S_SERVE = (("s-full", {}, ("bf16", "int8")), ("s-window", {"window": 256}, ("bf16", "int8")),
+           ("s-gqa2", {"num_kv_heads": 2}, ("bf16",)),
+           ("s-rope", {"pos_embedding": "rope"}, ("bf16",)))
+# Their traffic (DECODE_CONFIGS): 8 requests of 256-token prompts, 256 new
+# tokens each, greedy.
+S_REQUESTS, S_PROMPT, S_MAX_NEW = 8, 256, 256
+# The decode kernels' head-dim-32 variants held in phase 3 at gpt-s widths
+# and served in phase 17: (label, RoPE, KV cache type, KV heads, window).
+S_VARIANTS = (("s-full-bf16", False, "bf16", 8, None), ("s-full-int8", False, "int8", 8, None),
+              ("s-window-bf16", False, "bf16", 8, 256), ("s-window-int8", False, "int8", 8, 256),
+              ("s-gqa2-bf16", False, "bf16", 2, None), ("s-rope-bf16", True, "bf16", 8, None))
+# The flash kernels' head-dim-32 variants: record -> (kernel, path). B3 at
+# the serving shapes (phase 3), B4a at gpt-s-L512-flash's and B4b + B4c at
+# gpt-s-L2048-flash-W512's training shapes (phase 11), launched by phase 18.
+FLASH_D32 = {"flash_fwd[d32]": ("flash_fwd", "gpt-s train"),
+             "flash_bwd_fused[d32]": ("flash_bwd_fused", "gpt-s-L512 train"),
+             "flash_bwd_dq[d32-window]": ("flash_bwd_dq", "gpt-s-L2048-W512 train"),
+             "flash_bwd_dkv[d32-window]": ("flash_bwd_dkv", "gpt-s-L2048-W512 train")}
+# Phase 18: (config, L, batch, window) of tools/lm_bench.py :57-63 and
+# :76-82, trained S_TRAIN_STEPS steps each (cut: the steps).
+S_TRAIN = (("gpt-s-L512-flash", 512, 32, None), ("gpt-s-L2048-flash-W512", 2048, 8, 512))
+S_TRAIN_STEPS = 64
+# C1 (phases 3 and 17): gpt-m with 2 KV heads at max_len 2048, served paged
+# with spec_draft=4 over 16 slots (80 verify rows: two launches a tick).
+C1_CFG = dict(SERVE_CFG, num_kv_heads=2, max_len=2048)
+C1_SLOTS, C1_DRAFT = 16, 4
 # Share of a 1-byte cache's codes that may differ from the plain version's
 # (phase 3): the kernel's f32 rows differ from the plain ones in the last
 # bits (sums in another order), so a value at a rounding midpoint of the
@@ -590,6 +653,9 @@ def phase_kernels(records):
     wlengths = torch.randint(WINDOW, 901, (S,), device=dev, generator=g, dtype=torch.int32)
     for variant in WINDOW_VARIANTS:
         kernel_variants(records, variant, w, ck, cv, wlengths, active, h)
+    flash_d32(records)
+    s_kernels(records)
+    c1_kernels(records)
     for name, r in records.items():
         call = (f" a call from Python ({r['graph_ms']:.4f} ms a launch replayed from a CUDA "
                 f"graph)" if "graph_ms" in r else "")
@@ -1206,7 +1272,7 @@ def kv_bytes(positions, H, Dh, kv):
     return positions * H * (2 * Dh if kv == "bf16" else Dh + 4)
 
 
-def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
+def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h, hq=None, window=None):
     """Phase 3 for one of ``VARIANTS`` (RoPE and/or an int8/fp8 cache) at
     gpt-m shapes (phase 3's weights, S=8, lengths 256..768 of 1024, one
     inactive row; paged: 512 blocks of 16 under scrambled tables; B7 at
@@ -1219,18 +1285,21 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     (``WINDOW_VARIANTS``) runs with ``window=WINDOW``: the slab is the
     rolling buffer of WINDOW rows laid out from the full caches at
     ``lengths`` (which wrap it), the pool the full caches (absolute); paged
-    == slab bitwise holds for h and the committed rows."""
+    == slab bitwise holds for h and the committed rows. ``hq``: the query
+    heads where the caches hold fewer (GQA); ``window``: the window of a
+    variant whose label does not start with "window"."""
     import torch
     from distributed_tensorflow_tpu_torch.models.gpt import rolling_layout
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
     from distributed_tensorflow_tpu_torch.ops.paged_attention import gather_block_view
     from distributed_tensorflow_tpu_torch.ops.quantized import movable, quantize_kv
 
-    label, rope, kv = variant
-    window = WINDOW if label.startswith("window") else None
+    label, rope, kv = variant[:3]
+    window = WINDOW if label.startswith("window") else window
     dev = h.device
     g = torch.Generator(device=dev).manual_seed(5)
-    n, S, C, H, Dh = ck0.shape
+    n, S, C, H, Dh = ck0.shape  # H: the KV heads
+    hq = hq or H
     d, mb = h.shape[1], C // BLOCK
     nb = S * mb
     if kv == "bf16":
@@ -1241,7 +1310,7 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     full = caches
     if window is not None:
         caches = tuple(rolling_layout(t, lengths, window) for t in full)
-    kw = dict(num_heads=H, rope=rope, compute_dtype=torch.bfloat16, window=window)
+    kw = dict(num_heads=hq, rope=rope, compute_dtype=torch.bfloat16, window=window)
     w0 = {k_: t[0] for k_, t in w.items()}
 
     def sc(cs, layer=None):
@@ -1261,7 +1330,7 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     # Positions a step reads: the band's, W - 1 below the length, with a window.
     band = lengths if window is None else lengths.clamp(max=window - 1)
     pos = int(band.sum().item())
-    attn_flops_layer = 4 * (pos + S) * H * Dh
+    attn_flops_layer = 4 * (pos + S) * hq * Dh
     fresh = 2 * kv_bytes(S, H, Dh, kv)
     tables = torch.randperm(nb, device=dev, generator=g).reshape(S, mb).int()
     pools = tuple(pool_from_slab(t, tables, nb) for t in full)
@@ -1373,7 +1442,7 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
     nrows = int(slens[active].sum().item())
     vband = plens if window is None else plens.clamp(max=window - 1)
     vkvb = kv_bytes(int(vband.sum().item()), H, Dh, kv)
-    vattn = 4 * int((L * vband + L * L).sum().item()) * H * Dh
+    vattn = 4 * int((L * vband + L * L).sum().item()) * hq * Dh
     tab = 4 * tables.numel()
     calls = {
         "decode_block_slab": (
@@ -1409,7 +1478,7 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
             + tab, n * (L * mat_flops_layer + vattn)),
     }
     if window is None:
-        grid = fd.launch_plan("decode_token_slab", S, 1, n, d, H, H, Dh, w["w_up"].shape[-1], C,
+        grid = fd.launch_plan("decode_token_slab", S, 1, n, d, hq, H, Dh, w["w_up"].shape[-1], C,
                               0, dev, fd.KV_TYPES[caches[0].dtype]).grid
         coop_split(f"decode_token_slab[{label}]", calls["decode_token_slab"][0], n, grid)
     for name, (call, plain, nbytes, flops) in calls.items():
@@ -1419,6 +1488,272 @@ def kernel_variants(records, variant, w, ck0, cv0, lengths, active, h):
             library_ms=None, **bound(nbytes, flops, PEAK_BF16))
         print(f"    {name}[{label}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def layer_weights(n, d, hq, hkv, dh, f, g, dev):
+    """Seeded weights of ``n`` layers as the decode kernels take them:
+    projections bf16 (KV width hkv x dh), layernorms and biases f32."""
+    import torch
+
+    def rw(*shape, scale):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    w = {"ln1_scale": 1 + rw(n, d, scale=0.1), "ln1_bias": rw(n, d, scale=0.05),
+         "ln2_scale": 1 + rw(n, d, scale=0.1), "ln2_bias": rw(n, d, scale=0.05),
+         "b_up": rw(n, f, scale=0.05), "b_down": rw(n, d, scale=0.05)}
+    for nm, (k, m) in dict(wq=(d, hq * dh), wk=(d, hkv * dh), wv=(d, hkv * dh),
+                           wo=(hq * dh, d), w_up=(d, f), w_down=(f, d)).items():
+        w[nm] = rw(n, k, m, scale=k ** -0.5).bfloat16()
+    return w
+
+
+def s_kernels(records):
+    """Phase 3 at head_dim 32: each of ``S_VARIANTS`` at gpt-s widths (d=256,
+    4 layers, 8 heads of 32, F=1024; 8 slots at lengths 256..512, the
+    decode-* traffic's, of a cache of 1024, one inactive; decode-gqa2 with
+    2 KV heads, decode-window256 over the rolling slab of 256 rows) through
+    :func:`kernel_variants`: B5, B6 and B7 against their plain versions,
+    paged == slab and B5 layer by layer == B6 bit for bit, timed."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, S, C = S_CFG["num_layers"], 8, S_CFG["max_len"]
+    d, hq = S_CFG["model_dim"], S_CFG["num_heads"]
+    dh = d // hq
+    lengths = torch.randint(S_PROMPT, S_PROMPT + S_MAX_NEW + 1, (S,), device=dev, generator=g,
+                            dtype=torch.int32)
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    active[S - 1] = False
+    h = torch.randn(S, d, device=dev, generator=g)
+    for hkv in sorted({v[3] for v in S_VARIANTS}):
+        w = layer_weights(n, d, hq, hkv, dh, 4 * d, g, dev)
+        ck, cv = (torch.randn(n, S, C, hkv, dh, device=dev, generator=g).bfloat16()
+                  for _ in range(2))
+        for variant in S_VARIANTS:
+            if variant[3] == hkv:
+                kernel_variants(records, variant, w, ck, cv, lengths, active, h, hq=hq,
+                                window=variant[4])
+        del w, ck, cv
+
+
+def flash_d32(records):
+    """B3 at head_dim 32 at the serving shapes of causal B3 (S=8, L=1023, 8
+    heads, f32, kv_lens 513..1023): against its plain version, then timed
+    beside SDPA (a yardstick) and causal B3 at D=64 (``flash_fwd``: the same
+    (q, k) pairs, twice the products a pair). Recorded as
+    ``flash_fwd[d32]``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops.flash_attention import (
+        flash_attention_plain,
+        flash_attention_with_lse,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    S, L, H, Dh = 8, 1023, 8, 32
+    q, k, v = (torch.randn(S, L, H, Dh, device=dev, generator=g) for _ in range(3))
+    lens = torch.randint(513, L + 1, (S,), device=dev, generator=g, dtype=torch.int32)
+    kw = dict(causal=True, kv_lens=lens)
+    out, lse = flash_attention_with_lse(q, k, v, **kw)
+    ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+    check_error("flash_fwd", err, ref.abs().max().item())
+    pos = torch.arange(L, device=dev)
+    allowed = ((pos[None, :, None] >= pos[None, None, :])
+               & (pos[None, None, :] < lens[:, None, None]))
+    pairs = int(allowed.sum().item())
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel()) + 4 * S
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = allowed[:, None]
+    records["flash_fwd[d32]"] = r = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: flash_attention_with_lse(q, k, v, **kw)),
+        plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+        **split_tf32_bound(nbytes, 4 * Dh * H * pairs))
+    print(f"  flash_fwd[d32] (S={S}, L={L}, {H}x{Dh}, f32, {pairs} pairs): kernel "
+          f"{r['ms']:.4f} ms against D=64's {records['flash_fwd']['ms']:.4f} ms at the same "
+          f"pairs; SDPA {r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def c1_kernels(records):
+    """Phase 3, C1: the cooperative kernels over shapes past one launch or
+    past one score tile, each against its plain version at REL_TOL and
+    timed beside it and its bound: (a) B6 slab at gpt-m over 100 slots (two
+    launches, 64 + 36 slots), and 64 slots in groups of 24 against their
+    one launch bit for bit (h and the committed rows); (b) B7 at gpt-m with
+    2 KV heads, 16 slots x L=5 over a pool of extent 2048 (12 + 4 slots,
+    score tiles narrower than the extent), recorded as
+    ``verify_tokens_paged[c1-gqa2-2048]``; (c) B7 at L=9 (gpt-m, 8 slots:
+    7 + 1); (d) B6 at gpt-m with one KV head at lengths 6,000-8,000 over
+    8,192 (blocks), and at lengths 3,000-4,000 over 4,096 (one block) and
+    over 8,192 (blocks): the blocks' cost at the same lengths. The others
+    are kept under their kernel's record (``c1``)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    n, d, hq, dh, f = 8, 512, 8, 64, 2048
+    kw = dict(num_heads=hq, compute_dtype=torch.bfloat16)
+    out = {}
+
+    def held(label, base, call, plain, launches, nbytes, flops, plan, timed):
+        """call() and plain() each from fresh clones of their caches (inside
+        them), the kernel's launches counted; then ``timed`` = (kernel,
+        plain) timed, each over the caches in place (no clone in the
+        time)."""
+        before = _build.LAUNCHES[base]
+        got = call()
+        got_launches = _build.LAUNCHES[base] - before
+        ref = plain()
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        check_error(base, err, ref[0].abs().max().item())
+        if got_launches != launches:
+            raise AssertionError(f"{label}: {got_launches} launches, expected {launches}")
+        del got, ref
+        r = dict(max_abs_err=err, ms=cuda_ms(timed[0], 10), plain_ms=cuda_ms(timed[1], 3),
+                 library_ms=None, **bound(nbytes, flops, PEAK_BF16))
+        out[label] = r
+        print(f"  {label}: {launches} launches a call (score tile {plan.kb} keys, cs "
+              f"{plan.cs}), kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        return r
+
+    def clones(*ts):
+        return [None if t is None else t.clone() for t in ts]
+
+    def wbytes(w):
+        return sum(t.numel() * t.element_size() for t in w.values())
+
+    def mat_flops(w, rows):
+        return 2 * rows * sum(w[nm].numel() for nm in fd.PROJ_NAMES)
+
+    # (a) B6 over 100 slots; 64 slots grouped == one launch.
+    w = layer_weights(n, d, hq, hq, dh, f, g, dev)
+    s, c = 100, 1024
+    ck, cv = (torch.randn(n, s, c, hq, dh, device=dev, generator=g).bfloat16() for _ in range(2))
+    lengths = torch.randint(256, 769, (s,), device=dev, generator=g, dtype=torch.int32)
+    active = torch.ones(s, dtype=torch.bool, device=dev)
+    h = torch.randn(s, d, device=dev, generator=g)
+    pos = int(lengths.sum().item())
+    plan = fd.launch_plan("decode_token_slab", 64, 1, n, d, hq, hq, dh, f, c, 0, dev)
+
+    def b6(fn, s_=s, clone=True):
+        k, v = clones(ck[:, :s_], cv[:, :s_]) if clone else (ck, cv)
+        return (fn(h[:s_], w, k, v, lengths[:s_], active[:s_], **kw)[0], k, v)
+
+    held("decode_token_slab 100 slots", "decode_token_slab", lambda: b6(fd.decode_token_slab),
+         lambda: b6(fd.decode_token_slab_plain), 2,
+         wbytes(w) + n * 2 * kv_bytes(pos + s, hq, dh, "bf16") + 2 * s * d * 4,
+         mat_flops(w, s) + n * 4 * (pos + s) * hq * dh, plan,
+         (lambda: b6(fd.decode_token_slab, clone=False),
+          lambda: b6(fd.decode_token_slab_plain, clone=False)))
+    whole = b6(fd.decode_token_slab, 64)
+    fd.MAX_GROUP = 24
+    try:
+        grouped = b6(fd.decode_token_slab, 64)
+    finally:
+        fd.MAX_GROUP = None
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(whole, grouped)):
+        raise AssertionError("B6 over 64 slots in groups of 24 differs from its one launch")
+    print("  decode_token_slab: 64 slots in groups of 24 (24 + 24 + 16) == one launch bitwise "
+          "(h_out and the committed rows)")
+    del ck, cv, whole, grouped
+
+    # (b) B7 at gpt-m GQA-2, 16 slots x L=5 over 2048.
+    hkv, s, c, L = 2, C1_SLOTS, 2048, C1_DRAFT + 1
+    w = layer_weights(n, d, hq, hkv, dh, f, g, dev)
+    slab = [torch.randn(n, s, c, hkv, dh, device=dev, generator=g).bfloat16() for _ in range(2)]
+    mb = c // BLOCK
+    tables = torch.randperm(s * mb, device=dev, generator=g).reshape(s, mb).int()
+    pk, pv = (pool_from_slab(t, tables, s * mb) for t in slab)
+    del slab
+    plens = torch.randint(1500, c - L, (s,), device=dev, generator=g, dtype=torch.int32)
+    slens = torch.randint(1, L + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+    vact = torch.ones(s, dtype=torch.bool, device=dev)
+    hv = torch.randn(s, L, d, device=dev, generator=g)
+    plan = fd.launch_plan("verify_tokens_paged", 12, L, n, d, hq, hkv, dh, f, c, mb, dev,
+                          ref_rows=60)
+
+    def b7(fn, hv=hv, pk=pk, pv=pv, tables=tables, plens=plens, slens=slens, vact=vact,
+           clone=True):
+        k, v = clones(pk, pv) if clone else (pk, pv)
+        return (fn(hv, w, k, v, tables, plens, slens, vact, **kw), k, v)
+
+    vpos = int(plens.sum().item())
+    rows = int(slens.sum().item())
+    records["verify_tokens_paged[c1-gqa2-2048]"] = held(
+        "verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged",
+        lambda: b7(fd.verify_tokens_paged), lambda: b7(fd.verify_tokens_paged_plain), 2,
+        n * (wbytes(w) // n + 2 * kv_bytes(vpos + rows, hkv, dh, "bf16")) + 2 * s * L * d * 4
+        + 4 * tables.numel(), mat_flops(w, s * L) + n * 4 * (L * vpos + L * L * s) * hq * dh,
+        plan, (lambda: b7(fd.verify_tokens_paged, clone=False),
+               lambda: b7(fd.verify_tokens_paged_plain, clone=False)))
+    del pk, pv
+
+    # (c) B7 at L=9, gpt-m MHA, 8 slots (7 + 1).
+    s, c, L = 8, 1024, 9
+    w = layer_weights(n, d, hq, hq, dh, f, g, dev)
+    slab = [torch.randn(n, s, c, hq, dh, device=dev, generator=g).bfloat16() for _ in range(2)]
+    mb = c // BLOCK
+    t9 = torch.randperm(s * mb, device=dev, generator=g).reshape(s, mb).int()
+    p9k, p9v = (pool_from_slab(t, t9, s * mb) for t in slab)
+    del slab
+    pl9 = torch.randint(100, c - L, (s,), device=dev, generator=g, dtype=torch.int32)
+    sl9 = torch.randint(1, L + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+    a9 = torch.ones(s, dtype=torch.bool, device=dev)
+    h9 = torch.randn(s, L, d, device=dev, generator=g)
+    plan = fd.launch_plan("verify_tokens_paged", 7, L, n, d, hq, hq, dh, f, c, mb, dev,
+                          ref_rows=63)
+    vpos, rows = int(pl9.sum().item()), int(sl9.sum().item())
+    args9 = (h9, p9k, p9v, t9, pl9, sl9, a9)
+    held("verify_tokens_paged L=9", "verify_tokens_paged",
+         lambda: b7(fd.verify_tokens_paged, *args9),
+         lambda: b7(fd.verify_tokens_paged_plain, *args9), 2,
+         n * (wbytes(w) // n + 2 * kv_bytes(vpos + rows, hq, dh, "bf16")) + 2 * s * L * d * 4
+         + 4 * t9.numel(), mat_flops(w, s * L) + n * 4 * (L * vpos + L * L * s) * hq * dh, plan,
+         (lambda: b7(fd.verify_tokens_paged, *args9, clone=False),
+          lambda: b7(fd.verify_tokens_paged_plain, *args9, clone=False)))
+    del p9k, p9v
+
+    # (d) B6 with one KV head past ~4,944 positions, and blocks against one
+    # block at the same lengths.
+    w = layer_weights(n, d, hq, 1, dh, f, g, dev)
+    s = 8
+    for c, lo, hi in ((8192, 6000, 8001), (4096, 3000, 4001), (8192, 3000, 4001)):
+        ck, cv = (torch.randn(n, s, c, 1, dh, device=dev, generator=g).bfloat16()
+                  for _ in range(2))
+        lengths = torch.randint(lo, hi, (s,), device=dev, generator=g, dtype=torch.int32)
+        act = torch.ones(s, dtype=torch.bool, device=dev)
+        h = torch.randn(s, d, device=dev, generator=g)
+        pos = int(lengths.sum().item())
+        plan = fd.launch_plan("decode_token_slab", s, 1, n, d, hq, 1, dh, f, c, 0, dev)
+
+        def b6k(fn, ck=ck, cv=cv, lengths=lengths, act=act, h=h, clone=True):
+            k, v = clones(ck, cv) if clone else (ck, cv)
+            return (fn(h, w, k, v, lengths, act, **kw)[0], k, v)
+
+        held(f"decode_token_slab 8:1 lengths {lo}-{hi - 1} over {c}", "decode_token_slab",
+             lambda: b6k(fd.decode_token_slab), lambda: b6k(fd.decode_token_slab_plain), 1,
+             wbytes(w) + n * 2 * kv_bytes(pos + s, 1, dh, "bf16") + 2 * s * d * 4,
+             mat_flops(w, s) + n * 4 * (pos + s) * hq * dh, plan,
+             (lambda: b6k(fd.decode_token_slab, clone=False),
+              lambda: b6k(fd.decode_token_slab_plain, clone=False)))
+        del ck, cv
+    records["decode_token_slab"]["c1"] = {k: v for k, v in out.items()
+                                          if k.startswith("decode_token_slab")}
+    records["verify_tokens_paged"]["c1"] = {k: v for k, v in out.items()
+                                            if k.startswith("verify_tokens_paged")}
+    for rec in ("decode_token_slab", "verify_tokens_paged"):
+        for r in records[rec]["c1"].values():
+            records[rec]["max_abs_err"] = max(records[rec]["max_abs_err"], r["max_abs_err"])
 
 
 def wrong_suffix_mask(kind):
@@ -2124,7 +2459,8 @@ KV_SERVERS = (("slab", False, {}, "decode_token_slab"),
 DIVERGENCE_BUDGET = {"int8": 0.15, "fp8": 0.25}
 
 
-def phase_kv_serve(records, label, model, params, kv_dtypes, paged_traffic=True):
+def phase_kv_serve(records, label, model, params, kv_dtypes, paged_traffic=True,
+                   requests=None):
     """Serve ``model`` with each cache type of ``kv_dtypes`` through
     ``KV_SERVERS``: the slab server (phase 4's requests) and the paged
     servers (phase 10's: prefix cache, speculation, the per-layer engine).
@@ -2136,15 +2472,19 @@ def phase_kv_serve(records, label, model, params, kv_dtypes, paged_traffic=True)
     quantized caches' greedy divergence from the bf16 cache's streams
     beside the JAX package's budgets. ``paged_traffic=False`` gives the
     paged servers phase 4's requests too (no shared prefix: the prefix
-    cache and the drafts are read, not required). A windowed model's slab
+    cache and the drafts are read, not required); ``requests`` = (prompts,
+    configs) gives both the same traffic. A windowed flash model's slab
     server must launch the banded flash forward (its prefill)."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import _build
     from distributed_tensorflow_tpu_torch.serve import TextServer
 
-    reqs = {False: serve_requests(model.vocab_size, 0),
-            True: (paged_requests(model.vocab_size, 1) if paged_traffic
-                   else serve_requests(model.vocab_size, 0))}
+    if requests is not None:
+        reqs = {False: requests, True: requests}
+    else:
+        reqs = {False: serve_requests(model.vocab_size, 0),
+                True: (paged_requests(model.vocab_size, 1) if paged_traffic
+                       else serve_requests(model.vocab_size, 0))}
     streams = {}
     for kv in kv_dtypes:
         variant = f"{label}-{kv}"
@@ -2185,7 +2525,7 @@ def phase_kv_serve(records, label, model, params, kv_dtypes, paged_traffic=True)
             if launches.get(kernel, 0) < 1:
                 raise AssertionError(f"{variant} {name} never launched {kernel}")
             records[f"{kernel}[{variant}]"]["launches"] = launches[kernel]
-            if model.window is not None and not paged:
+            if model.window is not None and model.attention_impl == "flash" and not paged:
                 if launches.get("flash_fwd", 0) < 1:
                     raise AssertionError(f"{variant} {name}: the prefill never launched B3")
                 records["flash_fwd[window]"]["launches"] = launches["flash_fwd"]
@@ -2805,6 +3145,7 @@ def phase_bwd_kernels(records):
               f"CUDA cores)")
     bwd_window_kernels(records, g)
     dq_at_xl(records, g)
+    bwd_d32_kernels(records, g)
 
 
 def band_pairs(l, w):
@@ -2870,6 +3211,72 @@ def bwd_window_kernels(records, g):
             print(f"  {rec}: kernel {r['ms']:.4f} ms (causal {records[base]['ms']:.4f}), plain "
                   f"{plain_ms:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}, {r['bound_peak']})")
+        del q, k, v, do, o, lse, delta, qt, kt, vt, out
+
+
+def bwd_d32_kernels(records, g):
+    """The backward kernels at head_dim 32, at the training shapes of
+    phase 18 (f32, causal): B4a at gpt-s-L512-flash's (B=32, L=512, 8 heads
+    of 32) and B4b + B4c at gpt-s-L2048-flash-W512's (B=8, L=2048, W=512:
+    banded, the pair the auto rule takes), each against the plain backward
+    at REL_TOL, then timed beside the bound of the pairs the mask keeps, the
+    plain backward and, as a yardstick, SDPA's backward with the same mask.
+    Recorded under ``FLASH_D32``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    h, d = S_CFG["num_heads"], S_CFG["model_dim"] // S_CFG["num_heads"]
+    for (name, l, b, w), recs in zip(S_TRAIN, (("flash_bwd_fused[d32]",),
+                                               ("flash_bwd_dq[d32-window]",
+                                                "flash_bwd_dkv[d32-window]"))):
+        q, k, v, do, o, lse, delta, _ = bwd_inputs(b, l, h, h, d, torch.float32, False, False, g,
+                                                   dev, window=w)
+        kw = dict(causal=True, window=w)
+        pair = not fa.resolve_fused(None, b * h, l, d, w)
+        if pair != (len(recs) == 2):
+            raise AssertionError(f"{name}: the auto rule does not take the expected backward")
+        print(f"  {name} (B={b} L={l} H={h} D={d} f32, W={w}; the auto rule takes the "
+              f"{'pair' if pair else 'fused kernel'}):")
+        ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True, w)
+        calls = {"flash_bwd_fused": lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw),
+                 "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), None,
+                                          None),
+                 "flash_bwd_dkv": lambda: (None, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                   **kw))}
+        errs = {rec: check_bwd(f"{rec} vs plain", calls[FLASH_D32[rec][0]](), ref,
+                               REL_TOL[FLASH_D32[rec][0]]) for rec in recs}
+        del ref
+        plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True, w),
+                           2)
+        pos = torch.arange(l, device=dev)
+        mask = pos[:, None] >= pos[None, :]
+        if w is not None:
+            mask &= pos[:, None] - pos[None, :] < w
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        print(f"  library yardstick: SDPA backward with the mask (f32): {lib_ms:.4f} ms")
+        pairs = b * h * band_pairs(l, w or l)
+        io, rows = 4 * q.numel(), 4 * lse.numel()
+        for rec in recs:
+            base = FLASH_D32[rec][0]
+            fl = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[base]
+            nbytes = {"flash_bwd_fused": 7, "flash_bwd_dq": 5, "flash_bwd_dkv": 6}[base] * io
+            # SDPA's backward computes the fused kernel's function; no call
+            # computes dq or dk/dv alone.
+            records[rec] = r = dict(max_abs_err=errs[rec], ms=cuda_ms(calls[base], 10),
+                                    plain_ms=plain_ms,
+                                    library_ms=lib_ms if base == "flash_bwd_fused" else None,
+                                    **split_tf32_bound(nbytes + 2 * rows, 2 * d * pairs * fl))
+            print(f"  {rec}: kernel {r['ms']:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['bound_peak']})")
+        fwd_ms = cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, **kw), 10)
+        records["flash_fwd[d32]"].setdefault("train_ms", {})[name] = fwd_ms
+        print(f"  flash_fwd[d32] at these shapes: {fwd_ms:.4f} ms")
         del q, k, v, do, o, lse, delta, qt, kt, vt, out
 
 
@@ -3108,8 +3515,8 @@ def phase_train_xl(records):
 
 
 def phase_window_serve(records):
-    """Phase 15: gpt-m-L1024-W256 (``WIN_CFG``, bf16, seeded random
-    weights) served on phase 4's traffic through ``KV_SERVERS`` on bf16 and
+    """Phase 15: gpt-m-L1024-W256 (``WIN_CFG``: 4 of its 8 layers, bf16,
+    seeded random weights) served on phase 4's traffic through ``KV_SERVERS`` on bf16 and
     int8 caches, and its RoPE form on bf16, each stream held against
     ``decode_engine="xla"`` of the same model (``phase_kv_serve``); the
     slab's K/V bytes are its rolling buffer's, a quarter of the full
@@ -3208,6 +3615,161 @@ def phase_window_train(records):
             records["flash_bwd_fused[window-512]"]["launches"] = launches["flash_bwd_fused"]
 
 
+def s_requests(vocab, seed):
+    """The decode-* traffic: ``S_REQUESTS`` seeded prompts of ``S_PROMPT``
+    tokens, ``S_MAX_NEW`` greedy tokens each."""
+    from distributed_tensorflow_tpu_torch.serve import GenerationConfig
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, S_PROMPT).astype(np.int32) for _ in range(S_REQUESTS)]
+    return prompts, [GenerationConfig(max_new=S_MAX_NEW) for _ in prompts]
+
+
+def phase_s_serve(records):
+    """Phase 17: the decode-* models (``S_SERVE``: decode-full, on bf16 and
+    int8 caches; decode-window256, on both; decode-gqa2; decode-full with
+    RoPE; seeded random weights) on their traffic through ``KV_SERVERS``
+    (slab B6, slab B5, paged B6, paged + spec_draft=4 B7, paged B5), each
+    held against ``decode_engine="xla"`` (``phase_kv_serve``); then C1
+    end to end (:func:`phase_c1_serve`)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    for label, knobs, kv_dtypes in S_SERVE:
+        model = GPTLM(**S_CFG, **knobs, compute_dtype=torch.bfloat16)
+        print(f"  {label}: {knobs or 'decode-full'}, head_dim {model.head_dim}, cache_len "
+              f"{model.cache_len}")
+        phase_kv_serve(records, label, model, perturbed_params(model, 3, "cuda"), kv_dtypes,
+                       paged_traffic=False, requests=s_requests(model.vocab_size, 4))
+    phase_c1_serve(records)
+
+
+def phase_c1_serve(records):
+    """C1 end to end: ``TextServer(gpt-m with 2 KV heads, max_len 2048,
+    paged, spec_draft=4, slots=16)`` on 16 requests of 1,000-1,900 tokens
+    (half of them repeated 8-token patterns, so the drafter proposes) must
+    launch B7 in two groups a tick (80 rows), accept drafts and match
+    ``decode_engine="xla"`` under ``compare_streams``' rule; then a server
+    of an f32 model with the default engine must be refused at
+    construction."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.serve import GenerationConfig, TextServer
+
+    model = GPTLM(**C1_CFG, compute_dtype=torch.bfloat16)
+    params = perturbed_params(model, 13, "cuda")
+    rng = np.random.default_rng(14)
+    prompts = []
+    for i in range(C1_SLOTS):
+        n = int(rng.integers(1000, 1901))
+        if i % 2:
+            prompts.append(np.tile(rng.integers(0, model.vocab_size, 8), n // 8 + 1)[:n])
+        else:
+            prompts.append(rng.integers(0, model.vocab_size, n))
+    prompts = [p.astype(np.int32) for p in prompts]
+    configs = [GenerationConfig(max_new=64) for _ in prompts]
+
+    def make(**kw):
+        return functools.partial(TextServer, model, params, slots=C1_SLOTS, chunk=32,
+                                 paged=True, block_size=BLOCK, spec_draft=C1_DRAFT, **kw)
+
+    ref_make = make(decode_engine="xla")
+    ref_srv = ref_make()
+    ref = ref_srv.generate(prompts, configs)
+    srv = make()()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs = srv.generate(prompts, configs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    tm, cnt = srv.timing, srv.counters
+    ntok = sum(len(o) for o in outs)
+    print(f"  C1 server (gpt-m 8:2 heads, max_len 2048, paged, spec_draft={C1_DRAFT}, "
+          f"{C1_SLOTS} slots, prompts {min(map(len, prompts))}-{max(map(len, prompts))}): "
+          f"launches {launches}; {ntok} tokens in {wall:.3f} s: {ntok / wall:.1f} tokens/s; "
+          f"{tm['verify_ticks']} verify ticks, "
+          f"{1e3 * tm['verify_s'] / max(1, tm['verify_ticks']):.3f} ms a tick, "
+          f"{cnt['spec_tokens_accepted']} drafts accepted")
+    if launches.get("verify_tokens_paged", 0) < 2 or cnt["spec_tokens_accepted"] < 1:
+        raise AssertionError("the C1 server did not verify in groups or accepted no draft")
+    records["verify_tokens_paged[c1-gqa2-2048]"]["launches"] = launches["verify_tokens_paged"]
+    compare_streams("C1 server vs xla", model, srv.params, prompts, configs, outs, ref,
+                    (srv, ref_srv), (make(), ref_make))
+    f32 = GPTLM(**S_CFG, compute_dtype=torch.float32)
+    try:
+        TextServer(f32, f32.init(seed=1, device="cuda"), slots=8)
+    except ValueError as e:
+        print(f"  an f32 model's server with the default engine is refused at construction: "
+              f"{e}")
+    else:
+        raise AssertionError("a server of an f32 model with the default engine was made")
+
+
+def phase_s_train(records):
+    """Phase 18: gpt-s-L512-flash and gpt-s-L2048-flash-W512 (``S_TRAIN``;
+    bf16, Adam 1e-3) trained through ``LMTrainer.run()`` for one epoch of
+    ``S_TRAIN_STEPS`` steps on 12(a)'s corpus recipe at their lengths (cut:
+    the steps): the launches must be B3 and B4a for the first, B3, B4b and
+    B4c for the second (banded: 4 W <= L), the cost must fall below the
+    loss at the initial parameters less one nat; ms a step and tokens/s
+    printed."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    fwd = 0
+    for name, l, batch, w in S_TRAIN:
+        corpus = {**TRAIN_CORPUS, "seq_len": l, "num": batch * S_TRAIN_STEPS + 64,
+                  "n_val": 32, "n_test": 32}
+        ds = markov_corpus(**corpus)
+        model = GPTLM(**{**S_CFG, "max_len": l}, window=w, attention_impl="flash",
+                      flash_min_len=0, compute_dtype=torch.bfloat16)
+        lines = []
+        tr = LMTrainer(model, ds, TrainConfig(epochs=1, batch_size=batch, optimizer="adam",
+                                              learning_rate=1e-3, log_frequency=16),
+                       eval_batch=TRAIN_EVAL_BATCH, print_fn=lines.append)
+        with torch.no_grad():
+            loss0 = float(model.loss(tr.state.params,
+                                     torch.from_numpy(ds.train.tokens[:batch]).cuda()))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        n, steps = model.num_layers, tr.global_step
+        evals = -(-ds.validation.num_examples // TRAIN_EVAL_BATCH)
+        want = {"flash_fwd": n * (steps + evals)}
+        if w is None:
+            want["flash_bwd_fused"] = n * steps
+            records["flash_bwd_fused[d32]"]["launches"] = n * steps
+        else:
+            want.update(flash_bwd_dq=n * steps, flash_bwd_dkv=n * steps)
+            for rec in ("flash_bwd_dq[d32-window]", "flash_bwd_dkv[d32-window]"):
+                records[rec]["launches"] = n * steps
+        fwd += want["flash_fwd"]
+        print(f"  {name}: launches {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: expected launches {want}, got {launches}")
+        costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in lines
+                 if ln.startswith("Step:")]
+        ms = [float(ln.split("AvgTime:")[1].rstrip("ms")) for ln in lines if ln.startswith("Step:")]
+        print(f"  {name}: {steps} steps of {batch} x {l}: the loss at the initial parameters "
+              f"{loss0:.4f}, then cost {', '.join(f'{c:.4f}' for c in costs)}; final "
+              f"{res['final_cost']:.4f}; {ms[-1]:.2f} ms a step (the last 16-step window), "
+              f"{batch * l / ms[-1] * 1e3:.1f} tokens/s; run {wall:.2f} s")
+        if not np.isfinite([*costs, res["final_cost"]]).all():
+            raise AssertionError(f"{name}: a cost is not finite: {costs}")
+        if not res["final_cost"] < loss0 - 1.0:
+            raise AssertionError(f"{name}: the cost did not fall: {loss0} then {costs}")
+    records["flash_fwd[d32]"]["launches"] = fwd
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -3281,10 +3843,11 @@ def kernel_times(label, smi):
     single batches of it varied by 25%) on seeded inputs:
     the decode kernels at S=8
     slots, cache lengths 256-768 in a cache of 1024 (paged: blocks of 16
-    under scrambled tables), B7 at L=5, and (trees that take a window)
-    B6 over the rolling slab of ``WINDOW`` rows, B6 paged and B7 with the
-    window; B4b (and at gpt-m B4c, B4a) at B=16, L=1024, f32, causal; B3 at
-    S=8, L=1023 (causal, and banded where the tree takes a window)."""
+    under scrambled tables), B7 at L=5, and B6 over the rolling slab of
+    ``WINDOW`` rows, B6 paged and B7 with the window; B4b (and at gpt-m B4c,
+    B4a) at B=16, L=1024, f32, causal; B3 at S=8, L=1023 (causal, and
+    banded). Every tree an A/B compares (from the one that added the window
+    on) takes RoPE, 1-byte caches and the window."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
@@ -3332,27 +3895,21 @@ def kernel_times(label, smi):
             ms[f"verify_tokens_paged {name} {nl} layers L=5"] = ab_ms(
                 lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
                                                **kw))
-            # The variants need quantized caches (``k_scale``): an A/B's
-            # parent tree that predates them times the bf16 kernels alone.
-            # The probe goes once every tree an A/B compares takes them.
-            if "k_scale" in inspect.signature(fd.decode_token_slab).parameters:
-                variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv,
-                              plens, slens, hq)
-            # The window variants (B6 over the rolling slab, B6 paged, B7)
-            # where the tree takes them.
-            if "window" in inspect.signature(fd.decode_token_slab).parameters:
-                from distributed_tensorflow_tpu_torch.models.gpt import rolling_layout
+            variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv, plens,
+                          slens, hq)
+            # The window variants: B6 over the rolling slab, B6 paged, B7.
+            from distributed_tensorflow_tpu_torch.models.gpt import rolling_layout
 
-                wkw = dict(kw, window=WINDOW)
-                rk, rv = (rolling_layout(t, lengths, WINDOW) for t in (ck, cv))
-                ms[f"decode_token_slab[window] {name} {nl} layers"] = ab_ms(
-                    lambda: fd.decode_token_slab(h, w, rk, rv, lengths, active, **wkw))
-                ms[f"decode_token_paged[window] {name} {nl} layers"] = ab_ms(
-                    lambda: fd.decode_token_paged(h, w, pk, pv, tables, lengths, active, **wkw))
-                ms[f"verify_tokens_paged[window] {name} {nl} layers L=5"] = ab_ms(
-                    lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
-                                                   **wkw))
-                del rk, rv
+            wkw = dict(kw, window=WINDOW)
+            rk, rv = (rolling_layout(t, lengths, WINDOW) for t in (ck, cv))
+            ms[f"decode_token_slab[window] {name} {nl} layers"] = ab_ms(
+                lambda: fd.decode_token_slab(h, w, rk, rv, lengths, active, **wkw))
+            ms[f"decode_token_paged[window] {name} {nl} layers"] = ab_ms(
+                lambda: fd.decode_token_paged(h, w, pk, pv, tables, lengths, active, **wkw))
+            ms[f"verify_tokens_paged[window] {name} {nl} layers L=5"] = ab_ms(
+                lambda: fd.verify_tokens_paged(hv, w, pk, pv, tables, plens, slens, active,
+                                               **wkw))
+            del rk, rv
         del w, w0, ck, cv, pk, pv
     for name, hq, dh in (("gpt-m B=16 L=1024 8x64", 8, 64),
                          ("gpt-xl B=16 L=1024 16x128", 16, 128)):
@@ -3371,10 +3928,8 @@ def kernel_times(label, smi):
     lens = torch.randint(513, 1024, (8,), device=dev, generator=g, dtype=torch.int32)
     ms["flash_fwd S=8 L=1023 8x64"] = cuda_ms(
         lambda: fa.flash_attention_with_lse(q, k, v, causal=True, kv_lens=lens))
-    if "window" in inspect.signature(fa.flash_bwd_dq).parameters:
-        ms[f"flash_fwd[window] S=8 L=1023 8x64 W={WINDOW}"] = cuda_ms(
-            lambda: fa.flash_attention_with_lse(q, k, v, causal=True, window=WINDOW,
-                                                kv_lens=lens))
+    ms[f"flash_fwd[window] S=8 L=1023 8x64 W={WINDOW}"] = cuda_ms(
+        lambda: fa.flash_attention_with_lse(q, k, v, causal=True, window=WINDOW, kv_lens=lens))
     print(json.dumps({"label": label, "card": smi, "ms": ms}))
     return 0
 
@@ -3413,63 +3968,77 @@ def main() -> int:
         return kernel_times(args.label or os.path.abspath(args.root or "."), smi)
 
     t0 = time.perf_counter()
-    print("phase 2: build")
+
+    def phase(title):  # the phase's header, with the run's time so far
+        print(f"phase {title} (at {time.perf_counter() - t0:.1f} s)")
+
+    phase("2: build")
     phase_build()
 
     records: dict[str, dict] = {}
-    print("phase 3: kernels vs plain versions")
+    phase("3: kernels vs plain versions")
     phase_kernels(records)
-    print("phase 4: serve gpt-m-L1024-flash")
+    phase("4: serve gpt-m-L1024-flash")
     model, params, prompts, configs, outs = phase_serve(records)
-    print("phase 5: per-layer kernel path")
+    phase("5: per-layer kernel path")
     phase_fused_layer(records, model, params, prompts, configs, outs)
-    print("phase 5(b): the per-layer kernel path at gpt-xl width")
+    phase("5(b): the per-layer kernel path at gpt-xl width")
     phase_fused_layer_xl(prompts)
-    print("phase 6: small-input reference")
+    phase("6: small-input reference")
     phase_small_reference()
-    print("phase 7: MLP kernels vs plain versions")
+    phase("7: MLP kernels vs plain versions")
     from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
 
     ds = read_data_sets("MNIST_data", one_hot=True)  # synthetic without IDX files
     phase_mlp_kernels(records, ds)
-    print(f"phase 8: train the MNIST MLP, {MLP_EPOCHS} epochs")
+    phase(f"8: train the MNIST MLP, {MLP_EPOCHS} epochs")
     phase_mlp_train(records, ds)
-    print("phase 9: bench")
+    phase("9: bench")
     phase_mlp_bench(records, ds)
-    print("phase 10: serve gpt-m-L1024 on the paged pool")
+    phase("10: serve gpt-m-L1024 on the paged pool")
     phase_paged_serve(records, model, params)
     del model, params
-    print("phase 11: flash-attention backward kernels vs plain versions")
+    phase("11: flash-attention backward kernels vs plain versions")
     phase_bwd_kernels(records)
-    print("phase 12: train gpt-m-L1024-flash through LMTrainer")
+    phase("12: train gpt-m-L1024-flash through LMTrainer")
     print(f"  matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}")
     phase_train(records)
-    print("phase 12(b): the copy task through the backward kernels")
+    phase("12(b): the copy task through the backward kernels")
     phase_copy_task(records)
-    print("phase 12(c): train gpt-xl-L1024-flash-remat through LMTrainer (the split backward)")
+    phase("12(c): train gpt-xl-L1024-flash-remat through LMTrainer (the split backward)")
     phase_train_xl(records)
-    print("phase 13: serve gpt-m-L1024 with RoPE, and with int8/fp8 KV caches")
+    phase(f"13: serve gpt-m-L1024 ({SERVED_LAYERS} layers) with RoPE, and with int8/fp8 KV "
+          "caches")
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 
-    rope = GPTLM(**SERVE_CFG, pos_embedding="rope", compute_dtype=torch.bfloat16)
+    cut = dict(SERVE_CFG, num_layers=SERVED_LAYERS)
+    rope = GPTLM(**cut, pos_embedding="rope", compute_dtype=torch.bfloat16)
     phase_kv_serve(records, "rope", rope, perturbed_params(rope, 11, "cuda"),
                    ("bf16", "int8", "fp8"))
-    learned = GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16)
+    learned = GPTLM(**cut, compute_dtype=torch.bfloat16)
     phase_kv_serve(records, "learned", learned, perturbed_params(learned, 0, "cuda"), ("int8",))
     del rope, learned
-    print("phase 14: the single-sequence decode API (greedy_decode), and an f32 model")
+    phase("14: the single-sequence decode API (greedy_decode), and an f32 model")
     phase_single_sequence(records)
-    print(f"phase 15: serve gpt-m-L1024-W{WINDOW} (the sliding window)")
+    phase(f"15: serve gpt-m-L1024-W{WINDOW} ({SERVED_LAYERS} layers; the sliding window)")
     phase_window_serve(records)
-    print(f"phase 16: train gpt-m-L1024-W{WINDOW} through LMTrainer (the banded backward)")
+    phase(f"16: train gpt-m-L1024-W{WINDOW} through LMTrainer (the banded backward)")
     phase_window_train(records)
+    phase("17: serve the decode-* models (head_dim 32), and C1 end to end")
+    phase_s_serve(records)
+    phase("18: train gpt-s-L512-flash and gpt-s-L2048-flash-W512 through LMTrainer")
+    phase_s_train(records)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     variants = [(f"{k}[{label}]", k, f"{PATHS.get(k, 'main')} {label}")
                 for label, _, _ in VARIANTS + WINDOW_VARIANTS for k in DECODE_KERNELS]
     variants += [(name, base, path) for name, (base, _, path) in FLASH_WINDOWS.items()]
+    variants += [(f"{k}[{v[0]}]", k, f"{PATHS.get(k, 'main')} {v[0]}")
+                 for v in S_VARIANTS for k in DECODE_KERNELS]
+    variants += [(name, base, path) for name, (base, path) in FLASH_D32.items()]
+    variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

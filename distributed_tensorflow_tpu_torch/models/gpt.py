@@ -80,6 +80,7 @@ from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     decode_token_slab,
     decode_token_slab_plain,
     dot,
+    slot_group,
     verify_tokens_paged,
 )
 from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatten
@@ -509,6 +510,37 @@ class GPTLM:
         if e not in DECODE_ENGINES:
             raise ValueError(f"unknown decode engine {e!r}; one of {DECODE_ENGINES}")
         return "fused" if e == "auto" else e
+
+    def _decode_unsupported_reason(self, *, slots: int, rows: int = 1,
+                                   block_size: int | None = None, nsm: int,
+                                   smem_limit: int) -> str | None:
+        """Why the CUDA decode kernels cannot serve this model, or None when
+        they can: the port's counterpart of the JAX
+        ``_decode_unsupported_reason`` (``models/gpt.py:1129``), with the
+        port's envelope. ``slots`` slots of ``rows`` rows each (1 for the
+        decode step, ``spec_draft + 1`` for the verify) over the slab's
+        ``cache_len`` positions, or (``block_size``) the pool's
+        ``paged_blocks_per_slot(block_size) · block_size``, on a card of
+        ``nsm`` SMs with ``smem_limit`` bytes of shared memory a block.
+        Checks bf16 compute, then the slot planner's answer
+        (``ops/fused_decode.slot_group``: the head dims the kernels take,
+        the rows a launch takes at these widths, shared memory). Pure Python, so a
+        test pins it on the CPU with the H100's figures."""
+        if self.compute_dtype != torch.bfloat16:
+            return (f"the CUDA decode kernels compute in bf16, not {self.compute_dtype} (f32 "
+                    "compute in decode: ROADMAP A3.3); decode_engine=\"xla\" decodes it on "
+                    "the plain path")
+        if block_size is None:
+            mb, c = 0, self.cache_len
+        else:
+            mb = self.paged_blocks_per_slot(block_size)
+            c = mb * block_size
+        try:
+            slot_group(slots, rows, self.model_dim, self.num_heads, self.num_kv_heads,
+                       self.head_dim, 4 * self.model_dim, c, mb, nsm, smem_limit)
+        except ValueError as e:
+            return str(e)
+        return None
 
     def decode_slots(self, params, token, cache: SlotKVCache, active=None, *,
                      engine: str | None = None):

@@ -18,7 +18,7 @@
 // TPU kernels' astype), products and sums are f32, exp is the
 // full-precision expf. Under GQA a KV head's dk and dv sum over the query
 // heads of its group. Layout [B, L, H, D] with
-// lse and delta [B, L, Hq] f32; head dim D in {64, 128}; any L (the ragged
+// lse and delta [B, L, Hq] f32; head dim D in {32, 64, 128}; any L (the ragged
 // last tile is masked); outputs in the input dtype (f32 or bf16).
 //
 // The sliding window (window = W > 0) visits only the band's tiles, as the
@@ -131,17 +131,36 @@ __device__ __forceinline__ void dkv_product(float (&acc)[NN][4], const float (&p
   }
 }
 
+// A dO buffer's row stride: D's, or at D=32 the ds tile's (BK keys a row),
+// which takes the current dO buffer once dV is done.
+template <typename T, int D>
+__host__ __device__ constexpr int do_stride() {
+  return stride<T, D>() > stride<T, BK>() ? stride<T, D>() : stride<T, BK>();
+}
+
 // Shared memory of kv_kernel: K, V and two buffers each of Q and dO (the
 // current dO buffer takes the dq product's ds once dV is done), then two
-// each of the q-tile's lse and delta. 70 KB at D=64 in f32: three CTAs a SM.
+// each of the q-tile's lse and delta. 70 KB at D=64 in f32: three CTAs a SM;
+// 45 KB at D=32 (its dO buffers sized for ds: 64 keys a row).
 template <typename T, int D>
 constexpr size_t kv_smem_bytes() {
-  return sizeof(T) * (size_t)(2 * BK + 4 * KV_BQ) * stride<T, D>() + sizeof(float) * 4 * KV_BQ;
+  return sizeof(T) * (size_t)(2 * BK * stride<T, D>() + 2 * KV_BQ * stride<T, D>() +
+                              2 * KV_BQ * do_stride<T, D>()) +
+         sizeof(float) * 4 * KV_BQ;
+}
+
+// CTAs a SM that kv_kernel is built for (its register budget): D=32 and
+// D=64 three (at most 168 registers a thread; D=32 holds half of D=64's
+// accumulators, so it keeps D=64's budget and cannot spill where D=64 does
+// not), D=128 one.
+template <int D>
+__host__ __device__ constexpr int kv_ctas() {
+  return D == 128 ? 1 : 3;
 }
 
 // WIN: built with the window's tests (window > 0); the other build has none.
 template <typename T, int D, bool FUSED, bool WIN>
-__global__ void __launch_bounds__(KV_NT, D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(KV_NT, kv_ctas<D>())
 kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, const int* __restrict__ kv_lens,
@@ -152,14 +171,14 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BQ / 8;  // query column tiles of S^T and dP^T
   constexpr int NN = D / 8;   // dim column tiles of dK, dV, dQ
-  constexpr int SD = stride<T, D>(), SK = stride<T, BK>();
-  static_assert(BQ * SK <= BQ * SD, "ds must fit in a dO buffer");
+  constexpr int SD = stride<T, D>(), SK = stride<T, BK>(), SO = do_stride<T, D>();
+  static_assert(SK <= SO && SD <= SO, "ds and dO must fit in a dO buffer");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);  // [BK][SD]
   T* Vs = Ks + BK * SD;                    // [BK][SD]
   T* Qs = Vs + BK * SD;                    // [2][BQ][SD]
-  T* dOs = Qs + 2 * BQ * SD;               // [2][BQ][SD]; ds [BQ][SK] after dV
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * SD);  // [2][BQ]
+  T* dOs = Qs + 2 * BQ * SD;               // [2] buffers of BQ x SO: dO [BQ][SD], ds [BQ][SK]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * SO);  // [2][BQ]
   float* Dl = Ls + 2 * BQ;                                  // [2][BQ]
 
   const int warp = threadIdx.x >> 5;
@@ -187,7 +206,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     auto load_q_tile = [&](int it) {
       const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
       load_rows_async<T, D, BQ, KV_NT>(Qs + buf * BQ * SD, q, b, q0, h, L, Hq);
-      load_rows_async<T, D, BQ, KV_NT>(dOs + buf * BQ * SD, dout, b, q0, h, L, Hq);
+      load_rows_async<T, D, BQ, KV_NT>(dOs + buf * BQ * SO, dout, b, q0, h, L, Hq);
       load_vec_async<BQ, KV_NT>(Ls + buf * BQ, lse, b, q0, h, L, Hq);
       load_vec_async<BQ, KV_NT>(Dl + buf * BQ, delta, b, q0, h, L, Hq);
     };
@@ -206,7 +225,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       cp_async_commit();
       const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
       const T* Qt = Qs + buf * BQ * SD;
-      T* dOt = dOs + buf * BQ * SD;
+      T* dOt = dOs + buf * BQ * SO;
       const float* Lt = Ls + buf * BQ;
       const float* Dt = Dl + buf * BQ;
       const bool live = keys_live && !(causal && q0 + BQ - 1 < k0 + wk) &&
@@ -288,15 +307,17 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       if (live) dkv_product<T, SD, SPLIT, NJ, NN>(adk, ds, Qt, ln);
       if (FUSED) {
         // dQ partial of the q-tile = dS K: BQ/16 row blocks of 16 queries,
-        // each over NW / (BQ/16) warps that split the dim tiles.
+        // each over NW / (BQ/16) warps that split the dim tiles, NCQ of them
+        // a pass (D=32: a warp's 2 tiles in one pass).
         constexpr int RB = BQ / 16, WPR = KV_NW / RB, NPW = NN / WPR;
+        constexpr int NCQ = NPW < NC ? NPW : NC;
         const int qr = 16 * (warp % RB), n0 = (warp / RB) * NPW;
         __syncthreads();  // ds is complete
         if (q0 + qr < L) {
           const T* pa = dOt + (qr + ln.g) * SK + 2 * ln.t;
 #pragma unroll
-          for (int c0 = 0; c0 < NPW; c0 += NC) {
-            float t[NC][4];
+          for (int c0 = 0; c0 < NPW; c0 += NCQ) {
+            float t[NCQ][4];
             zero(t);
 #pragma unroll 2
             for (int kk = 0; kk < BK / 8; ++kk) {
@@ -305,7 +326,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
               a.set(to_f(pa[8 * kk]), to_f(pa[8 * SK + 8 * kk]), to_f(pa[8 * kk + 1]),
                     to_f(pa[8 * SK + 8 * kk + 1]));
 #pragma unroll
-              for (int n = 0; n < NC; ++n) {
+              for (int n = 0; n < NCQ; ++n) {
                 float b0, b1;
                 load_b_cols<SD>(b0, b1, Ks, 8 * kk, 8 * (n0 + c0 + n), ln);
                 mma_b<SPLIT>(t[n], t[n], a, b0, b1);
@@ -317,7 +338,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
               if (qp >= L) continue;
               float* dst = dqp + (((size_t)(ik * B + b) * L + qp) * Hq + h) * D;
 #pragma unroll
-              for (int n = 0; n < NC; ++n)
+              for (int n = 0; n < NCQ; ++n)
                 store2(dst + 8 * (n0 + c0 + n) + 2 * ln.t, t[n][2 * hh], t[n][2 * hh + 1]);
             }
           }
@@ -379,10 +400,11 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
 // q_kernel: dq alone, on the tensor cores.
 // ---------------------------------------------------------------------------
 
-// Tiles of q_kernel: query rows a CTA (16 a warp) and keys a K/V tile.
+// Tiles of q_kernel: query rows a CTA (16 a warp) and keys a K/V tile. D=32
+// takes D=64's 64 rows (4 warps; 37 KB of shared memory in f32).
 template <int D>
 struct QTiles {
-  static constexpr int BQ = D == 64 ? 64 : 128;
+  static constexpr int BQ = D <= 64 ? 64 : 128;
   static constexpr int BK = 32;
   static constexpr int NW = BQ / 16;
   static constexpr int NT = NW * 32;
@@ -628,6 +650,8 @@ extern "C" int flash_bwd(int mode, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 #define BWD_ARGS \
   mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, scale, st
+  if (D == 32)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(BWD_ARGS) : launch<float, 32>(BWD_ARGS));
   if (D == 64)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(BWD_ARGS) : launch<float, 64>(BWD_ARGS));
   if (D == 128)

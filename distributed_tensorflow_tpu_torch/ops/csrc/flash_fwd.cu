@@ -6,7 +6,7 @@
 // [L, L] score matrix never reaches device memory. Features: causal mask,
 // the sliding window (window = W > 0: row i keeps key j iff i - W < j <= i),
 // per-batch right-padding kv_lens, grouped-query attention (query head h
-// reads KV head h / (Hq / Hkv)), head dim D in {64, 128}, any sequence
+// reads KV head h / (Hq / Hkv)), head dim D in {32, 64, 128}, any sequence
 // length (the ragged last tile is masked), f32 or bf16 inputs.
 //
 // Bound. At the training path's shapes (B=16, L=1024, 8 heads of 64,
@@ -41,6 +41,12 @@
 // bf16 inputs p is rounded to bf16 before P V, as the TPU kernel's astype.
 // exp is the full-precision expf (not the __expf intrinsic, whose error
 // grows with |x|).
+// Head dim 32 (gpt-s, the decode-* models of tools/lm_bench.py): the same
+// tiles, a row of 36 floats or 40 bf16 (4 banks on, or 20 words: the row-
+// and column-gathers stay free of bank conflicts), 4 k-steps of QK^T and one
+// pass of P V over O's 4 dim tiles; half of D=64's shared memory (55 KB in
+// f32), so more CTAs a SM carry the softmax's CUDA-core work, which weighs
+// twice as much a key as at D=64.
 
 #include <type_traits>
 
@@ -244,6 +250,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
   if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
 #define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, st
+  if (D == 32)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(FWD_ARGS) : launch<float, 32>(FWD_ARGS));
   if (D == 64)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 64>(FWD_ARGS) : launch<float, 64>(FWD_ARGS));
   if (D == 128)

@@ -76,10 +76,12 @@
 //   (a) every CTA with a q/k/v column tile layernorms all S*R rows into its
 //       shared memory (from L2), then computes its tiles;
 //   (b) one task per (slot, KV head): the head group's g x R query rows over
-//       the whole cache row with the exact softmax; it rounds and commits the
-//       fresh K/V rows of its head (attention reads only positions < length,
-//       the commits land at >= length, so no commit races a read), or, for
-//       B5, writes them to k_fresh / v_fresh;
+//       the cache row with the exact softmax, through a score tile of the
+//       plan's kb keys (the whole row where it fits, else the row in blocks,
+//       read twice: attend()); it rounds and commits the fresh K/V rows of
+//       its head (attention reads only positions < length, the commits land
+//       at >= length, so no commit races a read), or, for B5, writes them to
+//       k_fresh / v_fresh;
 //   (c) output projection, the owner of a column tile adding the residual;
 //   (d) LN2 of all rows, up projection, bias, GELU, rounded to bf16;
 //   (e) down projection, bias and residual.
@@ -112,6 +114,10 @@
 // subtiles (chunk_mma), so it carries no per-subtile test or swizzle
 // arithmetic: with 40 rows (the verify) each warp runs three times the
 // k-steps, and that overhead had cost B7 9%.
+// A step over more slots than one launch takes (ops/fused_decode.py
+// slot_group: rows, and the busiest CTA's tiles x m-tiles) runs as launches
+// over groups of slots, one after another; every group's k-groups are the
+// first group's (the plan's cs), so each row's sums keep their order.
 // Attention: each thread streams its own 8 dims of every K (then V) row
 // through a ring of RING 16-byte cp.async slots in shared memory (RING - 1
 // chunks in flight and no registers spent on them): 16 bytes of bf16, or 8
@@ -298,9 +304,13 @@ constexpr int MAX_GRID = 1024;  // most CTAs (the grid barrier's flags)
 // scratch overlays them); the product partial sums at red, the region's
 // end (over the slots' tail where they do not fit beside them); the
 // mbarriers: one an x slot, a full and an empty one a weight slot, one for
-// the layernorm's parameters.
+// the layernorm's parameters. kb: the attention's score tiles, in keys (the
+// cache extent C where one block holds every key, else narrower: the cache
+// streams in blocks of kb keys). cs: the m-tile lanes of the warps (1, 2 or
+// 4; CW / cs k-groups), from the rows of the whole step, so a launch over a
+// group of its slots sums in the same order.
 struct Plan {
-  int grid, kc, wslot, nw, kw[4], tw[4], ln, x0, xs, nslot, red, bar, smem;
+  int grid, kc, wslot, nw, kw[4], tw[4], ln, x0, xs, nslot, red, bar, smem, kb, cs;
 };
 
 struct Coop {
@@ -738,9 +748,10 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MAXT][4], const bf16* xs,
 // before x and the sums are waited on. x sits in slot 0 (src null), or comes
 // from src (row stride ld) in chunks of kc columns through the slots, the
 // first ones already staged; W comes chunk by chunk from the weight stream.
-// Warp w takes m-tile w % cs and the k-steps of k-group w / cs, counted from
-// the x chunk's start; the partial sums meet in `red` and are added in
-// k-group order.
+// Warp w takes m-tile w % cs (cs = the plan's, at least the m-tiles: warps
+// past them idle) and the k-steps of k-group w / cs, counted from the x
+// chunk's start; the partial sums meet in `red` and are added in k-group
+// order.
 template <class Pre, class Epi>
 __device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, Ring& x,
                         const bf16* src, int ld, Pre pre, Epi epi) {
@@ -753,7 +764,7 @@ __device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, 
     return ((int)blockIdx.x + (s >> lp) * a.p.grid) * tw + (s & swz) * TILE;
   };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mt = (rows + 15) / 16, cs = mt > 2 ? 4 : mt, kg = CW / cs;
+  const int mt = (rows + 15) / 16, cs = a.p.cs, kg = CW / cs;
   const int ms = warp % cs, kgr = warp / cs;
   // Rows past the last repeat it (their sums are dropped).
   const int arow = min(ms * 16 + (lane & 15), rows - 1), acol = (lane >> 4) * 8;
@@ -952,22 +963,23 @@ __device__ void layernorm_rows(const float* h, const float* sc, const float* bi,
 }
 
 // Floats of one attention task's scratch before its table row (host and
-// device): q [gR][Dh], fresh k and v [R][Dh], scores [gR][C + R], the
-// softmax's per-warp partial maxima and sums [2][CW][gR], the P·V
-// partial sums [CW][GMAX][Dh].
-__host__ __device__ inline size_t attend_floats(const Dims& D, int R) {
+// device): q [gR][Dh], fresh k and v [R][Dh], a score tile [gR][KB + R],
+// the softmax's per-warp partial maxima and sums [2][CW][gR], the P·V
+// partial sums [CW][GMAX][Dh]; with KB < C (the cache in blocks) the
+// running maxima and sums [2][gR] and the P·V sums [gR][Dh] of the blocks.
+__host__ __device__ inline size_t attend_floats(const Dims& D, int R, int KB) {
   const size_t gR = (size_t)(D.Hq / D.Hkv) * R;
-  return gR * D.Dh + 2 * (size_t)R * D.Dh + gR * (D.C + R) + 2 * (size_t)CW * gR +
-         (size_t)CW * GMAX * D.Dh;
+  return gR * D.Dh + 2 * (size_t)R * D.Dh + gR * (KB + R) + 2 * (size_t)CW * gR +
+         (size_t)CW * GMAX * D.Dh + (KB < D.C ? 2 * gR + gR * D.Dh : 0);
 }
 
 // Bytes of an attention task's scratch: the floats, the table row, then the
 // K/V ring (RING slots of CT x 16 bytes, 16-byte aligned).
-__host__ __device__ inline size_t attend_ring_offset(const Dims& D, int R) {
-  return (attend_floats(D, R) * 4 + (size_t)D.MB * 4 + 15) / 16 * 16;
+__host__ __device__ inline size_t attend_ring_offset(const Dims& D, int R, int KB) {
+  return (attend_floats(D, R, KB) * 4 + (size_t)D.MB * 4 + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t attend_bytes(const Dims& D, int R) {
-  return attend_ring_offset(D, R) + (size_t)RING * CT * 16;
+__host__ __device__ inline size_t attend_bytes(const Dims& D, int R, int KB) {
+  return attend_ring_offset(D, R, KB) + (size_t)RING * CT * 16;
 }
 
 // cp.async.wait_group n: all but this thread's n most recent groups landed.
@@ -1003,14 +1015,23 @@ __device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, cons
 // only with a window) and the slot's R fresh rows at kvlen + lj, with the
 // exact softmax; rounds (KV bf16) or quantizes (1-byte codes) and commits
 // the fresh rows of head hk (FRESH: writes them to k_fresh / v_fresh
-// instead). Score column j is position lo + j, then the fresh rows.
+// instead). The scores go through a tile of KB keys (the plan's kb) in nb
+// blocks: column j of block b is position lo + b KB + j, and the fresh rows
+// follow the last block's cache keys. One block (wherever the plan fits
+// the whole extent, KB = C): the scores, their maxima and sums, the weights
+// and P·V in one pass over K and one over V. Several blocks (the
+// pallas_decode.py kernels stream the cache in blocks too, _pick_cache_block
+// :121): a first pass over K folds each block's maxima and sums into
+// running ones, a second recomputes each block's scores, forms its weights
+// from the final maximum and sum exactly as one block does, and adds its
+// P·V; K is read twice, and shared memory does not grow with the extent.
 // `base`: the task's shared scratch.
 template <class Rows, bool VERIFY, bool FRESH, class KV>
 __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
   constexpr bool QUANT = KvCodes<KV>::QUANT;
   const Dims& D = a.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int R = a.R, Dh = D.Dh, g = D.Hq / D.Hkv, gR = g * R, CS = D.C + R;
+  const int R = a.R, Dh = D.Dh, g = D.Hq / D.Hkv, gR = g * R, KB = a.p.kb, CS = KB + R;
   const int qw = D.Hq * Dh, kvw = D.Hkv * Dh, nqkv = qw + 2 * kvw;
   float* q = base;
   float* kf = q + gR * Dh;
@@ -1019,7 +1040,9 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   float* pm = sc + (size_t)gR * CS;  // [CW][gR] partial maxima, then sums
   float* pz = pm + CW * gR;
   float* pv = pz + CW * gR;
-  int* tab = reinterpret_cast<int*>(base + attend_floats(D, R));
+  float* mz = pv + CW * GMAX * Dh;  // several blocks: running maxima and sums [2][gR]
+  float* oacc = mz + 2 * gR;        // several blocks: P·V sums [gR][Dh]
+  int* tab = reinterpret_cast<int*>(base + attend_floats(D, R, KB));
   const Rows rows_of{};
 
   // [lo, kvlen): positions read from the cache; the fresh rows go at
@@ -1043,7 +1066,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   }
   lo = min(lo, kvlen);
   const int nkv = kvlen - lo;  // cache keys a row
-  const int n = nkv + R;       // keys a row: the cache's, then the fresh rows
+  const int nb = nkv > KB ? (nkv + KB - 1) / KB : 1;  // blocks of the score tile
   const float* qkv = a.qkv + (size_t)s * R * nqkv;
   for (int i = tid; i < D.MB; i += CT) tab[i] = a.tables[(size_t)s * D.MB + i];
   KV* ck = static_cast<KV*>(a.ck) + l * a.layer_elems;
@@ -1052,20 +1075,27 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   float* ks = QUANT ? a.ks + l * (a.layer_elems / Dh) : nullptr;
   float* vs = QUANT ? a.vs + l * (a.layer_elems / Dh) : nullptr;
   // The cache row of head hk streams through the ring in chunks of CP
-  // positions: in chunk c, thread t copies 8 dims (sub) of position c CP +
-  // cr (cr = t / LPR) into its own 16-byte slot (bf16: 16 bytes; 1-byte
-  // codes: 8 bytes, and the row's scale at byte 8), and reads the same
-  // bytes back, so a chunk needs no barrier; RING - 1 chunks are in flight.
+  // positions: in chunk c, thread t copies 8 dims (sub) of position b0 +
+  // c CP + cr (cr = t / LPR; LPR = 4, 8 or 16 lanes a row) into its own
+  // 16-byte slot (bf16: 16 bytes; 1-byte codes: 8 bytes, and the row's
+  // scale at byte 8), and reads the same bytes back, so a chunk needs no
+  // barrier; RING - 1 chunks are in flight. The current block: its first
+  // position b0, its bn cache keys in nc chunks.
   const float scale = rsqrtf((float)Dh);
   const int LPR = Dh / 8, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
-  const int nc = (nkv + CP - 1) / CP;
+  int b0 = lo, bn = min(nkv, KB), nc = (bn + CP - 1) / CP;
+  const auto block = [&](int b) {
+    b0 = lo + b * KB;
+    bn = min(KB, nkv - b * KB);
+    nc = (bn + CP - 1) / CP;
+  };
   unsigned char* ring =
-      reinterpret_cast<unsigned char*>(base) + attend_ring_offset(D, R) + (size_t)tid * 16;
+      reinterpret_cast<unsigned char*>(base) + attend_ring_offset(D, R, KB) + (size_t)tid * 16;
   // Chunk c of `cache` (and its `scales`) into this thread's slot c % RING
   // (and, for the K pass, the V rows into L2 for the P·V pass).
   const auto fetch = [&](const KV* cache, const float* scales, int c, bool to_l2) {
-    const int j = lo + c * CP + cr;
-    if (j < kvlen) {
+    const int j = b0 + c * CP + cr;
+    if (j < b0 + bn) {
       const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * 8;
       unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
       if constexpr (QUANT) {
@@ -1077,7 +1107,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       if (to_l2 && (sub & 7) == 0) prefetch_l2(cv + off);
     }
   };
-  // The 8 values of chunk c this thread copied (zeros past nkv), once
+  // The 8 values of chunk c this thread copied (zeros past bn), once
   // they have landed, with chunk c + RING - 1 asked for. 1-byte codes: the
   // row's scale, which its first lane copied, is read after the warp's
   // barrier (which makes that lane's landed copy visible) and before any
@@ -1095,14 +1125,14 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     if (c + RING - 1 < nc) fetch(cache, scales, c + RING - 1, to_l2);
     cp_async_commit();
     if constexpr (QUANT) {
-      if (c * CP + cr < nkv) {
+      if (c * CP + cr < bn) {
         unpack8_codes<KV>(codes, row_scale, x8);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) x8[e] = 0.f;
       }
     } else {
-      unpack8(c * CP + cr < nkv ? *reinterpret_cast<const uint4*>(slot)
+      unpack8(c * CP + cr < bn ? *reinterpret_cast<const uint4*>(slot)
                                 : make_uint4(0u, 0u, 0u, 0u),
               x8);
     }
@@ -1200,134 +1230,190 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       }
   }
 
-  for (int c = 0; c < nc; ++c) {
-    float k8[8];
-    take(ck, ks, c, true, k8);
-    const int j = c * CP + cr;
-    const bool store = sub == 0 && j < nkv;
-    int i = 0;
-    for (; i + 4 <= gR; i += 4)
-      score_rows<4>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
-    for (; i < gR; ++i)
-      score_rows<1>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store, scale);
-  }
-  if (first) stamp(a, NST * l + S_B_SC);
-  // The fresh keys: causal within the suffix, in the band, and real rows
-  // only (verify).
-  for (int pair = warp; pair < gR * R; pair += CW) {
-    const int i = pair / R, lj = pair % R, r = i % R;
-    float p = 0.f;
-    for (int e = lane; e < Dh; e += 32) p += q[i * Dh + e] * kf[lj * Dh + e];
-    p = warp_sum(p);
-    if (lane == 0)
-      sc[(size_t)i * CS + nkv + lj] =
-          !VERIFY || (lj <= r && lj < slen && (!D.W || lj > r - D.W)) ? p * scale : NEG_INF;
-  }
-  __syncthreads();
-  if (VERIFY && D.W) {
-    // Row r's band starts r positions after row 0's (where lo began): its
-    // columns below plen + r - W + 1 - lo (fewer than R) are masked.
-    for (int t = tid; t < gR * R; t += CT) {
-      const int i = t / R, j = t % R;
-      if (j < nkv && lo + j <= a.lengths[s] + i % R - D.W) sc[(size_t)i * CS + j] = NEG_INF;
+  // The current block's scores into the tile: its cache keys (K streamed;
+  // to_l2: V's rows into L2 on the way), then, in the last block, the
+  // fresh keys: causal within the suffix, in the band, and real rows only
+  // (verify). With a window the verify's row r masks the columns before its
+  // band, which starts r positions after row 0's (where lo began).
+  const auto scores = [&](int b, bool to_l2) {
+    for (int c = 0; c < nc; ++c) {
+      float k8[8];
+      take(ck, ks, c, to_l2, k8);
+      const int j = c * CP + cr;
+      const bool store = sub == 0 && j < bn;
+      int i = 0;
+      for (; i + 4 <= gR; i += 4)
+        score_rows<4>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store,
+                      scale);
+      for (; i < gR; ++i)
+        score_rows<1>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store,
+                      scale);
+    }
+    if (b == nb - 1)
+      for (int pair = warp; pair < gR * R; pair += CW) {
+        const int i = pair / R, lj = pair % R, r = i % R;
+        float p = 0.f;
+        for (int e = lane; e < Dh; e += 32) p += q[i * Dh + e] * kf[lj * Dh + e];
+        p = warp_sum(p);
+        if (lane == 0)
+          sc[(size_t)i * CS + bn + lj] =
+              !VERIFY || (lj <= r && lj < slen && (!D.W || lj > r - D.W)) ? p * scale : NEG_INF;
+      }
+    __syncthreads();
+    if (VERIFY && D.W) {
+      for (int t = tid; t < gR * R; t += CT) {
+        const int i = t / R, j = t % R;
+        if (j < bn && b0 + j <= a.lengths[s] + i % R - D.W) sc[(size_t)i * CS + j] = NEG_INF;
+      }
+      __syncthreads();
+    }
+  };
+  // The softmax's maximum and sum of each query row over block b's columns,
+  // masked keys weighing 0. Warp w takes columns [w n / CW, (w + 1) n / CW)
+  // of every row; the warps' maxima, then their sums of exp(x - max), meet
+  // in pm / pz in warp order, and thread i adds up row i's. One block: the
+  // row's maximum and sum go to pm[i] / pz[i]. Several: they fold into the
+  // running ones in mz (the sum rescaled to the new maximum).
+  const auto stats = [&](int b) {
+    const int n = bn + (b == nb - 1 ? R : 0);
+    const int c0 = warp * n / CW, c1 = (warp + 1) * n / CW;
+    for (int i = 0; i < gR; ++i) {
+      const float* row = sc + (size_t)i * CS;
+      float m = NEG_INF;
+      for (int j = c0 + lane; j < c1; j += 32) m = fmaxf(m, row[j]);
+      m = warp_max(m);
+      if (lane == 0) pm[warp * gR + i] = m;
     }
     __syncthreads();
-  }
-
-  // Exact softmax per query row over its n keys; masked keys weigh 0. Warp
-  // w takes columns [w n / CW, (w + 1) n / CW) of every row; the warps'
-  // maxima, then their sums of exp(x - max), meet in pm / pz in warp order.
-  // Decode: the weights rounded to bf16. Verify: f32, and 0 for a row with
-  // no valid key.
-  const int c0 = warp * n / CW, c1 = (warp + 1) * n / CW;
-  for (int i = 0; i < gR; ++i) {
-    const float* row = sc + (size_t)i * CS;
-    float m = NEG_INF;
-    for (int j = c0 + lane; j < c1; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    if (lane == 0) pm[warp * gR + i] = m;
-  }
-  __syncthreads();
-  for (int i = 0; i < gR; ++i) {
-    const float* row = sc + (size_t)i * CS;
-    float m = NEG_INF;
-    for (int w = 0; w < CW; ++w) m = fmaxf(m, pm[w * gR + i]);
-    float z = 0.f;
-    for (int j = c0 + lane; j < c1; j += 32)
-      z += row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
-    z = warp_sum(z);
-    if (lane == 0) pz[warp * gR + i] = z;
-  }
-  __syncthreads();
-  // Row i's maximum and sum (thread i).
-  if (tid < gR) {
-    float m = NEG_INF, z = 0.f;
-    for (int w = 0; w < CW; ++w) {
-      m = fmaxf(m, pm[w * gR + tid]);
-      z += pz[w * gR + tid];  // each taken against the row's maximum
+    for (int i = 0; i < gR; ++i) {
+      const float* row = sc + (size_t)i * CS;
+      float m = NEG_INF;
+      for (int w = 0; w < CW; ++w) m = fmaxf(m, pm[w * gR + i]);
+      float z = 0.f;
+      for (int j = c0 + lane; j < c1; j += 32)
+        z += row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
+      z = warp_sum(z);
+      if (lane == 0) pz[warp * gR + i] = z;
     }
-    pm[tid] = m;
-    pz[tid] = z;
-  }
-  __syncthreads();
-  for (int i = 0; i < gR; ++i) {
-    float* row = sc + (size_t)i * CS;
-    const float m = pm[i], z = pz[i];
-    const bool dead = !(m > 0.5f * NEG_INF);
-    for (int j = tid; j < n; j += CT) {
-      const float e = row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
-      row[j] = VERIFY ? (dead ? 0.f : e / z) : bf16r(e / z);
+    __syncthreads();
+    for (int i = tid; i < gR; i += CT) {
+      float m = NEG_INF, z = 0.f;
+      for (int w = 0; w < CW; ++w) {
+        m = fmaxf(m, pm[w * gR + i]);
+        z += pz[w * gR + i];  // each taken against the row's maximum
+      }
+      if (nb == 1) {
+        pm[i] = m;
+        pz[i] = z;
+      } else {
+        const float m0 = b ? mz[i] : NEG_INF, z0 = b ? mz[gR + i] : 0.f, mn = fmaxf(m0, m);
+        mz[i] = mn;
+        mz[gR + i] = z0 * expf(m0 - mn) + z * expf(m - mn);
+      }
     }
-  }
-  __syncthreads();
-  if (first) stamp(a, NST * l + S_B_SM);
-
-  // P·V over the cache, GMAX query rows a pass, V streamed as K was; the
-  // position lanes of a warp meet by shuffles, the warps in pv (warp order).
+    __syncthreads();
+  };
+  // Block b's weights in the tile from the row's maximum and sum. Decode:
+  // rounded to bf16. Verify: f32, and 0 for a row with no valid key.
+  const auto weights = [&](int b) {
+    const int n = bn + (b == nb - 1 ? R : 0);
+    for (int i = 0; i < gR; ++i) {
+      float* row = sc + (size_t)i * CS;
+      const float m = nb == 1 ? pm[i] : mz[i], z = nb == 1 ? pz[i] : mz[gR + i];
+      const bool dead = !(m > 0.5f * NEG_INF);
+      for (int j = tid; j < n; j += CT) {
+        const float e = row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
+        row[j] = VERIFY ? (dead ? 0.f : e / z) : bf16r(e / z);
+      }
+    }
+    __syncthreads();
+  };
+  // P·V of block b, GMAX query rows a pass, V streamed as K was; the
+  // position lanes of a warp meet by shuffles, the warps in pv (warp order),
+  // then the fresh rows (last block) and, with several blocks, the earlier
+  // blocks' sums in oacc.
   const int pr = lane / LPR;
-  for (int i0 = 0; i0 < gR; i0 += GMAX) {
-    const int ng = min(GMAX, gR - i0);
-    float acc[GMAX][8];
+  const auto weigh_values = [&](int b) {
+    const bool last = b == nb - 1;
+    for (int i0 = 0; i0 < gR; i0 += GMAX) {
+      const int ng = min(GMAX, gR - i0);
+      float acc[GMAX][8];
 #pragma unroll
-    for (int ii = 0; ii < GMAX; ++ii)
+      for (int ii = 0; ii < GMAX; ++ii)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
-    prime(cv, vs, false);
-    for (int c = 0; c < nc; ++c) {
-      float v8[8];
-      take(cv, vs, c, false, v8);
-      const int j = c * CP + cr;
-      if (j < nkv) {
+        for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
+      prime(cv, vs, false);
+      for (int c = 0; c < nc; ++c) {
+        float v8[8];
+        take(cv, vs, c, false, v8);
+        const int j = c * CP + cr;
+        if (j < bn) {
 #pragma unroll
-        for (int ii = 0; ii < GMAX; ++ii) {
-          if (ii < ng) {
-            const float p = sc[(size_t)(i0 + ii) * CS + j];
+          for (int ii = 0; ii < GMAX; ++ii) {
+            if (ii < ng) {
+              const float p = sc[(size_t)(i0 + ii) * CS + j];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[ii][e] += p * v8[e];
+              for (int e = 0; e < 8; ++e) acc[ii][e] += p * v8[e];
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int ii = 0; ii < GMAX; ++ii) {
-      if (ii < ng) {
+      for (int ii = 0; ii < GMAX; ++ii) {
+        if (ii < ng) {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float v = acc[ii][e];
-          for (int o = LPR; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-          if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * 8 + e] = v;
+          for (int e = 0; e < 8; ++e) {
+            float v = acc[ii][e];
+            for (int o = LPR; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+            if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * 8 + e] = v;
+          }
         }
       }
+      __syncthreads();
+      for (int o = tid; o < ng * Dh; o += CT) {
+        const int ii = o / Dh, e = o % Dh, i = i0 + ii;
+        float t = 0.f;
+        if (last)
+          for (int lj = 0; lj < R; ++lj) t += sc[(size_t)i * CS + bn + lj] * vf[lj * Dh + e];
+        for (int w = 0; w < CW; ++w) t += pv[((size_t)w * GMAX + ii) * Dh + e];
+        if (nb > 1) {
+          float* sum = oacc + (size_t)i * Dh + e;
+          if (b) t = *sum + t;
+          if (!last) {
+            *sum = t;
+            continue;
+          }
+        }
+        a.att[(size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e] = __float2bfloat16(t);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int o = tid; o < ng * Dh; o += CT) {
-      const int ii = o / Dh, e = o % Dh, i = i0 + ii;
-      float t = 0.f;
-      for (int lj = 0; lj < R; ++lj) t += sc[(size_t)i * CS + nkv + lj] * vf[lj * Dh + e];
-      for (int w = 0; w < CW; ++w) t += pv[((size_t)w * GMAX + ii) * Dh + e];
-      a.att[(size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e] = __float2bfloat16(t);
+  };
+
+  // Pass 1 over the blocks (one block: the only pass over K; block 0's
+  // first chunks are in flight since before the q/k/v loads).
+  for (int b = 0; b < nb; ++b) {
+    if (b) {
+      block(b);
+      prime(ck, ks, false);
     }
-    __syncthreads();
+    scores(b, nb == 1);
+    if (first && b == 0) stamp(a, NST * l + S_B_SC);
+    stats(b);
+  }
+  if (nb == 1) {
+    weights(0);
+    if (first) stamp(a, NST * l + S_B_SM);
+    weigh_values(0);
+    return;
+  }
+  if (first) stamp(a, NST * l + S_B_SM);
+  for (int b = 0; b < nb; ++b) {  // pass 2
+    block(b);
+    prime(ck, ks, true);
+    scores(b, true);
+    weights(b);
+    weigh_values(b);
   }
 }
 
@@ -1582,10 +1668,14 @@ cudaError_t coop_per_sm(int k, int smem, int& per_sm) {
 // ops/fused_decode.py coop_plan's; the kernel's own bounds are checked
 // here: its tiles a CTA (register arrays of MAXT and MAXTM / m-tiles), the
 // weight chunks (whole k-steps, within an x chunk, inside a slot, whole TMA
-// boxes of at most 256 rows) and the attention task's scratch, which it
-// lays out itself over the slots.
+// boxes of at most 256 rows), the m-tile lanes, the score tile (1 to C keys)
+// and the attention task's scratch, which it lays out itself over the
+// slots.
 bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
-  const int rows = D.S * R, mt = (rows + 15) / 16, kg = CW / (mt > 2 ? 4 : mt);
+  const int rows = D.S * R, mt = (rows + 15) / 16;
+  if ((p.cs != 1 && p.cs != 2 && p.cs != 4) || p.cs < (mt < 4 ? mt : 4) || p.kb < 1 || p.kb > D.C)
+    return false;
+  const int kg = CW / p.cs;
   const long nqkv = (long)D.Hq * D.Dh + 2L * D.Hkv * D.Dh;
   const long n[4] = {nqkv, D.d, D.F, D.d};
   long wneed = 0, red = 0;
@@ -1606,7 +1696,7 @@ bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
          p.x0 % 128 == 0 && p.xs % 16 == 0 &&
          p.red % 16 == 0 && p.bar % 8 == 0 && p.nslot >= 1 && p.nslot <= MAXS &&
          p.xs >= (long)rows * (p.kc + 8) * 2 && p.x0 + (long)p.nslot * p.xs <= p.bar &&
-         p.x0 + (long)attend_bytes(D, R) <= p.bar && p.red >= p.x0 && p.red + red <= p.bar &&
+         p.x0 + (long)attend_bytes(D, R, p.kb) <= p.bar && p.red >= p.x0 && p.red + red <= p.bar &&
          p.bar + 8L * (p.nslot + 2 * p.nw + 1) <= p.smem;
 }
 
@@ -1664,10 +1754,11 @@ int launch_coop(Coop& a, const int* plan, int k, int kv, void* stream) {
   Plan& p = a.p;
   p = Plan{plan[0], plan[1], plan[2], plan[3], {plan[4], plan[5], plan[6], plan[7]},
            {plan[8], plan[9], plan[10], plan[11]}, plan[12], plan[13], plan[14], plan[15],
-           plan[16], plan[17], plan[18]};
+           plan[16], plan[17], plan[18], plan[19], plan[20]};
   const int rows = D.S * a.R;
   const bool fresh = k >= 3;  // the per-layer steps write their fresh rows out
-  if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 64 && D.Dh != 128) || D.d != D.Hq * D.Dh ||
+  if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 32 && D.Dh != 64 && D.Dh != 128) ||
+      D.d != D.Hq * D.Dh ||
       D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
       D.W < 0 || (D.rolling && (D.MB || D.W < 1)) ||
       p.kc != D.d || p.grid < 1 || p.grid > MAX_GRID ||
@@ -1792,11 +1883,13 @@ extern "C" int decode_block_paged(
 }
 
 // Whole-model step, slab. Layer-stacked weights (leading [n_layers] axis) and
-// caches [n_layers, S, C, Hkv, Dh] (scales [n_layers, S, C, Hkv]), committed
-// in place at [l, s, lengths[s]] where active[s] != 0. h_in/h_out [S, d]
-// f32; scratch qkv [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F]
-// bf16; the grid barrier's flags (MAX_GRID + 1 uint32, zeroed once, then
-// left to the kernels; see grid_sync()); `plan` the nineteen ints of
+// caches [n_layers, S_cache, C, Hkv, Dh] (scales [n_layers, S_cache, C,
+// Hkv]), ck / cv / k_scale / v_scale pointing at the launch's first slot
+// (a group of S of the cache's S_cache slots), committed in place at [l, s,
+// lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32; scratch qkv
+// [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] bf16; the grid
+// barrier's flags (MAX_GRID + 1 uint32, zeroed once, then left to the
+// kernels; see grid_sync()); `plan` the twenty-one ints of
 // ops/fused_decode.py coop_plan. One launch at a time may use the flags.
 extern "C" int decode_token_slab(
     const void* h_in, void* h_out, const void* wq, const void* wk,
@@ -1805,11 +1898,12 @@ extern "C" int decode_token_slab(
     const void* w_down, const void* b_down, void* ck, void* cv, void* k_scale,
     void* v_scale, const void* lengths, const void* active, void* qkv, void* att, void* gelu,
     void* flags, const int* plan, int kv, int rope, int window, int n_layers, int S, int d, int Hq,
-    int Hkv, int Dh, int F, int C, void* stream) {
+    int Hkv, int Dh, int F, int C, int S_cache, void* stream) {
   Dims D{S, d, Hq, Hkv, Dh, F, C, 0, 0, window, window > 0};
+  if (S_cache < S) return (int)cudaErrorInvalidValue;
   const CacheArgs c{ck, cv, k_scale, v_scale, rope};
   Coop a = coop_args(pack(wq, wk, wv, wo, ln1_s, ln1_b, ln2_s, ln2_b, w_up, b_up, w_down, b_down),
-                     D, n_layers, 1, (size_t)S * C * Hkv * Dh, h_in, h_out, c, lengths,
+                     D, n_layers, 1, (size_t)S_cache * C * Hkv * Dh, h_in, h_out, c, lengths,
                      nullptr, active, nullptr, qkv, att, gelu, flags);
   return launch_coop(a, plan, 0, kv, stream);
 }

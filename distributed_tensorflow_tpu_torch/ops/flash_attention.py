@@ -62,6 +62,8 @@ _BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 # The kernels' key tile: the fused backward's dq partials take ceil(L/BLOCK_K)
 # copies of dq in f32.
 BLOCK_K = 64
+# The head dims the kernels are built for (the plain versions take any).
+HEAD_DIMS = (32, 64, 128)
 # Auto-fusion cap on those partials (the JAX package's _FUSED_DQ_CAP_BYTES):
 # past it fused=None takes the dq + dk/dv pair.
 FUSED_DQ_CAP_BYTES = 1 << 30
@@ -115,8 +117,8 @@ def _check_kernel_inputs(*ts):
             "flash kernels take f32 or bf16 q/k/v (and dout) of one dtype, got "
             + "/".join(str(t.dtype) for t in ts)
         )
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"flash kernels take head_dim 64 or 128, got {q.shape[-1]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim 32, 64 or 128, got {q.shape[-1]}")
 
 
 def _dense16(t):

@@ -89,8 +89,9 @@ WEIGHT_NAMES = (
 )
 # The projections, stored in the compute dtype; the rest stay f32.
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
-# Most draft rows per slot the verify kernel takes.
-VERIFY_MAX_ROWS = 8
+# The head dims the kernels take (the attention task's lanes a key row:
+# Dh / 8).
+HEAD_DIMS = (32, 64, 128)
 _rope = rope  # the wrappers' keyword `rope` shadows the function inside them
 
 
@@ -362,7 +363,13 @@ MAX_TILE_ROWS = 8
 MAX_WSLOTS = 16
 COOP_WARPS = COOP_THREADS // 32
 # Most residual rows (slots x rows a slot) a launch takes: four m-tiles of 16.
+# A verify takes any rows a slot up to this (the wrappers launch the slots
+# in groups, :func:`slot_group`).
 COOP_MAX_ROWS = 64
+# Score tiles narrower than the cache extent are multiples of this many
+# keys: whole chunks of the attention's K/V stream at every head dim
+# (COOP_THREADS / (Dh / 8) keys a chunk: 96, 48, 24).
+KB_STEP = 96
 # The weight ring the plan aims for: chunks are halved until this many fit.
 WSLOTS_WANTED = 4
 # The cooperative kernel's instantiations by number in the C interface
@@ -419,7 +426,9 @@ class CoopPlan:
     (name -> (shape, dtype)) and the shared-memory ``layout`` (byte
     offsets; ``wslots`` weight slots of ``wslot`` bytes from 0, the
     layernorm's parameters at ``ln``, ``slots`` x slots of ``slot`` bytes
-    from x0) of ``smem`` bytes."""
+    from x0) of ``smem`` bytes; the attention's score tiles of ``kb`` keys
+    (the cache extent: one block), and ``cs`` m-tile lanes of the warps
+    (``COOP_WARPS / cs`` k-groups)."""
 
     grid: int
     occupancy: int
@@ -431,14 +440,16 @@ class CoopPlan:
     scratch: dict
     layout: dict
     smem: int
+    kb: int
+    cs: int
 
     def ints(self) -> list[int]:
-        """The nineteen ints the C interface takes (``struct Plan``)."""
+        """The twenty-one ints the C interface takes (``struct Plan``)."""
         lay = self.layout
         return [self.grid, self.products[0].k, lay["wslot"], lay["wslots"],
                 *(p.k_rows for p in self.products), *(p.tile_cols for p in self.products),
                 lay["ln"], lay["x0"], lay["slot"], lay["slots"], lay["red"], lay["bar"],
-                self.smem]
+                self.smem, self.kb, self.cs]
 
 
 def _up(n: int, a: int) -> int:
@@ -446,31 +457,36 @@ def _up(n: int, a: int) -> int:
 
 
 def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
-              smem_limit) -> CoopPlan:
+              smem_limit, ref_rows=None) -> CoopPlan:
     """Lay out one cooperative launch of ``n_layers`` layers of the decode
     step (``r`` = 1; one layer for the per-layer step) or the verify
     (``r`` = L rows a slot) over ``s`` slots of a cache of extent ``c``
     (``mb`` table entries a slot when paged, else 0), on a card of ``nsm``
     SMs holding ``occupancy`` CTAs each and ``smem_limit`` bytes of shared
-    memory a CTA. This is the one derivation of the layout: the launcher
-    checks only that its offsets are in order and in bounds. Raises
-    ``ValueError`` with every reason when the shapes are outside the
-    kernel's envelope."""
+    memory a CTA. ``ref_rows`` (default ``s * r``) sets the k-groups the
+    products split K into, so a launch over part of a step's slots sums in
+    the whole step's order (:func:`slot_group`). The attention task keeps
+    score tiles of ``kb`` key positions: the whole extent ``c`` where the
+    plan fits with it (one block, every key's score in shared memory at
+    once), else the widest multiple of ``KB_STEP`` that leaves
+    ``WSLOTS_WANTED`` weight slots (or two), and the kernel streams the
+    cache in blocks of ``kb`` keys. This is the one derivation of the
+    layout: the launcher checks only that its offsets are in order and in
+    bounds. Raises ``ValueError`` with every reason when the shapes are
+    outside the kernel's envelope."""
     rows = s * r
     why = []
     if hkv < 1 or hq % hkv:
         why.append(f"query heads ({hq}) a multiple of the KV heads ({hkv})")
-    if dh not in (64, 128):
-        why.append(f"head_dim 64 or 128 (got {dh})")
+    if dh not in HEAD_DIMS:
+        why.append(f"head_dim 32, 64 or 128 (got {dh})")
     if d != hq * dh:
         why.append(f"model_dim ({d}) = heads x head_dim ({hq} x {dh})")
     if d % 16:
         why.append(f"model_dim a multiple of 16 (got {d})")
     if f % 16:
         why.append(f"ffn width a multiple of 16 (got {f})")
-    if not 1 <= r <= VERIFY_MAX_ROWS:
-        why.append(f"1 to {VERIFY_MAX_ROWS} rows a slot (got {r})")
-    if not 1 <= rows <= COOP_MAX_ROWS:
+    if not 1 <= rows <= COOP_MAX_ROWS or r < 1:
         why.append(f"1 to {COOP_MAX_ROWS} rows in all, slots x rows a slot (got {s} x {r})")
     if n_layers < 1:
         why.append("at least one layer")
@@ -479,131 +495,178 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
     grid = nsm * occupancy
     if not 1 <= grid <= MAX_GRID:
         why.append(f"a grid of 1 to {MAX_GRID} CTAs (got {nsm} SMs x {occupancy})")
+    ref = rows if ref_rows is None else ref_rows
+    if not rows <= ref <= COOP_MAX_ROWS:
+        why.append(f"reference rows ({ref}) from the launch's rows ({rows}) to {COOP_MAX_ROWS}")
     if why:
         raise ValueError("the cooperative decode kernels do not take these shapes: they "
                          "need " + "; ".join(why))
     mt = -(-rows // 16)
-    kg = COOP_WARPS // (4 if mt > 2 else mt)
+    ref_mt = -(-ref // 16)
+    cs = 4 if ref_mt > 2 else ref_mt  # m-tile lanes of the warps
+    kg = COOP_WARPS // cs
     qw, kvw = hq * dh, hkv * dh
     shapes = (("qkv", d, qw + 2 * kvw, 0), ("out", qw, d, 1), ("up", d, f, 0),
               ("down", f, d, -(-f // d)))
-    def boxed(kr):  # chunk rows that are whole TMA boxes of at most 256 rows
-        while kr > 256 and kr % 256 and kr % 32 == 0:
-            kr //= 2
-        return kr
-
-    # A chunk a product's x chunk, halved below while needed.
-    k_rows = [boxed(d)] * 4
-
     # Tile widths: the fewest columns the busiest CTA multiplies, then the
     # widest tile (q/k/v's tiles stay inside one of wq, wk, wv).
     widths = [min((w for w in TILE_COLS if n % w == 0 and (name != "qkv" or kvw % w == 0)),
                   key=lambda w: (-(-(n // w) // grid) * w, -w))
               for name, _, n, _ in shapes]
-
-    def products():
-        return tuple(Product(name, k, n, w, n // w, -(-(n // w) // grid), kg, chunks, kr)
-                     for (name, k, n, chunks), w, kr in zip(shapes, widths, k_rows))
-
-    prods = products()
-    busy = [p for p in prods if p.subtiles_per_cta > MAX_TILES
-            or p.subtiles_per_cta * mt > MAX_TILE_ROWS]
-    red = max(p.subtiles_per_cta * kg * mt * 128 * 4 for p in prods)
     slot = rows * (d + 8) * 2
     gr = hq // hkv * r
-    # The attention task's scratch: floats, the table row, then each
-    # thread's ring of RING 16-byte slots for streaming K and V.
-    attn = _up(4 * (gr * dh + 2 * r * dh + gr * (c + r) + 2 * COOP_WARPS * gr
-                    + COOP_WARPS * PV_ROWS * dh) + 4 * mb, 16) + RING * COOP_THREADS * 16
 
-    def lay(wslot, wslots, slots):
-        # ln: the next layernorm's scale and bias, [2][d] f32.
-        ln = _up(wslots * wslot, 16)
-        out = {"w0": 0, "wslot": wslot, "wslots": wslots, "ln": ln, "x0": _up(ln + 8 * d, 128),
-               "slot": slot, "slots": slots}
-        # The x region holds the slots, or the attention's scratch, and the
-        # partial sums at its end (over the slots' tail if need be: a
-        # product's sums meet after its last read of x).
-        region = _up(max(slots * slot, attn, red), 16)
-        out["red"] = out["x0"] + region - red
-        out["bar"] = out["x0"] + region
-        # mbarriers: one an x slot, a full and an empty one a weight slot,
-        # one for the layernorm's parameters
-        return out, out["bar"] + 8 * (slots + 2 * wslots + 1)
+    def attn_bytes(kb):
+        # The attention task's scratch: floats (q, the fresh rows, a score
+        # tile of kb + r columns a row, the softmax's partials, the P·V
+        # partials; with kb < c the running max and sum and the P·V sums of
+        # the blocks), the table row, then each thread's ring of RING
+        # 16-byte slots for streaming K and V.
+        floats = (gr * dh + 2 * r * dh + gr * (kb + r) + 2 * COOP_WARPS * gr
+                  + COOP_WARPS * PV_ROWS * dh + (2 * gr + gr * dh if kb < c else 0))
+        return _up(4 * floats + 4 * mb, 16) + RING * COOP_THREADS * 16
 
-    def wslot_of(ps):  # 1024-byte aligned: the TMA's 128-byte swizzle
-        return _up(max(p.chunk_bytes for p in ps), 1024)
+    def layout(kb):
+        """The products, the shared-memory layout, its bytes and a list of
+        what is over the envelope, with score tiles of kb keys."""
+        def boxed(kr):  # chunk rows that are whole TMA boxes of at most 256 rows
+            while kr > 256 and kr % 256 and kr % 32 == 0:
+                kr //= 2
+            return kr
 
-    def fits(wslots, slots):
-        return lay(wslot_of(prods), wslots, slots)[1] <= smem_limit
+        # A chunk a product's x chunk, halved below while needed.
+        k_rows = [boxed(d)] * 4
 
-    # Weight chunks: one a product's x chunk where WSLOTS_WANTED of them fit
-    # beside one x slot, else the largest chunk halved (its rows stay a
-    # whole number of k-steps dividing d) until they do; then as many x
-    # slots as gelu(up) has chunks (up to MAX_SLOTS) that leave
-    # WSLOTS_WANTED weight slots; then as many weight slots as fit.
-    while not busy and not fits(WSLOTS_WANTED, 1):
-        i = max(range(4), key=lambda j: prods[j].chunk_bytes)
-        if k_rows[i] % 32:
-            break
-        k_rows[i] = boxed(k_rows[i] // 2)
+        def products():
+            return tuple(Product(name, k, n, w, n // w, -(-(n // w) // grid), kg, chunks, kr)
+                         for (name, k, n, chunks), w, kr in zip(shapes, widths, k_rows))
+
         prods = products()
-    slots = min(MAX_SLOTS, max(p.chunks for p in prods))
-    while slots > 1 and not fits(WSLOTS_WANTED, slots):
-        slots -= 1
+        busy = [p for p in prods if p.subtiles_per_cta > MAX_TILES
+                or p.subtiles_per_cta * mt > MAX_TILE_ROWS]
+        red = max(p.subtiles_per_cta * kg * mt * 128 * 4 for p in prods)
+        attn = attn_bytes(kb)
 
-    def ring(ps):  # weight slots that fit, and the bytes they keep in flight
-        w = MAX_WSLOTS
-        while w > 1 and lay(wslot_of(ps), w, slots)[1] > smem_limit:
-            w -= 1
-        return w, (w - 1) * wslot_of(ps)
+        def lay(wslot, wslots, slots):
+            # ln: the next layernorm's scale and bias, [2][d] f32.
+            ln = _up(wslots * wslot, 16)
+            out = {"w0": 0, "wslot": wslot, "wslots": wslots, "ln": ln,
+                   "x0": _up(ln + 8 * d, 128), "slot": slot, "slots": slots}
+            # The x region holds the slots, or the attention's scratch, and the
+            # partial sums at its end (over the slots' tail if need be: a
+            # product's sums meet after its last read of x).
+            region = _up(max(slots * slot, attn, red), 16)
+            out["red"] = out["x0"] + region - red
+            out["bar"] = out["x0"] + region
+            # mbarriers: one an x slot, a full and an empty one a weight slot,
+            # one for the layernorm's parameters
+            return out, out["bar"] + 8 * (slots + 2 * wslots + 1)
 
-    # Then smaller chunks while they keep more bytes in flight (a slot's
-    # refill waits for its last chunk, so nw - 1 are in flight).
-    wslots, flight = ring(prods)
-    while not busy:
-        i = max(range(4), key=lambda j: prods[j].chunk_bytes)
-        if k_rows[i] % 32:
-            break
-        before = k_rows
-        k_rows = [boxed(kr // 2) if j == i else kr for j, kr in enumerate(k_rows)]
-        cand = products()
-        cand_slots, cand_flight = ring(cand)
-        if cand_flight <= flight:
-            k_rows = before
-            break
-        prods, wslots, flight = cand, cand_slots, cand_flight
-    layout, smem = lay(wslot_of(prods), wslots, slots)
-    if busy or smem > smem_limit or wslots < 2:
-        raise ValueError(
-            "the cooperative decode kernels do not take these shapes: "
-            + "; ".join([f"{p.name} needs {p.subtiles_per_cta} column tiles a CTA on a grid "
-                         f"of {grid} ({TILE} columns each) over {mt} m-tiles (at most "
-                         f"{MAX_TILES} tiles and {MAX_TILE_ROWS} tiles x m-tiles)" for p in busy]
-                        + [f"{lay(layout['wslot'], 2, slots)[1]} bytes of shared memory a CTA "
-                           f"(at most {smem_limit}) with two weight slots of "
-                           f"{layout['wslot']}: x slots {slots} x {slot}, "
-                           f"the attention task's {gr} score rows over {c + r} keys {attn}, "
-                           f"partial sums {red}"] * (not busy)))
+        def wslot_of(ps):  # 1024-byte aligned: the TMA's 128-byte swizzle
+            return _up(max(p.chunk_bytes for p in ps), 1024)
+
+        def fits(wslots, slots):
+            return lay(wslot_of(prods), wslots, slots)[1] <= smem_limit
+
+        # Weight chunks: one a product's x chunk where WSLOTS_WANTED of them
+        # fit beside one x slot, else the largest chunk halved (its rows stay
+        # a whole number of k-steps dividing d) until they do; then as many x
+        # slots as gelu(up) has chunks (up to MAX_SLOTS) that leave
+        # WSLOTS_WANTED weight slots; then as many weight slots as fit.
+        while not busy and not fits(WSLOTS_WANTED, 1):
+            i = max(range(4), key=lambda j: prods[j].chunk_bytes)
+            if k_rows[i] % 32:
+                break
+            k_rows[i] = boxed(k_rows[i] // 2)
+            prods = products()
+        slots = min(MAX_SLOTS, max(p.chunks for p in prods))
+        while slots > 1 and not fits(WSLOTS_WANTED, slots):
+            slots -= 1
+
+        def ring(ps):  # weight slots that fit, and the bytes they keep in flight
+            w = MAX_WSLOTS
+            while w > 1 and lay(wslot_of(ps), w, slots)[1] > smem_limit:
+                w -= 1
+            return w, (w - 1) * wslot_of(ps)
+
+        # Then smaller chunks while they keep more bytes in flight (a slot's
+        # refill waits for its last chunk, so nw - 1 are in flight).
+        wslots, flight = ring(prods)
+        while not busy:
+            i = max(range(4), key=lambda j: prods[j].chunk_bytes)
+            if k_rows[i] % 32:
+                break
+            before = k_rows
+            k_rows = [boxed(kr // 2) if j == i else kr for j, kr in enumerate(k_rows)]
+            cand = products()
+            cand_slots, cand_flight = ring(cand)
+            if cand_flight <= flight:
+                k_rows = before
+                break
+            prods, wslots, flight = cand, cand_slots, cand_flight
+        lay_, smem = lay(wslot_of(prods), wslots, slots)
+        over = [f"{p.name} needs {p.subtiles_per_cta} column tiles a CTA on a grid of {grid} "
+                f"({TILE} columns each) over {mt} m-tiles (at most {MAX_TILES} tiles and "
+                f"{MAX_TILE_ROWS} tiles x m-tiles)" for p in busy]
+        if not busy and (smem > smem_limit or wslots < 2):
+            over.append(f"{lay(lay_['wslot'], 2, slots)[1]} bytes of shared memory a CTA (at "
+                        f"most {smem_limit}) with two weight slots of {lay_['wslot']}: x slots "
+                        f"{slots} x {slot}, the attention task's {gr} score rows over "
+                        f"{min(kb, c) + r} keys {attn}, partial sums {red}")
+        return prods, lay_, smem, over
+
+    kb = c
+    prods, lay_, smem, over = layout(kb)
+    if over and not any("column tiles" in o for o in over) and c > KB_STEP:
+        # Score tiles narrower than the extent: the widest that leaves
+        # WSLOTS_WANTED weight slots, else the widest that fits at all.
+        steps = range(KB_STEP, c, KB_STEP)
+        for need in (WSLOTS_WANTED, 2):
+            lo_, hi_ = 0, len(steps)  # steps[:lo_] fit; bisect the first that does not
+            while lo_ < hi_:
+                mid = (lo_ + hi_) // 2
+                got = layout(steps[mid])
+                if not got[3] and got[1]["wslots"] >= need:
+                    lo_ = mid + 1
+                else:
+                    hi_ = mid
+            if lo_:
+                kb = steps[lo_ - 1]
+                prods, lay_, smem, over = layout(kb)
+                break
+        else:
+            over = layout(KB_STEP)[3]  # the reason at the narrowest tile
+    if over:
+        raise ValueError("the cooperative decode kernels do not take these shapes: "
+                         + "; ".join(over))
     scratch = {"qkv": ((rows, qw + 2 * kvw), torch.float32), "att": ((rows, qw), torch.bfloat16),
                "gelu": ((rows, f), torch.bfloat16)}
     return CoopPlan(grid, occupancy, rows, mt, prods, s * hkv, PHASES * n_layers - 1,
-                    scratch, layout, smem)
+                    scratch, lay_, smem, kb, cs)
 
 
-def block_group(s, d, hq, hkv, dh, f, c, mb, nsm, smem_limit) -> int:
-    """The most of ``s`` slots one launch of the per-layer step (B5) takes
-    at these widths on a card of ``nsm`` SMs: ``min(s, COOP_MAX_ROWS)``,
-    cut to the m-tiles of 16 rows that the busiest CTA's column tiles
-    leave under ``MAX_TILE_ROWS`` (a wide model's products fill a CTA's
-    tiles x m-tiles sooner: gpt-xl width takes 16 slots a launch, d=1024
-    32). A CTA's column tiles do not depend on the rows. Raises
-    :func:`coop_plan`'s ``ValueError`` for shapes it refuses at that
-    group."""
+def slot_group(s, r, d, hq, hkv, dh, f, c, mb, nsm, smem_limit) -> int:
+    """The most of ``s`` slots of ``r`` rows each that one launch of the
+    cooperative kernel takes at these widths on a card of ``nsm`` SMs:
+    rows up to ``COOP_MAX_ROWS``, cut to the m-tiles of 16 rows that the
+    busiest CTA's column tiles leave under ``MAX_TILE_ROWS`` (a wide
+    model's products fill a CTA's tiles x m-tiles sooner: gpt-xl width
+    takes 16 rows a launch, d=1024 32). A CTA's column tiles do not depend
+    on the rows. The wrappers launch the slots in groups of this many, one
+    after another: each group reads the weights once, and its k-groups are
+    the first group's (``ref_rows``), so a grouped step sums in the order
+    of the whole step wherever the whole step is one launch. Raises
+    :func:`coop_plan`'s ``ValueError`` for shapes it refuses at that group
+    (a head dim it does not take, more rows a slot than a launch takes,
+    shared memory)."""
     one = coop_plan(1, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
     busiest = max(p.subtiles_per_cta for p in one.products)
-    group = min(s, COOP_MAX_ROWS, 16 * (MAX_TILE_ROWS // busiest))
-    coop_plan(group, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
+    most = min(COOP_MAX_ROWS, 16 * (MAX_TILE_ROWS // busiest))
+    if r > most:
+        raise ValueError(f"the cooperative decode kernels do not take these shapes: {r} rows a "
+                         f"slot exceed the {most} rows a launch takes at these widths")
+    group = min(s, most // r)
+    coop_plan(group, r, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
     return group
 
 
@@ -641,19 +704,19 @@ def coop_constants(device) -> dict:
 
 
 def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device,
-                kv=0) -> CoopPlan:
+                kv=0, ref_rows=None) -> CoopPlan:
     """:func:`coop_plan` on ``device``: its SM count and opt-in shared
     memory, and the occupancy the kernel built for cache type ``kv``
     (``KV_TYPES``) reaches at the plan's shared memory (read once a
     shape)."""
     device = torch.device(device)
-    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index, kv)
+    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index, kv, ref_rows)
     plan = _PLANS.get(key)
     if plan is None:
         nsm = torch.cuda.get_device_properties(device).multi_processor_count
         limit = coop_constants(device)["smem_limit"]
         shape = (s, r, n_layers, d, hq, hkv, dh, f, c, mb)
-        plan = coop_plan(*shape, nsm, 1, limit)
+        plan = coop_plan(*shape, nsm, 1, limit, ref_rows)
         lib = _build.load("fused_decode")
         lib.coop_occupancy.argtypes = [_INT, _INT, _INT]
         lib.coop_occupancy.restype = _INT
@@ -664,7 +727,7 @@ def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device,
             raise RuntimeError(f"{kernel}: a CTA of {plan.smem} bytes of shared memory does "
                                "not fit on one SM")
         if occ > 1:
-            plan = coop_plan(*shape, nsm, occ, limit)
+            plan = coop_plan(*shape, nsm, occ, limit, ref_rows)
         _PLANS[key] = plan
     return plan
 
@@ -753,17 +816,22 @@ def barrier_flags(device):
 # writes it before it reads it, and launches on one stream run in order)
 # and the barrier's flags. Keyed by library, kernel, shape, device, stream.
 _LAUNCHES: dict = {}
+# Most slots a launch takes, below the planner's answer (None: the
+# planner's). The tests set it to run a step in groups where it fits one
+# launch; on the CPU it splits the plain versions' slots the same way.
+MAX_GROUP: int | None = None
 
 
-def _launch_record(kernel, shape, kv, device, stream):
-    key = (LIBRARY, kernel, shape, kv, device.index, stream)
+def _launch_record(kernel, shape, kv, device, stream, ref_rows):
+    key = (LIBRARY, kernel, shape, kv, device.index, stream, ref_rows)
     rec = _LAUNCHES.get(key)
     if rec is None:
         s, r, n, d, hq, hkv, dh, f, c, mb = shape
-        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device, kv)
+        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device, kv, ref_rows)
         fn = getattr(_build.load(LIBRARY), kernel)
         scratch = [torch.empty(sh, dtype=dt, device=device) for sh, dt in plan.scratch.values()]
-        rec = _LAUNCHES[key] = (fn, (ctypes.c_int * 19)(*plan.ints()),
+        ints = plan.ints()
+        rec = _LAUNCHES[key] = (fn, (ctypes.c_int * len(ints))(*ints),
                                 [t.data_ptr() for t in scratch], barrier_flags(device),
                                 scratch)
         fn.restype = ctypes.c_int
@@ -783,23 +851,68 @@ def _window_arg(window):
     return int(window)
 
 
+def _grouped(fn, group, args, axes):
+    """``fn(*args)`` over the slot groups ``[i, i + group)``: each tensor of
+    ``args`` narrowed to the group along its slot axis (``axes``; None:
+    shared, as a pool), the outputs of the groups joined along axis 0 (a
+    tuple's elementwise; None stays None). One group: ``fn(*args)``
+    itself. The groups' views write into the caches in place."""
+    s = args[0].shape[0]
+    if s <= group:
+        return fn(*args)
+    parts = [fn(*(t if ax is None or t is None else t.narrow(ax, i, min(group, s - i))
+                  for t, ax in zip(args, axes)))
+             for i in range(0, s, group)]
+    if not isinstance(parts[0], tuple):
+        return torch.cat(parts)
+    return tuple(None if t[0] is None else torch.cat([movable(x) for x in t]).view(t[0].dtype)
+                 for t in zip(*parts))
+
+
+def _slot_groups(h, r, pool_k, tables, num_heads, weights):
+    """``(group, ref_rows)``: on the card the slots a launch takes
+    (:func:`slot_group`, read once a shape; at most ``MAX_GROUP``) and the
+    rows every group's k-groups are sized for (the planner's group's, so
+    each row sums in one order however the slots are grouped); on the CPU
+    ``MAX_GROUP`` (else every slot) and None."""
+    s = h.shape[0]
+    if not h.is_cuda:
+        _cpu_only(h)
+        return (s if MAX_GROUP is None else MAX_GROUP), None
+    mb = 0 if tables is None else tables.shape[1]
+    key = (s, r, h.shape[-1], num_heads, pool_k.shape[-2], pool_k.shape[-1],
+           weights["w_up"].shape[-1], pool_k.shape[-3] * (mb or 1), mb, h.device.index)
+    group = _GROUPS.get(key)
+    if group is None:
+        nsm = torch.cuda.get_device_properties(h.device).multi_processor_count
+        group = _GROUPS[key] = slot_group(*key[:-1], nsm,
+                                          coop_constants(h.device)["smem_limit"])
+    return (group if MAX_GROUP is None else min(group, MAX_GROUP)), group * r
+
+
 def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers, num_heads,
-                 rope_on, compute_dtype, ptrs, dims, window=None):
-    """Validate and launch ``kernel`` over ``n_layers`` layers of the cache
-    or pool (``scales`` = (k_scale, v_scale), None for bf16). The C
-    interface takes h_in, h_out, the weights, the caches and their scales,
-    ``ptrs`` (the [S] int32 rows, the per-layer step's fresh rows), the
-    scratch, the barrier's flags, the plan, the cache type, RoPE and the
-    window (0: none; a windowed slab rolls), then ``dims`` (the model
-    dims, then C, or NB, bs, MB). Returns h_out."""
+                 rope_on, compute_dtype, ptrs, dims, window=None, ref_rows=None):
+    """Validate and launch ``kernel`` once over ``n_layers`` layers of the
+    cache or pool (``scales`` = (k_scale, v_scale), None for bf16): one
+    group of slots. A slab cache may be a group's view of a larger one
+    (each layer's slots contiguous, the layers ``stride(0)`` apart); a pool
+    is contiguous. The C interface takes h_in, h_out, the weights, the
+    caches and their scales, ``ptrs`` (the [S] int32 rows, the per-layer
+    step's fresh rows), the scratch, the barrier's flags, the plan, the
+    cache type, RoPE and the window (0: none; a windowed slab rolls), then
+    ``dims`` (the model dims, then C, or NB, bs, MB). Returns h_out."""
     k_scale, v_scale = scales
     kv = KV_TYPES.get(pool_k.dtype)
     if compute_dtype != torch.bfloat16 or kv is None or (kv != 0) != (
             k_scale is not None and v_scale is not None):
         _check_kernel_dtypes(compute_dtype, pool_k.dtype, k_scale, v_scale)  # the reason
-    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+    def dense(t):  # whole, or B6's slab each layer's slots (a group's view)
+        return t[0].is_contiguous() if kernel == "decode_token_slab" else t.is_contiguous()
+
+    if not (dense(pool_k) and dense(pool_v) and pool_k.stride() == pool_v.stride()):
         raise ValueError("the KV cache must be contiguous")
-    if kv and not (k_scale.is_contiguous() and v_scale.is_contiguous()
+    if kv and not (dense(k_scale) and dense(v_scale) and k_scale.stride() == v_scale.stride()
+                   and k_scale.stride(0) * pool_k.shape[-1] == pool_k.stride(0)
                    and k_scale.dtype == v_scale.dtype == torch.float32):
         raise ValueError("the KV scales must be contiguous float32")
     s, d = h.shape[0], h.shape[-1]
@@ -809,7 +922,8 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers
     f = weights["w_up"].shape[-1]
     stream = _stream(h)
     fn, plan, scratch, flags, _ = _launch_record(
-        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), kv, h.device, stream)
+        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), kv, h.device, stream,
+        ref_rows)
     ws = _kernel_weights(weights, h.device)
     h = _as(h, torch.float32, h.device)
     out = torch.empty_like(h)
@@ -823,31 +937,10 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers
 
 
 def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads, rope,
-                  compute_dtype, window=None):
-    """B5 on the card: one layer's step, in launches of the most slots the
-    plan takes at this width (:func:`block_group`). Returns ``(h_out,
-    k_fresh, v_fresh, k_fresh_scale, v_fresh_scale)``."""
-    s, d = h.shape[0], h.shape[-1]
-    hkv, dh = ck.shape[-2], ck.shape[-1]
-    mb = 0 if tables is None else tables.shape[1]
-    key = (s, d, num_heads, hkv, dh, weights["w_up"].shape[-1], ck.shape[-3] * (mb or 1), mb,
-           h.device.index)
-    group = _GROUPS.get(key)
-    if group is None:
-        props = torch.cuda.get_device_properties(h.device)
-        group = _GROUPS[key] = block_group(*key[:-1], props.multi_processor_count,
-                                           coop_constants(h.device)["smem_limit"])
-    if s > group:
-        def rows(t, i):  # the slab's rows of the group; the pool is shared
-            return t if tables is not None or t is None else t[i:i + group]
-
-        parts = [_block_launch(kernel, h[i:i + group], weights, rows(ck, i), rows(cv, i),
-                               tuple(rows(t, i) for t in scales),
-                               None if tables is None else tables[i:i + group],
-                               lengths[i:i + group], num_heads, rope, compute_dtype, window)
-                 for i in range(0, s, group)]
-        return tuple(None if t[0] is None else torch.cat([movable(x) for x in t]).view(t[0].dtype)
-                     for t in zip(*parts))
+                  compute_dtype, window=None, ref_rows=None):
+    """B5 on the card, one group of slots: one layer's step. Returns
+    ``(h_out, k_fresh, v_fresh, k_fresh_scale, v_fresh_scale)``."""
+    s, hkv, dh = h.shape[0], ck.shape[-2], ck.shape[-1]
     kf = torch.empty((s, hkv, dh), dtype=ck.dtype, device=h.device)
     vf = torch.empty_like(kf)
     quant = scales[0] is not None
@@ -864,7 +957,7 @@ def _block_launch(kernel, h, weights, ck, cv, scales, tables, lengths, num_heads
     out = _coop_launch(kernel, h, weights, ck, cv, scales, tables, 1, 1, num_heads, rope,
                        compute_dtype,
                        [*ptrs, kf.data_ptr(), vf.data_ptr(), _ptr(ksf), _ptr(vsf)], dims + tail,
-                       window)
+                       window, ref_rows)
     return out, kf, vf, ksf, vsf
 
 
@@ -878,21 +971,26 @@ def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
     [S] int write positions; ``window`` W: the slab is the rolling buffer
     of a windowed model (the caller commits at ``lengths % C``). Returns
     ``(h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored,
-    k_fresh_scale, v_fresh_scale [S, Hkv] or None)``."""
-    if not h.is_cuda:
-        _cpu_only(h)
-        return decode_block_slab_plain(
-            h, weights, ck, cv, lengths, num_heads=num_heads, rope=rope,
-            compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale, window=window,
-        )
-    return _block_launch("decode_block_slab", h, weights, ck, cv, (k_scale, v_scale), None,
-                         lengths, num_heads, rope, compute_dtype, window)
+    k_fresh_scale, v_fresh_scale [S, Hkv] or None)``. One launch a group of
+    slots (:func:`slot_group`)."""
+    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights)
+
+    def one(h, ck, cv, ks, vs, lengths):
+        if not h.is_cuda:
+            return decode_block_slab_plain(h, weights, ck, cv, lengths, num_heads=num_heads,
+                                           rope=rope, compute_dtype=compute_dtype, k_scale=ks,
+                                           v_scale=vs, window=window)
+        return _block_launch("decode_block_slab", h, weights, ck, cv, (ks, vs), None, lengths,
+                             num_heads, rope, compute_dtype, window, ref)
+
+    return _grouped(one, group, (h, ck, cv, k_scale, v_scale, lengths), (0,) * 6)
 
 
 def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
                       rope=False, compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
                       window=None):
-    """The whole model's single-token step over the slab cache, one launch.
+    """The whole model's single-token step over the slab cache, one launch
+    a group of slots (:func:`slot_group`).
 
     ``h`` [S, d] f32 embedded rows, ``weights`` layer-stacked,
     ``ck``/``cv`` [n_layers, S, C, Hkv, Dh] (1-byte codes with
@@ -900,19 +998,24 @@ def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
     ``active`` [S] bool, ``window`` W (a rolling slab). Returns ``(h_out
     [S, d] f32, ck, cv)`` with the fresh rows (and scales) committed in
     place at the active rows' ``lengths`` (``% C`` when rolling)."""
-    if not h.is_cuda:
-        _cpu_only(h)
-        return decode_token_slab_plain(
-            h, weights, ck, cv, lengths, active, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
-            window=window,
-        )
-    lens, act = _i32(lengths), _i32(active)
-    n, s, c, hkv, dh = ck.shape
-    out = _coop_launch("decode_token_slab", h, weights, ck, cv, (k_scale, v_scale), None, 1, n,
-                       num_heads, rope, compute_dtype, [lens.data_ptr(), act.data_ptr()],
-                       [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c],
-                       window)
+    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights)
+
+    def one(h, ck, cv, ks, vs, lengths, active):
+        if not h.is_cuda:
+            return decode_token_slab_plain(h, weights, ck, cv, lengths, active,
+                                           num_heads=num_heads, rope=rope,
+                                           compute_dtype=compute_dtype, k_scale=ks,
+                                           v_scale=vs, window=window)[0]
+        lens, act = _i32(lengths), _i32(active)
+        n, s, c, hkv, dh = ck.shape
+        # The group's slots from the cache's first, its layers ck.stride(0) apart.
+        return _coop_launch("decode_token_slab", h, weights, ck, cv, (ks, vs), None, 1, n,
+                            num_heads, rope, compute_dtype, [lens.data_ptr(), act.data_ptr()],
+                            [n, s, h.shape[-1], num_heads, hkv, dh, weights["w_up"].shape[-1], c,
+                             ck.stride(0) // ck.stride(1)], window, ref)
+
+    out = _grouped(one, group, (h, ck, cv, k_scale, v_scale, lengths, active),
+                   (0, 1, 1, 1, 1, 0, 0))
     return out, ck, cv
 
 
@@ -927,21 +1030,26 @@ def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads
     masked), the rest as in :func:`decode_block_slab`. Returns ``(h_out
     [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh], k_fresh_scale,
     v_fresh_scale)``; the caller commits with :func:`commit_paged_rows`."""
-    if not h.is_cuda:
-        _cpu_only(h)
-        return decode_block_paged_plain(
-            h, weights, pool_k, pool_v, tables, lengths, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
-            window=window,
-        )
-    return _block_launch("decode_block_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
-                         tables, lengths, num_heads, rope, compute_dtype, window)
+    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights)
+
+    def one(h, tables, lengths):
+        if not h.is_cuda:
+            return decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths,
+                                            num_heads=num_heads, rope=rope,
+                                            compute_dtype=compute_dtype, k_scale=k_scale,
+                                            v_scale=v_scale, window=window)
+        return _block_launch("decode_block_paged", h, weights, pool_k, pool_v,
+                             (k_scale, v_scale), tables, lengths, num_heads, rope,
+                             compute_dtype, window, ref)
+
+    return _grouped(one, group, (h, tables, lengths), (0, 0, 0))
 
 
 def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
                        num_heads, rope=False, compute_dtype=torch.bfloat16, k_scale=None,
                        v_scale=None, window=None):
-    """The whole model's single-token step over the block pool, one launch.
+    """The whole model's single-token step over the block pool, one launch
+    a group of slots.
 
     ``pool_k``/``pool_v`` [n_layers, NB, bs, Hkv, Dh] (1-byte codes with
     ``k_scale``/``v_scale`` [n_layers, NB, bs, Hkv]), ``tables`` [S, MB],
@@ -949,20 +1057,23 @@ def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
     :func:`decode_token_slab`. Returns ``(h_out, pool_k, pool_v)`` with
     each active row's fresh K/V (and scales) committed in place at
     ``pool[l, tables[s, len // bs], len % bs]``."""
-    if not h.is_cuda:
-        _cpu_only(h)
-        return decode_token_paged_plain(
-            h, weights, pool_k, pool_v, tables, lengths, active, num_heads=num_heads,
-            rope=rope, compute_dtype=compute_dtype, k_scale=k_scale, v_scale=v_scale,
-            window=window,
-        )
-    lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
-    n, nb, bs, hkv, dh = pool_k.shape
-    out = _coop_launch("decode_token_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
-                       tabs, 1, n, num_heads, rope, compute_dtype,
-                       [lens.data_ptr(), act.data_ptr(), tabs.data_ptr()],
-                       [n, h.shape[0], h.shape[-1], num_heads, hkv, dh,
-                        weights["w_up"].shape[-1], nb, bs, tabs.shape[1]], window)
+    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights)
+
+    def one(h, tables, lengths, active):
+        if not h.is_cuda:
+            return decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active,
+                                            num_heads=num_heads, rope=rope,
+                                            compute_dtype=compute_dtype, k_scale=k_scale,
+                                            v_scale=v_scale, window=window)[0]
+        lens, act, tabs = _i32(lengths), _i32(active), _i32(tables)
+        n, nb, bs, hkv, dh = pool_k.shape
+        return _coop_launch("decode_token_paged", h, weights, pool_k, pool_v,
+                            (k_scale, v_scale), tabs, 1, n, num_heads, rope, compute_dtype,
+                            [lens.data_ptr(), act.data_ptr(), tabs.data_ptr()],
+                            [n, h.shape[0], h.shape[-1], num_heads, hkv, dh,
+                             weights["w_up"].shape[-1], nb, bs, tabs.shape[1]], window, ref)
+
+    out = _grouped(one, group, (h, tables, lengths, active), (0, 0, 0, 0))
     return out, pool_k, pool_v
 
 
@@ -970,9 +1081,10 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
                         active, *, num_heads, rope=False, compute_dtype=torch.bfloat16,
                         k_scale=None, v_scale=None, window=None):
     """The speculation verify over the block pool, every layer in one
-    launch.
+    launch a group of slots.
 
-    ``h`` [S, L, d] f32 embedded draft rows (L ≤ 8) at positions
+    ``h`` [S, L, d] f32 embedded draft rows (L ≤ ``COOP_MAX_ROWS``; the
+    kernels take fewer at wide models, :func:`slot_group`) at positions
     ``prefix_lens[s] + li``; ``suffix_lens`` [S] real rows per slot;
     ``active`` [S] bool; ``weights`` layer-stacked; pools, scales and
     tables as in :func:`decode_token_paged`. Each row attends the pool
@@ -983,19 +1095,23 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
     ``window`` W row li attends pool positions ``> prefix + li - W`` and
     fresh rows ``lj > li - W``. Returns ``h_out`` [S, L, d] f32; lengths
     and tables stay the caller's."""
-    if not h.is_cuda:
-        _cpu_only(h)
-        return verify_tokens_paged_plain(
-            h, weights, pool_k, pool_v, tables, prefix_lens, suffix_lens, active,
-            num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=k_scale,
-            v_scale=v_scale, window=window,
-        )
-    tabs = _i32(tables)
-    plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
-    n, nb, bs, hkv, dh = pool_k.shape
-    s, l, d = h.shape
-    return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v, (k_scale, v_scale),
-                        tabs, l, n, num_heads, rope, compute_dtype,
-                        [tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(), act.data_ptr()],
-                        [n, s, l, d, num_heads, hkv, dh, weights["w_up"].shape[-1], nb, bs,
-                         tabs.shape[1]], window)
+    group, ref = _slot_groups(h, h.shape[1], pool_k, tables, num_heads, weights)
+
+    def one(h, tables, prefix_lens, suffix_lens, active):
+        if not h.is_cuda:
+            return verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
+                                             suffix_lens, active, num_heads=num_heads,
+                                             rope=rope, compute_dtype=compute_dtype,
+                                             k_scale=k_scale, v_scale=v_scale, window=window)
+        tabs = _i32(tables)
+        plens, slens, act = _i32(prefix_lens), _i32(suffix_lens), _i32(active)
+        n, nb, bs, hkv, dh = pool_k.shape
+        s, l, d = h.shape
+        return _coop_launch("verify_tokens_paged", h, weights, pool_k, pool_v,
+                            (k_scale, v_scale), tabs, l, n, num_heads, rope, compute_dtype,
+                            [tabs.data_ptr(), plens.data_ptr(), slens.data_ptr(),
+                             act.data_ptr()],
+                            [n, s, l, d, num_heads, hkv, dh, weights["w_up"].shape[-1], nb, bs,
+                             tabs.shape[1]], window, ref)
+
+    return _grouped(one, group, (h, tables, prefix_lens, suffix_lens, active), (0,) * 5)

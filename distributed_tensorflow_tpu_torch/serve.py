@@ -73,6 +73,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM, GPTLMParams, map_params
+from distributed_tensorflow_tpu_torch.ops.fused_decode import coop_constants
 from distributed_tensorflow_tpu_torch.ops.quantized import KV_DTYPES, kv_elem_bytes
 from distributed_tensorflow_tpu_torch.serve_pool import (
     BlockAllocator,
@@ -143,7 +144,11 @@ class TextServer:
     tokens per verify, 0 = off; needs ``paged``) and ``spec_ngram``.
     ``kv_dtype`` "bf16" | "int8" | "fp8" picks the cache's storage (slab or
     pool). ``decode_engine`` None defers to the model's knob; "xla" is the
-    plain decode, taken only when named."""
+    plain decode, taken only when named. On the card a model or shape that
+    the server's decode kernels do not take (an f32 model, a head dim they
+    are not built for, a verify of more rows a slot than a launch takes,
+    shared memory) is refused here, at construction, with the reason
+    (``GPTLM._decode_unsupported_reason``)."""
 
     def __init__(
         self,
@@ -189,8 +194,10 @@ class TextServer:
             )
         self.device = resolve_device(device)
         self.model = model
-        model._resolve_decode_engine(decode_engine)  # unknown names raise here
+        engine = model._resolve_decode_engine(decode_engine)  # unknown names raise here
         self.decode_engine = decode_engine
+        if self.device.type == "cuda" and engine != "xla":
+            self._refuse_unsupported(model, engine, slots, paged, block_size, spec_draft)
         self.params = model.serving_params(
             map_params(params, lambda t: t.to(self.device))
         )
@@ -275,6 +282,24 @@ class TextServer:
         self._temp = torch.ones(s, dtype=torch.float32, device=dev)
         self._top_p = torch.ones(s, dtype=torch.float32, device=dev)
         self._eos = torch.full((s,), -1, dtype=torch.int32, device=dev)
+
+    def _refuse_unsupported(self, model, engine, slots, paged, block_size, spec_draft):
+        """Raise at construction, as the JAX server does (``serve.py``
+        :419-432), for a model or shape that a kernel this server launches
+        on the card does not take: the decode step (B6, or B5 for
+        "fused-layer") at ``slots`` rows, and the verify (B7, "fused" with
+        ``spec_draft``) at ``spec_draft + 1`` rows a slot."""
+        nsm = torch.cuda.get_device_properties(self.device).multi_processor_count
+        kw = dict(slots=slots, block_size=block_size if paged else None, nsm=nsm,
+                  smem_limit=coop_constants(self.device)["smem_limit"])
+        checks = [("the decode step", 1)]
+        if spec_draft and engine == "fused":
+            checks.append((f"the verify of {spec_draft + 1} rows a slot", spec_draft + 1))
+        for what, rows in checks:
+            why = model._decode_unsupported_reason(rows=rows, **kw)
+            if why is not None:
+                raise ValueError(f"decode engine {engine!r} cannot serve this model on the card "
+                                 f"({what}, {slots} slots): {why}")
 
     # -- the pick ----------------------------------------------------------
 

@@ -351,7 +351,7 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
         assert p.subtiles_per_cta * plan.m_tiles <= fd.MAX_TILE_ROWS
         # The k-groups of a CTA's warps: every warp a group, every m-tile a
         # slot of each group.
-        assert p.k_groups * (4 if plan.m_tiles > 2 else plan.m_tiles) == fd.COOP_WARPS
+        assert p.k_groups * plan.cs == fd.COOP_WARPS and plan.cs >= min(plan.m_tiles, 4)
         assert p.k_rows % 16 == 0 and d % p.k_rows == 0
         assert p.k_rows <= 256 or p.k_rows % 256 == 0  # whole TMA boxes
         assert p.chunk_bytes == p.tiles_per_cta * p.k_rows * p.tile_cols * 2 <= lay["wslot"]
@@ -359,7 +359,10 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     red = max(p.subtiles_per_cta * p.k_groups * plan.m_tiles * 128 * 4 for p in plan.products)
     slot = s * r * (d + 8) * 2
     g_r = hq // hkv * r
-    scores = 4 * g_r * (c + r)
+    # The score tile: the whole extent (one block), or whole KB_STEP-key
+    # chunks of it with the blocks' running sums.
+    assert plan.kb == c or (plan.kb % fd.KB_STEP == 0 and plan.kb < c)
+    scores = 4 * g_r * (plan.kb + r) + (4 * g_r * (2 + dh) if plan.kb < c else 0)
     ring = fd.RING * fd.COOP_THREADS * 16
     assert lay["w0"] == 0 and lay["wslot"] % 1024 == 0 and 2 <= lay["wslots"] <= fd.MAX_WSLOTS
     assert lay["ln"] >= lay["wslots"] * lay["wslot"] and lay["ln"] % 16 == 0
@@ -370,7 +373,8 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     assert lay["x0"] <= lay["red"] and lay["bar"] - lay["red"] >= red and lay["bar"] % 8 == 0
     assert plan.smem == lay["bar"] + 8 * (lay["slots"] + 2 * lay["wslots"] + 1) <= H100_SMEM
     ints = plan.ints()
-    assert len(ints) == 19 and ints[1] == d and ints[4:8] == [p.k_rows for p in plan.products]
+    assert len(ints) == 21 and ints[1] == d and ints[4:8] == [p.k_rows for p in plan.products]
+    assert ints[19:] == [plan.kb, plan.cs]
     assert ints[8:12] == [p.tile_cols for p in plan.products]
     assert {k: v[0] for k, v in plan.scratch.items()} == {
         "qkv": (s * r, qw + 2 * kvw), "att": (s * r, qw), "gelu": (s * r, f)}
@@ -437,7 +441,7 @@ def test_block_group_at_gpt_xl_width(s, want, mb):
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
     xl = dict(d=2048, hq=16, hkv=16, dh=128, f=8192)
-    got = fd.block_group(s, *xl.values(), 1024, mb, 132, H100_SMEM)
+    got = fd.slot_group(s, 1, *xl.values(), 1024, mb, 132, H100_SMEM)
     assert got == want
     with pytest.raises(ValueError, match="tiles x m-tiles"):
         _plan(17, 1, 1024, mb, n_layers=1, **xl)
@@ -449,13 +453,13 @@ def test_block_group_at_gpt_xl_width(s, want, mb):
 @pytest.mark.parametrize("s,want", [(8, 8), (64, 64), (100, 64)])
 def test_block_group_at_gpt_m_and_d1024(s, want):
     """gpt-m takes the cooperative kernel's 64 rows a launch; d = 1024
-    (8 x 128, F 4096) at most 32 slots."""
+    (8 x 128, F 4096) at most 32 slots; d = 512 in 16 heads of 32 (head
+    dim 32 is taken) has gpt-m's products, so gpt-m's groups."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    assert fd.block_group(s, 512, 8, 8, 64, 2048, 1024, 0, 132, H100_SMEM) == want
-    assert fd.block_group(s, 1024, 8, 8, 128, 4096, 1024, 0, 132, H100_SMEM) == min(want, 32)
-    with pytest.raises(ValueError, match="head_dim 64 or 128"):
-        fd.block_group(s, 512, 16, 16, 32, 2048, 1024, 0, 132, H100_SMEM)
+    assert fd.slot_group(s, 1, 512, 8, 8, 64, 2048, 1024, 0, 132, H100_SMEM) == want
+    assert fd.slot_group(s, 1, 1024, 8, 8, 128, 4096, 1024, 0, 132, H100_SMEM) == min(want, 32)
+    assert fd.slot_group(s, 1, 512, 16, 16, 32, 2048, 1024, 0, 132, H100_SMEM) == want
 
 
 @pytest.mark.parametrize("s,r,c,mb,hq,hkv,dh,nsm,occ", [
@@ -474,15 +478,15 @@ def test_coop_plan_small_shapes(s, r, c, mb, hq, hkv, dh, nsm, occ):
 
 
 @pytest.mark.parametrize("kw,reason", [
-    (dict(dh=32, hq=16), "head_dim 64 or 128"),
-    (dict(r=9), "1 to 8 rows a slot"),
+    (dict(dh=16, hq=32), r"head_dim 32, 64 or 128 \(got 16\)"),
+    (dict(s=1, r=65), r"1 to 64 rows in all, slots x rows a slot \(got 1 x 65\)"),
     (dict(s=9, r=8), "1 to 64 rows in all"),
     (dict(d=640), r"model_dim \(640\) = heads x head_dim"),
     (dict(s=8, r=5, d=2048, hq=16, hkv=16, dh=128, f=8192), "over 3 m-tiles"),
     (dict(f=2040), "ffn width a multiple of 16"),
     (dict(hq=8, hkv=3), "a multiple of the KV heads"),
     (dict(nsm=20), "column tiles a CTA on a grid of 20"),
-    (dict(s=8, r=8, hkv=1), "bytes of shared memory a CTA"),
+    (dict(s=1, r=64, hkv=1), "bytes of shared memory a CTA"),
     (dict(s=8, r=1, smem_limit=65536), r"\(at most 65536\)"),
     (dict(c=1000, mb=64), "whole blocks"),
     (dict(n_layers=0), "at least one layer"),
