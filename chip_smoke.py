@@ -135,7 +135,27 @@ non-zero):
     banded) through ``LMTrainer.run()`` for 64 steps each on 12(a)'s
     corpus recipe at their lengths (cut: the steps): the launches must be
     B3 + B4a, then B3 + B4b + B4c, and the cost must fall; ms a step and
-    tokens/s printed.
+    tokens/s printed;
+19. the rest of GPT training on one device. (a) gpt-xl-L1024 (``XL_CFG``,
+    bf16, batch 16, 12(a)'s corpus at 1024 tokens): one step's gradients
+    from one seeded parameter set under ``remat=True`` and
+    ``remat="selective"`` must agree bit for bit (or, where B3 itself is
+    shown not to repeat bit for bit, within GRAD_TOL); a step must launch
+    B3 n times under "selective" and 2n under True, B4b and B4c n times
+    and B4a never; each mode's step ms and peak memory printed, and
+    ``remat=False``'s where it fits; then 12 steps through ``LMTrainer``
+    with ``remat="selective"`` and the composed optimizer
+    ``accumulate(clip(adamw(cosine schedule, warmup 2), 1.0), 2)``: the
+    loss finite and falling. (b) the text path: a BPE vocabulary trained
+    on ``synthetic_documents`` (pure Python), ``text_corpus`` at 512
+    tokens, a gpt-m-width model (d=512, 4 layers, flash, bf16) trained 2
+    epochs by ``LMTrainer.run()`` and by ``run_compiled()`` from the same
+    seed: costs, perplexities and parameters equal bit for bit, the
+    perplexity below the vocabulary size, a greedy continuation decoded.
+    (c) the MNIST MLP ``Trainer``: one epoch with Adam, one through
+    ``build_trainer`` with a cosine schedule, warmup, clipping and
+    accumulation, each on ``engine="xla"`` with a falling cost; the fused
+    engine (``engine="pallas"``) must refuse both before any launch.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -386,6 +406,13 @@ FLASH_D32 = {"flash_fwd[d32]": ("flash_fwd", "gpt-s train"),
              "flash_bwd_fused[d32]": ("flash_bwd_fused", "gpt-s-L512 train"),
              "flash_bwd_dq[d32-window]": ("flash_bwd_dq", "gpt-s-L2048-W512 train"),
              "flash_bwd_dkv[d32-window]": ("flash_bwd_dkv", "gpt-s-L2048-W512 train")}
+# The flash kernels at gpt-xl-L1024's attention shapes (B=16, L=1024, 16
+# heads of 128, f32, causal; timed in phase 11), launched by phase 19(a)'s
+# selective-remat training: record -> (kernel, path).
+FLASH_XL_SELECTIVE = {"flash_fwd[xl-selective]": ("flash_fwd", "lm-train-xl-selective"),
+                      "flash_bwd_dq[xl-selective]": ("flash_bwd_dq", "lm-train-xl-selective"),
+                      "flash_bwd_dkv[xl-selective]": ("flash_bwd_dkv",
+                                                      "lm-train-xl-selective")}
 # Phase 18: (config, L, batch, window) of tools/lm_bench.py :57-63 and
 # :76-82, trained S_TRAIN_STEPS steps each (cut: the steps).
 S_TRAIN = (("gpt-s-L512-flash", 512, 32, None), ("gpt-s-L2048-flash-W512", 2048, 8, 512))
@@ -3283,8 +3310,12 @@ def bwd_d32_kernels(records, g):
 def dq_at_xl(records, g):
     """B4b (and B4c beside it) at the gpt-xl-L1024 attention shapes (B=16,
     L=1024, 16 heads of 128, f32, causal): against the plain backward at
-    REL_TOL before timing, then timed."""
+    REL_TOL before timing, then timed; B3 at the same shapes against its
+    plain version, then timed beside the plain version and SDPA. Recorded
+    under ``FLASH_XL_SELECTIVE`` (and B4b/B4c under their records'
+    ``gpt_xl``)."""
     import torch
+    import torch.nn.functional as F
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -3313,9 +3344,31 @@ def dq_at_xl(records, g):
                  **split_tf32_bound(*work))
         records[name]["gpt_xl"] = r
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], errs[name])
+        # No one call computes dq or dk/dv alone.
+        records[f"{name}[xl-selective]"] = dict(r, library_ms=None)
         print(f"  {name} at gpt-xl-L1024: kernel {r['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bound_peak']}; "
               f"{bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 CUDA cores)")
+    del do, o, lse, delta
+    with torch.no_grad():
+        out, out_lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max((out - ref).abs().max().item(), (out_lse - ref_lse).abs().max().item())
+        check_error("flash_fwd", err, ref.abs().max().item())
+        del out, out_lse, ref, ref_lse
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        work = (4 * (4 * q.numel() + b * l * h), 4 * d * pairs)
+        records["flash_fwd[xl-selective]"] = r = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=True)),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 3, 1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True)),
+            **split_tf32_bound(*work))
+    print(f"  flash_fwd at gpt-xl-L1024: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bound_peak']}; {bound(*work, PEAK_F32)['bound_ms']:.4f} ms at the f32 CUDA "
+          f"cores)")
 
 
 def unigram_perplexity(tokens, vocab):
@@ -3770,6 +3823,241 @@ def phase_s_train(records):
     records["flash_fwd[d32]"]["launches"] = fwd
 
 
+def remat_step(model, params, toks, mode, timed=3):
+    """One training step's loss and gradient leaves of ``model`` under
+    ``remat=mode`` on one batch, copied to the host, its launches, and
+    (``timed`` steps more, CUDA events) its ms a step and the peak device
+    memory of those steps. No gradients of an earlier step or mode stay on
+    the card, so each mode's peak is its own step's."""
+    import copy
+
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import lm_value_and_grad
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    m = copy.copy(model)
+    m.remat = mode
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    loss, grads = lm_value_and_grad(m, params, toks)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    loss, grads = float(loss), [x.cpu() for x in tree_leaves(grads)]
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        lm_value_and_grad(m, params, toks)
+    end.record()
+    torch.cuda.synchronize()
+    return loss, grads, launches, start.elapsed_time(end) / timed, torch.cuda.max_memory_allocated()
+
+
+def phase_selective_remat(records):
+    """19(a): selective remat at gpt-xl-L1024 width, then 12 steps of
+    LMTrainer with it and the composed optimizer."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    batch, steps = 16, XL_TRAIN_STEPS
+    model = GPTLM(**XL_CFG, compute_dtype=torch.bfloat16)
+    n = model.num_layers
+    ds = markov_corpus(**{**TRAIN_CORPUS, "num": batch * steps + 64, "n_val": 32,
+                          "n_test": 32})
+    toks = torch.from_numpy(ds.train.tokens[:batch]).cuda()
+    params = perturbed_params(model, 7, "cuda")
+    runs = {}
+    for mode in (True, "selective"):
+        loss, runs[mode], launches, ms, peak = remat_step(model, params, toks, mode)
+        print(f"  remat={mode!r}: loss {loss:.6f}, launches a step {launches}, "
+              f"{ms:.2f} ms a step (forward and backward), peak {peak / 2**30:.2f} GiB")
+        want = {"flash_fwd": n if mode == "selective" else 2 * n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n}
+        if launches != want:
+            raise AssertionError(f"remat={mode!r}: launches {launches}, want {want}")
+    try:
+        _, _, _, ms, peak = remat_step(model, params, toks, False)
+        print(f"  remat=False: {ms:.2f} ms a step, peak {peak / 2**30:.2f} GiB")
+    except torch.cuda.OutOfMemoryError:
+        print("  remat=False: does not fit in the card's memory")
+    torch.cuda.empty_cache()
+    diff = [(a != b).sum().item() for a, b in zip(runs[True], runs["selective"])]
+    if any(diff):
+        # Bit for bit unless B3 itself does not repeat: then the two modes
+        # are held to GRAD_TOL, as flash vs dense in 12(a).
+        _, again, _, _, _ = remat_step(model, params, toks, True, timed=0)
+        repeat = all(torch.equal(a, b) for a, b in zip(runs[True], again))
+        if repeat:
+            raise AssertionError(f"selective vs True: {sum(diff)} gradient elements differ "
+                                 "although remat=True repeats bit for bit")
+        worst = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(runs["selective"], runs[True]))
+        print(f"  B3 does not repeat bit for bit on this card: selective vs True within "
+              f"{worst:.3e} of each leaf's largest (GRAD_TOL {GRAD_TOL})")
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"selective vs True: {worst} > GRAD_TOL")
+    else:
+        print(f"  selective == True bit for bit on all {len(diff)} gradient leaves")
+    del runs, params, toks
+
+    lines = []
+    total = steps // 2  # applies: accumulation over 2 steps
+    opt = optim.accumulate(
+        optim.clip(optim.make("adamw", optim.schedule("cosine", 1e-3, total, warmup_steps=2)),
+                   1.0), 2)
+    tr = LMTrainer(model, ds, TrainConfig(epochs=1, batch_size=batch, remat="selective",
+                                          log_frequency=1),
+                   optimizer=opt, eval_batch=8, print_fn=lines.append)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    evals = -(-ds.validation.num_examples // 8)
+    want = {"flash_fwd": n * (steps + evals), "flash_bwd_dq": n * steps,
+            "flash_bwd_dkv": n * steps}
+    print(f"  LMTrainer(remat='selective', accumulate(clip(adamw(cosine)))): {steps} steps in "
+          f"{wall:.2f} s, launches {launches}")
+    if tr.global_step != steps or launches != want:
+        raise AssertionError(f"selective training: {tr.global_step} steps, launches "
+                             f"{launches}, want {want}")
+    for rec, (name, _) in FLASH_XL_SELECTIVE.items():
+        records[rec]["launches"] = launches[name]
+    costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in lines
+             if ln.startswith("Step:")]
+    ms = [float(ln.split("AvgTime:")[1].rstrip("ms")) for ln in lines if ln.startswith("Step:")]
+    print(f"  cost {', '.join(f'{c:.4f}' for c in costs)}; ms a step (from step 3) "
+          f"{np.mean(ms[2:]):.2f}; applies {int(tr.state.opt_state.gradient_step)}")
+    k = 3
+    if not (np.isfinite(costs).all() and np.mean(costs[-k:]) < np.mean(costs[:k])):
+        raise AssertionError(f"selective training: the loss is not finite and falling: {costs}")
+    if int(tr.state.opt_state.gradient_step) != total:
+        raise AssertionError("accumulate(2) did not apply once every 2 steps")
+    # The composed optimizer alone at these parameters: a call that only
+    # accumulates, and one that applies (clip + AdamW).
+    params, state = tr.state.params, tr.state.opt_state
+    grads = optim.tree_map(torch.ones_like, params)
+    times = {k: cuda_ms(lambda k=k: opt.update(grads, state._replace(mini_step=k), params), 10)
+             for k in (0, 1)}
+    print(f"  optimizer update at {sum(x.numel() for x in tree_leaves(params))} parameters: "
+          f"accumulate only {times[0]:.3f} ms, apply {times[1]:.3f} ms")
+
+
+# 19(b): ~6 s of BPE training in pure Python; 228 training rows of 512.
+TEXT_DOCS, TEXT_MERGES = 8192, 512
+TEXT_CFG = dict(model_dim=512, num_heads=8, num_layers=4, max_len=512,
+                attention_impl="flash", flash_min_len=0)
+
+
+def phase_text(records):
+    """19(b): BPE → text_corpus → LMTrainer.run() and run_compiled() on a
+    gpt-m-width model → greedy decoding through the tokenizer."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.text import (
+        BPETokenizer,
+        synthetic_documents,
+        text_corpus,
+    )
+    from distributed_tensorflow_tpu_torch.data.tokens import _split
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    t0 = time.perf_counter()
+    tok = BPETokenizer.train(synthetic_documents(TEXT_DOCS, seed=0), num_merges=TEXT_MERGES)
+    t1 = time.perf_counter()
+    ds = text_corpus(num_docs=TEXT_DOCS, seq_len=512, n_val=16, n_test=16, seed=0,
+                     tokenizer=tok)
+    rows = np.concatenate([ds.train.tokens, ds.validation.tokens, ds.test.tokens])
+    print(f"  BPE: {len(tok.merges)} merges over {TEXT_DOCS} documents in {t1 - t0:.2f} s "
+          f"(vocab {tok.vocab_size}); corpus {ds.train.tokens.shape} train rows in "
+          f"{time.perf_counter() - t1:.2f} s")
+    model = GPTLM(**TEXT_CFG, vocab_size=tok.vocab_size, compute_dtype=torch.bfloat16)
+    cfg = TrainConfig(epochs=2, batch_size=8, optimizer="adam", learning_rate=3e-3,
+                      log_frequency=1)
+    out = {}
+    for label in ("run", "run_compiled"):
+        lines, costs = [], []
+        # text_corpus's splits anew (its _split), each with a fresh index stream.
+        tr = LMTrainer(model, _split(rows, None, 16, 16, 0), cfg, eval_batch=8, tokenizer=tok,
+                       print_fn=lines.append)
+        step = tr._train_step  # each step's cost tensor, kept on the device
+
+        def keep(toks, lens, step=step, costs=costs):
+            costs.append(step(toks, lens))
+            return costs[-1]
+
+        tr._train_step = keep
+        t0 = time.perf_counter()
+        res = getattr(tr, label)()
+        torch.cuda.synchronize()
+        ppls = [h["perplexity"] for h in tr.history]
+        logged = [ln.split("AvgTime:")[0] for ln in lines if not ln.startswith("Total Time")]
+        out[label] = (torch.stack(costs), ppls, tree_leaves(tr.state.params), tr, logged)
+        print(f"  {label}: {tr.global_step} steps in {time.perf_counter() - t0:.2f} s, "
+              f"perplexity {', '.join(f'{p:.4f}' for p in ppls)}, final {res['perplexity']:.4f}")
+    (ca, pa, wa, tr, la), (cb, pb, wb, _, lb) = out["run"], out["run_compiled"]
+    same = all(torch.equal(a, b) for a, b in zip(wa, wb))
+    if not torch.equal(ca, cb) or pa != pb or not same or la != lb:
+        raise AssertionError(f"run_compiled != run: costs {torch.equal(ca, cb)}, perplexities "
+                             f"{pa} vs {pb}, parameters {same}, log lines {la == lb}")
+    print(f"  run_compiled == run bit for bit: {ca.numel()} costs, {len(pa)} perplexities, "
+          f"every parameter; the same {len(la)} log lines but for AvgTime")
+    if not pa[-1] < tok.vocab_size:
+        raise AssertionError(f"perplexity {pa[-1]} not below the vocabulary {tok.vocab_size}")
+    prompt = torch.from_numpy(tok.encode("the model ")[None, :]).cuda()
+    greedy = model.greedy_decode(tr.state.params, prompt, 24)[0, prompt.shape[1]:].cpu().numpy()
+    print(f"  greedy continuation of 'the model ': {greedy.tolist()} -> "
+          f"{tok.decode(greedy)!r}")
+
+
+def phase_mlp_optimizers(records, ds):
+    """19(c): the MLP Trainer with Adam, then with a schedule, warmup,
+    clipping and accumulation; the fused engine refuses both."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.launch import build_trainer
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    kws = {"adam": dict(optimizer="adam"),
+           "adam+cosine+clip+accumulate": dict(optimizer="adam", lr_schedule="cosine",
+                                               warmup_steps=50, grad_clip_norm=1.0,
+                                               accumulate_steps=2)}
+    for label, kw in kws.items():
+        lines = []
+        tr = build_trainer(TrainConfig(epochs=1, **kw), datasets=ds, print_fn=lines.append)
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in lines
+                 if ln.startswith("Step:")]
+        print(f"  {label}: {res['global_step']} steps in {time.perf_counter() - t0:.2f} s, "
+              f"cost {costs[0]:.4f} -> {costs[-1]:.4f}, accuracy {res['accuracy']:.4f}")
+        if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+            raise AssertionError(f"MLP {label}: the cost did not fall: {costs}")
+        pallas = build_trainer(TrainConfig(epochs=1, compiled_run=True, engine="pallas", **kw),
+                               datasets=ds, print_fn=lambda *a: None)
+        _build.reset_launches()
+        try:
+            pallas.run()
+        except ValueError as exc:
+            if any(_build.LAUNCHES.values()):
+                raise AssertionError(f"engine='pallas' launched before refusing: "
+                                     f"{dict(_build.LAUNCHES)}") from exc
+            print(f"  engine='pallas' refused it before any launch: {exc}")
+        else:
+            raise AssertionError(f"engine='pallas' ran {label}")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -4029,6 +4317,14 @@ def main() -> int:
     phase_s_serve(records)
     phase("18: train gpt-s-L512-flash and gpt-s-L2048-flash-W512 through LMTrainer")
     phase_s_train(records)
+    t19 = time.perf_counter()
+    phase("19(a): selective remat at gpt-xl-L1024, and the composed optimizer")
+    phase_selective_remat(records)
+    phase("19(b): BPE text through LMTrainer.run() and run_compiled()")
+    phase_text(records)
+    phase("19(c): the MLP Trainer with stateful optimizers")
+    phase_mlp_optimizers(records, ds)
+    print(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -4038,6 +4334,7 @@ def main() -> int:
     variants += [(f"{k}[{v[0]}]", k, f"{PATHS.get(k, 'main')} {v[0]}")
                  for v in S_VARIANTS for k in DECODE_KERNELS]
     variants += [(name, base, path) for name, (base, path) in FLASH_D32.items()]
+    variants += [(name, base, path) for name, (base, path) in FLASH_XL_SELECTIVE.items()]
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]

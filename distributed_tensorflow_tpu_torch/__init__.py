@@ -15,7 +15,11 @@ the radix prefix cache and prompt-lookup speculation, through the paged
 decode kernels and the speculation-verify kernel. Slice 4 trains ``GPTLM``
 through ``LMTrainer`` (``make_lm_train_step``, Adam/AdamW/momentum, the
 ``copy_corpus`` / ``markov_corpus`` token data), with the flash-attention
-backward kernels behind a ``torch.autograd.Function``. Entry points run on
+backward kernels behind one ``torch.library`` operator. Slice 12 finishes
+that training: selective remat (the forward kernel once a layer a step),
+learning-rate schedules, clipping and accumulation, the LM trainer's
+compiled run, stateful optimizers on the MLP ``Trainer``, and the text data
+(``BPETokenizer``, ``text_corpus``; ``examples/text_lm.py``). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """
@@ -56,6 +60,8 @@ _LAZY_EXPORTS = {
     ),
     "copy_corpus": ("distributed_tensorflow_tpu_torch.data.tokens", "copy_corpus"),
     "markov_corpus": ("distributed_tensorflow_tpu_torch.data.tokens", "markov_corpus"),
+    "BPETokenizer": ("distributed_tensorflow_tpu_torch.data.text", "BPETokenizer"),
+    "text_corpus": ("distributed_tensorflow_tpu_torch.data.text", "text_corpus"),
 }
 
 

@@ -23,8 +23,6 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("sync", "async_avg_every", "dp_mode", "per_worker_epoch", "model",
          "param_dtype"), "A6"),
-    **dict.fromkeys(
-        ("lr_schedule", "warmup_steps", "accumulate_steps", "grad_clip_norm"), "A4"),
     "matmul_dtype": "A5",
 }
 
@@ -41,6 +39,13 @@ class _TrainFields:
     seed: int = 1
     compute_dtype: str = "bfloat16"  # operand dtype of the model's products
     optimizer: str = "sgd"  # sgd | momentum | adam | adamw (ops/optim.make)
+    lr_schedule: str | None = None  # None/constant | cosine | linear | exponential
+    warmup_steps: int = 0  # linear lr ramp before the schedule
+    # Average grads over N micro-steps, apply once (ops/optim.accumulate).
+    # The trainers' global step counts micro-steps, not applies.
+    accumulate_steps: int = 1
+    # Global-norm gradient clipping (ops/optim.clip); 0 disables.
+    grad_clip_norm: float = 0.0
     # "naive" = the reference's CE over probabilities; "stable" = log-softmax.
     loss: str = "naive"
     # One device loop per epoch over staged batches (train/scan.py). None
@@ -52,17 +57,18 @@ class _TrainFields:
     # compiled_run engine: "xla" (PyTorch ops) | "pallas" (CUDA kernels).
     engine: str = "xla"
     # Checkpoint every GPT block in the LM trainer's forward (recomputed in
-    # the backward). "selective" is ROADMAP A4 "Left".
-    remat: bool = False
+    # the backward). "selective" saves the flash kernel's out and lse, so
+    # only the layernorm/QKV/MLP half of a block replays (models/gpt.py).
+    # The MLP Trainer takes any truthy value as plain remat of the model's
+    # apply (launch.build_trainer).
+    remat: bool | str = False
 
     def __post_init__(self):
-        if self.remat == "selective":
-            raise NotImplementedError(
-                "TrainConfig.remat='selective' is not ported yet (ROADMAP A4 "
-                "\"Left\": selective remat); remat=True checkpoints every block"
+        if not (isinstance(self.remat, bool) or self.remat == "selective"):
+            raise ValueError(
+                f"remat must be False, True, or 'selective'; got {self.remat!r} "
+                "(callable policies go directly on the model: GPTLM(remat=policy))"
             )
-        if not isinstance(self.remat, bool):
-            raise ValueError(f"remat must be False or True, got {self.remat!r}")
         if self.engine not in ("xla", "pallas"):
             raise ValueError(f"unknown engine {self.engine!r} (xla|pallas)")
         if self.loss not in ("naive", "stable"):

@@ -25,15 +25,15 @@ NOT_PORTED_ENV = {
     "DTF_MAX_RESTARTS": "A8", "DTF_STALL_TIMEOUT_MS": "A8", "DTF_MIN_WORKERS": "A8",
     "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8", "DTF_MODEL": "A6",
     "DTF_SYNC_EVERY": "A7", "DTF_OUTER_LR": "A7", "DTF_OUTER_MOMENTUM": "A7",
-    "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7", "DTF_REMAT": "A4",
-    "DTF_MATMUL_DTYPE": "A5",
+    "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7", "DTF_MATMUL_DTYPE": "A5",
 }
 
 
 def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     """Apply environment overrides to a TrainConfig: DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
-    compiled_run), as the JAX launcher reads them. The JAX launcher's other
+    compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
+    "selective"), as the JAX launcher reads them. The JAX launcher's other
     knobs raise naming the ROADMAP item that brings them, unless empty;
     invalid values raise ValueError naming the knob."""
 
@@ -58,7 +58,40 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
         kw["scan_epoch"] = os.environ["DTF_SCAN"] == "1"
     if "DTF_COMPILED" in os.environ:
         kw["compiled_run"] = os.environ["DTF_COMPILED"] == "1"
+    if "DTF_REMAT" in os.environ:
+        raw = os.environ["DTF_REMAT"]
+        # Anything but empty/0/1/"selective" fails in TrainConfig.
+        kw["remat"] = raw == "1" if raw in ("", "0", "1") else raw
     return cfg.replace(**kw) if kw else cfg
+
+
+class _RematAdapter:
+    """Checkpoints the model's ``apply`` (and ``apply_logits``): the
+    activations are recomputed in the backward instead of kept, the
+    gradients unchanged (the JAX ``_RematAdapter``, ``jax.checkpoint``
+    there, ``torch.utils.checkpoint`` here)."""
+
+    def __init__(self, model):
+        self._model = model
+        if hasattr(model, "apply_logits"):
+            self.apply_logits = self._checkpointed(model.apply_logits)
+
+    @staticmethod
+    def _checkpointed(fn):
+        from torch.utils.checkpoint import checkpoint
+
+        def run(params, x):
+            leaves = tuple(params)
+            return checkpoint(lambda x, *ps: fn(type(params)(*ps), x), x, *leaves,
+                              use_reentrant=False)
+
+        return run
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def apply(self, params, x):
+        return self._checkpointed(self._model.apply)(params, x)
 
 
 class _LogitsAdapter:
@@ -89,9 +122,12 @@ def build_trainer(
     device=None,
 ):
     """The single-device Trainer for ``config``: the MLP in the config's
-    compute dtype, the MNIST loader (synthetic when ``data_dir`` holds no
-    IDX files), the configured optimizer and loss. ``device`` defaults to
-    cuda and raises without one."""
+    compute dtype (checkpointed when ``config.remat`` is truthy, where
+    "selective" is plain remat: the MLP has no attention to save), the
+    MNIST loader (synthetic when ``data_dir`` holds no IDX files), the
+    configured optimizer, ``accumulate(clip(make(name, schedule)))`` as the
+    JAX launcher composes it, and the loss. ``device`` defaults to cuda and
+    raises without one."""
     from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
     from distributed_tensorflow_tpu_torch.models.mlp import MLP
     from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
@@ -105,9 +141,20 @@ def build_trainer(
     strategy = strategy or SingleDevice(device)
     if model is None:
         model = MLP(compute_dtype=getattr(torch, config.compute_dtype))
+    if config.remat:
+        model = _RematAdapter(model)
     datasets = datasets or read_data_sets(data_dir, one_hot=True)
     if optimizer is None:
-        optimizer = optim_lib.make(config.optimizer, config.learning_rate)
+        # The schedule counts optimizer applies: an epoch's steps, once
+        # every accumulate_steps of them.
+        applies_per_epoch = max(1, datasets.train.num_examples // config.batch_size)
+        total_applies = max(1, config.epochs * applies_per_epoch // config.accumulate_steps)
+        lr = optim_lib.schedule(config.lr_schedule, config.learning_rate, total_applies,
+                                warmup_steps=config.warmup_steps)
+        optimizer = optim_lib.accumulate(
+            optim_lib.clip(optim_lib.make(config.optimizer, lr), config.grad_clip_norm),
+            config.accumulate_steps,
+        )
     if loss_fn is None:
         if config.loss == "stable":
             if not hasattr(model, "apply_logits"):

@@ -36,7 +36,7 @@ Parameters are NamedTuples of tensors keyed like the JAX ones, so
 sequence (training and prefill) goes through the flash kernels when
 ``attention_impl="flash"`` (the dense plain path otherwise): the forward
 kernel, and under autograd the backward kernels
-(``ops/flash_attention.FlashAttention``; ``flash_fused`` picks the
+(``ops/flash_attention.flash_attention_op``; ``flash_fused`` picks the
 fused backward or the dq + dk/dv pair, None = the auto rule); the paged extend (prefill and
 the per-layer verify) is plain PyTorch, as it is XLA in the JAX package.
 Single-token decode goes through the fused decode kernels and the
@@ -46,15 +46,19 @@ kernel launches or raises; on the CPU the plain versions run; the
 it. Caches and
 pools are updated in place. Gradients are torch autograd's where the JAX
 package takes ``jax.value_and_grad``; ``remat=True`` checkpoints each
-block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
+block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there;
+``remat="selective"`` keeps the flash operator's out and lse, so the
+recompute skips the forward kernel (the JAX ``save_names`` policy, :306-340
+and :592-648); a callable ``remat`` is a torch selective-checkpoint policy.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE blocks and ``matmul_dtype`` (A5), selective remat (A4
-"Left"), the parallel train steps (A6/A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
+item): MoE blocks and ``matmul_dtype`` (A5), the parallel train steps
+(A6/A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -67,6 +71,7 @@ from distributed_tensorflow_tpu_torch.ops.attention import dense_attention
 from distributed_tensorflow_tpu_torch.ops.flash_attention import (
     FLASH_MIN_LEN,
     flash_attention,
+    selective_policy,
 )
 from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     PROJ_NAMES,
@@ -188,7 +193,7 @@ class GPTLM:
         window: int | None = None,
         moe_experts: int | None = None,
         pos_embedding: str = "learned",
-        remat: bool = False,
+        remat=False,
         flash_min_len: int | None = None,
         flash_fused: bool | None = None,
         matmul_dtype: str | None = None,
@@ -219,14 +224,16 @@ class GPTLM:
             raise ValueError(
                 f"rope needs an even head_dim, got {model_dim // num_heads}"
             )
-        if remat == "selective" or callable(remat):
-            raise NotImplementedError(
-                f"remat={remat!r} (a jax.checkpoint policy) is not ported yet "
-                "(ROADMAP A4 \"Left\": selective remat); remat=True checkpoints "
-                "every block"
+        # remat: False; True (recompute each block in the backward);
+        # "selective" (save the flash operator's out and lse, recompute the
+        # layernorm/QKV/MLP half: the forward kernel runs once a layer a
+        # step); or a torch.utils.checkpoint policy_fn (the JAX package's
+        # jax.checkpoint policy callable).
+        if not (isinstance(remat, bool) or remat == "selective" or callable(remat)):
+            raise ValueError(
+                f"remat must be False, True, 'selective', or a checkpoint "
+                f"policy callable; got {remat!r}"
             )
-        if not isinstance(remat, bool):
-            raise ValueError(f"remat must be False or True, got {remat!r}")
         if flash_fused is not None and not isinstance(flash_fused, bool):
             raise ValueError(f"flash_fused must be None, False or True, got {flash_fused!r}")
         if num_kv_heads is None:
@@ -381,13 +388,30 @@ class GPTLM:
         l = tokens.shape[1]
         positions = torch.arange(l, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
+        kw = self._checkpoint_kw()
         for i in range(self.num_layers):
             blk = layer_params(params.blocks, i)
-            if self.remat:
-                h = checkpoint(self._block_h, h, positions, *blk, use_reentrant=False)
-            else:
+            if kw is None:
                 h = self._block_h(h, positions, *blk)
+            else:
+                h = checkpoint(self._block_h, h, positions, *blk, use_reentrant=False, **kw)
         return self._logits(params, h)
+
+    def _checkpoint_kw(self):
+        """``torch.utils.checkpoint`` arguments for the ``remat`` knob, or
+        None without remat. "selective" and a callable policy run under
+        ``create_selective_checkpoint_contexts``: "selective" saves the
+        flash operator (``ops/flash_attention.selective_policy``), so the
+        recompute skips the forward kernel; on the dense path it saves
+        nothing and equals plain remat, as in the JAX package."""
+        if not self.remat:
+            return None
+        if self.remat is True:
+            return {}
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        policy = selective_policy if self.remat == "selective" else self.remat
+        return {"context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
 
     def loss(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None) -> torch.Tensor:
         """Training loss: mean next-token cross-entropy (positions 0..L-2

@@ -21,20 +21,25 @@ version. Unlike the
 JAX ``_pick_block``, which refuses L=1023, any length works: the kernels
 mask their ragged last tile.
 
-Gradients go through :class:`FlashAttention`, a ``torch.autograd.Function``
-used on both devices: its forward is the forward kernel (or the plain
-forward), and its backward forms ``delta = rowsum(dO·O) − dlse`` in f32 and
-then runs the fused backward kernel or the dq + dk/dv pair (chosen by
+Gradients go through :func:`flash_attention_op`
+(``torch.ops.dtf.FlashAttention``), a ``torch.library`` operator used on
+both devices: its forward is the forward kernel (or the plain forward),
+and its backward forms ``delta = rowsum(dO·O) − dlse`` in f32 and then
+runs the fused backward kernel or the dq + dk/dv pair (chosen by
 :func:`resolve_fused`, a copy of the JAX ``_resolve_fused``: a banded
 window, ``4 W <= L``, takes the pair), or on the CPU
 :func:`flash_bwd_plain`. Under ``torch.no_grad()``, or when no input needs
-a gradient, the forward runs alone and keeps no residuals.
+a gradient, the forward runs alone and keeps no residuals. Being one
+operator, the forward is what a selective checkpoint can save
+(:func:`selective_policy`, the counterpart of the JAX ``save_names`` /
+``_flash_rebuild`` composition, :783-822): the recompute then skips it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -301,27 +306,51 @@ def _flash_forward(q, k, v, causal, window, kv_lens):
     return flash_attention_plain(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
 
 
-class FlashAttention(torch.autograd.Function):
-    """``(q, k, v, kv_lens) → (out, lse)``, both differentiable; the JAX
-    ``_flash`` custom VJP. The backward is the kernels on the card and the
-    plain backward on the CPU; ``kv_lens`` gets no gradient."""
+@torch.library.custom_op("dtf::FlashAttention", mutates_args=())
+def flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_lens: Optional[torch.Tensor],
+    causal: bool, window: int, fused: Optional[bool],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q, k, v, kv_lens) → (out, lse)``, both differentiable: the JAX
+    ``_flash`` custom VJP as an operator that autograd and a selective
+    checkpoint see whole (``window`` 0 = none; ``fused`` picks the
+    backward). Its backward (:func:`_flash_op_backward`) runs from the
+    saved ``(q, k, v, out, lse)``; ``kv_lens`` gets no gradient."""
+    return _flash_forward(q, k, v, causal, window or None, kv_lens)
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal, window, fused):
-        out, lse = _flash_forward(q, k, v, causal, window, kv_lens)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-        ctx.causal, ctx.window, ctx.fused = causal, window, fused
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, dlse):
-        q, k, v, out, lse, kv_lens = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(out)
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.window,
-                               ctx.fused)
-        return dq, dk, dv, None, None, None, None
+def _flash_op_setup(ctx, inputs, output):
+    q, k, v, kv_lens, causal, window, fused = inputs
+    ctx.save_for_backward(q, k, v, *output, kv_lens)
+    ctx.causal, ctx.window, ctx.fused = causal, window or None, fused
+
+
+def _flash_op_backward(ctx, dout, dlse):
+    q, k, v, out, lse, kv_lens = ctx.saved_tensors
+    if dout is None:
+        dout = torch.zeros_like(out)
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.window,
+                           ctx.fused)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_attention_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
+
+# The operator a selective checkpoint saves (models/gpt.py remat="selective"):
+# its out and lse are kept from the forward, so the recompute skips the
+# forward kernel and the backward kernels run from the saved residuals (the
+# JAX save_names=REMAT_SAVE_NAMES with _flash_rebuild).
+REMAT_SAVE_OPS = (torch.ops.dtf.FlashAttention.default,)
+
+
+def selective_policy(ctx, op, *args, **kwargs):
+    """The selective-remat policy of ``torch.utils.checkpoint``: save the
+    flash operator's outputs, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in REMAT_SAVE_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
@@ -334,7 +363,7 @@ def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None
     :func:`resolve_fused`), True (one pass) or False (dq + dk/dv kernels)."""
     _check(q, k, v, kv_lens, causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, kv_lens, causal, window, fused)
+        return flash_attention_op(q, k, v, kv_lens, causal, _window_arg(window), fused)
     return _flash_forward(q, k, v, causal, window, kv_lens)
 
 

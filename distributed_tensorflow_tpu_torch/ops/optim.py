@@ -1,7 +1,8 @@
 """Optimizers of the port, in optax's arithmetic.
 
-Counterpart of ``distributed_tensorflow_tpu/ops/optim.py`` ``sgd`` and
-``make``: plain SGD (the reference's ``tf.train.GradientDescentOptimizer
+Counterpart of ``distributed_tensorflow_tpu/ops/optim.py`` ``sgd``,
+``make``, ``schedule`` (:49), ``accumulate`` (:91) and ``clip`` (:108):
+plain SGD (the reference's ``tf.train.GradientDescentOptimizer
 (0.001)``), momentum (``optax.sgd(lr, momentum=0.9)``: the trace
 ``t = g + 0.9·t``, no Nesterov), Adam and AdamW (``optax.adam`` /
 ``optax.adamw``). Each computes optax's update in optax's order, not
@@ -14,16 +15,23 @@ Counterpart of ``distributed_tensorflow_tpu/ops/optim.py`` ``sgd`` and
 
 An optimizer is a small immutable object. ``init(params)`` gives its state
 and ``update(grads, state, params)`` the new ``(params, state)``, each a
-fresh tree of the params' type (NamedTuples, nested or flat). SGD keeps
-no state and also has ``apply(params, grads)``, which the MLP paths call.
-The state's step count stays a tensor on the params' device, so an update
-never syncs with the host. Schedules, warmup, clipping and accumulation
-are not ported yet (ROADMAP A4 "Left").
+fresh tree of the params' type (NamedTuples, nested or flat). Constant-lr
+SGD keeps no state. Every learning rate is a float or a schedule from
+:func:`schedule`, a function of the optimizer state's step count, which
+stays a tensor on the params' device, so an update never syncs with the
+host. The wrappers compose as the JAX launcher composes them,
+``accumulate(clip(make(name, schedule(...)), max_norm), every)``:
+
+- :func:`clip`: optax's ``clip_by_global_norm`` ahead of the optimizer;
+- :func:`accumulate`: optax's ``MultiSteps``, a running mean of the
+  gradients over ``every`` calls, the inner update run on the last only;
+  the other calls leave the parameters as they were, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import math
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -57,38 +65,62 @@ def tree_map(fn, tree, *rest):
     )
 
 
+def _device(params):
+    return tree_leaves(params)[0].device
+
+
+def _zero_count(params) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=_device(params))
+
+
+def _lr_at(learning_rate, count):
+    """The learning rate at the state's ``count`` (before the update's
+    increment, as optax's ``scale_by_schedule`` reads it): the float
+    itself, or the schedule's f32 tensor on the count's device."""
+    return learning_rate(count) if callable(learning_rate) else learning_rate
+
+
+class ScheduleState(NamedTuple):
+    """optax ``ScaleByScheduleState``: the updates taken so far."""
+
+    count: torch.Tensor
+
+
 class SGD(NamedTuple):
-    """``p ← p − lr·g`` (optax's ``p + (−lr)·g``, the same rounding)."""
+    """``p ← p + (−lr)·g`` (optax's ``sgd``). A constant rate keeps no
+    state; a schedule keeps the step count it is evaluated on."""
 
-    learning_rate: float
-
-    def apply(self, params, grads):
-        return type(params)(*(p - self.learning_rate * g for p, g in zip(params, grads)))
+    learning_rate: float | Callable
 
     def init(self, params):
-        return ()
+        return ScheduleState(_zero_count(params)) if callable(self.learning_rate) else ()
 
     def update(self, grads, state, params):
-        return tree_map(lambda p, g: p + (-self.learning_rate) * g, params, grads), state
+        if not callable(self.learning_rate):
+            return tree_map(lambda p, g: p + (-self.learning_rate) * g, params, grads), state
+        neg = -self.learning_rate(state.count)
+        return tree_map(lambda p, g: p + neg * g, params, grads), ScheduleState(state.count + 1)
 
 
 class MomentumState(NamedTuple):
     trace: Any  # a tree of the params' shape (optax ``TraceState.trace``)
+    count: torch.Tensor  # updates taken (the schedule's step)
 
 
 class Momentum(NamedTuple):
     """optax ``sgd(lr, momentum)``: ``t = g + momentum·t``, ``p += −lr·t``."""
 
-    learning_rate: float
+    learning_rate: float | Callable
     momentum: float = 0.9
 
     def init(self, params) -> MomentumState:
-        return MomentumState(tree_map(torch.zeros_like, params))
+        return MomentumState(tree_map(torch.zeros_like, params), _zero_count(params))
 
     def update(self, grads, state: MomentumState, params):
         trace = tree_map(lambda g, t: g + self.momentum * t, grads, state.trace)
-        new = tree_map(lambda p, t: p + (-self.learning_rate) * t, params, trace)
-        return new, MomentumState(trace)
+        neg = -_lr_at(self.learning_rate, state.count)
+        new = tree_map(lambda p, t: p + neg * t, params, trace)
+        return new, MomentumState(trace, state.count + 1)
 
 
 class AdamState(NamedTuple):
@@ -103,7 +135,7 @@ class AdamState(NamedTuple):
 class Adam(NamedTuple):
     """optax ``adam`` (``weight_decay=None``) or ``adamw``."""
 
-    learning_rate: float
+    learning_rate: float | Callable
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -111,9 +143,8 @@ class Adam(NamedTuple):
     weight_decay: float | None = None
 
     def init(self, params) -> AdamState:
-        dev = tree_leaves(params)[0].device
         return AdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev),
+            count=_zero_count(params),
             mu=tree_map(torch.zeros_like, params),
             nu=tree_map(torch.zeros_like, params),
         )
@@ -126,36 +157,208 @@ class Adam(NamedTuple):
         t = count.float()
         c1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
         c2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+        # optax chains scale_by_adam, add_decayed_weights and the rate, so
+        # a schedule scales the decay too.
+        neg = -_lr_at(self.learning_rate, state.count)
 
         def step(p, m, v):
             u = (m / c1) / (torch.sqrt(v / c2 + self.eps_root) + self.eps)
             if self.weight_decay is not None:
                 u = u + self.weight_decay * p
-            return p + (-self.learning_rate) * u
+            return p + neg * u
 
         return tree_map(step, params, mu, nu), AdamState(count, mu, nu)
 
 
-def sgd(learning_rate: float = 0.001) -> SGD:
+def _rate(learning_rate):
+    return learning_rate if callable(learning_rate) else float(learning_rate)
+
+
+def sgd(learning_rate=0.001) -> SGD:
     """The reference optimizer: vanilla SGD, lr=0.001."""
-    return SGD(float(learning_rate))
+    return SGD(_rate(learning_rate))
 
 
-def momentum(learning_rate: float, momentum: float = 0.9) -> Momentum:
-    return Momentum(float(learning_rate), float(momentum))
+def momentum(learning_rate, momentum: float = 0.9) -> Momentum:
+    return Momentum(_rate(learning_rate), float(momentum))
 
 
-def adam(learning_rate: float, **kw) -> Adam:
-    return Adam(float(learning_rate), **kw)
+def adam(learning_rate, **kw) -> Adam:
+    return Adam(_rate(learning_rate), **kw)
 
 
-def adamw(learning_rate: float, weight_decay: float = 1e-4, **kw) -> Adam:
-    return Adam(float(learning_rate), weight_decay=float(weight_decay), **kw)
+def adamw(learning_rate, weight_decay: float = 1e-4, **kw) -> Adam:
+    return Adam(_rate(learning_rate), weight_decay=float(weight_decay), **kw)
 
 
-def make(name: str, learning_rate: float):
-    """The optimizer ``TrainConfig.optimizer`` names."""
+def make(name: str, learning_rate):
+    """The optimizer ``TrainConfig.optimizer`` names; ``learning_rate`` is a
+    float or a schedule (:func:`schedule`)."""
     registry = {"sgd": sgd, "momentum": momentum, "adam": adam, "adamw": adamw}
     if name not in registry:
         raise ValueError(f"unknown optimizer {name!r}; have {sorted(registry)}")
     return registry[name](learning_rate)
+
+
+# -- learning-rate schedules (optax's arithmetic on an int32 step count) -----
+
+
+class Cosine(NamedTuple):
+    """optax ``cosine_decay_schedule(init_value, decay_steps)``."""
+
+    init_value: float
+    decay_steps: int
+
+    def __call__(self, count):
+        t = torch.clamp(count, max=self.decay_steps).float()
+        decay = 0.5 * (1 + torch.cos(math.pi * t / float(self.decay_steps)))
+        return self.init_value * decay
+
+
+class Linear(NamedTuple):
+    """optax ``linear_schedule(init_value, end_value, transition_steps)``."""
+
+    init_value: float
+    end_value: float
+    transition_steps: int
+
+    def __call__(self, count):
+        frac = 1 - torch.clamp(count, 0, self.transition_steps) / self.transition_steps
+        return (self.init_value - self.end_value) * frac + self.end_value
+
+
+class Exponential(NamedTuple):
+    """optax ``exponential_decay(init_value, transition_steps, decay_rate)``."""
+
+    init_value: float
+    transition_steps: int
+    decay_rate: float
+
+    def __call__(self, count):
+        p = count / self.transition_steps
+        decayed = self.init_value * torch.pow(torch.tensor(self.decay_rate, device=count.device), p)
+        return torch.where(count <= 0, self.init_value, decayed)
+
+
+class Warmup(NamedTuple):
+    """optax ``join_schedules([linear ramp 0 → peak], [warmup_steps])``: the
+    ramp below ``warmup_steps``, then ``peak`` at ``count − warmup_steps``
+    (a float peak is held)."""
+
+    ramp: Linear
+    peak: Any
+    warmup_steps: int
+
+    def __call__(self, count):
+        after = count - self.warmup_steps
+        peak = self.peak(after) if callable(self.peak) else self.peak
+        return torch.where(count < self.warmup_steps, self.ramp(count), peak)
+
+
+def schedule(name: str | None, learning_rate: float, total_steps: int, *,
+             warmup_steps: int = 0):
+    """The learning rate ``TrainConfig.lr_schedule`` names (the JAX
+    ``optim.schedule``): ``None``/"constant" return the float unchanged, so
+    the constant path stays bitwise; "cosine", "linear" (to 0) and
+    "exponential" (to 1% of the peak) decay over ``max(1, total_steps −
+    warmup_steps)`` steps after a linear warmup from 0. ``total_steps``
+    counts optimizer applies (under :func:`accumulate`, one per ``every``
+    calls). A schedule maps the state's device step count to an f32 tensor."""
+    decay_steps = max(1, total_steps - warmup_steps)
+    lr = float(learning_rate)
+    if name in (None, "constant"):
+        base = lr
+    elif name == "cosine":
+        base = Cosine(lr, decay_steps)
+    elif name == "linear":
+        base = Linear(lr, 0.0, decay_steps)
+    elif name == "exponential":
+        base = Exponential(lr, decay_steps, 0.01)
+    else:
+        raise ValueError(
+            f"unknown lr schedule {name!r}; use constant/cosine/linear/exponential"
+        )
+    if warmup_steps > 0:
+        return Warmup(Linear(0.0, lr, warmup_steps), base, warmup_steps)
+    return base
+
+
+# -- clipping and accumulation ----------------------------------------------
+
+
+def global_norm(grads) -> torch.Tensor:
+    """optax ``global_norm``: sqrt of the sum over leaves of each leaf's
+    sum of squares."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+
+
+class Clip(NamedTuple):
+    """optax ``chain(clip_by_global_norm(max_norm), inner)``: the gradients
+    scaled by ``max_norm / norm`` (as ``(g / norm) · max_norm``) unless
+    ``norm < max_norm``; the state is the inner optimizer's."""
+
+    inner: Any
+    max_norm: float
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        norm = global_norm(grads)
+        keep = norm < self.max_norm
+        clipped = tree_map(
+            lambda g: torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_norm), grads
+        )
+        return self.inner.update(clipped, state, params)
+
+
+class MultiStepsState(NamedTuple):
+    """optax ``MultiStepsState`` (without the skip state)."""
+
+    mini_step: int  # calls since the last apply, on the host
+    gradient_step: torch.Tensor  # applies so far (int32)
+    inner_opt_state: Any
+    acc_grads: Any  # running mean of this window's gradients
+
+
+class Accumulate(NamedTuple):
+    """optax ``MultiSteps(inner, every_k_schedule=every)``: ``acc += (g −
+    acc) / (k + 1)``; on the ``every``-th call the inner update runs on
+    ``acc`` and ``acc`` resets, the other calls return the parameters and
+    the inner state as they were. The mini-step advances by one a call
+    whatever the data, so it is a host int and the choice (optax's
+    ``lax.cond``) reads nothing from the device."""
+
+    inner: Any
+    every: int
+
+    def init(self, params) -> MultiStepsState:
+        return MultiStepsState(
+            0, _zero_count(params), self.inner.init(params), tree_map(torch.zeros_like, params)
+        )
+
+    def update(self, grads, state: MultiStepsState, params):
+        k = state.mini_step
+        acc = tree_map(lambda g, a: a + (g - a) / (k + 1), grads, state.acc_grads)
+        if k + 1 < self.every:
+            return params, state._replace(mini_step=k + 1, acc_grads=acc)
+        new_params, new_inner = self.inner.update(acc, state.inner_opt_state, params)
+        return new_params, MultiStepsState(
+            0, state.gradient_step + 1, new_inner, tree_map(torch.zeros_like, acc)
+        )
+
+
+def clip(optimizer, max_norm: float):
+    """Global-norm clipping ahead of ``optimizer``; ``max_norm <= 0``
+    returns the optimizer unchanged."""
+    if max_norm <= 0:
+        return optimizer
+    return Clip(optimizer, float(max_norm))
+
+
+def accumulate(optimizer, every: int):
+    """Average the gradients over ``every`` calls and apply once;
+    ``every <= 1`` returns the optimizer unchanged."""
+    if every <= 1:
+        return optimizer
+    return Accumulate(optimizer, int(every))

@@ -30,18 +30,22 @@ class TrainState(NamedTuple):
     step: int
 
 
-def sgd_step(model, loss_fn, optimizer, params, x, y):
+def sgd_step(model, loss_fn, optimizer, params, opt_state, x, y):
     """One update: the cost of ``loss_fn(model.apply(params, x), y)``, its
-    gradient by autograd, and ``optimizer.apply``. Returns ``(params,
-    cost)`` with the cost detached on the device. Shared by the eager step,
-    the scanned epochs and the whole-run path, so they update identically."""
+    gradient by autograd, and ``optimizer.update(grads, opt_state,
+    params)`` (any optimizer of ``ops/optim.py``). Returns ``(params,
+    opt_state, cost)`` with the cost detached on the device. Shared by the
+    eager step and the device loop (``train/scan.py``), so every path
+    updates identically."""
     leaves = [p.detach().requires_grad_(True) for p in params]
     with torch.enable_grad():
         cost = loss_fn(model.apply(type(params)(*leaves), x), y)
         grads = torch.autograd.grad(cost, leaves)
     with torch.no_grad():
-        new = optimizer.apply(type(params)(*(p.detach() for p in leaves)), grads)
-    return new, cost.detach()
+        new, opt_state = optimizer.update(
+            type(params)(*grads), opt_state, type(params)(*(p.detach() for p in leaves))
+        )
+    return new, opt_state, cost.detach()
 
 
 class SingleDevice:
@@ -54,12 +58,15 @@ class SingleDevice:
         self.device = resolve_device(device)
 
     def init_state(self, model, optimizer, seed: int) -> TrainState:
-        return TrainState(model.init(seed, device=self.device), None, 0)
+        params = model.init(seed, device=self.device)
+        return TrainState(params, optimizer.init(params), 0)
 
     def make_train_step(self, model, loss_fn, optimizer):
         def step(state: TrainState, x, y):
-            params, cost = sgd_step(model, loss_fn, optimizer, state.params, x, y)
-            return TrainState(params, state.opt_state, state.step + 1), cost
+            params, opt_state, cost = sgd_step(
+                model, loss_fn, optimizer, state.params, state.opt_state, x, y
+            )
+            return TrainState(params, opt_state, state.step + 1), cost
 
         return step
 

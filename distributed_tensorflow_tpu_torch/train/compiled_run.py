@@ -8,8 +8,10 @@ generator), each step gathers its batch on the device, the per-epoch test
 accuracy is computed on the device, and the caller fetches the costs
 ``[epochs, steps]`` and accuracies ``[epochs]`` once at the end.
 
-Semantics vs the eager loop: the same update rule, batch size and update
-count. The shuffle comes from torch's generator instead of the host numpy
+Each epoch is a call of the one device loop (``train/scan.py``
+``device_loop``, through the indexed scanned epoch). Semantics vs the
+eager loop: the same update rule (any optimizer, its state carried), batch
+size and update count. The shuffle comes from torch's generator instead of the host numpy
 stream, so batch composition differs the way two seeds differ. With
 ``shuffle=False`` batches are taken in dataset order every epoch.
 """
@@ -19,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
-from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState, sgd_step
+from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+from distributed_tensorflow_tpu_torch.train.scan import make_indexed_scanned_train_fn
 
 
 def wrapped_epoch_perm(generator, *, domain: int, need: int, k: int, shuffle: bool, device):
@@ -50,24 +53,21 @@ def make_compiled_run_fn(
     package's ``steps_per_epoch`` (the per-worker epoch of data
     parallelism) comes with ROADMAP A6."""
 
+    epoch_fn = make_indexed_scanned_train_fn(model, loss_fn, optimizer)
+
     def run(state: TrainState, train_x, train_y, test_x, test_y, generator):
         steps = train_x.shape[0] // batch_size
         need = steps * batch_size
         dev = train_x.device
-        params = state.params
         costs = torch.empty((epochs, steps), dtype=torch.float32, device=dev)
         accs = torch.empty(epochs, dtype=torch.float32, device=dev)
         for e in range(epochs):
             perm = wrapped_epoch_perm(
                 generator, domain=need, need=need, k=1, shuffle=shuffle, device=dev
             ).reshape(steps, batch_size)
-            for i in range(steps):
-                x = train_x.index_select(0, perm[i])
-                y = train_y.index_select(0, perm[i])
-                params, costs[e, i] = sgd_step(model, loss_fn, optimizer, params, x, y)
+            state, costs[e] = epoch_fn(state, train_x, train_y, perm)
             with torch.no_grad():
-                accs[e] = losses_lib.accuracy(model.apply(params, test_x), test_y)
-        state = TrainState(params, state.opt_state, state.step + epochs * steps)
+                accs[e] = losses_lib.accuracy(model.apply(state.params, test_x), test_y)
         return state, {"costs": costs, "accuracy": accs}
 
     return run

@@ -19,19 +19,36 @@ batch]`` indices are drawn from the dataset's own ``next_indices`` stream
 the device, and a cost is fetched to the host only where a log line is
 due. In PyTorch the JAX package's eager and scanned epochs both come down
 to this loop, so ``TrainConfig.scan_epoch`` is accepted and changes
-nothing. ``TrainConfig.remat=True`` checkpoints every block, on a copy of
+nothing. ``TrainConfig.remat`` (True or "selective") lands on a copy of
 the model.
 
+:meth:`LMTrainer.run_compiled` (and ``run()`` under
+``TrainConfig.compiled_run``) is the JAX ``_build_compiled_run_fn``
+(:1299-1440): every epoch's ``[steps, batch]`` indices come from the same
+``next_indices`` stream, each step gathers its batch on the device, each
+epoch's held-out perplexity is summed on the device in ``eval_batch``-row
+chunks (the split trimmed to a chunk multiple, as there), and the costs
+and sums are fetched once at the end, from which the same log lines are
+printed. The updates, hence the parameters and costs, equal ``run()``'s
+bit for bit. ``tokenizer=`` is kept on ``self.tokenizer``.
+
+As in the JAX trainer, the optimizer is ``optimizer=`` or else the plain
+``ops/optim.make(config.optimizer, config.learning_rate)``: the config's
+``lr_schedule``, ``warmup_steps``, ``grad_clip_norm`` and
+``accumulate_steps`` act only through an ``optimizer=`` composed from
+them, as ``launch.build_trainer`` composes the MLP ``Trainer``'s.
+
 Not ported yet, and refused when asked for: ``mesh`` and the parallel
-modes (ROADMAP A6/A7), the supervisor and checkpoints, summaries, the
-journal and metrics, ``epochs_per_dispatch`` and the anomaly guard (A8),
-a tokenizer shipped with checkpoints (A3/A8), the DiLoCo ``delta_exchange``
-(A7), and ``compiled_run`` for the LM (A4 "Left").
+modes (ROADMAP A6/A7), the supervisor and checkpoints (and with them the
+``tokenizer.json`` written beside a checkpoint), summaries, the journal
+and metrics, ``epochs_per_dispatch`` and the anomaly guard (A8), and the
+DiLoCo ``delta_exchange`` (A7).
 """
 
 from __future__ import annotations
 
 import copy
+import time
 
 import numpy as np
 import torch
@@ -50,7 +67,6 @@ NOT_PORTED = {
     "supervisor": ((None,), "A8"),
     "journal": ((None,), "A8"),
     "metrics": ((None,), "A8"),
-    "tokenizer": ((None,), "A3/A8"),
     "delta_exchange": ((None,), "A7"),
     "is_chief": ((True,), "A6/A7"),
     "async_update_scale": ((None,), "A7"),
@@ -75,6 +91,7 @@ class LMTrainer:
         eval_batch: int = 256,
         print_fn=print,
         device=None,
+        tokenizer=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -86,10 +103,7 @@ class LMTrainer:
                     f"LMTrainer({name}=...) is not ported yet (ROADMAP {item})"
                 )
         self.config = config or TrainConfig()
-        if self.config.compiled_run:
-            raise NotImplementedError(
-                "compiled_run for the LM trainer is not ported yet (ROADMAP A4 \"Left\")"
-            )
+        self.tokenizer = tokenizer
         # The config's remat lands on a shallow copy, so the caller's model
         # object keeps its own setting (as in the JAX trainer).
         if self.config.remat and not model.remat:
@@ -139,49 +153,92 @@ class LMTrainer:
 
     def _ce_count(self, params, toks, lens):
         """(CE · target count, target count) of one token block, masked when
-        ragged: the eval arithmetic of :meth:`evaluate`."""
+        ragged (the count then a device tensor): the one eval arithmetic of
+        :meth:`evaluate` and the compiled run."""
         if self._ragged:
             ce = self.model.loss(params, toks, lens)
-            count = int(torch.clamp(lens.long() - 1, min=0).sum())
+            count = torch.clamp(lens.long() - 1, min=0).sum()
         else:
             ce = self.model.loss(params, toks)
             count = toks.shape[0] * (toks.shape[1] - 1)
         return ce * count, count
 
     @torch.no_grad()
-    def evaluate(self, split: str = "validation") -> float:
-        """Held-out perplexity = exp(total next-token CE / total targets),
-        over the whole split in ``eval_batch``-row chunks."""
-        ds = getattr(self.datasets, split)
-        toks = self._stage(f"{split}_tokens", ds.tokens)
-        lens = self._stage(f"{split}_lengths", ds.lengths) if self._ragged else None
-        b = min(self.eval_batch, ds.num_examples)
-        total, count = 0.0, 0
-        for lo in range(0, ds.num_examples, b):
-            hi = min(lo + b, ds.num_examples)
+    def _eval_sums(self, toks, lens, *, trim: bool = False):
+        """Held-out sums at the current parameters, on the device: (Σ CE ·
+        count as f64, Σ count as int64) over ``eval_batch``-row chunks, added
+        in order. ``trim`` drops the rows past the last whole chunk (the
+        compiled run's eval, as in the JAX package); else a smaller last
+        chunk covers the whole split."""
+        n = toks.shape[0]
+        b = min(self.eval_batch, n)
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        count = torch.zeros((), dtype=torch.int64, device=self.device)
+        for lo in range(0, (n // b) * b if trim else n, b):
+            hi = min(lo + b, n)
             s, c = self._ce_count(
                 self.state.params, toks[lo:hi], None if lens is None else lens[lo:hi]
             )
-            total += float(s)
-            count += c
-        return float(np.exp(total / max(count, 1)))
+            total = total + s.double()
+            count = count + c
+        return total, count
+
+    @staticmethod
+    def _perplexity(total, count) -> float:
+        """exp(total / count) on the host, from fetched sums."""
+        return float(np.exp(float(total) / max(int(count), 1)))
+
+    def _split_arrays(self, split: str):
+        """A split's tokens (and lengths when ragged), staged on the device."""
+        ds = getattr(self.datasets, split)
+        lens = self._stage(f"{split}_lengths", ds.lengths) if self._ragged else None
+        return self._stage(f"{split}_tokens", ds.tokens), lens
+
+    def evaluate(self, split: str = "validation") -> float:
+        """Held-out perplexity = exp(total next-token CE / total targets),
+        over the whole split in ``eval_batch``-row chunks."""
+        return self._perplexity(*self._eval_sums(*self._split_arrays(split)))
 
     # -- the loop ---------------------------------------------------------
 
+    def _draw_indices(self, epochs: int, steps: int) -> torch.Tensor:
+        """``[epochs, steps, batch]`` train indices from the split's own
+        ``next_indices`` stream (the batches ``next_batch`` would give), on
+        the device."""
+        train, b = self.datasets.train, self.config.batch_size
+        idxs = np.stack([np.stack([train.next_indices(b) for _ in range(steps)])
+                         for _ in range(epochs)])
+        return torch.from_numpy(idxs.astype(np.int64)).to(self.device)
+
+    def _epoch_steps(self, idxs, toks_all, lens_all):
+        """One epoch on the device, the loop :meth:`run` and
+        :meth:`run_compiled` share: each row of ``idxs`` gathers its batch
+        and takes a step. Yields ``(i, cost)``, the cost on the device."""
+        for i in range(idxs.shape[0]):
+            lens = None if lens_all is None else lens_all.index_select(0, idxs[i])
+            yield i, self._train_step(toks_all.index_select(0, idxs[i]), lens)
+
+    def _end_epoch(self, logger: StepLogger, epoch: int, perplexity: float, step: int) -> None:
+        logger.log_epoch_metric("Test-Perplexity", perplexity)
+        self.history.append({"epoch": epoch + 1, "perplexity": perplexity, "step": step})
+
+    def _finish(self, logger: StepLogger, perplexity: float, final_cost=None) -> dict:
+        if final_cost is None:
+            final_cost = float("nan") if self.last_cost is None else float(self.last_cost)
+        logger.log_final(cost=final_cost)
+        return {
+            "perplexity": perplexity,
+            "final_cost": final_cost,
+            "global_step": self.global_step,
+        }
+
     def run_epoch(self, epoch: int, logger: StepLogger) -> None:
-        cfg = self.config
-        train = self.datasets.train
-        steps = train.num_examples // cfg.batch_size
+        steps = self.datasets.train.num_examples // self.config.batch_size
         step_before = self.global_step
-        toks_all = self._stage("train_tokens", train.tokens)
-        lens_all = self._stage("train_lengths", train.lengths) if self._ragged else None
-        idxs = np.stack([train.next_indices(cfg.batch_size) for _ in range(steps)])
-        idxs = torch.from_numpy(idxs.astype(np.int64)).to(self.device)
         logger.reset_window()
         cost = None
-        for i in range(steps):
-            lens = None if lens_all is None else lens_all.index_select(0, idxs[i])
-            cost = self._train_step(toks_all.index_select(0, idxs[i]), lens)
+        for i, cost in self._epoch_steps(self._draw_indices(1, steps)[0],
+                                         *self._split_arrays("train")):
             if logger.is_due(i + 1, steps):  # the fetch waits for the device
                 logger.maybe_log_step(
                     step=step_before + i + 1, epoch=epoch, batch=i,
@@ -190,22 +247,56 @@ class LMTrainer:
         if cost is not None:
             self.last_cost = float(cost)
 
+    def run_compiled(self, epochs: int | None = None) -> dict:
+        """The whole run with no host round trip until its end (the JAX
+        ``run_compiled``): :meth:`run`'s epoch loop over indices drawn for
+        every epoch up front, each epoch's perplexity from
+        :meth:`_eval_sums` over whole chunks, the costs and sums fetched
+        once afterwards and printed as :meth:`run`'s lines (a uniform
+        AvgTime). Where ``eval_batch`` divides the split, each epoch's
+        perplexity is :meth:`evaluate`'s bit for bit. The returned
+        perplexity is :meth:`evaluate`'s over the whole split."""
+        cfg = self.config
+        epochs = cfg.epochs if epochs is None else epochs
+        steps = self.datasets.train.num_examples // cfg.batch_size
+        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
+        if epochs * steps == 0:
+            return self._finish(logger, self.evaluate("validation"), float("nan"))
+        train, val = self._split_arrays("train"), self._split_arrays("validation")
+        idxs = self._draw_indices(epochs, steps)
+        step_before = self.global_step
+        costs = torch.empty((epochs, steps), dtype=torch.float32, device=self.device)
+        totals = torch.empty(epochs, dtype=torch.float64, device=self.device)
+        counts = torch.empty(epochs, dtype=torch.int64, device=self.device)
+        t0 = time.time()
+        for e in range(epochs):
+            for i, cost in self._epoch_steps(idxs[e], *train):
+                costs[e, i] = cost
+            totals[e], counts[e] = self._eval_sums(*val, trim=True)
+        costs = costs.cpu().numpy()  # the run's one fetch waits for the device
+        totals, counts = totals.cpu().numpy(), counts.cpu().numpy()
+        avg_ms = (time.time() - t0) * 1000 / (epochs * steps)
+        self.last_cost = float(costs[-1, -1])
+        for e in range(epochs):
+            for i in range(steps):
+                if logger.is_due(i + 1, steps):
+                    logger.log_step_line(
+                        step=step_before + e * steps + i + 1, epoch=e, batch=i,
+                        batch_count=steps, cost=float(costs[e, i]), avg_ms=avg_ms,
+                    )
+            self._end_epoch(logger, e, self._perplexity(totals[e], counts[e]),
+                            step_before + (e + 1) * steps)
+        return self._finish(logger, self.evaluate("validation"))
+
     def run(self, epochs: int | None = None) -> dict:
         cfg = self.config
+        if cfg.compiled_run:
+            return self.run_compiled(epochs)
         epochs = cfg.epochs if epochs is None else epochs
         logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
         perplexity = float("nan")
         for epoch in range(epochs):
             self.run_epoch(epoch, logger)
             perplexity = self.evaluate("validation")
-            logger.log_epoch_metric("Test-Perplexity", perplexity)
-            self.history.append(
-                {"epoch": epoch + 1, "perplexity": perplexity, "step": self.global_step}
-            )
-        final_cost = float(self.last_cost) if self.last_cost is not None else float("nan")
-        logger.log_final(cost=final_cost)
-        return {
-            "perplexity": perplexity,
-            "final_cost": final_cost,
-            "global_step": self.global_step,
-        }
+            self._end_epoch(logger, epoch, perplexity, self.global_step)
+        return self._finish(logger, perplexity)

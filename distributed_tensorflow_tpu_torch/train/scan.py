@@ -3,9 +3,11 @@
 Counterpart of ``distributed_tensorflow_tpu/train/scan.py``. The JAX
 package compiles an epoch into one ``lax.scan`` dispatch; here the scan is
 a Python loop of device steps over batches staged on the device, with the
-per-step costs kept on the device and fetched once by the caller. The
-update sequence is the eager loop's: same batches, same order, same
-updates (``parallel.strategy.sgd_step``).
+per-step costs kept on the device and fetched once by the caller
+(:func:`device_loop`, which the whole run of ``train/compiled_run.py``
+also calls). The update sequence is the eager loop's: same batches, same
+order, same updates (``parallel.strategy.sgd_step``, any optimizer of
+``ops/optim.py`` with its state carried through).
 """
 
 from __future__ import annotations
@@ -13,7 +15,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
 from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState, sgd_step
+
+
+def device_loop(model, loss_fn, optimizer, state: TrainState, steps: int, batch):
+    """The one MLP device loop: ``steps`` updates (``sgd_step``), step i on
+    ``batch(i) -> (x, y)``, the costs kept in a [steps] device tensor for
+    the caller to fetch once. The scanned epochs below and the whole run
+    (``train/compiled_run.py``) are its callers."""
+    params, opt_state = state.params, state.opt_state
+    costs = torch.empty(steps, dtype=torch.float32, device=tree_leaves(params)[0].device)
+    for i in range(steps):
+        params, opt_state, costs[i] = sgd_step(
+            model, loss_fn, optimizer, params, opt_state, *batch(i)
+        )
+    return TrainState(params, opt_state, state.step + steps), costs
 
 
 def make_scanned_train_fn(model, loss_fn, optimizer):
@@ -21,11 +38,8 @@ def make_scanned_train_fn(model, loss_fn, optimizer):
     [steps, batch, features]; ``costs`` [steps] on the device."""
 
     def run(state: TrainState, xs, ys):
-        params = state.params
-        costs = torch.empty(xs.shape[0], dtype=torch.float32, device=xs.device)
-        for i in range(xs.shape[0]):
-            params, costs[i] = sgd_step(model, loss_fn, optimizer, params, xs[i], ys[i])
-        return TrainState(params, state.opt_state, state.step + xs.shape[0]), costs
+        return device_loop(model, loss_fn, optimizer, state, xs.shape[0],
+                           lambda i: (xs[i], ys[i]))
 
     return run
 
@@ -37,13 +51,10 @@ def make_indexed_scanned_train_fn(model, loss_fn, optimizer):
     is the index array)."""
 
     def run(state: TrainState, train_x, train_y, idxs):
-        params = state.params
-        costs = torch.empty(idxs.shape[0], dtype=torch.float32, device=train_x.device)
-        for i in range(idxs.shape[0]):
-            x = train_x.index_select(0, idxs[i])
-            y = train_y.index_select(0, idxs[i])
-            params, costs[i] = sgd_step(model, loss_fn, optimizer, params, x, y)
-        return TrainState(params, state.opt_state, state.step + idxs.shape[0]), costs
+        return device_loop(
+            model, loss_fn, optimizer, state, idxs.shape[0],
+            lambda i: (train_x.index_select(0, idxs[i]), train_y.index_select(0, idxs[i])),
+        )
 
     return run
 

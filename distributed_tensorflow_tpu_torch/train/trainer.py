@@ -15,6 +15,11 @@ accuracy and wall time per epoch, and a final-cost line. Three paths:
   ``engine="xla"`` (PyTorch ops and autograd) or ``engine="pallas"`` (the
   CUDA whole-epoch kernel of ``ops/fused_mlp.py``, one launch per epoch).
 
+Every path but the kernel's takes any optimizer of ``ops/optim.py``
+(momentum, Adam, AdamW, schedules, clipping, accumulation) and carries its
+state in ``TrainState.opt_state``; ``engine="pallas"`` refuses them, with
+the JAX package's wording and probes, before any launch.
+
 Not ported yet, and refused when asked for: the supervisor and
 checkpointing, anomaly rollback, ``epochs_per_dispatch``, prefetch,
 summaries, the journal and metrics (ROADMAP A8), other strategies and
@@ -77,12 +82,6 @@ class Trainer:
         self.device = strategy.device
         self.loss_fn = loss_fn or losses_lib.cross_entropy
         self.optimizer = optimizer or optim_lib.sgd(self.config.learning_rate)
-        if not hasattr(self.optimizer, "apply"):
-            raise NotImplementedError(
-                f"the MLP Trainer applies stateless optimizers (sgd); "
-                f"{type(self.optimizer).__name__} keeps state, which this trainer "
-                "does not carry yet (ROADMAP A4 \"Left\")"
-            )
         self.print_fn = print_fn
 
         self.state = self.strategy.init_state(self.model, self.optimizer, self.config.seed)
@@ -268,18 +267,26 @@ class Trainer:
             problems.append(f"model {type(self.model).__name__} (need MLP)")
         if not isinstance(self.strategy, SingleDevice):
             problems.append(f"strategy {type(self.strategy).__name__} (need SingleDevice)")
-        if cfg.optimizer != "sgd":
+        if (
+            cfg.optimizer != "sgd"
+            or cfg.lr_schedule not in (None, "constant")  # optim treats both as constant
+            or cfg.warmup_steps
+        ):
             problems.append("optimizer config (need plain constant-lr sgd)")
         if cfg.loss != "naive":
             problems.append("loss config (need the reference's naive CE)")
+        if cfg.accumulate_steps != 1 or cfg.grad_clip_norm:
+            problems.append("accumulation/clipping (unsupported in the kernel)")
         # The objects themselves may be passed to Trainer directly, so they
-        # must also behave as sgd(lr) and the naive CE. Two applies expose
-        # an optimizer with state (one apply of any of them matches SGD).
+        # must also behave as sgd(lr) and the naive CE. Two updates expose
+        # momentum/adam/schedules/accumulation (all of which match plain
+        # SGD on a single first step).
         probe = MLPParams(*(torch.tensor(v) for v in ([[0.5, -1.5]], [2.0], [[0.25]], [-1.0])))
 
         def two_updates(opt):
-            p1 = opt.apply(probe, probe)
-            p2 = opt.apply(p1, MLPParams(*(0.5 * t for t in probe)))
+            s = opt.init(probe)
+            p1, s = opt.update(probe, s, probe)
+            p2, _ = opt.update(MLPParams(*(0.5 * t for t in probe)), s, p1)
             return torch.cat([t.flatten() for t in (*p1, *p2)])
 
         try:
@@ -289,7 +296,10 @@ class Trainer:
         except (AttributeError, TypeError, ValueError, RuntimeError):
             opt_ok = False
         if not opt_ok:
-            problems.append("optimizer (need plain constant-lr sgd semantics)")
+            problems.append(
+                "optimizer (need plain constant-lr sgd semantics: no "
+                "momentum/adam, schedule, warmup, clipping, or accumulation)"
+            )
         y_probe = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
         p_probe = torch.tensor([[0.7, 0.3], [0.2, 0.8]])
         try:

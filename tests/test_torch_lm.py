@@ -158,12 +158,18 @@ def test_remat_gradients_equal_no_remat(impl):
         assert torch.equal(a, b), name
 
 
-def test_remat_policies_are_refused():
+def test_remat_policies_are_accepted():
+    """"selective" and a checkpoint policy callable are accepted (they were
+    refused before selective remat); anything else raises."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
 
-    for bad in ("selective", lambda *a: True):
-        with pytest.raises(NotImplementedError, match="A4"):
-            GPTLM(remat=bad)
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    for ok in ("selective", policy):
+        assert GPTLM(remat=ok).remat is ok
     with pytest.raises(ValueError, match="remat"):
         GPTLM(remat="full")
 

@@ -235,7 +235,7 @@ def test_ragged_corpus_trains_through_the_masked_loss():
 @pytest.mark.parametrize("name,value,item", [
     ("mesh", object(), "A6/A7"), ("summary_writer", object(), "A8"),
     ("supervisor", object(), "A8"), ("journal", object(), "A8"),
-    ("metrics", object(), "A8"), ("tokenizer", object(), "A3/A8"),
+    ("metrics", object(), "A8"),
     ("delta_exchange", object(), "A7"), ("is_chief", False, "A6/A7"),
     ("tp_axis", "tensor", "A7"), ("sp_attention", "ulysses", "A7"),
 ])
@@ -251,15 +251,41 @@ def test_refused_trainer_knobs(name, value, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(compiled_run=True), "A4"), (dict(epochs_per_dispatch=2), "A8"),
-    (dict(checkpoint_dir="/tmp/ckpt"), "A8"), (dict(max_rollbacks=1), "A8"),
-    (dict(remat="selective"), "A4"), (dict(lr_schedule="cosine"), "A4"),
+    (dict(epochs_per_dispatch=2), "A8"), (dict(checkpoint_dir="/tmp/ckpt"), "A8"),
+    (dict(max_rollbacks=1), "A8"),
 ])
 def test_refused_config(kw, item):
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
     with pytest.raises(NotImplementedError, match=item):
         LMTrainer(_model(), _corpus(), _cfg(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(compiled_run=True), dict(remat="selective"), dict(lr_schedule="cosine"),
+    dict(tokenizer=True),
+], ids=["compiled_run", "selective", "lr_schedule", "tokenizer"])
+def test_lifted_refusals_are_accepted(kw):
+    """What this trainer refused before the optimizer wrappers, selective
+    remat, the compiled run and the text data: each is accepted and runs
+    one epoch (the tokenizer is kept on the trainer). As in the JAX
+    trainer, the config's schedule, clipping and accumulation fields act
+    only through an ``optimizer=`` composed from them (as
+    ``launch.build_trainer`` composes the MLP Trainer's): the trainer
+    itself builds the plain ``make(optimizer, learning_rate)``."""
+    from distributed_tensorflow_tpu_torch.data.text import ByteTokenizer
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    tok = ByteTokenizer() if kw.pop("tokenizer", None) else None
+    cfg = _cfg(epochs=1, **kw)
+    tr = LMTrainer(_model(attention_impl="flash", flash_min_len=0), _corpus(), cfg,
+                   device="cpu", tokenizer=tok, print_fn=lambda *a: None)
+    assert tr.tokenizer is tok
+    assert tr.model.remat == cfg.remat
+    assert tr.optimizer == optim.make(cfg.optimizer, cfg.learning_rate)
+    res = tr.run()
+    assert res["global_step"] == 8 and np.isfinite(res["final_cost"])
 
 
 def test_config_remat_lands_on_a_copy_and_misc_refusals():
@@ -282,11 +308,21 @@ def test_lm_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         LMTrainer(_model(), _corpus(), _cfg())
 
 
-def test_mlp_trainer_refuses_stateful_optimizers():
-    """``ops/optim.make`` now serves momentum/adam/adamw; the MLP Trainer
-    applies stateless SGD only and refuses them naming the item."""
+def test_mlp_trainer_takes_stateful_optimizers():
+    """The MLP Trainer carries momentum/adam/adamw state through its step
+    (it refused them before the optimizer state was threaded through)."""
+    from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
     from distributed_tensorflow_tpu_torch.launch import build_trainer
 
+    rng = np.random.default_rng(0)
+    x = rng.random((300, 784), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 300)]
+    ds = Datasets(train=DataSet(x[:200], y[:200], seed=1),
+                  validation=DataSet(x[200:], y[200:], seed=3),
+                  test=DataSet(x[200:], y[200:], seed=2))
     for name in ("momentum", "adam", "adamw"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            build_trainer(_cfg(optimizer=name), datasets=object(), device="cpu")
+        tr = build_trainer(_cfg(optimizer=name, epochs=1, batch_size=50), datasets=ds,
+                           device="cpu", print_fn=lambda *a: None)
+        res = tr.run(1)
+        assert res["global_step"] == 4 and np.isfinite(res["final_cost"])
+        assert int(tr.state.opt_state.count) == 4
