@@ -125,7 +125,7 @@ non-zero):
     heads of 32: head_dim 32): decode-full on bf16 and int8 caches,
     decode-window256 (the rolling slab of 256 rows) on both, decode-gqa2
     (2 KV heads) and decode-full with RoPE, on their traffic (8 prompts of
-    256 tokens, 256 greedy tokens each) through phase 13's five servers,
+    256 tokens; 128 greedy tokens each, cut from 256) through phase 13's five servers,
     each held against ``decode_engine="xla"``; tokens/s, ms a step and
     TTFT printed. Then C1 end to end: ``TextServer`` over gpt-m with 2 KV
     heads at max_len 2048, paged, ``spec_draft=4``, 16 slots (the verify in
@@ -155,7 +155,27 @@ non-zero):
     (c) the MNIST MLP ``Trainer``: one epoch with Adam, one through
     ``build_trainer`` with a cosine schedule, warmup, clipping and
     accumulation, each on ``engine="xla"`` with a falling cost; the fused
-    engine (``engine="pallas"``) must refuse both before any launch.
+    engine (``engine="pallas"``) must refuse both before any launch;
+20. the data-parallel modes (``torch.distributed``, ``parallel/``). (a) A
+    world of one over NCCL (``parallel.mesh.init_world``): the MLP
+    ``Trainer`` 2 epochs on ``SyncDataParallel`` and on
+    ``AsyncDataParallel(avg_every=50, update_scale=1)`` must equal
+    ``SingleDevice`` bit for bit; a step's ms and an all-reduce's us
+    printed. (c) B2's data-parallel composition
+    (``ops.fused_mlp.make_fused_async_epoch_fn``) on 2 ranks of the card,
+    started by ``tools/launch_local.launch``: one 550-step epoch at
+    ``avg_every=50`` against the plain composition within phase 7's B2
+    tolerance, 11 launches a rank an epoch, then 100 epochs at lr 0.002 a
+    rank to the 0.72 oracle, an epoch's ms split into kernel and exchange.
+    (b) The reference's topologies through the launcher, 2 workers + 1 ps,
+    gloo over CUDA tensors, 784->100->10 at batch 100 a worker: sync with
+    ``per_worker_epoch=True`` and async with ``avg_every=50``, 75 epochs
+    each (cut from 100) to the 0.72 oracle (the sync run beside the
+    others: cut), the
+    reference's lines from the chief only, the ps tasks' two lines; then
+    ``examples/between_sync.py`` and ``between_async.py`` for one epoch.
+    A task of these clusters is ``chip_smoke.py --dp-task sync|async|fused``
+    (logs in ``chiprun_out/phase20/``).
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -392,8 +412,11 @@ S_SERVE = (("s-full", {}, ("bf16", "int8")), ("s-window", {"window": 256}, ("bf1
            ("s-gqa2", {"num_kv_heads": 2}, ("bf16",)),
            ("s-rope", {"pos_embedding": "rope"}, ("bf16",)))
 # Their traffic (DECODE_CONFIGS): 8 requests of 256-token prompts, 256 new
-# tokens each, greedy.
+# tokens each, greedy. Phase 17 serves S_SERVED_NEW of them (cut: the new
+# tokens, 256 -> 128, since phase 20 came; past the window's 256 all the
+# same); phase 3 holds the kernels over the whole S_MAX_NEW.
 S_REQUESTS, S_PROMPT, S_MAX_NEW = 8, 256, 256
+S_SERVED_NEW = 128
 # The decode kernels' head-dim-32 variants held in phase 3 at gpt-s widths
 # and served in phase 17: (label, RoPE, KV cache type, KV heads, window).
 S_VARIANTS = (("s-full-bf16", False, "bf16", 8, None), ("s-full-int8", False, "int8", 8, None),
@@ -3012,6 +3035,7 @@ def phase_mlp_train(records, ds):
         raise AssertionError(f"the plain path failed: {lines[-3:]}")
     print(f"  2 epochs, default plain scanned path: test accuracy {res['accuracy']:.4f}, "
           f"final cost {res['final_cost']:.4f}, {2 * n / wall:.1f} examples/s")
+    records["mlp_train_single"] = dict(plain_ex_s=2 * n / wall)
 
 
 def phase_mlp_bench(records, ds):
@@ -3670,12 +3694,12 @@ def phase_window_train(records):
 
 def s_requests(vocab, seed):
     """The decode-* traffic: ``S_REQUESTS`` seeded prompts of ``S_PROMPT``
-    tokens, ``S_MAX_NEW`` greedy tokens each."""
+    tokens, ``S_SERVED_NEW`` greedy tokens each."""
     from distributed_tensorflow_tpu_torch.serve import GenerationConfig
 
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, S_PROMPT).astype(np.int32) for _ in range(S_REQUESTS)]
-    return prompts, [GenerationConfig(max_new=S_MAX_NEW) for _ in prompts]
+    return prompts, [GenerationConfig(max_new=S_SERVED_NEW) for _ in prompts]
 
 
 def phase_s_serve(records):
@@ -4058,6 +4082,354 @@ def phase_mlp_optimizers(records, ds):
             raise AssertionError(f"engine='pallas' ran {label}")
 
 
+# Phase 20: the data-parallel modes. The reference's topologies run 2
+# workers and 1 ps (BASELINE.md rows 3-5) at the reference's widths (784->100
+# ->10, batch 100 a worker, lr 0.001); B2's composition runs 2 ranks at
+# avg_every 50 with a per-rank lr of 0.002 (the JAX docstring's pre-scaled
+# rate for 2 workers). Ranks sharing the one card take gloo over CUDA
+# tensors; a world of one takes NCCL.
+DP_EPOCHS = 100
+# Cut: the topologies of (b) train 75 epochs, not the reference's 100. A
+# gloo all-reduce between two processes of the host (2.03 ms for 318 KB in
+# (c), PERF.md section 6, PR 13) is a step of the sync run; at 100 epochs
+# (b) took 271.5 s and the smoke 989.4 s. Both runs crossed the 0.72 oracle
+# at epochs 64-66 there (sync 0.74 at 70, 0.77 at 80).
+DP_TOPOLOGY_EPOCHS = 75
+DP_AVG_EVERY = 50
+DP_LR = 0.002
+DP_WORKERS = 2
+
+
+def dp_logdir(name):
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "phase20", name)
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def dp_task(kind, epochs, port, argv) -> int:
+    """One task of a phase-20 cluster (``--dp-task``), started by
+    ``tools/launch_local.launch``: ``sync`` / ``async`` train the reference
+    topology through ``launch.run``; ``fused`` runs B2's composition. A
+    worker prints ``RESULT <json>`` last."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
+    from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
+    from distributed_tensorflow_tpu_torch.launch import run
+
+    cluster = ClusterConfig.from_lists(
+        [f"127.0.0.1:{port + i}" for i in range(DP_WORKERS)], [f"127.0.0.1:{port + 10}"])
+    ds = read_data_sets("MNIST_data", one_hot=True)
+    if kind == "fused":
+        return dp_fused_task(cluster, ds, epochs, argv)
+    cfg = (TrainConfig(epochs=epochs, per_worker_epoch=True) if kind == "sync"
+           else TrainConfig(epochs=epochs, sync=False, async_avg_every=DP_AVG_EVERY))
+    t0 = time.perf_counter()
+    res = run(cluster, cfg, argv=argv, datasets=ds)
+    if res is not None:
+        torch.cuda.synchronize()
+        print("RESULT " + json.dumps(dict(res, wall=time.perf_counter() - t0)))
+    return 0
+
+
+def dp_fused_task(cluster, ds, epochs, argv) -> int:
+    """B2's data-parallel composition on this rank: one epoch against the
+    plain composition, then ``epochs`` epochs to the oracle, timed; the
+    kernel's and the exchange's share of an epoch timed apart."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+    from distributed_tensorflow_tpu_torch.models.mlp import MLP
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+    from distributed_tensorflow_tpu_torch.ops.losses import accuracy
+    from distributed_tensorflow_tpu_torch.parallel.mesh import batch_sharded, make_mesh
+
+    ctx = bootstrap_from_argv(cluster, argv)
+    world = make_mesh()
+    dev = world.device
+    B, steps = 100, ds.train.num_examples // 100  # each rank: 550 steps of 100 an epoch
+    gb = B * world.size
+    kw = dict(steps=steps, batch_size=B, learning_rate=DP_LR, avg_every=DP_AVG_EVERY,
+              stream_dtype=torch.bfloat16)
+    run, plain_run = (fm.make_fused_async_epoch_fn(world, **kw),
+                      fm.make_fused_async_epoch_fn(world, plain=True, **kw))
+    train_x = torch.from_numpy(ds.train.images).to(dev)
+    train_y = torch.from_numpy(ds.train.labels).to(dev)
+    tx, ty = torch.from_numpy(ds.test.images).to(dev), torch.from_numpy(ds.test.labels).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)  # the same stream on every rank
+
+    def epoch_batches():
+        # The per-worker epoch: steps x global batch rows over two permutations.
+        perm = torch.cat([torch.randperm(ds.train.num_examples, generator=gen, device=dev)
+                          for _ in range(-(-steps * gb // ds.train.num_examples))])
+        idx = perm[: steps * gb]
+        return (train_x.index_select(0, idx).reshape(steps, gb, -1).bfloat16(),
+                train_y.index_select(0, idx).reshape(steps, gb, -1).bfloat16())
+
+    base = fm.to_fused_stacked(MLP().init(seed=1, device=dev), world)
+    xs, ys = epoch_batches()
+    k, p = fm.FusedState(*(t.clone() for t in base)), fm.FusedState(*(t.clone() for t in base))
+    _build.reset_launches()
+    k, kc = run(k, xs, ys)
+    one_epoch_launches = _build.LAUNCHES["fused_mlp_epoch_dp"]
+    p, pc = plain_run(p, xs, ys)
+    torch.cuda.synchronize()
+    err = check_mlp("fused_mlp_epoch", (kc, pc), k, p, base)
+    q = fm.FusedState(*(t.clone() for t in base))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_run(q, xs, ys)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    # The main path: epochs of the composition from the seed-1 start.
+    state = fm.FusedState(*(t.clone() for t in base))
+    _build.reset_launches()
+    epoch_ms, accs = [], []
+    t_run = time.perf_counter()
+    for e in range(epochs):
+        xs, ys = epoch_batches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, costs = run(state, xs, ys)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        h = torch.sigmoid(tx @ state.w1 + state.b1)
+        acc = float(accuracy(h @ state.w2 + state.b2, ty))
+    wall = time.perf_counter() - t_run
+    launches = _build.LAUNCHES["fused_mlp_epoch_dp"]
+
+    # An epoch's split: its rounds' launches alone (the wrapper's launcher,
+    # uncounted) and its exchanges alone (all-reduces of the four tensors).
+    cols = batch_sharded(world, gb)
+    mx, my = xs[:, cols].contiguous(), ys[:, cols].contiguous()
+    lib = fm.kernels("fused_mlp")
+    scratch = fm.FusedState(*(t.clone() for t in state))
+    kernel_ms = cuda_ms(lambda: [fm.launch_epoch(lib, scratch, mx[lo:lo + DP_AVG_EVERY],
+                                                 my[lo:lo + DP_AVG_EVERY], DP_LR)
+                                 for lo in range(0, steps, DP_AVG_EVERY)], 5, 1)
+    rounds = steps // DP_AVG_EVERY
+    world.all_reduce_(torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5 * rounds):
+        world.mean_(scratch)
+    torch.cuda.synchronize()
+    exchange_ms = (time.perf_counter() - t0) * 1e3 / 5
+    ar = torch.zeros(79510, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        world.all_reduce_(ar)
+    torch.cuda.synchronize()
+    ar_us = (time.perf_counter() - t0) * 1e6 / 50
+    ctx.close()
+    print("RESULT " + json.dumps(dict(
+        rank=world.rank, backend=world.backend, one_epoch_launches=one_epoch_launches,
+        launches=launches, epochs=epochs, accuracy=acc, wall=wall,
+        epoch_ms=sorted(epoch_ms)[len(epoch_ms) // 2], plain_ms=plain_ms, kernel_ms=kernel_ms,
+        exchange_ms=exchange_ms, all_reduce_us=ar_us, max_abs_err=err,
+        final_cost=float(costs[-1]))))
+    return 0
+
+
+def dp_launch(name, command, workers, ps, env=None):
+    """Start a cluster through the port's launcher; returns (rc, logs)."""
+    from distributed_tensorflow_tpu_torch.tools.launch_local import launch
+
+    logdir = dp_logdir(name)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(env or {}, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    rc = launch(command, workers, ps, logdir, env=env, print_fn=lambda s: print(f"  {s}"))
+    wall = time.perf_counter() - t0
+    logs = {}
+    for fn in sorted(os.listdir(logdir)):
+        with open(os.path.join(logdir, fn)) as f:
+            logs[fn[:-4]] = f.read()
+    if rc != 0:
+        for n, text in logs.items():
+            print(f"  --- {n}.log ---\n" + "\n".join(text.splitlines()[-30:]))
+        raise AssertionError(f"{name}: a worker failed (launcher exit {rc})")
+    print(f"  {name}: {workers} workers + {ps} ps in {wall:.1f} s (logs in {logdir})")
+    return logs
+
+
+def dp_result(log):
+    return json.loads(log.split("RESULT ", 1)[1].splitlines()[0])
+
+
+def dp_check_reference_lines(name, logs, epochs):
+    """The chief prints the reference's lines (steps, an accuracy and a
+    time an epoch, the final cost, Done); the other workers step lines only;
+    every ps task its two lines."""
+    chief = logs["worker0"].splitlines()
+    need = ("worker setting up ...", "Ready to go")
+    for n in [k for k in logs if k.startswith("worker")]:
+        lines = logs[n].splitlines()
+        if not all(x in lines for x in need) or not any(x.startswith("Step: ") for x in lines):
+            raise AssertionError(f"{name}: {n} lacks the worker lines")
+        joined = [x for x in lines if x.startswith("data parallel: rank ")]
+        if len(joined) != 1 or not joined[0].endswith(" over gloo"):
+            raise AssertionError(f"{name}: {n} did not join the group over gloo: {joined}")
+        print(f"  | {n}: {joined[0]}")
+        if n != "worker0" and any(x.startswith(("Test-Accuracy", "Final Cost", "Done"))
+                                  for x in lines):
+            raise AssertionError(f"{name}: {n} printed the chief's lines")
+    if (sum(x.startswith("Test-Accuracy: ") for x in chief) != epochs
+            or sum(x.startswith("Total Time: ") for x in chief) != epochs
+            or not any(x.startswith("Final Cost: ") for x in chief) or "Done" not in chief):
+        raise AssertionError(f"{name}: the chief did not print the reference's lines")
+    for n in [k for k in logs if k.startswith("ps")]:
+        if logs[n].splitlines()[:1] != ["ps setting up ..."]:
+            raise AssertionError(f"{name}: {n} did not print the ps lines")
+    for x in [x for x in chief if x.startswith("Step: ")][-1:] + chief[-4:]:
+        print(f"  | {x}")
+
+
+def phase_dp(records, ds, smi):
+    """20: (a) a world of one over NCCL, sync and async against
+    SingleDevice; (b) the reference's topologies through the launcher;
+    (c) B2's data-parallel composition on 2 ranks."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.launch import build_trainer
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.parallel.mesh import init_world
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        AsyncDataParallel,
+        SingleDevice,
+        SyncDataParallel,
+    )
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # (a) World size 1 over NCCL.
+    world = init_world(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    print(f"  (a) world {world.size} on {world.device}, backend {world.backend} [{smi}]")
+    if world.backend != "nccl":
+        raise AssertionError(f"a world of one on the card took {world.backend}")
+    finals = {}
+    for label, strategy in (("single", SingleDevice()), ("sync", SyncDataParallel(world)),
+                            ("async", AsyncDataParallel(world, avg_every=DP_AVG_EVERY,
+                                                        update_scale=1))):
+        tr = build_trainer(TrainConfig(epochs=2, log_frequency=10**9), datasets=ds,
+                           strategy=strategy, print_fn=lambda *a: None)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = tr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if tr._indexed_fn is None or any(_build.LAUNCHES.values()):
+            raise AssertionError(f"{label}: the default path on cuda is the scanned plain path")
+        finals[label] = [t.clone() for t in tr.strategy.to_canonical(tr.state).params]
+        print(f"  (a) {label}: 2 epochs, {res['global_step']} steps, "
+              f"{1e3 * wall / res['global_step']:.4f} ms a step, accuracy {res['accuracy']:.4f}")
+    for label in ("sync", "async"):
+        if not all(torch.equal(a, b) for a, b in zip(finals[label], finals["single"])):
+            raise AssertionError(f"(a) {label} over NCCL differs from SingleDevice")
+    print("  (a) sync and async(update_scale=1) equal SingleDevice bit for bit")
+    bucket = torch.zeros(784 * 100 + 100 + 100 * 10 + 10 + 1, device=world.device)
+    ar_us = 1e3 * cuda_ms(lambda: world.all_reduce_(bucket), 200, 20)
+    print(f"  (a) all_reduce of the sync bucket ({bucket.numel()} f32) over NCCL: "
+          f"{ar_us:.2f} us [{smi}]")
+    dist.destroy_process_group()
+
+    # (c) B2's data-parallel composition, 2 ranks on the card, first and
+    # alone: its times are the kernels line's.
+    me = [sys.executable, os.path.abspath(__file__)]
+    logs = dp_launch("fused-dp-async", me + ["--dp-task", "fused", "--dp-epochs", str(DP_EPOCHS),
+                                             "--dp-port", str(free_port())], DP_WORKERS, 0)
+    ranks = [dp_result(logs[f"worker{r}"]) for r in range(DP_WORKERS)]
+    rounds = (ds.train.num_examples // 100) // DP_AVG_EVERY
+    for r in ranks:
+        print(f"  (c) rank {r['rank']}: one epoch against the plain composition, max_abs_err "
+              f"{r['max_abs_err']:.3e} (phase 7's B2 tolerance, checked on the rank)")
+        if r["one_epoch_launches"] != rounds or r["launches"] != rounds * DP_EPOCHS:
+            raise AssertionError(f"rank {r['rank']}: {r['one_epoch_launches']} launches an "
+                                 f"epoch, {r['launches']} in {DP_EPOCHS} (want {rounds} a rank)")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"2 ranks on one card took {r['backend']}")
+    r0 = ranks[0]
+    print(f"  (c) {DP_EPOCHS} epochs, lr {DP_LR} a rank, avg_every {DP_AVG_EVERY}: accuracy "
+          f"{r0['accuracy']:.4f} (oracle >= {ACCURACY_ORACLE}), {r0['launches']} launches a rank "
+          f"({rounds} an epoch), {r0['wall']:.2f} s")
+    print(f"  (c) an epoch a rank: {r0['epoch_ms']:.3f} ms (median), of which kernel "
+          f"{r0['kernel_ms']:.3f} ms ({rounds} launches) and exchange {r0['exchange_ms']:.3f} ms "
+          f"({rounds} all-reduces of the 4 tensors, {r0['all_reduce_us']:.1f} us each over gloo); "
+          f"plain composition {r0['plain_ms']:.3f} ms [{smi}]")
+    if not r0["accuracy"] >= ACCURACY_ORACLE:
+        raise AssertionError(f"B2 data-parallel: accuracy {r0['accuracy']} below the oracle")
+
+    # (b) The reference's topologies, 2 workers + 1 ps on the card (gloo).
+    # Cut: the sync run (a gloo all-reduce a step, see DP_TOPOLOGY_EPOCHS)
+    # runs beside the async run and the examples, not after them; its s an
+    # epoch is printed whole and over its last 20 epochs.
+    import threading
+
+    single = records.get("mlp_train_single", {})
+    topology = {}
+
+    def start(kind):
+        topology[kind] = dp_launch(
+            f"topology-{kind}", me + ["--dp-task", kind, "--dp-epochs", str(DP_TOPOLOGY_EPOCHS),
+                                      "--dp-port", str(free_port())], DP_WORKERS, 1)
+
+    def sync_run():
+        try:
+            start("sync")
+        except BaseException as exc:  # re-raised on the main thread below
+            topology["error"] = exc
+
+    behind = threading.Thread(target=sync_run)
+    behind.start()
+    start("async")
+    for ex in ("between_sync", "between_async"):
+        logs = dp_launch(ex, [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.examples.{ex}"],
+                         DP_WORKERS, 1, env={"DTF_EPOCHS": "1"})
+        dp_check_reference_lines(ex, logs, 1)
+    behind.join()
+    if "error" in topology:
+        raise topology["error"]
+    for kind in ("sync", "async"):
+        logs = topology[kind]
+        dp_check_reference_lines(kind, logs, DP_TOPOLOGY_EPOCHS)
+        res = dp_result(logs["worker0"])
+        times = [float(x.split()[-1].rstrip("s")) for x in logs["worker0"].splitlines()
+                 if x.startswith("Total Time: ")]
+        total, last = times[-1], (times[-1] - times[-21]) / 20
+        steps_a_rank = res["global_step"] // (1 if kind == "sync" else DP_WORKERS)
+        examples = steps_a_rank * 100 * DP_WORKERS
+        print(f"  (b) {kind} ({'per_worker_epoch' if kind == 'sync' else f'avg_every {DP_AVG_EVERY}'}"
+              f"), {DP_TOPOLOGY_EPOCHS} epochs (cut from 100): accuracy {res['accuracy']:.4f} "
+              f"(oracle >= {ACCURACY_ORACLE}), final cost {res['final_cost']:.4f}, global step "
+              f"{res['global_step']}, {total / DP_TOPOLOGY_EPOCHS:.3f} s an epoch ({last:.3f} over the "
+              f"last 20), {examples / total:.1f} examples/s over both ranks; single device "
+              f"(phase 8, plain scanned path): {single.get('plain_ex_s', float('nan')):.1f} "
+              f"examples/s [{smi}]")
+        if not res["accuracy"] >= ACCURACY_ORACLE:
+            raise AssertionError(f"{kind}: accuracy {res['accuracy']} below the oracle")
+    B, IN, H, OUT, steps = 100, 784, 100, 10, ds.train.num_examples // 100
+    flops = 2 * B * (IN * H * 2 + H * OUT * 3)
+    pbytes = 4 * (IN * H + H + H * OUT + OUT)
+    records["fused_mlp_epoch[dp-async]"] = dict(
+        launches=r0["launches"], max_abs_err=max(r["max_abs_err"] for r in ranks),
+        ms=r0["epoch_ms"],
+        plain_ms=r0["plain_ms"], library_ms=None,
+        **bound(2 * steps * B * (IN + OUT) + 2 * pbytes * (1 + rounds) + 4 * steps,
+                steps * flops, PEAK_F32),
+    )
+    r = records["fused_mlp_epoch[dp-async]"]
+    print(f"  fused_mlp_epoch[dp-async]: {r['ms']:.4f} ms an epoch a rank, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -4230,7 +4602,15 @@ def main() -> int:
                     help="only time B5/B6/B7/B4b through their wrappers (no phase runs)")
     ap.add_argument("--root", help="with --kernel-times: the checkout whose package to time")
     ap.add_argument("--label", default="", help="with --kernel-times: a name for the line")
-    args = ap.parse_args()
+    ap.add_argument("--dp-task", choices=("sync", "async", "fused"),
+                    help="run one task of a phase-20 cluster (started by the launcher)")
+    ap.add_argument("--dp-epochs", type=int, default=DP_EPOCHS)
+    ap.add_argument("--dp-port", type=int, default=0)
+    args, rest = ap.parse_known_args()
+    if args.dp_task:
+        return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
         if not args.kernel_times:
             ap.error("--root goes with --kernel-times")
@@ -4325,6 +4705,11 @@ def main() -> int:
     phase("19(c): the MLP Trainer with stateful optimizers")
     phase_mlp_optimizers(records, ds)
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    phase("20: the data-parallel modes (NCCL world of one; 2 workers + 1 ps over gloo; "
+          "B2's composition on 2 ranks)")
+    phase_dp(records, ds, smi)
+    print(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -4336,6 +4721,7 @@ def main() -> int:
     variants += [(name, base, path) for name, (base, path) in FLASH_D32.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_XL_SELECTIVE.items()]
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
+    variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

@@ -1,30 +1,114 @@
-"""Training configuration of the port: the slice of the JAX package's
-``TrainConfig`` (``distributed_tensorflow_tpu/config.py``) that the MLP
-and GPT training paths read, with the same defaults, so one configuration
-means the same run in both packages.
+"""Cluster and training configuration of the port: a copy of the JAX
+package's ``ClusterConfig`` and the slice of its ``TrainConfig``
+(``distributed_tensorflow_tpu/config.py``) that the MLP and GPT training
+paths read, with the same defaults, so one configuration means the same
+run in both packages.
+
+``ClusterConfig`` keeps the reference's ``settings.py`` surface (two
+host:port lists). ``worker_svrs`` entries are the ranks of one
+``torch.distributed`` process group, entry 0 its rendezvous address and
+the chief; ``ps_svrs`` is accepted and plays no role (parameters live on
+the ranks, gradients and parameters meet by all-reduce).
 
 ``engine`` keeps the JAX values: ``"xla"`` is the generic path (plain
 PyTorch ops and autograd here) and ``"pallas"`` the fused whole-epoch
 kernel (the CUDA kernels of ``ops/fused_mlp.py`` here).
 
-A JAX field this slice does not port is refused, whatever its value,
-naming the ROADMAP item that brings it.
+A JAX field the port does not have yet is refused, whatever its value,
+naming the ROADMAP item that brings it; so are the values of ``model``
+and ``dp_mode`` that a later item brings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Any, Sequence
 
 # JAX TrainConfig field -> the ROADMAP item that ports it.
 NOT_PORTED = {
     **dict.fromkeys(
         ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
-         "prefetch", "logs_path", "profile_dir", "log_placement"), "A8"),
-    **dict.fromkeys(
-        ("sync", "async_avg_every", "dp_mode", "per_worker_epoch", "model",
-         "param_dtype"), "A6"),
+         "logs_path", "profile_dir"), "A8"),
     "matmul_dtype": "A5",
 }
+# Values of served fields that a later item brings.
+MODELS_NOT_PORTED = ("cnn", "lstm", "transformer")  # the JAX registry's others: A6b
+DP_MODES_NOT_PORTED = ("diloco", "tp", "ep", "pp", "sp")  # LM-trainer modes: A7
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """Topology of a training job (the JAX ``ClusterConfig``).
+
+    ``worker_svrs`` host:port entries map 1:1 to ranks; entry 0 is the
+    rendezvous (``tcp://<entry 0>``) and the chief, as the reference's
+    ``is_chief=(task_index==0)``. ``ps_svrs`` is kept for drop-in
+    compatibility with the reference's ``settings.py``. The heartbeat
+    detector (``heartbeat_port`` / ``heartbeat_host``) is ROADMAP A8 and
+    refused when set. ``connect_timeout_s`` / ``connect_attempts`` bound
+    ``cluster.bounded_initialize``."""
+
+    worker_svrs: tuple[str, ...] = ()
+    ps_svrs: tuple[str, ...] = ()
+    heartbeat_port: int | None = None
+    heartbeat_timeout_ms: int = 10_000
+    heartbeat_host: str | None = None
+    connect_timeout_s: int = 300
+    connect_attempts: int = 3
+
+    def __post_init__(self):
+        for name in ("heartbeat_port", "heartbeat_host"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"ClusterConfig.{name}: the heartbeat detector is not ported yet (ROADMAP A8)"
+                )
+
+    @property
+    def num_processes(self) -> int:
+        return max(1, len(self.worker_svrs))
+
+    @property
+    def coordinator_address(self) -> str | None:
+        return self.worker_svrs[0] if self.worker_svrs else None
+
+    def is_chief(self, task_index: int) -> bool:
+        return task_index == 0
+
+    @classmethod
+    def from_settings_module(cls, module: Any | str = "settings") -> "ClusterConfig":
+        """Load a reference-style ``settings.py``."""
+        if isinstance(module, str):
+            module = importlib.import_module(module)
+        return cls(
+            worker_svrs=tuple(getattr(module, "worker_svrs", ())),
+            ps_svrs=tuple(getattr(module, "ps_svrs", ())),
+        )
+
+    @classmethod
+    def from_lists(
+        cls, worker_svrs: Sequence[str], ps_svrs: Sequence[str] = ()
+    ) -> "ClusterConfig":
+        return cls(worker_svrs=tuple(worker_svrs), ps_svrs=tuple(ps_svrs))
+
+    def subset(self, ranks: Sequence[int]) -> "ClusterConfig":
+        """The sub-cluster served by original ranks ``ranks`` (new rank
+        ``r`` is original rank ``ranks[r]``; ``ranks[0]``'s address becomes
+        the rendezvous)."""
+        ranks = tuple(int(r) for r in ranks)
+        if not ranks:
+            raise ValueError("subset needs at least one rank")
+        if len(set(ranks)) != len(ranks):
+            raise ValueError(f"subset ranks must be unique, got {ranks}")
+        bad = [r for r in ranks if not 0 <= r < len(self.worker_svrs)]
+        if bad:
+            raise ValueError(
+                f"subset ranks {bad} out of range for "
+                f"{len(self.worker_svrs)} worker_svrs entries"
+            )
+        return dataclasses.replace(
+            self, worker_svrs=tuple(self.worker_svrs[r] for r in ranks)
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +140,28 @@ class _TrainFields:
     compiled_run: bool = False
     # compiled_run engine: "xla" (PyTorch ops) | "pallas" (CUDA kernels).
     engine: str = "xla"
+    param_dtype: str = "float32"
+    # Model family: "mlp" (the reference's); the JAX registry's others are
+    # ROADMAP A6b.
+    model: str = "mlp"
+    # Data parallelism (parallel/strategy.py): sync (gradient all-reduce)
+    # or async (per-rank copies, parameters averaged every
+    # async_avg_every steps; 0 = never).
+    sync: bool = True
+    async_avg_every: int = 0
+    # Sync parameter layout: "replicated" or "zero" (ZeRO-3,
+    # parallel/fsdp.py); the LM trainer's modes are ROADMAP A7.
+    dp_mode: str = "replicated"
+    # Keep N device-placed batches in flight in the eager loop
+    # (data/prefetch.py); 0 disables.
+    prefetch: int = 0
+    # Print each parameter's placement at startup on the chief
+    # (utils/placement.py).
+    log_placement: bool = False
+    # Epoch definition: False = one pass over the data globally (N ranks
+    # split the batches); True = the reference's, each worker runs
+    # num_examples // batch_size steps an epoch.
+    per_worker_epoch: bool = False
     # Checkpoint every GPT block in the LM trainer's forward (recomputed in
     # the backward). "selective" saves the flash kernel's out and lse, so
     # only the layernorm/QKV/MLP half of a block replays (models/gpt.py).
@@ -64,6 +170,14 @@ class _TrainFields:
     remat: bool | str = False
 
     def __post_init__(self):
+        if self.model in MODELS_NOT_PORTED:
+            raise NotImplementedError(
+                f"TrainConfig.model={self.model!r} is not ported yet (ROADMAP A6b)"
+            )
+        if self.dp_mode in DP_MODES_NOT_PORTED:
+            raise NotImplementedError(
+                f"TrainConfig.dp_mode={self.dp_mode!r} is not ported yet (ROADMAP A7)"
+            )
         if not (isinstance(self.remat, bool) or self.remat == "selective"):
             raise ValueError(
                 f"remat must be False, True, or 'selective'; got {self.remat!r} "

@@ -8,7 +8,14 @@ well, so a JAX params tree can be handed in as it is: its leaves are
 read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
 
 MLP: a flat dict ``{"w1", "b1", "w2", "b2"}`` (the JAX ``MLPParams``
-fields), or that NamedTuple itself; the round trip is bitwise.
+fields), or that NamedTuple itself; the round trip is bitwise. Its
+optimizer state (SGD's, empty, and Adam's with its count) goes through
+:func:`mlp_opt_state_from_numpy`; a JAX ``AsyncDataParallel`` state, whose
+leaves stack a copy a replica ``[n, ...]``, becomes one rank's copy
+(:func:`async_rank_state_from_numpy`) and per-rank copies stack back
+(:func:`stack_replicas`); a canonical state becomes a ZeRO rank's slices
+through ``ShardedDataParallel.from_canonical``
+(:func:`sharded_state_from_numpy`).
 
 Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
 over the GPT param tree), or a dict of those keys, carried to the port's
@@ -157,3 +164,88 @@ def paged_cache_to_numpy(cache: PagedKVCache) -> dict:
         return t.detach().cpu().numpy()
 
     return {k: arr(v) for k, v in cache._asdict().items() if v is not None}
+
+
+def _adam_like(state) -> dict | None:
+    """The ``{"count", "mu", "nu"}`` of an optax Adam state (the chain
+    tuple ``(ScaleByAdamState, EmptyState)``, the state itself, or that
+    dict), or None for a state that holds no arrays (constant-lr SGD)."""
+    if isinstance(state, dict):
+        return state if state else None
+    if hasattr(state, "_fields") and "mu" in state._fields:
+        return state._asdict()
+    if isinstance(state, tuple):
+        for sub in state:
+            found = _adam_like(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def mlp_opt_state_from_numpy(state, device=None):
+    """optax state of ``sgd`` or ``adam`` over MLP params (as JAX
+    ``ops.optim.make`` builds it, or ``{"count", "mu", "nu"}``) → the port's
+    (``()`` for constant-lr SGD, ``AdamState`` with an int32 count)."""
+    top = _adam_like(state)
+    if top is None:
+        return ()
+    return AdamState(
+        count=_tensor(top["count"], resolve_device(device), torch.int32).reshape(()),
+        mu=mlp_params_from_numpy(top["mu"], device=device),
+        nu=mlp_params_from_numpy(top["nu"], device=device),
+    )
+
+
+def mlp_opt_state_to_numpy(state) -> dict:
+    """The port's SGD (``{}``) or ``AdamState`` (``{"count", "mu", "nu"}``)
+    over MLP params as numpy."""
+    if not isinstance(state, AdamState):
+        return {}
+    return {"count": np.int32(state.count.item()), "mu": mlp_params_to_numpy(state.mu),
+            "nu": mlp_params_to_numpy(state.nu)}
+
+
+def _row(tree, rank: int):
+    """Replica ``rank`` of a stacked numpy tree (dicts, tuples, arrays)."""
+    if isinstance(tree, dict):
+        return {k: _row(v, rank) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return {k: _row(v, rank) for k, v in tree._asdict().items()}
+    if isinstance(tree, tuple):
+        return tuple(_row(v, rank) for v in tree)
+    return np.asarray(tree)[rank]
+
+
+def async_rank_state_from_numpy(params, opt_state, steps, rank: int, device=None):
+    """A JAX ``AsyncDataParallel`` state (params and optimizer state
+    stacked ``[n, ...]``, the step vector ``[n]``) → rank ``rank``'s
+    ``TrainState`` of the port's ``AsyncDataParallel``: its copy, and every
+    rank's step as a tuple."""
+    from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+
+    return TrainState(
+        mlp_params_from_numpy(_row(params, rank), device=device),
+        mlp_opt_state_from_numpy(_row(opt_state, rank), device=device),
+        tuple(int(s) for s in np.asarray(steps)),
+    )
+
+
+def stack_replicas(trees: list):
+    """Per-rank numpy trees (dicts of arrays) → one tree stacked ``[n,
+    ...]``, the JAX async layout."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_replicas([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def sharded_state_from_numpy(strategy, params, opt_state=(), step: int = 0, device=None):
+    """A canonical numpy state (MLP params, their optax or dict optimizer
+    state, the step) → this rank's ``ShardedDataParallel`` state: its
+    slices of the parameters and of the moments that track them."""
+    from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+
+    dev = device if device is not None else strategy.device
+    return strategy.from_canonical(TrainState(
+        mlp_params_from_numpy(params, device=dev),
+        mlp_opt_state_from_numpy(opt_state, device=dev), int(step)))

@@ -95,6 +95,17 @@ class DataSet:
             self._index += batch_size
         return self._images[idx], self._labels[idx]
 
+    def shard(self, num_shards: int, shard_index: int) -> "DataSet":
+        """Static contiguous shard of this split — the data-parallel analog of
+        the reference's per-worker independent batch streams."""
+        n = self.num_examples // num_shards
+        lo = shard_index * n
+        return DataSet(
+            self._images[lo : lo + n],
+            self._labels[lo : lo + n],
+            seed=1000 + shard_index,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class Datasets:

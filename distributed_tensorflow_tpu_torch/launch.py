@@ -1,14 +1,23 @@
-"""Launcher of the port: config → model + strategy + trainer, one device.
+"""Launcher of the port: config → model + strategy + trainer.
 
-Counterpart of ``distributed_tensorflow_tpu/launch.py`` ``build_trainer``
-and ``config_from_env`` for the single-device path; cluster and
-data-parallel configurations are ROADMAP A6.
+Counterpart of ``distributed_tensorflow_tpu/launch.py``:
+
+- ``sync=True`` → :class:`SyncDataParallel` (``dp_mode="zero"``:
+  :class:`ShardedDataParallel`), or :class:`SingleDevice` in a world of
+  one rank — the ``tfdist_between_sync.py`` path;
+- ``sync=False`` → :class:`AsyncDataParallel` with
+  ``avg_every=async_avg_every`` — the ``tfdist_between.py`` path;
+- :func:`run` is the end-to-end entry of a task: ``--job_name`` /
+  ``--task_index``, the bootstrap (``cluster.py``), the trainer.
 
     python -m distributed_tensorflow_tpu_torch.launch
 
 is the port's ``examples/single.py``: it trains the 784→100→10 MLP with
 SGD lr=0.001, batch 100, for 100 epochs on the card, printing the
 reference's log lines (the ``DTF_*`` environment overrides below apply).
+The data-parallel examples are ``examples/between_sync.py`` and
+``examples/between_async.py``, started a task each by
+``tools/launch_local.py``.
 """
 
 from __future__ import annotations
@@ -17,20 +26,21 @@ import os
 
 import torch
 
-from distributed_tensorflow_tpu_torch.config import TrainConfig
+from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
 
 # Environment knobs of the JAX launcher that this slice does not port.
 NOT_PORTED_ENV = {
     "DTF_CHECKPOINT": "A8", "DTF_KEEP_LAST": "A8", "DTF_MAX_ROLLBACKS": "A8",
     "DTF_MAX_RESTARTS": "A8", "DTF_STALL_TIMEOUT_MS": "A8", "DTF_MIN_WORKERS": "A8",
-    "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8", "DTF_MODEL": "A6",
+    "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8",
     "DTF_SYNC_EVERY": "A7", "DTF_OUTER_LR": "A7", "DTF_OUTER_MOMENTUM": "A7",
     "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7", "DTF_MATMUL_DTYPE": "A5",
 }
 
 
 def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
-    """Apply environment overrides to a TrainConfig: DTF_EPOCHS,
+    """Apply environment overrides to a TrainConfig: DTF_MODEL (``mlp``;
+    the other registry names are ROADMAP A6b), DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
     compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
     "selective"), as the JAX launcher reads them. The JAX launcher's other
@@ -48,6 +58,8 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
             raise NotImplementedError(f"{var} is not ported yet (ROADMAP {item})")
     cfg = base or TrainConfig()
     kw = {}
+    if "DTF_MODEL" in os.environ:
+        kw["model"] = os.environ["DTF_MODEL"]
     if "DTF_EPOCHS" in os.environ:
         kw["epochs"] = _parse("DTF_EPOCHS", int)
     if "DTF_BATCH_SIZE" in os.environ:
@@ -63,6 +75,109 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
         # Anything but empty/0/1/"selective" fails in TrainConfig.
         kw["remat"] = raw == "1" if raw in ("", "0", "1") else raw
     return cfg.replace(**kw) if kw else cfg
+
+
+def parse_worker_ranks(raw: str) -> tuple[int, ...]:
+    """Parse a ``DTF_WORKER_RANKS`` value (comma-separated ORIGINAL ranks
+    in new-rank order)."""
+    try:
+        return tuple(int(r) for r in raw.split(","))
+    except ValueError:
+        raise ValueError(
+            f"invalid DTF_WORKER_RANKS={raw!r}: must be comma-separated "
+            "integers (original ranks in new-rank order)"
+        ) from None
+
+
+def cluster_from_env(base: ClusterConfig | None = None) -> ClusterConfig:
+    """Apply environment overrides to a ClusterConfig, as the JAX launcher
+    reads them: DTF_HEARTBEAT_PORT (empty/0 disables; any other value is
+    the heartbeat detector, ROADMAP A8, and raises), DTF_HEARTBEAT_TIMEOUT_MS,
+    DTF_HEARTBEAT_HOST (A8), and the sub-cluster a relaunch serves:
+    DTF_WORKER_RANKS (original ranks in new-rank order,
+    ``ClusterConfig.subset``) and DTF_WORLD_SIZE (the first N, or a
+    cross-check of the ranks' count). Invalid values raise ValueError
+    naming the knob."""
+    import dataclasses
+
+    def _parse(var: str, conv):
+        try:
+            return conv(os.environ[var])
+        except ValueError as exc:
+            raise ValueError(f"invalid {var}={os.environ[var]!r}: {exc}") from None
+
+    cluster = base or ClusterConfig()
+    kw = {}
+    if "DTF_HEARTBEAT_PORT" in os.environ:
+        raw = os.environ["DTF_HEARTBEAT_PORT"]
+        kw["heartbeat_port"] = _parse("DTF_HEARTBEAT_PORT", int) if raw else None
+        if kw["heartbeat_port"] == 0:
+            kw["heartbeat_port"] = None
+    if "DTF_HEARTBEAT_TIMEOUT_MS" in os.environ:
+        kw["heartbeat_timeout_ms"] = _parse("DTF_HEARTBEAT_TIMEOUT_MS", int)
+    if "DTF_HEARTBEAT_HOST" in os.environ:
+        kw["heartbeat_host"] = os.environ["DTF_HEARTBEAT_HOST"] or None
+    cluster = dataclasses.replace(cluster, **kw) if kw else cluster
+
+    ranks = None
+    if os.environ.get("DTF_WORKER_RANKS"):
+        ranks = parse_worker_ranks(os.environ["DTF_WORKER_RANKS"])
+    if os.environ.get("DTF_WORLD_SIZE"):
+        raw = os.environ["DTF_WORLD_SIZE"]
+        try:
+            world = int(raw)
+        except ValueError:
+            raise ValueError(f"invalid DTF_WORLD_SIZE={raw!r}: must be an integer") from None
+        if world < 1:
+            raise ValueError(f"invalid DTF_WORLD_SIZE={world}: must be >= 1")
+        if ranks is None:
+            ranks = tuple(range(world))
+        elif len(ranks) != world:
+            raise ValueError(
+                f"DTF_WORLD_SIZE={world} contradicts DTF_WORKER_RANKS="
+                f"{ranks} (length {len(ranks)})"
+            )
+    if ranks is not None:
+        if not cluster.worker_svrs:
+            raise ValueError(
+                "DTF_WORLD_SIZE/DTF_WORKER_RANKS set but the base "
+                "ClusterConfig lists no worker_svrs to select from"
+            )
+        cluster = cluster.subset(ranks)
+    return cluster
+
+
+def build_strategy(config: TrainConfig, *, world=None, device=None):
+    """The strategy ``config`` asks for over ``world`` (default: the
+    initialized process group, or one rank on ``device``). A world of one
+    rank that the caller did not pass gives :class:`SingleDevice`, as the
+    JAX launcher does for one device."""
+    if config.dp_mode not in ("replicated", "zero"):
+        raise ValueError(
+            f"unknown dp_mode {config.dp_mode!r} for the classifier path; "
+            "use 'replicated' or 'zero' ('tp'/'ep'/'pp' are LM-trainer "
+            "modes — train/lm_trainer.py)"
+        )
+    if config.dp_mode == "zero" and not config.sync:
+        raise ValueError("dp_mode='zero' requires sync=True (async keeps per-chip copies)")
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        AsyncDataParallel,
+        SingleDevice,
+        SyncDataParallel,
+    )
+
+    if world is None:
+        world = make_mesh(device)
+        if world.size == 1:
+            return SingleDevice(world.device)
+    if config.sync:
+        if config.dp_mode == "zero":
+            from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedDataParallel
+
+            return ShardedDataParallel(world)
+        return SyncDataParallel(world)
+    return AsyncDataParallel(world, avg_every=config.async_avg_every)
 
 
 class _RematAdapter:
@@ -121,33 +236,38 @@ def build_trainer(
     print_fn=print,
     device=None,
 ):
-    """The single-device Trainer for ``config``: the MLP in the config's
-    compute dtype (checkpointed when ``config.remat`` is truthy, where
-    "selective" is plain remat: the MLP has no attention to save), the
-    MNIST loader (synthetic when ``data_dir`` holds no IDX files), the
-    configured optimizer, ``accumulate(clip(make(name, schedule)))`` as the
-    JAX launcher composes it, and the loss. ``device`` defaults to cuda and
-    raises without one."""
+    """The Trainer for ``config``: the strategy (:func:`build_strategy`),
+    the MLP in the config's compute dtype (checkpointed when
+    ``config.remat`` is truthy, where "selective" is plain remat: the MLP
+    has no attention to save), the MNIST loader (synthetic when
+    ``data_dir`` holds no IDX files), the configured optimizer,
+    ``accumulate(clip(make(name, schedule)))`` as the JAX launcher composes
+    it, and the loss. ``context`` (``cluster.bootstrap``) says whether this
+    process is the chief. ``device`` defaults to cuda (this rank's card)
+    and raises without one."""
     from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
     from distributed_tensorflow_tpu_torch.models.mlp import MLP
     from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
     from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
-    from distributed_tensorflow_tpu_torch.parallel.strategy import SingleDevice
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
-    if context is not None:
-        raise NotImplementedError("cluster launch is not ported yet (ROADMAP A6)")
     config = config or TrainConfig()
-    strategy = strategy or SingleDevice(device)
+    is_chief = context.is_chief if context is not None else True
     if model is None:
+        if config.model != "mlp":
+            raise ValueError(f"unknown model {config.model!r}; registered: "
+                             "['cnn', 'lstm', 'mlp', 'transformer']")
         model = MLP(compute_dtype=getattr(torch, config.compute_dtype))
     if config.remat:
         model = _RematAdapter(model)
     datasets = datasets or read_data_sets(data_dir, one_hot=True)
+    strategy = strategy or build_strategy(config, device=device)
     if optimizer is None:
-        # The schedule counts optimizer applies: an epoch's steps, once
-        # every accumulate_steps of them.
-        applies_per_epoch = max(1, datasets.train.num_examples // config.batch_size)
+        # The schedule counts optimizer applies: an epoch's steps
+        # (num_examples // (batch_size × replicas), or // batch_size under
+        # per_worker_epoch), once every accumulate_steps of them.
+        denom = config.batch_size * (1 if config.per_worker_epoch else strategy.num_replicas)
+        applies_per_epoch = max(1, datasets.train.num_examples // denom)
         total_applies = max(1, config.epochs * applies_per_epoch // config.accumulate_steps)
         lr = optim_lib.schedule(config.lr_schedule, config.learning_rate, total_applies,
                                 warmup_steps=config.warmup_steps)
@@ -165,8 +285,33 @@ def build_trainer(
             loss_fn = losses_lib.cross_entropy
     return Trainer(
         model, datasets, config, strategy=strategy, optimizer=optimizer,
-        loss_fn=loss_fn, print_fn=print_fn,
+        loss_fn=loss_fn, is_chief=is_chief, print_fn=print_fn,
     )
+
+
+def run(
+    cluster: ClusterConfig | None = None,
+    config: TrainConfig | None = None,
+    argv=None,
+    **kw,
+) -> dict | None:
+    """End-to-end entry of a task: parse ``--job_name`` / ``--task_index``,
+    bootstrap (joining the process group), train. Returns the final
+    metrics dict, or None for a ps task. ``kw`` goes to
+    :func:`build_trainer` (``device="cpu"`` runs the ranks on the CPU over
+    gloo)."""
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+
+    cluster = cluster_from_env(cluster or ClusterConfig())
+    ctx = bootstrap_from_argv(cluster, argv, device=kw.get("device"))
+    if ctx.should_exit:
+        return None
+    try:
+        trainer = build_trainer(config_from_env(config), context=ctx, **kw)
+        print("Ready to go")  # reference tfdist_between.py:76
+        return trainer.run()
+    finally:
+        ctx.close()
 
 
 if __name__ == "__main__":

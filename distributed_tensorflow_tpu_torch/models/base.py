@@ -1,7 +1,7 @@
 """Shared model pieces (counterpart of ``distributed_tensorflow_tpu/models/base.py``).
 
 The serving slice needs ``layernorm`` and ``rope``; the model protocol
-comes with the classifiers (ROADMAP A6).
+comes with the classifiers (ROADMAP A6b).
 """
 
 from __future__ import annotations

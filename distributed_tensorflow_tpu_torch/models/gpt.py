@@ -53,7 +53,7 @@ and :592-648); a callable ``remat`` is a torch selective-checkpoint policy.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE blocks and ``matmul_dtype`` (A5), the parallel train steps
-(A6/A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
+(A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
 """
 
 from __future__ import annotations
@@ -1005,12 +1005,12 @@ def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *
     loss)`` on one device, for any optimizer of ``ops/optim.py``: the loss
     (masked over ``lengths`` when given), its gradient, one update. The
     loss stays on the device. The data-parallel, tp and sp steps (``mesh``,
-    ``tp_axis``, ``seq_axis``) are not ported yet (ROADMAP A6/A7)."""
+    ``tp_axis``, ``seq_axis``) are not ported yet (ROADMAP A7)."""
     del axis
     for name, value in (("mesh", mesh), ("tp_axis", tp_axis), ("seq_axis", seq_axis)):
         if value is not None:
             raise NotImplementedError(
-                f"make_lm_train_step({name}=...) is not ported yet (ROADMAP A6/A7); "
+                f"make_lm_train_step({name}=...) is not ported yet (ROADMAP A7); "
                 "the port's step runs on one device"
             )
 

@@ -44,7 +44,7 @@ LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "decode_block_slab": 0, "decode_token_slab": 0,
     "decode_block_paged": 0, "decode_token_paged": 0, "verify_tokens_paged": 0,
-    "fused_mlp_step": 0, "fused_mlp_epoch": 0,
+    "fused_mlp_step": 0, "fused_mlp_epoch": 0, "fused_mlp_epoch_dp": 0,
 }
 # ptxas's register/shared-memory report of each build (kept beside the
 # library as ``<lib>.log``, so a reused library still has one).

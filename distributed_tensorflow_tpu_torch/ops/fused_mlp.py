@@ -8,6 +8,9 @@ Counterpart of ``distributed_tensorflow_tpu/ops/pallas_mlp.py``:
 - :func:`fused_epoch` (JAX ``make_fused_epoch_fn``, :264) — ``steps`` SGD
   steps in one launch over staged batches. Kernel ``mlp_epoch_kernel``
   replaces ``_epoch_kernel`` (:181).
+- :func:`make_fused_async_epoch_fn` (JAX :317) — that kernel composed with
+  async data parallelism: a launch a rank a round of ``avg_every`` steps,
+  then the copies averaged by one all-reduce (``parallel/mesh.py``).
 
 Both compute ``_mlp_sgd_math`` (:39) in f32; :func:`mlp_sgd_math_plain` is
 that function in torch ops with the same analytic gradients, and
@@ -375,6 +378,7 @@ def make_fused_compiled_run_fn(
     out_dim: int = 10,
     learning_rate: float = 0.001,
     shuffle: bool = True,
+    steps_per_epoch: int | None = None,
     stream_dtype: torch.dtype = torch.bfloat16,
 ):
     """The whole-run path with the epoch kernel:
@@ -386,13 +390,17 @@ def make_fused_compiled_run_fn(
     ``generator`` (``train.compiled_run.wrapped_epoch_perm``), a gather of
     the epoch's batches into ``stream_dtype`` staging, ONE
     :func:`fused_epoch` launch, and an f32 eval of the test split. Costs
-    and accuracies stay on the device; the caller fetches them once."""
+    and accuracies stay on the device; the caller fetches them once.
+    ``steps_per_epoch`` is the reference's per-worker epoch, as in
+    ``train.compiled_run.make_compiled_run_fn``."""
     from distributed_tensorflow_tpu_torch.ops.losses import accuracy
     from distributed_tensorflow_tpu_torch.train.compiled_run import wrapped_epoch_perm
 
     def run(state: FusedState, train_x, train_y, test_x, test_y, generator):
-        steps = train_x.shape[0] // batch_size  # the tail is dropped
+        steps = train_x.shape[0] // batch_size if steps_per_epoch is None else steps_per_epoch
         need = steps * batch_size
+        domain = need if steps_per_epoch is None else train_x.shape[0]
+        k = (need + domain - 1) // domain if need else 1
         run_epoch = make_fused_epoch_fn(
             steps=steps, batch_size=batch_size, in_dim=in_dim, hidden_dim=hidden_dim,
             out_dim=out_dim, learning_rate=learning_rate, stream_dtype=stream_dtype,
@@ -404,7 +412,7 @@ def make_fused_compiled_run_fn(
         accs = torch.empty(epochs, dtype=torch.float32, device=dev)
         for e in range(epochs):
             perm = wrapped_epoch_perm(
-                generator, domain=need, need=need, k=1, shuffle=shuffle, device=dev
+                generator, domain=domain, need=need, k=k, shuffle=shuffle, device=dev
             )
             xs = fx.index_select(0, perm).reshape(steps, batch_size, in_dim)
             ys = fy.index_select(0, perm).reshape(steps, batch_size, out_dim)
@@ -412,5 +420,81 @@ def make_fused_compiled_run_fn(
             h = torch.sigmoid(tx @ state.w1 + state.b1)
             accs[e] = accuracy(h @ state.w2 + state.b2, ty)
         return state, {"costs": costs, "accuracy": accs}
+
+    return run
+
+
+# -- B2 composed with async data parallelism ----------------------------------
+
+
+def to_fused_stacked(params: MLPParams, world) -> FusedState:
+    """This rank's copy of the ``world.size`` identical copies the async
+    composition starts from (every reference worker starts from the same
+    seed-1 graph); JAX ``to_fused_stacked`` stacks them on one mesh."""
+    return to_fused(params)
+
+
+def make_fused_async_epoch_fn(
+    world,
+    *,
+    steps: int,
+    batch_size: int,
+    in_dim: int = 784,
+    hidden_dim: int = 100,
+    out_dim: int = 10,
+    learning_rate: float = 0.001,
+    avg_every: int = 0,
+    stream_dtype: torch.dtype = torch.float32,
+    plain: bool = False,
+):
+    """The whole-epoch kernel composed with async data parallelism over
+    ``world`` (``parallel.mesh.World``), as JAX ``make_fused_async_epoch_fn``.
+
+    ``run(state, xs, ys) -> (state, costs)``: ``state`` this rank's
+    :class:`FusedState` (updated in place), ``xs`` / ``ys`` the GLOBAL
+    staged batches ``[steps, size·batch_size, ...]`` of which this rank
+    takes columns ``[r·b, (r+1)·b)``, ``costs`` ``[steps]`` the per-step
+    mean over the ranks. Each rank launches ``mlp_epoch_kernel`` once a
+    round over its ``avg_every`` steps, then the four parameter tensors
+    are averaged by one all-reduce; the remainder of a count that
+    ``avg_every`` does not divide is one more launch after the last
+    exchange, and an epoch shorter than ``avg_every`` is one launch with
+    no exchange (``parallel.strategy.device_loop``'s cadence). The rate is
+    the caller's: no ``update_scale`` (pass a pre-scaled rate to emulate
+    the async update count). On the CPU the rounds run
+    :func:`fused_epoch_plain`, and so they do on any device with ``plain``
+    (the plain composition a test holds the kernel's against). Launches
+    count under ``LAUNCHES["fused_mlp_epoch_dp"]``."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import batch_sharded
+
+    if stream_dtype not in STREAM_DTYPES:
+        raise ValueError(f"stream_dtype must be float32 or bfloat16, got {stream_dtype}")
+    seg = avg_every if avg_every and steps >= avg_every else steps
+    rounds = [(lo, min(lo + seg, steps)) for lo in range(0, steps, seg)] if steps else []
+    exchange_after = bool(avg_every) and steps >= avg_every
+
+    def launch(state, xr, yr):
+        if plain or not xr.is_cuda:
+            return fused_epoch_plain(state, xr, yr, learning_rate=learning_rate)[1]
+        lib = _check(state, xr, yr, "fused_async_epoch")[0]
+        costs = launch_epoch(lib, state, xr, yr, learning_rate)
+        _build.LAUNCHES["fused_mlp_epoch_dp"] += 1
+        return costs
+
+    def run(state: FusedState, xs, ys):
+        if tuple(xs.shape) != (steps, batch_size * world.size, in_dim):
+            raise ValueError(
+                f"async epoch built for xs {(steps, batch_size * world.size, in_dim)}; "
+                f"got {tuple(xs.shape)}"
+            )
+        cols = batch_sharded(world, xs.shape[1])
+        mine_x = xs[:, cols].to(stream_dtype).contiguous()
+        mine_y = ys[:, cols].to(stream_dtype).contiguous()
+        costs = torch.empty(steps, dtype=torch.float32, device=xs.device)
+        for lo, hi in rounds:
+            costs[lo:hi] = launch(state, mine_x[lo:hi], mine_y[lo:hi])
+            if exchange_after and hi - lo == seg:
+                _assign(state, world.mean_(state))
+        return state, world.mean_([costs])[0]
 
     return run

@@ -30,6 +30,7 @@ host. The wrappers compose as the JAX launcher composes them,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -286,10 +287,30 @@ def schedule(name: str | None, learning_rate: float, total_steps: int, *,
 # -- clipping and accumulation ----------------------------------------------
 
 
+def sum_of_squares(grads) -> torch.Tensor:
+    return sum(torch.sum(g * g) for g in tree_leaves(grads))
+
+
+# The sum of squares ``global_norm`` takes: a strategy whose gradients are
+# shards of the whole (ZeRO, parallel/fsdp.py) swaps in one that sums over
+# every rank's shard for the length of its update (:func:`squares_over`).
+_SQUARES = [sum_of_squares]
+
+
+@contextlib.contextmanager
+def squares_over(fn):
+    """Within the block, :func:`global_norm` sums squares with ``fn``."""
+    _SQUARES.append(fn)
+    try:
+        yield
+    finally:
+        _SQUARES.pop()
+
+
 def global_norm(grads) -> torch.Tensor:
     """optax ``global_norm``: sqrt of the sum over leaves of each leaf's
     sum of squares."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+    return torch.sqrt(_SQUARES[-1](grads))
 
 
 class Clip(NamedTuple):

@@ -1,2 +1,4 @@
 """Execution strategies of the port: ``SingleDevice`` (the reference's
-``tfsingle.py`` mode). The data-parallel strategies are ROADMAP A6."""
+``tfsingle.py`` mode), ``SyncDataParallel`` / ``AsyncDataParallel``
+(``strategy.py``) and ``ShardedDataParallel`` (``fsdp.py``) over the
+``torch.distributed`` world of ``mesh.py``."""

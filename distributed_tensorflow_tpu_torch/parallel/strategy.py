@@ -1,14 +1,34 @@
-"""Execution strategy of the port: one device.
+"""Execution strategies of the port: the reference's run modes.
 
-Counterpart of ``distributed_tensorflow_tpu/parallel/strategy.py``'s
-``TrainState`` and ``SingleDevice`` (the reference's ``tfsingle.py``
-mode). A strategy owns where the state and the batches live and how one
-step updates the state; the trainer calls ``init_state`` once, then
+Counterpart of ``distributed_tensorflow_tpu/parallel/strategy.py``:
+
+- ``tfsingle.py`` (one device)                 → :class:`SingleDevice`
+- ``tfdist_between_sync.py`` (sync DP over PS) → :class:`SyncDataParallel`
+- ``tfdist_between.py`` (async/HOGWILD DP)     → :class:`AsyncDataParallel`
+- ZeRO-3 sync DP                               → ``parallel/fsdp.py``
+
+A strategy owns where the state and the batches live and how one step
+updates the state; the trainer calls ``init_state`` once, then
 ``train_step(state, x, y) -> (state, cost)`` per batch. The gradient is
-torch autograd's where the JAX package takes ``jax.value_and_grad``;
-costs stay on the device until the caller reads them.
+torch autograd's; costs stay on the device until the caller reads them.
 
-The data-parallel strategies (sync, async, sharded) are ROADMAP A6.
+Data parallelism runs over ``torch.distributed`` (``parallel/mesh.py``):
+one process is one rank is one device, and the JAX mesh's ``data`` axis is
+the default process group. Every rank draws the same global batch and
+keeps its rows ``[r·b, (r+1)·b)`` (JAX ``P("data")``), so N ranks compute
+what the JAX package computes on an N-device mesh.
+
+- Sync: the loss on the local rows, the gradients and the cost summed over
+  the ranks by ONE all-reduce of a flat bucket and divided by N (the mean
+  over the global batch, as the JAX step's); ``explicit_collectives=True``
+  reduces leaf by leaf, with the same result.
+- Async: each rank keeps its own copy and steps on its own rows with the
+  update scaled by ``update_scale`` (``None`` = N, the reference's
+  N×-update-count effect); every ``avg_every`` steps the copies jump to
+  their mean (:meth:`AsyncDataParallel.make_exchange_fn`). The step is a
+  per-rank count: ``TrainState.step`` holds every rank's (a tuple, as the
+  JAX ``[n]`` vector; the ranks step in lockstep, so each rank knows them
+  all) and ``global_step`` is their sum.
 """
 
 from __future__ import annotations
@@ -17,17 +37,30 @@ from typing import Any, NamedTuple
 
 import torch
 
+from distributed_tensorflow_tpu_torch.data.sharded import global_batch
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
+from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_map, tree_unflatten
+from distributed_tensorflow_tpu_torch.parallel.mesh import World, batch_sharded, make_mesh
 
 
 class TrainState(NamedTuple):
-    """Training state. ``step`` is the reference's ``global_step``, kept on
-    the host as a Python int."""
+    """Training state. ``step`` is the reference's ``global_step``: a host
+    int, or under async a tuple of every rank's count."""
 
     params: Any
     opt_state: Any
-    step: int
+    step: Any
+
+
+def loss_and_grads(model, loss_fn, params, x, y):
+    """``(cost, grads)`` of ``loss_fn(model.apply(params, x), y)`` by
+    autograd, the cost detached on the device."""
+    leaves = [p.detach().requires_grad_(True) for p in params]
+    with torch.enable_grad():
+        cost = loss_fn(model.apply(type(params)(*leaves), x), y)
+        grads = torch.autograd.grad(cost, leaves)
+    return cost.detach(), type(params)(*grads)
 
 
 def sgd_step(model, loss_fn, optimizer, params, opt_state, x, y):
@@ -37,62 +70,363 @@ def sgd_step(model, loss_fn, optimizer, params, opt_state, x, y):
     opt_state, cost)`` with the cost detached on the device. Shared by the
     eager step and the device loop (``train/scan.py``), so every path
     updates identically."""
-    leaves = [p.detach().requires_grad_(True) for p in params]
-    with torch.enable_grad():
-        cost = loss_fn(model.apply(type(params)(*leaves), x), y)
-        grads = torch.autograd.grad(cost, leaves)
+    cost, grads = loss_and_grads(model, loss_fn, params, x, y)
     with torch.no_grad():
-        new, opt_state = optimizer.update(
-            type(params)(*grads), opt_state, type(params)(*(p.detach() for p in leaves))
+        new, opt_state = optimizer.update(grads, opt_state, type(params)(*(p.detach() for p in params)))
+    return new, opt_state, cost
+
+
+def _local_sgd_update(model, loss_fn, optimizer, scale: float, params, opt_state, x, y):
+    """One local optimizer apply with its update scaled by ``scale`` (the
+    async step, eager and scanned alike). The port's optimizers return new
+    parameters, so the scaled update is ``p + scale·(new − p)``; at scale 1
+    it is :func:`sgd_step` itself, bit for bit."""
+    new, opt_state, cost = sgd_step(model, loss_fn, optimizer, params, opt_state, x, y)
+    if scale != 1.0:
+        with torch.no_grad():
+            new = tree_map(lambda p, q: p + (q - p) * scale, params, new)
+    return new, opt_state, cost
+
+
+def merge_replica_leaf(a, world: World):
+    """Fold one leaf held by every rank into the canonical single copy:
+    float leaves merge at the mean over the ranks (async's
+    effective_params); integer leaves (Adam's count, the accumulator's
+    mini-step) take rank 0's value, which must equal every rank's: a
+    mismatch raises rather than merge. Collective: every rank calls it."""
+    if isinstance(a, torch.Tensor) and a.is_floating_point():
+        return world.mean_([a])[0].to(a.dtype)
+    t = torch.as_tensor(a, device=world.device).to(torch.int64)
+    if world.size > 1:
+        hi = world.all_reduce_(t.clone(), "max")
+        lo = world.all_reduce_(t.clone(), "min")
+        if not torch.equal(hi, lo):
+            raise ValueError(
+                "integer optimizer-state leaf differs across replicas; "
+                "refusing to merge (the copies should be identical)"
+            )
+    return a.clone() if isinstance(a, torch.Tensor) else a
+
+
+def _merge_tree(tree, world: World):
+    return tree_unflatten(tree, [merge_replica_leaf(a, world) for a in tree_leaves(tree)])
+
+
+def device_loop(update, state: TrainState, steps: int, batch, *, exchange=None,
+                avg_every: int = 0):
+    """The one MLP device loop: ``steps`` calls of ``update(params,
+    opt_state, x, y) -> (params, opt_state, cost)``, step i on ``batch(i)
+    -> (x, y)``, the costs kept in a [steps] device tensor. With
+    ``exchange``, ``params = exchange(params)`` runs after step i when
+    ``(i + 1) % avg_every == 0``: after every full round, an epoch-final
+    one included when the count divides; the remainder runs after the last
+    exchange, and an epoch shorter than ``avg_every`` exchanges nothing
+    (the JAX ``_scan_with_exchange`` cadence). Returns ``(params,
+    opt_state, costs)``."""
+    params, opt_state = state.params, state.opt_state
+    costs = torch.empty(steps, dtype=torch.float32, device=tree_leaves(params)[0].device)
+    for i in range(steps):
+        params, opt_state, costs[i] = update(params, opt_state, *batch(i))
+        if exchange is not None and avg_every and (i + 1) % avg_every == 0:
+            params = exchange(params)
+    return params, opt_state, costs
+
+
+def _advance(step, k: int):
+    """A step count advanced by ``k`` steps (every rank's, under async)."""
+    return tuple(s + k for s in step) if isinstance(step, tuple) else step + k
+
+
+class Strategy:
+    """Interface. Subclasses define placement and aggregation."""
+
+    world: World
+
+    @property
+    def device(self) -> torch.device:
+        return self.world.device
+
+    @property
+    def num_replicas(self) -> int:
+        return self.world.size
+
+    def global_step(self, state: TrainState) -> int:
+        step = state.step
+        return int(sum(step)) if isinstance(step, tuple) else int(step)
+
+    def effective_params(self, state: TrainState):
+        """The single parameter set this state denotes ("the parameters on
+        the PS"); async overrides with the mean of the copies."""
+        return state.params
+
+    def cost_scalar(self, cost) -> float:
+        return float(cost)
+
+    # Cross-topology interchange: every state is a re-layout of ONE
+    # canonical form, the single-device (params, opt_state, int step).
+    def to_canonical(self, state: TrainState) -> TrainState:
+        return TrainState(state.params, state.opt_state, self.global_step(state))
+
+    def from_canonical(self, canonical: TrainState) -> TrainState:
+        return canonical
+
+    def layout_meta(self) -> dict:
+        return {"mode": "sync"}
+
+    def placement_specs(self, params):
+        """Per leaf, the mesh axes its dims are split over (JAX
+        ``PartitionSpec`` entries as a tuple): replicated by default."""
+        return tree_map(lambda _: (), params)
+
+    def prepare_batch(self, x, y):
+        """This rank's rows of a host global batch, on its device."""
+        return global_batch(self.world, x, y)
+
+    def make_eval_fn(self, model):
+        @torch.no_grad()
+        def evaluate(state: TrainState, x, y):
+            return losses_lib.accuracy(model.apply(self.effective_params(state), x), y)
+
+        return evaluate
+
+    def _update(self, model, loss_fn, optimizer):
+        """``update(params, opt_state, x, y) -> (params, opt_state, cost)``
+        on this rank's rows."""
+        raise NotImplementedError
+
+    def make_train_step(self, model, loss_fn, optimizer):
+        update = self._update(model, loss_fn, optimizer)
+
+        def step(state: TrainState, x, y):
+            params, opt_state, cost = update(state.params, state.opt_state, x, y)
+            return TrainState(params, opt_state, _advance(state.step, 1)), cost
+
+        return step
+
+    def _epoch_costs(self, costs):
+        """An epoch's per-step costs as the logs read them."""
+        return costs
+
+    def _loop_kw(self) -> dict:
+        return {}
+
+    def make_scanned_train_fn(self, model, loss_fn, optimizer):
+        """``fn(state, xs, ys) -> (state, costs)`` over staged GLOBAL
+        batches ``xs`` [steps, global batch, ...]: each rank steps on its
+        columns."""
+        update = self._update(model, loss_fn, optimizer)
+
+        def run(state: TrainState, xs, ys):
+            cols = batch_sharded(self.world, xs.shape[1])
+            params, opt_state, costs = device_loop(
+                update, state, xs.shape[0], lambda i: (xs[i, cols], ys[i, cols]),
+                **self._loop_kw())
+            return (TrainState(params, opt_state, _advance(state.step, xs.shape[0])),
+                    self._epoch_costs(costs))
+
+        return run
+
+    def make_indexed_scanned_train_fn(self, model, loss_fn, optimizer):
+        """``fn(state, train_x, train_y, idxs) -> (state, costs)`` over the
+        full device-resident arrays; ``idxs`` [steps, global batch] row
+        indices, this rank gathering columns ``[r·b, (r+1)·b)`` of each
+        step's row, the eager loop's split."""
+        update = self._update(model, loss_fn, optimizer)
+
+        def run(state: TrainState, train_x, train_y, idxs):
+            mine = idxs[:, batch_sharded(self.world, idxs.shape[1])]
+            params, opt_state, costs = device_loop(
+                update, state, idxs.shape[0],
+                lambda i: (train_x.index_select(0, mine[i]), train_y.index_select(0, mine[i])),
+                **self._loop_kw())
+            return (TrainState(params, opt_state, _advance(state.step, idxs.shape[0])),
+                    self._epoch_costs(costs))
+
+        return run
+
+    def make_compiled_run_fn(self, model, loss_fn, optimizer, **kw):
+        from distributed_tensorflow_tpu_torch.train.compiled_run import make_compiled_run_fn
+
+        return make_compiled_run_fn(
+            model, loss_fn, optimizer,
+            epoch_fn=self.make_indexed_scanned_train_fn(model, loss_fn, optimizer),
+            eval_fn=self.make_eval_fn(model), **kw,
         )
-    return new, opt_state, cost.detach()
 
 
-class SingleDevice:
+class SingleDevice(Strategy):
     """Everything on one device (default cuda; ``device="cpu"`` for the
     plain versions on the CPU)."""
 
-    num_replicas = 1
-
     def __init__(self, device=None):
-        self.device = resolve_device(device)
+        self.world = World(None, 0, 1, resolve_device(device), None)
 
     def init_state(self, model, optimizer, seed: int) -> TrainState:
         params = model.init(seed, device=self.device)
         return TrainState(params, optimizer.init(params), 0)
 
-    def make_train_step(self, model, loss_fn, optimizer):
-        def step(state: TrainState, x, y):
-            params, opt_state, cost = sgd_step(
-                model, loss_fn, optimizer, state.params, state.opt_state, x, y
-            )
-            return TrainState(params, opt_state, state.step + 1), cost
-
-        return step
-
-    def make_eval_fn(self, model):
-        @torch.no_grad()
-        def evaluate(state: TrainState, x, y):
-            return losses_lib.accuracy(model.apply(state.params, x), y)
-
-        return evaluate
-
     def prepare_batch(self, x, y):
         """A host batch onto the device."""
         return torch.as_tensor(x, device=self.device), torch.as_tensor(y, device=self.device)
 
-    def global_step(self, state: TrainState) -> int:
-        return int(state.step)
+    def _update(self, model, loss_fn, optimizer):
+        return lambda params, opt_state, x, y: sgd_step(
+            model, loss_fn, optimizer, params, opt_state, x, y)
 
-    def cost_scalar(self, cost) -> float:
-        return float(cost)
+
+class SyncDataParallel(Strategy):
+    """The ``tfdist_between_sync.py`` mode: lockstep DP with gradient
+    averaging, ``SyncReplicasOptimizer`` rebuilt as an all-reduce.
+
+    ``explicit_collectives=False`` (default): one all-reduce of a flat
+    bucket of every gradient and the cost a step.
+    ``explicit_collectives=True``: one all-reduce a leaf, the collective of
+    each gradient visible (the JAX ``shard_map`` + ``pmean`` path); the
+    same sums, so the same result. Like the JAX one, it serves the eager
+    step only."""
+
+    def __init__(self, world: World | None = None, *, explicit_collectives: bool = False,
+                 param_specs=None, device=None):
+        if param_specs is not None:
+            raise NotImplementedError(
+                "SyncDataParallel(param_specs=...): tensor parallelism over a 'model' "
+                "axis is not ported yet (ROADMAP A7)"
+            )
+        self.world = world if world is not None else make_mesh(device)
+        self.explicit = explicit_collectives
+
+    def init_state(self, model, optimizer, seed: int) -> TrainState:
+        # Every rank builds the same parameters from the same seed (the
+        # reference's tf.set_random_seed(1) in each process).
+        params = model.init(seed, device=self.device)
+        return TrainState(params, optimizer.init(params), 0)
+
+    def _update(self, model, loss_fn, optimizer):
+        world = self.world
+
+        def update(params, opt_state, x, y):
+            cost, grads = loss_and_grads(model, loss_fn, params, x, y)
+            leaves = tree_leaves(grads)
+            if self.explicit:
+                leaves = [world.all_reduce_(g) / world.size for g in leaves]
+                cost = world.all_reduce_(cost.clone()) / world.size
+            else:
+                *leaves, cost = world.mean_(leaves + [cost.reshape(1)])
+                cost = cost.reshape(())
+            with torch.no_grad():
+                new, opt_state = optimizer.update(tree_unflatten(grads, leaves), opt_state,
+                                                  type(params)(*(p.detach() for p in params)))
+            return new, opt_state, cost
+
+        return update
+
+    def _explicit_refused(self, what: str):
+        if self.explicit:
+            raise NotImplementedError(f"{what} uses the bucket path; explicit_collectives=False")
+
+    def make_scanned_train_fn(self, model, loss_fn, optimizer):
+        self._explicit_refused("scan_epoch")
+        return super().make_scanned_train_fn(model, loss_fn, optimizer)
 
     def make_indexed_scanned_train_fn(self, model, loss_fn, optimizer):
-        from distributed_tensorflow_tpu_torch.train.scan import make_indexed_scanned_train_fn
-
-        return make_indexed_scanned_train_fn(model, loss_fn, optimizer)
+        self._explicit_refused("scan_epoch")
+        return super().make_indexed_scanned_train_fn(model, loss_fn, optimizer)
 
     def make_compiled_run_fn(self, model, loss_fn, optimizer, **kw):
-        from distributed_tensorflow_tpu_torch.train.compiled_run import make_compiled_run_fn
+        self._explicit_refused("compiled run")
+        return super().make_compiled_run_fn(model, loss_fn, optimizer, **kw)
 
-        return make_compiled_run_fn(model, loss_fn, optimizer, **kw)
+
+class AsyncDataParallel(Strategy):
+    """The ``tfdist_between.py`` mode: HOGWILD-style async DP as local SGD
+    with a copy a rank (see the module docstring)."""
+
+    def __init__(self, world: World | None = None, *, avg_every: int = 0,
+                 update_scale: float | None = None, device=None):
+        self.world = world if world is not None else make_mesh(device)
+        self.n = self.world.size
+        self.avg_every = avg_every
+        # None → scale the update by the replica count (async N×-update-
+        # count parity).
+        self.update_scale = float(self.n if update_scale is None else update_scale)
+
+    def init_state(self, model, optimizer, seed: int) -> TrainState:
+        params = model.init(seed, device=self.device)
+        return TrainState(params, optimizer.init(params), (0,) * self.n)
+
+    def layout_meta(self) -> dict:
+        return {"mode": "async", "replicas": int(self.n)}
+
+    def placement_specs(self, params):
+        return tree_map(lambda _: ("data",), params)
+
+    def to_canonical(self, state: TrainState) -> TrainState:
+        """The copies merged at their mean (float leaves; integer leaves
+        must agree, ``merge_replica_leaf``) and the summed step."""
+        return TrainState(_merge_tree(state.params, self.world),
+                          _merge_tree(state.opt_state, self.world), self.global_step(state))
+
+    def from_canonical(self, canonical: TrainState) -> TrainState:
+        """The canonical state as this rank's copy, and the scalar step
+        spread over the ranks so that their sum is kept."""
+        total = int(canonical.step)
+        base, rem = divmod(total, self.n)
+        dev = self.device
+        copy = lambda t: tree_map(  # noqa: E731
+            lambda a: a.detach().to(dev).clone() if isinstance(a, torch.Tensor) else a, t)
+        return TrainState(copy(canonical.params), copy(canonical.opt_state),
+                          tuple(base + (r < rem) for r in range(self.n)))
+
+    def _update(self, model, loss_fn, optimizer):
+        scale = self.update_scale
+        return lambda params, opt_state, x, y: _local_sgd_update(
+            model, loss_fn, optimizer, scale, params, opt_state, x, y)
+
+    def cost_scalar(self, cost) -> float:
+        """The mean over the ranks of a step's cost tensor (collective); a
+        host number, already a mean, as it is."""
+        if isinstance(cost, torch.Tensor):
+            return float(self.world.mean_([cost.reshape(1)])[0])
+        return float(cost)
+
+    def _mean_params(self, params):
+        return tree_unflatten(params, self.world.mean_(tree_leaves(params)))
+
+    def make_exchange_fn(self, collective: str = "auto"):
+        """Periodic parameter exchange: every copy jumps to the mean (one
+        all-reduce); optimizer state and steps stay local."""
+        if collective == "ring":
+            raise NotImplementedError(
+                "make_exchange_fn(collective='ring') is not ported yet (ROADMAP A7)")
+        if collective != "auto":
+            raise ValueError(f"unknown collective {collective!r}; use 'auto' or 'ring'")
+
+        def exchange(state: TrainState) -> TrainState:
+            return TrainState(self._mean_params(state.params), state.opt_state, state.step)
+
+        return exchange
+
+    def _loop_kw(self) -> dict:
+        return dict(exchange=self._mean_params, avg_every=self.avg_every)
+
+    def _epoch_costs(self, costs):
+        # Mean over the ranks a step: what the eager path's cost_scalar
+        # logs; one all-reduce an epoch.
+        return self.world.mean_([costs])[0]
+
+    def make_divergence_fn(self):
+        """The largest elementwise distance of any copy from the mean of
+        the copies: 0 right after an exchange, growing with local drift.
+        A 0-d tensor, the same on every rank (collective)."""
+
+        @torch.no_grad()
+        def divergence(state: TrainState) -> torch.Tensor:
+            mean = self._mean_params(state.params)
+            local = torch.stack([torch.max(torch.abs(a - m))
+                                 for a, m in zip(tree_leaves(state.params), tree_leaves(mean))])
+            return self.world.all_reduce_(torch.max(local).reshape(1), "max")[0]
+
+        return divergence
+
+    def effective_params(self, state: TrainState):
+        return self._mean_params(state.params)

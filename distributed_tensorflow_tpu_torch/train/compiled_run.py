@@ -45,29 +45,44 @@ def make_compiled_run_fn(
     batch_size: int,
     epochs: int,
     shuffle: bool = True,
+    steps_per_epoch: int | None = None,
+    epoch_fn=None,
+    eval_fn=None,
 ):
     """``fn(state, train_x, train_y, test_x, test_y, generator) -> (state,
     {"costs": [epochs, steps], "accuracy": [epochs]})``, results on the
-    device. The step count is ``len(train_x) // batch_size`` (the tail is
-    dropped, as the reference's ``int(num_examples/batch_size)``). The JAX
-    package's ``steps_per_epoch`` (the per-worker epoch of data
-    parallelism) comes with ROADMAP A6."""
+    device; ``batch_size`` is the GLOBAL batch. The step count is
+    ``len(train_x) // batch_size`` (the tail is dropped, as the reference's
+    ``int(num_examples/batch_size)``), or ``steps_per_epoch`` (the
+    reference's per-worker epoch: the index stream then wraps over fresh
+    permutations of the whole dataset).
 
-    epoch_fn = make_indexed_scanned_train_fn(model, loss_fn, optimizer)
+    ``epoch_fn(state, train_x, train_y, idxs [steps, batch]) -> (state,
+    costs)`` runs an epoch (default: the one-device indexed scan) and
+    ``eval_fn(state, test_x, test_y)`` its accuracy (default: the state's
+    parameters); a strategy passes its own, so each rank takes its columns
+    of the same permutation (every rank's generator is seeded alike)."""
+
+    epoch_fn = epoch_fn or make_indexed_scanned_train_fn(model, loss_fn, optimizer)
+    if eval_fn is None:
+        @torch.no_grad()
+        def eval_fn(state, x, y):
+            return losses_lib.accuracy(model.apply(state.params, x), y)
 
     def run(state: TrainState, train_x, train_y, test_x, test_y, generator):
-        steps = train_x.shape[0] // batch_size
+        steps = train_x.shape[0] // batch_size if steps_per_epoch is None else steps_per_epoch
         need = steps * batch_size
+        domain = need if steps_per_epoch is None else train_x.shape[0]
+        k = (need + domain - 1) // domain if need else 1
         dev = train_x.device
         costs = torch.empty((epochs, steps), dtype=torch.float32, device=dev)
         accs = torch.empty(epochs, dtype=torch.float32, device=dev)
         for e in range(epochs):
             perm = wrapped_epoch_perm(
-                generator, domain=need, need=need, k=1, shuffle=shuffle, device=dev
+                generator, domain=domain, need=need, k=k, shuffle=shuffle, device=dev
             ).reshape(steps, batch_size)
             state, costs[e] = epoch_fn(state, train_x, train_y, perm)
-            with torch.no_grad():
-                accs[e] = losses_lib.accuracy(model.apply(state.params, test_x), test_y)
+            accs[e] = eval_fn(state, test_x, test_y)
         return state, {"costs": costs, "accuracy": accs}
 
     return run

@@ -39,7 +39,7 @@ As in the JAX trainer, the optimizer is ``optimizer=`` or else the plain
 them, as ``launch.build_trainer`` composes the MLP ``Trainer``'s.
 
 Not ported yet, and refused when asked for: ``mesh`` and the parallel
-modes (ROADMAP A6/A7), the supervisor and checkpoints (and with them the
+modes (ROADMAP A7), the supervisor and checkpoints (and with them the
 ``tokenizer.json`` written beside a checkpoint), summaries, the journal
 and metrics, ``epochs_per_dispatch`` and the anomaly guard (A8), and the
 DiLoCo ``delta_exchange`` (A7).
@@ -62,15 +62,15 @@ from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX LMTrainer keyword -> (values that leave it off, ROADMAP item).
 NOT_PORTED = {
-    "mesh": ((None,), "A6/A7"),
+    "mesh": ((None,), "A7"),
     "summary_writer": ((None,), "A8"),
     "supervisor": ((None,), "A8"),
     "journal": ((None,), "A8"),
     "metrics": ((None,), "A8"),
     "delta_exchange": ((None,), "A7"),
-    "is_chief": ((True,), "A6/A7"),
+    "is_chief": ((True,), "A7"),
     "async_update_scale": ((None,), "A7"),
-    "data_axis": (("data",), "A6/A7"),
+    "data_axis": (("data",), "A7"),
     "tp_axis": (("model",), "A7"),
     "expert_axis": (("expert",), "A7"),
     "stage_axis": (("stage",), "A7"),

@@ -4,44 +4,30 @@ Counterpart of ``distributed_tensorflow_tpu/train/scan.py``. The JAX
 package compiles an epoch into one ``lax.scan`` dispatch; here the scan is
 a Python loop of device steps over batches staged on the device, with the
 per-step costs kept on the device and fetched once by the caller
-(:func:`device_loop`, which the whole run of ``train/compiled_run.py``
-also calls). The update sequence is the eager loop's: same batches, same
-order, same updates (``parallel.strategy.sgd_step``, any optimizer of
-``ops/optim.py`` with its state carried through).
+(``parallel.strategy.device_loop``, which the whole run of
+``train/compiled_run.py`` also runs). The update sequence is the eager
+loop's: same batches, same order, same updates
+(``parallel.strategy.sgd_step``, any optimizer of ``ops/optim.py`` with its
+state carried through). These are the one-device functions; each strategy
+builds its own over its update and its rows of the batch
+(``Strategy.make_indexed_scanned_train_fn``).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
-from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState, sgd_step
+from distributed_tensorflow_tpu_torch.parallel.strategy import SingleDevice
 
-
-def device_loop(model, loss_fn, optimizer, state: TrainState, steps: int, batch):
-    """The one MLP device loop: ``steps`` updates (``sgd_step``), step i on
-    ``batch(i) -> (x, y)``, the costs kept in a [steps] device tensor for
-    the caller to fetch once. The scanned epochs below and the whole run
-    (``train/compiled_run.py``) are its callers."""
-    params, opt_state = state.params, state.opt_state
-    costs = torch.empty(steps, dtype=torch.float32, device=tree_leaves(params)[0].device)
-    for i in range(steps):
-        params, opt_state, costs[i] = sgd_step(
-            model, loss_fn, optimizer, params, opt_state, *batch(i)
-        )
-    return TrainState(params, opt_state, state.step + steps), costs
+# A world of one rank: its scanned functions keep each tensor on the
+# device the caller staged it on.
+_ONE = SingleDevice("cpu")
 
 
 def make_scanned_train_fn(model, loss_fn, optimizer):
     """``fn(state, xs, ys) -> (state, costs)`` over staged batches ``xs``
     [steps, batch, features]; ``costs`` [steps] on the device."""
-
-    def run(state: TrainState, xs, ys):
-        return device_loop(model, loss_fn, optimizer, state, xs.shape[0],
-                           lambda i: (xs[i], ys[i]))
-
-    return run
+    return _ONE.make_scanned_train_fn(model, loss_fn, optimizer)
 
 
 def make_indexed_scanned_train_fn(model, loss_fn, optimizer):
@@ -49,14 +35,7 @@ def make_indexed_scanned_train_fn(model, loss_fn, optimizer):
     device-resident training arrays; ``idxs`` [steps, batch] row indices,
     each step gathering its batch on the device (the only per-epoch upload
     is the index array)."""
-
-    def run(state: TrainState, train_x, train_y, idxs):
-        return device_loop(
-            model, loss_fn, optimizer, state, idxs.shape[0],
-            lambda i: (train_x.index_select(0, idxs[i]), train_y.index_select(0, idxs[i])),
-        )
-
-    return run
+    return _ONE.make_indexed_scanned_train_fn(model, loss_fn, optimizer)
 
 
 def stage_epoch(images, labels, batch_size: int, *, rng=None, dtype=np.float32):

@@ -1,10 +1,15 @@
 """The MLP training loop of the port.
 
-Counterpart of ``distributed_tensorflow_tpu/train/trainer.py`` ``Trainer``
-on one device. It keeps the reference loop's contract: ``epochs`` ×
-``num_train_examples // batch_size`` SGD steps, the Step/Epoch/Batch/
-Cost/AvgTime line every ``log_frequency`` batches, the full test-set
-accuracy and wall time per epoch, and a final-cost line. Three paths:
+Counterpart of ``distributed_tensorflow_tpu/train/trainer.py`` ``Trainer``,
+strategy-agnostic (``parallel/strategy.py``). It keeps the reference loop's
+contract: ``epochs`` × ``num_train_examples // global_batch`` steps (or
+``// batch_size`` a worker under ``per_worker_epoch``), the global batch
+being ``batch_size × num_replicas``; the Step/Epoch/Batch/Cost/AvgTime line
+every ``log_frequency`` batches; the full test-set accuracy and wall time
+per epoch and a final-cost line, printed by the chief only (every rank
+evaluates: under async and ZeRO the eval is a collective). Under async
+with ``avg_every`` the copies are exchanged after step ``i`` when ``(i +
+1) % avg_every == 0``, on every path. Three paths:
 
 - the eager per-batch loop (``run_epoch``), the default on the CPU;
 - the indexed scanned epoch (``_run_epoch_scanned``): the training arrays
@@ -21,9 +26,8 @@ state in ``TrainState.opt_state``; ``engine="pallas"`` refuses them, with
 the JAX package's wording and probes, before any launch.
 
 Not ported yet, and refused when asked for: the supervisor and
-checkpointing, anomaly rollback, ``epochs_per_dispatch``, prefetch,
-summaries, the journal and metrics (ROADMAP A8), other strategies and
-models (A6).
+checkpointing, anomaly rollback, ``epochs_per_dispatch``, summaries, the
+journal and metrics (ROADMAP A8), the other classifiers (A6b).
 """
 
 from __future__ import annotations
@@ -36,7 +40,12 @@ import torch
 from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
-from distributed_tensorflow_tpu_torch.parallel.strategy import SingleDevice, TrainState
+from distributed_tensorflow_tpu_torch.parallel.strategy import (
+    AsyncDataParallel,
+    SingleDevice,
+    Strategy,
+    TrainState,
+)
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX Trainer keyword -> (values that switch it off, ROADMAP item).
@@ -45,7 +54,6 @@ NOT_PORTED = {
     "supervisor": ((None,), "A8"),
     "journal": ((None,), "A8"),
     "metrics": ((None,), "A8"),
-    "is_chief": ((True,), "A6"),
 }
 
 
@@ -56,9 +64,10 @@ class Trainer:
         datasets,
         config: TrainConfig | None = None,
         *,
-        strategy: SingleDevice | None = None,
+        strategy: Strategy | None = None,
         loss_fn=None,
         optimizer=None,
+        is_chief: bool = True,
         print_fn=print,
         device=None,
         **not_ported,
@@ -82,19 +91,26 @@ class Trainer:
         self.device = strategy.device
         self.loss_fn = loss_fn or losses_lib.cross_entropy
         self.optimizer = optimizer or optim_lib.sgd(self.config.learning_rate)
+        self.is_chief = is_chief
         self.print_fn = print_fn
 
         self.state = self.strategy.init_state(self.model, self.optimizer, self.config.seed)
         self.train_step = self.strategy.make_train_step(self.model, self.loss_fn, self.optimizer)
         self.eval_fn = self.strategy.make_eval_fn(self.model)
+        self._exchange = None
+        if isinstance(self.strategy, AsyncDataParallel) and self.strategy.avg_every:
+            self._exchange = self.strategy.make_exchange_fn()
+        # The reference gave each of N workers a batch of batch_size, so N
+        # replicas consume N × batch_size a step.
         self.global_batch = self.config.batch_size * self.strategy.num_replicas
 
         # Scanned epochs: None resolves by device, as the JAX package
         # resolves by backend (the per-batch loop pays a host round trip
-        # per batch on an accelerator).
+        # per batch on an accelerator); the explicit-collective sync step
+        # has no scanned path.
         scan_epoch = self.config.scan_epoch
         if scan_epoch is None:
-            scan_epoch = self.device.type != "cpu"
+            scan_epoch = self.device.type != "cpu" and not getattr(self.strategy, "explicit", False)
         self._indexed_fn = None
         self._scan_rng = None
         if scan_epoch:
@@ -107,6 +123,10 @@ class Trainer:
         self._pallas_checked = False
         self.last_cost = None
         self.history: list[dict] = []
+        if self.config.log_placement and self.is_chief:
+            from distributed_tensorflow_tpu_torch.utils import placement
+
+            placement.describe_state(self.strategy, self.state.params, print_fn=self.print_fn)
 
     # -- pieces -----------------------------------------------------------
 
@@ -134,13 +154,24 @@ class Trainer:
         host, one step per batch; the host syncs only when a line is due."""
         if self._indexed_fn is not None:
             return self._run_epoch_scanned(epoch, logger)
+        cfg = self.config
         train = self.datasets.train
-        batch_count = train.num_examples // self.global_batch
+        global_batch = self.global_batch
+        batch_count = self._batch_count()
         logger.reset_window()
-        for i in range(batch_count):
-            bx, by = self.strategy.prepare_batch(*train.next_batch(self.global_batch))
+        if cfg.prefetch:
+            from distributed_tensorflow_tpu_torch.data.prefetch import prefetch_batches
+
+            batches = prefetch_batches(train.next_batch, global_batch, batch_count,
+                                       self.strategy.prepare_batch, depth=cfg.prefetch)
+        else:
+            batches = (self.strategy.prepare_batch(*train.next_batch(global_batch))
+                       for _ in range(batch_count))
+        for i, (bx, by) in enumerate(batches):
             self.state, cost = self.train_step(self.state, bx, by)
             self.last_cost = cost
+            if self._exchange is not None and (i + 1) % self.strategy.avg_every == 0:
+                self.state = self._exchange(self.state)
             if logger.is_due(i + 1, batch_count):
                 logger.maybe_log_step(
                     step=self.strategy.global_step(self.state),
@@ -158,8 +189,15 @@ class Trainer:
         train = self.datasets.train
         xs = self._stage_cached("train_x", train.images)
         ys = self._stage_cached("train_y", train.labels)
-        steps = train.num_examples // self.global_batch
-        perm = self._scan_rng.permutation(train.num_examples)[: steps * self.global_batch]
+        steps = self._batch_count()
+        # Under per_worker_epoch the stream wraps over fresh permutations
+        # (DataSet.next_batch's tail carry); every rank draws the same.
+        need = steps * self.global_batch
+        chunks, total = [], 0
+        while total < need:
+            chunks.append(self._scan_rng.permutation(train.num_examples))
+            total += chunks[-1].size
+        perm = np.concatenate(chunks)[:need] if len(chunks) > 1 else chunks[0][:need]
         idxs = torch.from_numpy(perm.reshape(steps, self.global_batch)).to(self.device)
         step_before = self.strategy.global_step(self.state)
         t0 = time.time()
@@ -168,7 +206,21 @@ class Trainer:
         elapsed = time.time() - t0
         self.last_cost = costs[-1]
         avg_ms = elapsed * 1000 / len(costs)
-        self._emit_step_logs(costs, epoch, step_before, avg_ms, logger)
+        self._emit_step_logs(costs, epoch, step_before, avg_ms, logger,
+                             step_incr=self._step_incr(step_before, len(costs)))
+
+    def _batch_count(self) -> int:
+        """Steps an epoch: a pass over the data globally, or under
+        ``per_worker_epoch`` (the reference's convention) one a worker."""
+        train = self.datasets.train
+        if self.config.per_worker_epoch:
+            return train.num_examples // self.config.batch_size
+        return train.num_examples // self.global_batch
+
+    def _step_incr(self, step_before: int, batch_count: int) -> int:
+        """Global-step advance per batch (num_replicas under async, 1
+        under sync), from the counter itself."""
+        return (self.strategy.global_step(self.state) - step_before) // max(batch_count, 1)
 
     def run_compiled(self, epochs: int | None = None) -> dict:
         """The whole run in one call (train/compiled_run.py, or the epoch
@@ -181,7 +233,10 @@ class Trainer:
         if use_kernel and not self._pallas_checked:
             self._check_pallas_engine()
             self._pallas_checked = True
-        key = (cfg.engine, epochs, self.global_batch)
+        steps_per_epoch = (
+            self.datasets.train.num_examples // cfg.batch_size if cfg.per_worker_epoch else None
+        )
+        key = (cfg.engine, epochs, self.global_batch, steps_per_epoch)
         run_fn = self._compiled_run_fns.get(key)
         if run_fn is None:
             if use_kernel:
@@ -196,11 +251,13 @@ class Trainer:
                     hidden_dim=self.model.hidden_dim,
                     out_dim=self.model.out_dim,
                     learning_rate=cfg.learning_rate,
+                    steps_per_epoch=steps_per_epoch,
                 )
             else:
                 run_fn = self.strategy.make_compiled_run_fn(
                     self.model, self.loss_fn, self.optimizer,
                     batch_size=self.global_batch, epochs=epochs,
+                    steps_per_epoch=steps_per_epoch,
                 )
             self._compiled_run_fns[key] = run_fn
         logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
@@ -236,18 +293,22 @@ class Trainer:
         if costs.size:
             self.last_cost = costs[-1, -1]
         avg_ms = elapsed * 1000 / max(epochs * batch_count, 1)
+        incr = self._step_incr(step_before, epochs * batch_count)
         for epoch in range(epochs):
             self._emit_step_logs(
-                costs[epoch], epoch, step_before + epoch * batch_count, avg_ms, logger
+                costs[epoch], epoch, step_before + epoch * batch_count * incr, avg_ms, logger,
+                step_incr=incr,
             )
-            logger.log_epoch(test_accuracy=float(accs[epoch]))
-            self.history.append({
-                "epoch": epoch + 1,
-                "accuracy": float(accs[epoch]),
-                "step": step_before + (epoch + 1) * batch_count,
-            })
+            if self.is_chief:
+                logger.log_epoch(test_accuracy=float(accs[epoch]))
+                self.history.append({
+                    "epoch": epoch + 1,
+                    "accuracy": float(accs[epoch]),
+                    "step": step_before + (epoch + 1) * batch_count * incr,
+                })
         final_cost = float(costs[-1, -1]) if costs.size else float("nan")
-        logger.log_final(cost=final_cost)
+        if self.is_chief:
+            logger.log_final(cost=final_cost)
         return {
             "accuracy": float(accs[-1]) if accs.size else 0.0,
             "final_cost": final_cost,
@@ -266,7 +327,10 @@ class Trainer:
         if not isinstance(self.model, MLP):
             problems.append(f"model {type(self.model).__name__} (need MLP)")
         if not isinstance(self.strategy, SingleDevice):
-            problems.append(f"strategy {type(self.strategy).__name__} (need SingleDevice)")
+            problems.append(
+                f"strategy {type(self.strategy).__name__} (need SingleDevice; "
+                "use ops.fused_mlp.make_fused_async_epoch_fn for DP)"
+            )
         if (
             cfg.optimizer != "sgd"
             or cfg.lr_schedule not in (None, "constant")  # optim treats both as constant
@@ -318,14 +382,15 @@ class Trainer:
             )
 
     def _emit_step_logs(self, costs, epoch: int, step_offset: int, avg_ms: float,
-                        logger: StepLogger) -> None:
+                        logger: StepLogger, step_incr: int = 1) -> None:
         """Reference-cadence step lines from a device loop's fetched
-        per-step costs (the scanned and whole-run paths)."""
+        per-step costs (the scanned and whole-run paths); ``step_incr`` is
+        the global-step advance a batch."""
         batch_count = len(costs)
         for i in range(batch_count):
             if logger.is_due(i + 1, batch_count):
                 logger.log_step_line(
-                    step=step_offset + i + 1,
+                    step=step_offset + (i + 1) * step_incr,
                     epoch=epoch,
                     batch=i,
                     batch_count=batch_count,
@@ -344,19 +409,23 @@ class Trainer:
         accuracy = 0.0
         for epoch in range(epochs):
             self.run_epoch(epoch, logger)
+            # Every rank evaluates (a collective under async and ZeRO);
+            # the chief logs and records it.
             accuracy = self.evaluate()
-            logger.log_epoch(test_accuracy=accuracy)
-            self.history.append({
-                "epoch": epoch + 1,
-                "accuracy": accuracy,
-                "step": self.strategy.global_step(self.state),
-            })
+            if self.is_chief:
+                logger.log_epoch(test_accuracy=accuracy)
+                self.history.append({
+                    "epoch": epoch + 1,
+                    "accuracy": accuracy,
+                    "step": self.strategy.global_step(self.state),
+                })
         final_cost = (
             self.strategy.cost_scalar(self.last_cost)
             if self.last_cost is not None
             else float("nan")
         )
-        logger.log_final(cost=final_cost)
+        if self.is_chief:
+            logger.log_final(cost=final_cost)
         return {
             "accuracy": accuracy,
             "final_cost": final_cost,

@@ -1,0 +1,429 @@
+"""Worlds of ranks for the port's data-parallel tests.
+
+The parent side (:func:`run_world`) starts N processes of this file, one a
+rank, which join a gloo process group on the CPU through a ``file://``
+rendezvous in the test's temporary directory, run one named group of
+cases (``CASES``) on the inputs the test wrote (``inputs.npz``), and
+pickle their results to ``rank<r>.pkl``. The whole world runs under one
+timeout (at most 120 s), after which every child is killed, so no hang
+can outlast it.
+
+The children import ``torch`` and the port only: never ``jax``, the JAX
+package or ``tests/conftest.py`` (each result records whether ``jax``
+was loaded). The JAX side of each comparison runs in the test process.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+WORLD_TIMEOUT_S = 120
+
+
+# -- the parent side ----------------------------------------------------------
+
+
+def free_port() -> int:
+    """A port free on 127.0.0.1 now (bound to 0, then released)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([REPO, HERE])
+    env["OMP_NUM_THREADS"] = "1"
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE", "DTF_JOURNAL_DIR"):
+        env.pop(k, None)
+    return env
+
+
+def run_world(case: str, n: int, tmp_path, inputs: dict | None = None, args: dict | None = None,
+              timeout: float = WORLD_TIMEOUT_S) -> list:
+    """Run ``CASES[case]`` on ``n`` ranks; returns each rank's result.
+    Raises with the children's output when one fails or the world
+    outlives ``timeout``."""
+    d = str(tmp_path)
+    np.savez(os.path.join(d, "inputs.npz"), **(inputs or {}))
+    with open(os.path.join(d, "args.json"), "w") as f:
+        json.dump(args or {}, f)
+    procs = []
+    for r in range(n):
+        log = open(os.path.join(d, f"rank{r}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), case, str(r), str(n), d],
+            stdout=log, stderr=subprocess.STDOUT, env=child_env()), log))
+    deadline = time.time() + timeout
+    expired = False
+    for p, log in procs:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            expired = True
+            break
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+    logs = "\n".join(
+        f"--- rank {r} (exit {p.returncode}) ---\n" + _tail(os.path.join(d, f"rank{r}.log"))
+        for r, (p, _) in enumerate(procs))
+    if expired:
+        raise RuntimeError(f"world {case!r} of {n} ranks outlived {timeout}s\n{logs}")
+    if any(p.returncode for p, _ in procs):
+        raise RuntimeError(f"world {case!r} of {n} ranks failed\n{logs}")
+    out = []
+    for r in range(n):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _tail(path: str, n: int = 4000) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()[-n:]
+
+
+# -- the child side -----------------------------------------------------------
+
+
+def _np(tree):
+    """Tensors (and trees of them) → numpy, for the pickle."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _np(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, (tuple, list)):
+        return [_np(v) for v in tree]
+    return tree
+
+
+def _params(inp, device="cpu"):
+    from distributed_tensorflow_tpu_torch.convert import mlp_params_from_numpy
+
+    return mlp_params_from_numpy({k: inp[k] for k in ("w1", "b1", "w2", "b2")}, device=device)
+
+
+def _model(inp):
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.mlp import MLP
+
+    return MLP(hidden_dim=inp["w1"].shape[1], compute_dtype=torch.float32)
+
+
+def _drive(strategy, model, opt, params, xs, ys):
+    """Eager steps over the staged global batches ``xs`` [steps, N·b, ...]
+    from ``params``; returns (state, costs)."""
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+
+    from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+
+    state = strategy.from_canonical(TrainState(params, opt.init(params), 0))
+    step = strategy.make_train_step(model, cross_entropy, opt)
+    costs = []
+    for x, y in zip(xs, ys):
+        state, c = step(state, *strategy.prepare_batch(x, y))
+        costs.append(strategy.cost_scalar(c))
+    return state, costs
+
+
+def case_strategies(world, inp, args):
+    """Sync (bucket and per leaf, SGD and Adam), ZeRO (SGD and Adam), async
+    (divergence, exchange, eval, canonical forms, the scanned epoch) and
+    the merge refusal, each from the same parameters and batches."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedDataParallel
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        AsyncDataParallel,
+        SyncDataParallel,
+        TrainState,
+        merge_replica_leaf,
+    )
+
+    model, xs, ys = _model(inp), inp["xs"], inp["ys"]
+    res = {}
+    for name, strat, opt in (
+        ("sync_sgd", SyncDataParallel(world), optim.sgd(0.05)),
+        ("sync_explicit", SyncDataParallel(world, explicit_collectives=True), optim.sgd(0.05)),
+        ("sync_adam", SyncDataParallel(world), optim.adam(0.01)),
+        ("zero_sgd", ShardedDataParallel(world), optim.sgd(0.05)),
+        ("zero_adam", ShardedDataParallel(world), optim.adam(0.01)),
+    ):
+        state, costs = _drive(strat, model, opt, _params(inp), xs, ys)
+        canon = strat.to_canonical(state)
+        res[name] = dict(params=_np(canon.params), costs=costs, step=strat.global_step(state),
+                         opt=_np(canon.opt_state))
+        if name.startswith("zero"):
+            res[name]["shards"] = _np(state.params)
+            res[name]["opt_shards"] = _np(state.opt_state)
+            res[name]["specs"] = [list(s) for s in strat._specs]
+            res[name]["eval"] = float(strat.make_eval_fn(model)(
+                state, torch.from_numpy(xs[0]), torch.from_numpy(ys[0])))
+
+    # Async: diverge for 3 steps, measure, exchange, measure.
+    strat = AsyncDataParallel(world)
+    opt = optim.momentum(0.05)
+    state, costs = _drive(strat, model, opt, _params(inp), xs[:3], ys[:3])
+    div = strat.make_divergence_fn()
+    acc = strat.make_eval_fn(model)(state, torch.from_numpy(xs[0]), torch.from_numpy(ys[0]))
+    canon = strat.to_canonical(state)
+    after = strat.make_exchange_fn()(state)
+    res["async"] = dict(
+        params=_np(state.params), costs=costs, step=state.step,
+        global_step=strat.global_step(state), divergence=float(div(state)),
+        eval=float(acc), canonical=_np(canon.params), canonical_opt=_np(canon.opt_state),
+        canonical_step=canon.step, exchanged=_np(after.params),
+        divergence_after=float(div(after)),
+        spread=strat.from_canonical(TrainState(canon.params, canon.opt_state, 7)).step,
+    )
+    # The async scanned epoch: avg_every 2 over 5 staged steps.
+    strat = AsyncDataParallel(world, avg_every=2)
+    opt = optim.sgd(0.05)
+    fn = strat.make_scanned_train_fn(model, cross_entropy, opt)
+    p = _params(inp)
+    state, costs = fn(TrainState(p, opt.init(p), (0,) * world.size),
+                      torch.from_numpy(xs), torch.from_numpy(ys))
+    res["async_scan"] = dict(params=_np(state.params), costs=costs.numpy(), step=state.step)
+    # Integer leaves that differ across the ranks refuse to merge.
+    try:
+        merge_replica_leaf(torch.tensor(world.rank, dtype=torch.int32), world)
+        res["merge_refused"] = ""
+    except ValueError as exc:
+        res["merge_refused"] = str(exc)
+    return res
+
+
+def case_single(world, inp, args):
+    """A world of one rank: sync and async(update_scale=1) against
+    SingleDevice, eager and scanned."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        AsyncDataParallel,
+        SingleDevice,
+        SyncDataParallel,
+        TrainState,
+    )
+
+    model, xs, ys = _model(inp), inp["xs"], inp["ys"]
+    dev = world.device
+    res = {}
+    for name, strat in (("single", SingleDevice(dev)), ("sync", SyncDataParallel(world)),
+                        ("async", AsyncDataParallel(world, avg_every=2, update_scale=1))):
+        opt = optim.adam(0.01)
+        state, costs = _drive(strat, model, opt, _params(inp, dev), xs, ys)
+        fn = strat.make_scanned_train_fn(model, cross_entropy, opt)
+        p = _params(inp, dev)
+        s2, c2 = fn(strat.from_canonical(TrainState(p, opt.init(p), 0)),
+                    torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))
+        res[name] = dict(params=_np(state.params), costs=costs, scan_params=_np(s2.params),
+                         scan_costs=_np(c2))
+    res["backend"] = world.backend
+    return res
+
+
+def case_sync_global(world, inp, args):
+    """Sync over the world against SingleDevice on the global batch, both
+    on the world's device (5 SGD steps)."""
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.strategy import SingleDevice, SyncDataParallel
+
+    model, dev = _model(inp), world.device
+    out = {"backend": world.backend}
+    for name, strat in (("single", SingleDevice(dev)), ("sync", SyncDataParallel(world))):
+        state, costs = _drive(strat, model, optim.sgd(0.05), _params(inp, dev),
+                              inp["xs"], inp["ys"])
+        out[name] = dict(params=_np(state.params), costs=costs)
+    return out
+
+
+def case_trainer(world, inp, args):
+    """The Trainer on each path and mode of ``args["runs"]``: its printed
+    lines, result and final (canonical) parameters."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
+    from distributed_tensorflow_tpu_torch.launch import build_strategy, build_trainer
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+
+    res = {}
+    for run in args["runs"]:
+        name, cfg = run["name"], dict(run["config"])
+        ds = Datasets(train=DataSet(inp["train_x"], inp["train_y"], seed=1),
+                      validation=DataSet(inp["test_x"][:10], inp["test_y"][:10], seed=3),
+                      test=DataSet(inp["test_x"], inp["test_y"], seed=2))
+        config = TrainConfig(compute_dtype="float32", **cfg)
+        strategy = build_strategy(config, world=world)
+        model = _model(inp)
+        if run.get("compiled_unshuffled"):
+            # The whole run without a shuffle: the rows in dataset order.
+            opt = optim.sgd(config.learning_rate)
+            fn = strategy.make_compiled_run_fn(
+                model, cross_entropy, opt, batch_size=config.batch_size * world.size,
+                epochs=config.epochs, shuffle=False)
+            p = _params(inp)
+            state, met = fn(strategy.from_canonical(TrainState(p, opt.init(p), 0)),
+                            *(torch.from_numpy(inp[k]) for k in
+                              ("train_x", "train_y", "test_x", "test_y")), torch.Generator())
+            res[name] = dict(costs=met["costs"].numpy(), accuracy=met["accuracy"].numpy(),
+                             params=_np(strategy.to_canonical(state).params),
+                             step=strategy.global_step(state))
+            continue
+        lines = []
+        tr = build_trainer(config, datasets=ds, strategy=strategy, model=model,
+                           print_fn=lines.append, device="cpu",
+                           context=_Ctx(world.rank == 0))
+        tr.state = strategy.from_canonical(TrainState(
+            _params(inp), tr.optimizer.init(_params(inp)), 0))
+        out = tr.run()
+        res[name] = dict(lines=lines, result=out, history=tr.history,
+                         params=_np(strategy.to_canonical(tr.state).params),
+                         scanned=tr._indexed_fn is not None)
+    return res
+
+
+class _Ctx:
+    def __init__(self, is_chief):
+        self.is_chief = is_chief
+
+
+def case_fused(world, inp, args):
+    """B2's data-parallel composition (its plain version on the CPU)
+    against AsyncDataParallel(update_scale=1)'s scanned epoch."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.strategy import AsyncDataParallel, TrainState
+
+    dev = world.device
+    xs, ys = torch.from_numpy(inp["xs"]).to(dev), torch.from_numpy(inp["ys"]).to(dev)
+    steps, gb, in_dim = xs.shape
+    hidden, out = inp["w2"].shape
+    kw = dict(steps=steps, batch_size=gb // world.size, in_dim=in_dim, hidden_dim=hidden,
+              out_dim=out, learning_rate=args["lr"], avg_every=args["avg_every"])
+    _build.reset_launches()
+    state, costs = fm.make_fused_async_epoch_fn(world, **kw)(
+        fm.to_fused_stacked(_params(inp, dev), world), xs, ys)
+    launches = dict(_build.LAUNCHES)
+    plain, plain_costs = fm.make_fused_async_epoch_fn(world, plain=True, **kw)(
+        fm.to_fused_stacked(_params(inp, dev), world), xs, ys)
+    strat = AsyncDataParallel(world, avg_every=args["avg_every"], update_scale=1)
+    opt = optim.sgd(args["lr"])
+    fn = strat.make_scanned_train_fn(_model(inp), cross_entropy, opt)
+    p = _params(inp, dev)
+    s2, c2 = fn(TrainState(p, opt.init(p), (0,) * world.size), xs, ys)
+    return dict(fused=_np(fm.from_fused(state)), costs=_np(costs), launches=launches,
+                plain=_np(fm.from_fused(plain)), plain_costs=_np(plain_costs),
+                scan=_np(s2.params), scan_costs=_np(c2))
+
+
+def case_bootstrap(world, inp, args):
+    """Two processes bootstrapping over tcp://127.0.0.1:<port> through
+    ``cluster.bootstrap``, then one sync step."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_tpu_torch.parallel.strategy import SyncDataParallel
+
+    rank = args["rank"]
+    port = args["port"]
+    cluster = ClusterConfig(worker_svrs=(f"127.0.0.1:{port}", f"127.0.0.1:{port + 1}"),
+                            connect_timeout_s=60, connect_attempts=2)
+    lines = []
+    ctx = bootstrap(cluster, "worker", rank, device="cpu", print_fn=lines.append)
+    world = make_mesh("cpu")
+    strat = SyncDataParallel(world)
+    state, costs = _drive(strat, _model(inp), optim.sgd(0.05), _params(inp),
+                          inp["xs"][:1], inp["ys"][:1])
+    ctx.close()
+    return dict(lines=lines, is_chief=ctx.is_chief, size=world.size, rank=world.rank,
+                backend=world.backend, params=_np(state.params), costs=costs,
+                closed=not torch.distributed.is_initialized())
+
+
+CASES = {"strategies": case_strategies, "single": case_single, "trainer": case_trainer,
+         "fused": case_fused, "bootstrap": case_bootstrap, "sync_global": case_sync_global}
+NO_GROUP = ("bootstrap",)  # cases that join their own group
+
+
+def run_task(d: str, argv) -> None:
+    """One task of a cluster started by ``tools/launch_local.py``:
+    ``launch.run`` on the CPU with the inputs' data, the reference's flags
+    in ``argv``."""
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
+    from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
+    from distributed_tensorflow_tpu_torch.launch import run
+
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    with open(os.path.join(d, "args.json")) as f:
+        args = json.load(f)
+    port = args["port"]
+    cluster = ClusterConfig(
+        worker_svrs=tuple(f"127.0.0.1:{port + i}" for i in range(args["workers"])),
+        ps_svrs=(f"127.0.0.1:{port + 100}",), connect_timeout_s=60, connect_attempts=1)
+    ds = Datasets(train=DataSet(inp["train_x"], inp["train_y"], seed=1),
+                  validation=DataSet(inp["test_x"][:10], inp["test_y"][:10], seed=3),
+                  test=DataSet(inp["test_x"], inp["test_y"], seed=2))
+    out = run(cluster, TrainConfig(compute_dtype="float32", **args["config"]), argv=argv,
+              device="cpu", datasets=ds)
+    print("RESULT", json.dumps(out))
+
+
+def main(argv) -> None:
+    if argv[0] == "task":
+        return run_task(argv[1], argv[2:])
+    case, rank, n, d = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    import torch
+
+    torch.set_num_threads(1)
+    inp = dict(np.load(os.path.join(d, "inputs.npz")))
+    with open(os.path.join(d, "args.json")) as f:
+        args = json.load(f)
+    if case in NO_GROUP:
+        args["rank"] = rank
+        res = CASES[case](None, inp, args)
+    else:
+        from distributed_tensorflow_tpu_torch.parallel.mesh import init_world
+
+        world = init_world(f"file://{os.path.join(d, 'store')}", n, rank,
+                           device=args.get("device", "cpu"), timeout_s=WORLD_TIMEOUT_S)
+        res = CASES[case](world, inp, args)
+        torch.distributed.destroy_process_group()
+    res = {"result": res, "jax_loaded": any(m.split(".")[0] in ("jax", "jaxlib")
+                                            for m in sys.modules),
+           "jax_package_loaded": "distributed_tensorflow_tpu" in sys.modules}
+    with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -233,10 +233,10 @@ def test_ragged_corpus_trains_through_the_masked_loss():
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("mesh", object(), "A6/A7"), ("summary_writer", object(), "A8"),
+    ("mesh", object(), "A7"), ("summary_writer", object(), "A8"),
     ("supervisor", object(), "A8"), ("journal", object(), "A8"),
     ("metrics", object(), "A8"),
-    ("delta_exchange", object(), "A7"), ("is_chief", False, "A6/A7"),
+    ("delta_exchange", object(), "A7"), ("is_chief", False, "A7"),
     ("tp_axis", "tensor", "A7"), ("sp_attention", "ulysses", "A7"),
 ])
 def test_refused_trainer_knobs(name, value, item):

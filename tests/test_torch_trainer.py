@@ -272,14 +272,23 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
 
     _, tds = _pair_datasets(*small_pair)
     for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8"), (dict(epochs_per_dispatch=10), "A8"),
-                     (dict(prefetch=2), "A8"), (dict(max_rollbacks=1), "A8"),
-                     (dict(logs_path="./logs"), "A8"), (dict(sync=False), "A6"),
-                     (dict(model="cnn"), "A6")):
+                     (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8"),
+                     (dict(model="cnn"), "A6b"), (dict(dp_mode="diloco"), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**kw)
     # Lifted by the optimizer wrappers: the schedule fields are accepted.
     assert TrainConfig(lr_schedule="cosine", warmup_steps=5, accumulate_steps=2,
                        grad_clip_norm=1.0).lr_schedule == "cosine"
+    # Lifted by the data-parallel slice: sync=False (async, one rank here),
+    # prefetch and a non-chief context are accepted and train.
+    out = []
+    tr = build_trainer(TrainConfig(epochs=1, sync=False, async_avg_every=3, prefetch=2,
+                                   log_frequency=50),
+                       context=type("Ctx", (), {"is_chief": False})(), datasets=tds,
+                       device="cpu", print_fn=out.append)
+    res = tr.run()
+    assert res["global_step"] == tds.train.num_examples // 100 and np.isfinite(res["final_cost"])
+    assert out and not any(ln.startswith(("Test-Accuracy", "Final Cost")) for ln in out)
     # Refused whatever the value, even one that switches the feature off.
     with pytest.raises(NotImplementedError, match="A8"):
         TrainConfig(logs_path="")
@@ -290,8 +299,6 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     for name in ("supervisor", "summary_writer", "journal", "metrics"):
         with pytest.raises(NotImplementedError, match="A8"):
             Trainer(MLP(), tds, device="cpu", **{name: object()})
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_trainer(context=object(), datasets=tds, device="cpu")
     monkeypatch.setenv("DTF_CHECKPOINT", "/tmp/ckpt")
     with pytest.raises(NotImplementedError, match="A8"):
         config_from_env()
