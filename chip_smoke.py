@@ -175,7 +175,19 @@ non-zero):
     reference's lines from the chief only, the ps tasks' two lines; then
     ``examples/between_sync.py`` and ``between_async.py`` for one epoch.
     A task of these clusters is ``chip_smoke.py --dp-task sync|async|fused``
-    (logs in ``chiprun_out/phase20/``).
+    (logs in ``chiprun_out/phase20/``);
+21. the classifier families at the registry's default widths (bf16, batch
+    100): the CNN, the LSTM and the transformer through ``DTF_MODEL`` and
+    ``launch.build_trainer``, 300 steps each on the first 30,000 synthetic
+    rows, no kernel launched; then the flash transformer
+    (``attention_impl="flash", flash_min_len=0``: head_dim 16), whose
+    launches must be B3 a step and an eval and B4a a step, and 100 steps
+    with the fused backward's dq-partial cap at 0 (B4b + B4c); each run's
+    cost falling, its test accuracy past ``CLASSIFIER_ORACLE`` and equal
+    to ``Predictor.accuracy``'s, ms a step and examples/s printed; then B3,
+    B4a, B4b and B4c at head_dim 16 at the classifier's attention shape
+    (B=100, L=28, 4 heads, non-causal) in f32 and bf16 against their plain
+    versions, timed (f32) beside SDPA's forward and backward and the bound.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -4082,6 +4094,190 @@ def phase_mlp_optimizers(records, ds):
             raise AssertionError(f"engine='pallas' ran {label}")
 
 
+# Phase 21: the classifier families at the registry's default widths (the
+# JAX constructors: CNN 32/64 channels of 5x5 and 256 hidden, LSTM 128
+# hidden over 28 rows, transformer d=64 with 4 heads of 16 over 28 rows),
+# bf16, batch 100, built by build_trainer from DTF_MODEL. Each trains one
+# epoch over the first CLASSIFIER_ROWS synthetic training rows (cut: the
+# rows, to 300 steps, so that the phase takes about a minute), at the rates
+# of the JAX package's own classifier tests (tests/test_cnn.py:146 SGD 0.05,
+# tests/test_rnn.py:162 SGD 0.5, tests/test_transformer.py:90 Adam 1e-3).
+# The flash transformer (attention_impl="flash", flash_min_len=0) runs the
+# same epoch through B3 and B4a, then CLASSIFIER_PAIR_ROWS rows with the
+# fused backward's dq-partial cap at 0, so that the auto rule takes B4b +
+# B4c (as phase 12(b) drives the pair).
+CLASSIFIER_ROWS = 30000
+CLASSIFIER_PAIR_ROWS = 10000
+# Test accuracy each run must pass: the synthetic classes are easy for these
+# families (CNN 1.0000 and LSTM 0.9998 after 300 steps on an H100 80GB HBM3
+# at 700 W).
+CLASSIFIER_ORACLE = 0.9
+CLASSIFIER_RUNS = {"cnn": dict(learning_rate=0.05), "lstm": dict(learning_rate=0.5),
+                   "transformer": dict(optimizer="adam", learning_rate=1e-3)}
+# The classifier's attention shape: B=100, L=28, 4 heads of 16, non-causal.
+CLS_ATTN = (100, 28, 4, 16)
+# The flash kernels at head_dim 16, held at CLS_ATTN and launched by the
+# flash transformer's training: record -> (kernel, path).
+FLASH_D16 = {"flash_fwd[d16]": ("flash_fwd", "transformer-classifier train"),
+             "flash_bwd_fused[d16]": ("flash_bwd_fused", "transformer-classifier train"),
+             "flash_bwd_dq[d16]": ("flash_bwd_dq", "transformer-classifier train, dq cap 0"),
+             "flash_bwd_dkv[d16]": ("flash_bwd_dkv", "transformer-classifier train, dq cap 0")}
+
+
+def d16_kernels(records):
+    """B3, B4a, B4b and B4c at head_dim 16 at the classifier's shape
+    (``CLS_ATTN``), f32 (the path's: q, k, v are f32 products) and bf16,
+    against their plain versions (flash tolerances: REL_TOL in f32, 2^-7 of
+    the largest output and BWD_BF16_TOL in bf16); then, in f32, each timed
+    beside the plain version, SDPA (forward, and its backward for B4a) and
+    the bound of the 313,600 (q, k) pairs. Recorded under ``FLASH_D16``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    b, l, h, d = CLS_ATTN
+    g = torch.Generator(device=dev).manual_seed(16)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = f"d16 {str(dtype).split('.')[1]}"
+        q, k, v, do = (torch.randn(b, l, h, d, device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref.float()).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        scale = max(1.0, ref.float().abs().max().item())
+        tol = REL_TOL["flash_fwd"] * scale if dtype == torch.float32 else 2 ** -7 * scale
+        print(f"  flash_fwd[{label}]: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"flash_fwd[{label}] disagrees with its plain version")
+        delta = (do.float() * out.float()).sum(-1)
+        plain = fa.flash_bwd_plain(q, k, v, out, lse, do, delta, None, False)
+        calls = {"flash_bwd_fused": lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta),
+                 "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta), None, None),
+                 "flash_bwd_dkv": lambda: (None, *fa.flash_bwd_dkv(q, k, v, do, lse, delta))}
+        errs = {name: check_bwd(f"{name}[{label}] vs plain", fn(), plain,
+                                REL_TOL[name] if dtype == torch.float32 else BWD_BF16_TOL)
+                for name, fn in calls.items()}
+        if dtype != torch.float32:
+            continue
+        pairs = b * h * l * l
+        io, rows = 4 * q.numel(), 4 * lse.numel()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        dot = do.transpose(1, 2)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True))
+        records["flash_fwd[d16]"] = r = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention_with_lse(q, k, v)),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v)), library_ms=lib_fwd,
+            **split_tf32_bound(4 * io + rows, 4 * d * pairs))
+        print(f"  flash_fwd[d16] (B={b} L={l} {h}x{d} f32, {pairs} pairs): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {lib_fwd:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        plain_ms = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, delta, None, False))
+        print(f"  library yardstick: SDPA backward (f32): {lib_bwd:.4f} ms; plain backward "
+              f"{plain_ms:.4f} ms")
+        for name, fn in calls.items():
+            fl = {"flash_bwd_fused": 5, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
+            nbytes = {"flash_bwd_fused": 7, "flash_bwd_dq": 5, "flash_bwd_dkv": 6}[name] * io
+            # SDPA's backward computes the fused kernel's function; no call
+            # computes dq or dk/dv alone.
+            records[f"{name}[d16]"] = r = dict(
+                max_abs_err=errs[name], ms=cuda_ms(fn), plain_ms=plain_ms,
+                library_ms=lib_bwd if name == "flash_bwd_fused" else None,
+                **split_tf32_bound(nbytes + 2 * rows, 2 * d * pairs * fl))
+            print(f"  {name}[d16]: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']})")
+
+
+def classifier_run(label, ds, rows, name, *, model=None, **kw):
+    """One epoch of a classifier over the first ``rows`` training rows
+    through ``launch.build_trainer`` (``DTF_MODEL=name``; ``model`` in its
+    place when given) on the card: the launches of the run, its cost falling, the
+    test accuracy from the trainer and from ``Predictor`` (one chunk of the
+    whole test split: the eval's shapes) equal, examples/s from AvgTime."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
+    from distributed_tensorflow_tpu_torch.inference import Predictor
+    from distributed_tensorflow_tpu_torch.launch import build_trainer, config_from_env
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    sub = Datasets(train=DataSet(ds.train.images[:rows], ds.train.labels[:rows], seed=1),
+                   validation=ds.validation, test=ds.test)
+    os.environ["DTF_MODEL"] = name
+    try:
+        cfg = config_from_env(TrainConfig(epochs=1, log_frequency=50, **kw))
+    finally:
+        del os.environ["DTF_MODEL"]
+    lines = []
+    tr = build_trainer(cfg, model=model, datasets=sub, print_fn=lines.append)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    steps = [ln for ln in lines if ln.startswith("Step:")]
+    costs = [float(ln.split("Cost:")[1].split()[0].rstrip(",")) for ln in steps]
+    avg_ms = float(steps[-1].split("AvgTime:")[1].strip().rstrip("ms"))
+    test = ds.test
+    served = Predictor.from_state(tr.model, tr.state, strategy=tr.strategy,
+                                  batch_size=test.num_examples).accuracy(test.images, test.labels)
+    print(f"  {label}: {res['global_step']} steps, cost {', '.join(f'{c:.4f}' for c in costs)}; "
+          f"test accuracy {res['accuracy']:.4f} (Predictor {served:.4f}); {avg_ms:.3f} ms a "
+          f"step, {100 / avg_ms * 1e3:.0f} examples/s; run {wall:.2f} s; launches {launches}")
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+        raise AssertionError(f"{label}: the cost did not fall: {costs}")
+    # The same count of right answers: the two means of 10,000 0/1 values
+    # (on the card and on the host) may round 1 ulp apart.
+    if abs(served - res["accuracy"]) * test.num_examples >= 0.5:
+        raise AssertionError(f"{label}: Predictor accuracy {served} != eval {res['accuracy']}")
+    if not res["accuracy"] > CLASSIFIER_ORACLE:
+        raise AssertionError(f"{label}: test accuracy {res['accuracy']} <= {CLASSIFIER_ORACLE}")
+    return res, launches
+
+
+def phase_classifiers(records, ds):
+    """Phase 21: the CNN, the LSTM and the transformer (dense) through
+    ``DTF_MODEL`` and ``build_trainer``; then the flash transformer, whose
+    launches must be B3 and B4a (then B3, B4b and B4c with the dq-partial
+    cap at 0), none of the others; then the D=16 kernels against their
+    plain versions and timed (:func:`d16_kernels`)."""
+    from distributed_tensorflow_tpu_torch.models.transformer import TransformerClassifier
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    steps = CLASSIFIER_ROWS // 100
+    for name, kw in CLASSIFIER_RUNS.items():
+        _, launches = classifier_run(name, ds, CLASSIFIER_ROWS, name, **kw)
+        if launches:
+            raise AssertionError(f"{name}: a kernel launched on the plain path: {launches}")
+    flash = TransformerClassifier(attention_impl="flash", flash_min_len=0)
+    kw = CLASSIFIER_RUNS["transformer"]
+    _, launches = classifier_run("transformer, flash", ds, CLASSIFIER_ROWS, "transformer",
+                                 model=flash, **kw)
+    want = {"flash_fwd": steps + 1, "flash_bwd_fused": steps}  # + the epoch's eval
+    if launches != want:
+        raise AssertionError(f"transformer, flash: launches {launches}, expected {want}")
+    cap = fa.FUSED_DQ_CAP_BYTES
+    fa.FUSED_DQ_CAP_BYTES = 0
+    try:
+        _, pair = classifier_run("transformer, flash, dq cap 0", ds, CLASSIFIER_PAIR_ROWS,
+                                 "transformer", model=flash, **kw)
+    finally:
+        fa.FUSED_DQ_CAP_BYTES = cap
+    n = CLASSIFIER_PAIR_ROWS // 100
+    if pair != {"flash_fwd": n + 1, "flash_bwd_dq": n, "flash_bwd_dkv": n}:
+        raise AssertionError(f"transformer, flash, dq cap 0: launches {pair}")
+    d16_kernels(records)
+    records["flash_fwd[d16]"]["launches"] = launches["flash_fwd"] + pair["flash_fwd"]
+    records["flash_bwd_fused[d16]"]["launches"] = launches["flash_bwd_fused"]
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        records[f"{k}[d16]"]["launches"] = pair[k]
+
+
 # Phase 20: the data-parallel modes. The reference's topologies run 2
 # workers and 1 ps (BASELINE.md rows 3-5) at the reference's widths (784->100
 # ->10, batch 100 a worker, lr 0.001); B2's composition runs 2 ranks at
@@ -4710,6 +4906,11 @@ def main() -> int:
           "B2's composition on 2 ranks)")
     phase_dp(records, ds, smi)
     print(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    phase("21: the classifiers (CNN, LSTM, transformer) through build_trainer and Predictor; "
+          "B3/B4 at head_dim 16")
+    phase_classifiers(records, ds)
+    print(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -4720,6 +4921,7 @@ def main() -> int:
                  for v in S_VARIANTS for k in DECODE_KERNELS]
     variants += [(name, base, path) for name, (base, path) in FLASH_D32.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_XL_SELECTIVE.items()]
+    variants += [(name, base, path) for name, (base, path) in FLASH_D16.items()]
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:

@@ -19,7 +19,13 @@ backward kernels behind one ``torch.library`` operator. Slice 12 finishes
 that training: selective remat (the forward kernel once a layer a step),
 learning-rate schedules, clipping and accumulation, the LM trainer's
 compiled run, stateful optimizers on the MLP ``Trainer``, and the text data
-(``BPETokenizer``, ``text_corpus``; ``examples/text_lm.py``). Entry points run on
+(``BPETokenizer``, ``text_corpus``; ``examples/text_lm.py``). Slice 13 is
+the reference's data-parallel modes over ``torch.distributed``. Slice 14
+brings the other classifier families of the registry (``CNN``,
+``LSTMClassifier``, ``TransformerClassifier``; ``build_model``), which the
+``Trainer`` and every strategy take as they take the MLP, the flash
+kernels at head_dim 16 for the transformer's flash attention, and
+``Predictor`` (batched prediction from a training state). Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """
@@ -49,6 +55,14 @@ _LAZY_EXPORTS = {
     ),
     "PagedKVCache": ("distributed_tensorflow_tpu_torch.models.gpt", "PagedKVCache"),
     "MLP": ("distributed_tensorflow_tpu_torch.models.mlp", "MLP"),
+    "CNN": ("distributed_tensorflow_tpu_torch.models.cnn", "CNN"),
+    "LSTMClassifier": ("distributed_tensorflow_tpu_torch.models.rnn", "LSTMClassifier"),
+    "TransformerClassifier": (
+        "distributed_tensorflow_tpu_torch.models.transformer",
+        "TransformerClassifier",
+    ),
+    "build_model": ("distributed_tensorflow_tpu_torch.models", "build_model"),
+    "Predictor": ("distributed_tensorflow_tpu_torch.inference", "Predictor"),
     "Trainer": ("distributed_tensorflow_tpu_torch.train.trainer", "Trainer"),
     "TrainConfig": ("distributed_tensorflow_tpu_torch.config", "TrainConfig"),
     "read_data_sets": ("distributed_tensorflow_tpu_torch.data.mnist", "read_data_sets"),

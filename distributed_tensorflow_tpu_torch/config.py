@@ -12,11 +12,13 @@ the ranks, gradients and parameters meet by all-reduce).
 
 ``engine`` keeps the JAX values: ``"xla"`` is the generic path (plain
 PyTorch ops and autograd here) and ``"pallas"`` the fused whole-epoch
-kernel (the CUDA kernels of ``ops/fused_mlp.py`` here).
+kernel (the CUDA kernels of ``ops/fused_mlp.py`` here). ``model`` names a
+family of ``models/__init__.MODEL_REGISTRY`` (``mlp``, ``cnn``, ``lstm``,
+``transformer``); ``launch.build_trainer`` builds it.
 
 A JAX field the port does not have yet is refused, whatever its value,
-naming the ROADMAP item that brings it; so are the values of ``model``
-and ``dp_mode`` that a later item brings.
+naming the ROADMAP item that brings it; so are the values of ``dp_mode``
+that a later item brings.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ NOT_PORTED = {
     "matmul_dtype": "A5",
 }
 # Values of served fields that a later item brings.
-MODELS_NOT_PORTED = ("cnn", "lstm", "transformer")  # the JAX registry's others: A6b
 DP_MODES_NOT_PORTED = ("diloco", "tp", "ep", "pp", "sp")  # LM-trainer modes: A7
 
 
@@ -141,8 +142,8 @@ class _TrainFields:
     # compiled_run engine: "xla" (PyTorch ops) | "pallas" (CUDA kernels).
     engine: str = "xla"
     param_dtype: str = "float32"
-    # Model family: "mlp" (the reference's); the JAX registry's others are
-    # ROADMAP A6b.
+    # Model family from the registry (models/__init__.py): mlp (the
+    # reference's) | cnn | lstm | transformer.
     model: str = "mlp"
     # Data parallelism (parallel/strategy.py): sync (gradient all-reduce)
     # or async (per-rank copies, parameters averaged every
@@ -170,10 +171,6 @@ class _TrainFields:
     remat: bool | str = False
 
     def __post_init__(self):
-        if self.model in MODELS_NOT_PORTED:
-            raise NotImplementedError(
-                f"TrainConfig.model={self.model!r} is not ported yet (ROADMAP A6b)"
-            )
         if self.dp_mode in DP_MODES_NOT_PORTED:
             raise NotImplementedError(
                 f"TrainConfig.dp_mode={self.dp_mode!r} is not ported yet (ROADMAP A7)"

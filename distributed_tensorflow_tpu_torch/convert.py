@@ -7,15 +7,21 @@ fields. Any NamedTuple with those fields (``_asdict``) is accepted as
 well, so a JAX params tree can be handed in as it is: its leaves are
 read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
 
-MLP: a flat dict ``{"w1", "b1", "w2", "b2"}`` (the JAX ``MLPParams``
-fields), or that NamedTuple itself; the round trip is bitwise. Its
+The classifiers (MLP, CNN, LSTM, transformer): a flat dict keyed by the
+JAX params NamedTuple's fields (``{"w1", "b1", "w2", "b2"}`` for the MLP),
+or that NamedTuple itself, through :func:`params_from_numpy` with the
+port's NamedTuple of the same fields (:func:`mlp_params_from_numpy` and
+its CNN, LSTM and transformer counterparts). The layouts are the JAX
+package's (HWIO conv kernels, the stacked ``[in+hidden, 4, hidden]`` gate
+kernel), so the copy permutes nothing; the round trip is bitwise. An
 optimizer state (SGD's, empty, and Adam's with its count) goes through
 :func:`mlp_opt_state_from_numpy`; a JAX ``AsyncDataParallel`` state, whose
 leaves stack a copy a replica ``[n, ...]``, becomes one rank's copy
 (:func:`async_rank_state_from_numpy`) and per-rank copies stack back
 (:func:`stack_replicas`); a canonical state becomes a ZeRO rank's slices
 through ``ShardedDataParallel.from_canonical``
-(:func:`sharded_state_from_numpy`).
+(:func:`sharded_state_from_numpy`). Each takes the params NamedTuple as
+``cls`` (default the MLP's).
 
 Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
 over the GPT param tree), or a dict of those keys, carried to the port's
@@ -41,7 +47,10 @@ from distributed_tensorflow_tpu_torch.models.gpt import (
     PagedKVCache,
     map_params,
 )
+from distributed_tensorflow_tpu_torch.models.cnn import CNNParams
 from distributed_tensorflow_tpu_torch.models.mlp import MLPParams
+from distributed_tensorflow_tpu_torch.models.rnn import LSTMParams
+from distributed_tensorflow_tpu_torch.models.transformer import TransformerParams
 from distributed_tensorflow_tpu_torch.ops.optim import AdamState
 
 
@@ -104,20 +113,45 @@ def adam_state_to_numpy(state: AdamState) -> dict:
     }
 
 
-def mlp_params_from_numpy(tree, device=None) -> MLPParams:
-    """numpy ``{"w1", "b1", "w2", "b2"}`` → port ``MLPParams`` on
-    ``device`` (default cuda), dtypes kept."""
+def params_from_numpy(tree, cls, device=None):
+    """A flat numpy tree keyed by ``cls``'s fields → the port's ``cls``
+    NamedTuple on ``device`` (default cuda), dtypes kept."""
     dev = resolve_device(device)
     top = _as_dict(tree)
-    return MLPParams(*(
+    return cls(*(
         torch.from_numpy(np.array(np.asarray(top[k]), copy=True)).to(dev)
-        for k in MLPParams._fields
+        for k in cls._fields
     ))
 
 
-def mlp_params_to_numpy(params: MLPParams) -> dict:
-    """Port ``MLPParams`` → ``{"w1", "b1", "w2", "b2"}`` of numpy arrays."""
+def params_to_numpy(params) -> dict:
+    """A flat port params NamedTuple → a dict of numpy arrays by field."""
     return {k: v.detach().cpu().numpy() for k, v in params._asdict().items()}
+
+
+def mlp_params_from_numpy(tree, device=None) -> MLPParams:
+    """numpy ``{"w1", "b1", "w2", "b2"}`` → port ``MLPParams``."""
+    return params_from_numpy(tree, MLPParams, device)
+
+
+def cnn_params_from_numpy(tree, device=None) -> CNNParams:
+    """numpy ``CNNParams`` fields (HWIO conv kernels) → port ``CNNParams``."""
+    return params_from_numpy(tree, CNNParams, device)
+
+
+def lstm_params_from_numpy(tree, device=None) -> LSTMParams:
+    """numpy ``LSTMParams`` fields → port ``LSTMParams``."""
+    return params_from_numpy(tree, LSTMParams, device)
+
+
+def transformer_params_from_numpy(tree, device=None) -> TransformerParams:
+    """numpy ``TransformerParams`` fields → port ``TransformerParams``."""
+    return params_from_numpy(tree, TransformerParams, device)
+
+
+# Every flat classifier tree leaves the same way.
+mlp_params_to_numpy = cnn_params_to_numpy = lstm_params_to_numpy = params_to_numpy
+transformer_params_to_numpy = params_to_numpy
 
 
 def _tensor(a, dev, dtype=None):
@@ -182,27 +216,28 @@ def _adam_like(state) -> dict | None:
     return None
 
 
-def mlp_opt_state_from_numpy(state, device=None):
-    """optax state of ``sgd`` or ``adam`` over MLP params (as JAX
-    ``ops.optim.make`` builds it, or ``{"count", "mu", "nu"}``) → the port's
-    (``()`` for constant-lr SGD, ``AdamState`` with an int32 count)."""
+def mlp_opt_state_from_numpy(state, device=None, cls=MLPParams):
+    """optax state of ``sgd`` or ``adam`` over the flat params ``cls`` (as
+    JAX ``ops.optim.make`` builds it, or ``{"count", "mu", "nu"}``) → the
+    port's (``()`` for constant-lr SGD, ``AdamState`` with an int32
+    count)."""
     top = _adam_like(state)
     if top is None:
         return ()
     return AdamState(
         count=_tensor(top["count"], resolve_device(device), torch.int32).reshape(()),
-        mu=mlp_params_from_numpy(top["mu"], device=device),
-        nu=mlp_params_from_numpy(top["nu"], device=device),
+        mu=params_from_numpy(top["mu"], cls, device),
+        nu=params_from_numpy(top["nu"], cls, device),
     )
 
 
 def mlp_opt_state_to_numpy(state) -> dict:
     """The port's SGD (``{}``) or ``AdamState`` (``{"count", "mu", "nu"}``)
-    over MLP params as numpy."""
+    over flat params as numpy."""
     if not isinstance(state, AdamState):
         return {}
-    return {"count": np.int32(state.count.item()), "mu": mlp_params_to_numpy(state.mu),
-            "nu": mlp_params_to_numpy(state.nu)}
+    return {"count": np.int32(state.count.item()), "mu": params_to_numpy(state.mu),
+            "nu": params_to_numpy(state.nu)}
 
 
 def _row(tree, rank: int):
@@ -216,16 +251,17 @@ def _row(tree, rank: int):
     return np.asarray(tree)[rank]
 
 
-def async_rank_state_from_numpy(params, opt_state, steps, rank: int, device=None):
-    """A JAX ``AsyncDataParallel`` state (params and optimizer state
-    stacked ``[n, ...]``, the step vector ``[n]``) → rank ``rank``'s
+def async_rank_state_from_numpy(params, opt_state, steps, rank: int, device=None,
+                                cls=MLPParams):
+    """A JAX ``AsyncDataParallel`` state (params ``cls`` and optimizer
+    state stacked ``[n, ...]``, the step vector ``[n]``) → rank ``rank``'s
     ``TrainState`` of the port's ``AsyncDataParallel``: its copy, and every
     rank's step as a tuple."""
     from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
 
     return TrainState(
-        mlp_params_from_numpy(_row(params, rank), device=device),
-        mlp_opt_state_from_numpy(_row(opt_state, rank), device=device),
+        params_from_numpy(_row(params, rank), cls, device),
+        mlp_opt_state_from_numpy(_row(opt_state, rank), device=device, cls=cls),
         tuple(int(s) for s in np.asarray(steps)),
     )
 
@@ -239,13 +275,15 @@ def stack_replicas(trees: list):
     return np.stack([np.asarray(t) for t in trees])
 
 
-def sharded_state_from_numpy(strategy, params, opt_state=(), step: int = 0, device=None):
-    """A canonical numpy state (MLP params, their optax or dict optimizer
-    state, the step) → this rank's ``ShardedDataParallel`` state: its
-    slices of the parameters and of the moments that track them."""
+def sharded_state_from_numpy(strategy, params, opt_state=(), step: int = 0, device=None,
+                             cls=MLPParams):
+    """A canonical numpy state (params ``cls``, their optax or dict
+    optimizer state, the step) → this rank's ``ShardedDataParallel``
+    state: its slices of the parameters and of the moments that track
+    them."""
     from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
 
     dev = device if device is not None else strategy.device
     return strategy.from_canonical(TrainState(
-        mlp_params_from_numpy(params, device=dev),
-        mlp_opt_state_from_numpy(opt_state, device=dev), int(step)))
+        params_from_numpy(params, cls, dev),
+        mlp_opt_state_from_numpy(opt_state, device=dev, cls=cls), int(step)))

@@ -14,7 +14,9 @@ Counterpart of ``distributed_tensorflow_tpu/launch.py``:
 
 is the port's ``examples/single.py``: it trains the 784→100→10 MLP with
 SGD lr=0.001, batch 100, for 100 epochs on the card, printing the
-reference's log lines (the ``DTF_*`` environment overrides below apply).
+reference's log lines (the ``DTF_*`` environment overrides below apply:
+``DTF_MODEL=cnn`` trains the CNN, and so on for ``lstm`` and
+``transformer``).
 The data-parallel examples are ``examples/between_sync.py`` and
 ``examples/between_async.py``, started a task each by
 ``tools/launch_local.py``.
@@ -39,8 +41,8 @@ NOT_PORTED_ENV = {
 
 
 def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
-    """Apply environment overrides to a TrainConfig: DTF_MODEL (``mlp``;
-    the other registry names are ROADMAP A6b), DTF_EPOCHS,
+    """Apply environment overrides to a TrainConfig: DTF_MODEL (a registry
+    name: ``mlp``, ``cnn``, ``lstm``, ``transformer``), DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
     compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
     "selective"), as the JAX launcher reads them. The JAX launcher's other
@@ -184,7 +186,9 @@ class _RematAdapter:
     """Checkpoints the model's ``apply`` (and ``apply_logits``): the
     activations are recomputed in the backward instead of kept, the
     gradients unchanged (the JAX ``_RematAdapter``, ``jax.checkpoint``
-    there, ``torch.utils.checkpoint`` here)."""
+    there, ``torch.utils.checkpoint`` here). Any family: with the
+    transformer's flash attention the recompute runs the flash forward
+    (``dtf::FlashAttention``) again."""
 
     def __init__(self, model):
         self._model = model
@@ -237,16 +241,17 @@ def build_trainer(
     device=None,
 ):
     """The Trainer for ``config``: the strategy (:func:`build_strategy`),
-    the MLP in the config's compute dtype (checkpointed when
-    ``config.remat`` is truthy, where "selective" is plain remat: the MLP
-    has no attention to save), the MNIST loader (synthetic when
+    the registry's ``config.model`` in the config's compute dtype (unless
+    ``model`` is given; checkpointed when ``config.remat`` is truthy, where
+    "selective" is plain remat: the classifiers carry no operator for a
+    selective policy to save), the MNIST loader (synthetic when
     ``data_dir`` holds no IDX files), the configured optimizer,
     ``accumulate(clip(make(name, schedule)))`` as the JAX launcher composes
     it, and the loss. ``context`` (``cluster.bootstrap``) says whether this
     process is the chief. ``device`` defaults to cuda (this rank's card)
     and raises without one."""
     from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
-    from distributed_tensorflow_tpu_torch.models.mlp import MLP
+    from distributed_tensorflow_tpu_torch.models import build_model
     from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
     from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
@@ -254,10 +259,7 @@ def build_trainer(
     config = config or TrainConfig()
     is_chief = context.is_chief if context is not None else True
     if model is None:
-        if config.model != "mlp":
-            raise ValueError(f"unknown model {config.model!r}; registered: "
-                             "['cnn', 'lstm', 'mlp', 'transformer']")
-        model = MLP(compute_dtype=getattr(torch, config.compute_dtype))
+        model = build_model(config.model, compute_dtype=getattr(torch, config.compute_dtype))
     if config.remat:
         model = _RematAdapter(model)
     datasets = datasets or read_data_sets(data_dir, one_hot=True)

@@ -1,12 +1,43 @@
-"""Shared model pieces (counterpart of ``distributed_tensorflow_tpu/models/base.py``).
+"""The model protocol and shared model pieces (counterpart of
+``distributed_tensorflow_tpu/models/base.py``).
 
-The serving slice needs ``layernorm`` and ``rope``; the model protocol
-comes with the classifiers (ROADMAP A6b).
+A model is any object with ``init``/``apply``:
+
+- ``init(seed, device=None) -> params``: the parameter NamedTuple, built
+  deterministically from an integer seed on ``device`` (default cuda), so
+  every rank computes the same initial state;
+- ``apply(params, x) -> outputs``: the forward pass.
+
+The strategies (``parallel/strategy.py``) and the ``Trainer`` depend only
+on this protocol, so every family of ``models/__init__.MODEL_REGISTRY``
+drops into them unchanged.
 """
 
 from __future__ import annotations
 
+from typing import Any, Protocol, runtime_checkable
+
 import torch
+
+
+@runtime_checkable
+class Model(Protocol):
+    def init(self, seed: int, device=None) -> Any: ...
+
+    def apply(self, params: Any, x: torch.Tensor) -> torch.Tensor: ...
+
+
+def resolve_flash_min_len(value: int | None) -> int:
+    """The one resolver of every model's ``flash_min_len`` (GPT and the
+    transformer classifier): ``None`` → ``ops/flash_attention.FLASH_MIN_LEN``
+    (the JAX package's measured crossover), else the value. Imported
+    lazily, at forward time behind the ``attention_impl == "flash"`` test,
+    as the JAX resolver is."""
+    if value is not None:
+        return value
+    from distributed_tensorflow_tpu_torch.ops.flash_attention import FLASH_MIN_LEN
+
+    return FLASH_MIN_LEN
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):

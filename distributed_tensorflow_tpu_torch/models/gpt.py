@@ -66,10 +66,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
-from distributed_tensorflow_tpu_torch.models.base import layernorm, rope
+from distributed_tensorflow_tpu_torch.models.base import layernorm, resolve_flash_min_len, rope
 from distributed_tensorflow_tpu_torch.ops.attention import dense_attention
 from distributed_tensorflow_tpu_torch.ops.flash_attention import (
-    FLASH_MIN_LEN,
     flash_attention,
     selective_policy,
 )
@@ -332,8 +331,8 @@ class GPTLM:
         return dot(x, w, self.compute_dtype)
 
     def _attend(self, q, k, v, kv_lens=None):
-        min_len = FLASH_MIN_LEN if self.flash_min_len is None else self.flash_min_len
-        if self.attention_impl == "flash" and q.shape[1] >= min_len:
+        if self.attention_impl == "flash" and q.shape[1] >= resolve_flash_min_len(
+                self.flash_min_len):
             return flash_attention(q, k, v, causal=True, window=self.window, kv_lens=kv_lens,
                                    fused=self.flash_fused)
         return dense_attention(q, k, v, causal=True, window=self.window, kv_lens=kv_lens)

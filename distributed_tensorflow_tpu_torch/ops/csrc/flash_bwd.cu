@@ -18,7 +18,7 @@
 // TPU kernels' astype), products and sums are f32, exp is the
 // full-precision expf. Under GQA a KV head's dk and dv sum over the query
 // heads of its group. Layout [B, L, H, D] with
-// lse and delta [B, L, Hq] f32; head dim D in {32, 64, 128}; any L (the ragged
+// lse and delta [B, L, Hq] f32; head dim D in {16, 32, 64, 128}; any L (the ragged
 // last tile is masked); outputs in the input dtype (f32 or bf16).
 //
 // The sliding window (window = W > 0) visits only the band's tiles, as the
@@ -103,12 +103,19 @@ constexpr int KV_NT = KV_NW * 32;
 constexpr int KV_BQ = 32;       // query rows per q-tile
 constexpr int NC = 4;           // dim tiles summed per pass of a [16 x D] product
 
+// Dim tiles a pass over NN of them: NC, or all of D=16's 2.
+template <int NN>
+__host__ __device__ constexpr int pass_tiles() {
+  return NN < NC ? NN : NC;
+}
+
 // acc[16 keys x D] += A^T B for one q-tile: A^T the warp's p or ds
 // (registers, keys x queries), B the q-tile's dO or Q ([BQ][SD] shared).
 // Summed NC dim tiles at a time in fresh accumulators, then added to acc.
 template <typename T, int SD, bool SPLIT, int NJ, int NN>
 __device__ __forceinline__ void dkv_product(float (&acc)[NN][4], const float (&pt)[NJ][4],
                                             const T* Bt, const Lane& ln) {
+  constexpr int NC = pass_tiles<NN>();
 #pragma unroll
   for (int c0 = 0; c0 < NN; c0 += NC) {
     float t[NC][4];
@@ -131,7 +138,7 @@ __device__ __forceinline__ void dkv_product(float (&acc)[NN][4], const float (&p
   }
 }
 
-// A dO buffer's row stride: D's, or at D=32 the ds tile's (BK keys a row),
+// A dO buffer's row stride: D's, or at D=16 and D=32 the ds tile's (BK keys a row),
 // which takes the current dO buffer once dV is done.
 template <typename T, int D>
 __host__ __device__ constexpr int do_stride() {
@@ -141,7 +148,8 @@ __host__ __device__ constexpr int do_stride() {
 // Shared memory of kv_kernel: K, V and two buffers each of Q and dO (the
 // current dO buffer takes the dq product's ds once dV is done), then two
 // each of the q-tile's lse and delta. 70 KB at D=64 in f32: three CTAs a SM;
-// 45 KB at D=32 (its dO buffers sized for ds: 64 keys a row).
+// 45 KB at D=32 and 33 KB at D=16 (their dO buffers sized for ds: 64 keys
+// a row).
 template <typename T, int D>
 constexpr size_t kv_smem_bytes() {
   return sizeof(T) * (size_t)(2 * BK * stride<T, D>() + 2 * KV_BQ * stride<T, D>() +
@@ -149,10 +157,10 @@ constexpr size_t kv_smem_bytes() {
          sizeof(float) * 4 * KV_BQ;
 }
 
-// CTAs a SM that kv_kernel is built for (its register budget): D=32 and
-// D=64 three (at most 168 registers a thread; D=32 holds half of D=64's
-// accumulators, so it keeps D=64's budget and cannot spill where D=64 does
-// not), D=128 one.
+// CTAs a SM that kv_kernel is built for (its register budget): D=16, D=32
+// and D=64 three (at most 168 registers a thread; D=32 and D=16 hold a half
+// and a quarter of D=64's accumulators, so they keep D=64's budget and
+// cannot spill where D=64 does not), D=128 one.
 template <int D>
 __host__ __device__ constexpr int kv_ctas() {
   return D == 128 ? 1 : 3;
@@ -308,7 +316,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       if (FUSED) {
         // dQ partial of the q-tile = dS K: BQ/16 row blocks of 16 queries,
         // each over NW / (BQ/16) warps that split the dim tiles, NCQ of them
-        // a pass (D=32: a warp's 2 tiles in one pass).
+        // a pass (D=32: a warp's 2 tiles in one pass; D=16: its one tile).
         constexpr int RB = BQ / 16, WPR = KV_NW / RB, NPW = NN / WPR;
         constexpr int NCQ = NPW < NC ? NPW : NC;
         const int qr = 16 * (warp % RB), n0 = (warp / RB) * NPW;
@@ -400,8 +408,9 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
 // q_kernel: dq alone, on the tensor cores.
 // ---------------------------------------------------------------------------
 
-// Tiles of q_kernel: query rows a CTA (16 a warp) and keys a K/V tile. D=32
-// takes D=64's 64 rows (4 warps; 37 KB of shared memory in f32).
+// Tiles of q_kernel: query rows a CTA (16 a warp) and keys a K/V tile. D=16
+// and D=32 take D=64's 64 rows (4 warps; 37 KB of shared memory at D=32 in
+// f32).
 template <int D>
 struct QTiles {
   static constexpr int BQ = D <= 64 ? 64 : 128;
@@ -442,19 +451,22 @@ __device__ __forceinline__ void row_product(float (&c)[NJ][4], float (&x)[NJ][4]
 // Q K^T and dP = dO V^T of a k-tile are computed in registers, p and ds
 // formed there, and ds is the A fragment of dQ += dS K as it stands. Each
 // k-tile's share of dQ is summed in fresh accumulators and added to dq in
-// f32.
+// f32. The kernels below are this body under their launch bounds.
 template <typename T, int D, bool WIN>
-__global__ void __launch_bounds__(QTiles<D>::NT)
-q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-         const T* __restrict__ dout, const float* __restrict__ lse,
-         const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
-         int L, int Hq, int Hkv, int causal, int window, float scale) {
+__device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, const T* __restrict__ dout,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta,
+                                       const int* __restrict__ kv_lens, T* __restrict__ dq,
+                                       int L, int Hq, int Hkv, int causal, int window,
+                                       float scale) {
   if (!WIN) window = 0;  // every window test below folds away
   using Q = QTiles<D>;
   constexpr int BQ = Q::BQ, BKQ = Q::BK, NT = Q::NT;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BKQ / 8;  // key column tiles of S and dP
   constexpr int NN = D / 8;    // dim column tiles of dQ
+  constexpr int NC = pass_tiles<NN>();
   constexpr int SD = stride<T, D>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][SD]
@@ -573,6 +585,37 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   }
 }
 
+template <typename T, int D, bool WIN>
+__global__ void __launch_bounds__(QTiles<D>::NT)
+q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+         const T* __restrict__ dout, const float* __restrict__ lse,
+         const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
+         int L, int Hq, int Hkv, int causal, int window, float scale) {
+  q_tile<T, D, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
+}
+
+// Head dim 16 declares one CTA a SM as its minimum: at ptxas's default
+// register target for its 128 threads the f32 D=16 tile spills two
+// registers (96 used), as flash_fwd.cu's D=16 tile does; with it, 86-112
+// registers and no spill.
+template <typename T, bool WIN>
+__global__ void __launch_bounds__(QTiles<16>::NT, 1)
+q_kernel_d16(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, const int* __restrict__ kv_lens,
+             T* __restrict__ dq, int L, int Hq, int Hkv, int causal, int window, float scale) {
+  q_tile<T, 16, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
+}
+
+template <typename T, int D, bool WIN>
+constexpr auto dq_kernel() {
+  if constexpr (D == 16) {
+    return q_kernel_d16<T, WIN>;
+  } else {
+    return q_kernel<T, D, WIN>;
+  }
+}
+
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -610,11 +653,11 @@ cudaError_t launch_w(int mode, const void* q, const void* k, const void* v, cons
   if (mode == 1) {  // dq alone
     using Q = QTiles<D>;
     const size_t smem = q_smem_bytes<T, D>();
-    if ((err = set_smem(q_kernel<T, D, WIN>, smem)) != cudaSuccess) return err;
+    constexpr auto kern = dq_kernel<T, D, WIN>();
+    if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
     dim3 grid(Hq, B, (L + Q::BQ - 1) / Q::BQ);
-    q_kernel<T, D, WIN><<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                             (const T*)dout, lse, delta, kv_lens, (T*)dq, L,
-                                             Hq, Hkv, causal, window, scale);
+    kern<<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+                                    delta, kv_lens, (T*)dq, L, Hq, Hkv, causal, window, scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -650,6 +693,8 @@ extern "C" int flash_bwd(int mode, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 #define BWD_ARGS \
   mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, scale, st
+  if (D == 16)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 16>(BWD_ARGS) : launch<float, 16>(BWD_ARGS));
   if (D == 32)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(BWD_ARGS) : launch<float, 32>(BWD_ARGS));
   if (D == 64)

@@ -6,7 +6,7 @@
 // [L, L] score matrix never reaches device memory. Features: causal mask,
 // the sliding window (window = W > 0: row i keeps key j iff i - W < j <= i),
 // per-batch right-padding kv_lens, grouped-query attention (query head h
-// reads KV head h / (Hq / Hkv)), head dim D in {32, 64, 128}, any sequence
+// reads KV head h / (Hq / Hkv)), head dim D in {16, 32, 64, 128}, any sequence
 // length (the ragged last tile is masked), f32 or bf16 inputs.
 //
 // Bound. At the training path's shapes (B=16, L=1024, 8 heads of 64,
@@ -47,6 +47,11 @@
 // pass of P V over O's 4 dim tiles; half of D=64's shared memory (55 KB in
 // f32), so more CTAs a SM carry the softmax's CUDA-core work, which weighs
 // twice as much a key as at D=64.
+// Head dim 16 (the transformer classifier: 4 heads of 16 over 28 rows): a
+// row of 20 floats or 24 bf16 (again 4 banks on), 2 k-steps of QK^T and one
+// pass of P V over O's 2 dim tiles. Its rows are shorter than one tile
+// (L=28 < BQ and BK): the zero-filled rows past L are masked as keys and
+// never stored as queries, as any ragged last tile is.
 
 #include <type_traits>
 
@@ -61,17 +66,19 @@ constexpr int BK = 64;   // keys per tile
 constexpr int NW = BQ / 16;
 constexpr int NT = NW * 32;
 
+// One CTA's tile: the kernels below are this body under their launch bounds.
 // WIN: built with the window's tests (window > 0); the other build has none.
 template <typename T, int D, bool WIN>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
-                 int L, int Hq, int Hkv, int causal, int window) {
+__device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
+                                         const T* __restrict__ v, const int* __restrict__ kv_lens,
+                                         T* __restrict__ out, float* __restrict__ lse, int L,
+                                         int Hq, int Hkv, int causal, int window) {
   if (!WIN) window = 0;  // every window test below folds away
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BK / 8;  // key column tiles of S
   constexpr int NN = D / 8;   // dim column tiles of O
-  constexpr int NC = 4;       // dim tiles of O summed per pass of P V
+  // Dim tiles of O summed per pass of P V: 4, or D=16's 2 (one pass).
+  constexpr int NC = NN < 4 ? NN : 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int SD = stride<T, D>();
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][SD]
@@ -215,15 +222,46 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int D, bool WIN>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
+                 int L, int Hq, int Hkv, int causal, int window) {
+  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window);
+}
+
+// Head dim 16 declares one CTA a SM as its minimum. Without it ptxas aims
+// at a register count for several CTAs of 256 threads (80 in bf16) and the
+// bf16 D=16 tile spills a register there; with it, 114-159 registers and no
+// spill (CUDA 12.8's ptxas). The other head dims keep their bounds, and
+// their register counts.
+template <typename T, bool WIN>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_kernel_d16(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const int* __restrict__ kv_lens, T* __restrict__ out,
+                     float* __restrict__ lse, int L, int Hq, int Hkv, int causal, int window) {
+  fwd_tile<T, 16, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window);
+}
+
+template <typename T, int D, bool WIN>
+constexpr auto fwd_kernel() {
+  if constexpr (D == 16) {
+    return flash_fwd_kernel_d16<T, WIN>;
+  } else {
+    return flash_fwd_kernel<T, D, WIN>;
+  }
+}
+
+template <typename T, int D, bool WIN>
 cudaError_t launch_w(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
                      float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
                      cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * stride<T, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, WIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr auto kern = fwd_kernel<T, D, WIN>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D, WIN><<<grid, NT, smem, stream>>>(
+  kern<<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq, Hkv, causal, window);
   return cudaGetLastError();
 }
@@ -250,6 +288,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int*
   if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
 #define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, st
+  if (D == 16)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 16>(FWD_ARGS) : launch<float, 16>(FWD_ARGS));
   if (D == 32)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 32>(FWD_ARGS) : launch<float, 32>(FWD_ARGS));
   if (D == 64)

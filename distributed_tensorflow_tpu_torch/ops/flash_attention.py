@@ -68,7 +68,7 @@ _BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 # copies of dq in f32.
 BLOCK_K = 64
 # The head dims the kernels are built for (the plain versions take any).
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 # Auto-fusion cap on those partials (the JAX package's _FUSED_DQ_CAP_BYTES):
 # past it fused=None takes the dq + dk/dv pair.
 FUSED_DQ_CAP_BYTES = 1 << 30
@@ -123,12 +123,13 @@ def _check_kernel_inputs(*ts):
             + "/".join(str(t.dtype) for t in ts)
         )
     if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim 32, 64 or 128, got {q.shape[-1]}")
+        raise ValueError(f"flash kernels take head_dim 16, 32, 64 or 128, got {q.shape[-1]}")
 
 
 def _dense16(t):
     """``t`` contiguous and 16-byte aligned: the kernels copy rows into
-    shared memory 16 bytes at a time."""
+    shared memory 16 bytes at a time (every head dim's row is a multiple of
+    16 bytes: at D=16, 32 in bf16 and 64 in f32)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -1,4 +1,5 @@
-"""The MLP training loop of the port.
+"""The classifier training loop of the port (the MLP, CNN, LSTM and
+transformer families alike).
 
 Counterpart of ``distributed_tensorflow_tpu/train/trainer.py`` ``Trainer``,
 strategy-agnostic (``parallel/strategy.py``). It keeps the reference loop's
@@ -27,7 +28,7 @@ the JAX package's wording and probes, before any launch.
 
 Not ported yet, and refused when asked for: the supervisor and
 checkpointing, anomaly rollback, ``epochs_per_dispatch``, summaries, the
-journal and metrics (ROADMAP A8), the other classifiers (A6b).
+journal and metrics (ROADMAP A8).
 """
 
 from __future__ import annotations

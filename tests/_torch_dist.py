@@ -370,8 +370,54 @@ def case_bootstrap(world, inp, args):
                 closed=not torch.distributed.is_initialized())
 
 
-CASES = {"strategies": case_strategies, "single": case_single, "trainer": case_trainer,
-         "fused": case_fused, "bootstrap": case_bootstrap, "sync_global": case_sync_global}
+def case_classifiers(world, inp, args):
+    """Each classifier family of ``args["families"]`` (name → registry
+    name, constructor keywords; f32) under sync and ZeRO, 3 SGD steps from
+    the same parameters (``<family>/<field>`` in the inputs); then the
+    first family one async step, served by ``Predictor.from_state``
+    through the strategy against the strategy's eval."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.convert import params_from_numpy
+    from distributed_tensorflow_tpu_torch.inference import Predictor
+    from distributed_tensorflow_tpu_torch.models import build_model
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedDataParallel
+    from distributed_tensorflow_tpu_torch.parallel.strategy import (
+        AsyncDataParallel,
+        SyncDataParallel,
+    )
+
+    xs, ys = inp["xs"], inp["ys"]
+    res = {}
+    for fam, (name, kw) in args["families"].items():
+        model = build_model(name, compute_dtype=torch.float32, **kw)
+        cls = type(model.init(1, device="cpu"))
+        tree = {k: inp[f"{fam}/{k}"] for k in cls._fields}
+        res[fam] = {}
+        for mode, strat in (("sync", SyncDataParallel(world)),
+                            ("zero", ShardedDataParallel(world))):
+            state, costs = _drive(strat, model, optim.sgd(0.05),
+                                  params_from_numpy(tree, cls, "cpu"), xs, ys)
+            res[fam][mode] = dict(params=_np(strat.to_canonical(state).params), costs=costs)
+        if "predict" not in res:
+            strat = AsyncDataParallel(world)
+            state, _ = _drive(strat, model, optim.sgd(0.05), params_from_numpy(tree, cls, "cpu"),
+                              xs[:1], ys[:1])
+            tx, ty = torch.from_numpy(xs[0]), torch.from_numpy(ys[0])
+            res["predict"] = dict(
+                eval=float(strat.make_eval_fn(model)(state, tx, ty)),
+                served=Predictor.from_state(model, state, strategy=strat, batch_size=3,
+                                            device="cpu").accuracy(xs[0], ys[0]),
+                probs=Predictor.from_state(model, state, strategy=strat,
+                                           device="cpu").predict_proba(xs[0]))
+    return res
+
+
+CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
+         "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
+         "sync_global": case_sync_global}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

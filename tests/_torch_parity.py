@@ -108,3 +108,55 @@ def torch_fused(tree, device="cpu"):
     from distributed_tensorflow_tpu_torch.ops.fused_mlp import to_fused
 
     return to_fused(mlp_params_from_numpy(tree, device=device))
+
+
+# -- the classifier families ----------------------------------------------------
+
+# Narrow widths of each registry family for the parity tests (registry name,
+# constructor keywords): the CNN with an odd and an even kernel (XLA puts
+# an even kernel's extra SAME row on the high side).
+CLASSIFIERS = {
+    "cnn": ("cnn", dict(channels=(4, 8), kernel=5, hidden_dim=16)),
+    "cnn_even": ("cnn", dict(channels=(4, 8), kernel=4, hidden_dim=16)),
+    "lstm": ("lstm", dict(hidden_dim=16)),
+    "transformer": ("transformer", dict(model_dim=32, num_heads=2)),
+}
+
+
+def classifier_models(family, dtype="float32", **extra):
+    """The JAX and the port model of ``CLASSIFIERS[family]``."""
+    import jax.numpy as jnp
+    from distributed_tensorflow_tpu.models import build_model as jbuild
+    from distributed_tensorflow_tpu_torch.models import build_model
+
+    name, kw = CLASSIFIERS[family]
+    kw = {**kw, **extra}
+    return (jbuild(name, compute_dtype=getattr(jnp, dtype), **kw),
+            build_model(name, compute_dtype=getattr(torch, dtype), **kw))
+
+
+def classifier_numpy_params(jmodel, seed=0) -> dict:
+    """The JAX ``init(seed=1)`` params as numpy, with every constant leaf
+    (zero biases and head, unit layernorm scales) replaced by seeded
+    values, so that no path hides behind a zero or a one."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in jmodel.init(seed=1)._asdict().items():
+        a = np.array(v, dtype=np.float32)
+        if np.all(a == a.flat[0]):
+            a = (a.flat[0] + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        out[k] = a
+    return out
+
+
+def jax_classifier_params(jmodel, tree):
+    import jax.numpy as jnp
+
+    cls = type(jmodel.init(seed=1))
+    return cls(**{k: jnp.asarray(tree[k]) for k in cls._fields})
+
+
+def torch_classifier_params(tmodel, tree, device="cpu"):
+    from distributed_tensorflow_tpu_torch.convert import params_from_numpy
+
+    return params_from_numpy(tree, type(tmodel.init(seed=1, device="cpu")), device)

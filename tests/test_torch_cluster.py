@@ -472,8 +472,8 @@ def test_lifted_fields_keep_the_jax_defaults():
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
-        model="cnn"), "A6b"),
+    (lambda: __import__("distributed_tensorflow_tpu_torch.models.cnn", fromlist=["x"]).CNN(
+        ).partition_specs(), "A7"),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
         dp_mode="diloco"), "A7"),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
@@ -497,8 +497,7 @@ def test_dtf_model_env(monkeypatch):
     monkeypatch.setenv("DTF_MODEL", "mlp")
     assert config_from_env().model == "mlp"
     monkeypatch.setenv("DTF_MODEL", "transformer")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        config_from_env()
+    assert config_from_env().model == "transformer"
 
 
 def test_pallas_engine_refuses_a_dp_strategy_with_the_jax_wording():

@@ -203,7 +203,7 @@ def test_backward_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_bwd_fused(q, q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
     q = torch.zeros(1, 8, 2, 48)
-    with pytest.raises(ValueError, match="head_dim 32, 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
         flash_bwd_fused(q, q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
 
 

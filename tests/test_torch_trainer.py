@@ -273,7 +273,7 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     _, tds = _pair_datasets(*small_pair)
     for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8"), (dict(epochs_per_dispatch=10), "A8"),
                      (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8"),
-                     (dict(model="cnn"), "A6b"), (dict(dp_mode="diloco"), "A7")):
+                     (dict(matmul_dtype="int8"), "A5"), (dict(dp_mode="diloco"), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**kw)
     # Lifted by the optimizer wrappers: the schedule fields are accepted.
