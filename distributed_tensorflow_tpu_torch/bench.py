@@ -1,7 +1,7 @@
 """Benchmark of the port: MNIST MLP training throughput on one card.
 
     python -m distributed_tensorflow_tpu_torch.bench [--impl IMPL]
-        [--epochs-per-dispatch E]
+        [--epochs-per-dispatch E] [--timed-dispatches N]
 
 The counterpart of the repository's ``bench.py``. It prints ONE JSON line,
 ``{"metric", "value", "unit", "vs_baseline", "impl", "stream_dtype",
@@ -23,8 +23,9 @@ A failing kernel fails the run: there is no fallback between impls.
 
 Method, as ``bench.py``: the dataset is uploaded once and E shuffled
 epochs are gathered into [E*steps, batch, ...] staging on the device; two
-warm-up dispatches; then three TWO-POINT pairs, each timing a 5-dispatch
-and a 20-dispatch region on the host clock, each region ending in
+warm-up dispatches; then three TWO-POINT pairs, each timing an N-dispatch
+and a 4N-dispatch region on the host clock (``--timed-dispatches N``,
+default 5), each region ending in
 ``torch.cuda.synchronize`` and a fetch of its final cost. Per-epoch time
 is the pair's difference over the extra epochs (the fixed cost of a region
 cancels); the median pair is reported. The fetched costs must be finite
@@ -71,6 +72,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--impl", choices=IMPLS, default="pallas-epoch")
     p.add_argument("--epochs-per-dispatch", type=int, default=5)
+    p.add_argument("--timed-dispatches", type=int, default=TIMED_DISPATCHES)
     return p.parse_args(argv)
 
 
@@ -83,7 +85,7 @@ def main(argv=None, *, datasets=None, device=None) -> tuple[dict, int]:
     from distributed_tensorflow_tpu_torch.models.mlp import MLP
 
     args = parse_args(argv)
-    impl, epochs_per_dispatch = args.impl, args.epochs_per_dispatch
+    impl, epochs_per_dispatch, timed = args.impl, args.epochs_per_dispatch, args.timed_dispatches
     dev = resolve_device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     log(f"device: {name}  impl: {impl}")
@@ -164,9 +166,9 @@ def main(argv=None, *, datasets=None, device=None) -> tuple[dict, int]:
         return total
 
     sec_per_epoch = two_point_seconds(
-        lambda: region(TIMED_DISPATCHES),
-        lambda: region(4 * TIMED_DISPATCHES),
-        3 * TIMED_DISPATCHES * epochs_per_dispatch,
+        lambda: region(timed),
+        lambda: region(4 * timed),
+        3 * timed * epochs_per_dispatch,
         reps=3,
     )
     log(f"two-point: {sec_per_epoch * 1000:.3f}ms/epoch (median of 3 pairs)")

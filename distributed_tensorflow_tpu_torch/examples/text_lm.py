@@ -5,8 +5,9 @@ text. The port's ``examples/text_lm.py``: tokenizer → ``text_corpus``
 
 Byte-level by default; pass a merge count to train a BPE vocabulary on the
 corpus first (pure Python, ``data/text.py``): the same documents then pack
-into fewer, higher-entropy tokens. The model is f32 (dense attention), so
-it decodes on ``engine="xla"``: the decode kernels compute in bf16.
+into fewer, higher-entropy tokens. The model is f32 (dense attention) with
+4 heads of 24, a head dim the decode kernels are not built for (8, 16, 32,
+64, 128), so it decodes on ``engine="xla"``.
 
 Run: ``python -m distributed_tensorflow_tpu_torch.examples.text_lm
 [epochs] [max_new] [bpe_merges] [device]`` (the device defaults to cuda;

@@ -53,7 +53,8 @@ and :592-648); a callable ``remat`` is a torch selective-checkpoint policy.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): MoE blocks and ``matmul_dtype`` (A5), the parallel train steps
-(A7). The CUDA decode kernels compute in bf16: an f32 model decodes on ``engine="xla"``.
+(A7). The CUDA decode kernels compute in the model's dtype, bf16 or f32,
+at head dims 8 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
 
 from __future__ import annotations
@@ -96,6 +97,7 @@ from distributed_tensorflow_tpu_torch.ops.paged_attention import (
 from distributed_tensorflow_tpu_torch.ops.quantized import (
     as_stored,
     dequantize_kv,
+    kv_elem_bytes,
     kv_quant_dtype,
     kv_storage_dtype,
     movable,
@@ -525,7 +527,7 @@ class GPTLM:
         """The per-call override (None → the model's knob) resolved to
         "fused", "fused-layer" or "xla". "auto" is the megakernel, on any
         device: on the card it launches or raises for what the kernels do
-        not compute (an f32 model), and never becomes "xla" (the JAX
+        not compute (a head dim they are not built for), and never becomes "xla" (the JAX
         package's off-TPU "auto" does). "xla" — the plain decode on
         whatever device the tensors are on — runs only when named. On the
         CPU every engine runs the plain versions."""
@@ -535,32 +537,33 @@ class GPTLM:
         return "fused" if e == "auto" else e
 
     def _decode_unsupported_reason(self, *, slots: int, rows: int = 1,
-                                   block_size: int | None = None, nsm: int,
-                                   smem_limit: int) -> str | None:
+                                   block_size: int | None = None, kv_dtype: str = "bf16",
+                                   nsm: int, smem_limit: int) -> str | None:
         """Why the CUDA decode kernels cannot serve this model, or None when
         they can: the port's counterpart of the JAX
         ``_decode_unsupported_reason`` (``models/gpt.py:1129``), with the
         port's envelope. ``slots`` slots of ``rows`` rows each (1 for the
         decode step, ``spec_draft + 1`` for the verify) over the slab's
         ``cache_len`` positions, or (``block_size``) the pool's
-        ``paged_blocks_per_slot(block_size) · block_size``, on a card of
-        ``nsm`` SMs with ``smem_limit`` bytes of shared memory a block.
-        Checks bf16 compute, then the slot planner's answer
-        (``ops/fused_decode.slot_group``: the head dims the kernels take,
-        the rows a launch takes at these widths, shared memory). Pure Python, so a
-        test pins it on the CPU with the H100's figures."""
-        if self.compute_dtype != torch.bfloat16:
-            return (f"the CUDA decode kernels compute in bf16, not {self.compute_dtype} (f32 "
-                    "compute in decode: ROADMAP A3.3); decode_engine=\"xla\" decodes it on "
-                    "the plain path")
+        ``paged_blocks_per_slot(block_size) · block_size``, in the model's
+        compute dtype (bf16 or f32) over a ``kv_dtype`` cache, on a card of
+        ``nsm`` SMs with ``smem_limit`` bytes of shared memory a block: the
+        slot planner's answer (``ops/fused_decode.slot_group``: the head
+        dims the kernels take, the rows a launch takes at these widths,
+        shared memory at the compute dtype's element size). The JAX
+        engine's 8 MiB VMEM cap a layer is the TPU's and has no counterpart
+        here. Pure Python, so a test pins it on the CPU with the H100's
+        figures."""
         if block_size is None:
             mb, c = 0, self.cache_len
         else:
             mb = self.paged_blocks_per_slot(block_size)
             c = mb * block_size
+        nbytes = dict(w_bytes=torch.empty((), dtype=self.compute_dtype).element_size(),
+                      kv_bytes=kv_elem_bytes(kv_dtype, self.compute_dtype))
         try:
             slot_group(slots, rows, self.model_dim, self.num_heads, self.num_kv_heads,
-                       self.head_dim, 4 * self.model_dim, c, mb, nsm, smem_limit)
+                       self.head_dim, 4 * self.model_dim, c, mb, nsm, smem_limit, **nbytes)
         except ValueError as e:
             return str(e)
         return None

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``ops/csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a
+Each ``ops/csrc/<name>.cu`` (and each build of ``VARIANTS``: a source with
+flags of its own) is compiled on first use by ``nvcc`` into a
 shared library with a plain C interface (``extern "C"`` launchers that
 return ``cudaGetLastError()``), loaded through ``ctypes``. No PyTorch
 headers are included, so a build takes seconds. Libraries land in
@@ -20,11 +21,16 @@ import subprocess
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("flash_fwd", "flash_bwd", "fused_decode", "fused_mlp")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_decode", "fused_decode_f32", "fused_mlp")
+# Libraries built from another source with flags of their own: module name
+# -> (source, extra nvcc flags). The cooperative decode kernels in f32
+# compute are a library of their own, so the two compute dtypes' builds
+# run side by side.
+VARIANTS = {"fused_decode_f32": ("fused_decode", ("-DDECODE_F32",))}
 # Probe builds: module name -> (source, extra nvcc flags). Only
 # chip_smoke.py builds them (the MLP and cooperative decode kernels' phase
 # stamps, the decode kernels' barrier probe); no code of the package loads
-# one unless asked to (``fused_decode.LIBRARY``).
+# one unless asked to (``fused_decode.LIBRARIES``).
 PROBES = {
     "fused_mlp_probe": ("fused_mlp", ("-DMLP_PROBE",)),
     "fused_mlp_v1_probe": ("fused_mlp_v1", ("-DMLP_PROBE",)),
@@ -71,7 +77,7 @@ def _nvcc() -> str:
 
 
 def _source(name: str) -> tuple[str, tuple[str, ...]]:
-    return PROBES.get(name, (name, ()))
+    return PROBES.get(name) or VARIANTS.get(name, (name, ()))
 
 
 def _lib_path(name: str) -> str:

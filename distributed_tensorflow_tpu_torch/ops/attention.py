@@ -49,13 +49,15 @@ def check_window(causal, window):
             raise ValueError(f"window must be >= 1, got {window}")
 
 
-def attention_scores(q, k, *, causal=False, window=None, kv_lens=None):
+def attention_scores(q, k, *, causal=False, window=None, kv_lens=None, scale=None):
     """Masked f32 scores [B, Hq, Lq, Lk] of [B, L, H, D] inputs (k already
-    repeated to Hq): scale 1/√D, masked entries at -1e30 — shared by
+    repeated to Hq): scaled by 1/√D (or by ``scale`` where given: the JAX
+    flash kernels' factor), masked entries at -1e30 — shared by
     :func:`dense_attention` and the plain flash version. ``window=W``
     (with ``causal``) keeps key j for query i iff ``i - W < j <= i``."""
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
     lq, lk = scores.shape[-2], scores.shape[-1]
     if causal:
         diff = (torch.arange(lq, device=q.device)[:, None]

@@ -18,8 +18,10 @@
 // TPU kernels' astype), products and sums are f32, exp is the
 // full-precision expf. Under GQA a KV head's dk and dv sum over the query
 // heads of its group. Layout [B, L, H, D] with
-// lse and delta [B, L, Hq] f32; head dim D in {16, 32, 64, 128}; any L (the ragged
-// last tile is masked); outputs in the input dtype (f32 or bf16).
+// lse and delta [B, L, Hq] f32; head dim D in {8, 16, 32, 64, 128} (any other
+// multiple of 8 up to 128 runs zero-padded to the next one, with the scale
+// of its own D: ops/flash_attention.py); any L (the ragged last tile is
+// masked); outputs in the input dtype (f32 or bf16).
 //
 // The sliding window (window = W > 0) visits only the band's tiles, as the
 // TPU kernels' banded index maps do: a kv CTA's q-tiles end at the band's
@@ -103,7 +105,7 @@ constexpr int KV_NT = KV_NW * 32;
 constexpr int KV_BQ = 32;       // query rows per q-tile
 constexpr int NC = 4;           // dim tiles summed per pass of a [16 x D] product
 
-// Dim tiles a pass over NN of them: NC, or all of D=16's 2.
+// Dim tiles a pass over NN of them: NC, or all of D=16's 2 and D=8's 1.
 template <int NN>
 __host__ __device__ constexpr int pass_tiles() {
   return NN < NC ? NN : NC;
@@ -157,10 +159,10 @@ constexpr size_t kv_smem_bytes() {
          sizeof(float) * 4 * KV_BQ;
 }
 
-// CTAs a SM that kv_kernel is built for (its register budget): D=16, D=32
-// and D=64 three (at most 168 registers a thread; D=32 and D=16 hold a half
-// and a quarter of D=64's accumulators, so they keep D=64's budget and
-// cannot spill where D=64 does not), D=128 one.
+// CTAs a SM that kv_kernel is built for (its register budget): D=8, D=16,
+// D=32 and D=64 three (at most 168 registers a thread; D=32, D=16 and D=8
+// hold a half, a quarter and an eighth of D=64's accumulators, so they keep
+// D=64's budget and cannot spill where D=64 does not), D=128 one.
 template <int D>
 __host__ __device__ constexpr int kv_ctas() {
   return D == 128 ? 1 : 3;
@@ -316,12 +318,13 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       if (FUSED) {
         // dQ partial of the q-tile = dS K: BQ/16 row blocks of 16 queries,
         // each over NW / (BQ/16) warps that split the dim tiles, NCQ of them
-        // a pass (D=32: a warp's 2 tiles in one pass; D=16: its one tile).
-        constexpr int RB = BQ / 16, WPR = KV_NW / RB, NPW = NN / WPR;
+        // a pass (D=32: a warp's 2 tiles in one pass; D=16: its one tile;
+        // D=8: one tile, which a row block's first warp takes alone).
+        constexpr int RB = BQ / 16, WPR = KV_NW / RB, NPW = NN / WPR > 0 ? NN / WPR : 1;
         constexpr int NCQ = NPW < NC ? NPW : NC;
         const int qr = 16 * (warp % RB), n0 = (warp / RB) * NPW;
         __syncthreads();  // ds is complete
-        if (q0 + qr < L) {
+        if (q0 + qr < L && (NN >= WPR || n0 < NN)) {  // the test folds away but at D=8
           const T* pa = dOt + (qr + ln.g) * SK + 2 * ln.t;
 #pragma unroll
           for (int c0 = 0; c0 < NPW; c0 += NCQ) {
@@ -594,23 +597,24 @@ q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
   q_tile<T, D, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
 }
 
-// Head dim 16 declares one CTA a SM as its minimum: at ptxas's default
-// register target for its 128 threads the f32 D=16 tile spills two
+// Head dims 16 and 8 declare one CTA a SM as their minimum: at ptxas's
+// default register target for its 128 threads the f32 D=16 tile spills two
 // registers (96 used), as flash_fwd.cu's D=16 tile does; with it, 86-112
 // registers and no spill.
-template <typename T, bool WIN>
-__global__ void __launch_bounds__(QTiles<16>::NT, 1)
-q_kernel_d16(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, const int* __restrict__ kv_lens,
-             T* __restrict__ dq, int L, int Hq, int Hkv, int causal, int window, float scale) {
-  q_tile<T, 16, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
+template <typename T, int D, bool WIN>
+__global__ void __launch_bounds__(QTiles<D>::NT, 1)
+q_kernel_narrow(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, const int* __restrict__ kv_lens,
+                T* __restrict__ dq, int L, int Hq, int Hkv, int causal, int window,
+                float scale) {
+  q_tile<T, D, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
 }
 
 template <typename T, int D, bool WIN>
 constexpr auto dq_kernel() {
-  if constexpr (D == 16) {
-    return q_kernel_d16<T, WIN>;
+  if constexpr (D <= 16) {
+    return q_kernel_narrow<T, D, WIN>;
   } else {
     return q_kernel<T, D, WIN>;
   }
@@ -678,7 +682,8 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
 
 // q, dout [B, L, Hq, D]; k, v [B, L, Hkv, D] (contiguous, 16-byte aligned,
 // f32 or bf16, one dtype); lse, delta [B, L, Hq] f32; kv_lens [B] int32 or
-// NULL; window 0 for none, else W >= 1 (needs causal).
+// NULL; window 0 for none, else W >= 1 (needs causal); scale the scores'
+// factor (1 / sqrt of the caller's head dim).
 // mode 0 (fused): dq, dk, dv, with dqp an f32 scratch of
 //   ceil(L/64) * B * L * Hq * D floats;
 // mode 1: dq alone; mode 2: dk and dv alone (dqp unused).
@@ -693,6 +698,8 @@ extern "C" int flash_bwd(int mode, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 #define BWD_ARGS \
   mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, scale, st
+  if (D == 8)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 8>(BWD_ARGS) : launch<float, 8>(BWD_ARGS));
   if (D == 16)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 16>(BWD_ARGS) : launch<float, 16>(BWD_ARGS));
   if (D == 32)

@@ -6,8 +6,11 @@
 // [L, L] score matrix never reaches device memory. Features: causal mask,
 // the sliding window (window = W > 0: row i keeps key j iff i - W < j <= i),
 // per-batch right-padding kv_lens, grouped-query attention (query head h
-// reads KV head h / (Hq / Hkv)), head dim D in {16, 32, 64, 128}, any sequence
-// length (the ragged last tile is masked), f32 or bf16 inputs.
+// reads KV head h / (Hq / Hkv)), head dim D in {8, 16, 32, 64, 128} (any
+// other multiple of 8 up to 128 runs zero-padded to the next one:
+// ops/flash_attention.py), the softmax scale a launch argument (the TPU
+// kernel's `scale`; 1 / sqrt of the caller's D), any sequence length (the
+// ragged last tile is masked), f32 or bf16 inputs.
 //
 // Bound. At the training path's shapes (B=16, L=1024, 8 heads of 64,
 // causal, f32) the two products take 17.2 GFLOP of f32-accurate
@@ -52,6 +55,10 @@
 // pass of P V over O's 2 dim tiles. Its rows are shorter than one tile
 // (L=28 < BQ and BK): the zero-filled rows past L are masked as keys and
 // never stored as queries, as any ragged last tile is.
+// Head dim 8 (the JAX engine's test models: 4 heads of 8): a row of 12
+// floats or 24 bf16 (a bf16 row is one 16-byte copy, padded by 32 bytes to
+// stay 4 banks on), one k-step of QK^T and one pass of P V over O's one dim
+// tile.
 
 #include <type_traits>
 
@@ -72,12 +79,12 @@ template <typename T, int D, bool WIN>
 __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
                                          const T* __restrict__ v, const int* __restrict__ kv_lens,
                                          T* __restrict__ out, float* __restrict__ lse, int L,
-                                         int Hq, int Hkv, int causal, int window) {
+                                         int Hq, int Hkv, int causal, int window, float scale) {
   if (!WIN) window = 0;  // every window test below folds away
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BK / 8;  // key column tiles of S
   constexpr int NN = D / 8;   // dim column tiles of O
-  // Dim tiles of O summed per pass of P V: 4, or D=16's 2 (one pass).
+  // Dim tiles of O summed per pass of P V: 4, or all of D=16's 2 and D=8's 1.
   constexpr int NC = NN < 4 ? NN : 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int SD = stride<T, D>();
@@ -90,7 +97,6 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
   const int iq = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int q0 = iq * BQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
-  const float scale = rsqrtf((float)D);
   const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
   const int kend = causal ? min(klim, q0 + BQ) : klim;
   const int ntile = (kend + BK - 1) / BK;
@@ -225,27 +231,28 @@ template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
-                 int L, int Hq, int Hkv, int causal, int window) {
-  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window);
+                 int L, int Hq, int Hkv, int causal, int window, float scale) {
+  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, scale);
 }
 
-// Head dim 16 declares one CTA a SM as its minimum. Without it ptxas aims
-// at a register count for several CTAs of 256 threads (80 in bf16) and the
-// bf16 D=16 tile spills a register there; with it, 114-159 registers and no
-// spill (CUDA 12.8's ptxas). The other head dims keep their bounds, and
-// their register counts.
-template <typename T, bool WIN>
+// Head dims 16 and 8 declare one CTA a SM as their minimum. Without it
+// ptxas aims at a register count for several CTAs of 256 threads (80 in
+// bf16) and the bf16 D=16 tile spills a register there; with it, 114-159
+// registers and no spill (CUDA 12.8's ptxas). The other head dims keep
+// their bounds, and their register counts.
+template <typename T, int D, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
-flash_fwd_kernel_d16(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ kv_lens, T* __restrict__ out,
-                     float* __restrict__ lse, int L, int Hq, int Hkv, int causal, int window) {
-  fwd_tile<T, 16, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window);
+flash_fwd_kernel_narrow(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ kv_lens,
+                        T* __restrict__ out, float* __restrict__ lse, int L, int Hq, int Hkv,
+                        int causal, int window, float scale) {
+  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, scale);
 }
 
 template <typename T, int D, bool WIN>
 constexpr auto fwd_kernel() {
-  if constexpr (D == 16) {
-    return flash_fwd_kernel_d16<T, WIN>;
+  if constexpr (D <= 16) {
+    return flash_fwd_kernel_narrow<T, D, WIN>;
   } else {
     return flash_fwd_kernel<T, D, WIN>;
   }
@@ -254,40 +261,43 @@ constexpr auto fwd_kernel() {
 template <typename T, int D, bool WIN>
 cudaError_t launch_w(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
                      float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
-                     cudaStream_t stream) {
+                     float scale, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * stride<T, D>();
   constexpr auto kern = fwd_kernel<T, D, WIN>();
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
-  kern<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out, lse, L, Hq, Hkv, causal, window);
+  kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out,
+                                   lse, L, Hq, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
                    float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   return window ? launch_w<T, D, true>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal,
-                                       window, stream)
+                                       window, scale, stream)
                 : launch_w<T, D, false>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, 0,
-                                        stream);
+                                        scale, stream);
 }
 
 }  // namespace
 
 // q [B, L, Hq, D], k/v [B, L, Hkv, D] (contiguous, 16-byte aligned, f32 or
 // bf16), kv_lens [B] int32 or NULL → out [B, L, Hq, D] (input dtype), lse
-// [B, L, Hq] f32. window: 0 for none, else W >= 1 (needs causal).
+// [B, L, Hq] f32. window: 0 for none, else W >= 1 (needs causal). scale:
+// the scores' factor (1 / sqrt of the caller's head dim).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* kv_lens,
                          void* out, float* lse, int B, int L, int Hq, int Hkv, int D,
-                         int causal, int window, int is_bf16, void* stream) {
+                         int causal, int window, int is_bf16, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
-#define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, st
+#define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, scale, st
+  if (D == 8)
+    return (int)(is_bf16 ? launch<__nv_bfloat16, 8>(FWD_ARGS) : launch<float, 8>(FWD_ARGS));
   if (D == 16)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 16>(FWD_ARGS) : launch<float, 16>(FWD_ARGS));
   if (D == 32)

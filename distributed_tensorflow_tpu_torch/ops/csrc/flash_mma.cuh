@@ -23,7 +23,9 @@
 // c1, c3), and the B operand reads rows 2t and 2t+1 (load_b_cols).
 //
 // Shared tiles are [rows][D + pad] in the input dtype, each row padded by
-// 16 bytes, so a row is 4 (mod 8) banks on from the last. Row-gathers
+// 16 bytes (32 for bf16 at D=8, whose 16-byte rows would otherwise sit 4
+// banks on from the last twice over: 8 banks), so a row is 4 (mod 8) banks
+// on from the last. Row-gathers
 // (rows g, columns t and t+4) and column-gathers (rows 2t and 2t+1, column
 // g) are then free of bank conflicts, and every fragment address is a
 // per-lane base plus a constant.
@@ -63,10 +65,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Row stride, in elements, of a shared [rows][D] tile of T: D plus 16 bytes.
+// Row stride, in elements, of a shared [rows][D] tile of T: D plus 16
+// bytes, or 32 where that leaves the row 0 (mod 8) banks long.
 template <typename T, int D>
 __host__ __device__ constexpr int stride() {
-  return D + 16 / (int)sizeof(T);
+  return ((D + 16 / (int)sizeof(T)) * (int)sizeof(T) / 4) % 8 == 4 ? D + 16 / (int)sizeof(T)
+                                                                   : D + 32 / (int)sizeof(T);
 }
 
 // Rows r0 .. r0+ROWS-1 of head h of a [B, L, H, D] tensor into a padded

@@ -19,25 +19,34 @@
 //                        every layer in one launch over the paged pool,
 //                        committed in the kernel.
 //
-// Each is instantiated for three KV storage types (the KV template
-// parameter): bf16, and int8 or e4m3 codes with one f32 scale a row (one
-// position of one KV head; pallas_decode.py _quant_row). RoPE is a flag of
-// the launch.
+// Each is built for one compute dtype (Act: the weights, the activations
+// staged for the products, the attended values) and instantiated for three
+// KV storage types (the KV template parameter): a cache of the compute
+// dtype, and int8 or e4m3 codes with one f32 scale a row (one position of
+// one KV head; pallas_decode.py _quant_row). The default build computes in
+// bf16 (library fused_decode: bf16, int8, e4m3 caches), the build with
+// -DDECODE_F32 in f32 (library fused_decode_f32: f32, int8, e4m3 caches):
+// the JAX kernels' compute_dtype= (pallas_decode.py :524/:536), whose
+// "bf16" cache stores the compute dtype (ops/quantized.py
+// kv_storage_dtype). One body serves both; the two builds compile side by
+// side. RoPE is a flag of the launch.
 //
 // One slot's step for one layer: LN1 -> q/k/v projections -> RoPE of the q
 // and fresh k rows at their own positions (pallas_decode.py _rope_rows: f32,
 // pairs (x_i, x_{i+Dh/2}), frequency 10000^(-i/(Dh/2))) -> fresh K/V rows
-// rounded through the cache (bf16; or quantized with the row's amax scale,
-// then attended as their dequantized value rounded to bf16) -> attention of
-// the slot's queries over its cache positions [0, length) read PRE-write
-// (1-byte codes are dequantized to bf16 as they arrive) plus the fresh rows
-// from `length` on -> output projection + residual -> LN2 -> FFN (tanh
-// GELU) + residual. The rounding points follow models/gpt.py's XLA engine: the
-// layernormed rows, the attention output and gelu(up) are cast to bf16 before
-// each product, products accumulate in f32, and (decode only) the normalized
-// softmax weights are cast to bf16 before they weight the bf16 values; the
-// verify keeps them f32, masks the suffix causally and gives 0 for a row with
-// no valid key, as the TPU verify kernel does.
+// rounded through the cache (its dtype; or quantized with the row's amax
+// scale, then attended as their dequantized value in the compute dtype) ->
+// attention of the slot's queries over its cache positions [0, length) read
+// PRE-write (1-byte codes are dequantized to the compute dtype as they
+// arrive) plus the fresh rows from `length` on -> output projection +
+// residual -> LN2 -> FFN (tanh GELU) + residual. The rounding points follow
+// models/gpt.py's XLA engine (_dot_full, dequantize_kv): in bf16 the
+// layernormed rows, the attention output and gelu(up) are cast to bf16
+// before each product, products accumulate in f32, and (decode only) the
+// normalized softmax weights are cast to bf16 before they weight the bf16
+// values; in f32 none of these casts happens. The verify keeps the weights
+// f32, masks the suffix causally and gives 0 for a row with no valid key,
+// as the TPU verify kernel does.
 //
 // Sliding window (W > 0, a launch argument). A windowed slab is a rolling
 // buffer of C slots, position p at slot p mod C (pallas_decode.py's
@@ -66,13 +75,16 @@
 // moves a byte an element and a 4-byte scale a row of Dh (~36 MB of K/V:
 // ~26 us in all). B5 moves one layer of
 // that (~14 MB, ~4.2 us); at gpt-xl width (d=2048, 16x128, F=8192) a layer
-// holds ~100 MB of weights (~40 us with its K/V).
+// holds ~100 MB of weights (~40 us with its K/V). In f32 at decode-full
+// (d=256, 4 layers, 8x32, F=1024) one B6 launch moves ~12.6 MB of f32
+// weights and, at S=8 and lengths 256-512, ~25 MB of f32 K/V: ~11 us (the
+// split-TF32 products, three MMAs each, still far below the rate).
 // Design: one cooperative launch over the whole card, CT threads a CTA (the
 // grid is the SM count times the occupancy, read at launch;
 // ops/fused_decode.py coop_plan lays it out). Each layer runs five phases
 // with a grid-wide barrier after each (5 n - 1 a launch); the state between
 // phases lives in global scratch (the f32 residual rows in h_out, q/k/v f32,
-// the attention output and gelu(up) bf16):
+// the attention output and gelu(up) in the compute dtype):
 //   (a) every CTA with a q/k/v column tile layernorms all S*R rows into its
 //       shared memory (from L2), then computes its tiles;
 //   (b) one task per (slot, KV head): the head group's g x R query rows over
@@ -83,7 +95,7 @@
 //       at >= length, so no commit races a read), or, for B5, writes them to
 //       k_fresh / v_fresh;
 //   (c) output projection, the owner of a column tile adding the residual;
-//   (d) LN2 of all rows, up projection, bias, GELU, rounded to bf16;
+//   (d) LN2 of all rows, up projection, bias, GELU (in the compute dtype);
 //   (e) down projection, bias and residual.
 // Products: column tiles of tw = 8 to 64 output columns over the full K
 // (the plan takes for each product the width that gives the busiest CTA
@@ -102,9 +114,21 @@
 // that come from another CTA (the attention output, gelu(up)) are staged by
 // the TMA, one bulk copy a row, in chunks of d columns, up to MAXS in
 // flight.
-// The products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// f32 sums; the operands are bf16 values, so each product is exact and only
-// the order of the sums changes): warp w takes m-tile w mod cs and the
+// The products run on the tensor cores. bf16: mma.sync m16n8k16, bf16
+// operands, f32 sums (the operands are bf16 values, so each product is
+// exact and only the order of the sums changes), k-steps of 16. f32:
+// split-TF32 mma.sync m16n8k8 (flash_mma.cuh: each operand split into a
+// TF32 hi and lo, the product lo*hi + hi*lo + hi*hi; one TF32 pass would
+// miss f32 by ~4e-4), k-steps of 8. The activations are staged in f32 and
+// split as the A fragment is loaded: staged split, a slot would hold two
+// TF32 words an element, twice the shared memory and the TMA bytes, to save
+// four conversions a k-step that each A fragment serves to every subtile.
+// Each k-step's three MMAs sum into fresh registers, added to the tile's
+// sums in f32 (the tensor cores truncate as they accumulate, so a long sum
+// taken by the MMAs alone would lose up to an ulp a step, all one way); a
+// second set of accumulators for the small terms would cost 32 registers
+// and spill. Each f32 weight tile's row is at most 128 bytes (32 columns),
+// the TMA's widest swizzled box. Warp w takes m-tile w mod cs and the
 // k-steps of k-group w / cs (counted from each x chunk's start), and the
 // k-groups' partial sums meet in shared memory and are added in k-group
 // order, so the order of every sum depends only on the row count and K,
@@ -118,12 +142,15 @@
 // slot_group: rows, and the busiest CTA's tiles x m-tiles) runs as launches
 // over groups of slots, one after another; every group's k-groups are the
 // first group's (the plan's cs), so each row's sums keep their order.
-// Attention: each thread streams its own 8 dims of every K (then V) row
+// Attention: each thread streams its own VD dims of every K (then V) row
 // through a ring of RING 16-byte cp.async slots in shared memory (RING - 1
-// chunks in flight and no registers spent on them): 16 bytes of bf16, or 8
-// bytes of codes (and, by the row's first lane, the row's 4-byte scale), so
-// a 1-byte cache moves half the bytes with the same per-thread geometry;
-// the softmax's maxima and sums meet across the warps in warp order.
+// chunks in flight and no registers spent on them): 8 dims of bf16 (16
+// bytes), 4 dims of f32 (16 bytes), or 8 bytes of codes under bf16 compute
+// and 4 under f32 (and, by the row's first lane, the row's 4-byte scale),
+// so a 1-byte cache moves a fraction of the bytes with the same per-thread
+// geometry as its compute dtype's cache: a row takes Dh / 8 lanes in bf16,
+// Dh / 4 in f32 (LPR: 1 to 32 lanes a key row, Dh = 8 to 128); the
+// softmax's maxima and sums meet across the warps in warp order.
 // The grid barrier is a flag a CTA (grid_sync), polled by one warp a CTA:
 // a single counter would take every CTA's atomic (PERF.md section 6 has the
 // two timed). Its epochs are kept on the device, so a launch needs no state
@@ -140,6 +167,8 @@
 
 #include <type_traits>
 
+#include "flash_mma.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
@@ -149,15 +178,29 @@ constexpr float KV_EPS = 1e-12f;  // ops/quantized.py _EPS
 typedef __nv_bfloat16 bf16;
 typedef __nv_fp8_e4m3 e4m3;
 
-// The KV storage types: bf16, or 1-byte codes (int8, e4m3) with a scale a
-// row that maps the row's amax onto QMAX (ops/quantized.py _QMAX).
+// The build's compute dtype (see the top of the file): Act, and the cache
+// type that stores it (the "bf16" cache layout of ops/quantized.py).
+#ifdef DECODE_F32
+typedef float Act;
+#else
+typedef bf16 Act;
+#endif
+constexpr bool F32 = std::is_same<Act, float>::value;
+
+// The KV storage types: the compute dtype (bf16 or f32), or 1-byte codes
+// (int8, e4m3) with a scale a row that maps the row's amax onto QMAX
+// (ops/quantized.py _QMAX). VD: the dims of a row one thread streams (16
+// bytes of bf16 or f32; 8 codes under bf16 compute, 4 under f32, whose
+// P·V sums of 8 dims a thread, in f32, spilled registers).
 template <class KV>
 struct KvCodes {
   static constexpr bool QUANT = false;
+  static constexpr int VD = 16 / (int)sizeof(KV);
 };
 template <>
 struct KvCodes<int8_t> {
   static constexpr bool QUANT = true;
+  static constexpr int VD = F32 ? 4 : 8;
   static constexpr float QMAX = 127.f;
   // Round half to even, clip (ops/quantized.py _quantize).
   static __device__ __forceinline__ int8_t code(float xs) {
@@ -168,6 +211,7 @@ struct KvCodes<int8_t> {
 template <>
 struct KvCodes<e4m3> {
   static constexpr bool QUANT = true;
+  static constexpr int VD = F32 ? 4 : 8;
   static constexpr float QMAX = 448.f;
   // Round to nearest even; |xs| <= 448 by construction.
   static __device__ __forceinline__ e4m3 code(float xs) {
@@ -202,15 +246,24 @@ struct PagedRows {
   }
 };
 
-// One layer's weights (projections bf16 [in, out] row-major, rest f32).
+// One layer's weights (projections [in, out] row-major in the compute
+// dtype, the rest f32).
 struct LayerW {
-  const bf16 *wq, *wk, *wv, *wo, *w_up, *w_down;
+  const void *wq, *wk, *wv, *wo, *w_up, *w_down;
   const float *ln1_s, *ln1_b, *ln2_s, *ln2_b, *b_up, *b_down;
 };
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+// x rounded to T (bf16 or f32), as a float; and stored as T.
+template <class T>
+__device__ __forceinline__ float rnd(float x) {
+  return std::is_same<T, bf16>::value ? bf16r(x) : x;
+}
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -229,8 +282,8 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
-// Eight bf16 values (one 16-byte load) as floats.
-__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
+// One 16-byte load of a row (eight bf16 or four f32 values) as floats.
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, const bf16*) {
   const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -239,39 +292,42 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
     out[2 * e + 1] = f.y;
   }
 }
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, const float*) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
 
-// Eight 1-byte codes (one 8-byte load) dequantized with the row's scale and
-// rounded to bf16, as floats (ops/quantized.py dequantize_kv to the compute
-// dtype). Both forms give the codes' values exactly, without a
-// quarter-rate integer-to-float conversion an element.
-template <class KV>
-__device__ __forceinline__ void unpack8_codes(const uint2& raw, float scale, float* out);
-
+// N 1-byte codes (N / 4 words of one load) dequantized with the row's
+// scale to the compute dtype, as floats (ops/quantized.py dequantize_kv).
+// Both forms give the codes' values exactly, without a quarter-rate
+// integer-to-float conversion an element.
 // int8: code b's byte, offset to b + 128, set in the mantissa of 2^23; the
 // float 2^23 + b + 128 less 2^23 + 128 is b.
-template <>
-__device__ __forceinline__ void unpack8_codes<int8_t>(const uint2& raw, float scale,
-                                                      float* out) {
-  const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+template <int N>
+__device__ __forceinline__ void unpack_codes(const uint32_t (&raw)[N / 4], float scale,
+                                             float* out, const int8_t*) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const float v =
-        __uint_as_float(__byte_perm(w[e >> 2], 0x4B000000u, 0x7440u | (e & 3))) - 8388736.f;
-    out[e] = bf16r(v * scale);
+  for (int e = 0; e < N; ++e) {
+    const float v = __uint_as_float(__byte_perm(raw[e >> 2] ^ 0x80808080u, 0x4B000000u,
+                                                0x7440u | (e & 3))) -
+                    8388736.f;
+    out[e] = rnd<Act>(v * scale);
   }
 }
 
 // e4m3: two codes a conversion to half2 (e4m3 values are exact in half).
-template <>
-__device__ __forceinline__ void unpack8_codes<e4m3>(const uint2& raw, float scale, float* out) {
-  const uint32_t w[2] = {raw.x, raw.y};
+template <int N>
+__device__ __forceinline__ void unpack_codes(const uint32_t (&raw)[N / 4], float scale,
+                                             float* out, const e4m3*) {
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
+  for (int p = 0; p < N / 2; ++p) {
     const __half2 h = __nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(w[p >> 1] >> (16 * (p & 1))), __NV_E4M3);
+        (__nv_fp8x2_storage_t)(raw[p >> 1] >> (16 * (p & 1))), __NV_E4M3);
     const float2 f = __half22float2(h);
-    out[2 * p] = bf16r(f.x * scale);
-    out[2 * p + 1] = bf16r(f.y * scale);
+    out[2 * p] = rnd<Act>(f.x * scale);
+    out[2 * p + 1] = rnd<Act>(f.y * scale);
   }
 }
 
@@ -286,7 +342,13 @@ __device__ __forceinline__ void rope_cs(int pos, int e, int half, float& c, floa
 
 constexpr int CT = 384;  // threads of a CTA
 constexpr int CW = CT / 32;
-constexpr int TILE = 8;  // columns of a weight tile: one 16-byte row a k
+constexpr int TILE = 8;  // columns of an MMA subtile of a weight tile
+// The products' k-step: bf16 m16n8k16, f32 (split-TF32) m16n8k8.
+constexpr int KSTEP = F32 ? 8 : 16;
+// Elements of padding at the end of an x slot's row (16 bytes): bf16 rows
+// 4 banks apart for ldmatrix, f32 rows 4 banks apart for the A fragment's
+// row-gathers (rows g, columns t and t + 4).
+constexpr int XPAD = 16 / (int)sizeof(Act);
 constexpr int MAXT = 8;  // most tiles of one product a CTA takes
 constexpr int MAXTM = 8;  // most tiles x m-tiles of one product a CTA takes
 constexpr int NWMAX = 16;  // most slots of the weight ring
@@ -298,7 +360,7 @@ constexpr int MAX_GRID = 1024;  // most CTAs (the grid barrier's flags)
 // The launch plan (ops/fused_decode.py coop_plan): CTAs, the width in columns
 // of a staged chunk of x (= d), the weight ring (nw slots of wslot bytes from
 // offset 0; chunks of kw[product] rows, kw dividing kc, of column tiles of
-// tw[product] = 8, 16, 32 or 64 columns), and the rest of the
+// tw[product] = 8, 16, 32 or 64 columns, at most 128 bytes a row), and the rest of the
 // shared-memory layout in bytes: the next layernorm's scale and bias ([2][d]
 // f32 at ln); nslot x slots from x0, xs bytes apart (the attention's
 // scratch overlays them); the product partial sums at red, the region's
@@ -314,7 +376,7 @@ struct Plan {
 };
 
 struct Coop {
-  // TMA maps of the projections as 2-D [n_layers * K, N] bf16 (wq, wk, wv,
+  // TMA maps of the projections as 2-D [n_layers * K, N] Act (wq, wk, wv,
   // wo, w_up, w_down), boxes of tw columns x min(kw, 256) rows of the
   // product's weight chunks; encoded per launch (launch_coop).
   CUtensorMap maps[6];
@@ -326,13 +388,13 @@ struct Coop {
   size_t layer_elems;
   const float* h_in;
   float* h_out;  // [S * R, d]: the residual rows between phases
-  void *ck, *cv;     // the KV cache: bf16, or 1-byte codes
+  void *ck, *cv;     // the KV cache: the compute dtype, or 1-byte codes
   float *ks, *vs;    // its scales [.., Hkv] a row (1-byte codes), else null
   // lengths: the decode's write positions, or the verify's prefix lengths.
   const int *lengths, *suffix, *active, *tables;
   float* qkv;  // [S * R, Hq Dh + 2 Hkv Dh]
-  bf16* att;   // [S * R, Hq Dh]
-  bf16* gelu;  // [S * R, F]
+  Act* att;   // [S * R, Hq Dh]
+  Act* gelu;  // [S * R, F]
   // B5's fresh rows [S, Hkv, Dh] in the cache's type and, for 1-byte codes,
   // their scales [S, Hkv] (else null).
   void *k_fresh, *v_fresh;
@@ -520,6 +582,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // The four products of a layer: q/k/v, output, up, down.
 enum { QKV = 0, OUT = 1, UP = 2, DOWN = 3 };
 struct Prod {
@@ -586,7 +654,7 @@ __device__ __forceinline__ void stamp(const Coop& a, int k, bool timer = false) 
 #endif
 }
 
-// The x slots ([rows][kc + 8] bf16 each) and their mbarriers; bit i of
+// The x slots ([rows][kc + XPAD] Act each) and their mbarriers; bit i of
 // `loads` is the parity of the count of loads into slot i (every thread of
 // the CTA keeps the same bits), so the last load into it completes the
 // mbarrier's phase of parity 1 - that bit.
@@ -594,8 +662,8 @@ struct Ring {
   uint32_t loads;
 };
 
-__device__ __forceinline__ bf16* slot_ptr(const Plan& p, int i) {
-  return reinterpret_cast<bf16*>(coop_smem + p.x0 + (size_t)i * p.xs);
+__device__ __forceinline__ Act* slot_ptr(const Plan& p, int i) {
+  return reinterpret_cast<Act*>(coop_smem + p.x0 + (size_t)i * p.xs);
 }
 
 __device__ __forceinline__ uint64_t* bar_ptr(const Plan& p, int i) {
@@ -605,15 +673,16 @@ __device__ __forceinline__ uint64_t* bar_ptr(const Plan& p, int i) {
 // The TMA copies columns [k0, k0 + kc) of rows [0, rows) of src (row stride
 // ld) into slot i; warp 0 issues them, one bulk copy a row. Called by every
 // thread, after a barrier that ends all reads of the slot.
-__device__ void stage(const Plan& p, Ring& x, int i, const bf16* src, int ld, int rows, int k0,
+__device__ void stage(const Plan& p, Ring& x, int i, const Act* src, int ld, int rows, int k0,
                       int kc) {
   if (threadIdx.x < 32) {
     uint64_t* bar = bar_ptr(p, i);
-    bf16* dst = slot_ptr(p, i);
-    if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(rows * kc * 2));
+    Act* dst = slot_ptr(p, i);
+    if (threadIdx.x == 0) mbar_expect_tx(bar, (uint32_t)(rows * kc * sizeof(Act)));
     __syncwarp();
     for (int r = threadIdx.x; r < rows; r += 32)
-      bulk_load(dst + (size_t)r * (p.kc + 8), src + (size_t)r * ld + k0, kc * 2, bar);
+      bulk_load(dst + (size_t)r * (p.kc + XPAD), src + (size_t)r * ld + k0,
+                kc * (int)sizeof(Act), bar);
   }
   x.loads ^= 1u << i;
 }
@@ -621,7 +690,7 @@ __device__ void stage(const Plan& p, Ring& x, int i, const bf16* src, int ld, in
 // The first chunks of a product's x from src, one a slot, after a fence
 // that orders the phase's earlier generic writes (the attention scratch over
 // the slots; src, by other CTAs before the grid sync) before the copies.
-__device__ void stage_first(const Plan& p, Ring& x, const bf16* src, int ld, int rows, int K) {
+__device__ void stage_first(const Plan& p, Ring& x, const Act* src, int ld, int rows, int K) {
   if (threadIdx.x < 32) fence_async();
   for (int i = 0; i < p.nslot && i * p.kc < K; ++i)
     stage(p, x, i, src, ld, rows, i * p.kc, min(p.kc, K - i * p.kc));
@@ -631,9 +700,9 @@ __device__ void stage_first(const Plan& p, Ring& x, const bf16* src, int ld, int
 // the order the kernel consumes them (layer, then q/k/v, output, up, down),
 // chunk j of a product being rows [j kw, (j + 1) kw) of the CTA's tiles;
 // chunk k of the stream is chunk k - l per of layer l = k / per. Chunk k
-// goes to weight slot k % nw as [tile][kw][tw] bf16: one TMA box a tile's
+// goes to weight slot k % nw as [tile][kw][tw] Act: one TMA box a tile's
 // tw columns (two or more where kw > 256; rows of 32 to 128 bytes swizzled
-// by the TMA, so that the MMA's B loads stay free of bank conflicts),
+// by the TMA, so that the MMA's B loads stay free of bank conflicts in bf16),
 // counted by the slot's full mbarrier, phase k / nw. Every warp arrives on
 // the slot's empty mbarrier once it is done with the chunk, and the chunk
 // that refills the slot waits for that. Every thread keeps the same counts;
@@ -644,8 +713,8 @@ struct WStream {
   int nt[4], nck[4];  // this CTA's tiles and chunks of each product
 };
 
-__device__ __forceinline__ bf16* wslot_ptr(const Plan& p, int i) {
-  return reinterpret_cast<bf16*>(coop_smem + (size_t)i * p.wslot);
+__device__ __forceinline__ Act* wslot_ptr(const Plan& p, int i) {
+  return reinterpret_cast<Act*>(coop_smem + (size_t)i * p.wslot);
 }
 
 // The full (count 1, with the copies' bytes) and empty (count CW) mbarriers
@@ -708,8 +777,8 @@ __device__ void ws_fill(const Coop& a, WStream& ws, int issuer, int ll, int lp) 
       const int slot = k % a.p.nw, box = kw < 256 ? kw : 256;
       uint64_t* bar = wfull_ptr(a.p, slot);
       if (k >= a.p.nw) mbar_wait(wempty_ptr(a.p, slot), (k / a.p.nw - 1) & 1);
-      mbar_expect_tx(bar, (uint32_t)(nt * kw * tw * 2));
-      bf16* dst = wslot_ptr(a.p, slot);
+      mbar_expect_tx(bar, (uint32_t)(nt * kw * tw * sizeof(Act)));
+      Act* dst = wslot_ptr(a.p, slot);
       for (int t = 0; t < nt; ++t) {
         int m, col, row;
         tile_map(a, l, which, (int)blockIdx.x + t * a.p.grid, tw, m, col, row);
@@ -723,22 +792,43 @@ __device__ void ws_fill(const Coop& a, WStream& ws, int issuer, int ll, int lp) 
 
 // acc[t] += x W over the k-steps ks, ks + kg, ... < s1 of one weight chunk
 // (at shared address wb, its first row the x chunk's row c0), for NS
-// subtiles: the A fragment at xs (k-step 0), the B fragments at wb + the
-// k-step's rows + boff[t]. NS is a constant, so the loop over the
-// subtiles carries no test and no address arithmetic beyond one add.
+// subtiles. bf16: the A fragment by ldmatrix at xs (k-step 0), the B
+// fragments at wb + the k-step's rows + boff[t]. f32: the A fragment's
+// rows g and g + 8 at xs and xs8 (column t of k-step 0), split once a
+// k-step; each subtile's B rows t and t + 4 at boff[t] and 4 rows on (in
+// the swizzle, 4 rowb bytes on with the XOR key's bit for row 4 flipped:
+// rowb / 2), split, its three MMAs (flash_mma.cuh mma_b) summed from zero
+// and added to acc[t]. NS is a constant,
+// so the loop over the subtiles carries no test and no address arithmetic
+// beyond one add.
 template <int NS>
-__device__ __forceinline__ void chunk_mma(float (&acc)[MAXT][4], const bf16* xs, uint32_t wb,
-                                          const uint32_t (&boff)[MAXT], int ks, int s1, int kg,
-                                          int c0, int rowb) {
+__device__ __forceinline__ void chunk_mma(float (&acc)[MAXT][4], const Act* xs, const Act* xs8,
+                                          uint32_t wb, const uint32_t (&boff)[MAXT], int ks,
+                                          int s1, int kg, int c0, int rowb) {
   for (; ks < s1; ks += kg) {
-    uint32_t af[4];
-    ldsm_x4(af, xs + ks * 16);
-    const uint32_t rb = wb + (uint32_t)((ks * 16 - c0) * rowb);
+    const uint32_t rb = wb + (uint32_t)((ks * KSTEP - c0) * rowb);
+    if constexpr (F32) {
+      const float* p0 = reinterpret_cast<const float*>(xs) + ks * 8;
+      const float* p1 = reinterpret_cast<const float*>(xs8) + ks * 8;
+      flash::FragA<true> af;
+      af.set(p0[0], p1[0], p0[4], p1[4]);
 #pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      uint32_t b0, b1;
-      ldsm_x2_trans(b0, b1, rb + boff[t]);
-      mma_bf16(acc[t], af, b0, b1);
+      for (int t = 0; t < NS; ++t) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        const uint32_t b1 = (boff[t] + 4 * rowb) ^ (rowb >> 1);
+        flash::mma_b<true>(p, p, af, lds_f32(rb + boff[t]), lds_f32(rb + b1));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][e] += p[e];
+      }
+    } else {
+      uint32_t af[4];
+      ldsm_x4(af, xs + ks * 16);
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        uint32_t b0, b1;
+        ldsm_x2_trans(b0, b1, rb + boff[t]);
+        mma_bf16(acc[t], af, b0, b1);
+      }
     }
   }
 }
@@ -754,20 +844,24 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MAXT][4], const bf16* xs,
 // order.
 template <class Pre, class Epi>
 __device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, Ring& x,
-                        const bf16* src, int ld, Pre pre, Epi epi) {
+                        const Act* src, int ld, Pre pre, Epi epi) {
   const Prod pd = prod_dims(a.D, which);
   // Tiles of tw columns, each tw / 8 MMA subtiles; subtile s is column
   // block j = s % per of tile t = s / per, at column col_of(s).
-  const int tw = pick(a.p.tw, which), per = tw / TILE, lp = __ffs(per) - 1, swz = per - 1;
+  const int tw = pick(a.p.tw, which), per = tw / TILE, lp = __ffs(per) - 1, sub = per - 1;
   const int nt = pick(ws.nt, which), ns = nt * per;
   const auto col_of = [&](int s) {
-    return ((int)blockIdx.x + (s >> lp) * a.p.grid) * tw + (s & swz) * TILE;
+    return ((int)blockIdx.x + (s >> lp) * a.p.grid) * tw + (s & sub) * TILE;
   };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int mt = (rows + 15) / 16, cs = a.p.cs, kg = CW / cs;
   const int ms = warp % cs, kgr = warp / cs;
-  // Rows past the last repeat it (their sums are dropped).
-  const int arow = min(ms * 16 + (lane & 15), rows - 1), acol = (lane >> 4) * 8;
+  // The A fragment's rows (past the last they repeat it; their sums are
+  // dropped) and first column: bf16, this lane's ldmatrix row and column
+  // block; f32, rows g and g + 8, column t.
+  const int arow = min(ms * 16 + (F32 ? lane >> 2 : lane & 15), rows - 1);
+  const int arow8 = min(ms * 16 + (lane >> 2) + 8, rows - 1);
+  const int acol = F32 ? lane & 3 : (lane >> 4) * 8;
   const int kc = a.p.kc, kw = pick(a.p.kw, which), nch = src ? (pd.K + kc - 1) / kc : 1;
   // This thread's outputs: i = threadIdx.x + k CT, k < MAXO.
   constexpr int MAXO = (MAXTM * 128 + CT - 1) / CT;
@@ -784,42 +878,51 @@ __device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, 
   for (int t = 0; t < MAXT; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-  // The B fragment of subtile s at chunk row 0 (this lane's row lane % 16):
-  // its offset in a weight slot in the TMA's swizzled [kw][tw] tile, whose
-  // 16-byte column block (s % per) is XORed with address bits 7.. . Slots
-  // lie 1024-byte multiples from the region's start, and a step of 16 rows
-  // (32 tw bytes) leaves those bits as they are, so every slot and k-step
-  // adds its offset to the same ones.
-  const int rowb = tw * 2;
+  // The B fragment of subtile s at chunk row 0: its offset in a weight slot
+  // in the TMA's swizzled [kw][tw] tile (rows of rowb bytes), whose 16-byte
+  // column blocks are XORed with address bits 7.. (the row's 16-byte blocks
+  // less one: swz). bf16: this lane's row lane % 16 and the subtile's
+  // 16-byte block, for ldmatrix; f32: row t, column g of the subtile's 32
+  // bytes (row t + 4 is 4 rowb bytes on, which sets one bit of the key that
+  // rows 0-3 leave clear: chunk_mma). Slots lie 1024-byte multiples from the
+  // region's start, and a k-step (16 or 8 rows: 16 rowb bytes in bf16, 8
+  // rowb in f32, at least the swizzle's span) leaves those bits as they
+  // are, so every slot and k-step adds its offset to the same ones.
+  const int rowb = tw * (int)sizeof(Act), swz = rowb / 16 - 1;
   const uint32_t base = smem_u32(coop_smem);
   uint32_t boff[MAXT];
 #pragma unroll
   for (int t = 0; t < MAXT; ++t) {
-    const uint32_t o = base + ((t >> lp) * kw + (lane & 15)) * rowb + (t & swz) * 16;
+    const uint32_t tile = base + (t >> lp) * kw * rowb;
+    const uint32_t o = F32 ? tile + (lane & 3) * rowb + (t & sub) * 32 + (lane >> 2) * 4
+                           : tile + (lane & 15) * rowb + (t & sub) * 16;
     boff[t] = (o ^ (((o >> 7) & swz) << 4)) - base;
   }
   ws_fill(a, ws, 0, l, which);  // this product's chunks the ring has room for
   for (int ch = 0; ch < nch; ++ch) {
     const int k0 = ch * kc, w = min(kc, pd.K - k0), slot = src ? ch % a.p.nslot : 0;
     if (src) mbar_wait(bar_ptr(a.p, slot), ((x.loads >> slot) & 1u) ^ 1u);  // chunk ch
-    const bf16* xs = slot_ptr(a.p, slot) + (size_t)arow * (kc + 8) + acol;
+    const Act* xs = slot_ptr(a.p, slot) + (size_t)arow * (kc + XPAD) + acol;
+    const Act* xs8 = slot_ptr(a.p, slot) + (size_t)arow8 * (kc + XPAD) + acol;
     for (int c0 = 0; c0 < w; c0 += kw) {  // the weight chunks of this x chunk
       const int ws_slot = ws.used % a.p.nw;
       mbar_wait(wfull_ptr(a.p, ws_slot), (ws.used / a.p.nw) & 1);
       const uint32_t wb = smem_u32(wslot_ptr(a.p, ws_slot));
       if (ms < mt) {
-        const int s0 = c0 / 16, s1 = min(c0 + kw, w) / 16;
+        const int s0 = c0 / KSTEP, s1 = min(c0 + kw, w) / KSTEP;
         const int ks = s0 + ((kgr - s0) % kg + kg) % kg;
+#define CHUNK(n) chunk_mma<n>(acc, xs, xs8, wb, boff, ks, s1, kg, c0, rowb)
         switch (ns) {
-          case 1: chunk_mma<1>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 2: chunk_mma<2>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 3: chunk_mma<3>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 4: chunk_mma<4>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 5: chunk_mma<5>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 6: chunk_mma<6>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          case 7: chunk_mma<7>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
-          default: chunk_mma<MAXT>(acc, xs, wb, boff, ks, s1, kg, c0, rowb); break;
+          case 1: CHUNK(1); break;
+          case 2: CHUNK(2); break;
+          case 3: CHUNK(3); break;
+          case 4: CHUNK(4); break;
+          case 5: CHUNK(5); break;
+          case 6: CHUNK(6); break;
+          case 7: CHUNK(7); break;
+          default: CHUNK(MAXT); break;
         }
+#undef CHUNK
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(wempty_ptr(a.p, ws_slot));
@@ -866,23 +969,27 @@ __device__ void product(const Coop& a, WStream& ws, int l, int which, int rows, 
   }
 }
 
-// Four bf16 values of row x at column c: layernorm(v) with the row's mean
-// and reciprocal deviation, scale and bias sc / bi.
-__device__ __forceinline__ void ln_store(bf16* x, int c, const float4& v, float mu, float rstd,
+// Four values of row x at column c in the compute dtype: layernorm(v) with
+// the row's mean and reciprocal deviation, scale and bias sc / bi.
+__device__ __forceinline__ void ln_store(Act* x, int c, const float4& v, float mu, float rstd,
                                          const float* sc, const float* bi) {
   const float4 g = *reinterpret_cast<const float4*>(sc + c);
   const float4 b = *reinterpret_cast<const float4*>(bi + c);
-  __nv_bfloat162 lo = __floats2bfloat162_rn((v.x - mu) * rstd * g.x + b.x,
-                                            (v.y - mu) * rstd * g.y + b.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn((v.z - mu) * rstd * g.z + b.z,
-                                            (v.w - mu) * rstd * g.w + b.w);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(x + c) = packed;
+  const float4 y = make_float4((v.x - mu) * rstd * g.x + b.x, (v.y - mu) * rstd * g.y + b.y,
+                               (v.z - mu) * rstd * g.z + b.z, (v.w - mu) * rstd * g.w + b.w);
+  if constexpr (F32) {
+    *reinterpret_cast<float4*>(x + c) = y;
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(y.x, y.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(y.z, y.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(x + c) = packed;
+  }
 }
 
-// x[r, :] = bf16(layernorm(h[r, :])) for r < rows (the JAX models/base
+// x[r, :] = layernorm(h[r, :]) in the compute dtype for r < rows (the JAX models/base
 // arithmetic), scale sc and bias bi [d] f32 in shared memory; h read from
 // L2, one warp a row. Up to d = 1024 a warp loads a batch of its rows (the
 // LNV float4 a lane holds: LNV / ceil(d / 128) rows) before it reduces any;
@@ -891,7 +998,7 @@ __device__ __forceinline__ void ln_store(bf16* x, int c, const float4& v, float 
 constexpr int LNV = 8;  // float4 a lane holds in a layernorm batch
 
 __device__ void layernorm_rows(const float* h, const float* sc, const float* bi, int rows, int d,
-                               bf16* x, int ldx) {
+                               Act* x, int ldx) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nv = (d + 127) / 128;  // float4 a lane a row
   if (nv > LNV) {
@@ -988,19 +1095,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The scores of G query rows (q, Dh floats apart, at this lane's 8 dims) on
-// one key row k8 (its 8 dims), summed over the LPR lanes of the row; the G
-// sums' shuffles interleave. Stored at out, CS floats apart, where `store`.
-template <int G>
-__device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, const float* k8,
+// The scores of G query rows (q, Dh floats apart, at this lane's VD dims)
+// on one key row kv (its VD dims: 8, or 4 of an f32 cache), summed over the
+// LPR lanes of the row; the G sums' shuffles interleave. Stored at out, CS
+// floats apart, where `store`.
+template <int G, int VD>
+__device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, const float* kv,
                                            float* out, int CS, bool store, float scale) {
   float p[G];
 #pragma unroll
   for (int u = 0; u < G; ++u) {
     const float4 qa = *reinterpret_cast<const float4*>(q + u * Dh);
-    const float4 qb = *reinterpret_cast<const float4*>(q + u * Dh + 4);
-    p[u] = (qa.x * k8[0] + qa.y * k8[1]) + (qa.z * k8[2] + qa.w * k8[3]) +
-           ((qb.x * k8[4] + qb.y * k8[5]) + (qb.z * k8[6] + qb.w * k8[7]));
+    p[u] = (qa.x * kv[0] + qa.y * kv[1]) + (qa.z * kv[2] + qa.w * kv[3]);
+    if constexpr (VD == 8) {
+      const float4 qb = *reinterpret_cast<const float4*>(q + u * Dh + 4);
+      p[u] = p[u] + ((qb.x * kv[4] + qb.y * kv[5]) + (qb.z * kv[6] + qb.w * kv[7]));
+    }
   }
   for (int o = LPR / 2; o > 0; o >>= 1)
 #pragma unroll
@@ -1029,6 +1139,7 @@ __device__ __forceinline__ void score_rows(const float* q, int Dh, int LPR, cons
 template <class Rows, bool VERIFY, bool FRESH, class KV>
 __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool first) {
   constexpr bool QUANT = KvCodes<KV>::QUANT;
+  constexpr int VD = KvCodes<KV>::VD;
   const Dims& D = a.D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int R = a.R, Dh = D.Dh, g = D.Hq / D.Hkv, gR = g * R, KB = a.p.kb, CS = KB + R;
@@ -1075,14 +1186,14 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   float* ks = QUANT ? a.ks + l * (a.layer_elems / Dh) : nullptr;
   float* vs = QUANT ? a.vs + l * (a.layer_elems / Dh) : nullptr;
   // The cache row of head hk streams through the ring in chunks of CP
-  // positions: in chunk c, thread t copies 8 dims (sub) of position b0 +
-  // c CP + cr (cr = t / LPR; LPR = 4, 8 or 16 lanes a row) into its own
-  // 16-byte slot (bf16: 16 bytes; 1-byte codes: 8 bytes, and the row's
-  // scale at byte 8), and reads the same bytes back, so a chunk needs no
-  // barrier; RING - 1 chunks are in flight. The current block: its first
-  // position b0, its bn cache keys in nc chunks.
+  // positions: in chunk c, thread t copies VD dims (sub) of position b0 +
+  // c CP + cr (cr = t / LPR; LPR = Dh / VD, 1 to 32 lanes a row) into its
+  // own 16-byte slot (bf16: 8 dims, f32: 4 dims; 1-byte codes: VD bytes,
+  // and the row's scale at byte 8), and reads the same bytes back, so a
+  // chunk needs no barrier; RING - 1 chunks are in flight. The current
+  // block: its first position b0, its bn cache keys in nc chunks.
   const float scale = rsqrtf((float)Dh);
-  const int LPR = Dh / 8, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
+  const int LPR = Dh / VD, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
   int b0 = lo, bn = min(nkv, KB), nc = (bn + CP - 1) / CP;
   const auto block = [&](int b) {
     b0 = lo + b * KB;
@@ -1096,10 +1207,13 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   const auto fetch = [&](const KV* cache, const float* scales, int c, bool to_l2) {
     const int j = b0 + c * CP + cr;
     if (j < b0 + bn) {
-      const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * 8;
+      const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * VD;
       unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
       if constexpr (QUANT) {
-        cp_async8(slot, cache + off);
+        if constexpr (VD == 8)
+          cp_async8(slot, cache + off);
+        else
+          cp_async4(slot, cache + off);
         if (sub == 0) cp_async4(slot + 8, scales + row * D.Hkv + hk);  // the row's lanes share it
       } else {
         cp_async16(slot, cache + off);
@@ -1107,34 +1221,35 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       if (to_l2 && (sub & 7) == 0) prefetch_l2(cv + off);
     }
   };
-  // The 8 values of chunk c this thread copied (zeros past bn), once
+  // The VD values of chunk c this thread copied (zeros past bn), once
   // they have landed, with chunk c + RING - 1 asked for. 1-byte codes: the
   // row's scale, which its first lane copied, is read after the warp's
   // barrier (which makes that lane's landed copy visible) and before any
   // lane asks for the chunk that will overwrite it.
-  const auto take = [&](const KV* cache, const float* scales, int c, bool to_l2, float* x8) {
+  const auto take = [&](const KV* cache, const float* scales, int c, bool to_l2, float* xv) {
     cp_async_wait<RING - 2>();
     const unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
-    uint2 codes;
+    uint32_t codes[VD / 4];
     float row_scale;
     if constexpr (QUANT) {
       __syncwarp();
-      codes = *reinterpret_cast<const uint2*>(slot);
+#pragma unroll
+      for (int i = 0; i < VD / 4; ++i) codes[i] = reinterpret_cast<const uint32_t*>(slot)[i];
       row_scale = *reinterpret_cast<const float*>(slot - sub * 16 + 8);
     }
     if (c + RING - 1 < nc) fetch(cache, scales, c + RING - 1, to_l2);
     cp_async_commit();
     if constexpr (QUANT) {
       if (c * CP + cr < bn) {
-        unpack8_codes<KV>(codes, row_scale, x8);
+        unpack_codes<VD>(codes, row_scale, xv, (const KV*)nullptr);
       } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) x8[e] = 0.f;
+        for (int e = 0; e < VD; ++e) xv[e] = 0.f;
       }
     } else {
-      unpack8(c * CP + cr < bn ? *reinterpret_cast<const uint4*>(slot)
-                                : make_uint4(0u, 0u, 0u, 0u),
-              x8);
+      unpack16(c * CP + cr < bn ? *reinterpret_cast<const uint4*>(slot)
+                                 : make_uint4(0u, 0u, 0u, 0u),
+               xv, (const KV*)nullptr);
     }
   };
   const auto prime = [&](const KV* cache, const float* scales, bool to_l2) {
@@ -1163,12 +1278,12 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
         const float x1 = __ldcg(src), x2 = __ldcg(src + half);
         const float y1 = x1 * c - x2 * sn, y2 = x1 * sn + x2 * c;
         float* dst = (isq ? q : kf) + row * Dh + e;
-        dst[0] = isq || QUANT ? y1 : bf16r(y1);
-        dst[half] = isq || QUANT ? y2 : bf16r(y2);
+        dst[0] = isq || QUANT ? y1 : rnd<KV>(y1);
+        dst[half] = isq || QUANT ? y2 : rnd<KV>(y2);
       } else {
         const int v = i - nq - nk;
         const float x = __ldcg(qkv + (size_t)(v / Dh) * nqkv + qw + kvw + hk * Dh + v % Dh);
-        vf[v] = QUANT ? x : bf16r(x);
+        vf[v] = QUANT ? x : rnd<KV>(x);
       }
     }
   } else {
@@ -1178,9 +1293,9 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     }
     for (int i = tid; i < R * Dh; i += CT) {
       const float* fr = qkv + (size_t)(i / Dh) * nqkv + qw + hk * Dh + i % Dh;
-      // bf16: the cache's storage-dtype round trip; codes: quantized below.
-      kf[i] = QUANT ? __ldcg(fr) : bf16r(__ldcg(fr));
-      vf[i] = QUANT ? __ldcg(fr + kvw) : bf16r(__ldcg(fr + kvw));
+      // The cache's storage-dtype round trip; codes: quantized below.
+      kf[i] = QUANT ? __ldcg(fr) : rnd<KV>(__ldcg(fr));
+      vf[i] = QUANT ? __ldcg(fr + kvw) : rnd<KV>(__ldcg(fr + kvw));
     }
   }
   __syncthreads();
@@ -1188,26 +1303,26 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
 
   if constexpr (QUANT) {
     // One warp a fresh row (K or V, row r): its amax over Dh, the scale,
-    // the codes; the row is then attended as the codes dequantized and
-    // rounded to bf16 (ops/quantized.py quantize_kv / dequantize_kv).
+    // the codes; the row is then attended as the codes dequantized to the
+    // compute dtype (ops/quantized.py quantize_kv / dequantize_kv).
     for (int t = warp; t < 2 * R; t += CW) {
       const int r = t >> 1, pos = kvlen + r;
-      const bool isv = t & 1, put = commit && r < slen && (D.rolling || pos < D.C);
+      const bool isv = t & 1, keep = commit && r < slen && (D.rolling || pos < D.C);
       float* x = (isv ? vf : kf) + r * Dh;
       float amax = 0.f;
       for (int e = lane; e < Dh; e += 32) amax = fmaxf(amax, fabsf(x[e]));
       const float rs = fmaxf(warp_max(amax), KV_EPS) / KvCodes<KV>::QMAX;
-      const size_t row = put ? rows_of(D, tab, s, pos) : 0;
+      const size_t row = keep ? rows_of(D, tab, s, pos) : 0;
       KV* dst = (isv ? cv : ck) + row * kvw + (size_t)hk * Dh;
       KV* fresh = static_cast<KV*>(isv ? a.v_fresh : a.k_fresh) + ((size_t)s * D.Hkv + hk) * Dh;
       for (int e = lane; e < Dh; e += 32) {
         const KV c = KvCodes<KV>::code(x[e] / rs);
-        x[e] = bf16r(KvCodes<KV>::value(c) * rs);
-        if (put) dst[e] = c;
+        x[e] = rnd<Act>(KvCodes<KV>::value(c) * rs);
+        if (keep) dst[e] = c;
         if (FRESH) fresh[e] = c;
       }
       if (lane == 0) {
-        if (put) (isv ? vs : ks)[row * D.Hkv + hk] = rs;
+        if (keep) (isv ? vs : ks)[row * D.Hkv + hk] = rs;
         if (FRESH) (isv ? a.vs_fresh : a.ks_fresh)[(size_t)s * D.Hkv + hk] = rs;
       }
     }
@@ -1217,16 +1332,14 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       const int r = i / Dh, pos = kvlen + r;
       if (commit && r < slen && (D.rolling || pos < D.C)) {
         const size_t off = rows_of(D, tab, s, pos) * kvw + (size_t)hk * Dh + i % Dh;
-        ck[off] = __float2bfloat16(kf[i]);
-        cv[off] = __float2bfloat16(vf[i]);
+        put(ck + off, kf[i]);
+        put(cv + off, vf[i]);
       }
     }
     if (FRESH)
       for (int i = tid; i < Dh; i += CT) {
-        static_cast<bf16*>(a.k_fresh)[((size_t)s * D.Hkv + hk) * Dh + i] =
-            __float2bfloat16(kf[i]);
-        static_cast<bf16*>(a.v_fresh)[((size_t)s * D.Hkv + hk) * Dh + i] =
-            __float2bfloat16(vf[i]);
+        put(static_cast<KV*>(a.k_fresh) + ((size_t)s * D.Hkv + hk) * Dh + i, kf[i]);
+        put(static_cast<KV*>(a.v_fresh) + ((size_t)s * D.Hkv + hk) * Dh + i, vf[i]);
       }
   }
 
@@ -1237,17 +1350,17 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   // band, which starts r positions after row 0's (where lo began).
   const auto scores = [&](int b, bool to_l2) {
     for (int c = 0; c < nc; ++c) {
-      float k8[8];
-      take(ck, ks, c, to_l2, k8);
+      float kv[VD];
+      take(ck, ks, c, to_l2, kv);
       const int j = c * CP + cr;
       const bool store = sub == 0 && j < bn;
       int i = 0;
       for (; i + 4 <= gR; i += 4)
-        score_rows<4>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store,
-                      scale);
+        score_rows<4, VD>(q + i * Dh + sub * VD, Dh, LPR, kv, sc + (size_t)i * CS + j, CS,
+                          store, scale);
       for (; i < gR; ++i)
-        score_rows<1>(q + i * Dh + sub * 8, Dh, LPR, k8, sc + (size_t)i * CS + j, CS, store,
-                      scale);
+        score_rows<1, VD>(q + i * Dh + sub * VD, Dh, LPR, kv, sc + (size_t)i * CS + j, CS,
+                          store, scale);
     }
     if (b == nb - 1)
       for (int pair = warp; pair < gR * R; pair += CW) {
@@ -1314,7 +1427,8 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     __syncthreads();
   };
   // Block b's weights in the tile from the row's maximum and sum. Decode:
-  // rounded to bf16. Verify: f32, and 0 for a row with no valid key.
+  // rounded to the compute dtype. Verify: f32, and 0 for a row with no
+  // valid key.
   const auto weights = [&](int b) {
     const int n = bn + (b == nb - 1 ? R : 0);
     for (int i = 0; i < gR; ++i) {
@@ -1323,7 +1437,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       const bool dead = !(m > 0.5f * NEG_INF);
       for (int j = tid; j < n; j += CT) {
         const float e = row[j] > 0.5f * NEG_INF ? expf(row[j] - m) : 0.f;
-        row[j] = VERIFY ? (dead ? 0.f : e / z) : bf16r(e / z);
+        row[j] = VERIFY ? (dead ? 0.f : e / z) : rnd<Act>(e / z);
       }
     }
     __syncthreads();
@@ -1337,15 +1451,15 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
     const bool last = b == nb - 1;
     for (int i0 = 0; i0 < gR; i0 += GMAX) {
       const int ng = min(GMAX, gR - i0);
-      float acc[GMAX][8];
+      float acc[GMAX][VD];
 #pragma unroll
       for (int ii = 0; ii < GMAX; ++ii)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[ii][e] = 0.f;
+        for (int e = 0; e < VD; ++e) acc[ii][e] = 0.f;
       prime(cv, vs, false);
       for (int c = 0; c < nc; ++c) {
-        float v8[8];
-        take(cv, vs, c, false, v8);
+        float vv[VD];
+        take(cv, vs, c, false, vv);
         const int j = c * CP + cr;
         if (j < bn) {
 #pragma unroll
@@ -1353,7 +1467,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
             if (ii < ng) {
               const float p = sc[(size_t)(i0 + ii) * CS + j];
 #pragma unroll
-              for (int e = 0; e < 8; ++e) acc[ii][e] += p * v8[e];
+              for (int e = 0; e < VD; ++e) acc[ii][e] += p * vv[e];
             }
           }
         }
@@ -1362,10 +1476,10 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       for (int ii = 0; ii < GMAX; ++ii) {
         if (ii < ng) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
+          for (int e = 0; e < VD; ++e) {
             float v = acc[ii][e];
             for (int o = LPR; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-            if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * 8 + e] = v;
+            if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * VD + e] = v;
           }
         }
       }
@@ -1384,7 +1498,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
             continue;
           }
         }
-        a.att[(size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e] = __float2bfloat16(t);
+        put(a.att + (size_t)(s * R + i % R) * qw + (hk * g + i / R) * Dh + e, t);
       }
       __syncthreads();
     }
@@ -1505,7 +1619,7 @@ __global__ void __launch_bounds__(CT, 1) coop_step_kernel(const __grid_constant_
     stamp(a, st + S_A0);
     if (b < T_qkv)
       layernorm_rows(hsrc, ln_wait(p, lns), ln_ptr(p) + D.d, rows, D.d, slot_ptr(p, 0),
-                     p.kc + 8);
+                     p.kc + XPAD);
     stamp(a, st + S_A_LN);
     __syncthreads();
     stamp(a, st + S_A_W);
@@ -1541,22 +1655,22 @@ __global__ void __launch_bounds__(CT, 1) coop_step_kernel(const __grid_constant_
     stamp(a, st + S_C1);
     grid_sync(a.flags, ++epoch, p.grid, [&] { refill(l, DOWN); });
 
-    // (d) LN2, up projection, bias, GELU (rounded to bf16).
+    // (d) LN2, up projection, bias, GELU (in the compute dtype).
     stamp(a, st + S_D0);
     if (b < T_up)
       layernorm_rows(a.h_out, ln_wait(p, lns), ln_ptr(p) + D.d, rows, D.d, slot_ptr(p, 0),
-                     p.kc + 8);
+                     p.kc + XPAD);
     stamp(a, st + S_D_LN);
     __syncthreads();
     stamp(a, st + S_D_W);
     if (b < T_up) {
-      bf16* up = a.gelu;
+      Act* up = a.gelu;
       const float* b_up = a.w0.b_up + lf;
       product(
           a, ws, l, UP, rows, x, nullptr, 0,
           [&](int c, int) { return make_float2(__ldg(b_up + c), 0.f); },
           [&](int c, int r, float v, float2 e) {
-            up[(size_t)r * D.F + c] = __float2bfloat16(gelu_tanh(v + e.x));
+            put(up + (size_t)r * D.F + c, gelu_tanh(v + e.x));
           });
     }
     fence_async();
@@ -1603,8 +1717,8 @@ LayerW pack(const void* wq, const void* wk, const void* wv, const void* wo,
             const void* ln2_b, const void* w_up, const void* b_up,
             const void* w_down, const void* b_down) {
   LayerW w;
-  w.wq = (const bf16*)wq; w.wk = (const bf16*)wk; w.wv = (const bf16*)wv;
-  w.wo = (const bf16*)wo; w.w_up = (const bf16*)w_up; w.w_down = (const bf16*)w_down;
+  w.wq = wq; w.wk = wk; w.wv = wv;
+  w.wo = wo; w.w_up = w_up; w.w_down = w_down;
   w.ln1_s = (const float*)ln1_s; w.ln1_b = (const float*)ln1_b;
   w.ln2_s = (const float*)ln2_s; w.ln2_b = (const float*)ln2_b;
   w.b_up = (const float*)b_up; w.b_down = (const float*)b_down;
@@ -1616,10 +1730,11 @@ LayerW pack(const void* wq, const void* wk, const void* wv, const void* wo,
 unsigned long long* g_stamps = nullptr;
 #endif
 
-// The cooperative kernels by number: kernel k of KV type t (0 bf16, 1 int8,
-// 2 e4m3) is N_COOP t + k, k being 0: slab decode, 1: paged decode, 2:
-// verify, 3: slab per-layer step, 4: paged per-layer step; with the shared
-// memory last set on each and the occupancy it gave.
+// The cooperative kernels by number: kernel k of KV type t (0 the compute
+// dtype, bf16 or f32; 1 int8, 2 e4m3) is N_COOP t + k, k being 0: slab
+// decode, 1: paged decode, 2: verify, 3: slab per-layer step, 4: paged
+// per-layer step; with the shared memory last set on each and the
+// occupancy it gave.
 struct CoopKernel {
   const void* fn;
   int smem, per_sm, dev;
@@ -1636,8 +1751,8 @@ CoopKernel coop_kernel(int k) {
           -1, 0, -1};
 }
 CoopKernel g_coop[N_KV * N_COOP] = {
-    coop_kernel<bf16>(0),   coop_kernel<bf16>(1),   coop_kernel<bf16>(2),
-    coop_kernel<bf16>(3),   coop_kernel<bf16>(4),   coop_kernel<int8_t>(0),
+    coop_kernel<Act>(0),    coop_kernel<Act>(1),    coop_kernel<Act>(2),
+    coop_kernel<Act>(3),    coop_kernel<Act>(4),    coop_kernel<int8_t>(0),
     coop_kernel<int8_t>(1), coop_kernel<int8_t>(2), coop_kernel<int8_t>(3),
     coop_kernel<int8_t>(4), coop_kernel<e4m3>(0),   coop_kernel<e4m3>(1),
     coop_kernel<e4m3>(2),   coop_kernel<e4m3>(3),   coop_kernel<e4m3>(4),
@@ -1668,7 +1783,8 @@ cudaError_t coop_per_sm(int k, int smem, int& per_sm) {
 // ops/fused_decode.py coop_plan's; the kernel's own bounds are checked
 // here: its tiles a CTA (register arrays of MAXT and MAXTM / m-tiles), the
 // weight chunks (whole k-steps, within an x chunk, inside a slot, whole TMA
-// boxes of at most 256 rows), the m-tile lanes, the score tile (1 to C keys)
+// boxes of at most 256 rows of at most 128 bytes), the m-tile lanes, the
+// score tile (1 to C keys)
 // and the attention task's scratch, which it lays out itself over the
 // slots.
 bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
@@ -1681,21 +1797,23 @@ bool plan_in_bounds(const Dims& D, int R, const Plan& p) {
   long wneed = 0, red = 0;
   for (int i = 0; i < 4; ++i) {
     const long tw = p.tw[i], kw = p.kw[i];
-    if ((tw != 8 && tw != 16 && tw != 32 && tw != 64) || n[i] % tw ||
-        (i == 0 && (D.Hkv * D.Dh) % tw))
+    if ((tw != 8 && tw != 16 && tw != 32 && tw != 64) || tw * (long)sizeof(Act) > 128 ||
+        n[i] % tw || (i == 0 && (D.Hkv * D.Dh) % tw))
       return false;
     const long nt = (n[i] / tw + p.grid - 1) / p.grid, ns = nt * tw / TILE;
     if (ns > MAXT || ns * mt > MAXTM || kw < 16 || kw % 16 || p.kc % kw ||
         (kw > 256 && kw % 256))
       return false;
-    wneed = wneed > nt * kw * tw * 2 ? wneed : nt * kw * tw * 2;
+    const long bytes = nt * kw * tw * (long)sizeof(Act);
+    wneed = wneed > bytes ? wneed : bytes;
     red = red > ns * kg * mt * 512 ? red : ns * kg * mt * 512;
   }
   return p.wslot % 1024 == 0 && p.nw >= 1 && p.nw <= NWMAX && wneed <= p.wslot &&
          (long)p.nw * p.wslot <= p.ln && p.ln % 16 == 0 && p.ln + 8L * D.d <= p.x0 &&
          p.x0 % 128 == 0 && p.xs % 16 == 0 &&
          p.red % 16 == 0 && p.bar % 8 == 0 && p.nslot >= 1 && p.nslot <= MAXS &&
-         p.xs >= (long)rows * (p.kc + 8) * 2 && p.x0 + (long)p.nslot * p.xs <= p.bar &&
+         p.xs >= (long)rows * (p.kc + XPAD) * (long)sizeof(Act) &&
+         p.x0 + (long)p.nslot * p.xs <= p.bar &&
          p.x0 + (long)attend_bytes(D, R, p.kb) <= p.bar && p.red >= p.x0 && p.red + red <= p.bar &&
          p.bar + 8L * (p.nslot + 2 * p.nw + 1) <= p.smem;
 }
@@ -1708,9 +1826,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // The TMA maps of the six projections (Coop::maps): 2-D [n_layers * K, N]
-// bf16, boxes of one tile's tw columns x the product's chunk rows (at most
-// 256), swizzled across the tile's row of 32 to 128 bytes (the product's
-// b_addr undoes it).
+// in the compute dtype, boxes of one tile's tw columns x the product's chunk
+// rows (at most 256), swizzled across the tile's row of 32 to 128 bytes
+// (product()'s boff undoes it).
 cudaError_t weight_maps(Coop& a) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
@@ -1730,13 +1848,16 @@ cudaError_t weight_maps(Coop& a) {
   const cuuint32_t ones[2] = {1, 1};
   for (int i = 0; i < 6; ++i) {
     const int kw = a.p.kw[prod[i]], tw = a.p.tw[prod[i]];
-    const cuuint64_t dims[2] = {cols[i], rows[i]}, strides[1] = {cols[i] * 2};
+    const cuuint64_t dims[2] = {cols[i], rows[i]}, strides[1] = {cols[i] * sizeof(Act)};
     const cuuint32_t box[2] = {(cuuint32_t)tw, (cuuint32_t)(kw < 256 ? kw : 256)};
-    const CUtensorMapSwizzle swizzle = tw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : tw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                       : tw == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
-    if (encode(&a.maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr[i]), dims,
+    const int rowb = tw * (int)sizeof(Act);
+    const CUtensorMapSwizzle swizzle = rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                       : rowb == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                    : CU_TENSOR_MAP_SWIZZLE_NONE;
+    const CUtensorMapDataType dtype =
+        F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (encode(&a.maps[i], dtype, 2, const_cast<void*>(ptr[i]), dims,
                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                CU_TENSOR_MAP_L2_PROMOTION_NONE,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -1757,7 +1878,8 @@ int launch_coop(Coop& a, const int* plan, int k, int kv, void* stream) {
            plan[16], plan[17], plan[18], plan[19], plan[20]};
   const int rows = D.S * a.R;
   const bool fresh = k >= 3;  // the per-layer steps write their fresh rows out
-  if (D.Hkv < 1 || D.Hq % D.Hkv || (D.Dh != 32 && D.Dh != 64 && D.Dh != 128) ||
+  if (D.Hkv < 1 || D.Hq % D.Hkv ||
+      (D.Dh != 8 && D.Dh != 16 && D.Dh != 32 && D.Dh != 64 && D.Dh != 128) ||
       D.d != D.Hq * D.Dh ||
       D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
       D.W < 0 || (D.rolling && (D.MB || D.W < 1)) ||
@@ -1814,8 +1936,8 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
   a.active = (const int*)active;
   a.tables = (const int*)tables;
   a.qkv = (float*)qkv;
-  a.att = (bf16*)att;
-  a.gelu = (bf16*)gelu;
+  a.att = (Act*)att;
+  a.gelu = (Act*)gelu;
   a.k_fresh = c.k_fresh;
   a.v_fresh = c.v_fresh;
   a.ks_fresh = (float*)c.ks_fresh;
@@ -1829,13 +1951,14 @@ Coop coop_args(const LayerW& w, const Dims& D, int n_layers, int R, size_t layer
 
 }  // namespace
 
-// Every launcher takes the KV cache's type `kv` (0 bf16, 1 int8, 2 e4m3),
-// `rope` (rotate q and the fresh k rows at their positions) and `window`
-// (0: none; W >= 1: the band of the last W positions; a windowed slab is a
-// rolling buffer, position p at slot p mod C, committed there). With 1-byte
-// codes, k_scale / v_scale hold one f32 scale a cache row and KV head
-// ([.., Hkv], the cache's shape without Dh), updated with the codes; for
-// bf16 they are null.
+// Every launcher takes the projections in the build's compute dtype (bf16;
+// f32 with -DDECODE_F32), the KV cache's type `kv` (0 the compute dtype, 1
+// int8, 2 e4m3), `rope` (rotate q and the fresh k rows at their positions)
+// and `window` (0: none; W >= 1: the band of the last W positions; a
+// windowed slab is a rolling buffer, position p at slot p mod C, committed
+// there). With 1-byte codes, k_scale / v_scale hold one f32 scale a cache
+// row and KV head ([.., Hkv], the cache's shape without Dh), updated with
+// the codes; for a cache of the compute dtype they are null.
 
 // Per-layer step, slab (B5): one layer's weights, its cache ck/cv
 // [S, C, Hkv, Dh] (read only, pre-write), lengths [S] int32; h_in /
@@ -1887,7 +2010,8 @@ extern "C" int decode_block_paged(
 // Hkv]), ck / cv / k_scale / v_scale pointing at the launch's first slot
 // (a group of S of the cache's S_cache slots), committed in place at [l, s,
 // lengths[s]] where active[s] != 0. h_in/h_out [S, d] f32; scratch qkv
-// [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] bf16; the grid
+// [S, Hq Dh + 2 Hkv Dh] f32, att [S, d] and gelu [S, F] in the compute
+// dtype; the grid
 // barrier's flags (MAX_GRID + 1 uint32, zeroed once, then left to the
 // kernels; see grid_sync()); `plan` the twenty-one ints of
 // ops/fused_decode.py coop_plan. One launch at a time may use the flags.
@@ -1963,16 +2087,17 @@ extern "C" int coop_occupancy(int k, int kv, int smem) {
 }
 
 // The constants the launch plan (ops/fused_decode.py) mirrors, and the
-// current device's opt-in shared memory a block: out[0..9] = CT, TILE,
-// MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX, the limit. Returns a
-// cudaError_t.
+// current device's opt-in shared memory a block: out[0..10] = CT, TILE,
+// MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX, the compute dtype's
+// bytes, the limit. Returns a cudaError_t.
 extern "C" int coop_constants(int* out) {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int v[10] = {CT, TILE, MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX, limit};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const int v[11] = {CT, TILE, MAXT, GMAX, MAXS, RING, MAX_GRID, MAXTM, NWMAX,
+                     (int)sizeof(Act), limit};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
   return (int)err;
 }
 

@@ -12,7 +12,13 @@ forward kernel, ``csrc/flash_fwd.cu``, replaces the TPU kernel ``_fwd_kernel`` (
 (:327) and ``_dkv_kernel`` (:381).
 
 Layout [B, L, H, D] as in the JAX package; the output comes back in the
-input dtype and the log-sum-exp as [B, L, Hq] f32. Every kernel multiplies
+input dtype and the log-sum-exp as [B, L, Hq] f32. The kernels are built
+for the head dims ``HEAD_DIMS`` and take the scores' scale as an argument
+(the JAX kernels' ``scale``, 1/√D); any other multiple of 8 up to 128 runs
+on the next built one (:func:`kernel_head_dim`): q, k, v (and dO) are
+zero-padded along D, the scale is the true D's, and the outputs are sliced
+back. Zero columns add exact zeros to every product, so that is the same
+function. Every kernel multiplies
 on the tensor cores: on f32 inputs each product is split-TF32 (three TF32
 MMAs, ``csrc/flash_mma.cuh``) and stays within f32 tolerance; on bf16
 inputs one TF32 pass is exact. A
@@ -42,6 +48,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from distributed_tensorflow_tpu_torch.ops import _build
 from distributed_tensorflow_tpu_torch.ops.attention import (
@@ -57,8 +64,8 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
 FLASH_MIN_LEN = 1024
 
 # flash_fwd(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, D, causal, window,
-#           is_bf16, stream); window 0 = none.
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+#           is_bf16, scale, stream); window 0 = none.
+_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 # flash_bwd(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp,
 #           B, L, Hq, Hkv, D, causal, window, is_bf16, scale, stream)
 _BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
@@ -68,7 +75,7 @@ _BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 # copies of dq in f32.
 BLOCK_K = 64
 # The head dims the kernels are built for (the plain versions take any).
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 # Auto-fusion cap on those partials (the JAX package's _FUSED_DQ_CAP_BYTES):
 # past it fused=None takes the dq + dk/dv pair.
 FUSED_DQ_CAP_BYTES = 1 << 30
@@ -96,15 +103,16 @@ def _check(q, k, v, kv_lens, causal, window):
         )
 
 
-def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None):
+def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None, scale=None):
     """The plain version: the same masked softmax in f32, returning
     ``(out [B, L, Hq, D] in q's dtype, lse [B, L, Hq] f32)``. A row that
     sees no key (``window`` with ``kv_lens``: a padded row past
     ``kv_lens + W - 1``) gives 0 and lse -1e30, as the kernels and the JAX
     kernel's empty-row guard do (dense attention averages the values
-    there instead)."""
+    there instead). ``scale``: the scores' factor (default 1/√D)."""
     kr, vr = repeat_kv(k, v, q.shape[2])
-    scores = attention_scores(q, kr, causal=causal, window=window, kv_lens=kv_lens)
+    scores = attention_scores(q, kr, causal=causal, window=window, kv_lens=kv_lens,
+                              scale=scale)
     lse = torch.logsumexp(scores, dim=-1)  # [B, H, Lq]
     w = torch.exp(scores - lse[..., None])
     if window is not None:
@@ -113,7 +121,28 @@ def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None):
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
 
 
+def kernel_head_dim(d: int) -> int:
+    """The built head dim (``HEAD_DIMS``) that head dim ``d`` runs on:
+    ``d`` itself, or the next one up for another multiple of 8 up to 128
+    (24 on 32; 40, 48, 56 on 64; 72 to 120 on 128). Raises for the rest."""
+    if d % 8 or not 8 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash kernels take a head_dim that is a multiple of 8 from 8 to "
+                         f"{HEAD_DIMS[-1]}, got {d}")
+    return next(k for k in HEAD_DIMS if k >= d)
+
+
+def pad_head_dim(t, dp: int):
+    """``t`` [..., D] zero-padded along D to ``dp`` (``t`` itself at D = dp)."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+
+
+def _unpad(t, d: int):
+    """The first ``d`` columns of a padded output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check_kernel_inputs(*ts):
+    """Dtypes and head dim; returns the built head dim the call runs on."""
     q = ts[0]
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
         t.dtype != q.dtype for t in ts
@@ -122,14 +151,13 @@ def _check_kernel_inputs(*ts):
             "flash kernels take f32 or bf16 q/k/v (and dout) of one dtype, got "
             + "/".join(str(t.dtype) for t in ts)
         )
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim 16, 32, 64 or 128, got {q.shape[-1]}")
+    return kernel_head_dim(q.shape[-1])
 
 
 def _dense16(t):
     """``t`` contiguous and 16-byte aligned: the kernels copy rows into
     shared memory 16 bytes at a time (every head dim's row is a multiple of
-    16 bytes: at D=16, 32 in bf16 and 64 in f32)."""
+    16 bytes: at D=8, 16 in bf16 and 32 in f32)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -140,9 +168,9 @@ def _window_arg(window):
 
 
 def _flash_cuda(q, k, v, causal, kv_lens, window=None):
-    _check_kernel_inputs(q, k, v)
+    dp = _check_kernel_inputs(q, k, v)
     b, l, hq, d = q.shape
-    q, k, v = _dense16(q), _dense16(k), _dense16(v)
+    q, k, v = (_dense16(pad_head_dim(t, dp)) for t in (q, k, v))
     lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, l, hq), dtype=torch.float32, device=q.device)
@@ -153,15 +181,16 @@ def _flash_cuda(q, k, v, causal, kv_lens, window=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         0 if lens is None else lens.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, l, hq, k.shape[2], d, int(causal), _window_arg(window),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        b, l, hq, k.shape[2], dp, int(causal), _window_arg(window),
+        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_fwd")
     _build.LAUNCHES["flash_fwd"] += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None):
+def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None, scale=None):
     """The plain backward, from the JAX kernels' formulas: ``(dq, dk, dv)``
     in the inputs' dtypes, dk/dv [B, L, Hkv, D] summed over each KV head's
     group of query heads. ``o`` is unused (``delta`` carries it) and kept
@@ -169,11 +198,12 @@ def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None):
     row's lse would otherwise turn masked entries into 1 (the comment at
     pallas_attention.py:350-353). p and ds are cast to the operand dtype
     before their products, as the JAX kernels' ``astype`` (:368, :421,
-    :426); products and sums are f32."""
+    :426); products and sums are f32. ``scale``: the scores' factor
+    (default 1/√D)."""
     del o
     b, l, hq, d = q.shape
     hkv = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     kr, vr = repeat_kv(k, v, hq)
     qf, kf, vf, dof = q.float(), kr.float(), vr.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
@@ -220,7 +250,10 @@ def resolve_fused(fused, bh: int, l: int, d: int, window=None) -> bool:
     return -(-l // BLOCK_K) * bh * l * d * 4 <= FUSED_DQ_CAP_BYTES
 
 
-def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, dqp=None):
+def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, head_dim,
+                dqp=None):
+    """One backward launch on inputs padded to a built head dim; the scale
+    is ``head_dim``'s, the caller's D."""
     lib = _build.load("flash_bwd")
     fn = lib.flash_bwd
     fn.argtypes, fn.restype = _BWD_SIG, ctypes.c_int
@@ -234,7 +267,7 @@ def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, dq
         _BWD_MODES[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), ptr(kv_lens), ptr(dq), ptr(dk), ptr(dv), ptr(dqp),
         b, l, hq, k.shape[2], d, int(causal), _window_arg(window),
-        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(head_dim),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
@@ -242,41 +275,47 @@ def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, dq
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
-    _check_kernel_inputs(q, k, v, do)
+    """The backward's inputs as the kernels take them: q, k, v, dO padded
+    to the built head dim, contiguous and aligned; lse, delta f32; kv_lens
+    int32."""
+    dp = _check_kernel_inputs(q, k, v, do)
     lens = None if kv_lens is None else kv_lens.to(torch.int32).contiguous()
-    return (_dense16(q), _dense16(k), _dense16(v), _dense16(do),
+    return (*(_dense16(pad_head_dim(t, dp)) for t in (q, k, v, do)),
             lse.float().contiguous(), delta.float().contiguous(), lens)
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4a on the card: ``(dq, dk, dv)`` in one pass over the KV tiles, dq
     from f32 partials summed by a second kernel in a fixed order."""
+    d = q.shape[-1]
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
-    b, l, hq, d = q.shape
-    dqp = torch.empty(-(-l // BLOCK_K) * b * l * hq * d, dtype=torch.float32, device=q.device)
+    b, l, hq, dp = q.shape
+    dqp = torch.empty(-(-l // BLOCK_K) * b * l * hq * dp, dtype=torch.float32, device=q.device)
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, window, outs, dqp)
-    return outs
+    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, window, outs, d, dqp)
+    return tuple(_unpad(t, d) for t in outs)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4b on the card: dq, one CTA per (batch, query head, q-tile), on the
     tensor cores."""
+    d = q.shape[-1]
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dq = torch.empty_like(q)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, window,
-                (dq, None, None))
-    return dq
+                (dq, None, None), d)
+    return _unpad(dq, d)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
     """B4c on the card: ``(dk, dv)``, one CTA per (batch, KV head, k-tile),
     summed over the group's query heads."""
+    d = q.shape[-1]
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, lens, causal, window,
-                (None, dk, dv))
-    return dk, dv
+                (None, dk, dv), d)
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, window, fused):

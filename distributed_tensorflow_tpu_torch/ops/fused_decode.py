@@ -2,7 +2,9 @@
 versions.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py``, slab and
-paged, with RoPE and bf16, int8 or fp8 (e4m3) caches:
+paged, with RoPE, bf16 or f32 compute (the JAX kernels' ``compute_dtype=``)
+and caches of the compute dtype or of int8 or fp8 (e4m3) codes, at head dims
+8, 16, 32, 64 and 128:
 
 - :func:`decode_block_slab` (JAX :524) and :func:`decode_block_paged`
   (:566) — one layer's step per slot; the fresh K/V rows return to the
@@ -31,14 +33,16 @@ only cache positions ``> prefix + li - W`` and fresh rows ``lj > li - W``.
 Each is one cooperative launch over the whole card (:func:`coop_plan` lays
 it out: the grid, the tiles of each product, the weight ring's chunks, the
 scratch between phases and the shared memory); each weight element is read
-once a launch. The kernel is built for each cache type (``KV_TYPES``).
+once a launch. The kernel is built for each compute dtype (one library
+each, ``LIBRARIES``) and cache type (``KV_TYPES``).
 
 A cache of 1-byte codes (``int8`` or ``float8_e4m3fn``) carries one f32
 scale a row (a position of a KV head) in ``k_scale``/``v_scale`` (the
 cache's shape without ``Dh``), as in the JAX package: the fresh rows are
 quantized on write (``ops/quantized.quantize_kv``) and every read
 dequantizes to the compute dtype, the fresh rows included (they are
-attended as they are stored). A bf16 cache has no scales (None).
+attended as they are stored). A cache of the compute dtype (the "bf16"
+layout) has no scales (None).
 
 The plain decode versions follow the JAX package's XLA engine
 (``models/gpt.py`` ``_decode_block_slots`` / ``_decode_block_paged`` and
@@ -90,8 +94,8 @@ WEIGHT_NAMES = (
 # The projections, stored in the compute dtype; the rest stay f32.
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
 # The head dims the kernels take (the attention task's lanes a key row:
-# Dh / 8).
-HEAD_DIMS = (32, 64, 128)
+# Dh / 8 in bf16 compute, Dh / 4 in f32).
+HEAD_DIMS = (8, 16, 32, 64, 128)
 _rope = rope  # the wrappers' keyword `rope` shadows the function inside them
 
 
@@ -158,8 +162,8 @@ def _fresh_rows(k, v, cache_dtype, cd):
 
 
 def _cache_view(c, scale, cd):
-    """A cache view as attended, f32: bf16 as stored, 1-byte codes
-    dequantized to the compute dtype ``cd``."""
+    """A cache view as attended, f32: a cache of the compute dtype as
+    stored, 1-byte codes dequantized to the compute dtype ``cd``."""
     return c.float() if scale is None else dequantize_kv(c, scale, cd).float()
 
 
@@ -292,7 +296,7 @@ def verify_tokens_paged_plain(h, weights, pool_k, pool_v, tables, prefix_lens,
                               window=None):
     """Plain version of :func:`verify_tokens_paged`: per layer,
     ``extend_paged``'s block with the fresh K/V rounded through the pool
-    (bf16, or quantized and dequantized to the compute dtype) before
+    (the compute dtype, or quantized and dequantized to it) before
     attention, a row with no valid key giving 0, and the real rows of
     active slots scattered into the pool (and scales) after that layer's
     attention. Returns ``h_out`` [S, L, d] f32."""
@@ -367,8 +371,9 @@ COOP_WARPS = COOP_THREADS // 32
 # in groups, :func:`slot_group`).
 COOP_MAX_ROWS = 64
 # Score tiles narrower than the cache extent are multiples of this many
-# keys: whole chunks of the attention's K/V stream at every head dim
-# (COOP_THREADS / (Dh / 8) keys a chunk: 96, 48, 24).
+# keys, rounded up to whole chunks of the attention's K/V stream
+# (COOP_THREADS / (Dh / 8) keys a chunk in bf16 compute, / (Dh / 4) in
+# f32: 12 to 384).
 KB_STEP = 96
 # The weight ring the plan aims for: chunks are halved until this many fit.
 WSLOTS_WANTED = 4
@@ -377,8 +382,12 @@ WSLOTS_WANTED = 4
 COOP_KERNELS = {"decode_token_slab": 0, "decode_token_paged": 1, "verify_tokens_paged": 2,
                 "decode_block_slab": 3, "decode_block_paged": 4}
 # The cache types the kernel is built for, by their number in the C
-# interface (``kv``): bf16, and 1-byte codes with a f32 scale a row.
-KV_TYPES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+# interface (``kv``): the compute dtype (0: bf16 in the bf16 build, f32 in
+# the f32 one), and 1-byte codes with a f32 scale a row.
+KV_TYPES = {torch.bfloat16: 0, torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+# The library of each compute dtype: one source, csrc/fused_decode.cu, built
+# twice (ops/_build.py), so the two builds compile side by side.
+LIBRARIES = {torch.bfloat16: "fused_decode", torch.float32: "fused_decode_f32"}
 # Grid syncs a layer: after LN1 + q/k/v, attention, the output projection,
 # LN2 + up, and the down projection (none after the last layer's).
 PHASES = 5
@@ -386,8 +395,9 @@ PHASES = 5
 
 @dataclasses.dataclass(frozen=True)
 class Product:
-    """One of a layer's four products, ``y = x @ W`` with W [k, n]: its
-    column tiles of ``tile_cols`` (8 to 64; a TMA box is one tile's row
+    """One of a layer's four products, ``y = x @ W`` with W [k, n] of
+    ``w_bytes`` an element (the compute dtype's): its column tiles of
+    ``tile_cols`` (8 to 64, at most 128 bytes; a TMA box is one tile's row
     segment, so wider tiles mean fewer, longer copies), the most a CTA
     takes, the k-groups its warps
     split K into (within a CTA; partial sums added in k-group order), the
@@ -406,6 +416,7 @@ class Product:
     k_groups: int
     chunks: int
     k_rows: int
+    w_bytes: int = 2
 
     @property
     def subtiles_per_cta(self) -> int:
@@ -414,7 +425,7 @@ class Product:
 
     @property
     def chunk_bytes(self) -> int:
-        return self.tiles_per_cta * self.k_rows * self.tile_cols * 2
+        return self.tiles_per_cta * self.k_rows * self.tile_cols * self.w_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,29 +468,37 @@ def _up(n: int, a: int) -> int:
 
 
 def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
-              smem_limit, ref_rows=None) -> CoopPlan:
+              smem_limit, ref_rows=None, *, w_bytes=2, kv_bytes=2) -> CoopPlan:
     """Lay out one cooperative launch of ``n_layers`` layers of the decode
     step (``r`` = 1; one layer for the per-layer step) or the verify
     (``r`` = L rows a slot) over ``s`` slots of a cache of extent ``c``
     (``mb`` table entries a slot when paged, else 0), on a card of ``nsm``
     SMs holding ``occupancy`` CTAs each and ``smem_limit`` bytes of shared
-    memory a CTA. ``ref_rows`` (default ``s * r``) sets the k-groups the
+    memory a CTA. ``w_bytes``: the compute dtype's bytes (2 bf16, 4 f32),
+    which the weights, the staged activations and the scratch between
+    phases take, and which sets the dims a thread streams of a K/V row (8
+    in bf16, 4 in f32) and so the keys a chunk of the stream holds;
+    ``kv_bytes``: the cache's (1 for codes, else the compute dtype's).
+    ``ref_rows`` (default ``s * r``) sets the k-groups the
     products split K into, so a launch over part of a step's slots sums in
     the whole step's order (:func:`slot_group`). The attention task keeps
     score tiles of ``kb`` key positions: the whole extent ``c`` where the
     plan fits with it (one block, every key's score in shared memory at
-    once), else the widest multiple of ``KB_STEP`` that leaves
-    ``WSLOTS_WANTED`` weight slots (or two), and the kernel streams the
-    cache in blocks of ``kb`` keys. This is the one derivation of the
+    once), else the widest multiple of ``KB_STEP`` (in whole chunks) that
+    leaves ``WSLOTS_WANTED`` weight slots (or two), and the kernel streams
+    the cache in blocks of ``kb`` keys. This is the one derivation of the
     layout: the launcher checks only that its offsets are in order and in
     bounds. Raises ``ValueError`` with every reason when the shapes are
     outside the kernel's envelope."""
     rows = s * r
     why = []
+    if w_bytes not in (2, 4) or kv_bytes not in (1, w_bytes):
+        why.append(f"a compute dtype of 2 or 4 bytes over a cache of its own dtype or of "
+                   f"1-byte codes (got {w_bytes} and {kv_bytes} bytes)")
     if hkv < 1 or hq % hkv:
         why.append(f"query heads ({hq}) a multiple of the KV heads ({hkv})")
     if dh not in HEAD_DIMS:
-        why.append(f"head_dim 32, 64 or 128 (got {dh})")
+        why.append(f"head_dim 8, 16, 32, 64 or 128 (got {dh})")
     if d != hq * dh:
         why.append(f"model_dim ({d}) = heads x head_dim ({hq} x {dh})")
     if d % 16:
@@ -510,10 +529,11 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
               ("down", f, d, -(-f // d)))
     # Tile widths: the fewest columns the busiest CTA multiplies, then the
     # widest tile (q/k/v's tiles stay inside one of wq, wk, wv).
-    widths = [min((w for w in TILE_COLS if n % w == 0 and (name != "qkv" or kvw % w == 0)),
+    widths = [min((w for w in TILE_COLS if n % w == 0 and w * w_bytes <= 128
+                   and (name != "qkv" or kvw % w == 0)),
                   key=lambda w: (-(-(n // w) // grid) * w, -w))
               for name, _, n, _ in shapes]
-    slot = rows * (d + 8) * 2
+    slot = rows * (d * w_bytes + 16)  # a row of x and 16 bytes of padding
     gr = hq // hkv * r
 
     def attn_bytes(kb):
@@ -538,7 +558,8 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
         k_rows = [boxed(d)] * 4
 
         def products():
-            return tuple(Product(name, k, n, w, n // w, -(-(n // w) // grid), kg, chunks, kr)
+            return tuple(Product(name, k, n, w, n // w, -(-(n // w) // grid), kg, chunks, kr,
+                                 w_bytes)
                          for (name, k, n, chunks), w, kr in zip(shapes, widths, k_rows))
 
         prods = products()
@@ -617,10 +638,12 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
 
     kb = c
     prods, lay_, smem, over = layout(kb)
-    if over and not any("column tiles" in o for o in over) and c > KB_STEP:
+    chunk = COOP_THREADS * (4 if w_bytes == 4 else 8) // dh  # keys a chunk of K/V
+    step = _up(KB_STEP, chunk)
+    if over and not any("column tiles" in o for o in over) and c > step:
         # Score tiles narrower than the extent: the widest that leaves
         # WSLOTS_WANTED weight slots, else the widest that fits at all.
-        steps = range(KB_STEP, c, KB_STEP)
+        steps = range(step, c, step)
         for need in (WSLOTS_WANTED, 2):
             lo_, hi_ = 0, len(steps)  # steps[:lo_] fit; bisect the first that does not
             while lo_ < hi_:
@@ -635,99 +658,109 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
                 prods, lay_, smem, over = layout(kb)
                 break
         else:
-            over = layout(KB_STEP)[3]  # the reason at the narrowest tile
+            over = layout(step)[3]  # the reason at the narrowest tile
     if over:
         raise ValueError("the cooperative decode kernels do not take these shapes: "
                          + "; ".join(over))
-    scratch = {"qkv": ((rows, qw + 2 * kvw), torch.float32), "att": ((rows, qw), torch.bfloat16),
-               "gelu": ((rows, f), torch.bfloat16)}
+    act = torch.float32 if w_bytes == 4 else torch.bfloat16
+    scratch = {"qkv": ((rows, qw + 2 * kvw), torch.float32), "att": ((rows, qw), act),
+               "gelu": ((rows, f), act)}
     return CoopPlan(grid, occupancy, rows, mt, prods, s * hkv, PHASES * n_layers - 1,
                     scratch, lay_, smem, kb, cs)
 
 
-def slot_group(s, r, d, hq, hkv, dh, f, c, mb, nsm, smem_limit) -> int:
+def slot_group(s, r, d, hq, hkv, dh, f, c, mb, nsm, smem_limit, *, w_bytes=2,
+               kv_bytes=2) -> int:
     """The most of ``s`` slots of ``r`` rows each that one launch of the
     cooperative kernel takes at these widths on a card of ``nsm`` SMs:
     rows up to ``COOP_MAX_ROWS``, cut to the m-tiles of 16 rows that the
     busiest CTA's column tiles leave under ``MAX_TILE_ROWS`` (a wide
     model's products fill a CTA's tiles x m-tiles sooner: gpt-xl width
     takes 16 rows a launch, d=1024 32). A CTA's column tiles do not depend
-    on the rows. The wrappers launch the slots in groups of this many, one
+    on the rows. ``w_bytes`` and ``kv_bytes``: the compute dtype's and the
+    cache's element bytes (:func:`coop_plan`). The wrappers launch the
+    slots in groups of this many, one
     after another: each group reads the weights once, and its k-groups are
     the first group's (``ref_rows``), so a grouped step sums in the order
     of the whole step wherever the whole step is one launch. Raises
     :func:`coop_plan`'s ``ValueError`` for shapes it refuses at that group
     (a head dim it does not take, more rows a slot than a launch takes,
     shared memory)."""
-    one = coop_plan(1, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
+    nbytes = dict(w_bytes=w_bytes, kv_bytes=kv_bytes)
+    one = coop_plan(1, 1, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit, **nbytes)
     busiest = max(p.subtiles_per_cta for p in one.products)
     most = min(COOP_MAX_ROWS, 16 * (MAX_TILE_ROWS // busiest))
     if r > most:
         raise ValueError(f"the cooperative decode kernels do not take these shapes: {r} rows a "
                          f"slot exceed the {most} rows a launch takes at these widths")
     group = min(s, most // r)
-    coop_plan(group, r, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit)
+    coop_plan(group, r, 1, d, hq, hkv, dh, f, c, mb, nsm, 1, smem_limit, **nbytes)
     return group
 
 
 _PLANS: dict = {}
 _LIMITS: dict = {}
 _GROUPS: dict = {}
-# The library the cooperative wrappers launch: the probe build
-# (``fused_decode_probe``, with phase stamps) shares this interface.
-LIBRARY = "fused_decode"
 
 
-def coop_constants(device) -> dict:
-    """The library's constants on ``device`` (``coop_constants``): the
-    mirrored ones by name and ``smem_limit``, the card's opt-in shared
+def coop_constants(device, compute_dtype=torch.bfloat16) -> dict:
+    """The constants of ``compute_dtype``'s library (``LIBRARIES``) on
+    ``device`` (``coop_constants``): the mirrored ones by name, the compute
+    dtype's bytes ``w_bytes`` and ``smem_limit``, the card's opt-in shared
     memory a block. Raises when a mirror differs from the library."""
     device = torch.device(device)
-    got = _LIMITS.get(device.index)
+    lib_name = LIBRARIES[compute_dtype]
+    got = _LIMITS.get((device.index, lib_name))
     if got is None:
-        lib = _build.load("fused_decode")
+        lib = _build.load(lib_name)
         lib.coop_constants.argtypes = [_PTR]
         lib.coop_constants.restype = _INT
-        out = (ctypes.c_int * 10)()
+        out = (ctypes.c_int * 11)()
         with torch.cuda.device(device):
             _build.check(lib.coop_constants(out), "coop_constants")
         names = ("COOP_THREADS", "TILE", "MAX_TILES", "PV_ROWS", "MAX_SLOTS", "RING",
-                 "MAX_GRID", "MAX_TILE_ROWS", "MAX_WSLOTS", "smem_limit")
+                 "MAX_GRID", "MAX_TILE_ROWS", "MAX_WSLOTS", "w_bytes", "smem_limit")
         got = dict(zip(names, out))
-        wrong = [f"{nm} {globals()[nm]} (library {v})" for nm, v in got.items()
-                 if nm != "smem_limit" and globals()[nm] != v]
+        mirrors = {**globals(), "w_bytes": torch.empty((), dtype=compute_dtype).element_size()}
+        wrong = [f"{nm} {mirrors[nm]} (library {v})" for nm, v in got.items()
+                 if nm != "smem_limit" and mirrors[nm] != v]
         if wrong:
-            raise RuntimeError("ops/fused_decode.py's mirrors of csrc/fused_decode.cu differ: "
+            raise RuntimeError(f"ops/fused_decode.py's mirrors of {lib_name} differ: "
                                + ", ".join(wrong))
-        _LIMITS[device.index] = got
+        _LIMITS[(device.index, lib_name)] = got
     return got
 
 
 def launch_plan(kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device,
-                kv=0, ref_rows=None) -> CoopPlan:
+                kv_dtype=torch.bfloat16, ref_rows=None,
+                compute_dtype=torch.bfloat16) -> CoopPlan:
     """:func:`coop_plan` on ``device``: its SM count and opt-in shared
-    memory, and the occupancy the kernel built for cache type ``kv``
-    (``KV_TYPES``) reaches at the plan's shared memory (read once a
-    shape)."""
+    memory, and the occupancy the kernel of ``compute_dtype`` built for
+    the cache type ``kv_dtype`` reaches at the plan's shared memory (read
+    once a shape)."""
     device = torch.device(device)
-    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index, kv, ref_rows)
+    key = (kernel, s, r, n_layers, d, hq, hkv, dh, f, c, mb, device.index, kv_dtype, ref_rows,
+           LIBRARIES[compute_dtype])
     plan = _PLANS.get(key)
     if plan is None:
         nsm = torch.cuda.get_device_properties(device).multi_processor_count
-        limit = coop_constants(device)["smem_limit"]
+        consts = coop_constants(device, compute_dtype)
+        limit = consts["smem_limit"]
         shape = (s, r, n_layers, d, hq, hkv, dh, f, c, mb)
-        plan = coop_plan(*shape, nsm, 1, limit, ref_rows)
-        lib = _build.load("fused_decode")
+        nbytes = dict(w_bytes=consts["w_bytes"],
+                      kv_bytes=torch.empty((), dtype=kv_dtype).element_size())
+        plan = coop_plan(*shape, nsm, 1, limit, ref_rows, **nbytes)
+        lib = _build.load(LIBRARIES[compute_dtype])
         lib.coop_occupancy.argtypes = [_INT, _INT, _INT]
         lib.coop_occupancy.restype = _INT
-        occ = lib.coop_occupancy(COOP_KERNELS[kernel], kv, plan.smem)
+        occ = lib.coop_occupancy(COOP_KERNELS[kernel], KV_TYPES[kv_dtype], plan.smem)
         if occ < 0:
             _build.check(-occ, f"{kernel} occupancy")
         if occ < 1:
             raise RuntimeError(f"{kernel}: a CTA of {plan.smem} bytes of shared memory does "
                                "not fit on one SM")
         if occ > 1:
-            plan = coop_plan(*shape, nsm, occ, limit, ref_rows)
+            plan = coop_plan(*shape, nsm, occ, limit, ref_rows, **nbytes)
         _PLANS[key] = plan
     return plan
 
@@ -739,20 +772,22 @@ _INT = ctypes.c_int
 
 
 def _check_kernel_dtypes(compute_dtype, cache_dtype, k_scale, v_scale):
-    """The kernels' envelope in dtypes: a bf16 model over a bf16 cache, or
-    over 1-byte codes with their scales; raises for what they do not
-    compute (the launch plan checks the shapes). RoPE is computed."""
-    if compute_dtype != torch.bfloat16:
+    """The kernels' envelope in dtypes: a bf16 model over a bf16 cache, an
+    f32 model over an f32 cache, or either over 1-byte codes (int8,
+    float8_e4m3fn) with their scales; raises for what they do not compute
+    (the launch plan checks the shapes). RoPE is computed."""
+    if compute_dtype not in LIBRARIES:
         raise NotImplementedError(
-            f"the CUDA decode kernels compute in bf16; got {compute_dtype} (f32 compute in "
-            "decode: ROADMAP A3.3); engine=\"xla\" decodes it on the plain path"
+            f"the CUDA decode kernels compute in bf16 or f32; got {compute_dtype}"
         )
-    if cache_dtype not in KV_TYPES:
+    if cache_dtype not in (compute_dtype, torch.int8, torch.float8_e4m3fn):
         raise NotImplementedError(
-            f"the CUDA decode kernels take a bf16, int8 or float8_e4m3fn cache; got {cache_dtype}"
+            f"the CUDA decode kernels take a cache of the compute dtype ({compute_dtype}), int8 "
+            f"or float8_e4m3fn; got {cache_dtype}"
         )
-    if (cache_dtype != torch.bfloat16) != (k_scale is not None and v_scale is not None):
-        raise ValueError("a 1-byte cache needs its k_scale and v_scale, a bf16 cache none")
+    if (cache_dtype != compute_dtype) != (k_scale is not None and v_scale is not None):
+        raise ValueError("a 1-byte cache needs its k_scale and v_scale, a cache of the compute "
+                         "dtype none")
 
 
 def _as(t, dtype, dev):
@@ -763,10 +798,10 @@ def _as(t, dtype, dev):
     return t.to(device=dev, dtype=dtype).contiguous()
 
 
-def _kernel_weights(weights, dev):
+def _kernel_weights(weights, dev, compute_dtype):
     """The weights as the kernels take them, in ``WEIGHT_NAMES`` order:
-    projections bf16, the rest f32, contiguous."""
-    return [_as(weights[nm], torch.bfloat16 if nm in PROJ_NAMES else torch.float32, dev)
+    projections in the compute dtype, the rest f32, contiguous."""
+    return [_as(weights[nm], compute_dtype if nm in PROJ_NAMES else torch.float32, dev)
             for nm in WEIGHT_NAMES]
 
 
@@ -822,13 +857,15 @@ _LAUNCHES: dict = {}
 MAX_GROUP: int | None = None
 
 
-def _launch_record(kernel, shape, kv, device, stream, ref_rows):
-    key = (LIBRARY, kernel, shape, kv, device.index, stream, ref_rows)
+def _launch_record(kernel, shape, kv_dtype, compute_dtype, device, stream, ref_rows):
+    lib = LIBRARIES[compute_dtype]
+    key = (lib, kernel, shape, kv_dtype, device.index, stream, ref_rows)
     rec = _LAUNCHES.get(key)
     if rec is None:
         s, r, n, d, hq, hkv, dh, f, c, mb = shape
-        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device, kv, ref_rows)
-        fn = getattr(_build.load(LIBRARY), kernel)
+        plan = launch_plan(kernel, s, r, n, d, hq, hkv, dh, f, c, mb, device, kv_dtype, ref_rows,
+                           compute_dtype)
+        fn = getattr(_build.load(lib), kernel)
         scratch = [torch.empty(sh, dtype=dt, device=device) for sh, dt in plan.scratch.values()]
         ints = plan.ints()
         rec = _LAUNCHES[key] = (fn, (ctypes.c_int * len(ints))(*ints),
@@ -869,9 +906,10 @@ def _grouped(fn, group, args, axes):
                  for t in zip(*parts))
 
 
-def _slot_groups(h, r, pool_k, tables, num_heads, weights):
+def _slot_groups(h, r, pool_k, tables, num_heads, weights, compute_dtype, scales):
     """``(group, ref_rows)``: on the card the slots a launch takes
-    (:func:`slot_group`, read once a shape; at most ``MAX_GROUP``) and the
+    (:func:`slot_group`, read once a shape and dtypes, which are checked
+    first; at most ``MAX_GROUP``) and the
     rows every group's k-groups are sized for (the planner's group's, so
     each row sums in one order however the slots are grouped); on the CPU
     ``MAX_GROUP`` (else every slot) and None."""
@@ -881,19 +919,24 @@ def _slot_groups(h, r, pool_k, tables, num_heads, weights):
         return (s if MAX_GROUP is None else MAX_GROUP), None
     mb = 0 if tables is None else tables.shape[1]
     key = (s, r, h.shape[-1], num_heads, pool_k.shape[-2], pool_k.shape[-1],
-           weights["w_up"].shape[-1], pool_k.shape[-3] * (mb or 1), mb, h.device.index)
+           weights["w_up"].shape[-1], pool_k.shape[-3] * (mb or 1), mb, h.device.index,
+           pool_k.dtype, compute_dtype, scales[0] is None)
     group = _GROUPS.get(key)
     if group is None:
+        _check_kernel_dtypes(compute_dtype, pool_k.dtype, *scales)
         nsm = torch.cuda.get_device_properties(h.device).multi_processor_count
-        group = _GROUPS[key] = slot_group(*key[:-1], nsm,
-                                          coop_constants(h.device)["smem_limit"])
+        consts = coop_constants(h.device, compute_dtype)
+        group = _GROUPS[key] = slot_group(
+            *key[:-4], nsm, consts["smem_limit"], w_bytes=consts["w_bytes"],
+            kv_bytes=pool_k.element_size())
     return (group if MAX_GROUP is None else min(group, MAX_GROUP)), group * r
 
 
 def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers, num_heads,
                  rope_on, compute_dtype, ptrs, dims, window=None, ref_rows=None):
     """Validate and launch ``kernel`` once over ``n_layers`` layers of the
-    cache or pool (``scales`` = (k_scale, v_scale), None for bf16): one
+    cache or pool (``scales`` = (k_scale, v_scale), None for a cache of the
+    compute dtype): one
     group of slots. A slab cache may be a group's view of a larger one
     (each layer's slots contiguous, the layers ``stride(0)`` apart); a pool
     is contiguous. The C interface takes h_in, h_out, the weights, the
@@ -903,7 +946,8 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers
     ``dims`` (the model dims, then C, or NB, bs, MB). Returns h_out."""
     k_scale, v_scale = scales
     kv = KV_TYPES.get(pool_k.dtype)
-    if compute_dtype != torch.bfloat16 or kv is None or (kv != 0) != (
+    if compute_dtype not in LIBRARIES or kv is None or (kv == 0) != (
+            pool_k.dtype == compute_dtype) or (kv != 0) != (
             k_scale is not None and v_scale is not None):
         _check_kernel_dtypes(compute_dtype, pool_k.dtype, k_scale, v_scale)  # the reason
     def dense(t):  # whole, or B6's slab each layer's slots (a group's view)
@@ -922,9 +966,9 @@ def _coop_launch(kernel, h, weights, pool_k, pool_v, scales, tables, r, n_layers
     f = weights["w_up"].shape[-1]
     stream = _stream(h)
     fn, plan, scratch, flags, _ = _launch_record(
-        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), kv, h.device, stream,
-        ref_rows)
-    ws = _kernel_weights(weights, h.device)
+        kernel, (s, r, n_layers, d, num_heads, hkv, dh, f, c, mb), pool_k.dtype, compute_dtype,
+        h.device, stream, ref_rows)
+    ws = _kernel_weights(weights, h.device, compute_dtype)
     h = _as(h, torch.float32, h.device)
     out = torch.empty_like(h)
     args = [h.data_ptr(), out.data_ptr(), *_ordered_ptrs(ws), pool_k.data_ptr(),
@@ -966,14 +1010,15 @@ def decode_block_slab(h, weights, ck, cv, lengths, *, num_heads, rope=False,
     """One GPT block's single-token step over one layer's slab cache.
 
     ``h`` [S, d] f32 residual rows, ``weights`` one layer's dict,
-    ``ck``/``cv`` [S, C, Hkv, Dh] (PRE-write, not modified; bf16, or
-    1-byte codes with ``k_scale``/``v_scale`` [S, C, Hkv] f32), ``lengths``
+    ``ck``/``cv`` [S, C, Hkv, Dh] (PRE-write, not modified; the compute
+    dtype, or 1-byte codes with ``k_scale``/``v_scale`` [S, C, Hkv] f32), ``lengths``
     [S] int write positions; ``window`` W: the slab is the rolling buffer
     of a windowed model (the caller commits at ``lengths % C``). Returns
     ``(h_out [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored,
     k_fresh_scale, v_fresh_scale [S, Hkv] or None)``. One launch a group of
     slots (:func:`slot_group`)."""
-    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights)
+    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights, compute_dtype,
+                              (k_scale, v_scale))
 
     def one(h, ck, cv, ks, vs, lengths):
         if not h.is_cuda:
@@ -998,7 +1043,8 @@ def decode_token_slab(h, weights, ck, cv, lengths, active, *, num_heads,
     ``active`` [S] bool, ``window`` W (a rolling slab). Returns ``(h_out
     [S, d] f32, ck, cv)`` with the fresh rows (and scales) committed in
     place at the active rows' ``lengths`` (``% C`` when rolling)."""
-    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights)
+    group, ref = _slot_groups(h, 1, ck, None, num_heads, weights, compute_dtype,
+                              (k_scale, v_scale))
 
     def one(h, ck, cv, ks, vs, lengths, active):
         if not h.is_cuda:
@@ -1030,7 +1076,8 @@ def decode_block_paged(h, weights, pool_k, pool_v, tables, lengths, *, num_heads
     masked), the rest as in :func:`decode_block_slab`. Returns ``(h_out
     [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh], k_fresh_scale,
     v_fresh_scale)``; the caller commits with :func:`commit_paged_rows`."""
-    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights)
+    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights, compute_dtype,
+                              (k_scale, v_scale))
 
     def one(h, tables, lengths):
         if not h.is_cuda:
@@ -1057,7 +1104,8 @@ def decode_token_paged(h, weights, pool_k, pool_v, tables, lengths, active, *,
     :func:`decode_token_slab`. Returns ``(h_out, pool_k, pool_v)`` with
     each active row's fresh K/V (and scales) committed in place at
     ``pool[l, tables[s, len // bs], len % bs]``."""
-    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights)
+    group, ref = _slot_groups(h, 1, pool_k, tables, num_heads, weights, compute_dtype,
+                              (k_scale, v_scale))
 
     def one(h, tables, lengths, active):
         if not h.is_cuda:
@@ -1090,12 +1138,13 @@ def verify_tokens_paged(h, weights, pool_k, pool_v, tables, prefix_lens, suffix_
     tables as in :func:`decode_token_paged`. Each row attends the pool
     STRICTLY below its slot's prefix length (read pre-write) and the
     slot's fresh rows ``lj <= li, lj < suffix_len``, rounded through the
-    pool (bf16, or quantized and dequantized). Each layer commits position
-    ``prefix + li`` where active and ``li < suffix_len``, in place. With
-    ``window`` W row li attends pool positions ``> prefix + li - W`` and
-    fresh rows ``lj > li - W``. Returns ``h_out`` [S, L, d] f32; lengths
-    and tables stay the caller's."""
-    group, ref = _slot_groups(h, h.shape[1], pool_k, tables, num_heads, weights)
+    pool (the compute dtype, or quantized and dequantized). Each layer
+    commits position ``prefix + li`` where active and ``li < suffix_len``,
+    in place. With ``window`` W row li attends pool positions ``> prefix +
+    li - W`` and fresh rows ``lj > li - W``. Returns ``h_out`` [S, L, d]
+    f32; lengths and tables stay the caller's."""
+    group, ref = _slot_groups(h, h.shape[1], pool_k, tables, num_heads, weights, compute_dtype,
+                              (k_scale, v_scale))
 
     def one(h, tables, prefix_lens, suffix_lens, active):
         if not h.is_cuda:

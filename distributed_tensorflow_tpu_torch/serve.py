@@ -145,10 +145,11 @@ class TextServer:
     ``kv_dtype`` "bf16" | "int8" | "fp8" picks the cache's storage (slab or
     pool). ``decode_engine`` None defers to the model's knob; "xla" is the
     plain decode, taken only when named. On the card a model or shape that
-    the server's decode kernels do not take (an f32 model, a head dim they
-    are not built for, a verify of more rows a slot than a launch takes,
-    shared memory) is refused here, at construction, with the reason
-    (``GPTLM._decode_unsupported_reason``)."""
+    the server's decode kernels do not take (a head dim they are not built
+    for, a verify of more rows a slot than a launch takes, shared memory)
+    is refused here, at construction, with the reason
+    (``GPTLM._decode_unsupported_reason``); bf16 and f32 models are both
+    served on the kernels."""
 
     def __init__(
         self,
@@ -197,7 +198,8 @@ class TextServer:
         engine = model._resolve_decode_engine(decode_engine)  # unknown names raise here
         self.decode_engine = decode_engine
         if self.device.type == "cuda" and engine != "xla":
-            self._refuse_unsupported(model, engine, slots, paged, block_size, spec_draft)
+            self._refuse_unsupported(model, engine, slots, paged, block_size, spec_draft,
+                                     kv_dtype)
         self.params = model.serving_params(
             map_params(params, lambda t: t.to(self.device))
         )
@@ -283,15 +285,18 @@ class TextServer:
         self._top_p = torch.ones(s, dtype=torch.float32, device=dev)
         self._eos = torch.full((s,), -1, dtype=torch.int32, device=dev)
 
-    def _refuse_unsupported(self, model, engine, slots, paged, block_size, spec_draft):
+    def _refuse_unsupported(self, model, engine, slots, paged, block_size, spec_draft,
+                            kv_dtype):
         """Raise at construction, as the JAX server does (``serve.py``
         :419-432), for a model or shape that a kernel this server launches
         on the card does not take: the decode step (B6, or B5 for
         "fused-layer") at ``slots`` rows, and the verify (B7, "fused" with
-        ``spec_draft``) at ``spec_draft + 1`` rows a slot."""
+        ``spec_draft``) at ``spec_draft + 1`` rows a slot, over a
+        ``kv_dtype`` cache."""
         nsm = torch.cuda.get_device_properties(self.device).multi_processor_count
-        kw = dict(slots=slots, block_size=block_size if paged else None, nsm=nsm,
-                  smem_limit=coop_constants(self.device)["smem_limit"])
+        limit = coop_constants(self.device, model.compute_dtype)["smem_limit"]
+        kw = dict(slots=slots, block_size=block_size if paged else None, kv_dtype=kv_dtype,
+                  nsm=nsm, smem_limit=limit)
         checks = [("the decode step", 1)]
         if spec_draft and engine == "fused":
             checks.append((f"the verify of {spec_draft + 1} rows a slot", spec_draft + 1))

@@ -146,21 +146,31 @@ def test_commit_slot_rows_semantics():
 def test_kernel_envelope_refusals():
     """What the kernels do not compute is refused before any build (the
     check every kernel wrapper runs first): a compute dtype other than bf16
-    (naming the xla engine), a cache dtype other than bf16/int8/fp8, a
-    1-byte cache without its scales; RoPE and 1-byte caches pass. An unknown
-    engine raises."""
+    or f32, a cache dtype other than the compute dtype or int8/fp8 (an f32
+    cache under bf16 compute, a bf16 cache under f32), a 1-byte cache
+    without its scales; bf16 and f32 compute over their own caches and over
+    1-byte caches pass. An unknown engine raises."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    with pytest.raises(NotImplementedError, match="xla"):
-        fd._check_kernel_dtypes(torch.float32, torch.float32, None, None)
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
+        fd._check_kernel_dtypes(torch.float16, torch.float16, None, None)
     with pytest.raises(NotImplementedError, match="int8"):
         fd._check_kernel_dtypes(torch.bfloat16, torch.float16, None, None)
+    with pytest.raises(NotImplementedError, match="int8"):
+        fd._check_kernel_dtypes(torch.bfloat16, torch.float32, None, None)
+    with pytest.raises(NotImplementedError, match="int8"):
+        fd._check_kernel_dtypes(torch.float32, torch.bfloat16, None, None)
     with pytest.raises(ValueError, match="scale"):
         fd._check_kernel_dtypes(torch.bfloat16, torch.int8, None, None)
+    with pytest.raises(ValueError, match="scale"):
+        fd._check_kernel_dtypes(torch.float32, torch.float32, torch.zeros(1), torch.zeros(1))
     s = torch.zeros(1)
     fd._check_kernel_dtypes(torch.bfloat16, torch.bfloat16, None, None)
     fd._check_kernel_dtypes(torch.bfloat16, torch.int8, s, s)
     fd._check_kernel_dtypes(torch.bfloat16, torch.float8_e4m3fn, s, s)
+    fd._check_kernel_dtypes(torch.float32, torch.float32, None, None)
+    fd._check_kernel_dtypes(torch.float32, torch.int8, s, s)
+    fd._check_kernel_dtypes(torch.float32, torch.float8_e4m3fn, s, s)
     with pytest.raises(ValueError, match="unknown decode engine"):
         torch_model()._resolve_decode_engine("pallas")
 
@@ -321,17 +331,20 @@ H100_SMEM = 232448
 
 
 def _plan(s, r, c, mb=0, nsm=132, occupancy=1, n_layers=8, d=512, hq=8, hkv=8, dh=64,
-          f=2048, smem_limit=H100_SMEM):
+          f=2048, smem_limit=H100_SMEM, w_bytes=2, kv_bytes=2):
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    return fd.coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy, smem_limit)
+    return fd.coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy, smem_limit,
+                        w_bytes=w_bytes, kv_bytes=kv_bytes)
 
 
-def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
+def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy, w_bytes=2):
     """What the kernel relies on: every product's tiles spread over the grid
-    with each weight tile fetched once, its weight chunks whole k-steps
-    dividing d and inside a weight slot, the regions of shared memory apart
-    and large enough, the scratch of the phases' shapes."""
+    with each weight tile fetched once (rows of at most 128 bytes), its
+    weight chunks whole k-steps dividing d and inside a weight slot, the
+    regions of shared memory apart and large enough, the scratch of the
+    phases' shapes and dtypes. ``w_bytes``: the compute dtype's element
+    bytes."""
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
     qw, kvw = hq * dh, hkv * dh
@@ -343,6 +356,7 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     for name, k, n in (("qkv", d, qw + 2 * kvw), ("out", qw, d), ("up", d, f), ("down", f, d)):
         p = by[name]
         assert p.tile_cols in fd.TILE_COLS and n % p.tile_cols == 0
+        assert p.tile_cols * w_bytes <= 128
         assert (p.k, p.n, p.tiles) == (k, n, n // p.tile_cols)
         if name == "qkv":  # a tile lies inside one of wq, wk, wv
             assert kvw % p.tile_cols == 0
@@ -354,14 +368,16 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
         assert p.k_groups * plan.cs == fd.COOP_WARPS and plan.cs >= min(plan.m_tiles, 4)
         assert p.k_rows % 16 == 0 and d % p.k_rows == 0
         assert p.k_rows <= 256 or p.k_rows % 256 == 0  # whole TMA boxes
-        assert p.chunk_bytes == p.tiles_per_cta * p.k_rows * p.tile_cols * 2 <= lay["wslot"]
+        assert p.chunk_bytes == p.tiles_per_cta * p.k_rows * p.tile_cols * w_bytes <= lay["wslot"]
     assert by["down"].chunks == -(-f // d) and by["qkv"].chunks == by["up"].chunks == 0
     red = max(p.subtiles_per_cta * p.k_groups * plan.m_tiles * 128 * 4 for p in plan.products)
-    slot = s * r * (d + 8) * 2
+    slot = s * r * (d + 16 // w_bytes) * w_bytes
     g_r = hq // hkv * r
     # The score tile: the whole extent (one block), or whole KB_STEP-key
-    # chunks of it with the blocks' running sums.
-    assert plan.kb == c or (plan.kb % fd.KB_STEP == 0 and plan.kb < c)
+    # chunks of it (and whole chunks of the K/V stream) with the blocks'
+    # running sums.
+    chunk = fd.COOP_THREADS * (4 if w_bytes == 4 else 8) // dh
+    assert plan.kb == c or (plan.kb % fd.KB_STEP == 0 and plan.kb % chunk == 0 and plan.kb < c)
     scores = 4 * g_r * (plan.kb + r) + (4 * g_r * (2 + dh) if plan.kb < c else 0)
     ring = fd.RING * fd.COOP_THREADS * 16
     assert lay["w0"] == 0 and lay["wslot"] % 1024 == 0 and 2 <= lay["wslots"] <= fd.MAX_WSLOTS
@@ -378,6 +394,8 @@ def _check_plan(plan, s, r, c, mb, n_layers, d, hq, hkv, dh, f, nsm, occupancy):
     assert ints[8:12] == [p.tile_cols for p in plan.products]
     assert {k: v[0] for k, v in plan.scratch.items()} == {
         "qkv": (s * r, qw + 2 * kvw), "att": (s * r, qw), "gelu": (s * r, f)}
+    act = torch.float32 if w_bytes == 4 else torch.bfloat16
+    assert [v[1] for v in plan.scratch.values()] == [torch.float32, act, act]
 
 
 @pytest.mark.parametrize("s,r,c,mb",
@@ -478,7 +496,7 @@ def test_coop_plan_small_shapes(s, r, c, mb, hq, hkv, dh, nsm, occ):
 
 
 @pytest.mark.parametrize("kw,reason", [
-    (dict(dh=16, hq=32), r"head_dim 32, 64 or 128 \(got 16\)"),
+    (dict(dh=256, hq=2), r"head_dim 8, 16, 32, 64 or 128 \(got 256\)"),
     (dict(s=1, r=65), r"1 to 64 rows in all, slots x rows a slot \(got 1 x 65\)"),
     (dict(s=9, r=8), "1 to 64 rows in all"),
     (dict(d=640), r"model_dim \(640\) = heads x head_dim"),
@@ -577,17 +595,19 @@ def test_coop_kernels_match_plain_on_gpu(hq, hkv, dh, L):
 
 @pytest.mark.cuda
 def test_coop_constants_match_the_library_on_gpu():
-    """The plan's mirrors of the kernel's constants are the library's, and
-    the card's opt-in shared memory is what the plan is held to."""
+    """The plan's mirrors of the kernel's constants are the library's (of
+    each compute dtype, whose element bytes the library reports), and the
+    card's opt-in shared memory is what the plan is held to."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the decode kernels have no CPU mode")
     from distributed_tensorflow_tpu_torch.ops import fused_decode as fd
 
-    got = fd.coop_constants("cuda")
-    assert {k: v for k, v in got.items() if k != "smem_limit"} == dict(
-        COOP_THREADS=fd.COOP_THREADS, TILE=fd.TILE, MAX_TILES=fd.MAX_TILES, PV_ROWS=fd.PV_ROWS,
-        MAX_SLOTS=fd.MAX_SLOTS, RING=fd.RING, MAX_GRID=fd.MAX_GRID,
-        MAX_TILE_ROWS=fd.MAX_TILE_ROWS, MAX_WSLOTS=fd.MAX_WSLOTS)
+    for cd, nbytes in ((torch.bfloat16, 2), (torch.float32, 4)):
+        got = fd.coop_constants("cuda", cd)
+        assert {k: v for k, v in got.items() if k != "smem_limit"} == dict(
+            COOP_THREADS=fd.COOP_THREADS, TILE=fd.TILE, MAX_TILES=fd.MAX_TILES,
+            PV_ROWS=fd.PV_ROWS, MAX_SLOTS=fd.MAX_SLOTS, RING=fd.RING, MAX_GRID=fd.MAX_GRID,
+            MAX_TILE_ROWS=fd.MAX_TILE_ROWS, MAX_WSLOTS=fd.MAX_WSLOTS, w_bytes=nbytes)
     if "H100" in torch.cuda.get_device_name(0):
         assert got["smem_limit"] == H100_SMEM
     plan = fd.launch_plan("verify_tokens_paged", 8, 5, 8, 512, 8, 8, 64, 2048, 1024, 64, "cuda")

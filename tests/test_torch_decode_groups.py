@@ -175,8 +175,8 @@ REASON_CASES = (
     (dict(), 8, 1, None, None),
     (dict(num_kv_heads=2, max_len=2048), 16, 5, 16, None),
     (dict(), 100, 1, None, None),
-    (dict(compute_dtype=torch.float32), 8, 1, None, "ROADMAP A3.3"),
-    (dict(model_dim=256, num_heads=16), 8, 1, None, r"head_dim 32, 64 or 128 \(got 16\)"),
+    (dict(compute_dtype=torch.float32), 8, 1, None, None),
+    (dict(model_dim=512, num_heads=2), 8, 1, None, r"head_dim 8, 16, 32, 64 or 128 \(got 256\)"),
     (dict(), 4, 65, 16, "65 rows a slot exceed the 64 rows"),
     (dict(model_dim=2048, num_heads=16, num_layers=4), 8, 17, 16,
      "17 rows a slot exceed the 16 rows"),
@@ -187,9 +187,9 @@ REASON_CASES = (
 def test_decode_unsupported_reason_at_the_h100(knobs, slots, rows, bs, reason):
     """The port's ``GPTLM._decode_unsupported_reason``: None where the
     kernels serve the shape (any slot count, a GQA-2 verify at max_len
-    2048), else why (an f32 model names ROADMAP A3.3, a head dim the kernels
-    are not built for, a verify of more rows a slot than a launch takes at
-    the model's width)."""
+    2048, an f32 model), else why (a head dim the kernels are not built
+    for, a verify of more rows a slot than a launch takes at the model's
+    width)."""
     import re
 
     got = _gpt(**knobs)._decode_unsupported_reason(slots=slots, rows=rows, block_size=bs,
@@ -368,19 +368,22 @@ def test_attention_in_several_score_tiles_matches_plain_on_gpu(kernel, hkv, c, l
 
 @pytest.mark.cuda
 def test_textserver_refuses_at_construction_on_gpu():
-    """On the card an f32 model with the default engine, and a verify of
-    more rows a slot than a launch takes, are refused when the server is
-    made, before any request is admitted; "xla" serves the f32 model."""
+    """On the card a model of a head dim the kernels are not built for, and
+    a verify of more rows a slot than a launch takes, are refused when the
+    server is made, before any request is admitted; "xla" serves the first;
+    an f32 model is served on the kernels."""
     _cuda_or_skip()
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
     from distributed_tensorflow_tpu_torch.serve import TextServer
 
+    wide = GPTLM(vocab_size=97, max_len=64, model_dim=512, num_heads=2, num_layers=1)
+    params = wide.init(seed=1, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        TextServer(wide, params, slots=2)
+    TextServer(wide, params, slots=2, decode_engine="xla")
     f32 = GPTLM(vocab_size=97, max_len=64, model_dim=64, num_heads=2, num_layers=1,
                 compute_dtype=torch.float32)
-    params = f32.init(seed=1, device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP A3.3"):
-        TextServer(f32, params, slots=2)
-    TextServer(f32, params, slots=2, decode_engine="xla")
+    TextServer(f32, f32.init(seed=1, device="cuda"), slots=2)
     bf = GPTLM(vocab_size=97, max_len=128, model_dim=64, num_heads=2, num_layers=1)
     with pytest.raises(ValueError, match="rows a slot exceed"):
         TextServer(bf, bf.init(seed=1, device="cuda"), slots=2, paged=True, spec_draft=64)

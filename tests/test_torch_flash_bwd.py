@@ -202,9 +202,10 @@ def test_backward_wrappers_refuse_bad_inputs():
     q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         flash_bwd_fused(q, q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
-    q = torch.zeros(1, 8, 2, 48)
-    with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
-        flash_bwd_fused(q, q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
+    for d in (20, 136):
+        q = torch.zeros(1, 8, 2, d)
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+            flash_bwd_fused(q, q, q, q, torch.zeros(1, 8, 2), torch.zeros(1, 8, 2))
 
 
 # -- on the card ---------------------------------------------------------------
