@@ -203,6 +203,24 @@ non-zero):
     the same way; (c) GPTs at head dims 8 and 48 (padded to 64) trained
     with flash attention through the fused backward and the pair, whose
     launches and falling cost are checked.
+23. MoE blocks and the quantized products (ROADMAP A5), and head dim 4:
+    (a) gpt-m-L1024-flash with 8 experts, top-2, capacity factor 2.0,
+    trained 3 x 16 steps on phase 12(a)'s corpus (B3 and B4 launched, cost
+    and held-out perplexity falling; drop fraction and largest expert share
+    printed, ms a step beside the dense one) and a top-1 epoch; (b) that
+    model served (slab, pool) at a capacity factor that never drops, 8 of
+    phase 4's requests: the engine resolves to "xla", B3 launches in the
+    slab prefill, no decode kernel; greedy streams against the in-process
+    ``greedy_decode``; (c) ``quantized_dot`` int8 (bit for bit) and fp8
+    against its plain version at [16384 x 512] x [512 x 2048], timed beside
+    the bf16 product, and gpt-m trained 32 steps per matmul dtype, held-out
+    perplexity within 15% of bf16's; (d) ``decode_matmul_dtype`` int8 and
+    fp8 served on the slab and the pool, and int8 with an int8 cache and
+    ``spec_draft=2``, streams against the in-process decode of
+    ``decode_weights``; (e) B5, B6 and B7 at head dim 4 (the JAX engine's
+    GQA model, 8 heads of 4 over 2 KV heads) in bf16 and f32 over every
+    cache through phase 3's variant checks, timed, and that model served
+    through phase 13's five servers against "xla".
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -5055,6 +5073,373 @@ def phase_dp(records, ds, smi):
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
+# Phase 23 (ROADMAP A5): MoE blocks, the quantized products and head dim 4.
+# (a) gpt-m-L1024-flash with the JAX package's MoE knobs, 8 experts, top-2,
+# capacity factor 2.0, trained on phase 12(a)'s corpus cut to 256 training
+# sequences (16 steps an epoch at batch 16), MOE_EPOCHS epochs, and a top-1
+# (Switch) epoch; (b) that model served at the capacity factor E / k, at
+# which no dispatch is ever dropped (so a served stream is the in-process
+# decode's), MOE_REQUESTS of phase 4's requests.
+MOE_KW = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=2.0)
+MOE_CORPUS = dict(TRAIN_CORPUS, num=768)
+MOE_EPOCHS = 3
+MOE_LOG_EVERY = 4
+MOE_REQUESTS = 8
+# (c) quantized_dot at gpt-m's up projection in training (16 x 1024 rows of
+# 512 into 2048 columns): int8 bit for bit with its plain version (the
+# exact product, in f64), fp8 within QDOT_FP8_TOL of the largest of its
+# plain version's f32 sums of the same exact products (the H100's fp8
+# products accumulate in less than f32's precision: 3.3e-4 of the largest
+# at k=512 in a first run, PERF.md); gpt-m trained QUANT_EPOCHS epochs of
+# that corpus (32 steps) per matmul dtype, held-out perplexity within
+# QUANT_PPL_TOL of the bf16 run's (the JAX package's loss-parity contract,
+# tests/test_quantized.py:208).
+QDOT_SHAPE = (16 * 1024, 512, 2048)
+QDOT_FP8_TOL = 1e-3
+QUANT_EPOCHS = 2
+QUANT_PPL_TOL = 0.15
+# (e) head dim 4: the JAX engine's GQA test model
+# (tests/test_pallas_decode.py:171-176, tiny(num_heads=8, num_kv_heads=2):
+# d=32 over 8 heads of 4, 2 KV heads, RoPE), bf16 and f32 compute, each over
+# its own dtype's cache and int8 and e4m3 codes: <kernel>[dh4-<compute>-<cache>].
+DH4_KNOBS = dict(model_dim=32, num_heads=8, num_kv_heads=2, pos_embedding="rope")
+DH4_LABELS = tuple(f"dh4-{cd}-{kv}" for cd in ("bf16", "f32") for kv in (cd, "int8", "fp8"))
+
+
+class InProcessGreedy:
+    """The in-process reference of served greedy streams: ``generate``
+    through ``model.greedy_decode`` a request (``compare_streams`` reruns
+    its continuations the same way; ``_pick`` is there for ``PickLog``)."""
+
+    def __init__(self, model, params):
+        self.model, self.params = model, params
+
+    def _pick(self, *args):
+        raise AssertionError("the in-process reference decodes greedy requests only")
+
+    def generate(self, prompts, configs):
+        import torch
+
+        out = []
+        for p, c in zip(prompts, configs):
+            if not c.greedy:
+                raise AssertionError("the in-process reference decodes greedy requests only")
+            t = torch.from_numpy(np.asarray(p, np.int32)).to(self.params.embed.device)[None]
+            out.append(self.model.greedy_decode(self.params, t, c.max_new)[0, len(p):]
+                       .cpu().numpy())
+        return out
+
+
+def step_costs(lines):
+    """(costs, AvgTime ms) of a run's Step lines."""
+    steps = [ln for ln in lines if ln.startswith("Step:")]
+    return ([float(ln.split("Cost:")[1].split(",")[0]) for ln in steps],
+            [float(ln.split("AvgTime:")[1].rstrip("ms")) for ln in steps])
+
+
+def lm_run(label, model, ds, epochs, log_every=MOE_LOG_EVERY):
+    """``LMTrainer.run()`` of ``model`` on ``ds`` for ``epochs`` (phase
+    12(a)'s optimizer and batch), the launches counted from zero: (trainer,
+    result, launches, costs, the last window's ms a step). The run must end
+    in Done with finite costs and perplexities, and the cost fall."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    lines = []
+    cfg = dict(TRAIN_CFG, epochs=epochs, log_frequency=log_every)
+    tr = LMTrainer(model, ds, TrainConfig(**cfg), eval_batch=TRAIN_EVAL_BATCH,
+                   print_fn=lines.append)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    costs, avg = step_costs(lines)
+    ppls = [h["perplexity"] for h in tr.history]
+    print(f"  {label}: {res['global_step']} steps in {wall:.2f} s, {avg[-1]:.2f} ms a step "
+          f"(the last window), costs {costs[0]:.4f} -> {costs[-1]:.4f}, held-out perplexity "
+          f"{', '.join(f'{p:.4f}' for p in ppls)}; launches {launches}")
+    if lines[-1] != "Done" or not np.isfinite([res["final_cost"], *costs, *ppls]).all():
+        raise AssertionError(f"{label}: the training run failed: {lines[-3:]}")
+    if not costs[-1] < costs[0]:
+        raise AssertionError(f"{label}: the cost did not fall: {costs}")
+    return tr, res, launches, costs, avg[-1]
+
+
+def phase_moe_train(records):
+    """Phase 23(a): the MoE gpt-m trained through ``LMTrainer.run()``; B3
+    and B4 must launch, the cost and the held-out perplexity fall; the
+    router's drop fraction and largest expert share on a held-out batch are
+    printed, and ms a step beside phase 12(a)'s dense step. Returns the
+    top-2 model and its trained parameters."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    ds = markov_corpus(**MOE_CORPUS)
+    uni = unigram_perplexity(ds.train.tokens, MOE_CORPUS["vocab"])
+    print(f"  {ds.train.num_examples} training sequences of {ds.train.seq_len} tokens, "
+          f"{ds.train.num_examples // TRAIN_CFG['batch_size']} steps an epoch, unigram "
+          f"perplexity {uni:.2f}; dense gpt-m (phase 12(a)) "
+          f"{records['flash_bwd_fused']['step_ms']:.2f} ms a step")
+    kept = None
+    for k, epochs in ((MOE_KW["moe_top_k"], MOE_EPOCHS), (1, 1)):
+        model = GPTLM(**SERVE_CFG, **dict(MOE_KW, moe_top_k=k), compute_dtype=torch.bfloat16)
+        label = f"MoE E={model.moe_experts} top-{k}"
+        tr, res, launches, _, ms = lm_run(label, model, ds, epochs)
+        if launches.get("flash_fwd", 0) < 1 or (launches.get("flash_bwd_fused", 0)
+                                                 + launches.get("flash_bwd_dq", 0)) < 1:
+            raise AssertionError(f"{label}: B3 or B4 never launched: {launches}")
+        ppls = [h["perplexity"] for h in tr.history]
+        if len(ppls) > 1 and not ppls[-1] < ppls[0]:
+            raise AssertionError(f"{label}: held-out perplexity did not fall: {ppls}")
+        with torch.no_grad():
+            toks = torch.from_numpy(ds.validation.tokens[: TRAIN_CFG["batch_size"]]).cuda()
+            _, met = model.loss_and_metrics(tr.state.params, toks)
+        frac = met["expert_fraction"].float().cpu().numpy()
+        print(f"  {label}: held-out ce {float(met['ce']):.4f}, balance "
+              f"{float(met['balance_loss']):.4f}, z {float(met['z_loss']):.4f}, drop fraction "
+              f"{float(met['drop_fraction']):.4f}, largest expert fraction {frac.max():.4f} "
+              f"(uniform {1 / model.moe_experts:.4f}); {ms:.2f} ms a step against the dense "
+              f"{records['flash_bwd_fused']['step_ms']:.2f}")
+        if kept is None:
+            kept = (model, tr.state.params)
+        del tr
+    return kept
+
+
+def phase_moe_serve(records, model, params):
+    """Phase 23(b): the trained MoE model served at capacity factor E / k
+    (no drops) on the slab and the pool: the engine resolves to "xla", the
+    slab's prefill launches B3 and no decode kernel launches; the greedy
+    streams are held against the in-process ``greedy_decode`` under
+    ``compare_streams``' rule; tokens/s and ms a step."""
+    import copy
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.serve import TextServer
+
+    served = copy.copy(model)
+    served.moe_capacity_factor = model.moe_experts / model.moe_top_k
+    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0))
+    greedy = [i for i, c in enumerate(configs) if c.greedy]
+    ref = InProcessGreedy(served, params)
+    want = None
+    for name, kw in (("slab", {}), ("paged", dict(paged=True, block_size=BLOCK))):
+        make = functools.partial(TextServer, served, params, slots=8, chunk=32, **kw)
+        srv = make()
+        if srv.engine != "xla":
+            raise AssertionError(f"MoE {name}: the server resolved {srv.engine!r}, not 'xla'")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs = srv.generate(prompts, configs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        tm, ntok = srv.timing, sum(len(o) for o in outs)
+        print(f"  MoE {name}: engine {srv.engine}, launches {launches}; {ntok} tokens in "
+              f"{wall:.3f} s: {ntok / wall:.1f} tokens/s; decode "
+              f"{1e3 * tm['decode_s'] / tm['decode_steps']:.3f} ms a step")
+        if any(launches.get(k, 0) for k in DECODE_KERNELS):
+            raise AssertionError(f"MoE {name}: a decode kernel launched: {launches}")
+        if not kw and launches.get("flash_fwd", 0) < 1:
+            raise AssertionError(f"MoE {name}: the prefill never launched B3")
+        for o, c in zip(outs, configs):
+            if len(o) != c.max_new or o.min() < 0 or o.max() >= model.vocab_size:
+                raise AssertionError(f"MoE {name}: bad stream {o}")
+        gp, gc = [prompts[i] for i in greedy], [configs[i] for i in greedy]
+        if want is None:
+            want = ref.generate(gp, gc)
+        compare_streams(f"MoE {name} vs greedy_decode", served, srv.params, gp, gc,
+                        [outs[i] for i in greedy], want, (srv, ref), (make, lambda: ref))
+
+
+def phase_quantized(records):
+    """Phase 23(c): ``quantized_dot`` int8 and fp8 on the card against its
+    plain version at gpt-m's training shape, timed beside the code product
+    alone, the plain version and the bf16 product; then gpt-m trained
+    QUANT_EPOCHS epochs with each matmul dtype, held-out perplexity within
+    QUANT_PPL_TOL of the bf16 run's."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import quantized as tq
+
+    m, k, n = QDOT_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn(m, k, device="cuda", generator=g)
+    w = torch.randn(k, n, device="cuda", generator=g) / k ** 0.5
+    xb, wb = x.bfloat16(), w.bfloat16()
+    bf16_ms = cuda_ms(lambda: xb @ wb)
+    flops = 2 * m * k * n
+    print(f"  [{m}x{k}]·[{k}x{n}]: bf16 product {bf16_ms:.4f} ms "
+          f"({flops / bf16_ms / 1e9:.1f} TFLOP/s)")
+    for dt in ("int8", "fp8"):
+        got = tq.quantized_dot(dt, x, w)
+        ref = tq.quantized_dot_plain(dt, x, w)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if dt == "int8" and not torch.equal(got, ref):
+            raise AssertionError(f"quantized_dot int8 differs from its exact plain version: {err}")
+        if not err <= QDOT_FP8_TOL * scale:
+            raise AssertionError(f"quantized_dot {dt}: {err} > {QDOT_FP8_TOL} * {scale}")
+        qmax = tq._QMAX[dt]
+        xq = tq._quantize(x / tq._amax_scale(x, -1, qmax), dt, qmax)
+        wq = tq._quantize(w / tq._amax_scale(w, 0, qmax), dt, qmax)
+        ms = cuda_ms(lambda: tq.quantized_dot(dt, x, w))
+        prod_ms = cuda_ms(lambda: tq.code_product(xq, wq))
+        plain_ms = cuda_ms(lambda: tq.quantized_dot_plain(dt, x, w), 5)
+        print(f"  quantized_dot {dt}: max_abs_err {err:.3e} of {scale:.3e} "
+              f"({'bit for bit' if dt == 'int8' else f'tolerance {QDOT_FP8_TOL}'}); "
+              f"{ms:.4f} ms (the code product alone {prod_ms:.4f} ms, "
+              f"{flops / prod_ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, bf16 {bf16_ms:.4f}")
+    ds = markov_corpus(**MOE_CORPUS)
+    ppl = {}
+    for dt in (None, "int8", "fp8"):
+        model = GPTLM(**SERVE_CFG, matmul_dtype=dt, compute_dtype=torch.bfloat16)
+        tr, _, launches, _, ms = lm_run(f"gpt-m matmul_dtype={dt}", model, ds, QUANT_EPOCHS)
+        if launches.get("flash_fwd", 0) < 1:
+            raise AssertionError(f"matmul_dtype={dt}: B3 never launched: {launches}")
+        ppl[dt] = tr.history[-1]["perplexity"]
+        del tr
+    for dt in ("int8", "fp8"):
+        rel = abs(ppl[dt] - ppl[None]) / ppl[None]
+        print(f"  held-out perplexity {dt} {ppl[dt]:.4f} vs bf16 {ppl[None]:.4f}: "
+              f"{100 * rel:.2f}% apart (limit {100 * QUANT_PPL_TOL:.0f}%)")
+        if not rel < QUANT_PPL_TOL:
+            raise AssertionError(f"matmul_dtype={dt}: perplexity {rel:.3f} from bf16's")
+
+
+def phase_weight_only_serve(records):
+    """Phase 23(d): gpt-m served with ``decode_matmul_dtype`` int8 and fp8
+    on the slab and the pool, and int8 with an int8 cache and
+    ``spec_draft=2``: the engine resolves to "xla", no decode kernel
+    launches, and the greedy streams are held against the in-process decode
+    of ``decode_weights`` (``greedy_decode``; the int8-cache server against
+    the same server without speculation) under ``compare_streams``' rule;
+    ms a step beside the bf16 weights' on "xla"."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.serve import TextServer
+
+    model = GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16)
+    params = perturbed_params(model, 0, "cuda")
+    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0))
+    greedy = [i for i, c in enumerate(configs) if c.greedy]
+    gp, gc = [prompts[i] for i in greedy], [configs[i] for i in greedy]
+    pool = dict(paged=True, block_size=BLOCK)
+
+    def serve(label, **kw):
+        make = functools.partial(TextServer, model, params, slots=8, chunk=32, **kw)
+        srv = make()
+        _build.reset_launches()
+        outs = srv.generate(prompts, configs)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        tm = srv.timing
+        ms = 1e3 * tm["decode_s"] / max(tm["decode_steps"], 1)
+        line = f"  {label}: engine {srv.engine}, decode {ms:.3f} ms a step"
+        if tm["verify_ticks"]:
+            line += (f", verify {1e3 * tm['verify_s'] / tm['verify_ticks']:.3f} ms a tick, "
+                     f"{srv.counters['spec_tokens_accepted'] / tm['verify_ticks']:.3f} accepted")
+        print(line + f"; launches {launches}")
+        if srv.engine != "xla" or any(launches.get(k, 0) for k in DECODE_KERNELS):
+            raise AssertionError(f"{label}: engine {srv.engine}, launches {launches}")
+        return srv, make, [outs[i] for i in greedy]
+
+    serve("bf16 weights, xla", decode_engine="xla")
+    for dt in ("int8", "fp8"):
+        qp = model.decode_weights(params, dt)
+        ref = InProcessGreedy(model, qp)
+        want = ref.generate(gp, gc)
+        cases = [("slab", {}), ("paged", pool)]
+        if dt == "int8":
+            cases.append(("paged int8-kv spec_draft=2", dict(pool, kv_dtype="int8", spec_draft=2)))
+        for name, kw in cases:
+            srv, make, outs = serve(f"{dt} weights {name}", decode_matmul_dtype=dt, **kw)
+            if "spec_draft" in kw:
+                base = functools.partial(TextServer, model, qp, slots=8, chunk=32, paged=True,
+                                         block_size=BLOCK, kv_dtype="int8")
+                bsrv = base()
+                bouts = bsrv.generate(gp, gc)
+                compare_streams(f"{dt} weights {name} vs the same without speculation", model,
+                                srv.params, gp, gc, outs, bouts, (srv, bsrv), (make, base),
+                                "int8")
+            else:
+                compare_streams(f"{dt} weights {name} vs greedy_decode(decode_weights)", model,
+                                srv.params, gp, gc, outs, want, (srv, ref), (make, lambda: ref))
+
+
+def phase_dh4(records):
+    """Phase 23(e): head dim 4 on B5, B6 and B7. Each of ``DH4_LABELS``
+    (the JAX engine's GQA model's shapes: 2 layers, 8 slots at lengths
+    NARROW_PROMPT..NARROW_PROMPT + NARROW_NEW of a cache of 64, one
+    inactive) through :func:`kernel_variants` (the checks of
+    ``narrow_kernels``: B5 slab/paged, B6 slab/paged and B7 against their
+    plain versions, paged == slab and B5 layer by layer == B6 bit for bit,
+    timed beside the plain version and the bound); then the model in bf16
+    and f32 served over each cache through phase 13's five servers, each
+    held against "xla" (``phase_kv_serve``, ``narrow_requests``)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    n, S, C = NARROW_CFG["num_layers"], 8, NARROW_CFG["max_len"]
+    d, hq, hkv = DH4_KNOBS["model_dim"], DH4_KNOBS["num_heads"], DH4_KNOBS["num_kv_heads"]
+    dh = d // hq
+    lengths = torch.randint(NARROW_PROMPT, NARROW_PROMPT + NARROW_NEW + 1, (S,), device=dev,
+                            generator=g, dtype=torch.int32)
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    active[S - 1] = False
+    h = torch.randn(S, d, device=dev, generator=g)
+    for cd, cdn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        w = layer_weights(n, d, hq, hkv, dh, 4 * d, g, dev, cd)
+        ck, cv = (torch.randn(n, S, C, hkv, dh, device=dev, generator=g).to(cd)
+                  for _ in range(2))
+        for kv in ("bf16", "int8", "fp8"):
+            label = f"dh4-{cdn}-{cdn if kv == 'bf16' else kv}"
+            kernel_variants(records, (label, True, kv), w, ck, cv, lengths, active, h, hq=hq,
+                            compute_dtype=cd)
+    for cd, cdn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        model = GPTLM(**NARROW_CFG, **DH4_KNOBS, compute_dtype=cd)
+        print(f"  dh4 ({cdn}): {DH4_KNOBS}, head_dim {model.head_dim}")
+        phase_kv_serve(records, f"dh4-{cdn}", model, perturbed_params(model, 5, "cuda"),
+                       ("bf16", "int8", "fp8"), paged_traffic=False,
+                       requests=narrow_requests(model.vocab_size, 6))
+
+
+def phase_moe_quantized(records):
+    """Phase 23: (a) MoE training, (b) MoE serving, (c) the quantized
+    products, (d) weight-only decode, (e) head dim 4."""
+    t = time.perf_counter()
+
+    def part(title):
+        nonlocal t
+        now = time.perf_counter()
+        print(f"  ({title}) [{now - t:.1f} s since the last part]")
+        t = now
+
+    part("a: MoE training")
+    model, params = phase_moe_train(records)
+    part("b: MoE serving")
+    phase_moe_serve(records, model, params)
+    del model, params
+    part("c: quantized products")
+    phase_quantized(records)
+    part("d: weight-only decode")
+    phase_weight_only_serve(records)
+    part("e: head dim 4")
+    phase_dh4(records)
+    part("end")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -5357,6 +5742,11 @@ def main() -> int:
     phase("22: serve decode-full in f32 compute; head dims 8 and 16 served, 8 and 48 trained")
     phase_f32_serve(records)
     print(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+    t23 = time.perf_counter()
+    phase("23: MoE gpt-m trained and served, the quantized products (training and weight-only "
+          "decode), head dim 4 on B5/B6/B7")
+    phase_moe_quantized(records)
+    print(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -5373,6 +5763,8 @@ def main() -> int:
     variants += [(f"{k}[{lab}-{dt}]", k, f"{PATHS.get(k, 'main')} {lab}-{dt}")
                  for lab, _ in NARROW_MODELS for dt in ("bf16", "f32") for k in DECODE_KERNELS]
     variants += [(name, base, path) for name, (base, path) in FLASH_NARROW.items()]
+    variants += [(f"{k}[{lab}]", k, f"{PATHS.get(k, 'main')} {lab}")
+                 for lab in DH4_LABELS for k in DECODE_KERNELS]
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:

@@ -25,7 +25,11 @@ brings the other classifier families of the registry (``CNN``,
 ``LSTMClassifier``, ``TransformerClassifier``; ``build_model``), which the
 ``Trainer`` and every strategy take as they take the MLP, the flash
 kernels at head_dim 16 for the transformer's flash attention, and
-``Predictor`` (batched prediction from a training state). Entry points run on
+``Predictor`` (batched prediction from a training state). Slice 16 brings
+``GPTLM``'s MoE blocks (``ops/moe.py``), its int8/fp8 projection products
+(``matmul_dtype``, ``ops/quantized.quantized_dot``) and weight-only
+quantized serving (``TextServer(decode_matmul_dtype=)``), and head dim 4 on
+the decode kernels. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; without a CUDA device
 and without that explicit choice they raise.
 """

@@ -32,7 +32,6 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
          "logs_path", "profile_dir"), "A8"),
-    "matmul_dtype": "A5",
 }
 # Values of served fields that a later item brings.
 DP_MODES_NOT_PORTED = ("diloco", "tp", "ep", "pp", "sp")  # LM-trainer modes: A7
@@ -169,6 +168,10 @@ class _TrainFields:
     # The MLP Trainer takes any truthy value as plain remat of the model's
     # apply (launch.build_trainer).
     remat: bool | str = False
+    # Low-precision projection products of the LM family (GPTLM(matmul_dtype=),
+    # ops/quantized.quantized_dot): None | "int8" | "fp8". The classifier
+    # path refuses it (launch.build_trainer).
+    matmul_dtype: str | None = None
 
     def __post_init__(self):
         if self.dp_mode in DP_MODES_NOT_PORTED:
@@ -179,6 +182,10 @@ class _TrainFields:
             raise ValueError(
                 f"remat must be False, True, or 'selective'; got {self.remat!r} "
                 "(callable policies go directly on the model: GPTLM(remat=policy))"
+            )
+        if self.matmul_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"matmul_dtype must be None, 'int8', or 'fp8'; got {self.matmul_dtype!r}"
             )
         if self.engine not in ("xla", "pallas"):
             raise ValueError(f"unknown engine {self.engine!r} (xla|pallas)")

@@ -5,7 +5,13 @@ name: ``{"embed", "pos", "blocks": {"ln1_scale", ..., "b_down"},
 "lnf_scale", "lnf_bias"}`` — the JAX package's ``GPTLMParams`` / ``GPTBlockParams``
 fields. Any NamedTuple with those fields (``_asdict``) is accepted as
 well, so a JAX params tree can be handed in as it is: its leaves are
-read with ``numpy.asarray``. Without a dtype the round trip is bitwise.
+read with ``numpy.asarray``. A MoE tree (``"wg"`` among the block fields:
+``GPTMoEBlockParams``, experts stacked on axis 1) goes the same way. A
+weight-only quantized leaf (``QuantizedLinear``, from ``decode_weights``)
+is ``{"qw", "scale"}`` (or the NamedTuple): int8 codes as int8, e4m3 codes
+as their bytes (uint8) on the way out and, on the way in, as uint8 or as a
+JAX fp8 array (``ml_dtypes``), reinterpreted bit for bit. Without a dtype
+the round trip is bitwise.
 
 The classifiers (MLP, CNN, LSTM, transformer): a flat dict keyed by the
 JAX params NamedTuple's fields (``{"w1", "b1", "w2", "b2"}`` for the MLP),
@@ -44,6 +50,7 @@ from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import (
     GPTBlockParams,
     GPTLMParams,
+    GPTMoEBlockParams,
     PagedKVCache,
     map_params,
 )
@@ -52,6 +59,7 @@ from distributed_tensorflow_tpu_torch.models.mlp import MLPParams
 from distributed_tensorflow_tpu_torch.models.rnn import LSTMParams
 from distributed_tensorflow_tpu_torch.models.transformer import TransformerParams
 from distributed_tensorflow_tpu_torch.ops.optim import AdamState
+from distributed_tensorflow_tpu_torch.ops.quantized import QuantizedLinear
 
 
 def _as_dict(tree) -> dict:
@@ -59,20 +67,28 @@ def _as_dict(tree) -> dict:
 
 
 def gpt_params_from_numpy(tree, device=None, dtype=None) -> GPTLMParams:
-    """numpy tree → port ``GPTLMParams`` on ``device`` (default cuda),
-    keeping each array's dtype unless ``dtype`` is given."""
+    """numpy tree → port ``GPTLMParams`` (``GPTMoEBlockParams`` blocks for a
+    tree with a gate ``wg``) on ``device`` (default cuda), keeping each
+    array's dtype unless ``dtype`` is given; ``QuantizedLinear`` leaves keep
+    their codes and f32 scales whatever ``dtype`` says."""
     dev = resolve_device(device)
     top = _as_dict(tree)
     blocks = _as_dict(top["blocks"])
+    cls = GPTMoEBlockParams if "wg" in blocks else GPTBlockParams
 
     def t(a):
-        x = torch.from_numpy(np.array(np.asarray(a), copy=True))
-        return x.to(device=dev, dtype=dtype) if dtype else x.to(dev)
+        if isinstance(a, dict) or hasattr(a, "_fields"):
+            q = _as_dict(a)
+            qw = _tensor(q["qw"], dev)
+            if qw.dtype == torch.uint8:  # e4m3 codes as their bytes
+                qw = qw.view(torch.float8_e4m3fn)
+            return QuantizedLinear(qw, _tensor(q["scale"], dev, torch.float32))
+        return _tensor(a, dev, dtype)
 
     return GPTLMParams(
         embed=t(top["embed"]),
         pos=t(top["pos"]),
-        blocks=GPTBlockParams(**{k: t(blocks[k]) for k in GPTBlockParams._fields}),
+        blocks=cls(**{k: t(blocks[k]) for k in cls._fields}),
         lnf_scale=t(top["lnf_scale"]),
         lnf_bias=t(top["lnf_bias"]),
     )
@@ -80,14 +96,19 @@ def gpt_params_from_numpy(tree, device=None, dtype=None) -> GPTLMParams:
 
 def gpt_params_to_numpy(params: GPTLMParams) -> dict:
     """Port ``GPTLMParams`` → the nested numpy dict (bf16 leaves widen to
-    f32, numpy having no bfloat16)."""
-    p = map_params(
-        params,
-        lambda x: (x.float() if x.dtype == torch.bfloat16 else x)
-        .detach().cpu().numpy(),
-    )
+    f32, numpy having no bfloat16; a ``QuantizedLinear`` leaf becomes
+    ``{"qw", "scale"}``, e4m3 codes as uint8 bytes)."""
+    def arr(x):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        elif x.dtype == torch.float8_e4m3fn:
+            x = x.view(torch.uint8)
+        return x.detach().cpu().numpy()
+
+    p = map_params(params, arr)
     out = p._asdict()
-    out["blocks"] = p.blocks._asdict()
+    out["blocks"] = {k: v._asdict() if isinstance(v, QuantizedLinear) else v
+                     for k, v in p.blocks._asdict().items()}
     return out
 
 

@@ -36,7 +36,7 @@ NOT_PORTED_ENV = {
     "DTF_MAX_RESTARTS": "A8", "DTF_STALL_TIMEOUT_MS": "A8", "DTF_MIN_WORKERS": "A8",
     "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8",
     "DTF_SYNC_EVERY": "A7", "DTF_OUTER_LR": "A7", "DTF_OUTER_MOMENTUM": "A7",
-    "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7", "DTF_MATMUL_DTYPE": "A5",
+    "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7",
 }
 
 
@@ -45,7 +45,8 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     name: ``mlp``, ``cnn``, ``lstm``, ``transformer``), DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
     compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
-    "selective"), as the JAX launcher reads them. The JAX launcher's other
+    "selective"), DTF_MATMUL_DTYPE (empty → None, else "int8" | "fp8"), as
+    the JAX launcher reads them. The JAX launcher's other
     knobs raise naming the ROADMAP item that brings them, unless empty;
     invalid values raise ValueError naming the knob."""
 
@@ -76,6 +77,9 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
         raw = os.environ["DTF_REMAT"]
         # Anything but empty/0/1/"selective" fails in TrainConfig.
         kw["remat"] = raw == "1" if raw in ("", "0", "1") else raw
+    if "DTF_MATMUL_DTYPE" in os.environ:
+        # Bad names fail in TrainConfig.
+        kw["matmul_dtype"] = os.environ["DTF_MATMUL_DTYPE"] or None
     return cfg.replace(**kw) if kw else cfg
 
 
@@ -257,6 +261,11 @@ def build_trainer(
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
     config = config or TrainConfig()
+    if config.matmul_dtype:
+        raise ValueError(
+            "matmul_dtype is an LM-family knob (models/gpt.GPTLM / LMTrainer); the "
+            "classifier models have no quantized path"
+        )
     is_chief = context.is_chief if context is not None else True
     if model is None:
         model = build_model(config.model, compute_dtype=getattr(torch, config.compute_dtype))

@@ -2,9 +2,10 @@
 
 Counterpart of ``distributed_tensorflow_tpu/models/gpt.py`` ``GPTLM``:
 config and validation (:212-402), ``init`` (:406), the forward pieces
-``_embed_tokens`` / ``_block`` / ``_ffn`` / ``_logits`` (:656-786), the
-training forward and loss ``apply`` / ``loss`` (:789-823, :1078-1125;
-dense blocks only, so without the MoE aux terms) with ``_picked_nll`` /
+``_dot_full`` / ``_dot`` / ``decode_weights`` / ``_embed_tokens`` /
+``_moe_capacity`` / ``_moe_block_ffn`` / ``_ffn`` / ``_block`` / ``_logits``
+(:513-786), the training forward and loss ``apply`` / ``apply_with_aux`` /
+``loss`` / ``loss_and_metrics`` (:789-823, :1078-1125) with ``_picked_nll`` /
 ``_ce_from_logits`` (:2572-2602) and the single-device
 ``make_lm_train_step`` (:3245-3335), the slot cache surface ``cache_len``
 / ``empty_slot_cache`` / ``reset_slots`` / ``prefill_slots`` /
@@ -51,15 +52,29 @@ block (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there;
 recompute skips the forward kernel (the JAX ``save_names`` policy, :306-340
 and :592-648); a callable ``remat`` is a torch selective-checkpoint policy.
 
+MoE blocks (``moe_experts=E``, ``moe_top_k=k``; ``GPTMoEBlockParams``)
+route each token's FFN through ``ops/moe.moe_ffn_local`` with a static
+capacity (every token when L == 1, else the ``moe_capacity_factor`` rule),
+pad tokens masked out of routing (``token_mask``), and add the router's
+balance and z losses to the training loss (``loss_and_metrics``).
+``matmul_dtype`` ("int8" | "fp8") sends the block projections through
+``ops/quantized.quantized_dot`` (straight-through backward); a
+``QuantizedLinear`` leaf (``decode_weights``, weight-only serving) through
+``wo_dot``; the logits head always stays at the compute dtype. These three
+are outside the decode kernels: "fused" and "fused-layer" refuse them with
+the JAX package's reasons, and "auto" serves them on "xla", whose plain
+decode then runs the model's own products and FFN.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE blocks and ``matmul_dtype`` (A5), the parallel train steps
-(A7). The CUDA decode kernels compute in the model's dtype, bf16 or f32,
-at head dims 8 to 128 (``ops/fused_decode.HEAD_DIMS``).
+item): the parallel train steps, expert parallelism among them (A7). The
+CUDA decode kernels compute in the model's dtype, bf16 or f32, at head dims
+4 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -88,19 +103,26 @@ from distributed_tensorflow_tpu_torch.ops.fused_decode import (
     slot_group,
     verify_tokens_paged,
 )
-from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatten
+from distributed_tensorflow_tpu_torch.ops.moe import MoEAux, MoEParams, moe_ffn_local
+from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_map, tree_unflatten
 from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     gather_block_view,
     paged_extend_attention,
     scatter_rows,
 )
 from distributed_tensorflow_tpu_torch.ops.quantized import (
+    MATMUL_DTYPES,
+    QuantizedLinear,
     as_stored,
     dequantize_kv,
+    index_leaf,
     kv_elem_bytes,
     kv_quant_dtype,
     kv_storage_dtype,
     movable,
+    quantize_linear_columns,
+    quantized_dot,
+    wo_dot,
 )
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
@@ -126,10 +148,30 @@ class GPTBlockParams(NamedTuple):
     b_down: torch.Tensor
 
 
+class GPTMoEBlockParams(NamedTuple):
+    """A decoder block whose FFN is a top-k MoE (``ops/moe.py``): the
+    attention fields of :class:`GPTBlockParams`, the FFN weights stacked
+    over experts (axis 1; axis 0 is the layer)."""
+
+    ln1_scale: torch.Tensor
+    ln1_bias: torch.Tensor
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    ln2_scale: torch.Tensor
+    ln2_bias: torch.Tensor
+    wg: torch.Tensor  # [n, d, E] gate (stays f32)
+    w_up: torch.Tensor  # [n, E, d, 4d]
+    b_up: torch.Tensor  # [n, E, 4d]
+    w_down: torch.Tensor  # [n, E, 4d, d]
+    b_down: torch.Tensor  # [n, E, d]
+
+
 class GPTLMParams(NamedTuple):
     embed: torch.Tensor  # [vocab, d] (also the tied LM head)
     pos: torch.Tensor  # [max_len, d]
-    blocks: GPTBlockParams
+    blocks: GPTBlockParams  # or GPTMoEBlockParams
     lnf_scale: torch.Tensor
     lnf_bias: torch.Tensor
 
@@ -193,6 +235,10 @@ class GPTLM:
         attention_impl: str = "xla",
         window: int | None = None,
         moe_experts: int | None = None,
+        moe_capacity_factor: float = 2.0,
+        moe_balance_coef: float = 1e-2,
+        moe_z_coef: float = 1e-3,
+        moe_top_k: int = 1,
         pos_embedding: str = "learned",
         remat=False,
         flash_min_len: int | None = None,
@@ -211,11 +257,15 @@ class GPTLM:
             )
         if window is not None and window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        if moe_experts is not None:
-            raise NotImplementedError("MoE blocks are not ported yet (ROADMAP A5)")
-        if matmul_dtype is not None:
-            raise NotImplementedError(
-                "matmul_dtype projections are not ported yet (ROADMAP A5)"
+        if moe_experts is not None and moe_experts < 2:
+            raise ValueError(f"moe_experts must be >= 2, got {moe_experts}")
+        if moe_top_k < 1 or (moe_experts is not None and moe_top_k > moe_experts):
+            raise ValueError(f"moe_top_k {moe_top_k} must be in [1, moe_experts={moe_experts}]")
+        if moe_top_k > 1 and moe_experts is None:
+            raise ValueError(f"moe_top_k={moe_top_k} requires a MoE model (set moe_experts)")
+        if matmul_dtype is not None and matmul_dtype not in MATMUL_DTYPES:
+            raise ValueError(
+                f"unknown matmul_dtype {matmul_dtype!r}; None or one of {MATMUL_DTYPES}"
             )
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(
@@ -265,11 +315,21 @@ class GPTLM:
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
         self.window = window
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_top_k = moe_top_k
+        self.moe_balance_coef = moe_balance_coef
+        self.moe_z_coef = moe_z_coef
         self.pos_embedding = pos_embedding
         self.remat = remat
         self.flash_min_len = flash_min_len
         self.flash_fused = flash_fused
+        self.matmul_dtype = matmul_dtype
         self.decode_engine = decode_engine
+        if decode_engine in ("fused", "fused-layer"):
+            reason = self._config_unsupported_reason()
+            if reason is not None:
+                raise ValueError(f"decode_engine={decode_engine!r} unsupported: {reason}")
 
     # -- init --------------------------------------------------------------
 
@@ -277,7 +337,8 @@ class GPTLM:
         """Fresh parameters from ``seed`` (a CPU ``torch.Generator``, then
         moved to ``device``). The draws are PyTorch's, not JAX's; the shapes,
         scales and zero-initialized residual projections (``wo``,
-        ``w_down``) are the JAX package's."""
+        ``w_down``) are the JAX package's, MoE blocks' expert stacks and
+        f32 gate included."""
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         d, n = self.model_dim, self.num_layers
@@ -289,7 +350,7 @@ class GPTLM:
         def dense(shape):
             return normal(shape) / shape[-2] ** 0.5
 
-        blocks = GPTBlockParams(
+        attn = dict(
             ln1_scale=torch.ones(n, d),
             ln1_bias=torch.zeros(n, d),
             wq=dense((n, d, d)),
@@ -298,11 +359,25 @@ class GPTLM:
             wo=torch.zeros(n, d, d),
             ln2_scale=torch.ones(n, d),
             ln2_bias=torch.zeros(n, d),
-            w_up=dense((n, d, 4 * d)),
-            b_up=torch.zeros(n, 4 * d),
-            w_down=torch.zeros(n, 4 * d, d),
-            b_down=torch.zeros(n, d),
         )
+        if self.moe_experts is None:
+            blocks = GPTBlockParams(
+                **attn,
+                w_up=dense((n, d, 4 * d)),
+                b_up=torch.zeros(n, 4 * d),
+                w_down=torch.zeros(n, 4 * d, d),
+                b_down=torch.zeros(n, d),
+            )
+        else:
+            e = self.moe_experts
+            blocks = GPTMoEBlockParams(
+                **attn,
+                wg=dense((n, d, e)),
+                w_up=dense((n, e, d, 4 * d)),
+                b_up=torch.zeros(n, e, 4 * d),
+                w_down=torch.zeros(n, e, 4 * d, d),
+                b_down=torch.zeros(n, e, d),
+            )
         pos = (
             normal((self.max_len, d), 0.02)
             if self.pos_embedding == "learned"
@@ -319,18 +394,55 @@ class GPTLM:
 
     def serving_params(self, params: GPTLMParams) -> GPTLMParams:
         """The block projections pre-cast to the compute dtype, everything
-        else as it was. Products cast their operands to the compute dtype
-        anyway, so the math is unchanged; a server does this once instead
-        of casting ~50 MB of weights per decoded token."""
-        blocks = params.blocks._replace(
-            **{nm: getattr(params.blocks, nm).to(self.compute_dtype) for nm in PROJ_NAMES}
-        )
+        else (the MoE gate, ``QuantizedLinear`` leaves) as it was. Products
+        cast their operands to the compute dtype anyway, so the math is
+        unchanged; a server does this once instead of casting ~50 MB of
+        weights per decoded token. Under ``matmul_dtype`` the projections
+        stay as they are: ``quantized_dot`` scales the unrounded values."""
+        if self.matmul_dtype is not None:
+            return params
+        cast = {nm: getattr(params.blocks, nm) for nm in PROJ_NAMES}
+        blocks = params.blocks._replace(**{
+            nm: w.to(self.compute_dtype) for nm, w in cast.items()
+            if not isinstance(w, QuantizedLinear)})
         return params._replace(blocks=blocks)
+
+    def decode_weights(self, params: GPTLMParams, dtype: str) -> GPTLMParams:
+        """The decode projections quantized ONCE for weight-only serving
+        (JAX ``decode_weights``, :548): the block q/k/v/out projections and,
+        for dense blocks, the FFN pair become ``QuantizedLinear`` leaves
+        (int8/fp8 codes, one f32 scale an output column), which
+        :meth:`_dot` takes through ``wo_dot``. The logits head and the MoE
+        experts (and their gate) stay full precision. A serving artifact:
+        forward only, not a checkpoint."""
+        if dtype not in MATMUL_DTYPES:
+            raise ValueError(f"unknown decode weight dtype {dtype!r}; one of {MATMUL_DTYPES}")
+        names = ("wq", "wk", "wv", "wo")
+        if self.moe_experts is None:
+            names += ("w_up", "w_down")
+        repl = {nm: quantize_linear_columns(getattr(params.blocks, nm), dtype) for nm in names}
+        return params._replace(blocks=params.blocks._replace(**repl))
 
     # -- shared pieces -----------------------------------------------------
 
-    def _dot(self, x, w):
+    def _dot_full(self, x, w):
+        """The compute-dtype product with f32 accumulation (the logits head,
+        and every projection without ``matmul_dtype``)."""
         return dot(x, w, self.compute_dtype)
+
+    def _dot(self, x, w):
+        """A block projection: a ``QuantizedLinear`` leaf through
+        ``wo_dot``, else ``quantized_dot`` under ``matmul_dtype``, else
+        :meth:`_dot_full`."""
+        if isinstance(w, QuantizedLinear):
+            return wo_dot(x, w.qw, w.scale, self.compute_dtype)
+        if self.matmul_dtype is None:
+            return self._dot_full(x, w)
+        return quantized_dot(self.matmul_dtype, x, w)
+
+    @property
+    def _block_cls(self):
+        return GPTBlockParams if self.moe_experts is None else GPTMoEBlockParams
 
     def _attend(self, q, k, v, kv_lens=None):
         if self.attention_impl == "flash" and q.shape[1] >= resolve_flash_min_len(
@@ -352,14 +464,64 @@ class GPTLM:
             h = h + params.pos[positions.long().clamp(0, self.max_len - 1)]
         return h
 
-    def _ffn(self, blk, hn2):
-        up = self._dot(hn2, blk.w_up) + blk.b_up
-        return self._dot(F.gelu(up, approximate="tanh"), blk.w_down) + blk.b_down
+    def _moe_capacity(self, tokens: int) -> int:
+        """Static capacity an expert for a call routing ``tokens`` tokens
+        (GShard: factor x k x tokens / experts, at least 1)."""
+        return max(1, math.ceil(self.moe_capacity_factor * self.moe_top_k * tokens
+                                / self.moe_experts))
 
-    def _block(self, blk, h, positions, kv_lens=None, attend=None):
-        """Block forward on h [B, L, d]; also returns this block's k/v
-        [B, L, Hkv, Dh] (f32) for the cache. ``attend(q, k, v)`` swaps the
-        attention (the paged extend passes its own)."""
+    def _moe_block_ffn(self, blk, hn2, token_mask=None):
+        """The MoE FFN on hn2 [B, L, d]: tokens flattened and cast to the
+        compute dtype with the experts' weights (the gate stays f32),
+        routed by ``moe_ffn_local``. Capacity: every token for a
+        single-token call (the decode step never drops), else the factor
+        rule. Returns (out [B, L, d] f32, the router's ``MoEAux``)."""
+        cd = self.compute_dtype
+        b, l, d = hn2.shape
+        t = b * l
+        capacity = t if l == 1 else self._moe_capacity(t)
+        mp = MoEParams(blk.wg, blk.w_up.to(cd), blk.b_up.to(cd), blk.w_down.to(cd),
+                       blk.b_down.to(cd))
+        mask = None if token_mask is None else token_mask.reshape(t)
+        out, aux = moe_ffn_local(mp, hn2.reshape(t, d).to(cd), capacity, with_aux=True,
+                                 token_mask=mask, k=self.moe_top_k)
+        return out.float().reshape(b, l, d), aux
+
+    def _ffn(self, blk, hn2, token_mask=None):
+        """The dense FFN, or the MoE FFN of a ``GPTMoEBlockParams`` block,
+        on hn2 [B, L, d], output bias included: (out, aux), aux the
+        router's ``MoEAux`` (zeros for a dense block). ``token_mask``
+        [B, L] bool keeps pad tokens out of MoE routing."""
+        if isinstance(blk, GPTMoEBlockParams):
+            return self._moe_block_ffn(blk, hn2, token_mask)
+        up = self._dot(hn2, blk.w_up) + blk.b_up
+        out = self._dot(F.gelu(up, approximate="tanh"), blk.w_down) + blk.b_down
+        return out, MoEAux.zero(hn2.device)
+
+    def _decode_ffn(self, h, w):
+        """LN2, :meth:`_ffn` and the residual on one decode step's rows
+        h [S, d] (``w``: one layer's block fields by name), for the plain
+        decode of MoE and quantized models."""
+        blk = self._block_cls(**{nm: w[nm] for nm in self._block_cls._fields})
+        hn2 = layernorm(h, blk.ln2_scale, blk.ln2_bias)
+        return h + self._ffn(blk, hn2[:, None])[0][:, 0]
+
+    def _plain_fns(self, params):
+        """The plain decode's products and FFN for a model outside the
+        kernels' dense, compute-dtype weights (MoE, ``matmul_dtype``,
+        ``QuantizedLinear`` leaves): this model's :meth:`_dot` and
+        :meth:`_decode_ffn`; none (the kernels' plain versions as they are)
+        otherwise."""
+        if self._config_unsupported_reason() is None and \
+                self._params_unsupported_reason(params) is None:
+            return {}
+        return dict(dot_fn=self._dot, ffn_fn=self._decode_ffn)
+
+    def _block(self, blk, h, positions, kv_lens=None, attend=None, token_mask=None):
+        """Block forward on h [B, L, d]: (h, this block's k/v [B, L, Hkv,
+        Dh] (f32) for the cache, the FFN's ``MoEAux``). ``attend(q, k, v)``
+        swaps the attention (the paged extend passes its own);
+        ``token_mask`` [B, L] keeps pads out of MoE routing."""
         b, l, d = h.shape
         hn = layernorm(h, blk.ln1_scale, blk.ln1_bias)
         kv_shape = (b, l, self.num_kv_heads, self.head_dim)
@@ -371,32 +533,47 @@ class GPTLM:
         attn = attend(q, k, v) if attend else self._attend(q, k, v, kv_lens)
         h = h + self._dot(attn.reshape(b, l, d), blk.wo)
         hn2 = layernorm(h, blk.ln2_scale, blk.ln2_bias)
-        return h + self._ffn(blk, hn2), (k, v)
+        out, aux = self._ffn(blk, hn2, token_mask)
+        return h + out, (k, v), aux
 
     def _logits(self, p: GPTLMParams, h):
         hf = layernorm(h, p.lnf_scale, p.lnf_bias)
-        return self._dot(hf, p.embed.T)
+        return self._dot_full(hf, p.embed.T)
 
-    def _block_h(self, h, positions, *blk):
-        """:meth:`_block`'s residual stream alone, on the block's tensors
-        as arguments (what ``torch.utils.checkpoint`` wraps)."""
-        return self._block(GPTBlockParams(*blk), h, positions)[0]
+    def _block_h(self, h, positions, token_mask, *blk):
+        """:meth:`_block`'s residual stream and router statistics, on the
+        block's tensors as arguments (what ``torch.utils.checkpoint``
+        wraps)."""
+        h, _, aux = self._block(self._block_cls(*blk), h, positions, token_mask=token_mask)
+        return h, aux
 
     # -- training forward --------------------------------------------------
 
     def apply(self, params: GPTLMParams, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, L] int → logits [B, L, vocab] f32, causal."""
+        return self.apply_with_aux(params, tokens)[0]
+
+    def apply_with_aux(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None):
+        """:meth:`apply` and the router statistics of every layer (a
+        ``MoEAux`` of [num_layers] tensors; zeros for a dense model).
+        ``lengths`` [B] (ragged right-padded batches) keeps pad tokens out
+        of MoE routing, its capacity and the statistics."""
         l = tokens.shape[1]
         positions = torch.arange(l, device=tokens.device)
+        token_mask = (None if lengths is None
+                      else positions[None, :] < lengths.to(tokens.device)[:, None])
         h = self._embed_tokens(params, tokens, positions)
         kw = self._checkpoint_kw()
+        auxs = []
         for i in range(self.num_layers):
             blk = layer_params(params.blocks, i)
             if kw is None:
-                h = self._block_h(h, positions, *blk)
+                h, aux = self._block_h(h, positions, token_mask, *blk)
             else:
-                h = checkpoint(self._block_h, h, positions, *blk, use_reentrant=False, **kw)
-        return self._logits(params, h)
+                h, aux = checkpoint(self._block_h, h, positions, token_mask, *blk,
+                                    use_reentrant=False, **kw)
+            auxs.append(aux)
+        return self._logits(params, h), MoEAux(*(torch.stack(a) for a in zip(*auxs)))
 
     def _checkpoint_kw(self):
         """``torch.utils.checkpoint`` arguments for the ``remat`` knob, or
@@ -418,8 +595,25 @@ class GPTLM:
         """Training loss: mean next-token cross-entropy (positions 0..L-2
         predict 1..L-1, f32), masked to targets at positions < lengths[b]
         when ``lengths`` [B] is given (ragged right-padded batches; causal
-        attention keeps pads out of real positions)."""
-        return ce_from_logits(self.apply(params, tokens), tokens, lengths)
+        attention keeps pads out of real positions, ``lengths`` keeps them
+        out of MoE routing), plus for MoE models the router's balance and
+        z losses (:meth:`loss_and_metrics`)."""
+        return self.loss_and_metrics(params, tokens, lengths)[0]
+
+    def loss_and_metrics(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None):
+        """(total loss, metrics): ``ce`` always; MoE models add the layer
+        means ``balance_loss`` and ``z_loss`` (in the total, behind
+        ``moe_balance_coef`` / ``moe_z_coef``), ``drop_fraction`` (a
+        metric only) and ``expert_fraction`` [E] (layer mean)."""
+        logits, auxs = self.apply_with_aux(params, tokens, lengths)
+        ce = ce_from_logits(logits, tokens, lengths)
+        metrics = {"ce": ce}
+        if self.moe_experts is None:
+            return ce, metrics
+        balance, z = auxs.balance_loss.mean(), auxs.z_loss.mean()
+        metrics.update(balance_loss=balance, z_loss=z, drop_fraction=auxs.drop_fraction.mean(),
+                       expert_fraction=auxs.expert_fraction.mean(0))
+        return ce + self.moe_balance_coef * balance + self.moe_z_coef * z, metrics
 
     # -- slot-wise decoding (the serving surface, serve.py) ----------------
 
@@ -500,11 +694,13 @@ class GPTLM:
                                 kv_lens=lengths)
 
         positions = torch.arange(l, device=tokens.device)
+        token_mask = positions[None, :] < lengths[:, None]
         h = self._embed_tokens(params, tokens, positions)
         ks, vs = [], []
         for i in range(self.num_layers):
-            h, (k, v) = self._block(layer_params(params.blocks, i), h, positions,
-                                    kv_lens=lengths, attend=attend if qd else None)
+            h, (k, v), _ = self._block(layer_params(params.blocks, i), h, positions,
+                                       kv_lens=lengths, attend=attend if qd else None,
+                                       token_mask=token_mask)
             ks.append(k)
             vs.append(v)
         stored = self._stored(torch.stack(ks), torch.stack(vs), cache)
@@ -523,18 +719,53 @@ class GPTLM:
         h_last = h[rows, (lengths.long() - 1).clamp(min=0)]
         return self._logits(params, h_last), cache
 
-    def _resolve_decode_engine(self, engine: str | None) -> str:
+    def _config_unsupported_reason(self) -> str | None:
+        """The JAX package's config reasons (``models/gpt.py:1137-1148``)
+        why no decode kernel serves this model: MoE blocks, or
+        ``matmul_dtype`` projections; None otherwise."""
+        if self.moe_experts is not None:
+            return ("MoE blocks route through ops/moe (expert dispatch is not a single-launch "
+                    "shape); serve MoE models on the XLA engine")
+        if self.matmul_dtype is not None:
+            return ("matmul_dtype projections route through ops/quantized.quantized_dot; the "
+                    "fused kernel runs compute-dtype weights only")
+        return None
+
+    @staticmethod
+    def _params_unsupported_reason(params) -> str | None:
+        """The JAX package's params reason (``models/gpt.py:1186-1194``):
+        weight-only quantized projections (``QuantizedLinear`` leaves)."""
+        if params is not None and any(
+                isinstance(getattr(params.blocks, nm, None), QuantizedLinear)
+                for nm in PROJ_NAMES):
+            return ("weight-only quantized decode params (QuantizedLinear leaves from "
+                    "decode_weights) route through wo_dot; the fused kernels run compute-dtype "
+                    "weights only")
+        return None
+
+    def _resolve_decode_engine(self, engine: str | None, params=None) -> str:
         """The per-call override (None → the model's knob) resolved to
-        "fused", "fused-layer" or "xla". "auto" is the megakernel, on any
-        device: on the card it launches or raises for what the kernels do
-        not compute (a head dim they are not built for), and never becomes "xla" (the JAX
-        package's off-TPU "auto" does). "xla" — the plain decode on
-        whatever device the tensors are on — runs only when named. On the
-        CPU every engine runs the plain versions."""
+        "fused", "fused-layer" or "xla". A MoE or ``matmul_dtype`` model,
+        or ``params`` with ``QuantizedLinear`` leaves, is outside the
+        kernels: "fused" and "fused-layer" raise with the JAX package's
+        reason and "auto" resolves to "xla", as JAX's does (:1201-1203).
+        Otherwise "auto" is the megakernel, on any device: on the card it
+        launches or raises for a shape the kernels do not take (a head dim
+        they are not built for), and never becomes "xla" (the JAX package's
+        off-TPU "auto" does). "xla" — the plain decode on whatever device
+        the tensors are on — runs when named or resolved so. On the CPU
+        every engine runs the plain versions."""
         e = self.decode_engine if engine is None else engine
         if e not in DECODE_ENGINES:
             raise ValueError(f"unknown decode engine {e!r}; one of {DECODE_ENGINES}")
-        return "fused" if e == "auto" else e
+        if e == "xla":
+            return e
+        reason = self._config_unsupported_reason() or self._params_unsupported_reason(params)
+        if e == "auto":
+            return "xla" if reason else "fused"
+        if reason is not None:
+            raise ValueError(f"decode_engine={e!r} unsupported: {reason}")
+        return e
 
     def _decode_unsupported_reason(self, *, slots: int, rows: int = 1,
                                    block_size: int | None = None, kv_dtype: str = "bf16",
@@ -542,7 +773,9 @@ class GPTLM:
         """Why the CUDA decode kernels cannot serve this model, or None when
         they can: the port's counterpart of the JAX
         ``_decode_unsupported_reason`` (``models/gpt.py:1129``), with the
-        port's envelope. ``slots`` slots of ``rows`` rows each (1 for the
+        port's envelope: first the JAX config reasons (MoE blocks,
+        ``matmul_dtype``), then the slot planner's. ``slots`` slots of
+        ``rows`` rows each (1 for the
         decode step, ``spec_draft + 1`` for the verify) over the slab's
         ``cache_len`` positions, or (``block_size``) the pool's
         ``paged_blocks_per_slot(block_size) · block_size``, in the model's
@@ -554,6 +787,9 @@ class GPTLM:
         engine's 8 MiB VMEM cap a layer is the TPU's and has no counterpart
         here. Pure Python, so a test pins it on the CPU with the H100's
         figures."""
+        reason = self._config_unsupported_reason()
+        if reason is not None:
+            return reason
         if block_size is None:
             mb, c = 0, self.cache_len
         else:
@@ -587,7 +823,7 @@ class GPTLM:
             self._refuse_full_cache(cache.lengths, act)
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
-        eng = self._resolve_decode_engine(engine)
+        eng = self._resolve_decode_engine(engine, params)
         if eng == "fused-layer":
             for i in range(self.num_layers):
                 weights = {nm: getattr(params.blocks, nm)[i] for nm in WEIGHT_NAMES}
@@ -597,12 +833,16 @@ class GPTLM:
                     v_scale=vs)
                 commit_slot_rows(cache.k[i], cache.v[i], kq, vq, cache.lengths, act, ks, vs,
                                  kqs, vqs, self.window)
-        else:
-            step = decode_token_slab if eng == "fused" else decode_token_slab_plain
+        elif eng == "fused":
             weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
             ks, vs = _scales(cache)
-            h, _, _ = step(h, weights, cache.k, cache.v, cache.lengths, act, **kw, k_scale=ks,
-                           v_scale=vs)
+            h, _, _ = decode_token_slab(h, weights, cache.k, cache.v, cache.lengths, act, **kw,
+                                        k_scale=ks, v_scale=vs)
+        else:
+            ks, vs = _scales(cache)
+            h, _, _ = decode_token_slab_plain(h, params.blocks._asdict(), cache.k, cache.v,
+                                              cache.lengths, act, **kw, k_scale=ks, v_scale=vs,
+                                              **self._plain_fns(params))
         new_cache = cache._replace(lengths=cache.lengths + act.to(cache.lengths.dtype))
         return self._logits(params, h), new_cache
 
@@ -633,7 +873,7 @@ class GPTLM:
         h = self._embed_tokens(params, tokens, positions)
         ks, vs = [], []
         for i in range(self.num_layers):
-            h, (k, v) = self._block(layer_params(params.blocks, i), h, positions)
+            h, (k, v), _ = self._block(layer_params(params.blocks, i), h, positions)
             ks.append(k)
             vs.append(v)
         ks = torch.stack(ks).to(self.compute_dtype)
@@ -837,8 +1077,9 @@ class GPTLM:
                     positions, prefix_lens, suffix_lens, self.window,
                 )
 
-            h, (k, v) = self._block(
-                layer_params(params.blocks, i), h, positions, attend=attend
+            h, (k, v), _ = self._block(
+                layer_params(params.blocks, i), h, positions, attend=attend,
+                token_mask=token_mask,
             )
             ks.append(k)
             vs.append(v)
@@ -859,7 +1100,7 @@ class GPTLM:
         logits head stays a plain product); "fused-layer" and "xla"
         delegate to :meth:`extend_paged`, as the JAX per-layer and XLA
         engines do."""
-        if self._resolve_decode_engine(engine) != "fused":
+        if self._resolve_decode_engine(engine, params) != "fused":
             return self.extend_paged(
                 params, cache, tokens, suffix_lens, prefix_lens, admit
             )
@@ -893,7 +1134,7 @@ class GPTLM:
         h = self._embed_tokens(params, token[:, None], cache.lengths[:, None])[:, 0]
         kw = self._kernel_kw()
         tables, lengths = cache.block_tables, cache.lengths
-        eng = self._resolve_decode_engine(engine)
+        eng = self._resolve_decode_engine(engine, params)
         if eng == "fused-layer":
             for i in range(self.num_layers):
                 weights = {nm: getattr(params.blocks, nm)[i] for nm in WEIGHT_NAMES}
@@ -903,12 +1144,16 @@ class GPTLM:
                     v_scale=vs)
                 commit_paged_rows(cache.k[i], cache.v[i], kq, vq, tables, lengths, act, ks,
                                   vs, kqs, vqs)
-        else:
-            step = decode_token_paged if eng == "fused" else decode_token_paged_plain
+        elif eng == "fused":
             weights = {nm: getattr(params.blocks, nm) for nm in WEIGHT_NAMES}
             ks, vs = _scales(cache)
-            h, _, _ = step(h, weights, cache.k, cache.v, tables, lengths, act, **kw,
-                           k_scale=ks, v_scale=vs)
+            h, _, _ = decode_token_paged(h, weights, cache.k, cache.v, tables, lengths, act,
+                                         **kw, k_scale=ks, v_scale=vs)
+        else:
+            ks, vs = _scales(cache)
+            h, _, _ = decode_token_paged_plain(h, params.blocks._asdict(), cache.k, cache.v,
+                                               tables, lengths, act, **kw, k_scale=ks,
+                                               v_scale=vs, **self._plain_fns(params))
         new_cache = cache._replace(lengths=lengths + act.to(lengths.dtype))
         return self._logits(params, h), new_cache
 
@@ -954,20 +1199,16 @@ def rolling_layout(x, lengths, c):
     return torch.take_along_dim(movable(x), p, dim=2).view(x.dtype)
 
 
-def layer_params(blocks: GPTBlockParams, i: int) -> GPTBlockParams:
-    """Layer ``i`` of the stacked block parameters."""
-    return GPTBlockParams(*(t[i] for t in blocks))
+def layer_params(blocks, i: int):
+    """Layer ``i`` of the stacked block parameters (dense or MoE;
+    ``QuantizedLinear`` leaves indexed field by field)."""
+    return type(blocks)(*(index_leaf(t, i) for t in blocks))
 
 
 def map_params(params: GPTLMParams, fn) -> GPTLMParams:
-    """Apply ``fn`` to every tensor of a params tree."""
-    return GPTLMParams(
-        embed=fn(params.embed),
-        pos=fn(params.pos),
-        blocks=GPTBlockParams(*(fn(t) for t in params.blocks)),
-        lnf_scale=fn(params.lnf_scale),
-        lnf_bias=fn(params.lnf_bias),
-    )
+    """Apply ``fn`` to every tensor of a params tree (MoE blocks and
+    ``QuantizedLinear`` leaves included)."""
+    return tree_map(fn, params)
 
 
 def picked_nll(logits32, targets):

@@ -150,7 +150,14 @@
 // so a 1-byte cache moves a fraction of the bytes with the same per-thread
 // geometry as its compute dtype's cache: a row takes Dh / 8 lanes in bf16,
 // Dh / 4 in f32 (LPR: 1 to 32 lanes a key row, Dh = 8 to 128); the
-// softmax's maxima and sums meet across the warps in warp order.
+// softmax's maxima and sums meet across the warps in warp order. Dh = 4 is
+// one lane a row in both builds: the f32 build streams its whole 16-byte
+// row (or 4 codes) as at any Dh; the bf16 build, whose lanes take 8 dims,
+// copies a half slot (8 bytes of bf16, or 4 codes, through the 8- and
+// 4-byte copies) and zeroes dims 4-7 where it unpacks them, so the scores'
+// and P·V's extra terms are exact zeros and the other head dims run the
+// same instructions (one body: a second instantiation of the attention for
+// Dh = 4 spilled a register in the bf16 build).
 // The grid barrier is a flag a CTA (grid_sync), polled by one warp a CTA:
 // a single counter would take every CTA's atomic (PERF.md section 6 has the
 // two timed). Its epochs are kept on the device, so a launch needs no state
@@ -1193,7 +1200,9 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
   // chunk needs no barrier; RING - 1 chunks are in flight. The current
   // block: its first position b0, its bn cache keys in nc chunks.
   const float scale = rsqrtf((float)Dh);
-  const int LPR = Dh / VD, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
+  // A half row a lane (bf16 build, Dh = 4): see the top of the file.
+  const bool half = VD == 8 && Dh < VD;
+  const int LPR = half ? 1 : Dh / VD, sub = lane % LPR, cr = tid / LPR, CP = CT / LPR;
   int b0 = lo, bn = min(nkv, KB), nc = (bn + CP - 1) / CP;
   const auto block = [&](int b) {
     b0 = lo + b * KB;
@@ -1210,11 +1219,13 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       const size_t row = rows_of(D, tab, s, j), off = row * kvw + (size_t)hk * Dh + sub * VD;
       unsigned char* slot = ring + (size_t)(c % RING) * CT * 16;
       if constexpr (QUANT) {
-        if constexpr (VD == 8)
+        if (VD == 8 && !half)
           cp_async8(slot, cache + off);
         else
           cp_async4(slot, cache + off);
         if (sub == 0) cp_async4(slot + 8, scales + row * D.Hkv + hk);  // the row's lanes share it
+      } else if (half) {
+        cp_async8(slot, cache + off);
       } else {
         cp_async16(slot, cache + off);
       }
@@ -1250,6 +1261,11 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
       unpack16(c * CP + cr < bn ? *reinterpret_cast<const uint4*>(slot)
                                  : make_uint4(0u, 0u, 0u, 0u),
                xv, (const KV*)nullptr);
+    }
+    if constexpr (VD == 8) {
+      if (half)  // the slot's second half holds no dims of this row
+#pragma unroll
+        for (int e = 4; e < 8; ++e) xv[e] = 0.f;
     }
   };
   const auto prime = [&](const KV* cache, const float* scales, bool to_l2) {
@@ -1479,7 +1495,7 @@ __device__ void attend(const Coop& a, float* base, int l, int s, int hk, bool fi
           for (int e = 0; e < VD; ++e) {
             float v = acc[ii][e];
             for (int o = LPR; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-            if (pr == 0) pv[((size_t)warp * GMAX + ii) * Dh + sub * VD + e] = v;
+            if (pr == 0 && (e < 4 || !half)) pv[((size_t)warp * GMAX + ii) * Dh + sub * VD + e] = v;
           }
         }
       }
@@ -1879,7 +1895,7 @@ int launch_coop(Coop& a, const int* plan, int k, int kv, void* stream) {
   const int rows = D.S * a.R;
   const bool fresh = k >= 3;  // the per-layer steps write their fresh rows out
   if (D.Hkv < 1 || D.Hq % D.Hkv ||
-      (D.Dh != 8 && D.Dh != 16 && D.Dh != 32 && D.Dh != 64 && D.Dh != 128) ||
+      (D.Dh != 4 && D.Dh != 8 && D.Dh != 16 && D.Dh != 32 && D.Dh != 64 && D.Dh != 128) ||
       D.d != D.Hq * D.Dh ||
       D.d % 16 || D.F % 16 || rows < 1 || rows > 64 || a.n_layers < 1 || !a.flags ||
       D.W < 0 || (D.rolling && (D.MB || D.W < 1)) ||

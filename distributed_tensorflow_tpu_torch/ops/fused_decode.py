@@ -4,7 +4,7 @@ versions.
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas_decode.py``, slab and
 paged, with RoPE, bf16 or f32 compute (the JAX kernels' ``compute_dtype=``)
 and caches of the compute dtype or of int8 or fp8 (e4m3) codes, at head dims
-8, 16, 32, 64 and 128:
+4, 8, 16, 32, 64 and 128:
 
 - :func:`decode_block_slab` (JAX :524) and :func:`decode_block_paged`
   (:566) — one layer's step per slot; the fresh K/V rows return to the
@@ -85,7 +85,12 @@ from distributed_tensorflow_tpu_torch.ops.paged_attention import (
     paged_extend_attention,
     scatter_rows,
 )
-from distributed_tensorflow_tpu_torch.ops.quantized import as_stored, dequantize_kv, movable
+from distributed_tensorflow_tpu_torch.ops.quantized import (
+    as_stored,
+    dequantize_kv,
+    index_leaf,
+    movable,
+)
 
 WEIGHT_NAMES = (
     "ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo",
@@ -94,8 +99,9 @@ WEIGHT_NAMES = (
 # The projections, stored in the compute dtype; the rest stay f32.
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
 # The head dims the kernels take (the attention task's lanes a key row:
-# Dh / 8 in bf16 compute, Dh / 4 in f32).
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# Dh / 8 in bf16 compute, Dh / 4 in f32, and one at Dh = 4, where a bf16
+# lane takes a half slot).
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)
 _rope = rope  # the wrappers' keyword `rope` shadows the function inside them
 
 
@@ -196,18 +202,22 @@ def paged_valid(lengths, c, window=None):
     return valid
 
 
-def _block_plain(h, w, ck, cv, lengths, valid, num_heads, rope_on, cd, ks=None, vs=None):
+def _block_plain(h, w, ck, cv, lengths, valid, num_heads, rope_on, cd, ks=None, vs=None,
+                 dot_fn=None, ffn_fn=None):
     """One layer's step (plain) over the per-slot view ``ck``/``cv``
     [S, C, Hkv, Dh] (scales ``ks``/``vs`` [S, C, Hkv] for 1-byte codes)
     whose positions ``valid`` [S, C] the step attends: returns (h_out
     [S, d] f32, k_fresh, v_fresh [S, Hkv, Dh] as stored, their scales
-    [S, Hkv] or None)."""
+    [S, Hkv] or None). ``dot_fn(x, w)`` and ``ffn_fn(h, w)`` (LN2, the FFN
+    and its residual) replace the dense compute-dtype products and FFN
+    (a MoE or quantized model's own, ``GPTLM._plain_fns``)."""
     s, d = h.shape
     c, hkv, dh = ck.shape[1], ck.shape[2], ck.shape[3]
+    dot_fn = dot_fn or (lambda x, wt: dot(x, wt, cd))
     hn = layernorm(h, w["ln1_scale"], w["ln1_bias"])
-    q = dot(hn, w["wq"], cd).reshape(s, 1, num_heads, dh)
-    k = dot(hn, w["wk"], cd).reshape(s, 1, hkv, dh)
-    v = dot(hn, w["wv"], cd).reshape(s, 1, hkv, dh)
+    q = dot_fn(hn, w["wq"]).reshape(s, 1, num_heads, dh)
+    k = dot_fn(hn, w["wk"]).reshape(s, 1, hkv, dh)
+    v = dot_fn(hn, w["wv"]).reshape(s, 1, hkv, dh)
     if rope_on:
         pos = lengths[:, None]
         q, k = rope(q, pos), rope(k, pos)
@@ -222,12 +232,13 @@ def _block_plain(h, w, ck, cv, lengths, valid, num_heads, rope_on, cd, ks=None, 
     p = torch.softmax(torch.cat([sc, sf], dim=-1), dim=-1).to(pdt).float()
     attn = torch.einsum("shgk,skhd->shgd", p[..., :c], _cache_view(cv, vs, cd))
     attn = attn + p[..., c:] * vf[:, :, None, :]
-    h = h + dot(attn.reshape(s, num_heads * dh), w["wo"], cd)
-    return _ffn_plain(h, w, cd), kq, vq, kqs, vqs
+    h = h + dot_fn(attn.reshape(s, num_heads * dh), w["wo"])
+    h = ffn_fn(h, w) if ffn_fn else _ffn_plain(h, w, cd)
+    return h, kq, vq, kqs, vqs
 
 
 def _layer(weights, i):
-    return {nm: weights[nm][i] for nm in WEIGHT_NAMES}
+    return {nm: index_leaf(t, i) for nm, t in weights.items()}
 
 
 def _at(scale, i):
@@ -245,22 +256,24 @@ def decode_block_slab_plain(h, weights, ck, cv, lengths, *, num_heads, rope=Fals
 
 def decode_token_slab_plain(h, weights, ck, cv, lengths, active, *, num_heads, rope=False,
                             compute_dtype=torch.bfloat16, k_scale=None, v_scale=None,
-                            window=None):
+                            window=None, dot_fn=None, ffn_fn=None):
     """Plain version of :func:`decode_token_slab`: the per-layer step and
-    commit, layer by layer."""
+    commit, layer by layer (``dot_fn`` / ``ffn_fn``: :func:`_block_plain`'s,
+    for the plain decode of models the kernel does not take)."""
     h = h.float()
     valid = slab_valid(lengths, ck.shape[2], window)
     for i in range(ck.shape[0]):
         ks, vs = _at(k_scale, i), _at(v_scale, i)
         h, kq, vq, kqs, vqs = _block_plain(h, _layer(weights, i), ck[i], cv[i], lengths, valid,
-                                           num_heads, rope, compute_dtype, ks, vs)
+                                           num_heads, rope, compute_dtype, ks, vs, dot_fn,
+                                           ffn_fn)
         commit_slot_rows(ck[i], cv[i], kq, vq, lengths, active, ks, vs, kqs, vqs, window)
     return h, ck, cv
 
 
 def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *, num_heads,
                              rope=False, compute_dtype=torch.bfloat16, k_scale=None,
-                             v_scale=None, window=None):
+                             v_scale=None, window=None, dot_fn=None, ffn_fn=None):
     """Plain version of :func:`decode_block_paged`: the PRE-write view
     gathered through the tables, then the slab step."""
     ck = gather_block_view(pool_k, tables)
@@ -269,21 +282,23 @@ def decode_block_paged_plain(h, weights, pool_k, pool_v, tables, lengths, *, num
     vs = None if v_scale is None else gather_block_view(v_scale, tables)
     return _block_plain(h.float(), weights, ck, cv, lengths,
                         paged_valid(lengths, ck.shape[1], window), num_heads, rope,
-                        compute_dtype, ks, vs)
+                        compute_dtype, ks, vs, dot_fn, ffn_fn)
 
 
 def decode_token_paged_plain(h, weights, pool_k, pool_v, tables, lengths, active, *,
                              num_heads, rope=False, compute_dtype=torch.bfloat16,
-                             k_scale=None, v_scale=None, window=None):
+                             k_scale=None, v_scale=None, window=None, dot_fn=None,
+                             ffn_fn=None):
     """Plain version of :func:`decode_token_paged`: per layer, the step over
-    the gathered view, then the fresh row scattered through the tables."""
+    the gathered view, then the fresh row scattered through the tables
+    (``dot_fn`` / ``ffn_fn`` as in :func:`decode_token_slab_plain`)."""
     h = h.float()
     for i in range(pool_k.shape[0]):
         ks, vs = _at(k_scale, i), _at(v_scale, i)
         h, kq, vq, kqs, vqs = decode_block_paged_plain(
             h, _layer(weights, i), pool_k[i], pool_v[i], tables, lengths,
             num_heads=num_heads, rope=rope, compute_dtype=compute_dtype, k_scale=ks,
-            v_scale=vs, window=window,
+            v_scale=vs, window=window, dot_fn=dot_fn, ffn_fn=ffn_fn,
         )
         commit_paged_rows(pool_k[i], pool_v[i], kq, vq, tables, lengths, active, ks, vs,
                           kqs, vqs)
@@ -371,9 +386,8 @@ COOP_WARPS = COOP_THREADS // 32
 # in groups, :func:`slot_group`).
 COOP_MAX_ROWS = 64
 # Score tiles narrower than the cache extent are multiples of this many
-# keys, rounded up to whole chunks of the attention's K/V stream
-# (COOP_THREADS / (Dh / 8) keys a chunk in bf16 compute, / (Dh / 4) in
-# f32: 12 to 384).
+# keys, rounded up to whole chunks of the attention's K/V stream (12 to
+# 384 keys a chunk: COOP_THREADS over the lanes a key row takes).
 KB_STEP = 96
 # The weight ring the plan aims for: chunks are halved until this many fit.
 WSLOTS_WANTED = 4
@@ -477,7 +491,8 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
     memory a CTA. ``w_bytes``: the compute dtype's bytes (2 bf16, 4 f32),
     which the weights, the staged activations and the scratch between
     phases take, and which sets the dims a thread streams of a K/V row (8
-    in bf16, 4 in f32) and so the keys a chunk of the stream holds;
+    in bf16, 4 in f32; the whole row at head dim 4) and so the keys a chunk
+    of the stream holds;
     ``kv_bytes``: the cache's (1 for codes, else the compute dtype's).
     ``ref_rows`` (default ``s * r``) sets the k-groups the
     products split K into, so a launch over part of a step's slots sums in
@@ -498,7 +513,7 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
     if hkv < 1 or hq % hkv:
         why.append(f"query heads ({hq}) a multiple of the KV heads ({hkv})")
     if dh not in HEAD_DIMS:
-        why.append(f"head_dim 8, 16, 32, 64 or 128 (got {dh})")
+        why.append(f"head_dim 4, 8, 16, 32, 64 or 128 (got {dh})")
     if d != hq * dh:
         why.append(f"model_dim ({d}) = heads x head_dim ({hq} x {dh})")
     if d % 16:
@@ -638,7 +653,9 @@ def coop_plan(s, r, n_layers, d, hq, hkv, dh, f, c, mb, nsm, occupancy,
 
     kb = c
     prods, lay_, smem, over = layout(kb)
-    chunk = COOP_THREADS * (4 if w_bytes == 4 else 8) // dh  # keys a chunk of K/V
+    # Keys a chunk of K/V: a thread streams 8 dims of a row in bf16, 4 in
+    # f32, the whole row at Dh = 4.
+    chunk = COOP_THREADS * min(dh, 4 if w_bytes == 4 else 8) // dh
     step = _up(KB_STEP, chunk)
     if over and not any("column tiles" in o for o in over) and c > step:
         # Score tiles narrower than the extent: the widest that leaves

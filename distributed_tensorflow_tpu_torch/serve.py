@@ -56,7 +56,16 @@ streams equal in-process greedy decoding token for token.
   (``serve_pool.blocks_for_hbm_bytes``), scales charged. The radix shares a
   block's scales with the block.
 
-Waiting for later slices: quantized weights (A5), deadlines and shedding,
+- **Weight-only quantized decode** (``decode_matmul_dtype="int8"|"fp8"``):
+  the projections are quantized once at construction
+  (``GPTLM.decode_weights``) and that tree serves every path (prefill,
+  decode, verify), so streams are the in-process decode's of the quantized
+  weights; it composes with ``kv_dtype`` and ``spec_draft``. Such a tree,
+  a MoE model and a ``matmul_dtype`` model are outside the decode kernels:
+  "auto" serves them on "xla" (``TextServer.engine`` says which engine
+  was resolved), "fused" and "fused-layer" are refused at construction.
+
+Waiting for later slices: deadlines and shedding,
 weight swap, drain, KV export/import, the event journal, the metrics
 registry and its exporter (A8). ``counters`` keeps the JAX
 package's pool and speculation counter names.
@@ -74,7 +83,7 @@ import torch
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import GPTLM, GPTLMParams, map_params
 from distributed_tensorflow_tpu_torch.ops.fused_decode import coop_constants
-from distributed_tensorflow_tpu_torch.ops.quantized import KV_DTYPES, kv_elem_bytes
+from distributed_tensorflow_tpu_torch.ops.quantized import KV_DTYPES, MATMUL_DTYPES, kv_elem_bytes
 from distributed_tensorflow_tpu_torch.serve_pool import (
     BlockAllocator,
     PrefixCache,
@@ -143,8 +152,12 @@ class TextServer:
     size and scales charged), ``prefix_caching``, ``spec_draft`` (draft
     tokens per verify, 0 = off; needs ``paged``) and ``spec_ngram``.
     ``kv_dtype`` "bf16" | "int8" | "fp8" picks the cache's storage (slab or
-    pool). ``decode_engine`` None defers to the model's knob; "xla" is the
-    plain decode, taken only when named. On the card a model or shape that
+    pool). ``decode_matmul_dtype`` None | "int8" | "fp8" quantizes the
+    projection weights once for weight-only decode. ``decode_engine`` None
+    defers to the model's knob; "xla" is the plain decode, taken when named
+    or when "auto" meets a model outside the kernels (MoE, ``matmul_dtype``,
+    quantized weights); ``engine`` is the one resolved. On the card a model
+    or shape that
     the server's decode kernels do not take (a head dim they are not built
     for, a verify of more rows a slot than a launch takes, shared memory)
     is refused here, at construction, with the reason
@@ -165,6 +178,7 @@ class TextServer:
         kv_blocks: int | None = None,
         kv_hbm_bytes: int | None = None,
         kv_dtype: str = "bf16",
+        decode_matmul_dtype: str | None = None,
         decode_engine: str | None = None,
         prefix_caching: bool = True,
         spec_draft: int = 0,
@@ -177,6 +191,11 @@ class TextServer:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; one of {KV_DTYPES}")
+        if decode_matmul_dtype is not None and decode_matmul_dtype not in MATMUL_DTYPES:
+            raise ValueError(
+                f"unknown decode_matmul_dtype {decode_matmul_dtype!r}; None or one of "
+                f"{MATMUL_DTYPES}"
+            )
         if kv_hbm_bytes is not None and not paged:
             raise ValueError("kv_hbm_bytes sizes the paged block pool; pass paged=True")
         if kv_hbm_bytes is not None and kv_blocks is not None:
@@ -195,14 +214,18 @@ class TextServer:
             )
         self.device = resolve_device(device)
         self.model = model
-        engine = model._resolve_decode_engine(decode_engine)  # unknown names raise here
+        params = map_params(params, lambda t: t.to(self.device))
+        # Weight-only decode: quantized once, and that tree serves every path.
+        self.decode_matmul_dtype = decode_matmul_dtype
+        if decode_matmul_dtype is not None:
+            params = model.decode_weights(params, decode_matmul_dtype)
+        # Unknown names, and a kernel engine for what no kernel serves, raise.
+        self.engine = model._resolve_decode_engine(decode_engine, params)
         self.decode_engine = decode_engine
-        if self.device.type == "cuda" and engine != "xla":
-            self._refuse_unsupported(model, engine, slots, paged, block_size, spec_draft,
+        if self.device.type == "cuda" and self.engine != "xla":
+            self._refuse_unsupported(model, self.engine, slots, paged, block_size, spec_draft,
                                      kv_dtype)
-        self.params = model.serving_params(
-            map_params(params, lambda t: t.to(self.device))
-        )
+        self.params = model.serving_params(params)
         self.tokenizer = tokenizer
         self.slots = slots
         self.chunk = chunk

@@ -104,11 +104,17 @@ class LMTrainer:
                 )
         self.config = config or TrainConfig()
         self.tokenizer = tokenizer
-        # The config's remat lands on a shallow copy, so the caller's model
-        # object keeps its own setting (as in the JAX trainer).
-        if self.config.remat and not model.remat:
+        # The config's remat and matmul_dtype land on a shallow copy, so the
+        # caller's model object keeps its own settings (as in the JAX
+        # trainer); a knob already set on the model wins.
+        apply_remat = self.config.remat and not model.remat
+        apply_mm = self.config.matmul_dtype and model.matmul_dtype is None
+        if apply_remat or apply_mm:
             model = copy.copy(model)
-            model.remat = self.config.remat
+            if apply_remat:
+                model.remat = self.config.remat
+            if apply_mm:
+                model.matmul_dtype = self.config.matmul_dtype
         self.model = model
         self.datasets = datasets
         self.device = resolve_device(device)

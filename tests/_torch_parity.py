@@ -37,9 +37,14 @@ def numpy_params(jmodel, seed=0) -> dict:
     blocks = {k: np.asarray(v).copy() for k, v in p.blocks._asdict().items()}
     n, d, _ = blocks["wo"].shape
     f = blocks["w_up"].shape[-1]
+    # MoE blocks: the FFN fields carry an expert axis after the layer's, and
+    # the gate is drawn here too.
+    e = (blocks["wg"].shape[-1],) if "wg" in blocks else ()
     blocks["wo"] = (rng.standard_normal((n, d, d)) / np.sqrt(d)).astype(np.float32)
-    blocks["w_down"] = (rng.standard_normal((n, f, d)) / np.sqrt(f)).astype(np.float32)
-    for nm, shape in (("b_up", (n, f)), ("b_down", (n, d)), ("ln1_bias", (n, d)),
+    blocks["w_down"] = (rng.standard_normal((n, *e, f, d)) / np.sqrt(f)).astype(np.float32)
+    if e:
+        blocks["wg"] = (rng.standard_normal((n, d, *e)) / np.sqrt(d)).astype(np.float32)
+    for nm, shape in (("b_up", (n, *e, f)), ("b_down", (n, *e, d)), ("ln1_bias", (n, d)),
                       ("ln2_bias", (n, d))):
         blocks[nm] = (0.05 * rng.standard_normal(shape)).astype(np.float32)
     for nm in ("ln1_scale", "ln2_scale"):
@@ -55,12 +60,17 @@ def numpy_params(jmodel, seed=0) -> dict:
 
 def jax_params(tree):
     import jax.numpy as jnp
-    from distributed_tensorflow_tpu.models.gpt import GPTBlockParams, GPTLMParams
+    from distributed_tensorflow_tpu.models.gpt import (
+        GPTBlockParams,
+        GPTLMParams,
+        GPTMoEBlockParams,
+    )
 
+    cls = GPTMoEBlockParams if "wg" in tree["blocks"] else GPTBlockParams
     return GPTLMParams(
         embed=jnp.asarray(tree["embed"]),
         pos=jnp.asarray(tree["pos"]),
-        blocks=GPTBlockParams(**{k: jnp.asarray(v) for k, v in tree["blocks"].items()}),
+        blocks=cls(**{k: jnp.asarray(v) for k, v in tree["blocks"].items()}),
         lnf_scale=jnp.asarray(tree["lnf_scale"]),
         lnf_bias=jnp.asarray(tree["lnf_bias"]),
     )

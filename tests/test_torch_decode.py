@@ -496,7 +496,7 @@ def test_coop_plan_small_shapes(s, r, c, mb, hq, hkv, dh, nsm, occ):
 
 
 @pytest.mark.parametrize("kw,reason", [
-    (dict(dh=256, hq=2), r"head_dim 8, 16, 32, 64 or 128 \(got 256\)"),
+    (dict(dh=256, hq=2), r"head_dim 4, 8, 16, 32, 64 or 128 \(got 256\)"),
     (dict(s=1, r=65), r"1 to 64 rows in all, slots x rows a slot \(got 1 x 65\)"),
     (dict(s=9, r=8), "1 to 64 rows in all"),
     (dict(d=640), r"model_dim \(640\) = heads x head_dim"),

@@ -76,7 +76,7 @@ REASON_CASES = (
           pos_embedding="rope"), 8, 5, 4, "int8", None),
     (dict(max_len=64, model_dim=64, num_heads=4), 8, 1, None, "bf16", None),
     (dict(model_dim=512, num_heads=2), 8, 1, None, "bf16",
-     r"head_dim 8, 16, 32, 64 or 128 \(got 256\)"),
+     r"head_dim 4, 8, 16, 32, 64 or 128 \(got 256\)"),
     (dict(model_dim=2048, num_heads=16), 8, 17, 16, "bf16", "17 rows a slot exceed the 16 rows"),
 )
 

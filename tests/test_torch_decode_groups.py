@@ -176,7 +176,7 @@ REASON_CASES = (
     (dict(num_kv_heads=2, max_len=2048), 16, 5, 16, None),
     (dict(), 100, 1, None, None),
     (dict(compute_dtype=torch.float32), 8, 1, None, None),
-    (dict(model_dim=512, num_heads=2), 8, 1, None, r"head_dim 8, 16, 32, 64 or 128 \(got 256\)"),
+    (dict(model_dim=512, num_heads=2), 8, 1, None, r"head_dim 4, 8, 16, 32, 64 or 128 \(got 256\)"),
     (dict(), 4, 65, 16, "65 rows a slot exceed the 64 rows"),
     (dict(model_dim=2048, num_heads=16, num_layers=4), 8, 17, 16,
      "17 rows a slot exceed the 16 rows"),

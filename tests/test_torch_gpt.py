@@ -111,10 +111,22 @@ def test_config_validation_and_unported_features():
         GPTLM(model_dim=12, num_heads=4, pos_embedding="rope")
     with pytest.raises(ValueError, match="window must be >= 1"):
         GPTLM(window=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        GPTLM(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        GPTLM(matmul_dtype="int8")
+    # MoE blocks and matmul_dtype are ported: their values are validated as
+    # in the JAX package, and the decode kernels refuse them by name.
+    with pytest.raises(ValueError, match="moe_experts must be >= 2"):
+        GPTLM(moe_experts=1)
+    with pytest.raises(ValueError, match="requires a MoE model"):
+        GPTLM(moe_top_k=2)
+    with pytest.raises(ValueError, match=r"moe_top_k 5 must be in \[1, moe_experts=4\]"):
+        GPTLM(moe_experts=4, moe_top_k=5)
+    with pytest.raises(ValueError, match="unknown matmul_dtype"):
+        GPTLM(matmul_dtype="int4")
+    with pytest.raises(ValueError, match="MoE blocks route through ops/moe"):
+        GPTLM(moe_experts=4, decode_engine="fused")
+    with pytest.raises(ValueError, match="matmul_dtype projections route through"):
+        GPTLM(matmul_dtype="int8", decode_engine="fused-layer")
+    assert GPTLM(moe_experts=4, moe_top_k=2).moe_top_k == 2
+    assert GPTLM(matmul_dtype="fp8").matmul_dtype == "fp8"
     with pytest.raises(ValueError, match="unknown kv dtype"):
         GPTLM().empty_slot_cache(2, "int4", device="cpu")
 

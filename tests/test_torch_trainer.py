@@ -273,9 +273,16 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     _, tds = _pair_datasets(*small_pair)
     for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8"), (dict(epochs_per_dispatch=10), "A8"),
                      (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8"),
-                     (dict(matmul_dtype="int8"), "A5"), (dict(dp_mode="diloco"), "A7")):
+                     (dict(dp_mode="diloco"), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**kw)
+    # Lifted by the MoE/quantized slice: matmul_dtype is validated as in the
+    # JAX TrainConfig, and the classifier path refuses it as JAX's launcher.
+    assert TrainConfig(matmul_dtype="int8").matmul_dtype == "int8"
+    with pytest.raises(ValueError, match="matmul_dtype must be None, 'int8', or 'fp8'"):
+        TrainConfig(matmul_dtype="int4")
+    with pytest.raises(ValueError, match="LM-family knob"):
+        build_trainer(TrainConfig(matmul_dtype="fp8"), datasets=tds, device="cpu")
     # Lifted by the optimizer wrappers: the schedule fields are accepted.
     assert TrainConfig(lr_schedule="cosine", warmup_steps=5, accumulate_steps=2,
                        grad_clip_norm=1.0).lr_schedule == "cosine"
