@@ -205,7 +205,7 @@ non-zero):
     launches and falling cost are checked.
 23. MoE blocks and the quantized products (ROADMAP A5), and head dim 4:
     (a) gpt-m-L1024-flash with 8 experts, top-2, capacity factor 2.0,
-    trained 3 x 16 steps on phase 12(a)'s corpus (B3 and B4 launched, cost
+    trained 2 x 16 steps on phase 12(a)'s corpus (B3 and B4 launched, cost
     and held-out perplexity falling; drop fraction and largest expert share
     printed, ms a step beside the dense one) and a top-1 epoch; (b) that
     model served (slab, pool) at a capacity factor that never drops, 8 of
@@ -221,6 +221,22 @@ non-zero):
     GQA model, 8 heads of 4 over 2 KV heads) in bf16 and f32 over every
     cache through phase 3's variant checks, timed, and that model served
     through phase 13's five servers against "xla".
+24. Sequence-parallel GPT training (ROADMAP A7a): (a) B3, B4a, B4b and
+    B4c with the ring offset at the hops' shapes (L_loc 1024, W 512,
+    offset 1024: rows 511-1023 see no key; its GQA-2 form; L_loc 512,
+    offset 512; f32 and bf16) against their plain versions, rows that see
+    no key exactly 0, -1e30 and zero dq, timed beside the plain version,
+    the band's bound and SDPA with the shifted band as a boolean mask
+    (records ``<kernel>[offset...]``); (b) 2 ranks sharing the card
+    (gloo, each hop staged through the host; ``--sp-task``) train
+    gpt-s-L2048-flash-W512 (its past hops on the offset kernels),
+    gpt-s-L2048-flash (diagonal, full and skipped hops) and
+    gpt-s-L2048-flash-gqa2 under ``dp_mode="sp"`` on ring-flash, and one
+    Ulysses step, through LMTrainer, each held to a single-device
+    LMTrainer run of the same preset, seed and batches (every step's loss,
+    the final parameters), each rank's hops and offset launches checked
+    against its place on the ring; (c) ms a step over the ranks and on
+    one device, the backend, and one hop's exchange.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -2214,12 +2230,11 @@ def split_tf32_bound(nbytes, flops):
     return dict(**bound(nbytes, flops, PEAK_SPLIT_TF32), bound_peak="split-TF32, 495/3 TFLOP/s")
 
 
-def check_hmma(src, kernels):
-    """Every instantiation of the tensor-core kernels in ``src``'s library
-    holds HMMA instructions in its SASS (``cuobjdump -sass``)."""
-    import os
-    import re
+def start_sass(src):
+    """``cuobjdump -sass`` of ``src``'s library, started (its output read by
+    :func:`check_hmma`), so that every library's dump runs at once."""
     import shutil
+    import tempfile
 
     from distributed_tensorflow_tpu_torch.ops import _build
 
@@ -2227,11 +2242,22 @@ def check_hmma(src, kernels):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         raise AssertionError(f"cuobjdump not found: {src}'s SASS cannot be checked for HMMA")
-    sass = subprocess.run([tool, "-sass", _build._lib_path(src)], capture_output=True,
-                          text=True, check=True).stdout
+    out = tempfile.TemporaryFile("w+")  # a file, not a pipe: no dump waits on its reader
+    return out, subprocess.Popen([tool, "-sass", _build._lib_path(src)], stdout=out,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def check_hmma(src, kernels, dump):
+    """Every instantiation of the tensor-core kernels in ``src``'s library
+    holds HMMA instructions in its SASS (``dump``: :func:`start_sass`)."""
+    out, proc = dump
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"cuobjdump failed on {src}: {err}")
+    out.seek(0)
     counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
+    for line in out:
+        m = re.search(r"Function : (\S+)", line) if "Function :" in line else None
         if m:
             fn = m.group(1) if any(k in m.group(1) for k in kernels) else None
             if fn:
@@ -5076,13 +5102,14 @@ def phase_dp(records, ds, smi):
 # Phase 23 (ROADMAP A5): MoE blocks, the quantized products and head dim 4.
 # (a) gpt-m-L1024-flash with the JAX package's MoE knobs, 8 experts, top-2,
 # capacity factor 2.0, trained on phase 12(a)'s corpus cut to 256 training
-# sequences (16 steps an epoch at batch 16), MOE_EPOCHS epochs, and a top-1
-# (Switch) epoch; (b) that model served at the capacity factor E / k, at
-# which no dispatch is ever dropped (so a served stream is the in-process
-# decode's), MOE_REQUESTS of phase 4's requests.
+# sequences (16 steps an epoch at batch 16), MOE_EPOCHS epochs (cut from 3
+# to keep the smoke's time with phase 24 added), and a top-1 (Switch)
+# epoch; (b) that model served at the capacity factor E / k, at which no
+# dispatch is ever dropped (so a served stream is the in-process decode's),
+# MOE_REQUESTS of phase 4's requests.
 MOE_KW = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=2.0)
 MOE_CORPUS = dict(TRAIN_CORPUS, num=768)
-MOE_EPOCHS = 3
+MOE_EPOCHS = 2
 MOE_LOG_EVERY = 4
 MOE_REQUESTS = 8
 # (c) quantized_dot at gpt-m's up projection in training (16 x 1024 rows of
@@ -5440,6 +5467,409 @@ def phase_moe_quantized(records):
     part("end")
 
 
+# Phase 24 (ROADMAP A7a): sequence-parallel GPT training over the ring-flash
+# path. Two ranks share the card over gloo (as phase 20's), a ("data",
+# "seq") mesh of 1 x 2, and train the long-context presets of
+# tools/lm_bench.py (:69-89; gpt-s widths, batch 8, bf16, Adam 1e-3) under
+# dp_mode="sp" on phase 18's corpus recipe at their lengths: each run as
+# (label, model knobs, L, steps, sp_attention, the offset records its
+# launches fill). At L=2048 over 2 ranks a windowed model's past hop is
+# the kernels' offset variant at L_loc 1024, W 512, offset 1024 (rows
+# 511-1023 see no key); the same model at L=1024 gives a 4-rank hop's
+# shape at L=2048 (L_loc 512, offset 512: every row but the last sees
+# keys). GPT training feeds the flash kernels f32 q/k/v (the projections
+# accumulate in f32), so the path runs the f32 offset builds; the bf16 ones
+# are held to their plain versions in (a) and timed, and launched by no
+# path. Cut: the steps (SP_STEPS on the W512 preset, one on the others).
+SP_RANKS = 2
+SP_BATCH = 8
+SP_STEPS = 4
+SP_RUNS = (
+    ("gpt-s-L2048-flash-W512", {"window": 512}, 2048, SP_STEPS, "ring_flash",
+     {"flash_fwd": "flash_fwd[offset]", "flash_bwd_fused": "flash_bwd_fused[offset]"}),
+    ("gpt-s-L2048-flash-W512 flash_fused=False", {"window": 512, "flash_fused": False}, 2048, 1,
+     "ring_flash", {"flash_bwd_dq": "flash_bwd_dq[offset]",
+                    "flash_bwd_dkv": "flash_bwd_dkv[offset]"}),
+    ("gpt-s-L2048-flash-W512 gqa2", {"window": 512, "num_kv_heads": 2}, 2048, 1, "ring_flash",
+     {"flash_fwd": "flash_fwd[offset-gqa2]", "flash_bwd_fused": "flash_bwd_fused[offset-gqa2]"}),
+    ("gpt-s-L1024-flash-W512", {"window": 512}, 1024, 1, "ring_flash",
+     {"flash_fwd": "flash_fwd[offset-4rank]",
+      "flash_bwd_fused": "flash_bwd_fused[offset-4rank]"}),
+    ("gpt-s-L2048-flash", {}, 2048, 1, "ring_flash", {}),
+    ("gpt-s-L2048-flash-gqa2", {"num_kv_heads": 2}, 2048, 1, "ring_flash", {}),
+    ("gpt-s-L2048-flash-W512 ulysses", {"window": 512}, 2048, 1, "ulysses", {}),
+)
+# The offset records: record -> (kernel, path).
+FLASH_OFFSET = {rec: (k, f"lm-train-sp {label}") for label, _, _, _, _, fills in SP_RUNS
+                for k, rec in fills.items()}
+# (a)'s cases: (label, dtype, B, L_loc, query heads, KV heads, D, W, offset).
+OFFSET_CASES = (("offset", "float32", 8, 1024, 8, 8, 32, 512, 1024),
+                ("offset-bf16", "bfloat16", 8, 1024, 8, 8, 32, 512, 1024),
+                ("offset-gqa2", "float32", 8, 1024, 8, 2, 32, 512, 1024),
+                ("offset-4rank", "float32", 8, 512, 8, 8, 32, 512, 512))
+# Tolerances of the sp runs against the single-device runs of the same
+# preset, seed and batches (CHANGES.md): every step's loss within
+# SP_LOSS_RTOL of max(1, |loss|) (measured up to 3.2e-6; with the offset
+# hop's result weighted 0, 3.7e-5), and the final parameters' distance
+# from the single-device ones within SP_PARAM_REL of how far the
+# single-device run moved them (the norms over all the parameters). Adam
+# moves an element by about lr in the sign of its gradient whatever the
+# gradient's size, so elements whose gradients are at the two runs'
+# rounding level (sums over the ring's hops and ranks against one pass) may
+# move opposite ways: a small leaf (a bias) can sit 8% of its movement
+# apart after 3 steps while the losses agree to 1e-5.
+SP_LOSS_RTOL = 2e-5
+SP_PARAM_REL = 0.05
+# The ring-flash attention check of 24(b): the window and the seed of its
+# inputs (sp_attention_inputs).
+SP_ATTN_WINDOW = 512
+SP_ATTN_SEED = 24
+
+
+def offset_band(l, w, f, device):
+    """[L, L] bool: query row i (at position i + f) keeps key j iff
+    i + f - w < j <= i + f."""
+    import torch
+
+    pos = torch.arange(l, device=device)
+    d = pos[:, None] + f - pos[None, :]
+    return (d >= 0) & (d < w)
+
+
+def offset_kernels(records, smi):
+    """24(a): B3, B4a, B4b and B4c with the ring offset at the hops' shapes
+    (``OFFSET_CASES``), each against its plain version (f32: REL_TOL; bf16:
+    2^-7 of the largest output forward, BWD_BF16_TOL backward); rows that
+    see no key must give out 0, lse -1e30 and zero dq exactly. Timed with
+    CUDA events beside the plain version, the bound of the band's (q, k)
+    pairs and of the bytes the band touches, and SDPA with the shifted band
+    as a boolean mask (forward, and its backward beside B4a). Records
+    ``[offset]`` (B4b and B4c too), ``[offset-gqa2]`` and ``[offset-4rank]``
+    (f32: the inputs the training path gives them); the bf16 case is
+    printed."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    for label, dtype, b, l, hq, hkv, d, w, f in OFFSET_CASES:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn(b, l, hq, d, device=dev, generator=g).to(dt) for _ in range(2))
+        k, v = (torch.randn(b, l, hkv, d, device=dev, generator=g).to(dt) for _ in range(2))
+        kw = dict(causal=True, window=w, offset=f)
+        band = offset_band(l, w, f, dev)
+        empty = ~band.any(-1)  # rows that see no key
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **kw)
+        delta = (do.float() * out.float()).sum(-1) - 0.1  # an lse cotangent of 0.1
+        torch.cuda.synchronize()
+        scale = max(1.0, ref.float().abs().max().item())
+        live = ~empty
+        err = max((out.float() - ref.float()).abs().max().item(),
+                  (lse[:, live] - ref_lse[:, live]).abs().max().item())
+        tol = REL_TOL["flash_fwd"] * scale if dt == torch.float32 else 2 ** -7 * scale
+        rows = int(empty.sum().item())
+        print(f"  {label} (B={b} L_loc={l} {hq}/{hkv}x{d} {dtype}, W={w}, offset {f}; rows "
+              f"{'%d-%d' % (int(empty.nonzero()[0]), l - 1) if rows else 'none'} see no key): "
+              f"flash_fwd max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"flash_fwd[{label}] disagrees with its plain version")
+        if rows and not (out[:, empty].abs().max().item() == 0
+                         and lse[:, empty].max().item() <= -1e29):
+            raise AssertionError(f"flash_fwd[{label}]: a row that sees no key is not 0 / -1e30")
+        ref_b = fa.flash_bwd_plain(q, k, v, out, lse, do, delta, None, True, w, offset=f)
+        calls = {"flash_bwd_fused": lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, **kw),
+                 "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), None,
+                                          None),
+                 "flash_bwd_dkv": lambda: (None, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                   **kw))}
+        rel = REL_TOL["flash_bwd_fused"] if dt == torch.float32 else BWD_BF16_TOL
+        errs = {}
+        for name, call in calls.items():
+            got = call()
+            errs[name] = check_bwd(f"{name}[{label}] vs plain", got, ref_b, rel)
+            if rows and got[0] is not None and got[0][:, empty].abs().max().item() != 0:
+                raise AssertionError(f"{name}[{label}]: a row that sees no key has a dq")
+        del ref_b
+        # The bound's bytes are those the band touches: the query rows that
+        # see a key (q and dO, with their lse and delta), the keys some row
+        # keeps (k and v), and every output written whole.
+        pairs = b * hq * int(band.sum().item())
+        el, nq, nk = q.element_size(), int(live.sum().item()), int(band.any(0).sum().item())
+        q_in, rows_in = el * b * hq * nq * d, 4 * b * hq * nq
+        kv_in = 2 * el * b * hkv * nk * d
+        q_out, kv_out, lse_out = el * q.numel(), el * (k.numel() + v.numel()), 4 * lse.numel()
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        if hkv != hq:
+            kt, vt = (x.repeat_interleave(hq // hkv, 1).detach().requires_grad_(True)
+                      for x in (kt, vt))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        dot = do.transpose(1, 2)
+        lib = {"flash_fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                           attn_mask=band)),
+               "flash_bwd_fused": cuda_ms(lambda: torch.autograd.grad(
+                   sdpa_out, (qt, kt, vt), dot, retain_graph=True), 10)}
+        bnd = split_tf32_bound if dt == torch.float32 else (
+            lambda nb, fl: bound(nb, fl, PEAK_BF16))
+        fwd_plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 3)
+        bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, delta, None, True,
+                                                       w, offset=f), 2)
+        work = {"flash_fwd": (q_in + kv_in + q_out + lse_out, 4 * d * pairs),
+                "flash_bwd_fused": (2 * q_in + 2 * rows_in + kv_in + q_out + kv_out,
+                                    10 * d * pairs),
+                "flash_bwd_dq": (2 * q_in + 2 * rows_in + kv_in + q_out, 6 * d * pairs),
+                "flash_bwd_dkv": (2 * q_in + 2 * rows_in + kv_in + kv_out, 8 * d * pairs)}
+        timed = {"flash_fwd": lambda: fa.flash_attention_with_lse(q, k, v, **kw), **calls}
+        for name in (("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+                     if label == "offset" else ("flash_fwd", "flash_bwd_fused")):
+            r = dict(max_abs_err=err if name == "flash_fwd" else errs[name],
+                     ms=cuda_ms(timed[name], 10),
+                     plain_ms=fwd_plain if name == "flash_fwd" else bwd_plain,
+                     library_ms=lib.get(name), **bnd(*work[name]))
+            print(f"  {name}[{label}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"SDPA with the shifted band {r['library_ms']}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}, {pairs} pairs) [{smi}]")
+            if dt == torch.float32:
+                records[f"{name}[{label}]"] = dict(r, launches=0)
+        del q, k, v, do, out, lse, delta, qt, kt, vt, sdpa_out
+
+
+def leaf_names(tree, prefix=""):
+    """The dotted field names of a NamedTuple tree's leaves, in
+    ``tree_leaves`` order."""
+    out = []
+    for k, v in tree._asdict().items():
+        out += leaf_names(v, f"{prefix}{k}.") if hasattr(v, "_fields") else [prefix + k]
+    return out
+
+
+def sp_corpus(l, steps):
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+
+    return markov_corpus(**{**TRAIN_CORPUS, "seq_len": l, "num": SP_BATCH * steps + 16,
+                            "n_val": 8, "n_test": 8})
+
+
+def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None):
+    """The LMTrainer of one of ``SP_RUNS`` (on ``mesh`` under dp_mode="sp",
+    or on one device), with its steps' costs and times recorded."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    model = GPTLM(**{**S_CFG, "max_len": l, **knobs}, attention_impl="flash", flash_min_len=0,
+                  compute_dtype=torch.bfloat16)
+    cfg = TrainConfig(epochs=1, batch_size=SP_BATCH, optimizer="adam", learning_rate=1e-3,
+                      log_frequency=steps, dp_mode="sp" if mesh is not None else "replicated")
+    tr = LMTrainer(model, sp_corpus(l, steps), cfg, mesh=mesh, sp_attention=attention,
+                   eval_batch=8, print_fn=print_fn or (lambda *a: None))
+    tr.costs, tr.step_ms = [], []
+    step = tr._train_step
+
+    def timed(toks, lens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = step(toks, lens)
+        tr.costs.append(float(cost))  # waits for the step
+        tr.step_ms.append((time.perf_counter() - t0) * 1e3)
+        return cost
+
+    tr._train_step = timed
+    return tr
+
+
+def sp_attention_inputs(device):
+    """q, k, v [SP_BATCH, 2048, 8, 32] f32 from a seed: the inputs of
+    phase 24(b)'s ring-flash attention check."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SP_ATTN_SEED)
+    return [torch.randn(SP_BATCH, 2048, 8, 32, device=device, generator=g) for _ in range(3)]
+
+
+def sp_task(port, argv) -> int:
+    """One rank of phase 24's world (``--sp-task``, started by the
+    launcher): every run of ``SP_RUNS`` through LMTrainer under
+    dp_mode="sp" on a (1, SP_RANKS) mesh, its costs, step times, launches
+    and hops, rank 0's final parameters saved to ``$DTF_SP_PARAMS``; then
+    one ring-flash attention call (its rows saved there too) and one hop's
+    exchange timed. Prints ``RESULT <json>`` last."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+
+    cluster = ClusterConfig.from_lists([f"127.0.0.1:{port + i}" for i in range(SP_RANKS)])
+    ctx = bootstrap_from_argv(cluster, argv)
+    mesh = make_named_mesh((1, SP_RANKS), ("data", "seq"))
+    runs = []
+    for label, knobs, l, steps, attention, _ in SP_RUNS:
+        tr = sp_trainer(label, knobs, l, steps, attention, mesh, print_fn=print)
+        _build.reset_launches()
+        ra.reset_hops()
+        res = tr.run()
+        torch.cuda.synchronize()
+        runs.append(dict(label=label, costs=tr.costs, step_ms=tr.step_ms, mode=tr.mode,
+                         launches={k: v for k, v in _build.LAUNCHES.items() if v},
+                         hops=dict(ra.HOPS), final_cost=res["final_cost"],
+                         perplexity=res["perplexity"]))
+        if mesh.rank == 0:
+            torch.save([t.detach().cpu() for t in tree_leaves(tr.state.params)],
+                       os.path.join(os.environ["DTF_SP_PARAMS"], f"{len(runs)}.pt"))
+        del tr
+    # One ring-flash attention call at the W512 run's shape in f32, on
+    # inputs made from a seed: this rank's rows, saved for phase_sp to hold
+    # against one card's plain attention (a hop or offset that is wrong
+    # moves them far past f32's rounding, where the training runs' bf16
+    # products can hide it).
+    q, k, v = sp_attention_inputs(mesh.device)
+    l_loc, my = q.shape[1] // SP_RANKS, mesh.axis_index("seq")
+    rows = slice(my * l_loc, (my + 1) * l_loc)
+    out = ra.ring_flash_attention(*(t[:, rows].contiguous() for t in (q, k, v)), mesh, "seq",
+                                  causal=True, window=SP_ATTN_WINDOW)
+    torch.save(out.cpu(), os.path.join(os.environ["DTF_SP_PARAMS"], f"attn{my}.pt"))
+    del q, k, v, out
+    # One hop's exchange at the main run's shapes: the k/v pair of a layer,
+    # [8, 1024, 8, 32] each, as the ring moves it (bf16 and the f32 the
+    # training path holds).
+    hop = {}
+    for dt in (torch.bfloat16, torch.float32):
+        kv = [torch.randn(SP_BATCH, 1024, 8, 32, device=mesh.device).to(dt) for _ in range(2)]
+        for _ in range(3):
+            mesh.ring_permute(kv, "seq")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            mesh.ring_permute(kv, "seq")
+        torch.cuda.synchronize()
+        hop[str(dt).split(".")[1]] = dict(ms=(time.perf_counter() - t0) / 20 * 1e3,
+                                          bytes=2 * kv[0].numel() * kv[0].element_size())
+    ctx.close()
+    print("RESULT " + json.dumps(dict(rank=mesh.rank, backend=mesh.backend, runs=runs, hop=hop,
+                                      device=str(mesh.device))))
+    return 0
+
+
+def phase_sp(records, smi):
+    """24: (a) the offset kernels (``offset_kernels``); (b) SP_RANKS ranks
+    on the card train each of ``SP_RUNS`` through LMTrainer(dp_mode="sp"),
+    each held to a single-device LMTrainer run of the same preset, seed
+    and batches (SP_LOSS_RTOL on every step's loss, SP_PARAM_REL on the
+    final parameters), every rank's launches and hops checked against its
+    place on the ring, and one ring-flash attention call over the ranks in
+    f32 against one card's plain attention; (c) ms a step for sp and for
+    one device, the backend and one hop's exchange."""
+    import socket
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    offset_kernels(records, smi)
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    pdir = tempfile.mkdtemp(prefix="sp-params-")
+    me = [sys.executable, os.path.abspath(__file__)]
+    logs = dp_launch("sp-ring", me + ["--sp-task", "--dp-port", str(free_port())], SP_RANKS, 0,
+                     env={"DTF_SP_PARAMS": pdir})
+    ranks = sorted((dp_result(logs[f"worker{r}"]) for r in range(SP_RANKS)),
+                   key=lambda r: r["rank"])
+    for r in ranks:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"{SP_RANKS} ranks on one card took {r['backend']}")
+    n = S_CFG["num_layers"]
+    for i, (label, knobs, l, steps, attention, fills) in enumerate(SP_RUNS):
+        got = [r["runs"][i] for r in ranks]
+        ref_tr = sp_trainer(label, knobs, l, steps, None)
+        ini = [t.detach().cpu().clone() for t in tree_leaves(ref_tr.state.params)]
+        ref_tr.run()
+        torch.cuda.synchronize()
+        # Per-step losses, every rank, against one device (relative to
+        # max(1, |loss|)).
+        gap = max(abs(a - b) / max(1.0, abs(b)) for r in got
+                  for a, b in zip(r["costs"], ref_tr.costs))
+        sp_params = torch.load(os.path.join(pdir, f"{i + 1}.pt"))
+        ref = tree_leaves(ref_tr.state.params)
+        # |sp - one device| / |one device - initial| over all the parameters
+        # (and per leaf, printed).
+        diff = [(a.float() - b.float().cpu()) for a, b in zip(sp_params, ref)]
+        step = [(b.float().cpu() - c.float().cpu()) for b, c in zip(ref, ini)]
+        moved = (torch.cat([d.reshape(-1) for d in diff]).norm()
+                 / torch.cat([d.reshape(-1) for d in step]).norm()).item()
+        gaps = [(d.norm() / max(m.norm(), 1e-12)).item() for d, m in zip(diff, step)]
+        worst = f"{leaf_names(ref_tr.state.params)[gaps.index(max(gaps))]} {max(gaps):.2e}"
+        far = max(d.abs().max().item() for d in diff)
+        # The ring's place of each rank: rank 0's past block wraps round from
+        # the future (skipped); rank 1's is its past (the offset hop under a
+        # window, else the full block).
+        hops0, hops1 = got[0]["hops"], got[1]["hops"]
+        calls = n * steps
+        want0 = want1 = {"diag": 0, "full": 0, "offset": 0, "skip": 0}
+        if attention == "ring_flash":
+            want0 = {"diag": calls, "full": 0, "offset": 0, "skip": calls}
+            want1 = {"diag": calls, "full": 0 if "window" in knobs else calls,
+                     "offset": calls if "window" in knobs else 0, "skip": 0}
+        off = [{k: v for k, v in r["launches"].items() if k.endswith("[offset]")} for r in got]
+        want_off = {}
+        if attention == "ring_flash" and "window" in knobs:  # B3, then B4a or B4b + B4c
+            bwd = (("flash_bwd_dq", "flash_bwd_dkv") if knobs.get("flash_fused") is False
+                   else ("flash_bwd_fused",))
+            want_off = {f"{k}[offset]": calls for k in ("flash_fwd", *bwd)}
+        sp_ms = float(np.median(got[0]["step_ms"][1:] or got[0]["step_ms"]))
+        one_ms = float(np.median(ref_tr.step_ms[1:] or ref_tr.step_ms))
+        print(f"  (b) {label} ({steps} steps of {SP_BATCH} x {l}, sp_attention={attention}): "
+              f"losses {', '.join(f'{c:.4f}' for c in got[0]['costs'])} (one device "
+              f"{', '.join(f'{c:.4f}' for c in ref_tr.costs)}; largest gap "
+              f"{max(abs(a - b) for a, b in zip(got[0]['costs'], ref_tr.costs)):.2e}, relative "
+              f"{gap:.2e} (tolerance {SP_LOSS_RTOL})); final parameters {moved:.2e} of the "
+              f"single-device run's movement from the initial ones apart (tolerance "
+              f"{SP_PARAM_REL}; the leaf furthest apart {worst}; largest element gap "
+              f"{far:.2e}); hops rank 0 {hops0}, rank 1 {hops1}; offset launches rank 1 "
+              f"{off[1]}")
+        print(f"  (c) {label}: {sp_ms:.2f} ms a step over {SP_RANKS} ranks on one card "
+              f"({ranks[0]['backend']}), {one_ms:.2f} ms on one device [{smi}]")
+        if any(len(r["costs"]) != steps for r in got) or not gap <= SP_LOSS_RTOL:
+            raise AssertionError(f"{label}: sp losses {[r['costs'] for r in got]} against one "
+                                 f"device's {ref_tr.costs} (relative gap {gap})")
+        if hops0 != want0 or hops1 != want1:
+            raise AssertionError(f"{label}: hops {hops0} / {hops1}, want {want0} / {want1}")
+        if off[0] or off[1] != want_off:
+            raise AssertionError(f"{label}: offset launches {off}, want none on rank 0 and "
+                                 f"{want_off} on rank 1")
+        if not moved <= SP_PARAM_REL:
+            raise AssertionError(f"{label}: final parameters {moved} of the movement apart")
+        for k, rec in fills.items():
+            records[rec]["launches"] = off[1][f"{k}[offset]"]
+        del ref_tr, sp_params, ref, ini
+    # The ranks' ring-flash attention against one card's plain attention,
+    # in f32 (flash_fwd's tolerance of the output's scale).
+    from distributed_tensorflow_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    q, k, v = sp_attention_inputs(torch.device("cuda"))
+    ref = flash_attention_plain(q, k, v, causal=True, window=SP_ATTN_WINDOW)[0].cpu()
+    del q, k, v
+    got = torch.cat([torch.load(os.path.join(pdir, f"attn{r}.pt")) for r in range(SP_RANKS)], 1)
+    err, tol = (got - ref).abs().max().item(), REL_TOL["flash_fwd"] * ref.abs().max().item()
+    print(f"  (b) ring_flash_attention over {SP_RANKS} ranks ({SP_BATCH} x 2048, 8x32, f32, "
+          f"W={SP_ATTN_WINDOW}) against one card's plain attention: max_abs_err {err:.3e} "
+          f"(tolerance {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"ring_flash_attention over {SP_RANKS} ranks disagrees: {err}")
+    for r in ranks:
+        for dt, h in r["hop"].items():
+            print(f"  (c) rank {r['rank']}: one hop's exchange of a k/v pair ({h['bytes']} bytes "
+                  f"{dt}, staged through the host under {r['backend']}): {h['ms']:.2f} ms [{smi}]")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -5447,8 +5877,11 @@ def phase_build():
     from distributed_tensorflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all((*_build.SOURCES, *_build.PROBES))
-    print(f"  built in {time.perf_counter() - t0:.1f} s")
+    ends = _build.build_all((*_build.SOURCES, *_build.PROBES))
+    print(f"  built in {time.perf_counter() - t0:.1f} s (each build's end: "
+          + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(ends.items(), key=lambda e: e[1]))
+          + ")")
+    dumps = {src: start_sass(src) for src in TENSOR_CORE_KERNELS}
     for src in (*_build.SOURCES, *_build.PROBES):
         log = _build.BUILD_LOGS.get(src)
         if log is None:
@@ -5469,7 +5902,7 @@ def phase_build():
             if not spills or any(spills.values()):
                 raise AssertionError(f"{src}: register spills in {spills or 'no kernel found'}")
         if src in TENSOR_CORE_KERNELS:
-            check_hmma(src, TENSOR_CORE_KERNELS[src])
+            check_hmma(src, TENSOR_CORE_KERNELS[src], dumps[src])
 
 
 def variant_times(ms, name, w, ck, cv, pk, pv, tables, lengths, active, h, hv, plens, slens,
@@ -5629,9 +6062,13 @@ def main() -> int:
                     help="run one task of a phase-20 cluster (started by the launcher)")
     ap.add_argument("--dp-epochs", type=int, default=DP_EPOCHS)
     ap.add_argument("--dp-port", type=int, default=0)
+    ap.add_argument("--sp-task", action="store_true",
+                    help="run one rank of phase 24's world (started by the launcher)")
     args, rest = ap.parse_known_args()
     if args.dp_task:
         return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
+    if args.sp_task:
+        return sp_task(args.dp_port, rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
@@ -5747,6 +6184,11 @@ def main() -> int:
           "decode), head dim 4 on B5/B6/B7")
     phase_moe_quantized(records)
     print(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+    t24 = time.perf_counter()
+    phase(f"24: sequence-parallel GPT training ({SP_RANKS} ranks on the card over the ring-flash "
+          "path; the ring offset on B3/B4a/B4b/B4c)")
+    phase_sp(records, smi)
+    print(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -5767,6 +6209,7 @@ def main() -> int:
                  for lab in DH4_LABELS for k in DECODE_KERNELS]
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
+    variants += [(name, base, path) for name, (base, path) in FLASH_OFFSET.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

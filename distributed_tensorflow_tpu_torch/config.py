@@ -32,9 +32,13 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
          "logs_path", "profile_dir"), "A8"),
+    # The DiLoCo outer loop and its streaming/compressed exchange.
+    **dict.fromkeys(
+        ("sync_every", "outer_lr", "outer_momentum", "diloco_workers", "delta_dtype",
+         "delta_overlap", "stale_limit"), "A7d"),
 }
-# Values of served fields that a later item brings.
-DP_MODES_NOT_PORTED = ("diloco", "tp", "ep", "pp", "sp")  # LM-trainer modes: A7
+# Values of dp_mode that a later item brings (LM-trainer modes) -> its item.
+DP_MODES_NOT_PORTED = {"tp": "A7b", "ep": "A7c", "pp": "A7c", "diloco": "A7d"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +154,9 @@ class _TrainFields:
     sync: bool = True
     async_avg_every: int = 0
     # Sync parameter layout: "replicated" or "zero" (ZeRO-3,
-    # parallel/fsdp.py); the LM trainer's modes are ROADMAP A7.
+    # parallel/fsdp.py). The LM trainer also takes "sp" (sequence
+    # parallelism over a mesh's seq axis); its other modes are ROADMAP
+    # A7b-A7d.
     dp_mode: str = "replicated"
     # Keep N device-placed batches in flight in the eager loop
     # (data/prefetch.py); 0 disables.
@@ -176,7 +182,8 @@ class _TrainFields:
     def __post_init__(self):
         if self.dp_mode in DP_MODES_NOT_PORTED:
             raise NotImplementedError(
-                f"TrainConfig.dp_mode={self.dp_mode!r} is not ported yet (ROADMAP A7)"
+                f"TrainConfig.dp_mode={self.dp_mode!r} is not ported yet "
+                f"(ROADMAP {DP_MODES_NOT_PORTED[self.dp_mode]})"
             )
         if not (isinstance(self.remat, bool) or self.remat == "selective"):
             raise ValueError(

@@ -35,8 +35,8 @@ NOT_PORTED_ENV = {
     "DTF_CHECKPOINT": "A8", "DTF_KEEP_LAST": "A8", "DTF_MAX_ROLLBACKS": "A8",
     "DTF_MAX_RESTARTS": "A8", "DTF_STALL_TIMEOUT_MS": "A8", "DTF_MIN_WORKERS": "A8",
     "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8",
-    "DTF_SYNC_EVERY": "A7", "DTF_OUTER_LR": "A7", "DTF_OUTER_MOMENTUM": "A7",
-    "DTF_DELTA_DTYPE": "A7", "DTF_STALE_LIMIT": "A7",
+    "DTF_SYNC_EVERY": "A7d", "DTF_OUTER_LR": "A7d", "DTF_OUTER_MOMENTUM": "A7d",
+    "DTF_DELTA_DTYPE": "A7d", "DTF_STALE_LIMIT": "A7d",
 }
 
 

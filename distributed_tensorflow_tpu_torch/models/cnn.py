@@ -184,4 +184,4 @@ class CNN:
 
     def partition_specs(self, model_axis: str = "model"):
         raise NotImplementedError(
-            "CNN.partition_specs: tensor-parallel layouts are not ported yet (ROADMAP A7)")
+            "CNN.partition_specs: tensor-parallel layouts are not ported yet (ROADMAP A7b)")

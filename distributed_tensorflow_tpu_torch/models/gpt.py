@@ -65,8 +65,20 @@ are outside the decode kernels: "fused" and "fused-layer" refuse them with
 the JAX package's reasons, and "auto" serves them on "xla", whose plain
 decode then runs the model's own products and FFN.
 
+Sequence parallelism (``apply_sequence_parallel``, JAX :825-935;
+``make_lm_sp_parts`` / ``make_lm_sp_train_step``, JAX :2969-3091) runs
+one rank of a :class:`~parallel.mesh.Mesh` per sequence shard: absolute
+positions, the ring (plain), ring-flash (the flash kernels a hop, the
+ring offset on a windowed model's past hops) or Ulysses attention of
+``ops/ring_attention.py``, and the exact global masked CE with the shard
+boundary's target over one permute hop. The data-parallel step
+(``make_lm_train_step(model, opt, mesh, axis)``, JAX :3336-3356) splits
+the batch over ``axis``. Both take the global batch on every rank and
+keep their shard.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the parallel train steps, expert parallelism among them (A7). The
+item): the tensor-parallel steps (A7b), expert and pipeline parallelism
+(A7c), the LM's ZeRO and async steps (A7d). The
 CUDA decode kernels compute in the model's dtype, bf16 or f32, at head dims
 4 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
@@ -614,6 +626,67 @@ class GPTLM:
         metrics.update(balance_loss=balance, z_loss=z, drop_fraction=auxs.drop_fraction.mean(),
                        expert_fraction=auxs.expert_fraction.mean(0))
         return ce + self.moe_balance_coef * balance + self.moe_z_coef * z, metrics
+
+    # -- sequence parallelism ----------------------------------------------
+
+    def apply_sequence_parallel(self, params: GPTLMParams, tokens: torch.Tensor, mesh,
+                                axis: str = "seq", *, attention: str | None = None):
+        """The sequence-parallel causal forward on this rank's shard
+        tokens [B, L/n] of a sequence split over ``axis`` of ``mesh`` (n
+        ranks, params replicated): this shard's logits [B, L/n, vocab],
+        equal to the matching slice of :meth:`apply` on the whole
+        sequence. ``attention`` is ``"ring"``, ``"ring_flash"`` or
+        ``"ulysses"`` (``ops/ring_attention.py``); the default follows
+        ``attention_impl`` at the shard's length against
+        ``flash_min_len``. Under GQA the KV blocks ride the ring at
+        ``num_kv_heads``; a windowed model's ring runs only the band's
+        hops. Ulysses needs the axis size to divide both head counts. A
+        collective: every rank of the axis calls it."""
+        if self.moe_experts is not None:
+            raise NotImplementedError(
+                "MoE blocks are not supported on the sequence-parallel "
+                "path; use apply_expert_parallel")
+        from distributed_tensorflow_tpu_torch.ops.ring_attention import (
+            ring_attention,
+            ring_flash_attention,
+            ulysses_attention,
+        )
+
+        if attention is not None and attention not in ("ring", "ring_flash", "ulysses"):
+            raise ValueError(f"unknown attention {attention!r}; ring|ring_flash|ulysses")
+        n, my = mesh.axis_size(axis), mesh.axis_index(axis)
+        b, l_loc = tokens.shape
+        if attention is None:
+            attention = ("ring_flash" if self.attention_impl == "flash"
+                         and l_loc >= resolve_flash_min_len(self.flash_min_len) else "ring")
+        if n * l_loc > self.max_len:
+            raise ValueError(f"global sequence {n * l_loc} exceeds max_len {self.max_len}")
+        if attention == "ulysses" and (self.num_heads % n or self.num_kv_heads % n):
+            raise ValueError(
+                f"ulysses needs heads ({self.num_heads}) and kv heads "
+                f"({self.num_kv_heads}) divisible by the axis size {n}")
+        positions = my * l_loc + torch.arange(l_loc, device=tokens.device)
+        h = self._embed_tokens(params, tokens, positions)
+        if attention == "ulysses":
+            def sp_attend(q, k, v):
+                return ulysses_attention(q, k, v, mesh, axis, causal=True, window=self.window)
+        elif attention == "ring":
+            def sp_attend(q, k, v):
+                return ring_attention(q, k, v, mesh, axis, causal=True, window=self.window)
+        else:
+            def sp_attend(q, k, v):
+                return ring_flash_attention(q, k, v, mesh, axis, causal=True,
+                                            window=self.window, fused=self.flash_fused)
+
+        def body(h, *blk):
+            return self._block(self._block_cls(*blk), h, positions, attend=sp_attend)[0]
+
+        kw = self._checkpoint_kw()
+        for i in range(self.num_layers):
+            blk = layer_params(params.blocks, i)
+            h = (body(h, *blk) if kw is None
+                 else checkpoint(body, h, *blk, use_reentrant=False, **kw))
+        return self._logits(params, h)
 
     # -- slot-wise decoding (the serving surface, serve.py) ----------------
 
@@ -1242,25 +1315,154 @@ def lm_value_and_grad(model: GPTLM, params: GPTLMParams, tokens, lengths=None):
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
+def _mesh_axes(mesh, *axes):
+    """``axes`` that ``mesh`` has, checked (None entries dropped)."""
+    out = tuple(a for a in axes if a is not None)
+    for a in out:
+        if a not in mesh.shape:
+            raise ValueError(f"mesh has no {a!r} axis: {dict(mesh.shape)}")
+    return out
+
+
+def _shard(t, mesh, axis, dim):
+    """This rank's block of ``t`` along ``dim`` split over ``axis`` (all
+    of ``t`` for None)."""
+    if t is None or axis is None:
+        return t
+    n = mesh.axis_size(axis)
+    if t.shape[dim] % n:
+        raise ValueError(f"a size of {t.shape[dim]} does not split over the {n}-way "
+                         f"{axis!r} axis")
+    m = t.shape[dim] // n
+    return t.narrow(dim, mesh.axis_index(axis) * m, m)
+
+
+def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves):
+    """The update from a rank's share of a global loss: its gradient
+    summed over ``axes`` in one flat all-reduce (the JAX shard_map's
+    auto-psum of a replicated parameter's gradient), the shares of the loss
+    summed likewise."""
+    with torch.enable_grad():
+        grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        flat = torch.cat([loss.detach().reshape(1).float()]
+                         + [g.reshape(-1).float() for g in grads])
+        mesh.all_reduce_(flat, axes)
+        total, at, out = flat[0], 1, []
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
+            at += g.numel()
+        params2, opt_state = optimizer.update(tree_unflatten(params, out), opt_state, params)
+    return params2, opt_state, total
+
+
+def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
+                     data_axis: str | None = None, attention: str | None = None,
+                     ragged: bool = False):
+    """The sequence-parallel update (JAX :2999): ``mapped(params,
+    opt_state, tokens, lengths) -> (params, opt_state, loss)``, a
+    collective over ``mesh``. ``tokens`` [B, L] is the global batch, the
+    same on every rank; each rank keeps its sequence shard over ``axis``
+    (and its rows over ``data_axis`` when given: dp×sp), params and
+    optimizer state replicated.
+
+    The loss is the exact global masked next-token CE: each rank scores
+    its L/n positions, the shard boundary's target (the next shard's first
+    token) arrives over one permute hop, and the CE and count sums are
+    summed over every axis before the division, so it equals
+    ``ce_from_logits`` on the whole batch. Each rank differentiates its
+    share (its CE sum over the global count) and the gradients are summed
+    over every axis: the gradient of the global loss. ``lengths`` [B]
+    (``ragged``) masks targets past each row's length."""
+    if model.moe_experts is not None:
+        raise NotImplementedError(
+            "MoE blocks are not supported on the sequence-parallel path; "
+            "use expert parallelism (make_lm_ep_parts)")
+    if data_axis == axis:
+        raise ValueError(f"data_axis must differ from the seq axis {axis!r}")
+    axes = _mesh_axes(mesh, data_axis, axis)
+    n = mesh.axis_size(axis)
+
+    def mapped(params, opt_state, tokens, lengths=None):
+        toks = _shard(_shard(tokens, mesh, data_axis, 0), mesh, axis, 1)
+        lens = _shard(lengths, mesh, data_axis, 0) if ragged else None
+        l_loc = toks.shape[1]
+        my = mesh.axis_index(axis)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            logits = model.apply_sequence_parallel(tree_unflatten(params, leaves), toks, mesh,
+                                                   axis, attention=attention)
+            # Shard i receives shard i + 1's first token: the boundary target.
+            (nxt,) = mesh.ring_permute([toks[:, 0].contiguous()], axis, shift=-1)
+            targets = torch.cat([toks[:, 1:], nxt[:, None]], dim=1)
+            nll = picked_nll(logits.float(), targets)
+            tpos = my * l_loc + torch.arange(l_loc, device=toks.device) + 1
+            valid = tpos[None, :] < n * l_loc  # the last position has no target
+            if lens is not None:
+                valid = valid & (tpos[None, :] < lens.to(toks.device)[:, None])
+            w = valid.expand_as(nll).float()
+            count = mesh.all_reduce_(w.sum().detach().clone(), axes)
+            loss = (nll * w).sum() / torch.clamp(count, min=1.0)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves)
+
+    return mapped
+
+
+def make_lm_sp_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "seq",
+                          data_axis: str | None = None, attention: str | None = None):
+    """The sequence-parallel training step (JAX :2969): ``step(params,
+    opt_state, tokens) -> (params, opt_state, loss)`` on the global batch
+    [B, L], L divisible by the ``axis`` size; ``data_axis`` composes data
+    parallelism (dp×sp on a ``("data", "seq")`` mesh). See
+    :func:`make_lm_sp_parts`."""
+    mapped = make_lm_sp_parts(model, optimizer, mesh, axis, data_axis=data_axis,
+                              attention=attention)
+
+    def step(params, opt_state, tokens):
+        return mapped(params, opt_state, tokens, None)
+
+    return step
+
+
 def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *,
                        tp_axis: str | None = None, seq_axis: str | None = None):
     """``step(params, opt_state, tokens, lengths=None) -> (params, opt_state,
-    loss)`` on one device, for any optimizer of ``ops/optim.py``: the loss
-    (masked over ``lengths`` when given), its gradient, one update. The
-    loss stays on the device. The data-parallel, tp and sp steps (``mesh``,
-    ``tp_axis``, ``seq_axis``) are not ported yet (ROADMAP A7)."""
-    del axis
-    for name, value in (("mesh", mesh), ("tp_axis", tp_axis), ("seq_axis", seq_axis)):
+    loss)`` for any optimizer of ``ops/optim.py``: the loss (masked over
+    ``lengths`` when given), its gradient, one update; the loss stays on
+    the device. Without ``mesh``, on one device. With ``mesh`` (a
+    :class:`~parallel.mesh.Mesh`), data parallelism over ``axis`` (JAX
+    :3336-3356): ``tokens`` is the global batch, each rank keeps its rows,
+    and the loss is the global batch's (the mean of the ranks' means; with
+    ``lengths``, the global masked mean), its gradient summed over the
+    axis. The tensor-parallel step (``tp_axis``, with ``seq_axis`` its
+    dp×tp×sp form) is not ported yet (ROADMAP A7b)."""
+    for name, value in (("tp_axis", tp_axis), ("seq_axis", seq_axis)):
         if value is not None:
             raise NotImplementedError(
-                f"make_lm_train_step({name}=...) is not ported yet (ROADMAP A7); "
-                "the port's step runs on one device"
-            )
+                f"make_lm_train_step({name}=...): the tensor-parallel step is not ported "
+                "yet (ROADMAP A7b); sequence parallelism is make_lm_sp_train_step")
+    if mesh is None:
+        def step(params, opt_state, tokens, lengths=None):
+            loss, grads = lm_value_and_grad(model, params, tokens, lengths)
+            with torch.no_grad():
+                params, opt_state = optimizer.update(grads, opt_state, params)
+            return params, opt_state, loss
 
-    def step(params, opt_state, tokens, lengths=None):
-        loss, grads = lm_value_and_grad(model, params, tokens, lengths)
-        with torch.no_grad():
-            params, opt_state = optimizer.update(grads, opt_state, params)
-        return params, opt_state, loss
+        return step
+    axes = _mesh_axes(mesh, axis)
+    n = mesh.axis_size(axis)
 
-    return step
+    def dp_step(params, opt_state, tokens, lengths=None):
+        toks, lens = _shard(tokens, mesh, axis, 0), _shard(lengths, mesh, axis, 0)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = model.loss(tree_unflatten(params, leaves), toks, lens)
+            if lens is None:
+                loss = loss / n
+            else:  # the rank's masked mean weighted by its share of the targets
+                count = torch.clamp(lens.long() - 1, min=0).sum().float()
+                loss = loss * count / torch.clamp(mesh.all_reduce_(count.clone(), axes),
+                                                  min=1.0)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves)
+
+    return dp_step

@@ -114,4 +114,4 @@ class LSTMClassifier:
     def partition_specs(self, model_axis: str = "model"):
         raise NotImplementedError(
             "LSTMClassifier.partition_specs: tensor-parallel layouts are not ported yet "
-            "(ROADMAP A7)")
+            "(ROADMAP A7b)")

@@ -23,7 +23,12 @@ kernels run their f32 (split-TF32) instantiation.
 Init is the JAX package's (fan-in-scaled normal dense weights, 0.02-scaled
 positions, unit layernorm scales, zero biases and head), drawn from a
 ``torch.Generator`` on the device seeded with ``seed``: deterministic, not
-the JAX PRNG's draw. The sequence-parallel forward is ROADMAP A7.
+the JAX PRNG's draw.
+
+``apply_sequence_parallel`` (JAX :181) runs the forward on one rank's
+shard of the rows over a mesh axis: the ring, ring-flash or Ulysses
+attention of ``ops/ring_attention.py`` (not causal), and the mean-pool as
+a mean over the axis (``Mesh.pmean``).
 """
 
 from __future__ import annotations
@@ -162,7 +167,38 @@ class TransformerClassifier:
         h = self._post_attention(params, h, self._attend(*self._qkv(params, h)))
         return self._head_probs(params, h)
 
-    def apply_sequence_parallel(self, params, x, axis_name: str = "seq", *, attention=None):
-        raise NotImplementedError(
-            "TransformerClassifier.apply_sequence_parallel (ring, ring-flash, Ulysses) is "
-            "not ported yet (ROADMAP A7)")
+    def apply_sequence_parallel(self, params: TransformerParams, x: torch.Tensor, mesh,
+                                axis: str = "seq", *, attention: str | None = None):
+        """The forward on this rank's shard x [B, (seq_len/n)·token_dim] of
+        the rows split over ``axis`` of ``mesh`` (params replicated): the
+        probabilities, equal to :meth:`apply` on the whole image.
+        ``attention`` is ``"ring"``, ``"ring_flash"`` (the flash kernels a
+        hop) or ``"ulysses"`` (heads divisible by the axis size); the
+        default follows ``attention_impl``. A collective."""
+        from distributed_tensorflow_tpu_torch.ops.ring_attention import (
+            ring_attention,
+            ring_flash_attention,
+            ulysses_attention,
+        )
+
+        if attention is None:
+            attention = "ring_flash" if self.attention_impl == "flash" else "ring"
+        if attention not in ("ring", "ring_flash", "ulysses"):
+            raise ValueError(f"unknown attention {attention!r}; ring|ring_flash|ulysses")
+        n, my = mesh.axis_size(axis), mesh.axis_index(axis)
+        l_loc = self.seq_len // n
+        tokens = x.reshape(x.shape[0], l_loc, self.token_dim)
+        h = self._dot(tokens, params.embed) + params.pos[my * l_loc:(my + 1) * l_loc]
+        q, k, v = self._qkv(params, h)
+        if attention == "ring":
+            attn = ring_attention(q, k, v, mesh, axis)
+        elif attention == "ring_flash":
+            attn = ring_flash_attention(q, k, v, mesh, axis)
+        else:
+            if self.num_heads % n:
+                raise ValueError(f"ulysses needs heads ({self.num_heads}) divisible by "
+                                 f"the {axis!r} axis size ({n})")
+            attn = ulysses_attention(q, k, v, mesh, axis)
+        h = self._post_attention(params, h, attn)
+        logits = self._dot(mesh.pmean(h.mean(dim=1), axis), params.w_head) + params.b_head
+        return torch.softmax(logits.float(), dim=-1)

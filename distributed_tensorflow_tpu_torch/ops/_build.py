@@ -8,7 +8,8 @@ headers are included, so a build takes seconds. Libraries land in
 ``ops/build/`` (ignored by git), named by a hash of the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
-all of them; a failed build raises with the compiler's output.
+all of them (each in a thread of its own, so each build's end is timed);
+a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -45,9 +48,13 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 # Launch counts per kernel wrapper: each wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels it went
-# through (chip_smoke.py zeroes them before driving each path).
+# through (chip_smoke.py zeroes them before driving each path). The flash
+# wrappers also count their launches with a ring offset under
+# "<kernel>[offset]" (those launches are in the kernel's own count too).
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd[offset]": 0, "flash_bwd_fused[offset]": 0, "flash_bwd_dq[offset]": 0,
+    "flash_bwd_dkv[offset]": 0,
     "decode_block_slab": 0, "decode_token_slab": 0,
     "decode_block_paged": 0, "decode_token_paged": 0, "verify_tokens_paged": 0,
     "fused_mlp_step": 0, "fused_mlp_epoch": 0, "fused_mlp_epoch_dp": 0,
@@ -107,9 +114,8 @@ def _start(name: str):
     return proc, tmp, out, cmd
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started, log: str) -> None:
     proc, tmp, out, cmd = started
-    log, _ = proc.communicate()
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(
@@ -122,13 +128,28 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
 
 
-def build_all(names=SOURCES) -> None:
+def build_all(names=SOURCES) -> dict[str, float]:
     """Compile every named source that has no current library, one
-    ``nvcc`` process each, all started before any is waited on."""
-    started = {n: _start(n) for n in names}
+    ``nvcc`` process each, all started before any is waited on (a thread
+    each drains its output). Returns the seconds from the start to each
+    build's end (the builds that ran)."""
+    t0 = time.perf_counter()
+    started = {n: s for n in names if (s := _start(n)) is not None}
+    logs: dict[str, str] = {}
+    ends: dict[str, float] = {}
+
+    def wait(n, proc):
+        logs[n] = proc.communicate()[0]
+        ends[n] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(n, s[0])) for n, s in started.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for n, s in started.items():
-        if s is not None:
-            _finish(n, s)
+        _finish(n, s, logs[n])
+    return ends
 
 
 def load(name: str) -> ctypes.CDLL:

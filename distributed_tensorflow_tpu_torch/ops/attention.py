@@ -39,28 +39,37 @@ def repeat_kv(k, v, num_q_heads: int):
     return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
 
-def check_window(causal, window):
+def check_window(causal, window, offset=0):
     """The JAX package's refusals of a sliding window (``dense_attention``,
-    ``flash_attention_with_lse``): it needs ``causal`` and ``window >= 1``."""
+    ``flash_attention_with_lse``): it needs ``causal`` and ``window >= 1``;
+    so does a ring ``offset``, which must be >= 0."""
     if window is not None:
         if not causal:
             raise ValueError("window requires causal=True")
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
+    if offset:
+        if not causal:
+            raise ValueError("offset requires causal=True")
+        if offset < 0:
+            raise ValueError(f"offset must be >= 0, got {offset}")
 
 
-def attention_scores(q, k, *, causal=False, window=None, kv_lens=None, scale=None):
+def attention_scores(q, k, *, causal=False, window=None, kv_lens=None, scale=None, offset=0):
     """Masked f32 scores [B, Hq, Lq, Lk] of [B, L, H, D] inputs (k already
     repeated to Hq): scaled by 1/√D (or by ``scale`` where given: the JAX
     flash kernels' factor), masked entries at -1e30 — shared by
     :func:`dense_attention` and the plain flash version. ``window=W``
-    (with ``causal``) keeps key j for query i iff ``i - W < j <= i``."""
+    (with ``causal``) keeps key j for query i iff ``i - W < j <= i``.
+    ``offset=F`` (with ``causal``) puts query i at position ``i + F``
+    (the JAX ``_causal_mask``, pallas_attention.py:113): key j is kept iff
+    ``i + F - W < j <= i + F``."""
     d = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(d) if scale is None else scores * scale
     lq, lk = scores.shape[-2], scores.shape[-1]
     if causal:
-        diff = (torch.arange(lq, device=q.device)[:, None]
+        diff = (torch.arange(lq, device=q.device)[:, None] + offset
                 - torch.arange(lk, device=q.device)[None, :])
         mask = diff >= 0
         if window is not None:
@@ -72,16 +81,18 @@ def attention_scores(q, k, *, causal=False, window=None, kv_lens=None, scale=Non
     return scores
 
 
-def dense_attention(q, k, v, *, causal=False, window=None, kv_lens=None):
+def dense_attention(q, k, v, *, causal=False, window=None, kv_lens=None, offset=0):
     """Dense attention on [B, L, H, D]: ``causal`` mask, ``window=W`` (needs
     ``causal``) the sliding band of each query's last W keys, self
     included, ``kv_lens`` [B] int right-padding mask (each ≥ 1), GQA by
-    repeating k/v to the query heads. A query that sees no key (a padded
-    row past ``kv_lens + W - 1``) averages every value, as in the JAX
-    package: garbage the caller discards."""
-    check_window(causal, window)
+    repeating k/v to the query heads, ``offset=F`` the queries F positions
+    ahead of the keys (:func:`attention_scores`). A query that sees no key
+    (a padded row past ``kv_lens + W - 1``) averages every value, as in the
+    JAX package: garbage the caller discards."""
+    check_window(causal, window, offset)
     k, v = repeat_kv(k, v, q.shape[2])
-    scores = attention_scores(q, k, causal=causal, window=window, kv_lens=kv_lens)
+    scores = attention_scores(q, k, causal=causal, window=window, kv_lens=kv_lens,
+                              offset=offset)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)

@@ -6,8 +6,9 @@
 //   kv_kernel<FUSED=false>                    <- _dkv_kernel       (:381, pallas_call :640)
 //
 // What they compute, per (query row i, key j) pair that the mask keeps
-// (causal j <= i, with a window W also j > i - W, j < kv_lens[b], both
-// < L), from the forward's saved
+// (causal j <= i + F, with a window W also j > i + F - W, j < kv_lens[b],
+// both < L; F the ring offset, 0 but on a ring-flash hop: the TPU kernels'
+// `offset`, _causal_mask :113), from the forward's saved
 // log-sum-exp and delta_i = rowsum(dO_i * O_i) - dlse_i:
 //     s  = q_i . k_j * scale            p  = exp(s - lse_i)   (0 where masked)
 //     dp = dO_i . v_j                   ds = p * (dp - delta_i) * scale
@@ -30,6 +31,16 @@
 // (_banded_k_index), and a warp skips a tile wholly outside its band, so
 // the work is O(L W). dq_reduce_kernel sums exactly the dq partials that
 // the fused kv CTAs wrote, by the same ranges.
+//
+// The ring offset F shifts every query's position by F, and every range
+// above with it: a kv CTA's q-tiles start at floor((k0 - F) / BQ) and end at
+// (k0 + BK - 2 + W - F) / BQ (none when that is negative), a q_kernel CTA's
+// k-tiles end at q0 + BQ + F and start at floor((q0 + F - W + 1) / BK), and
+// dq_reduce_kernel's ranges move the same way. The band arithmetic is
+// shifted rather than turned off (the TPU kernels turn banding off under an
+// offset, :550), so an offset hop visits only the band's tiles too. A row
+// that sees no key (F >= W: rows i >= L - 1 + W - F) gets p = 0 at every
+// key, hence exactly zero dq, and adds nothing to dk or dv.
 //
 // Bound. At the training path's shapes (B*H = 128, L = 1024, D = 64,
 // causal, f32) 67.2 M (q, k) pairs are unmasked: 43.0 GFLOP for the fused
@@ -169,14 +180,19 @@ __host__ __device__ constexpr int kv_ctas() {
 }
 
 // WIN: built with the window's tests (window > 0); the other build has none.
-template <typename T, int D, bool FUSED, bool WIN>
+// OFF: built with the ring offset (offset > 0, always with a window: the
+// launcher runs an offset without one as the window L + F, which masks
+// nothing); the other builds fold every offset term away and are the
+// offset-free kernels as they were, register for register.
+template <typename T, int D, bool FUSED, bool WIN, bool OFF>
 __global__ void __launch_bounds__(KV_NT, kv_ctas<D>())
 kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, const int* __restrict__ kv_lens,
           T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp, int L, int Hq,
-          int Hkv, int causal, int window, float scale) {
+          int Hkv, int causal, int window, int offset, float scale) {
   if (!WIN) window = 0;  // every window test below folds away
+  if (!OFF) offset = 0;  // every offset term below folds away
   constexpr int BQ = KV_BQ;
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BQ / 8;  // query column tiles of S^T and dP^T
@@ -206,12 +222,15 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   zero(adk);
   zero(adv);
 
-  // A tile wholly past kv_lens gets zero gradients and writes no dq partial
-  // (dq_reduce_kernel skips it by the same predicate).
-  if (k0 < kvlen) {
-    const int iq0 = causal ? k0 / BQ : 0;
-    // The band's last query is k0 + BK - 2 + W (the tile's last key, W - 1 on).
-    const int iq1 = window ? min(nq, (k0 + BK - 2 + window) / BQ + 1) : nq;
+  // A tile wholly past kv_lens, or (under an offset) that no query reaches,
+  // gets zero gradients and writes no dq partial (dq_reduce_kernel skips it
+  // by the same predicate).
+  if (k0 < kvlen && (!OFF || k0 + BK - 2 + window - offset >= 0)) {
+    // The q-tiles the keys reach: from the first query at or past k0 - F
+    // (causal) to the band's last, k0 + BK - 2 + W - F (the tile's last
+    // key, W - 1 on).
+    const int iq0 = causal ? (OFF ? max(0, k0 - offset) : k0) / BQ : 0;
+    const int iq1 = window ? min(nq, (k0 + BK - 2 + window - offset) / BQ + 1) : nq;
     const int nqt = iq1 - iq0, ntile = G * nqt;
     auto load_q_tile = [&](int it) {
       const int h = hk * G + it / nqt, q0 = (iq0 + it % nqt) * BQ, buf = it & 1;
@@ -225,7 +244,7 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     load_q_tile(0);
     cp_async_commit();
     // All of the warp's keys lie past kv_lens when k0 + wk >= klim; under
-    // causal they lie past rows q0 .. q0+BQ-1 when q0 + BQ - 1 < k0 + wk.
+    // causal they lie past rows q0 .. q0+BQ-1 when q0 + BQ - 1 + F < k0 + wk.
     const bool keys_live = k0 + wk < klim;
 
     for (int it = 0; it < ntile; ++it) {
@@ -238,8 +257,8 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       T* dOt = dOs + buf * BQ * SO;
       const float* Lt = Ls + buf * BQ;
       const float* Dt = Dl + buf * BQ;
-      const bool live = keys_live && !(causal && q0 + BQ - 1 < k0 + wk) &&
-                        !(window && q0 - (k0 + wk + 15) >= window);
+      const bool live = keys_live && !(causal && q0 + BQ - 1 + offset < k0 + wk) &&
+                        !(window && q0 + offset - (k0 + wk + 15) >= window);
 
       // p[j] / ds[j]: keys kr, kr + 8 against queries q0 + 8j + 2t and + 2t + 1.
       // dV takes P before dP^T is formed, so p, ds and dV's accumulators
@@ -268,8 +287,8 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
             for (int e = 0; e < 4; ++e) {
               const int qi = 8 * j + 2 * ln.t + (e & 1), qp = q0 + qi;
               const int key = kr + ((e >> 1) << 3);
-              const bool ok = qp < L && key < klim && (!causal || key <= qp) &&
-                              (!window || key > qp - window);
+              const bool ok = qp < L && key < klim && (!causal || key <= qp + offset) &&
+                              (!window || key > qp + offset - window);
               p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Lt[qi]) : 0.f;
             }
         }
@@ -373,13 +392,13 @@ kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 // dq[e] = sum over the k-tiles ik (ascending) that kv_kernel<FUSED> visited
 // for e's (batch, query row l): k0 = ik * BK < kv_lens[b], under causal
-// l's q-tile starts at or past k0's, and with a window l's q-tile is at or
-// before the band's last, (k0 + BK - 2 + W) / KV_BQ. Exactly the slices
-// written, so no zeroing is needed.
+// l's q-tile is at or past floor((k0 - F) / KV_BQ), and with a window l's
+// q-tile is at or before the band's last, (k0 + BK - 2 + W - F) / KV_BQ.
+// Exactly the slices written, so no zeroing is needed.
 template <typename T>
 __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ dq,
                                  const int* __restrict__ kv_lens, int B, int L, int Hq, int D,
-                                 int causal, int window) {
+                                 int causal, int window, int offset) {
   const size_t n = (size_t)B * L * Hq * D;
   const int nk = (L + BK - 1) / BK;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
@@ -389,10 +408,11 @@ __global__ void dq_reduce_kernel(const float* __restrict__ dqp, T* __restrict__ 
     const int kvlen = kv_lens ? kv_lens[b] : L;
     // The slices written for row l: k-tiles ik0 .. ns-1.
     int ns = min(nk, (kvlen + BK - 1) / BK);
-    if (causal) ns = min(ns, l / BK + 1);
+    // The last ik with floor((ik BK - F) / KV_BQ) <= l / KV_BQ.
+    if (causal) ns = min(ns, ((l / KV_BQ + 1) * KV_BQ + offset - 1) / BK + 1);
     int ik0 = 0;
-    if (window) {  // the first ik with (ik BK + BK - 2 + W) / KV_BQ >= l / KV_BQ
-      const int need = (l / KV_BQ) * KV_BQ - (BK - 2 + window);
+    if (window) {  // the first ik with (ik BK + BK - 2 + W - F) / KV_BQ >= l / KV_BQ
+      const int need = (l / KV_BQ) * KV_BQ - (BK - 2 + window) + offset;
       ik0 = need <= 0 ? 0 : (need + BK - 1) / BK;
     }
     float s = 0.f;
@@ -455,15 +475,16 @@ __device__ __forceinline__ void row_product(float (&c)[NJ][4], float (&x)[NJ][4]
 // formed there, and ds is the A fragment of dQ += dS K as it stands. Each
 // k-tile's share of dQ is summed in fresh accumulators and added to dq in
 // f32. The kernels below are this body under their launch bounds.
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 __device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, const T* __restrict__ dout,
                                        const float* __restrict__ lse,
                                        const float* __restrict__ delta,
                                        const int* __restrict__ kv_lens, T* __restrict__ dq,
                                        int L, int Hq, int Hkv, int causal, int window,
-                                       float scale) {
+                                       int offset, float scale) {
   if (!WIN) window = 0;  // every window test below folds away
+  if (!OFF) offset = 0;  // every offset term below folds away
   using Q = QTiles<D>;
   constexpr int BQ = Q::BQ, BKQ = Q::BK, NT = Q::NT;
   constexpr bool SPLIT = std::is_same<T, float>::value;
@@ -485,9 +506,12 @@ __device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restr
   const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
   const int q0 = iq * BQ, hk = h / (Hq / Hkv);
   const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
-  const int kend = causal ? min(klim, q0 + BQ) : klim;
+  const int kend = causal ? min(klim, q0 + BQ + offset) : klim;
   const int ntile = (kend + BKQ - 1) / BKQ;
-  const int it0 = window ? max(0, q0 - window + 1) / BKQ : 0;  // the band's first tile
+  // In the loop keys are counted from -offset (kq = key - offset), so the
+  // causal and window tests compare them with the rows as they stand.
+  const int klimq = klim - offset;
+  const int it0 = window ? max(0, q0 + offset - window + 1) / BKQ : 0;  // the band's first tile
 
   load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, h, L, Hq);
   load_rows_async<T, D, BQ, NT>(dOs, dout, b, q0, h, L, Hq);
@@ -515,9 +539,8 @@ __device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restr
       load_rows_async<T, D, BKQ, NT>(Vs + nb * BKQ * SD, v, b, (it + 1) * BKQ, hk, L, Hkv);
     }
     cp_async_commit();
-    const int k0 = it * BKQ;
-    if (!live || (causal && k0 > q0 + wr + 15) ||
-        (window && k0 + BKQ - 1 <= q0 + wr - window))
+    const int kq0 = it * BKQ - offset;
+    if (!live || (causal && kq0 > q0 + wr + 15) || (window && kq0 + BKQ - 1 <= q0 + wr - window))
       continue;  // every p of the warp is 0: above its rows, or older than their band
 
     // s[j] / dp[j]: keys k0 + 8j + 2t and + 2t + 1 of rows r0 and r0 + 8.
@@ -531,9 +554,9 @@ __device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restr
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
+          const int key = kq0 + 8 * j + 2 * ln.t + (e & 1);
           const int qi = wr + ln.g + ((e >> 1) << 3), row = q0 + qi;
-          const bool ok = row < L && key < klim && (!causal || key <= row) &&
+          const bool ok = row < L && key < klimq && (!causal || key <= row) &&
                           (!window || key > row - window);
           p[j][e] = ok ? expf((p[j][e] + x[j][e]) * scale - Ls[qi]) : 0.f;
         }
@@ -588,35 +611,37 @@ __device__ __forceinline__ void q_tile(const T* __restrict__ q, const T* __restr
   }
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 __global__ void __launch_bounds__(QTiles<D>::NT)
 q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
          const T* __restrict__ dout, const float* __restrict__ lse,
          const float* __restrict__ delta, const int* __restrict__ kv_lens, T* __restrict__ dq,
-         int L, int Hq, int Hkv, int causal, int window, float scale) {
-  q_tile<T, D, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
+         int L, int Hq, int Hkv, int causal, int window, int offset, float scale) {
+  q_tile<T, D, WIN, OFF>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, offset,
+                    scale);
 }
 
 // Head dims 16 and 8 declare one CTA a SM as their minimum: at ptxas's
 // default register target for its 128 threads the f32 D=16 tile spills two
 // registers (96 used), as flash_fwd.cu's D=16 tile does; with it, 86-112
 // registers and no spill.
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 __global__ void __launch_bounds__(QTiles<D>::NT, 1)
 q_kernel_narrow(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const int* __restrict__ kv_lens,
                 T* __restrict__ dq, int L, int Hq, int Hkv, int causal, int window,
-                float scale) {
-  q_tile<T, D, WIN>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, scale);
+                int offset, float scale) {
+  q_tile<T, D, WIN, OFF>(q, k, v, dout, lse, delta, kv_lens, dq, L, Hq, Hkv, causal, window, offset,
+                    scale);
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 constexpr auto dq_kernel() {
   if constexpr (D <= 16) {
-    return q_kernel_narrow<T, D, WIN>;
+    return q_kernel_narrow<T, D, WIN, OFF>;
   } else {
-    return q_kernel<T, D, WIN>;
+    return q_kernel<T, D, WIN, OFF>;
   }
 }
 
@@ -625,43 +650,44 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 cudaError_t launch_w(int mode, const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, const int* kv_lens, void* dq,
                      void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
-                     int window, float scale, cudaStream_t st) {
+                     int window, int offset, float scale, cudaStream_t st) {
   cudaError_t err;
   const int nk = (L + BK - 1) / BK;
   if (mode == 0 || mode == 2) {  // fused, or dk/dv alone
     dim3 grid(nk, Hkv, B);
     if (mode == 0) {
       const size_t smem = kv_smem_bytes<T, D>();
-      if ((err = set_smem(kv_kernel<T, D, true, WIN>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, true, WIN><<<grid, KV_NT, smem, st>>>(
+      if ((err = set_smem(kv_kernel<T, D, true, WIN, OFF>, smem)) != cudaSuccess) return err;
+      kv_kernel<T, D, true, WIN, OFF><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
-          (T*)dv, dqp, L, Hq, Hkv, causal, window, scale);
+          (T*)dv, dqp, L, Hq, Hkv, causal, window, offset, scale);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
       size_t n = (size_t)B * L * Hq * D;
       int blocks = (int)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16);
       dq_reduce_kernel<T><<<blocks, 256, 0, st>>>(dqp, (T*)dq, kv_lens, B, L, Hq, D, causal,
-                                                  window);
+                                                  window, offset);
     } else {
       const size_t smem = kv_smem_bytes<T, D>();
-      if ((err = set_smem(kv_kernel<T, D, false, WIN>, smem)) != cudaSuccess) return err;
-      kv_kernel<T, D, false, WIN><<<grid, KV_NT, smem, st>>>(
+      if ((err = set_smem(kv_kernel<T, D, false, WIN, OFF>, smem)) != cudaSuccess) return err;
+      kv_kernel<T, D, false, WIN, OFF><<<grid, KV_NT, smem, st>>>(
           (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, kv_lens, (T*)dk,
-          (T*)dv, nullptr, L, Hq, Hkv, causal, window, scale);
+          (T*)dv, nullptr, L, Hq, Hkv, causal, window, offset, scale);
     }
     return cudaGetLastError();
   }
   if (mode == 1) {  // dq alone
     using Q = QTiles<D>;
     const size_t smem = q_smem_bytes<T, D>();
-    constexpr auto kern = dq_kernel<T, D, WIN>();
+    constexpr auto kern = dq_kernel<T, D, WIN, OFF>();
     if ((err = set_smem(kern, smem)) != cudaSuccess) return err;
     dim3 grid(Hq, B, (L + Q::BQ - 1) / Q::BQ);
     kern<<<grid, Q::NT, smem, st>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-                                    delta, kv_lens, (T*)dq, L, Hq, Hkv, causal, window, scale);
+                                    delta, kv_lens, (T*)dq, L, Hq, Hkv, causal, window, offset,
+                                    scale);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
@@ -671,18 +697,26 @@ template <typename T, int D>
 cudaError_t launch(int mode, const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, const int* kv_lens, void* dq,
                    void* dk, void* dv, float* dqp, int B, int L, int Hq, int Hkv, int causal,
-                   int window, float scale, cudaStream_t st) {
-  return window ? launch_w<T, D, true>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv,
-                                       dqp, B, L, Hq, Hkv, causal, window, scale, st)
-                : launch_w<T, D, false>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv,
-                                        dqp, B, L, Hq, Hkv, causal, 0, scale, st);
+                   int window, int offset, float scale, cudaStream_t st) {
+  // An offset runs on the offset build, which has a window: without one,
+  // the window L + F, which masks nothing (row i keeps key j > i + F - W).
+  if (offset)
+    return launch_w<T, D, true, true>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv,
+                                      dqp, B, L, Hq, Hkv, causal, window ? window : L + offset,
+                                      offset, scale, st);
+  return window ? launch_w<T, D, true, false>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk,
+                                              dv, dqp, B, L, Hq, Hkv, causal, window, 0, scale,
+                                              st)
+                : launch_w<T, D, false, false>(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk,
+                                               dv, dqp, B, L, Hq, Hkv, causal, 0, 0, scale, st);
 }
 
 }  // namespace
 
 // q, dout [B, L, Hq, D]; k, v [B, L, Hkv, D] (contiguous, 16-byte aligned,
 // f32 or bf16, one dtype); lse, delta [B, L, Hq] f32; kv_lens [B] int32 or
-// NULL; window 0 for none, else W >= 1 (needs causal); scale the scores'
+// NULL; window 0 for none, else W >= 1 (needs causal); offset 0, or F >= 1
+// (needs causal) the rows' position ahead of the keys'; scale the scores'
 // factor (1 / sqrt of the caller's head dim).
 // mode 0 (fused): dq, dk, dv, with dqp an f32 scratch of
 //   ceil(L/64) * B * L * Hq * D floats;
@@ -691,13 +725,15 @@ cudaError_t launch(int mode, const void* q, const void* k, const void* v, const 
 extern "C" int flash_bwd(int mode, const void* q, const void* k, const void* v,
                          const void* dout, const float* lse, const float* delta,
                          const int* kv_lens, void* dq, void* dk, void* dv, float* dqp, int B,
-                         int L, int Hq, int Hkv, int D, int causal, int window, int is_bf16,
-                         float scale, void* stream) {
+                         int L, int Hq, int Hkv, int D, int causal, int window, int offset,
+                         int is_bf16, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
+  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal) ||
+      offset < 0 || (offset && !causal))
     return (int)cudaErrorInvalidValue;
-#define BWD_ARGS \
-  mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, scale, st
+#define BWD_ARGS                                                                              \
+  mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp, B, L, Hq, Hkv, causal, window, offset, \
+      scale, st
   if (D == 8)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 8>(BWD_ARGS) : launch<float, 8>(BWD_ARGS));
   if (D == 16)

@@ -5,6 +5,9 @@
 // softmax attention computed tile by tile with an online softmax, so the
 // [L, L] score matrix never reaches device memory. Features: causal mask,
 // the sliding window (window = W > 0: row i keeps key j iff i - W < j <= i),
+// the ring offset (offset = F >= 0, with causal: row i sits at position
+// i + F, so it keeps key j iff j <= i + F, and i + F - W < j with a window;
+// the TPU kernel's `offset`, _causal_mask :113),
 // per-batch right-padding kv_lens, grouped-query attention (query head h
 // reads KV head h / (Hq / Hkv)), head dim D in {8, 16, 32, 64, 128} (any
 // other multiple of 8 up to 128 runs zero-padded to the next one:
@@ -36,8 +39,12 @@
 // first. With a window the CTA's key range starts at the band's first tile,
 // floor((q0 - W + 1) / BK), not at 0 (the TPU kernel's _banded_k_index),
 // and a warp skips the tiles wholly older than its rows' band, so the work
-// is O(L W); a row that sees no key (window with kv_lens) keeps l = 0 and
-// writes 0, as the TPU kernel's empty-row guard gives. Each tile's share
+// is O(L W); a row that sees no key (window with kv_lens, or an offset
+// past the window: rows i >= L - 1 + W - F) keeps l = 0 and writes 0 and
+// lse -1e30, as the TPU kernel's empty-row guard gives. Under an offset
+// every bound above moves with the rows' positions: the key range ends at
+// q0 + BQ + F, starts at floor((q0 + F - W + 1) / BK), and the warp's
+// skips and the mask compare keys with row + F. Each tile's share
 // of P V is summed in fresh accumulators and folded into O in f32 (O = O * corr + P V): the tensor cores truncate as
 // they accumulate, and O would otherwise take that error at every MMA.
 // Masked entries are -1e30 with the TPU kernel's empty-row guard; for
@@ -75,12 +82,17 @@ constexpr int NT = NW * 32;
 
 // One CTA's tile: the kernels below are this body under their launch bounds.
 // WIN: built with the window's tests (window > 0); the other build has none.
-template <typename T, int D, bool WIN>
+// OFF: built with the ring offset (offset > 0, always with a window: the
+// launcher runs an offset without one as the window L + F, which masks
+// nothing); the other builds fold every offset term away.
+template <typename T, int D, bool WIN, bool OFF>
 __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __restrict__ k,
                                          const T* __restrict__ v, const int* __restrict__ kv_lens,
                                          T* __restrict__ out, float* __restrict__ lse, int L,
-                                         int Hq, int Hkv, int causal, int window, float scale) {
+                                         int Hq, int Hkv, int causal, int window, int offset,
+                                         float scale) {
   if (!WIN) window = 0;  // every window test below folds away
+  if (!OFF) offset = 0;  // every offset term below folds away
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int NJ = BK / 8;  // key column tiles of S
   constexpr int NN = D / 8;   // dim column tiles of O
@@ -98,9 +110,12 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
   const int q0 = iq * BQ, hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (Hq / Hkv);
   const int klim = min(L, kv_lens ? kv_lens[b] : L);  // keys at or past klim are masked
-  const int kend = causal ? min(klim, q0 + BQ) : klim;
+  const int kend = causal ? min(klim, q0 + BQ + offset) : klim;
+  // In the loop keys are counted from -offset (kq = key - offset), so the
+  // causal and window tests compare them with the rows as they stand.
+  const int klimq = klim - offset;
   const int ntile = (kend + BK - 1) / BK;
-  const int it0 = window ? max(0, q0 - window + 1) / BK : 0;  // the band's first tile
+  const int it0 = window ? max(0, q0 + offset - window + 1) / BK : 0;  // the band's first tile
 
   load_rows_async<T, D, BQ, NT>(Qs, q, b, q0, hq, L, Hq);
   load_rows_async<T, D, BK, NT>(Ks, k, b, it0 * BK, hk, L, Hkv);
@@ -124,14 +139,13 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
       load_rows_async<T, D, BK, NT>(Vs + nb * BK * SD, v, b, (it + 1) * BK, hk, L, Hkv);
     }
     cp_async_commit();
-    const int k0 = it * BK;
-    if (!live || (causal && k0 > q0 + wr + 15) ||
-        (window && k0 + BK - 1 <= q0 + wr - window))
+    const int kq0 = it * BK - offset;
+    if (!live || (causal && kq0 > q0 + wr + 15) || (window && kq0 + BK - 1 <= q0 + wr - window))
       continue;  // every score masked: above the rows, or older than their band
     const T* Kt = Ks + cur * BK * SD;
     const T* Vt = Vs + cur * BK * SD;
 
-    // S = Q K^T; s[j] holds keys k0 + 8j + 2t and + 2t + 1 of rows r0, r0 + 8.
+    // S = Q K^T; s[j] holds keys it BK + 8j + 2t and + 2t + 1 of rows r0, r0 + 8.
     float s[NJ][4], sx[NJ][4];
     zero(s);
     zero(sx);
@@ -152,10 +166,10 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * ln.t + (e & 1);
+        const int key = kq0 + 8 * j + 2 * ln.t + (e & 1);
         const int row = r0 + ((e >> 1) << 3);
         const bool ok =
-            key < klim && (!causal || key <= row) && (!window || key > row - window);
+            key < klimq && (!causal || key <= row) && (!window || key > row - window);
         s[j][e] = ok ? (s[j][e] + sx[j][e]) * scale : NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -186,7 +200,7 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
       l[h] = l[h] * corr[h] + ps[h];
     }
 
-    // O = O * corr + P V. P's A fragment for keys k0 + 8kk .. + 7 is s[kk]
+    // O = O * corr + P V. P's A fragment for keys it BK + 8kk .. + 7 is s[kk]
     // reordered. The tile's share is summed in fresh accumulators, NC dim
     // tiles at a time, and folded into O in f32: O takes one rounding a
     // tile instead of the tensor cores' truncation at every MMA.
@@ -227,12 +241,12 @@ __device__ __forceinline__ void fwd_tile(const T* __restrict__ q, const T* __res
   }
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ kv_lens, T* __restrict__ out, float* __restrict__ lse,
-                 int L, int Hq, int Hkv, int causal, int window, float scale) {
-  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, scale);
+                 int L, int Hq, int Hkv, int causal, int window, int offset, float scale) {
+  fwd_tile<T, D, WIN, OFF>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, offset, scale);
 }
 
 // Head dims 16 and 8 declare one CTA a SM as their minimum. Without it
@@ -240,47 +254,52 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // bf16) and the bf16 D=16 tile spills a register there; with it, 114-159
 // registers and no spill (CUDA 12.8's ptxas). The other head dims keep
 // their bounds, and their register counts.
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel_narrow(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kv_lens,
                         T* __restrict__ out, float* __restrict__ lse, int L, int Hq, int Hkv,
-                        int causal, int window, float scale) {
-  fwd_tile<T, D, WIN>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, scale);
+                        int causal, int window, int offset, float scale) {
+  fwd_tile<T, D, WIN, OFF>(q, k, v, kv_lens, out, lse, L, Hq, Hkv, causal, window, offset, scale);
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 constexpr auto fwd_kernel() {
   if constexpr (D <= 16) {
-    return flash_fwd_kernel_narrow<T, D, WIN>;
+    return flash_fwd_kernel_narrow<T, D, WIN, OFF>;
   } else {
-    return flash_fwd_kernel<T, D, WIN>;
+    return flash_fwd_kernel<T, D, WIN, OFF>;
   }
 }
 
-template <typename T, int D, bool WIN>
+template <typename T, int D, bool WIN, bool OFF>
 cudaError_t launch_w(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
                      float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
-                     float scale, cudaStream_t stream) {
+                     int offset, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * stride<T, D>();
-  constexpr auto kern = fwd_kernel<T, D, WIN>();
+  constexpr auto kern = fwd_kernel<T, D, WIN, OFF>();
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((L + BQ - 1) / BQ, Hq, B);
   kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, kv_lens, (T*)out,
-                                   lse, L, Hq, Hkv, causal, window, scale);
+                                   lse, L, Hq, Hkv, causal, window, offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_lens, void* out,
                    float* lse, int B, int L, int Hq, int Hkv, int causal, int window,
-                   float scale, cudaStream_t stream) {
-  return window ? launch_w<T, D, true>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal,
-                                       window, scale, stream)
-                : launch_w<T, D, false>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, 0,
-                                        scale, stream);
+                   int offset, float scale, cudaStream_t stream) {
+  // An offset runs on the offset build, which has a window: without one,
+  // the window L + F, which masks nothing (row i keeps key j > i + F - W).
+  if (offset)
+    return launch_w<T, D, true, true>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal,
+                                      window ? window : L + offset, offset, scale, stream);
+  return window ? launch_w<T, D, true, false>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv,
+                                              causal, window, 0, scale, stream)
+                : launch_w<T, D, false, false>(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv,
+                                               causal, 0, 0, scale, stream);
 }
 
 }  // namespace
@@ -288,14 +307,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_le
 // q [B, L, Hq, D], k/v [B, L, Hkv, D] (contiguous, 16-byte aligned, f32 or
 // bf16), kv_lens [B] int32 or NULL → out [B, L, Hq, D] (input dtype), lse
 // [B, L, Hq] f32. window: 0 for none, else W >= 1 (needs causal). scale:
-// the scores' factor (1 / sqrt of the caller's head dim).
+// the scores' factor (1 / sqrt of the caller's head dim). offset: 0, or
+// F >= 1 (needs causal), the rows' position ahead of the keys'.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const int* kv_lens,
                          void* out, float* lse, int B, int L, int Hq, int Hkv, int D,
-                         int causal, int window, int is_bf16, float scale, void* stream) {
+                         int causal, int window, int offset, int is_bf16, float scale,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal))
+  if (Hkv < 1 || Hq % Hkv || B < 1 || L < 1 || window < 0 || (window && !causal) ||
+      offset < 0 || (offset && !causal))
     return (int)cudaErrorInvalidValue;
-#define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, scale, st
+#define FWD_ARGS q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, causal, window, offset, scale, st
   if (D == 8)
     return (int)(is_bf16 ? launch<__nv_bfloat16, 8>(FWD_ARGS) : launch<float, 8>(FWD_ARGS));
   if (D == 16)

@@ -6,7 +6,11 @@ Counterpart of ``distributed_tensorflow_tpu/ops/pallas_attention.py``
 custom VJP (:667-880), with the causal mask, the sliding window
 (``window=W``: query i keeps key j iff ``i - W < j <= i``; each kernel
 visits only the tiles of the band, as the JAX banded index maps
-``_banded_k_index`` / ``_banded_q_index`` do), ``kv_lens`` and GQA. The
+``_banded_k_index`` / ``_banded_q_index`` do), the ring offset
+(``offset=F``, with ``causal``: query i sits at position i + F, so it keeps
+key j iff ``j <= i + F`` and, with a window, ``j > i + F - W``; the JAX
+``_causal_mask`` :113 and ``_block_needed`` :128, which ring-flash
+attention's windowed past hops run), ``kv_lens`` and GQA. The
 forward kernel, ``csrc/flash_fwd.cu``, replaces the TPU kernel ``_fwd_kernel`` (:208); the backward kernels of
 ``csrc/flash_bwd.cu`` replace ``_fused_bwd_kernel`` (:440), ``_dq_kernel``
 (:327) and ``_dkv_kernel`` (:381).
@@ -64,11 +68,11 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
 FLASH_MIN_LEN = 1024
 
 # flash_fwd(q, k, v, kv_lens, out, lse, B, L, Hq, Hkv, D, causal, window,
-#           is_bf16, scale, stream); window 0 = none.
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+#           offset, is_bf16, scale, stream); window 0 = none.
+_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 # flash_bwd(mode, q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, dqp,
-#           B, L, Hq, Hkv, D, causal, window, is_bf16, scale, stream)
-_BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+#           B, L, Hq, Hkv, D, causal, window, offset, is_bf16, scale, stream)
+_BWD_SIG = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
 _BWD_MODES = {"flash_bwd_fused": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 # The kernels' key tile: the fused backward's dq partials take ceil(L/BLOCK_K)
@@ -81,8 +85,8 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 FUSED_DQ_CAP_BYTES = 1 << 30
 
 
-def _check(q, k, v, kv_lens, causal, window):
-    check_window(causal, window)
+def _check(q, k, v, kv_lens, causal, window, offset=0):
+    check_window(causal, window, offset)
     if k.shape != v.shape:
         raise ValueError(f"k/v shapes must match: {k.shape} {v.shape}")
     if (
@@ -103,19 +107,21 @@ def _check(q, k, v, kv_lens, causal, window):
         )
 
 
-def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None, scale=None):
+def flash_attention_plain(q, k, v, *, causal=False, window=None, kv_lens=None, scale=None,
+                          offset=0):
     """The plain version: the same masked softmax in f32, returning
     ``(out [B, L, Hq, D] in q's dtype, lse [B, L, Hq] f32)``. A row that
     sees no key (``window`` with ``kv_lens``: a padded row past
-    ``kv_lens + W - 1``) gives 0 and lse -1e30, as the kernels and the JAX
+    ``kv_lens + W - 1``; an ``offset`` past the window; a ring hop's
+    ``kv_lens`` of 0) gives 0 and lse -1e30, as the kernels and the JAX
     kernel's empty-row guard do (dense attention averages the values
     there instead). ``scale``: the scores' factor (default 1/√D)."""
     kr, vr = repeat_kv(k, v, q.shape[2])
     scores = attention_scores(q, kr, causal=causal, window=window, kv_lens=kv_lens,
-                              scale=scale)
+                              scale=scale, offset=offset)
     lse = torch.logsumexp(scores, dim=-1)  # [B, H, Lq]
     w = torch.exp(scores - lse[..., None])
-    if window is not None:
+    if window is not None or offset or kv_lens is not None:
         w = torch.where(scores.amax(-1, keepdim=True) > 0.5 * NEG_INF, w, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", w, vr.float())
     return out.to(q.dtype), lse.transpose(1, 2).contiguous()
@@ -167,7 +173,7 @@ def _window_arg(window):
     return 0 if window is None else int(window)
 
 
-def _flash_cuda(q, k, v, causal, kv_lens, window=None):
+def _flash_cuda(q, k, v, causal, kv_lens, window=None, offset=0):
     dp = _check_kernel_inputs(q, k, v)
     b, l, hq, d = q.shape
     q, k, v = (_dense16(pad_head_dim(t, dp)) for t in (q, k, v))
@@ -181,16 +187,19 @@ def _flash_cuda(q, k, v, causal, kv_lens, window=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         0 if lens is None else lens.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
-        b, l, hq, k.shape[2], dp, int(causal), _window_arg(window),
+        b, l, hq, k.shape[2], dp, int(causal), _window_arg(window), int(offset),
         int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_fwd")
     _build.LAUNCHES["flash_fwd"] += 1
+    if offset:
+        _build.LAUNCHES["flash_fwd[offset]"] += 1
     return _unpad(out, d), lse
 
 
-def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None, scale=None):
+def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None, scale=None,
+                    offset=0):
     """The plain backward, from the JAX kernels' formulas: ``(dq, dk, dv)``
     in the inputs' dtypes, dk/dv [B, L, Hkv, D] summed over each KV head's
     group of query heads. ``o`` is unused (``delta`` carries it) and kept
@@ -199,7 +208,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None, sc
     pallas_attention.py:350-353). p and ds are cast to the operand dtype
     before their products, as the JAX kernels' ``astype`` (:368, :421,
     :426); products and sums are f32. ``scale``: the scores' factor
-    (default 1/√D)."""
+    (default 1/√D); ``offset`` as :func:`flash_attention_plain` takes it."""
     del o
     b, l, hq, d = q.shape
     hkv = k.shape[2]
@@ -209,9 +218,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window=None, sc
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     valid = torch.ones(l, l, dtype=torch.bool, device=q.device)
     if causal:
-        valid = torch.tril(valid)
+        valid = torch.tril(valid, diagonal=offset)
     if window is not None:
-        valid = torch.triu(valid, diagonal=1 - window)
+        valid = torch.triu(valid, diagonal=offset + 1 - window)
     valid = valid[None, None]
     if kv_lens is not None:
         kvalid = torch.arange(l, device=q.device)[None, :] < kv_lens[:, None]
@@ -251,7 +260,7 @@ def resolve_fused(fused, bh: int, l: int, d: int, window=None) -> bool:
 
 
 def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, head_dim,
-                dqp=None):
+                dqp=None, offset=0):
     """One backward launch on inputs padded to a built head dim; the scale
     is ``head_dim``'s, the caller's D."""
     lib = _build.load("flash_bwd")
@@ -266,12 +275,14 @@ def _bwd_launch(name, q, k, v, do, lse, delta, kv_lens, causal, window, outs, he
     err = fn(
         _BWD_MODES[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), ptr(kv_lens), ptr(dq), ptr(dk), ptr(dv), ptr(dqp),
-        b, l, hq, k.shape[2], d, int(causal), _window_arg(window),
+        b, l, hq, k.shape[2], d, int(causal), _window_arg(window), int(offset),
         int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(head_dim),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
+    if offset:
+        _build.LAUNCHES[f"{name}[offset]"] += 1
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
@@ -284,7 +295,8 @@ def _bwd_inputs(q, k, v, do, lse, delta, kv_lens):
             lse.float().contiguous(), delta.float().contiguous(), lens)
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
+def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None,
+                    offset=0):
     """B4a on the card: ``(dq, dk, dv)`` in one pass over the KV tiles, dq
     from f32 partials summed by a second kernel in a fixed order."""
     d = q.shape[-1]
@@ -292,33 +304,36 @@ def flash_bwd_fused(q, k, v, do, lse, delta, *, causal=False, window=None, kv_le
     b, l, hq, dp = q.shape
     dqp = torch.empty(-(-l // BLOCK_K) * b * l * hq * dp, dtype=torch.float32, device=q.device)
     outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, window, outs, d, dqp)
+    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, lens, causal, window, outs, d, dqp,
+                offset)
     return tuple(_unpad(t, d) for t in outs)
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None,
+                 offset=0):
     """B4b on the card: dq, one CTA per (batch, query head, q-tile), on the
     tensor cores."""
     d = q.shape[-1]
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dq = torch.empty_like(q)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, lens, causal, window,
-                (dq, None, None), d)
+                (dq, None, None), d, offset=offset)
     return _unpad(dq, d)
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None):
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=False, window=None, kv_lens=None,
+                  offset=0):
     """B4c on the card: ``(dk, dv)``, one CTA per (batch, KV head, k-tile),
     summed over the group's query heads."""
     d = q.shape[-1]
     q, k, v, do, lse, delta, lens = _bwd_inputs(q, k, v, do, lse, delta, kv_lens)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, lens, causal, window,
-                (None, dk, dv), d)
+                (None, dk, dv), d, offset=offset)
     return _unpad(dk, d), _unpad(dv, d)
 
 
-def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, window, fused):
+def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, window, fused, offset=0):
     """``(dq, dk, dv)`` from the forward's residuals and the cotangents
     ``do`` and ``dlse`` (None counts as zeros): ``delta = rowsum(do·o) −
     dlse`` in f32, as the JAX code forms it in XLA (:722), then the kernels
@@ -328,50 +343,53 @@ def flash_bwd(q, k, v, o, lse, do, dlse, kv_lens, causal, window, fused):
         delta = delta - dlse.float()
     if q.is_cuda:
         b, l, hq, d = q.shape
-        kw = dict(causal=causal, window=window, kv_lens=kv_lens)
+        kw = dict(causal=causal, window=window, kv_lens=kv_lens, offset=offset)
         if resolve_fused(fused, b * hq, l, d, window):
             return flash_bwd_fused(q, k, v, do, lse, delta, **kw)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
-    return flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window)
+    return flash_bwd_plain(q, k, v, o, lse, do, delta, kv_lens, causal, window, offset=offset)
 
 
-def _flash_forward(q, k, v, causal, window, kv_lens):
+def _flash_forward(q, k, v, causal, window, kv_lens, offset=0):
     if q.is_cuda:
-        return _flash_cuda(q, k, v, causal, kv_lens, window)
+        return _flash_cuda(q, k, v, causal, kv_lens, window, offset)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, window=window, kv_lens=kv_lens)
+    return flash_attention_plain(q, k, v, causal=causal, window=window, kv_lens=kv_lens,
+                                 offset=offset)
 
 
 @torch.library.custom_op("dtf::FlashAttention", mutates_args=())
 def flash_attention_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_lens: Optional[torch.Tensor],
-    causal: bool, window: int, fused: Optional[bool],
+    causal: bool, window: int, fused: Optional[bool], offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(q, k, v, kv_lens) → (out, lse)``, both differentiable: the JAX
     ``_flash`` custom VJP as an operator that autograd and a selective
     checkpoint see whole (``window`` 0 = none; ``fused`` picks the
-    backward). Its backward (:func:`_flash_op_backward`) runs from the
-    saved ``(q, k, v, out, lse)``; ``kv_lens`` gets no gradient."""
-    return _flash_forward(q, k, v, causal, window or None, kv_lens)
+    backward; ``offset`` the ring offset). Its backward
+    (:func:`_flash_op_backward`) runs from the saved ``(q, k, v, out,
+    lse)``; ``kv_lens`` gets no gradient."""
+    return _flash_forward(q, k, v, causal, window or None, kv_lens, offset)
 
 
 def _flash_op_setup(ctx, inputs, output):
-    q, k, v, kv_lens, causal, window, fused = inputs
+    q, k, v, kv_lens, causal, window, fused, offset = inputs
     ctx.save_for_backward(q, k, v, *output, kv_lens)
-    ctx.causal, ctx.window, ctx.fused = causal, window or None, fused
+    ctx.causal, ctx.window, ctx.fused, ctx.offset = causal, window or None, fused, offset
 
 
 def _flash_op_backward(ctx, dout, dlse):
     q, k, v, out, lse, kv_lens = ctx.saved_tensors
     if dout is None:
         dout = torch.zeros_like(out)
+    kw = {"offset": ctx.offset} if ctx.offset else {}
     dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.window,
-                           ctx.fused)
-    return dq, dk, dv, None, None, None, None
+                           ctx.fused, **kw)
+    return dq, dk, dv, None, None, None, None, None
 
 
 flash_attention_op.register_autograd(_flash_op_backward, setup_context=_flash_op_setup)
@@ -393,23 +411,28 @@ def selective_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
+def flash_attention_with_lse(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None,
+                             offset=0):
     """Exact attention on [B, L, H, D] without an [L, L] score matrix in
     device memory. ``window=W`` (needs ``causal``, W ≥ 1) keeps each
-    query's last W keys, self included. ``kv_lens`` [B] int (each ≥ 1)
-    masks keys at positions ≥ kv_lens[b]; k/v may carry fewer heads (GQA).
-    Returns ``(out, lse)``,
-    both differentiable. ``fused`` picks the backward: None (auto, see
-    :func:`resolve_fused`), True (one pass) or False (dq + dk/dv kernels)."""
-    _check(q, k, v, kv_lens, causal, window)
+    query's last W keys, self included. ``kv_lens`` [B] int masks keys at
+    positions ≥ kv_lens[b] (a row left with no key gives 0 and lse -1e30);
+    k/v may carry fewer heads (GQA). ``offset=F`` (needs ``causal``, F ≥ 0)
+    puts every query F positions ahead of the keys: the ring composition's
+    past hops (``ops/ring_attention.ring_flash_attention``). Returns
+    ``(out, lse)``, both differentiable. ``fused`` picks the backward: None
+    (auto, see :func:`resolve_fused`), True (one pass) or False (dq + dk/dv
+    kernels)."""
+    _check(q, k, v, kv_lens, causal, window, offset)
+    offset = int(offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return flash_attention_op(q, k, v, kv_lens, causal, _window_arg(window), fused)
-    return _flash_forward(q, k, v, causal, window, kv_lens)
+        return flash_attention_op(q, k, v, kv_lens, causal, _window_arg(window), fused, offset)
+    return _flash_forward(q, k, v, causal, window, kv_lens, offset)
 
 
-def flash_attention(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None):
+def flash_attention(q, k, v, *, causal=False, window=None, kv_lens=None, fused=None, offset=0):
     """:func:`flash_attention_with_lse` without the log-sum-exp — the
     drop-in for :func:`ops.attention.dense_attention`."""
     return flash_attention_with_lse(
-        q, k, v, causal=causal, window=window, kv_lens=kv_lens, fused=fused
+        q, k, v, causal=causal, window=window, kv_lens=kv_lens, fused=fused, offset=offset
     )[0]

@@ -4,7 +4,7 @@ Counterpart of ``distributed_tensorflow_tpu/ops/moe.py``: ``MoEParams``
 (:40), ``MoEAux`` (:48), ``init_moe`` (:78), ``_expert_ffn`` (:91),
 ``_route`` (:98), ``_combine`` (:172), ``moe_ffn_dense`` (:179) and
 ``moe_ffn_local`` (:205). The expert-parallel body ``moe_ffn`` (:244, two
-all-to-alls) waits for ROADMAP A7.
+all-to-alls) waits for ROADMAP A7c.
 
 Semantics, as there:
 
@@ -176,8 +176,8 @@ def moe_ffn_local(params: MoEParams, x, capacity: int, *, with_aux: bool = False
 
 def moe_ffn(params: MoEParams, x, axis_name: str, capacity: int, **kw):
     """The expert-parallel body (JAX ``moe_ffn``: one expert a rank, two
-    all-to-alls) is not ported yet (ROADMAP A7)."""
+    all-to-alls) is not ported yet (ROADMAP A7c)."""
     raise NotImplementedError(
-        "moe_ffn (expert parallelism over an all-to-all) is not ported yet (ROADMAP A7); "
+        "moe_ffn (expert parallelism over an all-to-all) is not ported yet (ROADMAP A7c); "
         "moe_ffn_local runs every expert on one device"
     )

@@ -39,10 +39,10 @@ def fsdp_specs(params: Any, world: World | int, *, axis: str = "data", base: Any
     """Per parameter, the tuple of ``PartitionSpec`` entries sharding its
     largest dim that the ``axis`` size divides over ``axis`` (the first of
     equal ones); ``()`` for a tensor with no such dim. ``world`` is the
-    world or its size. A tensor-parallel ``base`` layout is ROADMAP A7."""
+    world or its size. A tensor-parallel ``base`` layout is ROADMAP A7b."""
     if base is not None:
         raise NotImplementedError("fsdp_specs(base=...): tensor-parallel layouts are not "
-                                  "ported yet (ROADMAP A7)")
+                                  "ported yet (ROADMAP A7b)")
     n = world if isinstance(world, int) else world.size
 
     def spec_for(leaf):
@@ -79,7 +79,7 @@ class ShardedDataParallel(Strategy):
         if param_specs is not None:
             raise NotImplementedError(
                 "ShardedDataParallel(param_specs=...): tensor-parallel layouts are not "
-                "ported yet (ROADMAP A7)")
+                "ported yet (ROADMAP A7b)")
         self.world = world if world is not None else make_mesh(device)
         self.axis = axis
         self._specs = None  # per-parameter specs, resolved in init_state

@@ -10,20 +10,39 @@ group it is a world of one rank whose collectives are no-ops.
 
 The backend follows from the layout (:func:`choose_backend`): NCCL when
 each rank of a host has a card of its own, gloo otherwise (the CPU, and
-several ranks sharing one card, which NCCL refuses). Every collective of
-the port is an ``all_reduce``, which gloo also takes on CUDA tensors (as it
-takes ``broadcast``, but not ``all_gather`` or ``reduce_scatter``), so one
-code path serves gloo on the CPU, gloo on CUDA tensors and NCCL.
+several ranks sharing one card, which NCCL refuses). The data-parallel
+strategies' collectives are ``all_reduce`` and ``broadcast``, which gloo
+also takes on CUDA tensors (it does not take ``all_gather`` or
+``reduce_scatter``), so one code path serves gloo on the CPU, gloo on CUDA
+tensors and NCCL.
 
 The JAX shardings ``replicated`` / ``batch_sharded`` /
 ``stacked_per_device`` become which rows of a global array a rank keeps.
+
+A mesh with named axes (:class:`Mesh`, :func:`make_named_mesh`: the JAX
+``make_mesh(shape, axis_names)`` with ``lax.axis_size`` /
+``lax.axis_index``) lays the ranks of the default group row-major on a
+grid, ``("data", "seq")`` for sequence parallelism, and builds one
+sub-group (``dist.new_group``) for each set of ranks that differ along a
+set of axes. Its collectives take axis names as the JAX ones do:
+``all_reduce_`` over one or several axes, :meth:`Mesh.ring_permute` (the
+JAX ``lax.ppermute`` with the ring's permutation, differentiable: its
+backward is the inverse permute) and :meth:`Mesh.all_to_all`
+(``lax.all_to_all``, differentiable the same way). The permute runs on
+``dist.batch_isend_irecv`` to the partners' global ranks. gloo cannot send
+a CUDA tensor point to point (the send fails in ``writev`` with a bad
+address), so under gloo a hop stages its buffer through host memory (ranks
+that share one card); gloo's ``all_to_all_single`` takes CUDA tensors, and
+under NCCL both stay on the device.
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -156,3 +175,214 @@ def batch_sharded(world: World, rows: int) -> slice:
 def stacked_per_device(world: World) -> slice:
     """Rows a rank keeps of a per-rank stack (async copies): its own."""
     return slice(world.rank, world.rank + 1)
+
+
+class Mesh:
+    """This rank's view of a grid of ranks with named axes (the JAX
+    ``jax.sharding.Mesh`` under ``shard_map``). ``shape`` maps each axis
+    name to its size, in order; ``coords[name]`` is this rank's index
+    along it (``lax.axis_index``). A rank's coordinates are its global rank
+    unravelled row-major over the shape, the order of the JAX mesh's
+    device grid. Made by :func:`make_named_mesh`."""
+
+    def __init__(self, shape: dict, rank: int, device: torch.device, backend, groups: dict,
+                 coords: dict | None = None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.rank = rank  # the global rank
+        self.size = math.prod(self.shape.values())
+        self.device = device
+        self.backend = backend
+        # frozenset of axes -> (group or None, global ranks ordered by their
+        # index along those axes)
+        self._groups = groups
+        self.coords = coords or dict(zip(self.axis_names, _unravel(rank, self.shape)))
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in _axes(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's index along ``axes`` (one axis, or several taken
+        row-major in mesh order)."""
+        idx = 0
+        for a in self.axis_names:
+            if a in _axes(axes):
+                idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def group(self, axes):
+        """The sub-group of the ranks that differ from this one only along
+        ``axes``, and their global ranks in order (None for a set of one
+        rank)."""
+        axes = frozenset(_axes(axes))
+        unknown = axes - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"mesh has no axis {sorted(unknown)}: {self.shape}")
+        return self._groups[axes]
+
+    def all_reduce_(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over ``axes`` in place (a no-op for one rank)."""
+        g, _ = self.group(axes)
+        if g is not None:
+            dist.all_reduce(t, op=_OPS[op], group=g)
+        return t
+
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The mean of ``x`` over ``axes`` (``lax.pmean``), differentiable
+        for a result every rank then uses alike: each rank's ``x`` takes
+        1/n of the result's gradient, with no collective."""
+        if self.axis_size(axes) == 1:
+            return x
+        return _PMean.apply(self, tuple(_axes(axes)), x)
+
+    def ring_permute(self, tensors: Sequence[torch.Tensor], axis: str, shift: int = 1):
+        """Each tensor of this rank to the rank ``shift`` steps on along
+        ``axis`` (``lax.ppermute`` with ``[(j, (j + shift) % n)]``), and
+        that of the rank ``shift`` steps back in its place; differentiable
+        (the gradient takes the inverse permute). One send and one receive
+        of a flat buffer a call."""
+        tensors = tuple(tensors)
+        if self.shape[axis] == 1:
+            return tensors
+        return _RingPermute.apply(self, axis, shift, *tensors)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int, concat_axis: int):
+        """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=False)``:
+        ``x`` with ``x.shape[split_axis] == n`` sends its i-th slice along
+        ``split_axis`` to rank i of ``axis`` and stacks what it receives,
+        by source, as a new axis at ``concat_axis`` of the result (the
+        split axis removed); differentiable (the gradient takes the inverse
+        exchange)."""
+        if self.shape[axis] == 1:
+            return x.movedim(split_axis, concat_axis)
+        return _AllToAll.apply(self, axis, split_axis, concat_axis, x)
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _unravel(rank: int, shape: dict) -> list:
+    out = []
+    for n in reversed(list(shape.values())):
+        out.append(rank % n)
+        rank //= n
+    return out[::-1]
+
+
+def permute_raw(mesh: Mesh, axis: str, tensors, shift: int) -> list:
+    """:meth:`Mesh.ring_permute` without autograd: one flat buffer sent to
+    the rank ``shift`` on and one received from the rank ``shift`` back."""
+    g, ranks = mesh.group(axis)
+    n, i = len(ranks), mesh.coords[axis]
+    flat = flatten([t.contiguous() for t in tensors])
+    if flat.is_cuda and mesh.backend == "gloo":  # gloo sends from host memory only
+        flat = flat.cpu()
+    out = torch.empty_like(flat)
+    ops = [dist.P2POp(dist.isend, flat, ranks[(i + shift) % n], g),
+           dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], g)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    out = out.to(tensors[0].device)
+    return [o.view_as(t) for o, t in zip(unflatten(out, tensors), tensors)]
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, shift, *tensors):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return tuple(permute_raw(mesh, axis, tensors, shift))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *permute_raw(ctx.mesh, ctx.axis, grads, -ctx.shift))
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, x):
+        ctx.n = mesh.axis_size(axes)
+        return mesh.all_reduce_(x.detach().clone(), axes) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g / ctx.n
+
+
+def all_to_all_raw(mesh: Mesh, axis: str, x: torch.Tensor, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+    """:meth:`Mesh.all_to_all` without autograd (``dist.all_to_all_single``
+    over the axis's group)."""
+    g, _ = mesh.group(axis)
+    n = mesh.shape[axis]
+    if x.shape[split_axis] != n:
+        raise ValueError(f"all_to_all over {axis!r} ({n} ranks) splits an axis of size {n}, "
+                         f"got {x.shape[split_axis]}")
+    send = x.movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    return recv.movedim(0, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, split_axis, concat_axis, x):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return all_to_all_raw(mesh, axis, x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return None, None, None, None, all_to_all_raw(mesh, axis, g, concat_axis, split_axis)
+
+
+def make_named_mesh(shape: Sequence[int] | dict, axis_names: Sequence[str] = ("data", "seq"),
+                    *, device=None) -> Mesh:
+    """The ranks of the default process group on a grid of ``shape`` with
+    ``axis_names`` (a dict of name -> size also serves), row-major. Every
+    rank must call it, in the same order as any other group creation: it
+    makes one sub-group for every set of axes whose ranks are more than
+    one and fewer than the world. Without an initialized group it is a
+    mesh of one rank (every axis of size 1)."""
+    if isinstance(shape, dict):
+        shape = dict(shape)
+    else:
+        shape = tuple(shape)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} does not match axis names {tuple(axis_names)}")
+        shape = dict(zip(axis_names, shape))
+    if len(set(shape)) != len(shape) or any(n < 1 for n in shape.values()):
+        raise ValueError(f"bad mesh shape {shape}")
+    world = make_mesh(device)
+    total = math.prod(shape.values())
+    if total != world.size:
+        raise ValueError(f"a mesh of {shape} needs {total} ranks, the world has {world.size}")
+    names = tuple(shape)
+    coords = [_unravel(r, shape) for r in range(total)]
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for sub in itertools.combinations(names, k):
+            members = {}
+            for r in range(total):
+                key = tuple(c for a, c in zip(names, coords[r]) if a not in sub)
+                members.setdefault(key, []).append(r)
+            mine = None
+            for ranks in members.values():
+                g = None
+                if 1 < len(ranks) < total:
+                    g = dist.new_group(ranks)  # collective: every rank makes every group
+                elif len(ranks) == total > 1:
+                    g = dist.group.WORLD
+                if world.rank in ranks:
+                    mine = (g, ranks)
+            groups[frozenset(sub)] = mine
+    return Mesh(shape, world.rank, world.device, world.backend, groups)
+
+
+def as_mesh(world: World, axis: str = "data") -> Mesh:
+    """A data-parallel :class:`World` as a one-axis :class:`Mesh` named
+    ``axis`` (its ring collectives then run over the world's group)."""
+    ranks = ([world.rank] if world.group is None
+             else list(dist.get_process_group_ranks(world.group)))
+    return Mesh({axis: world.size}, ranks[world.rank], world.device, world.backend,
+                {frozenset({axis}): (world.group, ranks)}, coords={axis: world.rank})

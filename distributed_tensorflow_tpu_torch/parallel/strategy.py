@@ -290,7 +290,7 @@ class SyncDataParallel(Strategy):
         if param_specs is not None:
             raise NotImplementedError(
                 "SyncDataParallel(param_specs=...): tensor parallelism over a 'model' "
-                "axis is not ported yet (ROADMAP A7)"
+                "axis is not ported yet (ROADMAP A7b)"
             )
         self.world = world if world is not None else make_mesh(device)
         self.explicit = explicit_collectives
@@ -393,13 +393,24 @@ class AsyncDataParallel(Strategy):
         return tree_unflatten(params, self.world.mean_(tree_leaves(params)))
 
     def make_exchange_fn(self, collective: str = "auto"):
-        """Periodic parameter exchange: every copy jumps to the mean (one
-        all-reduce); optimizer state and steps stay local."""
-        if collective == "ring":
-            raise NotImplementedError(
-                "make_exchange_fn(collective='ring') is not ported yet (ROADMAP A7)")
-        if collective != "auto":
+        """Periodic parameter exchange: every copy jumps to the mean;
+        optimizer state and steps stay local. ``"auto"`` takes one
+        all-reduce of a flat bucket; ``"ring"`` the explicit ring of
+        ``ops/collectives.ring_all_mean`` (n − 1 neighbour hops a leaf),
+        as the JAX ``make_exchange_fn(collective="ring")``."""
+        if collective not in ("auto", "ring"):
             raise ValueError(f"unknown collective {collective!r}; use 'auto' or 'ring'")
+        if collective == "ring":
+            from distributed_tensorflow_tpu_torch.ops.collectives import ring_all_mean
+            from distributed_tensorflow_tpu_torch.parallel.mesh import as_mesh
+
+            mesh = as_mesh(self.world)
+
+            @torch.no_grad()
+            def ring_mean(params):
+                return tree_map(lambda a: ring_all_mean(a, mesh, "data"), params)
+
+            return lambda state: TrainState(ring_mean(state.params), state.opt_state, state.step)
 
         def exchange(state: TrainState) -> TrainState:
             return TrainState(self._mean_params(state.params), state.opt_state, state.step)

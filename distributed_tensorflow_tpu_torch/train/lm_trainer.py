@@ -38,11 +38,29 @@ As in the JAX trainer, the optimizer is ``optimizer=`` or else the plain
 ``accumulate_steps`` act only through an ``optimizer=`` composed from
 them, as ``launch.build_trainer`` composes the MLP ``Trainer``'s.
 
-Not ported yet, and refused when asked for: ``mesh`` and the parallel
-modes (ROADMAP A7), the supervisor and checkpoints (and with them the
-``tokenizer.json`` written beside a checkpoint), summaries, the journal
-and metrics, ``epochs_per_dispatch`` and the anomaly guard (A8), and the
-DiLoCo ``delta_exchange`` (A7).
+With ``mesh`` (a :class:`~parallel.mesh.Mesh` over the ranks of a
+``torch.distributed`` group, ``parallel/mesh.make_named_mesh``), every
+rank runs this loop on the same global batches (the same dataset, seed
+and index stream) and its step keeps its shard, as the JAX trainer's
+``shard_map`` does (:540-565):
+
+- ``dp_mode="replicated"`` → **dp**: the batch split over ``data_axis``
+  (``models/gpt.make_lm_train_step(model, opt, mesh, data_axis)``);
+- ``dp_mode="sp"`` → **sp**: the sequence split over ``seq_axis``
+  (``models/gpt.make_lm_sp_parts``, ``sp_attention`` ring | ring_flash |
+  ulysses), composed with ``data_axis`` when the mesh has it (dp×sp).
+
+The parameters stay replicated, so the held-out perplexity is the dense
+forward's on each rank, as in the JAX trainer. Step lines print on every
+rank; the epoch and final lines on the chief (``is_chief`` and rank 0 of
+the mesh).
+
+Not ported yet, and refused when asked for: the tensor-parallel mode
+(ROADMAP A7b), the expert and pipeline modes (A7c), the LM's ZeRO and
+async modes and the DiLoCo ``delta_exchange`` (A7d), the supervisor and
+checkpoints (and with them the ``tokenizer.json`` written beside a
+checkpoint), summaries, the journal and metrics, ``epochs_per_dispatch``
+and the anomaly guard (A8).
 """
 
 from __future__ import annotations
@@ -55,29 +73,26 @@ import torch
 
 from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.device import resolve_device
-from distributed_tensorflow_tpu_torch.models.gpt import make_lm_train_step
+from distributed_tensorflow_tpu_torch.models.gpt import make_lm_sp_parts, make_lm_train_step
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX LMTrainer keyword -> (values that leave it off, ROADMAP item).
 NOT_PORTED = {
-    "mesh": ((None,), "A7"),
     "summary_writer": ((None,), "A8"),
     "supervisor": ((None,), "A8"),
     "journal": ((None,), "A8"),
     "metrics": ((None,), "A8"),
-    "delta_exchange": ((None,), "A7"),
-    "is_chief": ((True,), "A7"),
-    "async_update_scale": ((None,), "A7"),
-    "data_axis": (("data",), "A7"),
-    "tp_axis": (("model",), "A7"),
-    "expert_axis": (("expert",), "A7"),
-    "stage_axis": (("stage",), "A7"),
-    "pp_microbatches": ((4,), "A7"),
-    "seq_axis": (("seq",), "A7"),
-    "sp_attention": ((None,), "A7"),
+    "delta_exchange": ((None,), "A7d"),
+    "async_update_scale": ((None,), "A7d"),
+    "tp_axis": (("model",), "A7b"),
+    "expert_axis": (("expert",), "A7c"),
+    "stage_axis": (("stage",), "A7c"),
+    "pp_microbatches": ((4,), "A7c"),
 }
+SP_ATTENTIONS = (None, "ring", "ring_flash", "ulysses")
 
 
 class LMTrainer:
@@ -92,6 +107,11 @@ class LMTrainer:
         print_fn=print,
         device=None,
         tokenizer=None,
+        mesh=None,
+        data_axis: str = "data",
+        seq_axis: str = "seq",
+        sp_attention: str | None = None,
+        is_chief: bool = True,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -102,7 +122,14 @@ class LMTrainer:
                 raise NotImplementedError(
                     f"LMTrainer({name}=...) is not ported yet (ROADMAP {item})"
                 )
+        if sp_attention not in SP_ATTENTIONS:
+            raise ValueError(f"unknown sp_attention {sp_attention!r}; ring|ring_flash|ulysses")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self.config = config or TrainConfig()
+        self.mesh, self.data_axis, self.seq_axis = mesh, data_axis, seq_axis
+        self.sp_attention = sp_attention
+        self.is_chief = is_chief and (mesh is None or mesh.rank == 0)
         self.tokenizer = tokenizer
         # The config's remat and matmul_dtype land on a shallow copy, so the
         # caller's model object keeps its own settings (as in the JAX
@@ -124,11 +151,69 @@ class LMTrainer:
         self.eval_batch = eval_batch
         self.print_fn = print_fn
         self._ragged = datasets.train.lengths is not None
-        self._step = make_lm_train_step(self.model, self.optimizer)
+        self.mode = self._resolve_mode()
+        self._step = self._make_step()
         self.state = self._init_state(self.model.init(seed=self.config.seed, device=self.device))
         self._stage_cache: dict = {}
         self.last_cost = None
         self.history: list[dict] = []
+
+    # -- modes ------------------------------------------------------------
+
+    def _resolve_mode(self) -> str:
+        """single, dp or sp, with the JAX trainer's checks (:393-565)."""
+        cfg, mesh = self.config, self.mesh
+        if mesh is None:
+            return "single"
+        if not cfg.sync:
+            raise NotImplementedError(
+                "LMTrainer(mesh=...) with sync=False (async local SGD) is not ported yet "
+                "(ROADMAP A7d)")
+        if cfg.dp_mode == "zero":
+            raise NotImplementedError(
+                "LMTrainer(mesh=...) with dp_mode='zero' is not ported yet (ROADMAP A7d)")
+        if cfg.dp_mode == "sp":
+            if self.seq_axis not in mesh.shape:
+                raise ValueError(
+                    f"dp_mode='sp' needs a {self.seq_axis!r} mesh axis: {dict(mesh.shape)}")
+            if self.model.moe_experts is not None:
+                raise ValueError(
+                    "dp_mode='sp' is not defined for MoE blocks; use "
+                    "dp_mode='ep' (expert parallelism)")
+            s = mesh.shape[self.seq_axis]
+            seq_len = self.datasets.train.tokens.shape[1]
+            if seq_len % s:
+                raise ValueError(
+                    f"dp_mode='sp' shards the {seq_len}-token sequence "
+                    f"over the {s}-way {self.seq_axis!r} axis: must divide")
+            d = mesh.shape.get(self.data_axis, 1)
+            if self._dp_axis() is not None and cfg.batch_size % d:
+                raise ValueError(
+                    f"dp×sp shards the batch over the {d}-way {self.data_axis!r} axis: "
+                    f"batch_size {cfg.batch_size} must divide")
+            return "sp"
+        if self.data_axis not in mesh.shape:
+            raise ValueError(f"mesh has no {self.data_axis!r} axis: {dict(mesh.shape)}")
+        if cfg.batch_size % mesh.shape[self.data_axis]:
+            raise ValueError(
+                f"dp shards the batch over {self.data_axis!r}: batch_size {cfg.batch_size} "
+                f"must be divisible by the axis size {mesh.shape[self.data_axis]}")
+        return "dp"
+
+    def _dp_axis(self) -> str | None:
+        """The data axis to compose with sp: on the mesh, or None."""
+        return self.data_axis if self.data_axis in self.mesh.shape else None
+
+    def _make_step(self):
+        """``step(params, opt_state, tokens, lengths) -> (params, opt_state,
+        loss)`` of the mode, on the global batch."""
+        if self.mode == "single":
+            return make_lm_train_step(self.model, self.optimizer)
+        if self.mode == "dp":
+            return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis)
+        return make_lm_sp_parts(self.model, self.optimizer, self.mesh, self.seq_axis,
+                                data_axis=self._dp_axis(), attention=self.sp_attention,
+                                ragged=self._ragged)
 
     # -- pieces -----------------------------------------------------------
 
@@ -225,13 +310,15 @@ class LMTrainer:
             yield i, self._train_step(toks_all.index_select(0, idxs[i]), lens)
 
     def _end_epoch(self, logger: StepLogger, epoch: int, perplexity: float, step: int) -> None:
-        logger.log_epoch_metric("Test-Perplexity", perplexity)
+        if self.is_chief:
+            logger.log_epoch_metric("Test-Perplexity", perplexity)
         self.history.append({"epoch": epoch + 1, "perplexity": perplexity, "step": step})
 
     def _finish(self, logger: StepLogger, perplexity: float, final_cost=None) -> dict:
         if final_cost is None:
             final_cost = float("nan") if self.last_cost is None else float(self.last_cost)
-        logger.log_final(cost=final_cost)
+        if self.is_chief:
+            logger.log_final(cost=final_cost)
         return {
             "perplexity": perplexity,
             "final_cost": final_cost,

@@ -91,6 +91,26 @@ def run_world(case: str, n: int, tmp_path, inputs: dict | None = None, args: dic
     return out
 
 
+def run_world_once(case: str, n: int, tmp_path_factory, inputs: dict | None = None,
+                   args: dict | None = None, timeout: float = WORLD_TIMEOUT_S) -> list:
+    """:func:`run_world`, once a test session: under pytest-xdist the first
+    worker to ask runs the world (holding a file lock in the session's
+    shared temporary directory) and the others read its pickled results,
+    so a module fixture's world does not run again in every worker that
+    takes one of the module's tests."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return run_world(case, n, tmp_path_factory.mktemp(f"{case}{n}"), inputs, args, timeout)
+    import filelock
+
+    out = tmp_path_factory.getbasetemp().parent / f"world-{case}-{n}.pkl"
+    with filelock.FileLock(f"{out}.lock"):
+        if out.is_file():
+            return pickle.loads(out.read_bytes())
+        res = run_world(case, n, tmp_path_factory.mktemp(f"{case}{n}"), inputs, args, timeout)
+        out.write_bytes(pickle.dumps(res))
+        return res
+
+
 def _tail(path: str, n: int = 4000) -> str:
     with open(path, errors="replace") as f:
         return f.read()[-n:]
@@ -415,9 +435,173 @@ def case_classifiers(world, inp, args):
     return res
 
 
+def _attn_fn(name):
+    from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
+
+    return {"ring": ra.ring_attention, "ring_flash": ra.ring_flash_attention,
+            "ulysses": ra.ulysses_attention}[name]
+
+
+def case_ring(world, inp, args):
+    """Sequence-parallel attention on a ``("seq",)`` mesh of the world:
+    each case of ``args["cases"]`` (variant, causal, window, GQA, kv_lens)
+    on this rank's sequence block of the inputs, its output and the
+    gradients of sum(out · ct) (the rank's block of the cotangent) with
+    respect to its q, k, v blocks, and the ring permutes it made; then
+    the ring collectives and the async strategy's ring exchange."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops import collectives as co
+    from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+
+    mesh = make_named_mesh((world.size,), ("seq",), device="cpu")
+    n, r = world.size, world.rank
+    permutes = [0]
+    ring_permute = mesh.ring_permute
+
+    def counted(*a, **kw):
+        permutes[0] += 1
+        return ring_permute(*a, **kw)
+
+    mesh.ring_permute = counted
+
+    def block(a):
+        m = a.shape[1] // n
+        return torch.from_numpy(np.ascontiguousarray(a[:, r * m:(r + 1) * m]))
+
+    res = {}
+    for case in args["cases"]:
+        name, variant, causal, window, gqa, lens = (case[k] for k in (
+            "name", "variant", "causal", "window", "gqa", "lens"))
+        sfx = "_gqa" if gqa else ""
+        q, k, v = (block(inp[f"{t}{sfx if t != 'q' else ''}"]).requires_grad_(True)
+                   for t in "qkv")
+        kw = dict(causal=causal, window=window)
+        if lens:
+            kw["kv_lens"] = torch.from_numpy(inp["lens"])
+        permutes[0] = 0
+        ra.reset_hops()
+        out = _attn_fn(variant)(q, k, v, mesh, "seq", **kw)
+        fwd_permutes = permutes[0]
+        (out * block(inp["ct"])).sum().backward()
+        res[name] = dict(out=_np(out), dq=_np(q.grad), dk=_np(k.grad), dv=_np(v.grad),
+                         permutes=fwd_permutes, hops=dict(ra.HOPS))
+    x = torch.from_numpy(inp["coll"][r])
+    res["coll"] = dict(reduce=_np(co.ring_all_reduce(x, mesh, "seq")),
+                       mean=_np(co.ring_all_mean(x, mesh, "seq")),
+                       gather=_np(co.ring_all_gather(x, mesh, "seq")))
+    # The async strategy's exchange: every copy to the mean, by the ring
+    # and by the one all-reduce.
+    from distributed_tensorflow_tpu_torch.parallel.strategy import AsyncDataParallel, TrainState
+
+    strat = AsyncDataParallel(world)
+    p = _params(inp)
+    p = type(p)(*(t + 0.1 * (r + 1) * torch.ones_like(t) for t in p))
+    state = TrainState(p, (), 3)
+    ring = strat.make_exchange_fn("ring")(state)
+    auto = strat.make_exchange_fn()(state)
+    res["exchange"] = dict(ring=_np(ring.params), auto=_np(auto.params), step=ring.step)
+    return res
+
+
+def _gpt(kw):
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    return GPTLM(**kw, compute_dtype=torch.float32)
+
+
+def _gpt_params(inp, prefix):
+    """The GPT parameters stored flat under ``prefix`` (``<prefix>/embed``,
+    ``<prefix>/blocks/wq``, ...)."""
+    from distributed_tensorflow_tpu_torch.convert import gpt_params_from_numpy
+
+    tree = {k: inp[f"{prefix}/{k}"] for k in ("embed", "pos", "lnf_scale", "lnf_bias")}
+    tree["blocks"] = {k.rsplit("/", 1)[1]: v for k, v in inp.items()
+                      if k.startswith(f"{prefix}/blocks/")}
+    return gpt_params_from_numpy(tree, device="cpu")
+
+
+def case_sp(world, inp, args):
+    """The LM's parallel paths on meshes of the world's ranks, each run of
+    ``args["runs"]`` from the inputs' parameters: ``sp`` (the sequence-
+    parallel step, ``steps`` Adam steps on the global batches), ``ragged``
+    (one step on two batches that differ only past the lengths), ``dp``
+    (the data-parallel step), ``trainer`` (LMTrainer in a mode, its lines
+    and final parameters) and ``transformer`` (the classifier's
+    sequence-parallel forward)."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models import gpt as gpt_lib
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+
+    res = {}
+    toks = torch.from_numpy(inp["tokens"])
+    for run in args["runs"]:
+        name, kind = run["name"], run["kind"]
+        mesh = make_named_mesh(tuple(run["shape"]), tuple(run["axes"]), device="cpu")
+        if kind == "transformer":
+            from distributed_tensorflow_tpu_torch.convert import transformer_params_from_numpy
+            from distributed_tensorflow_tpu_torch.models.transformer import TransformerClassifier
+
+            model = TransformerClassifier(compute_dtype=torch.float32)
+            params = transformer_params_from_numpy(
+                {k.split("/", 1)[1]: v for k, v in inp.items() if k.startswith("tf/")}, "cpu")
+            n, i = mesh.axis_size("seq"), mesh.axis_index("seq")
+            x = torch.from_numpy(inp["tf_x"])
+            w = x.shape[1] // n
+            res[name] = _np(model.apply_sequence_parallel(params, x[:, i * w:(i + 1) * w], mesh,
+                                                          attention=run["attention"]))
+            continue
+        model = _gpt(run["model"])
+        params = _gpt_params(inp, run["params"])
+        opt = optim.adam(1e-3)
+        data_axis = "data" if "data" in run["axes"] else None
+        if kind == "sp":
+            step = gpt_lib.make_lm_sp_train_step(model, opt, mesh, data_axis=data_axis,
+                                                 attention=run["attention"])
+            p, o, losses = params, opt.init(params), []
+            for t in toks[:run["steps"]]:
+                p, o, loss = step(p, o, t)
+                losses.append(float(loss))
+            res[name] = dict(params=_np(p), losses=losses)
+        elif kind == "ragged":
+            mapped = gpt_lib.make_lm_sp_parts(model, opt, mesh, data_axis=data_axis,
+                                              attention=run["attention"], ragged=True)
+            lens = torch.from_numpy(inp["lengths"])
+            out = [mapped(params, opt.init(params), torch.from_numpy(inp[t]), lens)
+                   for t in ("ragged_a", "ragged_b")]
+            res[name] = dict(params=[_np(x[0]) for x in out], losses=[float(x[2]) for x in out])
+        elif kind == "dp":
+            step = gpt_lib.make_lm_train_step(model, opt, mesh, "data")
+            p, o, losses = params, opt.init(params), []
+            for t in toks[:run["steps"]]:
+                p, o, loss = step(p, o, t)
+                losses.append(float(loss))
+            res[name] = dict(params=_np(p), losses=losses)
+        elif kind == "trainer":
+            from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
+            from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+            ds = TokenDatasets(TokenDataset(inp["train"], seed=1), TokenDataset(inp["val"], seed=2),
+                               TokenDataset(inp["val"], seed=3))
+            lines = []
+            tr = LMTrainer(model, ds, TrainConfig(**run["config"]), mesh=mesh, device="cpu",
+                           sp_attention=run.get("attention"), print_fn=lines.append,
+                           optimizer=opt)
+            tr.state = tr._init_state(params)
+            out = tr.run()
+            res[name] = dict(lines=lines, result=out, params=_np(tr.state.params), mode=tr.mode)
+    return res
+
+
 CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
          "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
-         "sync_global": case_sync_global}
+         "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

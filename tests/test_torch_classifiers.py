@@ -233,7 +233,9 @@ def test_importing_the_serving_stack_pulls_in_no_classifier():
 def test_refusals(what):
     """What this slice leaves out raises naming its ROADMAP item; the
     transformer's stable loss and the fused engine on a non-MLP keep the
-    JAX package's wording."""
+    JAX package's wording. The sequence-parallel forward, once refused, now
+    runs: on a mesh of one rank it is the dense forward, with each of its
+    attentions."""
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.data import mnist as tmnist
     from distributed_tensorflow_tpu_torch.inference import Predictor
@@ -242,6 +244,20 @@ def test_refusals(what):
 
     x, y = _data(20, seed=10)
     ds = _datasets(tmnist, x, y, x, y)
+    if what == "sequence_parallel":
+        from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+
+        model = build_model("transformer", compute_dtype=torch.float32)
+        params = model.init(1, device="cpu")
+        xs = torch.from_numpy(x[:4])
+        mesh = make_named_mesh((1,), ("seq",), device="cpu")
+        want = model.apply(params, xs)
+        for attention in ("ring", "ring_flash", "ulysses"):
+            got = model.apply_sequence_parallel(params, xs, mesh, attention=attention)
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), attention
+        with pytest.raises(ValueError, match="unknown attention 'dense'"):
+            model.apply_sequence_parallel(params, xs, mesh, attention="dense")
+        return
     if what == "stable_transformer":
         with pytest.raises(ValueError, match="loss='stable' needs apply_logits on "
                                              "TransformerClassifier$"):
@@ -258,8 +274,6 @@ def test_refusals(what):
     calls = {
         "cnn_specs": (lambda: build_model("cnn").partition_specs(), "A7"),
         "lstm_specs": (lambda: build_model("lstm").partition_specs(), "A7"),
-        "sequence_parallel": (lambda: build_model("transformer").apply_sequence_parallel(
-            None, None), "A7"),
         "from_checkpoint": (lambda: Predictor.from_checkpoint(build_model("cnn"), "ckpt"),
                             "A8"),
     }

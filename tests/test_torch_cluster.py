@@ -482,11 +482,17 @@ def test_lifted_fields_keep_the_jax_defaults():
                         fromlist=["x"]).SyncDataParallel(device="cpu", param_specs=()), "A7"),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.strategy",
                         fromlist=["x"]).AsyncDataParallel(device="cpu").make_exchange_fn("ring"),
-     "A7"),
+     None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.fsdp",
                         fromlist=["x"]).ShardedDataParallel(device="cpu", param_specs=()), "A7"),
 ], ids=["cnn", "diloco", "tp", "param_specs", "ring", "zero-tp"])
 def test_refusals_name_their_items(make, item):
+    """Each refusal names its ROADMAP item (the parallel layouts now name
+    A7b-A7d, which the match on "A7" takes); the ring exchange, once
+    refused, now returns its exchange function."""
+    if item is None:
+        assert callable(make())
+        return
     with pytest.raises(NotImplementedError, match=item):
         make()
 

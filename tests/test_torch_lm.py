@@ -284,10 +284,27 @@ def test_step_from_a_carried_jax_adam_state():
 
 
 def test_train_step_refuses_parallel_layouts():
+    """The tensor-parallel step (``tp_axis``, and ``seq_axis``, its
+    dp×tp×sp form) is refused naming ROADMAP A7b. The data-parallel step
+    (``mesh``), once refused, now runs: on a mesh of one rank it is the
+    single-device step bit for bit, and a mesh without the axis is refused
+    as JAX's."""
     from distributed_tensorflow_tpu_torch.models.gpt import make_lm_train_step
     from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
 
     tm = torch_model("float32")
-    for kw in (dict(mesh=object()), dict(tp_axis="model"), dict(seq_axis="seq")):
-        with pytest.raises(NotImplementedError, match="A7"):
+    for kw in (dict(tp_axis="model"), dict(seq_axis="seq")):
+        with pytest.raises(NotImplementedError, match="A7b"):
             make_lm_train_step(tm, optim.adam(1e-3), **kw)
+    mesh = make_named_mesh((1,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="mesh has no 'batch' axis"):
+        make_lm_train_step(tm, optim.adam(1e-3), mesh, "batch")
+    opt = optim.adam(1e-3)
+    params = tm.init(3, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 97, (4, 16)).astype(np.int64))
+    a = make_lm_train_step(tm, opt, mesh)(params, opt.init(params), toks)
+    b = make_lm_train_step(tm, opt)(params, opt.init(params), toks)
+    assert torch.equal(a[2], b[2])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]), tree_leaves(b[0])))

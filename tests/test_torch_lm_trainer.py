@@ -240,14 +240,34 @@ def test_ragged_corpus_trains_through_the_masked_loss():
     ("tp_axis", "tensor", "A7"), ("sp_attention", "ulysses", "A7"),
 ])
 def test_refused_trainer_knobs(name, value, item):
+    """What is still refused names its ROADMAP item (the parallel modes now
+    A7b-A7d, which the match on "A7" takes). Lifted by the sequence-parallel
+    slice: ``mesh`` (a ``parallel.mesh.Mesh``; anything else is refused),
+    ``is_chief`` (False keeps the epoch and final lines off) and
+    ``sp_attention`` (checked, used only under dp_mode="sp", as in JAX)."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
+    if name == "mesh":
+        with pytest.raises(TypeError, match="mesh must be a parallel.mesh.Mesh"):
+            LMTrainer(_model(), _corpus(), _cfg(), device="cpu", mesh=value)
+        return
+    if name == "is_chief":
+        lines = []
+        LMTrainer(_model(), _corpus(), _cfg(), device="cpu", is_chief=value,
+                  print_fn=lines.append).run(epochs=1)
+        assert lines and all(x.startswith("Step: ") for x in lines)
+        return
+    if name == "sp_attention":
+        assert LMTrainer(_model(), _corpus(), _cfg(), device="cpu",
+                         sp_attention=value).mode == "single"
+        with pytest.raises(ValueError, match="unknown sp_attention 'dense'"):
+            LMTrainer(_model(), _corpus(), _cfg(), device="cpu", sp_attention="dense")
+        return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: value})
     # Each knob at the JAX default value that leaves it off is accepted.
-    off = {"is_chief": True, "tp_axis": "model", "sp_attention": None}.get(name)
-    if name in ("is_chief", "tp_axis", "sp_attention"):
-        LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: off})
+    if name == "tp_axis":
+        LMTrainer(_model(), _corpus(), _cfg(), device="cpu", tp_axis="model")
 
 
 @pytest.mark.parametrize("kw,item", [
