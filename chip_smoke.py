@@ -237,6 +237,23 @@ non-zero):
     the final parameters), each rank's hops and offset launches checked
     against its place on the ring; (c) ms a step over the ranks and on
     one device, the backend, and one hop's exchange.
+25. Tensor parallelism (ROADMAP A7b): B3 and B4a at the local attention
+    shape of (a) (B=16, L=512, 4 heads of 32, f32) against their plain
+    versions and timed (records ``<kernel>[tp-4x32]``); then 4 ranks
+    sharing the card (gloo, every collective staged through the host;
+    ``--tp-task``): (a) gpt-s-L512-flash under LMTrainer(dp_mode="tp") on a
+    (data 2, model 2) mesh, 4 steps; (b) gpt-s-L2048-flash-gqa2 at model 4
+    (2 KV heads over 4 ranks: k and v gathered), 2 steps; (c)
+    gpt-s-L2048-flash-W512 through make_lm_train_step(mesh, tp_axis,
+    seq_axis) on (model 2, seq 2), 2 steps, the later sequence shard's
+    ranks on the offset builds of B3/B4; (d) the MLP, CNN and LSTM under
+    SyncDataParallel(param_specs=partition_specs()) on (2, 2), 24 SGD steps,
+    each step held to one card's step from the same state (its cost, and
+    its parameters by phase 24's rule on that step's movement). Each GPT
+    run held to one card's run of the same preset, seed and batches
+    (every step's loss, the final parameters by phase 24's rule), every
+    rank's B3/B4 launches at its local head count, ms a step beside one
+    card's, and one tp all-reduce's bytes and ms.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -5644,16 +5661,18 @@ def leaf_names(tree, prefix=""):
     return out
 
 
-def sp_corpus(l, steps):
+def sp_corpus(l, steps, batch=SP_BATCH):
     from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
 
-    return markov_corpus(**{**TRAIN_CORPUS, "seq_len": l, "num": SP_BATCH * steps + 16,
+    return markov_corpus(**{**TRAIN_CORPUS, "seq_len": l, "num": batch * steps + 16,
                             "n_val": 8, "n_test": 8})
 
 
-def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None):
-    """The LMTrainer of one of ``SP_RUNS`` (on ``mesh`` under dp_mode="sp",
-    or on one device), with its steps' costs and times recorded."""
+def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None, batch=SP_BATCH,
+               dp_mode="sp"):
+    """The LMTrainer of one of ``SP_RUNS`` (on ``mesh`` under ``dp_mode``,
+    or on one device; phase 25's runs take their own ``batch`` and "tp"),
+    with its steps' costs and times recorded."""
     import torch
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
@@ -5661,9 +5680,9 @@ def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None):
 
     model = GPTLM(**{**S_CFG, "max_len": l, **knobs}, attention_impl="flash", flash_min_len=0,
                   compute_dtype=torch.bfloat16)
-    cfg = TrainConfig(epochs=1, batch_size=SP_BATCH, optimizer="adam", learning_rate=1e-3,
-                      log_frequency=steps, dp_mode="sp" if mesh is not None else "replicated")
-    tr = LMTrainer(model, sp_corpus(l, steps), cfg, mesh=mesh, sp_attention=attention,
+    cfg = TrainConfig(epochs=1, batch_size=batch, optimizer="adam", learning_rate=1e-3,
+                      log_frequency=steps, dp_mode=dp_mode if mesh is not None else "replicated")
+    tr = LMTrainer(model, sp_corpus(l, steps, batch), cfg, mesh=mesh, sp_attention=attention,
                    eval_batch=8, print_fn=print_fn or (lambda *a: None))
     tr.costs, tr.step_ms = [], []
     step = tr._train_step
@@ -5702,11 +5721,11 @@ def sp_task(port, argv) -> int:
     from distributed_tensorflow_tpu_torch.ops import _build
     from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
     from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
-    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
 
     cluster = ClusterConfig.from_lists([f"127.0.0.1:{port + i}" for i in range(SP_RANKS)])
     ctx = bootstrap_from_argv(cluster, argv)
-    mesh = make_named_mesh((1, SP_RANKS), ("data", "seq"))
+    mesh = make_mesh((1, SP_RANKS), ("data", "seq"))
     runs = []
     for label, knobs, l, steps, attention, _ in SP_RUNS:
         tr = sp_trainer(label, knobs, l, steps, attention, mesh, print_fn=print)
@@ -5868,6 +5887,387 @@ def phase_sp(records, smi):
         for dt, h in r["hop"].items():
             print(f"  (c) rank {r['rank']}: one hop's exchange of a k/v pair ({h['bytes']} bytes "
                   f"{dt}, staged through the host under {r['backend']}): {h['ms']:.2f} ms [{smi}]")
+
+
+# Phase 25: tensor parallelism (ROADMAP A7b) on TP_RANKS ranks sharing the
+# card over gloo. The GPT runs: (label, mesh shape, mesh axes, preset knobs,
+# L, global batch, steps, how it runs) of tools/lm_bench.py's gpt-s-L512-flash
+# (:69-75 at L=512), gpt-s-L2048-flash-gqa2 (:83-89) and
+# gpt-s-L2048-flash-W512 (:76-82); "trainer" is LMTrainer(dp_mode="tp"),
+# "step" make_lm_train_step(mesh, tp_axis="model", seq_axis="seq").
+TP_RANKS = 4
+TP_RUNS = (
+    ("gpt-s-L512-flash dp2 x tp2", (2, 2), ("data", "model"), {}, 512, 32, 4, "trainer"),
+    ("gpt-s-L2048-flash-gqa2 tp4", (1, 4), ("data", "model"), {"num_kv_heads": 2}, 2048, 8, 2,
+     "trainer"),
+    ("gpt-s-L2048-flash-W512 tp2 x sp2", (2, 2), ("model", "seq"), {"window": 512}, 2048, 8, 2,
+     "step"),
+)
+# (d): the classifiers at their registry widths, f32, SyncDataParallel with
+# their partition_specs on a (2, 2) mesh: (family, SGD rate of the JAX
+# tests), TP_CLS_STEPS steps of TP_CLS_BATCH rows from a seed. Each step is
+# held to one card's step from the same state (the tp run's, gathered), not
+# the whole run to one card's run: the CNN's run at 0.05 is chaotic (one
+# device's own run, its initial parameters scaled by 1 + 1e-7 noise, ends
+# 4.5e-3 apart in cost), so two runs that differ only in the order of their
+# sums part by more than any tolerance a fault would fail.
+TP_CLASSIFIERS = (("mlp", 0.001), ("cnn", 0.05), ("lstm", 0.5))
+TP_CLS_STEPS, TP_CLS_BATCH = 24, 100
+# The local shape of (a)'s attention (B=16 of 32 over "data", 4 of the 8
+# heads over "model"), where B3 and B4a are timed: record -> (kernel, path).
+TP_LOCAL = (16, 512, 4, 32)
+FLASH_TP = {"flash_fwd[tp-4x32]": ("flash_fwd", "lm-train-tp gpt-s-L512 dp2 x tp2"),
+            "flash_bwd_fused[tp-4x32]": ("flash_bwd_fused", "lm-train-tp gpt-s-L512 dp2 x tp2")}
+
+
+def tp_kernels(records, smi):
+    """25: B3 and B4a at (a)'s local attention shape (``TP_LOCAL``, f32 as
+    training gives them, causal) against their plain versions at REL_TOL,
+    timed beside the plain version, the bound of the causal pairs and SDPA
+    (forward, and its backward beside B4a). Recorded under ``FLASH_TP``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, l, h, d = TP_LOCAL
+    q, k, v, do, o, lse, delta, _ = bwd_inputs(b, l, h, h, d, torch.float32, False, False, g, dev)
+    if not fa.resolve_fused(None, b * h, l, d):
+        raise AssertionError("the auto rule does not take B4a at (a)'s local shape")
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    err_f = max((o - ref_o).abs().max().item(), (lse - ref_lse).abs().max().item())
+    tol = REL_TOL["flash_fwd"] * max(1.0, ref_o.abs().max().item())
+    print(f"  flash_fwd[tp-4x32] (B={b} L={l} {h}x{d} f32 causal) vs plain: max_abs_err "
+          f"{err_f:.3e} (tolerance {tol:.3e})")
+    if not err_f <= tol:
+        raise AssertionError("flash_fwd[tp-4x32] disagrees with its plain version")
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True)
+    err_b = check_bwd("flash_bwd_fused[tp-4x32] vs plain",
+                      fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True), ref,
+                      REL_TOL["flash_bwd_fused"])
+    del ref
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    pairs, io, rows = b * h * band_pairs(l, l), 4 * q.numel(), 4 * lse.numel()
+    work = {"flash_fwd": (4 * io + rows, 4 * d * pairs),
+            "flash_bwd_fused": (7 * io + 2 * rows, 10 * d * pairs)}
+    timed = {"flash_fwd": (lambda: fa.flash_attention_with_lse(q, k, v, causal=True),
+                           lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                           err_f),
+             "flash_bwd_fused": (lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True),
+                                 lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None,
+                                                            True),
+                                 lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                             retain_graph=True), err_b)}
+    for rec, (base, _) in FLASH_TP.items():
+        kernel, plain, lib, err = timed[base]
+        records[rec] = r = dict(max_abs_err=err, ms=cuda_ms(kernel, 10),
+                                plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(lib, 10),
+                                launches=0, **split_tf32_bound(*work[base]))
+        print(f"  {rec}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_peak']}) [{smi}]")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+
+
+def tp_gpt(label, knobs, l, batch, steps, how, mesh=None):
+    """One of ``TP_RUNS`` (on ``mesh``, or on one device: LMTrainer in the
+    single mode, or the single-device step): its costs, step times, the
+    launches of its training steps and the canonical parameters (a
+    collective under tp)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM, make_lm_train_step
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree, shard_tree
+
+    if how == "trainer":
+        tr = sp_trainer(label, knobs, l, steps, None, mesh, batch=batch, dp_mode="tp")
+        init = [t.detach().cpu().clone() for t in tree_leaves(tr.to_canonical().params)]
+        _build.reset_launches()
+        tr.run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        return dict(costs=tr.costs, step_ms=tr.step_ms, launches=launches,
+                    params=tr.to_canonical().params, init=init)
+    model = GPTLM(**{**S_CFG, "max_len": l, **knobs}, attention_impl="flash", flash_min_len=0,
+                  compute_dtype=torch.bfloat16)
+    ds = sp_corpus(l, steps, batch)
+    params = model.init(1, device="cuda")
+    init = [t.detach().cpu().clone() for t in tree_leaves(params)]
+    opt = optim_lib.adam(1e-3)
+    specs = None
+    if mesh is None:
+        step = make_lm_train_step(model, opt)
+    else:
+        specs = model.partition_specs("model")
+        step = make_lm_train_step(model, opt, mesh, tp_axis="model", seq_axis="seq")
+        params = shard_tree(params, specs, mesh)
+    o, costs, step_ms = opt.init(params), [], []
+    _build.reset_launches()
+    for i in range(steps):
+        toks = torch.from_numpy(ds.train.tokens[i * batch:(i + 1) * batch]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, o, loss = step(params, o, toks)
+        costs.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if specs is not None:
+        params = gather_tree(params, specs, mesh)
+    return dict(costs=costs, step_ms=step_ms, launches=launches, params=params, init=init)
+
+
+def tp_cls_batches():
+    """(d)'s TP_CLS_STEPS global batches of TP_CLS_BATCH rows, from a seed."""
+    import torch
+
+    g = torch.Generator().manual_seed(25)
+    xs = torch.rand(TP_CLS_STEPS, TP_CLS_BATCH, 784, generator=g).numpy()
+    ys = torch.eye(10)[torch.randint(0, 10, (TP_CLS_STEPS, TP_CLS_BATCH), generator=g)].numpy()
+    return xs, ys
+
+
+def tp_classifier(family, lr, mesh):
+    """(d) on a rank: ``family`` at its registry width in f32 under
+    SyncDataParallel(mesh, param_specs=partition_specs()), TP_CLS_STEPS SGD
+    steps on ``tp_cls_batches``: the costs, ms a step, and the canonical
+    parameters before every step and after the last (a collective)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import build_model
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.strategy import SyncDataParallel
+
+    model = build_model(family, compute_dtype=torch.float32)
+    strat = SyncDataParallel(mesh, param_specs=model.partition_specs())
+    opt = optim_lib.sgd(lr)
+    state = strat.init_state(model, opt, seed=1)
+    step = strat.make_train_step(model, cross_entropy, opt)
+
+    def canonical():
+        return [t.detach().cpu().clone() for t in tree_leaves(strat.to_canonical(state).params)]
+
+    costs, states, spent = [], [canonical()], 0.0
+    for x, y in zip(*tp_cls_batches()):
+        batch = strat.prepare_batch(x, y)
+        t0 = time.perf_counter()
+        state, c = step(state, *batch)
+        costs.append(float(c))
+        spent += time.perf_counter() - t0
+        states.append(canonical())
+    return dict(costs=costs, ms=spent / TP_CLS_STEPS * 1e3, states=states)
+
+
+def tp_classifier_replay(family, lr, states, device="cuda"):
+    """(d) on one card: from each of a tp run's canonical ``states``, one
+    SingleDevice SGD step on the same global batch: its cost, the
+    parameters it reaches and ms a step."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import build_model
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatten
+    from distributed_tensorflow_tpu_torch.parallel.strategy import SingleDevice, TrainState
+
+    model = build_model(family, compute_dtype=torch.float32)
+    strat = SingleDevice(device=device)
+    opt = optim_lib.sgd(lr)
+    like = model.init(1, device=device)
+    step = strat.make_train_step(model, cross_entropy, opt)
+    costs, reached, spent = [], [], 0.0
+    for i, (leaves, x, y) in enumerate(zip(states, *tp_cls_batches())):
+        params = tree_unflatten(like, [t.to(strat.device) for t in leaves])
+        state, batch = TrainState(params, opt.init(params), i), strat.prepare_batch(x, y)
+        t0 = time.perf_counter()
+        state, c = step(state, *batch)
+        costs.append(float(c))
+        spent += time.perf_counter() - t0
+        reached.append([t.detach().cpu() for t in tree_leaves(state.params)])
+    return dict(costs=costs, ms=spent / TP_CLS_STEPS * 1e3, reached=reached)
+
+
+def tp_task(port, argv) -> int:
+    """One rank of phase 25's world (``--tp-task``, started by the
+    launcher): every run of ``TP_RUNS`` on its mesh of the TP_RANKS ranks,
+    its costs, step times and launches (and hops), rank 0's canonical
+    parameters saved to ``$DTF_TP_PARAMS``; one tp all-reduce of (a)'s
+    activation timed; then the classifiers of (d). Prints ``RESULT
+    <json>`` last."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig
+    from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
+    from distributed_tensorflow_tpu_torch.ops.collectives import all_reduce_raw
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cluster = ClusterConfig.from_lists([f"127.0.0.1:{port + i}" for i in range(TP_RANKS)])
+    ctx = bootstrap_from_argv(cluster, argv)
+    out_dir = os.environ["DTF_TP_PARAMS"]
+    meshes, runs = {}, []
+    for label, shape, axes, knobs, l, batch, steps, how in TP_RUNS:
+        if (shape, axes) not in meshes:  # a collective: every rank makes every mesh
+            meshes[shape, axes] = make_mesh(shape, axes)
+        mesh = meshes[shape, axes]
+        ra.reset_hops()
+        r = tp_gpt(label, knobs, l, batch, steps, how, mesh)
+        if mesh.rank == 0:
+            torch.save([t.detach().cpu() for t in tree_leaves(r["params"])],
+                       os.path.join(out_dir, f"gpt{len(runs)}.pt"))
+        runs.append(dict(label=label, costs=r["costs"], step_ms=r["step_ms"],
+                         launches=r["launches"], hops=dict(ra.HOPS),
+                         coords=mesh.coords))
+        r.clear()
+    # One tp all-reduce of (a)'s activation: [16, 512, 256] f32, the output
+    # of a row-parallel product on a rank, summed over "model".
+    mesh = meshes[(TP_RUNS[0][1], TP_RUNS[0][2])]
+    x = torch.randn(16, 512, S_CFG["model_dim"], device=mesh.device)
+    for _ in range(3):
+        all_reduce_raw(x, mesh, "model")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        all_reduce_raw(x, mesh, "model")
+    torch.cuda.synchronize()
+    reduce = dict(ms=(time.perf_counter() - t0) / 20 * 1e3, bytes=x.numel() * x.element_size())
+    cls = []
+    for family, lr in TP_CLASSIFIERS:
+        r = tp_classifier(family, lr, mesh)
+        if mesh.rank == 0:
+            torch.save(r["states"], os.path.join(out_dir, f"{family}.pt"))
+        cls.append(dict(family=family, costs=r["costs"], ms=r["ms"]))
+    ctx.close()
+    print("RESULT " + json.dumps(dict(rank=mesh.rank, backend=mesh.backend, runs=runs,
+                                      reduce=reduce, classifiers=cls, device=str(mesh.device))))
+    return 0
+
+
+def param_gap(got, ref, init):
+    """|got - ref| / |ref - init| over all the leaves (phase 24's rule), and
+    the largest element gap."""
+    import torch
+
+    diff = [a.float() - b.float().cpu() for a, b in zip(got, ref)]
+    step = [b.float().cpu() - c.float().cpu() for b, c in zip(ref, init)]
+    moved = (torch.cat([d.reshape(-1) for d in diff]).norm()
+             / torch.cat([d.reshape(-1) for d in step]).norm()).item()
+    return moved, max(d.abs().max().item() for d in diff)
+
+
+def phase_tp(records, smi):
+    """25: (a)-(c) the GPT runs of ``TP_RUNS`` and (d) the classifiers on
+    TP_RANKS ranks sharing the card (gloo, each tensor-parallel collective
+    staged through the host), each GPT run held to one card's run of the
+    same preset, seed and batches (SP_LOSS_RTOL on every step's loss,
+    SP_PARAM_REL on the final parameters), each classifier step to one
+    card's step from the same state (the same two bounds); every rank's B3/B4 launches
+    checked at its local head count (the offset builds on the ranks of the
+    later sequence shard in (c)); ms a step beside one card's and one tp
+    all-reduce's bytes and ms. B3 and B4a at (a)'s local shape first
+    (``tp_kernels``)."""
+    import socket
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    tp_kernels(records, smi)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pdir = tempfile.mkdtemp(prefix="tp-params-")
+    me = [sys.executable, os.path.abspath(__file__)]
+    logs = dp_launch("tp", me + ["--tp-task", "--dp-port", str(port)], TP_RANKS, 0,
+                     env={"DTF_TP_PARAMS": pdir})
+    ranks = sorted((dp_result(logs[f"worker{r}"]) for r in range(TP_RANKS)),
+                   key=lambda r: r["rank"])
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"{TP_RANKS} ranks on one card took {[r['backend'] for r in ranks]}")
+    n, d = S_CFG["num_layers"], S_CFG["model_dim"] // S_CFG["num_heads"]
+    for i, (label, shape, axes, knobs, l, batch, steps, how) in enumerate(TP_RUNS):
+        got = [r["runs"][i] for r in ranks]
+        ref = tp_gpt(label, knobs, l, batch, steps, how)
+        gap = max(abs(a - b) / max(1.0, abs(b)) for r in got for a, b in zip(r["costs"],
+                                                                            ref["costs"]))
+        moved, far = param_gap(torch.load(os.path.join(pdir, f"gpt{i}.pt")),
+                               tree_leaves(ref["params"]), ref["init"])
+        mesh = dict(zip(axes, shape))
+        tp, dp = mesh["model"], mesh.get("data", 1)
+        h_loc, b_loc = S_CFG["num_heads"] // tp, batch // dp
+        tp_ms = float(np.median(got[0]["step_ms"][1:] or got[0]["step_ms"]))
+        one_ms = float(np.median(ref["step_ms"][1:] or ref["step_ms"]))
+        print(f"  ({'abc'[i]}) {label} ({steps} steps of {batch} x {l}, mesh {mesh}; {h_loc} "
+              f"of {S_CFG['num_heads']} heads a rank): losses "
+              f"{', '.join(f'{c:.4f}' for c in got[0]['costs'])} (one card "
+              f"{', '.join(f'{c:.4f}' for c in ref['costs'])}; relative gap {gap:.2e}, "
+              f"tolerance {SP_LOSS_RTOL}); final parameters {moved:.2e} of one card's movement "
+              f"apart (tolerance {SP_PARAM_REL}; largest element gap {far:.2e})")
+        print(f"  ({'abc'[i]}) {label}: {tp_ms:.2f} ms a step over {TP_RANKS} ranks on one card "
+              f"(gloo), {one_ms:.2f} ms on one card [{smi}]")
+        for r, g in zip(ranks, got):
+            print(f"  | rank {r['rank']} {g['coords']}: launches {g['launches']}, hops {g['hops']}")
+        if any(len(g["costs"]) != steps for g in got) or not gap <= SP_LOSS_RTOL:
+            raise AssertionError(f"{label}: tp losses {[g['costs'] for g in got]} against one "
+                                 f"card's {ref['costs']} (relative gap {gap})")
+        if not moved <= SP_PARAM_REL:
+            raise AssertionError(f"{label}: final parameters {moved} of the movement apart")
+        calls = n * steps
+        for g in got:
+            if how == "trainer":
+                evals = 1  # sp_corpus's 8 held-out rows: one eval_batch of 8
+                fused = fa.resolve_fused(None, b_loc * h_loc, l, d, knobs.get("window"))
+                bwd = ("flash_bwd_fused",) if fused else ("flash_bwd_dq", "flash_bwd_dkv")
+                want = {"flash_fwd": n * (steps + evals), **{k: calls for k in bwd}}
+                have = g["launches"]
+            else:  # ring-flash over "seq": the later shard's past hop is the offset one
+                later = g["coords"]["seq"] == 1
+                l_loc = l // mesh["seq"]
+                fused = fa.resolve_fused(None, b_loc * h_loc, l_loc, d, knobs.get("window"))
+                bwd = ("flash_bwd_fused",) if fused else ("flash_bwd_dq", "flash_bwd_dkv")
+                want = {f"{k}[offset]": calls for k in ("flash_fwd", *bwd)} if later else {}
+                have = {k: v for k, v in g["launches"].items() if k.endswith("[offset]")}
+                hops = {"diag": calls, "full": 0, "offset": calls if later else 0,
+                        "skip": 0 if later else calls}
+                if g["hops"] != hops:
+                    raise AssertionError(f"{label}: hops {g['hops']}, want {hops}")
+            if have != want:
+                raise AssertionError(f"{label}: launches {have}, want {want}")
+        if i == 0:
+            for rec, (base, _) in FLASH_TP.items():
+                records[rec]["launches"] = got[0]["launches"][base]
+        del ref
+    for r in ranks:
+        red = r["reduce"]
+        print(f"  (a) rank {r['rank']}: one tp all-reduce of a [16, 512, 256] f32 activation "
+              f"({red['bytes']} bytes, over 'model', staged through the host under "
+              f"{r['backend']}): {red['ms']:.2f} ms [{smi}]")
+    for j, (family, lr) in enumerate(TP_CLASSIFIERS):
+        got = [r["classifiers"][j] for r in ranks]
+        states = torch.load(os.path.join(pdir, f"{family}.pt"))
+        ref = tp_classifier_replay(family, lr, states)
+        gap = max(abs(a - b) / max(1.0, abs(b)) for g in got for a, b in zip(g["costs"],
+                                                                            ref["costs"]))
+        apart = [param_gap(states[i + 1], ref["reached"][i], states[i])
+                 for i in range(TP_CLS_STEPS)]
+        moved, far = max(a for a, _ in apart), max(f for _, f in apart)
+        print(f"  (d) {family}: {TP_CLS_STEPS} SGD steps of {TP_CLS_BATCH} rows on (2, 2), "
+              f"cost {got[0]['costs'][0]:.4f} -> {got[0]['costs'][-1]:.4f}; one card's step "
+              f"from each tp state: relative cost gap {gap:.2e} (tolerance {SP_LOSS_RTOL}), "
+              f"parameters at most {moved:.2e} of that step's movement apart (tolerance "
+              f"{SP_PARAM_REL}; largest element gap {far:.2e}); {got[0]['ms']:.2f} ms a step "
+              f"over {TP_RANKS} ranks, {ref['ms']:.2f} on one card [{smi}]")
+        if (any(len(g["costs"]) != TP_CLS_STEPS for g in got) or not gap <= SP_LOSS_RTOL
+                or not moved <= SP_PARAM_REL):
+            raise AssertionError(f"(d) {family}: tp disagrees with one card")
 
 
 def phase_build():
@@ -6064,11 +6464,15 @@ def main() -> int:
     ap.add_argument("--dp-port", type=int, default=0)
     ap.add_argument("--sp-task", action="store_true",
                     help="run one rank of phase 24's world (started by the launcher)")
+    ap.add_argument("--tp-task", action="store_true",
+                    help="run one rank of phase 25's world (started by the launcher)")
     args, rest = ap.parse_known_args()
     if args.dp_task:
         return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
     if args.sp_task:
         return sp_task(args.dp_port, rest)
+    if args.tp_task:
+        return tp_task(args.dp_port, rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
@@ -6189,6 +6593,11 @@ def main() -> int:
           "path; the ring offset on B3/B4a/B4b/B4c)")
     phase_sp(records, smi)
     print(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
+    t25 = time.perf_counter()
+    phase(f"25: tensor parallelism ({TP_RANKS} ranks on the card: GPT dp x tp, tp over 2 KV "
+          "heads, tp x sp; the classifiers' Megatron layouts)")
+    phase_tp(records, smi)
+    print(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -6210,6 +6619,7 @@ def main() -> int:
     variants += [("verify_tokens_paged[c1-gqa2-2048]", "verify_tokens_paged", "c1 paged-spec")]
     variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
     variants += [(name, base, path) for name, (base, path) in FLASH_OFFSET.items()]
+    variants += [(name, base, path) for name, (base, path) in FLASH_TP.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

@@ -94,7 +94,7 @@ def bounded_initialize(
     between. A gang whose rendezvous is not up yet gets a retried, logged
     attempt rather than a hang. Raises :class:`BootstrapError` naming the
     rendezvous and the budget when every attempt fails; returns the
-    world."""
+    default mesh."""
     import torch.distributed as dist
 
     from distributed_tensorflow_tpu_torch.parallel.mesh import init_world
@@ -172,10 +172,10 @@ def bootstrap(
         initialize_distributed = n > 1
     joined = False
     if initialize_distributed and n > 1:
-        world = bounded_initialize(cluster, task_index, device=device, print_fn=print_fn)
+        mesh = bounded_initialize(cluster, task_index, device=device, print_fn=print_fn)
         joined = True
-        print_fn(f"data parallel: rank {world.rank} of {world.size} on {world.device} "
-                 f"over {world.backend}")
+        print_fn(f"data parallel: rank {mesh.rank} of {mesh.size} on {mesh.device} "
+                 f"over {mesh.backend}")
     return ProcessContext(
         job_name="worker",
         task_index=task_index,

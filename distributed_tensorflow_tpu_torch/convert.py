@@ -24,10 +24,18 @@ optimizer state (SGD's, empty, and Adam's with its count) goes through
 :func:`mlp_opt_state_from_numpy`; a JAX ``AsyncDataParallel`` state, whose
 leaves stack a copy a replica ``[n, ...]``, becomes one rank's copy
 (:func:`async_rank_state_from_numpy`) and per-rank copies stack back
-(:func:`stack_replicas`); a canonical state becomes a ZeRO rank's slices
-through ``ShardedDataParallel.from_canonical``
-(:func:`sharded_state_from_numpy`). Each takes the params NamedTuple as
-``cls`` (default the MLP's).
+(:func:`stack_replicas`); a canonical state becomes a ZeRO or
+tensor-parallel rank's blocks through the strategy's ``from_canonical``
+(:func:`sharded_state_from_numpy`) and comes back through its
+``to_canonical`` (:func:`sharded_state_to_numpy`). Each takes the params
+NamedTuple as ``cls`` (default the MLP's).
+
+A tensor-parallel GPT state: the JAX canonical params and Adam state, as
+numpy, become this rank's blocks of a spec tree (``GPTLM.partition_specs``;
+the slots laid out by ``parallel/specs.match_slot_specs``) through
+:func:`lm_sharded_state_from_numpy`, and every rank's blocks gather back
+through :func:`lm_sharded_state_to_numpy` (a collective); the round trip
+is bitwise.
 
 Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
 over the GPT param tree), or a dict of those keys, carried to the port's
@@ -308,3 +316,32 @@ def sharded_state_from_numpy(strategy, params, opt_state=(), step: int = 0, devi
     return strategy.from_canonical(TrainState(
         params_from_numpy(params, cls, dev),
         mlp_opt_state_from_numpy(opt_state, device=dev, cls=cls), int(step)))
+
+
+def sharded_state_to_numpy(strategy, state) -> tuple:
+    """A sharded strategy's state → the canonical numpy ``(params,
+    optimizer state, step)`` (``strategy.to_canonical``: a collective)."""
+    c = strategy.to_canonical(state)
+    return params_to_numpy(c.params), mlp_opt_state_to_numpy(c.opt_state), int(c.step)
+
+
+def lm_sharded_state_from_numpy(params, opt_state, mesh, specs, device=None) -> tuple:
+    """JAX canonical GPT params and Adam state (numpy trees, or the JAX
+    NamedTuples) → this rank's blocks ``(params, AdamState)`` of the spec
+    tree ``specs`` over ``mesh``."""
+    from distributed_tensorflow_tpu_torch.parallel.specs import match_slot_specs, shard_tree
+
+    p, o = gpt_params_from_numpy(params, device=device), adam_state_from_numpy(opt_state, device)
+    return (shard_tree(p, specs, mesh),
+            shard_tree(o, match_slot_specs(o, p, specs), mesh))
+
+
+def lm_sharded_state_to_numpy(params, opt_state, mesh, specs) -> tuple:
+    """Every rank's blocks of GPT params and their ``AdamState`` → the
+    canonical numpy ``(params, {"count", "mu", "nu"})`` (a collective over
+    the axes ``specs`` names)."""
+    from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree, match_slot_specs
+
+    slots = match_slot_specs(opt_state, params, specs)
+    return (gpt_params_to_numpy(gather_tree(params, specs, mesh)),
+            adam_state_to_numpy(gather_tree(opt_state, slots, mesh)))

@@ -8,9 +8,10 @@ shape (the JAX package compiles once for it; here it keeps the kernels'
 launch shapes fixed). It serves every family of ``MODEL_REGISTRY``, on
 ``cuda`` unless ``device="cpu"`` is asked for.
 
-Under async data parallelism a rank's state holds its own copy;
-``Strategy.effective_params`` collapses the copies at their mean (a
-collective), the parameters the eval reads.
+Under async data parallelism a rank's state holds its own copy, under
+ZeRO or tensor parallelism its blocks; ``Strategy.effective_params``
+collapses the copies at their mean or gathers the blocks into the
+canonical parameters (a collective), which the predictor serves.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ class Predictor:
     @classmethod
     def from_state(cls, model, state, *, strategy=None, **kw) -> "Predictor":
         """Build from a live training state. Pass the training ``strategy``
-        so that an async state's per-rank copies collapse correctly."""
+        so that an async state's per-rank copies collapse correctly (and a
+        sharded state's blocks are gathered)."""
         if strategy is not None:
             params = strategy.effective_params(state)
         else:

@@ -153,11 +153,11 @@ def cluster_from_env(base: ClusterConfig | None = None) -> ClusterConfig:
     return cluster
 
 
-def build_strategy(config: TrainConfig, *, world=None, device=None):
-    """The strategy ``config`` asks for over ``world`` (default: the
-    initialized process group, or one rank on ``device``). A world of one
-    rank that the caller did not pass gives :class:`SingleDevice`, as the
-    JAX launcher does for one device."""
+def build_strategy(config: TrainConfig, *, mesh=None, device=None):
+    """The strategy ``config`` asks for over ``mesh`` (default: the
+    initialized process group's ``make_mesh()``, or one rank on
+    ``device``). A mesh of one rank that the caller did not pass gives
+    :class:`SingleDevice`, as the JAX launcher does for one device."""
     if config.dp_mode not in ("replicated", "zero"):
         raise ValueError(
             f"unknown dp_mode {config.dp_mode!r} for the classifier path; "
@@ -173,17 +173,17 @@ def build_strategy(config: TrainConfig, *, world=None, device=None):
         SyncDataParallel,
     )
 
-    if world is None:
-        world = make_mesh(device)
-        if world.size == 1:
-            return SingleDevice(world.device)
+    if mesh is None:
+        mesh = make_mesh(device=device)
+        if mesh.size == 1:
+            return SingleDevice(mesh.device)
     if config.sync:
         if config.dp_mode == "zero":
             from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedDataParallel
 
-            return ShardedDataParallel(world)
-        return SyncDataParallel(world)
-    return AsyncDataParallel(world, avg_every=config.async_avg_every)
+            return ShardedDataParallel(mesh)
+        return SyncDataParallel(mesh)
+    return AsyncDataParallel(mesh, avg_every=config.async_avg_every)
 
 
 class _RematAdapter:
@@ -203,9 +203,9 @@ class _RematAdapter:
     def _checkpointed(fn):
         from torch.utils.checkpoint import checkpoint
 
-        def run(params, x):
+        def run(params, x, **kw):  # kw: the tensor-parallel axis (tp=)
             leaves = tuple(params)
-            return checkpoint(lambda x, *ps: fn(type(params)(*ps), x), x, *leaves,
+            return checkpoint(lambda x, *ps: fn(type(params)(*ps), x, **kw), x, *leaves,
                               use_reentrant=False)
 
         return run
@@ -213,8 +213,8 @@ class _RematAdapter:
     def __getattr__(self, name):
         return getattr(self._model, name)
 
-    def apply(self, params, x):
-        return self._checkpointed(self._model.apply)(params, x)
+    def apply(self, params, x, **kw):
+        return self._checkpointed(self._model.apply)(params, x, **kw)
 
 
 class _LogitsAdapter:
@@ -227,8 +227,8 @@ class _LogitsAdapter:
     def __getattr__(self, name):
         return getattr(self._model, name)
 
-    def apply(self, params, x):
-        return self._model.apply_logits(params, x)
+    def apply(self, params, x, **kw):
+        return self._model.apply_logits(params, x, **kw)
 
 
 def build_trainer(

@@ -29,6 +29,14 @@ a ``torch.Generator`` on the device seeded with ``seed``: deterministic,
 but not the JAX PRNG's draw (the tests hand both packages the same numpy
 weights). Pooling and products are PyTorch's (the JAX package leaves
 them to XLA); no kernel of this repository runs here.
+
+Tensor parallelism (:meth:`CNN.partition_specs`, JAX :155-177): two
+column→row pairs, conv1 split on its output channels and conv2 on its
+input channels, fc1 on its output features and fc2 on its input features.
+Given the blocks and ``tp`` (``ops/collectives.TensorParallel``), relu and
+pooling run on the local channels, each row member's partial sums are
+summed over the axis (Megatron's g) before its bias, and the flattened
+features enter fc1 through Megatron's f.
 """
 
 from __future__ import annotations
@@ -160,28 +168,44 @@ class CNN:
     def _max_pool(x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(x, 2, 2)
 
-    def apply_logits(self, params: CNNParams, x: torch.Tensor) -> torch.Tensor:
+    def apply_logits(self, params: CNNParams, x: torch.Tensor, tp=None) -> torch.Tensor:
         """Forward pass → pre-softmax logits, f32. Takes flattened
-        ``[B, H*W*C]`` batches or shaped ``[B, H, W, C]``."""
+        ``[B, H*W*C]`` batches or shaped ``[B, H, W, C]``; runs on the
+        :meth:`partition_specs` blocks over ``tp`` when given."""
         cd = self.compute_dtype
         s = self.image_size
+        g = (lambda t: t) if tp is None else tp.reduce_from  # noqa: E731
         if x.ndim == 2:
             x = x.reshape(x.shape[0], s, s, self.in_channels)
         h = x.permute(0, 3, 1, 2)  # NHWC → NCHW
         h = torch.relu(self._conv(h, params.conv1_w) + params.conv1_b[:, None, None])
         h = self._max_pool(h)
-        h = torch.relu(self._conv(h, params.conv2_w) + params.conv2_b[:, None, None])
+        h = torch.relu(g(self._conv(h, params.conv2_w)) + params.conv2_b[:, None, None])
         h = self._max_pool(h)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], self.flat_dim)  # the NHWC flatten
+        if tp is not None:
+            h = tp.copy_to(h)
         h = torch.relu(dot(h, params.fc1_w, cd) + params.fc1_b)
-        return dot(h, params.fc2_w, cd) + params.fc2_b
+        return g(dot(h, params.fc2_w, cd)) + params.fc2_b
 
-    def apply(self, params: CNNParams, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: CNNParams, x: torch.Tensor, tp=None) -> torch.Tensor:
         """Forward pass → class probabilities, f32."""
-        return torch.softmax(self.apply_logits(params, x), dim=-1)
+        return torch.softmax(self.apply_logits(params, x, tp), dim=-1)
 
     # -- parallelism -------------------------------------------------------
 
-    def partition_specs(self, model_axis: str = "model"):
-        raise NotImplementedError(
-            "CNN.partition_specs: tensor-parallel layouts are not ported yet (ROADMAP A7b)")
+    def partition_specs(self, model_axis: str = "model") -> CNNParams:
+        """Megatron's two column→row pairs over ``model_axis``: conv1 on its
+        output channels / conv2 on its input channels, fc1 on its output
+        features / fc2 on its input features; conv2_b and fc2_b (added after
+        the sums) replicated."""
+        return CNNParams(
+            conv1_w=(None, None, None, model_axis),
+            conv1_b=(model_axis,),
+            conv2_w=(None, None, model_axis, None),
+            conv2_b=(None,),
+            fc1_w=(None, model_axis),
+            fc1_b=(model_axis,),
+            fc2_w=(model_axis, None),
+            fc2_b=(None,),
+        )

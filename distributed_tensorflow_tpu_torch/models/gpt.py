@@ -76,9 +76,23 @@ boundary's target over one permute hop. The data-parallel step
 the batch over ``axis``. Both take the global batch on every rank and
 keep their shard.
 
+Tensor parallelism (``partition_specs``, JAX :467-503; ``make_lm_train_step``
+with ``tp_axis``, and ``seq_axis`` its dp×tp×sp form, JAX :3245-3335) is
+Megatron's, written out where the JAX package leaves it to GSPMD: each
+rank of the ``model`` axis holds its columns of wq/wk/wv/w_up (and b_up)
+and its rows of wo/w_down, so attention runs on its local heads (the
+flash kernels at H/tp heads) and the FFN on its local units; the inputs of
+the column products pass Megatron's f (``ops/collectives.copy_to``), the
+row products' partial sums its g (``reduce_from``) before the residual
+biases. When the axis size does not divide ``num_kv_heads``, each rank
+gathers k and v over the axis (``gather_from``) and keeps the KV heads its
+query heads read. The port refuses a layout whose axis size does not
+divide the heads or the KV columns (the JAX package pads them), and
+``matmul_dtype`` (its dynamic scales span the whole contraction).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the tensor-parallel steps (A7b), expert and pipeline parallelism
-(A7c), the LM's ZeRO and async steps (A7d). The
+item): expert and pipeline parallelism (A7c), the LM's ZeRO and async
+steps (A7d). The
 CUDA decode kernels compute in the model's dtype, bf16 or f32, at head dims
 4 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
@@ -96,6 +110,7 @@ from torch.utils.checkpoint import checkpoint
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.base import layernorm, resolve_flash_min_len, rope
 from distributed_tensorflow_tpu_torch.ops.attention import dense_attention
+from distributed_tensorflow_tpu_torch.ops.collectives import TensorParallel
 from distributed_tensorflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     selective_policy,
@@ -136,6 +151,7 @@ from distributed_tensorflow_tpu_torch.ops.quantized import (
     quantized_dot,
     wo_dot,
 )
+from distributed_tensorflow_tpu_torch.parallel.specs import pinned_update
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
 # per-layer kernel kept as its parity oracle (the JAX "pallas-layer"),
@@ -435,6 +451,72 @@ class GPTLM:
         repl = {nm: quantize_linear_columns(getattr(params.blocks, nm), dtype) for nm in names}
         return params._replace(blocks=params.blocks._replace(**repl))
 
+    # -- tensor parallelism -------------------------------------------------
+
+    def partition_specs(self, model_axis: str = "model") -> GPTLMParams:
+        """Megatron's tensor-parallel layout over ``model_axis`` (the JAX
+        ``partition_specs``; every block leaf keeps its leading num_layers
+        dim whole): wq/wk/wv and w_up/b_up split on their output dim, wo
+        and w_down on their input dim; embeddings, positions, norms and the
+        residual-stream bias b_down replicated."""
+        if self.moe_experts is not None:
+            raise NotImplementedError(
+                "tensor parallelism is not defined for the MoE blocks; "
+                "use expert parallelism (apply_expert_parallel)")
+        col, row = (None, None, model_axis), (None, model_axis, None)
+        return GPTLMParams(
+            embed=(), pos=(),
+            blocks=GPTBlockParams(ln1_scale=(), ln1_bias=(), wq=col, wk=col, wv=col, wo=row,
+                                  ln2_scale=(), ln2_bias=(), w_up=col, b_up=(None, model_axis),
+                                  w_down=row, b_down=()),
+            lnf_scale=(), lnf_bias=())
+
+    def tp_unsupported_reason(self, size: int) -> str | None:
+        """Why the port cannot split this model over a ``size``-way
+        tensor-parallel axis, or None (the JAX package pads a dim the
+        axis does not divide; the port refuses it)."""
+        # The FFN's 4·model_dim splits wherever num_heads does.
+        kvw = self.num_kv_heads * self.head_dim
+        for what, n in (("num_heads", self.num_heads),
+                        ("the KV columns (num_kv_heads·head_dim)", kvw)):
+            if n % size:
+                return (f"{what} = {n} does not split over a {size}-way tensor-parallel "
+                        "axis (the JAX package pads it; the port needs the axis size to "
+                        "divide it)")
+        if self.matmul_dtype is not None:
+            return (f"matmul_dtype={self.matmul_dtype!r}: the dynamic scales of a "
+                    "row-parallel product span the whole contraction, which a rank does "
+                    "not hold")
+        return None
+
+    def _kv_read(self, tp) -> list | None:
+        """The KV heads this rank's query heads read when the
+        tensor-parallel axis does not divide ``num_kv_heads`` (as a GQA
+        group, or one a query head where the groups do not align); None
+        when each rank holds its own KV heads."""
+        if tp is None or self.num_kv_heads % tp.size == 0:
+            return None
+        hq, g = self.num_heads // tp.size, self.num_heads // self.num_kv_heads
+        read = [(tp.index * hq + i) // g for i in range(hq)]
+        heads = sorted(set(read))
+        if hq % len(heads) or read != [h for h in heads for _ in range(hq // len(heads))]:
+            return read
+        return heads
+
+    def _local_kv(self, tp, k, v):
+        """k and v [B, L, ., Dh] for this rank's query heads: its own KV
+        heads when the axis size divides ``num_kv_heads``; else k and v
+        gathered whole over the axis and the heads :meth:`_kv_read` names
+        kept."""
+        b, l = k.shape[:2]
+        heads = self._kv_read(tp)
+        if heads is None:
+            return (k.reshape(b, l, -1, self.head_dim), v.reshape(b, l, -1, self.head_dim))
+        shape = (b, l, self.num_kv_heads, self.head_dim)
+        k, v = tp.gather_from(k).reshape(shape), tp.gather_from(v).reshape(shape)
+        idx = torch.tensor(heads, device=k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
     # -- shared pieces -----------------------------------------------------
 
     def _dot_full(self, x, w):
@@ -499,16 +581,22 @@ class GPTLM:
                                  token_mask=mask, k=self.moe_top_k)
         return out.float().reshape(b, l, d), aux
 
-    def _ffn(self, blk, hn2, token_mask=None):
+    def _ffn(self, blk, hn2, token_mask=None, tp=None):
         """The dense FFN, or the MoE FFN of a ``GPTMoEBlockParams`` block,
         on hn2 [B, L, d], output bias included: (out, aux), aux the
         router's ``MoEAux`` (zeros for a dense block). ``token_mask``
-        [B, L] bool keeps pad tokens out of MoE routing."""
+        [B, L] bool keeps pad tokens out of MoE routing. Under ``tp`` the
+        dense FFN runs on this rank's units and sums over the axis before
+        b_down."""
         if isinstance(blk, GPTMoEBlockParams):
             return self._moe_block_ffn(blk, hn2, token_mask)
+        if tp is not None:
+            hn2 = tp.copy_to(hn2)
         up = self._dot(hn2, blk.w_up) + blk.b_up
-        out = self._dot(F.gelu(up, approximate="tanh"), blk.w_down) + blk.b_down
-        return out, MoEAux.zero(hn2.device)
+        out = self._dot(F.gelu(up, approximate="tanh"), blk.w_down)
+        if tp is not None:
+            out = tp.reduce_from(out)
+        return out + blk.b_down, MoEAux.zero(hn2.device)
 
     def _decode_ffn(self, h, w):
         """LN2, :meth:`_ffn` and the residual on one decode step's rows
@@ -529,60 +617,69 @@ class GPTLM:
             return {}
         return dict(dot_fn=self._dot, ffn_fn=self._decode_ffn)
 
-    def _block(self, blk, h, positions, kv_lens=None, attend=None, token_mask=None):
+    def _block(self, blk, h, positions, kv_lens=None, attend=None, token_mask=None, tp=None):
         """Block forward on h [B, L, d]: (h, this block's k/v [B, L, Hkv,
         Dh] (f32) for the cache, the FFN's ``MoEAux``). ``attend(q, k, v)``
         swaps the attention (the paged extend passes its own);
-        ``token_mask`` [B, L] keeps pads out of MoE routing."""
+        ``token_mask`` [B, L] keeps pads out of MoE routing. ``tp``
+        (``ops/collectives.TensorParallel``): ``blk`` holds this rank's
+        blocks of :meth:`partition_specs`, and the heads are its local
+        ones (k/v those :meth:`_local_kv` keeps)."""
         b, l, d = h.shape
         hn = layernorm(h, blk.ln1_scale, blk.ln1_bias)
-        kv_shape = (b, l, self.num_kv_heads, self.head_dim)
-        q = self._dot(hn, blk.wq).reshape(b, l, self.num_heads, self.head_dim)
-        k = self._dot(hn, blk.wk).reshape(kv_shape)
-        v = self._dot(hn, blk.wv).reshape(kv_shape)
+        if tp is not None:
+            hn = tp.copy_to(hn)
+        hq = self.num_heads // (1 if tp is None else tp.size)
+        q = self._dot(hn, blk.wq).reshape(b, l, hq, self.head_dim)
+        k, v = self._local_kv(tp, self._dot(hn, blk.wk), self._dot(hn, blk.wv))
         if self.pos_embedding == "rope":
             q, k = rope(q, positions), rope(k, positions)
         attn = attend(q, k, v) if attend else self._attend(q, k, v, kv_lens)
-        h = h + self._dot(attn.reshape(b, l, d), blk.wo)
+        out = self._dot(attn.reshape(b, l, hq * self.head_dim), blk.wo)
+        h = h + (out if tp is None else tp.reduce_from(out))
         hn2 = layernorm(h, blk.ln2_scale, blk.ln2_bias)
-        out, aux = self._ffn(blk, hn2, token_mask)
+        out, aux = self._ffn(blk, hn2, token_mask, tp)
         return h + out, (k, v), aux
 
     def _logits(self, p: GPTLMParams, h):
         hf = layernorm(h, p.lnf_scale, p.lnf_bias)
         return self._dot_full(hf, p.embed.T)
 
-    def _block_h(self, h, positions, token_mask, *blk):
+    def _block_h(self, h, positions, token_mask, *blk, tp=None):
         """:meth:`_block`'s residual stream and router statistics, on the
         block's tensors as arguments (what ``torch.utils.checkpoint``
         wraps)."""
-        h, _, aux = self._block(self._block_cls(*blk), h, positions, token_mask=token_mask)
+        h, _, aux = self._block(self._block_cls(*blk), h, positions, token_mask=token_mask,
+                                tp=tp)
         return h, aux
 
     # -- training forward --------------------------------------------------
 
-    def apply(self, params: GPTLMParams, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, L] int → logits [B, L, vocab] f32, causal."""
-        return self.apply_with_aux(params, tokens)[0]
+    def apply(self, params: GPTLMParams, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+        """tokens [B, L] int → logits [B, L, vocab] f32, causal (on the
+        :meth:`partition_specs` blocks over ``tp`` when given)."""
+        return self.apply_with_aux(params, tokens, tp=tp)[0]
 
-    def apply_with_aux(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None):
+    def apply_with_aux(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None, tp=None):
         """:meth:`apply` and the router statistics of every layer (a
         ``MoEAux`` of [num_layers] tensors; zeros for a dense model).
         ``lengths`` [B] (ragged right-padded batches) keeps pad tokens out
-        of MoE routing, its capacity and the statistics."""
+        of MoE routing, its capacity and the statistics. ``tp``: the
+        tensor-parallel axis of a ``partition_specs`` layout."""
         l = tokens.shape[1]
         positions = torch.arange(l, device=tokens.device)
         token_mask = (None if lengths is None
                       else positions[None, :] < lengths.to(tokens.device)[:, None])
         h = self._embed_tokens(params, tokens, positions)
         kw = self._checkpoint_kw()
+        body = functools.partial(self._block_h, tp=tp)
         auxs = []
         for i in range(self.num_layers):
             blk = layer_params(params.blocks, i)
             if kw is None:
-                h, aux = self._block_h(h, positions, token_mask, *blk)
+                h, aux = body(h, positions, token_mask, *blk)
             else:
-                h, aux = checkpoint(self._block_h, h, positions, token_mask, *blk,
+                h, aux = checkpoint(body, h, positions, token_mask, *blk,
                                     use_reentrant=False, **kw)
             auxs.append(aux)
         return self._logits(params, h), MoEAux(*(torch.stack(a) for a in zip(*auxs)))
@@ -603,21 +700,23 @@ class GPTLM:
         policy = selective_policy if self.remat == "selective" else self.remat
         return {"context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
 
-    def loss(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None) -> torch.Tensor:
+    def loss(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None,
+             tp=None) -> torch.Tensor:
         """Training loss: mean next-token cross-entropy (positions 0..L-2
         predict 1..L-1, f32), masked to targets at positions < lengths[b]
         when ``lengths`` [B] is given (ragged right-padded batches; causal
         attention keeps pads out of real positions, ``lengths`` keeps them
         out of MoE routing), plus for MoE models the router's balance and
-        z losses (:meth:`loss_and_metrics`)."""
-        return self.loss_and_metrics(params, tokens, lengths)[0]
+        z losses (:meth:`loss_and_metrics`). ``tp``: as :meth:`apply`."""
+        return self.loss_and_metrics(params, tokens, lengths, tp)[0]
 
-    def loss_and_metrics(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None):
+    def loss_and_metrics(self, params: GPTLMParams, tokens: torch.Tensor, lengths=None,
+                         tp=None):
         """(total loss, metrics): ``ce`` always; MoE models add the layer
         means ``balance_loss`` and ``z_loss`` (in the total, behind
         ``moe_balance_coef`` / ``moe_z_coef``), ``drop_fraction`` (a
         metric only) and ``expert_fraction`` [E] (layer mean)."""
-        logits, auxs = self.apply_with_aux(params, tokens, lengths)
+        logits, auxs = self.apply_with_aux(params, tokens, lengths, tp)
         ce = ce_from_logits(logits, tokens, lengths)
         metrics = {"ce": ce}
         if self.moe_experts is None:
@@ -630,7 +729,8 @@ class GPTLM:
     # -- sequence parallelism ----------------------------------------------
 
     def apply_sequence_parallel(self, params: GPTLMParams, tokens: torch.Tensor, mesh,
-                                axis: str = "seq", *, attention: str | None = None):
+                                axis: str = "seq", *, attention: str | None = None,
+                                tp_axis: str | None = None):
         """The sequence-parallel causal forward on this rank's shard
         tokens [B, L/n] of a sequence split over ``axis`` of ``mesh`` (n
         ranks, params replicated): this shard's logits [B, L/n, vocab],
@@ -640,8 +740,11 @@ class GPTLM:
         ``attention_impl`` at the shard's length against
         ``flash_min_len``. Under GQA the KV blocks ride the ring at
         ``num_kv_heads``; a windowed model's ring runs only the band's
-        hops. Ulysses needs the axis size to divide both head counts. A
-        collective: every rank of the axis calls it."""
+        hops. Ulysses needs the axis size to divide both head counts.
+        ``tp_axis`` (the dp×tp×sp form): ``params`` are this rank's blocks of
+        :meth:`partition_specs` over that axis of the mesh, and the ring
+        runs on the local heads. A collective: every rank of the axes calls
+        it."""
         if self.moe_experts is not None:
             raise NotImplementedError(
                 "MoE blocks are not supported on the sequence-parallel "
@@ -655,16 +758,19 @@ class GPTLM:
         if attention is not None and attention not in ("ring", "ring_flash", "ulysses"):
             raise ValueError(f"unknown attention {attention!r}; ring|ring_flash|ulysses")
         n, my = mesh.axis_size(axis), mesh.axis_index(axis)
+        tp = None if tp_axis is None else TensorParallel(mesh, tp_axis)
         b, l_loc = tokens.shape
         if attention is None:
             attention = ("ring_flash" if self.attention_impl == "flash"
                          and l_loc >= resolve_flash_min_len(self.flash_min_len) else "ring")
         if n * l_loc > self.max_len:
             raise ValueError(f"global sequence {n * l_loc} exceeds max_len {self.max_len}")
-        if attention == "ulysses" and (self.num_heads % n or self.num_kv_heads % n):
+        t, read = (1 if tp is None else tp.size), self._kv_read(tp)
+        heads, kv_heads = self.num_heads // t, self.num_kv_heads // t if read is None else len(read)
+        if attention == "ulysses" and (heads % n or kv_heads % n):
             raise ValueError(
-                f"ulysses needs heads ({self.num_heads}) and kv heads "
-                f"({self.num_kv_heads}) divisible by the axis size {n}")
+                f"ulysses needs heads ({heads}) and kv heads "
+                f"({kv_heads}) divisible by the axis size {n}")
         positions = my * l_loc + torch.arange(l_loc, device=tokens.device)
         h = self._embed_tokens(params, tokens, positions)
         if attention == "ulysses":
@@ -679,7 +785,7 @@ class GPTLM:
                                             window=self.window, fused=self.flash_fused)
 
         def body(h, *blk):
-            return self._block(self._block_cls(*blk), h, positions, attend=sp_attend)[0]
+            return self._block(self._block_cls(*blk), h, positions, attend=sp_attend, tp=tp)[0]
 
         kw = self._checkpoint_kw()
         for i in range(self.num_layers):
@@ -1337,11 +1443,12 @@ def _shard(t, mesh, axis, dim):
     return t.narrow(dim, mesh.axis_index(axis) * m, m)
 
 
-def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves):
+def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs=None):
     """The update from a rank's share of a global loss: its gradient
     summed over ``axes`` in one flat all-reduce (the JAX shard_map's
     auto-psum of a replicated parameter's gradient), the shares of the loss
-    summed likewise."""
+    summed likewise. ``specs``: the params are this rank's blocks of that
+    layout, and the update runs on them (``parallel/specs.pinned_update``)."""
     with torch.enable_grad():
         grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
@@ -1352,13 +1459,28 @@ def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves):
         for g in grads:
             out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
             at += g.numel()
-        params2, opt_state = optimizer.update(tree_unflatten(params, out), opt_state, params)
+        grads = tree_unflatten(params, out)
+        if specs is None:
+            params2, opt_state = optimizer.update(grads, opt_state, params)
+        else:
+            params2, opt_state = pinned_update(optimizer, params, opt_state, grads, mesh, specs)
     return params2, opt_state, total
+
+
+def _tp_specs(model: GPTLM, mesh, tp_axis: str):
+    """The model's ``partition_specs`` over ``tp_axis`` of ``mesh``, the
+    layout refused where the port cannot split it."""
+    specs = model.partition_specs(tp_axis)  # raises for MoE blocks
+    _mesh_axes(mesh, tp_axis)
+    reason = model.tp_unsupported_reason(mesh.axis_size(tp_axis))
+    if reason is not None:
+        raise ValueError(f"tensor parallelism over {tp_axis!r}: {reason}")
+    return specs
 
 
 def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
                      data_axis: str | None = None, attention: str | None = None,
-                     ragged: bool = False):
+                     ragged: bool = False, tp_axis: str | None = None):
     """The sequence-parallel update (JAX :2999): ``mapped(params,
     opt_state, tokens, lengths) -> (params, opt_state, loss)``, a
     collective over ``mesh``. ``tokens`` [B, L] is the global batch, the
@@ -1373,7 +1495,11 @@ def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
     ``ce_from_logits`` on the whole batch. Each rank differentiates its
     share (its CE sum over the global count) and the gradients are summed
     over every axis: the gradient of the global loss. ``lengths`` [B]
-    (``ragged``) masks targets past each row's length."""
+    (``ragged``) masks targets past each row's length. ``tp_axis`` (the
+    dp×tp×sp step): params and optimizer state are this rank's blocks of
+    ``model.partition_specs(tp_axis)``, the forward Megatron's over that
+    axis on the local heads, and the gradients summed over the data and
+    sequence axes only."""
     if model.moe_experts is not None:
         raise NotImplementedError(
             "MoE blocks are not supported on the sequence-parallel path; "
@@ -1382,6 +1508,7 @@ def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
         raise ValueError(f"data_axis must differ from the seq axis {axis!r}")
     axes = _mesh_axes(mesh, data_axis, axis)
     n = mesh.axis_size(axis)
+    specs = None if tp_axis is None else _tp_specs(model, mesh, tp_axis)
 
     def mapped(params, opt_state, tokens, lengths=None):
         toks = _shard(_shard(tokens, mesh, data_axis, 0), mesh, axis, 1)
@@ -1391,7 +1518,7 @@ def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         with torch.enable_grad():
             logits = model.apply_sequence_parallel(tree_unflatten(params, leaves), toks, mesh,
-                                                   axis, attention=attention)
+                                                   axis, attention=attention, tp_axis=tp_axis)
             # Shard i receives shard i + 1's first token: the boundary target.
             (nxt,) = mesh.ring_permute([toks[:, 0].contiguous()], axis, shift=-1)
             targets = torch.cat([toks[:, 1:], nxt[:, None]], dim=1)
@@ -1403,7 +1530,7 @@ def make_lm_sp_parts(model: GPTLM, optimizer, mesh, axis: str = "seq", *,
             w = valid.expand_as(nll).float()
             count = mesh.all_reduce_(w.sum().detach().clone(), axes)
             loss = (nll * w).sum() / torch.clamp(count, min=1.0)
-        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs)
 
     return mapped
 
@@ -1424,6 +1551,31 @@ def make_lm_sp_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "seq",
     return step
 
 
+def _batch_step(model: GPTLM, optimizer, mesh, axis: str | None, tp=None, specs=None):
+    """The step over the batch split on ``axis`` of ``mesh`` (None: every
+    rank takes the whole batch), the loss the global batch's (the mean of
+    the ranks' means; with ``lengths``, the global masked mean) and its
+    gradient summed over the axis; under ``tp`` the forward and update on
+    this rank's blocks of ``specs``."""
+    axes = () if axis is None else (axis,)
+    n = mesh.axis_size(axes)
+
+    def step(params, opt_state, tokens, lengths=None):
+        toks, lens = _shard(tokens, mesh, axis, 0), _shard(lengths, mesh, axis, 0)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = model.loss(tree_unflatten(params, leaves), toks, lens, tp)
+            if lens is None:
+                loss = loss / n
+            else:  # the rank's masked mean weighted by its share of the targets
+                count = torch.clamp(lens.long() - 1, min=0).sum().float()
+                loss = loss * count / torch.clamp(mesh.all_reduce_(count.clone(), axes),
+                                                  min=1.0)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs)
+
+    return step
+
+
 def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *,
                        tp_axis: str | None = None, seq_axis: str | None = None):
     """``step(params, opt_state, tokens, lengths=None) -> (params, opt_state,
@@ -1434,13 +1586,33 @@ def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *
     :3336-3356): ``tokens`` is the global batch, each rank keeps its rows,
     and the loss is the global batch's (the mean of the ranks' means; with
     ``lengths``, the global masked mean), its gradient summed over the
-    axis. The tensor-parallel step (``tp_axis``, with ``seq_axis`` its
-    dp×tp×sp form) is not ported yet (ROADMAP A7b)."""
-    for name, value in (("tp_axis", tp_axis), ("seq_axis", seq_axis)):
-        if value is not None:
-            raise NotImplementedError(
-                f"make_lm_train_step({name}=...): the tensor-parallel step is not ported "
-                "yet (ROADMAP A7b); sequence parallelism is make_lm_sp_train_step")
+    axis.
+
+    ``tp_axis`` (JAX :3245-3335) is the dp×tp step: ``params`` and
+    ``opt_state`` are this rank's blocks of ``model.partition_specs(
+    tp_axis)`` (``parallel/specs.shard_tree`` and ``slot_specs``), the
+    batch split over ``axis`` when the mesh has it, the forward Megatron's
+    over ``tp_axis`` on the local heads, the gradients summed over ``axis``
+    only and the update on the blocks (global-norm clipping's norm over
+    every block). ``seq_axis`` adds the sequence split over that axis
+    (dp×tp×sp): :func:`make_lm_sp_parts` on the local heads, ring-flash
+    when ``attention_impl="flash"``. Both are the single-device step's
+    math, as JAX's GSPMD program is; dense models only."""
+    if seq_axis is not None and tp_axis is None:
+        raise ValueError(
+            "seq_axis composes on the GSPMD tp path; pass tp_axis too "
+            "(for shard_map sequence parallelism use make_lm_sp_parts)")
+    if tp_axis is not None:
+        if mesh is None:
+            raise ValueError("tp_axis requires a mesh")
+        if seq_axis is not None and seq_axis not in mesh.shape:
+            raise ValueError(f"mesh has no {seq_axis!r} axis: {dict(mesh.shape)}")
+        data = axis if axis in mesh.shape else None
+        if seq_axis is not None:
+            return make_lm_sp_parts(model, optimizer, mesh, seq_axis, data_axis=data,
+                                    ragged=True, tp_axis=tp_axis)
+        specs = _tp_specs(model, mesh, tp_axis)
+        return _batch_step(model, optimizer, mesh, data, TensorParallel(mesh, tp_axis), specs)
     if mesh is None:
         def step(params, opt_state, tokens, lengths=None):
             loss, grads = lm_value_and_grad(model, params, tokens, lengths)
@@ -1449,20 +1621,4 @@ def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *
             return params, opt_state, loss
 
         return step
-    axes = _mesh_axes(mesh, axis)
-    n = mesh.axis_size(axis)
-
-    def dp_step(params, opt_state, tokens, lengths=None):
-        toks, lens = _shard(tokens, mesh, axis, 0), _shard(lengths, mesh, axis, 0)
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = model.loss(tree_unflatten(params, leaves), toks, lens)
-            if lens is None:
-                loss = loss / n
-            else:  # the rank's masked mean weighted by its share of the targets
-                count = torch.clamp(lens.long() - 1, min=0).sum().float()
-                loss = loss * count / torch.clamp(mesh.all_reduce_(count.clone(), axes),
-                                                  min=1.0)
-        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves)
-
-    return dp_step
+    return _batch_step(model, optimizer, mesh, _mesh_axes(mesh, axis)[0])

@@ -17,6 +17,12 @@ Init draws from an explicit CPU ``torch.Generator`` seeded with ``seed``,
 so the same seed gives the same weights on every device. It is not the JAX
 PRNG's draw: parity with the JAX model is distributional (the tests hand
 both the same numpy weights).
+
+Tensor parallelism (:meth:`MLP.partition_specs`, JAX :84-100): W1 split on
+its output (hidden) dim, W2 on its input dim; given the blocks and ``tp``
+(``ops/collectives.TensorParallel``), :meth:`MLP.apply_logits` runs the
+sigmoid on the local hidden units and sums the second product over the
+axis (Megatron's g) before the output bias.
 """
 
 from __future__ import annotations
@@ -70,12 +76,20 @@ class MLP:
             b2=torch.zeros(self.out_dim, device=dev),
         )
 
-    def apply_logits(self, params: MLPParams, x: torch.Tensor) -> torch.Tensor:
-        """Forward pass up to the pre-softmax logits, f32."""
+    def partition_specs(self, model_axis: str = "model") -> MLPParams:
+        """Megatron's column→row layout over ``model_axis``: W1 (and b1) split
+        on the hidden dim, W2 on its input (hidden) dim, b2 replicated."""
+        return MLPParams(w1=(None, model_axis), b1=(model_axis,), w2=(model_axis, None),
+                         b2=(None,))
+
+    def apply_logits(self, params: MLPParams, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """Forward pass up to the pre-softmax logits, f32; on the
+        :meth:`partition_specs` blocks over ``tp`` when given."""
         cd = self.compute_dtype
         h = torch.sigmoid(dot(x, params.w1, cd) + params.b1)
-        return dot(h, params.w2, cd) + params.b2
+        out = dot(h, params.w2, cd)
+        return (out if tp is None else tp.reduce_from(out)) + params.b2
 
-    def apply(self, params: MLPParams, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: MLPParams, x: torch.Tensor, tp=None) -> torch.Tensor:
         """Forward pass → class probabilities, f32."""
-        return torch.softmax(self.apply_logits(params, x), dim=-1)
+        return torch.softmax(self.apply_logits(params, x, tp), dim=-1)

@@ -18,6 +18,15 @@ hidden state gives f32 class probabilities.
 Init is fan-in-scaled normal with the +1 forget-gate bias, drawn from a
 ``torch.Generator`` on the device seeded with ``seed`` (not the JAX
 PRNG's draw; the tests hand both packages the same numpy weights).
+
+Tensor parallelism (:meth:`LSTMClassifier.partition_specs`, JAX
+:148-161): the hidden units are split over the axis (the gate kernel and
+biases on their hidden dim, the head on its input dim). Given the blocks
+and ``tp`` (``ops/collectives.TensorParallel``), each cell step computes
+its local units' gates and state and gathers the whole h for the next
+step's product (``gather_from``: its backward sums every rank's part of
+the gradient and keeps this rank's block); the head's partial logits are
+summed over the axis before the bias.
 """
 
 from __future__ import annotations
@@ -79,7 +88,8 @@ class LSTMClassifier:
 
     def _cell(self, params: LSTMParams, carry, x_t: torch.Tensor):
         """One LSTM step: the fused-gate product and the f32 state update.
-        ``carry = (h, c)``, both [B, hidden] f32."""
+        ``carry = (h, c)``, [B, hidden] f32 (under tensor parallelism h
+        whole, c and the returned h over the kernel's local units)."""
         h, c = carry
         z = torch.cat([x_t, h], dim=-1)
         fan_in, _, hid = params.w.shape
@@ -93,25 +103,31 @@ class LSTMClassifier:
         h = o * torch.tanh(c)
         return h, c
 
-    def apply_logits(self, params: LSTMParams, x: torch.Tensor) -> torch.Tensor:
+    def apply_logits(self, params: LSTMParams, x: torch.Tensor, tp=None) -> torch.Tensor:
         """Forward pass → pre-softmax logits, f32. Takes flattened
-        ``[B, T*F]`` batches or shaped ``[B, T, F]``."""
+        ``[B, T*F]`` batches or shaped ``[B, T, F]``; runs on the
+        :meth:`partition_specs` blocks over ``tp`` when given."""
         if x.ndim == 2:
             x = x.reshape(x.shape[0], self.seq_len, self.feature_dim)
         x = x.float()
         h = torch.zeros(x.shape[0], self.hidden_dim, device=x.device)
-        carry = (h, h)
+        carry = (h, torch.zeros(x.shape[0], params.w.shape[-1], device=x.device))
         for t in range(x.shape[1]):
+            if t and tp is not None:
+                carry = (tp.gather_from(carry[0], -1), carry[1])
             carry = self._cell(params, carry, x[:, t])
-        return dot(carry[0], params.head_w, self.compute_dtype) + params.head_b
+        out = dot(carry[0], params.head_w, self.compute_dtype)
+        return (out if tp is None else tp.reduce_from(out)) + params.head_b
 
-    def apply(self, params: LSTMParams, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: LSTMParams, x: torch.Tensor, tp=None) -> torch.Tensor:
         """Forward pass → class probabilities, f32."""
-        return torch.softmax(self.apply_logits(params, x), dim=-1)
+        return torch.softmax(self.apply_logits(params, x, tp), dim=-1)
 
     # -- parallelism -------------------------------------------------------
 
-    def partition_specs(self, model_axis: str = "model"):
-        raise NotImplementedError(
-            "LSTMClassifier.partition_specs: tensor-parallel layouts are not ported yet "
-            "(ROADMAP A7b)")
+    def partition_specs(self, model_axis: str = "model") -> LSTMParams:
+        """Megatron's column→row split over the hidden units: the gate kernel
+        and biases on their hidden dim, the head on its input dim, head_b
+        replicated."""
+        return LSTMParams(w=(None, None, model_axis), b=(None, model_axis),
+                          head_w=(model_axis, None), head_b=(None,))

@@ -427,15 +427,15 @@ def make_fused_compiled_run_fn(
 # -- B2 composed with async data parallelism ----------------------------------
 
 
-def to_fused_stacked(params: MLPParams, world) -> FusedState:
-    """This rank's copy of the ``world.size`` identical copies the async
+def to_fused_stacked(params: MLPParams, mesh) -> FusedState:
+    """This rank's copy of the identical copies (one a rank of ``data``) the async
     composition starts from (every reference worker starts from the same
     seed-1 graph); JAX ``to_fused_stacked`` stacks them on one mesh."""
     return to_fused(params)
 
 
 def make_fused_async_epoch_fn(
-    world,
+    mesh,
     *,
     steps: int,
     batch_size: int,
@@ -448,12 +448,13 @@ def make_fused_async_epoch_fn(
     plain: bool = False,
 ):
     """The whole-epoch kernel composed with async data parallelism over
-    ``world`` (``parallel.mesh.World``), as JAX ``make_fused_async_epoch_fn``.
+    the ``data`` axis of ``mesh`` (``parallel.mesh.Mesh``), as JAX
+    ``make_fused_async_epoch_fn``.
 
     ``run(state, xs, ys) -> (state, costs)``: ``state`` this rank's
     :class:`FusedState` (updated in place), ``xs`` / ``ys`` the GLOBAL
-    staged batches ``[steps, size·batch_size, ...]`` of which this rank
-    takes columns ``[r·b, (r+1)·b)``, ``costs`` ``[steps]`` the per-step
+    staged batches ``[steps, n·batch_size, ...]`` of which this rank
+    takes columns ``[i·b, (i+1)·b)`` (i its index along ``data``), ``costs`` ``[steps]`` the per-step
     mean over the ranks. Each rank launches ``mlp_epoch_kernel`` once a
     round over its ``avg_every`` steps, then the four parameter tensors
     are averaged by one all-reduce; the remainder of a count that
@@ -482,19 +483,20 @@ def make_fused_async_epoch_fn(
         return costs
 
     def run(state: FusedState, xs, ys):
-        if tuple(xs.shape) != (steps, batch_size * world.size, in_dim):
+        n = mesh.axis_size("data")
+        if tuple(xs.shape) != (steps, batch_size * n, in_dim):
             raise ValueError(
-                f"async epoch built for xs {(steps, batch_size * world.size, in_dim)}; "
+                f"async epoch built for xs {(steps, batch_size * n, in_dim)}; "
                 f"got {tuple(xs.shape)}"
             )
-        cols = batch_sharded(world, xs.shape[1])
+        cols = batch_sharded(mesh, xs.shape[1])
         mine_x = xs[:, cols].to(stream_dtype).contiguous()
         mine_y = ys[:, cols].to(stream_dtype).contiguous()
         costs = torch.empty(steps, dtype=torch.float32, device=xs.device)
         for lo, hi in rounds:
             costs[lo:hi] = launch(state, mine_x[lo:hi], mine_y[lo:hi])
             if exchange_after and hi - lo == seg:
-                _assign(state, world.mean_(state))
-        return state, world.mean_([costs])[0]
+                _assign(state, mesh.mean_(state, "data"))
+        return state, mesh.mean_([costs], "data")[0]
 
     return run

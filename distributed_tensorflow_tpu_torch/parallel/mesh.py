@@ -1,39 +1,40 @@
-"""The data-parallel world: PyTorch's idiom for the JAX device mesh.
+"""The mesh of ranks: PyTorch's idiom for the JAX device mesh.
 
 Counterpart of ``distributed_tensorflow_tpu/parallel/mesh.py``. The JAX
-package lays its chips on a mesh whose ``data`` axis carries batch
-sharding and the gradient all-reduce. Here one process is one rank is one
-device, and the ``data`` axis is the default ``torch.distributed``
-process group: :func:`make_mesh` returns a :class:`World` (the group, this
-rank, the group's size and the rank's device). Without an initialized
-group it is a world of one rank whose collectives are no-ops.
+package lays its chips on a mesh with named axes, ``("data", "model")`` by
+default: ``data`` carries batch sharding and the gradient all-reduce,
+``model`` the tensor-parallel layout. Here one process is one rank is one
+device. :func:`make_mesh` lays the ranks of the default
+``torch.distributed`` process group row-major on a grid of named axes (by
+default every rank on ``data`` and ``model`` of size 1, as JAX's) and
+returns a :class:`Mesh`: this rank, its coordinates, its device and one
+sub-group (``dist.new_group``) for each set of ranks that differ along a
+set of axes. Without an initialized group it is a mesh of one rank whose
+collectives are no-ops.
 
 The backend follows from the layout (:func:`choose_backend`): NCCL when
 each rank of a host has a card of its own, gloo otherwise (the CPU, and
 several ranks sharing one card, which NCCL refuses). The data-parallel
 strategies' collectives are ``all_reduce`` and ``broadcast``, which gloo
-also takes on CUDA tensors (it does not take ``all_gather`` or
-``reduce_scatter``), so one code path serves gloo on the CPU, gloo on CUDA
-tensors and NCCL.
+also takes on CUDA tensors, so one code path serves gloo on the CPU, gloo
+on CUDA tensors and NCCL.
 
 The JAX shardings ``replicated`` / ``batch_sharded`` /
-``stacked_per_device`` become which rows of a global array a rank keeps.
+``stacked_per_device`` become which rows of a global array a rank keeps
+(its index along ``data``).
 
-A mesh with named axes (:class:`Mesh`, :func:`make_named_mesh`: the JAX
-``make_mesh(shape, axis_names)`` with ``lax.axis_size`` /
-``lax.axis_index``) lays the ranks of the default group row-major on a
-grid, ``("data", "seq")`` for sequence parallelism, and builds one
-sub-group (``dist.new_group``) for each set of ranks that differ along a
-set of axes. Its collectives take axis names as the JAX ones do:
-``all_reduce_`` over one or several axes, :meth:`Mesh.ring_permute` (the
-JAX ``lax.ppermute`` with the ring's permutation, differentiable: its
-backward is the inverse permute) and :meth:`Mesh.all_to_all`
-(``lax.all_to_all``, differentiable the same way). The permute runs on
-``dist.batch_isend_irecv`` to the partners' global ranks. gloo cannot send
-a CUDA tensor point to point (the send fails in ``writev`` with a bad
-address), so under gloo a hop stages its buffer through host memory (ranks
-that share one card); gloo's ``all_to_all_single`` takes CUDA tensors, and
-under NCCL both stay on the device.
+The mesh's collectives take axis names as the JAX ones do (``lax.axis_size``
+/ ``lax.axis_index``): ``all_reduce_`` and ``mean_`` over one or several
+axes (every axis by default), :meth:`Mesh.ring_permute` (the JAX
+``lax.ppermute`` with the ring's permutation, differentiable: its backward
+is the inverse permute) and :meth:`Mesh.all_to_all` (``lax.all_to_all``,
+differentiable the same way). The permute runs on ``dist.batch_isend_irecv``
+to the partners' global ranks. gloo cannot send a CUDA tensor point to
+point (the send fails in ``writev`` with a bad address), so under gloo a
+hop stages its buffer through host memory (ranks that share one card);
+gloo's ``all_to_all_single`` takes CUDA tensors, and under NCCL both stay
+on the device. The tensor-parallel collectives over an axis are
+``ops/collectives.py``'s.
 """
 
 from __future__ import annotations
@@ -42,40 +43,12 @@ import datetime
 import itertools
 import math
 import os
-from typing import Any, NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.device import resolve_device
-
-
-class World(NamedTuple):
-    """One rank's view of the data-parallel group."""
-
-    group: Any  # the process group, or None for a world of one rank
-    rank: int
-    size: int
-    device: torch.device
-    backend: str | None  # "nccl" | "gloo" | None (no group)
-
-    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over the ranks, in place (``op`` sum, max or
-        min); a no-op without a group."""
-        if self.group is not None:
-            dist.all_reduce(t, op=_OPS[op], group=self.group)
-        return t
-
-    def mean_(self, tensors) -> list:
-        """The mean over the ranks of each tensor of ``tensors`` (float),
-        as new tensors, through ONE all-reduce of a flat bucket."""
-        tensors = list(tensors)
-        if self.group is None:
-            return tensors
-        flat = flatten(tensors)
-        self.all_reduce_(flat)
-        flat /= self.size
-        return unflatten(flat, tensors)
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
@@ -129,11 +102,12 @@ def init_world(
     *,
     device=None,
     timeout_s: float = 120.0,
-) -> World:
+) -> Mesh:
     """Join the default process group at ``init_method`` (``tcp://host:port``
     or ``file://path``) as ``rank`` of ``world_size``, with the backend
     :func:`choose_backend` gives for this rank's device, and return the
-    world. Raises if the group cannot be joined within ``timeout_s``."""
+    default mesh (:func:`make_mesh`: every rank on ``data``). Raises if the
+    group cannot be joined within ``timeout_s``."""
     dev = rank_device(device, rank)
     backend = choose_backend(dev, world_size)
     kw = {}
@@ -147,55 +121,49 @@ def init_world(
     return make_mesh(device=dev)
 
 
-def make_mesh(device=None) -> World:
-    """The training world: the default process group when one is
-    initialized (this rank, its size, its backend), else one rank with no
-    group. ``device`` as :func:`rank_device` takes it."""
-    if dist.is_available() and dist.is_initialized():
-        rank = dist.get_rank()
-        return World(dist.group.WORLD, rank, dist.get_world_size(),
-                     rank_device(device, rank), dist.get_backend())
-    return World(None, 0, 1, rank_device(device, 0), None)
-
-
-def replicated(world: World) -> slice:
+def replicated(mesh: Mesh) -> slice:
     """Rows a rank keeps of a replicated array: all of them."""
     return slice(None)
 
 
-def batch_sharded(world: World, rows: int) -> slice:
-    """Rows a rank keeps of a batch split over the ranks (JAX
-    ``P("data")``): the ``rank``-th of ``size`` equal blocks."""
-    if rows % world.size:
-        raise ValueError(f"a batch of {rows} rows does not split over {world.size} ranks")
-    b = rows // world.size
-    return slice(world.rank * b, (world.rank + 1) * b)
+def batch_sharded(mesh: Mesh, rows: int, axis: str = "data") -> slice:
+    """Rows a rank keeps of a batch split over ``axis`` (JAX ``P("data")``):
+    the block of its index along the axis, of the axis size's equal
+    blocks."""
+    n = mesh.axis_size(axis)
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over {n} ranks")
+    b, i = rows // n, mesh.axis_index(axis)
+    return slice(i * b, (i + 1) * b)
 
 
-def stacked_per_device(world: World) -> slice:
+def stacked_per_device(mesh: Mesh, axis: str = "data") -> slice:
     """Rows a rank keeps of a per-rank stack (async copies): its own."""
-    return slice(world.rank, world.rank + 1)
+    i = mesh.axis_index(axis)
+    return slice(i, i + 1)
 
 
 class Mesh:
     """This rank's view of a grid of ranks with named axes (the JAX
-    ``jax.sharding.Mesh`` under ``shard_map``). ``shape`` maps each axis
-    name to its size, in order; ``coords[name]`` is this rank's index
-    along it (``lax.axis_index``). A rank's coordinates are its global rank
+    ``jax.sharding.Mesh``). ``shape`` maps each axis name to its size, in
+    order; ``coords[name]`` is this rank's index along it
+    (``lax.axis_index``). A rank's coordinates are its global rank
     unravelled row-major over the shape, the order of the JAX mesh's
-    device grid. Made by :func:`make_named_mesh`."""
+    device grid. Made by :func:`make_mesh`; built directly with no
+    ``groups``, it is a layout only (every collective a no-op), which is
+    what a mesh of one rank is."""
 
-    def __init__(self, shape: dict, rank: int, device: torch.device, backend, groups: dict,
-                 coords: dict | None = None):
+    def __init__(self, shape: dict, rank: int = 0, device=None, backend=None,
+                 groups: dict | None = None, coords: dict | None = None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.rank = rank  # the global rank
         self.size = math.prod(self.shape.values())
-        self.device = device
+        self.device = torch.device("cpu") if device is None else torch.device(device)
         self.backend = backend
         # frozenset of axes -> (group or None, global ranks ordered by their
         # index along those axes)
-        self._groups = groups
+        self._groups = groups or {}
         self.coords = coords or dict(zip(self.axis_names, _unravel(rank, self.shape)))
 
     def axis_size(self, axes) -> int:
@@ -212,20 +180,39 @@ class Mesh:
 
     def group(self, axes):
         """The sub-group of the ranks that differ from this one only along
-        ``axes``, and their global ranks in order (None for a set of one
-        rank)."""
+        ``axes``, and their global ranks in order (the group None for a set
+        of one rank, and on a layout-only mesh)."""
         axes = frozenset(_axes(axes))
         unknown = axes - set(self.axis_names)
         if unknown:
             raise ValueError(f"mesh has no axis {sorted(unknown)}: {self.shape}")
-        return self._groups[axes]
+        if axes in self._groups:
+            return self._groups[axes]
+        members = [r for r in range(self.size)
+                   if all(c == self.coords[a] for a, c in
+                          zip(self.axis_names, _unravel(r, self.shape)) if a not in axes)]
+        return None, members
 
-    def all_reduce_(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over ``axes`` in place (a no-op for one rank)."""
-        g, _ = self.group(axes)
+    def all_reduce_(self, t: torch.Tensor, axes=None, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over ``axes`` (every axis for None) in place, ``op``
+        sum, max or min; a no-op for one rank."""
+        g, _ = self.group(self.axis_names if axes is None else axes)
         if g is not None:
             dist.all_reduce(t, op=_OPS[op], group=g)
         return t
+
+    def mean_(self, tensors, axes=None) -> list:
+        """The mean over ``axes`` (every axis for None) of each tensor of
+        ``tensors`` (float), as new tensors, through ONE all-reduce of a
+        flat bucket."""
+        tensors = list(tensors)
+        n = self.axis_size(self.axis_names if axes is None else axes)
+        if n == 1:
+            return tensors
+        flat = flatten(tensors)
+        self.all_reduce_(flat, axes)
+        flat /= n
+        return unflatten(flat, tensors)
 
     def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
         """The mean of ``x`` over ``axes`` (``lax.pmean``), differentiable
@@ -336,14 +323,22 @@ class _AllToAll(torch.autograd.Function):
         return None, None, None, None, all_to_all_raw(mesh, axis, g, concat_axis, split_axis)
 
 
-def make_named_mesh(shape: Sequence[int] | dict, axis_names: Sequence[str] = ("data", "seq"),
-                    *, device=None) -> Mesh:
+def make_mesh(shape: Sequence[int] | dict | None = None,
+              axis_names: Sequence[str] = ("data", "model"), *, device=None) -> Mesh:
     """The ranks of the default process group on a grid of ``shape`` with
-    ``axis_names`` (a dict of name -> size also serves), row-major. Every
-    rank must call it, in the same order as any other group creation: it
-    makes one sub-group for every set of axes whose ranks are more than
-    one and fewer than the world. Without an initialized group it is a
-    mesh of one rank (every axis of size 1)."""
+    ``axis_names`` (a dict of name -> size also serves), row-major; the JAX
+    ``make_mesh``. ``shape`` None puts every rank on the first axis and
+    gives the others size 1. Every rank must call it, in the same order as
+    any other group creation: it makes one sub-group for every set of axes
+    whose ranks are more than one and fewer than the world. Without an
+    initialized group it is a mesh of one rank. ``device`` as
+    :func:`rank_device` takes it."""
+    if dist.is_available() and dist.is_initialized():
+        rank, total, backend = dist.get_rank(), dist.get_world_size(), dist.get_backend()
+    else:
+        rank, total, backend = 0, 1, None
+    if shape is None:
+        shape = (total,) + (1,) * (len(axis_names) - 1)
     if isinstance(shape, dict):
         shape = dict(shape)
     else:
@@ -353,10 +348,9 @@ def make_named_mesh(shape: Sequence[int] | dict, axis_names: Sequence[str] = ("d
         shape = dict(zip(axis_names, shape))
     if len(set(shape)) != len(shape) or any(n < 1 for n in shape.values()):
         raise ValueError(f"bad mesh shape {shape}")
-    world = make_mesh(device)
-    total = math.prod(shape.values())
-    if total != world.size:
-        raise ValueError(f"a mesh of {shape} needs {total} ranks, the world has {world.size}")
+    if math.prod(shape.values()) != total:
+        raise ValueError(f"a mesh of {shape} needs {math.prod(shape.values())} ranks, "
+                         f"the world has {total}")
     names = tuple(shape)
     coords = [_unravel(r, shape) for r in range(total)]
     groups = {}
@@ -373,16 +367,8 @@ def make_named_mesh(shape: Sequence[int] | dict, axis_names: Sequence[str] = ("d
                     g = dist.new_group(ranks)  # collective: every rank makes every group
                 elif len(ranks) == total > 1:
                     g = dist.group.WORLD
-                if world.rank in ranks:
+                if rank in ranks:
                     mine = (g, ranks)
             groups[frozenset(sub)] = mine
-    return Mesh(shape, world.rank, world.device, world.backend, groups)
+    return Mesh(shape, rank, rank_device(device, rank), backend, groups)
 
-
-def as_mesh(world: World, axis: str = "data") -> Mesh:
-    """A data-parallel :class:`World` as a one-axis :class:`Mesh` named
-    ``axis`` (its ring collectives then run over the world's group)."""
-    ranks = ([world.rank] if world.group is None
-             else list(dist.get_process_group_ranks(world.group)))
-    return Mesh({axis: world.size}, ranks[world.rank], world.device, world.backend,
-                {frozenset({axis}): (world.group, ranks)}, coords={axis: world.rank})

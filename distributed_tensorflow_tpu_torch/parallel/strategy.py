@@ -12,11 +12,22 @@ updates the state; the trainer calls ``init_state`` once, then
 ``train_step(state, x, y) -> (state, cost)`` per batch. The gradient is
 torch autograd's; costs stay on the device until the caller reads them.
 
-Data parallelism runs over ``torch.distributed`` (``parallel/mesh.py``):
-one process is one rank is one device, and the JAX mesh's ``data`` axis is
-the default process group. Every rank draws the same global batch and
-keeps its rows ``[r·b, (r+1)·b)`` (JAX ``P("data")``), so N ranks compute
-what the JAX package computes on an N-device mesh.
+Data parallelism runs over ``torch.distributed`` on a
+:class:`~parallel.mesh.Mesh` (``parallel/mesh.py``): one process is one
+rank is one device, and the batch and the gradient all-reduce ride the
+mesh's ``data`` axis. Every rank draws the same global batch and keeps its
+rows ``[i·b, (i+1)·b)`` for its index i along ``data`` (JAX ``P("data")``),
+so N ranks compute what the JAX package computes on an N-device mesh.
+
+- Tensor parallelism (``SyncDataParallel(mesh, param_specs=
+  model.partition_specs())``, JAX :272-320): each rank keeps its block of
+  every leaf the specs split over the mesh's ``model`` axis
+  (``parallel/specs.shard_tree``), the model's forward runs on the blocks
+  with Megatron's collectives over that axis (``model.apply(params, x,
+  tp=...)``, ``ops/collectives.TensorParallel``), the gradients are
+  averaged over ``data`` only and the update runs on the blocks
+  (``parallel/specs.pinned_update``). The JAX package inserts the same
+  collectives by GSPMD.
 
 - Sync: the loss on the local rows, the gradients and the cost summed over
   the ranks by ONE all-reduce of a flat bucket and divided by N (the mean
@@ -41,7 +52,16 @@ from distributed_tensorflow_tpu_torch.data.sharded import global_batch
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
 from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_map, tree_unflatten
-from distributed_tensorflow_tpu_torch.parallel.mesh import World, batch_sharded, make_mesh
+from distributed_tensorflow_tpu_torch.ops.collectives import TensorParallel
+from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh, batch_sharded, make_mesh
+from distributed_tensorflow_tpu_torch.parallel.specs import (
+    check_layout,
+    gather_tree,
+    match_slot_specs,
+    pinned_update,
+    shard_tree,
+    spec_leaves,
+)
 
 
 class TrainState(NamedTuple):
@@ -53,12 +73,18 @@ class TrainState(NamedTuple):
     step: Any
 
 
-def loss_and_grads(model, loss_fn, params, x, y):
+def apply(model, params, x, tp=None):
+    """``model.apply``, on the blocks of a tensor-parallel layout over
+    ``tp`` (an ``ops/collectives.TensorParallel``) when given."""
+    return model.apply(params, x) if tp is None else model.apply(params, x, tp=tp)
+
+
+def loss_and_grads(model, loss_fn, params, x, y, tp=None):
     """``(cost, grads)`` of ``loss_fn(model.apply(params, x), y)`` by
-    autograd, the cost detached on the device."""
+    autograd, the cost detached on the device (:func:`apply` over ``tp``)."""
     leaves = [p.detach().requires_grad_(True) for p in params]
     with torch.enable_grad():
-        cost = loss_fn(model.apply(type(params)(*leaves), x), y)
+        cost = loss_fn(apply(model, type(params)(*leaves), x, tp), y)
         grads = torch.autograd.grad(cost, leaves)
     return cost.detach(), type(params)(*grads)
 
@@ -88,18 +114,19 @@ def _local_sgd_update(model, loss_fn, optimizer, scale: float, params, opt_state
     return new, opt_state, cost
 
 
-def merge_replica_leaf(a, world: World):
-    """Fold one leaf held by every rank into the canonical single copy:
-    float leaves merge at the mean over the ranks (async's
-    effective_params); integer leaves (Adam's count, the accumulator's
-    mini-step) take rank 0's value, which must equal every rank's: a
-    mismatch raises rather than merge. Collective: every rank calls it."""
+def merge_replica_leaf(a, mesh: Mesh):
+    """Fold one leaf held by every rank of the ``data`` axis into the
+    canonical single copy: float leaves merge at the mean over the ranks
+    (async's effective_params); integer leaves (Adam's count, the
+    accumulator's mini-step) take rank 0's value, which must equal every
+    rank's: a mismatch raises rather than merge. Collective: every rank
+    calls it."""
     if isinstance(a, torch.Tensor) and a.is_floating_point():
-        return world.mean_([a])[0].to(a.dtype)
-    t = torch.as_tensor(a, device=world.device).to(torch.int64)
-    if world.size > 1:
-        hi = world.all_reduce_(t.clone(), "max")
-        lo = world.all_reduce_(t.clone(), "min")
+        return mesh.mean_([a], "data")[0].to(a.dtype)
+    t = torch.as_tensor(a, device=mesh.device).to(torch.int64)
+    if mesh.axis_size("data") > 1:
+        hi = mesh.all_reduce_(t.clone(), "data", "max")
+        lo = mesh.all_reduce_(t.clone(), "data", "min")
         if not torch.equal(hi, lo):
             raise ValueError(
                 "integer optimizer-state leaf differs across replicas; "
@@ -108,8 +135,8 @@ def merge_replica_leaf(a, world: World):
     return a.clone() if isinstance(a, torch.Tensor) else a
 
 
-def _merge_tree(tree, world: World):
-    return tree_unflatten(tree, [merge_replica_leaf(a, world) for a in tree_leaves(tree)])
+def _merge_tree(tree, mesh: Mesh):
+    return tree_unflatten(tree, [merge_replica_leaf(a, mesh) for a in tree_leaves(tree)])
 
 
 def device_loop(update, state: TrainState, steps: int, batch, *, exchange=None,
@@ -140,15 +167,16 @@ def _advance(step, k: int):
 class Strategy:
     """Interface. Subclasses define placement and aggregation."""
 
-    world: World
+    mesh: Mesh
+    _tp = None  # the TensorParallel axis of a layout that splits leaves over one
 
     @property
     def device(self) -> torch.device:
-        return self.world.device
+        return self.mesh.device
 
     @property
     def num_replicas(self) -> int:
-        return self.world.size
+        return self.mesh.axis_size("data")
 
     def global_step(self, state: TrainState) -> int:
         step = state.step
@@ -180,12 +208,16 @@ class Strategy:
 
     def prepare_batch(self, x, y):
         """This rank's rows of a host global batch, on its device."""
-        return global_batch(self.world, x, y)
+        return global_batch(self.mesh, x, y)
+
+    def _eval_params(self, state: TrainState):
+        """The parameters the eval's forward takes (over ``_tp``)."""
+        return self.effective_params(state)
 
     def make_eval_fn(self, model):
         @torch.no_grad()
         def evaluate(state: TrainState, x, y):
-            return losses_lib.accuracy(model.apply(self.effective_params(state), x), y)
+            return losses_lib.accuracy(apply(model, self._eval_params(state), x, self._tp), y)
 
         return evaluate
 
@@ -217,7 +249,7 @@ class Strategy:
         update = self._update(model, loss_fn, optimizer)
 
         def run(state: TrainState, xs, ys):
-            cols = batch_sharded(self.world, xs.shape[1])
+            cols = batch_sharded(self.mesh, xs.shape[1])
             params, opt_state, costs = device_loop(
                 update, state, xs.shape[0], lambda i: (xs[i, cols], ys[i, cols]),
                 **self._loop_kw())
@@ -234,7 +266,7 @@ class Strategy:
         update = self._update(model, loss_fn, optimizer)
 
         def run(state: TrainState, train_x, train_y, idxs):
-            mine = idxs[:, batch_sharded(self.world, idxs.shape[1])]
+            mine = idxs[:, batch_sharded(self.mesh, idxs.shape[1])]
             params, opt_state, costs = device_loop(
                 update, state, idxs.shape[0],
                 lambda i: (train_x.index_select(0, mine[i]), train_y.index_select(0, mine[i])),
@@ -259,7 +291,7 @@ class SingleDevice(Strategy):
     plain versions on the CPU)."""
 
     def __init__(self, device=None):
-        self.world = World(None, 0, 1, resolve_device(device), None)
+        self.mesh = Mesh({"data": 1, "model": 1}, device=resolve_device(device))
 
     def init_state(self, model, optimizer, seed: int) -> TrainState:
         params = model.init(seed, device=self.device)
@@ -274,48 +306,105 @@ class SingleDevice(Strategy):
             model, loss_fn, optimizer, params, opt_state, x, y)
 
 
+def tensor_parallel(mesh: Mesh, param_specs):
+    """The ``TensorParallel`` axis of a layout (the one axis other than
+    ``data`` its specs split over), or None for no layout or one that
+    splits nothing."""
+    if param_specs is None:
+        return None
+    axes = sorted({e for sp in spec_leaves(param_specs) for e in sp if e is not None})
+    if len(axes) > 1 or "data" in axes:
+        raise ValueError(f"param_specs must split over one tensor-parallel axis other than "
+                         f"'data', got {axes}")
+    return TensorParallel(mesh, axes[0]) if axes else None
+
+
 class SyncDataParallel(Strategy):
     """The ``tfdist_between_sync.py`` mode: lockstep DP with gradient
-    averaging, ``SyncReplicasOptimizer`` rebuilt as an all-reduce.
+    averaging, ``SyncReplicasOptimizer`` rebuilt as an all-reduce over the
+    mesh's ``data`` axis.
 
     ``explicit_collectives=False`` (default): one all-reduce of a flat
     bucket of every gradient and the cost a step.
     ``explicit_collectives=True``: one all-reduce a leaf, the collective of
     each gradient visible (the JAX ``shard_map`` + ``pmean`` path); the
     same sums, so the same result. Like the JAX one, it serves the eager
-    step only."""
+    step only.
 
-    def __init__(self, world: World | None = None, *, explicit_collectives: bool = False,
+    ``param_specs`` (e.g. ``MLP.partition_specs()``): tensor parallelism
+    over the one axis the specs name (the mesh's ``model`` axis) on top of
+    DP over ``data``: each rank keeps its blocks of the parameters and of
+    the optimizer slots that track them (see the module docstring). A
+    layout whose axis size does not divide a split dim is refused."""
+
+    def __init__(self, mesh: Mesh | None = None, *, explicit_collectives: bool = False,
                  param_specs=None, device=None):
-        if param_specs is not None:
-            raise NotImplementedError(
-                "SyncDataParallel(param_specs=...): tensor parallelism over a 'model' "
-                "axis is not ported yet (ROADMAP A7b)"
-            )
-        self.world = world if world is not None else make_mesh(device)
+        if explicit_collectives and param_specs is not None:
+            raise ValueError("explicit_collectives path supports pure DP only")
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
         self.explicit = explicit_collectives
+        self.param_specs = param_specs
+        self._tp = tensor_parallel(self.mesh, param_specs)
 
     def init_state(self, model, optimizer, seed: int) -> TrainState:
         # Every rank builds the same parameters from the same seed (the
         # reference's tf.set_random_seed(1) in each process).
         params = model.init(seed, device=self.device)
-        return TrainState(params, optimizer.init(params), 0)
+        return self.from_canonical(TrainState(params, optimizer.init(params), 0))
+
+    def from_canonical(self, canonical: TrainState) -> TrainState:
+        """The canonical state as this rank's (its blocks under a layout,
+        which is refused where its axis does not divide a split dim)."""
+        if self.param_specs is None:
+            return canonical
+        check_layout(canonical.params, self.param_specs, self.mesh)
+        on = lambda t: tree_map(  # noqa: E731
+            lambda a: a.to(self.device) if isinstance(a, torch.Tensor) else a, t)
+        params, opt_state = on(canonical.params), on(canonical.opt_state)
+        slots = match_slot_specs(opt_state, params, self.param_specs)
+        return TrainState(shard_tree(params, self.param_specs, self.mesh),
+                          shard_tree(opt_state, slots, self.mesh), int(canonical.step))
+
+    def to_canonical(self, state: TrainState) -> TrainState:
+        """The whole parameters and optimizer state, gathered from every
+        rank's blocks (a collective over the tensor-parallel axis)."""
+        if self.param_specs is None:
+            return super().to_canonical(state)
+        slots = match_slot_specs(state.opt_state, state.params, self.param_specs)
+        return TrainState(gather_tree(state.params, self.param_specs, self.mesh),
+                          gather_tree(state.opt_state, slots, self.mesh),
+                          self.global_step(state))
+
+    def effective_params(self, state: TrainState):
+        if self.param_specs is None:
+            return state.params
+        return gather_tree(state.params, self.param_specs, self.mesh)
+
+    def _eval_params(self, state: TrainState):
+        return state.params
+
+    def placement_specs(self, params):
+        return super().placement_specs(params) if self.param_specs is None else self.param_specs
 
     def _update(self, model, loss_fn, optimizer):
-        world = self.world
+        mesh, n, tp, specs = self.mesh, self.num_replicas, self._tp, self.param_specs
 
         def update(params, opt_state, x, y):
-            cost, grads = loss_and_grads(model, loss_fn, params, x, y)
+            cost, grads = loss_and_grads(model, loss_fn, params, x, y, tp)
             leaves = tree_leaves(grads)
             if self.explicit:
-                leaves = [world.all_reduce_(g) / world.size for g in leaves]
-                cost = world.all_reduce_(cost.clone()) / world.size
+                leaves = [mesh.all_reduce_(g, "data") / n for g in leaves]
+                cost = mesh.all_reduce_(cost.clone(), "data") / n
             else:
-                *leaves, cost = world.mean_(leaves + [cost.reshape(1)])
+                *leaves, cost = mesh.mean_(leaves + [cost.reshape(1)], "data")
                 cost = cost.reshape(())
-            with torch.no_grad():
-                new, opt_state = optimizer.update(tree_unflatten(grads, leaves), opt_state,
-                                                  type(params)(*(p.detach() for p in params)))
+            grads = tree_unflatten(grads, leaves)
+            params = type(params)(*(p.detach() for p in params))
+            if specs is None:
+                with torch.no_grad():
+                    new, opt_state = optimizer.update(grads, opt_state, params)
+            else:
+                new, opt_state = pinned_update(optimizer, params, opt_state, grads, mesh, specs)
             return new, opt_state, cost
 
         return update
@@ -341,10 +430,10 @@ class AsyncDataParallel(Strategy):
     """The ``tfdist_between.py`` mode: HOGWILD-style async DP as local SGD
     with a copy a rank (see the module docstring)."""
 
-    def __init__(self, world: World | None = None, *, avg_every: int = 0,
+    def __init__(self, mesh: Mesh | None = None, *, avg_every: int = 0,
                  update_scale: float | None = None, device=None):
-        self.world = world if world is not None else make_mesh(device)
-        self.n = self.world.size
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.n = self.num_replicas
         self.avg_every = avg_every
         # None → scale the update by the replica count (async N×-update-
         # count parity).
@@ -363,8 +452,8 @@ class AsyncDataParallel(Strategy):
     def to_canonical(self, state: TrainState) -> TrainState:
         """The copies merged at their mean (float leaves; integer leaves
         must agree, ``merge_replica_leaf``) and the summed step."""
-        return TrainState(_merge_tree(state.params, self.world),
-                          _merge_tree(state.opt_state, self.world), self.global_step(state))
+        return TrainState(_merge_tree(state.params, self.mesh),
+                          _merge_tree(state.opt_state, self.mesh), self.global_step(state))
 
     def from_canonical(self, canonical: TrainState) -> TrainState:
         """The canonical state as this rank's copy, and the scalar step
@@ -386,11 +475,11 @@ class AsyncDataParallel(Strategy):
         """The mean over the ranks of a step's cost tensor (collective); a
         host number, already a mean, as it is."""
         if isinstance(cost, torch.Tensor):
-            return float(self.world.mean_([cost.reshape(1)])[0])
+            return float(self.mesh.mean_([cost.reshape(1)], "data")[0])
         return float(cost)
 
     def _mean_params(self, params):
-        return tree_unflatten(params, self.world.mean_(tree_leaves(params)))
+        return tree_unflatten(params, self.mesh.mean_(tree_leaves(params), "data"))
 
     def make_exchange_fn(self, collective: str = "auto"):
         """Periodic parameter exchange: every copy jumps to the mean;
@@ -402,13 +491,10 @@ class AsyncDataParallel(Strategy):
             raise ValueError(f"unknown collective {collective!r}; use 'auto' or 'ring'")
         if collective == "ring":
             from distributed_tensorflow_tpu_torch.ops.collectives import ring_all_mean
-            from distributed_tensorflow_tpu_torch.parallel.mesh import as_mesh
-
-            mesh = as_mesh(self.world)
 
             @torch.no_grad()
             def ring_mean(params):
-                return tree_map(lambda a: ring_all_mean(a, mesh, "data"), params)
+                return tree_map(lambda a: ring_all_mean(a, self.mesh, "data"), params)
 
             return lambda state: TrainState(ring_mean(state.params), state.opt_state, state.step)
 
@@ -423,7 +509,7 @@ class AsyncDataParallel(Strategy):
     def _epoch_costs(self, costs):
         # Mean over the ranks a step: what the eager path's cost_scalar
         # logs; one all-reduce an epoch.
-        return self.world.mean_([costs])[0]
+        return self.mesh.mean_([costs], "data")[0]
 
     def make_divergence_fn(self):
         """The largest elementwise distance of any copy from the mean of
@@ -435,7 +521,7 @@ class AsyncDataParallel(Strategy):
             mean = self._mean_params(state.params)
             local = torch.stack([torch.max(torch.abs(a - m))
                                  for a, m in zip(tree_leaves(state.params), tree_leaves(mean))])
-            return self.world.all_reduce_(torch.max(local).reshape(1), "max")[0]
+            return self.mesh.all_reduce_(torch.max(local).reshape(1), "data", "max")[0]
 
         return divergence
 

@@ -39,7 +39,7 @@ As in the JAX trainer, the optimizer is ``optimizer=`` or else the plain
 them, as ``launch.build_trainer`` composes the MLP ``Trainer``'s.
 
 With ``mesh`` (a :class:`~parallel.mesh.Mesh` over the ranks of a
-``torch.distributed`` group, ``parallel/mesh.make_named_mesh``), every
+``torch.distributed`` group, ``parallel/mesh.make_mesh``), every
 rank runs this loop on the same global batches (the same dataset, seed
 and index stream) and its step keeps its shard, as the JAX trainer's
 ``shard_map`` does (:540-565):
@@ -48,15 +48,24 @@ and index stream) and its step keeps its shard, as the JAX trainer's
   (``models/gpt.make_lm_train_step(model, opt, mesh, data_axis)``);
 - ``dp_mode="sp"`` → **sp**: the sequence split over ``seq_axis``
   (``models/gpt.make_lm_sp_parts``, ``sp_attention`` ring | ring_flash |
-  ulysses), composed with ``data_axis`` when the mesh has it (dp×sp).
+  ulysses), composed with ``data_axis`` when the mesh has it (dp×sp);
+- ``dp_mode="tp"`` → **tp** (JAX :487-498, :605-610, :1143-1160):
+  Megatron tensor parallelism over ``tp_axis``
+  (``models/gpt.make_lm_train_step(..., tp_axis=)``): the parameters and
+  the optimizer slots that track them are this rank's blocks of
+  ``GPTLM.partition_specs`` (``parallel/specs.py``), the batch split over
+  ``data_axis`` when the mesh has it (dp×tp). The held-out perplexity runs
+  the same tensor-parallel forward (a collective of the axis), and
+  :meth:`LMTrainer.to_canonical` / :meth:`LMTrainer.from_canonical` gather
+  and shard the state.
 
-The parameters stay replicated, so the held-out perplexity is the dense
-forward's on each rank, as in the JAX trainer. Step lines print on every
-rank; the epoch and final lines on the chief (``is_chief`` and rank 0 of
-the mesh).
+In the other modes the parameters stay replicated, so the held-out
+perplexity is the dense forward's on each rank, as in the JAX trainer.
+Step lines print on every rank; the epoch and final lines on the chief
+(``is_chief`` and rank 0 of the mesh).
 
-Not ported yet, and refused when asked for: the tensor-parallel mode
-(ROADMAP A7b), the expert and pipeline modes (A7c), the LM's ZeRO and
+Not ported yet, and refused when asked for: the expert and pipeline
+modes (A7c), the LM's ZeRO and
 async modes and the DiLoCo ``delta_exchange`` (A7d), the supervisor and
 checkpoints (and with them the ``tokenizer.json`` written beside a
 checkpoint), summaries, the journal and metrics, ``epochs_per_dispatch``
@@ -75,7 +84,14 @@ from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import make_lm_sp_parts, make_lm_train_step
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+from distributed_tensorflow_tpu_torch.ops.optim import tree_map
+from distributed_tensorflow_tpu_torch.ops.collectives import TensorParallel
 from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
+from distributed_tensorflow_tpu_torch.parallel.specs import (
+    gather_tree,
+    match_slot_specs,
+    shard_tree,
+)
 from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
@@ -87,7 +103,6 @@ NOT_PORTED = {
     "metrics": ((None,), "A8"),
     "delta_exchange": ((None,), "A7d"),
     "async_update_scale": ((None,), "A7d"),
-    "tp_axis": (("model",), "A7b"),
     "expert_axis": (("expert",), "A7c"),
     "stage_axis": (("stage",), "A7c"),
     "pp_microbatches": ((4,), "A7c"),
@@ -110,6 +125,7 @@ class LMTrainer:
         mesh=None,
         data_axis: str = "data",
         seq_axis: str = "seq",
+        tp_axis: str = "model",
         sp_attention: str | None = None,
         is_chief: bool = True,
         **not_ported,
@@ -128,6 +144,7 @@ class LMTrainer:
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self.config = config or TrainConfig()
         self.mesh, self.data_axis, self.seq_axis = mesh, data_axis, seq_axis
+        self.tp_axis = tp_axis
         self.sp_attention = sp_attention
         self.is_chief = is_chief and (mesh is None or mesh.rank == 0)
         self.tokenizer = tokenizer
@@ -152,6 +169,10 @@ class LMTrainer:
         self.print_fn = print_fn
         self._ragged = datasets.train.lengths is not None
         self.mode = self._resolve_mode()
+        self._tp = self._specs = None
+        if self.mode == "tp":
+            self._tp = TensorParallel(mesh, tp_axis)
+            self._specs = self.model.partition_specs(tp_axis)
         self._step = self._make_step()
         self.state = self._init_state(self.model.init(seed=self.config.seed, device=self.device))
         self._stage_cache: dict = {}
@@ -161,11 +182,16 @@ class LMTrainer:
     # -- modes ------------------------------------------------------------
 
     def _resolve_mode(self) -> str:
-        """single, dp or sp, with the JAX trainer's checks (:393-565)."""
+        """single, dp, sp or tp, with the JAX trainer's checks (:393-565)."""
         cfg, mesh = self.config, self.mesh
         if mesh is None:
             return "single"
         if not cfg.sync:
+            if cfg.dp_mode != "replicated":
+                raise ValueError(
+                    f"dp_mode={cfg.dp_mode!r} does not compose with "
+                    "sync=False: the async copies are per-chip by "
+                    "construction; pick one")
             raise NotImplementedError(
                 "LMTrainer(mesh=...) with sync=False (async local SGD) is not ported yet "
                 "(ROADMAP A7d)")
@@ -192,6 +218,23 @@ class LMTrainer:
                     f"dp×sp shards the batch over the {d}-way {self.data_axis!r} axis: "
                     f"batch_size {cfg.batch_size} must divide")
             return "sp"
+        if cfg.dp_mode == "tp":
+            if self.tp_axis not in mesh.shape:
+                raise ValueError(
+                    f"dp_mode='tp' needs a {self.tp_axis!r} mesh axis: {dict(mesh.shape)}")
+            if self.model.moe_experts is not None:
+                raise ValueError(
+                    "dp_mode='tp' is not defined for MoE blocks; use "
+                    "dp_mode='ep' (expert parallelism)")
+            reason = self.model.tp_unsupported_reason(mesh.shape[self.tp_axis])
+            if reason is not None:
+                raise ValueError(f"dp_mode='tp': {reason}")
+            d = mesh.shape.get(self.data_axis, 1)
+            if cfg.batch_size % d:
+                raise ValueError(
+                    f"dp×tp shards the batch over the {d}-way {self.data_axis!r} axis: "
+                    f"batch_size {cfg.batch_size} must divide")
+            return "tp"
         if self.data_axis not in mesh.shape:
             raise ValueError(f"mesh has no {self.data_axis!r} axis: {dict(mesh.shape)}")
         if cfg.batch_size % mesh.shape[self.data_axis]:
@@ -211,6 +254,9 @@ class LMTrainer:
             return make_lm_train_step(self.model, self.optimizer)
         if self.mode == "dp":
             return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis)
+        if self.mode == "tp":
+            return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis,
+                                      tp_axis=self.tp_axis)
         return make_lm_sp_parts(self.model, self.optimizer, self.mesh, self.seq_axis,
                                 data_axis=self._dp_axis(), attention=self.sp_attention,
                                 ragged=self._ragged)
@@ -218,8 +264,34 @@ class LMTrainer:
     # -- pieces -----------------------------------------------------------
 
     def _init_state(self, params) -> TrainState:
-        """A fresh state at ``params``: the optimizer's initial state, step 0."""
+        """A fresh state at the canonical ``params``: this rank's blocks of
+        them under tp, the optimizer's initial state, step 0."""
+        if self._specs is not None:
+            params = shard_tree(params, self._specs, self.mesh)
         return TrainState(params, self.optimizer.init(params), 0)
+
+    def to_canonical(self, state: TrainState | None = None) -> TrainState:
+        """The single-device form of ``state`` (default the trainer's): under
+        tp the parameters and optimizer slots gathered from every rank's
+        blocks (a collective of the axis); the other modes hold it already."""
+        state = self.state if state is None else state
+        if self._specs is None:
+            return state
+        slots = match_slot_specs(state.opt_state, state.params, self._specs)
+        return TrainState(gather_tree(state.params, self._specs, self.mesh),
+                          gather_tree(state.opt_state, slots, self.mesh), state.step)
+
+    def from_canonical(self, canonical: TrainState) -> TrainState:
+        """A single-device state as this trainer's (this rank's blocks
+        under tp), on its device; set it as ``self.state`` to resume."""
+        on = lambda t: tree_map(  # noqa: E731
+            lambda a: a.to(self.device) if isinstance(a, torch.Tensor) else a, t)
+        params, opt_state = on(canonical.params), on(canonical.opt_state)
+        if self._specs is not None:
+            slots = match_slot_specs(opt_state, params, self._specs)
+            params = shard_tree(params, self._specs, self.mesh)
+            opt_state = shard_tree(opt_state, slots, self.mesh)
+        return TrainState(params, opt_state, int(canonical.step))
 
     @property
     def global_step(self) -> int:
@@ -247,10 +319,10 @@ class LMTrainer:
         ragged (the count then a device tensor): the one eval arithmetic of
         :meth:`evaluate` and the compiled run."""
         if self._ragged:
-            ce = self.model.loss(params, toks, lens)
+            ce = self.model.loss(params, toks, lens, self._tp)
             count = torch.clamp(lens.long() - 1, min=0).sum()
         else:
-            ce = self.model.loss(params, toks)
+            ce = self.model.loss(params, toks, tp=self._tp)
             count = toks.shape[0] * (toks.shape[1] - 1)
         return ce * count, count
 

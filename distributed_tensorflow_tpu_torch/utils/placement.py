@@ -4,10 +4,12 @@ Counterpart of ``distributed_tensorflow_tpu/utils/placement.py``. The JAX
 package reads each array's sharding; a tensor here lives whole on one
 rank's device, so the layout is the strategy's to say
 (``Strategy.placement_specs``: per leaf, the mesh axes its dims are split
-over, as ``PartitionSpec`` entries). :func:`describe` prints one line a
-leaf in the JAX wording, with the leaf's global shape;
-:func:`assert_replicated` checks across the ranks that every rank holds
-the same leaves.
+over, as ``PartitionSpec`` entries: ``data`` under ZeRO, ``model`` under
+tensor parallelism, both under ZeRO over a tensor-parallel base).
+:func:`describe` prints one line a leaf in the JAX wording, with the
+leaf's global shape; :func:`assert_replicated` checks across the ranks
+that every rank holds the same leaves, and :func:`assert_sharded_over`
+that a layout splits some leaf over an axis.
 """
 
 from __future__ import annotations
@@ -15,30 +17,35 @@ from __future__ import annotations
 import torch
 
 from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
-from distributed_tensorflow_tpu_torch.parallel.fsdp import spec_leaves
+from distributed_tensorflow_tpu_torch.parallel.specs import spec_leaves
 
 
 def _spec_repr(spec) -> str:
+    """A spec as a JAX array's sharding prints it (trailing Nones dropped)."""
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
     inner = ", ".join(repr(e) for e in spec)
     return f"PartitionSpec({inner}{',' if len(spec) == 1 else ''})"
 
 
-def _global_shape(leaf, spec, n: int, stacked: bool) -> tuple:
-    """A leaf's shape across the ranks: a copy a rank stacked on a leading
-    axis, or each dim split over ``data`` ``n`` times its slice."""
+def _global_shape(leaf, spec, mesh, stacked: bool) -> tuple:
+    """A leaf's shape across the ranks: a copy a rank of ``data`` stacked
+    on a leading axis, or each split dim its axis size times the block."""
     if stacked:
-        return (n, *leaf.shape)
-    return tuple(s * n if e == "data" else s
+        return (1 if mesh is None else mesh.axis_size("data"), *leaf.shape)
+    return tuple(s if e is None or mesh is None else s * mesh.axis_size(e)
                  for s, e in zip(leaf.shape, list(spec) + [None] * leaf.dim()))
 
 
-def describe(tree, *, specs=None, world=None, stacked=False, print_fn=print) -> list[str]:
+def describe(tree, *, specs=None, mesh=None, stacked=False, print_fn=print) -> list[str]:
     """Print (and return) one line per leaf of the NamedTuple ``tree``:
     path, global shape, dtype, spec and the number of devices holding
-    it. ``specs`` (default: all replicated) matches ``tree``; ``world``
-    gives the device count (default one); ``stacked``: each rank holds
-    its own copy (async), the global array stacks them."""
-    n = 1 if world is None else world.size
+    it. ``specs`` (default: all replicated) matches ``tree``; ``mesh``
+    gives the axis sizes and the device count (default one device);
+    ``stacked``: each rank holds its own copy (async), the global array
+    stacks them."""
+    n = 1 if mesh is None else mesh.size
     leaves = tree_leaves(tree)
     specs = [()] * len(leaves) if specs is None else spec_leaves(specs)
     lines = []
@@ -48,7 +55,7 @@ def describe(tree, *, specs=None, world=None, stacked=False, print_fn=print) -> 
             continue
         dtype = str(leaf.dtype).replace("torch.", "")
         lines.append(
-            f"{name}: shape={_global_shape(leaf, spec, n, stacked)} dtype={dtype} "
+            f"{name}: shape={_global_shape(leaf, spec, mesh, stacked)} dtype={dtype} "
             f"spec={_spec_repr(spec)} devices={n}"
         )
     for line in lines:
@@ -58,7 +65,7 @@ def describe(tree, *, specs=None, world=None, stacked=False, print_fn=print) -> 
 
 def describe_state(strategy, params, *, print_fn=print) -> list[str]:
     """:func:`describe` of a strategy's parameters with its layout."""
-    return describe(params, specs=strategy.placement_specs(params), world=strategy.world,
+    return describe(params, specs=strategy.placement_specs(params), mesh=strategy.mesh,
                     stacked=strategy.layout_meta()["mode"] == "async", print_fn=print_fn)
 
 
@@ -74,17 +81,18 @@ def _paths(tree, prefix: str = "") -> list[str]:
     return [prefix]
 
 
-def assert_replicated(tree, world) -> None:
-    """Assert every rank holds the same leaves (the pure-DP invariant).
-    Collective: every rank calls it."""
+def assert_replicated(tree, mesh) -> None:
+    """Assert every rank of ``mesh`` holds the same leaves (the pure-DP
+    invariant; tensor-parallel blocks differ). Collective: every rank
+    calls it."""
     for name, leaf in zip(_paths(tree), tree_leaves(tree)):
         if not isinstance(leaf, torch.Tensor):
             continue
-        hi = world.all_reduce_(leaf.detach().clone(), "max")
-        lo = world.all_reduce_(leaf.detach().clone(), "min")
+        hi = mesh.all_reduce_(leaf.detach().clone(), None, "max")
+        lo = mesh.all_reduce_(leaf.detach().clone(), None, "min")
         if not torch.equal(hi, lo):
             raise AssertionError(
-                f"{name} is not replicated: its values differ across the {world.size} ranks"
+                f"{name} is not replicated: its values differ across the {mesh.size} ranks"
             )
 
 

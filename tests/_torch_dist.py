@@ -91,15 +91,22 @@ def run_world(case: str, n: int, tmp_path, inputs: dict | None = None, args: dic
     return out
 
 
+_ONCE: dict = {}
+
+
 def run_world_once(case: str, n: int, tmp_path_factory, inputs: dict | None = None,
                    args: dict | None = None, timeout: float = WORLD_TIMEOUT_S) -> list:
     """:func:`run_world`, once a test session: under pytest-xdist the first
     worker to ask runs the world (holding a file lock in the session's
     shared temporary directory) and the others read its pickled results,
     so a module fixture's world does not run again in every worker that
-    takes one of the module's tests."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        return run_world(case, n, tmp_path_factory.mktemp(f"{case}{n}"), inputs, args, timeout)
+    takes one of the module's tests (nor, in one process, for every module
+    that asks)."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):  # one process: memoized here
+        if (case, n) not in _ONCE:
+            _ONCE[case, n] = run_world(case, n, tmp_path_factory.mktemp(f"{case}{n}"), inputs,
+                                       args, timeout)
+        return _ONCE[case, n]
     import filelock
 
     out = tmp_path_factory.getbasetemp().parent / f"world-{case}-{n}.pkl"
@@ -296,7 +303,7 @@ def case_trainer(world, inp, args):
                       validation=DataSet(inp["test_x"][:10], inp["test_y"][:10], seed=3),
                       test=DataSet(inp["test_x"], inp["test_y"], seed=2))
         config = TrainConfig(compute_dtype="float32", **cfg)
-        strategy = build_strategy(config, world=world)
+        strategy = build_strategy(config, mesh=world)
         model = _model(inp)
         if run.get("compiled_unshuffled"):
             # The whole run without a shuffle: the rows in dataset order.
@@ -380,7 +387,7 @@ def case_bootstrap(world, inp, args):
                             connect_timeout_s=60, connect_attempts=2)
     lines = []
     ctx = bootstrap(cluster, "worker", rank, device="cpu", print_fn=lines.append)
-    world = make_mesh("cpu")
+    world = make_mesh(device="cpu")
     strat = SyncDataParallel(world)
     state, costs = _drive(strat, _model(inp), optim.sgd(0.05), _params(inp),
                           inp["xs"][:1], inp["ys"][:1])
@@ -453,9 +460,9 @@ def case_ring(world, inp, args):
 
     from distributed_tensorflow_tpu_torch.ops import collectives as co
     from distributed_tensorflow_tpu_torch.ops import ring_attention as ra
-    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_named_mesh((world.size,), ("seq",), device="cpu")
+    mesh = make_mesh((world.size,), ("seq",), device="cpu")
     n, r = world.size, world.rank
     permutes = [0]
     ring_permute = mesh.ring_permute
@@ -513,15 +520,20 @@ def _gpt(kw):
     return GPTLM(**kw, compute_dtype=torch.float32)
 
 
-def _gpt_params(inp, prefix):
-    """The GPT parameters stored flat under ``prefix`` (``<prefix>/embed``,
+def _gpt_tree(inp, prefix):
+    """The numpy GPT tree stored flat under ``prefix`` (``<prefix>/embed``,
     ``<prefix>/blocks/wq``, ...)."""
-    from distributed_tensorflow_tpu_torch.convert import gpt_params_from_numpy
-
     tree = {k: inp[f"{prefix}/{k}"] for k in ("embed", "pos", "lnf_scale", "lnf_bias")}
     tree["blocks"] = {k.rsplit("/", 1)[1]: v for k, v in inp.items()
                       if k.startswith(f"{prefix}/blocks/")}
-    return gpt_params_from_numpy(tree, device="cpu")
+    return tree
+
+
+def _gpt_params(inp, prefix):
+    """:func:`_gpt_tree` as the port's GPT parameters on the CPU."""
+    from distributed_tensorflow_tpu_torch.convert import gpt_params_from_numpy
+
+    return gpt_params_from_numpy(_gpt_tree(inp, prefix), device="cpu")
 
 
 def case_sp(world, inp, args):
@@ -537,13 +549,13 @@ def case_sp(world, inp, args):
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.models import gpt as gpt_lib
     from distributed_tensorflow_tpu_torch.ops import optim
-    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
 
     res = {}
     toks = torch.from_numpy(inp["tokens"])
     for run in args["runs"]:
         name, kind = run["name"], run["kind"]
-        mesh = make_named_mesh(tuple(run["shape"]), tuple(run["axes"]), device="cpu")
+        mesh = make_mesh(tuple(run["shape"]), tuple(run["axes"]), device="cpu")
         if kind == "transformer":
             from distributed_tensorflow_tpu_torch.convert import transformer_params_from_numpy
             from distributed_tensorflow_tpu_torch.models.transformer import TransformerClassifier
@@ -599,9 +611,185 @@ def case_sp(world, inp, args):
     return res
 
 
+def case_tp(world, inp, args):
+    """Tensor parallelism on meshes of the world's 4 ranks, each run of
+    ``args["runs"]`` (kinds: ``step`` the dp×tp or dp×tp×sp LM step,
+    ``ragged`` one masked step on two batches that differ past the
+    lengths, ``trainer`` LMTrainer(dp_mode="tp"), ``collectives`` the three
+    operators, ``convert`` the numpy round trip of a JAX state, and
+    ``classifier`` / ``zero`` / ``placement`` the classifiers under
+    SyncDataParallel / ShardedDataParallel with a tensor-parallel layout)."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models import gpt as gpt_lib
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree, shard_tree
+
+    meshes, res = {}, {}
+    toks = torch.from_numpy(inp["tokens"])
+    for run in args["runs"]:
+        name, kind = run["name"], run["kind"]
+        key = (tuple(run["shape"]), tuple(run["axes"]))
+        if key not in meshes:
+            meshes[key] = make_mesh(*key, device="cpu")
+        mesh = meshes[key]
+        if kind in ("classifier", "zero", "placement"):
+            res[name] = _tp_classifier(kind, run, mesh, inp)
+            continue
+        if kind == "collectives":
+            res[name] = _tp_collectives(mesh)
+            continue
+        model = _gpt(run["model"])
+        specs = model.partition_specs("model")
+        if kind == "convert":
+            from distributed_tensorflow_tpu_torch.convert import (
+                lm_sharded_state_from_numpy,
+                lm_sharded_state_to_numpy,
+            )
+
+            tree = _gpt_tree(inp, run["params"])
+            adam = {"count": inp["adam/count"], "mu": _gpt_tree(inp, "adam_mu"),
+                    "nu": _gpt_tree(inp, "adam_nu")}
+            p, o = lm_sharded_state_from_numpy(tree, adam, mesh, specs, device="cpu")
+            back = lm_sharded_state_to_numpy(p, o, mesh, specs)
+            res[name] = dict(params=back[0], adam=back[1], wq=tuple(p.blocks.wq.shape),
+                             mu_wo=tuple(o.mu.blocks.wo.shape))
+            continue
+        params = _gpt_params(inp, run["params"])
+        opt = optim.adam(1e-3) if not run.get("clip") else optim.clip(optim.adam(1e-3),
+                                                                        run["clip"])
+        if kind == "trainer":
+            res[name] = _tp_trainer(run, mesh, model, params, opt, inp)
+            continue
+        step = gpt_lib.make_lm_train_step(model, opt, mesh, "data", tp_axis="model",
+                                          seq_axis=run.get("seq"))
+        p = shard_tree(params, specs, mesh)
+        o = opt.init(p)
+        if kind == "ragged":
+            lens = torch.from_numpy(inp["lengths"])
+            out = [step(p, o, torch.from_numpy(inp[t]), lens) for t in ("ragged_a", "ragged_b")]
+            res[name] = dict(params=[_np(gather_tree(x[0], specs, mesh)) for x in out],
+                             losses=[float(x[2]) for x in out])
+            continue
+        losses = []
+        for t in toks[:run["steps"]]:
+            p, o, loss = step(p, o, t)
+            losses.append(float(loss))
+        res[name] = dict(params=_np(gather_tree(p, specs, mesh)), losses=losses,
+                         local=_np(p), wq=tuple(p.blocks.wq.shape))
+    return res
+
+
+def _tp_collectives(mesh):
+    """copy_to, reduce_from and gather_from over "model": each rank's
+    forward and the gradient of sum(w · out) it gets back."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops import collectives as co
+
+    r = mesh.axis_index("model")
+    out = {}
+    for op in ("copy_to", "reduce_from", "gather_from"):
+        x = (torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * r).requires_grad_(True)
+        y = getattr(co, op)(x, mesh, "model")
+        w = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape) + r
+        (y * w).sum().backward()
+        out[op] = dict(y=y.detach().numpy(), grad=x.grad.numpy())
+    return out
+
+
+def _tp_trainer(run, mesh, model, params, opt, inp):
+    """LMTrainer(dp_mode="tp") from ``params``: its lines, result, the
+    canonical state, this rank's blocks and the to/from_canonical round
+    trip."""
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    import torch
+
+    ds = TokenDatasets(TokenDataset(inp["train"], seed=1), TokenDataset(inp["val"], seed=2),
+                       TokenDataset(inp["val"], seed=3))
+    lines = []
+    tr = LMTrainer(model, ds, TrainConfig(**run["config"]), mesh=mesh, device="cpu",
+                   print_fn=lines.append, optimizer=opt)
+    tr.state = tr._init_state(params)
+    out = tr.run()
+    c = tr.to_canonical()
+    back = tr.from_canonical(c)
+    same = back.step == tr.state.step and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back[:2]), tree_leaves(tr.state[:2])))
+    return dict(lines=lines, result=out, mode=tr.mode, params=_np(c.params),
+                mu=_np(c.opt_state.mu), local=_np(tr.state.params),
+                local_mu_wq=tuple(tr.state.opt_state.mu.blocks.wq.shape),
+                local_mu_wo=tuple(tr.state.opt_state.mu.blocks.wo.shape), round_trip=same,
+                perplexity=tr.evaluate())
+
+
+def _tp_classifier(kind, run, mesh, inp):
+    """A classifier family under SyncDataParallel(mesh, param_specs=)
+    (``classifier``: SGD steps eager and scanned, eval, Predictor), under
+    ShardedDataParallel with the layout as its base (``zero``), or the
+    placement lines and checks of a tp state (``placement``)."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.convert import (
+        params_from_numpy,
+        sharded_state_from_numpy,
+        sharded_state_to_numpy,
+    )
+    from distributed_tensorflow_tpu_torch.inference import Predictor
+    from distributed_tensorflow_tpu_torch.models import build_model
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.losses import cross_entropy
+    from distributed_tensorflow_tpu_torch.parallel.fsdp import ShardedDataParallel
+    from distributed_tensorflow_tpu_torch.parallel.strategy import SyncDataParallel
+    from distributed_tensorflow_tpu_torch.utils import placement
+
+    fam, (reg, kw) = run["family"], run["model"]
+    model = build_model(reg, compute_dtype=torch.float32, **kw)
+    cls = type(model.init(1, device="cpu"))
+    tree = {k: inp[f"{fam}/{k}"] for k in cls._fields}
+    specs = model.partition_specs()
+    xs, ys = inp["cx"], inp["cy"]
+    opt = optim.sgd(run["lr"])
+    if kind == "placement":
+        strat = SyncDataParallel(mesh, param_specs=specs)
+        state = strat.init_state(model, opt, seed=1)
+        lines = placement.describe_state(strat, state.params, print_fn=lambda s: None)
+        try:
+            placement.assert_replicated(state.params, mesh)
+            replicated = True
+        except AssertionError:
+            replicated = False
+        placement.assert_sharded_over(strat.placement_specs(state.params), "model")
+        return dict(lines=lines, replicated=replicated)
+    strat = (SyncDataParallel(mesh, param_specs=specs) if kind == "classifier"
+             else ShardedDataParallel(mesh, param_specs=specs))
+    state, costs = _drive(strat, model, opt, params_from_numpy(tree, cls, "cpu"), xs, ys)
+    out = dict(costs=costs, params=sharded_state_to_numpy(strat, state)[0],
+               local={k: tuple(v.shape) for k, v in state.params._asdict().items()})
+    if kind == "classifier":
+        tx, ty = torch.from_numpy(xs[0]), torch.from_numpy(ys[0])
+        out["eval"] = float(strat.make_eval_fn(model)(state, tx, ty))
+        out["probs"] = Predictor.from_state(model, state, strategy=strat,
+                                            device="cpu").predict_proba(xs[0])
+        adam = {"count": np.int32(3), "mu": tree, "nu": {k: abs(v) for k, v in tree.items()}}
+        out["round_trip"] = sharded_state_to_numpy(
+            strat, sharded_state_from_numpy(strat, tree, adam, 3, device="cpu", cls=cls))
+        s0 = sharded_state_from_numpy(strat, tree, (), 0, device="cpu", cls=cls)
+        fn = strat.make_scanned_train_fn(model, cross_entropy, opt)
+        s1, scan_costs = fn(s0, torch.from_numpy(xs), torch.from_numpy(ys))
+        out["scanned"] = dict(costs=scan_costs.tolist(),
+                              params=sharded_state_to_numpy(strat, s1)[0])
+    return out
+
+
 CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
          "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
-         "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp}
+         "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp, "tp": case_tp}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

@@ -245,12 +245,12 @@ def test_refusals(what):
     x, y = _data(20, seed=10)
     ds = _datasets(tmnist, x, y, x, y)
     if what == "sequence_parallel":
-        from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+        from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
 
         model = build_model("transformer", compute_dtype=torch.float32)
         params = model.init(1, device="cpu")
         xs = torch.from_numpy(x[:4])
-        mesh = make_named_mesh((1,), ("seq",), device="cpu")
+        mesh = make_mesh((1,), ("seq",), device="cpu")
         want = model.apply(params, xs)
         for attention in ("ring", "ring_flash", "ulysses"):
             got = model.apply_sequence_parallel(params, xs, mesh, attention=attention)
@@ -271,9 +271,16 @@ def test_refusals(what):
                                              r"shape; got model CNN \(need MLP\)"):
             tr.run()
         return
+    if what in ("cnn_specs", "lstm_specs"):  # ported: JAX's layouts, as tuples
+        from distributed_tensorflow_tpu.models import build_model as jbuild
+
+        family = what.split("_")[0]
+        got = build_model(family).partition_specs()
+        want = jbuild(family).partition_specs()
+        assert got._fields == want._fields
+        assert all(tuple(b) == a for a, b in zip(got, want))
+        return
     calls = {
-        "cnn_specs": (lambda: build_model("cnn").partition_specs(), "A7"),
-        "lstm_specs": (lambda: build_model("lstm").partition_specs(), "A7"),
         "from_checkpoint": (lambda: Predictor.from_checkpoint(build_model("cnn"), "ckpt"),
                             "A8"),
     }

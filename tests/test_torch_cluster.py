@@ -178,17 +178,17 @@ def test_build_strategy_mapping_and_errors_as_jax(cfg):
     from distributed_tensorflow_tpu.launch import build_strategy as jbuild
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.launch import build_strategy
-    from distributed_tensorflow_tpu_torch.parallel.mesh import World
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 
-    world = World(None, 0, 2, torch.device("cpu"), None)  # the layout only; no step runs
+    world = Mesh({"data": 2, "model": 1}, 0, torch.device("cpu"))  # the layout only; no step runs
     try:
         want = jbuild(JConfig(**cfg), devices=jax.devices()[:2])
     except ValueError as exc:
         with pytest.raises(ValueError) as got:
-            build_strategy(TrainConfig(**cfg), world=world)
+            build_strategy(TrainConfig(**cfg), mesh=world)
         assert str(got.value) == str(exc)
         return
-    got = build_strategy(TrainConfig(**cfg), world=world)
+    got = build_strategy(TrainConfig(**cfg), mesh=world)
     assert type(got).__name__ == type(want).__name__
     assert got.num_replicas == want.num_replicas == 2
     assert getattr(got, "avg_every", None) == getattr(want, "avg_every", None)
@@ -323,7 +323,7 @@ def test_dataset_shard_equals_jax(shards):
     from distributed_tensorflow_tpu.data.mnist import DataSet as JDataSet
     from distributed_tensorflow_tpu_torch.data.mnist import DataSet
     from distributed_tensorflow_tpu_torch.data.sharded import local_shard_for_process
-    from distributed_tensorflow_tpu_torch.parallel.mesh import World
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 
     rng = np.random.default_rng(4)
     x = rng.random((301, 784), dtype=np.float32)
@@ -334,27 +334,27 @@ def test_dataset_shard_equals_jax(shards):
         for _ in range(3):
             (ax, ay), (bx, by) = a.next_batch(40), b.next_batch(40)
             assert np.array_equal(ax, bx) and np.array_equal(ay, by)
-        world = World(None, i, shards, torch.device("cpu"), None)
+        world = Mesh({"data": shards, "model": 1}, i, torch.device("cpu"))
         assert np.array_equal(local_shard_for_process(DataSet(x, y), world).images, a.images)
 
 
 def test_global_batch_keeps_this_ranks_rows():
     from distributed_tensorflow_tpu_torch.data.sharded import global_batch
-    from distributed_tensorflow_tpu_torch.parallel.mesh import World
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 
     x, y = np.arange(24, dtype=np.float32).reshape(12, 2), np.arange(12, dtype=np.float32)
     for r in range(3):
-        bx, by = global_batch(World(None, r, 3, torch.device("cpu"), None), x, y)
+        bx, by = global_batch(Mesh({"data": 3, "model": 1}, r, torch.device("cpu")), x, y)
         assert bx.tolist() == x[4 * r:4 * r + 4].tolist() and by.tolist() == y[4 * r:4 * r + 4].tolist()
     with pytest.raises(ValueError, match="does not split"):
-        global_batch(World(None, 0, 5, torch.device("cpu"), None), x, y)
+        global_batch(Mesh({"data": 5, "model": 1}, 0, torch.device("cpu")), x, y)
     from distributed_tensorflow_tpu_torch.parallel.mesh import (
         batch_sharded,
         replicated,
         stacked_per_device,
     )
 
-    w = World(None, 2, 4, torch.device("cpu"), None)
+    w = Mesh({"data": 4, "model": 1}, 2, torch.device("cpu"))
     assert (replicated(w), batch_sharded(w, 8), stacked_per_device(w)) == \
         (slice(None), slice(4, 6), slice(2, 3))
 
@@ -405,7 +405,7 @@ def test_placement_lines_as_jax():
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.launch import build_trainer
     from distributed_tensorflow_tpu_torch.models.mlp import MLP
-    from distributed_tensorflow_tpu_torch.parallel.mesh import World
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
     from distributed_tensorflow_tpu_torch.utils import placement
 
     import jax
@@ -418,10 +418,10 @@ def test_placement_lines_as_jax():
     jp = jax.device_put(JMLP(hidden_dim=8).init(1), NamedSharding(mesh, P()))
     tp = MLP(hidden_dim=8).init(1, device="cpu")
     want = jdescribe(jp, print_fn=lambda s: None)
-    assert placement.describe(tp, world=World(None, 0, 2, None, None),
+    assert placement.describe(tp, mesh=Mesh({"data": 2, "model": 1}, 0, None),
                               print_fn=lambda s: None) == want
     specs = type(tp)(("data",), ("data",), (None, "data"), ())
-    lines = placement.describe(tp, specs=specs, world=World(None, 0, 2, None, None),
+    lines = placement.describe(tp, specs=specs, mesh=Mesh({"data": 2, "model": 1}, 0, None),
                                print_fn=lambda s: None)
     assert lines[0] == ".w1: shape=(1568, 8) dtype=float32 spec=PartitionSpec('data',) devices=2"
     assert lines[2].endswith("spec=PartitionSpec(None, 'data') devices=2")
@@ -429,13 +429,13 @@ def test_placement_lines_as_jax():
     jstack = jax.device_put(jax.tree.map(lambda a: jnp.stack([a, a]), JMLP(hidden_dim=8).init(1)),
                             NamedSharding(mesh, P("data")))
     stacked = placement.describe(tp, specs=type(tp)(*([("data",)] * 4)),
-                                 world=World(None, 0, 2, None, None), stacked=True,
+                                 mesh=Mesh({"data": 2, "model": 1}, 0, None), stacked=True,
                                  print_fn=lambda s: None)
     assert stacked == jdescribe(jstack, print_fn=lambda s: None)
     placement.assert_sharded_over(specs, "data")
     with pytest.raises(AssertionError, match="no leaf"):
         placement.assert_sharded_over(type(tp)((), (), (), ()), "data")
-    placement.assert_replicated(tp, World(None, 0, 1, torch.device("cpu"), None))
+    placement.assert_replicated(tp, Mesh({"data": 1, "model": 1}, 0, torch.device("cpu")))
     rng = np.random.default_rng(0)
     x = rng.random((40, 784), dtype=np.float32)
     from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
@@ -471,27 +471,40 @@ def test_lifted_fields_keep_the_jax_defaults():
     assert (c.sync, c.async_avg_every, c.dp_mode, c.per_worker_epoch) == (False, 50, "zero", True)
 
 
+def _mlp_specs():
+    from distributed_tensorflow_tpu_torch.models.mlp import MLP
+
+    return MLP().partition_specs()
+
+
 @pytest.mark.parametrize("make,item", [
     (lambda: __import__("distributed_tensorflow_tpu_torch.models.cnn", fromlist=["x"]).CNN(
-        ).partition_specs(), "A7"),
+        ).partition_specs(), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
         dp_mode="diloco"), "A7"),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
-        dp_mode="tp"), "A7"),
+        dp_mode="tp"), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.strategy",
-                        fromlist=["x"]).SyncDataParallel(device="cpu", param_specs=()), "A7"),
+                        fromlist=["x"]).SyncDataParallel(device="cpu",
+                                                         param_specs=_mlp_specs()), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.strategy",
                         fromlist=["x"]).AsyncDataParallel(device="cpu").make_exchange_fn("ring"),
-     None),
+     callable),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.fsdp",
-                        fromlist=["x"]).ShardedDataParallel(device="cpu", param_specs=()), "A7"),
+                        fromlist=["x"]).ShardedDataParallel(device="cpu",
+                                                            param_specs=_mlp_specs()), None),
 ], ids=["cnn", "diloco", "tp", "param_specs", "ring", "zero-tp"])
 def test_refusals_name_their_items(make, item):
     """Each refusal names its ROADMAP item (the parallel layouts now name
-    A7b-A7d, which the match on "A7" takes); the ring exchange, once
-    refused, now returns its exchange function."""
-    if item is None:
+    A7c-A7d, which the match on "A7" takes). Once refused and now built:
+    the ring exchange (its exchange function), the CNN's tensor-parallel
+    layout, ``dp_mode="tp"`` and the strategies' ``param_specs`` over the
+    default mesh's ``model`` axis of one rank."""
+    if item is callable:
         assert callable(make())
+        return
+    if item is None:
+        assert make() is not None
         return
     with pytest.raises(NotImplementedError, match=item):
         make()

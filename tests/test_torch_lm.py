@@ -285,20 +285,22 @@ def test_step_from_a_carried_jax_adam_state():
 
 def test_train_step_refuses_parallel_layouts():
     """The tensor-parallel step (``tp_axis``, and ``seq_axis``, its
-    dp×tp×sp form) is refused naming ROADMAP A7b. The data-parallel step
-    (``mesh``), once refused, now runs: on a mesh of one rank it is the
-    single-device step bit for bit, and a mesh without the axis is refused
-    as JAX's."""
+    dp×tp×sp form), once refused naming ROADMAP A7b, now runs on a mesh
+    (``tests/test_torch_tp.py``); without one it is refused in the JAX
+    package's words. The data-parallel step (``mesh``), once refused, now
+    runs: on a mesh of one rank it is the single-device step bit for bit,
+    and a mesh without the axis is refused as JAX's."""
     from distributed_tensorflow_tpu_torch.models.gpt import make_lm_train_step
     from distributed_tensorflow_tpu_torch.ops import optim
     from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
-    from distributed_tensorflow_tpu_torch.parallel.mesh import make_named_mesh
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
 
     tm = torch_model("float32")
-    for kw in (dict(tp_axis="model"), dict(seq_axis="seq")):
-        with pytest.raises(NotImplementedError, match="A7b"):
-            make_lm_train_step(tm, optim.adam(1e-3), **kw)
-    mesh = make_named_mesh((1,), ("data",), device="cpu")
+    with pytest.raises(ValueError, match="tp_axis requires a mesh"):
+        make_lm_train_step(tm, optim.adam(1e-3), tp_axis="model")
+    with pytest.raises(ValueError, match="composes on the GSPMD tp path"):
+        make_lm_train_step(tm, optim.adam(1e-3), seq_axis="seq")
+    mesh = make_mesh((1,), ("data",), device="cpu")
     with pytest.raises(ValueError, match="mesh has no 'batch' axis"):
         make_lm_train_step(tm, optim.adam(1e-3), mesh, "batch")
     opt = optim.adam(1e-3)

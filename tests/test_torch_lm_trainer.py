@@ -241,10 +241,12 @@ def test_ragged_corpus_trains_through_the_masked_loss():
 ])
 def test_refused_trainer_knobs(name, value, item):
     """What is still refused names its ROADMAP item (the parallel modes now
-    A7b-A7d, which the match on "A7" takes). Lifted by the sequence-parallel
+    A7c-A7d, which the match on "A7" takes). Lifted by the sequence-parallel
     slice: ``mesh`` (a ``parallel.mesh.Mesh``; anything else is refused),
     ``is_chief`` (False keeps the epoch and final lines off) and
-    ``sp_attention`` (checked, used only under dp_mode="sp", as in JAX)."""
+    ``sp_attention`` (checked, used only under dp_mode="sp", as in JAX);
+    by the tensor-parallel slice: ``tp_axis`` (used only under
+    dp_mode="tp", whose mesh must have the axis, as in JAX)."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
     if name == "mesh":
@@ -257,6 +259,15 @@ def test_refused_trainer_knobs(name, value, item):
                   print_fn=lines.append).run(epochs=1)
         assert lines and all(x.startswith("Step: ") for x in lines)
         return
+    if name == "tp_axis":
+        from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
+
+        assert LMTrainer(_model(), _corpus(), _cfg(), device="cpu",
+                         tp_axis=value).mode == "single"
+        with pytest.raises(ValueError, match="dp_mode='tp' needs a 'tensor' mesh axis"):
+            LMTrainer(_model(), _corpus(), _cfg(dp_mode="tp"), device="cpu", tp_axis=value,
+                      mesh=Mesh({"data": 1, "model": 1}))
+        return
     if name == "sp_attention":
         assert LMTrainer(_model(), _corpus(), _cfg(), device="cpu",
                          sp_attention=value).mode == "single"
@@ -265,9 +276,6 @@ def test_refused_trainer_knobs(name, value, item):
         return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: value})
-    # Each knob at the JAX default value that leaves it off is accepted.
-    if name == "tp_axis":
-        LMTrainer(_model(), _corpus(), _cfg(), device="cpu", tp_axis="model")
 
 
 @pytest.mark.parametrize("kw,item", [
