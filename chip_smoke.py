@@ -254,6 +254,22 @@ non-zero):
     (every step's loss, the final parameters by phase 24's rule), every
     rank's B3/B4 launches at its local head count, ms a step beside one
     card's, and one tp all-reduce's bytes and ms.
+26. Expert and pipeline parallelism (ROADMAP A7c): B3 and B4a at the local
+    attention shape of (a)-(c) (B=8, L=512, 8 heads of 32, f32) against
+    their plain versions and timed (records ``<kernel>[ep-pp-8x512]``); then
+    4 ranks sharing the card (gloo; ``--epp-task``) train gpt-s-L512-flash
+    (batch 32) through LMTrainer: (a) with 4 experts, top-2, capacity factor
+    2.0 under ``dp_mode="ep"`` on (expert 4), 4 steps; (b) 2 experts, top-1,
+    on (data 2, expert 2), 2 steps; (c) ``dp_mode="pp"`` on (stage 4), 4
+    microbatches, 4 steps; (d) on (data 2, stage 2) with ``remat=True``, 2
+    steps. (a) and (b) hold each step to one card's step of the JAX ep
+    semantics (the mean of the shards' ``model.loss``) from the same
+    gathered state, every step's drop fraction 0 on every rank; (c) and (d)
+    the whole run to one card's LMTrainer run (every step's loss, the final
+    parameters by phase 24's rule). Every rank's B3/B4 launches against its
+    schedule (layers a stage x the ticks it computes x steps, twice the
+    forwards under remat), ms a step beside one card's, one all-to-all's
+    and one pipeline hop's bytes and ms.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -5669,10 +5685,10 @@ def sp_corpus(l, steps, batch=SP_BATCH):
 
 
 def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None, batch=SP_BATCH,
-               dp_mode="sp"):
+               dp_mode="sp", **trainer_kw):
     """The LMTrainer of one of ``SP_RUNS`` (on ``mesh`` under ``dp_mode``,
-    or on one device; phase 25's runs take their own ``batch`` and "tp"),
-    with its steps' costs and times recorded."""
+    or on one device; phases 25 and 26 take their own ``batch``, mode and
+    trainer keywords), with its steps' costs and times recorded."""
     import torch
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
@@ -5683,7 +5699,7 @@ def sp_trainer(label, knobs, l, steps, attention, mesh=None, print_fn=None, batc
     cfg = TrainConfig(epochs=1, batch_size=batch, optimizer="adam", learning_rate=1e-3,
                       log_frequency=steps, dp_mode=dp_mode if mesh is not None else "replicated")
     tr = LMTrainer(model, sp_corpus(l, steps, batch), cfg, mesh=mesh, sp_attention=attention,
-                   eval_batch=8, print_fn=print_fn or (lambda *a: None))
+                   eval_batch=8, print_fn=print_fn or (lambda *a: None), **trainer_kw)
     tr.costs, tr.step_ms = [], []
     step = tr._train_step
 
@@ -6270,6 +6286,352 @@ def phase_tp(records, smi):
             raise AssertionError(f"(d) {family}: tp disagrees with one card")
 
 
+# Phase 26: expert and pipeline parallelism (ROADMAP A7c) on EPP_RANKS ranks
+# sharing the card over gloo, every run through LMTrainer on tools/lm_bench.py's
+# gpt-s-L512-flash (:57; S_CFG at L=512, batch 32, bf16): (key,
+# label, mesh shape, mesh axes, model knobs, steps). (a) and (b) are MoE forms
+# of the preset at a capacity factor of E/k, where no dispatch drops; (d)
+# runs remat, so the stage's checkpoint recomputes its layer group a tick.
+# Every run steps by SGD at EPP_LR, on the card and on one card alike. A
+# gradient of bf16 weights is rounded to bf16 where it is formed: one card
+# rounds the whole batch's, ep each shard's part of an expert's before the
+# exchange sums them, pp each microbatch's; and Adam's first step is the
+# sign of the gradient, so an element whose parts nearly cancel takes a
+# whole step one way or the other. On the CPU at L=64 (bf16) Adam put (a)'s
+# first step 3.6e-2 of its movement from one card's, and (c) and (d)
+# 4.58e-2 and 6.39e-2 over their runs, against phase 24's 5e-2; SGD's step
+# is the gradient itself (2.17e-3 for (a)).
+# The pp runs take EPP_MICROBATCHES microbatches of 8 rows.
+EPP_RANKS = 4
+EPP_L, EPP_BATCH, EPP_MICROBATCHES = 512, 32, 4
+EPP_LR = 0.1
+EPP_RUNS = (
+    ("a", "gpt-s-L512-flash, 4 experts top-2, ep 4", (4,), ("expert",),
+     dict(moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0), 4),
+    ("b", "gpt-s-L512-flash, 2 experts top-1, dp 2 x ep 2", (2, 2), ("data", "expert"),
+     dict(moe_experts=2, moe_top_k=1, moe_capacity_factor=2.0), 2),
+    ("c", "gpt-s-L512-flash, pp 4", (4,), ("stage",), {}, 4),
+    ("d", "gpt-s-L512-flash, dp 2 x pp 2, remat", (2, 2), ("data", "stage"), {"remat": True}, 2),
+)
+# The local attention shape of (a)-(c) (8 of the 32 rows: an expert rank's
+# batch shard, or a microbatch; 8 heads of 32), where B3 and B4a are timed:
+# record -> (kernel, path). Their launches are rank 0's in (a)-(c).
+EPP_LOCAL = (8, EPP_L, 8, 32)
+EPP_PATH = "lm-train-ep/pp gpt-s-L512 ep4, dp2 x ep2, pp4"
+FLASH_EPP = {"flash_fwd[ep-pp-8x512]": ("flash_fwd", EPP_PATH),
+             "flash_bwd_fused[ep-pp-8x512]": ("flash_bwd_fused", EPP_PATH)}
+EPP_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def epp_kernels(records, smi):
+    """26: B3 and B4a at the local attention shape of (a)-(c) (``EPP_LOCAL``,
+    f32 as training gives them, causal) against their plain versions at
+    REL_TOL, timed beside the plain version, the bound of the causal pairs
+    and SDPA. Recorded under ``FLASH_EPP``."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    b, l, h, d = EPP_LOCAL
+    q, k, v, do, o, lse, delta, _ = bwd_inputs(b, l, h, h, d, torch.float32, False, False, g, dev)
+    if not fa.resolve_fused(None, b * h, l, d):
+        raise AssertionError("the auto rule does not take B4a at the local shape")
+    ref_o, ref_lse = fa.flash_attention_plain(q, k, v, causal=True)
+    err_f = max((o - ref_o).abs().max().item(), (lse - ref_lse).abs().max().item())
+    tol = REL_TOL["flash_fwd"] * max(1.0, ref_o.abs().max().item())
+    print(f"  flash_fwd[ep-pp-8x512] (B={b} L={l} {h}x{d} f32 causal) vs plain: max_abs_err "
+          f"{err_f:.3e} (tolerance {tol:.3e})")
+    if not err_f <= tol:
+        raise AssertionError("flash_fwd[ep-pp-8x512] disagrees with its plain version")
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None, True)
+    err_b = check_bwd("flash_bwd_fused[ep-pp-8x512] vs plain",
+                      fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True), ref,
+                      REL_TOL["flash_bwd_fused"])
+    del ref
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    pairs, io, rows = b * h * band_pairs(l, l), 4 * q.numel(), 4 * lse.numel()
+    work = {"flash_fwd": (4 * io + rows, 4 * d * pairs),
+            "flash_bwd_fused": (7 * io + 2 * rows, 10 * d * pairs)}
+    timed = {"flash_fwd": (lambda: fa.flash_attention_with_lse(q, k, v, causal=True),
+                           lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                           err_f),
+             "flash_bwd_fused": (lambda: fa.flash_bwd_fused(q, k, v, do, lse, delta, causal=True),
+                                 lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, delta, None,
+                                                            True),
+                                 lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                             retain_graph=True), err_b)}
+    for rec, (base, _) in FLASH_EPP.items():
+        kernel, plain, lib, err = timed[base]
+        records[rec] = r = dict(max_abs_err=err, ms=cuda_ms(kernel, 10),
+                                plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(lib, 10),
+                                launches=0, **split_tf32_bound(*work[base]))
+        print(f"  {rec}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_peak']}) [{smi}]")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+
+
+def epp_trainer(knobs, steps, mesh=None):
+    """The LMTrainer of one of ``EPP_RUNS`` (dp_mode "ep" when the mesh has
+    an expert axis, "pp" when a stage axis; on one card without a mesh; SGD
+    at EPP_LR),
+    each step's cost, ms and B3/B4 launches recorded (the step alone: no
+    eval, no check); under ep each step's canonical state before it (rank
+    0 keeps it, for one card's step from it) and each rank's drop fraction
+    on its shard."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    mode = "replicated" if mesh is None else ("ep" if "expert" in mesh.shape else "pp")
+    tr = sp_trainer("", knobs, EPP_L, steps, None, mesh, batch=EPP_BATCH, dp_mode=mode,
+                    pp_microbatches=EPP_MICROBATCHES, optimizer=optim_lib.sgd(EPP_LR))
+    tr.launches, tr.drops, tr.states, tr.batches = {k: 0 for k in EPP_KERNELS}, [], [], []
+    if mesh is None:  # one card's initial parameters, for phase 24's rule
+        tr.init = [t.detach().cpu().clone() for t in tree_leaves(tr.state.params)]
+    step = tr._train_step
+
+    def checked(toks, lens):
+        if mode == "ep":
+            c = tr.to_canonical()  # a collective
+            if mesh.rank == 0:
+                tr.states.append(c)
+                tr.batches.append(toks.clone())
+            b, i = toks.shape[0] // mesh.size, mesh.axis_index(mesh.axis_names)  # data-major
+            with torch.no_grad():
+                _, aux = tr.model.apply_expert_parallel(tr.state.params, toks[i * b:(i + 1) * b],
+                                                        mesh, with_aux=True)
+            tr.drops.append(float(aux.drop_fraction.max()))
+        before = {k: _build.LAUNCHES.get(k, 0) for k in EPP_KERNELS}
+        cost = step(toks, lens)
+        for k in EPP_KERNELS:
+            tr.launches[k] += _build.LAUNCHES.get(k, 0) - before[k]
+        return cost
+
+    tr._train_step = checked
+    return tr
+
+
+def epp_reference_steps(tr):
+    """(a)/(b) on one card, on rank 0: from each canonical state the ep
+    run held before a step, one step of JAX's ep semantics (the mean over
+    the shards, data-major, of each shard's ``model.loss``: CE and router
+    terms over its rows) on the same global batch and optimizer: its loss, and
+    how far the ep run's next state lies from where it lands (phase 24's
+    rule on that step's movement)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_unflatten
+
+    mesh = tr.mesh
+    shards = mesh.size
+    final = tr.to_canonical()  # every rank calls it: a collective
+    if mesh.rank != 0:
+        return None
+    states = tr.states + [final]
+    out = []
+    for i, (c, toks) in enumerate(zip(tr.states, tr.batches)):
+        b = toks.shape[0] // shards
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(c.params)]
+        with torch.enable_grad():
+            p = tree_unflatten(c.params, leaves)
+            loss = sum(tr.model.loss(p, toks[s * b:(s + 1) * b]) for s in range(shards)) / shards
+            grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            reached, _ = tr.optimizer.update(tree_unflatten(c.params, list(grads)), c.opt_state,
+                                             c.params)
+        got, want, init = ([t.cpu() for t in tree_leaves(x)]
+                           for x in (states[i + 1].params, reached, c.params))
+        moved, far = param_gap(got, want, init)
+        leaf = [param_gap([a], [b], [c])[0] for a, b, c in zip(got, want, init)]
+        worst = f"{leaf_names(c.params)[leaf.index(max(leaf))]} {max(leaf):.2e}"
+        out.append(dict(loss=float(loss), moved=moved, far=far, worst=worst))
+    return out
+
+
+def epp_task(port, argv) -> int:
+    """One rank of phase 26's world (``--epp-task``, started by the
+    launcher): every run of ``EPP_RUNS`` on its mesh of the EPP_RANKS ranks,
+    its costs, step times, launches and (ep) drop fractions; rank 0's
+    canonical parameters of the pp runs saved to ``$DTF_EPP_PARAMS``, and
+    its one-card steps from the ep runs' states; one all-to-all of (a)'s
+    dispatch buffer and one hop of (c)'s microbatch timed. Prints ``RESULT
+    <json>`` last."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cluster = ClusterConfig.from_lists([f"127.0.0.1:{port + i}" for i in range(EPP_RANKS)])
+    ctx = bootstrap_from_argv(cluster, argv)
+    out_dir = os.environ["DTF_EPP_PARAMS"]
+    meshes, runs, refs = {}, [], {}
+    for key, label, shape, axes, knobs, steps in EPP_RUNS:
+        if (shape, axes) not in meshes:  # a collective: every rank makes every mesh
+            meshes[shape, axes] = make_mesh(shape, axes)
+        mesh = meshes[shape, axes]
+        tr = epp_trainer(knobs, steps, mesh)
+        res = tr.run()
+        torch.cuda.synchronize()
+        runs.append(dict(key=key, costs=tr.costs, step_ms=tr.step_ms, mode=tr.mode,
+                         launches=tr.launches, drops=tr.drops, coords=mesh.coords,
+                         perplexity=res["perplexity"],
+                         local_w=list(tr.state.params.blocks.w_up.shape)))
+        if tr.mode == "ep":
+            refs[key] = epp_reference_steps(tr)
+        else:
+            params = tr.to_canonical().params  # a collective
+            if mesh.rank == 0:
+                torch.save([t.detach().cpu() for t in tree_leaves(params)],
+                           os.path.join(out_dir, f"{key}.pt"))
+        del tr
+    # One all-to-all of (a)'s dispatch buffer: [4 experts, capacity, 256] bf16
+    # (a rank's 8 x 512 tokens at factor 2.0, top-2: a capacity of 4096), and
+    # one pipeline hop of (c)'s microbatch activation [8, 512, 256] f32.
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    ep = meshes[(4,), ("expert",)]
+    pp = meshes[(4,), ("stage",)]
+    cap = GPTLM(**S_CFG, **EPP_RUNS[0][4])._moe_capacity(EPP_BATCH // 4 * EPP_L)
+    x = torch.randn(4, cap, S_CFG["model_dim"], device=ep.device).to(torch.bfloat16)
+    h = torch.randn(8, EPP_L, S_CFG["model_dim"], device=pp.device)
+    timed = {}
+    for what, fn, nbytes in (("all_to_all", lambda: ep.all_to_all(x, "expert", 0, 0),
+                              x.numel() * x.element_size()),
+                             ("hop", lambda: pp.ring_permute([h], "stage"),
+                              h.numel() * h.element_size())):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        timed[what] = dict(ms=(time.perf_counter() - t0) / 20 * 1e3, bytes=nbytes)
+    ctx.close()
+    print("RESULT " + json.dumps(dict(rank=ep.rank, backend=ep.backend, runs=runs, refs=refs,
+                                      timed=timed, device=str(ep.device))))
+    return 0
+
+
+def phase_epp(records, smi):
+    """26: B3 and B4a at the local shape (``epp_kernels``); then EPP_RANKS
+    ranks sharing the card (gloo, every collective staged through the host)
+    run ``EPP_RUNS`` through LMTrainer: (a) and (b) each step held to one
+    card's step of JAX's ep semantics from the same gathered state (routing
+    makes a whole run chaotic; SP_LOSS_RTOL on the loss, SP_PARAM_REL on
+    that step's movement), every step's drop fraction 0 on every rank; (c)
+    and (d) the whole run held to one card's LMTrainer run of the same
+    preset, seed and batches (every step's loss, the final parameters by
+    phase 24's rule). Every rank's B3/B4 launches against the count its
+    schedule implies; ms a step beside one card's; one all-to-all's and one
+    hop's bytes and ms."""
+    import socket
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    epp_kernels(records, smi)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pdir = tempfile.mkdtemp(prefix="epp-params-")
+    me = [sys.executable, os.path.abspath(__file__)]
+    logs = dp_launch("epp", me + ["--epp-task", "--dp-port", str(port)], EPP_RANKS, 0,
+                     env={"DTF_EPP_PARAMS": pdir})
+    ranks = sorted((dp_result(logs[f"worker{r}"]) for r in range(EPP_RANKS)),
+                   key=lambda r: r["rank"])
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"{EPP_RANKS} ranks on one card took {[r['backend'] for r in ranks]}")
+    n, h, d = S_CFG["num_layers"], S_CFG["num_heads"], S_CFG["model_dim"] // S_CFG["num_heads"]
+    local_launches = {k: 0 for k in EPP_KERNELS}
+    for i, (key, label, shape, axes, knobs, steps) in enumerate(EPP_RUNS):
+        got = [r["runs"][i] for r in ranks]
+        mesh = dict(zip(axes, shape))
+        ms = float(np.median(got[0]["step_ms"][1:] or got[0]["step_ms"]))
+        one = epp_trainer(knobs, steps)  # one card: LMTrainer in the single mode
+        one.run()
+        torch.cuda.synchronize()
+        one_ms = float(np.median(one.step_ms[1:] or one.step_ms))
+        if "expert" in mesh:
+            ref = ranks[0]["refs"][key]
+            gap = max(abs(c - r["loss"]) / max(1.0, abs(r["loss"]))
+                      for c, r in zip(got[0]["costs"], ref))
+            moved, far = max(r["moved"] for r in ref), max(r["far"] for r in ref)
+            worst = [r["worst"] for r in ref]
+            drops = [g["drops"] for g in got]
+            ref_losses = ", ".join(f"{r['loss']:.4f}" for r in ref)
+            print(f"  ({key}) {label} ({steps} steps of {EPP_BATCH} x {EPP_L}, mesh {mesh}): "
+                  f"losses {', '.join(f'{c:.4f}' for c in got[0]['costs'])}; one card's step "
+                  f"from each gathered state: losses {ref_losses}, relative gap {gap:.2e} "
+                  f"(tolerance {SP_LOSS_RTOL}), parameters at most "
+                  f"{moved:.2e} of that step's movement apart (tolerance {SP_PARAM_REL}; "
+                  f"largest element gap {far:.2e}; the leaf furthest apart a step {worst}); "
+                  f"drop fraction a step, every rank {drops}")
+            if any(x != 0.0 for dr in drops for x in dr):
+                raise AssertionError(f"({key}) dispatches dropped at factor E/k: {drops}")
+            b_loc = EPP_BATCH // (mesh["expert"] * mesh.get("data", 1))
+            want_n, ticks = n, 1
+        else:
+            gap = max(abs(a - b) / max(1.0, abs(b)) for g in got
+                      for a, b in zip(g["costs"], one.costs))
+            moved, far = param_gap(torch.load(os.path.join(pdir, f"{key}.pt")),
+                                   tree_leaves(one.state.params), one.init)
+            print(f"  ({key}) {label} ({steps} steps of {EPP_BATCH} x {EPP_L}, mesh {mesh}, "
+                  f"{EPP_MICROBATCHES} microbatches): losses "
+                  f"{', '.join(f'{c:.4f}' for c in got[0]['costs'])} (one card "
+                  f"{', '.join(f'{c:.4f}' for c in one.costs)}; relative gap {gap:.2e}, "
+                  f"tolerance {SP_LOSS_RTOL}); final parameters {moved:.2e} of one card's "
+                  f"movement apart (tolerance {SP_PARAM_REL}; largest element gap {far:.2e})")
+            b_loc = EPP_BATCH // EPP_MICROBATCHES // mesh.get("data", 1)
+            want_n, ticks = n // mesh["stage"], EPP_MICROBATCHES
+        print(f"  ({key}) {label}: {ms:.2f} ms a step over {EPP_RANKS} ranks on one card "
+              f"(gloo), {one_ms:.2f} ms on one card [{smi}]")
+        if any(len(g["costs"]) != steps for g in got) or not gap <= SP_LOSS_RTOL:
+            raise AssertionError(f"({key}) losses {[g['costs'] for g in got]}: relative gap {gap}")
+        if not moved <= SP_PARAM_REL:
+            raise AssertionError(f"({key}) parameters {moved} of the movement apart")
+        # Each rank's schedule: under ep every layer once a step on its shard;
+        # under pp its stage's layers once a microbatch (the ticks it
+        # computes), the forward twice under remat.
+        fused = fa.resolve_fused(None, b_loc * h, EPP_L, d)
+        bwd = ("flash_bwd_fused",) if fused else ("flash_bwd_dq", "flash_bwd_dkv")
+        calls = want_n * ticks * steps
+        want = {k: 0 for k in EPP_KERNELS}
+        want.update({"flash_fwd": calls * (2 if knobs.get("remat") else 1),
+                     **{k: calls for k in bwd}})
+        for r, g in zip(ranks, got):
+            print(f"  | rank {r['rank']} {g['coords']}: launches {g['launches']} (the schedule: "
+                  f"{want_n} layers x {ticks} ticks x {steps} steps"
+                  f"{' x 2 forwards (remat)' if knobs.get('remat') else ''} = {want}), "
+                  f"local w_up {g['local_w']}")
+            if g["launches"] != want:
+                raise AssertionError(f"({key}) rank {r['rank']}: launches {g['launches']}, "
+                                     f"want {want}")
+        if b_loc == EPP_LOCAL[0]:
+            for k in EPP_KERNELS:
+                local_launches[k] += got[0]["launches"][k]
+        del one
+    for rec, (base, _) in FLASH_EPP.items():
+        records[rec]["launches"] = local_launches[base]
+    for r in ranks:
+        a2a, hop = r["timed"]["all_to_all"], r["timed"]["hop"]
+        print(f"  rank {r['rank']}: one all-to-all of (a)'s dispatch buffer ({a2a['bytes']} bytes "
+              f"bf16 over 'expert', through gloo): {a2a['ms']:.2f} ms; one pipeline hop of (c)'s "
+              f"microbatch ({hop['bytes']} bytes f32 over 'stage', staged through the host): "
+              f"{hop['ms']:.2f} ms [{smi}]")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -6466,6 +6828,8 @@ def main() -> int:
                     help="run one rank of phase 24's world (started by the launcher)")
     ap.add_argument("--tp-task", action="store_true",
                     help="run one rank of phase 25's world (started by the launcher)")
+    ap.add_argument("--epp-task", action="store_true",
+                    help="run one rank of phase 26's world (started by the launcher)")
     args, rest = ap.parse_known_args()
     if args.dp_task:
         return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
@@ -6473,6 +6837,8 @@ def main() -> int:
         return sp_task(args.dp_port, rest)
     if args.tp_task:
         return tp_task(args.dp_port, rest)
+    if args.epp_task:
+        return epp_task(args.dp_port, rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
@@ -6598,6 +6964,11 @@ def main() -> int:
           "heads, tp x sp; the classifiers' Megatron layouts)")
     phase_tp(records, smi)
     print(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
+    t26 = time.perf_counter()
+    phase(f"26: expert and pipeline parallelism ({EPP_RANKS} ranks on the card: GPT ep, dp x ep, "
+          "pp, dp x pp with remat)")
+    phase_epp(records, smi)
+    print(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -6620,6 +6991,7 @@ def main() -> int:
     variants += [("fused_mlp_epoch[dp-async]", "fused_mlp_epoch", "mlp-dp-async 2 ranks")]
     variants += [(name, base, path) for name, (base, path) in FLASH_OFFSET.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_TP.items()]
+    variants += [(name, base, path) for name, (base, path) in FLASH_EPP.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

@@ -38,7 +38,7 @@ NOT_PORTED = {
          "delta_overlap", "stale_limit"), "A7d"),
 }
 # Values of dp_mode that a later item brings (LM-trainer modes) -> its item.
-DP_MODES_NOT_PORTED = {"ep": "A7c", "pp": "A7c", "diloco": "A7d"}
+DP_MODES_NOT_PORTED = {"diloco": "A7d"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +155,10 @@ class _TrainFields:
     async_avg_every: int = 0
     # Sync parameter layout: "replicated" or "zero" (ZeRO-3,
     # parallel/fsdp.py). The LM trainer also takes "sp" (sequence
-    # parallelism over a mesh's seq axis) and "tp" (tensor parallelism
-    # over its model axis); its other modes are ROADMAP A7c-A7d.
+    # parallelism over a mesh's seq axis), "tp" (tensor parallelism over
+    # its model axis), "ep" (expert parallelism over its expert axis) and
+    # "pp" (the GPipe pipeline over its stage axis); its "diloco" mode and
+    # its ZeRO and async modes are ROADMAP A7d.
     dp_mode: str = "replicated"
     # Keep N device-placed batches in flight in the eager loop
     # (data/prefetch.py); 0 disables.

@@ -35,7 +35,12 @@ numpy, become this rank's blocks of a spec tree (``GPTLM.partition_specs``;
 the slots laid out by ``parallel/specs.match_slot_specs``) through
 :func:`lm_sharded_state_from_numpy`, and every rank's blocks gather back
 through :func:`lm_sharded_state_to_numpy` (a collective); the round trip
-is bitwise.
+is bitwise. The same functions carry an expert-parallel state
+(``models/gpt.expert_parallel_specs``: the expert leaves split on dim 1)
+and, with ``stages`` / ``staged``, a pipeline state (the blocks staged as
+[S, L/S, ...] and split on dim 0, ``pipeline_parallel_specs``); a JAX
+staged tree (``pipeline_stage_params``) becomes a canonical one through
+:func:`unstage_numpy`.
 
 Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
 over the GPT param tree), or a dict of those keys, carried to the port's
@@ -325,23 +330,51 @@ def sharded_state_to_numpy(strategy, state) -> tuple:
     return params_to_numpy(c.params), mlp_opt_state_to_numpy(c.opt_state), int(c.step)
 
 
-def lm_sharded_state_from_numpy(params, opt_state, mesh, specs, device=None) -> tuple:
+def lm_sharded_state_from_numpy(params, opt_state, mesh, specs, device=None,
+                                stages: int | None = None) -> tuple:
     """JAX canonical GPT params and Adam state (numpy trees, or the JAX
     NamedTuples) → this rank's blocks ``(params, AdamState)`` of the spec
-    tree ``specs`` over ``mesh``."""
-    from distributed_tensorflow_tpu_torch.parallel.specs import match_slot_specs, shard_tree
+    tree ``specs`` over ``mesh`` (tensor, expert or pipeline parallel).
+    ``stages``: the blocks and their slots are first staged as [stages,
+    L/stages, ...] (``models/gpt.pipeline_stage_params``), the pipeline
+    layout ``specs`` splits on dim 0."""
+    from distributed_tensorflow_tpu_torch.parallel.specs import (
+        map_split,
+        match_slot_specs,
+        shard_tree,
+    )
 
     p, o = gpt_params_from_numpy(params, device=device), adam_state_from_numpy(opt_state, device)
+    if stages is not None:
+        def split(a):
+            return a.reshape((stages, a.shape[0] // stages) + tuple(a.shape[1:]))
+
+        o = map_split(o, match_slot_specs(o, p, specs), split)
+        p = map_split(p, specs, split)
     return (shard_tree(p, specs, mesh),
             shard_tree(o, match_slot_specs(o, p, specs), mesh))
 
 
-def lm_sharded_state_to_numpy(params, opt_state, mesh, specs) -> tuple:
+def lm_sharded_state_to_numpy(params, opt_state, mesh, specs, staged: bool = False) -> tuple:
     """Every rank's blocks of GPT params and their ``AdamState`` → the
     canonical numpy ``(params, {"count", "mu", "nu"})`` (a collective over
-    the axes ``specs`` names)."""
+    the axes ``specs`` names); ``staged``: the pipeline layout's blocks and
+    slots unstaged to [num_layers, ...]."""
     from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree, match_slot_specs
 
     slots = match_slot_specs(opt_state, params, specs)
-    return (gpt_params_to_numpy(gather_tree(params, specs, mesh)),
-            adam_state_to_numpy(gather_tree(opt_state, slots, mesh)))
+    p, o = gather_tree(params, specs, mesh), gather_tree(opt_state, slots, mesh)
+    p, o = gpt_params_to_numpy(p), adam_state_to_numpy(o)
+    if staged:
+        p, o = unstage_numpy(p), {**o, "mu": unstage_numpy(o["mu"]), "nu": unstage_numpy(o["nu"])}
+    return p, o
+
+
+def unstage_numpy(tree) -> dict:
+    """A staged GPT tree (JAX ``pipeline_stage_params``: blocks [S, L/S,
+    ...]; numpy, or the JAX NamedTuple) → the canonical numpy tree, the two
+    leading block dims merged; bit for bit."""
+    d = _as_dict(tree)
+    blocks = {k: np.asarray(v) for k, v in _as_dict(d["blocks"]).items()}
+    return {**{k: np.asarray(v) for k, v in d.items() if k != "blocks"},
+            "blocks": {k: v.reshape((-1,) + v.shape[2:]) for k, v in blocks.items()}}

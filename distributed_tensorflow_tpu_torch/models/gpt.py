@@ -90,9 +90,24 @@ query heads read. The port refuses a layout whose axis size does not
 divide the heads or the KV columns (the JAX package pads them), and
 ``matmul_dtype`` (its dynamic scales span the whole contraction).
 
+Expert parallelism (``apply_expert_parallel``, JAX :937-1003;
+``expert_parallel_specs``, ``make_lm_ep_parts`` / ``make_lm_ep_train_step``,
+JAX :2605-2790) puts one expert's FFN weights on each rank of the
+``expert`` axis: attention runs locally on the rank's batch shard, each MoE
+block's FFN is ``ops/moe.moe_ffn``'s two all-to-alls, capacity per
+(expert, source rank), the loss the mean over shards of each shard's CE
+and router terms. Pipeline parallelism (``pipeline_stage_blocks``,
+``apply_pipeline_parallel``, JAX :1005-1077; ``pipeline_parallel_specs``,
+``pipeline_stage_params``, ``make_lm_pp_parts`` / ``make_lm_pp_train_step``,
+JAX :2793-2966) stages the blocks as [S, L/S, ...], one layer group a rank
+of the ``stage`` axis, and runs them as the GPipe schedule of
+``parallel/pipeline.py`` over microbatches, embedding, head and CE on
+every stage. JAX's automatic gradient sums are written out: each step sums
+a replicated leaf's gradient over the axes that split the batch, and a
+split leaf's over those its own split has not already summed.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): expert and pipeline parallelism (A7c), the LM's ZeRO and async
-steps (A7d). The
+item): the LM's ZeRO and async steps (A7d). The
 CUDA decode kernels compute in the model's dtype, bf16 or f32, at head dims
 4 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
@@ -151,7 +166,7 @@ from distributed_tensorflow_tpu_torch.ops.quantized import (
     quantized_dot,
     wo_dot,
 )
-from distributed_tensorflow_tpu_torch.parallel.specs import pinned_update
+from distributed_tensorflow_tpu_torch.parallel.specs import aligned_specs, pinned_update, slot_specs
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
 # per-layer kernel kept as its parity oracle (the JAX "pallas-layer"),
@@ -366,14 +381,21 @@ class GPTLM:
         moved to ``device``). The draws are PyTorch's, not JAX's; the shapes,
         scales and zero-initialized residual projections (``wo``,
         ``w_down``) are the JAX package's, MoE blocks' expert stacks and
-        f32 gate included."""
+        f32 gate included. On the ``meta`` device it gives the shapes and
+        dtypes only (what a layout or an optimizer's slot specs read)."""
         dev = resolve_device(device)
+        if dev.type == "meta":
+            with torch.device(dev):
+                return self._init_tree(lambda shape, std=1.0: torch.empty(shape))
         gen = torch.Generator().manual_seed(seed)
+        params = self._init_tree(lambda shape, std=1.0: torch.randn(shape, generator=gen) * std)
+        return map_params(params, lambda t: t.to(dev))
+
+    def _init_tree(self, normal) -> GPTLMParams:
+        """:meth:`init`'s tree, ``normal(shape, std)`` drawing each random
+        leaf in order."""
         d, n = self.model_dim, self.num_layers
         kvw = self.num_kv_heads * self.head_dim
-
-        def normal(shape, std=1.0):
-            return torch.randn(shape, generator=gen) * std
 
         def dense(shape):
             return normal(shape) / shape[-2] ** 0.5
@@ -411,14 +433,13 @@ class GPTLM:
             if self.pos_embedding == "learned"
             else torch.zeros(self.max_len, d)
         )
-        params = GPTLMParams(
+        return GPTLMParams(
             embed=normal((self.vocab_size, d), 0.02),
             pos=pos,
             blocks=blocks,
             lnf_scale=torch.ones(d),
             lnf_bias=torch.zeros(d),
         )
-        return map_params(params, lambda t: t.to(dev))
 
     def serving_params(self, params: GPTLMParams) -> GPTLMParams:
         """The block projections pre-cast to the compute dtype, everything
@@ -564,12 +585,14 @@ class GPTLM:
         return max(1, math.ceil(self.moe_capacity_factor * self.moe_top_k * tokens
                                 / self.moe_experts))
 
-    def _moe_block_ffn(self, blk, hn2, token_mask=None):
+    def _moe_block_ffn(self, blk, hn2, token_mask=None, moe=None):
         """The MoE FFN on hn2 [B, L, d]: tokens flattened and cast to the
         compute dtype with the experts' weights (the gate stays f32),
-        routed by ``moe_ffn_local``. Capacity: every token for a
-        single-token call (the decode step never drops), else the factor
-        rule. Returns (out [B, L, d] f32, the router's ``MoEAux``)."""
+        routed by ``moe_ffn_local``, or by ``moe(params, x, capacity,
+        token_mask) -> (out, aux)`` when given (the expert-parallel
+        ``moe_ffn``). Capacity: every token for a single-token call (the
+        decode step never drops), else the factor rule over this call's
+        tokens. Returns (out [B, L, d] f32, the router's ``MoEAux``)."""
         cd = self.compute_dtype
         b, l, d = hn2.shape
         t = b * l
@@ -577,19 +600,23 @@ class GPTLM:
         mp = MoEParams(blk.wg, blk.w_up.to(cd), blk.b_up.to(cd), blk.w_down.to(cd),
                        blk.b_down.to(cd))
         mask = None if token_mask is None else token_mask.reshape(t)
-        out, aux = moe_ffn_local(mp, hn2.reshape(t, d).to(cd), capacity, with_aux=True,
-                                 token_mask=mask, k=self.moe_top_k)
+        x = hn2.reshape(t, d).to(cd)
+        if moe is None:
+            out, aux = moe_ffn_local(mp, x, capacity, with_aux=True, token_mask=mask,
+                                     k=self.moe_top_k)
+        else:
+            out, aux = moe(mp, x, capacity, mask)
         return out.float().reshape(b, l, d), aux
 
-    def _ffn(self, blk, hn2, token_mask=None, tp=None):
-        """The dense FFN, or the MoE FFN of a ``GPTMoEBlockParams`` block,
-        on hn2 [B, L, d], output bias included: (out, aux), aux the
-        router's ``MoEAux`` (zeros for a dense block). ``token_mask``
-        [B, L] bool keeps pad tokens out of MoE routing. Under ``tp`` the
-        dense FFN runs on this rank's units and sums over the axis before
-        b_down."""
+    def _ffn(self, blk, hn2, token_mask=None, tp=None, moe=None):
+        """The dense FFN, or the MoE FFN of a ``GPTMoEBlockParams`` block
+        (through ``moe`` when given, :meth:`_moe_block_ffn`), on hn2
+        [B, L, d], output bias included: (out, aux), aux the router's
+        ``MoEAux`` (zeros for a dense block). ``token_mask`` [B, L] bool
+        keeps pad tokens out of MoE routing. Under ``tp`` the dense FFN
+        runs on this rank's units and sums over the axis before b_down."""
         if isinstance(blk, GPTMoEBlockParams):
-            return self._moe_block_ffn(blk, hn2, token_mask)
+            return self._moe_block_ffn(blk, hn2, token_mask, moe)
         if tp is not None:
             hn2 = tp.copy_to(hn2)
         up = self._dot(hn2, blk.w_up) + blk.b_up
@@ -617,11 +644,13 @@ class GPTLM:
             return {}
         return dict(dot_fn=self._dot, ffn_fn=self._decode_ffn)
 
-    def _block(self, blk, h, positions, kv_lens=None, attend=None, token_mask=None, tp=None):
+    def _block(self, blk, h, positions, kv_lens=None, attend=None, token_mask=None, tp=None,
+               moe=None):
         """Block forward on h [B, L, d]: (h, this block's k/v [B, L, Hkv,
         Dh] (f32) for the cache, the FFN's ``MoEAux``). ``attend(q, k, v)``
-        swaps the attention (the paged extend passes its own);
-        ``token_mask`` [B, L] keeps pads out of MoE routing. ``tp``
+        swaps the attention (the paged extend passes its own), ``moe`` the
+        MoE FFN's routing (:meth:`_moe_block_ffn`); ``token_mask`` [B, L]
+        keeps pads out of MoE routing. ``tp``
         (``ops/collectives.TensorParallel``): ``blk`` holds this rank's
         blocks of :meth:`partition_specs`, and the heads are its local
         ones (k/v those :meth:`_local_kv` keeps)."""
@@ -638,19 +667,19 @@ class GPTLM:
         out = self._dot(attn.reshape(b, l, hq * self.head_dim), blk.wo)
         h = h + (out if tp is None else tp.reduce_from(out))
         hn2 = layernorm(h, blk.ln2_scale, blk.ln2_bias)
-        out, aux = self._ffn(blk, hn2, token_mask, tp)
+        out, aux = self._ffn(blk, hn2, token_mask, tp, moe)
         return h + out, (k, v), aux
 
     def _logits(self, p: GPTLMParams, h):
         hf = layernorm(h, p.lnf_scale, p.lnf_bias)
         return self._dot_full(hf, p.embed.T)
 
-    def _block_h(self, h, positions, token_mask, *blk, tp=None):
+    def _block_h(self, h, positions, token_mask, *blk, tp=None, moe=None):
         """:meth:`_block`'s residual stream and router statistics, on the
         block's tensors as arguments (what ``torch.utils.checkpoint``
         wraps)."""
         h, _, aux = self._block(self._block_cls(*blk), h, positions, token_mask=token_mask,
-                                tp=tp)
+                                tp=tp, moe=moe)
         return h, aux
 
     # -- training forward --------------------------------------------------
@@ -666,13 +695,18 @@ class GPTLM:
         ``lengths`` [B] (ragged right-padded batches) keeps pad tokens out
         of MoE routing, its capacity and the statistics. ``tp``: the
         tensor-parallel axis of a ``partition_specs`` layout."""
+        return self._forward(params, tokens, lengths, tp=tp)
+
+    def _forward(self, params, tokens, lengths=None, tp=None, moe=None):
+        """:meth:`apply_with_aux`'s loop over the layers (each checkpointed
+        under ``remat``), the MoE FFN routed by ``moe`` when given."""
         l = tokens.shape[1]
         positions = torch.arange(l, device=tokens.device)
         token_mask = (None if lengths is None
                       else positions[None, :] < lengths.to(tokens.device)[:, None])
         h = self._embed_tokens(params, tokens, positions)
         kw = self._checkpoint_kw()
-        body = functools.partial(self._block_h, tp=tp)
+        body = functools.partial(self._block_h, tp=tp, moe=moe)
         auxs = []
         for i in range(self.num_layers):
             blk = layer_params(params.blocks, i)
@@ -793,6 +827,98 @@ class GPTLM:
             h = (body(h, *blk) if kw is None
                  else checkpoint(body, h, *blk, use_reentrant=False, **kw))
         return self._logits(params, h)
+
+    # -- expert parallelism --------------------------------------------------
+
+    def apply_expert_parallel(self, params: GPTLMParams, tokens: torch.Tensor, mesh,
+                              axis: str = "expert", *, with_aux: bool = False, lengths=None):
+        """The expert-parallel causal forward (JAX ``apply_expert_parallel``)
+        on this rank's batch shard tokens [B/n, L]: ``params`` are this
+        rank's blocks of :func:`expert_parallel_specs` over ``axis`` of
+        ``mesh`` (one expert's FFN weights a rank; the gate, attention and
+        embeddings replicated). Attention runs locally on the shard (the
+        flash kernels under ``attention_impl="flash"``); each block's FFN
+        is ``ops/moe.moe_ffn``'s exchange over the axis. Capacity holds per
+        (expert, source rank), so this equals :meth:`apply` on the shard
+        wherever no dispatch overflows. ``with_aux`` also returns each
+        layer's ``MoEAux`` over this rank's tokens; ``lengths`` [B/n] keeps
+        pad tokens out of routing, as :meth:`apply_with_aux` does. A
+        collective: every rank of the axis calls it."""
+        if self.moe_experts is None:
+            raise ValueError("apply_expert_parallel requires moe_experts")
+        n = mesh.axis_size(axis)
+        if n != self.moe_experts:
+            raise ValueError(f"{axis!r} axis size {n} != moe_experts {self.moe_experts}")
+        from distributed_tensorflow_tpu_torch.ops.moe import moe_ffn
+
+        def ep_moe(mp, x, capacity, mask):
+            return moe_ffn(mp, x, mesh, axis, capacity, with_aux=True, token_mask=mask,
+                           k=self.moe_top_k)
+
+        logits, auxs = self._forward(params, tokens, lengths, moe=ep_moe)
+        return (logits, auxs) if with_aux else logits
+
+    # -- pipeline parallelism ------------------------------------------------
+
+    def pipeline_stage_blocks(self, blocks, num_stages: int):
+        """The [num_layers, ...] block stack as [num_stages,
+        layers_per_stage, ...] (JAX ``pipeline_stage_blocks``): stage s holds
+        layers s·L/S .. (s+1)·L/S − 1, the layout split over the stage axis
+        on its leading dim."""
+        if self.num_layers % num_stages:
+            raise ValueError(
+                f"num_layers {self.num_layers} not divisible by num_stages {num_stages}")
+        lps = self.num_layers // num_stages
+        return tree_map(lambda a: a.reshape((num_stages, lps) + tuple(a.shape[1:])), blocks)
+
+    def _pp_stage_fn(self):
+        """One pipeline stage's forward, the one stage body of
+        :meth:`apply_pipeline_parallel` and :func:`make_lm_pp_parts`:
+        ``stage_fn(blk_stack, x)`` runs the stage's layer group ([1,
+        layers_per_stage, ...] leaves) on x [b, L, d] as :meth:`apply` runs
+        its layers, the whole group under one ``torch.utils.checkpoint``
+        when ``remat`` (``"selective"`` as :meth:`_checkpoint_kw` gives it),
+        so the backward recomputes one group a tick."""
+        kw = self._checkpoint_kw()
+
+        def group(x, *leaves):
+            positions = torch.arange(x.shape[1], device=x.device)
+            stack = layer_params(self._block_cls(*leaves), 0)
+            for i in range(stack[0].shape[0]):
+                x = self._block(layer_params(stack, i), x, positions)[0]
+            return x
+
+        def stage_fn(blk_stack, x):
+            if kw is None:
+                return group(x, *blk_stack)
+            return checkpoint(group, x, *blk_stack, use_reentrant=False, **kw)
+
+        return stage_fn
+
+    def apply_pipeline_parallel(self, params: GPTLMParams, tokens: torch.Tensor, mesh,
+                                axis: str = "stage", *, num_microbatches: int = 4):
+        """The pipeline-parallel causal forward (JAX
+        ``apply_pipeline_parallel``): ``params.blocks`` are this rank's stage
+        of :meth:`pipeline_stage_blocks` ([1, L/S, ...] leaves, split over
+        ``axis`` of ``mesh``); embeddings, the final norm and tokens [B, L]
+        the same on every rank. Embedding and head run on every stage; the
+        blocks run as the GPipe pipeline of ``parallel/pipeline.py`` over
+        ``num_microbatches`` microbatches. Returns logits [B, L, vocab],
+        :meth:`apply`'s, on every rank. A collective of the axis."""
+        if self.moe_experts is not None:
+            raise NotImplementedError(
+                "pipeline parallelism is not defined for MoE blocks; use "
+                "expert parallelism (apply_expert_parallel)")
+        from distributed_tensorflow_tpu_torch.parallel.pipeline import (
+            microbatch,
+            pipeline_apply,
+        )
+
+        b, l = tokens.shape
+        h = self._embed_tokens(params, tokens, torch.arange(l, device=tokens.device))
+        out = pipeline_apply(self._pp_stage_fn(), params.blocks, microbatch(h, num_microbatches),
+                             mesh, axis)
+        return self._logits(params, out.reshape(b, l, -1))
 
     # -- slot-wise decoding (the serving surface, serve.py) ----------------
 
@@ -1445,20 +1571,35 @@ def _shard(t, mesh, axis, dim):
 
 def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs=None):
     """The update from a rank's share of a global loss: its gradient
-    summed over ``axes`` in one flat all-reduce (the JAX shard_map's
-    auto-psum of a replicated parameter's gradient), the shares of the loss
-    summed likewise. ``specs``: the params are this rank's blocks of that
-    layout, and the update runs on them (``parallel/specs.pinned_update``)."""
+    summed over ``axes`` (the JAX shard_map's auto-psum of a replicated
+    parameter's gradient), the shares of the loss summed likewise, one flat
+    all-reduce a set of axes. ``specs``: the params are this rank's blocks
+    of that layout, and the update runs on them
+    (``parallel/specs.pinned_update``); a leaf split over an axis of
+    ``axes`` already holds its gradient summed over that axis (an expert's
+    weights, through the all-to-all's backward) and is summed over the
+    others only."""
     with torch.enable_grad():
         grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
-        flat = torch.cat([loss.detach().reshape(1).float()]
-                         + [g.reshape(-1).float() for g in grads])
-        mesh.all_reduce_(flat, axes)
-        total, at, out = flat[0], 1, []
-        for g in grads:
-            out.append(flat[at:at + g.numel()].view_as(g).to(g.dtype))
-            at += g.numel()
+        split = [()] * len(grads) if specs is None else aligned_specs(params, specs)
+        groups = {tuple(axes): [-1]}  # -1: the loss
+        for i, sp in enumerate(split):
+            groups.setdefault(tuple(a for a in axes if a not in sp), []).append(i)
+        out = list(grads)
+        for over, idx in groups.items():
+            parts = [loss.detach().reshape(1) if i < 0 else grads[i] for i in idx]
+            flat = torch.cat([t.reshape(-1).float() for t in parts])
+            if over:
+                mesh.all_reduce_(flat, over)
+            at = 0
+            for i, t in zip(idx, parts):
+                v = flat[at:at + t.numel()].view_as(t)
+                at += t.numel()
+                if i < 0:
+                    total = v[0]
+                else:
+                    out[i] = v.to(t.dtype)
         grads = tree_unflatten(params, out)
         if specs is None:
             params2, opt_state = optimizer.update(grads, opt_state, params)
@@ -1544,6 +1685,221 @@ def make_lm_sp_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "seq",
     :func:`make_lm_sp_parts`."""
     mapped = make_lm_sp_parts(model, optimizer, mesh, axis, data_axis=data_axis,
                               attention=attention)
+
+    def step(params, opt_state, tokens):
+        return mapped(params, opt_state, tokens, None)
+
+    return step
+
+
+def expert_parallel_specs(model: GPTLM, axis_name: str = "expert") -> GPTLMParams:
+    """The expert-parallel layout (JAX ``expert_parallel_specs``): the MoE
+    blocks' expert-stacked FFN leaves (w_up, b_up, w_down, b_down) split
+    on dim 1, the expert dim (dim 0 is the layer's), every other leaf
+    replicated: the layout :meth:`GPTLM.apply_expert_parallel` and
+    :func:`make_lm_ep_parts` take."""
+    if model.moe_experts is None:
+        raise ValueError("expert_parallel_specs requires moe_experts")
+    ex = (None, axis_name)
+    return GPTLMParams(
+        embed=(), pos=(),
+        blocks=GPTMoEBlockParams(ln1_scale=(), ln1_bias=(), wq=(), wk=(), wv=(), wo=(),
+                                 ln2_scale=(), ln2_bias=(), wg=(), w_up=ex, b_up=ex,
+                                 w_down=ex, b_down=ex),
+        lnf_scale=(), lnf_bias=())
+
+
+def _shard_rows(t, mesh, axes):
+    """This rank's block of rows of ``t`` split over ``axes`` taken
+    major to minor in the order given (JAX ``P((data, expert))``)."""
+    if t is None:
+        return t
+    n, idx = 1, 0
+    for a in axes:
+        n, idx = n * mesh.axis_size(a), idx * mesh.axis_size(a) + mesh.axis_index(a)
+    if t.shape[0] % n:
+        raise ValueError(f"a batch of {t.shape[0]} rows does not split over {n} shards")
+    b = t.shape[0] // n
+    return t[idx * b:(idx + 1) * b]
+
+
+def make_lm_ep_parts(model: GPTLM, optimizer, mesh, axis: str = "expert", *,
+                     data_axis: str | None = None, ragged: bool = False):
+    """The expert-parallel update (JAX ``make_lm_ep_parts``, :2688):
+    ``(specs, opt_specs, mapped)``, the layout of the params
+    (:func:`expert_parallel_specs`), that of the optimizer's slots
+    (``parallel/specs.slot_specs``) and ``mapped(params, opt_state, tokens,
+    lengths=None) -> (params, opt_state, loss)``, a collective over
+    ``mesh``. ``tokens`` [B, L] is the global batch, the same on every rank;
+    each rank keeps its block of B/shards rows, over ``(data_axis, axis)``
+    data-major; params and slots are its blocks of the layout (one expert's
+    FFN weights).
+
+    The loss is the mean over the shards of each shard's masked CE plus
+    ``moe_balance_coef`` · balance + ``moe_z_coef`` · z, the router's terms
+    over the shard's own tokens (JAX's per-shard semantics). A replicated
+    leaf's gradient is summed over both axes; an expert leaf's, which the
+    all-to-all's backward has summed over the expert axis, over the data
+    axis only; the mean's 1/shards is in each rank's share. ``lengths``
+    (``ragged``) masks the CE and the routing per shard (None means every
+    position, JAX's ``_default_lens``); without ``ragged`` it is ignored."""
+    if model.moe_experts is None:
+        raise ValueError("make_lm_ep_train_step requires moe_experts")
+    n = mesh.axis_size(_mesh_axes(mesh, axis)[0])
+    if n != model.moe_experts:
+        raise ValueError(f"{axis!r} axis size {n} != moe_experts {model.moe_experts}")
+    if data_axis is not None and data_axis not in mesh.shape:
+        raise ValueError(f"mesh has no {data_axis!r} axis: {dict(mesh.shape)}")
+    if data_axis == axis:
+        raise ValueError(f"data_axis must differ from the expert axis {axis!r}")
+    axes = (axis,) if data_axis is None else (data_axis, axis)
+    specs = expert_parallel_specs(model, axis)
+    opt_specs = slot_specs(optimizer, model.init(device="meta"), specs)
+    shards = mesh.axis_size(axes)
+
+    def mapped(params, opt_state, tokens, lengths=None):
+        if not ragged:
+            lengths = None
+        elif lengths is None:
+            lengths = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        toks, lens = _shard_rows(tokens, mesh, axes), _shard_rows(lengths, mesh, axes)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            logits, auxs = model.apply_expert_parallel(tree_unflatten(params, leaves), toks,
+                                                       mesh, axis, with_aux=True, lengths=lens)
+            loss = (ce_from_logits(logits, toks, lens)
+                    + model.moe_balance_coef * auxs.balance_loss.mean()
+                    + model.moe_z_coef * auxs.z_loss.mean()) / shards
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs)
+
+    return specs, opt_specs, mapped
+
+
+def make_lm_ep_train_step(model: GPTLM, optimizer, mesh, axis: str = "expert", *,
+                          data_axis: str | None = None):
+    """The expert-parallel training step (JAX :2639): ``step(params,
+    opt_state, tokens) -> (params, opt_state, loss)`` on the global batch,
+    params and slots in :func:`expert_parallel_specs`' layout
+    (``parallel/specs.shard_tree``); ``data_axis`` composes data
+    parallelism (dp×ep on a ``("data", "expert")`` mesh). See
+    :func:`make_lm_ep_parts`."""
+    _, _, mapped = make_lm_ep_parts(model, optimizer, mesh, axis, data_axis=data_axis)
+
+    def step(params, opt_state, tokens):
+        return mapped(params, opt_state, tokens, None)
+
+    return step
+
+
+def pipeline_parallel_specs(model: GPTLM, axis_name: str = "stage") -> GPTLMParams:
+    """The pipeline layout over :meth:`GPTLM.pipeline_stage_blocks` (JAX
+    ``pipeline_parallel_specs``): every staged block leaf split on its
+    leading num_stages dim, one layer group a rank of ``axis_name``;
+    embeddings and the final norm replicated."""
+    if model.moe_experts is not None:
+        raise NotImplementedError(
+            "pipeline parallelism is not defined for MoE blocks; use "
+            "expert parallelism (make_lm_ep_train_step)")
+    return GPTLMParams(embed=(), pos=(), blocks=GPTBlockParams(*[(axis_name,)] * 12),
+                       lnf_scale=(), lnf_bias=())
+
+
+def pipeline_stage_params(model: GPTLM, params: GPTLMParams, num_stages: int) -> GPTLMParams:
+    """Canonical params → the pipeline layout: the blocks as
+    [num_stages, layers_per_stage, ...] (:meth:`GPTLM.pipeline_stage_blocks`),
+    everything else as it is. :func:`pipeline_unstage_params` inverts it."""
+    return params._replace(blocks=model.pipeline_stage_blocks(params.blocks, num_stages))
+
+
+def pipeline_unstage_params(params: GPTLMParams) -> GPTLMParams:
+    """Staged params → canonical: the two leading block dims merged."""
+    return params._replace(blocks=tree_map(lambda a: a.reshape((-1,) + tuple(a.shape[2:])),
+                                           params.blocks))
+
+
+def _global_ce_share(logits, tokens, lengths, mesh, axes):
+    """This rank's share of the global batch's next-token CE, its rows
+    split over ``axes``: its mean over the shards or, with ``lengths``, its
+    masked sum over the global count of targets."""
+    if lengths is None:
+        return ce_from_logits(logits, tokens) / mesh.axis_size(axes)
+    nll = picked_nll(logits[:, :-1].float(), tokens[:, 1:])
+    pos = torch.arange(tokens.shape[1] - 1, device=tokens.device)
+    w = (pos[None, :] < (lengths.to(tokens.device)[:, None] - 1)).float()
+    count = mesh.all_reduce_(w.sum().detach().clone(), axes)
+    return (nll * w).sum() / torch.clamp(count, min=1.0)
+
+
+def make_lm_pp_parts(model: GPTLM, optimizer, mesh, *, axis: str = "stage",
+                     num_microbatches: int = 4, data_axis: str | None = None):
+    """The pipeline-parallel update (JAX ``make_lm_pp_parts``, :2893):
+    ``(specs, opt_specs, mapped)``, the layout of the staged params
+    (:func:`pipeline_parallel_specs`), that of the optimizer's slots and
+    ``mapped(params, opt_state, tokens, lengths=None) -> (params,
+    opt_state, loss)``, a collective over ``mesh``. ``params`` and
+    ``opt_state`` are this rank's stage of :func:`pipeline_stage_params`
+    (``parallel/specs.shard_tree``): its layer group and that group's
+    slots; embeddings, final norm and their slots replicated. ``tokens``
+    [B, L] is the global batch on every rank.
+
+    Embedding, head and CE run on every stage's replica; the blocks run as
+    the GPipe pipeline (``parallel/pipeline.py``, ``num_microbatches``
+    microbatches, :meth:`GPTLM._pp_stage_fn`, checkpointed under remat).
+    The loss is the global batch's CE (masked over ``lengths`` when given),
+    which every stage computes alike: the head's gradient is whole on each
+    stage, the embedding's input gradient reaches every stage through the
+    pipeline's ``copy_to``, and a layer group's arrives through the hops'
+    backward. ``data_axis`` (dp×pp) splits each microbatch's rows over that
+    axis; every gradient is then summed over it. The update is
+    ``parallel/specs.pinned_update`` on the stage's blocks."""
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import microbatch, pipeline_apply
+
+    s = mesh.axis_size(_mesh_axes(mesh, axis)[0])
+    if model.num_layers % s:
+        raise ValueError(
+            f"num_layers {model.num_layers} not divisible by {axis!r} axis size {s}")
+    if data_axis is not None and data_axis not in mesh.shape:
+        raise ValueError(f"mesh has no {data_axis!r} axis: {dict(mesh.shape)}")
+    if data_axis == axis:
+        raise ValueError(f"data_axis must differ from the stage axis {axis!r}")
+    specs = pipeline_parallel_specs(model, axis)  # raises for MoE blocks
+    staged = pipeline_stage_params(model, model.init(device="meta"), s)
+    opt_specs = slot_specs(optimizer, staged, specs)
+    axes = () if data_axis is None else (data_axis,)
+    m = num_microbatches
+    stage_fn = model._pp_stage_fn()
+
+    def rows(t):  # this rank's rows of every microbatch, microbatch-major
+        if t is None or data_axis is None:
+            return t
+        mbs = _shard(microbatch(t, m), mesh, data_axis, 1)
+        return mbs.reshape((-1,) + tuple(t.shape[1:]))
+
+    def mapped(params, opt_state, tokens, lengths=None):
+        toks, lens = rows(tokens), rows(lengths)
+        b, l = toks.shape
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            p = tree_unflatten(params, leaves)
+            h = model._embed_tokens(p, toks, torch.arange(l, device=toks.device))
+            out = pipeline_apply(stage_fn, p.blocks, microbatch(h, m), mesh, axis)
+            logits = model._logits(p, out.reshape(b, l, -1))
+            loss = _global_ce_share(logits, toks, lens, mesh, axes)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs)
+
+    return specs, opt_specs, mapped
+
+
+def make_lm_pp_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "stage",
+                          num_microbatches: int = 4, data_axis: str | None = None):
+    """The pipeline-parallel training step (JAX :2827): ``step(params,
+    opt_state, tokens) -> (params, opt_state, loss)`` on the global batch,
+    params and slots this rank's stage of :func:`pipeline_stage_params`;
+    ``data_axis`` composes data parallelism (dp×pp on a ``("data",
+    "stage")`` mesh). See :func:`make_lm_pp_parts`."""
+    _, _, mapped = make_lm_pp_parts(model, optimizer, mesh, axis=axis,
+                                    num_microbatches=num_microbatches, data_axis=data_axis)
 
     def step(params, opt_state, tokens):
         return mapped(params, opt_state, tokens, None)

@@ -3,8 +3,10 @@
 Counterpart of ``distributed_tensorflow_tpu/ops/moe.py``: ``MoEParams``
 (:40), ``MoEAux`` (:48), ``init_moe`` (:78), ``_expert_ffn`` (:91),
 ``_route`` (:98), ``_combine`` (:172), ``moe_ffn_dense`` (:179) and
-``moe_ffn_local`` (:205). The expert-parallel body ``moe_ffn`` (:244, two
-all-to-alls) waits for ROADMAP A7c.
+``moe_ffn_local`` (:205) and the expert-parallel body ``moe_ffn`` (:244):
+one expert a rank of a mesh axis, the tokens exchanged by two
+all-to-alls (``parallel/mesh.Mesh.all_to_all``, whose backward is the
+inverse exchange).
 
 Semantics, as there:
 
@@ -174,10 +176,34 @@ def moe_ffn_local(params: MoEParams, x, capacity: int, *, with_aux: bool = False
     return (result, aux) if with_aux else result
 
 
-def moe_ffn(params: MoEParams, x, axis_name: str, capacity: int, **kw):
-    """The expert-parallel body (JAX ``moe_ffn``: one expert a rank, two
-    all-to-alls) is not ported yet (ROADMAP A7c)."""
-    raise NotImplementedError(
-        "moe_ffn (expert parallelism over an all-to-all) is not ported yet (ROADMAP A7c); "
-        "moe_ffn_local runs every expert on one device"
-    )
+def moe_ffn(params: MoEParams, x, mesh, axis_name: str, capacity: int, *,
+            with_aux: bool = False, token_mask=None, k: int = 1):
+    """The expert-parallel body (JAX ``moe_ffn``): this rank's tokens
+    ``x`` [T, D] routed over the n experts of ``axis_name`` of ``mesh``, one
+    a rank (``params.w_up`` etc. carry a leading [1, ...]: this rank's
+    expert; ``wg`` [D, n] is replicated). Capacity holds per (expert,
+    source rank). The [n, C, D] send buffer is :func:`moe_ffn_local`'s
+    spare-row scatter; the first all-to-all gives this rank's expert its
+    [n, C, D] rows by source, the expert runs once on the n·C rows, the
+    second all-to-all returns them, and each token gathers and combines its
+    k choices. Returns [T, D] (and this rank's ``MoEAux`` over its own
+    tokens with ``with_aux``). A collective: every rank of the axis calls
+    it; differentiable, the gradient taking the inverse exchanges."""
+    n = mesh.axis_size(axis_name)
+    if params.wg.shape[-1] != n or params.w_up.shape[0] != 1:
+        raise ValueError(
+            f"moe_ffn over the {n}-way {axis_name!r} axis routes over {n} experts, one a "
+            f"rank: got a gate over {params.wg.shape[-1]} experts and {params.w_up.shape[0]} "
+            "local experts")
+    t, d = x.shape
+    expert_idx, gate_w, slot, keep, aux = _route(x, params.wg, n, capacity, token_mask, k=k)
+    cols = torch.where(keep, slot, torch.full_like(slot, capacity))
+    contrib = torch.where(keep[:, :, None], x[:, None, :], torch.zeros_like(x[:, None, :]))
+    send = x.new_zeros((n, capacity + 1, d)).index_put((expert_idx, cols), contrib)
+    recv = mesh.all_to_all(send[:, :capacity], axis_name, 0, 0)  # [n, C, D] by source
+    out = _expert_ffn(recv.reshape(n * capacity, d), params.w_up[0], params.b_up[0],
+                      params.w_down[0], params.b_down[0]).reshape(n, capacity, d)
+    back = mesh.all_to_all(out, axis_name, 0, 0)  # [n, C, D] by expert
+    gathered = F.pad(back, (0, 0, 0, 1))[expert_idx, cols]  # the spare row reads zeros
+    result = _combine(gate_w, keep, gathered)
+    return (result, aux) if with_aux else result

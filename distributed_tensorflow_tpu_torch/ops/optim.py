@@ -51,7 +51,8 @@ def tree_unflatten(like, leaves):
 
     def build(node):
         if isinstance(node, tuple):
-            return type(node)(*(build(sub) for sub in node))
+            subs = [build(sub) for sub in node]
+            return type(node)(*subs) if hasattr(node, "_fields") else type(node)(subs)
         return next(it)
 
     return build(like)

@@ -259,9 +259,12 @@ def _unravel(rank: int, shape: dict) -> list:
 
 def permute_raw(mesh: Mesh, axis: str, tensors, shift: int) -> list:
     """:meth:`Mesh.ring_permute` without autograd: one flat buffer sent to
-    the rank ``shift`` on and one received from the rank ``shift`` back."""
+    the rank ``shift`` on and one received from the rank ``shift`` back
+    (the tensors themselves on an axis of one rank)."""
     g, ranks = mesh.group(axis)
     n, i = len(ranks), mesh.coords[axis]
+    if n == 1:
+        return list(tensors)
     flat = flatten([t.contiguous() for t in tensors])
     if flat.is_cuda and mesh.backend == "gloo":  # gloo sends from host memory only
         flat = flat.cpu()

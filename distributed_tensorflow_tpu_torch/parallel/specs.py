@@ -100,6 +100,13 @@ def gather_leaf(t, spec, mesh, axes=None):
     return t
 
 
+def map_split(tree, specs, fn):
+    """``fn`` on the leaves of ``tree`` that ``specs`` splits, the others as
+    they are (the staged blocks and their slots of a pipeline layout)."""
+    return tree_unflatten(tree, [fn(t) if sp else t for t, sp in
+                                 zip(tree_leaves(tree), aligned_specs(tree, specs))])
+
+
 def shard_tree(tree, specs, mesh, axes=None):
     """:func:`shard_leaf` over a tree (params, or an optimizer state with
     its :func:`slot_specs`)."""

@@ -57,15 +57,28 @@ and index stream) and its step keeps its shard, as the JAX trainer's
   ``data_axis`` when the mesh has it (dp×tp). The held-out perplexity runs
   the same tensor-parallel forward (a collective of the axis), and
   :meth:`LMTrainer.to_canonical` / :meth:`LMTrainer.from_canonical` gather
-  and shard the state.
+  and shard the state;
+- ``dp_mode="ep"`` → **ep** (MoE models; JAX :499-515, :612-623):
+  expert parallelism over ``expert_axis`` (``models/gpt.make_lm_ep_parts``):
+  one expert's FFN weights and their slots a rank, the batch split over
+  ``(data_axis, expert_axis)`` data-major (dp×ep when the mesh has the data
+  axis), ragged corpora masking the routing per shard;
+- ``dp_mode="pp"`` → **pp** (JAX :519-539, :576-595): the GPipe pipeline
+  over ``stage_axis`` (``models/gpt.make_lm_pp_parts``,
+  ``pp_microbatches`` microbatches): each rank holds its stage's layer
+  group of the staged blocks ([S, L/S, ...]) and that group's slots, each
+  microbatch's rows split over ``data_axis`` when the mesh has it (dp×pp).
 
-In the other modes the parameters stay replicated, so the held-out
-perplexity is the dense forward's on each rank, as in the JAX trainer.
-Step lines print on every rank; the epoch and final lines on the chief
-(``is_chief`` and rank 0 of the mesh).
+Under ep and pp the held-out perplexity is the dense forward's at the
+canonical parameters, gathered over the axis (pp folds the staged blocks
+back: the parameters the metric is defined at), and
+:meth:`LMTrainer.to_canonical` / :meth:`LMTrainer.from_canonical` gather,
+unstage, stage and shard the state. In the other modes the parameters stay
+replicated, so the held-out perplexity is the dense forward's on each
+rank, as in the JAX trainer. Step lines print on every rank; the epoch
+and final lines on the chief (``is_chief`` and rank 0 of the mesh).
 
-Not ported yet, and refused when asked for: the expert and pipeline
-modes (A7c), the LM's ZeRO and
+Not ported yet, and refused when asked for: the LM's ZeRO and
 async modes and the DiLoCo ``delta_exchange`` (A7d), the supervisor and
 checkpoints (and with them the ``tokenizer.json`` written beside a
 checkpoint), summaries, the journal and metrics, ``epochs_per_dispatch``
@@ -82,13 +95,20 @@ import torch
 
 from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.device import resolve_device
-from distributed_tensorflow_tpu_torch.models.gpt import make_lm_sp_parts, make_lm_train_step
+from distributed_tensorflow_tpu_torch.models.gpt import (
+    make_lm_ep_parts,
+    make_lm_pp_parts,
+    make_lm_sp_parts,
+    make_lm_train_step,
+    pipeline_unstage_params,
+)
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
 from distributed_tensorflow_tpu_torch.ops.optim import tree_map
 from distributed_tensorflow_tpu_torch.ops.collectives import TensorParallel
 from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_tpu_torch.parallel.specs import (
     gather_tree,
+    map_split,
     match_slot_specs,
     shard_tree,
 )
@@ -103,9 +123,6 @@ NOT_PORTED = {
     "metrics": ((None,), "A8"),
     "delta_exchange": ((None,), "A7d"),
     "async_update_scale": ((None,), "A7d"),
-    "expert_axis": (("expert",), "A7c"),
-    "stage_axis": (("stage",), "A7c"),
-    "pp_microbatches": ((4,), "A7c"),
 }
 SP_ATTENTIONS = (None, "ring", "ring_flash", "ulysses")
 
@@ -126,6 +143,9 @@ class LMTrainer:
         data_axis: str = "data",
         seq_axis: str = "seq",
         tp_axis: str = "model",
+        expert_axis: str = "expert",
+        stage_axis: str = "stage",
+        pp_microbatches: int = 4,
         sp_attention: str | None = None,
         is_chief: bool = True,
         **not_ported,
@@ -144,7 +164,8 @@ class LMTrainer:
             raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
         self.config = config or TrainConfig()
         self.mesh, self.data_axis, self.seq_axis = mesh, data_axis, seq_axis
-        self.tp_axis = tp_axis
+        self.tp_axis, self.expert_axis, self.stage_axis = tp_axis, expert_axis, stage_axis
+        self.pp_microbatches = pp_microbatches
         self.sp_attention = sp_attention
         self.is_chief = is_chief and (mesh is None or mesh.rank == 0)
         self.tokenizer = tokenizer
@@ -173,7 +194,7 @@ class LMTrainer:
         if self.mode == "tp":
             self._tp = TensorParallel(mesh, tp_axis)
             self._specs = self.model.partition_specs(tp_axis)
-        self._step = self._make_step()
+        self._step = self._make_step()  # sets the ep and pp layouts
         self.state = self._init_state(self.model.init(seed=self.config.seed, device=self.device))
         self._stage_cache: dict = {}
         self.last_cost = None
@@ -182,7 +203,8 @@ class LMTrainer:
     # -- modes ------------------------------------------------------------
 
     def _resolve_mode(self) -> str:
-        """single, dp, sp or tp, with the JAX trainer's checks (:393-565)."""
+        """single, dp, sp, tp, ep or pp, with the JAX trainer's checks
+        (:393-565)."""
         cfg, mesh = self.config, self.mesh
         if mesh is None:
             return "single"
@@ -235,6 +257,34 @@ class LMTrainer:
                     f"dp×tp shards the batch over the {d}-way {self.data_axis!r} axis: "
                     f"batch_size {cfg.batch_size} must divide")
             return "tp"
+        if cfg.dp_mode == "ep":
+            if self.model.moe_experts is None:
+                raise ValueError("dp_mode='ep' requires a MoE model (moe_experts=E)")
+            if self.expert_axis not in mesh.shape:
+                raise ValueError(
+                    f"dp_mode='ep' needs a {self.expert_axis!r} mesh axis: {dict(mesh.shape)}")
+            shards = mesh.shape[self.expert_axis] * (
+                mesh.shape[self.data_axis] if self._dp_axis() is not None else 1)
+            if cfg.batch_size % shards:
+                raise ValueError(
+                    f"dp_mode='ep' shards the batch {shards} ways: batch_size "
+                    f"{cfg.batch_size} must divide")
+            return "ep"
+        if cfg.dp_mode == "pp":
+            if self.stage_axis not in mesh.shape:
+                raise ValueError(
+                    f"dp_mode='pp' needs a {self.stage_axis!r} mesh axis: {dict(mesh.shape)}")
+            m = self.pp_microbatches
+            if cfg.batch_size % m:
+                raise ValueError(
+                    f"dp_mode='pp' splits the batch into {m} microbatches: batch_size "
+                    f"{cfg.batch_size} must be divisible")
+            d = mesh.shape.get(self.data_axis, 1)
+            if self._dp_axis() is not None and (cfg.batch_size // m) % d:
+                raise ValueError(
+                    f"dp×pp shards each {cfg.batch_size // m}-row microbatch over the {d}-way "
+                    f"{self.data_axis!r} axis: sizes must divide")
+            return "pp"
         if self.data_axis not in mesh.shape:
             raise ValueError(f"mesh has no {self.data_axis!r} axis: {dict(mesh.shape)}")
         if cfg.batch_size % mesh.shape[self.data_axis]:
@@ -244,7 +294,8 @@ class LMTrainer:
         return "dp"
 
     def _dp_axis(self) -> str | None:
-        """The data axis to compose with sp: on the mesh, or None."""
+        """The data axis to compose with sp, ep or pp: on the mesh, or
+        None."""
         return self.data_axis if self.data_axis in self.mesh.shape else None
 
     def _make_step(self):
@@ -257,6 +308,16 @@ class LMTrainer:
         if self.mode == "tp":
             return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis,
                                       tp_axis=self.tp_axis)
+        if self.mode == "ep":
+            self._specs, _, mapped = make_lm_ep_parts(
+                self.model, self.optimizer, self.mesh, self.expert_axis,
+                data_axis=self._dp_axis(), ragged=self._ragged)
+            return mapped
+        if self.mode == "pp":
+            self._specs, _, mapped = make_lm_pp_parts(
+                self.model, self.optimizer, self.mesh, axis=self.stage_axis,
+                num_microbatches=self.pp_microbatches, data_axis=self._dp_axis())
+            return mapped
         return make_lm_sp_parts(self.model, self.optimizer, self.mesh, self.seq_axis,
                                 data_axis=self._dp_axis(), attention=self.sp_attention,
                                 ragged=self._ragged)
@@ -265,33 +326,65 @@ class LMTrainer:
 
     def _init_state(self, params) -> TrainState:
         """A fresh state at the canonical ``params``: this rank's blocks of
-        them under tp, the optimizer's initial state, step 0."""
+        them under tp and ep, its stage of the staged blocks under pp, the
+        optimizer's initial state (its slots born in that layout), step 0."""
+        if self.mode == "pp":
+            params = map_split(params, self._specs, self._stage_split)
         if self._specs is not None:
             params = shard_tree(params, self._specs, self.mesh)
         return TrainState(params, self.optimizer.init(params), 0)
 
+    def _stage_split(self, a):
+        """A canonical [num_layers, ...] block leaf as [S, L/S, ...]."""
+        s = self.mesh.shape[self.stage_axis]
+        return a.reshape((s, a.shape[0] // s) + tuple(a.shape[1:]))
+
+    @staticmethod
+    def _stage_merge(a):
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+
     def to_canonical(self, state: TrainState | None = None) -> TrainState:
         """The single-device form of ``state`` (default the trainer's): under
-        tp the parameters and optimizer slots gathered from every rank's
-        blocks (a collective of the axis); the other modes hold it already."""
+        tp and ep the parameters and optimizer slots gathered from every
+        rank's blocks (a collective of the axis), under pp gathered and
+        unstaged; the other modes hold it already."""
         state = self.state if state is None else state
         if self._specs is None:
             return state
         slots = match_slot_specs(state.opt_state, state.params, self._specs)
-        return TrainState(gather_tree(state.params, self._specs, self.mesh),
-                          gather_tree(state.opt_state, slots, self.mesh), state.step)
+        params = gather_tree(state.params, self._specs, self.mesh)
+        opt_state = gather_tree(state.opt_state, slots, self.mesh)
+        if self.mode == "pp":
+            params = map_split(params, self._specs, self._stage_merge)
+            opt_state = map_split(opt_state, slots, self._stage_merge)
+        return TrainState(params, opt_state, state.step)
 
     def from_canonical(self, canonical: TrainState) -> TrainState:
         """A single-device state as this trainer's (this rank's blocks
-        under tp), on its device; set it as ``self.state`` to resume."""
+        under tp and ep, its stage under pp), on its device; set it as
+        ``self.state`` to resume."""
         on = lambda t: tree_map(  # noqa: E731
             lambda a: a.to(self.device) if isinstance(a, torch.Tensor) else a, t)
         params, opt_state = on(canonical.params), on(canonical.opt_state)
         if self._specs is not None:
             slots = match_slot_specs(opt_state, params, self._specs)
+            if self.mode == "pp":
+                params = map_split(params, self._specs, self._stage_split)
+                opt_state = map_split(opt_state, slots, self._stage_split)
+                slots = match_slot_specs(opt_state, params, self._specs)
             params = shard_tree(params, self._specs, self.mesh)
             opt_state = shard_tree(opt_state, slots, self.mesh)
         return TrainState(params, opt_state, int(canonical.step))
+
+    def _eval_params(self):
+        """The parameters the held-out metric is computed at (JAX
+        ``_eval_params``): under ep and pp the canonical ones, gathered over
+        the axis (pp's staged blocks folded back; a collective); the state's
+        own otherwise (tp's blocks run the tensor-parallel forward)."""
+        if self.mode not in ("ep", "pp"):
+            return self.state.params
+        params = gather_tree(self.state.params, self._specs, self.mesh)
+        return pipeline_unstage_params(params) if self.mode == "pp" else params
 
     @property
     def global_step(self) -> int:
@@ -337,10 +430,11 @@ class LMTrainer:
         b = min(self.eval_batch, n)
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         count = torch.zeros((), dtype=torch.int64, device=self.device)
+        params = self._eval_params()
         for lo in range(0, (n // b) * b if trim else n, b):
             hi = min(lo + b, n)
             s, c = self._ce_count(
-                self.state.params, toks[lo:hi], None if lens is None else lens[lo:hi]
+                params, toks[lo:hi], None if lens is None else lens[lo:hi]
             )
             total = total + s.double()
             count = count + c

@@ -787,9 +787,248 @@ def _tp_classifier(kind, run, mesh, inp):
     return out
 
 
+def case_ep_pp(world, inp, args):
+    """Expert and pipeline parallelism on meshes of the world's 4 ranks
+    ((4,), (2, 2) and (1, 4)), each run of ``args["runs"]`` by its kind
+    (``_EP_PP``), from the inputs' parameters and batches."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    meshes, res = {}, {}
+    for run in args["runs"]:
+        key = (tuple(run["shape"]), tuple(run["axes"]))
+        if key not in meshes:  # a collective: every rank makes every mesh, in order
+            meshes[key] = make_mesh(*key, device="cpu")
+        res[run["name"]] = _EP_PP[run["kind"]](run, meshes[key], inp)
+    return res
+
+
+def _ep_moe(run, mesh, inp):
+    """ops/moe.moe_ffn over "expert" at each capacity of the run: this
+    rank's output and the gradients of sum(w · out) it gets back."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.ops.moe import MoEParams, moe_ffn
+
+    e, n = mesh.axis_index("expert"), mesh.axis_size("expert")
+    full = {k: torch.from_numpy(inp[f"moe/{k}"]) for k in MoEParams._fields}
+    x_all, w_all = torch.from_numpy(inp["moe/x"]), torch.from_numpy(inp["moe/w"])
+    t = x_all.shape[0] // n
+    out = {}
+    for cap in run["caps"]:
+        p = MoEParams(**{k: (v if k == "wg" else v[e:e + 1]).clone().requires_grad_(True)
+                         for k, v in full.items()})
+        x = x_all[e * t:(e + 1) * t].clone().requires_grad_(True)
+        y = moe_ffn(p, x, mesh, "expert", cap, k=run["k"])
+        (y * w_all[e * t:(e + 1) * t]).sum().backward()
+        out[cap] = dict(y=_np(y), x=_np(x.grad), **{k: _np(getattr(p, k).grad) for k in full})
+    return out
+
+
+def _ep_model(run, mesh, inp):
+    from distributed_tensorflow_tpu_torch.models.gpt import expert_parallel_specs
+    from distributed_tensorflow_tpu_torch.parallel.specs import shard_tree
+
+    model = _gpt(run["model"])
+    specs = expert_parallel_specs(model)
+    return model, specs, shard_tree(_gpt_params(inp, run["params"]), specs, mesh)
+
+
+def _ep_fwd(run, mesh, inp):
+    """apply_expert_parallel on this rank's rows: logits and drop fraction."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.gpt import _shard_rows
+
+    model, _, p = _ep_model(run, mesh, inp)
+    toks = _shard_rows(torch.from_numpy(inp[run["tokens"]]), mesh, ("expert",))
+    with torch.no_grad():
+        logits, aux = model.apply_expert_parallel(p, toks, mesh, with_aux=True)
+    return dict(logits=_np(logits), drop=_np(aux.drop_fraction))
+
+
+def _ep_step(run, mesh, inp):
+    """make_lm_ep_parts' update, ``steps`` Adam steps (rate ``lr``) on the
+    global batches of ``tokens``; with ``ragged``, one step on each of two
+    batches that differ past the lengths, and one with lengths None."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.gpt import make_lm_ep_parts
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree
+
+    model, specs, p = _ep_model(run, mesh, inp)
+    opt = optim.adam(run.get("lr", 1e-3))
+    data = "data" if "data" in run["axes"] else None
+    _, opt_specs, mapped = make_lm_ep_parts(model, opt, mesh, data_axis=data,
+                                            ragged=run.get("ragged", False))
+    o = opt.init(p)
+    if run.get("ragged"):
+        lens = torch.from_numpy(inp["ep_lengths"])
+        out = [mapped(p, o, torch.from_numpy(inp[t]), lens) for t in ("ep_ragged_a", "ep_ragged_b")]
+        full = torch.full_like(lens, inp["ep_ragged_a"].shape[1])
+        none = [float(mapped(p, o, torch.from_numpy(inp["ep_ragged_a"]), x)[2])
+                for x in (None, full)]
+        return dict(params=[_np(gather_tree(x[0], specs, mesh)) for x in out],
+                    losses=[float(x[2]) for x in out], none_full=none)
+    losses = []
+    for t in inp[run["tokens"]][:run["steps"]]:
+        p, o, loss = mapped(p, o, torch.from_numpy(t))
+        losses.append(float(loss))
+    return dict(params=_np(gather_tree(p, specs, mesh)), losses=losses,
+                local_w_up=tuple(p.blocks.w_up.shape),
+                slot_w_up=list(opt_specs.mu.blocks.w_up), slot_wq=list(opt_specs.mu.blocks.wq))
+
+
+def _lm_trainer(run, mesh, inp):
+    """LMTrainer(dp_mode=ep|pp) from the run's params: its lines, result,
+    the canonical state, this rank's parameter shapes and the
+    to/from_canonical round trip."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    ds = TokenDatasets(TokenDataset(inp["train"], seed=1), TokenDataset(inp["val"], seed=2),
+                       TokenDataset(inp["val"], seed=3))
+    lines = []
+    tr = LMTrainer(_gpt(run["model"]), ds, TrainConfig(**run["config"]), mesh=mesh, device="cpu",
+                   print_fn=lines.append, optimizer=optim.adam(1e-3),
+                   pp_microbatches=run.get("m", 4))
+    tr.state = tr._init_state(_gpt_params(inp, run["params"]))
+    out = tr.run()
+    c = tr.to_canonical()
+    back = tr.from_canonical(c)
+    same = back.step == tr.state.step and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(back[:2]), tree_leaves(tr.state[:2])))
+    return dict(lines=lines, result=out, mode=tr.mode, params=_np(c.params),
+                mu=_np(c.opt_state.mu), round_trip=same, perplexity=tr.evaluate(),
+                local={k: tuple(v.shape) for k, v in tr.state.params.blocks._asdict().items()},
+                local_mu_w_up=tuple(tr.state.opt_state.mu.blocks.w_up.shape))
+
+
+def _convert(run, mesh, inp):
+    """A JAX canonical state as numpy → this rank's ep or pp blocks → back
+    to numpy, and the local shapes."""
+    from distributed_tensorflow_tpu_torch.convert import (
+        lm_sharded_state_from_numpy,
+        lm_sharded_state_to_numpy,
+    )
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        expert_parallel_specs,
+        pipeline_parallel_specs,
+    )
+
+    model, pre = _gpt(run["model"]), run["params"]
+    stages = mesh.axis_size("stage") if "stage" in run["axes"] else None
+    specs = (pipeline_parallel_specs(model) if stages else expert_parallel_specs(model))
+    tree = _gpt_tree(inp, pre)
+    adam = {"count": inp["adam/count"], "mu": _gpt_tree(inp, f"{pre}_mu"),
+            "nu": _gpt_tree(inp, f"{pre}_nu")}
+    p, o = lm_sharded_state_from_numpy(tree, adam, mesh, specs, device="cpu", stages=stages)
+    back = lm_sharded_state_to_numpy(p, o, mesh, specs, staged=stages is not None)
+    return dict(params=back[0], adam=back[1], w_up=tuple(p.blocks.w_up.shape),
+                mu_w_up=tuple(o.mu.blocks.w_up.shape), mu_embed=tuple(o.mu.embed.shape))
+
+
+def _pipe(run, mesh, inp):
+    """parallel/pipeline.pipeline_apply of tanh-GELU(x @ w + b) stages over
+    "stage": the output, and the gradients of sum(c · out) (this rank's
+    stage, and the input's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_tensorflow_tpu_torch.parallel.pipeline import microbatch, pipeline_apply
+
+    s = mesh.axis_index("stage")
+    w = torch.from_numpy(inp["pipe/w"])[s:s + 1].clone().requires_grad_(True)
+    b = torch.from_numpy(inp["pipe/b"])[s:s + 1].clone().requires_grad_(True)
+    x = torch.from_numpy(inp["pipe/x"]).clone().requires_grad_(True)
+
+    def stage_fn(params, h):
+        return F.gelu(h @ params[0][0] + params[1][0], approximate="tanh")
+
+    out = pipeline_apply(stage_fn, (w, b), microbatch(x, run["m"]), mesh)
+    y = out.reshape(x.shape)
+    (y * torch.from_numpy(inp["pipe/c"])).sum().backward()
+    with torch.no_grad():
+        plain = pipeline_apply(stage_fn, (w, b), microbatch(x, run["m"]), mesh)
+    return dict(y=_np(y), no_grad=_np(plain.reshape(x.shape)), w=_np(w.grad), b=_np(b.grad),
+                x=_np(x.grad))
+
+
+def _pp_fwd(run, mesh, inp):
+    """apply_pipeline_parallel's logits on the whole batch."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        pipeline_parallel_specs,
+        pipeline_stage_params,
+    )
+    from distributed_tensorflow_tpu_torch.parallel.specs import shard_tree
+
+    model = _gpt(run["model"])
+    s = mesh.axis_size("stage")
+    p = shard_tree(pipeline_stage_params(model, _gpt_params(inp, run["params"]), s),
+                   pipeline_parallel_specs(model), mesh)
+    with torch.no_grad():
+        logits = model.apply_pipeline_parallel(p, torch.from_numpy(inp[run["tokens"]]), mesh,
+                                               num_microbatches=run["m"])
+    return dict(logits=_np(logits), wq=tuple(p.blocks.wq.shape))
+
+
+def _pp_step(run, mesh, inp):
+    """make_lm_pp_parts' update, ``steps`` steps (Adam, or SGD at ``sgd``)
+    on the global batches of ``tokens``; with ``ragged``, one step on each
+    of two batches that differ past the lengths. Also this rank's
+    replicated leaves, to compare across the stages."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.models.gpt import (
+        make_lm_pp_parts,
+        pipeline_stage_params,
+        pipeline_unstage_params,
+    )
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.specs import gather_tree, shard_tree
+
+    model = _gpt(run["model"])
+    opt = optim.sgd(run["sgd"]) if run.get("sgd") else optim.adam(1e-3)
+    data = "data" if "data" in run["axes"] else None
+    specs, opt_specs, mapped = make_lm_pp_parts(model, opt, mesh, num_microbatches=run["m"],
+                                                data_axis=data)
+    s = mesh.axis_size("stage")
+    p = shard_tree(pipeline_stage_params(model, _gpt_params(inp, run["params"]), s), specs, mesh)
+    o = opt.init(p)
+
+    def canonical(params):
+        return _np(pipeline_unstage_params(gather_tree(params, specs, mesh)))
+
+    if run.get("ragged"):
+        lens = torch.from_numpy(inp["pp_lengths"])
+        out = [mapped(p, o, torch.from_numpy(inp[t]), lens) for t in ("pp_ragged_a", "pp_ragged_b")]
+        return dict(params=[canonical(x[0]) for x in out], losses=[float(x[2]) for x in out])
+    losses = []
+    for t in inp[run["tokens"]][:run["steps"]]:
+        p, o, loss = mapped(p, o, torch.from_numpy(t))
+        losses.append(float(loss))
+    out = dict(params=canonical(p), losses=losses, wq=tuple(p.blocks.wq.shape),
+               replicated={k: _np(getattr(p, k)) for k in ("embed", "pos", "lnf_scale")})
+    if hasattr(opt_specs, "mu"):  # Adam's slots
+        out.update(slot_wq=list(opt_specs.mu.blocks.wq), slot_embed=list(opt_specs.mu.embed))
+    return out
+
+
+_EP_PP = {"moe": _ep_moe, "ep_fwd": _ep_fwd, "ep_step": _ep_step, "trainer": _lm_trainer,
+          "convert": _convert, "pipe": _pipe, "pp_fwd": _pp_fwd, "pp_step": _pp_step}
+
+
 CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
          "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
-         "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp, "tp": case_tp}
+         "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp, "tp": case_tp,
+         "ep_pp": case_ep_pp}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

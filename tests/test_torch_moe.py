@@ -153,11 +153,33 @@ def test_top2_no_drop_equals_hand_formula():
 
 
 def test_expert_parallel_body_waits_for_a7():
-    from distributed_tensorflow_tpu_torch.ops.moe import moe_ffn
+    """The expert-parallel body, refused until ROADMAP A7c, now runs: on an
+    expert axis of one rank (a layout-only mesh, no process group) it is
+    ``moe_ffn_local`` over that rank's one expert, output and gradients bit
+    for bit (the exchanges are the identity), with a dropping capacity and
+    top-1; a gate over another count of experts than the axis has ranks is
+    refused. The 4-rank exchange is held against JAX in
+    ``tests/test_torch_ep.py``."""
+    from distributed_tensorflow_tpu_torch.ops.moe import MoEParams, moe_ffn, moe_ffn_local
+    from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 
     _, p = _moe_params(seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        moe_ffn(p, torch.zeros(4, D), "expert", 4)
+    one = MoEParams(p.wg[:, :1], *(t[:1] for t in p[1:]))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((12, D)).astype(np.float32))
+    mesh = Mesh({"expert": 1})
+    for cap in (5, 12):
+        outs = []
+        for fn in (lambda q, y: moe_ffn(q, y, mesh, "expert", cap, with_aux=True),
+                   lambda q, y: moe_ffn_local(q, y, cap, with_aux=True)):
+            q = MoEParams(*(t.clone().requires_grad_(True) for t in one))
+            y = x.clone().requires_grad_(True)
+            out, aux = fn(q, y)
+            out.square().sum().backward()
+            outs.append([out, aux.drop_fraction, y.grad, *(t.grad for t in q)])
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        assert (float(outs[0][1]) > 0) == (cap < 12)
+    with pytest.raises(ValueError, match="routes over 1 experts, one a rank: got a gate over 4"):
+        moe_ffn(p, x, mesh, "expert", 4)
 
 
 # -- MoE blocks in GPTLM ------------------------------------------------------------
