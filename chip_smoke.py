@@ -162,7 +162,7 @@ non-zero):
     engine (``engine="pallas"``) must refuse both before any launch;
 20. the data-parallel modes (``torch.distributed``, ``parallel/``). (a) A
     world of one over NCCL (``parallel.mesh.init_world``): the MLP
-    ``Trainer`` 2 epochs on ``SyncDataParallel`` and on
+    ``Trainer`` 1 epoch (cut from 2) on ``SyncDataParallel`` and on
     ``AsyncDataParallel(avg_every=50, update_scale=1)`` must equal
     ``SingleDevice`` bit for bit; a step's ms and an all-reduce's us
     printed. (c) B2's data-parallel composition
@@ -173,12 +173,13 @@ non-zero):
     rank to the 0.72 oracle, an epoch's ms split into kernel and exchange.
     (b) The reference's topologies through the launcher, 2 workers + 1 ps,
     gloo over CUDA tensors, 784->100->10 at batch 100 a worker: sync with
-    ``per_worker_epoch=True``, 20 epochs (cut from 100), its test accuracy
+    ``per_worker_epoch=True``, 14 epochs (cut from 100), its test accuracy
     at every epoch within 0.02 of phase 8's single-device run, and async
     with ``avg_every=50``, 75 epochs (cut from 100) to the 0.72 oracle (the
     sync run beside the others: cut), the
-    reference's lines from the chief only, the ps tasks' two lines; then
-    ``examples/between_sync.py`` and ``between_async.py`` for one epoch.
+    reference's lines from the chief only, the ps tasks' two lines; and,
+    beside the async run, ``examples/between_sync.py`` then
+    ``between_async.py`` for one epoch.
     A task of these clusters is ``chip_smoke.py --dp-task sync|async|fused``
     (logs in ``chiprun_out/phase20/``);
 21. the classifier families at the registry's default widths (bf16, batch
@@ -213,7 +214,8 @@ non-zero):
     slab prefill, no decode kernel; greedy streams against the in-process
     ``greedy_decode``; (c) ``quantized_dot`` int8 (bit for bit) and fp8
     against its plain version at [16384 x 512] x [512 x 2048], timed beside
-    the bf16 product, and gpt-m trained 32 steps per matmul dtype, held-out
+    the bf16 product, and gpt-m trained 16 steps (cut from 32) per matmul
+    dtype, held-out
     perplexity within 15% of bf16's; (d) ``decode_matmul_dtype`` int8 and
     fp8 served on the slab and the pool, and int8 with an int8 cache and
     ``spec_draft=2``, streams against the in-process decode of
@@ -270,6 +272,27 @@ non-zero):
     schedule (layers a stage x the ticks it computes x steps, twice the
     forwards under remat), ms a step beside one card's, one all-to-all's
     and one pipeline hop's bytes and ms.
+27. The LM's async and ZeRO modes and the DiLoCo outer loop (ROADMAP A7d):
+    4 ranks sharing the card (gloo; ``--lsgd-task``) train gpt-s-L512-flash
+    (batch 32, 8 rows a rank, bf16, 4 steps a run) through LMTrainer: (a)
+    ``sync=False``, ``async_avg_every=1``, ``async_update_scale=1.0``, SGD,
+    each step held to one card's step on the whole batch from the same
+    state (phase 26's bounds); (b) ``async_avg_every=2`` at the default
+    scale (4), AdamW: the copies differ after steps 1 and 3 and every rank
+    holds the mean bit for bit after steps 2 and 4, exactly 2 parameter
+    all-reduces, rank 0's first step bit for bit one card's on its 8 rows;
+    (c) ``dp_mode="zero"`` against dp on the same ranks and batches, AdamW,
+    parameters and slots bit for bit, each rank's bytes beside dp's; (d)
+    ``dp_mode="diloco"`` (H=2, outer_lr 0.7, μ 0.9, int8 deltas, SGD) and (e)
+    the same overlapped, each against the one-device gang
+    (``diloco_workers=4``) run on the card on the same batches: θ, momentum
+    (phase 24's rule) and the residual through what the gang owes (the
+    momentum, or the delta in flight, plus the residual: phase 24's rule on
+    its norm) and the residuals' norms. Every rank's B3/B4
+    launches against the schedule (4 layers a step on its 8 rows; the
+    records ``<kernel>[local-sgd-8x512]``, timed in phase 26 at the same
+    shape), ms a step beside one card's dp step, one exchange all-reduce's
+    ms and the delta's payload, dense and int8.
 
 Phase 3 also holds the paged kernels (``decode_block_paged``,
 ``decode_token_paged``, ``verify_tokens_paged``) against their plain
@@ -4780,9 +4803,14 @@ DP_EPOCHS = 100
 # so its test accuracy follows the single-device run of phase 8 (its first
 # 20 epochs on the card printed the same two decimals as the single-device
 # kernel path's plain version on the CPU): it is held to that trajectory,
-# epoch by epoch, within DP_SYNC_ACC_TOL.
+# epoch by epoch, within DP_SYNC_ACC_TOL. Cut (PR 20) from 20 epochs to 14:
+# it runs beside the async topology (53.3 s in PR 19's smoke), which it
+# outlasted at 20 (67.3 s).
 DP_TOPOLOGY_EPOCHS = 75
-DP_SYNC_EPOCHS = 20
+DP_SYNC_EPOCHS = 14
+# (a)'s runs over NCCL: cut (PR 20) from 2 epochs to 1 (the check is bit for
+# bit against SingleDevice, whatever the depth).
+DP_WORLD1_EPOCHS = 1
 DP_SYNC_ACC_TOL = 0.02
 DP_AVG_EVERY = 50
 DP_LR = 0.002
@@ -5008,8 +5036,8 @@ def phase_dp(records, ds, smi):
     for label, strategy in (("single", SingleDevice()), ("sync", SyncDataParallel(world)),
                             ("async", AsyncDataParallel(world, avg_every=DP_AVG_EVERY,
                                                         update_scale=1))):
-        tr = build_trainer(TrainConfig(epochs=2, log_frequency=10**9), datasets=ds,
-                           strategy=strategy, print_fn=lambda *a: None)
+        tr = build_trainer(TrainConfig(epochs=DP_WORLD1_EPOCHS, log_frequency=10**9),
+                           datasets=ds, strategy=strategy, print_fn=lambda *a: None)
         _build.reset_launches()
         t0 = time.perf_counter()
         res = tr.run()
@@ -5018,7 +5046,7 @@ def phase_dp(records, ds, smi):
         if tr._indexed_fn is None or any(_build.LAUNCHES.values()):
             raise AssertionError(f"{label}: the default path on cuda is the scanned plain path")
         finals[label] = [t.clone() for t in tr.strategy.to_canonical(tr.state).params]
-        print(f"  (a) {label}: 2 epochs, {res['global_step']} steps, "
+        print(f"  (a) {label}: {DP_WORLD1_EPOCHS} epoch(s), {res['global_step']} steps, "
               f"{1e3 * wall / res['global_step']:.4f} ms a step, accuracy {res['accuracy']:.4f}")
     for label in ("sync", "async"):
         if not all(torch.equal(a, b) for a, b in zip(finals[label], finals["single"])):
@@ -5080,11 +5108,28 @@ def phase_dp(records, ds, smi):
 
     behind = threading.Thread(target=sync_run)
     behind.start()
+    # Cut (PR 20): the examples' one-epoch clusters run beside the async
+    # topology too, not after it (they took ~25 s of the phase's ~110 s);
+    # one after the other, since both take settings.py's ports.
+    examples = {}
+
+    def examples_run():
+        try:
+            for ex in ("between_sync", "between_async"):
+                examples[ex] = dp_launch(
+                    ex, [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.examples.{ex}"],
+                    DP_WORKERS, 1, env={"DTF_EPOCHS": "1"})
+        except BaseException as exc:  # re-raised on the main thread below
+            examples["error"] = exc
+
+    beside = threading.Thread(target=examples_run)
+    beside.start()
     start("async")
+    beside.join()
+    if "error" in examples:
+        raise examples["error"]
     for ex in ("between_sync", "between_async"):
-        logs = dp_launch(ex, [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.examples.{ex}"],
-                         DP_WORKERS, 1, env={"DTF_EPOCHS": "1"})
-        dp_check_reference_lines(ex, logs, 1)
+        dp_check_reference_lines(ex, examples[ex], 1)
     behind.join()
     if "error" in topology:
         raise topology["error"]
@@ -5151,12 +5196,13 @@ MOE_REQUESTS = 8
 # plain version's f32 sums of the same exact products (the H100's fp8
 # products accumulate in less than f32's precision: 3.3e-4 of the largest
 # at k=512 in a first run, PERF.md); gpt-m trained QUANT_EPOCHS epochs of
-# that corpus (32 steps) per matmul dtype, held-out perplexity within
+# that corpus (16 steps an epoch) per matmul dtype, held-out perplexity within
 # QUANT_PPL_TOL of the bf16 run's (the JAX package's loss-parity contract,
 # tests/test_quantized.py:208).
 QDOT_SHAPE = (16 * 1024, 512, 2048)
 QDOT_FP8_TOL = 1e-3
-QUANT_EPOCHS = 2
+# Cut (PR 20) from 2 epochs to 1 (16 steps a matmul dtype).
+QUANT_EPOCHS = 1
 QUANT_PPL_TOL = 0.15
 # (e) head dim 4: the JAX engine's GQA test model
 # (tests/test_pallas_decode.py:171-176, tiny(num_heads=8, num_kv_heads=2):
@@ -6632,6 +6678,420 @@ def phase_epp(records, smi):
               f"{hop['ms']:.2f} ms [{smi}]")
 
 
+# Phase 27 (ROADMAP A7d): the LM's async and ZeRO modes and the DiLoCo outer
+# loop, 4 ranks sharing the card over gloo (--lsgd-task), gpt-s-L512-flash at
+# a global batch of 32 (8 rows a rank), bf16, 4 steps a run through
+# LMTrainer. SGD steps where a run is held to another (Adam's first step is
+# the gradient's sign; phase 26's note); (b) and the ZeRO pair step by AdamW.
+# Each rank's local attention is EPP_LOCAL's shape, where phase 26 timed B3
+# and B4a: this phase records their launches only.
+LSGD_RANKS = 4
+LSGD_L, LSGD_BATCH, LSGD_STEPS = 512, 32, 4
+LSGD_DILOCO = dict(sync_every=2, outer_lr=0.7, outer_momentum=0.9, delta_dtype="int8")
+# key -> (label, TrainConfig keywords, LMTrainer keywords, optimizer)
+LSGD_RUNS = {
+    "a": ("async, avg_every 1, update_scale 1", dict(sync=False, async_avg_every=1),
+          dict(async_update_scale=1.0), "sgd"),
+    "b": ("async, avg_every 2, update_scale N", dict(sync=False, async_avg_every=2), {},
+          "adamw"),
+    "dp": ("dp 4 (the ZeRO run's reference)", {}, {}, "adamw"),
+    "c": ("zero, dp 4", dict(dp_mode="zero"), {}, "adamw"),
+    "d": ("diloco, H=2, outer_lr 0.7, mu 0.9, int8 deltas", dict(dp_mode="diloco",
+                                                                 **LSGD_DILOCO), {}, "sgd"),
+    "e": ("diloco as (d), overlapped", dict(dp_mode="diloco", delta_overlap=True,
+                                            **LSGD_DILOCO), {}, "sgd"),
+}
+LSGD_PATH = "lm-train-async/zero/diloco gpt-s-L512 4 ranks"
+# The residuals' norms of the two DiLoCo engines may differ by this share
+# (each element is the quantizer's sawtooth, at most half a code).
+LSGD_RESID_NORM = 0.1
+FLASH_LSGD = {"flash_fwd[local-sgd-8x512]": ("flash_fwd", LSGD_PATH),
+              "flash_bwd_fused[local-sgd-8x512]": ("flash_bwd_fused", LSGD_PATH)}
+
+
+def lsgd_trainer(cfg_kw, opt, mesh=None, **trainer_kw):
+    """The gpt-s-L512-flash LMTrainer of a phase-27 run (on ``mesh``, or on
+    one card), each step's cost (the rank's own), ms, B3/B4 launches and the
+    mesh's all-reduces recorded (the step alone: the log line's and the
+    eval's collectives are not a step's)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    model = GPTLM(**{**S_CFG, "max_len": LSGD_L}, attention_impl="flash", flash_min_len=0,
+                  compute_dtype=torch.bfloat16)
+    cfg = TrainConfig(epochs=1, batch_size=LSGD_BATCH, log_frequency=LSGD_STEPS, **cfg_kw)
+    optimizer = optim_lib.sgd(EPP_LR) if opt == "sgd" else optim_lib.adamw(1e-3)
+    tr = LMTrainer(model, sp_corpus(LSGD_L, LSGD_STEPS, LSGD_BATCH), cfg, mesh=mesh,
+                   eval_batch=8, print_fn=lambda *a: None, optimizer=optimizer, **trainer_kw)
+    tr.costs, tr.step_ms, tr.reduces = [], [], []
+    tr.launches = {k: 0 for k in EPP_KERNELS}
+    step = tr._train_step
+
+    def timed(toks, lens):
+        calls = []
+        if mesh is not None:
+            orig = mesh.all_reduce_
+            mesh.all_reduce_ = lambda t, axes=None, op="sum": (calls.append(t.numel()),
+                                                               orig(t, axes, op))[1]
+        before = {k: _build.LAUNCHES.get(k, 0) for k in EPP_KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = step(toks, lens)
+        tr.costs.append(float(cost))  # waits for the step
+        tr.step_ms.append((time.perf_counter() - t0) * 1e3)
+        if mesh is not None:
+            del mesh.all_reduce_
+        tr.reduces.append(calls)
+        for k in EPP_KERNELS:
+            tr.launches[k] += _build.LAUNCHES.get(k, 0) - before[k]
+        return cost
+
+    tr._train_step = timed
+    return tr
+
+
+def params_hash(params) -> str:
+    """sha256 of a parameter tree's bytes (bit-for-bit equality across
+    ranks)."""
+    import hashlib
+
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tree_bytes(tree) -> int:
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def lsgd_task(port, argv) -> int:
+    """One rank of phase 27's world (``--lsgd-task``): every run of
+    LSGD_RUNS on a (4,) ("data",) mesh. (a) rank 0 keeps its copy before
+    each step (every copy is the mean there) and the batch, and takes one
+    card's step on the whole batch from each; (b) every rank's parameter
+    hash after each step and the float64 sums of the exchange's input and
+    output, rank 0 its first step against one card's on its 8 rows; (c)
+    rank 0 holds the ZeRO run's gathered parameters and slots against the dp
+    run's; (d), (e) rank 0 saves the gang's outer state to
+    ``$DTF_LSGD_STATES``; one exchange all-reduce of the parameters timed.
+    Prints ``RESULT <json>`` last."""
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import bootstrap_from_argv
+    from distributed_tensorflow_tpu_torch.config import ClusterConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import make_lm_train_step
+    from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_map
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_tpu_torch.train.local_sgd import (
+        delta_payload_nbytes,
+        params_nbytes,
+    )
+
+    walls = {"start": time.time() - float(os.environ["DTF_LSGD_T0"])}  # from the launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cluster = ClusterConfig.from_lists([f"127.0.0.1:{port + i}" for i in range(LSGD_RANKS)])
+    t0 = time.perf_counter()
+    ctx = bootstrap_from_argv(cluster, argv)
+    out_dir = os.environ["DTF_LSGD_STATES"]
+    mesh = make_mesh((LSGD_RANKS,), ("data",))
+    walls["join"] = time.perf_counter() - t0
+    me, runs, canon = mesh.rank, {}, {}
+    for key, (label, cfg_kw, tr_kw, opt) in LSGD_RUNS.items():
+        t0 = time.perf_counter()
+        tr = lsgd_trainer(cfg_kw, opt, mesh, **tr_kw)
+        kept, hashes, sums = [], [], []
+        step = tr._train_step
+
+        def watched(toks, lens, tr=tr, step=step, kept=kept, hashes=hashes, sums=sums):
+            if key == "a" and me == 0:
+                kept.append((tree_map(torch.clone, tr.state.params), toks.clone()))
+            if key == "b":
+                if me == 0 and not kept:
+                    kept.append((tree_map(torch.clone, tr.state.params), toks.clone()))
+                orig, seen = mesh.mean_, []
+
+                def mean_(tensors, axes=None):  # kept, summed outside the timed step
+                    tensors = list(tensors)
+                    res = orig(tensors, axes)
+                    seen.append((tensors, res))
+                    return res
+
+                mesh.mean_ = mean_
+            cost = step(toks, lens)
+            if key == "b":
+                del mesh.mean_
+                for tensors, res in seen:
+                    sums.append([float(sum(t.double().sum() for t in x)) for x in (tensors, res)]
+                                + [float(sum(t.double().abs().sum() for t in tensors))])
+                hashes.append(params_hash(tr.state.params))
+                if me == 0 and len(kept) == 1:
+                    kept.append(tree_map(torch.clone, tr.state.params))
+            return cost
+
+        tr._train_step = watched
+        res = tr.run()
+        torch.cuda.synchronize()
+        run = dict(costs=tr.costs, step_ms=tr.step_ms, mode=tr.mode, launches=tr.launches,
+                   reduces=[len(c) for c in tr.reduces], reduce_sizes=tr.reduces,
+                   perplexity=res["perplexity"], hashes=hashes, sums=sums,
+                   param_bytes=tree_bytes(tr.state.params),
+                   slot_bytes=tree_bytes(tr.state.opt_state),
+                   local_embed=list(tr.state.params.embed.shape))
+        if key == "a" and me == 0:  # one card's step from each kept state
+            single = make_lm_train_step(tr.model, optim_lib.sgd(EPP_LR))
+            states = [p for p, _ in kept] + [tr.state.params]
+            run["refs"] = []
+            for i, (p, toks) in enumerate(kept):
+                reached, _, loss = single(p, (), toks)
+                got, want, init = ([t.float().cpu() for t in tree_leaves(x)]
+                                   for x in (states[i + 1], reached, p))
+                moved, far = param_gap(got, want, init)
+                run["refs"].append(dict(loss=float(loss), moved=moved, far=far))
+        if key == "b" and me == 0:  # one card's first step on rank 0's 8 rows
+            init, toks = kept[0]
+            o = tr.optimizer
+            rows = toks[:LSGD_BATCH // LSGD_RANKS]
+            new, _, _ = make_lm_train_step(tr.model, o)(init, o.init(init), rows)
+            ref = tree_map(lambda p, q: p + (q - p) * LSGD_RANKS, init, new)
+            got, want, start = ([t.float().cpu() for t in tree_leaves(x)]
+                                for x in (kept[1], ref, init))
+            run["first_step"] = dict(bitwise=all(torch.equal(a, b) for a, b in zip(got, want)),
+                                     gap=param_gap(got, want, start))
+        if key in ("dp", "c"):
+            c = tr.to_canonical()  # a collective
+            canon[key] = c
+            if key == "c" and me == 0:
+                dp = canon["dp"]
+                pairs = list(zip(tree_leaves(c.params) + tree_leaves(c.opt_state),
+                                 tree_leaves(dp.params) + tree_leaves(dp.opt_state)))
+                run["vs_dp"] = dict(
+                    bitwise=all(torch.equal(a, b) for a, b in pairs),
+                    max_abs=max((a.float() - b.float()).abs().max().item() for a, b in pairs
+                                if a.is_floating_point()))
+        if key in ("d", "e") and me == 0:
+            d = tr.state.opt_state
+            f = d.inflight
+            torch.save({"theta": [t.cpu() for t in tree_leaves(d.theta)],
+                        "momentum": [t.cpu() for t in tree_leaves(d.momentum)],
+                        "residual": [t.cpu() for t in tree_leaves(d.residual)],
+                        "delta": None if f is None else [t.cpu() for t in tree_leaves(f.delta)],
+                        "landing": None if f is None else [t.cpu() for t in
+                                                           tree_leaves(f.landing)]},
+                       os.path.join(out_dir, f"{key}.pt"))
+        runs[key] = run
+        del tr
+        walls[key] = time.perf_counter() - t0
+    canon.clear()
+    # One exchange: the mean of the ~21 MB f32 parameter set, staged through
+    # the host under gloo.
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+
+    params = tuple(tree_leaves(GPTLM(**{**S_CFG, "max_len": LSGD_L}).init(seed=1,
+                                                                          device=mesh.device)))
+    for _ in range(2):
+        mesh.mean_(params, "data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mesh.mean_(params, "data")
+    torch.cuda.synchronize()
+    exchange = dict(ms=(time.perf_counter() - t0) / 10 * 1e3, bytes=params_nbytes(params),
+                    int8_bytes=delta_payload_nbytes(params, "int8"))
+    ctx.close()
+    print("RESULT " + json.dumps(dict(rank=me, backend=mesh.backend, runs=runs,
+                                      exchange=exchange, walls=walls)))
+    return 0
+
+
+def owed_gap(saved, dst, key):
+    """The residual's check: what the gang still owes, with nothing rounded
+    away, is continuous in the mean, so it is held by phase 24's rule
+    relative to its norm, where the residual itself (the quantizer's
+    sawtooth of it) is not: a code flipped where the two means' last bits
+    straddle a rounding midpoint moves an element's residual by a whole
+    code, and in bf16 the next round's steps then scatter every residual
+    within its code. Without overlap the momentum plus the residual (μ·Δ̂₁
+    + Δ₂ + r₁, the last round's delta as it was before it was rounded); with
+    overlap the delta in flight plus the residual (that round's delta).
+    Returns (that gap, the residuals' norm ratio)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    first = saved["momentum"] if key == "d" else saved["delta"]
+    other = dst.momentum if key == "d" else dst.inflight.delta
+    got = [a + r for a, r in zip(first, saved["residual"])]
+    want = [a.cpu() + r.cpu() for a, r in zip(tree_leaves(other), tree_leaves(dst.residual))]
+    gap, _ = param_gap(got, want, [torch.zeros_like(t) for t in want])
+    norm = lambda ts: torch.cat([t.float().reshape(-1) for t in ts]).norm().item()  # noqa: E731
+    return gap, norm(saved["residual"]) / norm([t.cpu() for t in tree_leaves(dst.residual)])
+
+
+def phase_lsgd(records, smi):
+    """27: LSGD_RANKS ranks sharing the card (gloo, every collective staged
+    through the host) run LSGD_RUNS through LMTrainer: (a) each step held to
+    one card's step on the whole batch from the same state (SP_LOSS_RTOL on
+    the loss, SP_PARAM_REL on that step's movement); (b) the copies differ
+    after steps 1 and 3, every rank holds the mean bit for bit after steps 2
+    and 4, exactly 2 parameter all-reduces, rank 0's first step bit for bit
+    one card's on its 8 rows; (c) ZeRO against dp on the same ranks and
+    batches, bit for bit, with each rank's parameter and slot bytes; (d), (e)
+    the mesh gang against the one-device gang on the card with the same
+    batches: θ and momentum by SP_PARAM_REL, the residual through what the
+    gang owes (``owed_gap``).
+    Every rank's B3/B4 launches against the schedule (4 layers a step on its
+    8 rows), ms a step beside one card's dp step, one exchange's ms and the
+    payload bytes, dense and int8."""
+    import socket
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    sdir = tempfile.mkdtemp(prefix="lsgd-states-")
+    me = [sys.executable, os.path.abspath(__file__)]
+    logs = dp_launch("lsgd", me + ["--lsgd-task", "--dp-port", str(port)], LSGD_RANKS, 0,
+                     env={"DTF_LSGD_STATES": sdir, "DTF_LSGD_T0": repr(time.time())})
+    ranks = sorted((dp_result(logs[f"worker{r}"]) for r in range(LSGD_RANKS)),
+                   key=lambda r: r["rank"])
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"{LSGD_RANKS} ranks on one card took {[r['backend'] for r in ranks]}")
+    one = lsgd_trainer({}, "adamw")  # one card's dp step: the whole batch
+    one.run()
+    torch.cuda.synchronize()
+    one_ms = float(np.median(one.step_ms[1:]))
+    del one
+    n, h, d = S_CFG["num_layers"], S_CFG["num_heads"], S_CFG["model_dim"] // S_CFG["num_heads"]
+    b_loc = LSGD_BATCH // LSGD_RANKS
+    bwd = ("flash_bwd_fused",) if fa.resolve_fused(None, b_loc * h, LSGD_L, d) else (
+        "flash_bwd_dq", "flash_bwd_dkv")
+    want = {k: 0 for k in EPP_KERNELS}
+    want.update({"flash_fwd": n * LSGD_STEPS, **{k: n * LSGD_STEPS for k in bwd}})
+    total = {k: 0 for k in EPP_KERNELS}
+    for key, (label, cfg_kw, _, opt) in LSGD_RUNS.items():
+        got = [r["runs"][key] for r in ranks]
+        g0 = got[0]
+        ms = float(np.median(g0["step_ms"][1:]))
+        mean_costs = [float(np.mean(c)) for c in zip(*(g["costs"] for g in got))]
+        head = (f"  ({key}) {label} ({LSGD_STEPS} steps of {LSGD_BATCH} x {LSGD_L}, {opt}, "
+                f"mode {g0['mode']}): costs, the mean over the ranks, "
+                f"{', '.join(f'{c:.4f}' for c in mean_costs)}")
+        if any(len(g["costs"]) != LSGD_STEPS or not np.all(np.isfinite(g["costs"]))
+               for g in got):
+            raise AssertionError(f"({key}) costs {[g['costs'] for g in got]}")
+        if key == "a":
+            refs = g0["refs"]
+            gap = max(abs(c - r["loss"]) / max(1.0, abs(r["loss"]))
+                      for c, r in zip(mean_costs, refs))
+            moved = max(r["moved"] for r in refs)
+            print(f"{head}; one card's step from each state: losses "
+                  f"{', '.join(f'{r['loss']:.4f}' for r in refs)}, relative gap {gap:.2e} "
+                  f"(tolerance {SP_LOSS_RTOL}), parameters at most {moved:.2e} of that step's "
+                  f"movement apart (tolerance {SP_PARAM_REL}; largest element gap "
+                  f"{max(r['far'] for r in refs):.2e})")
+            if not (gap <= SP_LOSS_RTOL and moved <= SP_PARAM_REL):
+                raise AssertionError(f"(a) async avg_every=1 parts from one card's step: "
+                                     f"loss gap {gap}, parameters {moved}")
+        if key == "b":
+            same = [len({g["hashes"][i] for g in got}) == 1 for i in range(LSGD_STEPS)]
+            # Σ of the exchange's output against the mean of the ranks' Σ of
+            # its input, in f64: within 1e-6 of Σ|input| (an f32 mean's
+            # rounding is ~6e-8 of an element).
+            mean_ok = all(abs(np.mean([g["sums"][j][0] for g in got]) - g0["sums"][j][1])
+                          <= 1e-6 * np.mean([g["sums"][j][2] for g in got])
+                          for j in range(len(g0["sums"])))
+            fs = g0["first_step"]
+            print(f"{head}; every rank's copy the same after steps 1-4: {same} (the exchange "
+                  f"after steps 2 and 4, its output the mean of the inputs: {mean_ok}); "
+                  f"parameter all-reduces a step {g0['reduces']}; rank 0's first step against "
+                  f"one card's on its {b_loc} rows: bit for bit {fs['bitwise']} (gap "
+                  f"{fs['gap'][0]:.2e} of the step)")
+            if same != [False, True, False, True] or not mean_ok or not fs["bitwise"]:
+                raise AssertionError(f"(b) copies {same}, mean {mean_ok}, first step {fs}")
+            if any(g["reduces"] != [0, 1, 0, 1] or len(g["sums"]) != 2 for g in got):
+                raise AssertionError(f"(b) all-reduces {[g['reduces'] for g in got]}")
+        if key == "c":
+            vs = g0["vs_dp"]
+            dp = ranks[0]["runs"]["dp"]
+            print(f"{head}; against dp on the same ranks and batches: parameters and slots "
+                  f"bit for bit {vs['bitwise']} (max abs gap {vs['max_abs']:.3e}); a rank "
+                  f"holds {g0['param_bytes']} parameter and {g0['slot_bytes']} slot bytes "
+                  f"(dp {dp['param_bytes']} and {dp['slot_bytes']}), embed {g0['local_embed']}; "
+                  f"all-reduces a step {g0['reduces']} (dp {dp['reduces']})")
+            if not vs["bitwise"] or not g0["param_bytes"] * LSGD_RANKS <= dp["param_bytes"] * 1.01:
+                raise AssertionError(f"(c) zero against dp: {vs}, bytes {g0['param_bytes']}")
+        if key in ("d", "e"):
+            # The one-device gang on the card, the same batches.
+            ref = lsgd_trainer(dict(cfg_kw, diloco_workers=LSGD_RANKS), opt)
+            start = [t.cpu() for t in tree_leaves(ref.state.opt_state.theta)]
+            ref.run()
+            torch.cuda.synchronize()
+            saved = torch.load(os.path.join(sdir, f"{key}.pt"))
+            dst = ref.state.opt_state
+            init = [torch.zeros_like(t) for t in start]
+            t_moved, t_far = param_gap(saved["theta"], tree_leaves(dst.theta), start)
+            m_moved, _ = param_gap(saved["momentum"], tree_leaves(dst.momentum), init)
+            owed, ratio = owed_gap(saved, dst, key)
+            ref_costs = ref.costs
+            print(f"{head}; the one-device gang on the card ({LSGD_RANKS} workers, the same "
+                  f"batches, costs {', '.join(f'{c:.4f}' for c in ref_costs)}): θ "
+                  f"{t_moved:.2e} of its movement apart (largest element gap {t_far:.2e}), "
+                  f"momentum {m_moved:.2e} of its norm apart, {'momentum' if key == 'd' else 'delta in flight'} "
+                  f"plus residual {owed:.2e} of its norm apart (tolerance {SP_PARAM_REL}); the "
+                  f"residuals' norms {ratio:.4f} of each other (limit 1 ± {LSGD_RESID_NORM}); "
+                  f"all-reduces a step {g0['reduces']}")
+            if saved["landing"] is not None:
+                l_moved, _ = param_gap(saved["landing"], tree_leaves(dst.inflight.landing),
+                                       start)
+                print(f"  ({key}) in-flight landing {l_moved:.2e} of its movement apart")
+                if not l_moved <= SP_PARAM_REL:
+                    raise AssertionError(f"({key}) landing {l_moved}")
+            if not (t_moved <= SP_PARAM_REL and m_moved <= SP_PARAM_REL and owed <= SP_PARAM_REL
+                    and abs(ratio - 1) <= LSGD_RESID_NORM):
+                raise AssertionError(f"({key}) mesh gang against the one-device gang: θ "
+                                     f"{t_moved}, momentum {m_moved}, owed {owed}, residual "
+                                     f"norms {ratio}")
+            if any(g["reduces"] != [0, 1, 0, 1] for g in got):
+                raise AssertionError(f"({key}) all-reduces {[g['reduces'] for g in got]}")
+            del ref
+        print(f"  ({key}) {ms:.2f} ms a step over {LSGD_RANKS} ranks on one card (gloo), one "
+              f"card's dp step {one_ms:.2f} ms [{smi}]")
+        for r, g in zip(ranks, got):
+            if g["launches"] != want:
+                raise AssertionError(f"({key}) rank {r['rank']}: launches {g['launches']}, "
+                                     f"want {want}")
+        print(f"  ({key}) every rank's launches {g0['launches']} = the schedule ({n} layers x "
+              f"{LSGD_STEPS} steps on its {b_loc} rows)")
+        if key != "dp":
+            for k in EPP_KERNELS:
+                total[k] += g0["launches"][k]
+    for rec, (base, _) in FLASH_LSGD.items():
+        records[rec] = dict(records[rec.replace("local-sgd", "ep-pp")], launches=total[base])
+    w = ranks[0]["walls"]
+    print("  rank 0's seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
+          + " (start: the launch to the task's first line; join: the group and the mesh; "
+            "a run: its trainer, steps, eval and checks)")
+    for r in ranks:
+        x = r["exchange"]
+        print(f"  rank {r['rank']}: one exchange all-reduce of the f32 parameters "
+              f"({x['bytes']} bytes, staged through the host under gloo): {x['ms']:.2f} ms; a "
+              f"delta's payload {x['bytes']} bytes dense, {x['int8_bytes']} int8 [{smi}]")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -6830,6 +7290,8 @@ def main() -> int:
                     help="run one rank of phase 25's world (started by the launcher)")
     ap.add_argument("--epp-task", action="store_true",
                     help="run one rank of phase 26's world (started by the launcher)")
+    ap.add_argument("--lsgd-task", action="store_true",
+                    help="run one rank of phase 27's world (started by the launcher)")
     args, rest = ap.parse_known_args()
     if args.dp_task:
         return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
@@ -6839,6 +7301,8 @@ def main() -> int:
         return tp_task(args.dp_port, rest)
     if args.epp_task:
         return epp_task(args.dp_port, rest)
+    if args.lsgd_task:
+        return lsgd_task(args.dp_port, rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
@@ -6969,6 +7433,11 @@ def main() -> int:
           "pp, dp x pp with remat)")
     phase_epp(records, smi)
     print(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
+    t27 = time.perf_counter()
+    phase(f"27: the LM's async and ZeRO modes and DiLoCo ({LSGD_RANKS} ranks on the card: async "
+          "avg_every 1 and 2, zero against dp, the DiLoCo gang with int8 deltas, overlapped)")
+    phase_lsgd(records, smi)
+    print(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -6992,6 +7461,7 @@ def main() -> int:
     variants += [(name, base, path) for name, (base, path) in FLASH_OFFSET.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_TP.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_EPP.items()]
+    variants += [(name, base, path) for name, (base, path) in FLASH_LSGD.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

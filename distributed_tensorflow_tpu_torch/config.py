@@ -17,8 +17,13 @@ family of ``models/__init__.MODEL_REGISTRY`` (``mlp``, ``cnn``, ``lstm``,
 ``transformer``); ``launch.build_trainer`` builds it.
 
 A JAX field the port does not have yet is refused, whatever its value,
-naming the ROADMAP item that brings it; so are the values of ``dp_mode``
-that a later item brings.
+naming the ROADMAP item that brings it (A8a the checkpoints and the
+DiLoCo mailbox gang's ``stale_limit``, A8b the logs and profiles); so
+would be a value of ``dp_mode`` that a later item brings (none is left).
+The DiLoCo outer loop's fields (``sync_every``, ``outer_lr``,
+``outer_momentum``, ``diloco_workers``, ``delta_dtype``,
+``delta_overlap``) carry the JAX defaults and validation
+(``train/local_sgd.py``).
 """
 
 from __future__ import annotations
@@ -29,16 +34,16 @@ from typing import Any, Sequence
 
 # JAX TrainConfig field -> the ROADMAP item that ports it.
 NOT_PORTED = {
+    # Checkpoints and recovery; stale_limit is the DiLoCo mailbox gang's
+    # (local_sgd.DeltaExchange), whose posts ride A8a's CRC records.
     **dict.fromkeys(
         ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
-         "logs_path", "profile_dir"), "A8"),
-    # The DiLoCo outer loop and its streaming/compressed exchange.
-    **dict.fromkeys(
-        ("sync_every", "outer_lr", "outer_momentum", "diloco_workers", "delta_dtype",
-         "delta_overlap", "stale_limit"), "A7d"),
+         "stale_limit"), "A8a"),
+    # Observability.
+    **dict.fromkeys(("logs_path", "profile_dir"), "A8b"),
 }
 # Values of dp_mode that a later item brings (LM-trainer modes) -> its item.
-DP_MODES_NOT_PORTED = {"diloco": "A7d"}
+DP_MODES_NOT_PORTED: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,12 +158,31 @@ class _TrainFields:
     # async_avg_every steps; 0 = never).
     sync: bool = True
     async_avg_every: int = 0
+    # Local SGD / DiLoCo (train/local_sgd.py; the LM trainer's
+    # dp_mode="diloco"): each worker runs sync_every = H inner steps, then
+    # the gang applies one outer Nesterov update from Δ = θ_start −
+    # mean_w(θ_w). outer_lr None = N (the worker count, async's
+    # update_scale=N convention); outer_momentum 0 keeps that step
+    # uncompounded; sync_every=1, outer_lr=1, outer_momentum=0 is the
+    # per-step parameter mean.
+    sync_every: int = 1
+    outer_lr: float | None = None
+    outer_momentum: float = 0.0
+    # dp_mode="diloco" without a mesh: the same gang of this many workers
+    # emulated on one device (0 = diloco needs a mesh).
+    diloco_workers: int = 0
+    # The outer delta quantized per tensor before the exchange (None |
+    # "int8" | "fp8"), its error carried into the next round.
+    delta_dtype: str | None = None
+    # The outer update applied one round late (streaming DiLoCo), the
+    # copies merged toward the anchor (local_sgd.OVERLAP_MERGE).
+    delta_overlap: bool = False
     # Sync parameter layout: "replicated" or "zero" (ZeRO-3,
-    # parallel/fsdp.py). The LM trainer also takes "sp" (sequence
-    # parallelism over a mesh's seq axis), "tp" (tensor parallelism over
-    # its model axis), "ep" (expert parallelism over its expert axis) and
-    # "pp" (the GPipe pipeline over its stage axis); its "diloco" mode and
-    # its ZeRO and async modes are ROADMAP A7d.
+    # parallel/fsdp.py; the LM trainer's over models/gpt.make_lm_zero_parts).
+    # The LM trainer also takes "sp" (sequence parallelism over a mesh's
+    # seq axis), "tp" (tensor parallelism over its model axis), "ep"
+    # (expert parallelism over its expert axis), "pp" (the GPipe pipeline
+    # over its stage axis) and "diloco" (the local-SGD outer loop).
     dp_mode: str = "replicated"
     # Keep N device-placed batches in flight in the eager loop
     # (data/prefetch.py); 0 disables.
@@ -203,6 +227,32 @@ class _TrainFields:
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(
                 f"compute_dtype must be 'bfloat16' or 'float32', got {self.compute_dtype!r}"
+            )
+        if self.sync_every < 1:
+            raise ValueError(
+                f"sync_every must be >= 1 (1 = exchange every step), got {self.sync_every}"
+            )
+        if self.outer_lr is not None and not self.outer_lr > 0:
+            raise ValueError(
+                f"outer_lr must be > 0 (or None for the worker-count default), "
+                f"got {self.outer_lr}"
+            )
+        if not 0 <= self.outer_momentum < 1:
+            raise ValueError(f"outer_momentum must be in [0, 1), got {self.outer_momentum}")
+        if self.diloco_workers < 0:
+            raise ValueError(
+                f"diloco_workers must be >= 0 (0 = diloco needs a mesh), "
+                f"got {self.diloco_workers}"
+            )
+        if self.delta_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"delta_dtype must be None, 'int8', or 'fp8'; got {self.delta_dtype!r}"
+            )
+        if (self.delta_dtype or self.delta_overlap) and self.dp_mode != "diloco":
+            raise ValueError(
+                "delta_dtype/delta_overlap are diloco outer-loop levers "
+                "(train/local_sgd.py) and would be silently ignored under "
+                f"dp_mode={self.dp_mode!r}; set dp_mode='diloco'"
             )
 
 

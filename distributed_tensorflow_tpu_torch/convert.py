@@ -42,6 +42,18 @@ and, with ``stages`` / ``staged``, a pipeline state (the blocks staged as
 staged tree (``pipeline_stage_params``) becomes a canonical one through
 :func:`unstage_numpy`.
 
+The LM's async, ZeRO and DiLoCo states: a JAX async state (GPT params
+and Adam state stacked a copy a replica ``[n, ...]``) becomes this rank's
+copy through :func:`lm_async_state_from_numpy` and every rank's copy
+stacks back through :func:`lm_async_state_to_numpy` (a collective); a
+ZeRO state is :func:`lm_sharded_state_from_numpy` / ``_to_numpy`` over
+``models/gpt.make_lm_zero_parts``' specs; a JAX ``DiLoCoState`` (the inner
+states stacked ``[n, ...]``, θ_start, momentum, the residual and the
+in-flight ``{"delta", "landing"}``, each None when its lever is off) goes
+through :func:`diloco_state_from_numpy` / :func:`diloco_state_to_numpy`,
+this rank's inner state on a mesh (the others gathered back), the whole
+stack on one device; None stays None. Each round trip is bitwise.
+
 Adam state: optax's ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu``
 over the GPT param tree), or a dict of those keys, carried to the port's
 ``ops/optim.AdamState`` and back, so a run can continue across the two
@@ -378,3 +390,93 @@ def unstage_numpy(tree) -> dict:
     blocks = {k: np.asarray(v) for k, v in _as_dict(d["blocks"]).items()}
     return {**{k: np.asarray(v) for k, v in d.items() if k != "blocks"},
             "blocks": {k: v.reshape((-1,) + v.shape[2:]) for k, v in blocks.items()}}
+
+
+def _lm_opt_from_numpy(state, device=None):
+    """An optax (or dict) SGD or Adam state over GPT params → the port's
+    (``()`` for constant-lr SGD, else ``AdamState``)."""
+    top = _adam_like(state)
+    return () if top is None else adam_state_from_numpy(top, device)
+
+
+def _lm_opt_to_numpy(state) -> dict:
+    """:func:`adam_state_to_numpy` of an ``AdamState`` whose count may be a
+    stack ``[n]``, ``{}`` for constant-lr SGD's empty state."""
+    if not isinstance(state, AdamState):
+        return {}
+    return {"count": state.count.cpu().numpy(), "mu": gpt_params_to_numpy(state.mu),
+            "nu": gpt_params_to_numpy(state.nu)}
+
+
+def _stacked(tree, mesh, axis):
+    """Every rank's tensors of ``tree`` stacked ``[n, ...]`` in axis order
+    (a collective over ``axis``)."""
+    from distributed_tensorflow_tpu_torch.ops.collectives import all_gather_raw
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_map
+
+    return tree_map(lambda t: all_gather_raw(t.unsqueeze(0), mesh, axis, 0), tree)
+
+
+def lm_async_state_from_numpy(params, opt_state, mesh, axis: str = "data",
+                              device=None) -> tuple:
+    """A JAX async LM state (GPT params and their SGD or Adam state stacked
+    ``[n, ...]``, numpy or the JAX trees) → this rank's copy ``(params,
+    opt_state)`` (its index along ``axis``)."""
+    r = mesh.axis_index(axis)
+    return (gpt_params_from_numpy(_row(params, r), device=device),
+            _lm_opt_from_numpy(_row(opt_state, r), device))
+
+
+def lm_async_state_to_numpy(params, opt_state, mesh, axis: str = "data") -> tuple:
+    """Every rank's copy of GPT params and optimizer state → the JAX async
+    layout as numpy, stacked ``[n, ...]`` (a collective over ``axis``)."""
+    return (gpt_params_to_numpy(_stacked(params, mesh, axis)),
+            _lm_opt_to_numpy(_stacked(opt_state, mesh, axis)))
+
+
+def diloco_state_from_numpy(state, mesh=None, axis: str = "data", device=None):
+    """A JAX ``DiLoCoState`` (numpy, or the NamedTuple) → the port's: on a
+    ``mesh`` the inner state of this rank's worker, else the stacked
+    ``[n, ...]`` inner states of the one-device gang; θ_start, momentum,
+    residual and in-flight state as they are (None stays None)."""
+    from distributed_tensorflow_tpu_torch.train.local_sgd import DiLoCoState, InFlight
+
+    d = _as_dict(state)
+    inner = d["inner"]
+    if _adam_like(inner) is None:
+        inner = ()
+    elif mesh is not None:
+        inner = _lm_opt_from_numpy(_row(inner, mesh.axis_index(axis)), device)
+    else:
+        top = _as_dict(_adam_like(inner))
+        inner = AdamState(_tensor(top["count"], resolve_device(device), torch.int32),
+                          gpt_params_from_numpy(top["mu"], device=device),
+                          gpt_params_from_numpy(top["nu"], device=device))
+
+    def tree(x):
+        return None if x is None else gpt_params_from_numpy(x, device=device)
+
+    f = d.get("inflight")
+    return DiLoCoState(inner, tree(d["theta"]), tree(d["momentum"]), tree(d.get("residual")),
+                       None if f is None else InFlight(tree(_as_dict(f)["delta"]),
+                                                       tree(_as_dict(f)["landing"])))
+
+
+def diloco_state_to_numpy(state, mesh=None, axis: str = "data") -> dict:
+    """The port's ``DiLoCoState`` → the JAX fields as numpy, the inner
+    states stacked ``[n, ...]`` (on a ``mesh`` gathered from every rank: a
+    collective), ``inflight`` as ``{"delta", "landing"}``; None stays
+    None."""
+    inner = state.inner
+    if mesh is not None and isinstance(inner, AdamState):
+        inner = _stacked(inner, mesh, axis)
+    inner = _lm_opt_to_numpy(inner)
+
+    def tree(x):
+        return None if x is None else gpt_params_to_numpy(x)
+
+    f = state.inflight
+    return {"inner": inner, "theta": tree(state.theta), "momentum": tree(state.momentum),
+            "residual": tree(state.residual),
+            "inflight": None if f is None else {"delta": tree(f.delta),
+                                                "landing": tree(f.landing)}}

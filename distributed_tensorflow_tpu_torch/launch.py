@@ -30,13 +30,14 @@ import torch
 
 from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
 
-# Environment knobs of the JAX launcher that this slice does not port.
+# Environment knobs of the JAX launcher that the port does not have yet ->
+# the ROADMAP item that brings them: checkpoints and the DiLoCo mailbox
+# gang's window (A8a), the logs (A8b), the elastic gang (A8c).
 NOT_PORTED_ENV = {
-    "DTF_CHECKPOINT": "A8", "DTF_KEEP_LAST": "A8", "DTF_MAX_ROLLBACKS": "A8",
-    "DTF_MAX_RESTARTS": "A8", "DTF_STALL_TIMEOUT_MS": "A8", "DTF_MIN_WORKERS": "A8",
-    "DTF_REJOIN_TIMEOUT_S": "A8", "DTF_LOGS": "A8",
-    "DTF_SYNC_EVERY": "A7d", "DTF_OUTER_LR": "A7d", "DTF_OUTER_MOMENTUM": "A7d",
-    "DTF_DELTA_DTYPE": "A7d", "DTF_STALE_LIMIT": "A7d",
+    "DTF_CHECKPOINT": "A8a", "DTF_KEEP_LAST": "A8a", "DTF_MAX_ROLLBACKS": "A8a",
+    "DTF_STALE_LIMIT": "A8a", "DTF_LOGS": "A8b",
+    "DTF_MAX_RESTARTS": "A8c", "DTF_STALL_TIMEOUT_MS": "A8c", "DTF_MIN_WORKERS": "A8c",
+    "DTF_REJOIN_TIMEOUT_S": "A8c",
 }
 
 
@@ -45,8 +46,11 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     name: ``mlp``, ``cnn``, ``lstm``, ``transformer``), DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
     compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
-    "selective"), DTF_MATMUL_DTYPE (empty → None, else "int8" | "fp8"), as
-    the JAX launcher reads them. The JAX launcher's other
+    "selective"), DTF_MATMUL_DTYPE (empty → None, else "int8" | "fp8"), and
+    the DiLoCo outer loop's DTF_SYNC_EVERY, DTF_OUTER_LR (empty → None, the
+    worker-count default), DTF_OUTER_MOMENTUM and DTF_DELTA_DTYPE (empty →
+    None, else "int8" | "fp8"), as the JAX launcher reads them. The JAX
+    launcher's other
     knobs raise naming the ROADMAP item that brings them, unless empty;
     invalid values raise ValueError naming the knob."""
 
@@ -80,6 +84,16 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     if "DTF_MATMUL_DTYPE" in os.environ:
         # Bad names fail in TrainConfig.
         kw["matmul_dtype"] = os.environ["DTF_MATMUL_DTYPE"] or None
+    if "DTF_SYNC_EVERY" in os.environ:
+        kw["sync_every"] = _parse("DTF_SYNC_EVERY", int)
+    if "DTF_OUTER_LR" in os.environ:
+        raw = os.environ["DTF_OUTER_LR"]
+        kw["outer_lr"] = _parse("DTF_OUTER_LR", float) if raw else None
+    if "DTF_OUTER_MOMENTUM" in os.environ:
+        kw["outer_momentum"] = _parse("DTF_OUTER_MOMENTUM", float)
+    if "DTF_DELTA_DTYPE" in os.environ:
+        # Bad names, and a lever on a job that is not diloco, fail in TrainConfig.
+        kw["delta_dtype"] = os.environ["DTF_DELTA_DTYPE"] or None
     return cfg.replace(**kw) if kw else cfg
 
 

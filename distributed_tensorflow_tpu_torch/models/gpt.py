@@ -106,8 +106,16 @@ every stage. JAX's automatic gradient sums are written out: each step sums
 a replicated leaf's gradient over the axes that split the batch, and a
 split leaf's over those its own split has not already summed.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the LM's ZeRO and async steps (A7d). The
+The LM's async local SGD (``make_lm_async_parts`` /
+``make_lm_async_train_step``, JAX :3094-3243) keeps a copy of the
+parameters and optimizer state a rank of the data axis, each stepping on
+its rows of the batch with its update scaled by ``update_scale``, and every
+``avg_every`` steps all copies jump to their mean through one all-reduce;
+no collective runs on the other steps. Its ZeRO step (``make_lm_zero_parts``;
+JAX's GSPMD layout over ``parallel/fsdp.fsdp_specs``, ``lm_trainer.py``
+:597-604) keeps each rank's slice of every parameter and slot, gathers the
+parameters for the forward and updates the slices with the summed gradient.
+The DiLoCo outer loop over either engine is ``train/local_sgd.py``. The
 CUDA decode kernels compute in the model's dtype, bf16 or f32, at head dims
 4 to 128 (``ops/fused_decode.HEAD_DIMS``).
 """
@@ -166,7 +174,12 @@ from distributed_tensorflow_tpu_torch.ops.quantized import (
     quantized_dot,
     wo_dot,
 )
-from distributed_tensorflow_tpu_torch.parallel.specs import aligned_specs, pinned_update, slot_specs
+from distributed_tensorflow_tpu_torch.parallel.specs import (
+    aligned_specs,
+    pinned_update,
+    shard_tree,
+    slot_specs,
+)
 
 # "fused" is the megakernel (one launch per token), "fused-layer" the
 # per-layer kernel kept as its parity oracle (the JAX "pallas-layer"),
@@ -1569,7 +1582,8 @@ def _shard(t, mesh, axis, dim):
     return t.narrow(dim, mesh.axis_index(axis) * m, m)
 
 
-def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs=None):
+def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs=None,
+                   whole: bool = False):
     """The update from a rank's share of a global loss: its gradient
     summed over ``axes`` (the JAX shard_map's auto-psum of a replicated
     parameter's gradient), the shares of the loss summed likewise, one flat
@@ -1578,11 +1592,13 @@ def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs
     (``parallel/specs.pinned_update``); a leaf split over an axis of
     ``axes`` already holds its gradient summed over that axis (an expert's
     weights, through the all-to-all's backward) and is summed over the
-    others only."""
+    others only. ``whole``: ``leaves`` are the parameters whole (ZeRO's
+    gathered slices), every gradient is summed over ``axes`` and each rank
+    keeps its slice of ``specs``."""
     with torch.enable_grad():
         grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
-        split = [()] * len(grads) if specs is None else aligned_specs(params, specs)
+        split = [()] * len(grads) if specs is None or whole else aligned_specs(params, specs)
         groups = {tuple(axes): [-1]}  # -1: the loss
         for i, sp in enumerate(split):
             groups.setdefault(tuple(a for a in axes if a not in sp), []).append(i)
@@ -1601,6 +1617,8 @@ def _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs
                 else:
                     out[i] = v.to(t.dtype)
         grads = tree_unflatten(params, out)
+        if whole:
+            grads = shard_tree(grads, specs, mesh)
         if specs is None:
             params2, opt_state = optimizer.update(grads, opt_state, params)
         else:
@@ -1907,18 +1925,27 @@ def make_lm_pp_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "stage",
     return step
 
 
-def _batch_step(model: GPTLM, optimizer, mesh, axis: str | None, tp=None, specs=None):
+def _batch_step(model: GPTLM, optimizer, mesh, axis: str | None, tp=None, specs=None,
+                zero: bool = False):
     """The step over the batch split on ``axis`` of ``mesh`` (None: every
     rank takes the whole batch), the loss the global batch's (the mean of
     the ranks' means; with ``lengths``, the global masked mean) and its
     gradient summed over the axis; under ``tp`` the forward and update on
-    this rank's blocks of ``specs``."""
+    this rank's blocks of ``specs``. ``zero``: the params are this rank's
+    slices of ``specs`` over ``axis`` (ZeRO), gathered whole for the forward
+    (:func:`~parallel.fsdp.gather_sharded`), the summed gradient cut to the
+    slices and the update run on them."""
     axes = () if axis is None else (axis,)
     n = mesh.axis_size(axes)
+    if zero:
+        from distributed_tensorflow_tpu_torch.parallel.fsdp import gather_sharded
+
+        spec_list = aligned_specs(model.init(device="meta"), specs)
 
     def step(params, opt_state, tokens, lengths=None):
         toks, lens = _shard(tokens, mesh, axis, 0), _shard(lengths, mesh, axis, 0)
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        full = gather_sharded(params, spec_list, mesh, axis) if zero else params
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(full)]
         with torch.enable_grad():
             loss = model.loss(tree_unflatten(params, leaves), toks, lens, tp)
             if lens is None:
@@ -1927,9 +1954,98 @@ def _batch_step(model: GPTLM, optimizer, mesh, axis: str | None, tp=None, specs=
                 count = torch.clamp(lens.long() - 1, min=0).sum().float()
                 loss = loss * count / torch.clamp(mesh.all_reduce_(count.clone(), axes),
                                                   min=1.0)
-        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs)
+        return _summed_update(optimizer, mesh, axes, params, opt_state, loss, leaves, specs,
+                              whole=zero)
 
     return step
+
+
+def make_lm_zero_parts(model: GPTLM, optimizer, mesh, axis: str = "data"):
+    """The LM's ZeRO-3 update (the JAX trainer's ``dp_mode="zero"``, GSPMD
+    over ``parallel/fsdp.fsdp_specs``): ``(specs, opt_specs, mapped)``, the
+    layout of the params (each leaf's largest dim the ``axis`` size
+    divides, split over ``axis``; a leaf with none whole on every rank),
+    that of the optimizer's slots, and ``mapped(params, opt_state, tokens,
+    lengths=None) -> (params, opt_state, loss)``, a collective over
+    ``mesh``: params and slots are this rank's slices
+    (``parallel/specs.shard_tree``). The forward gathers the parameters
+    over ``axis`` (one all-reduce of a zero bucket holding each rank's
+    slices: exact), runs :func:`make_lm_train_step`'s data-parallel step on
+    this rank's rows, sums the gradients and the loss in its one flat
+    bucket, and each rank keeps its slice of the sum; the update runs on
+    the slices (``parallel/specs.pinned_update``: global-norm clipping's
+    norm over every slice). The same batches give dp's parameters."""
+    from distributed_tensorflow_tpu_torch.parallel.fsdp import fsdp_specs
+
+    axis = _mesh_axes(mesh, axis)[0]
+    meta = model.init(device="meta")
+    specs = fsdp_specs(meta, mesh, axis=axis)
+    return (specs, slot_specs(optimizer, meta, specs),
+            _batch_step(model, optimizer, mesh, axis, specs=specs, zero=True))
+
+
+def make_lm_async_parts(model: GPTLM, optimizer, mesh, *, axis: str = "data",
+                        avg_every: int = 1, update_scale: float | None = None,
+                        ragged: bool = False):
+    """Async local SGD for the LM (JAX ``make_lm_async_parts``, :3151), the
+    reference's HOGWILD mode as ``parallel/strategy.AsyncDataParallel``
+    emulates it: each rank of ``axis`` owns its copy of the parameters and
+    optimizer state and steps on its own rows. Returns ``(init_state,
+    mapped)``:
+
+    - ``init_state(params, opt_state) -> (params, opt_state, count)``: this
+      rank's copies, count 0;
+    - ``mapped(params, opt_state, tokens, lengths, count) -> (params,
+      opt_state, loss)``: one step on this rank's rows of the global batch
+      ``tokens`` [n·B, L] (``lengths`` masks each copy's loss when
+      ``ragged``), the update scaled by ``update_scale`` (None = N, the
+      replica count, as in ``AsyncDataParallel``); then, when ``(count + 1)
+      % avg_every == 0`` (a host ``if`` on the host count), every copy
+      jumps to the mean of the copies through one all-reduce of a flat
+      bucket. No collective runs on the other steps: ``loss`` is this
+      rank's own, and the trainer means it over the ranks where it reads
+      it. With SGD, ``avg_every=1`` and ``update_scale=1`` the step is the
+      sync data-parallel step up to the order of the sums."""
+    if avg_every < 1:
+        raise ValueError(f"avg_every must be >= 1, got {avg_every}")
+    axis = _mesh_axes(mesh, axis)[0]
+    scale = float(mesh.axis_size(axis) if update_scale is None else update_scale)
+    local = make_lm_train_step(model, optimizer)
+
+    def init_state(params, opt_state):
+        copy = lambda t: tree_map(  # noqa: E731
+            lambda a: a.clone() if isinstance(a, torch.Tensor) else a, t)
+        return copy(params), copy(opt_state), 0
+
+    def mapped(params, opt_state, tokens, lengths, count):
+        toks = _shard(tokens, mesh, axis, 0)
+        lens = _shard(lengths, mesh, axis, 0) if ragged else None
+        new, opt_state, loss = local(params, opt_state, toks, lens)
+        # The optimizer returns new parameters, so the scaled update is
+        # p + scale·(new − p); at scale 1 the step itself, bit for bit.
+        params = new if scale == 1.0 else tree_map(lambda p, q: p + (q - p) * scale, params, new)
+        if (count + 1) % avg_every == 0:
+            params = tree_unflatten(params, mesh.mean_(tree_leaves(params), axis))
+        return params, opt_state, loss
+
+    return init_state, mapped
+
+
+def make_lm_async_train_step(model: GPTLM, optimizer, mesh, *, axis: str = "data",
+                             avg_every: int = 1, update_scale: float | None = None):
+    """Async local SGD for the LM (JAX :3094): ``(init_state, step)`` with
+    ``init_state(params, opt_state) -> state`` and ``step(state, tokens) ->
+    (state, loss)``, ``state = (params, opt_state, count)`` this rank's.
+    See :func:`make_lm_async_parts`."""
+    init_state, mapped = make_lm_async_parts(model, optimizer, mesh, axis=axis,
+                                             avg_every=avg_every, update_scale=update_scale)
+
+    def step(state, tokens):
+        params, opt_state, count = state
+        params, opt_state, loss = mapped(params, opt_state, tokens, None, count)
+        return (params, opt_state, count + 1), loss
+
+    return init_state, step
 
 
 def make_lm_train_step(model: GPTLM, optimizer, mesh=None, axis: str = "data", *,

@@ -78,6 +78,40 @@ def fsdp_specs(params: Any, mesh: Mesh | int, *, axis: str = "data", base: Any =
     return tree_unflatten(params, [spec_for(t, b) for t, b in zip(leaves, bases)])
 
 
+def gather_sharded(tree, specs: list, mesh: Mesh, axis: str = "data"):
+    """A tree of this rank's blocks, ``specs`` a spec a leaf (``tree_leaves``
+    order) → the blocks whole over ``axis``: one all-reduce over ``axis`` of
+    a zero bucket into which each rank wrote its slices (exact: the other
+    ranks add zeros). The splits over other axes stay."""
+    leaves = tree_leaves(tree)
+    sharded = [i for i, sp in enumerate(specs) if axis in sp]
+    n = mesh.axis_size(axis)
+    if n == 1 or not sharded:
+        return tree
+    r = mesh.axis_index(axis)
+    shapes = []
+    for i in sharded:
+        shape = list(leaves[i].shape)
+        shape[specs[i].index(axis)] *= n
+        shapes.append(shape)
+    flat = torch.zeros(sum(torch.Size(s).numel() for s in shapes),
+                       dtype=leaves[sharded[0]].dtype, device=leaves[sharded[0]].device)
+    views, at = [], 0
+    for i, shape in zip(sharded, shapes):
+        size = torch.Size(shape).numel()
+        view = flat[at : at + size].view(shape)
+        d = specs[i].index(axis)
+        s = leaves[i].shape[d]
+        view.narrow(d, r * s, s).copy_(leaves[i])
+        views.append(view)
+        at += size
+    mesh.all_reduce_(flat, axis)
+    out = list(leaves)
+    for i, view in zip(sharded, views):
+        out[i] = view
+    return tree_unflatten(tree, out)
+
+
 class ShardedDataParallel(Strategy):
     """Sync DP with ZeRO-3 parameter and optimizer-state sharding (see the
     module docstring): the same batches give the same parameters as
@@ -108,35 +142,7 @@ class ShardedDataParallel(Strategy):
             self._specs = spec_leaves(self._spec_tree)
 
     def _gather_params(self, tree):
-        """A params-shaped tree of this rank's blocks → the blocks whole
-        over ``axis`` (one all-reduce over ``axis`` of a zero bucket holding
-        this rank's slices); the tensor-parallel split stays."""
-        leaves = tree_leaves(tree)
-        sharded = [i for i, sp in enumerate(self._specs) if self.axis in sp]
-        if self.num_replicas == 1 or not sharded:
-            return tree
-        r, n = self.mesh.axis_index(self.axis), self.num_replicas
-        shapes = []
-        for i in sharded:
-            shape = list(leaves[i].shape)
-            shape[self._specs[i].index(self.axis)] *= n
-            shapes.append(shape)
-        flat = torch.zeros(sum(torch.Size(s).numel() for s in shapes),
-                           dtype=leaves[sharded[0]].dtype, device=leaves[sharded[0]].device)
-        views, at = [], 0
-        for i, shape in zip(sharded, shapes):
-            size = torch.Size(shape).numel()
-            view = flat[at : at + size].view(shape)
-            d = self._specs[i].index(self.axis)
-            s = leaves[i].shape[d]
-            view.narrow(d, r * s, s).copy_(leaves[i])
-            views.append(view)
-            at += size
-        self.mesh.all_reduce_(flat, self.axis)
-        out = list(leaves)
-        for i, view in zip(sharded, views):
-            out[i] = view
-        return tree_unflatten(tree, out)
+        return gather_sharded(tree, self._specs, self.mesh, self.axis)
 
     def placement_specs(self, params):
         return tree_unflatten(params, list(self._specs))

@@ -114,19 +114,18 @@ def _local_sgd_update(model, loss_fn, optimizer, scale: float, params, opt_state
     return new, opt_state, cost
 
 
-def merge_replica_leaf(a, mesh: Mesh):
-    """Fold one leaf held by every rank of the ``data`` axis into the
-    canonical single copy: float leaves merge at the mean over the ranks
-    (async's effective_params); integer leaves (Adam's count, the
-    accumulator's mini-step) take rank 0's value, which must equal every
-    rank's: a mismatch raises rather than merge. Collective: every rank
-    calls it."""
+def merge_replica_leaf(a, mesh: Mesh, axis: str = "data"):
+    """Fold one leaf held by every rank of ``axis`` into the canonical
+    single copy: float leaves merge at the mean over the ranks (async's
+    effective_params); integer leaves (Adam's count, the accumulator's
+    mini-step) take rank 0's value, which must equal every rank's: a
+    mismatch raises rather than merge. Collective: every rank calls it."""
     if isinstance(a, torch.Tensor) and a.is_floating_point():
-        return mesh.mean_([a], "data")[0].to(a.dtype)
+        return mesh.mean_([a], axis)[0].to(a.dtype)
     t = torch.as_tensor(a, device=mesh.device).to(torch.int64)
-    if mesh.axis_size("data") > 1:
-        hi = mesh.all_reduce_(t.clone(), "data", "max")
-        lo = mesh.all_reduce_(t.clone(), "data", "min")
+    if mesh.axis_size(axis) > 1:
+        hi = mesh.all_reduce_(t.clone(), axis, "max")
+        lo = mesh.all_reduce_(t.clone(), axis, "min")
         if not torch.equal(hi, lo):
             raise ValueError(
                 "integer optimizer-state leaf differs across replicas; "

@@ -69,20 +69,49 @@ and index stream) and its step keeps its shard, as the JAX trainer's
   group of the staged blocks ([S, L/S, ...]) and that group's slots, each
   microbatch's rows split over ``data_axis`` when the mesh has it (dp×pp).
 
-Under ep and pp the held-out perplexity is the dense forward's at the
-canonical parameters, gathered over the axis (pp folds the staged blocks
-back: the parameters the metric is defined at), and
-:meth:`LMTrainer.to_canonical` / :meth:`LMTrainer.from_canonical` gather,
-unstage, stage and shard the state. In the other modes the parameters stay
-replicated, so the held-out perplexity is the dense forward's on each
-rank, as in the JAX trainer. Step lines print on every rank; the epoch
-and final lines on the chief (``is_chief`` and rank 0 of the mesh).
+- ``dp_mode="zero"`` → **zero** (JAX :566-567, :597-604): ZeRO-3 over
+  ``data_axis`` (``models/gpt.make_lm_zero_parts``): each rank holds its
+  slice of every parameter and optimizer slot (``parallel/fsdp.fsdp_specs``),
+  the forward gathers the parameters, the update runs on the slices; the
+  same batches give dp's parameters;
+- ``sync=False`` → **async** (JAX :470-486, :679-696): a copy of the
+  parameters and optimizer state a rank of ``data_axis``
+  (``models/gpt.make_lm_async_parts``), each stepping on its rows with its
+  update scaled by ``async_update_scale`` (None = N), all copies jumping to
+  their mean every ``config.async_avg_every`` steps (0 = never);
+- ``dp_mode="diloco"`` → **diloco** (JAX :410-467, :639-678): the local-SGD
+  outer loop of ``train/local_sgd.py``, ``config.sync_every`` inner steps a
+  worker between outer Nesterov rounds (``outer_lr``, ``outer_momentum``,
+  the ``delta_dtype`` and ``delta_overlap`` levers): on the mesh one rank
+  of ``data_axis`` a worker (``make_lm_diloco_parts``), without a mesh
+  ``config.diloco_workers`` workers emulated on one device
+  (``make_lm_diloco_vmapped``), the state's ``opt_state`` a
+  ``DiLoCoState``.
 
-Not ported yet, and refused when asked for: the LM's ZeRO and
-async modes and the DiLoCo ``delta_exchange`` (A7d), the supervisor and
+Under ep, pp and zero the held-out perplexity is the dense forward's at
+the canonical parameters, gathered over the axis (pp folds the staged
+blocks back: the parameters the metric is defined at); under async and
+diloco it is at the mean of the copies (on the mesh a collective, which
+every rank calls), as in the JAX trainer (:773-784).
+:meth:`LMTrainer.to_canonical` / :meth:`LMTrainer.from_canonical` gather,
+unstage, stage and shard the state; async and diloco merge the copies (and
+the inner optimizer states) at their mean, integer leaves checked equal
+(``parallel/strategy.merge_replica_leaf``), and a diloco state from the
+canonical one starts a fresh outer round at its parameters (JAX
+:952-1059). In the other modes the parameters stay replicated, so the
+held-out perplexity is the dense forward's on each rank, as in the JAX
+trainer. Under async and diloco on a mesh a step's cost is the rank's own
+(no collective between exchanges); the printed costs are their mean over
+the ranks, taken where a line is due (a collective of every rank, which
+prints step lines alike) and, in :meth:`LMTrainer.run_compiled`, once over
+the run's costs before its one fetch. Step lines print on every rank; the
+epoch and final lines on the chief (``is_chief`` and rank 0 of the mesh).
+
+Not ported yet, and refused when asked for: the supervisor and
 checkpoints (and with them the ``tokenizer.json`` written beside a
-checkpoint), summaries, the journal and metrics, ``epochs_per_dispatch``
-and the anomaly guard (A8).
+checkpoint), ``epochs_per_dispatch``, the anomaly guard and the DiLoCo
+mailbox gang ``delta_exchange`` (A8a), summaries, the journal and metrics
+(A8b).
 """
 
 from __future__ import annotations
@@ -96,14 +125,16 @@ import torch
 from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.device import resolve_device
 from distributed_tensorflow_tpu_torch.models.gpt import (
+    make_lm_async_parts,
     make_lm_ep_parts,
     make_lm_pp_parts,
     make_lm_sp_parts,
     make_lm_train_step,
+    make_lm_zero_parts,
     pipeline_unstage_params,
 )
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
-from distributed_tensorflow_tpu_torch.ops.optim import tree_map
+from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves, tree_map, tree_unflatten
 from distributed_tensorflow_tpu_torch.ops.collectives import TensorParallel
 from distributed_tensorflow_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_tpu_torch.parallel.specs import (
@@ -112,17 +143,19 @@ from distributed_tensorflow_tpu_torch.parallel.specs import (
     match_slot_specs,
     shard_tree,
 )
-from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState
+from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState, merge_replica_leaf
+from distributed_tensorflow_tpu_torch.train import local_sgd
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX LMTrainer keyword -> (values that leave it off, ROADMAP item).
 NOT_PORTED = {
-    "summary_writer": ((None,), "A8"),
-    "supervisor": ((None,), "A8"),
-    "journal": ((None,), "A8"),
-    "metrics": ((None,), "A8"),
-    "delta_exchange": ((None,), "A7d"),
-    "async_update_scale": ((None,), "A7d"),
+    "summary_writer": ((None,), "A8b"),
+    "supervisor": ((None,), "A8a"),
+    "journal": ((None,), "A8b"),
+    "metrics": ((None,), "A8b"),
+    # The DiLoCo mailbox gang (JAX local_sgd.DeltaExchange): its posts ride
+    # the checkpoints' CRC records.
+    "delta_exchange": ((None,), "A8a"),
 }
 SP_ATTENTIONS = (None, "ring", "ring_flash", "ulysses")
 
@@ -148,6 +181,7 @@ class LMTrainer:
         pp_microbatches: int = 4,
         sp_attention: str | None = None,
         is_chief: bool = True,
+        async_update_scale: float | None = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -167,6 +201,7 @@ class LMTrainer:
         self.tp_axis, self.expert_axis, self.stage_axis = tp_axis, expert_axis, stage_axis
         self.pp_microbatches = pp_microbatches
         self.sp_attention = sp_attention
+        self.async_update_scale = async_update_scale
         self.is_chief = is_chief and (mesh is None or mesh.rank == 0)
         self.tokenizer = tokenizer
         # The config's remat and matmul_dtype land on a shallow copy, so the
@@ -203,9 +238,32 @@ class LMTrainer:
     # -- modes ------------------------------------------------------------
 
     def _resolve_mode(self) -> str:
-        """single, dp, sp, tp, ep or pp, with the JAX trainer's checks
-        (:393-565)."""
+        """single, dp, zero, async, diloco, sp, tp, ep or pp, with the JAX
+        trainer's checks (:393-565)."""
         cfg, mesh = self.config, self.mesh
+        if cfg.dp_mode == "diloco":
+            if not cfg.sync:
+                raise ValueError(
+                    "dp_mode='diloco' does not compose with sync=False: the outer loop IS "
+                    "the (reduced) synchronization; use sync=False + async_avg_every for "
+                    "the HOGWILD emulation instead")
+            if mesh is not None:
+                if self.data_axis not in mesh.shape:
+                    raise ValueError(
+                        f"dp_mode='diloco' needs a {self.data_axis!r} mesh axis (the gang): "
+                        f"{dict(mesh.shape)}")
+                n = mesh.shape[self.data_axis]
+            elif cfg.diloco_workers >= 1:
+                n = cfg.diloco_workers
+            else:
+                raise ValueError(
+                    f"dp_mode='diloco' needs a mesh (the gang is the {self.data_axis!r} axis) "
+                    "or diloco_workers >= 1 (the single-device gang emulation)")
+            if cfg.batch_size % n:
+                raise ValueError(
+                    f"dp_mode='diloco' shards the batch over {n} workers: batch_size "
+                    f"{cfg.batch_size} must divide")
+            return "diloco"
         if mesh is None:
             return "single"
         if not cfg.sync:
@@ -214,12 +272,14 @@ class LMTrainer:
                     f"dp_mode={cfg.dp_mode!r} does not compose with "
                     "sync=False: the async copies are per-chip by "
                     "construction; pick one")
-            raise NotImplementedError(
-                "LMTrainer(mesh=...) with sync=False (async local SGD) is not ported yet "
-                "(ROADMAP A7d)")
-        if cfg.dp_mode == "zero":
-            raise NotImplementedError(
-                "LMTrainer(mesh=...) with dp_mode='zero' is not ported yet (ROADMAP A7d)")
+            if self.data_axis not in mesh.shape:
+                raise ValueError(f"mesh has no {self.data_axis!r} axis: {dict(mesh.shape)}")
+            if cfg.batch_size % mesh.shape[self.data_axis]:
+                raise ValueError(
+                    f"async mode shards the batch over {self.data_axis!r}: batch_size "
+                    f"{cfg.batch_size} must be divisible by the axis size "
+                    f"{mesh.shape[self.data_axis]}")
+            return "async"
         if cfg.dp_mode == "sp":
             if self.seq_axis not in mesh.shape:
                 raise ValueError(
@@ -291,7 +351,7 @@ class LMTrainer:
             raise ValueError(
                 f"dp shards the batch over {self.data_axis!r}: batch_size {cfg.batch_size} "
                 f"must be divisible by the axis size {mesh.shape[self.data_axis]}")
-        return "dp"
+        return "zero" if cfg.dp_mode == "zero" else "dp"
 
     def _dp_axis(self) -> str | None:
         """The data axis to compose with sp, ep or pp: on the mesh, or
@@ -300,11 +360,39 @@ class LMTrainer:
 
     def _make_step(self):
         """``step(params, opt_state, tokens, lengths) -> (params, opt_state,
-        loss)`` of the mode, on the global batch."""
+        loss)`` of the mode, on the global batch (async and diloco key their
+        exchange on the state's step count)."""
         if self.mode == "single":
             return make_lm_train_step(self.model, self.optimizer)
         if self.mode == "dp":
             return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis)
+        if self.mode == "zero":
+            self._specs, _, mapped = make_lm_zero_parts(self.model, self.optimizer, self.mesh,
+                                                        self.data_axis)
+            return mapped
+        if self.mode in ("async", "diloco"):
+            cfg = self.config
+            if self.mode == "async":
+                self._init_copies, mapped = make_lm_async_parts(
+                    self.model, self.optimizer, self.mesh, axis=self.data_axis,
+                    # async_avg_every=0 means never: an unreachable period.
+                    avg_every=cfg.async_avg_every or (1 << 30),
+                    update_scale=self.async_update_scale, ragged=self._ragged)
+            else:
+                kw = dict(sync_every=cfg.sync_every, outer_lr=cfg.outer_lr,
+                          outer_momentum=cfg.outer_momentum, ragged=self._ragged,
+                          delta_dtype=cfg.delta_dtype, overlap=cfg.delta_overlap)
+                if self.mesh is not None:
+                    self._init_copies, mapped = local_sgd.make_lm_diloco_parts(
+                        self.model, self.optimizer, self.mesh, axis=self.data_axis, **kw)
+                else:
+                    self._init_copies, mapped = local_sgd.make_lm_diloco_vmapped(
+                        self.model, self.optimizer, cfg.diloco_workers, **kw)
+
+            def step(params, opt_state, toks, lens):
+                return mapped(params, opt_state, toks, lens, self.state.step)
+
+            return step
         if self.mode == "tp":
             return make_lm_train_step(self.model, self.optimizer, self.mesh, self.data_axis,
                                       tp_axis=self.tp_axis)
@@ -328,6 +416,8 @@ class LMTrainer:
         """A fresh state at the canonical ``params``: this rank's blocks of
         them under tp and ep, its stage of the staged blocks under pp, the
         optimizer's initial state (its slots born in that layout), step 0."""
+        if self.mode in ("async", "diloco"):
+            return TrainState(*self._init_copies(params, self.optimizer.init(params)))
         if self.mode == "pp":
             params = map_split(params, self._specs, self._stage_split)
         if self._specs is not None:
@@ -343,12 +433,45 @@ class LMTrainer:
     def _stage_merge(a):
         return a.reshape((-1,) + tuple(a.shape[2:]))
 
+    def _copies_on_mesh(self) -> bool:
+        """Whether the state is a copy a rank (async, diloco on a mesh)."""
+        return self.mode == "async" or (self.mode == "diloco" and self.mesh is not None)
+
+    def _merge(self, tree):
+        """A tree of copies → one copy: float leaves at their mean, integer
+        leaves checked equal (``merge_replica_leaf``); on the mesh a
+        collective over ``data_axis``, on one device over the stack."""
+        if self._copies_on_mesh():
+            return tree_map(lambda a: merge_replica_leaf(a, self.mesh, self.data_axis), tree)
+
+        def one(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            if a.is_floating_point():
+                return a.mean(0)
+            if not torch.equal(a.amax(0), a.amin(0)):
+                raise ValueError(
+                    "integer optimizer-state leaf differs across workers; refusing to merge "
+                    "(the copies should be identical)")
+            return a[0].clone()
+
+        return tree_map(one, tree)
+
     def to_canonical(self, state: TrainState | None = None) -> TrainState:
         """The single-device form of ``state`` (default the trainer's): under
-        tp and ep the parameters and optimizer slots gathered from every
-        rank's blocks (a collective of the axis), under pp gathered and
-        unstaged; the other modes hold it already."""
+        tp, ep and zero the parameters and optimizer slots gathered from
+        every rank's blocks (a collective of the axis), under pp gathered
+        and unstaged; under async and diloco the copies and their (inner)
+        optimizer states merged at the mean (:meth:`_merge`; diloco's outer
+        state has no canonical form and is left out, as in JAX :970-986);
+        the other modes hold it already."""
         state = self.state if state is None else state
+        if self.mode == "async":
+            return TrainState(self._merge(state.params), self._merge(state.opt_state),
+                              int(state.step))
+        if self.mode == "diloco":
+            return TrainState(self._merge(state.params), self._merge(state.opt_state.inner),
+                              int(state.step))
         if self._specs is None:
             return state
         slots = match_slot_specs(state.opt_state, state.params, self._specs)
@@ -361,11 +484,17 @@ class LMTrainer:
 
     def from_canonical(self, canonical: TrainState) -> TrainState:
         """A single-device state as this trainer's (this rank's blocks
-        under tp and ep, its stage under pp), on its device; set it as
-        ``self.state`` to resume."""
+        under tp, ep and zero, its stage under pp, a copy a worker under
+        async and diloco, where a fresh outer round starts at the
+        parameters: θ_start a copy of them, zero momentum and residual,
+        nothing in flight), on its device; set it as ``self.state`` to
+        resume."""
         on = lambda t: tree_map(  # noqa: E731
             lambda a: a.to(self.device) if isinstance(a, torch.Tensor) else a, t)
         params, opt_state = on(canonical.params), on(canonical.opt_state)
+        if self.mode in ("async", "diloco"):
+            p, o, _ = self._init_copies(params, opt_state)
+            return TrainState(p, o, int(canonical.step))
         if self._specs is not None:
             slots = match_slot_specs(opt_state, params, self._specs)
             if self.mode == "pp":
@@ -378,10 +507,17 @@ class LMTrainer:
 
     def _eval_params(self):
         """The parameters the held-out metric is computed at (JAX
-        ``_eval_params``): under ep and pp the canonical ones, gathered over
-        the axis (pp's staged blocks folded back; a collective); the state's
-        own otherwise (tp's blocks run the tensor-parallel forward)."""
-        if self.mode not in ("ep", "pp"):
+        ``_eval_params``): under ep, pp and zero the canonical ones, gathered
+        over the axis (pp's staged blocks folded back; a collective); under
+        async and diloco the mean of the copies (on a mesh a collective);
+        the state's own otherwise (tp's blocks run the tensor-parallel
+        forward)."""
+        if self._copies_on_mesh():
+            p = self.state.params
+            return tree_unflatten(p, self.mesh.mean_(tree_leaves(p), self.data_axis))
+        if self.mode == "diloco":
+            return tree_map(lambda a: a.mean(0), self.state.params)
+        if self.mode not in ("ep", "pp", "zero"):
             return self.state.params
         params = gather_tree(self.state.params, self._specs, self.mesh)
         return pipeline_unstage_params(params) if self.mode == "pp" else params
@@ -406,6 +542,14 @@ class LMTrainer:
         )
         self.state = TrainState(params, opt_state, self.state.step + 1)
         return cost
+
+    def _mean_costs(self, costs: torch.Tensor) -> torch.Tensor:
+        """Costs of the rank's own steps → their mean over the ranks when
+        the copies are a rank's (a collective), else as they are."""
+        if not self._copies_on_mesh():
+            return costs
+        return self.mesh.mean_([costs.detach().float().reshape(-1)],
+                               self.data_axis)[0].reshape(costs.shape)
 
     def _ce_count(self, params, toks, lens):
         """(CE · target count, target count) of one token block, masked when
@@ -501,10 +645,10 @@ class LMTrainer:
             if logger.is_due(i + 1, steps):  # the fetch waits for the device
                 logger.maybe_log_step(
                     step=step_before + i + 1, epoch=epoch, batch=i,
-                    batch_count=steps, cost=float(cost),
+                    batch_count=steps, cost=float(self._mean_costs(cost)),
                 )
         if cost is not None:
-            self.last_cost = float(cost)
+            self.last_cost = float(self._mean_costs(cost))
 
     def run_compiled(self, epochs: int | None = None) -> dict:
         """The whole run with no host round trip until its end (the JAX
@@ -532,7 +676,7 @@ class LMTrainer:
             for i, cost in self._epoch_steps(idxs[e], *train):
                 costs[e, i] = cost
             totals[e], counts[e] = self._eval_sums(*val, trim=True)
-        costs = costs.cpu().numpy()  # the run's one fetch waits for the device
+        costs = self._mean_costs(costs).cpu().numpy()  # the run's one fetch
         totals, counts = totals.cpu().numpy(), counts.cpu().numpy()
         avg_ms = (time.time() - t0) * 1000 / (epochs * steps)
         self.last_cost = float(costs[-1, -1])

@@ -1025,10 +1025,210 @@ _EP_PP = {"moe": _ep_moe, "ep_fwd": _ep_fwd, "ep_step": _ep_step, "trainer": _lm
           "convert": _convert, "pipe": _pipe, "pp_fwd": _pp_fwd, "pp_step": _pp_step}
 
 
+def case_local_sgd(world, inp, args):
+    """The LM's async, ZeRO and DiLoCo modes on a (4,) ``("data",)`` mesh
+    of the world's ranks, each run of ``args["runs"]`` by its kind
+    (``_LSGD``), from the inputs' parameters and batches."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((world.size,), ("data",), device="cpu")
+    return {run["name"]: _LSGD[run["kind"]](run, mesh, inp) for run in args["runs"]}
+
+
+def _lsgd_opt(run):
+    from distributed_tensorflow_tpu_torch.ops import optim
+
+    return optim.make(run.get("opt", "adam"), run.get("lr", 1e-3))
+
+
+def _counting(mesh):
+    """Count the mesh's all-reduces (every collective of these modes goes
+    through ``Mesh.all_reduce_``): a list that grows a call."""
+    calls, orig = [], mesh.all_reduce_
+
+    def counted(t, axes=None, op="sum"):
+        calls.append(int(t.numel()))
+        return orig(t, axes, op)
+
+    mesh.all_reduce_ = counted
+    return calls
+
+
+def _lsgd_parts(run, mesh, inp):
+    """make_lm_async_parts (``async``), the dp step (``dp``) or
+    make_lm_diloco_parts (``diloco``) over ``steps`` global batches of
+    ``tokens``: this rank's parameters after each step, its losses, the
+    all-reduces of each step, and (diloco) the final DiLoCoState."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.convert import diloco_state_to_numpy
+    from distributed_tensorflow_tpu_torch.models import gpt as gpt_lib
+    from distributed_tensorflow_tpu_torch.train import local_sgd
+
+    model, opt = _gpt(run["model"]), _lsgd_opt(run)
+    params = _gpt_params(inp, run["params"])
+    kind = run["kind"]
+    if kind == "dp":
+        step = gpt_lib.make_lm_train_step(model, opt, mesh)
+        p, o, count = params, opt.init(params), 0
+    elif kind == "async":
+        init, mapped = gpt_lib.make_lm_async_parts(model, opt, mesh, **run["kw"])
+        p, o, count = init(params, opt.init(params))
+    else:
+        init, mapped = local_sgd.make_lm_diloco_parts(model, opt, mesh, **run["kw"])
+        p, o, count = init(params, opt.init(params))
+    out = dict(params=[], losses=[], reduces=[])
+    for t in inp[run["tokens"]][:run["steps"]]:
+        calls = _counting(mesh)
+        if kind == "dp":
+            p, o, loss = step(p, o, torch.from_numpy(t))
+        else:
+            p, o, loss = mapped(p, o, torch.from_numpy(t), None, count)
+        del mesh.all_reduce_
+        count += 1
+        out["params"].append(_np(p))
+        out["losses"].append(float(loss))
+        out["reduces"].append(calls)
+    if kind == "diloco":
+        out["state"] = diloco_state_to_numpy(o, mesh)
+        out["landing_is_copy"] = o.inflight is None or all(
+            a.data_ptr() != b.data_ptr() for a, b in zip(_leaves_of(o.theta),
+                                                          _leaves_of(o.inflight.landing)))
+    return out
+
+
+def _leaves_of(tree):
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _host_reads():
+    """A TorchDispatchMode counting host reads of a tensor's value
+    (``aten._local_scalar_dense``) in ``.reads``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Mode(TorchDispatchMode):
+        reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._local_scalar_dense.default:
+                self.reads += 1
+            return func(*args, **(kwargs or {}))
+
+    return Mode()
+
+
+def _lsgd_trainer(run, mesh, inp):
+    """LMTrainer in the run's mode from the run's params: its lines, result,
+    the canonical state, the held-out perplexity, this rank's shapes, the
+    to/from_canonical round trip, the all-reduces of its steps (the
+    collectives of the log lines counted apart) and, with ``compiled``,
+    run_compiled's host reads inside its loop."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.convert import diloco_state_to_numpy
+    from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    ds = TokenDatasets(TokenDataset(inp["train"], seed=1), TokenDataset(inp["val"], seed=2),
+                       TokenDataset(inp["val"], seed=3))
+    lines = []
+    tr = LMTrainer(_gpt(run["model"]), ds, TrainConfig(**run["config"]), mesh=mesh, device="cpu",
+                   print_fn=lines.append, optimizer=_lsgd_opt(run), **run.get("trainer", {}))
+    tr.state = tr._init_state(_gpt_params(inp, run["params"]))
+    step, reduces = tr._train_step, []
+
+    def counted(toks, lens):
+        calls = _counting(mesh)
+        cost = step(toks, lens)
+        del mesh.all_reduce_
+        reduces.append(calls)
+        return cost
+
+    tr._train_step = counted
+    reads = None
+    if run.get("compiled"):
+        tr.evaluate = lambda split="validation": 0.0  # the final full-split evaluate
+        mode = _host_reads()
+        with mode:
+            out = tr.run_compiled()
+        reads = mode.reads
+        del tr.evaluate
+    else:
+        out = tr.run()
+    c = tr.to_canonical()
+    back = tr.from_canonical(c)
+    again = tr.to_canonical(back)
+    same = all(torch.equal(a, b) for a, b in zip(_leaves_of(c[:2]), _leaves_of(again[:2])))
+    res = dict(lines=lines, result=out, mode=tr.mode, params=_np(c.params),
+               opt=_np(c.opt_state), round_trip=same and again.step == c.step,
+               perplexity=tr.evaluate(), reduces=reduces, reads=reads,
+               local={k: tuple(v.shape) for k, v in tr.state.params._asdict().items()
+                      if k != "blocks"},
+               local_blocks={k: tuple(v.shape) for k, v in tr.state.params.blocks._asdict().items()},
+               own=_np(tr.state.params))
+    if tr.mode == "zero":
+        res["local_mu"] = {k: tuple(v.shape) for k, v in tr.state.opt_state.mu._asdict().items()
+                           if k != "blocks"}
+    if tr.mode == "diloco":
+        res["state"] = diloco_state_to_numpy(tr.state.opt_state, mesh)
+        fresh = back.opt_state
+        res["fresh_outer"] = dict(
+            theta_is_params=all(torch.equal(a, b) for a, b in zip(_leaves_of(fresh.theta),
+                                                                  _leaves_of(c.params))),
+            momentum_zero=all(not a.any() for a in _leaves_of(fresh.momentum)),
+            residual_zero=fresh.residual is None or all(not a.any()
+                                                        for a in _leaves_of(fresh.residual)))
+    return res
+
+
+def _lsgd_convert(run, mesh, inp):
+    """The numpy round trips: a JAX async state's rows (this rank's copy)
+    stacked back, a canonical state's ZeRO slices gathered back, and a
+    DiLoCoState (this rank's inner state) gathered back; this rank's
+    shapes."""
+    from distributed_tensorflow_tpu_torch import convert as cv
+    from distributed_tensorflow_tpu_torch.models.gpt import make_lm_zero_parts
+    from distributed_tensorflow_tpu_torch.ops import optim
+
+    pre = run["params"]
+    stacked = _gpt_tree(inp, f"{pre}_stack")
+    adam_stack = {"count": inp["stack/count"], "mu": _gpt_tree(inp, f"{pre}_stack_mu"),
+                  "nu": _gpt_tree(inp, f"{pre}_stack_nu")}
+    p, o = cv.lm_async_state_from_numpy(stacked, adam_stack, mesh, device="cpu")
+    out = dict(async_back=cv.lm_async_state_to_numpy(p, o, mesh),
+               async_embed=float(p.embed[0, 0]))
+    model = _gpt(run["model"])
+    specs, _, _ = make_lm_zero_parts(model, optim.adam(1e-3), mesh)
+    tree = _gpt_tree(inp, pre)
+    adam = {"count": inp["adam/count"], "mu": _gpt_tree(inp, f"{pre}_mu"),
+            "nu": _gpt_tree(inp, f"{pre}_nu")}
+    zp, zo = cv.lm_sharded_state_from_numpy(tree, adam, mesh, specs, device="cpu")
+    out["zero_back"] = cv.lm_sharded_state_to_numpy(zp, zo, mesh, specs)
+    out["zero_embed"], out["zero_mu_embed"] = tuple(zp.embed.shape), tuple(zo.mu.embed.shape)
+    for lever in ("off", "on"):
+        d = {"inner": adam_stack, "theta": tree, "momentum": _gpt_tree(inp, f"{pre}_mu"),
+             "residual": None, "inflight": None}
+        if lever == "on":
+            d.update(residual=_gpt_tree(inp, f"{pre}_nu"),
+                     inflight={"delta": _gpt_tree(inp, f"{pre}_mu"), "landing": tree})
+        st = cv.diloco_state_from_numpy(d, mesh, device="cpu")
+        out[f"diloco_{lever}"] = cv.diloco_state_to_numpy(st, mesh)
+        out[f"diloco_{lever}_count"] = int(st.inner.count)
+    return out
+
+
+_LSGD = {"dp": _lsgd_parts, "async": _lsgd_parts, "diloco": _lsgd_parts,
+         "trainer": _lsgd_trainer, "convert": _lsgd_convert}
+
+
 CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
          "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
          "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp, "tp": case_tp,
-         "ep_pp": case_ep_pp}
+         "ep_pp": case_ep_pp, "local_sgd": case_local_sgd}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

@@ -481,7 +481,7 @@ def _mlp_specs():
     (lambda: __import__("distributed_tensorflow_tpu_torch.models.cnn", fromlist=["x"]).CNN(
         ).partition_specs(), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
-        dp_mode="diloco"), "A7"),
+        dp_mode="diloco"), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.config", fromlist=["x"]).TrainConfig(
         dp_mode="tp"), None),
     (lambda: __import__("distributed_tensorflow_tpu_torch.parallel.strategy",
@@ -498,8 +498,9 @@ def test_refusals_name_their_items(make, item):
     """Each refusal names its ROADMAP item (the parallel layouts now name
     A7c-A7d, which the match on "A7" takes). Once refused and now built:
     the ring exchange (its exchange function), the CNN's tensor-parallel
-    layout, ``dp_mode="tp"`` and the strategies' ``param_specs`` over the
-    default mesh's ``model`` axis of one rank."""
+    layout, ``dp_mode="tp"``, ``dp_mode="diloco"`` (the local-SGD slice) and
+    the strategies' ``param_specs`` over the default mesh's ``model`` axis
+    of one rank."""
     if item is callable:
         assert callable(make())
         return

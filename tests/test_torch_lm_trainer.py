@@ -246,7 +246,8 @@ def test_refused_trainer_knobs(name, value, item):
     ``is_chief`` (False keeps the epoch and final lines off) and
     ``sp_attention`` (checked, used only under dp_mode="sp", as in JAX);
     by the tensor-parallel slice: ``tp_axis`` (used only under
-    dp_mode="tp", whose mesh must have the axis, as in JAX)."""
+    dp_mode="tp", whose mesh must have the axis, as in JAX). The local-SGD
+    slice moved ``delta_exchange`` (the DiLoCo mailbox gang) to A8a."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
     if name == "mesh":
@@ -274,6 +275,8 @@ def test_refused_trainer_knobs(name, value, item):
         with pytest.raises(ValueError, match="unknown sp_attention 'dense'"):
             LMTrainer(_model(), _corpus(), _cfg(), device="cpu", sp_attention="dense")
         return
+    if name == "delta_exchange":
+        item = "ROADMAP A8a"
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: value})
 

@@ -365,7 +365,8 @@ def test_lm_trainer_mode_refusals():
     """LMTrainer's mode checks (JAX lm_trainer.py:540-565): dp_mode="sp"
     needs a seq axis that divides the sequence, no MoE blocks, and a batch
     the data axis divides; the data-parallel mode needs the data axis; the
-    LM's ZeRO and async modes with a mesh are refused naming A7d."""
+    LM's ZeRO and async modes with a mesh, refused naming A7d until the
+    local-SGD slice, are built."""
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
@@ -386,14 +387,14 @@ def test_lm_trainer_mode_refusals():
          "mesh has no 'data' axis"),
         (dict(mesh=_fake_mesh((4,), ("data",))), TrainConfig(batch_size=6), ValueError,
          "batch_size 6 must be divisible by the axis size 4"),
-        (dict(mesh=_fake_mesh((2,), ("data",))), TrainConfig(dp_mode="zero"),
-         NotImplementedError, r"dp_mode='zero' is not ported yet \(ROADMAP A7d\)"),
-        (dict(mesh=_fake_mesh((2,), ("data",))), TrainConfig(sync=False), NotImplementedError,
-         r"sync=False \(async local SGD\) is not ported yet \(ROADMAP A7d\)"),
     )
     for kw, cfg, err, msg in cases:
         with pytest.raises(err, match=msg):
             LMTrainer(model, ds, cfg, device="cpu", **kw)
+    for cfg, mode in ((TrainConfig(dp_mode="zero", batch_size=6), "zero"),
+                      (TrainConfig(sync=False, batch_size=6), "async")):
+        assert LMTrainer(model, ds, cfg, device="cpu",
+                         mesh=_fake_mesh((2,), ("data",))).mode == mode
     with pytest.raises(ValueError, match="dp_mode='sp' is not defined for MoE blocks"):
         LMTrainer(GPTLM(vocab_size=61, max_len=32, model_dim=32, num_heads=4, num_layers=1,
                         moe_experts=4), ds, sp, device="cpu", mesh=_fake_mesh((1, 1)))
@@ -405,21 +406,23 @@ def test_lm_trainer_mode_refusals():
     ("sync_every", 4), ("outer_lr", 0.7), ("outer_momentum", 0.9), ("diloco_workers", 2),
     ("delta_dtype", "int8"), ("delta_overlap", True), ("stale_limit", 2)])
 def test_diloco_fields_refused_naming_a7d(field, value):
-    """The JAX TrainConfig's DiLoCo fields are refused naming ROADMAP A7d
-    (they used to fail as unknown keywords), as the JAX dp_mode value the
-    port lacks ("diloco") names its item; "ep" and "pp", once refused
-    naming A7c, are taken."""
+    """The JAX TrainConfig's DiLoCo fields, refused naming ROADMAP A7d until
+    the local-SGD slice, are taken with dp_mode="diloco" (which is taken
+    too); the mailbox gang's ``stale_limit`` is refused naming A8a. "ep"
+    and "pp", once refused naming A7c, are taken."""
     from distributed_tensorflow_tpu.config import TrainConfig as JConfig
     from distributed_tensorflow_tpu_torch.config import TrainConfig
 
     import dataclasses
 
     assert field in {f.name for f in dataclasses.fields(JConfig)}  # a JAX field
-    with pytest.raises(NotImplementedError, match=rf"TrainConfig.{field} is not ported yet "
-                                                  r"\(ROADMAP A7d\)"):
-        TrainConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A7d\)"):
-        TrainConfig(dp_mode="diloco")
+    if field == "stale_limit":
+        with pytest.raises(NotImplementedError, match=rf"TrainConfig.{field} is not ported yet "
+                                                      r"\(ROADMAP A8a\)"):
+            TrainConfig(dp_mode="diloco", **{field: value})
+    else:
+        assert getattr(TrainConfig(dp_mode="diloco", **{field: value}), field) == value
+    assert TrainConfig(dp_mode="diloco").dp_mode == "diloco"
     assert TrainConfig(dp_mode="sp").dp_mode == "sp"
     assert TrainConfig(dp_mode="tp").dp_mode == "tp"  # lifted by the tensor-parallel slice
     for mode in ("ep", "pp"):  # lifted by the expert- and pipeline-parallel slice

@@ -272,10 +272,13 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
 
     _, tds = _pair_datasets(*small_pair)
     for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8"), (dict(epochs_per_dispatch=10), "A8"),
-                     (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8"),
-                     (dict(dp_mode="diloco"), "A7")):
+                     (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**kw)
+    # Lifted by the local-SGD slice: dp_mode="diloco" is an LM mode, which the
+    # classifier path refuses as JAX's launcher does.
+    with pytest.raises(ValueError, match="unknown dp_mode 'diloco' for the classifier path"):
+        build_trainer(TrainConfig(dp_mode="diloco"), datasets=tds, device="cpu")
     # Lifted by the MoE/quantized slice: matmul_dtype is validated as in the
     # JAX TrainConfig, and the classifier path refuses it as JAX's launcher.
     assert TrainConfig(matmul_dtype="int8").matmul_dtype == "int8"
