@@ -2325,14 +2325,14 @@ def check_hmma(src, kernels, dump):
         raise AssertionError(f"{src}: a tensor-core kernel has no HMMA: {counts}")
 
 
-def serve_requests(vocab, seed):
+def serve_requests(vocab, seed, max_new=MAX_NEW):
     from distributed_tensorflow_tpu_torch.serve import GenerationConfig
 
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
     configs = [
-        GenerationConfig(max_new=MAX_NEW) if i % 2 == 0 else
-        GenerationConfig(max_new=MAX_NEW, greedy=False, temperature=0.9,
+        GenerationConfig(max_new=max_new) if i % 2 == 0 else
+        GenerationConfig(max_new=max_new, greedy=False, temperature=0.9,
                          top_p=0.95, seed=i)
         for i in range(len(prompts))
     ]
@@ -5095,10 +5095,16 @@ def phase_dp(records, ds, smi):
 
     depth = {"sync": DP_SYNC_EPOCHS, "async": DP_TOPOLOGY_EPOCHS}
 
+    # DTF_LOGS="": these clusters train without the chief's tfevents and
+    # graph dump (phase 28(a) drives that path through launch.run): the
+    # dump's first trace imports torch.fx's fake-tensor machinery, which
+    # three clusters' chiefs starting together on the host took 14-19 s
+    # longer to get through.
     def start(kind):
         topology[kind] = dp_launch(
             f"topology-{kind}", me + ["--dp-task", kind, "--dp-epochs", str(depth[kind]),
-                                      "--dp-port", str(free_port())], DP_WORKERS, 1)
+                                      "--dp-port", str(free_port())], DP_WORKERS, 1,
+            env={"DTF_LOGS": ""})
 
     def sync_run():
         try:
@@ -5118,7 +5124,7 @@ def phase_dp(records, ds, smi):
             for ex in ("between_sync", "between_async"):
                 examples[ex] = dp_launch(
                     ex, [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.examples.{ex}"],
-                    DP_WORKERS, 1, env={"DTF_EPOCHS": "1"})
+                    DP_WORKERS, 1, env={"DTF_EPOCHS": "1", "DTF_LOGS": ""})
         except BaseException as exc:  # re-raised on the main thread below
             examples["error"] = exc
 
@@ -5190,6 +5196,10 @@ MOE_CORPUS = dict(TRAIN_CORPUS, num=768)
 MOE_EPOCHS = 2
 MOE_LOG_EVERY = 4
 MOE_REQUESTS = 8
+# (b) and (d) decode MOE_MAX_NEW new tokens a request (cut from phase 4's
+# MAX_NEW = 48 to pay for phase 28: every server of (b) and (d) decodes on
+# "xla", ~20 ms a step).
+MOE_MAX_NEW = 24
 # (c) quantized_dot at gpt-m's up projection in training (16 x 1024 rows of
 # 512 into 2048 columns): int8 bit for bit with its plain version (the
 # exact product, in f64), fp8 within QDOT_FP8_TOL of the largest of its
@@ -5331,7 +5341,8 @@ def phase_moe_serve(records, model, params):
 
     served = copy.copy(model)
     served.moe_capacity_factor = model.moe_experts / model.moe_top_k
-    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0))
+    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0,
+                                                                   MOE_MAX_NEW))
     greedy = [i for i, c in enumerate(configs) if c.greedy]
     ref = InProcessGreedy(served, params)
     want = None
@@ -5436,7 +5447,8 @@ def phase_weight_only_serve(records):
 
     model = GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16)
     params = perturbed_params(model, 0, "cuda")
-    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0))
+    prompts, configs = (r[:MOE_REQUESTS] for r in serve_requests(model.vocab_size, 0,
+                                                                   MOE_MAX_NEW))
     greedy = [i for i, c in enumerate(configs) if c.greedy]
     gp, gc = [prompts[i] for i in greedy], [configs[i] for i in greedy]
     pool = dict(paged=True, block_size=BLOCK)
@@ -6937,6 +6949,62 @@ def owed_gap(saved, dst, key):
     return gap, norm(saved["residual"]) / norm([t.cpu() for t in tree_leaves(dst.residual)])
 
 
+# Phase 27's per-rank journals: the communication accounting a rank's
+# LMTrainer journals for dp and DiLoCo (phase 27's exchange figures:
+# 21,534,720 bytes a dense parameter set, 5,383,744 an int8 delta).
+LSGD_DENSE_BYTES, LSGD_INT8_BYTES = 21_534_720, 5_383_744
+
+
+def lsgd_journals(jdir):
+    """27: each rank's journal (``DTF_JOURNAL_DIR``, armed by
+    ``cluster.bootstrap``) holds the dp run's ``comm_stats`` (a round a
+    step, a dense parameter set a round) and the DiLoCo runs' (H=2: 2
+    rounds over 4 steps, an int8 delta's payload a round), the figures
+    ``local_sgd.params_nbytes`` / ``delta_payload_nbytes`` give for the
+    model; the four journals merge into one timeline whose chrome trace
+    has a lane a rank."""
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.observability import aggregate
+    from distributed_tensorflow_tpu_torch.train.local_sgd import (
+        delta_payload_nbytes,
+        params_nbytes,
+    )
+
+    shapes = GPTLM(**{**S_CFG, "max_len": LSGD_L}).init(seed=0, device="meta")
+    dense, int8 = params_nbytes(shapes), delta_payload_nbytes(shapes, "int8")
+    if (dense, int8) != (LSGD_DENSE_BYTES, LSGD_INT8_BYTES):
+        print(f"  the model's own byte counts ({dense} dense, {int8} int8) differ from the "
+              f"recorded ({LSGD_DENSE_BYTES}, {LSGD_INT8_BYTES}); the code's decide")
+    want = {"dp": (LSGD_STEPS, LSGD_STEPS * dense, LSGD_STEPS * dense),
+            "d": (LSGD_STEPS // 2, LSGD_STEPS // 2 * dense, LSGD_STEPS // 2 * int8),
+            "e": (LSGD_STEPS // 2, LSGD_STEPS // 2 * dense, LSGD_STEPS // 2 * int8)}
+    for r in range(LSGD_RANKS):
+        evs = obs.read_events(obs.rank_journal_path(jdir, r))
+        comm = [e for e in evs if e["kind"] == "comm_stats"]
+        got = {("dp" if c["mode"] == "dp" else "e" if c["overlap"] else "d"):
+               (c["sync_rounds"], c["allreduce_bytes"], c["payload_bytes"]) for c in comm}
+        ok = (got == want and len(comm) == 3 and all(c["workers"] == LSGD_RANKS for c in comm)
+              and all(e.get("rank") == r for e in evs) and evs[0]["kind"] == "worker_start")
+        print(f"  rank {r}'s journal: {len(evs)} events; comm_stats (rounds, all-reduce bytes, "
+              f"payload bytes) {got}")
+        if not ok:
+            raise AssertionError(f"27: rank {r}'s comm_stats {comm}, want {want}")
+    merged = aggregate.merge(jdir)
+    trace = aggregate.gang_chrome_trace(merged)
+    path = os.path.join(dp_logdir("lsgd"), "gang-trace.json")
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    with open(path) as f:
+        lanes = [e["args"]["name"] for e in json.load(f)["traceEvents"] if e["ph"] == "M"]
+    spans = sum(e["ph"] == "X" for e in trace["traceEvents"])
+    print(f"  merged: {len(merged['events'])} events, lanes {lanes}, skew {merged['skew_s']}; "
+          f"the gang's chrome trace ({len(trace['traceEvents'])} events, {spans} spans) in "
+          f"{os.path.relpath(path)}")
+    if lanes != [f"rank{r}" for r in range(LSGD_RANKS)]:
+        raise AssertionError(f"27: merged trace lanes {lanes}")
+
+
 def phase_lsgd(records, smi):
     """27: LSGD_RANKS ranks sharing the card (gloo, every collective staged
     through the host) run LSGD_RUNS through LMTrainer: (a) each step held to
@@ -6963,9 +7031,11 @@ def phase_lsgd(records, smi):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     sdir = tempfile.mkdtemp(prefix="lsgd-states-")
+    jdir = tempfile.mkdtemp(prefix="lsgd-journals-")  # each rank's journal (cluster.bootstrap)
     me = [sys.executable, os.path.abspath(__file__)]
     logs = dp_launch("lsgd", me + ["--lsgd-task", "--dp-port", str(port)], LSGD_RANKS, 0,
-                     env={"DTF_LSGD_STATES": sdir, "DTF_LSGD_T0": repr(time.time())})
+                     env={"DTF_LSGD_STATES": sdir, "DTF_LSGD_T0": repr(time.time()),
+                          "DTF_JOURNAL_DIR": jdir})
     ranks = sorted((dp_result(logs[f"worker{r}"]) for r in range(LSGD_RANKS)),
                    key=lambda r: r["rank"])
     if any(r["backend"] != "gloo" for r in ranks):
@@ -7081,6 +7151,7 @@ def phase_lsgd(records, smi):
                 total[k] += g0["launches"][k]
     for rec, (base, _) in FLASH_LSGD.items():
         records[rec] = dict(records[rec.replace("local-sgd", "ep-pp")], launches=total[base])
+    lsgd_journals(jdir)
     w = ranks[0]["walls"]
     print("  rank 0's seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
           + " (start: the launch to the task's first line; join: the group and the mesh; "
@@ -7090,6 +7161,328 @@ def phase_lsgd(records, smi):
         print(f"  rank {r['rank']}: one exchange all-reduce of the f32 parameters "
               f"({x['bytes']} bytes, staged through the host under gloo): {x['ms']:.2f} ms; a "
               f"delta's payload {x['bytes']} bytes dense, {x['int8_bytes']} int8 [{smi}]")
+
+
+# Phase 28 (ROADMAP A8b): the telemetry on the card. (a) The MNIST MLP
+# through launch.run (784->100->10, batch 100, OBS_MLP_EPOCHS epochs on the
+# fused path: compiled_run on engine="pallas", one B2 launch an epoch) with
+# DTF_LOGS and DTF_JOURNAL_DIR set, against the same run with neither.
+# (b) gpt-m-L1024-flash (phase 12(a)'s model and chain) through LMTrainer
+# with a journal, a metrics registry, a summary writer and profile_dir,
+# OBS_STEPS steps an epoch, run() then run_compiled() over OBS_EPOCHS epochs
+# each, against the same runs with none.
+OBS_MLP_EPOCHS = 2
+OBS_EPOCHS, OBS_STEPS = 2, 4
+OBS_CORPUS = dict(TRAIN_CORPUS, num=OBS_STEPS * TRAIN_CFG["batch_size"] + 64, n_val=32,
+                  n_test=32)
+OBS_PATH = "lm-train-telemetry gpt-m-L1024 (journal, metrics, tfevents, profile)"
+FLASH_OBS = {"flash_fwd[obs-gpt-m]": ("flash_fwd", OBS_PATH),
+             "flash_bwd_fused[obs-gpt-m]": ("flash_bwd_fused", OBS_PATH)}
+MLP_OBS = {"fused_mlp_epoch[obs-mlp]": ("fused_mlp_epoch", "mlp-train launch.run telemetry")}
+# The device kernels each flash wrapper launches (names in the profile) for
+# each count of ops/_build.LAUNCHES.
+OBS_KERNELS = {"flash_fwd_kernel": ("flash_fwd",),
+               "kv_kernel": ("flash_bwd_fused", "flash_bwd_dkv"),
+               "dq_reduce_kernel": ("flash_bwd_fused",)}
+
+
+def tfevents(path):
+    """The records of a tfevents file, each masked CRC checked (raises on
+    a bad one), decoded to (kind, tag or None, step)."""
+    import struct
+
+    from distributed_tensorflow_tpu_torch.utils.summary import _masked_crc
+
+    def varint(b, i):
+        out = shift = 0
+        while True:
+            out |= (b[i] & 0x7F) << shift
+            shift += 7
+            i += 1
+            if not b[i - 1] & 0x80:
+                return out, i
+
+    def fields(b):
+        i, out = 0, {}
+        while i < len(b):
+            key, i = varint(b, i)
+            wire = key & 7
+            if wire == 0:
+                v, i = varint(b, i)
+            elif wire == 1:
+                v, i = b[i:i + 8], i + 8
+            elif wire == 5:
+                v, i = b[i:i + 4], i + 4
+            else:
+                n, i = varint(b, i)
+                v, i = b[i:i + n], i + n
+            out[key >> 3] = v
+        return out
+
+    out = []
+    with open(path, "rb") as f:
+        blob = f.read()
+    i = 0
+    while i < len(blob):
+        header = blob[i:i + 8]
+        (n,) = struct.unpack("<Q", header)
+        (hcrc,) = struct.unpack("<I", blob[i + 8:i + 12])
+        data = blob[i + 12:i + 12 + n]
+        (dcrc,) = struct.unpack("<I", blob[i + 12 + n:i + 16 + n])
+        if hcrc != _masked_crc(header) or dcrc != _masked_crc(data):
+            raise AssertionError(f"{path}: a record at byte {i} fails its masked CRC")
+        i += 16 + n
+        ev = fields(data)
+        if 3 in ev:
+            out.append(("version", None, None))
+        elif 4 in ev:
+            out.append(("graph", ev[4], None))
+        elif 5 in ev:
+            value = fields(fields(ev[5])[1])
+            out.append(("scalar", value[1].decode(), ev.get(2, 0),
+                        struct.unpack("<f", value[2])[0]))
+    return out
+
+
+def obs_mlp(records, ds):
+    """28(a): launch.run with DTF_LOGS and DTF_JOURNAL_DIR, against a run
+    with neither. Returns the seconds it took."""
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.launch import run
+    from distributed_tensorflow_tpu_torch.observability import format as obs_format
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="obs-mlp-")
+    cfg = TrainConfig(epochs=OBS_MLP_EPOCHS, compiled_run=True, engine="pallas")
+    orig = trainer_mod.Trainer._emit_step_logs
+    out = {}
+    for on in (True, False):
+        saved = {k: os.environ.get(k) for k in ("DTF_LOGS", "DTF_JOURNAL_DIR")}
+        os.environ["DTF_LOGS"] = os.path.join(root, "tb") if on else ""
+        if on:
+            os.environ["DTF_JOURNAL_DIR"] = os.path.join(root, "journal")
+        else:
+            os.environ.pop("DTF_JOURNAL_DIR", None)
+        costs, lines = [], []
+
+        def emit(self, c, *a, **kw):  # every fetched cost, full precision
+            costs.append(np.array(c, copy=True))
+            return orig(self, c, *a, **kw)
+
+        trainer_mod.Trainer._emit_step_logs = emit
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = run(config=cfg, argv=[], datasets=ds, print_fn=lines.append)
+            torch.cuda.synchronize()
+        finally:
+            trainer_mod.Trainer._emit_step_logs = orig
+            obs.configure()  # closes the journal bootstrap armed
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[on] = (res, np.concatenate(costs), lines, launches, time.perf_counter() - t0)
+    (res, costs, lines, launches, wall), (res0, costs0, lines0, launches0, wall0) = (
+        out[True], out[False])
+    if launches != {"fused_mlp_epoch": OBS_MLP_EPOCHS} or launches0 != launches:
+        raise AssertionError(f"28(a) launches {launches} (without telemetry {launches0})")
+    records["fused_mlp_epoch[obs-mlp]"] = dict(records["fused_mlp_epoch"],
+                                               launches=launches["fused_mlp_epoch"])
+    bitwise = costs.shape == costs0.shape and np.array_equal(costs, costs0) and res == res0
+    print(f"  (a) launch.run, {OBS_MLP_EPOCHS} epochs of {costs.size // OBS_MLP_EPOCHS} steps on "
+          f"the fused path ({launches}): {wall:.2f} s with DTF_LOGS and DTF_JOURNAL_DIR, "
+          f"{wall0:.2f} s without; the {costs.size} costs bit for bit: {bitwise} (final cost "
+          f"{res['final_cost']!r}, accuracy {res['accuracy']!r})")
+    if not bitwise:
+        raise AssertionError(f"28(a) telemetry changed the run: {res} against {res0}")
+    (tb,) = [os.path.join(root, "tb", f) for f in os.listdir(os.path.join(root, "tb"))]
+    recs = tfevents(tb)
+    graphs = [r for r in recs if r[0] == "graph"]
+    cost_tags = [r for r in recs if r[0] == "scalar" and r[1] == "cost"]
+    accs = [r for r in recs if r[0] == "scalar" and r[1] == "accuracy"]
+    logged = [ln for ln in lines if ln.startswith("Step:")]
+    printed = [float(re.search(r"Cost: ([0-9.]+)", ln).group(1)) for ln in logged]
+    if (recs[0][0] != "version" or len(graphs) != 1 or b"mlp_epoch_kernel" not in graphs[0][1]
+            or len(cost_tags) != len(logged) or len(accs) != OBS_MLP_EPOCHS
+            or [round(r[3], 4) for r in cost_tags] != printed):
+        raise AssertionError(f"28(a) tfevents: {len(recs)} records, {len(graphs)} graphs, "
+                             f"{len(cost_tags)} costs against {len(logged)} step lines, "
+                             f"{len(accs)} accuracies")
+    print(f"  (a) tfevents {os.path.basename(tb)}: {len(recs)} records, every masked CRC valid; "
+          f"1 graph event (the epoch kernel's node), {len(cost_tags)} cost scalars (one a "
+          f"logged step, equal to the printed costs), {len(accs)} accuracy scalars")
+    jpath = obs.rank_journal_path(os.path.join(root, "journal"), 0)
+    evs = obs.read_events(jpath)
+    kinds = [e["kind"] for e in evs]
+    shown = [ln for e in evs if e["kind"] in ("step", "epoch", "final")
+             for ln in obs_format.render(e["kind"], e)]
+    if (not {"worker_start", "step", "epoch", "final", "metrics"} <= set(kinds)
+            or shown != lines):
+        raise AssertionError(f"28(a) journal: kinds {sorted(set(kinds))}; lines equal to the "
+                             f"events' renderings: {shown == lines}")
+    counts = {k: kinds.count(k) for k in dict.fromkeys(kinds)}
+    print(f"  (a) journal {os.path.basename(jpath)}: {counts}; each of the {len(lines)} "
+          f"printed lines is its event's rendering")
+    return time.perf_counter() - t_phase
+
+
+def obs_trainer(on, root):
+    """28(b)'s gpt-m LMTrainer, with every sink when ``on``; each step's
+    cost tensor kept (fetched once at the end), each epoch of run() timed
+    and its flash launches counted."""
+    import torch
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+    from distributed_tensorflow_tpu_torch.utils.summary import SummaryWriter
+
+    sinks = {}
+    cfg = dict(TRAIN_CFG, epochs=OBS_EPOCHS, log_frequency=2)
+    if on:
+        sinks = dict(journal=obs.EventJournal.in_dir(os.path.join(root, "journal")),
+                     metrics=obs.MetricsRegistry(),
+                     summary_writer=SummaryWriter(os.path.join(root, "tb")))
+        cfg["profile_dir"] = os.path.join(root, "profile")
+    lines = []
+    tr = LMTrainer(GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16), markov_corpus(**OBS_CORPUS),
+                   TrainConfig(**cfg), eval_batch=TRAIN_EVAL_BATCH, print_fn=lines.append, **sinks)
+    tr.sinks, tr.lines, tr.costs, tr.epochs = sinks, lines, [], []
+    step, run_epoch = tr._train_step, tr.run_epoch
+
+    def kept(toks, lens):
+        cost = step(toks, lens)
+        tr.costs.append(cost.detach())
+        return cost
+
+    def timed(epoch, logger):
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        run_epoch(epoch, logger)  # ends in a fetch of the last cost
+        tr.epochs.append((time.perf_counter() - t0,
+                          {k: _build.LAUNCHES[k] - before[k] for k in before}))
+
+    tr._train_step, tr.run_epoch = kept, timed
+    return tr
+
+
+def obs_lm(records, smi):
+    """28(b): gpt-m through LMTrainer with a journal, metrics, tfevents and
+    a profile of epoch 0, against the same runs with none. Returns the
+    seconds it took."""
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="obs-lm-")
+    out = {}
+    for on in (False, True):
+        tr = obs_trainer(on, root)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        a = tr.run()
+        t1 = time.perf_counter()
+        b = tr.run_compiled(OBS_EPOCHS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        out[on] = dict(tr=tr, res=(a, b), launches=launches, run_s=t1 - t0, compiled_s=t2 - t1,
+                       costs=torch.stack(tr.costs).float().cpu(), hash=params_hash(tr.state.params))
+    on, off = out[True], out[False]
+    tr, steps = on["tr"], OBS_STEPS
+    n = SERVE_CFG["num_layers"]
+    bitwise = (torch.equal(on["costs"], off["costs"]) and on["res"] == off["res"]
+               and on["hash"] == off["hash"])
+    print(f"  (b) gpt-m-L1024-flash, {steps} steps an epoch: run() {OBS_EPOCHS} epochs then "
+          f"run_compiled() {OBS_EPOCHS}; the {on['costs'].numel()} step losses, results and "
+          f"parameters with telemetry equal those without, bit for bit: {bitwise} (last loss "
+          f"{float(on['costs'][-1])!r})")
+    if not bitwise:
+        raise AssertionError(f"28(b) telemetry changed the run: {on['res']} against {off['res']}")
+    if on["launches"] != off["launches"]:
+        raise AssertionError(f"28(b) launches with telemetry {on['launches']}, without "
+                             f"{off['launches']}: the graph trace launched a kernel")
+    for name, (base, _) in FLASH_OBS.items():
+        src = records["flash_fwd"]["train_shape"] if base == "flash_fwd" else records[base]
+        extra = dict(library_ms=src["sdpa_ms"]) if base == "flash_fwd" else {}
+        records[name] = dict(src, launches=on["launches"].get(base, 0), **extra)
+    ms = {k: [1e3 * s / steps for s, _ in out[k]["tr"].epochs] for k in (True, False)}
+    cms = {k: 1e3 * out[k]["compiled_s"] / (OBS_EPOCHS * steps) for k in (True, False)}
+    print(f"  (b) ms a step, telemetry on / off: run() epoch 1 (profiled on) {ms[True][0]:.2f} / "
+          f"{ms[False][0]:.2f}, epoch 2 {ms[True][1]:.2f} / {ms[False][1]:.2f}; run_compiled() "
+          f"{cms[True]:.2f} / {cms[False]:.2f}; run() {on['run_s']:.2f} s / {off['run_s']:.2f} s "
+          f"with the graph trace and the profile export [{smi}]")
+    # The profile of epoch 0 against the wrappers' counts over that epoch.
+    pdir = tr.config.profile_dir
+    (pfile,) = os.listdir(pdir)
+    with open(os.path.join(pdir, pfile)) as f:
+        pev = json.load(f)["traceEvents"]
+    from distributed_tensorflow_tpu_torch.utils.profiler import LEAD_IN
+
+    kernels = sorted((e for e in pev if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    lead = [e for e in kernels if "spin_kernel" in e.get("name", "")]
+    names = [e.get("name", "") for e in kernels if e not in lead]
+    seen = {k: sum(k in nm for nm in names) for k in OBS_KERNELS}
+    delta = tr.epochs[0][1]
+    want = {k: sum(delta[w] for w in ws) for k, ws in OBS_KERNELS.items()}
+    print(f"  (b) profile of epoch 0 ({pfile}, {len(pev)} events, {len(names)} device kernels "
+          f"of the epoch, the first {names[0][:48]!r}; {len(lead)} of the window's {LEAD_IN} "
+          f"lead-in launches): by name {seen}, the wrappers' counts over the epoch {want}")
+    if seen != want or want["flash_fwd_kernel"] != n * steps:
+        raise AssertionError(f"28(b) the profile's kernels {seen} against LAUNCHES {want}")
+    snap = tr.sinks["metrics"].snapshot()
+    hist, epochs_total = snap["step_time_ms"][0], snap["epochs_total"][0]["value"]
+    if hist["count"] != OBS_EPOCHS + 1 or epochs_total != OBS_EPOCHS:
+        raise AssertionError(f"28(b) step_time_ms count {hist['count']}, epochs_total "
+                             f"{epochs_total}")
+    spans_path = os.path.join(root, "spans.json")
+    tr.spans.export_chrome_trace(spans_path)
+    with open(spans_path) as f:
+        spans = [e["name"] for e in json.load(f)["traceEvents"]]
+    tr.sinks["journal"].close()
+    tr.sinks["summary_writer"].close()
+    from distributed_tensorflow_tpu_torch import observability as obs
+
+    kinds = [e["kind"] for e in obs.read_events(os.path.join(root, "journal"))]
+    (tb,) = [os.path.join(root, "tb", f) for f in os.listdir(os.path.join(root, "tb"))]
+    recs = tfevents(tb)
+    graph = [r[1] for r in recs if r[0] == "graph"]
+    tags = [r[1] for r in recs if r[0] == "scalar"]
+    op = b"dtf.FlashAttention"  # a NodeDef's op field: key 0x12, length, the name
+    fwd_nodes = graph[0].count(b"\x12" + bytes([len(op)]) + op) if graph else 0
+    print(f"  (b) step_time_ms: {hist['count']} observations (2 epochs of run(), 1 compiled "
+          f"run), epochs_total {epochs_total}; spans {spans} (chrome trace loads); journal "
+          f"kinds {dict((k, kinds.count(k)) for k in dict.fromkeys(kinds))}; tfevents "
+          f"{len(graph)} graph ({len(graph[0]) if graph else 0} bytes, {fwd_nodes} flash "
+          f"forward nodes), {tags.count('cost')} cost and {tags.count('perplexity')} "
+          f"perplexity scalars")
+    if (spans != ["torch_profiler_trace", "lm_compiled_run"] or len(graph) != 1 or fwd_nodes != n
+            or tags.count("perplexity") != 2 * OBS_EPOCHS
+            or not {"step", "epoch", "final", "metrics", "span"} <= set(kinds)):
+        raise AssertionError(f"28(b) spans {spans}, graphs {len(graph)} ({fwd_nodes} flash "
+                             f"nodes), tags {sorted(set(tags))}, kinds {sorted(set(kinds))}")
+    return time.perf_counter() - t_phase
+
+
+def phase_obs(records, ds, smi):
+    """28: the telemetry on the card (the MLP through launch.run, gpt-m
+    through LMTrainer); each part's seconds."""
+    a = obs_mlp(records, ds)
+    b = obs_lm(records, smi)
+    print(f"  phase 28: (a) {a:.1f} s, (b) {b:.1f} s")
 
 
 def phase_build():
@@ -7438,6 +7831,11 @@ def main() -> int:
           "avg_every 1 and 2, zero against dp, the DiLoCo gang with int8 deltas, overlapped)")
     phase_lsgd(records, smi)
     print(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
+    t28 = time.perf_counter()
+    phase("28: the telemetry: the MLP through launch.run with DTF_LOGS and DTF_JOURNAL_DIR; "
+          "gpt-m through LMTrainer with a journal, metrics, tfevents and a profile")
+    phase_obs(records, ds, smi)
+    print(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -7462,6 +7860,7 @@ def main() -> int:
     variants += [(name, base, path) for name, (base, path) in FLASH_TP.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_EPP.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_LSGD.items()]
+    variants += [(name, base, path) for name, (base, path) in {**FLASH_OBS, **MLP_OBS}.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

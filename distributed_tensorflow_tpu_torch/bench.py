@@ -43,6 +43,8 @@ import time
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch.utils.sync import two_point_seconds
+
 BASELINE_EXAMPLES_PER_SEC = 42_000.0
 BATCH_SIZE = 100
 LEARNING_RATE = 0.001
@@ -52,20 +54,6 @@ IMPLS = ("pallas-epoch", "pallas", "xla")
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
-
-
-def two_point_seconds(time_short, time_long, span: int, reps: int = 5) -> float:
-    """Per-unit seconds by the two-point method (a copy of the JAX package's
-    ``utils/sync.two_point_seconds``): ``(time_long() - time_short()) /
-    span``, median over ``reps`` pairs, clamped to 1e-12 (a result that
-    small means the span is below the noise, not that the work is free)."""
-    deltas = []
-    for _ in range(reps):
-        t_short = time_short()
-        t_long = time_long()
-        deltas.append((t_long - t_short) / span)
-    deltas.sort()
-    return max(deltas[len(deltas) // 2], 1e-12)
 
 
 def parse_args(argv=None):

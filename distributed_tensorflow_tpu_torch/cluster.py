@@ -9,9 +9,12 @@ joined under a bounded timeout and retry (:func:`bounded_initialize`); the
 ps role is accepted for launcher compatibility and returns at once
 (parameters live on the ranks, and gradients and parameters meet by
 all-reduce). One process is one rank is one device (``parallel/mesh.py``).
+A worker arms its per-rank event journal from the launcher's environment
+(``DTF_JOURNAL_DIR`` or ``DTF_EVENTS_PATH``, ``observability/journal.py``
+``configure_from_env``), as the JAX bootstrap does.
 
-Not ported yet, and refused when asked for: the heartbeat detector and the
-per-rank journal (``DTF_JOURNAL_DIR``), ROADMAP A8.
+Not ported yet, and refused when asked for: the heartbeat detector,
+ROADMAP A8c.
 """
 
 from __future__ import annotations
@@ -144,9 +147,12 @@ def bootstrap(
     """Resolve this process's role; join the process group if the cluster
     has more than one worker, printing the rank, its device and the
     backend. A ps task prints the reference's line and the reason it has
-    nothing to serve, and returns ``is_ps=True``. The
-    heartbeat (here or on the cluster) and ``DTF_JOURNAL_DIR`` are
-    ROADMAP A8 and raise."""
+    nothing to serve, and returns ``is_ps=True``. A worker arms the
+    process-default journal from ``DTF_JOURNAL_DIR`` / ``DTF_EVENTS_PATH``
+    (a no-op without them) under its original rank: ``task_index``, or
+    its entry of ``DTF_WORKER_RANKS`` when a relaunch renumbered the
+    gang, so one member keeps one journal. The heartbeat (here or on the
+    cluster) is ROADMAP A8c and raises."""
     if job_name == "ps":
         print_fn("ps setting up ...")
         print_fn(
@@ -162,11 +168,20 @@ def bootstrap(
         )
     if heartbeat_port is not None or heartbeat_host is not None:
         raise NotImplementedError("bootstrap(heartbeat_...): the heartbeat detector is not "
-                                  "ported yet (ROADMAP A8)")
-    if os.environ.get("DTF_JOURNAL_DIR"):
-        raise NotImplementedError("DTF_JOURNAL_DIR: the per-rank journal is not ported yet "
-                                  "(ROADMAP A8)")
+                                  "ported yet (ROADMAP A8c)")
     print_fn("worker setting up ...")
+    journal_rank = task_index
+    if os.environ.get("DTF_WORKER_RANKS"):
+        from distributed_tensorflow_tpu_torch.launch import parse_worker_ranks
+
+        ranks = parse_worker_ranks(os.environ["DTF_WORKER_RANKS"])
+        # A rank outside the roster keeps its own index; cluster_from_env
+        # checks the roster's length against the world.
+        if 0 <= task_index < len(ranks):
+            journal_rank = ranks[task_index]
+    from distributed_tensorflow_tpu_torch.observability.journal import configure_from_env
+
+    configure_from_env(journal_rank)
     n = cluster.num_processes
     if initialize_distributed is None:
         initialize_distributed = n > 1

@@ -18,8 +18,11 @@ family of ``models/__init__.MODEL_REGISTRY`` (``mlp``, ``cnn``, ``lstm``,
 
 A JAX field the port does not have yet is refused, whatever its value,
 naming the ROADMAP item that brings it (A8a the checkpoints and the
-DiLoCo mailbox gang's ``stale_limit``, A8b the logs and profiles); so
-would be a value of ``dp_mode`` that a later item brings (none is left).
+DiLoCo mailbox gang's ``stale_limit``); so would be a value of ``dp_mode``
+that a later item brings (none is left). ``logs_path`` (the tfevents
+summaries, written by the chief's ``SummaryWriter``; empty turns them off)
+and ``profile_dir`` (a ``torch.profiler`` trace of the first epoch) keep
+the JAX defaults.
 The DiLoCo outer loop's fields (``sync_every``, ``outer_lr``,
 ``outer_momentum``, ``diloco_workers``, ``delta_dtype``,
 ``delta_overlap``) carry the JAX defaults and validation
@@ -39,8 +42,6 @@ NOT_PORTED = {
     **dict.fromkeys(
         ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
          "stale_limit"), "A8a"),
-    # Observability.
-    **dict.fromkeys(("logs_path", "profile_dir"), "A8b"),
 }
 # Values of dp_mode that a later item brings (LM-trainer modes) -> its item.
 DP_MODES_NOT_PORTED: dict = {}
@@ -54,7 +55,7 @@ class ClusterConfig:
     rendezvous (``tcp://<entry 0>``) and the chief, as the reference's
     ``is_chief=(task_index==0)``. ``ps_svrs`` is kept for drop-in
     compatibility with the reference's ``settings.py``. The heartbeat
-    detector (``heartbeat_port`` / ``heartbeat_host``) is ROADMAP A8 and
+    detector (``heartbeat_port`` / ``heartbeat_host``) is ROADMAP A8c and
     refused when set. ``connect_timeout_s`` / ``connect_attempts`` bound
     ``cluster.bounded_initialize``."""
 
@@ -70,7 +71,7 @@ class ClusterConfig:
         for name in ("heartbeat_port", "heartbeat_host"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"ClusterConfig.{name}: the heartbeat detector is not ported yet (ROADMAP A8)"
+                    f"ClusterConfig.{name}: the heartbeat detector is not ported yet (ROADMAP A8c)"
                 )
 
     @property
@@ -129,6 +130,7 @@ class _TrainFields:
     learning_rate: float = 0.001
     epochs: int = 100
     log_frequency: int = 100  # print every N batches
+    logs_path: str = "./logs"  # reference logs_path, tfdist_between.py:22
     seed: int = 1
     compute_dtype: str = "bfloat16"  # operand dtype of the model's products
     optimizer: str = "sgd"  # sgd | momentum | adam | adamw (ops/optim.make)
@@ -204,6 +206,9 @@ class _TrainFields:
     # ops/quantized.quantized_dot): None | "int8" | "fp8". The classifier
     # path refuses it (launch.build_trainer).
     matmul_dtype: str | None = None
+    # A torch.profiler trace of epoch 0 into this directory (utils/profiler.py;
+    # the card's kernels too on a CUDA device).
+    profile_dir: str | None = None
 
     def __post_init__(self):
         if self.dp_mode in DP_MODES_NOT_PORTED:

@@ -12,7 +12,7 @@ JAX package's (``tests/test_torch_text.py``).
 BPE runs on the pure-Python path only. The JAX package's native fast path
 (``runtime/native.py`` over ``runtime/csrc/dtf_runtime.cc``) is
 bit-identical to it and comes with the port's own copy of that runtime
-(ROADMAP A8, which needs it for the heartbeat and ``crc32c``).
+(ROADMAP A8c, which needs it for the heartbeat and ``crc32c``).
 """
 
 from __future__ import annotations

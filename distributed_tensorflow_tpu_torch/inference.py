@@ -1,7 +1,7 @@
 """Batched prediction from trained parameters.
 
 Counterpart of ``distributed_tensorflow_tpu/inference.py`` ``Predictor``:
-take the parameters of a live training state (a checkpoint is ROADMAP A8),
+take the parameters of a live training state (a checkpoint is ROADMAP A8a),
 and stream inputs of any size through the model's forward in chunks of
 ``batch_size``, the tail zero-padded, so that every call sees one input
 shape (the JAX package compiles once for it; here it keeps the kernels'
@@ -58,7 +58,7 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, model, checkpoint_dir: str, **kw) -> "Predictor":
         raise NotImplementedError(
-            "Predictor.from_checkpoint: checkpoints are not ported yet (ROADMAP A8)")
+            "Predictor.from_checkpoint: checkpoints are not ported yet (ROADMAP A8a)")
 
     # -- prediction --------------------------------------------------------
 

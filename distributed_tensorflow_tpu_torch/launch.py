@@ -32,10 +32,10 @@ from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
 
 # Environment knobs of the JAX launcher that the port does not have yet ->
 # the ROADMAP item that brings them: checkpoints and the DiLoCo mailbox
-# gang's window (A8a), the logs (A8b), the elastic gang (A8c).
+# gang's window (A8a), the elastic gang (A8c).
 NOT_PORTED_ENV = {
     "DTF_CHECKPOINT": "A8a", "DTF_KEEP_LAST": "A8a", "DTF_MAX_ROLLBACKS": "A8a",
-    "DTF_STALE_LIMIT": "A8a", "DTF_LOGS": "A8b",
+    "DTF_STALE_LIMIT": "A8a",
     "DTF_MAX_RESTARTS": "A8c", "DTF_STALL_TIMEOUT_MS": "A8c", "DTF_MIN_WORKERS": "A8c",
     "DTF_REJOIN_TIMEOUT_S": "A8c",
 }
@@ -45,7 +45,8 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     """Apply environment overrides to a TrainConfig: DTF_MODEL (a registry
     name: ``mlp``, ``cnn``, ``lstm``, ``transformer``), DTF_EPOCHS,
     DTF_BATCH_SIZE, DTF_LR, DTF_SCAN (=1 → scan_epoch), DTF_COMPILED (=1 →
-    compiled_run), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
+    compiled_run), DTF_LOGS (the tfevents directory, ``logs_path``; empty
+    turns the summaries off), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
     "selective"), DTF_MATMUL_DTYPE (empty → None, else "int8" | "fp8"), and
     the DiLoCo outer loop's DTF_SYNC_EVERY, DTF_OUTER_LR (empty → None, the
     worker-count default), DTF_OUTER_MOMENTUM and DTF_DELTA_DTYPE (empty →
@@ -77,6 +78,8 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
         kw["scan_epoch"] = os.environ["DTF_SCAN"] == "1"
     if "DTF_COMPILED" in os.environ:
         kw["compiled_run"] = os.environ["DTF_COMPILED"] == "1"
+    if "DTF_LOGS" in os.environ:
+        kw["logs_path"] = os.environ["DTF_LOGS"]
     if "DTF_REMAT" in os.environ:
         raw = os.environ["DTF_REMAT"]
         # Anything but empty/0/1/"selective" fails in TrainConfig.
@@ -112,8 +115,8 @@ def parse_worker_ranks(raw: str) -> tuple[int, ...]:
 def cluster_from_env(base: ClusterConfig | None = None) -> ClusterConfig:
     """Apply environment overrides to a ClusterConfig, as the JAX launcher
     reads them: DTF_HEARTBEAT_PORT (empty/0 disables; any other value is
-    the heartbeat detector, ROADMAP A8, and raises), DTF_HEARTBEAT_TIMEOUT_MS,
-    DTF_HEARTBEAT_HOST (A8), and the sub-cluster a relaunch serves:
+    the heartbeat detector, ROADMAP A8c, and raises), DTF_HEARTBEAT_TIMEOUT_MS,
+    DTF_HEARTBEAT_HOST (A8c), and the sub-cluster a relaunch serves:
     DTF_WORKER_RANKS (original ranks in new-rank order,
     ``ClusterConfig.subset``) and DTF_WORLD_SIZE (the first N, or a
     cross-check of the ranks' count). Invalid values raise ValueError
@@ -257,6 +260,7 @@ def build_trainer(
     data_dir: str = "MNIST_data",
     print_fn=print,
     device=None,
+    summary_writer=None,
 ):
     """The Trainer for ``config``: the strategy (:func:`build_strategy`),
     the registry's ``config.model`` in the config's compute dtype (unless
@@ -266,8 +270,10 @@ def build_trainer(
     ``data_dir`` holds no IDX files), the configured optimizer,
     ``accumulate(clip(make(name, schedule)))`` as the JAX launcher composes
     it, and the loss. ``context`` (``cluster.bootstrap``) says whether this
-    process is the chief. ``device`` defaults to cuda (this rank's card)
-    and raises without one."""
+    process is the chief. On the chief, unless ``summary_writer`` is given,
+    a ``utils/summary.SummaryWriter`` writes the run's tfevents into
+    ``config.logs_path`` (none when it is empty). ``device`` defaults to
+    cuda (this rank's card) and raises without one."""
     from distributed_tensorflow_tpu_torch.data.mnist import read_data_sets
     from distributed_tensorflow_tpu_torch.models import build_model
     from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
@@ -308,9 +314,14 @@ def build_trainer(
             loss_fn = losses_lib.stable_cross_entropy
         else:
             loss_fn = losses_lib.cross_entropy
+    if summary_writer is None and is_chief and config.logs_path:
+        from distributed_tensorflow_tpu_torch.utils.summary import SummaryWriter
+
+        summary_writer = SummaryWriter(config.logs_path)
     return Trainer(
         model, datasets, config, strategy=strategy, optimizer=optimizer,
         loss_fn=loss_fn, is_chief=is_chief, print_fn=print_fn,
+        summary_writer=summary_writer,
     )
 
 

@@ -370,25 +370,50 @@ def flash_attention_op(
     """``(q, k, v, kv_lens) → (out, lse)``, both differentiable: the JAX
     ``_flash`` custom VJP as an operator that autograd and a selective
     checkpoint see whole (``window`` 0 = none; ``fused`` picks the
-    backward; ``offset`` the ring offset). Its backward
-    (:func:`_flash_op_backward`) runs from the saved ``(q, k, v, out,
-    lse)``; ``kv_lens`` gets no gradient."""
+    backward; ``offset`` the ring offset). Its backward is the operator
+    :func:`flash_attention_bwd_op` on the saved ``(q, k, v, out, lse)``;
+    ``kv_lens`` gets no gradient."""
     return _flash_forward(q, k, v, causal, window or None, kv_lens, offset)
+
+
+@flash_attention_op.register_fake
+def _flash_op_fake(q, k, v, kv_lens, causal, window, fused, offset=0):
+    # Shapes only: a trace on fake tensors (utils/summary.graph_def_from_fn)
+    # sees the operator as one node and launches nothing.
+    b, l, hq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, l, hq), dtype=torch.float32)
+
+
+@torch.library.custom_op("dtf::FlashAttentionBackward", mutates_args=())
+def flash_attention_bwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, dlse: Optional[torch.Tensor], kv_lens: Optional[torch.Tensor],
+    causal: bool, window: int, fused: Optional[bool], offset: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_op` (:func:`flash_bwd`: the
+    backward kernels on the card), an operator of its own so that a trace
+    on fake tensors keeps it one node."""
+    kw = {"offset": offset} if offset else {}
+    return flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, causal, window or None, fused, **kw)
+
+
+@flash_attention_bwd_op.register_fake
+def _flash_bwd_op_fake(q, k, v, out, lse, dout, dlse, kv_lens, causal, window, fused, offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_op_setup(ctx, inputs, output):
     q, k, v, kv_lens, causal, window, fused, offset = inputs
     ctx.save_for_backward(q, k, v, *output, kv_lens)
-    ctx.causal, ctx.window, ctx.fused, ctx.offset = causal, window or None, fused, offset
+    ctx.causal, ctx.window, ctx.fused, ctx.offset = causal, window, fused, offset
 
 
 def _flash_op_backward(ctx, dout, dlse):
     q, k, v, out, lse, kv_lens = ctx.saved_tensors
     if dout is None:
         dout = torch.zeros_like(out)
-    kw = {"offset": ctx.offset} if ctx.offset else {}
-    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal, ctx.window,
-                           ctx.fused, **kw)
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse, dout, dlse, kv_lens, ctx.causal,
+                                        ctx.window, ctx.fused, ctx.offset)
     return dq, dk, dv, None, None, None, None, None
 
 

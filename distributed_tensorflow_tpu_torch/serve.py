@@ -66,8 +66,8 @@ streams equal in-process greedy decoding token for token.
   was resolved), "fused" and "fused-layer" are refused at construction.
 
 Waiting for later slices: deadlines and shedding,
-weight swap, drain, KV export/import, the event journal, the metrics
-registry and its exporter (A8). ``counters`` keeps the JAX
+weight swap, drain, KV export/import, and wiring the event journal, the metrics
+registry and its exporter into the server (A3.6). ``counters`` keeps the JAX
 package's pool and speculation counter names.
 """
 
@@ -288,7 +288,7 @@ class TextServer:
                        "decode_tokens": 0, "verify_s": 0.0, "verify_ticks": 0,
                        "verify_tokens": 0}
         # The JAX package's pool and speculation counters (its metrics
-        # registry waits for ROADMAP A8).
+        # registry waits for ROADMAP A3.6).
         self.counters = {"prefix_cache_hits": 0, "prefix_cache_misses": 0,
                          "spec_tokens_proposed": 0, "spec_tokens_accepted": 0,
                          "kv_blocks_used": 0}

@@ -6,7 +6,7 @@ A copy of the pure-Python half of ``distributed_tensorflow_tpu/serve_pool.py``
 ``kv_position_bytes`` (:82), ``kv_block_bytes`` (:107),
 ``blocks_for_hbm_bytes`` (:124), :class:`BlockAllocator` (:156),
 :class:`PrefixCache` (:222, without the event journal) and
-:func:`lookup_draft` (:460). The fleet index waits for ROADMAP A8.
+:func:`lookup_draft` (:460). The fleet index waits for ROADMAP A8d.
 
 - :class:`BlockAllocator` — a refcounted free list over the pool. A block
   is free (on the list) or held by one or more owners (a live slot, the

@@ -23,7 +23,7 @@ count): the rank's card and the process group's backend follow from them
 when they share one).
 
 The elastic half of the JAX launcher (``--max-restarts``, the heartbeat
-detector, ``--min-workers`` resizing) is ROADMAP A8 and refused.
+detector, ``--min-workers`` resizing) is ROADMAP A8c and refused.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ def launch(
     if max_restarts > 0 or heartbeat_port or min_workers:
         raise NotImplementedError(
             "launch_local's elastic mode (--max-restarts, --heartbeat-port, "
-            "--min-workers) is not ported yet (ROADMAP A8)"
+            "--min-workers) is not ported yet (ROADMAP A8c)"
         )
     os.makedirs(logdir, exist_ok=True)
     base_env = dict(os.environ)
@@ -97,17 +97,17 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--max-restarts", type=int,
         default=int(os.environ.get("DTF_MAX_RESTARTS", "0") or 0),
-        help="elastic gang restarts: not ported yet (ROADMAP A8); 0 = fail-stop",
+        help="elastic gang restarts: not ported yet (ROADMAP A8c); 0 = fail-stop",
     )
     parser.add_argument(
         "--heartbeat-port", type=int,
         default=int(os.environ.get("DTF_HEARTBEAT_PORT", "0") or 0) or None,
-        help="heartbeat failure detector: not ported yet (ROADMAP A8)",
+        help="heartbeat failure detector: not ported yet (ROADMAP A8c)",
     )
     parser.add_argument(
         "--min-workers", type=int,
         default=int(os.environ.get("DTF_MIN_WORKERS", "0") or 0),
-        help="shrink-to-fit floor: not ported yet (ROADMAP A8)",
+        help="shrink-to-fit floor: not ported yet (ROADMAP A8c)",
     )
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="-- command to launch per task")

@@ -107,11 +107,25 @@ prints step lines alike) and, in :meth:`LMTrainer.run_compiled`, once over
 the run's costs before its one fetch. Step lines print on every rank; the
 epoch and final lines on the chief (``is_chief`` and rank 0 of the mesh).
 
+Telemetry, as the JAX trainer wires it (JAX :124-183, :1419-1498,
+:1620-1750), and as the MLP ``Trainer`` takes it: the lines rendered from
+``journal`` events, the ``step_time_ms`` histogram and ``epochs_total`` in
+``metrics`` (flushed into the journal at the end), the compiled run's
+dispatch span up to its one fetch, one ambient trace id a run; on the
+chief, ``summary_writer`` takes the step's graph once
+(:meth:`LMTrainer.write_graph`), a ``cost`` scalar at each logged step and
+``perplexity`` each epoch; ``TrainConfig.profile_dir`` profiles the first
+epoch of :meth:`LMTrainer.run`. In the dp and DiLoCo modes each epoch
+journals a ``comm_stats`` event (sync rounds, the dense all-reduce bytes
+and the bytes a round puts on the wire, from
+``local_sgd.sync_rounds_between``, ``params_nbytes`` and
+``delta_payload_nbytes``) and adds them to the ``sync_rounds_total``,
+``allreduce_bytes_total`` and ``payload_bytes_total`` counters.
+
 Not ported yet, and refused when asked for: the supervisor and
 checkpoints (and with them the ``tokenizer.json`` written beside a
 checkpoint), ``epochs_per_dispatch``, the anomaly guard and the DiLoCo
-mailbox gang ``delta_exchange`` (A8a), summaries, the journal and metrics
-(A8b).
+mailbox gang ``delta_exchange`` (A8a).
 """
 
 from __future__ import annotations
@@ -124,6 +138,10 @@ import torch
 
 from distributed_tensorflow_tpu_torch.config import TrainConfig
 from distributed_tensorflow_tpu_torch.device import resolve_device
+from distributed_tensorflow_tpu_torch.observability import journal as obs_journal
+from distributed_tensorflow_tpu_torch.observability import tracing
+from distributed_tensorflow_tpu_torch.observability.metrics import TIME_MS_EDGES, MetricsRegistry
+from distributed_tensorflow_tpu_torch.observability.spans import SpanRecorder
 from distributed_tensorflow_tpu_torch.models.gpt import (
     make_lm_async_parts,
     make_lm_ep_parts,
@@ -149,10 +167,7 @@ from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX LMTrainer keyword -> (values that leave it off, ROADMAP item).
 NOT_PORTED = {
-    "summary_writer": ((None,), "A8b"),
     "supervisor": ((None,), "A8a"),
-    "journal": ((None,), "A8b"),
-    "metrics": ((None,), "A8b"),
     # The DiLoCo mailbox gang (JAX local_sgd.DeltaExchange): its posts ride
     # the checkpoints' CRC records.
     "delta_exchange": ((None,), "A8a"),
@@ -182,6 +197,9 @@ class LMTrainer:
         sp_attention: str | None = None,
         is_chief: bool = True,
         async_update_scale: float | None = None,
+        summary_writer=None,
+        journal=None,
+        metrics: MetricsRegistry | None = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -223,6 +241,11 @@ class LMTrainer:
         )
         self.eval_batch = eval_batch
         self.print_fn = print_fn
+        self.summary_writer = summary_writer
+        self.journal = journal if journal is not None else obs_journal.get_journal()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.spans = SpanRecorder(journal=self.journal)
+        self._graph_written = False
         self._ragged = datasets.train.lengths is not None
         self.mode = self._resolve_mode()
         self._tp = self._specs = None
@@ -622,6 +645,7 @@ class LMTrainer:
     def _end_epoch(self, logger: StepLogger, epoch: int, perplexity: float, step: int) -> None:
         if self.is_chief:
             logger.log_epoch_metric("Test-Perplexity", perplexity)
+            self._add_scalar("perplexity", perplexity, step)
         self.history.append({"epoch": epoch + 1, "perplexity": perplexity, "step": step})
 
     def _finish(self, logger: StepLogger, perplexity: float, final_cost=None) -> dict:
@@ -629,6 +653,12 @@ class LMTrainer:
             final_cost = float("nan") if self.last_cost is None else float(self.last_cost)
         if self.is_chief:
             logger.log_final(cost=final_cost)
+            # The end of a run (JAX :1494-1498): summaries to disk, the
+            # metrics snapshot into the journal, the journal synced.
+            if self.summary_writer is not None:
+                self.summary_writer.flush()
+            self.metrics.flush_to(self.journal, component="lm_trainer")
+            self.journal.flush()
         return {
             "perplexity": perplexity,
             "final_cost": final_cost,
@@ -639,16 +669,106 @@ class LMTrainer:
         steps = self.datasets.train.num_examples // self.config.batch_size
         step_before = self.global_step
         logger.reset_window()
+        t_epoch = time.time()
         cost = None
         for i, cost in self._epoch_steps(self._draw_indices(1, steps)[0],
                                          *self._split_arrays("train")):
             if logger.is_due(i + 1, steps):  # the fetch waits for the device
+                host_cost = float(self._mean_costs(cost))
                 logger.maybe_log_step(
                     step=step_before + i + 1, epoch=epoch, batch=i,
-                    batch_count=steps, cost=float(self._mean_costs(cost)),
+                    batch_count=steps, cost=host_cost,
                 )
+                self._add_scalar("cost", host_cost, step_before + i + 1)
         if cost is not None:
             self.last_cost = float(self._mean_costs(cost))
+        self._observe_step_time((time.time() - t_epoch) * 1000 / max(steps, 1))
+        self._emit_comm_stats(epoch=epoch, steps=steps, count_before=step_before)
+
+    # -- telemetry --------------------------------------------------------
+
+    def _add_scalar(self, tag: str, value: float, step: int) -> None:
+        """A tfevents scalar on the chief (``value`` already on the host)."""
+        if self.summary_writer is not None and self.is_chief:
+            self.summary_writer.add_scalar(tag, value, step)
+
+    def _observe_step_time(self, avg_ms: float) -> None:
+        """An epoch's mean step time into the ``step_time_ms`` histogram
+        (JAX :1859-1868)."""
+        self.metrics.histogram("step_time_ms", edges=TIME_MS_EDGES).observe(float(avg_ms))
+
+    def _gang_size(self) -> int:
+        """Workers in the data-parallel gang (1 when there is none): the
+        data axis's size, or the emulated DiLoCo gang's width (JAX :852)."""
+        if self.mesh is not None and self.data_axis in self.mesh.shape:
+            return int(self.mesh.shape[self.data_axis])
+        if self.mode == "diloco":
+            return int(self.config.diloco_workers)
+        return 1
+
+    def _emit_comm_stats(self, *, epoch: int, steps: int, count_before: int) -> None:
+        """An epoch's communication accounting (JAX :1687-1750), counted on
+        the host from the step counts, not measured: the gang's sync rounds
+        (dp: one a step; DiLoCo: one every ``sync_every`` steps), the bytes
+        they all-reduce (a dense parameter set a round) and what a round
+        puts on the wire (the dense set, or its per-tensor codes under
+        ``delta_dtype``). One ``comm_stats`` event and three counters;
+        the other modes' traffic is not a parameter-sized all-reduce a
+        round and is left out, as in the JAX trainer."""
+        if self.mode not in ("dp", "diloco") or steps <= 0:
+            return
+        if self.mode == "diloco":
+            h = self.config.sync_every
+            rounds = local_sgd.sync_rounds_between(count_before, count_before + steps, h)
+        else:
+            h, rounds = 1, steps
+        if not hasattr(self, "_dense_param_nbytes"):
+            shapes = self.model.init(seed=0, device="meta")
+            self._dense_param_nbytes = local_sgd.params_nbytes(shapes)
+            self._delta_payload_nbytes = local_sgd.delta_payload_nbytes(
+                shapes, self.config.delta_dtype if self.mode == "diloco" else None)
+        nbytes = rounds * self._dense_param_nbytes
+        payload = rounds * self._delta_payload_nbytes
+        self.journal.emit(
+            "comm_stats",
+            epoch=int(epoch),
+            mode=self.mode,
+            steps=int(steps),
+            sync_every=int(h),
+            sync_rounds=int(rounds),
+            allreduce_bytes=int(nbytes),
+            payload_bytes=int(payload),
+            delta_dtype=self.config.delta_dtype if self.mode == "diloco" else None,
+            overlap=bool(self.mode == "diloco" and self.config.delta_overlap),
+            workers=int(self._gang_size()),
+        )
+        self.metrics.counter("sync_rounds_total").inc(int(rounds))
+        self.metrics.counter("allreduce_bytes_total").inc(int(nbytes))
+        self.metrics.counter("payload_bytes_total").inc(int(payload))
+
+    def _maybe_write_graph(self) -> None:
+        # Once per trainer, on the chief: one graph a run.
+        if self.summary_writer is not None and self.is_chief and not self._graph_written:
+            self.write_graph()
+            self._graph_written = True
+
+    def write_graph(self) -> None:
+        """The mode's train step as the TensorBoard graph (the reference's
+        ``FileWriter(graph=...)``, ``tfsingle.py:69``): traced by
+        ``make_fx`` on fake tensors over an uninitialized token batch of
+        the training shape, so nothing runs on the device and the index
+        stream does not move. The flash kernels are one node each way
+        (``dtf.FlashAttention``, ``dtf.FlashAttentionBackward``)."""
+        train = self.datasets.train
+        rows = (self.config.batch_size,)
+        dtype = torch.from_numpy(train.tokens[:0]).dtype
+        toks = torch.empty(rows + tuple(train.tokens.shape[1:]), dtype=dtype, device=self.device)
+        lens = None
+        if self._ragged:
+            lens = torch.empty(rows, dtype=torch.from_numpy(train.lengths[:0]).dtype,
+                               device=self.device)
+        self.summary_writer.add_graph(self._step, self.state.params, self.state.opt_state,
+                                      toks, lens)
 
     def run_compiled(self, epochs: int | None = None) -> dict:
         """The whole run with no host round trip until its end (the JAX
@@ -658,16 +778,23 @@ class LMTrainer:
         once afterwards and printed as :meth:`run`'s lines (a uniform
         AvgTime). Where ``eval_batch`` divides the split, each epoch's
         perplexity is :meth:`evaluate`'s bit for bit. The returned
-        perplexity is :meth:`evaluate`'s over the whole split."""
+        perplexity is :meth:`evaluate`'s over the whole split. One trace id
+        (the caller's, when it runs inside one)."""
+        with tracing.trace(tracing.current_trace()):
+            return self._run_compiled(epochs)
+
+    def _run_compiled(self, epochs: int | None = None) -> dict:
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         steps = self.datasets.train.num_examples // cfg.batch_size
-        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
+        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
         if epochs * steps == 0:
             return self._finish(logger, self.evaluate("validation"), float("nan"))
         train, val = self._split_arrays("train"), self._split_arrays("validation")
+        self._maybe_write_graph()
         idxs = self._draw_indices(epochs, steps)
         step_before = self.global_step
+        mark = self.spans.mark()
         costs = torch.empty((epochs, steps), dtype=torch.float32, device=self.device)
         totals = torch.empty(epochs, dtype=torch.float64, device=self.device)
         counts = torch.empty(epochs, dtype=torch.int64, device=self.device)
@@ -676,30 +803,48 @@ class LMTrainer:
             for i, cost in self._epoch_steps(idxs[e], *train):
                 costs[e, i] = cost
             totals[e], counts[e] = self._eval_sums(*val, trim=True)
-        costs = self._mean_costs(costs).cpu().numpy()  # the run's one fetch
+        # The run's one fetch; the span runs from the first dispatch to it.
+        costs = self.spans.dispatch_fetch("lm_compiled_run", self._mean_costs(costs),
+                                          start=mark, epochs=int(epochs))
         totals, counts = totals.cpu().numpy(), counts.cpu().numpy()
         avg_ms = (time.time() - t0) * 1000 / (epochs * steps)
+        self._observe_step_time(avg_ms)
         self.last_cost = float(costs[-1, -1])
         for e in range(epochs):
             for i in range(steps):
                 if logger.is_due(i + 1, steps):
-                    logger.log_step_line(
-                        step=step_before + e * steps + i + 1, epoch=e, batch=i,
-                        batch_count=steps, cost=float(costs[e, i]), avg_ms=avg_ms,
-                    )
+                    step = step_before + e * steps + i + 1
+                    logger.log_step_line(step=step, epoch=e, batch=i, batch_count=steps,
+                                         cost=float(costs[e, i]), avg_ms=avg_ms)
+                    self._add_scalar("cost", float(costs[e, i]), step)
+            self._emit_comm_stats(epoch=e, steps=steps, count_before=step_before + e * steps)
             self._end_epoch(logger, e, self._perplexity(totals[e], counts[e]),
                             step_before + (e + 1) * steps)
         return self._finish(logger, self.evaluate("validation"))
 
     def run(self, epochs: int | None = None) -> dict:
+        """The run: ``epochs`` epochs (default the config's), each
+        evaluated, under one ambient trace id."""
+        with tracing.trace(tracing.current_trace()):
+            return self._run(epochs)
+
+    def _run(self, epochs: int | None = None) -> dict:
         cfg = self.config
         if cfg.compiled_run:
             return self.run_compiled(epochs)
         epochs = cfg.epochs if epochs is None else epochs
-        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
+        self._maybe_write_graph()
+        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
         perplexity = float("nan")
         for epoch in range(epochs):
-            self.run_epoch(epoch, logger)
+            if epoch == 0 and cfg.profile_dir:
+                from distributed_tensorflow_tpu_torch.utils import profiler
+
+                with profiler.trace(cfg.profile_dir, self.spans, device=self.device):
+                    self.run_epoch(epoch, logger)
+            else:
+                self.run_epoch(epoch, logger)
+            self.metrics.counter("epochs_total").inc()
             perplexity = self.evaluate("validation")
             self._end_epoch(logger, epoch, perplexity, self.global_step)
         return self._finish(logger, perplexity)

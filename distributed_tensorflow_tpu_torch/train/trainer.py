@@ -26,9 +26,22 @@ Every path but the kernel's takes any optimizer of ``ops/optim.py``
 state in ``TrainState.opt_state``; ``engine="pallas"`` refuses them, with
 the JAX package's wording and probes, before any launch.
 
+Telemetry, as the JAX trainer wires it (JAX :52-74): every line is rendered
+from a ``step`` / ``epoch`` / ``final`` event of ``journal`` (default the
+process's, ``observability/journal.py``); ``metrics`` gets the
+``step_time_ms`` histogram (an epoch's mean) and ``epochs_total`` and is
+flushed into the journal at the end with the journal itself; a
+``SpanRecorder`` on the journal records each device loop's dispatch up to
+its one fetch; ``run`` and ``run_compiled`` sit in one ambient trace id.
+On the chief, ``summary_writer`` (``utils/summary.SummaryWriter``) takes
+the step's graph once (:meth:`Trainer.write_graph`), a ``cost`` scalar at
+each logged step and ``accuracy`` each epoch: the values the lines print,
+already on the host (the JAX trainer writes every step's cost). With
+``TrainConfig.profile_dir``, :meth:`Trainer.run` profiles its first epoch
+(``utils/profiler.py``).
+
 Not ported yet, and refused when asked for: the supervisor and
-checkpointing, anomaly rollback, ``epochs_per_dispatch``, summaries, the
-journal and metrics (ROADMAP A8).
+checkpointing, anomaly rollback and ``epochs_per_dispatch`` (ROADMAP A8a).
 """
 
 from __future__ import annotations
@@ -39,6 +52,10 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.config import TrainConfig
+from distributed_tensorflow_tpu_torch.observability import journal as obs_journal
+from distributed_tensorflow_tpu_torch.observability import tracing
+from distributed_tensorflow_tpu_torch.observability.metrics import TIME_MS_EDGES, MetricsRegistry
+from distributed_tensorflow_tpu_torch.observability.spans import SpanRecorder
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
 from distributed_tensorflow_tpu_torch.parallel.strategy import (
@@ -51,10 +68,7 @@ from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
 
 # JAX Trainer keyword -> (values that switch it off, ROADMAP item).
 NOT_PORTED = {
-    "summary_writer": ((None,), "A8"),
-    "supervisor": ((None,), "A8"),
-    "journal": ((None,), "A8"),
-    "metrics": ((None,), "A8"),
+    "supervisor": ((None,), "A8a"),
 }
 
 
@@ -68,9 +82,12 @@ class Trainer:
         strategy: Strategy | None = None,
         loss_fn=None,
         optimizer=None,
+        summary_writer=None,
         is_chief: bool = True,
         print_fn=print,
         device=None,
+        journal=None,
+        metrics: MetricsRegistry | None = None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -92,8 +109,13 @@ class Trainer:
         self.device = strategy.device
         self.loss_fn = loss_fn or losses_lib.cross_entropy
         self.optimizer = optimizer or optim_lib.sgd(self.config.learning_rate)
+        self.summary_writer = summary_writer
         self.is_chief = is_chief
         self.print_fn = print_fn
+        self.journal = journal if journal is not None else obs_journal.get_journal()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.spans = SpanRecorder(journal=self.journal)
+        self._graph_written = False
 
         self.state = self.strategy.init_state(self.model, self.optimizer, self.config.seed)
         self.train_step = self.strategy.make_train_step(self.model, self.loss_fn, self.optimizer)
@@ -160,6 +182,7 @@ class Trainer:
         global_batch = self.global_batch
         batch_count = self._batch_count()
         logger.reset_window()
+        t_epoch = time.time()
         if cfg.prefetch:
             from distributed_tensorflow_tpu_torch.data.prefetch import prefetch_batches
 
@@ -174,13 +197,12 @@ class Trainer:
             if self._exchange is not None and (i + 1) % self.strategy.avg_every == 0:
                 self.state = self._exchange(self.state)
             if logger.is_due(i + 1, batch_count):
-                logger.maybe_log_step(
-                    step=self.strategy.global_step(self.state),
-                    epoch=epoch,
-                    batch=i,
-                    batch_count=batch_count,
-                    cost=self.strategy.cost_scalar(cost),
-                )
+                step = self.strategy.global_step(self.state)
+                host_cost = self.strategy.cost_scalar(cost)
+                logger.maybe_log_step(step=step, epoch=epoch, batch=i, batch_count=batch_count,
+                                      cost=host_cost)
+                self._add_scalar("cost", host_cost, step)
+        self._observe_step_time((time.time() - t_epoch) * 1000 / max(batch_count, 1))
 
     def _run_epoch_scanned(self, epoch: int, logger: StepLogger) -> None:
         """One device loop over the epoch (train/scan.py): the training
@@ -201,12 +223,15 @@ class Trainer:
         perm = np.concatenate(chunks)[:need] if len(chunks) > 1 else chunks[0][:need]
         idxs = torch.from_numpy(perm.reshape(steps, self.global_batch)).to(self.device)
         step_before = self.strategy.global_step(self.state)
+        mark = self.spans.mark()
         t0 = time.time()
         self.state, costs = self._indexed_fn(self.state, xs, ys, idxs)
-        costs = costs.cpu().numpy()  # the fetch waits for the device
+        # The fetch waits for the device; the span runs from the dispatch to it.
+        costs = self.spans.dispatch_fetch("epoch_scan", costs, start=mark, epoch=int(epoch))
         elapsed = time.time() - t0
         self.last_cost = costs[-1]
         avg_ms = elapsed * 1000 / len(costs)
+        self._observe_step_time(avg_ms)
         self._emit_step_logs(costs, epoch, step_before, avg_ms, logger,
                              step_incr=self._step_incr(step_before, len(costs)))
 
@@ -227,7 +252,12 @@ class Trainer:
         """The whole run in one call (train/compiled_run.py, or the epoch
         kernel with ``engine="pallas"``): the same lines as :meth:`run`,
         emitted afterwards from the fetched ``[epochs, steps]`` costs and
-        ``[epochs]`` accuracies, with a uniform AvgTime."""
+        ``[epochs]`` accuracies, with a uniform AvgTime. One trace id (the
+        caller's, when it runs inside one)."""
+        with tracing.trace(tracing.current_trace()):
+            return self._run_compiled(epochs)
+
+    def _run_compiled(self, epochs: int | None = None) -> dict:
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         use_kernel = cfg.engine == "pallas"
@@ -261,7 +291,8 @@ class Trainer:
                     steps_per_epoch=steps_per_epoch,
                 )
             self._compiled_run_fns[key] = run_fn
-        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
+        self._maybe_write_graph()
+        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
         train, test = self.datasets.train, self.datasets.test
         step_before = self.strategy.global_step(self.state)
         # Seeded by the global step too, so a repeated run draws fresh
@@ -277,6 +308,7 @@ class Trainer:
             self._stage_cached("test_y", test.labels),
             generator,
         )
+        mark = self.spans.mark()
         if use_kernel:
             from distributed_tensorflow_tpu_torch.ops.fused_mlp import from_fused, to_fused
 
@@ -287,13 +319,16 @@ class Trainer:
             )
         else:
             self.state, metrics = run_fn(self.state, *args)
-        costs = metrics["costs"].cpu().numpy()  # the one fetch of the run
+        # The one fetch of the run; the span runs from the dispatch to it.
+        costs = self.spans.dispatch_fetch("compiled_run", metrics["costs"], start=mark,
+                                          epochs=int(epochs), engine=cfg.engine)
         accs = metrics["accuracy"].cpu().numpy()
         elapsed = time.time() - t0
         batch_count = costs.shape[1]
         if costs.size:
             self.last_cost = costs[-1, -1]
         avg_ms = elapsed * 1000 / max(epochs * batch_count, 1)
+        self._observe_step_time(avg_ms)
         incr = self._step_incr(step_before, epochs * batch_count)
         for epoch in range(epochs):
             self._emit_step_logs(
@@ -301,15 +336,18 @@ class Trainer:
                 step_incr=incr,
             )
             if self.is_chief:
+                step_now = step_before + (epoch + 1) * batch_count * incr
                 logger.log_epoch(test_accuracy=float(accs[epoch]))
+                self._add_scalar("accuracy", float(accs[epoch]), step_now)
                 self.history.append({
                     "epoch": epoch + 1,
                     "accuracy": float(accs[epoch]),
-                    "step": step_before + (epoch + 1) * batch_count * incr,
+                    "step": step_now,
                 })
         final_cost = float(costs[-1, -1]) if costs.size else float("nan")
         if self.is_chief:
             logger.log_final(cost=final_cost)
+            self._flush_telemetry()
         return {
             "accuracy": float(accs[-1]) if accs.size else 0.0,
             "final_cost": final_cost,
@@ -390,31 +428,106 @@ class Trainer:
         batch_count = len(costs)
         for i in range(batch_count):
             if logger.is_due(i + 1, batch_count):
+                step = step_offset + (i + 1) * step_incr
                 logger.log_step_line(
-                    step=step_offset + (i + 1) * step_incr,
+                    step=step,
                     epoch=epoch,
                     batch=i,
                     batch_count=batch_count,
                     cost=float(costs[i]),
                     avg_ms=avg_ms,
                 )
+                self._add_scalar("cost", float(costs[i]), step)
+
+    # -- telemetry --------------------------------------------------------
+
+    def _add_scalar(self, tag: str, value: float, step: int) -> None:
+        """A tfevents scalar on the chief (``value`` already on the host)."""
+        if self.summary_writer is not None and self.is_chief:
+            self.summary_writer.add_scalar(tag, value, step)
+
+    def _observe_step_time(self, avg_ms: float) -> None:
+        """An epoch's mean step time into the ``step_time_ms`` histogram
+        (JAX :896-903)."""
+        self.metrics.histogram("step_time_ms", edges=TIME_MS_EDGES).observe(float(avg_ms))
+
+    def _flush_telemetry(self) -> None:
+        """The end of a run on the chief (JAX :756-759): the summaries to
+        disk, the metrics snapshot into the journal, the journal synced."""
+        if self.summary_writer is not None:
+            self.summary_writer.flush()
+        self.metrics.flush_to(self.journal, component="trainer")
+        self.journal.flush()
+
+    def _maybe_write_graph(self) -> None:
+        # Once per trainer: TensorBoard expects one graph a run, and run()
+        # may be called again.
+        if self.summary_writer is not None and self.is_chief and not self._graph_written:
+            self.write_graph()
+            self._graph_written = True
+
+    def write_graph(self) -> None:
+        """The step the run takes, as the TensorBoard graph (the reference
+        passed its TF graph to the FileWriter, ``tfsingle.py:69``; JAX
+        :944 dumps the step's jaxpr). The train step is traced by
+        ``make_fx`` on fake tensors over a zeros batch, so nothing runs on
+        the device and the data stream does not move; a compiled run on
+        ``engine="pallas"`` is its epoch kernel, one node
+        (``mlp_epoch_kernel`` over the parameters and the epoch's
+        batches)."""
+        from types import SimpleNamespace
+
+        from distributed_tensorflow_tpu_torch.utils.summary import kernel_graph_def
+
+        train = self.datasets.train
+        shape = lambda a, rows: (rows,) + tuple(a.shape[1:])  # noqa: E731
+        if self.config.compiled_run and self.config.engine == "pallas":
+            # The kernel's inputs as ops/fused_mlp.make_fused_compiled_run_fn
+            # stages them: the epoch's batches in bf16.
+            p, steps = self.state.params, self._batch_count()
+            staged = lambda a: SimpleNamespace(  # noqa: E731
+                shape=(steps,) + shape(a, self.global_batch), dtype="bfloat16")
+            self.summary_writer.add_graph_def(kernel_graph_def(
+                "mlp_epoch_kernel", {"w1": p.w1, "b1": p.b1, "w2": p.w2, "b2": p.b2,
+                                     "xs": staged(train.images), "ys": staged(train.labels)}))
+            return
+        bx, by = self.strategy.prepare_batch(
+            np.zeros(shape(train.images, self.global_batch), np.float32),
+            np.zeros(shape(train.labels, self.global_batch), np.float32),
+        )
+        self.summary_writer.add_graph(self.train_step, self.state, bx, by)
 
     # -- the loop ---------------------------------------------------------
 
     def run(self, epochs: int | None = None) -> dict:
+        """The run: ``epochs`` epochs (default the config's), each evaluated,
+        under one ambient trace id (JAX :1022-1034)."""
+        with tracing.trace(tracing.current_trace()):
+            return self._run(epochs)
+
+    def _run(self, epochs: int | None = None) -> dict:
         cfg = self.config
         if cfg.compiled_run:
             return self.run_compiled(epochs)
         epochs = cfg.epochs if epochs is None else epochs
-        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn)
+        self._maybe_write_graph()
+        logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
         accuracy = 0.0
         for epoch in range(epochs):
-            self.run_epoch(epoch, logger)
+            if epoch == 0 and cfg.profile_dir:
+                from distributed_tensorflow_tpu_torch.utils import profiler
+
+                with profiler.trace(cfg.profile_dir, self.spans, device=self.device):
+                    self.run_epoch(epoch, logger)
+            else:
+                self.run_epoch(epoch, logger)
+            self.metrics.counter("epochs_total").inc()
             # Every rank evaluates (a collective under async and ZeRO);
             # the chief logs and records it.
             accuracy = self.evaluate()
             if self.is_chief:
                 logger.log_epoch(test_accuracy=accuracy)
+                self._add_scalar("accuracy", accuracy, self.strategy.global_step(self.state))
                 self.history.append({
                     "epoch": epoch + 1,
                     "accuracy": accuracy,
@@ -427,6 +540,7 @@ class Trainer:
         )
         if self.is_chief:
             logger.log_final(cost=final_cost)
+            self._flush_telemetry()
         return {
             "accuracy": accuracy,
             "final_cost": final_cost,

@@ -1,62 +1,38 @@
 """stdout log lines in the reference's exact wording and cadence.
 
 Counterpart of ``distributed_tensorflow_tpu/utils/logging.py``
-``StepLogger``, with its own copy of the three renderers it needs from
-``observability/format.py`` (``_step``, ``_epoch``, ``_final``), so the
-lines are byte-identical to the JAX package's:
+``StepLogger``:
 
 - every ``freq`` batches: ``Step: N,  Epoch: E,  Batch: B of T,  Cost: C,
-  AvgTime: Xms``
+  AvgTime: Xms`` (reference ``tfdist_between.py:102-106``)
 - every epoch: ``Test-Accuracy: A`` / ``Total Time: Ts``, or for the LM
   ``Test-Perplexity: P`` / ``Total Time: Ts`` (``log_epoch_metric``)
 - at the end: ``Final Cost: C`` / ``Done``
 
-The JAX logger also journals each line as an event; the port has no
-journal yet (ROADMAP A8).
+Each line is rendered FROM a journal event: ``StepLogger`` builds the
+typed event (``step`` / ``epoch`` / ``final``), emits it through its
+journal (the process default, a no-op ``NullJournal`` unless one was
+configured) and prints ``observability.format``'s rendering of it, so the
+bytes are the JAX package's and the journal is a superset of stdout. The
+logger takes host numbers only: the trainers fetch a cost once where a
+line is due and hand the float over.
 """
 
 from __future__ import annotations
 
 import time
 
-
-def _step(ev: dict) -> str:
-    # %-formatting reproduces the reference's %2d/%3d/%3.2f padding.
-    return (
-        "Step: %d,  Epoch: %2d,  Batch: %3d of %3d,  Cost: %.4f,"
-        "  AvgTime: %3.2fms"
-        % (ev["step"], ev["epoch"], ev["batch"], ev["batch_count"],
-           ev["cost"], ev["avg_ms"])
-    )
-
-
-def _epoch(ev: dict) -> list[str]:
-    metric = ev.get("metric", "Test-Accuracy")
-    if metric == "Test-Accuracy":
-        head = "Test-Accuracy: %2.2f" % ev["value"]
-    else:
-        head = "%s: %.4f" % (metric, ev["value"])
-    return [head, "Total Time: %3.2fs" % ev["total_time_s"]]
-
-
-def _final(ev: dict) -> list[str]:
-    return ["Final Cost: %.4f" % ev["cost"], "Done"]
-
-
-RENDERERS = {"step": _step, "epoch": _epoch, "final": _final}
-
-
-def render(kind: str, ev: dict) -> list[str]:
-    out = RENDERERS[kind](ev)
-    return [out] if isinstance(out, str) else list(out)
+from distributed_tensorflow_tpu_torch.observability import format as obs_format
+from distributed_tensorflow_tpu_torch.observability import journal as obs_journal
 
 
 class StepLogger:
     """Hot-loop logger with the reference's cadence and wording."""
 
-    def __init__(self, freq: int = 100, print_fn=print):
+    def __init__(self, freq: int = 100, print_fn=print, journal=None):
         self.freq = freq
         self._print = print_fn
+        self.journal = journal if journal is not None else obs_journal.get_journal()
         self._begin_time = time.time()
         self._window_start = time.time()
         self._window_count = 0
@@ -69,12 +45,12 @@ class StepLogger:
         """The reference's cadence; the trainer gates its host sync on it."""
         return count % self.freq == 0 or count == batch_count
 
-    def _emit(self, kind: str, **fields) -> None:
-        for line in render(kind, fields):
-            self._print(line)
+    def _emit(self, kind: str, **fields) -> dict:
+        """Journal the event and print its rendering."""
+        return obs_format.emit_line(kind, journal=self.journal, print_fn=self._print, **fields)
 
     def log_step_line(self, *, step, epoch, batch, batch_count, cost, avg_ms) -> None:
-        # Printed epoch and batch numbers are 1-based.
+        # The event carries the printed (1-based) epoch and batch numbers.
         self._emit(
             "step", step=int(step), epoch=int(epoch) + 1, batch=int(batch) + 1,
             batch_count=int(batch_count), cost=float(cost), avg_ms=float(avg_ms),

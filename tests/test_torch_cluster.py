@@ -108,15 +108,38 @@ def test_single_worker_bootstrap_joins_no_group():
 @pytest.mark.parametrize("kw,env", [
     (dict(heartbeat_port=7000), {}), ({}, {"DTF_JOURNAL_DIR": "/tmp/j"}),
 ], ids=["heartbeat", "journal"])
-def test_bootstrap_refusals_name_a8(kw, env, monkeypatch):
+def test_bootstrap_refusals_name_a8(kw, env, monkeypatch, tmp_path):
+    """The heartbeat is refused naming A8c. ``DTF_JOURNAL_DIR``, refused
+    until the observability slice, now arms the worker's per-rank journal
+    as the JAX bootstrap does: ``events-rank<k>.jsonl`` under its original
+    rank (``DTF_WORKER_RANKS`` maps a renumbered member back), announced
+    by a ``worker_start`` event."""
+    from distributed_tensorflow_tpu_torch import observability as obs
     from distributed_tensorflow_tpu_torch.cluster import bootstrap
     from distributed_tensorflow_tpu_torch.config import ClusterConfig
 
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="A8"):
-        bootstrap(ClusterConfig.from_lists(["a:1", "b:2"]), "worker", 0, print_fn=lambda s: 0,
-                  **kw)
+    if "DTF_JOURNAL_DIR" not in env:
+        with pytest.raises(NotImplementedError, match="A8c"):
+            bootstrap(ClusterConfig.from_lists(["a:1", "b:2"]), "worker", 0,
+                      print_fn=lambda s: 0, **kw)
+        return
+    monkeypatch.setenv("DTF_JOURNAL_DIR", str(tmp_path))
+    monkeypatch.setenv("DTF_RUN_ID", "r1")
+    try:
+        ctx = bootstrap(ClusterConfig.from_lists(["a:1"]), "worker", 0, print_fn=lambda s: 0)
+        assert ctx.is_chief and not ctx.joined
+        obs.emit("step", step=1)
+        monkeypatch.setenv("DTF_WORKER_RANKS", "3,1")
+        bootstrap(ClusterConfig.from_lists(["a:1"]), "worker", 0, print_fn=lambda s: 0)
+    finally:
+        obs.configure()
+    assert sorted(os.listdir(tmp_path)) == ["events-rank0.jsonl", "events-rank3.jsonl"]
+    evs = obs.read_events(str(tmp_path / "events-rank0.jsonl"))
+    assert [e["kind"] for e in evs] == ["worker_start", "step"]
+    assert all(e["rank"] == 0 and e["run"] == "r1" for e in evs)
+    assert evs[0]["pid"] == os.getpid()
+    (ev,) = obs.read_events(str(tmp_path / "events-rank3.jsonl"))
+    assert ev["kind"] == "worker_start" and ev["rank"] == 3
 
 
 def test_bounded_initialize_retries_then_raises():

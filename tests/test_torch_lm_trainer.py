@@ -7,6 +7,7 @@ what this slice does not port."""
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -247,9 +248,36 @@ def test_refused_trainer_knobs(name, value, item):
     ``sp_attention`` (checked, used only under dp_mode="sp", as in JAX);
     by the tensor-parallel slice: ``tp_axis`` (used only under
     dp_mode="tp", whose mesh must have the axis, as in JAX). The local-SGD
-    slice moved ``delta_exchange`` (the DiLoCo mailbox gang) to A8a."""
+    slice moved ``delta_exchange`` (the DiLoCo mailbox gang) to A8a. Lifted
+    by the observability slice: ``summary_writer``, ``journal`` and
+    ``metrics`` (a ``SummaryWriter``, an ``EventJournal`` and a
+    ``MetricsRegistry``; ``object()`` stands for the parameter only), which
+    the run writes to; ``supervisor`` is refused naming A8a."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
+    if name in ("summary_writer", "journal", "metrics"):
+        import tempfile
+
+        from distributed_tensorflow_tpu_torch import observability as obs
+        from distributed_tensorflow_tpu_torch.utils.summary import SummaryWriter
+
+        with tempfile.TemporaryDirectory() as d:
+            sink = {"summary_writer": lambda: SummaryWriter(d),
+                    "journal": lambda: obs.EventJournal.in_dir(d),
+                    "metrics": obs.MetricsRegistry}[name]()
+            tr = LMTrainer(_model(), _corpus(), _cfg(), device="cpu", print_fn=lambda *a: None,
+                           **{name: sink})
+            tr.run(epochs=1)
+            if name == "summary_writer":
+                sink.close()
+                assert any(f.startswith("events.out.tfevents.") for f in os.listdir(d))
+            elif name == "journal":
+                sink.close()
+                kinds = [e["kind"] for e in obs.read_events(d)]
+                assert kinds[-3:] == ["epoch", "final", "metrics"] and "step" in kinds
+            else:
+                assert sink.counter("epochs_total").value == 1
+        return
     if name == "mesh":
         with pytest.raises(TypeError, match="mesh must be a parallel.mesh.Mesh"):
             LMTrainer(_model(), _corpus(), _cfg(), device="cpu", mesh=value)
@@ -275,7 +303,7 @@ def test_refused_trainer_knobs(name, value, item):
         with pytest.raises(ValueError, match="unknown sp_attention 'dense'"):
             LMTrainer(_model(), _corpus(), _cfg(), device="cpu", sp_attention="dense")
         return
-    if name == "delta_exchange":
+    if name in ("delta_exchange", "supervisor"):
         item = "ROADMAP A8a"
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: value})

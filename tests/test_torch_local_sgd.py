@@ -727,28 +727,31 @@ def test_config_from_env_diloco_knobs(monkeypatch):
 
 def _refusals():
     from distributed_tensorflow_tpu_torch import config, launch
-    from distributed_tensorflow_tpu_torch.train import lm_trainer
+    from distributed_tensorflow_tpu_torch.train import lm_trainer, trainer
 
     return ([("config", k, v) for k, v in config.NOT_PORTED.items()]
             + [("env", k, v) for k, v in launch.NOT_PORTED_ENV.items()]
-            + [("trainer", k, v[1]) for k, v in lm_trainer.NOT_PORTED.items()])
+            + [("trainer", k, v[1]) for k, v in lm_trainer.NOT_PORTED.items()]
+            + [("mlp-trainer", k, v[1]) for k, v in trainer.NOT_PORTED.items()])
 
 
 @pytest.mark.parametrize("table,name,item", _refusals(),
                          ids=[f"{t}-{n}" for t, n, _ in _refusals()])
 def test_refused_names_raise_naming_their_item(table, name, item, monkeypatch):
     """Each name the refusal tables still hold (``config.NOT_PORTED``,
-    ``launch.NOT_PORTED_ENV``, ``lm_trainer.NOT_PORTED``) raises
-    ``NotImplementedError`` naming its ROADMAP item, one of A8a, A8b, A8c;
-    no dp_mode is refused any more."""
+    ``launch.NOT_PORTED_ENV``, ``lm_trainer.NOT_PORTED``,
+    ``trainer.NOT_PORTED``) raises ``NotImplementedError`` naming its
+    ROADMAP item, A8a or A8c (the observability slice, A8b, took its own
+    names out of every table); no dp_mode is refused any more."""
     from distributed_tensorflow_tpu_torch import config
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.data.tokens import copy_corpus
     from distributed_tensorflow_tpu_torch.launch import config_from_env
     from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+    from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
-    assert item in ("A8a", "A8b", "A8c")
+    assert item in ("A8a", "A8c")
     assert config.DP_MODES_NOT_PORTED == {}
     msg = rf"\(ROADMAP {item}\)"
     if table == "config":
@@ -758,6 +761,11 @@ def test_refused_names_raise_naming_their_item(table, name, item, monkeypatch):
         monkeypatch.setenv(name, "1")
         with pytest.raises(NotImplementedError, match=rf"{name} is not ported yet {msg}"):
             config_from_env()
+    elif table == "mlp-trainer":
+        from distributed_tensorflow_tpu_torch.models.mlp import MLP
+
+        with pytest.raises(NotImplementedError, match=rf"Trainer\({name}=\.\.\.\) .*{msg}"):
+            Trainer(MLP(), object(), device="cpu", **{name: object()})
     else:
         ds = copy_corpus(num=256, half_len=8, vocab=61, n_val=16, n_test=16, seed=0)
         with pytest.raises(NotImplementedError, match=rf"LMTrainer\({name}=\.\.\.\) .*{msg}"):

@@ -109,8 +109,11 @@ def test_stage_epoch_matches_jax():
 
 
 def test_step_logger_lines_are_byte_identical():
+    """The step, epoch and final lines (rendered by the port's
+    ``observability/format.py``, which ``utils/logging.StepLogger`` prints
+    through) are the JAX package's byte for byte."""
     from distributed_tensorflow_tpu.observability import format as jformat
-    from distributed_tensorflow_tpu_torch.utils import logging as tlog
+    from distributed_tensorflow_tpu_torch.observability import format as tlog
 
     events = [
         ("step", dict(step=7, epoch=1, batch=7, batch_count=550, cost=2.345678, avg_ms=0.1234)),
@@ -271,10 +274,14 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
     _, tds = _pair_datasets(*small_pair)
-    for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8"), (dict(epochs_per_dispatch=10), "A8"),
-                     (dict(max_rollbacks=1), "A8"), (dict(logs_path="./logs"), "A8")):
+    for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8a"), (dict(epochs_per_dispatch=10), "A8a"),
+                     (dict(max_rollbacks=1), "A8a")):
         with pytest.raises(NotImplementedError, match=item):
             TrainConfig(**kw)
+    # Lifted by the observability slice: logs_path and profile_dir keep the
+    # JAX defaults ("./logs", None); "" turns the summaries off.
+    assert TrainConfig().logs_path == "./logs" and TrainConfig().profile_dir is None
+    assert TrainConfig(logs_path="").logs_path == ""
     # Lifted by the local-SGD slice: dp_mode="diloco" is an LM mode, which the
     # classifier path refuses as JAX's launcher does.
     with pytest.raises(ValueError, match="unknown dp_mode 'diloco' for the classifier path"):
@@ -300,15 +307,20 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     assert res["global_step"] == tds.train.num_examples // 100 and np.isfinite(res["final_cost"])
     assert out and not any(ln.startswith(("Test-Accuracy", "Final Cost")) for ln in out)
     # Refused whatever the value, even one that switches the feature off.
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrainConfig(logs_path="")
+    with pytest.raises(NotImplementedError, match="A8a"):
+        TrainConfig(checkpoint_dir="")
     with pytest.raises(TypeError):
         TrainConfig(no_such_field=1)
     with pytest.raises(ValueError, match="engine"):
         TrainConfig(engine="tpu")
-    for name in ("supervisor", "summary_writer", "journal", "metrics"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            Trainer(MLP(), tds, device="cpu", **{name: object()})
+    with pytest.raises(NotImplementedError, match="A8a"):
+        Trainer(MLP(), tds, device="cpu", supervisor=object())
+    # Lifted by the observability slice: the trainer takes the journal, the
+    # metrics registry and the summary writer (tests/test_torch_summary.py
+    # and test_torch_observability.py run them).
+    import inspect
+
+    assert {"summary_writer", "journal", "metrics"} <= set(inspect.signature(Trainer).parameters)
     monkeypatch.setenv("DTF_CHECKPOINT", "/tmp/ckpt")
     with pytest.raises(NotImplementedError, match="A8"):
         config_from_env()
