@@ -6763,6 +6763,16 @@ def lsgd_trainer(cfg_kw, opt, mesh=None, **trainer_kw):
         return cost
 
     tr._train_step = timed
+    tr.save_s = []
+    if tr.supervisor is not None:  # each save's seconds at the boundary (gather + snapshot)
+        save = tr._save
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            tr.save_s.append(time.perf_counter() - t0)
+
+        tr._save = timed_save
     return tr
 
 
@@ -6821,6 +6831,8 @@ def lsgd_task(port, argv) -> int:
     me, runs, canon = mesh.rank, {}, {}
     for key, (label, cfg_kw, tr_kw, opt) in LSGD_RUNS.items():
         t0 = time.perf_counter()
+        if key == "c":  # the ZeRO run checkpoints: every rank gathers, rank 0 writes
+            cfg_kw = dict(cfg_kw, checkpoint_dir=os.path.join(out_dir, "zero-ckpt"))
         tr = lsgd_trainer(cfg_kw, opt, mesh, **tr_kw)
         kept, hashes, sums = [], [], []
         step = tr._train_step
@@ -6883,6 +6895,10 @@ def lsgd_task(port, argv) -> int:
         if key in ("dp", "c"):
             c = tr.to_canonical()  # a collective
             canon[key] = c
+            if key == "c" and me == 0:  # the gang's gathered state, for the restore on one card
+                torch.save({"params": [t.cpu() for t in tree_leaves(c.params)],
+                            "opt": [t.cpu() for t in tree_leaves(c.opt_state)], "step": c.step,
+                            "save_s": tr.save_s}, os.path.join(out_dir, "zero-canon.pt"))
             if key == "c" and me == 0:
                 dp = canon["dp"]
                 pairs = list(zip(tree_leaves(c.params) + tree_leaves(c.opt_state),
@@ -6947,6 +6963,33 @@ def owed_gap(saved, dst, key):
     gap, _ = param_gap(got, want, [torch.zeros_like(t) for t in want])
     norm = lambda ts: torch.cat([t.float().reshape(-1) for t in ts]).norm().item()  # noqa: E731
     return gap, norm(saved["residual"]) / norm([t.cpu() for t in tree_leaves(dst.residual)])
+
+
+def lsgd_zero_restore(sdir, smi):
+    """27 (ROADMAP A8a): the ZeRO run's checkpoint (every rank gathered its
+    slices, rank 0 wrote the canonical state) restored into a one-card
+    LMTrainer: its parameters and Adam slots equal the gang's gathered
+    canonical state bit for bit, at the gang's step."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    saved = torch.load(os.path.join(sdir, "zero-canon.pt"))
+    t0 = time.perf_counter()
+    tr = lsgd_trainer({"checkpoint_dir": os.path.join(sdir, "zero-ckpt")}, "adamw")
+    restore_s = time.perf_counter() - t0
+    got_p = [t.cpu() for t in tree_leaves(tr.state.params)]
+    got_o = [t.cpu() for t in tree_leaves(tr.state.opt_state)]
+    same = (len(got_p) == len(saved["params"]) and len(got_o) == len(saved["opt"])
+            and all(torch.equal(a, b) for a, b in zip(got_p + got_o,
+                                                      saved["params"] + saved["opt"])))
+    print(f"  (c) the ZeRO run's checkpoint ({tr.supervisor.saved_layout(tr.start_step)}; rank 0's "
+          f"save at the boundary {', '.join(f'{x * 1e3:.1f}' for x in saved['save_s'])} ms, the "
+          f"gather included) restored into one card's LMTrainer (mode {tr.mode!r}) at step "
+          f"{tr.start_step}: parameters and Adam slots against the gang's gathered canonical "
+          f"state bit for bit: {same} (trainer with its restore {restore_s:.2f} s) [{smi}]")
+    if not same or tr.start_step != saved["step"] or tr.mode != "single":
+        raise AssertionError(f"27(c) the ZeRO checkpoint on one card: {same}, step "
+                             f"{tr.start_step} against {saved['step']}")
 
 
 # Phase 27's per-rank journals: the communication accounting a rank's
@@ -7151,6 +7194,7 @@ def phase_lsgd(records, smi):
                 total[k] += g0["launches"][k]
     for rec, (base, _) in FLASH_LSGD.items():
         records[rec] = dict(records[rec.replace("local-sgd", "ep-pp")], launches=total[base])
+    lsgd_zero_restore(sdir, smi)
     lsgd_journals(jdir)
     w = ranks[0]["walls"]
     print("  rank 0's seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in w.items())
@@ -7485,6 +7529,424 @@ def phase_obs(records, ds, smi):
     print(f"  phase 28: (a) {a:.1f} s, (b) {b:.1f} s")
 
 
+# Phase 29 (ROADMAP A8a): checkpoints and recovery on the card. (a) gpt-m-
+# L1024-flash (28(b)'s model and corpus, CKPT_STEPS steps an epoch, AdamW)
+# through LMTrainer with checkpoint_dir and async saves: 2 epochs straight
+# against 1 + a restoring trainer + 1, bit for bit; one state saved sync and
+# async; a byte flipped in step 8's file; the chunked tier against one
+# run_compiled(2). (b) the MLP on the fused path (B2): launch.run in a
+# process of its own SIGTERMed after its first save, resumed here and held to
+# an uninterrupted run, and one NaN rollback. (c) the DiLoCo mailbox gang: two
+# gpt-s-L512 members one after the other on one DeltaExchange, and a torn post.
+CKPT_EPOCHS, CKPT_STEPS = 2, 4
+CKPT_PATH = "lm-train-checkpoint gpt-m-L1024 (save, restore, resume, chunked)"
+FLASH_CKPT = {"flash_fwd[ckpt-gpt-m]": ("flash_fwd", CKPT_PATH),
+              "flash_bwd_fused[ckpt-gpt-m]": ("flash_bwd_fused", CKPT_PATH)}
+MLP_CKPT = {"fused_mlp_epoch[ckpt-mlp]": ("fused_mlp_epoch",
+                                          "mlp-train launch.run resumed from a preempted run")}
+# The preempted MLP run: epochs of one dispatch each on the fused path
+# (epochs_per_dispatch=1: each dispatch's shuffle seeded by its first step,
+# so a resume draws what the uninterrupted run draws), at most 2 kept steps.
+CKPT_MLP_EPOCHS = 40
+
+
+def ckpt_lm_trainer(ckpt=None, journal=None, **kw):
+    """29(a)'s gpt-m LMTrainer (AdamW, async saves into ``ckpt``), each
+    step's cost tensor kept."""
+    import torch
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import markov_corpus
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    cfg = dict(TRAIN_CFG, epochs=CKPT_EPOCHS, log_frequency=2, optimizer="adamw", logs_path="",
+               checkpoint_dir=ckpt, async_checkpoint=True, **kw)
+    tr = LMTrainer(GPTLM(**SERVE_CFG, compute_dtype=torch.bfloat16), markov_corpus(**OBS_CORPUS),
+                   TrainConfig(**cfg), eval_batch=TRAIN_EVAL_BATCH, print_fn=lambda *a: None,
+                   journal=journal)
+    tr.costs, step = [], tr._train_step
+
+    def kept(toks, lens):
+        cost = step(toks, lens)
+        tr.costs.append(cost.detach())
+        return cost
+
+    tr._train_step = kept
+    return tr
+
+
+def same_tree(a, b) -> bool:
+    """Every leaf of two trees equal bit for bit (host ints equal)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def ckpt_lm(records, smi):
+    """29(a): resume, sync against async, the fallback past a flipped
+    byte, the chunked tier; the state's bytes, the save boundary's stall,
+    the CRC's rate and a restore's ms. Returns the seconds it took."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.runtime import native
+    from distributed_tensorflow_tpu_torch.train import resilience
+    from distributed_tensorflow_tpu_torch.train.supervisor import (
+        Supervisor,
+        checkpoint_steps,
+        flatten_state,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt-lm-")
+    d = {k: os.path.join(root, k) for k in ("a", "b", "c", "sync", "async")}
+    steps = CKPT_STEPS
+    # The straight run: 2 epochs, an async save an epoch (each save's stall
+    # timed at the boundary).
+    a = ckpt_lm_trainer(d["a"])
+    stalls, save = [], a._save
+
+    def timed_save():
+        t0 = time.perf_counter()
+        save()
+        stalls.append((time.perf_counter() - t0) * 1e3)
+
+    a._save = timed_save
+    _build.reset_launches()
+    res_a = a.run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    n = SERVE_CFG["num_layers"]
+    evals = -(-OBS_CORPUS["n_val"] // TRAIN_EVAL_BATCH)  # each epoch's held-out chunks
+    want = {"flash_fwd": n * CKPT_EPOCHS * (steps + evals),
+            "flash_bwd_fused": n * CKPT_EPOCHS * steps}
+    if launches != want:
+        raise AssertionError(f"29(a) launches {launches}, want {want}")
+    for name, (base, _) in FLASH_CKPT.items():
+        src = records["flash_fwd"]["train_shape"] if base == "flash_fwd" else records[base]
+        extra = dict(library_ms=src["sdpa_ms"]) if base == "flash_fwd" else {}
+        records[name] = dict(src, launches=launches[base], **extra)
+    if checkpoint_steps(d["a"]) != [steps, 2 * steps]:
+        raise AssertionError(f"29(a) saved steps {checkpoint_steps(d['a'])}")
+    # The split run: 1 epoch, a new trainer restoring step 4, 1 epoch.
+    b1 = ckpt_lm_trainer(d["b"])
+    b1.run(epochs=1)
+    b2 = ckpt_lm_trainer(d["b"])
+    if b2.start_step != steps:
+        raise AssertionError(f"29(a) the second trainer restored step {b2.start_step}")
+    b2.run(epochs=1)
+    torch.cuda.synchronize()
+    costs_a, costs_b = torch.stack(a.costs), torch.stack(b1.costs + b2.costs)
+    resume = (torch.equal(costs_a, costs_b) and same_tree(a.state.params, b2.state.params)
+              and same_tree(a.state.opt_state, b2.state.opt_state))
+    print(f"  (a) gpt-m-L1024-flash, AdamW, {steps} steps an epoch, async saves: 2 epochs straight "
+          f"(launches {launches}) against 1 epoch + a new trainer restoring step {steps} + 1 "
+          f"epoch: the {costs_a.numel()} losses, the parameters and the Adam slots bit for bit: "
+          f"{resume} (last loss {float(costs_a[-1])!r})")
+    if not resume:
+        raise AssertionError("29(a) the resumed run parts from the straight one")
+    # One state saved sync and async: leaf and file records.
+    disk = a._disk_state()
+    flat = flatten_state(disk)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    t0 = time.perf_counter()
+    resilience.leaf_checksums(flat)
+    crc_s = time.perf_counter() - t0
+    sups = {k: Supervisor(checkpoint_dir=d[k], async_checkpoint=k == "async")
+            for k in ("sync", "async")}
+    stall = {}
+    for k, sup in sups.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup.save(disk, a.global_step, layout=a._layout_meta())
+        stall[k] = (time.perf_counter() - t0) * 1e3
+        sup.wait_pending()
+    m = {k: resilience.load_manifest(d[k], a.global_step) for k in sups}
+    leaves_eq = m["sync"]["leaves"] == m["async"]["leaves"]
+    files_eq = m["sync"]["files"] == m["async"]["files"]
+    print(f"  (a) the state: {len(flat)} leaves, {nbytes} bytes; saved sync and async: leaf CRCs "
+          f"equal {leaves_eq}, file CRCs equal {files_eq} ({m['sync']['files']['state.pt']['size']}"
+          f" bytes on disk); the save's stall {stall['async']:.2f} ms async against "
+          f"{stall['sync']:.2f} ms sync, in the run's boundaries "
+          f"{', '.join(f'{x:.2f}' for x in stalls)} ms (async); CRC backend "
+          f"{native.backend()!r}, {nbytes / crc_s / 1e6:.1f} MB/s over the state [{smi}]")
+    if not (leaves_eq and files_eq) or native.backend() != "native":
+        raise AssertionError(f"29(a) sync against async: leaves {leaves_eq}, files {files_eq}; "
+                             f"CRC backend {native.backend()}")
+    # A restore of step 8 onto the card, timed.
+    template = a._disk_template(a._layout_meta())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, rstep = Supervisor(checkpoint_dir=d["a"]).prepare_or_restore(template,
+                                                                          device="cuda")
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if rstep != 2 * steps or not same_tree(restored.params, a.state.params):
+        raise AssertionError(f"29(a) restore of step {rstep}")
+    # A byte flipped in step 8's file: a fresh trainer falls back to step 4.
+    path = os.path.join(d["a"], f"step_{2 * steps}", "state.pt")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(os.path.getsize(path) // 2)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    jdir = os.path.join(root, "journal")
+    j = obs.EventJournal.in_dir(jdir)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fb = ckpt_lm_trainer(d["a"], journal=j)
+    j.close()
+    warned = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    events = [(e["step"], e["fallback"]) for e in obs.read_events(jdir)
+              if e["kind"] == "checkpoint_restore"]
+    print(f"  (a) a byte flipped in step_{2 * steps}/state.pt: a fresh trainer restores step "
+          f"{fb.start_step} ({len(warned)} warning: {warned[0][:60]!r}...), journaled "
+          f"checkpoint_restore {events}; a restore of step {rstep} (verify, load, leaf CRCs, "
+          f"onto the card) {restore_ms:.1f} ms")
+    if fb.start_step != steps or not any(f"step_{2 * steps}" in w for w in warned) or events != [
+            (steps, True)]:
+        raise AssertionError(f"29(a) fallback: step {fb.start_step}, warnings {warned}, "
+                             f"events {events}")
+    del fb, b1, b2
+    # The chunked tier against one run_compiled(2).
+    c = ckpt_lm_trainer(d["c"], epochs_per_dispatch=1)
+    c.run()
+    ref = ckpt_lm_trainer()
+    ref.run_compiled(CKPT_EPOCHS)
+    torch.cuda.synchronize()
+    chunked = (torch.equal(torch.stack(c.costs), torch.stack(ref.costs))
+               and same_tree(c.state.params, ref.state.params))
+    print(f"  (a) epochs_per_dispatch=1 over {CKPT_EPOCHS} epochs: saved steps "
+          f"{checkpoint_steps(d['c'])}; its {len(c.costs)} losses and parameters against one "
+          f"run_compiled({CKPT_EPOCHS}) bit for bit: {chunked}")
+    if not chunked or checkpoint_steps(d["c"]) != [steps, 2 * steps]:
+        raise AssertionError("29(a) the chunked tier")
+    del a, c, ref
+    shutil.rmtree(root, ignore_errors=True)
+    return time.perf_counter() - t_phase
+
+
+def ckpt_task(argv) -> int:
+    """29(b)'s preempted run (``--ckpt-task``): the MLP through launch.run
+    on the fused path, ``DTF_CHECKPOINT`` / ``DTF_KEEP_LAST`` /
+    ``DTF_JOURNAL_DIR`` from the environment. Prints ``RESULT <json>``."""
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.launch import run
+
+    cfg = TrainConfig(epochs=CKPT_MLP_EPOCHS, engine="pallas", epochs_per_dispatch=1,
+                      logs_path="", log_frequency=550)
+    out = run(config=cfg, argv=argv)
+    print("RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def ckpt_mlp(records, ds):
+    """29(b): the preempted run, its resume against an uninterrupted run,
+    and a NaN rollback, all on the fused path. Returns the seconds."""
+    import signal
+    import tempfile
+
+    import torch
+    from distributed_tensorflow_tpu_torch import observability as obs
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.mnist import DataSet, Datasets
+    from distributed_tensorflow_tpu_torch.launch import build_trainer
+    from distributed_tensorflow_tpu_torch.ops import _build
+    from distributed_tensorflow_tpu_torch.train import trainer as trainer_mod
+    from distributed_tensorflow_tpu_torch.train.supervisor import checkpoint_steps
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt-mlp-")
+    ck, jdir = os.path.join(root, "ckpt"), os.path.join(root, "journal")
+    logdir = dp_logdir("ckpt")
+    log_path = os.path.join(logdir, "preempted.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DTF_CHECKPOINT=ck, DTF_KEEP_LAST="2", DTF_JOURNAL_DIR=jdir, DTF_LOGS="",
+               PYTHONPATH=os.pathsep.join([here] + [p for p in os.environ.get(
+                   "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ckpt-task"],
+                                stdout=log, stderr=subprocess.STDOUT, env=env)
+        jpath, first = obs.rank_journal_path(jdir, 0), None
+        try:
+            while time.perf_counter() - t0 < 300 and proc.poll() is None:
+                if os.path.exists(jpath):
+                    with open(jpath) as f:
+                        saves = [e for e in (json.loads(ln) for ln in f if ln.endswith("\n"))
+                                 if e["kind"] == "checkpoint_save"]
+                    if saves:
+                        first = saves[0]["step"]
+                        proc.send_signal(signal.SIGTERM)
+                        break
+                time.sleep(0.01)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        out = f.read()
+    pre = [ln for ln in out.splitlines() if ln.startswith("Preemption:")]
+    if rc != 0 or first is None or "RESULT " not in out:
+        print("\n".join(out.splitlines()[-30:]))
+        raise AssertionError(f"29(b) the preempted run: exit {rc}, first save {first}")
+    res = dp_result(out)
+    kept = checkpoint_steps(ck)
+    saved = int(re.search(r"saved_step=(\d+)", pre[0]).group(1)) if pre else None
+    print(f"  (b) launch.run on the fused path ({CKPT_MLP_EPOCHS} epochs, epochs_per_dispatch=1, "
+          f"DTF_CHECKPOINT, DTF_KEEP_LAST=2) in its own process, SIGTERM after its first "
+          f"checkpoint_save (step {first}): exit {rc} in {wall:.1f} s at global step "
+          f"{res['global_step']}; {pre[0] if pre else 'no Preemption line'!r}; steps on disk "
+          f"{kept}")
+    if len(pre) != 1 or saved is None or saved < first or len(kept) > 2 or kept[-1] != res[
+            "global_step"]:
+        raise AssertionError(f"29(b) preemption: lines {pre}, kept {kept}, result {res}")
+    cfg = TrainConfig(epochs=CKPT_MLP_EPOCHS, engine="pallas", epochs_per_dispatch=1,
+                      logs_path="", log_frequency=550)
+    tr = build_trainer(cfg.replace(checkpoint_dir=ck, keep_last_n=2), datasets=ds,
+                       print_fn=lambda *a: None)
+    if tr.start_step != kept[-1]:
+        raise AssertionError(f"29(b) the resumed trainer restored step {tr.start_step}")
+    _build.reset_launches()
+    left = CKPT_MLP_EPOCHS - tr.epochs_completed
+    tr.run(epochs=left)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if launches != {"fused_mlp_epoch": left}:
+        raise AssertionError(f"29(b) resumed run's launches {launches}, want {left} B2")
+    for name, (base, _) in MLP_CKPT.items():
+        records[name] = dict(records[base], launches=launches[base])
+    full = build_trainer(cfg, datasets=ds, print_fn=lambda *a: None)
+    full.run()
+    torch.cuda.synchronize()
+    bitwise = same_tree(tr.state.params, full.state.params) and tr.strategy.global_step(
+        tr.state) == full.strategy.global_step(full.state)
+    print(f"  (b) resumed at step {tr.start_step} ({tr.epochs_completed - left} epochs done), "
+          f"{left} more ({launches}): the parameters against an uninterrupted "
+          f"{CKPT_MLP_EPOCHS}-epoch run bit for bit: {bitwise}")
+    if not bitwise:
+        raise AssertionError("29(b) the resumed run parts from the uninterrupted one")
+    # The NaN rollback: the second dispatch stages NaN images (the epoch's
+    # data window poisoned), the chunk boundary restores epoch 1's step and
+    # goes on with the next window.
+    poisoned = Datasets(train=DataSet(np.full_like(ds.train.images, np.nan), ds.train.labels,
+                                      seed=1), validation=ds.validation, test=ds.test)
+
+    class Poisoned(trainer_mod.Trainer):
+        def run_compiled(self, epochs=None, **kw):
+            self.calls = getattr(self, "calls", 0) + 1
+            self.datasets = poisoned if self.calls == 2 else ds
+            return super().run_compiled(epochs, **kw)
+
+    lines = []
+    rb = build_trainer(TrainConfig(epochs=3, engine="pallas", epochs_per_dispatch=1,
+                                   logs_path="", log_frequency=550, max_rollbacks=1,
+                                   spike_threshold=0.0, checkpoint_dir=os.path.join(root, "rb")),
+                       datasets=ds, print_fn=lines.append)
+    rb.__class__ = Poisoned
+    res_rb = rb.run()
+    spe = ds.train.num_examples // 100
+    roll = [ln for ln in lines if ln.startswith("Rollback:") and "restored_step=" in ln]
+    compiled = [ln for ln in lines if ln.startswith("Rollback:") and "dispatch=compiled" in ln]
+    print(f"  (b) a NaN data window in epoch 2 on the fused path (max_rollbacks=1): {roll} and "
+          f"{len(compiled)} compiled-dispatch line; final cost {res_rb['final_cost']!r} at step "
+          f"{res_rb['global_step']}")
+    if (len(roll) != 1 or f"restored_step={spe}" not in roll[0] or "data_window=skipped"
+            not in roll[0] or not np.isfinite(res_rb["final_cost"])
+            or res_rb["global_step"] != 3 * spe):
+        raise AssertionError(f"29(b) rollback: {lines[-8:]}")
+    return time.perf_counter() - t_phase
+
+
+def ckpt_mailbox(smi):
+    """29(c): two gpt-s-L512 members of the DiLoCo mailbox gang one after
+    the other (the contributors of each round, each post's payload), then a
+    post torn through DTF_FAILPOINTS, skipped and counted. Returns the
+    seconds."""
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.ops.optim import tree_leaves
+    from distributed_tensorflow_tpu_torch.train import failpoints
+    from distributed_tensorflow_tpu_torch.train.local_sgd import (
+        DeltaExchange,
+        delta_payload_nbytes,
+    )
+
+    class Journal:  # keeps the events a member emits
+        def __init__(self):
+            self.events = []
+
+        def emit(self, kind, **fields):
+            self.events.append({"kind": kind, **fields})
+            return fields
+
+        def flush(self):
+            pass
+
+    t_phase = time.perf_counter()
+    box = tempfile.mkdtemp(prefix="ckpt-mailbox-")
+    kw = dict(LSGD_DILOCO, dp_mode="diloco", diloco_workers=1, stale_limit=2, logs_path="")
+    rounds, members = {}, []
+    for rank in range(2):
+        j = Journal()
+        ex = DeltaExchange(box, rank, 2, stale_limit=2, delta_dtype="int8")
+        tr = lsgd_trainer(kw, "sgd", delta_exchange=ex, journal=j)
+        tr.run()
+        rounds[rank] = [e for e in j.events if e["kind"] == "delta_exchange"]
+        members.append((tr, ex))
+    pattern = {r: [len(e["contributors"]) for e in ev] for r, ev in rounds.items()}
+    shapes = GPTLM(**{**S_CFG, "max_len": LSGD_L}).init(seed=0, device="meta")
+    want_payload = delta_payload_nbytes(shapes, "int8")
+    payloads = []
+    for name in sorted(os.listdir(box)):
+        with np.load(os.path.join(box, name)) as z:
+            payloads.append(sum(z[k].nbytes for k in z.files if k.startswith("a"))
+                            + z["scales"].nbytes)
+    files = [e["payload_nbytes"] for ev in rounds.values() for e in ev]
+    print(f"  (c) two gpt-s-L512 members (diloco_workers=1, H=2, int8 deltas, stale_limit=2, "
+          f"{LSGD_STEPS} steps each) one after the other: contributors a round {pattern}; each "
+          f"post's payload {sorted(set(payloads))} bytes (delta_payload_nbytes "
+          f"{want_payload}; phase 27's {LSGD_INT8_BYTES}), files {sorted(set(files))} bytes; "
+          f"member 1's launches {members[1][0].launches}, ms a step "
+          f"{', '.join(f'{x:.2f}' for x in members[1][0].step_ms)} [{smi}]")
+    if pattern != {0: [1, 1], 1: [3, 1]} or set(payloads) != {want_payload}:
+        raise AssertionError(f"29(c) contributors {pattern}, payloads {payloads}")
+    # A post torn through DTF_FAILPOINTS: the peer skips it and counts it.
+    (_, ex0), (_, ex1) = members
+    leaves = [np.zeros(tuple(t.shape), np.float32) for t in tree_leaves(shapes)]
+    os.environ["DTF_FAILPOINTS"] = "delta.post:torn@1"
+    failpoints.reset()  # armed from the environment
+    try:
+        ex0.post(10, leaves)
+    finally:
+        del os.environ["DTF_FAILPOINTS"]
+        failpoints.reset()
+    got = ex1.gather(10)
+    print(f"  (c) member 0's round-10 post torn through DTF_FAILPOINTS=delta.post:torn@1: member "
+          f"1 takes {len(got)} contributions from it, corrupt_posts {ex1.corrupt_posts}")
+    if got or ex1.corrupt_posts != 1:
+        raise AssertionError(f"29(c) torn post: {len(got)} taken, {ex1.corrupt_posts} counted")
+    return time.perf_counter() - t_phase
+
+
+def phase_ckpt(records, ds, smi):
+    """29: checkpoints and recovery on the card; each part's seconds."""
+    a = ckpt_lm(records, smi)
+    b = ckpt_mlp(records, ds)
+    c = ckpt_mailbox(smi)
+    print(f"  phase 29: (a) {a:.1f} s, (b) {b:.1f} s, (c) {c:.1f} s")
+
+
 def phase_build():
     """Build every source and probe module (one ``nvcc`` each, started
     together); read ptxas's report of each: the kernels of
@@ -7685,6 +8147,8 @@ def main() -> int:
                     help="run one rank of phase 26's world (started by the launcher)")
     ap.add_argument("--lsgd-task", action="store_true",
                     help="run one rank of phase 27's world (started by the launcher)")
+    ap.add_argument("--ckpt-task", action="store_true",
+                    help="run phase 29(b)'s preempted MLP run (started by phase 29)")
     args, rest = ap.parse_known_args()
     if args.dp_task:
         return dp_task(args.dp_task, args.dp_epochs, args.dp_port, rest)
@@ -7696,6 +8160,8 @@ def main() -> int:
         return epp_task(args.dp_port, rest)
     if args.lsgd_task:
         return lsgd_task(args.dp_port, rest)
+    if args.ckpt_task:
+        return ckpt_task(rest)
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.root:
@@ -7836,6 +8302,12 @@ def main() -> int:
           "gpt-m through LMTrainer with a journal, metrics, tfevents and a profile")
     phase_obs(records, ds, smi)
     print(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
+    t29 = time.perf_counter()
+    phase("29: checkpoints and recovery: gpt-m through LMTrainer saved, resumed, restored past a "
+          "flipped byte and chunked; the MLP preempted by SIGTERM, resumed and rolled back; the "
+          "DiLoCo mailbox gang")
+    phase_ckpt(records, ds, smi)
+    print(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
     print(f"total {time.perf_counter() - t0:.1f} s")
 
     kernels = []
@@ -7861,6 +8333,7 @@ def main() -> int:
     variants += [(name, base, path) for name, (base, path) in FLASH_EPP.items()]
     variants += [(name, base, path) for name, (base, path) in FLASH_LSGD.items()]
     variants += [(name, base, path) for name, (base, path) in {**FLASH_OBS, **MLP_OBS}.items()]
+    variants += [(name, base, path) for name, (base, path) in {**FLASH_CKPT, **MLP_CKPT}.items()]
     for kname, base, path in [(k, k, PATHS.get(k, "main")) for k in SOURCES] + variants:
         src, replaces = SOURCES[base]
         r = records[kname]

@@ -17,12 +17,17 @@ family of ``models/__init__.MODEL_REGISTRY`` (``mlp``, ``cnn``, ``lstm``,
 ``transformer``); ``launch.build_trainer`` builds it.
 
 A JAX field the port does not have yet is refused, whatever its value,
-naming the ROADMAP item that brings it (A8a the checkpoints and the
-DiLoCo mailbox gang's ``stale_limit``); so would be a value of ``dp_mode``
-that a later item brings (none is left). ``logs_path`` (the tfevents
-summaries, written by the chief's ``SummaryWriter``; empty turns them off)
-and ``profile_dir`` (a ``torch.profiler`` trace of the first epoch) keep
-the JAX defaults.
+naming the ROADMAP item that brings it (none is left); so would be a value
+of ``dp_mode`` that a later item brings (none is left). ``logs_path`` (the
+tfevents summaries, written by the chief's ``SummaryWriter``; empty turns
+them off) and ``profile_dir`` (a ``torch.profiler`` trace of the first
+epoch) keep the JAX defaults. The checkpoint and recovery fields
+(``checkpoint_dir``, ``keep_last_n``, ``checkpoint_retries``,
+``checkpoint_retry_backoff``, ``async_checkpoint``, ``handle_preemption``,
+``max_rollbacks``, ``anomaly_window``, ``spike_threshold``,
+``epochs_per_dispatch``; ``train/supervisor.py``, ``train/resilience.py``)
+and the DiLoCo mailbox gang's ``stale_limit`` (``local_sgd.DeltaExchange``)
+carry the JAX defaults and validation.
 The DiLoCo outer loop's fields (``sync_every``, ``outer_lr``,
 ``outer_momentum``, ``diloco_workers``, ``delta_dtype``,
 ``delta_overlap``) carry the JAX defaults and validation
@@ -36,13 +41,7 @@ import importlib
 from typing import Any, Sequence
 
 # JAX TrainConfig field -> the ROADMAP item that ports it.
-NOT_PORTED = {
-    # Checkpoints and recovery; stale_limit is the DiLoCo mailbox gang's
-    # (local_sgd.DeltaExchange), whose posts ride A8a's CRC records.
-    **dict.fromkeys(
-        ("checkpoint_dir", "keep_last_n", "max_rollbacks", "epochs_per_dispatch",
-         "stale_limit"), "A8a"),
-}
+NOT_PORTED: dict = {}
 # Values of dp_mode that a later item brings (LM-trainer modes) -> its item.
 DP_MODES_NOT_PORTED: dict = {}
 
@@ -209,8 +208,55 @@ class _TrainFields:
     # A torch.profiler trace of epoch 0 into this directory (utils/profiler.py;
     # the card's kernels too on a CUDA device).
     profile_dir: str | None = None
+    # -- checkpoints and recovery (train/supervisor.py, train/resilience.py)
+    # Save a checkpoint each epoch (each dispatch) into this directory, and
+    # restore the newest valid one at construction.
+    checkpoint_dir: str | None = None
+    # Keep the newest N step_N checkpoints (the newest valid one is never
+    # removed); None/0 keeps everything.
+    keep_last_n: int | None = None
+    # Bounded retry with exponential backoff around checkpoint I/O.
+    checkpoint_retries: int = 3
+    checkpoint_retry_backoff: float = 0.25
+    # The save boundary pays the host snapshot only; a depth-1 background
+    # writer commits the same files the synchronous path writes.
+    async_checkpoint: bool = True
+    # run() turns SIGTERM/SIGINT into a stop at the next boundary with a
+    # final save (with a supervisor, on the main thread).
+    handle_preemption: bool = True
+    # Anomaly rollback: on a NaN/inf epoch cost, or one past spike_threshold
+    # x the median of the last anomaly_window good epochs, restore the
+    # newest valid checkpoint and go on with the next data window, at most
+    # max_rollbacks times a run (0 disables; spike_threshold=0 keeps the
+    # NaN/inf check only).
+    max_rollbacks: int = 0
+    anomaly_window: int = 8
+    spike_threshold: float = 3.0
+    # Dispatch the whole-run program k epochs at a time (a checkpoint, the
+    # epoch lines and the stop check after each dispatch); None/0 = off.
+    epochs_per_dispatch: int | None = None
+    # The DiLoCo mailbox gang (local_sgd.DeltaExchange): peer deltas up to
+    # this many outer rounds old are applied, weighted 1/(1 + age).
+    stale_limit: int = 0
 
     def __post_init__(self):
+        if self.epochs_per_dispatch is not None and self.epochs_per_dispatch < 0:
+            raise ValueError(
+                "epochs_per_dispatch must be >= 1 (or None/0 to disable), "
+                f"got {self.epochs_per_dispatch}"
+            )
+        if self.max_rollbacks < 0:
+            raise ValueError(f"max_rollbacks must be >= 0 (0 disables), got {self.max_rollbacks}")
+        if self.keep_last_n is not None and self.keep_last_n < 0:
+            raise ValueError(
+                f"keep_last_n must be >= 1 (or None/0 to keep everything), got {self.keep_last_n}"
+            )
+        if self.anomaly_window < 1:
+            raise ValueError(f"anomaly_window must be >= 1, got {self.anomaly_window}")
+        if self.stale_limit < 0:
+            raise ValueError(
+                f"stale_limit must be >= 0 (0 = same-round deltas only), got {self.stale_limit}"
+            )
         if self.dp_mode in DP_MODES_NOT_PORTED:
             raise NotImplementedError(
                 f"TrainConfig.dp_mode={self.dp_mode!r} is not ported yet "
@@ -253,9 +299,9 @@ class _TrainFields:
             raise ValueError(
                 f"delta_dtype must be None, 'int8', or 'fp8'; got {self.delta_dtype!r}"
             )
-        if (self.delta_dtype or self.delta_overlap) and self.dp_mode != "diloco":
+        if (self.delta_dtype or self.delta_overlap or self.stale_limit) and self.dp_mode != "diloco":
             raise ValueError(
-                "delta_dtype/delta_overlap are diloco outer-loop levers "
+                "delta_dtype/delta_overlap/stale_limit are diloco outer-loop levers "
                 "(train/local_sgd.py) and would be silently ignored under "
                 f"dp_mode={self.dp_mode!r}; set dp_mode='diloco'"
             )

@@ -6,8 +6,8 @@ reference loop's Step/Cost/AvgTime lines, a held-out perplexity an epoch)
 on the synthetic copy task (sequences ``x · x``: the model must attend back
 and reproduce the first half), then continues a held-out prompt greedily,
 by sampling and by beam search. ``DTF_LM_FLASH=1`` runs the causal
-attention on the flash kernels. ``DTF_LM_CKPT`` (a checkpoint directory)
-is refused: checkpoints are ROADMAP A8a.
+attention on the flash kernels. ``DTF_LM_CKPT=dir`` checkpoints each epoch
+into ``dir`` and resumes from its newest valid step.
 
 Run: ``python -m distributed_tensorflow_tpu_torch.examples.lm [epochs]
 [max_new] [device]`` (the device defaults to cuda; pass ``cpu`` to run the
@@ -29,8 +29,6 @@ from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
 
 def main(epochs: int = 8, max_new: int = 16, device=None, print_fn=print) -> dict:
-    if os.environ.get("DTF_LM_CKPT"):
-        raise NotImplementedError("DTF_LM_CKPT: checkpoints are not ported yet (ROADMAP A8a)")
     datasets = copy_corpus(num=4096, half_len=8, vocab=61, seed=0)
     model = GPTLM(vocab_size=61, max_len=48, model_dim=64, num_heads=4, num_layers=2,
                   compute_dtype=torch.float32,
@@ -38,7 +36,8 @@ def main(epochs: int = 8, max_new: int = 16, device=None, print_fn=print) -> dic
                   flash_min_len=0)  # the corpus is toy-length; keep the knob real
     trainer = LMTrainer(model, datasets,
                         TrainConfig(epochs=epochs, batch_size=64, optimizer="adam",
-                                    learning_rate=3e-3, log_frequency=20),
+                                    learning_rate=3e-3, log_frequency=20,
+                                    checkpoint_dir=os.environ.get("DTF_LM_CKPT") or None),
                         device=device, print_fn=print_fn)
     result = trainer.run()
     print_fn(f"held-out perplexity: {result['perplexity']:.2f}")

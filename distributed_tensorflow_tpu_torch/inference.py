@@ -1,8 +1,8 @@
 """Batched prediction from trained parameters.
 
 Counterpart of ``distributed_tensorflow_tpu/inference.py`` ``Predictor``:
-take the parameters of a live training state (a checkpoint is ROADMAP A8a),
-and stream inputs of any size through the model's forward in chunks of
+take the parameters of a live training state or of a checkpoint
+(:meth:`Predictor.from_checkpoint`), and stream inputs of any size through the model's forward in chunks of
 ``batch_size``, the tail zero-padded, so that every call sees one input
 shape (the JAX package compiles once for it; here it keeps the kernels'
 launch shapes fixed). It serves every family of ``MODEL_REGISTRY``, on
@@ -56,9 +56,45 @@ class Predictor:
         return cls(model, params, **kw)
 
     @classmethod
-    def from_checkpoint(cls, model, checkpoint_dir: str, **kw) -> "Predictor":
-        raise NotImplementedError(
-            "Predictor.from_checkpoint: checkpoints are not ported yet (ROADMAP A8a)")
+    def from_checkpoint(cls, model, checkpoint_dir: str, *, optimizer=None, seed: int = 1,
+                        **kw) -> "Predictor":
+        """Serve the newest checkpoint in ``checkpoint_dir`` (written by
+        ``train/supervisor.py``), of any strategy's layout: the sidecar
+        says which; an async checkpoint's stacked copies collapse at their
+        mean (the parameters async evaluates at). ``optimizer`` must be
+        the training one (the checkpoint holds its slots); the default is
+        the reference's SGD, which has none. The directory is probed
+        first and never created: no checkpoint raises
+        ``FileNotFoundError`` (JAX :63-119)."""
+        from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+        from distributed_tensorflow_tpu_torch.ops.optim import tree_map
+        from distributed_tensorflow_tpu_torch.parallel.strategy import (
+            TrainState,
+            merge_stacked_leaf,
+        )
+        from distributed_tensorflow_tpu_torch.train.supervisor import (
+            Supervisor,
+            latest_checkpoint_step,
+        )
+
+        step = latest_checkpoint_step(checkpoint_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {checkpoint_dir}")
+        optimizer = optimizer or optim_lib.sgd(0.001)
+        params = model.init(seed, device="cpu")
+        fresh = TrainState(params, optimizer.init(params), 0)
+        sup = Supervisor(checkpoint_dir=checkpoint_dir)
+        meta = sup.saved_layout(step) or {}
+        if meta.get("mode") == "async":
+            n = int(meta["replicas"])
+            stack = lambda t: tree_map(  # noqa: E731
+                lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))
+                if isinstance(a, torch.Tensor) else a, t)
+            stacked = sup.restore_raw(step, TrainState(stack(params), stack(fresh.opt_state),
+                                                       (0,) * n))
+            return cls(model, tree_map(merge_stacked_leaf, stacked.params), **kw)
+        state, _ = sup.prepare_or_restore(fresh)
+        return cls(model, state.params, **kw)
 
     # -- prediction --------------------------------------------------------
 

@@ -31,11 +31,8 @@ import torch
 from distributed_tensorflow_tpu_torch.config import ClusterConfig, TrainConfig
 
 # Environment knobs of the JAX launcher that the port does not have yet ->
-# the ROADMAP item that brings them: checkpoints and the DiLoCo mailbox
-# gang's window (A8a), the elastic gang (A8c).
+# the ROADMAP item that brings them: the elastic gang (A8c).
 NOT_PORTED_ENV = {
-    "DTF_CHECKPOINT": "A8a", "DTF_KEEP_LAST": "A8a", "DTF_MAX_ROLLBACKS": "A8a",
-    "DTF_STALE_LIMIT": "A8a",
     "DTF_MAX_RESTARTS": "A8c", "DTF_STALL_TIMEOUT_MS": "A8c", "DTF_MIN_WORKERS": "A8c",
     "DTF_REJOIN_TIMEOUT_S": "A8c",
 }
@@ -49,11 +46,15 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     turns the summaries off), DTF_REMAT (empty/0/1 → False/True, else the value, e.g.
     "selective"), DTF_MATMUL_DTYPE (empty → None, else "int8" | "fp8"), and
     the DiLoCo outer loop's DTF_SYNC_EVERY, DTF_OUTER_LR (empty → None, the
-    worker-count default), DTF_OUTER_MOMENTUM and DTF_DELTA_DTYPE (empty →
-    None, else "int8" | "fp8"), as the JAX launcher reads them. The JAX
-    launcher's other
-    knobs raise naming the ROADMAP item that brings them, unless empty;
-    invalid values raise ValueError naming the knob."""
+    worker-count default), DTF_OUTER_MOMENTUM, DTF_DELTA_DTYPE (empty →
+    None, else "int8" | "fp8") and DTF_STALE_LIMIT (the mailbox gang's
+    window in outer rounds), and the resilience knobs: DTF_CHECKPOINT (the
+    checkpoint directory, empty → None: what a scheduler sets so that a
+    preempted run resumes), DTF_KEEP_LAST (retention, 0 → None) and
+    DTF_MAX_ROLLBACKS (the anomaly guard's budget), as the JAX launcher
+    reads them. The JAX launcher's other knobs (the elastic gang's) raise
+    naming the ROADMAP item that brings them, unless empty; invalid values
+    raise ValueError naming the knob."""
 
     def _parse(var: str, conv):
         try:
@@ -66,6 +67,12 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
             raise NotImplementedError(f"{var} is not ported yet (ROADMAP {item})")
     cfg = base or TrainConfig()
     kw = {}
+    if "DTF_CHECKPOINT" in os.environ:
+        kw["checkpoint_dir"] = os.environ["DTF_CHECKPOINT"] or None
+    if "DTF_KEEP_LAST" in os.environ:
+        kw["keep_last_n"] = _parse("DTF_KEEP_LAST", int) or None
+    if "DTF_MAX_ROLLBACKS" in os.environ:
+        kw["max_rollbacks"] = _parse("DTF_MAX_ROLLBACKS", int)
     if "DTF_MODEL" in os.environ:
         kw["model"] = os.environ["DTF_MODEL"]
     if "DTF_EPOCHS" in os.environ:
@@ -97,6 +104,8 @@ def config_from_env(base: TrainConfig | None = None) -> TrainConfig:
     if "DTF_DELTA_DTYPE" in os.environ:
         # Bad names, and a lever on a job that is not diloco, fail in TrainConfig.
         kw["delta_dtype"] = os.environ["DTF_DELTA_DTYPE"] or None
+    if "DTF_STALE_LIMIT" in os.environ:
+        kw["stale_limit"] = _parse("DTF_STALE_LIMIT", int)
     return cfg.replace(**kw) if kw else cfg
 
 

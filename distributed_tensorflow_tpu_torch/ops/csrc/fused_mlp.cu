@@ -541,7 +541,10 @@ __device__ void sgd_step(const Smem& s, const Dims& d, Ring<T>& ring, int step, 
 #pragma unroll 1
       for (int k = g; k < OUT; k += 4) {
         const float p = row[k] / sum, yv = yr[k];
-        c += yv * logf(fmaxf(p, LOG_EPS));
+        // max(p, eps) that keeps a NaN (fmaxf drops it), as jnp.maximum and
+        // torch.clamp do: a NaN batch gives a NaN cost, which the anomaly
+        // guard reads. The same value for every other p.
+        c += yv * logf(p < LOG_EPS ? LOG_EPS : p);
         const float gl = (p - yv) * inv_b;
         row[k] = gl;
 #pragma unroll

@@ -134,6 +134,24 @@ def merge_replica_leaf(a, mesh: Mesh, axis: str = "data"):
     return a.clone() if isinstance(a, torch.Tensor) else a
 
 
+def merge_stacked_leaf(a):
+    """Fold copies stacked ``[n, ...]`` (a checkpoint's async or DiLoCo
+    leaf) into the canonical single copy, as :func:`merge_replica_leaf`
+    folds them across ranks: float leaves at their mean (the sum over the
+    copies divided by n), integer leaves from copy 0, which must equal
+    every copy's; a host value as it is."""
+    if not isinstance(a, torch.Tensor):
+        return a
+    if a.is_floating_point():
+        return (a.sum(0) / a.shape[0]).to(a.dtype)
+    if not torch.equal(a.amax(0), a.amin(0)):
+        raise ValueError(
+            "integer optimizer-state leaf differs across replicas; "
+            "refusing to merge (the copies should be identical)"
+        )
+    return a[0].clone()
+
+
 def _merge_tree(tree, mesh: Mesh):
     return tree_unflatten(tree, [merge_replica_leaf(a, mesh) for a in tree_leaves(tree)])
 

@@ -1,6 +1,8 @@
 """Training loops of the port: the MLP ``Trainer`` with its eager,
-scanned and whole-run paths, the GPT ``LMTrainer``, and the local-SGD /
-DiLoCo outer loop (``local_sgd.py``).
+scanned and whole-run paths, the GPT ``LMTrainer``, the local-SGD /
+DiLoCo outer loop and its mailbox gang (``local_sgd.py``), and the
+checkpoints and recovery under them (``supervisor.py``,
+``resilience.py``).
 
 Lazy exports, as the JAX package's ``train/__init__.py`` has them: a name
 imports its module when it is first touched."""
@@ -8,6 +10,8 @@ imports its module when it is first touched."""
 _LAZY_EXPORTS = {
     "Trainer": ("distributed_tensorflow_tpu_torch.train.trainer", "Trainer"),
     "LMTrainer": ("distributed_tensorflow_tpu_torch.train.lm_trainer", "LMTrainer"),
+    "Supervisor": ("distributed_tensorflow_tpu_torch.train.supervisor", "Supervisor"),
+    "DeltaExchange": ("distributed_tensorflow_tpu_torch.train.local_sgd", "DeltaExchange"),
     "DiLoCoState": ("distributed_tensorflow_tpu_torch.train.local_sgd", "DiLoCoState"),
     "make_lm_diloco_parts": ("distributed_tensorflow_tpu_torch.train.local_sgd",
                              "make_lm_diloco_parts"),

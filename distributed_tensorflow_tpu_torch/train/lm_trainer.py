@@ -122,15 +122,32 @@ and the bytes a round puts on the wire, from
 ``delta_payload_nbytes``) and adds them to the ``sync_rounds_total``,
 ``allreduce_bytes_total`` and ``payload_bytes_total`` counters.
 
-Not ported yet, and refused when asked for: the supervisor and
-checkpoints (and with them the ``tokenizer.json`` written beside a
-checkpoint), ``epochs_per_dispatch``, the anomaly guard and the DiLoCo
-mailbox gang ``delta_exchange`` (A8a).
+Checkpoints and recovery, as the JAX trainer wires them (JAX :220-352,
+:811-1050, :1331-1545, :1870+): with ``TrainConfig.checkpoint_dir`` (or a
+``supervisor=``) the trainer writes ``tokenizer.json`` beside the
+checkpoints (refusing a different vocab), restores the newest valid step at
+construction (in its own layout, or across modes and world sizes through
+the layout sidecar and the canonical form, a DiLoCo gang's outer state
+carried across a resize) and fast-forwards the data stream to it, saves
+each epoch (each dispatch) in the JAX package's layout for the mode
+(dense canonical leaves; pp's staged ``[S, L/S, ...]`` blocks; async's and
+DiLoCo's copies stacked ``[n, ...]``: every rank gathers, the chief
+writes), and runs ``run()`` under the preemption guard. ``max_rollbacks``
+arms the anomaly rollback; ``epochs_per_dispatch`` runs
+:meth:`LMTrainer.run_compiled` a chunk of epochs at a time.
+
+``delta_exchange=`` (a ``local_sgd.DeltaExchange``) makes this process
+one member of the DiLoCo mailbox gang (``dp_mode="diloco"``,
+``diloco_workers=1``, no mesh): every ``sync_every`` steps the member posts
+its delta and applies the staleness-weighted mean of what its peers posted,
+never waiting (:meth:`LMTrainer._maybe_mailbox_round`, a
+``delta_exchange`` journal event and ``mailbox_rounds_total``).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 
 import numpy as np
@@ -161,17 +178,30 @@ from distributed_tensorflow_tpu_torch.parallel.specs import (
     match_slot_specs,
     shard_tree,
 )
-from distributed_tensorflow_tpu_torch.parallel.strategy import TrainState, merge_replica_leaf
+from distributed_tensorflow_tpu_torch.parallel.strategy import (
+    TrainState,
+    merge_replica_leaf,
+    merge_stacked_leaf,
+)
 from distributed_tensorflow_tpu_torch.train import local_sgd
+from distributed_tensorflow_tpu_torch.train.resilience import (
+    AnomalyError,
+    AnomalyGuard,
+    arm_stall_dump,
+    preemption_guard,
+)
+from distributed_tensorflow_tpu_torch.train.supervisor import (
+    Supervisor,
+    checkpoint_steps,
+    layout_shape,
+)
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
+from distributed_tensorflow_tpu_torch.utils.summary import lifecycle_event
 
 # JAX LMTrainer keyword -> (values that leave it off, ROADMAP item).
-NOT_PORTED = {
-    "supervisor": ((None,), "A8a"),
-    # The DiLoCo mailbox gang (JAX local_sgd.DeltaExchange): its posts ride
-    # the checkpoints' CRC records.
-    "delta_exchange": ((None,), "A8a"),
-}
+NOT_PORTED: dict = {}
+# Modes whose state has the canonical shapes (JAX :808).
+_DENSE_LAYOUTS = frozenset({"single", "dp", "zero", "tp", "ep", "sp"})
 SP_ATTENTIONS = (None, "ring", "ring_flash", "ulysses")
 
 
@@ -200,6 +230,8 @@ class LMTrainer:
         summary_writer=None,
         journal=None,
         metrics: MetricsRegistry | None = None,
+        supervisor: Supervisor | None = None,
+        delta_exchange=None,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -247,6 +279,23 @@ class LMTrainer:
         self.spans = SpanRecorder(journal=self.journal)
         self._graph_written = False
         self._ragged = datasets.train.lengths is not None
+        # The mailbox gang (local_sgd.DeltaExchange): its knobs must agree
+        # with the config's, and it reports through this trainer's journal
+        # and metrics unless the caller wired its own (JAX :185-211).
+        self.delta_exchange = delta_exchange
+        if delta_exchange is not None:
+            if delta_exchange.delta_dtype != self.config.delta_dtype:
+                raise ValueError(
+                    f"delta_exchange.delta_dtype={delta_exchange.delta_dtype!r} disagrees with "
+                    f"config.delta_dtype={self.config.delta_dtype!r}")
+            if delta_exchange.stale_limit != self.config.stale_limit:
+                raise ValueError(
+                    f"delta_exchange.stale_limit={delta_exchange.stale_limit} disagrees with "
+                    f"config.stale_limit={self.config.stale_limit}")
+            if getattr(delta_exchange, "journal", None) is None:
+                delta_exchange.journal = self.journal
+            if getattr(delta_exchange, "metrics", None) is None:
+                delta_exchange.metrics = self.metrics
         self.mode = self._resolve_mode()
         self._tp = self._specs = None
         if self.mode == "tp":
@@ -256,7 +305,249 @@ class LMTrainer:
         self.state = self._init_state(self.model.init(seed=self.config.seed, device=self.device))
         self._stage_cache: dict = {}
         self.last_cost = None
+        self._epoch_costs = None
         self.history: list[dict] = []
+
+        self.supervisor = supervisor
+        if self.supervisor is None and self.config.checkpoint_dir:
+            self.supervisor = Supervisor(
+                is_chief=self.is_chief,
+                checkpoint_dir=self.config.checkpoint_dir,
+                keep_last_n=self.config.keep_last_n,
+                io_retries=self.config.checkpoint_retries,
+                io_backoff=self.config.checkpoint_retry_backoff,
+                async_checkpoint=self.config.async_checkpoint,
+            )
+        if (tokenizer is not None and self.supervisor is not None
+                and self.supervisor.checkpoint_dir and self.supervisor.is_chief
+                and hasattr(tokenizer, "save")):
+            # The vocab ships with the checkpoint: restored weights are
+            # useless without the merges that made their token ids.
+            os.makedirs(self.supervisor.checkpoint_dir, exist_ok=True)
+            self._write_tokenizer(tokenizer)
+        self.start_step = 0
+        if self.supervisor is not None:
+            self.supervisor.attach_observability(self.journal, self.metrics, self.spans)
+            self._restore()
+
+    # -- checkpoints ------------------------------------------------------
+
+    def _write_tokenizer(self, tokenizer) -> None:
+        """``tokenizer.json`` into checkpoint_dir, unless one is there: a
+        vocab with the same merges makes it a no-op, another one is
+        refused (it is the vocab of the checkpoint's token ids)."""
+        path = os.path.join(self.supervisor.checkpoint_dir, "tokenizer.json")
+        if os.path.exists(path):
+            from distributed_tensorflow_tpu_torch.data.text import BPETokenizer
+
+            try:
+                existing = BPETokenizer.load(path)
+            except Exception as exc:
+                raise ValueError(
+                    f"checkpoint_dir already holds an unreadable {path} "
+                    f"({type(exc).__name__}: {exc}); refusing to overwrite "
+                    "the vocab record the checkpoint's token ids depend on"
+                ) from exc
+            if getattr(tokenizer, "merges", None) != existing.merges:
+                raise ValueError(
+                    f"tokenizer mismatch: {path} holds "
+                    f"{len(existing.merges)} merges that differ from this "
+                    f"tokenizer's {len(getattr(tokenizer, 'merges', []))}; "
+                    "refusing to overwrite the vocab that matches the "
+                    "checkpoint's token ids (use a fresh checkpoint_dir "
+                    "to train with a new vocab)"
+                )
+            return
+        tokenizer.save(path)
+
+    def _restore(self) -> None:
+        """Restore-or-init at construction (JAX :247-350): the newest step
+        that is not known-corrupt, in this layout (newest valid first), or,
+        written under another mode or width, through the canonical form
+        (a DiLoCo gang keeps its saved outer state across a resize); the
+        global batch checked; the data stream fast-forwarded to the step."""
+        step = self.supervisor.newest_restorable_step()
+        src = self.supervisor.saved_layout(step) if step is not None else None
+        if step is not None and src is not None and not self._layout_compatible(src):
+            raw = self.supervisor.restore_raw(step, self._disk_template(src), device=self.device)
+            restored = self.from_canonical(self._state_to_canonical(raw, src))
+            if src.get("mode") == "diloco" and self.mode == "diloco":
+                carry = dict(theta=raw.opt_state.theta, momentum=raw.opt_state.momentum)
+                if self.config.delta_dtype and src.get("delta_dtype") == self.config.delta_dtype:
+                    carry["residual"] = raw.opt_state.residual
+                if self.config.delta_overlap and src.get("overlap"):
+                    carry["inflight"] = raw.opt_state.inflight
+                restored = restored._replace(opt_state=restored.opt_state._replace(**carry))
+            self.state = restored
+            self.start_step = step
+        else:
+            self.state, self.start_step = self._restore_own(verified_step=step)
+        if src is not None and src.get("global_batch") is not None:
+            saved_gb = int(src["global_batch"])
+            if saved_gb != int(self.config.batch_size):
+                raise ValueError(
+                    f"checkpoint was trained with global batch {saved_gb} "
+                    f"(world={src.get('world')}) but this config says "
+                    f"batch_size={self.config.batch_size}; the LM batch is GLOBAL — "
+                    "resume with the same batch_size (the per-shard batch grows "
+                    "with the smaller mesh) to preserve the trajectory and "
+                    "data-stream position")
+        # The data stream to where the checkpoint left it: the batches the
+        # uninterrupted run would draw next (world-invariant: the batch is
+        # global).
+        for _ in range(self.start_step):
+            self.datasets.train.next_indices(self.config.batch_size)
+
+    def _restore_own(self, fresh: TrainState | None = None,
+                     verified_step: int | None = None) -> tuple[TrainState, int]:
+        """``Supervisor.prepare_or_restore`` in this trainer's own layout;
+        with no checkpoint ``fresh`` (default the current state), step 0."""
+        self.supervisor.wait_pending()
+        if not checkpoint_steps(self.supervisor.checkpoint_dir):
+            return (self.state if fresh is None else fresh), 0
+        raw, step = self.supervisor.prepare_or_restore(
+            self._disk_template(self._layout_meta()), verified_step=verified_step,
+            device=self.device)
+        return self._from_disk(raw), step
+
+    def _layout_meta(self) -> dict:
+        """The layout sidecar, JAX's dict for every mode (JAX :811-850):
+        the mode, pp's stages, async's and DiLoCo's stacked width
+        (``replicas``; 1 for a mailbox member), DiLoCo's ``sync_every`` and
+        its levers when on, the world size and the global batch."""
+        meta: dict = {"mode": self.mode}
+        if self.mode == "pp":
+            meta["stages"] = int(self.mesh.shape[self.stage_axis])
+        if self.mode == "async":
+            meta["replicas"] = int(self.mesh.shape[self.data_axis])
+        if self.mode == "diloco":
+            meta["replicas"] = 1 if self.delta_exchange is not None else int(self._gang_size())
+            meta["sync_every"] = int(self.config.sync_every)
+            if self.config.delta_dtype:
+                meta["delta_dtype"] = self.config.delta_dtype
+            if self.config.delta_overlap:
+                meta["overlap"] = True
+        meta["world"] = int(1 if self.mesh is None else self.mesh.size)
+        meta["global_batch"] = int(self.config.batch_size)
+        return meta
+
+    def _layout_compatible(self, src: dict) -> bool:
+        """True when the saved state's shapes are this trainer's (JAX
+        :863-876): every dense mode restores every dense mode; the others
+        need the same mode and shape keys."""
+        m = src.get("mode")
+        if self.mode in _DENSE_LAYOUTS:
+            return m in _DENSE_LAYOUTS
+        return m == self.mode and layout_shape(src) == layout_shape(self._layout_meta())
+
+    @staticmethod
+    def _map_params_like(fn, tree):
+        """``fn`` on every GPTLMParams node of a tree (the optimizer's
+        moments are GPTLMParams too); other nodes kept."""
+        from distributed_tensorflow_tpu_torch.models.gpt import GPTLMParams
+
+        if isinstance(tree, GPTLMParams):
+            return fn(tree)
+        if isinstance(tree, tuple):
+            subs = [LMTrainer._map_params_like(fn, t) for t in tree]
+            return type(tree)(*subs) if hasattr(tree, "_fields") else type(tree)(subs)
+        return tree
+
+    def _disk_template(self, src: dict) -> TrainState:
+        """A state of the structure and shapes (on the meta device) of a
+        checkpoint written under layout ``src`` by this model and optimizer
+        (JAX ``_abstract_state_shapes``, :906-950)."""
+        from distributed_tensorflow_tpu_torch.models.gpt import pipeline_stage_params
+
+        params = self.model.init(seed=0, device="meta")
+        if src["mode"] == "pp":
+            params = pipeline_stage_params(self.model, params, int(src["stages"]))
+        opt = self.optimizer.init(params)
+        if src["mode"] in ("async", "diloco"):
+            n = int(src["replicas"])
+            stack = lambda t: tree_map(  # noqa: E731
+                lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))
+                if isinstance(a, torch.Tensor) else a, t)
+            if src["mode"] == "diloco":
+                return TrainState(stack(params), local_sgd.DiLoCoState(
+                    stack(opt), params, params, params if src.get("delta_dtype") else None,
+                    local_sgd.InFlight(params, params) if src.get("overlap") else None), 0)
+            return TrainState(stack(params), stack(opt), 0)
+        return TrainState(params, opt, 0)
+
+    def _stacked(self, tree):
+        """Every rank's tensors of ``tree`` stacked ``[n, ...]`` in the data
+        axis's order (a collective)."""
+        from distributed_tensorflow_tpu_torch.ops.collectives import all_gather_raw
+
+        return tree_map(lambda a: all_gather_raw(a.detach().unsqueeze(0), self.mesh,
+                                                 self.data_axis, 0)
+                        if isinstance(a, torch.Tensor) else a, tree)
+
+    def _disk_state(self) -> TrainState:
+        """The state as the JAX package's checkpoint of this mode holds it:
+        the dense canonical leaves (gathered from the blocks under tp, ep
+        and zero), pp's staged blocks gathered, async's and the DiLoCo
+        gang's copies stacked ``[n, ...]`` (gathered across the ranks on a
+        mesh). A collective: every rank calls it, the chief writes."""
+        state = self.state
+        step = int(state.step)
+        if self.mode == "async":
+            return TrainState(self._stacked(state.params), self._stacked(state.opt_state), step)
+        if self.mode == "diloco":
+            if self.mesh is None:
+                return TrainState(state.params, state.opt_state, step)
+            d = state.opt_state
+            return TrainState(self._stacked(state.params),
+                              d._replace(inner=self._stacked(d.inner)), step)
+        if self.mode == "pp":
+            slots = match_slot_specs(state.opt_state, state.params, self._specs)
+            return TrainState(gather_tree(state.params, self._specs, self.mesh),
+                              gather_tree(state.opt_state, slots, self.mesh), step)
+        c = self.to_canonical(state)
+        return TrainState(c.params, c.opt_state, step)
+
+    def _state_to_canonical(self, state: TrainState, src: dict) -> TrainState:
+        """A source-layout state → the dense single-device form (JAX
+        :952-998): async's and DiLoCo's copies (and inner states) merged at
+        their mean, integer leaves from copy 0 after checking they agree
+        (``merge_stacked_leaf``; DiLoCo's outer state has no canonical
+        form); pp's blocks unstaged."""
+        mode, merge, step = src["mode"], merge_stacked_leaf, int(state.step)
+        if mode == "async":
+            return TrainState(tree_map(merge, state.params), tree_map(merge, state.opt_state),
+                              step)
+        if mode == "diloco":
+            return TrainState(tree_map(merge, state.params),
+                              tree_map(merge, state.opt_state.inner), step)
+        if mode == "pp":
+            unstage = lambda t: self._map_params_like(pipeline_unstage_params, t)  # noqa: E731
+            return TrainState(unstage(state.params), unstage(state.opt_state), step)
+        return TrainState(state.params, state.opt_state, step)
+
+    def _from_disk(self, raw: TrainState) -> TrainState:
+        """A checkpoint of this trainer's own layout as this rank's state:
+        the rank's copy (and inner state) of async's or the DiLoCo mesh
+        gang's stacks, the one-device gang's stacks as they are, a dense
+        (or pp's staged) state laid out by :meth:`from_canonical`."""
+        if self.mode == "async" or (self.mode == "diloco" and self.mesh is not None):
+            r = self.mesh.axis_index(self.data_axis)
+            row = lambda t: tree_map(  # noqa: E731
+                lambda a: a[r].clone() if isinstance(a, torch.Tensor) else a, t)
+            if self.mode == "async":
+                return TrainState(row(raw.params), row(raw.opt_state), int(raw.step))
+            d = raw.opt_state
+            return TrainState(row(raw.params), d._replace(inner=row(d.inner)), int(raw.step))
+        if self.mode == "diloco":
+            return TrainState(raw.params, raw.opt_state, int(raw.step))
+        if self.mode == "pp":
+            raw = self._state_to_canonical(raw, {"mode": "pp"})
+        return self.from_canonical(raw)
+
+    def _save(self) -> None:
+        """A checkpoint at the current step (every rank gathers; the chief
+        writes)."""
+        self.supervisor.save(self._disk_state(), self.global_step, layout=self._layout_meta())
 
     # -- modes ------------------------------------------------------------
 
@@ -264,12 +555,37 @@ class LMTrainer:
         """single, dp, zero, async, diloco, sp, tp, ep or pp, with the JAX
         trainer's checks (:393-565)."""
         cfg, mesh = self.config, self.mesh
+        if cfg.dp_mode != "diloco" and self.delta_exchange is not None:
+            raise ValueError(
+                "delta_exchange is the diloco mailbox gang: it requires "
+                f"dp_mode='diloco', got {cfg.dp_mode!r}")
         if cfg.dp_mode == "diloco":
             if not cfg.sync:
                 raise ValueError(
                     "dp_mode='diloco' does not compose with sync=False: the outer loop IS "
                     "the (reduced) synchronization; use sync=False + async_avg_every for "
                     "the HOGWILD emulation instead")
+            if self.delta_exchange is not None:
+                # One member a process: the gang is the processes sharing
+                # the exchange's directory (JAX :418-445).
+                if mesh is not None:
+                    raise ValueError(
+                        "delta_exchange runs one gang member per process (the outer round "
+                        "is a host decision point): pass mesh=None with diloco_workers=1")
+                if cfg.diloco_workers != 1:
+                    raise ValueError(
+                        "delta_exchange needs diloco_workers=1 (each process is ONE "
+                        f"member), got {cfg.diloco_workers}")
+                if cfg.delta_overlap:
+                    raise ValueError(
+                        "delta_overlap does not compose with delta_exchange: the mailbox "
+                        "gang never waits on the exchange — staleness tolerance IS its "
+                        "overlap")
+                if cfg.epochs_per_dispatch:
+                    raise ValueError(
+                        "epochs_per_dispatch does not compose with delta_exchange: the "
+                        "outer round is a host decision point inside every epoch")
+                return "diloco"
             if mesh is not None:
                 if self.data_axis not in mesh.shape:
                     raise ValueError(
@@ -402,7 +718,11 @@ class LMTrainer:
                     avg_every=cfg.async_avg_every or (1 << 30),
                     update_scale=self.async_update_scale, ragged=self._ragged)
             else:
-                kw = dict(sync_every=cfg.sync_every, outer_lr=cfg.outer_lr,
+                # The mailbox gang's round is a host step (_maybe_mailbox_round):
+                # the in-graph exchange never fires (an unreachable period),
+                # while the engine keeps the residual the host round updates.
+                kw = dict(sync_every=(1 << 30) if self.delta_exchange is not None
+                          else cfg.sync_every, outer_lr=cfg.outer_lr,
                           outer_momentum=cfg.outer_momentum, ragged=self._ragged,
                           delta_dtype=cfg.delta_dtype, overlap=cfg.delta_overlap)
                 if self.mesh is not None:
@@ -640,7 +960,10 @@ class LMTrainer:
         and takes a step. Yields ``(i, cost)``, the cost on the device."""
         for i in range(idxs.shape[0]):
             lens = None if lens_all is None else lens_all.index_select(0, idxs[i])
-            yield i, self._train_step(toks_all.index_select(0, idxs[i]), lens)
+            cost = self._train_step(toks_all.index_select(0, idxs[i]), lens)
+            if self.delta_exchange is not None:
+                self._maybe_mailbox_round(int(self.state.step))
+            yield i, cost
 
     def _end_epoch(self, logger: StepLogger, epoch: int, perplexity: float, step: int) -> None:
         if self.is_chief:
@@ -671,8 +994,15 @@ class LMTrainer:
         logger.reset_window()
         t_epoch = time.time()
         cost = None
+        # With the anomaly guard armed, every step's cost is kept on the
+        # device and fetched once at the epoch's end (the guard judges them
+        # all, as the JAX scanned epoch's); else only the last is read.
+        kept = [] if self.config.max_rollbacks else None
+        self._epoch_costs = None
         for i, cost in self._epoch_steps(self._draw_indices(1, steps)[0],
                                          *self._split_arrays("train")):
+            if kept is not None:
+                kept.append(cost.detach().reshape(()))
             if logger.is_due(i + 1, steps):  # the fetch waits for the device
                 host_cost = float(self._mean_costs(cost))
                 logger.maybe_log_step(
@@ -680,7 +1010,10 @@ class LMTrainer:
                     batch_count=steps, cost=host_cost,
                 )
                 self._add_scalar("cost", host_cost, step_before + i + 1)
-        if cost is not None:
+        if kept:
+            self._epoch_costs = self._mean_costs(torch.stack(kept).float()).cpu().numpy()
+            self.last_cost = float(self._epoch_costs[-1])
+        elif cost is not None:
             self.last_cost = float(self._mean_costs(cost))
         self._observe_step_time((time.time() - t_epoch) * 1000 / max(steps, 1))
         self._emit_comm_stats(epoch=epoch, steps=steps, count_before=step_before)
@@ -703,6 +1036,8 @@ class LMTrainer:
         if self.mesh is not None and self.data_axis in self.mesh.shape:
             return int(self.mesh.shape[self.data_axis])
         if self.mode == "diloco":
+            if self.delta_exchange is not None:
+                return int(self.delta_exchange.world)
             return int(self.config.diloco_workers)
         return 1
 
@@ -770,7 +1105,8 @@ class LMTrainer:
         self.summary_writer.add_graph(self._step, self.state.params, self.state.opt_state,
                                       toks, lens)
 
-    def run_compiled(self, epochs: int | None = None) -> dict:
+    def run_compiled(self, epochs: int | None = None, *, epoch_offset: int = 0,
+                     finalize: bool = True) -> dict:
         """The whole run with no host round trip until its end (the JAX
         ``run_compiled``): :meth:`run`'s epoch loop over indices drawn for
         every epoch up front, each epoch's perplexity from
@@ -778,12 +1114,29 @@ class LMTrainer:
         once afterwards and printed as :meth:`run`'s lines (a uniform
         AvgTime). Where ``eval_batch`` divides the split, each epoch's
         perplexity is :meth:`evaluate`'s bit for bit. The returned
-        perplexity is :meth:`evaluate`'s over the whole split. One trace id
-        (the caller's, when it runs inside one)."""
+        perplexity is :meth:`evaluate`'s over the whole split. With a
+        supervisor the dispatch ends in a save (skipped, with a
+        ``rollback_compiled`` line, when a cost is not finite and the guard
+        is armed). ``epoch_offset`` shifts the epoch numbers and
+        ``finalize=False`` leaves out the final evaluation and line: the
+        ``epochs_per_dispatch`` tier's chunks (JAX :1327-1503). Refused
+        with ``delta_exchange`` (its round is a host step inside every
+        epoch). One trace id (the caller's, when it runs inside one); a
+        finalizing call returns once its save is on disk."""
+        if self.delta_exchange is not None:
+            raise ValueError(
+                "run_compiled does not compose with delta_exchange: the mailbox round is a "
+                "host decision point inside every epoch; use run()")
         with tracing.trace(tracing.current_trace()):
-            return self._run_compiled(epochs)
+            try:
+                return self._run_compiled(epochs, epoch_offset=epoch_offset, finalize=finalize)
+            finally:
+                if finalize and self.supervisor is not None:
+                    self.supervisor.wait_pending()
+                    self._barrier()
 
-    def _run_compiled(self, epochs: int | None = None) -> dict:
+    def _run_compiled(self, epochs: int | None = None, *, epoch_offset: int = 0,
+                      finalize: bool = True) -> dict:
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         steps = self.datasets.train.num_examples // cfg.batch_size
@@ -814,37 +1167,215 @@ class LMTrainer:
             for i in range(steps):
                 if logger.is_due(i + 1, steps):
                     step = step_before + e * steps + i + 1
-                    logger.log_step_line(step=step, epoch=e, batch=i, batch_count=steps,
-                                         cost=float(costs[e, i]), avg_ms=avg_ms)
+                    logger.log_step_line(step=step, epoch=epoch_offset + e, batch=i,
+                                         batch_count=steps, cost=float(costs[e, i]),
+                                         avg_ms=avg_ms)
                     self._add_scalar("cost", float(costs[e, i]), step)
-            self._emit_comm_stats(epoch=e, steps=steps, count_before=step_before + e * steps)
-            self._end_epoch(logger, e, self._perplexity(totals[e], counts[e]),
+            self._emit_comm_stats(epoch=epoch_offset + e, steps=steps,
+                                  count_before=step_before + e * steps)
+            self._end_epoch(logger, epoch_offset + e, self._perplexity(totals[e], counts[e]),
                             step_before + (e + 1) * steps)
+        if self.supervisor is not None:
+            self.supervisor.report_progress(self.global_step)
+            if cfg.max_rollbacks and not np.isfinite(costs).all():
+                # One dispatch cannot roll back inside itself; a poisoned
+                # state must not land over the last good checkpoint.
+                if self.is_chief:
+                    lifecycle_event("rollback_compiled", print_fn=self.print_fn,
+                                    journal=self.journal)
+            else:
+                self._save()
+        if not finalize:
+            return {"perplexity": self._perplexity(totals[-1], counts[-1]),
+                    "final_cost": self.last_cost, "global_step": self.global_step}
         return self._finish(logger, self.evaluate("validation"))
+
+    def _run_chunked(self, epochs: int) -> dict:
+        """The k-epochs-per-dispatch tier (``config.epochs_per_dispatch``,
+        JAX :1505-1554): :meth:`run_compiled` a chunk at a time, a
+        checkpoint after each dispatch, ``should_stop`` at the boundaries;
+        a chunk that went NaN is rolled back and retried on the next index
+        window."""
+        import math
+
+        k = self.config.epochs_per_dispatch
+        guard = AnomalyGuard.from_config(self.config)
+        res = {"perplexity": float("nan"), "final_cost": float("nan"),
+               "global_step": self.global_step}
+        done = 0
+        while done < epochs:
+            n = min(k, epochs - done)
+            last = done + n >= epochs
+            step_before = self.global_step
+            res = self.run_compiled(n, epoch_offset=done, finalize=last)
+            if (guard is not None and not math.isfinite(res["final_cost"])
+                    and res["global_step"] > step_before):
+                self._anomaly_rollback(guard, "nan", done)
+                continue
+            done += n
+            if self.supervisor is not None and self.supervisor.should_stop:
+                if not last:
+                    res["perplexity"] = self.evaluate("validation")
+                    if self.is_chief:
+                        StepLogger(freq=self.config.log_frequency, print_fn=self.print_fn,
+                                   journal=self.journal).log_final(cost=res["final_cost"])
+                        if self.summary_writer is not None:
+                            self.summary_writer.flush()
+                break
+        return res
+
+    def _anomaly_rollback(self, guard: AnomalyGuard, kind: str, epoch: int) -> None:
+        """Restore the newest valid checkpoint after an anomalous epoch,
+        keeping the index stream where it is (the offending window is
+        skipped); with no checkpoint yet, the seed's fresh state. Raises
+        :class:`AnomalyError` once ``max_rollbacks`` is spent (JAX
+        :1870-1908)."""
+        detected_step = self.global_step
+        if self.supervisor is None or guard.exhausted:
+            raise AnomalyError(
+                f"anomalous cost (kind={kind}) at epoch {epoch} step "
+                f"{detected_step} with no rollback budget left "
+                f"({guard.rollbacks}/{guard.max_rollbacks} used"
+                + ("" if self.supervisor else "; no supervisor") + ")"
+            )
+        guard.rollbacks += 1
+        self.metrics.counter("rollbacks_total").inc()
+        fresh = self._init_state(self.model.init(seed=self.config.seed, device=self.device))
+        self.state, restored_step = self._restore_own(fresh)
+        self.last_cost = None
+        if self.is_chief:
+            lifecycle_event(
+                "rollback",
+                print_fn=self.print_fn,
+                journal=self.journal,
+                writer=self.summary_writer,
+                scalar=("rollback", float(restored_step), detected_step),
+                anomaly=kind,
+                epoch=epoch,
+                detected_step=detected_step,
+                restored_step=restored_step,
+                rollback=guard.rollbacks,
+                max_rollbacks=guard.max_rollbacks,
+            )
+
+    def _maybe_mailbox_round(self, count: int) -> None:
+        """The mailbox gang's outer round (JAX :1752-1857), every
+        ``sync_every`` steps on the host count: post this member's delta
+        θ_start − θ (with the residual folded in and kept as what the wire
+        lost, under ``delta_dtype``), take the staleness-weighted mean of
+        the peers' posts without waiting, apply the outer update
+        (``outer_lr`` None scales by the round's total weight), and journal
+        a ``delta_exchange`` event; ``mailbox_rounds_total`` and
+        ``stale_contributions_total`` count."""
+        h = self.config.sync_every
+        if h < 1 or count % h:
+            return
+        t0 = time.perf_counter()
+        round_idx = count // h - 1
+        d = self.state.opt_state
+        p = tree_map(lambda x: x[0], self.state.params)
+        delta = tree_map(torch.sub, d.theta, p)
+        np_leaves = [x.detach().float().cpu().numpy() for x in tree_leaves(delta)]
+        residual = d.residual
+        dev = self.device
+        if self.config.delta_dtype is not None:
+            r_leaves = [x.detach().float().cpu().numpy() for x in tree_leaves(residual)]
+            corr = [a + b for a, b in zip(np_leaves, r_leaves)]
+            # post() returns the wire values: the residual keeps what they lost.
+            own = self.delta_exchange.post(round_idx, corr)
+            residual = tree_unflatten(delta, [torch.from_numpy(a - b).to(dev)
+                                              for a, b in zip(corr, own)])
+        else:
+            own = self.delta_exchange.post(round_idx, np_leaves)
+        mean, total_weight, contributors = self.delta_exchange.weighted_delta(round_idx, own)
+        mean_delta = tree_unflatten(delta, [torch.from_numpy(x).to(dev) for x in mean])
+        eta = (float(total_weight) if self.config.outer_lr is None
+               else local_sgd.resolve_outer_lr(self.config.outer_lr, self._gang_size()))
+        theta2, m2 = local_sgd.outer_apply(d.theta, mean_delta, d.momentum, outer_lr=eta,
+                                           outer_momentum=self.config.outer_momentum)
+        new_p = tree_map(lambda x: x.unsqueeze(0).clone(), theta2)
+        self.state = TrainState(new_p, d._replace(theta=theta2, momentum=m2, residual=residual),
+                                self.state.step)
+        stale = [c for c in contributors if c[1] > 0]
+        self.journal.emit(
+            "delta_exchange",
+            round=int(round_idx),
+            rank=int(self.delta_exchange.rank),
+            world=int(self.delta_exchange.world),
+            contributors=[[int(r), int(age), float(w)] for r, age, w in contributors],
+            total_weight=float(total_weight),
+            outer_lr=float(eta),
+            stale_contributions=len(stale),
+            delta_dtype=self.config.delta_dtype,
+            payload_nbytes=self.delta_exchange.payload_nbytes(round_idx),
+            wall_ms=round((time.perf_counter() - t0) * 1000, 3),
+        )
+        self.metrics.counter("mailbox_rounds_total").inc()
+        if stale:
+            self.metrics.counter("stale_contributions_total").inc(len(stale))
 
     def run(self, epochs: int | None = None) -> dict:
         """The run: ``epochs`` epochs (default the config's), each
-        evaluated, under one ambient trace id."""
-        with tracing.trace(tracing.current_trace()):
-            return self._run(epochs)
+        evaluated, under one ambient trace id and the preemption contract
+        (SIGTERM/SIGINT: a stop at the next boundary with a final save);
+        returns once every save is on disk (JAX :1910-1935)."""
+        arm_stall_dump()  # $DTF_STALL_DUMP, or nothing
+        with tracing.trace(tracing.current_trace()), preemption_guard(
+            self.supervisor, enabled=self.config.handle_preemption, print_fn=self.print_fn,
+            journal=self.journal,
+        ):
+            try:
+                return self._run(epochs)
+            finally:
+                if self.supervisor is not None:
+                    self.supervisor.wait_pending()
+                    self._barrier()
+
+    def _barrier(self) -> None:
+        """On a mesh of several ranks, wait for every rank: after the
+        chief's final save has committed, so a rank that restores next
+        reads it."""
+        import torch.distributed as dist
+
+        if self.mesh is not None and self.mesh.size > 1 and dist.is_initialized():
+            dist.barrier()
 
     def _run(self, epochs: int | None = None) -> dict:
         cfg = self.config
         if cfg.compiled_run:
             return self.run_compiled(epochs)
         epochs = cfg.epochs if epochs is None else epochs
+        if cfg.epochs_per_dispatch:
+            return self._run_chunked(epochs)
         self._maybe_write_graph()
         logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
+        guard = AnomalyGuard.from_config(cfg)
         perplexity = float("nan")
-        for epoch in range(epochs):
-            if epoch == 0 and cfg.profile_dir:
+        epoch, profiled = 0, False
+        while epoch < epochs:
+            if epoch == 0 and cfg.profile_dir and not profiled:
                 from distributed_tensorflow_tpu_torch.utils import profiler
 
+                profiled = True
                 with profiler.trace(cfg.profile_dir, self.spans, device=self.device):
                     self.run_epoch(epoch, logger)
             else:
                 self.run_epoch(epoch, logger)
+            if guard is not None:
+                # Judged before the eval and the save (every rank alike).
+                cost = float(self.last_cost) if self.last_cost is not None else float("nan")
+                kind = guard.classify(cost, costs=self._epoch_costs)
+                if kind is not None:
+                    self._anomaly_rollback(guard, kind, epoch)
+                    continue  # this epoch index again, on the next window
+                guard.record(cost)
             self.metrics.counter("epochs_total").inc()
             perplexity = self.evaluate("validation")
             self._end_epoch(logger, epoch, perplexity, self.global_step)
+            if self.supervisor is not None:
+                self.supervisor.report_progress(self.global_step)
+                self._save()
+                if self.supervisor.should_stop:
+                    break
+            epoch += 1
         return self._finish(logger, perplexity)

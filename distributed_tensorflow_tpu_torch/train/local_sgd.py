@@ -52,15 +52,22 @@ Two engines, one math, both through :func:`_local_inner_step` and
   flash operator (``dtf::FlashAttention``) has no batching rule for
   ``torch.func.vmap``.
 
-The mailbox gang of the JAX module (``DeltaExchange``, ``stale_limit``) is
-a file exchange framed by the checkpoints' CRC records and is ROADMAP A8a;
-:func:`staleness_weight`, its weight of a stale delta, is here.
+The mailbox gang (JAX :772-1149): :class:`DeltaExchange` moves the outer
+round to the host for a stale-tolerant gang, one member a process: each
+member posts its (compressed) delta to a shared directory at its own
+boundary and applies the outer update from whatever peers have posted,
+weighted by :func:`staleness_weight`, never waiting. The posts are JAX's
+files: the same ``.npz`` keys, fp8 codes stored as ``uint8``, the same
+CRC32C envelope (``train/resilience.py``), so a JAX member and a port
+member on one directory read each other's posts.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch.models.gpt import _shard, make_lm_train_step
@@ -394,3 +401,266 @@ def make_lm_diloco_vmapped(model, optimizer, num_workers: int, *, sync_every: in
         return p, DiLoCoState(inner, theta, m, r, f), loss
 
     return init_state, mapped
+
+
+# ---------------------------------------------------------------------------
+# The mailbox gang: a stale-tolerant outer round through a shared directory.
+# Files commit atomically (tmp + os.replace), so a reader never sees a torn
+# payload and a member's crash leaves nothing half written.
+# ---------------------------------------------------------------------------
+
+
+def _np_encode_delta(leaves, delta_dtype):
+    """Leaves for the wire through :func:`ops.quantized.quantize_tensor`
+    (the in-graph compressed path's quantizer): ``(stored, scales,
+    dequantized)``. ``stored`` goes to disk (int8 codes, or the fp8 codes
+    viewed as uint8, as the JAX package stores them); ``dequantized`` is
+    what every reader reconstructs, returned so that the poster's residual
+    sees the wire values."""
+    if delta_dtype is None:
+        leaves = [np.asarray(x, np.float32) for x in leaves]
+        return leaves, None, leaves
+    if delta_dtype not in ("int8", "fp8"):
+        raise ValueError(f"delta_dtype must be None, 'int8', or 'fp8'; got {delta_dtype!r}")
+    from distributed_tensorflow_tpu_torch.ops.quantized import quantize_tensor
+
+    stored, scales, deq = [], [], []
+    for x in leaves:
+        q, scale = quantize_tensor(torch.from_numpy(np.asarray(x, np.float32)), delta_dtype)
+        scale = float(scale)
+        codes = q.view(torch.uint8).numpy() if delta_dtype == "fp8" else q.numpy()
+        stored.append(codes)
+        deq.append(_codes_to_f32(codes, delta_dtype) * scale)
+        scales.append(scale)
+    return stored, np.asarray(scales, np.float32), deq
+
+
+def _codes_to_f32(codes: np.ndarray, delta_dtype: str) -> np.ndarray:
+    """Stored codes as float32 (exact): int8 as they are, fp8 (e4m3, stored
+    as uint8) through torch's float8 dtype (numpy has none)."""
+    if delta_dtype == "fp8":
+        return torch.from_numpy(np.ascontiguousarray(codes)).view(
+            torch.float8_e4m3fn).float().numpy()
+    return codes.astype(np.float32)
+
+
+def _np_decode_delta(stored, scales, delta_dtype):
+    """Inverse of :func:`_np_encode_delta` on the read side."""
+    if delta_dtype is None:
+        return [np.asarray(x, np.float32) for x in stored]
+    return [_codes_to_f32(x, delta_dtype) * float(s) for x, s in zip(stored, scales)]
+
+
+class DeltaExchange:
+    """Filesystem outer-delta mailbox of a stale-tolerant DiLoCo gang (the
+    JAX ``DeltaExchange``, whose behaviour it keeps).
+
+    One instance a member (``rank`` of ``world``), all on one ``dirpath``.
+    At each outer boundary (``LMTrainer(delta_exchange=)`` drives it):
+
+    1. :meth:`post` compresses (``delta_dtype``) and publishes this
+       member's delta of round ``r`` as ``w<rank>_r<round>.npz`` and
+       returns the dequantized wire values;
+    2. :meth:`weighted_delta` takes the round's pseudo-gradient: its own
+       delta at weight 1 plus every peer post this member has not consumed
+       yet and no more than ``stale_limit`` rounds old, each weighted
+       ``1/(1 + age)`` (a post from a round ahead is age 0). Each post is
+       applied at most once (a per-peer consumed watermark); a peer with
+       nothing new does not contribute; the round never waits.
+
+    Each post garbage-collects the member's own posts past the window.
+    Every post carries a CRC32C envelope over its stored bytes, checked on
+    read: a committed post that fails it (or a broken zip) is skipped,
+    never consumed, the watermark passing it, with a ``mailbox_corrupt``
+    journal event and ``corrupt_posts`` counting it; a transient read
+    error retries at the next boundary. A post without a ``crc`` entry
+    (an older writer) is read unchecked. ``.tmp`` orphans of killed writers
+    are swept (age-guarded) at construction and at each post.
+    Failpoints: ``delta.post`` (+ its tear), ``delta.post.commit``,
+    ``delta.load``."""
+
+    _CORRUPT = object()  # _load's sentinel: committed but bad, skipped
+
+    def __init__(self, dirpath: str, rank: int, world: int, *, stale_limit: int = 0,
+                 delta_dtype: str | None = None, journal=None, metrics=None,
+                 orphan_age_s: float = 60.0):
+        from distributed_tensorflow_tpu_torch.train import resilience
+
+        if world < 1:
+            raise ValueError(f"world must be >= 1, got {world}")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank must be in [0, {world}), got {rank}")
+        if stale_limit < 0:
+            raise ValueError(f"stale_limit must be >= 0, got {stale_limit}")
+        if delta_dtype not in (None, "int8", "fp8"):
+            raise ValueError(f"delta_dtype must be None, 'int8', or 'fp8'; got {delta_dtype!r}")
+        self.dirpath = str(dirpath)
+        self.rank = int(rank)
+        self.world = int(world)
+        self.stale_limit = int(stale_limit)
+        self.delta_dtype = delta_dtype
+        self.journal = journal  # LMTrainer wires its own; None = the process's
+        self.metrics = metrics
+        self.orphan_age_s = float(orphan_age_s)
+        self.corrupt_posts = 0
+        self._consumed: dict[int, int] = {}  # per-peer consumed-round watermark
+        os.makedirs(self.dirpath, exist_ok=True)
+        resilience.sweep_tmp_orphans(self.dirpath, age_s=self.orphan_age_s)
+
+    def _emit_corrupt(self, *, file: str, reason: str, peer: int, round_idx: int):
+        self.corrupt_posts += 1
+        if self.metrics is not None:
+            self.metrics.counter("mailbox_corrupt_posts_total").inc()
+        j = self.journal
+        if j is None:
+            from distributed_tensorflow_tpu_torch.observability import journal as obs_journal
+
+            j = obs_journal.get_journal()
+        j.emit("mailbox_corrupt", mailbox="delta", file=file, reason=reason, action="skipped",
+               peer=int(peer), round=int(round_idx))
+
+    def _fname(self, rank: int, round_idx: int) -> str:
+        return f"w{rank:04d}_r{round_idx:010d}.npz"
+
+    def _scan(self) -> dict[int, list[int]]:
+        """One directory listing → ``{rank: sorted rounds}``."""
+        out: dict[int, list[int]] = {}
+        for name in os.listdir(self.dirpath):
+            if not (name.startswith("w") and name.endswith(".npz")):
+                continue
+            try:
+                rank = int(name[1:5])
+                r = int(name[7:-4])
+            except ValueError:
+                continue
+            out.setdefault(rank, []).append(r)
+        for rounds in out.values():
+            rounds.sort()
+        return out
+
+    def _rounds_of(self, rank: int) -> list[int]:
+        return self._scan().get(rank, [])
+
+    def payload_nbytes(self, round_idx: int) -> int | None:
+        """On-disk size of this member's post of ``round_idx`` (None before
+        it posts): the bytes a round puts on the wire."""
+        try:
+            return os.path.getsize(os.path.join(self.dirpath, self._fname(self.rank, round_idx)))
+        except OSError:
+            return None
+
+    @staticmethod
+    def _payload_crc(stored, scales) -> int:
+        """CRC32C over the stored arrays' bytes in order, then the scales'."""
+        from distributed_tensorflow_tpu_torch.train import resilience
+
+        blob = b"".join(np.ascontiguousarray(x).tobytes() for x in stored)
+        if scales is not None:
+            blob += np.ascontiguousarray(scales).tobytes()
+        return resilience._crc32c_bytes(blob)
+
+    def post(self, round_idx: int, leaves) -> list:
+        """Publish round ``round_idx``'s delta (numpy leaves in the dense
+        parameter order); returns the dequantized leaves as peers read
+        them."""
+        from distributed_tensorflow_tpu_torch.train import failpoints, resilience
+
+        failpoints.fire("delta.post")
+        stored, scales, deq = _np_encode_delta(leaves, self.delta_dtype)
+        payload = {f"a{i}": x for i, x in enumerate(stored)}
+        payload["n"] = np.asarray(len(stored), np.int64)
+        if scales is not None:
+            payload["scales"] = scales
+        payload["crc"] = np.asarray(self._payload_crc(stored, scales), np.int64)
+        path = os.path.join(self.dirpath, self._fname(self.rank, round_idx))
+        tmp = path + f".tmp{os.getpid()}"
+        with open(tmp, "wb") as f:
+            np.savez(f, **payload)
+        failpoints.fire("delta.post.commit")
+        os.replace(tmp, path)  # readers see all of it or nothing
+        failpoints.tear("delta.post", path)
+        # Own posts past the window (+1: a peer may be reading the oldest).
+        floor = round_idx - self.stale_limit - 1
+        for r in self._rounds_of(self.rank):
+            if r < floor:
+                try:
+                    os.remove(os.path.join(self.dirpath, self._fname(self.rank, r)))
+                except OSError:
+                    pass
+        resilience.sweep_tmp_orphans(self.dirpath, age_s=self.orphan_age_s)
+        return deq
+
+    def _load(self, rank: int, round_idx: int):
+        """A peer post, read and checked: the decoded leaves, None for a
+        transient read failure (retried at the next boundary, watermark
+        kept), or ``_CORRUPT`` for a committed post that is bad (skipped
+        for good, watermark advanced)."""
+        import zipfile
+
+        from distributed_tensorflow_tpu_torch.train import failpoints
+
+        path = os.path.join(self.dirpath, self._fname(rank, round_idx))
+        try:
+            failpoints.fire("delta.load")
+            with np.load(path) as z:
+                n = int(z["n"])
+                stored = [z[f"a{i}"] for i in range(n)]
+                scales = z["scales"] if "scales" in z.files else None
+                crc = int(z["crc"]) if "crc" in z.files else None
+        except OSError:
+            return None
+        except (KeyError, ValueError, zipfile.BadZipFile, EOFError):
+            return self._CORRUPT
+        if crc is not None and crc != self._payload_crc(stored, scales):
+            return self._CORRUPT
+        return _np_decode_delta(stored, scales, self.delta_dtype)
+
+    def gather(self, round_idx: int) -> list[tuple[int, int, float, list]]:
+        """The peers' contributions at the boundary of ``round_idx``:
+        ``[(rank, age, weight, leaves), ...]``, every post not consumed yet
+        and inside the window, each once; the watermark advances (posts
+        past the window are dropped for good). Own rank excluded."""
+        posts = self._scan()
+        out = []
+        for rank in range(self.world):
+            if rank == self.rank:
+                continue
+            floor = self._consumed.get(rank, -1)
+            consumed = floor
+            for r in posts.get(rank, []):
+                if r <= floor:
+                    continue
+                if round_idx - r > self.stale_limit:
+                    consumed = max(consumed, r)  # too old: dropped
+                    continue
+                leaves = self._load(rank, r)
+                if leaves is None:
+                    break  # transient: retried at the next boundary
+                if leaves is self._CORRUPT:
+                    consumed = max(consumed, r)
+                    self._emit_corrupt(file=self._fname(rank, r), reason="crc", peer=rank,
+                                       round_idx=r)
+                    continue
+                consumed = max(consumed, r)
+                age = max(0, round_idx - r)
+                out.append((rank, age, staleness_weight(age, self.stale_limit), leaves))
+            if consumed > floor:
+                self._consumed[rank] = consumed
+        return out
+
+    def weighted_delta(self, round_idx: int, own_leaves):
+        """The round's outer pseudo-gradient: the staleness-weighted mean of
+        its own delta (weight 1) and every admissible peer post. Returns
+        ``(leaves, total_weight, contributors)``, contributors ``[(rank,
+        age, weight), ...]`` own first; ``total_weight`` (1 + the peers'
+        weights) is what ``outer_lr=None`` scales by."""
+        own = [np.asarray(x, np.float32) for x in own_leaves]
+        peers = self.gather(round_idx)
+        total = 1.0 + sum(w for _, _, w, _ in peers)
+        acc = [x.copy() for x in own]
+        for _, _, w, leaves in peers:
+            for a, b in zip(acc, leaves):
+                a += w * b
+        mean = [a / total for a in acc]
+        contributors = [(self.rank, 0, 1.0)] + [(r, age, w) for r, age, w, _ in peers]
+        return mean, total, contributors

@@ -40,8 +40,19 @@ already on the host (the JAX trainer writes every step's cost). With
 ``TrainConfig.profile_dir``, :meth:`Trainer.run` profiles its first epoch
 (``utils/profiler.py``).
 
-Not ported yet, and refused when asked for: the supervisor and
-checkpointing, anomaly rollback and ``epochs_per_dispatch`` (ROADMAP A8a).
+Checkpoints and recovery, as the JAX trainer wires them (JAX :99-160,
+:255-300, :558-812, :961-1045): with ``TrainConfig.checkpoint_dir`` (or a
+``supervisor=``) the trainer restores the newest valid checkpoint at
+construction, across strategies through the layout sidecar and the
+canonical form (an async checkpoint's copies merged at their mean, the
+global batch of a resized world kept), saves each epoch (each dispatch) in
+JAX's layout (the dense canonical state, or async's copies stacked
+``[n, ...]``: every rank gathers, the chief writes), reports progress, stops
+at a boundary when asked, and runs ``run()`` under the preemption guard.
+``TrainConfig.max_rollbacks`` arms the anomaly rollback (``Rollback:``
+lines); ``epochs_per_dispatch`` runs the whole-run program a chunk of
+epochs a dispatch (:meth:`Trainer.run_compiled` with ``epoch_offset`` and
+``finalize``).
 """
 
 from __future__ import annotations
@@ -58,18 +69,31 @@ from distributed_tensorflow_tpu_torch.observability.metrics import TIME_MS_EDGES
 from distributed_tensorflow_tpu_torch.observability.spans import SpanRecorder
 from distributed_tensorflow_tpu_torch.ops import losses as losses_lib
 from distributed_tensorflow_tpu_torch.ops import optim as optim_lib
+from distributed_tensorflow_tpu_torch.ops.optim import tree_map
 from distributed_tensorflow_tpu_torch.parallel.strategy import (
     AsyncDataParallel,
     SingleDevice,
     Strategy,
     TrainState,
+    merge_stacked_leaf,
+)
+from distributed_tensorflow_tpu_torch.train.resilience import (
+    AnomalyError,
+    AnomalyGuard,
+    arm_stall_dump,
+    preemption_guard,
+)
+from distributed_tensorflow_tpu_torch.train.supervisor import (
+    Supervisor,
+    checkpoint_steps,
+    layout_shape,
 )
 from distributed_tensorflow_tpu_torch.utils.logging import StepLogger
+from distributed_tensorflow_tpu_torch.utils.summary import lifecycle_event
 
 # JAX Trainer keyword -> (values that switch it off, ROADMAP item).
-NOT_PORTED = {
-    "supervisor": ((None,), "A8a"),
-}
+NOT_PORTED: dict = {}
+
 
 
 class Trainer:
@@ -83,6 +107,7 @@ class Trainer:
         loss_fn=None,
         optimizer=None,
         summary_writer=None,
+        supervisor: Supervisor | None = None,
         is_chief: bool = True,
         print_fn=print,
         device=None,
@@ -124,8 +149,44 @@ class Trainer:
         if isinstance(self.strategy, AsyncDataParallel) and self.strategy.avg_every:
             self._exchange = self.strategy.make_exchange_fn()
         # The reference gave each of N workers a batch of batch_size, so N
-        # replicas consume N × batch_size a step.
+        # replicas consume N × batch_size a step; a restore across a world
+        # size change keeps the checkpoint's (_adopt_batch_policy).
         self.global_batch = self.config.batch_size * self.strategy.num_replicas
+        # Completed epochs, kept in the layout sidecar (the step counter
+        # cannot give it once async incarnations of different widths mixed).
+        self.epochs_completed = 0
+        self._world_changed = False
+
+        # Supervisor duties: restore-or-init against checkpoint_dir.
+        self.supervisor = supervisor
+        if self.supervisor is None and self.config.checkpoint_dir:
+            self.supervisor = Supervisor(
+                is_chief=is_chief,
+                checkpoint_dir=self.config.checkpoint_dir,
+                keep_last_n=self.config.keep_last_n,
+                io_retries=self.config.checkpoint_retries,
+                io_backoff=self.config.checkpoint_retry_backoff,
+                async_checkpoint=self.config.async_checkpoint,
+            )
+        self.start_step = 0
+        if self.supervisor is not None:
+            self.supervisor.attach_observability(self.journal, self.metrics, self.spans)
+            # The newest step that is not known-corrupt.
+            step = self.supervisor.newest_restorable_step()
+            src = self.supervisor.saved_layout(step) if step is not None else None
+            if src is not None and not self._layout_compatible(src):
+                # Written under another strategy's layout: read it in its
+                # shapes, fold it to the canonical form, re-lay it out.
+                raw = self.supervisor.restore_raw(step, self._disk_template(src),
+                                                  device=self.device)
+                self.state = self.strategy.from_canonical(self._canonicalize_from(raw, src))
+                self.start_step = step
+            else:
+                # verified_step: the probe above already checked its files.
+                self.state, self.start_step = self._restore_own(verified_step=step)
+            if src is not None:
+                self._adopt_batch_policy(src)
+            self.epochs_completed = self._epochs_from_restore(src)
 
         # Scanned epochs: None resolves by device, as the JAX package
         # resolves by backend (the per-batch loop pays a host round trip
@@ -141,6 +202,9 @@ class Trainer:
                 self.model, self.loss_fn, self.optimizer
             )
             self._scan_rng = np.random.default_rng(self.config.seed)
+            if self.start_step and self._world_changed and not self.config.per_worker_epoch:
+                self._fast_forward_permutations()
+        self._epoch_costs = None  # the last scanned epoch's costs (the guard reads them)
         self._stage_cache: dict = {}
         self._compiled_run_fns: dict = {}
         self._pallas_checked = False
@@ -150,6 +214,155 @@ class Trainer:
             from distributed_tensorflow_tpu_torch.utils import placement
 
             placement.describe_state(self.strategy, self.state.params, print_fn=self.print_fn)
+
+    # -- checkpoints and restores across strategies -----------------------
+
+    def _layout_compatible(self, src: dict) -> bool:
+        """True when the saved state's shapes are this strategy's: every
+        sync-family layout shares the canonical shapes; async matches only
+        async at the same replica count (the sidecar's shape keys only)."""
+        mine = self.strategy.layout_meta()
+        if mine["mode"] != "async":
+            return src.get("mode") != "async"
+        return layout_shape(src) == layout_shape(mine)
+
+    def _layout_meta(self) -> dict:
+        """The layout sidecar: the strategy's shape topology plus the
+        restore policy (world size, global batch, completed epochs)."""
+        meta = dict(self.strategy.layout_meta())
+        meta["world"] = int(self.strategy.num_replicas)
+        meta["global_batch"] = int(self.global_batch)
+        meta["epochs"] = int(self.epochs_completed)
+        return meta
+
+    def _disk_state(self) -> TrainState:
+        """The state as the checkpoint holds it, in the JAX package's layout:
+        async's copies gathered and stacked ``[n, ...]`` with every copy's
+        step count, any other strategy's canonical dense state (gathered
+        from the blocks under ZeRO or tensor parallelism). A collective:
+        every rank calls it, the chief writes."""
+        state = self.state
+        if isinstance(self.strategy, AsyncDataParallel):
+            from distributed_tensorflow_tpu_torch.ops.collectives import all_gather_raw
+
+            mesh = self.strategy.mesh
+            stack = lambda t: tree_map(  # noqa: E731
+                lambda a: all_gather_raw(a.detach().unsqueeze(0), mesh, "data", 0)
+                if isinstance(a, torch.Tensor) else a, t)
+            return TrainState(stack(state.params), stack(state.opt_state), tuple(state.step))
+        return self.strategy.to_canonical(state)
+
+    def _disk_template(self, src: dict) -> TrainState:
+        """A state of the structure (and shapes) a checkpoint written under
+        layout ``src`` holds, for this model and optimizer: the canonical
+        one, or async's stacked ``[n, ...]`` copies."""
+        params = self.model.init(self.config.seed, device="cpu")
+        opt = self.optimizer.init(params)
+        if src.get("mode") == "async":
+            n = int(src["replicas"])
+            stack = lambda t: tree_map(  # noqa: E731
+                lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))
+                if isinstance(a, torch.Tensor) else a, t)
+            return TrainState(stack(params), stack(opt), (0,) * n)
+        return TrainState(params, opt, 0)
+
+    def _from_disk(self, raw: TrainState) -> TrainState:
+        """A checkpoint of this strategy's own layout as this rank's state:
+        under async the rank's row of the stacked copies, else the
+        canonical state laid out by the strategy."""
+        if isinstance(self.strategy, AsyncDataParallel):
+            r = self.strategy.mesh.axis_index("data")
+            row = lambda t: tree_map(  # noqa: E731
+                lambda a: a[r].clone() if isinstance(a, torch.Tensor) else a, t)
+            return TrainState(row(raw.params), row(raw.opt_state), tuple(raw.step))
+        return self.strategy.from_canonical(raw)
+
+    def _restore_own(self, fresh: TrainState | None = None,
+                     verified_step: int | None = None) -> tuple[TrainState, int]:
+        """``Supervisor.prepare_or_restore`` in this strategy's own layout
+        (newest valid step first); with no checkpoint, ``fresh`` (default
+        the current state) and step 0."""
+        self.supervisor.wait_pending()
+        if not checkpoint_steps(self.supervisor.checkpoint_dir):
+            return (self.state if fresh is None else fresh), 0
+        raw, step = self.supervisor.prepare_or_restore(
+            self._disk_template(self._layout_meta()), verified_step=verified_step,
+            device=self.device)
+        return self._from_disk(raw), step
+
+    def _epochs_from_restore(self, src: dict | None) -> int:
+        """Completed epochs at the restored step: the sidecar's count, or
+        (an older sidecar) derived from the step counter."""
+        if not self.start_step:
+            return 0
+        if src is not None and src.get("epochs") is not None:
+            return int(src["epochs"])
+        spe = self.datasets.train.num_examples // max(1, self.global_batch)
+        incr = 1
+        if src is not None and src.get("mode") == "async":
+            incr = int(src.get("replicas", src.get("world", 1)))
+        return self.start_step // max(1, spe * incr)
+
+    def _adopt_batch_policy(self, src: dict) -> None:
+        """The global batch across a resize (JAX :258-308): a restore onto
+        another world size keeps the checkpoint's global batch, each
+        replica's shard growing; refused under ``per_worker_epoch`` (the
+        reference's convention ties the batch to the worker count) and when
+        the batch does not shard over the new world."""
+        saved = src.get("global_batch")
+        saved_world = src.get("world")
+        self._world_changed = (saved_world is not None
+                               and int(saved_world) != self.strategy.num_replicas)
+        if saved is None or int(saved) == self.global_batch:
+            return
+        saved = int(saved)
+        n = self.strategy.num_replicas
+        if self.config.per_worker_epoch:
+            raise ValueError(
+                f"checkpoint was written with global_batch={saved} "
+                f"(world={saved_world}) but per_worker_epoch ties the "
+                f"effective batch to the worker count (now {n}); the "
+                "reference convention cannot preserve the global batch "
+                "across a resize — resume with per_worker_epoch=False or "
+                "restore onto the original world size"
+            )
+        if saved % n:
+            raise ValueError(
+                f"checkpoint global_batch={saved} does not shard over "
+                f"{n} replicas; resume on a world size dividing it (or "
+                "accept a new trajectory by clearing the sidecar)"
+            )
+        if self.is_chief:
+            lifecycle_event("restore", print_fn=self.print_fn, journal=self.journal,
+                            global_batch=saved, from_world=saved_world, world=n,
+                            config_batch=self.config.batch_size,
+                            config_global=self.global_batch, per_replica=saved // n)
+        self.global_batch = saved
+
+    def _fast_forward_permutations(self) -> None:
+        """Replay the host permutation stream up to the restored epoch (a
+        restore across a world change only), so the resumed run draws the
+        batches the uninterrupted one would."""
+        train = self.datasets.train
+        need = (train.num_examples // self.global_batch) * self.global_batch
+        draws_per_epoch = max(1, -(-need // train.num_examples))
+        for _ in range(self.epochs_completed * draws_per_epoch):
+            self._scan_rng.permutation(train.num_examples)
+
+    def _canonicalize_from(self, state: TrainState, src: dict) -> TrainState:
+        """A source-layout state → the canonical dense form: async's copies
+        merged (``merge_stacked_leaf``) and their step counts summed."""
+        step = self.strategy.global_step(state)
+        if src.get("mode") != "async":
+            return TrainState(state.params, state.opt_state, step)
+        return TrainState(tree_map(merge_stacked_leaf, state.params),
+                          tree_map(merge_stacked_leaf, state.opt_state), step)
+
+    def _save(self) -> None:
+        """A checkpoint at the current step (every rank gathers; the chief
+        writes)."""
+        self.supervisor.save(self._disk_state(), self.strategy.global_step(self.state),
+                             layout=self._layout_meta())
 
     # -- pieces -----------------------------------------------------------
 
@@ -175,6 +388,7 @@ class Trainer:
     def run_epoch(self, epoch: int, logger: StepLogger) -> None:
         """One epoch of the eager per-batch loop: ``next_batch`` on the
         host, one step per batch; the host syncs only when a line is due."""
+        self._epoch_costs = None  # the eager path: the guard judges last_cost only
         if self._indexed_fn is not None:
             return self._run_epoch_scanned(epoch, logger)
         cfg = self.config
@@ -230,6 +444,7 @@ class Trainer:
         costs = self.spans.dispatch_fetch("epoch_scan", costs, start=mark, epoch=int(epoch))
         elapsed = time.time() - t0
         self.last_cost = costs[-1]
+        self._epoch_costs = costs  # the anomaly guard sees every step's cost
         avg_ms = elapsed * 1000 / len(costs)
         self._observe_step_time(avg_ms)
         self._emit_step_logs(costs, epoch, step_before, avg_ms, logger,
@@ -248,16 +463,29 @@ class Trainer:
         under sync), from the counter itself."""
         return (self.strategy.global_step(self.state) - step_before) // max(batch_count, 1)
 
-    def run_compiled(self, epochs: int | None = None) -> dict:
+    def run_compiled(self, epochs: int | None = None, *, epoch_offset: int = 0,
+                     finalize: bool = True) -> dict:
         """The whole run in one call (train/compiled_run.py, or the epoch
         kernel with ``engine="pallas"``): the same lines as :meth:`run`,
         emitted afterwards from the fetched ``[epochs, steps]`` costs and
-        ``[epochs]`` accuracies, with a uniform AvgTime. One trace id (the
-        caller's, when it runs inside one)."""
+        ``[epochs]`` accuracies, with a uniform AvgTime. With a supervisor
+        the dispatch ends in a save (skipped, with a ``rollback_compiled``
+        line, when a cost is not finite and the anomaly guard is armed).
+        ``epoch_offset`` shifts the epoch numbers and ``finalize=False``
+        leaves out the final line: the ``epochs_per_dispatch`` tier calls it
+        a chunk at a time (JAX :554-764). One trace id (the caller's, when
+        it runs inside one); a finalizing call returns once its save is on
+        disk."""
         with tracing.trace(tracing.current_trace()):
-            return self._run_compiled(epochs)
+            try:
+                return self._run_compiled(epochs, epoch_offset=epoch_offset, finalize=finalize)
+            finally:
+                if finalize and self.supervisor is not None:
+                    self.supervisor.wait_pending()
+                    self._barrier()
 
-    def _run_compiled(self, epochs: int | None = None) -> dict:
+    def _run_compiled(self, epochs: int | None = None, *, epoch_offset: int = 0,
+                      finalize: bool = True) -> dict:
         cfg = self.config
         epochs = cfg.epochs if epochs is None else epochs
         use_kernel = cfg.engine == "pallas"
@@ -332,20 +560,32 @@ class Trainer:
         incr = self._step_incr(step_before, epochs * batch_count)
         for epoch in range(epochs):
             self._emit_step_logs(
-                costs[epoch], epoch, step_before + epoch * batch_count * incr, avg_ms, logger,
-                step_incr=incr,
+                costs[epoch], epoch_offset + epoch, step_before + epoch * batch_count * incr,
+                avg_ms, logger, step_incr=incr,
             )
             if self.is_chief:
                 step_now = step_before + (epoch + 1) * batch_count * incr
                 logger.log_epoch(test_accuracy=float(accs[epoch]))
                 self._add_scalar("accuracy", float(accs[epoch]), step_now)
                 self.history.append({
-                    "epoch": epoch + 1,
+                    "epoch": epoch_offset + epoch + 1,
                     "accuracy": float(accs[epoch]),
                     "step": step_now,
                 })
+        self.epochs_completed += epochs
+        if self.supervisor is not None:
+            self.supervisor.report_progress(self.strategy.global_step(self.state))
+            if cfg.max_rollbacks and costs.size and not np.isfinite(costs).all():
+                # One dispatch cannot roll back inside itself; a poisoned
+                # state must not land over the last good checkpoint (run()'s
+                # per-epoch and chunked paths restore and retry).
+                if self.is_chief:
+                    lifecycle_event("rollback_compiled", print_fn=self.print_fn,
+                                    journal=self.journal)
+            else:
+                self._save()
         final_cost = float(costs[-1, -1]) if costs.size else float("nan")
-        if self.is_chief:
+        if finalize and self.is_chief:
             logger.log_final(cost=final_cost)
             self._flush_telemetry()
         return {
@@ -353,6 +593,81 @@ class Trainer:
             "final_cost": final_cost,
             "global_step": self.strategy.global_step(self.state),
         }
+
+    def _run_chunked(self, epochs: int) -> dict:
+        """The k-epochs-per-dispatch tier (``config.epochs_per_dispatch``):
+        the whole-run program a chunk at a time, with each chunk's epoch
+        lines, a checkpoint after each dispatch and ``should_stop`` at the
+        boundaries (JAX :766-819). A chunk whose last cost is not finite is
+        rolled back and retried on the next data window (NaN only: the
+        spike baseline needs run()'s per-epoch history)."""
+        import math
+
+        k = self.config.epochs_per_dispatch
+        guard = AnomalyGuard.from_config(self.config)
+        res = {"accuracy": 0.0, "final_cost": float("nan"),
+               "global_step": self.strategy.global_step(self.state)}
+        done = 0
+        while done < epochs:
+            n = min(k, epochs - done)
+            last = done + n >= epochs
+            step_before = self.strategy.global_step(self.state)
+            res = self.run_compiled(n, epoch_offset=done, finalize=last)
+            if (guard is not None and not math.isfinite(res["final_cost"])
+                    and res["global_step"] > step_before):
+                # The poisoned chunk's epochs never reached a checkpoint.
+                self.epochs_completed = max(0, self.epochs_completed - n)
+                self._anomaly_rollback(guard, "nan", done)
+                continue
+            done += n
+            if self.supervisor is not None and self.supervisor.should_stop:
+                if not last and self.is_chief:
+                    StepLogger(freq=self.config.log_frequency, print_fn=self.print_fn,
+                               journal=self.journal).log_final(cost=res["final_cost"])
+                    if self.summary_writer is not None:
+                        self.summary_writer.flush()
+                break
+        return res
+
+    def _anomaly_rollback(self, guard: AnomalyGuard, kind: str, epoch: int) -> None:
+        """Restore the newest valid checkpoint after an anomalous epoch and
+        leave the data stream where it is, so the retry trains on the next
+        window (with no checkpoint yet, the seed's fresh state). Raises
+        :class:`AnomalyError` once ``max_rollbacks`` is spent (JAX
+        :961-1012)."""
+        detected_step = self.strategy.global_step(self.state)
+        if self.supervisor is None or guard.exhausted:
+            raise AnomalyError(
+                f"anomalous cost (kind={kind}) at epoch {epoch} step "
+                f"{detected_step} with no rollback budget left "
+                f"({guard.rollbacks}/{guard.max_rollbacks} used"
+                + ("" if self.supervisor else "; no supervisor") + ")"
+            )
+        guard.rollbacks += 1
+        self.metrics.counter("rollbacks_total").inc()
+        fresh = self.strategy.init_state(self.model, self.optimizer, self.config.seed)
+        self.state, restored_step = self._restore_own(fresh)
+        self.last_cost = None
+        try:
+            side = self.supervisor.saved_layout(restored_step)
+        except ValueError:
+            side = None
+        if side is not None and side.get("epochs") is not None:
+            self.epochs_completed = int(side["epochs"])
+        if self.is_chief:
+            lifecycle_event(
+                "rollback",
+                print_fn=self.print_fn,
+                journal=self.journal,
+                writer=self.summary_writer,
+                scalar=("rollback", float(restored_step), detected_step),
+                anomaly=kind,
+                epoch=epoch,
+                detected_step=detected_step,
+                restored_step=restored_step,
+                rollback=guard.rollbacks,
+                max_rollbacks=guard.max_rollbacks,
+            )
 
     def _check_pallas_engine(self) -> None:
         """engine="pallas" runs the fused epoch kernel, which hard-codes the
@@ -501,26 +816,63 @@ class Trainer:
 
     def run(self, epochs: int | None = None) -> dict:
         """The run: ``epochs`` epochs (default the config's), each evaluated,
-        under one ambient trace id (JAX :1022-1034)."""
-        with tracing.trace(tracing.current_trace()):
-            return self._run(epochs)
+        under one ambient trace id and the preemption contract: SIGTERM or
+        SIGINT asks for a stop, the loop leaves at the next epoch (or
+        dispatch) boundary with a final save, and the process can exit 0.
+        Returns once every save is on disk (JAX :1014-1044)."""
+        arm_stall_dump()  # $DTF_STALL_DUMP, or nothing
+        with tracing.trace(tracing.current_trace()), preemption_guard(
+            self.supervisor, enabled=self.config.handle_preemption, print_fn=self.print_fn,
+            journal=self.journal,
+        ):
+            try:
+                return self._run(epochs)
+            finally:
+                if self.supervisor is not None:
+                    self.supervisor.wait_pending()
+                    self._barrier()
+
+    def _barrier(self) -> None:
+        """On several ranks, wait for every rank: after the chief's final
+        save has committed, so a rank that restores next reads it."""
+        import torch.distributed as dist
+
+        if self.strategy.mesh.size > 1 and dist.is_initialized():
+            dist.barrier()
 
     def _run(self, epochs: int | None = None) -> dict:
         cfg = self.config
         if cfg.compiled_run:
             return self.run_compiled(epochs)
         epochs = cfg.epochs if epochs is None else epochs
+        if cfg.epochs_per_dispatch:
+            return self._run_chunked(epochs)
         self._maybe_write_graph()
         logger = StepLogger(freq=cfg.log_frequency, print_fn=self.print_fn, journal=self.journal)
+        guard = AnomalyGuard.from_config(cfg)
         accuracy = 0.0
-        for epoch in range(epochs):
-            if epoch == 0 and cfg.profile_dir:
+        epoch, profiled = 0, False
+        while epoch < epochs:
+            if epoch == 0 and cfg.profile_dir and not profiled:
                 from distributed_tensorflow_tpu_torch.utils import profiler
 
+                profiled = True
                 with profiler.trace(cfg.profile_dir, self.spans, device=self.device):
                     self.run_epoch(epoch, logger)
             else:
                 self.run_epoch(epoch, logger)
+            if guard is not None:
+                # Judged before the eval and the save: an anomalous state
+                # neither reaches the checkpoints nor counts as a good
+                # epoch; every rank reaches the same verdict.
+                cost = (self.strategy.cost_scalar(self.last_cost)
+                        if self.last_cost is not None else float("nan"))
+                kind = guard.classify(cost, costs=self._epoch_costs)
+                if kind is not None:
+                    self._anomaly_rollback(guard, kind, epoch)
+                    continue  # this epoch index again, on the next window
+                guard.record(cost)
+            self.epochs_completed += 1
             self.metrics.counter("epochs_total").inc()
             # Every rank evaluates (a collective under async and ZeRO);
             # the chief logs and records it.
@@ -533,6 +885,13 @@ class Trainer:
                     "accuracy": accuracy,
                     "step": self.strategy.global_step(self.state),
                 })
+            if self.supervisor is not None:
+                # Progress first (the work is done; the save may be slow).
+                self.supervisor.report_progress(self.strategy.global_step(self.state))
+                self._save()
+                if self.supervisor.should_stop:
+                    break
+            epoch += 1
         final_cost = (
             self.strategy.cost_scalar(self.last_cost)
             if self.last_cost is not None

@@ -9,8 +9,9 @@ framing (a length and masked CRC32C) around hand-encoded ``Event`` /
 same scalars at the same wall time the records are the JAX package's byte
 for byte.
 
-The pure CRC32C table (:func:`crc32c`, ``_masked_crc``) is the only
-checksum path of the port.
+The masked CRC (``_masked_crc``) takes the port's native CRC32C
+(``runtime/native.py``) when it loads, and the pure table (:func:`crc32c`)
+otherwise, as the JAX writer does.
 
 The reference's ``FileWriter('./logs', graph=tf.get_default_graph())``
 (``tfsingle.py:69``) dumped the graph; the JAX package dumps the train
@@ -65,9 +66,22 @@ def _masked_crc_py(data: bytes) -> int:
 
 
 def _masked_crc(data: bytes) -> int:
-    """TFRecord-masked CRC32C, from the pure-Python table (the port has no
-    native runtime; the JAX package takes its native one when built)."""
-    return _masked_crc_py(data)
+    """TFRecord-masked CRC32C: the port's native runtime
+    (``runtime/native.py``, built from ``runtime/csrc/dtf_crc32c.cc``) when
+    it loads, the pure-Python table otherwise; both give the same value."""
+    global _masked_crc_impl
+    if _masked_crc_impl is None:
+        try:
+            from distributed_tensorflow_tpu_torch.runtime.native import crc32c_masked
+
+            crc32c_masked(b"probe")  # load (or build) the library now
+            _masked_crc_impl = crc32c_masked
+        except (ImportError, OSError):
+            _masked_crc_impl = _masked_crc_py
+    return _masked_crc_impl(data)
+
+
+_masked_crc_impl = None
 
 
 # ---------------------------------------------------------------------------

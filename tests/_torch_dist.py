@@ -1225,10 +1225,61 @@ _LSGD = {"dp": _lsgd_parts, "async": _lsgd_parts, "diloco": _lsgd_parts,
          "trainer": _lsgd_trainer, "convert": _lsgd_convert}
 
 
+def case_ckpt(world, inp, args):
+    """Checkpoints across LM modes on the world's ranks (``args["runs"]``):
+    each run trains its source mode on a mesh of every rank with a
+    checkpoint directory (every rank gathers, the chief writes, the ranks
+    meet after the final save), then builds its target mode on the same
+    directory, which restores there. Each side's canonical state (a
+    collective of its mesh), its layout sidecar and the target's start
+    step; for a DiLoCo target the outer state it carried."""
+    import torch
+
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.data.tokens import TokenDataset, TokenDatasets
+    from distributed_tensorflow_tpu_torch.ops import optim
+    from distributed_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    def trainer(side, ckdir):
+        ds = TokenDatasets(TokenDataset(inp["train"], seed=1), TokenDataset(inp["val"], seed=2),
+                           TokenDataset(inp["val"], seed=3))
+        mesh = None
+        if side.get("mesh"):
+            shape, names = side["mesh"]
+            mesh = make_mesh(tuple(shape), tuple(names), device="cpu")
+        cfg = TrainConfig(**{**args["config"], **side.get("config", {}), "checkpoint_dir": ckdir})
+        return LMTrainer(_gpt(args["model"]), ds, cfg, mesh=mesh, device="cpu",
+                         print_fn=lambda *a: None, optimizer=optim.make("adam", 1e-2),
+                         **side.get("trainer", {}))
+
+    def canonical(tr):
+        c = tr.to_canonical()
+        return dict(params=_np(c.params), opt=_np(c.opt_state), step=int(c.step))
+
+    out = {}
+    for run in args["runs"]:
+        ckdir = os.path.join(args["dir"], f"ck-{run['name']}")
+        src = trainer(run["src"], ckdir)
+        src.run()
+        res = dict(src=canonical(src), src_layout=src._layout_meta())
+        d = src.state.opt_state
+        if src.mode == "diloco":
+            res["src_outer"] = _np([d.theta, d.momentum])
+        dst = trainer(run["dst"], ckdir)
+        res.update(dst=canonical(dst), start_step=dst.start_step, dst_mode=dst.mode)
+        if dst.mode == "diloco":
+            e = dst.state.opt_state
+            res["dst_outer"] = _np([e.theta, e.momentum])
+        torch.distributed.barrier()
+        out[run["name"]] = res
+    return out
+
+
 CASES = {"classifiers": case_classifiers, "strategies": case_strategies, "single": case_single,
          "trainer": case_trainer, "fused": case_fused, "bootstrap": case_bootstrap,
          "sync_global": case_sync_global, "ring": case_ring, "sp": case_sp, "tp": case_tp,
-         "ep_pp": case_ep_pp, "local_sgd": case_local_sgd}
+         "ep_pp": case_ep_pp, "local_sgd": case_local_sgd, "ckpt": case_ckpt}
 NO_GROUP = ("bootstrap",)  # cases that join their own group
 
 

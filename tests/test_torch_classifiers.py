@@ -230,12 +230,14 @@ def test_importing_the_serving_stack_pulls_in_no_classifier():
 
 @pytest.mark.parametrize("what", ["cnn_specs", "lstm_specs", "sequence_parallel",
                                   "from_checkpoint", "stable_transformer", "pallas_cnn"])
-def test_refusals(what):
+def test_refusals(what, tmp_path):
     """What this slice leaves out raises naming its ROADMAP item; the
     transformer's stable loss and the fused engine on a non-MLP keep the
     JAX package's wording. The sequence-parallel forward, once refused, now
     runs: on a mesh of one rank it is the dense forward, with each of its
-    attentions."""
+    attentions. ``Predictor.from_checkpoint``, once refused, probes the
+    directory without making it and raises ``FileNotFoundError`` on none
+    (tests/test_torch_checkpoint.py restores through it)."""
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.data import mnist as tmnist
     from distributed_tensorflow_tpu_torch.inference import Predictor
@@ -280,13 +282,13 @@ def test_refusals(what):
         assert got._fields == want._fields
         assert all(tuple(b) == a for a, b in zip(got, want))
         return
-    calls = {
-        "from_checkpoint": (lambda: Predictor.from_checkpoint(build_model("cnn"), "ckpt"),
-                            "A8"),
-    }
-    fn, item = calls[what]
-    with pytest.raises(NotImplementedError, match=item):
-        fn()
+    if what == "from_checkpoint":  # ported: a missing directory is probed, never made
+        missing = str(tmp_path / "ckpt")
+        with pytest.raises(FileNotFoundError, match="no checkpoint under"):
+            Predictor.from_checkpoint(build_model("cnn"), missing)
+        assert not (tmp_path / "ckpt").exists()
+        return
+    raise AssertionError(what)
 
 
 def test_constructors_check_as_jax_does():

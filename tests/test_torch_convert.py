@@ -88,9 +88,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                                "spans", "format", "exporter", "aggregate")} <= rel
     assert {"train/failpoints.py", "utils/summary.py", "utils/profiler.py",
             "utils/sync.py", "utils/logging.py"} <= rel
+    # The checkpoint slice's modules too; none imports orbax either.
+    assert {"train/resilience.py", "train/supervisor.py", "runtime/__init__.py",
+            "runtime/native.py", "examples/resilient.py", "examples/legacy_dist.py"} <= rel
     for path in files:
         with open(path) as f:
-            tree = ast.parse(f.read(), path)
+            source = f.read()
+        tree = ast.parse(source, path)
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -100,9 +104,39 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "distributed_tensorflow_tpu"), (
+                assert top not in ("jax", "jaxlib", "distributed_tensorflow_tpu", "orbax"), (
                     f"{os.path.relpath(path, REPO)} imports {name}"
                 )
+        # Nothing loads the JAX package's native runtime.
+        assert "libdtf_runtime" not in source, os.path.relpath(path, REPO)
+
+
+def test_crc_library_builds_from_the_port_source_into_ops_build(tmp_path, monkeypatch):
+    """The host CRC32C library builds from ``runtime/csrc/dtf_crc32c.cc``
+    (the host C++ compiler, no nvcc) into ``ops/build/``, named by the
+    source's hash, and serves the CRCs here: ``backend()`` is
+    ``"native"``. A fresh build into an empty directory gives the same
+    library file name, and the bodies agree on a known value."""
+    import ctypes
+
+    from distributed_tensorflow_tpu_torch.runtime import native
+
+    assert native.backend() == "native"
+    path = native.library_path()
+    assert os.path.dirname(path) == os.path.join(REPO, "distributed_tensorflow_tpu_torch", "ops",
+                                                 "build")
+    assert os.path.basename(path).startswith("libdtf_crc32c-") and os.path.isfile(path)
+    assert native.SOURCE == os.path.join(REPO, "distributed_tensorflow_tpu_torch", "runtime",
+                                         "csrc", "dtf_crc32c.cc")
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    fresh = native.library_path()
+    native._build(fresh)
+    assert os.path.basename(fresh) == os.path.basename(path)
+    lib = ctypes.CDLL(fresh)
+    native._bind(lib)
+    assert lib.dtf_crc32c(b"123456789", 9) == 0xE3069283
+    assert native.crc32c(b"123456789") == 0xE3069283
+    assert set(native.crc32c_bodies(b"123456789").values()) == {0xE3069283}
 
 
 def test_kernel_wrappers_have_no_fallback():

@@ -6,9 +6,9 @@ same ``fire`` / ``tear`` sequences give the same hit counts, faults and
 journaled ``failpoint`` events, and the registry is JAX's name for name,
 so a ``DTF_FAILPOINTS`` schedule one package accepts the other accepts
 too. The seams whose call sites the port has (``journal.append``,
-``journal.rotate``) fire in its journal. The JAX tests of the seams that
-need the checkpoint layer (``resilience``: atomic writes, retries, orphan
-sweeps, the mailboxes, the chaos sweep) wait for that layer (ROADMAP A8a).
+``journal.rotate``) fire in its journal; the checkpoint and mailbox seams
+(``atomic.*``, ``ckpt.*``, ``delta.*``) are held in
+tests/test_torch_resilience.py and tests/test_torch_local_sgd.py.
 """
 
 from __future__ import annotations

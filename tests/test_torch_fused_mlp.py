@@ -354,6 +354,26 @@ def test_kernels_match_plain_at_the_tiling_edges_on_gpu(stream, b, in_dim, hidde
 
 
 @pytest.mark.cuda
+def test_epoch_kernel_keeps_a_nan_batch_nan_as_its_plain_version_on_gpu():
+    """A NaN batch gives a NaN cost from the epoch kernel, as from its plain
+    version (``torch.clamp``) and the JAX kernel (``jnp.maximum``): the
+    loss's max(p, eps) keeps a NaN, so the anomaly guard can read it. The
+    batches before it keep their finite costs."""
+    _cuda_or_skip()
+    from distributed_tensorflow_tpu_torch.ops import fused_mlp as fm
+
+    tree = mlp_numpy_params(seed=21)
+    xs, ys = mlp_numpy_batches(6, 100, seed=22)
+    xs[3:] = np.nan
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    _, kc = fm.fused_epoch(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    _, pc = fm.fused_epoch_plain(torch_fused(tree, "cuda"), xs, ys, learning_rate=0.001)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kc[:3]).all() and torch.isnan(kc[3:]).all()
+    assert torch.isnan(pc[3:]).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stream", ["float32", "bfloat16"])
 def test_epoch_kernel_is_deterministic_on_gpu(stream):
     """Every sum across threads and CTAs has a fixed order: two runs of the

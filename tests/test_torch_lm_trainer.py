@@ -252,7 +252,10 @@ def test_refused_trainer_knobs(name, value, item):
     by the observability slice: ``summary_writer``, ``journal`` and
     ``metrics`` (a ``SummaryWriter``, an ``EventJournal`` and a
     ``MetricsRegistry``; ``object()`` stands for the parameter only), which
-    the run writes to; ``supervisor`` is refused naming A8a."""
+    the run writes to. Lifted by the checkpoint slice: ``supervisor`` (a
+    ``train.supervisor.Supervisor``, which the run saves through) and
+    ``delta_exchange`` (a ``local_sgd.DeltaExchange``, refused outside
+    dp_mode="diloco" with JAX's wording)."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
 
     if name in ("summary_writer", "journal", "metrics"):
@@ -304,7 +307,26 @@ def test_refused_trainer_knobs(name, value, item):
             LMTrainer(_model(), _corpus(), _cfg(), device="cpu", sp_attention="dense")
         return
     if name in ("delta_exchange", "supervisor"):
-        item = "ROADMAP A8a"
+        import tempfile
+
+        from distributed_tensorflow_tpu_torch.train.local_sgd import DeltaExchange
+        from distributed_tensorflow_tpu_torch.train.supervisor import (
+            Supervisor,
+            checkpoint_steps,
+        )
+
+        with tempfile.TemporaryDirectory() as d:
+            if name == "supervisor":
+                tr = LMTrainer(_model(), _corpus(), _cfg(logs_path=""), device="cpu",
+                               print_fn=lambda *a: None, supervisor=Supervisor(checkpoint_dir=d))
+                tr.run(epochs=1)
+                assert checkpoint_steps(d) == [tr.global_step]
+            else:
+                with pytest.raises(ValueError, match="delta_exchange is the diloco mailbox "
+                                                     "gang: it requires dp_mode='diloco'"):
+                    LMTrainer(_model(), _corpus(), _cfg(), device="cpu",
+                              delta_exchange=DeltaExchange(d, 0, 1))
+        return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         LMTrainer(_model(), _corpus(), _cfg(), device="cpu", **{name: value})
 
@@ -313,11 +335,22 @@ def test_refused_trainer_knobs(name, value, item):
     (dict(epochs_per_dispatch=2), "A8"), (dict(checkpoint_dir="/tmp/ckpt"), "A8"),
     (dict(max_rollbacks=1), "A8"),
 ])
-def test_refused_config(kw, item):
+def test_refused_config(kw, item, tmp_path):
+    """Once refused naming A8a, each is taken now and acts: the chunked
+    tier, the checkpoint directory (a step saved an epoch) and the anomaly
+    guard's budget."""
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+    from distributed_tensorflow_tpu_torch.train.supervisor import checkpoint_steps
 
-    with pytest.raises(NotImplementedError, match=item):
-        LMTrainer(_model(), _corpus(), _cfg(**kw), device="cpu")
+    if "checkpoint_dir" in kw:
+        kw = dict(checkpoint_dir=str(tmp_path / "ckpt"))
+    tr = LMTrainer(_model(), _corpus(), _cfg(logs_path="", **kw), device="cpu",
+                   print_fn=lambda *a: None)
+    res = tr.run()
+    assert res["global_step"] == 2 * (_corpus().train.num_examples // 64)
+    if "checkpoint_dir" in kw:
+        assert checkpoint_steps(kw["checkpoint_dir"]) == [res["global_step"] // 2,
+                                                          res["global_step"]]
 
 
 @pytest.mark.parametrize("kw", [

@@ -33,7 +33,9 @@ within 2e-4 (four places) and perplexities within rtol 1e-4.
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -672,7 +674,9 @@ def test_diloco_mode_validation_matches_jax():
 
 
 def test_diloco_fields_have_the_jax_defaults():
-    """The six fields exist with the JAX ``TrainConfig`` defaults."""
+    """The six fields exist with the JAX ``TrainConfig`` defaults, and so
+    does the mailbox gang's ``stale_limit`` (since the checkpoint slice),
+    with every checkpoint and recovery field."""
     from distributed_tensorflow_tpu.config import TrainConfig as JConfig
     from distributed_tensorflow_tpu_torch.config import TrainConfig
 
@@ -681,14 +685,18 @@ def test_diloco_fields_have_the_jax_defaults():
     for name in ("sync_every", "outer_lr", "outer_momentum", "diloco_workers", "delta_dtype",
                  "delta_overlap"):
         assert pf[name] == jf[name], name
-    assert "stale_limit" not in pf
+    for name in ("stale_limit", "checkpoint_dir", "keep_last_n", "checkpoint_retries",
+                 "checkpoint_retry_backoff", "async_checkpoint", "handle_preemption",
+                 "max_rollbacks", "anomaly_window", "spike_threshold", "epochs_per_dispatch"):
+        assert pf[name] == jf[name], name
 
 
 def test_config_from_env_diloco_knobs(monkeypatch):
     """DTF_SYNC_EVERY, DTF_OUTER_LR (empty: the worker-count default),
     DTF_OUTER_MOMENTUM and DTF_DELTA_DTYPE (empty: off) land as JAX's
     launcher lands them; a typo names the knob; a lever on a job that is not
-    diloco fails; DTF_STALE_LIMIT is refused naming A8a."""
+    diloco fails; DTF_STALE_LIMIT, once refused, lands as JAX's launcher
+    lands it."""
     from distributed_tensorflow_tpu.config import TrainConfig as JConfig
     from distributed_tensorflow_tpu.launch import config_from_env as jenv
     from distributed_tensorflow_tpu_torch.config import TrainConfig
@@ -720,8 +728,9 @@ def test_config_from_env_diloco_knobs(monkeypatch):
         config_from_env()
     monkeypatch.setenv("DTF_DELTA_DTYPE", "")
     monkeypatch.setenv("DTF_STALE_LIMIT", "3")
-    with pytest.raises(NotImplementedError, match=r"DTF_STALE_LIMIT is not ported yet "
-                                                  r"\(ROADMAP A8a\)"):
+    assert config_from_env(base).stale_limit == jenv(jbase).stale_limit == 3
+    monkeypatch.setenv("DTF_STALE_LIMIT", "soon")
+    with pytest.raises(ValueError, match="DTF_STALE_LIMIT"):
         config_from_env(base)
 
 
@@ -741,8 +750,9 @@ def test_refused_names_raise_naming_their_item(table, name, item, monkeypatch):
     """Each name the refusal tables still hold (``config.NOT_PORTED``,
     ``launch.NOT_PORTED_ENV``, ``lm_trainer.NOT_PORTED``,
     ``trainer.NOT_PORTED``) raises ``NotImplementedError`` naming its
-    ROADMAP item, A8a or A8c (the observability slice, A8b, took its own
-    names out of every table); no dp_mode is refused any more."""
+    ROADMAP item, A8c now (the observability slice, A8b, and the checkpoint
+    slice, A8a, took their names out of every table: ``config.NOT_PORTED``
+    and both trainers' are empty); no dp_mode is refused any more."""
     from distributed_tensorflow_tpu_torch import config
     from distributed_tensorflow_tpu_torch.config import TrainConfig
     from distributed_tensorflow_tpu_torch.data.tokens import copy_corpus
@@ -751,8 +761,8 @@ def test_refused_names_raise_naming_their_item(table, name, item, monkeypatch):
     from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
-    assert item in ("A8a", "A8c")
-    assert config.DP_MODES_NOT_PORTED == {}
+    assert item == "A8c"
+    assert config.DP_MODES_NOT_PORTED == {} and config.NOT_PORTED == {}
     msg = rf"\(ROADMAP {item}\)"
     if table == "config":
         with pytest.raises(NotImplementedError, match=rf"TrainConfig.{name} is not ported yet {msg}"):
@@ -832,7 +842,8 @@ def test_diloco_state_convert_round_trip(world):
 def test_examples_lm_runs_on_the_cpu_and_refuses_a_checkpoint(monkeypatch):
     """The port's ``examples/lm.py``: one epoch of the copy task on the CPU
     prints the trainer's lines, three continuations and the copy accuracy,
-    ending in Done; ``DTF_LM_CKPT`` is refused naming A8a."""
+    ending in Done; ``DTF_LM_CKPT``, once refused, checkpoints each epoch
+    into its directory and a second run resumes from the newest step."""
     from distributed_tensorflow_tpu_torch.examples import lm
 
     lines = []
@@ -841,9 +852,17 @@ def test_examples_lm_runs_on_the_cpu_and_refuses_a_checkpoint(monkeypatch):
     assert any(x.startswith("beam-4 continuation:") for x in lines)
     assert out["global_step"] == (4096 - 2 * 256) // 64
     assert out["perplexity"] < 61
-    monkeypatch.setenv("DTF_LM_CKPT", "/nonexistent")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8a"):
-        lm.main(1, 8, "cpu", print_fn=lines.append)
+    import tempfile
+
+    from distributed_tensorflow_tpu_torch.train.supervisor import checkpoint_steps
+
+    with tempfile.TemporaryDirectory() as d:
+        monkeypatch.setenv("DTF_LM_CKPT", d)
+        first = lm.main(1, 2, "cpu", print_fn=lines.append)
+        assert checkpoint_steps(d) == [first["global_step"]] == [out["global_step"]]
+        again = lm.main(1, 2, "cpu", print_fn=lines.append)  # resumed: one more epoch
+        assert again["global_step"] == 2 * first["global_step"]
+        assert checkpoint_steps(d) == [first["global_step"], again["global_step"]]
 
 
 @pytest.mark.cuda
@@ -880,3 +899,387 @@ def test_one_device_gang_runs_the_flash_kernels_on_the_card():
     assert out["cuda"][2]["flash_fwd"] == out["cuda"][2][bwd] == 2 * 2 * 2
     close(out["cuda"][0], out["cpu"][0], 0.0, 1e-4, "copies")
     close(out["cuda"][1], out["cpu"][1], 0.0, 1e-4, "theta")
+
+
+# -- the DiLoCo mailbox gang (local_sgd.DeltaExchange; JAX tests/test_local_sgd.py:788-1465) --
+
+
+def _exchange(tmp_path, rank, world=2, **kw):
+    from distributed_tensorflow_tpu_torch.train.local_sgd import DeltaExchange
+
+    kw.setdefault("stale_limit", 2)
+    return DeltaExchange(str(tmp_path), rank, world, **kw)
+
+
+def _jexchange(tmp_path, rank, world=2, **kw):
+    from distributed_tensorflow_tpu.train.local_sgd import DeltaExchange
+
+    kw.setdefault("stale_limit", 2)
+    return DeltaExchange(str(tmp_path), rank, world, **kw)
+
+
+def _gang_corpus(seed=0):
+    from distributed_tensorflow_tpu_torch.data.tokens import copy_corpus
+
+    return copy_corpus(num=768, half_len=8, vocab=61, n_val=64, n_test=64, seed=seed)
+
+
+def _mailbox_member(tmp_path, rank, seed=0, journal=None, world=2, **cfg):
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    kw = dict(epochs=1, batch_size=64, log_frequency=10**9, logs_path="", optimizer="adam",
+              learning_rate=3e-3, dp_mode="diloco", diloco_workers=1, sync_every=5,
+              outer_lr=1.0, delta_dtype="int8", stale_limit=2)
+    kw.update(cfg)
+    return LMTrainer(GPTLM(**MODEL, compute_dtype=torch.float32), _gang_corpus(seed),
+                     TrainConfig(**kw), device="cpu", print_fn=lambda *a: None, journal=journal,
+                     delta_exchange=_exchange(tmp_path, rank, world=world,
+                                              stale_limit=kw["stale_limit"],
+                                              delta_dtype=kw["delta_dtype"]))
+
+
+class _Journal:
+    def __init__(self):
+        self.events = []
+
+    def emit(self, kind, **fields):
+        self.events.append({"kind": kind, **fields})
+        return {"kind": kind, **fields}
+
+    def flush(self):
+        pass
+
+
+def test_np_mailbox_codec_matches_jax_quantizer():
+    """The wire codec (``_np_encode_delta`` / ``_np_decode_delta``) over
+    the port's quantizer equals the in-graph quantizer's dequantized values
+    and the JAX package's codec: the same stored codes (fp8 as uint8), the
+    same scales, the same dequantized values; None is the identity."""
+    from distributed_tensorflow_tpu.train.local_sgd import _np_decode_delta as jdec
+    from distributed_tensorflow_tpu.train.local_sgd import _np_encode_delta as jenc
+    from distributed_tensorflow_tpu_torch.ops.quantized import dequantize_tensor, quantize_tensor
+    from distributed_tensorflow_tpu_torch.train.local_sgd import (
+        _np_decode_delta,
+        _np_encode_delta,
+    )
+
+    x = np.random.default_rng(5).standard_normal((16, 8)).astype(np.float32)
+    for dt in ("int8", "fp8"):
+        want = dequantize_tensor(*quantize_tensor(torch.from_numpy(x), dt)).numpy()
+        stored, scales, deq = _np_encode_delta([x], dt)
+        js, jsc, jdq = jenc([x], dt)
+        assert stored[0].dtype == js[0].dtype == (np.uint8 if dt == "fp8" else np.int8)
+        assert np.array_equal(stored[0], js[0]) and np.array_equal(scales, jsc)
+        assert np.array_equal(deq[0], want) and np.array_equal(deq[0], jdq[0])
+        assert np.array_equal(_np_decode_delta(stored, scales, dt)[0], want)
+        assert np.array_equal(jdec(stored, scales, dt)[0], want)
+    stored, scales, deq = _np_encode_delta([x], None)
+    assert scales is None and np.array_equal(deq[0], x)
+
+
+def test_delta_exchange_post_gather_weights(tmp_path):
+    a = _exchange(tmp_path, 0)
+    b = _exchange(tmp_path, 1)
+    rng = np.random.default_rng(6)
+    la = [rng.standard_normal((4, 3)).astype(np.float32)]
+    lb = [rng.standard_normal((4, 3)).astype(np.float32)]
+    a.post(0, la)
+    mean, tw, contrib = b.weighted_delta(0, lb)
+    assert contrib == [(1, 0, 1.0), (0, 0, 1.0)] and tw == 2.0
+    np.testing.assert_allclose(mean[0], (la[0] + lb[0]) / 2, rtol=1e-6)
+    mean2, tw2, contrib2 = b.weighted_delta(1, lb)  # consumed: never applied twice
+    assert contrib2 == [(1, 0, 1.0)] and tw2 == 1.0
+    np.testing.assert_allclose(mean2[0], lb[0], rtol=1e-6)
+    b2 = _exchange(tmp_path, 1)  # a fresh member sees it age-discounted
+    mean3, tw3, contrib3 = b2.weighted_delta(2, lb)
+    assert contrib3 == [(1, 0, 1.0), (0, 2, pytest.approx(1 / 3))]
+    assert tw3 == pytest.approx(1 + 1 / 3)
+    np.testing.assert_allclose(mean3[0], (lb[0] + la[0] / 3) / (1 + 1 / 3), rtol=1e-6)
+    b3 = _exchange(tmp_path, 1)  # past the window: dropped, never a stall
+    _, tw4, contrib4 = b3.weighted_delta(3, lb)
+    assert contrib4 == [(1, 0, 1.0)] and tw4 == 1.0
+    a.post(1, la)
+    a.post(2, la)
+    _, tw5, contrib5 = b.weighted_delta(2, lb)  # catch-up: each missed round once
+    assert contrib5 == [(1, 0, 1.0), (0, 1, 0.5), (0, 0, 1.0)] and tw5 == pytest.approx(2.5)
+    b.post(7, lb)
+    _, _, contrib6 = _exchange(tmp_path, 0).weighted_delta(5, la)  # ahead: age 0
+    assert (1, 0, 1.0) in contrib6
+
+
+def test_delta_exchange_quantized_wire_and_gc(tmp_path):
+    a = _exchange(tmp_path, 0, delta_dtype="int8")
+    b = _exchange(tmp_path, 1, delta_dtype="int8")
+    x = np.random.default_rng(7).standard_normal((64, 32)).astype(np.float32)
+    deq = a.post(0, [x])
+    got = b.gather(0)
+    assert [(r, age, w) for r, age, w, _ in got] == [(0, 0, 1.0)]
+    assert np.array_equal(got[0][3][0], deq[0])
+    f = _exchange(tmp_path, 1)
+    f.post(0, [x])
+    assert a.payload_nbytes(0) < 0.5 * f.payload_nbytes(0)
+    for r in range(1, 6):
+        a.post(r, [x])
+    rounds = a._rounds_of(0)
+    assert min(rounds) >= 5 - a.stale_limit - 1 and max(rounds) == 5
+    open(os.path.join(str(tmp_path), a._fname(0, 9) + ".tmp123"), "wb").close()
+    assert a._rounds_of(0) == rounds
+
+
+def test_delta_exchange_truncated_post_skipped_never_consumed(tmp_path):
+    j = _Journal()
+    a = _exchange(tmp_path, 0, stale_limit=4)
+    b = _exchange(tmp_path, 1, stale_limit=4, journal=j)
+    la = [np.full((4, 3), 2.0, np.float32)]
+    for r in range(3):
+        a.post(r, la)
+    torn = os.path.join(str(tmp_path), a._fname(0, 1))
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) // 2)
+    got = b.gather(2)
+    assert [(r, age) for r, age, _, _ in got] == [(0, 2), (0, 0)]
+    assert b.corrupt_posts == 1
+    assert j.events == [{"kind": "mailbox_corrupt", "mailbox": "delta", "file": a._fname(0, 1),
+                         "reason": "crc", "action": "skipped", "peer": 0, "round": 1}]
+    assert b.gather(2) == [] and b._consumed == {0: 2}
+
+
+def test_delta_exchange_crc_mismatch_is_corrupt(tmp_path):
+    a = _exchange(tmp_path, 0, stale_limit=2)
+    b = _exchange(tmp_path, 1, stale_limit=2)
+    x = np.arange(12, dtype=np.float32).reshape(4, 3)
+    np.savez(os.path.join(str(tmp_path), a._fname(0, 0)), a0=x, n=np.asarray(1, np.int64),
+             crc=np.asarray(a._payload_crc([x], None) ^ 1, np.int64))
+    assert b.gather(0) == []
+    assert b.corrupt_posts == 1 and b._consumed == {0: 0}
+
+
+def test_delta_exchange_legacy_post_without_crc_accepted(tmp_path):
+    a = _exchange(tmp_path, 0, stale_limit=2)
+    b = _exchange(tmp_path, 1, stale_limit=2)
+    x = np.full((4, 3), 5.0, np.float32)
+    np.savez(os.path.join(str(tmp_path), a._fname(0, 0)), a0=x, n=np.asarray(1, np.int64))
+    got = b.gather(0)
+    assert len(got) == 1 and np.array_equal(got[0][3][0], x)
+
+
+def test_delta_exchange_sweeps_orphans_and_fires_its_failpoints(tmp_path):
+    """Construction sweeps ``.tmp`` orphans older than the age guard (a
+    fresh one stays); ``delta.post:torn`` tears a committed post, which a
+    peer skips and counts; ``delta.post.commit:raise`` leaves no post."""
+    from distributed_tensorflow_tpu_torch.train import failpoints
+
+    old = os.path.join(str(tmp_path), "w0000_r0000000001.npz.tmp99")
+    fresh = os.path.join(str(tmp_path), "w0000_r0000000002.npz.tmp98")
+    for p in (old, fresh):
+        open(p, "wb").close()
+    os.utime(old, (time.time() - 3600, time.time() - 3600))
+    a = _exchange(tmp_path, 0, stale_limit=4)
+    assert not os.path.exists(old) and os.path.exists(fresh)
+    b = _exchange(tmp_path, 1, stale_limit=4)
+    x = [np.ones((8, 8), np.float32)]
+    try:
+        failpoints.configure("delta.post:torn@2")
+        for r in range(3):
+            a.post(r, x)
+        failpoints.configure("delta.post.commit:raise")
+        with pytest.raises(failpoints.FailpointError):
+            a.post(3, x)
+    finally:
+        failpoints.reset()
+    assert a._rounds_of(0) == [0, 1, 2]
+    assert [(r, age) for r, age, _, _ in b.gather(2)] == [(0, 2), (0, 0)]
+    assert b.corrupt_posts == 1
+
+
+@pytest.mark.parametrize("delta_dtype", [None, "int8", "fp8"])
+def test_posts_read_across_packages(tmp_path, delta_dtype):
+    """A post by the port read by the JAX package's ``DeltaExchange._load``
+    and the reverse: the same npz keys, the same stored codes (fp8 as
+    uint8), scales and CRC envelope, the same decoded leaves."""
+    rng = np.random.default_rng(9)
+    leaves_ = [rng.standard_normal((6, 5)).astype(np.float32),
+               rng.standard_normal(7).astype(np.float32)]
+    port = _exchange(tmp_path, 0, delta_dtype=delta_dtype)
+    jax_ = _jexchange(tmp_path, 1, delta_dtype=delta_dtype)
+    deq_p = port.post(3, leaves_)
+    deq_j = jax_.post(3, leaves_)
+    for a, b in zip(deq_p, deq_j):
+        assert np.array_equal(a, b)
+    with np.load(os.path.join(str(tmp_path), port._fname(0, 3))) as zp, \
+            np.load(os.path.join(str(tmp_path), jax_._fname(1, 3))) as zj:
+        assert sorted(zp.files) == sorted(zj.files)
+        for k in zp.files:
+            assert zp[k].dtype == zj[k].dtype and np.array_equal(zp[k], zj[k]), k
+    for reader, rank in ((jax_, 0), (port, 1)):
+        got = reader._load(rank, 3)
+        assert all(np.array_equal(a, b) for a, b in zip(got, deq_p))
+
+
+def test_trainer_mailbox_gang_members_share_rounds(tmp_path):
+    """Two members one after the other (10 steps at H=5): member 0 alone in
+    each round; member 1's first boundary takes both of member 0's posts
+    (ahead of its round: age 0, each once), its second runs alone; every
+    round journals a ``delta_exchange`` event with its payload and time,
+    and ``mailbox_rounds_total`` counts them."""
+    j = _Journal()
+    w0 = _mailbox_member(tmp_path, 0, 0, journal=j)
+    r0 = w0.run()
+    assert np.isfinite(r0["perplexity"])
+    dx0 = [e for e in j.events if e["kind"] == "delta_exchange"]
+    assert [e["round"] for e in dx0] == [0, 1]
+    assert all(e["contributors"] == [[0, 0, 1.0]] for e in dx0)
+    assert all(e["payload_nbytes"] > 0 and e["wall_ms"] >= 0 for e in dx0)
+    w1 = _mailbox_member(tmp_path, 1, 1, journal=j)
+    r1 = w1.run()
+    assert np.isfinite(r1["perplexity"])
+    dx1 = [e for e in j.events if e["kind"] == "delta_exchange" and e["rank"] == 1]
+    assert [len(e["contributors"]) for e in dx1] == [3, 1]
+    assert w1.metrics.counter("mailbox_rounds_total").value == 2
+
+
+def test_mixed_gang_of_a_jax_and_a_port_member(tmp_path):
+    """A JAX member, then a port member, on one directory: the port member
+    reads the JAX member's posts and the contributor pattern is the JAX
+    gang's ([1, 1] for the first member, [3, 1] for the second)."""
+    import jax.numpy as jnp
+    from distributed_tensorflow_tpu.config import TrainConfig as JConfig
+    from distributed_tensorflow_tpu.data import copy_corpus as jcorpus
+    from distributed_tensorflow_tpu.models.gpt import GPTLM as JGPT
+    from distributed_tensorflow_tpu.train import LMTrainer as JLM
+
+    jj, pj = _Journal(), _Journal()
+    jt = JLM(JGPT(**MODEL, compute_dtype=jnp.float32),
+             jcorpus(num=768, half_len=8, vocab=61, n_val=64, n_test=64, seed=0),
+             JConfig(epochs=1, batch_size=64, log_frequency=10**9, logs_path="",
+                     optimizer="adam", learning_rate=3e-3, dp_mode="diloco", diloco_workers=1,
+                     sync_every=5, outer_lr=1.0, delta_dtype="int8", stale_limit=2,
+                     scan_epoch=False),
+             print_fn=lambda *a: None, journal=jj,
+             delta_exchange=_jexchange(tmp_path, 0, stale_limit=2, delta_dtype="int8"))
+    jt.run()
+    _mailbox_member(tmp_path, 1, 1, journal=pj).run()
+    pat = lambda j: [len(e["contributors"]) for e in j.events  # noqa: E731
+                     if e["kind"] == "delta_exchange"]
+    assert pat(jj) == [1, 1] and pat(pj) == [3, 1]
+    second = [e for e in pj.events if e["kind"] == "delta_exchange"][0]
+    assert second["contributors"] == [[1, 0, 1.0], [0, 0, 1.0], [0, 0, 1.0]]
+
+
+def test_trainer_mailbox_default_outer_lr_scales_by_contributors(tmp_path):
+    """``outer_lr=None`` scales by the round's total weight: a member alone
+    in a world of 4 applies its delta once (η = 1)."""
+    j = _Journal()
+    tr = _mailbox_member(tmp_path, 0, journal=j, world=4, outer_lr=None, delta_dtype=None,
+                         outer_momentum=0.0)
+    theta0 = [t.clone() for t in leaves_t(tr.state.opt_state.theta)]
+    tr.run()
+    dx = [e for e in j.events if e["kind"] == "delta_exchange"]
+    assert dx and all(e["total_weight"] == 1.0 and e["outer_lr"] == 1.0 for e in dx)
+    now = leaves_t(tr.state.opt_state.theta)
+    assert all(torch.isfinite(t).all() for t in now)
+    assert max(float((a - b).abs().max()) for a, b in zip(now, theta0)) < 1.0
+
+
+def test_trainer_mailbox_validation(tmp_path):
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    ex = _exchange(tmp_path, 0, stale_limit=2, delta_dtype="int8")
+    mk = lambda cfg, e=ex: LMTrainer(  # noqa: E731
+        GPTLM(**MODEL, compute_dtype=torch.float32), _gang_corpus(), cfg, device="cpu",
+        print_fn=lambda *a: None, delta_exchange=e)
+    base = dict(epochs=1, batch_size=64)
+    with pytest.raises(ValueError, match="dp_mode='diloco'"):
+        mk(TrainConfig(**base), _exchange(tmp_path / "p", 0, stale_limit=0))
+    with pytest.raises(ValueError, match="stale_limit"):
+        mk(TrainConfig(**base, dp_mode="diloco", diloco_workers=1, delta_dtype="int8"))
+    good = TrainConfig(**base, dp_mode="diloco", diloco_workers=1, delta_dtype="int8",
+                       stale_limit=2)
+    with pytest.raises(ValueError, match="delta_dtype"):
+        mk(good.replace(delta_dtype="fp8"))
+    with pytest.raises(ValueError, match="diloco_workers=1"):
+        mk(good.replace(diloco_workers=4))
+    with pytest.raises(ValueError, match="delta_overlap"):
+        mk(good.replace(delta_overlap=True))
+    with pytest.raises(ValueError, match="epochs_per_dispatch"):
+        mk(good.replace(epochs_per_dispatch=1))
+    tr = mk(good, _exchange(tmp_path / "q", 0, stale_limit=2, delta_dtype="int8"))
+    with pytest.raises(ValueError, match="run_compiled"):
+        tr.run_compiled()
+    assert tr.delta_exchange.journal is tr.journal and tr.delta_exchange.metrics is tr.metrics
+
+
+def test_mailbox_member_checkpoints_one_copy_and_resumes(tmp_path):
+    """A mailbox member checkpoints its one stacked copy (``replicas`` 1
+    in the sidecar, JAX's meta) and a new member on the same checkpoint
+    resumes it bit for bit."""
+    ck = str(tmp_path / "ck")
+    a = _mailbox_member(tmp_path / "box", 0, checkpoint_dir=ck)
+    a.run()
+    meta = a.supervisor.saved_layout(a.supervisor.latest_step())
+    assert meta == {"mode": "diloco", "replicas": 1, "sync_every": 5, "delta_dtype": "int8",
+                    "world": 1, "global_batch": 64}
+    b = _mailbox_member(tmp_path / "box2", 0, checkpoint_dir=ck)
+    assert b.start_step == a.global_step
+    assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(leaves_t(a.state), leaves_t(b.state)))
+
+
+def _diloco_ckpt(tmp_path, **kw):
+    from distributed_tensorflow_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_tpu_torch.models.gpt import GPTLM
+    from distributed_tensorflow_tpu_torch.train.lm_trainer import LMTrainer
+
+    cfg = dict(epochs=1, batch_size=64, log_frequency=10**9, logs_path="", optimizer="adam",
+               learning_rate=3e-3, dp_mode="diloco", diloco_workers=4, sync_every=3,
+               outer_lr=1.0, outer_momentum=0.9, checkpoint_dir=str(tmp_path))
+    cfg.update(kw)
+    return LMTrainer(GPTLM(**MODEL, compute_dtype=torch.float32), _gang_corpus(),
+                     TrainConfig(**cfg), device="cpu", print_fn=lambda *a: None)
+
+
+def test_ckpt_same_world_resume_bitwise_even_under_new_sync_every(tmp_path):
+    """The one-device gang saved mid-round resumes bit for bit (copies
+    apart, momentum nonzero) under another ``sync_every`` (a policy key
+    of the sidecar, not a shape key)."""
+    a = _diloco_ckpt(tmp_path)
+    a.run()
+    assert a.supervisor.saved_layout(a.supervisor.latest_step()) == {
+        "mode": "diloco", "replicas": 4, "sync_every": 3, "world": 1, "global_batch": 64}
+    assert any(not torch.equal(x[0], x[1]) for x in leaves_t(a.state.params) if x.dim() > 1)
+    assert any(float(x.abs().max()) > 0 for x in leaves_t(a.state.opt_state.momentum))
+    b = _diloco_ckpt(tmp_path, sync_every=5)
+    assert b.start_step == a.global_step
+    assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+               for x, y in zip(leaves_t(a.state), leaves_t(b.state)))
+
+
+def test_ckpt_corrupt_sidecar_falls_back_then_fails_loud(tmp_path):
+    """The newest step's sidecar corrupt: its manifest fails, the restore
+    falls back to the step before (a warning names the skipped one); both
+    corrupt: it raises rather than start over."""
+    import warnings
+
+    a = _diloco_ckpt(tmp_path, epochs=2)
+    a.run()
+    from distributed_tensorflow_tpu_torch.train.supervisor import checkpoint_steps
+
+    steps = checkpoint_steps(str(tmp_path))
+    assert len(steps) == 2
+    with open(os.path.join(str(tmp_path), f"step_{steps[-1]}.layout.json"), "w") as f:
+        f.write("{not json")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        b = _diloco_ckpt(tmp_path)
+    assert b.start_step == steps[0]
+    assert any(f"step_{steps[-1]}" in str(x.message) for x in w)
+    with open(os.path.join(str(tmp_path), f"step_{steps[0]}.layout.json"), "w") as f:
+        f.write("{not json")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with pytest.raises(RuntimeError, match="no restorable checkpoint"):
+            _diloco_ckpt(tmp_path)

@@ -408,20 +408,19 @@ def test_lm_trainer_mode_refusals():
 def test_diloco_fields_refused_naming_a7d(field, value):
     """The JAX TrainConfig's DiLoCo fields, refused naming ROADMAP A7d until
     the local-SGD slice, are taken with dp_mode="diloco" (which is taken
-    too); the mailbox gang's ``stale_limit`` is refused naming A8a. "ep"
-    and "pp", once refused naming A7c, are taken."""
+    too), the mailbox gang's ``stale_limit`` too since the checkpoint slice
+    (and, as in JAX, only under dp_mode="diloco"). "ep" and "pp", once
+    refused naming A7c, are taken."""
     from distributed_tensorflow_tpu.config import TrainConfig as JConfig
     from distributed_tensorflow_tpu_torch.config import TrainConfig
 
     import dataclasses
 
     assert field in {f.name for f in dataclasses.fields(JConfig)}  # a JAX field
+    assert getattr(TrainConfig(dp_mode="diloco", **{field: value}), field) == value
     if field == "stale_limit":
-        with pytest.raises(NotImplementedError, match=rf"TrainConfig.{field} is not ported yet "
-                                                      r"\(ROADMAP A8a\)"):
-            TrainConfig(dp_mode="diloco", **{field: value})
-    else:
-        assert getattr(TrainConfig(dp_mode="diloco", **{field: value}), field) == value
+        with pytest.raises(ValueError, match="silently ignored"):
+            TrainConfig(**{field: value})
     assert TrainConfig(dp_mode="diloco").dp_mode == "diloco"
     assert TrainConfig(dp_mode="sp").dp_mode == "sp"
     assert TrainConfig(dp_mode="tp").dp_mode == "tp"  # lifted by the tensor-parallel slice

@@ -274,9 +274,16 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     from distributed_tensorflow_tpu_torch.train.trainer import Trainer
 
     _, tds = _pair_datasets(*small_pair)
-    for kw, item in ((dict(checkpoint_dir="/tmp/x"), "A8a"), (dict(epochs_per_dispatch=10), "A8a"),
-                     (dict(max_rollbacks=1), "A8a")):
-        with pytest.raises(NotImplementedError, match=item):
+    # Lifted by the checkpoint slice: the checkpoint fields are taken, with
+    # the JAX package's validation.
+    for kw in (dict(checkpoint_dir="/tmp/x"), dict(epochs_per_dispatch=10),
+               dict(max_rollbacks=1)):
+        assert TrainConfig(**kw).replace(**kw) == TrainConfig(**kw)
+    for kw, msg in ((dict(epochs_per_dispatch=-1), "epochs_per_dispatch"),
+                    (dict(max_rollbacks=-1), "max_rollbacks"),
+                    (dict(keep_last_n=-1), "keep_last_n"), (dict(anomaly_window=0),
+                                                            "anomaly_window")):
+        with pytest.raises(ValueError, match=msg):
             TrainConfig(**kw)
     # Lifted by the observability slice: logs_path and profile_dir keep the
     # JAX defaults ("./logs", None); "" turns the summaries off.
@@ -306,25 +313,25 @@ def test_not_ported_features_are_refused(monkeypatch, small_pair):
     res = tr.run()
     assert res["global_step"] == tds.train.num_examples // 100 and np.isfinite(res["final_cost"])
     assert out and not any(ln.startswith(("Test-Accuracy", "Final Cost")) for ln in out)
-    # Refused whatever the value, even one that switches the feature off.
-    with pytest.raises(NotImplementedError, match="A8a"):
-        TrainConfig(checkpoint_dir="")
+    assert TrainConfig(checkpoint_dir="").checkpoint_dir == ""
     with pytest.raises(TypeError):
         TrainConfig(no_such_field=1)
     with pytest.raises(ValueError, match="engine"):
         TrainConfig(engine="tpu")
-    with pytest.raises(NotImplementedError, match="A8a"):
-        Trainer(MLP(), tds, device="cpu", supervisor=object())
+    import inspect
+
+    assert "supervisor" in inspect.signature(Trainer).parameters
     # Lifted by the observability slice: the trainer takes the journal, the
     # metrics registry and the summary writer (tests/test_torch_summary.py
     # and test_torch_observability.py run them).
-    import inspect
-
     assert {"summary_writer", "journal", "metrics"} <= set(inspect.signature(Trainer).parameters)
     monkeypatch.setenv("DTF_CHECKPOINT", "/tmp/ckpt")
-    with pytest.raises(NotImplementedError, match="A8"):
-        config_from_env()
+    assert config_from_env().checkpoint_dir == "/tmp/ckpt"  # lifted by the checkpoint slice
     monkeypatch.delenv("DTF_CHECKPOINT")
+    monkeypatch.setenv("DTF_MAX_RESTARTS", "2")
+    with pytest.raises(NotImplementedError, match="A8c"):
+        config_from_env()
+    monkeypatch.delenv("DTF_MAX_RESTARTS")
     monkeypatch.setenv("DTF_EPOCHS", "3")
     monkeypatch.setenv("DTF_COMPILED", "1")
     monkeypatch.setenv("DTF_LR", "0.5")
